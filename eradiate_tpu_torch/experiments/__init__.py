@@ -1,0 +1,2 @@
+from ._core import EarthObservationExperiment, run  # noqa: F401
+from ._atmosphere import AtmosphereExperiment  # noqa: F401

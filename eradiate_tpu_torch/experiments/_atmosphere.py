@@ -1,0 +1,251 @@
+"""One-dimensional atmosphere experiment, plane-parallel mono slice.
+
+Port of ``eradiate_tpu/experiments/_atmosphere.py``: the same attrs fields
+and converters, the mono spectral context, and ``compile_scene`` for
+plane-parallel geometry (with the optional error-bounded layer merge),
+directional illumination and distant measures. Host arithmetic stays numpy
+float64 up to a single cast to float32, as in the reference; the compiled
+leaves are numpy arrays that :func:`..ops.scene_state.from_reference` ships
+to the device.
+"""
+
+from __future__ import annotations
+
+import attrs
+import numpy as np
+
+from eradiate_tpu.physics.shell_merge import (
+    adaptive_layer_groups_pp,
+    merge_layer_mean,
+    merge_layer_weighted,
+)
+from eradiate_tpu.scenes.atmosphere import (
+    Atmosphere,
+    MolecularAtmosphere,
+    atmosphere_factory,
+)
+from eradiate_tpu.scenes.geometry import PlaneParallelGeometry, SceneGeometry
+from eradiate_tpu.scenes.illumination import (
+    ConstantIllumination,
+    SpotIllumination,
+)
+from eradiate_tpu.scenes.measure import TargetPoint, TargetRectangle
+from eradiate_tpu.scenes.surface import Surface, surface_converter
+from eradiate_tpu.spectral.grid import MonoSpectralGrid
+
+from ..ops.scene_state import (
+    IlluminationArrays,
+    MediumArrays,
+    SceneArrays,
+    SceneConfig,
+    SensorArrays,
+    SurfaceArrays,
+)
+from ._core import EarthObservationExperiment, check_mode
+
+__all__ = ["AtmosphereExperiment"]
+
+
+def _atmosphere_converter(value):
+    if value is None:
+        return None
+    if isinstance(value, dict):
+        return atmosphere_factory.convert(value)
+    if isinstance(value, Atmosphere):
+        return value
+    raise TypeError(f"cannot convert {type(value)} to Atmosphere")
+
+
+def _f32(x):
+    return np.asarray(x, dtype=np.float32)
+
+
+@attrs.define(eq=False, slots=False)
+class AtmosphereExperiment(EarthObservationExperiment):
+    """1D atmosphere experiment (reference ``AtmosphereExperiment``)."""
+
+    geometry: SceneGeometry = attrs.field(
+        factory=PlaneParallelGeometry, converter=SceneGeometry.convert
+    )
+    atmosphere: Atmosphere | None = attrs.field(
+        factory=lambda: atmosphere_factory.convert({"type": "molecular"}),
+        converter=_atmosphere_converter,
+    )
+    surface: Surface | None = attrs.field(
+        default={"type": "lambertian", "reflectance": 0.5},
+        converter=lambda v: None if v is None else surface_converter(v),
+    )
+
+    def __attrs_post_init__(self):
+        # default distant-measure target: the scene origin (plane-parallel)
+        # or the sub-sensor surface point (spherical shells)
+        if self.geometry.kind == "spherical_shell":
+            z_target = self.geometry.planet_radius + self.geometry.ground_altitude
+        else:
+            z_target = self.geometry.ground_altitude
+        for m in self.measures:
+            if m.target is None and m.is_distant:
+                m.target = TargetPoint(xyz=np.array([0.0, 0.0, z_target]))
+
+    def spectral_context(self, measure) -> dict:
+        """Mono spectral context: ``{"w": wavelengths [S]}``."""
+        check_mode()
+        grid = None
+        if (
+            isinstance(self.atmosphere, MolecularAtmosphere)
+            and self.atmosphere.absorption_data is not None
+            and self.atmosphere.absorption_data.kind == "mono"
+        ):
+            grid = MonoSpectralGrid(self.atmosphere.absorption_data.wavelengths)
+        if grid is None:
+            grid = MonoSpectralGrid.default()
+        return {"w": grid.select(measure.srf).wavelengths}
+
+    def compile_scene(self, measure, spectral_ctx):
+        """Compile to (SceneArrays, SensorArrays, SceneConfig) with float32
+        numpy leaves."""
+        m = check_mode()
+        if self.geometry.kind != "plane_parallel":
+            raise NotImplementedError(
+                f"geometry {self.geometry.kind!r} is not ported yet"
+            )
+        w = np.asarray(spectral_ctx["w"], dtype=np.float64)
+        S = w.size
+        zgrid = self.geometry.zgrid
+        L = zgrid.n_layers
+
+        # Medium
+        if self.atmosphere is not None:
+            sigma_t = self.atmosphere.eval_sigma_t(w, None, zgrid)
+            albedo = self.atmosphere.eval_albedo(w, None, zgrid)
+            kinds, params, weights = self.atmosphere.eval_phase(w, zgrid)
+        else:
+            sigma_t = np.zeros((S, L))
+            albedo = np.ones((S, L))
+            kinds = ("rayleigh",)
+            params = ({"depol": np.zeros((S, L))},)
+            weights = np.ones((S, 1, L))
+
+        levels = zgrid.levels
+        tol = getattr(self.geometry, "layer_merge_tol", None)
+        if tol:
+            # plane-parallel transport is invariant in the tau coordinate,
+            # so layers merge under a slant-error bound; per-component
+            # scattering rows block merging across material boundaries
+            sigma_np = np.asarray(sigma_t, dtype=np.float64)
+            alb_np = np.asarray(albedo, dtype=np.float64)
+            w_np = np.asarray(weights, dtype=np.float64)
+            C = w_np.shape[1]
+            rows = np.concatenate(
+                [sigma_np] + [sigma_np * alb_np * w_np[:, c, :] for c in range(C)],
+                axis=0,
+            )
+            groups = adaptive_layer_groups_pp(levels, rows, tol)
+            if groups.size - 1 < sigma_np.shape[-1]:
+                dzf = np.diff(levels)
+                w_ext = sigma_np * dzf
+                w_scat = w_ext * alb_np
+                sigma_t = merge_layer_mean(sigma_np, groups, dzf)
+                albedo = merge_layer_weighted(alb_np, groups, w_ext)
+                weights = merge_layer_weighted(w_np, groups, w_scat[:, None, :])
+                L_m = groups.size - 1
+                params = tuple(
+                    {
+                        k: (
+                            merge_layer_weighted(v, groups, w_scat)
+                            if (
+                                np.ndim(v) >= 1
+                                and np.shape(v)[-1] == L
+                                and np.shape(v)[-1] != L_m
+                            )
+                            else v
+                        )
+                        for k, v in p.items()
+                    }
+                    for p in params
+                )
+                levels = levels[groups]
+
+        dz = np.diff(levels)
+        tau_np = np.concatenate(
+            [
+                np.zeros(sigma_t.shape[:-1] + (1,)),
+                np.cumsum(np.asarray(sigma_t) * dz, axis=-1),
+            ],
+            axis=-1,
+        )
+        medium = MediumArrays(
+            z_levels=_f32(levels),
+            tau_levels=_f32(tau_np),
+            albedo=_f32(albedo),
+            phase_weights=_f32(weights),
+            phase_params=tuple({k: _f32(v) for k, v in p.items()} for p in params),
+        )
+
+        # Surface
+        if self.surface is not None:
+            surf_kind = self.surface.bsdf_kind
+            sparams = {
+                k: v if isinstance(v, str) else _f32(v)
+                for k, v in self.surface.eval_bsdf_params(w).items()
+            }
+        else:
+            surf_kind = "black"
+            sparams = {}
+
+        # Illumination
+        if isinstance(self.illumination, (SpotIllumination, ConstantIllumination)):
+            raise NotImplementedError(
+                f"{type(self.illumination).__name__} is not ported yet"
+            )
+        illum = IlluminationArrays(
+            direction=_f32(self.illumination.direction),
+            irradiance=_f32(self.illumination.eval_irradiance(w)),
+            cos_cutoff=_f32(self.illumination.cos_cutoff),
+            sky_radiance=np.zeros(S, dtype=np.float32),
+        )
+        scene = SceneArrays(medium, SurfaceArrays(params=sparams), illum)
+
+        # Sensor
+        if getattr(measure, "ray_anchor", None) is not None:
+            raise NotImplementedError(
+                f"measure {type(measure).__name__} (ray anchor) is not ported yet"
+            )
+        pixel_targets = getattr(measure, "pixel_targets", None)
+        if callable(pixel_targets) and pixel_targets() is not None:
+            raise NotImplementedError(
+                f"measure {type(measure).__name__} (per-pixel targets) is not "
+                "ported yet"
+            )
+        extent = None
+        if isinstance(measure.target, TargetPoint):
+            target = measure.target.xyz
+        elif isinstance(measure.target, TargetRectangle):
+            r = measure.target
+            target = np.array([0.5 * (r.xmin + r.xmax), 0.5 * (r.ymin + r.ymax), r.z])
+            extent = np.array([r.xmax - r.xmin, r.ymax - r.ymin])
+        else:
+            target = np.zeros(3)
+        ray_offset = getattr(measure, "ray_offset", None)
+        sensor = SensorArrays(
+            directions=_f32(measure.sensor_directions()),
+            target=_f32(target),
+            ray_offset=_f32(np.nan if ray_offset is None else ray_offset),
+            target_extent=None if extent is None else _f32(extent),
+        )
+
+        integrator = self.integrator
+        config = SceneConfig(
+            geometry=self.geometry.kind,
+            surface_kind=surf_kind,
+            phase_kinds=tuple(kinds),
+            polarized=m.is_polarized,
+            max_depth=integrator.max_depth if integrator else 32,
+            rr_depth=integrator.rr_depth if integrator else 5,
+            ground_altitude=self.geometry.ground_altitude,
+            toa_altitude=self.geometry.toa_altitude,
+            has_surface=self.surface is not None,
+            sampler=measure.sampler,
+            illumination_kind="directional",
+        )
+        return scene, sensor, config

@@ -1,0 +1,167 @@
+"""Experiment core: compile each measure's scene, render it, post-process.
+
+Port of ``eradiate_tpu/experiments/_core.py`` as a single-device path (no
+mesh, no checkpoint). The result is the same ``eradiate_tpu.xr`` Dataset the
+reference returns, assembled by the reference's own jax-free
+``pipelines.logic.postprocess_measure``.
+"""
+
+from __future__ import annotations
+
+import attrs
+import numpy as np
+import torch
+
+from eradiate_tpu.core.modes import mode
+from eradiate_tpu.core.rng import root_seed_state
+from eradiate_tpu.pipelines.logic import postprocess_measure
+from eradiate_tpu.scenes.core import SceneElement
+from eradiate_tpu.scenes.illumination import (
+    DirectionalIllumination,
+    Illumination,
+    illumination_factory,
+)
+from eradiate_tpu.scenes.integrators import Integrator, integrator_factory
+from eradiate_tpu.scenes.measure import Measure, measure_factory
+from eradiate_tpu.spectral.ckd_quad import CKDQuadConfig
+
+from ..core.device import resolve_device
+from ..ops.tracer import render
+
+__all__ = ["EarthObservationExperiment", "run", "check_mode"]
+
+
+def _measures_converter(value):
+    if isinstance(value, (Measure, dict)):
+        value = [value]
+    return [measure_factory.convert(m, Measure) for m in value]
+
+
+def _illumination_converter(value):
+    return illumination_factory.convert(value, Illumination)
+
+
+def _integrator_converter(value):
+    if value == "auto" or value is None:
+        return None
+    return integrator_factory.convert(value, Integrator)
+
+
+def check_mode():
+    """The active mode, which this slice supports only as ``mono_single``."""
+    m = mode()
+    if m.id != "mono_single":
+        raise NotImplementedError(
+            f"mode {m.id!r} is not ported yet (supported: mono_single)"
+        )
+    return m
+
+
+@attrs.define(eq=False, slots=False)
+class EarthObservationExperiment(SceneElement):
+    """Experiment with directional illumination (reference
+    ``EarthObservationExperiment`` and its ``Experiment`` base)."""
+
+    measures: list = attrs.field(
+        factory=lambda: [measure_factory.convert({"type": "mdistant"})],
+        converter=_measures_converter,
+    )
+    integrator: Integrator | None = attrs.field(
+        default=None, converter=_integrator_converter
+    )
+    ckd_quad_config: CKDQuadConfig = attrs.field(
+        factory=CKDQuadConfig, converter=CKDQuadConfig.convert
+    )
+    #: results per measure id, filled by postprocess()
+    results: dict = attrs.field(factory=dict, init=False, repr=False)
+    illumination: Illumination = attrs.field(
+        factory=DirectionalIllumination, converter=_illumination_converter
+    )
+    #: maximum spectral indices compiled into one device batch
+    spectral_chunk_size: int = attrs.field(default=4096, kw_only=True)
+
+    def spectral_context(self, measure) -> dict:
+        raise NotImplementedError
+
+    def compile_scene(self, measure, spectral_ctx):
+        raise NotImplementedError
+
+    def init(self):
+        pass
+
+    def process(self, spp=None, seed_state=None, device="cuda"):
+        """Render every measure on ``device``; fills ``measure.results``
+        with the raw estimates (numpy) and the spectral context."""
+        dev = resolve_device(device)
+        seed_state = seed_state or root_seed_state
+        for measure in self.measures:
+            ctx = self.spectral_context(measure)
+            n = int(spp) if spp is not None else int(measure.spp)
+            raws = []
+            for sub_ctx in self._chunk_spectral_ctx(ctx):
+                seed = int(seed_state.next())
+                scene, sensor, config = self.compile_scene(measure, sub_ctx)
+                raw = self._render_one(scene, sensor, config, n, seed, device=dev)
+                raws.append(
+                    {
+                        k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                        for k, v in raw.items()
+                    }
+                )
+            measure.results = {"raw": self._concat_raw(raws), "spectral_ctx": ctx}
+
+    def _chunk_spectral_ctx(self, ctx):
+        S = int(np.asarray(ctx["w"]).size)
+        step = max(int(self.spectral_chunk_size), 1)
+        if S <= step:
+            yield ctx
+            return
+        for start in range(0, S, step):
+            sl = slice(start, min(start + step, S))
+            sub = dict(ctx)
+            for key in ("w", "g", "bin_index", "g_weights"):
+                if key in ctx and ctx[key] is not None:
+                    sub[key] = np.asarray(ctx[key])[sl]
+            yield sub
+
+    @staticmethod
+    def _concat_raw(raws):
+        if len(raws) == 1:
+            return raws[0]
+        out = {
+            "spp": raws[0]["spp"],
+            "iterations": sum(r["iterations"] for r in raws),
+        }
+        for key in raws[0]:
+            if key not in out:
+                out[key] = np.concatenate([np.asarray(r[key]) for r in raws], axis=0)
+        return out
+
+    def _render_one(self, scene, sensor, config, n, seed, device):
+        return render(scene, sensor, config, spp=n, seed=seed, device=device)
+
+    def postprocess(self):
+        for measure in self.measures:
+            if not measure.results:
+                continue
+            mid = measure.id or f"measure_{self.measures.index(measure)}"
+            self.results[mid] = postprocess_measure(
+                measure,
+                self.illumination,
+                measure.results["raw"],
+                measure.results["spectral_ctx"],
+                mode(),
+            )
+        return self.results
+
+
+def run(exp, spp=None, seed_state=None, device="cuda"):
+    """Run an experiment end to end on ``device`` (reference
+    ``eradiate_tpu.run`` with ``mesh=None``). Returns the first measure's
+    dataset when there is one measure, else the dict of all."""
+    exp.init()
+    exp.process(spp=spp, seed_state=seed_state, device=device)
+    exp.postprocess()
+    if len(exp.results) == 1:
+        return next(iter(exp.results.values()))
+    return exp.results

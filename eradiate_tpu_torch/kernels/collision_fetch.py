@@ -1,0 +1,124 @@
+"""Collision fetch: the CUDA kernel's wrapper and its plain twin.
+
+:func:`collision_fetch` inverts the cumulative vertical optical-depth table
+at each lane's sampled tau and fetches that layer's per-layer table values
+(albedo, phase weights, Rayleigh depolarisation for c1). For CUDA tensors it
+launches ``csrc/collision_fetch.cu``; for CPU tensors it runs
+:func:`collision_fetch_plain`. It never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+__all__ = ["collision_fetch", "collision_fetch_plain", "launches", "SMEM_BYTES"]
+
+#: Kernel launches made by :func:`collision_fetch` in this process.
+launches = 0
+
+#: Shared memory the kernel asks for is (L + 1) * 4 bytes of dynamic shared
+#: memory, within the 48 KB a launch gets without opting in.
+SMEM_BYTES = 48 * 1024
+
+_launcher = None
+
+
+def collision_fetch_plain(tau_q, z_levels, tau_levels, tables):
+    """Plain PyTorch version of the kernel (searchsorted and gathers).
+
+    ``tau_q`` [B], ``z_levels``/``tau_levels`` [L+1], ``tables`` [K, L].
+    Returns ``(z [B], layer [B] int32, fetched [K, B])``.
+    """
+    L = tables.shape[1]
+    layer = torch.clamp(
+        torch.searchsorted(tau_levels, tau_q, right=True, out_int32=True) - 1,
+        0,
+        L - 1,
+    )
+    i = layer.long()
+    t0 = tau_levels[i]
+    t1 = tau_levels[i + 1]
+    z0 = z_levels[i]
+    z1 = z_levels[i + 1]
+    frac = torch.clamp((tau_q - t0) / torch.clamp(t1 - t0, min=1e-30), 0.0, 1.0)
+    return z0 + frac * (z1 - z0), layer, tables[:, i]
+
+
+def _get_launcher():
+    global _launcher
+    if _launcher is None:
+        from ._build import library
+
+        fn = library().collision_fetch_launch
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _launcher = fn
+    return _launcher
+
+
+def _check(tau_q, z_levels, tau_levels, tables):
+    named = {"tau_q": tau_q, "z_levels": z_levels, "tau_levels": tau_levels,
+             "tables": tables}
+    for name, t in named.items():
+        if t.device != tau_q.device:
+            raise ValueError(f"{name} is on {t.device}, tau_q on {tau_q.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if tau_q.ndim != 1 or tables.ndim != 2:
+        raise ValueError("tau_q must be [B] and tables [K, L]")
+    K, L = tables.shape
+    if L < 1 or K < 1:
+        raise ValueError(f"tables must be [K >= 1, L >= 1], got {tuple(tables.shape)}")
+    if tuple(tau_levels.shape) != (L + 1,) or tuple(z_levels.shape) != (L + 1,):
+        raise ValueError(
+            f"tau_levels and z_levels must be [{L + 1}], got "
+            f"{tuple(tau_levels.shape)} and {tuple(z_levels.shape)}"
+        )
+    if (L + 1) * 4 > SMEM_BYTES:
+        raise ValueError(
+            f"{L + 1} levels need {(L + 1) * 4} bytes of shared memory; the "
+            f"kernel asks for at most {SMEM_BYTES}"
+        )
+    if tau_q.shape[0] >= 2**31:
+        raise ValueError("more than 2^31 - 1 lanes")
+
+
+def collision_fetch(tau_q, z_levels, tau_levels, tables):
+    """Search-and-fetch at each lane's sampled tau (reference
+    ``medium.collision_fetch``, with the layer tables stacked as one
+    contiguous ``[K, L]`` tensor).
+
+    Returns ``(z [B], layer [B] int32, fetched [K, B])``. CUDA tensors go
+    through the kernel (the wrapper checks device, dtype, contiguity and
+    shapes, and raises if the launch fails); CPU tensors through
+    :func:`collision_fetch_plain`.
+    """
+    global launches
+    if tau_q.device.type == "cpu":
+        return collision_fetch_plain(tau_q, z_levels, tau_levels, tables)
+    if tau_q.device.type != "cuda":
+        raise ValueError(f"collision_fetch runs on cuda or cpu, not {tau_q.device}")
+    _check(tau_q, z_levels, tau_levels, tables)
+    K, L = tables.shape
+    B = tau_q.shape[0]
+    z = torch.empty_like(tau_q)
+    layer = torch.empty(B, dtype=torch.int32, device=tau_q.device)
+    fetched = torch.empty((K, B), dtype=torch.float32, device=tau_q.device)
+    if B == 0:
+        return z, layer, fetched
+    launch = _get_launcher()
+    with torch.cuda.device(tau_q.device):
+        rc = launch(
+            tau_q.data_ptr(), z_levels.data_ptr(), tau_levels.data_ptr(),
+            tables.data_ptr(), z.data_ptr(), layer.data_ptr(),
+            fetched.data_ptr(), B, L, K,
+            torch.cuda.current_stream(tau_q.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"collision_fetch kernel launch failed: CUDA error {rc}")
+    launches += 1
+    return z, layer, fetched

@@ -1,0 +1,56 @@
+"""Layered-medium traversal primitives (plane-parallel geometry).
+
+Port of ``eradiate_tpu/ops/medium.py``, gather form (the reference's CPU
+branch): with a piecewise-constant extinction profile the cumulative
+vertical optical depth tau(z) is piecewise linear, so transmittance is
+closed form and free-flight sampling inverts tau by table search.
+
+:func:`collision_fetch` is the per-bounce search-and-fetch; it runs the
+CUDA kernel for CUDA tensors and its plain twin for CPU tensors
+(:mod:`eradiate_tpu_torch.kernels.collision_fetch`).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..kernels.collision_fetch import collision_fetch
+
+__all__ = [
+    "MU_EPS",
+    "clamp_mu",
+    "searchsorted_leq",
+    "tau_at_z",
+    "collision_fetch",
+]
+
+#: Direction cosines are clamped away from zero (reference ``MU_EPS``).
+MU_EPS = 1e-6
+
+
+def clamp_mu(mu):
+    """Clamp |mu| >= MU_EPS preserving sign (sign(0) treated as +)."""
+    s = torch.where(mu < 0.0, -1.0, 1.0)
+    return s * torch.clamp(torch.abs(mu), min=MU_EPS)
+
+
+def searchsorted_leq(table, x):
+    """Index i of the last table[i] <= x, clipped to [0, len(table) - 2]."""
+    idx = torch.searchsorted(table, x, right=True) - 1
+    return torch.clamp(idx, 0, table.shape[0] - 2)
+
+
+def _interp_tables(x, x_table, y_tables):
+    """Bracket each x in ``x_table``; return (idx, frac, [(y0, y1), ...])."""
+    idx = searchsorted_leq(x_table, x)
+    x0 = x_table[idx]
+    x1 = x_table[idx + 1]
+    ys = [(yt[idx], yt[idx + 1]) for yt in y_tables]
+    frac = torch.clamp((x - x0) / torch.clamp(x1 - x0, min=1e-30), 0.0, 1.0)
+    return idx, frac, ys
+
+
+def tau_at_z(z, z_levels, tau_levels):
+    """Interpolate tau(z); z: [...], z_levels/tau_levels: [L+1]."""
+    _, frac, ((t0, t1),) = _interp_tables(z, z_levels, (tau_levels,))
+    return t0 + frac * (t1 - t0)

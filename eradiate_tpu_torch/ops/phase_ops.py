@@ -1,0 +1,157 @@
+"""Phase function evaluation and sampling, batched over lanes.
+
+Port of the parts of ``eradiate_tpu/ops/phase_ops.py`` that the
+plane-parallel tracer runs, for the ``rayleigh`` kind. The reference
+``vmap``s its per-path functions; here every function takes a leading lane
+axis: blend weights are ``[B, C]``, fetched layer parameters ``[B]``.
+
+Conventions: ``cos_theta`` is the cosine between the incident and the
+scattered propagation directions; phase functions integrate to 1 over the
+sphere [1/sr]; sampling is exact (importance weight 1).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .fastmath import cos_sin_2pi
+
+__all__ = [
+    "ortho_frame",
+    "direction_from_cos_u",
+    "rayleigh_eval",
+    "rayleigh_sample_cos",
+    "layer_param_slots",
+    "rebuild_fetched",
+    "phase_eval_at",
+    "phase_sample_at",
+    "check_phase_kinds",
+]
+
+_SUPPORTED_KINDS = ("rayleigh",)
+
+
+def check_phase_kinds(phase_kinds):
+    """Raise ``NotImplementedError`` for a component kind the port lacks."""
+    for kind in phase_kinds:
+        if kind not in _SUPPORTED_KINDS:
+            raise NotImplementedError(
+                f"phase kind {kind!r} is not ported yet (supported: "
+                f"{', '.join(_SUPPORTED_KINDS)})"
+            )
+
+
+def ortho_frame(d):
+    """Branchless orthonormal basis around unit vectors ``d`` [..., 3]
+    (Duff et al. 2017); returns (t1, t2) with (t1, t2, d) right-handed."""
+    d0, d1, z = d[..., 0], d[..., 1], d[..., 2]
+    sign = torch.where(z >= 0.0, 1.0, -1.0)
+    a = torch.full_like(z, -1.0) / (sign + z)
+    b = d0 * d1 * a
+    t1 = torch.stack([1.0 + sign * (d0 * d0) * a, sign * b, -sign * d0], dim=-1)
+    t2 = torch.stack([b, sign + (d1 * d1) * a, -d1], dim=-1)
+    return t1, t2
+
+
+def direction_from_cos_u(d_in, cos_theta, u_phi):
+    """Scattered directions at (cos_theta, phi = 2*pi*u_phi) around
+    ``d_in`` [B, 3]."""
+    t1, t2 = ortho_frame(d_in)
+    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, 0.0, 1.0))
+    cp, sp = cos_sin_2pi(u_phi)
+    return (
+        t1 * (sin_theta * cp)[..., None]
+        + t2 * (sin_theta * sp)[..., None]
+        + d_in * cos_theta[..., None]
+    )
+
+
+def _rayleigh_ab(depol):
+    """(a, b) of p ∝ a + b cos^2 with gamma = depol / (2 - depol)."""
+    gamma = depol / (2.0 - depol)
+    return 1.0 + 3.0 * gamma, 1.0 - gamma
+
+
+def rayleigh_eval(depol, cos_theta):
+    a, b = _rayleigh_ab(depol)
+    denom = (16.0 * math.pi) * (1.0 + 2.0 * (depol / (2.0 - depol)))
+    norm = torch.full_like(denom, 3.0) / denom
+    return norm * (a + b * cos_theta * cos_theta)
+
+
+def _cbrt(t):
+    """Real cube root (torch has no ``cbrt``)."""
+    return torch.sign(t) * torch.pow(torch.abs(t), 1.0 / 3.0)
+
+
+def rayleigh_sample_cos(depol, u):
+    """Exact inverse-CDF sample of cos_theta from a + b cos^2: a uniform
+    component of mass 2a and a cubic one of mass 2b/3."""
+    a, b = _rayleigh_ab(depol)
+    w_uniform = (2.0 * a) / (2.0 * a + 2.0 * b / 3.0)
+    t = 2.0 * u[..., 1] - 1.0
+    return torch.where(u[..., 0] < w_uniform, t, _cbrt(t))
+
+
+def layer_param_slots(phase_kinds, phase_params):
+    """Per-layer parameter tables the components index by layer, and their
+    (component, name) slots; the tables ride the collision fetch."""
+    tables, slots = [], []
+    for c, kind in enumerate(phase_kinds):
+        if kind == "rayleigh":
+            tables.append(phase_params[c]["depol"])
+            slots.append((c, "depol"))
+    return tables, slots
+
+
+def rebuild_fetched(phase_kinds, slots, fetched):
+    """Arrange fetched per-lane values into per-component dicts."""
+    at = [dict() for _ in phase_kinds]
+    for (c, name), val in zip(slots, fetched):
+        at[c][name] = val
+    return tuple(at)
+
+
+def _component_eval_at(kind, at, cos_theta):
+    if kind == "rayleigh":
+        return rayleigh_eval(at["depol"], cos_theta)
+    raise NotImplementedError(f"phase kind {kind!r} is not ported yet")
+
+
+def _component_sample_cos_at(kind, at, u):
+    if kind == "rayleigh":
+        return rayleigh_sample_cos(at["depol"], u)
+    raise NotImplementedError(f"phase kind {kind!r} is not ported yet")
+
+
+def phase_eval_at(phase_kinds, weights_at, params_at, cos_theta):
+    """Blend-weighted phase value; ``weights_at`` [B, C]."""
+    total = weights_at[:, 0] * _component_eval_at(
+        phase_kinds[0], params_at[0], cos_theta
+    )
+    for c in range(1, len(phase_kinds)):
+        total = total + weights_at[:, c] * _component_eval_at(
+            phase_kinds[c], params_at[c], cos_theta
+        )
+    return total
+
+
+def phase_sample_at(phase_kinds, weights_at, params_at, d_in, u_sel, u_cos, u_phi):
+    """Sample scattered directions from the blend: pick a component by
+    weight, sample its cosine exactly, then the azimuth."""
+    total = weights_at[:, 0]
+    for c in range(1, len(phase_kinds)):
+        total = total + weights_at[:, c]
+    total = torch.clamp(total, min=1e-30)
+    cos_theta = torch.zeros_like(u_sel)
+    cdf = torch.zeros_like(u_sel)
+    prev_hit = torch.zeros_like(u_sel, dtype=torch.bool)
+    for c, kind in enumerate(phase_kinds):
+        cdf = cdf + weights_at[:, c] / total
+        cos_c = _component_sample_cos_at(kind, params_at[c], u_cos)
+        hit = u_sel < cdf
+        cos_theta = torch.where(hit & ~prev_hit, cos_c, cos_theta)
+        prev_hit = hit
+    return direction_from_cos_u(d_in, cos_theta, u_phi)

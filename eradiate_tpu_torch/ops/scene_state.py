@@ -1,0 +1,148 @@
+"""Compiled scene state: the tensors the port's tracer consumes.
+
+Port of ``eradiate_tpu/ops/scene_state.py``: the same classes, field names
+and defaults, as plain dataclasses of tensors instead of JAX pytrees.
+:func:`from_reference` is the one place where compiled arrays cross onto the
+device, whether they come from the JAX package's ``compile_scene`` or from
+the port's own host-side compile (numpy leaves either way).
+
+Shape conventions: ``S`` spectral rows, ``L`` layers, ``C`` phase
+components, ``N`` sensor directions. Lengths in km, sigma in km^-1.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+__all__ = [
+    "MediumArrays",
+    "SurfaceArrays",
+    "IlluminationArrays",
+    "SensorArrays",
+    "SceneArrays",
+    "SceneConfig",
+    "from_reference",
+]
+
+
+@dataclasses.dataclass
+class MediumArrays:
+    """Layered 1D medium; ``tau_levels[s, i]`` is the cumulative vertical
+    optical depth from the bottom up to level ``i``."""
+
+    z_levels: Any  # [L+1]
+    tau_levels: Any  # [S, L+1]
+    albedo: Any  # [S, L]
+    phase_weights: Any  # [S, C, L]
+    phase_params: Any  # tuple of per-component dicts (rows: [S, ...])
+
+
+@dataclasses.dataclass
+class SurfaceArrays:
+    """Surface BSDF parameters: dict name -> [S] tensor."""
+
+    params: Any
+
+
+@dataclasses.dataclass
+class IlluminationArrays:
+    """Directional illumination; ``direction`` points down into the scene."""
+
+    direction: Any  # [3]
+    irradiance: Any  # [S]
+    cos_cutoff: Any  # scalar
+    sky_radiance: Any = 0.0  # [S]
+    position: Any = None
+
+
+@dataclasses.dataclass
+class SensorArrays:
+    """Distant sensor bank; ``directions`` point toward the sensor."""
+
+    directions: Any  # [N, 3]
+    target: Any  # [3] or [N, 3]
+    ray_offset: Any  # scalar, NaN = at TOA
+    target_extent: Any = None  # [2] or [N, 2], km
+
+
+@dataclasses.dataclass
+class SceneArrays:
+    medium: MediumArrays
+    surface: SurfaceArrays
+    illumination: IlluminationArrays
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneConfig:
+    """Static scene configuration (reference ``SceneConfig``)."""
+
+    geometry: str = "plane_parallel"
+    surface_kind: str = "lambertian"
+    phase_kinds: tuple = ("rayleigh",)
+    polarized: bool = False
+    max_depth: int = 32
+    rr_depth: int = 5
+    planet_radius: float = 6378.1
+    ground_altitude: float = 0.0
+    toa_altitude: float = 120.0
+    has_surface: bool = True
+    lr_flight: bool = False
+    sensor_at_toa: bool = True
+    sampler: str = "independent"
+    illumination_kind: str = "directional"
+    rng: str = "pcg4d"
+
+
+def _tensor(x, device):
+    """One leaf to the device: floating data as float32, strings kept."""
+    if x is None or isinstance(x, str):
+        return x
+    a = np.asarray(x)
+    if a.dtype.kind == "f":
+        a = a.astype(np.float32, copy=False)
+    return torch.tensor(a, device=device)
+
+
+def from_reference(scene, sensor, config, device):
+    """Turn a compiled scene into the port's tensors on ``device``.
+
+    ``scene``/``sensor``/``config`` may be the JAX package's
+    ``SceneArrays``/``SensorArrays``/``SceneConfig`` or the port's own; only
+    field names are read, and every leaf goes through ``np.asarray``.
+    Floating leaves become float32 (the port runs single precision only).
+    """
+    med = scene.medium
+    medium = MediumArrays(
+        z_levels=_tensor(med.z_levels, device),
+        tau_levels=_tensor(med.tau_levels, device),
+        albedo=_tensor(med.albedo, device),
+        phase_weights=_tensor(med.phase_weights, device),
+        phase_params=tuple(
+            {k: _tensor(v, device) for k, v in p.items()} for p in med.phase_params
+        ),
+    )
+    surface = SurfaceArrays(
+        params={k: _tensor(v, device) for k, v in scene.surface.params.items()}
+    )
+    il = scene.illumination
+    illumination = IlluminationArrays(
+        direction=_tensor(il.direction, device),
+        irradiance=_tensor(il.irradiance, device),
+        cos_cutoff=_tensor(il.cos_cutoff, device),
+        sky_radiance=_tensor(il.sky_radiance, device),
+        position=_tensor(il.position, device),
+    )
+    sensor_t = SensorArrays(
+        directions=_tensor(sensor.directions, device),
+        target=_tensor(sensor.target, device),
+        ray_offset=_tensor(sensor.ray_offset, device),
+        target_extent=_tensor(sensor.target_extent, device),
+    )
+    config_t = SceneConfig(
+        **{f.name: getattr(config, f.name) for f in dataclasses.fields(SceneConfig)}
+    )
+    return SceneArrays(medium, surface, illumination), sensor_t, config_t

@@ -1,0 +1,387 @@
+"""Regenerative wavefront path tracer, plane-parallel geometry.
+
+Port of ``eradiate_tpu/ops/tracer.py`` for the ``independent`` sampler:
+exact free-flight sampling by inverting the cumulative vertical optical
+depth (one collision fetch per bounce), next-event estimation toward the
+directional emitter, Russian roulette, and path regeneration so that a lane
+starts its next sample the moment one ends.
+
+The reference's ``while_loop`` is an eager Python loop here. Every update in
+the loop body is gated by ``active``, ``path_end`` or ``regen``, so a lane
+whose quota is done is left unchanged by further iterations; the loop
+therefore reads ``done`` on the host only every ``check_every`` iterations
+(one device sync each) without changing the result.
+
+Random numbers follow the reference bit for bit: threefry row and chunk keys
+on the host (:mod:`..core.threefry`), pcg4d per-sample keys and per-bounce
+uniforms on the device (:mod:`.fastrng`). Each sample's stream depends only
+on (seed, spectral row, pixel, global sample id, depth), so the estimate
+does not depend on the lane count.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import threefry
+from ..core.device import resolve_device
+from ..core.warp import square_to_uniform_cone
+from .bsdf_ops import SUPPORTED_BSDFS, bsdf_eval, bsdf_sample_from_uniforms
+from .fastrng import bounce_uniforms, derive_keys, origin_uniforms
+from .medium import clamp_mu, collision_fetch, tau_at_z
+from .phase_ops import (
+    check_phase_kinds,
+    layer_param_slots,
+    ortho_frame,
+    phase_eval_at,
+    phase_sample_at,
+    rebuild_fetched,
+)
+from .scene_state import (
+    IlluminationArrays,
+    MediumArrays,
+    SurfaceArrays,
+    from_reference,
+)
+
+__all__ = ["render", "trace_paths_regen", "lane_partition"]
+
+#: Lane-count target per device type. CPU keeps the reference's 2^14 so that
+#: CPU runs decompose like the reference's. On CUDA the eager loop costs
+#: about 9 ms of host time per iteration whatever the lane count, so lanes
+#: are added until the device time per iteration matches it: 2^21 was the
+#: fastest of 2^16..2^23 for c1 on an H100 (PERF.md, "Layers").
+REGEN_LANES_TARGET = {"cpu": 2**14, "cuda": 2**21}
+
+#: Minimum samples per lane before extra lanes stop paying (reference
+#: ``_QUOTA_FLOOR``).
+_QUOTA_FLOOR = 8
+
+#: Loop iterations between host reads of the all-lanes-done flag.
+CHECK_EVERY = 16
+
+
+def _make_bounce(config, medium_row, surface_row, illum_row):
+    """Per-bounce transition shared by every lane: returns
+    ``bounce(depth, z, tau_here, xy, d, beta, keys)`` ->
+    ``(contribution, z', tau', xy', d', beta', alive')``; updates are
+    unconditional (the caller masks finished lanes)."""
+    z_levels = medium_row.z_levels
+    tau_levels = medium_row.tau_levels
+    tau_top = tau_levels[-1]
+    z_bottom = z_levels[0]
+
+    w_sun = -illum_row.direction  # unit vector toward the sun
+    E_sun = illum_row.irradiance
+    L_sky = illum_row.sky_radiance
+    cos_cutoff = illum_row.cos_cutoff
+    t1_sun, t2_sun = ortho_frame(w_sun)
+
+    C = len(config.phase_kinds)
+    param_tables, param_slots = layer_param_slots(
+        config.phase_kinds, medium_row.phase_params
+    )
+    # albedo, blend weights and layer-indexed phase parameters, fetched in
+    # one kernel launch per bounce
+    fetch_tables = torch.stack(
+        [medium_row.albedo]
+        + [medium_row.phase_weights[c] for c in range(C)]
+        + param_tables
+    ).contiguous()
+
+    def bounce(depth, z, tau_here, xy, d, beta, keys):
+        U = bounce_uniforms(keys, depth, 10)
+        u_dist = U[:, 0]
+        u_sun = U[:, 1:3]
+        u_ph_sel, u_ph_cos, u_ph_phi = U[:, 3], U[:, 4:6], U[:, 6]
+        u_srf = U[:, 7:9]
+        u_rr = U[:, 9]
+
+        # cone-sampled directions toward the (possibly finite) sun
+        local = square_to_uniform_cone(u_sun, cos_cutoff)
+        w_nee = (
+            t1_sun[None, :] * local[:, 0:1]
+            + t2_sun[None, :] * local[:, 1:2]
+            + w_sun[None, :] * local[:, 2:3]
+        )
+        mu_nee = clamp_mu(w_nee[:, 2])
+
+        mu = clamp_mu(d[:, 2])
+        tau_exit = torch.where(mu > 0.0, (tau_top - tau_here) / mu, tau_here / (-mu))
+        tau_s = -torch.log1p(-u_dist)
+        collide = tau_s < tau_exit
+
+        # ---- volume collision ------------------------------------------
+        tau_new = torch.minimum(torch.clamp(tau_here + mu * tau_s, min=0.0), tau_top)
+        z_col, _, fetched = collision_fetch(tau_new, z_levels, tau_levels, fetch_tables)
+        albedo_col = fetched[0]
+        weights_at = fetched[1 : 1 + C].T  # [B, C]
+        params_at = rebuild_fetched(config.phase_kinds, param_slots, fetched[1 + C :])
+        s_col = (z_col - z) / mu
+        xy_col = xy + d[:, :2] * s_col[:, None]
+
+        # NEE: the collision's vertical tau is tau_new, so the sun-path
+        # transmittance is closed form
+        cos_nee = w_nee[:, 0] * d[:, 0] + w_nee[:, 1] * d[:, 1] + w_nee[:, 2] * d[:, 2]
+        p_nee = phase_eval_at(config.phase_kinds, weights_at, params_at, cos_nee)
+        T_sun_col = torch.exp(-(tau_top - tau_new) / mu_nee)
+        L_col = beta * albedo_col * p_nee * T_sun_col * E_sun
+        d_col = phase_sample_at(
+            config.phase_kinds, weights_at, params_at, d, u_ph_sel, u_ph_cos,
+            u_ph_phi,
+        )
+        beta_col = beta * albedo_col
+
+        # ---- surface hit ------------------------------------------------
+        hit_surface = (~collide) & (mu < 0.0) & config.has_surface
+        s_surf = (z_bottom - z) / mu
+        xy_surf = xy + d[:, :2] * s_surf[:, None]
+        wo = -d
+        T_sun_bottom = torch.exp(-tau_top / mu_nee)
+        f_nee = bsdf_eval(config.surface_kind, surface_row.params, w_nee, wo)
+        L_surf = beta * f_nee * mu_nee * T_sun_bottom * E_sun
+        d_surf, w_surf = bsdf_sample_from_uniforms(
+            config.surface_kind, surface_row.params, wo, u_srf
+        )
+        beta_surf = beta * w_surf
+
+        # ---- combine ----------------------------------------------------
+        contribution = torch.where(
+            collide, L_col, torch.where(hit_surface, L_surf, beta * L_sky)
+        )
+        z2 = torch.where(collide, z_col, z_bottom)
+        tau2 = torch.where(collide, tau_new, 0.0)
+        xy2 = torch.where(collide[:, None], xy_col, xy_surf)
+        d2 = torch.where(collide[:, None], d_col, d_surf)
+        beta2 = torch.where(collide, beta_col, torch.where(hit_surface, beta_surf, 0.0))
+        alive2 = (collide | hit_surface) & (beta2 > 0.0)
+
+        # ---- Russian roulette ------------------------------------------
+        do_rr = depth >= config.rr_depth
+        q = torch.clamp(beta2, 0.0, 0.95)
+        survive = u_rr < q
+        beta2 = torch.where(do_rr & alive2 & survive, beta2 / q, beta2)
+        alive2 = alive2 & (survive | ~do_rr)
+        return contribution, z2, tau2, xy2, d2, beta2, alive2
+
+    return bounce
+
+
+def trace_paths_regen(
+    config, medium_row, surface_row, illum_row, init_z, init_xy, init_d,
+    row_key, lane_first, quota, ext=None, check_every=CHECK_EVERY,
+):
+    """Regenerative trace: lane ``l`` renders samples ``lane_first[l] ..
+    lane_first[l] + quota[l] - 1`` of its pixel.
+
+    ``init_z``/``init_xy``/``init_d`` are per-lane ray anchors, ``row_key``
+    the row's chunk key ``[2]``, ``ext`` [B, 2] an optional per-sample
+    origin jitter rectangle. Returns ``(L_sum, m2_sum, iterations)``: the
+    per-lane sums of sample contributions and of their squares, and the
+    number of bounce iterations run.
+    """
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    B = init_z.shape[0]
+    dev = init_z.device
+    bounce = _make_bounce(config, medium_row, surface_row, illum_row)
+    tau0 = tau_at_z(init_z, medium_row.z_levels, medium_row.tau_levels)
+
+    def origin_xy(keys):
+        if ext is None:
+            return init_xy
+        return init_xy + (origin_uniforms(keys, 2) - 0.5) * ext
+
+    s_local = torch.zeros(B, dtype=torch.int64, device=dev)
+    depth = torch.zeros(B, dtype=torch.int64, device=dev)
+    keys = derive_keys(row_key, lane_first)
+    z, tau_here, xy, d = init_z, tau0, origin_xy(keys), init_d
+    beta = torch.ones_like(init_z)
+    L_cur = torch.zeros_like(init_z)
+    L_sum = torch.zeros_like(init_z)
+    m2_sum = torch.zeros_like(init_z)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+
+    iterations = 0
+    while True:
+        contribution, z2, tau2, xy2, d2, beta2, alive2 = bounce(
+            depth, z, tau_here, xy, d, beta, keys
+        )
+        active = ~done
+        L_cur = L_cur + torch.where(active, contribution, 0.0)
+        depth = depth + 1
+        # a path ends on absorption, escape, roulette or the depth cap
+        path_end = active & (~alive2 | (depth >= config.max_depth))
+
+        L_sum = L_sum + torch.where(path_end, L_cur, 0.0)
+        m2_sum = m2_sum + torch.where(path_end, L_cur * L_cur, 0.0)
+        s_local = s_local + path_end
+        done = done | (s_local >= quota)
+
+        # regenerate: fresh path for the lane's next sample
+        regen = path_end & ~done
+        keys_new = derive_keys(row_key, lane_first + s_local)
+        keys = torch.where(regen[:, None], keys_new, keys)
+        z = torch.where(regen, init_z, z2)
+        tau_here = torch.where(regen, tau0, tau2)
+        xy = torch.where(regen[:, None], origin_xy(keys_new), xy2)
+        d = torch.where(regen[:, None], init_d, d2)
+        beta = torch.where(regen, 1.0, beta2)
+        L_cur = torch.where(path_end, 0.0, L_cur)
+        depth = torch.where(regen, 0, depth)
+
+        iterations += 1
+        if iterations % check_every == 0 and bool(done.all()):
+            return L_sum, m2_sum, iterations
+
+
+def _lane_plan(n_pix, spp, lanes_target):
+    """(lanes_per_pixel, max quota) for the regenerative tracer."""
+    lp = max(1, min(spp, lanes_target // max(n_pix, 1)))
+    lp = min(lp, max(1, spp // _QUOTA_FLOOR))
+    return lp, -(-spp // lp)
+
+
+def lane_partition(n_pix, spp, lanes_target, device):
+    """Exact-spp lane partition: ``(lp, pix, slot, lane_first, quota)``.
+
+    ``n_pix * lp`` lanes; lane (pixel, slot) renders sample ids
+    ``lane_first .. lane_first + quota - 1``, and the ids tile
+    ``[pixel * spp, (pixel + 1) * spp)`` exactly (the first ``spp % lp``
+    slots take one extra sample).
+    """
+    lp, _ = _lane_plan(n_pix, spp, lanes_target)
+    pix = torch.arange(n_pix, device=device).repeat_interleave(lp)
+    slot = torch.arange(lp, device=device).repeat(n_pix)
+    q_lo, rem = divmod(spp, lp)
+    quota = torch.where(slot < rem, q_lo + 1, q_lo)
+    start = torch.where(
+        slot < rem, slot * (q_lo + 1), rem * (q_lo + 1) + (slot - rem) * q_lo
+    )
+    return lp, pix, slot, pix * spp + start, quota
+
+
+def _ray_anchors(medium_row, pix, directions, target, ray_offset, target_extent):
+    """Per-lane ray anchors (init_z, init_xy, init_d, ext): rays start at
+    TOA on the line through the target, or ``ray_offset`` along it."""
+    z_top = medium_row.z_levels[-1]
+    w_v = directions[pix]
+    B = pix.shape[0]
+    tgt = target[pix] if target.ndim == 2 else target.expand(B, 3)
+    ext = None
+    if target_extent is not None:
+        ext = target_extent[pix] if target_extent.ndim == 2 else target_extent.expand(B, 2)
+    t_start = torch.where(
+        torch.isnan(ray_offset), (z_top - tgt[:, 2]) / clamp_mu(w_v[:, 2]), ray_offset
+    )
+    init_z = torch.minimum(tgt[:, 2] + w_v[:, 2] * t_start, z_top)
+    init_xy = tgt[:, :2] + w_v[:, :2] * t_start[:, None]
+    return init_z, init_xy, -w_v, ext
+
+
+def _render_row_regen(
+    config, n_pix, spp, medium_row, surface_row, illum_row, directions, key,
+    target, ray_offset, target_extent, lanes_target, check_every,
+):
+    """One spectral row: ``n_pix * lp`` lanes x quota samples each.
+    Returns (radiance [N], m2 [N], iterations)."""
+    lp, pix, _, lane_first, quota = lane_partition(
+        n_pix, spp, lanes_target, directions.device
+    )
+    init_z, init_xy, init_d, ext = _ray_anchors(
+        medium_row, pix, directions, target, ray_offset, target_extent
+    )
+    L_sum, m2_sum, iterations = trace_paths_regen(
+        config, medium_row, surface_row, illum_row, init_z, init_xy, init_d,
+        key, lane_first, quota, ext=ext, check_every=check_every,
+    )
+    radiance = L_sum.reshape(n_pix, lp).sum(dim=1) / spp
+    m2 = m2_sum.reshape(n_pix, lp).sum(dim=1) / spp
+    return radiance, m2, iterations
+
+
+def _check_supported(config):
+    """Raise ``NotImplementedError`` naming each feature this slice lacks."""
+    unsupported = {
+        "polarized transport": config.polarized,
+        f"geometry {config.geometry!r}": config.geometry != "plane_parallel",
+        f"sampler {config.sampler!r}": config.sampler != "independent",
+        f"illumination kind {config.illumination_kind!r}":
+            config.illumination_kind != "directional",
+        "lr_flight": config.lr_flight,
+        f"rng {config.rng!r}": config.rng != "pcg4d",
+        f"surface kind {config.surface_kind!r}":
+            config.surface_kind not in SUPPORTED_BSDFS,
+    }
+    for feature, missing in unsupported.items():
+        if missing:
+            raise NotImplementedError(f"{feature} is not ported yet")
+    check_phase_kinds(config.phase_kinds)
+
+
+def _row(x, s):
+    """Row ``s`` of a per-spectral-row leaf (scalars are shared)."""
+    return x[s] if isinstance(x, torch.Tensor) and x.ndim >= 1 else x
+
+
+def render(
+    scene, sensor, config, spp, seed=0, *, device="cuda", lanes_target=None,
+    check_every=CHECK_EVERY,
+):
+    """Render the spectral batch of one distant-sensor bank.
+
+    ``scene``/``sensor``/``config`` are a compiled scene (the reference's or
+    the port's, see :func:`~.scene_state.from_reference`); they are moved to
+    ``device`` first. ``lanes_target`` (default per device type,
+    :data:`REGEN_LANES_TARGET`) sets the lane count and does not change the
+    estimate beyond float summation order.
+
+    Returns a dict with ``radiance`` [S, N], ``m2`` [S, N] (second moment of
+    per-sample contributions), ``spp`` and ``iterations`` (bounce
+    iterations, summed over rows).
+    """
+    _check_supported(config)
+    dev = resolve_device(device)
+    scene, sensor, config = from_reference(scene, sensor, config, dev)
+    if lanes_target is None:
+        lanes_target = REGEN_LANES_TARGET[dev.type]
+    med = scene.medium
+    il = scene.illumination
+    n_pix = sensor.directions.shape[0]
+    base_key = threefry.key(seed)
+
+    rads, m2s, iterations = [], [], 0
+    for s in range(med.tau_levels.shape[0]):
+        # key(seed) -> fold_in(row) -> fold_in(chunk 0), as _render_full
+        chunk_key = threefry.fold_in(threefry.fold_in(base_key, s), 0)
+        row_key = torch.tensor(chunk_key, dtype=torch.int64, device=dev)
+        medium_row = MediumArrays(
+            z_levels=med.z_levels,
+            tau_levels=med.tau_levels[s],
+            albedo=med.albedo[s],
+            phase_weights=med.phase_weights[s],
+            phase_params=tuple({k: v[s] for k, v in p.items()} for p in med.phase_params),
+        )
+        surface_row = SurfaceArrays(
+            params={k: _row(v, s) for k, v in scene.surface.params.items()}
+        )
+        illum_row = IlluminationArrays(
+            direction=il.direction,
+            irradiance=il.irradiance[s],
+            cos_cutoff=_row(il.cos_cutoff, s),
+            sky_radiance=_row(il.sky_radiance, s),
+        )
+        rad, m2, it = _render_row_regen(
+            config, n_pix, spp, medium_row, surface_row, illum_row,
+            sensor.directions, row_key, sensor.target, sensor.ray_offset,
+            sensor.target_extent, lanes_target, check_every,
+        )
+        rads.append(rad)
+        m2s.append(m2)
+        iterations += it
+    return {
+        "radiance": torch.stack(rads),
+        "m2": torch.stack(m2s),
+        "spp": spp,
+        "iterations": iterations,
+    }

@@ -1,0 +1,180 @@
+"""The collision fetch's plain twin against the JAX package, and its wrapper.
+
+On the CPU the twin is what runs; it must equal ``medium.collision_fetch``
+(gather path): layer and fetched values exactly, z within 1e-6 relative. It
+is also held against the Pallas kernel in interpret mode, within the bounds
+of that kernel's hi/lo-bf16 fetch (as ``tests/unit/test_pallas_kernels.py``
+holds it). The CUDA kernel itself runs only on the card, where ``chip_smoke.py``
+compares it with the twin bit for bit.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eradiate_tpu.ops.medium import collision_fetch as ref_collision_fetch
+from eradiate_tpu.ops.pallas.collision_fetch import collision_fetch_pallas
+from eradiate_tpu_torch.kernels import collision_fetch as cf
+from eradiate_tpu_torch.ops import medium
+
+torch.set_num_threads(1)
+
+
+def _afgl_table():
+    """The c1 column before layer merging: AFGL Rayleigh at 550 nm on 1200
+    layers of 0.1 km, with c1's per-layer tables (albedo, phase weight,
+    depolarisation)."""
+    from eradiate_tpu.scenes.atmosphere import atmosphere_factory
+    from eradiate_tpu.scenes.geometry import PlaneParallelGeometry
+
+    atm = atmosphere_factory.convert({"type": "molecular"})
+    zgrid = PlaneParallelGeometry().zgrid
+    w = np.array([550.0])
+    sigma = atm.eval_sigma_t(w, None, zgrid)[0]
+    albedo = atm.eval_albedo(w, None, zgrid)[0]
+    _, params, weights = atm.eval_phase(w, zgrid)
+    levels = zgrid.levels
+    tau = np.concatenate([[0.0], np.cumsum(sigma * np.diff(levels))])
+    tables = np.stack([albedo, weights[0, 0], params[0]["depol"][0]])
+    return levels, tau, tables
+
+
+def _flat_table():
+    """Seven layers with runs of zero extinction (equal levels)."""
+    levels = np.array([0.0, 1.0, 2.0, 3.5, 4.0, 6.0, 8.0, 12.0])
+    sigma = np.array([0.1, 0.0, 0.0, 0.3, 0.2, 0.0, 0.5])
+    tau = np.concatenate([[0.0], np.cumsum(sigma * np.diff(levels))])
+    rng = np.random.default_rng(3)
+    tables = rng.uniform(0.0, 1.0, (3, 7))
+    return levels, tau, tables
+
+
+def _queries(tau, seed, n=3000):
+    """Random tau in [0, tau_top] plus edges: 0, tau_top, every level
+    exactly, neighbours one ulp either side, and values past the top."""
+    tau = tau.astype(np.float32)
+    top = tau[-1]
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(0.0, top, n).astype(np.float32)
+    edges = np.concatenate(
+        [
+            [0.0, top, 1.5 * top],
+            tau,
+            np.nextafter(tau, np.float32(np.inf)),
+            np.nextafter(tau[1:], np.float32(0.0)),
+        ]
+    ).astype(np.float32)
+    return np.concatenate([q, edges]).astype(np.float32)
+
+
+TABLES = {"afgl1200": _afgl_table, "flat7": _flat_table}
+
+
+@pytest.fixture(params=sorted(TABLES), scope="module")
+def case(request):
+    levels, tau, tables = TABLES[request.param]()
+    f32 = lambda a: np.ascontiguousarray(a, dtype=np.float32)  # noqa: E731
+    return f32(levels), f32(tau), f32(tables), _queries(tau, seed=len(tau))
+
+
+def _twin(levels, tau, tables, q):
+    return cf.collision_fetch_plain(
+        torch.as_tensor(q), torch.as_tensor(levels), torch.as_tensor(tau),
+        torch.as_tensor(tables),
+    )
+
+
+def test_twin_matches_medium_collision_fetch(case):
+    levels, tau, tables, q = case
+    z_ref, idx_ref, fetched_ref = ref_collision_fetch(
+        jnp.asarray(q), jnp.asarray(levels), jnp.asarray(tau),
+        [jnp.asarray(t) for t in tables],
+    )
+    z, layer, fetched = _twin(levels, tau, tables, q)
+    assert layer.dtype == torch.int32
+    np.testing.assert_array_equal(layer.numpy(), np.asarray(idx_ref))
+    np.testing.assert_array_equal(fetched.numpy(), np.stack([np.asarray(f) for f in fetched_ref]))
+    # atol: XLA:CPU flushes subnormals to zero, so the query one ulp above
+    # tau = 0 gives z = 0 there and a subnormal z here
+    np.testing.assert_allclose(
+        z.numpy(), np.asarray(z_ref), rtol=1e-6, atol=np.finfo(np.float32).tiny
+    )
+
+
+def test_twin_matches_pallas_interpret(case):
+    levels, tau, tables, q = case
+    L = tables.shape[1]
+    stacked = np.concatenate([tables.T, np.zeros((1, tables.shape[0]), np.float32)])
+    out, idx = collision_fetch_pallas(
+        jnp.asarray(q), jnp.asarray(tau), jnp.asarray(stacked), block_b=256,
+        interpret=True,
+    )
+    _, layer, fetched = _twin(levels, tau, tables, q)
+    np.testing.assert_array_equal(layer.numpy(), np.asarray(idx))
+    assert int(layer.max()) <= L - 1
+    np.testing.assert_allclose(fetched.numpy().T, np.asarray(out), rtol=2e-4, atol=1e-5)
+
+
+def test_ties_go_to_upper_bound(case):
+    levels, tau, tables, _ = case
+    layer = _twin(levels, tau, tables, tau)[1].numpy()
+    expect = np.clip(np.searchsorted(tau, tau, side="right") - 1, 0, tables.shape[1] - 1)
+    np.testing.assert_array_equal(layer, expect)
+
+
+def test_medium_dispatches_to_twin_on_cpu(case):
+    levels, tau, tables, q = case
+    before = cf.launches
+    args = [torch.as_tensor(a) for a in (q, levels, tau, tables)]
+    out = medium.collision_fetch(*args)
+    ref = cf.collision_fetch_plain(*args)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+    assert cf.launches == before  # no kernel launch for CPU tensors
+
+
+def _args(L=8, K=3, B=16):
+    return [
+        torch.zeros(B),
+        torch.linspace(0, 1, L + 1),
+        torch.linspace(0, 1, L + 1),
+        torch.zeros(K, L),
+    ]
+
+
+def _bad_args(kind):
+    args = _args()
+    if kind == "dtype":
+        args[0] = args[0].double()
+    elif kind == "non-contiguous":
+        args[3] = torch.zeros(8, 3).T
+    elif kind == "levels-shape":
+        args[2] = torch.linspace(0, 1, 5)
+    elif kind == "rank":
+        args[0] = torch.zeros(4, 4)
+    elif kind == "shared-memory":
+        args = _args(L=cf.SMEM_BYTES // 4)
+    return args
+
+
+@pytest.mark.parametrize(
+    "kind, exc",
+    [
+        ("dtype", TypeError),
+        ("non-contiguous", ValueError),
+        ("levels-shape", ValueError),
+        ("rank", ValueError),
+        ("shared-memory", ValueError),
+    ],
+)
+def test_wrapper_rejects_bad_inputs(kind, exc):
+    cf._check(*_args())  # the unmodified inputs pass
+    with pytest.raises(exc):
+        cf._check(*_bad_args(kind))
+
+
+def test_wrapper_rejects_other_devices():
+    with pytest.raises(ValueError):
+        cf.collision_fetch(*[a.to("meta") for a in _args()])
+

@@ -1,0 +1,168 @@
+"""The port's experiment path (c1 at 11 view zeniths) against the JAX package.
+
+``compile_scene`` leaves are bitwise the reference's; ``run`` at the same
+seed matches ``eradiate_tpu.run`` within 1e-5 relative and returns the same
+dataset layout; the port imports and runs with ``jax`` blocked; asking for
+CUDA without a card raises.
+"""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import eradiate_tpu
+import eradiate_tpu_torch
+from eradiate_tpu.core.rng import SeedState
+from eradiate_tpu.experiments import AtmosphereExperiment as RefExperiment
+from eradiate_tpu_torch import AtmosphereExperiment
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+SPP = 64
+
+
+def c1_kwargs(n_vza=11):
+    """BASELINE config 1 (``bench.py`` ``_c1``) at ``n_vza`` view zeniths."""
+    return dict(
+        illumination={"type": "directional", "zenith": 30.0, "azimuth": 0.0},
+        measures={
+            "type": "mdistant",
+            "construct": "hplane",
+            "zeniths": np.linspace(-75, 75, n_vza),
+            "azimuth": 0.0,
+            "id": "m",
+        },
+        surface={"type": "lambertian", "reflectance": 0.5},
+        atmosphere={"type": "molecular"},
+    )
+
+
+@pytest.fixture
+def mono_single():
+    eradiate_tpu.set_mode("mono_single")
+    yield
+    eradiate_tpu.set_mode("mono")
+
+
+def _leaves(obj, prefix=""):
+    """Flatten a compiled scene into {path: numpy array or value}."""
+    if hasattr(obj, "__dataclass_fields__"):
+        out = {}
+        for name in obj.__dataclass_fields__:
+            out.update(_leaves(getattr(obj, name), f"{prefix}.{name}"))
+        return out
+    if isinstance(obj, dict):
+        out = {}
+        for k, v in obj.items():
+            out.update(_leaves(v, f"{prefix}[{k}]"))
+        return out
+    if isinstance(obj, tuple) and obj and not isinstance(obj[0], str):
+        out = {}
+        for i, v in enumerate(obj):
+            out.update(_leaves(v, f"{prefix}[{i}]"))
+        return out
+    if obj is None or isinstance(obj, (str, bool, int, float, tuple)):
+        return {prefix: obj}
+    return {prefix: np.asarray(obj)}
+
+
+def test_compile_scene_leaves_bitwise(mono_single):
+    ref_exp, exp = RefExperiment(**c1_kwargs()), AtmosphereExperiment(**c1_kwargs())
+    ctx = exp.spectral_context(exp.measures[0])
+    np.testing.assert_array_equal(ctx["w"], ref_exp.spectral_context(ref_exp.measures[0])["w"])
+    ref = _leaves(ref_exp.compile_scene(ref_exp.measures[0], ctx))
+    out = _leaves(exp.compile_scene(exp.measures[0], ctx))
+    assert out.keys() == ref.keys()
+    for k, v in ref.items():
+        if isinstance(v, np.ndarray):
+            assert out[k].dtype == v.dtype, k
+            np.testing.assert_array_equal(out[k], v, err_msg=k)
+        else:
+            assert out[k] == v, k
+    # the default 1e-3 merge tolerance folds the 1200-layer column
+    assert ref["[0].medium.z_levels"].size < 1201
+
+
+def test_run_matches_reference(mono_single):
+    ref = eradiate_tpu.run(
+        RefExperiment(**c1_kwargs()), spp=SPP, seed_state=SeedState(7), mesh=None
+    )
+    out = eradiate_tpu_torch.run(
+        AtmosphereExperiment(**c1_kwargs()), spp=SPP, seed_state=SeedState(7),
+        device="cpu",
+    )
+    assert set(out.data_vars) == set(ref.data_vars)
+    assert set(out.coords) == set(ref.coords)
+    for k in ref.coords:
+        np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(ref[k]))
+    for k in ("radiance", "brf"):
+        assert out[k].shape == ref[k].shape
+        np.testing.assert_allclose(
+            np.asarray(out[k]), np.asarray(ref[k]), rtol=1e-5, atol=0
+        )
+
+
+def test_runs_with_jax_blocked():
+    code = textwrap.dedent(
+        f"""
+        import sys
+        sys.modules["jax"] = None
+        import numpy as np
+        import torch
+        torch.set_num_threads(1)
+        import eradiate_tpu_torch as etp
+        etp.set_mode("mono_single")
+        exp = etp.AtmosphereExperiment(
+            illumination={{"type": "directional", "zenith": 30.0}},
+            measures={{"type": "mdistant", "construct": "hplane",
+                      "zeniths": np.linspace(-75, 75, 11), "azimuth": 0.0}},
+            surface={{"type": "lambertian", "reflectance": 0.5}},
+            atmosphere={{"type": "molecular"}},
+        )
+        ds = etp.run(exp, spp={SPP}, seed_state=etp.SeedState(7), device="cpu")
+        brf = np.asarray(ds["brf"])
+        assert brf.shape == (1, 11) and np.isfinite(brf).all(), brf
+        bad = [m for m in sys.modules if m.startswith(("eradiate_tpu.ops",
+               "eradiate_tpu.experiments")) or m.split(".")[0] == "jax"]
+        assert not [m for m in bad if sys.modules[m] is not None], bad
+        print("OK", float(brf.mean()))
+        """
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
+def test_cuda_without_card_raises(mono_single, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        eradiate_tpu_torch.run(AtmosphereExperiment(**c1_kwargs()), spp=8, device="cuda")
+
+
+@pytest.mark.parametrize("mode_id", ["mono_double", "mono_polarized_single", "ckd_single"])
+def test_unported_modes_raise(mode_id):
+    eradiate_tpu.set_mode(mode_id)
+    with pytest.raises(NotImplementedError, match=mode_id):
+        eradiate_tpu_torch.run(AtmosphereExperiment(**c1_kwargs()), spp=8, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "override, name",
+    [
+        ({"geometry": {"type": "spherical_shell"}}, "spherical_shell"),
+        ({"illumination": {"type": "constant"}}, "ConstantIllumination"),
+    ],
+)
+def test_unported_scene_features_raise(mono_single, override, name):
+    exp = AtmosphereExperiment(**{**c1_kwargs(), **override})
+    with pytest.raises(NotImplementedError, match=name):
+        eradiate_tpu_torch.run(exp, spp=8, device="cpu")
