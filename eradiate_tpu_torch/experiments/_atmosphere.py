@@ -1,12 +1,14 @@
-"""One-dimensional atmosphere experiment, plane-parallel mono slice.
+"""One-dimensional atmosphere experiment, mono slice.
 
 Port of ``eradiate_tpu/experiments/_atmosphere.py``: the same attrs fields
 and converters, the mono spectral context, and ``compile_scene`` for
-plane-parallel geometry (with the optional error-bounded layer merge),
-directional illumination and distant measures. Host arithmetic stays numpy
-float64 up to a single cast to float32, as in the reference; the compiled
-leaves are numpy arrays that :func:`..ops.scene_state.from_reference` ships
-to the device.
+plane-parallel geometry (with the optional error-bounded layer merge) and
+spherical-shell geometry (with the error-bounded shell merge and the sun
+slant-tau table), directional illumination and distant measures. Host
+arithmetic stays numpy float64 up to a single cast to float32, as in the
+reference; the sun-tau table is computed on the host from the float32
+radii and extinction. The compiled leaves are numpy arrays that
+:func:`..ops.scene_state.from_reference` ships to the device.
 """
 
 from __future__ import annotations
@@ -14,8 +16,11 @@ from __future__ import annotations
 import attrs
 import numpy as np
 
+import torch
+
 from eradiate_tpu.physics.shell_merge import (
     adaptive_layer_groups_pp,
+    adaptive_shell_groups,
     merge_layer_mean,
     merge_layer_weighted,
 )
@@ -39,8 +44,10 @@ from ..ops.scene_state import (
     SceneArrays,
     SceneConfig,
     SensorArrays,
+    SphericalMediumArrays,
     SurfaceArrays,
 )
+from ..ops.spherical import sun_mu_grid_warped, sun_tau_table_grid
 from ._core import EarthObservationExperiment, check_mode
 
 __all__ = ["AtmosphereExperiment"]
@@ -58,6 +65,22 @@ def _atmosphere_converter(value):
 
 def _f32(x):
     return np.asarray(x, dtype=np.float32)
+
+
+def _merge_params(params, groups, w_scat, L):
+    """Merge layer-indexed phase parameters under scattering-depth weights."""
+    L_m = groups.size - 1
+    return tuple(
+        {
+            k: (
+                merge_layer_weighted(v, groups, w_scat)
+                if np.ndim(v) >= 1 and np.shape(v)[-1] == L and np.shape(v)[-1] != L_m
+                else v
+            )
+            for k, v in p.items()
+        }
+        for p in params
+    )
 
 
 @attrs.define(eq=False, slots=False)
@@ -101,32 +124,8 @@ class AtmosphereExperiment(EarthObservationExperiment):
             grid = MonoSpectralGrid.default()
         return {"w": grid.select(measure.srf).wavelengths}
 
-    def compile_scene(self, measure, spectral_ctx):
-        """Compile to (SceneArrays, SensorArrays, SceneConfig) with float32
-        numpy leaves."""
-        m = check_mode()
-        if self.geometry.kind != "plane_parallel":
-            raise NotImplementedError(
-                f"geometry {self.geometry.kind!r} is not ported yet"
-            )
-        w = np.asarray(spectral_ctx["w"], dtype=np.float64)
-        S = w.size
-        zgrid = self.geometry.zgrid
-        L = zgrid.n_layers
-
-        # Medium
-        if self.atmosphere is not None:
-            sigma_t = self.atmosphere.eval_sigma_t(w, None, zgrid)
-            albedo = self.atmosphere.eval_albedo(w, None, zgrid)
-            kinds, params, weights = self.atmosphere.eval_phase(w, zgrid)
-        else:
-            sigma_t = np.zeros((S, L))
-            albedo = np.ones((S, L))
-            kinds = ("rayleigh",)
-            params = ({"depol": np.zeros((S, L))},)
-            weights = np.ones((S, 1, L))
-
-        levels = zgrid.levels
+    def _plane_parallel_medium(self, sigma_t, albedo, params, weights, L):
+        levels = self.geometry.zgrid.levels
         tol = getattr(self.geometry, "layer_merge_tol", None)
         if tol:
             # plane-parallel transport is invariant in the tau coordinate,
@@ -148,22 +147,7 @@ class AtmosphereExperiment(EarthObservationExperiment):
                 sigma_t = merge_layer_mean(sigma_np, groups, dzf)
                 albedo = merge_layer_weighted(alb_np, groups, w_ext)
                 weights = merge_layer_weighted(w_np, groups, w_scat[:, None, :])
-                L_m = groups.size - 1
-                params = tuple(
-                    {
-                        k: (
-                            merge_layer_weighted(v, groups, w_scat)
-                            if (
-                                np.ndim(v) >= 1
-                                and np.shape(v)[-1] == L
-                                and np.shape(v)[-1] != L_m
-                            )
-                            else v
-                        )
-                        for k, v in p.items()
-                    }
-                    for p in params
-                )
+                params = _merge_params(params, groups, w_scat, L)
                 levels = levels[groups]
 
         dz = np.diff(levels)
@@ -174,13 +158,101 @@ class AtmosphereExperiment(EarthObservationExperiment):
             ],
             axis=-1,
         )
-        medium = MediumArrays(
+        return MediumArrays(
             z_levels=_f32(levels),
             tau_levels=_f32(tau_np),
             albedo=_f32(albedo),
             phase_weights=_f32(weights),
             phase_params=tuple({k: _f32(v) for k, v in p.items()} for p in params),
         )
+
+    def _spherical_medium(self, sigma_t, albedo, params, weights, L):
+        geom = self.geometry
+        levels = geom.zgrid.levels
+        tol = getattr(geom, "shell_merge_tol", None)
+        groups = adaptive_shell_groups(levels, sigma_t, geom.planet_radius, tol or 0.0)
+        if groups.size - 1 < np.asarray(sigma_t).shape[-1]:
+            # error-bounded merge: vertical tau exact, worst-case tangent
+            # slant-tau error <= tol per group; albedo merges under
+            # extinction-depth weights, phase quantities under
+            # scattering-depth weights
+            dz = np.diff(levels)
+            sigma_np = np.asarray(sigma_t, dtype=np.float64)
+            w_ext = sigma_np * dz
+            w_scat = w_ext * np.asarray(albedo, dtype=np.float64)
+            sigma_t = merge_layer_mean(sigma_np, groups, dz)
+            albedo = merge_layer_weighted(albedo, groups, w_ext)
+            weights = merge_layer_weighted(weights, groups, w_scat[:, None, :])
+            params = _merge_params(params, groups, w_scat, L)
+            levels = levels[groups]
+
+        radii = _f32(geom.planet_radius + levels)
+        sig = _f32(sigma_t)
+        # NEE sun transmittance from a (radius, local cosine) slant-tau table
+        # where the terminator guardrail allows it (SZA <= 80 by default);
+        # otherwise the tracer computes the exact slant depth per event
+        table = getattr(geom, "sun_tau_table", "auto")
+        if table == "auto":
+            table = getattr(self.illumination, "zenith", 0.0) <= 80.0
+        sun_tau = mu_grid = sun_r_grid = warp = None
+        if table:
+            mu_np, warp = sun_mu_grid_warped(128)
+            mu_grid = _f32(mu_np)
+            sun_r_grid = _f32(
+                np.linspace(
+                    float(geom.planet_radius + levels[0]),
+                    float(geom.planet_radius + levels[-1]),
+                    128,
+                )
+            )
+            # r_ground = 0: the ground's shadow is not in the table (it would
+            # smear the bilinear fetch at the terminator); the tracer applies
+            # it exactly
+            sun_tau = sun_tau_table_grid(
+                *map(torch.from_numpy, (sig, radii, sun_r_grid, mu_grid)), r_ground=0.0
+            ).numpy()
+        return SphericalMediumArrays(
+            radii=radii,
+            sigma_t=sig,
+            sigma_majorant=_f32(np.max(np.asarray(sigma_t), axis=1)),
+            albedo=_f32(albedo),
+            phase_weights=_f32(weights),
+            phase_params=tuple({k: _f32(v) for k, v in p.items()} for p in params),
+            sun_tau=sun_tau,
+            mu_grid=mu_grid,
+            sun_r_grid=sun_r_grid,
+            sun_mu_warp=warp,
+        )
+
+    def compile_scene(self, measure, spectral_ctx):
+        """Compile to (SceneArrays, SensorArrays, SceneConfig) with float32
+        numpy leaves."""
+        m = check_mode()
+        if self.geometry.kind not in ("plane_parallel", "spherical_shell"):
+            raise NotImplementedError(
+                f"geometry {self.geometry.kind!r} is not ported yet"
+            )
+        w = np.asarray(spectral_ctx["w"], dtype=np.float64)
+        S = w.size
+        zgrid = self.geometry.zgrid
+        L = zgrid.n_layers
+
+        # Medium
+        if self.atmosphere is not None:
+            sigma_t = self.atmosphere.eval_sigma_t(w, None, zgrid)
+            albedo = self.atmosphere.eval_albedo(w, None, zgrid)
+            kinds, params, weights = self.atmosphere.eval_phase(w, zgrid)
+        else:
+            sigma_t = np.zeros((S, L))
+            albedo = np.ones((S, L))
+            kinds = ("rayleigh",)
+            params = ({"depol": np.zeros((S, L))},)
+            weights = np.ones((S, 1, L))
+
+        if self.geometry.kind == "spherical_shell":
+            medium = self._spherical_medium(sigma_t, albedo, params, weights, L)
+        else:
+            medium = self._plane_parallel_medium(sigma_t, albedo, params, weights, L)
 
         # Surface
         if self.surface is not None:

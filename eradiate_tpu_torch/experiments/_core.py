@@ -1,9 +1,10 @@
 """Experiment core: compile each measure's scene, render it, post-process.
 
 Port of ``eradiate_tpu/experiments/_core.py`` as a single-device path (no
-mesh, no checkpoint). The result is the same ``eradiate_tpu.xr`` Dataset the
-reference returns, assembled by the reference's own jax-free
-``pipelines.logic.postprocess_measure``.
+mesh, no checkpoint): plane-parallel scenes go to :mod:`..ops.tracer`,
+spherical-shell scenes to :mod:`..ops.tracer_spherical`. The result is the
+same ``eradiate_tpu.xr`` Dataset the reference returns, assembled by the
+reference's own jax-free ``pipelines.logic.postprocess_measure``.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from eradiate_tpu.spectral.ckd_quad import CKDQuadConfig
 
 from ..core.device import resolve_device
 from ..ops.tracer import render
+from ..ops.tracer_spherical import render_spherical
 
 __all__ = ["EarthObservationExperiment", "run", "check_mode"]
 
@@ -138,6 +140,8 @@ class EarthObservationExperiment(SceneElement):
         return out
 
     def _render_one(self, scene, sensor, config, n, seed, device):
+        if config.geometry == "spherical_shell":
+            return render_spherical(scene, sensor, config, spp=n, seed=seed, device=device)
         return render(scene, sensor, config, spp=n, seed=seed, device=device)
 
     def postprocess(self):

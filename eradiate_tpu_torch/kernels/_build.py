@@ -1,9 +1,15 @@
 """Build ``csrc/*.cu`` into one shared library and load it with ctypes.
 
 The library exposes plain C launchers (no PyTorch headers), so a build takes
-seconds. It is written to ``build/kernels/`` at the repository root under a
-name keyed by the sources' and flags' hash, and built at most once per
-process. A missing ``nvcc`` or a failed build raises.
+seconds: one ``nvcc -c`` per source, all started together, then one link. It
+is written to ``build/kernels/`` at the repository root under a name keyed
+by the sources' and flags' hash, and built at most once per process. A
+missing ``nvcc`` or a failed build raises.
+
+``-fmad=false`` keeps nvcc from contracting a product and a sum into one
+fused multiply-add: every float operation then rounds as the plain twins'
+separate PyTorch operations do, so the kernels can be held against them bit
+for bit.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib = None
@@ -60,15 +66,31 @@ def library() -> ctypes.CDLL:
     out = BUILD_DIR / f"liberadiate_kernels_{h.hexdigest()[:16]}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        tag = f"{out.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in sources]
+        procs = [
+            (cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+            for cmd in (
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)
             )
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        ]
+        logs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+        tmp = out.with_name(f"{tag}.tmp")
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+        if all(rc == 0 for _, _, rc in logs):
+            proc = subprocess.run(link, capture_output=True, text=True)
+            logs.append((link, proc.stdout + proc.stderr, proc.returncode))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        for cmd, log, rc in logs:
+            if rc != 0:
+                raise RuntimeError(
+                    f"nvcc failed with exit code {rc}:\n{' '.join(cmd)}\n{log}"
+                )
+        out.with_suffix(".log").write_text("".join(log for _, log, _ in logs))
         os.replace(tmp, out)
     _lib = ctypes.CDLL(str(out))
     return _lib

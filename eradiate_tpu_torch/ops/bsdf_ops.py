@@ -1,6 +1,6 @@
 """Surface BSDF evaluation and sampling, batched over lanes.
 
-Port of the ``lambertian`` and ``black`` kinds of
+Port of the ``lambertian``, ``hapke`` and ``black`` kinds of
 ``eradiate_tpu/ops/bsdf_ops.py``. ``wi`` and ``wo`` [B, 3] point away from
 the surface (+z up); ``eval`` returns f [1/sr] with dL_o = f cos(theta_i)
 dE_i; ``sample`` returns ``(w_new, f cos / pdf)``. Parameters are
@@ -15,10 +15,10 @@ import torch
 
 from ..core.warp import square_to_cosine_hemisphere
 
-__all__ = ["lambertian_eval", "bsdf_eval", "bsdf_sample_from_uniforms",
-           "SUPPORTED_BSDFS"]
+__all__ = ["lambertian_eval", "hapke_eval", "bsdf_eval",
+           "bsdf_sample_from_uniforms", "SUPPORTED_BSDFS"]
 
-SUPPORTED_BSDFS = ("black", "lambertian")
+SUPPORTED_BSDFS = ("black", "hapke", "lambertian")
 
 
 def _mu(w):
@@ -28,6 +28,131 @@ def _mu(w):
 def lambertian_eval(params, wi, wo):
     rho = params["reflectance"]
     return torch.where((_mu(wi) > 0) & (_mu(wo) > 0), rho / math.pi, 0.0)
+
+
+# Hapke (2012) IMSA with the shadow-hiding opposition effect and Hapke (1984)
+# macroscopic roughness; parameters w, b, c, theta [rad], B_0, h (reference
+# kernel plugin ``hapke``).
+
+
+def _hapke_phase(b, c, cos_g):
+    """Double Henyey-Greenstein on the phase angle (cos_g = 1 is exact
+    backscattering); ``c`` weights the backscattering lobe."""
+    b2 = b * b
+    fwd = (1.0 - b2) / torch.clamp(1.0 + 2.0 * b * cos_g + b2, min=1e-12) ** 1.5
+    bwd = (1.0 - b2) / torch.clamp(1.0 - 2.0 * b * cos_g + b2, min=1e-12) ** 1.5
+    return (1.0 - c) * fwd + c * bwd
+
+
+def _hapke_H(w, x):
+    """Chandrasekhar H-function, Hapke (2002) approximation."""
+    gamma = torch.sqrt(torch.clamp(1.0 - w, min=1e-12))
+    r0 = (1.0 - gamma) / (1.0 + gamma)
+    x = torch.clamp(x, min=1e-6)
+    ln_term = torch.log((1.0 + x) / x)
+    return 1.0 / (1.0 - w * x * (r0 + 0.5 * (1.0 - 2.0 * r0 * x) * ln_term))
+
+
+def _hapke_roughness(theta, mu_i, mu_o, cos_phi, sin_phi):
+    """Hapke (1984) macroscopic roughness: effective cosines and the
+    shadowing factor ``(mu0_e, mu_e, S)``."""
+    theta = torch.clamp(theta, min=1e-4)
+    tan_t = torch.tan(theta)
+    cot_t = 1.0 / tan_t
+    chi = 1.0 / torch.sqrt(1.0 + math.pi * tan_t * tan_t)
+
+    sin_i = torch.sqrt(torch.clamp(1.0 - mu_i * mu_i, min=1e-12))
+    sin_o = torch.sqrt(torch.clamp(1.0 - mu_o * mu_o, min=1e-12))
+    tan_i = sin_i / mu_i
+    tan_o = sin_o / mu_o
+    cot_i = 1.0 / torch.clamp(tan_i, min=1e-6)
+    cot_o = 1.0 / torch.clamp(tan_o, min=1e-6)
+
+    def E1(cot_x):
+        return torch.exp(-2.0 / math.pi * cot_t * cot_x)
+
+    def E2(cot_x):
+        return torch.exp(-1.0 / math.pi * cot_t * cot_t * cot_x * cot_x)
+
+    phi = torch.abs(torch.atan2(sin_phi, cos_phi))
+    # tan(phi/2) overflows near phi = pi, where the factor is 0 anyway
+    half_phi = torch.clamp(phi / 2.0, max=math.pi / 2.0 - 1e-4)
+    f_psi = torch.exp(-2.0 * torch.tan(half_phi))
+
+    def eta(mu_x, sin_x, cot_x):
+        return chi * (
+            mu_x + sin_x * tan_t * E2(cot_x) / torch.clamp(2.0 - E1(cot_x), min=1e-12)
+        )
+
+    eta_i = eta(mu_i, sin_i, cot_i)
+    eta_o = eta(mu_o, sin_o, cot_o)
+
+    # i <= e and i > e branches (Hapke 1984 eqs. 46-51), selected branchless
+    sin_hp2 = torch.sin(phi / 2.0) ** 2
+    cos_phi_ = torch.cos(phi)
+    denom_ie = torch.clamp(2.0 - E1(cot_o) - (phi / math.pi) * E1(cot_i), min=1e-12)
+    denom_ei = torch.clamp(2.0 - E1(cot_i) - (phi / math.pi) * E1(cot_o), min=1e-12)
+    mu0e_1 = chi * (
+        mu_i + sin_i * tan_t * (cos_phi_ * E2(cot_o) + sin_hp2 * E2(cot_i)) / denom_ie
+    )
+    mue_1 = chi * (mu_o + sin_o * tan_t * (E2(cot_o) - sin_hp2 * E2(cot_i)) / denom_ie)
+    mu0e_2 = chi * (mu_i + sin_i * tan_t * (E2(cot_i) - sin_hp2 * E2(cot_o)) / denom_ei)
+    mue_2 = chi * (
+        mu_o + sin_o * tan_t * (cos_phi_ * E2(cot_i) + sin_hp2 * E2(cot_o)) / denom_ei
+    )
+
+    i_le_e = tan_i <= tan_o
+    mu0e = torch.where(i_le_e, mu0e_1, mu0e_2)
+    mue = torch.where(i_le_e, mue_1, mue_2)
+    shade = (mue / eta_o) * (mu_i / eta_i) * chi
+    S = torch.where(
+        i_le_e,
+        shade / (1.0 - f_psi + f_psi * chi * (mu_i / eta_i)),
+        shade / (1.0 - f_psi + f_psi * chi * (mu_o / eta_o)),
+    )
+    return mu0e, mue, S
+
+
+def hapke_eval(params, wi, wo):
+    w, b, c = params["w"], params["b"], params["c"]
+    theta, B_0, h = params["theta"], params["B_0"], params["h"]
+
+    mu_i = _mu(wi)
+    mu_o = _mu(wo)
+    valid = (mu_i > 1e-6) & (mu_o > 1e-6)
+    mu_i = torch.clamp(mu_i, min=1e-6)
+    mu_o = torch.clamp(mu_o, min=1e-6)
+
+    # phase angle g: cos g = wi . wo (1 at exact backscatter)
+    cos_g = torch.clamp(
+        wi[..., 0] * wo[..., 0] + wi[..., 1] * wo[..., 1] + wi[..., 2] * wo[..., 2],
+        -1.0, 1.0,
+    )
+    half_tan_g = torch.sqrt(torch.clamp((1.0 - cos_g) / (1.0 + cos_g), min=0.0))
+
+    # azimuth difference of the horizontal projections
+    sin_i = torch.sqrt(torch.clamp(1.0 - mu_i * mu_i, min=1e-12))
+    sin_o = torch.sqrt(torch.clamp(1.0 - mu_o * mu_o, min=1e-12))
+    cos_phi = torch.clamp((cos_g - mu_i * mu_o) / (sin_i * sin_o), -1.0, 1.0)
+    sin_phi = torch.sqrt(torch.clamp(1.0 - cos_phi * cos_phi, min=0.0))
+
+    P = _hapke_phase(b, c, cos_g)
+    B_sh = torch.where(h > 0, B_0 / (1.0 + half_tan_g / torch.clamp(h, min=1e-9)), 0.0)
+    mu0e, mue, S = _hapke_roughness(theta, mu_i, mu_o, cos_phi, sin_phi)
+    H_i = _hapke_H(w, mu0e)
+    H_o = _hapke_H(w, mue)
+
+    f = (
+        (w / (4.0 * math.pi))
+        * (1.0 / torch.clamp(mu0e + mue, min=1e-9))
+        * (P * (1.0 + B_sh) + H_i * H_o - 1.0)
+        * S
+        * (mu0e / mu_i)  # effective-cosine flux correction
+    )
+    return torch.where(valid, torch.clamp(f, min=0.0), 0.0)
+
+
+_EVAL = {"lambertian": lambertian_eval, "hapke": hapke_eval}
 
 
 def _check_kind(kind):
@@ -43,7 +168,7 @@ def bsdf_eval(kind, params, wi, wo):
     _check_kind(kind)
     if kind == "black":
         return torch.zeros_like(wi[..., 0])
-    return lambertian_eval(params, wi, wo)
+    return _EVAL[kind](params, wi, wo)
 
 
 def bsdf_sample_from_uniforms(kind, params, wo, u):

@@ -22,6 +22,7 @@ __all__ = [
     "searchsorted_leq",
     "tau_at_z",
     "collision_fetch",
+    "fetch_at_index",
 ]
 
 #: Direction cosines are clamped away from zero (reference ``MU_EPS``).
@@ -54,3 +55,11 @@ def tau_at_z(z, z_levels, tau_levels):
     """Interpolate tau(z); z: [...], z_levels/tau_levels: [L+1]."""
     _, frac, ((t0, t1),) = _interp_tables(z, z_levels, (tau_levels,))
     return t0 + frac * (t1 - t0)
+
+
+def fetch_at_index(idx, tables):
+    """Per-layer tables stacked as ``[K, L]``, fetched at per-lane layer
+    indices ``idx`` [B] in one gather; returns ``[K, B]`` (reference
+    ``fetch_at_index``, its CPU gather branch, which takes and returns K
+    separate tables)."""
+    return tables[:, idx.long()]

@@ -20,6 +20,7 @@ import torch
 
 __all__ = [
     "MediumArrays",
+    "SphericalMediumArrays",
     "SurfaceArrays",
     "IlluminationArrays",
     "SensorArrays",
@@ -39,6 +40,25 @@ class MediumArrays:
     albedo: Any  # [S, L]
     phase_weights: Any  # [S, C, L]
     phase_params: Any  # tuple of per-component dicts (rows: [S, ...])
+
+
+@dataclasses.dataclass
+class SphericalMediumArrays:
+    """Radially stratified medium (reference
+    ``ops.tracer_spherical.SphericalMediumArrays``)."""
+
+    radii: Any  # [L+1] shell boundary radii from the planet centre, ascending
+    sigma_t: Any  # [S, L]
+    sigma_majorant: Any  # [S]
+    albedo: Any  # [S, L]
+    phase_weights: Any  # [S, C, L]
+    phase_params: Any
+    #: sun slant-tau table [S, Nr, M] over (radius, local sun cosine), built
+    #: without ground blockage; None keeps the exact per-event slant depth
+    sun_tau: Any = None
+    mu_grid: Any = None  # [M] cosine nodes of the table
+    sun_r_grid: Any = None  # [Nr] uniform radius nodes of the table
+    sun_mu_warp: Any = None  # (mu_c, s, a, b) floats of the cosine warp
 
 
 @dataclasses.dataclass
@@ -114,17 +134,35 @@ def from_reference(scene, sensor, config, device):
     ``SceneArrays``/``SensorArrays``/``SceneConfig`` or the port's own; only
     field names are read, and every leaf goes through ``np.asarray``.
     Floating leaves become float32 (the port runs single precision only).
+    A spherical-shell scene (``config.geometry == "spherical_shell"``) carries
+    a :class:`SphericalMediumArrays`.
     """
     med = scene.medium
-    medium = MediumArrays(
-        z_levels=_tensor(med.z_levels, device),
-        tau_levels=_tensor(med.tau_levels, device),
+    common = dict(
         albedo=_tensor(med.albedo, device),
         phase_weights=_tensor(med.phase_weights, device),
         phase_params=tuple(
             {k: _tensor(v, device) for k, v in p.items()} for p in med.phase_params
         ),
     )
+    if config.geometry == "spherical_shell":
+        warp = med.sun_mu_warp
+        medium = SphericalMediumArrays(
+            radii=_tensor(med.radii, device),
+            sigma_t=_tensor(med.sigma_t, device),
+            sigma_majorant=_tensor(med.sigma_majorant, device),
+            sun_tau=_tensor(med.sun_tau, device),
+            mu_grid=_tensor(med.mu_grid, device),
+            sun_r_grid=_tensor(med.sun_r_grid, device),
+            sun_mu_warp=None if warp is None else tuple(float(x) for x in warp),
+            **common,
+        )
+    else:
+        medium = MediumArrays(
+            z_levels=_tensor(med.z_levels, device),
+            tau_levels=_tensor(med.tau_levels, device),
+            **common,
+        )
     surface = SurfaceArrays(
         params={k: _tensor(v, device) for k, v in scene.surface.params.items()}
     )

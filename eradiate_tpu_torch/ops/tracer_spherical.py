@@ -1,0 +1,394 @@
+"""Regenerative wavefront path tracer, spherical-shell geometry.
+
+Port of ``eradiate_tpu/ops/tracer_spherical.py`` for the ``independent``
+sampler: exact free flight through concentric shells (one shell-flight
+kernel launch per event), next-event estimation aimed straight at the
+directional sun, Russian roulette on real interactions, and path
+regeneration.
+
+The sun transmittance at an event comes from one of two branches, as in the
+reference:
+
+- **table**: when the compiled scene carries a sun slant-tau table
+  (``sun_tau``, on up to SZA 80 by default), the event point's slant depth
+  is fetched from it by exact bilinear interpolation
+  (:func:`.spherical.sun_tau_fetch_fast`), with the ground's shadow applied
+  exactly; the flight is :func:`..kernels.shell_flight.shell_flight`;
+- **exact**: otherwise :func:`..kernels.shell_flight.shell_event` returns the
+  flight and the exact slant depth at the event point in one launch.
+
+The loop is eager and follows :mod:`.tracer`: every update is gated by
+``active``, ``path_end`` or ``regen`` where it matters, so the host reads the
+all-lanes-done flag only every ``check_every`` iterations without changing
+the result. Per-event uniforms are indexed by ``evt``, the number of events
+since the current path started (8 per event), so each sample's stream
+depends only on (seed, spectral row, pixel, global sample id, event).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import threefry
+from ..core.device import resolve_device
+from ..kernels.shell_flight import shell_event, shell_flight
+from .bsdf_ops import SUPPORTED_BSDFS, bsdf_eval, bsdf_sample_from_uniforms
+from .fastrng import bounce_uniforms, derive_keys
+from .medium import fetch_at_index
+from .phase_ops import (
+    check_phase_kinds,
+    layer_param_slots,
+    ortho_frame,
+    phase_eval_at,
+    phase_sample_at,
+    rebuild_fetched,
+)
+from .scene_state import IlluminationArrays, SphericalMediumArrays, SurfaceArrays, from_reference
+from .spherical import (
+    TAU_BLOCKED,
+    cross_norm2,
+    dot3,
+    ray_sphere_intersect,
+    sqrt_rn,
+    sun_tau_fetch_fast,
+)
+from .tracer import CHECK_EVERY, _row, lane_partition
+
+__all__ = [
+    "render_spherical",
+    "trace_paths_spherical_regen",
+    "spherical_lanes_target",
+    "flight_bounds",
+    "toa_rays",
+]
+
+#: CUDA lane-count target. The eager loop costs a roughly fixed host time per
+#: event iteration, so lanes are added until the device time per iteration
+#: matches it (PERF.md, c4 lane sweep on an H100).
+SPHERICAL_LANES_TARGET_CUDA = 2**21
+
+#: Lane-count rule of the reference (``spherical_lanes_target``), kept for
+#: the CPU so that CPU runs decompose as the reference's do.
+_LANES_LO = 2**14
+_LANES_HI = 2**16
+_QUOTA_DEEP = 24
+
+#: Cap on events per path (reference ``render_spherical`` ``max_iterations``).
+MAX_ITERATIONS = 512
+
+#: Surface offset against self-intersection, km.
+EPS_T = 1e-4
+
+
+def spherical_lanes_target(n_pix, spp, device_type="cpu"):
+    """Lane-count target: the reference's rule on the CPU, the swept
+    :data:`SPHERICAL_LANES_TARGET_CUDA` on CUDA."""
+    if device_type == "cuda":
+        return SPHERICAL_LANES_TARGET_CUDA
+    return _LANES_HI if n_pix * spp >= _LANES_HI * _QUOTA_DEEP else _LANES_LO
+
+
+def _to_local(n, v):
+    """World vectors -> local frames with +z = n."""
+    t1, t2 = ortho_frame(n)
+    return torch.stack([dot3(t1, v), dot3(t2, v), dot3(n, v)], dim=-1)
+
+
+def _to_world(n, v):
+    t1, t2 = ortho_frame(n)
+    return t1 * v[..., 0:1] + t2 * v[..., 1:2] + n * v[..., 2:3]
+
+
+def flight_bounds(p, d, radii):
+    """Distances along ``p + t d`` to the ground and to the top of the
+    atmosphere: ``(t_ground, t_exit)``, ``t_ground`` inf where the ray
+    misses the ground. The flight cap is their minimum."""
+    r_ground = radii[0]
+    tgn, tgf, hit_g = ray_sphere_intersect(p, d, r_ground)
+    inside = dot3(p, p) < r_ground * r_ground
+    t_ground = torch.where(
+        hit_g & (tgn > EPS_T),
+        tgn,
+        torch.where(hit_g & (tgf > EPS_T) & (tgn <= EPS_T) & inside, tgf, torch.inf),
+    )
+    _, ttf, _ = ray_sphere_intersect(p, d, radii[-1])
+    return t_ground, torch.clamp(ttf, min=EPS_T)
+
+
+def _make_event(config, medium_row, surface_row, illum_row):
+    """Per-event transition shared by every lane: returns
+    ``event(evt, p, d, beta, depth, keys)`` ->
+    ``(contribution, p', d', beta', depth', alive')``."""
+    radii = medium_row.radii
+    sigma = medium_row.sigma_t
+    r_ground = radii[0]
+    d_sun = illum_row.direction
+    w_sun = -d_sun
+    E_sun = illum_row.irradiance
+    use_table = medium_row.sun_tau is not None
+
+    C = len(config.phase_kinds)
+    param_tables, param_slots = layer_param_slots(
+        config.phase_kinds, medium_row.phase_params
+    )
+    # albedo, blend weights and layer-indexed phase parameters: one gather
+    fetch_tables = torch.stack(
+        [medium_row.albedo]
+        + [medium_row.phase_weights[c] for c in range(C)]
+        + param_tables
+    )
+
+    def event(evt, p, d, beta, depth, keys):
+        U = bounce_uniforms(keys, evt, 8)
+        u_dist = U[:, 0]
+        u_ph_sel, u_ph_cos, u_ph_phi = U[:, 1], U[:, 2:4], U[:, 4]
+        u_srf = U[:, 5:7]
+        u_rr = U[:, 7]
+
+        t_ground, t_exit = flight_bounds(p, d, radii)
+        t_max = torch.minimum(t_ground, t_exit)
+
+        # exact free flight, and the sun's slant depth at the event point
+        tau_s = -torch.log1p(-u_dist)
+        if use_table:
+            accept, t_col, layer = shell_flight(p, d, t_max, radii, sigma, tau_s)
+            t_step = torch.where(accept, t_col, t_max)
+            p_new = p + d * t_step[:, None]
+            r_ev = sqrt_rn(dot3(p_new, p_new))
+            mu_ev = dot3(p_new, w_sun) / torch.clamp(r_ev, min=1e-12)
+            blocked = (mu_ev < 0.0) & (cross_norm2(p_new, w_sun) <= r_ground * r_ground)
+            tau_fetch = sun_tau_fetch_fast(
+                medium_row.sun_tau, medium_row.sun_r_grid, medium_row.sun_mu_warp,
+                r_ev, mu_ev,
+            )
+            tau_sun = torch.where(blocked, TAU_BLOCKED, tau_fetch)
+        else:
+            accept, t_col, layer, tau_sun = shell_event(
+                p, d, t_max, radii, sigma, tau_s, w_sun
+            )
+            t_step = torch.where(accept, t_col, t_max)
+            p_new = p + d * t_step[:, None]
+
+        hit_surface = (~accept) & (t_ground <= t_exit) & config.has_surface
+
+        fetched = fetch_at_index(layer, fetch_tables)
+        albedo_col = fetched[0]
+        weights_at = fetched[1 : 1 + C].T  # [B, C]
+        params_at = rebuild_fetched(config.phase_kinds, param_slots, fetched[1 + C :])
+
+        # one sun transmittance serves the volume and the surface branch
+        T_sun = torch.exp(-torch.clamp(tau_sun, max=80.0))
+
+        # ---- volume collision ------------------------------------------
+        cos_nee = dot3(-d, d_sun)
+        p_nee = phase_eval_at(config.phase_kinds, weights_at, params_at, cos_nee)
+        L_col = beta * albedo_col * p_nee * T_sun * E_sun
+        d_col = phase_sample_at(
+            config.phase_kinds, weights_at, params_at, d, u_ph_sel, u_ph_cos, u_ph_phi
+        )
+        beta_col = beta * albedo_col
+
+        # ---- surface interaction ---------------------------------------
+        r_new = sqrt_rn(dot3(p_new, p_new))
+        n_srf = p_new / torch.clamp(r_new, min=1e-12)[:, None]
+        mu_sun_srf = dot3(n_srf, w_sun)
+        wo_local = _to_local(n_srf, -d)
+        wi_sun_local = _to_local(n_srf, w_sun.expand_as(p_new))
+        f_nee = bsdf_eval(config.surface_kind, surface_row.params, wi_sun_local, wo_local)
+        L_srf = beta * f_nee * torch.clamp(mu_sun_srf, min=0.0) * T_sun * E_sun
+        d_srf_local, w_srf = bsdf_sample_from_uniforms(
+            config.surface_kind, surface_row.params, wo_local, u_srf
+        )
+        d_srf = _to_world(n_srf, d_srf_local)
+        beta_srf = beta * w_srf
+        p_srf = p_new + n_srf * EPS_T  # lifted off the surface
+
+        # ---- combine ----------------------------------------------------
+        contribution = torch.where(accept, L_col, torch.where(hit_surface, L_srf, 0.0))
+        p2 = torch.where(hit_surface[:, None], p_srf, p_new)
+        d2 = torch.where(
+            accept[:, None], d_col, torch.where(hit_surface[:, None], d_srf, d)
+        )
+        beta2 = torch.where(accept, beta_col, torch.where(hit_surface, beta_srf, beta))
+        interacted = accept | hit_surface
+        alive2 = interacted & (beta2 > 0.0)
+        depth2 = depth + (interacted & alive2)
+
+        # ---- Russian roulette on real interactions past rr_depth --------
+        do_rr = interacted & (depth2 >= config.rr_depth)
+        q = torch.clamp(beta2, 0.0, 0.95)
+        survive = u_rr < q
+        beta2 = torch.where(do_rr & alive2 & survive, beta2 / q, beta2)
+        alive2 = alive2 & (survive | ~do_rr) & (depth2 < config.max_depth)
+        return contribution, p2, d2, beta2, depth2, alive2
+
+    return event
+
+
+def trace_paths_spherical_regen(
+    config, medium_row, surface_row, illum_row, init_p, init_d, row_key,
+    lane_first, quota, max_iterations=MAX_ITERATIONS, check_every=CHECK_EVERY,
+):
+    """Regenerative shell trace: lane ``l`` renders samples ``lane_first[l] ..
+    lane_first[l] + quota[l] - 1`` of its pixel, each path starting at
+    ``init_p`` [B, 3] along ``init_d`` [B, 3].
+
+    Returns ``(L_sum, m2_sum, iterations)``: per-lane sums of sample
+    contributions and of their squares, and the event iterations run.
+    """
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    B = init_p.shape[0]
+    dev = init_p.device
+    event = _make_event(config, medium_row, surface_row, illum_row)
+
+    s_local = torch.zeros(B, dtype=torch.int64, device=dev)
+    evt = torch.zeros(B, dtype=torch.int64, device=dev)
+    depth = torch.zeros(B, dtype=torch.int64, device=dev)
+    keys = derive_keys(row_key, lane_first)
+    p, d = init_p, init_d
+    beta = torch.ones(B, device=dev)
+    L_cur = torch.zeros(B, device=dev)
+    L_sum = torch.zeros(B, device=dev)
+    m2_sum = torch.zeros(B, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+
+    iterations = 0
+    while True:
+        contribution, p2, d2, beta2, depth2, alive2 = event(evt, p, d, beta, depth, keys)
+        active = ~done
+        L_cur = L_cur + torch.where(active, contribution, 0.0)
+        evt = evt + 1
+        path_end = active & (~alive2 | (evt >= max_iterations))
+
+        L_sum = L_sum + torch.where(path_end, L_cur, 0.0)
+        m2_sum = m2_sum + torch.where(path_end, L_cur * L_cur, 0.0)
+        s_local = s_local + path_end
+        done = done | (s_local >= quota)
+
+        # regenerate: fresh path for the lane's next sample
+        regen = path_end & ~done
+        keys = torch.where(regen[:, None], derive_keys(row_key, lane_first + s_local), keys)
+        p = torch.where(regen[:, None], init_p, p2)
+        d = torch.where(regen[:, None], init_d, d2)
+        beta = torch.where(regen, 1.0, beta2)
+        depth = torch.where(regen, 0, depth2)
+        evt = torch.where(regen, 0, evt)
+        L_cur = torch.where(path_end, 0.0, L_cur)
+
+        iterations += 1
+        if iterations % check_every == 0 and bool(done.all()):
+            return L_sum, m2_sum, iterations
+
+
+def toa_rays(w_v, target, r_top):
+    """Path starts for viewing directions ``w_v`` [B, 3] (toward the
+    sensor): the point at radius ``r_top`` on the viewing ray through
+    ``target``, and the direction ``-w_v`` into the atmosphere."""
+    _, t_far, _ = ray_sphere_intersect(target.expand(w_v.shape), w_v, r_top)
+    return target + w_v * t_far[:, None], -w_v
+
+
+def _render_row_spherical(
+    config, n_pix, spp, medium_row, surface_row, illum_row, directions, target,
+    key, lanes_target, check_every,
+):
+    """One spectral row; returns (radiance [N], m2 [N], iterations)."""
+    lp, pix, _, lane_first, quota = lane_partition(
+        n_pix, spp, lanes_target, directions.device
+    )
+    init_p, init_d = toa_rays(directions[pix], target, medium_row.radii[-1])
+    L_sum, m2_sum, iterations = trace_paths_spherical_regen(
+        config, medium_row, surface_row, illum_row, init_p, init_d, key,
+        lane_first, quota, check_every=check_every,
+    )
+    radiance = L_sum.reshape(n_pix, lp).sum(dim=1) / spp
+    m2 = m2_sum.reshape(n_pix, lp).sum(dim=1) / spp
+    return radiance, m2, iterations
+
+
+def _check_supported(config, medium):
+    """Raise ``NotImplementedError`` naming each feature this slice lacks."""
+    unsupported = {
+        "polarized transport": config.polarized,
+        f"geometry {config.geometry!r}": config.geometry != "spherical_shell",
+        f"sampler {config.sampler!r}": config.sampler != "independent",
+        f"illumination kind {config.illumination_kind!r}":
+            config.illumination_kind != "directional",
+        "lr_flight": config.lr_flight,
+        f"rng {config.rng!r}": config.rng != "pcg4d",
+        f"surface kind {config.surface_kind!r}":
+            config.surface_kind not in SUPPORTED_BSDFS,
+        "the legacy sun_tau_fetch (a sun-tau table without sun_r_grid)":
+            medium.sun_tau is not None and medium.sun_r_grid is None,
+    }
+    for feature, missing in unsupported.items():
+        if missing:
+            raise NotImplementedError(f"{feature} is not ported yet")
+    check_phase_kinds(config.phase_kinds)
+
+
+def render_spherical(
+    scene, sensor, config, spp, seed=0, *, device="cuda", lanes_target=None,
+    check_every=CHECK_EVERY,
+):
+    """Render the spectral batch of one distant-sensor bank through a
+    spherical-shell atmosphere (reference ``render_spherical``).
+
+    ``scene``/``sensor``/``config`` are a compiled scene, moved to ``device``
+    first. ``lanes_target`` (default :func:`spherical_lanes_target`) sets the
+    lane count and does not change the estimate beyond float summation
+    order.
+
+    Returns a dict with ``radiance`` [S, N], ``m2`` [S, N], ``spp`` and
+    ``iterations`` (event iterations, summed over rows).
+    """
+    _check_supported(config, scene.medium)
+    dev = resolve_device(device)
+    scene, sensor, config = from_reference(scene, sensor, config, dev)
+    med = scene.medium
+    il = scene.illumination
+    n_pix = sensor.directions.shape[0]
+    if lanes_target is None:
+        lanes_target = spherical_lanes_target(n_pix, spp, dev.type)
+    base_key = threefry.key(seed)
+
+    rads, m2s, iterations = [], [], 0
+    for s in range(med.sigma_t.shape[0]):
+        # key(seed) -> fold_in(row) -> fold_in(chunk 0), as render_spherical
+        chunk_key = threefry.fold_in(threefry.fold_in(base_key, s), 0)
+        row_key = torch.tensor(chunk_key, dtype=torch.int64, device=dev)
+        medium_row = SphericalMediumArrays(
+            radii=med.radii,
+            sigma_t=med.sigma_t[s],
+            sigma_majorant=med.sigma_majorant[s],
+            albedo=med.albedo[s],
+            phase_weights=med.phase_weights[s],
+            phase_params=tuple({k: v[s] for k, v in p.items()} for p in med.phase_params),
+            sun_tau=None if med.sun_tau is None else med.sun_tau[s],
+            mu_grid=med.mu_grid,
+            sun_r_grid=med.sun_r_grid,
+            sun_mu_warp=med.sun_mu_warp,
+        )
+        surface_row = SurfaceArrays(
+            params={k: _row(v, s) for k, v in scene.surface.params.items()}
+        )
+        illum_row = IlluminationArrays(
+            direction=il.direction,
+            irradiance=il.irradiance[s],
+            cos_cutoff=_row(il.cos_cutoff, s),
+            sky_radiance=_row(il.sky_radiance, s),
+        )
+        rad, m2, it = _render_row_spherical(
+            config, n_pix, spp, medium_row, surface_row, illum_row,
+            sensor.directions, sensor.target, row_key, lanes_target, check_every,
+        )
+        rads.append(rad)
+        m2s.append(m2)
+        iterations += it
+    return {
+        "radiance": torch.stack(rads),
+        "m2": torch.stack(m2s),
+        "spp": spp,
+        "iterations": iterations,
+    }

@@ -158,7 +158,7 @@ def test_unported_modes_raise(mode_id):
 @pytest.mark.parametrize(
     "override, name",
     [
-        ({"geometry": {"type": "spherical_shell"}}, "spherical_shell"),
+        ({"surface": {"type": "rpv"}}, "rpv"),
         ({"illumination": {"type": "constant"}}, "ConstantIllumination"),
     ],
 )
