@@ -5,13 +5,19 @@ Run from the repository root on a machine with one CUDA device:
 
     python3 chip_smoke.py
 
-Two paths run through ``eradiate_tpu_torch.run``. BASELINE config 1
+Three paths run through ``eradiate_tpu_torch.run``. BASELINE config 1
 (``bench.py`` ``_c1``): a mono single-precision plane-parallel Rayleigh
 atmosphere (AFGL, 550 nm) over a Lambertian surface (rho = 0.5), sun at
 SZA 30, seen by a 76-angle ``mdistant`` hplane sensor at 4194304 spp.
 BASELINE config 4 (``_c4``): the same column in spherical shells over a
 Hapke surface, sun at SZA 75, 15 view zeniths at 2097152 spp; at SZA 85 the
-sun-tau table is off and the exact NEE runs. Phases, each fatal on failure:
+sun-tau table is off and the exact NEE runs. The scene of BASELINE config 5
+(``_c5``) with the scalar integrator: HET01 (one 2000-leaf cloud instanced at
+15 positions, 30000 leaf disks in a 100 m x 100 m x 15 m canopy) over a
+Lambertian floor under the Rayleigh AFGL column without absorption, sun at
+SZA 20, 19 view zeniths at 2097152 spp, footprint rectangle target; once
+instanced and once as two elements, which flattens it. Phases, each fatal on
+failure:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. the build of the port's CUDA kernels from ``eradiate_tpu_torch/csrc``;
@@ -43,11 +49,33 @@ sun-tau table is off and the exact NEE runs. Phases, each fatal on failure:
 9. c4 at full width, SZA 75: one warm-up run, then a timed run; shell-flight
    launches must equal event iterations;
 10. the SZA 85 variant at full width (2097152 spp): shell-event launches
-    must equal event iterations.
+    must equal event iterations;
+11. the four leaf-sweep kernels (nearest and any hit, flat and instanced)
+    against their plain versions on the card: HET01's leaves, rays of three
+    kinds (from the top of the atmosphere toward the footprint, from inside
+    a crown in random directions, shadow rays toward the sun), clipped to
+    the canopy's box as the tracer clips them; a ragged lane count; rays
+    that miss the box; and, as a stress of the culls, random disks with rays
+    aimed at their rims. ``hit`` and ``occluded`` equal on every lane, ``t``
+    and normals bitwise, differing lanes counted and printed; each kernel
+    timed with CUDA events (median of 25) at the path's lane count, its plain
+    version once, in slices that fit the card's memory;
+12. the port on CUDA against the port on the CPU, the c5 scene at 19 view
+    zeniths and 64 spp at one seed, instanced and flat: every pixel within
+    |z| <= 5, the median pixel within 1e-4 relative;
+13. the c5 scene at full width through the instanced kernels: a warm-up,
+    then a timed run; nearest-hit and any-hit launches must each equal the
+    bounce iterations;
+14. the same canopy as two elements (positions split 8 + 7) at full width
+    through the flat kernels, and its BRF against phase 13's within
+    |z| <= 5 per pixel.
 
-It prints a ``{"kernels": [...]}`` line and the ``nvidia-smi`` line before
+It prints a ``{"kernels": [...]}`` line (each kernel with its launches on the
+main path, its error against the plain version, its time, the plain
+version's, its bound on this card and what bounds it) and the ``nvidia-smi`` line before
 the last line, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-outside the repository, it exits non-zero and prints no result.
+outside the repository, it exits non-zero and prints no result. It imports
+neither ``jax`` nor ``eradiate_tpu`` and checks so at its end.
 """
 
 import json
@@ -63,7 +91,43 @@ N_VZA = 76
 SPP_C1 = 4194304
 N_VZA_C4 = 15
 SPP_C4 = 2097152
+N_VZA_C5 = 19
+SPP_C5 = 2097152
 SEED = 1
+
+#: Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+#: bandwidth and float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+
+def bound_ms(n_bytes, flops):
+    """The least time (ms) the card could take: the larger of the bytes
+    moved over the memory rate and the float32 operations over the peak
+    rate; returns (ms, "bytes" or "operations")."""
+    by_bytes = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    by_ops = 1e3 * flops / PEAK_F32_FLOPS
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0 (just before a main-path run)."""
+    from eradiate_tpu_torch.kernels import collision_fetch as cf
+    from eradiate_tpu_torch.kernels import leaf_intersect as li
+    from eradiate_tpu_torch.kernels import shell_flight as sf
+
+    cf.launches = 0
+    sf.launches.update(dict.fromkeys(sf.launches, 0))
+    li.launches.update(dict.fromkeys(li.launches, 0))
+
+
+def read_launches():
+    """Every kernel's launch count by name (just after a main-path run)."""
+    from eradiate_tpu_torch.kernels import collision_fetch as cf
+    from eradiate_tpu_torch.kernels import leaf_intersect as li
+    from eradiate_tpu_torch.kernels import shell_flight as sf
+
+    return {"collision_fetch": cf.launches, **sf.launches, **li.launches}
 
 
 def _c1(n_vza, layer_merge_tol=1e-3):
@@ -161,7 +225,10 @@ def _time_ms(fn, reps=25):
 
 
 def check_collision_fetch(name, z_levels, tau_levels, tables, B, seed, timed=False):
-    """Kernel vs twin on the card; returns (max |dz|, kernel ms, twin ms)."""
+    """Kernel vs twin on the card; returns (max |dz|, kernel ms, twin ms,
+    (bound ms, bound by)). The bound: the queries read once, the tables read
+    once, z, layer and the fetched rows written once; a binary search of the
+    levels and one interpolation per lane."""
     import torch
 
     from eradiate_tpu_torch.kernels import collision_fetch as cf
@@ -183,13 +250,16 @@ def check_collision_fetch(name, z_levels, tau_levels, tables, B, seed, timed=Fal
             f"fetched bitwise, z max ulp {ulps}")
     if ulps:
         line += " (rounding of the interpolation differs by one ulp)"
-    kernel_ms = plain_ms = None
+    kernel_ms = plain_ms = bound = None
     if timed:
         kernel_ms = _time_ms(lambda: cf.collision_fetch(*args))
         plain_ms = _time_ms(lambda: cf.collision_fetch_plain(*args))
-        line += f"; kernel {kernel_ms:.4f} ms, twin {plain_ms:.4f} ms (median)"
+        n_bytes = sum(t.numel() * t.element_size() for t in args + tuple(got))
+        bound = bound_ms(n_bytes, B * (int(np.ceil(np.log2(tables.shape[1] + 1))) + 6))
+        line += (f"; kernel {kernel_ms:.4f} ms, twin {plain_ms:.4f} ms (median), bound "
+                 f"{bound[0]:.4f} ms by {bound[1]}")
     print(line, flush=True)
-    return err, kernel_ms, plain_ms
+    return err, kernel_ms, plain_ms, bound
 
 
 def _shell_inputs(exp, B, seed, vacuum=False, device="cuda"):
@@ -248,7 +318,12 @@ def _shell_inputs(exp, B, seed, vacuum=False, device="cuda"):
 
 def check_shell_kernels(name, args, timed=False):
     """K2 and K3 against their twins on the card, bitwise; returns
-    ({kernel: max abs error}, {kernel: (kernel ms, twin ms)})."""
+    ({kernel: max abs error}, {kernel: (kernel ms, twin ms)}, {kernel: (bound
+    ms, bound by)}). The bound: the lanes' state and the column read once, the
+    outputs written once; per lane the levels its two sweeps have to visit on
+    this data (up to the event's shell, ~8 float32 operations a level, a
+    square root among them) and, for shell_event, ~30 operations a shell
+    for every lane that is not in the ground's shadow."""
     import torch
 
     from eradiate_tpu_torch.kernels import shell_flight as sf
@@ -258,7 +333,8 @@ def check_shell_kernels(name, args, timed=False):
         "shell_flight": (sf.shell_flight, sf.shell_flight_plain, flight_args),
         "shell_event": (sf.shell_event, sf.shell_event_plain, args),
     }
-    errs, times = {}, {}
+    errs, times, bounds = {}, {}, {}
+    L = args[4].shape[0]
     for kernel, (fn, plain, a) in checks.items():
         got, want = fn(*a), plain(*a)
         for label, g, w in zip(("collide", "t_col", "layer", "tau_sun"), got, want):
@@ -271,15 +347,21 @@ def check_shell_kernels(name, args, timed=False):
         errs[kernel] = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
         if timed:
             times[kernel] = (_time_ms(lambda: fn(*a)), _time_ms(lambda: plain(*a), reps=5))
+            n_bytes = sum(t.numel() * t.element_size() for t in tuple(a) + tuple(got))
+            flops = 8.0 * 2.0 * float((got[2].double() + 1.0).sum()) + 40.0 * a[0].shape[0]
+            if kernel == "shell_event":
+                flops += 30.0 * L * float((got[3] < 1e9).sum())
+            bounds[kernel] = bound_ms(n_bytes, flops)
     collide = got[0].float().mean().item()
     blocked = (got[3] >= 1e9).float().mean().item()
     line = (f"  {name}: B={args[0].shape[0]} L={args[4].shape[0]} collide, t_col, "
             f"layer, tau_sun bitwise for both kernels (collide share {collide:.3f}, "
             f"ground-shadowed share {blocked:.3f})")
     for kernel, (k_ms, p_ms) in times.items():
-        line += f"; {kernel} kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms"
+        line += (f"; {kernel} kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms, bound "
+                 f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
     print(line, flush=True)
-    return errs, times
+    return errs, times, bounds
 
 
 def c4_cuda_vs_cpu(sza):
@@ -309,20 +391,17 @@ def c4_full_width(sza, spp, phase):
     import torch
 
     import eradiate_tpu_torch as etp
-    from eradiate_tpu_torch.kernels import collision_fetch as cf
-    from eradiate_tpu_torch.kernels import shell_flight as sf
 
     exp = _c4(sza)
     etp.run(exp, spp=spp if phase == 9 else 4096, seed_state=etp.SeedState(0), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cf.launches = 0
-    sf.launches.update(shell_flight=0, shell_event=0)
+    reset_launches()
     t0 = time.perf_counter()
     ds = etp.run(exp, spp=spp, seed_state=etp.SeedState(SEED), device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"collision_fetch": cf.launches, **sf.launches}
+    launches = read_launches()
     iterations = exp.measures[0].results["raw"]["iterations"]
     brf = np.asarray(ds["brf"])
     samples = N_VZA_C4 * spp
@@ -343,6 +422,317 @@ def c4_full_width(sza, spp, phase):
     return launches
 
 
+def _c5(flat=False):
+    """The scene of BASELINE config 5 (``bench.py`` ``_c5``) with the scalar
+    integrator; ``flat`` gives the same canopy as two elements (positions
+    split 8 + 7), which the experiment flattens."""
+    from eradiate_tpu_torch import CanopyAtmosphereExperiment
+    from eradiate_tpu_torch.scenes.biosphere import DiscreteCanopy
+    from eradiate_tpu_torch.test_tools.test_cases import create_het01_brfpp
+
+    canopy = create_het01_brfpp(n_vza=N_VZA_C5).canopy
+    if flat:
+        el = canopy.instanced_canopy_elements[0]
+        pos = np.atleast_2d(el.instance_positions)
+        canopy = DiscreteCanopy(
+            size=(100.0, 100.0, 15.0),
+            instanced_canopy_elements=[
+                {"type": "instanced", "canopy_element": el.canopy_element,
+                 "instance_positions": part}
+                for part in (pos[:8], pos[8:])
+            ],
+        )
+    return CanopyAtmosphereExperiment(
+        canopy=canopy,
+        atmosphere={"type": "molecular", "has_absorption": False},
+        illumination={"type": "directional", "zenith": 20.0, "azimuth": 0.0},
+        measures={
+            "type": "mdistant",
+            "construct": "hplane",
+            "zeniths": np.linspace(-75, 75, N_VZA_C5),
+            "azimuth": 0.0,
+            "id": "m",
+        },
+        surface={"type": "lambertian", "reflectance": 0.159},
+        integrator={"type": "volpath"},
+    )
+
+
+def _leaf_inputs(exp, B, seed, miss=False, device="cuda"):
+    """Leaf-sweep operands for ``B`` lanes of the c5 scene: a third rays from
+    the top of the atmosphere along the view directions toward the jittered
+    footprint, a third from inside a crown in random directions, a third
+    shadow rays toward the sun from random points of the canopy's box
+    (``miss``: every ray passes beside the box), all clipped to the box as
+    the tracer clips them, then sorted by the tracer's Morton code. Returns
+    ``(leaves, spheres, p, d, t_cap)``."""
+    import torch
+
+    from eradiate_tpu_torch.ops.canopy import _advance_to_aabb, leaf_spheres
+    from eradiate_tpu_torch.ops.scene_state import canopy_from_reference
+    from eradiate_tpu_torch.ops.tracer_canopy import _morton_u32
+
+    m = exp.measures[0]
+    scene, sensor, _, leaf_params, leaves, _, _ = exp.compile_canopy_scene(
+        m, exp.spectral_context(m)
+    )
+    leaves, _ = canopy_from_reference(leaves, leaf_params, device)
+    spheres, lo, hi = leaf_spheres(leaves)
+    rng = np.random.default_rng(seed)
+    n0, n1 = B // 3, B // 3
+    n2 = B - n0 - n1
+    lo_n, hi_n = lo.cpu().numpy(), hi.cpu().numpy()
+
+    dirs = np.asarray(sensor.directions, np.float32)
+    w_v = dirs[np.arange(n0) % len(dirs)]
+    ext = np.asarray(sensor.target_extent, np.float64)
+    tgt = np.asarray(sensor.target, np.float64) + np.concatenate(
+        [(rng.uniform(0, 1, (n0, 2)) - 0.5) * ext, np.zeros((n0, 1))], axis=1
+    )
+    t_up = (float(scene.medium.z_levels[-1]) - tgt[:, 2]) / np.maximum(w_v[:, 2], 1e-6)
+    p0, d0 = tgt + w_v * t_up[:, None], -w_v
+    t0 = t_up + rng.uniform(0.0, 0.03, n0)  # down to about the ground
+
+    offsets = np.concatenate(
+        [np.atleast_2d(el.instance_positions) for el in exp.canopy.instanced_canopy_elements]
+    )
+    v = rng.normal(size=(n1, 3))
+    v *= (5e-3 * rng.uniform(0, 1, (n1, 1)) ** (1 / 3)) / np.linalg.norm(v, axis=1, keepdims=True)
+    p1 = offsets[rng.integers(0, len(offsets), n1)] + [0.0, 0.0, 1e-2] + v
+    d1 = rng.normal(size=(n1, 3))
+    d1 /= np.linalg.norm(d1, axis=1, keepdims=True)
+    t1 = rng.uniform(1e-4, 5e-2, n1)
+
+    p2 = rng.uniform(lo_n, hi_n, (n2, 3))
+    d2 = np.tile(-np.asarray(scene.illumination.direction, np.float64), (n2, 1))
+    t2 = np.full(n2, 1e6)
+
+    p = np.concatenate([p0, p1, p2])
+    if miss:
+        p[:, 0] += 1.0  # a kilometre beside the canopy
+    p, d, t_max = (
+        torch.tensor(np.asarray(a, np.float32), device=device)
+        for a in (p, np.concatenate([d0, d1, d2]), np.concatenate([t0, t1, t2]))
+    )
+    p_adv, _, t_cap = _advance_to_aabb(p, d, t_max, lo, hi)
+    order = torch.argsort(_morton_u32(p_adv, lo, hi), stable=True)
+    return leaves, spheres, p_adv[order].contiguous(), d[order].contiguous(), t_cap[order]
+
+
+def _rim_inputs(instanced, B, seed, device="cuda"):
+    """A synthetic stress of the kernels' culls: 1000 random disks (radii 0.05
+    to 0.2 in a box of side 2, at three offsets when ``instanced``) and rays
+    aimed at points on, just inside and just outside their rims, with caps
+    that end on, just before and just behind the rim point. Same return as
+    :func:`_leaf_inputs`."""
+    import torch
+
+    from eradiate_tpu_torch.kernels.leaf_intersect import sweep_spheres
+    from eradiate_tpu_torch.ops.canopy import (
+        InstancedLeafArrays,
+        LeafCloudArrays,
+        morton_order,
+    )
+
+    rng = np.random.default_rng(seed)
+    N = 1000
+    c = rng.uniform(-1, 1, (N, 3))
+    c = c[morton_order(c)]
+    n = rng.normal(size=(N, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    r = rng.uniform(0.05, 0.2, N)
+    offsets = np.array([[0.0, 0, 0], [5.0, 0, 0], [0, 7.0, 0]]) if instanced else np.zeros((1, 3))
+    leaf = rng.integers(0, N, B)
+    u = np.cross(n[leaf], rng.normal(size=(B, 3)))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    rim = c[leaf] + (r[leaf] * (1 + rng.choice([0.0, 1e-7, -1e-7, 1e-6, -1e-6, -0.5], B)))[:, None] * u
+    rim = rim + offsets[rng.integers(0, len(offsets), B)]
+    back = rng.normal(size=(B, 3))
+    back /= np.linalg.norm(back, axis=1, keepdims=True)
+    dist = rng.uniform(0.5, 3.0, B)
+    p = rim + back * dist[:, None]
+    t_max = dist * rng.choice([2.0, 1.0, 1 + 1e-7, 1 - 1e-7], B)
+    to_dev = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    cloud = LeafCloudArrays(to_dev(c), to_dev(n), to_dev(r))
+    leaves = InstancedLeafArrays(cloud, to_dev(offsets)) if instanced else cloud
+    spheres = sweep_spheres(cloud.centers, cloud.normals, cloud.radii)
+    return leaves, spheres, to_dev(p), to_dev(-back), to_dev(t_max)
+
+
+def _leaf_calls(leaves, spheres, rays):
+    """{kernel: (wrapper, plain version, arguments)} for one leaf set."""
+    from eradiate_tpu_torch.kernels import leaf_intersect as li
+
+    if hasattr(leaves, "canonical"):
+        c = leaves.canonical
+        args = (*rays, c.centers, c.normals, c.radii, leaves.offsets)
+        names = ("ray_leaves_nearest_instanced", "ray_leaves_occluded_instanced")
+    else:
+        args = (*rays, leaves.centers, leaves.normals, leaves.radii)
+        names = ("ray_leaves_nearest", "ray_leaves_occluded")
+    return {
+        n: ((lambda a, fn=getattr(li, n): fn(*a, spheres)), getattr(li, n + "_plain"), args)
+        for n in names
+    }
+
+
+def _sliced(plain, args, lanes=2**17):
+    """Run a plain version over the lanes (the first three arguments: p, d,
+    t_max) in slices that fit the card's memory: its [lanes, 512] float64
+    temporaries would take about 8 GiB each at 2^21 lanes."""
+    import torch
+
+    B = args[0].shape[0]
+    outs = []
+    for start in range(0, B, lanes):
+        sl = slice(start, start + lanes)
+        out = plain(*[a[sl] for a in args[:3]], *args[3:])
+        outs.append(out if isinstance(out, tuple) else (out,))
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _reach_pairs(rays, cap, occluded, leaves, spheres):
+    """Disk tests this data needs at the kernels' cull granularity: for each
+    ray the 128-leaf groups whose sphere its segment (up to ``cap``) reaches,
+    over all instances; an occluded shadow ray needs one group."""
+    import torch
+
+    p, d, _ = rays
+    offsets = leaves.offsets if hasattr(leaves, "canonical") else p.new_zeros((1, 3))
+    groups = spheres[1:]
+    pairs = torch.zeros(p.shape[0], dtype=torch.int64, device=p.device)
+    for off in offsets:
+        for g in groups:
+            v = g[:3] - (p - off)
+            tc = torch.minimum(torch.clamp((v * d).sum(-1), min=0.0), cap)
+            e = v - d * tc[:, None]
+            pairs += (e * e).sum(-1) <= g[3]
+    if occluded is not None:
+        pairs = torch.where(occluded, torch.clamp(pairs, max=1), pairs)
+    return int(pairs.sum())
+
+
+def check_leaf_kernels(name, exp, B, seed, miss=False, timed=False):
+    """The two leaf-sweep kernels of ``exp``'s leaf set (flat or instanced;
+    ``exp`` "flat" or "instanced" takes the synthetic rim stress of
+    :func:`_rim_inputs` instead) against their plain versions on the card;
+    returns ({kernel: max abs
+    error}, {kernel: (kernel ms, plain ms)}, {kernel: (bound ms, bound by)}).
+
+    The bound: rays read once (28 bytes a lane), the leaf table and spheres
+    read once, the outputs written once (17 bytes a lane for nearest, 1 for
+    any hit); the disk tests the data needs (:func:`_reach_pairs` groups of
+    up to 128 leaves, ~30 float32 operations a test)."""
+    import torch
+
+    from eradiate_tpu_torch.kernels.leaf_intersect import GROUP
+
+    leaves, spheres, *rays = (
+        _rim_inputs(exp == "instanced", B, seed) if isinstance(exp, str)
+        else _leaf_inputs(exp, B, seed, miss=miss)
+    )
+    errs, times, bounds, notes = {}, {}, {}, []
+    for kernel, (fn, plain, args) in _leaf_calls(leaves, spheres, rays).items():
+        got = fn(args)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        # the plain version runs once: the run that is compared is the run
+        # that is timed
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        want = _sliced(plain, args)
+        end.record()
+        end.synchronize()
+        labels = ("t", "normal", "hit") if len(got) == 3 else ("occluded",)
+        err = 0.0
+        for label, g, w in zip(labels, got, want):
+            differ = int((g != w).reshape(B, -1).any(dim=1).sum())
+            if differ:
+                detail = f"{differ} of {B} lanes"
+                if g.dtype == torch.float32:
+                    ulps = _ulps(g.cpu().numpy().ravel(), w.cpu().numpy().ravel())
+                    detail += f", max {int(ulps.max())} ulp"
+                raise AssertionError(
+                    f"{name}: {kernel} {label} differs from the plain version: {detail}"
+                )
+            err = max(err, float((g.float() - w.float()).abs().max()))
+        errs[kernel] = err
+        share = float(got[-1].float().mean())
+        notes.append(f"{kernel} {'hit' if len(got) == 3 else 'occluded'} share {share:.3f}")
+        if timed:
+            times[kernel] = (_time_ms(lambda: fn(args)), start.elapsed_time(end))
+            tensors = tuple(args) + (spheres,) + got
+            n_bytes = sum(t.numel() * t.element_size() for t in tensors)
+            cap, occ = (got[0], None) if len(got) == 3 else (rays[2], got[0])
+            pairs = _reach_pairs(rays, cap, occ, leaves, spheres)
+            bounds[kernel] = bound_ms(n_bytes, 30.0 * GROUP * pairs)
+            notes[-1] += (f", kernel {times[kernel][0]:.4f} ms, plain "
+                          f"{times[kernel][1]:.1f} ms, {pairs / B:.2f} groups a ray, bound "
+                          f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
+    n_leaves = (leaves.canonical if hasattr(leaves, "canonical") else leaves).centers.shape[0]
+    print(f"  {name}: B={B} N={n_leaves} every output bitwise, 0 lanes differ; "
+          + "; ".join(notes), flush=True)
+    return errs, times, bounds
+
+
+def c5_cuda_vs_cpu(flat):
+    """Phase 12 for one form of the canopy."""
+    import eradiate_tpu_torch as etp
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        out[dev] = etp.run(_c5(flat), spp=64, seed_state=etp.SeedState(SEED), device=dev)
+    brf_g, brf_c = (np.asarray(out[d]["brf"]) for d in ("cuda", "cpu"))
+    rad_g, rad_c = (np.asarray(out[d]["radiance"]) for d in ("cuda", "cpu"))
+    var = np.asarray(out["cuda"]["var"]) + np.asarray(out["cpu"]["var"])
+    rel = np.abs(brf_g - brf_c) / np.abs(brf_c)
+    zmax = float(np.max(np.abs(rad_g - rad_c) / np.sqrt(var)))
+    form = "flat" if flat else "instanced"
+    print(f"[12] c5 scene ({form}), {N_VZA_C5} VZA 64 spp, CUDA vs CPU: max rel BRF diff "
+          f"{rel.max():.3e}, median {np.median(rel):.3e} (bound 1e-4), max |z| {zmax:.3e} "
+          f"(bound 5)", flush=True)
+    if not (np.isfinite(brf_g).all() and np.median(rel) <= 1e-4 and zmax <= 5.0):
+        raise AssertionError(f"CUDA and CPU runs of the port disagree on the c5 scene ({form})")
+
+
+def c5_full_width(flat, spp, phase):
+    """Phases 13 and 14: a warm-up, then one timed run of the c5 scene at
+    ``spp``; returns (launch counts of the run by kernel, the dataset)."""
+    import torch
+
+    import eradiate_tpu_torch as etp
+
+    exp = _c5(flat)
+    etp.run(exp, spp=4096, seed_state=etp.SeedState(0), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    ds = etp.run(exp, spp=spp, seed_state=etp.SeedState(SEED), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    iterations = exp.measures[0].results["raw"]["iterations"]
+    brf = np.asarray(ds["brf"])
+    samples = N_VZA_C5 * spp
+    form = "flat, two elements" if flat else "instanced"
+    print(f"[{phase}] c5 scene ({form}) full width: {N_VZA_C5} VZA x {spp} spp = {samples} "
+          f"samples, wall {wall:.3f} s, {samples / wall:.4e} samples/s, {iterations} bounce "
+          f"iterations ({1e3 * wall / iterations:.3f} ms each), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"    launches {launches}; BRF finite {bool(np.isfinite(brf).all())}, shape "
+          f"{brf.shape}, BRF at nadir: {brf[0, N_VZA_C5 // 2]:.6f}", flush=True)
+    suffix = "" if flat else "_instanced"
+    mine = [f"ray_leaves_nearest{suffix}", f"ray_leaves_occluded{suffix}"]
+    if not all(launches[k] > 0 and launches[k] == iterations for k in mine):
+        raise AssertionError(f"the c5 scene ({form}) did not launch {mine} once per bounce")
+    if any(n for k, n in launches.items() if k not in mine):
+        raise AssertionError(f"the c5 scene ({form}) launched a kernel of another path")
+    if brf.shape != (1, N_VZA_C5) or not np.isfinite(brf).all():
+        raise AssertionError("c5 BRF is not finite or has the wrong shape")
+    return launches, ds
+
+
 def main():
     import torch
 
@@ -353,9 +743,8 @@ def main():
 
     import eradiate_tpu_torch as etp
     from eradiate_tpu_torch.kernels import _build
-    from eradiate_tpu_torch.kernels import collision_fetch as cf
-    from eradiate_tpu_torch.kernels import shell_flight as sf
     from eradiate_tpu_torch.ops.tracer import REGEN_LANES_TARGET, lane_partition
+    from eradiate_tpu_torch.ops.tracer_canopy import LANES_TARGET as CANOPY_LANES_TARGET
     from eradiate_tpu_torch.ops.tracer_spherical import spherical_lanes_target
 
     etp.set_mode("mono_single")
@@ -382,7 +771,7 @@ def main():
     c1_fetch = _fetch_inputs(_c1(N_VZA))
     lp = lane_partition(N_VZA, SPP_C1, REGEN_LANES_TARGET["cuda"], "cpu")[0]
     B = N_VZA * lp
-    err, kernel_ms, plain_ms = check_collision_fetch(
+    err, kernel_ms, plain_ms, fetch_bound = check_collision_fetch(
         "c1 merged column", *c1_fetch, B, seed=0, timed=True
     )
     check_collision_fetch("c1 merged column, ragged", *c1_fetch, B + 37, seed=1)
@@ -417,13 +806,13 @@ def main():
     etp.run(exp, spp=SPP_C1, seed_state=etp.SeedState(0), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cf.launches = 0
-    sf.launches.update(shell_flight=0, shell_event=0)
+    reset_launches()
     t0 = time.perf_counter()
     ds = etp.run(exp, spp=SPP_C1, seed_state=etp.SeedState(SEED), device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cf.launches
+    c1_launches = read_launches()
+    launches = c1_launches["collision_fetch"]
     iterations = exp.measures[0].results["raw"]["iterations"]
     brf = np.asarray(ds["brf"])
     vza = np.asarray(ds["vza"])
@@ -439,8 +828,8 @@ def main():
           f"jax imported: {'jax' in sys.modules}", flush=True)
     if not (launches > 0 and launches == iterations):
         raise AssertionError("the main path did not run through the kernel once per bounce")
-    if any(sf.launches.values()):
-        raise AssertionError("c1 launched a shell kernel")
+    if any(n for k, n in c1_launches.items() if k != "collision_fetch"):
+        raise AssertionError("c1 launched a kernel of another path")
     if brf.shape != (1, N_VZA) or not np.isfinite(brf).all():
         raise AssertionError("c1 BRF is not finite or has the wrong shape")
     if "jax" in sys.modules:
@@ -463,13 +852,15 @@ def main():
                         "cpu")[0]
     B4 = N_VZA_C4 * lp
     c4_args = _shell_inputs(_c4(), B4, seed=10)
-    shell_errs, shell_times = check_shell_kernels("c4 column", c4_args, timed=True)
+    shell_errs, shell_times, shell_bounds = check_shell_kernels(
+        "c4 column", c4_args, timed=True
+    )
     for name, args in (
         ("c4 column, ragged", _shell_inputs(_c4(), 100_037, seed=11)),
         ("unmerged 1200-shell column", _shell_inputs(_c4(85.0, None), 2**18, seed=12)),
         ("c4 column with vacuum shells", _shell_inputs(_c4(), 2**18, seed=13, vacuum=True)),
     ):
-        errs, _ = check_shell_kernels(name, args)
+        errs, _, _ = check_shell_kernels(name, args)
         shell_errs = {k: max(v, errs[k]) for k, v in shell_errs.items()}
 
     # -- 8. c4: port on CUDA against port on CPU -----------------------------
@@ -482,21 +873,74 @@ def main():
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
-    def entry(name, source, replaces, n, err, ms, plain):
+    # -- 11. leaf-sweep kernels against their plain versions ----------------
+    print("[11] leaf-sweep kernels against their plain versions", flush=True)
+    lp = lane_partition(N_VZA_C5, SPP_C5, CANOPY_LANES_TARGET["cuda"], "cpu")[0]
+    B5 = N_VZA_C5 * lp
+    leaf_errs, leaf_times, leaf_bounds = {}, {}, {}
+    for flat in (False, True):
+        form = "flat" if flat else "instanced"
+        exp = _c5(flat)
+        errs, times, bounds = check_leaf_kernels(
+            f"HET01 {form}, the path's lane count", exp, B5, seed=20, timed=True
+        )
+        leaf_times.update(times)
+        leaf_bounds.update(bounds)
+        for label, case, B, miss in (
+            (f"HET01 {form}, ragged", exp, 100_037, False),
+            (f"HET01 {form}, rays beside the box", exp, 2**16, True),
+            (f"random disks {form}, rays at the rims", form, 2**17, False),
+        ):
+            more, _, _ = check_leaf_kernels(label, case, B, seed=21, miss=miss)
+            errs = {k: max(v, more[k]) for k, v in errs.items()}
+        leaf_errs.update(errs)
+
+    # -- 12. c5 scene: port on CUDA against port on CPU ----------------------
+    for flat in (False, True):
+        c5_cuda_vs_cpu(flat)
+
+    # -- 13, 14. c5 scene at full width -------------------------------------
+    c5_launches, ds_inst = c5_full_width(False, SPP_C5, phase=13)
+    c5f_launches, ds_flat = c5_full_width(True, SPP_C5, phase=14)
+    rad_i, rad_f = (np.asarray(ds["radiance"]) for ds in (ds_inst, ds_flat))
+    var = np.asarray(ds_inst["var"]) + np.asarray(ds_flat["var"])
+    z = np.abs(rad_i - rad_f) / np.sqrt(var)
+    rel = np.abs(rad_i - rad_f) / np.abs(rad_i)
+    print(f"     instanced against flat: max |z| {z.max():.3e} (bound 5), max rel "
+          f"{rel.max():.3e}", flush=True)
+    if not z.max() <= 5.0:
+        raise AssertionError("the instanced and the flat c5 scene disagree")
+    for mod in ("jax", "eradiate_tpu"):
+        if mod in sys.modules:
+            raise AssertionError(f"{mod} was imported")
+
+    def entry(name, source, replaces, n, err, times, bound):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain}
+                "launches": n, "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
 
     shell_src = "eradiate_tpu_torch/csrc/shell_flight.cu"
+    leaf_src = "eradiate_tpu_torch/csrc/leaf_intersect.cu"
+    leaf_ref = "eradiate_tpu/ops/pallas/leaf_intersect.py"
+    leaf_lines = {"ray_leaves_nearest": 383, "ray_leaves_occluded": 437,
+                  "ray_leaves_nearest_instanced": 533, "ray_leaves_occluded_instanced": 550}
+    # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [
         entry("collision_fetch", "eradiate_tpu_torch/csrc/collision_fetch.cu",
-              "eradiate_tpu/ops/pallas/collision_fetch.py:59", launches, err, kernel_ms,
-              plain_ms),
+              "eradiate_tpu/ops/pallas/collision_fetch.py:59", launches, err,
+              (kernel_ms, plain_ms), fetch_bound),
         entry("shell_flight", shell_src, "eradiate_tpu/ops/pallas/shell_flight.py:405",
               c4_launches["shell_flight"], shell_errs["shell_flight"],
-              *shell_times["shell_flight"]),
+              shell_times["shell_flight"], shell_bounds["shell_flight"]),
         entry("shell_event", shell_src, "eradiate_tpu/ops/pallas/shell_flight.py:326",
               c4x_launches["shell_event"], shell_errs["shell_event"],
-              *shell_times["shell_event"]),
+              shell_times["shell_event"], shell_bounds["shell_event"]),
+        *[
+            entry(k, leaf_src, f"{leaf_ref}:{line}",
+                  (c5_launches if k.endswith("instanced") else c5f_launches)[k],
+                  leaf_errs[k], leaf_times[k], leaf_bounds[k])
+            for k, line in leaf_lines.items()
+        ],
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

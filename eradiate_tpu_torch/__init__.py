@@ -1,45 +1,48 @@
 """eradiate_tpu_torch — the PyTorch/CUDA port of eradiate_tpu.
 
-The port runs the plane-parallel scalar path (BASELINE config 1: a mono
-single-precision Rayleigh atmosphere over a Lambertian surface seen by a
-distant sensor bank) on one NVIDIA GPU, with the per-bounce collision fetch
-as a hand-written CUDA kernel (``csrc/collision_fetch.cu``).
+The port runs, in ``mono_single`` on one NVIDIA GPU:
 
-It shares the JAX package's host-side code (mode registry, seed streams,
-scene elements, spectral and physics data, post-processing) and owns the
-device code. Module names mirror ``eradiate_tpu`` so each piece has an
-obvious counterpart; ``eradiate_tpu`` stays the reference the tests hold the
-port against. The package never imports ``jax``.
+* the plane-parallel scalar path (BASELINE config 1: a Rayleigh atmosphere
+  over a Lambertian surface seen by a distant sensor bank), with the
+  per-bounce collision fetch as a CUDA kernel (``csrc/collision_fetch.cu``);
+* the spherical-shell scalar path (config 4), with the exact shell free
+  flight and shell event as CUDA kernels (``csrc/shell_flight.cu``);
+* the scalar canopy path (the scene of config 5: a disk-leaf canopy, flat
+  or instanced, under a Rayleigh atmosphere), with the nearest-hit and
+  any-hit leaf-disk sweeps as CUDA kernels (``csrc/leaf_intersect.cu``).
 
-Public surface: ``set_mode``/``mode``, ``SeedState``/``root_seed_state``
-(the reference's own objects) and ``run``. Every entry point takes an
-explicit ``device`` ("cuda" by default); asking for CUDA without a card
-raises instead of running on the CPU.
+The package stands alone: it imports ``torch`` and ``numpy``, never ``jax``
+and nothing of ``eradiate_tpu``. Its host-side code (mode registry, seed
+streams, units, scene elements, spectral and physics data, post-processing)
+is a mechanical copy of the JAX package's, kept in step by
+``tools/copy_host_code.py``; the device code (``ops/``, ``kernels/``,
+``csrc/``) and the experiments are the port's own. Module names mirror
+``eradiate_tpu`` so each piece has an obvious counterpart; ``eradiate_tpu``
+stays the reference the tests hold the port against, exchanging numpy
+arrays and plain Python values only.
+
+Public surface: ``set_mode``/``mode``, ``SeedState``/``root_seed_state``,
+the experiments and ``run``. Every entry point takes an explicit ``device``
+("cuda" by default); asking for CUDA without a card raises instead of
+running on the CPU.
 """
 
-import os as _os
+from .config import apply_settings as _apply_settings
+from .core.modes import mode, set_mode  # noqa: F401
+from .core.rng import SeedState, root_seed_state  # noqa: F401
+from .experiments import (  # noqa: F401
+    AtmosphereExperiment,
+    CanopyAtmosphereExperiment,
+    CanopyExperiment,
+    run,
+)
 
-# Importing eradiate_tpu configures JAX's persistent compilation cache (and
-# so imports jax) unless this setting is off; the port uses no JAX, so the
-# host package is imported with it off and the environment is restored.
-_KEY = "ERADIATE_TPU_COMPILATION_CACHE"
-_prev = _os.environ.get(_KEY)
-_os.environ[_KEY] = "0"
-try:
-    import eradiate_tpu  # noqa: F401
-finally:
-    if _prev is None:
-        del _os.environ[_KEY]
-    else:
-        _os.environ[_KEY] = _prev
-
-from eradiate_tpu.core.modes import mode, set_mode  # noqa: E402, F401
-from eradiate_tpu.core.rng import SeedState, root_seed_state  # noqa: E402, F401
-
-from .experiments import AtmosphereExperiment, run  # noqa: E402, F401
+_apply_settings()
 
 __all__ = [
     "AtmosphereExperiment",
+    "CanopyAtmosphereExperiment",
+    "CanopyExperiment",
     "SeedState",
     "mode",
     "root_seed_state",

@@ -18,25 +18,25 @@ import numpy as np
 
 import torch
 
-from eradiate_tpu.physics.shell_merge import (
+from ..physics.shell_merge import (
     adaptive_layer_groups_pp,
     adaptive_shell_groups,
     merge_layer_mean,
     merge_layer_weighted,
 )
-from eradiate_tpu.scenes.atmosphere import (
+from ..scenes.atmosphere import (
     Atmosphere,
     MolecularAtmosphere,
     atmosphere_factory,
 )
-from eradiate_tpu.scenes.geometry import PlaneParallelGeometry, SceneGeometry
-from eradiate_tpu.scenes.illumination import (
+from ..scenes.geometry import PlaneParallelGeometry, SceneGeometry
+from ..scenes.illumination import (
     ConstantIllumination,
     SpotIllumination,
 )
-from eradiate_tpu.scenes.measure import TargetPoint, TargetRectangle
-from eradiate_tpu.scenes.surface import Surface, surface_converter
-from eradiate_tpu.spectral.grid import MonoSpectralGrid
+from ..scenes.measure import TargetPoint, TargetRectangle
+from ..scenes.surface import Surface, surface_converter
+from ..spectral.grid import MonoSpectralGrid
 
 from ..ops.scene_state import (
     IlluminationArrays,

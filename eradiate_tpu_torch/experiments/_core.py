@@ -3,8 +3,8 @@
 Port of ``eradiate_tpu/experiments/_core.py`` as a single-device path (no
 mesh, no checkpoint): plane-parallel scenes go to :mod:`..ops.tracer`,
 spherical-shell scenes to :mod:`..ops.tracer_spherical`. The result is the
-same ``eradiate_tpu.xr`` Dataset the reference returns, assembled by the
-reference's own jax-free ``pipelines.logic.postprocess_measure``.
+same :mod:`..xr` Dataset layout the reference returns, assembled by the
+port's copy of ``pipelines.logic.postprocess_measure``.
 """
 
 from __future__ import annotations
@@ -13,18 +13,18 @@ import attrs
 import numpy as np
 import torch
 
-from eradiate_tpu.core.modes import mode
-from eradiate_tpu.core.rng import root_seed_state
-from eradiate_tpu.pipelines.logic import postprocess_measure
-from eradiate_tpu.scenes.core import SceneElement
-from eradiate_tpu.scenes.illumination import (
+from ..core.modes import mode
+from ..core.rng import root_seed_state
+from ..pipelines.logic import postprocess_measure
+from ..scenes.core import SceneElement
+from ..scenes.illumination import (
     DirectionalIllumination,
     Illumination,
     illumination_factory,
 )
-from eradiate_tpu.scenes.integrators import Integrator, integrator_factory
-from eradiate_tpu.scenes.measure import Measure, measure_factory
-from eradiate_tpu.spectral.ckd_quad import CKDQuadConfig
+from ..scenes.integrators import Integrator, integrator_factory
+from ..scenes.measure import Measure, measure_factory
+from ..spectral.ckd_quad import CKDQuadConfig
 
 from ..core.device import resolve_device
 from ..ops.tracer import render

@@ -1,0 +1,347 @@
+"""Ray / leaf-disk sweeps: the CUDA kernels' wrappers and their plain versions.
+
+Four functions, each the counterpart of a TPU kernel of
+``eradiate_tpu/ops/pallas/leaf_intersect.py``:
+
+* :func:`ray_leaves_nearest` / :func:`ray_leaves_occluded`: nearest hit and
+  any hit of rays against a flat table of leaf disks;
+* :func:`ray_leaves_nearest_instanced` / :func:`ray_leaves_occluded_instanced`:
+  the same against ``I`` translated copies of one canonical cloud, which is
+  stored once.
+
+For CUDA tensors they launch ``csrc/leaf_intersect.cu``; for CPU tensors
+they run the plain versions (``*_plain``), the chunked dense sweeps of the
+reference's ``ops/canopy.py`` (``ray_leaves_nearest``, ``ray_leaves_occluded``,
+``_instanced_nearest_xla`` and the instance scan of ``leaf_occluded``). They
+never fall back from one to the other.
+
+Semantics shared by kernel and plain version (the reference's XLA form):
+
+* a disk is hit where ``1e-7 < t < t_max``, ``|q - c|^2 <= r^2`` and
+  ``|d.n| > 1e-12``, with ``t = (c.n - p.n) / d.n`` and ``q = p + d t``;
+  ``d.n`` and ``p.n`` are the product-then-two-FMA chains XLA:CPU makes of
+  a 3-term contraction, ``c.n`` is a plain sum, ``q`` and ``|q - c|^2``
+  are FMAs: ``fmaf`` in the kernels, :func:`fma` (the same single
+  rounding, emulated in float64) in the plain versions, so they agree bit
+  for bit;
+* an instance translates the ray, ``p - offset``, not the leaves;
+* exact ties of ``t`` inside one 512-leaf chunk of one instance average
+  their normals; across chunks and instances the first wins;
+* misses keep ``t = t_max`` and the normal ``(0, 0, 1)``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+
+__all__ = [
+    "CHUNK",
+    "GROUP",
+    "launches",
+    "leaf_block_spheres",
+    "sweep_spheres",
+    "ray_leaves_nearest",
+    "ray_leaves_occluded",
+    "ray_leaves_nearest_instanced",
+    "ray_leaves_occluded_instanced",
+    "ray_leaves_nearest_plain",
+    "ray_leaves_occluded_plain",
+    "ray_leaves_nearest_instanced_plain",
+    "ray_leaves_occluded_instanced_plain",
+]
+
+#: Leaves per chunk of the plain sweep, which is also the tie-averaging unit
+#: (reference ``ray_leaves_nearest(chunk=512)``).
+CHUNK = 512
+#: Leaves per bounding sphere of the kernels' cull (reference ``_SUB``).
+GROUP = 128
+
+_EPS_T = 1e-7
+
+#: Kernel launches made in this process, by kernel name.
+launches = {
+    "ray_leaves_nearest": 0,
+    "ray_leaves_occluded": 0,
+    "ray_leaves_nearest_instanced": 0,
+    "ray_leaves_occluded_instanced": 0,
+}
+
+_launchers = {}
+
+
+def leaf_block_spheres(centers, normals, radii, block_n: int = GROUP):
+    """Per-leaf-block bounding spheres (centers [M, 3], radius^2 [M]) of
+    ``block_n`` consecutive leaves (reference ``leaf_block_spheres``). Tight
+    spheres need spatially sorted leaves
+    (:func:`~eradiate_tpu_torch.ops.canopy.morton_order`)."""
+    N = centers.shape[0]
+    M = -(-N // block_n)
+    pad = M * block_n - N
+    c, r = centers, radii
+    if pad:
+        # the last real leaf fills the padding so the final sphere is not
+        # dragged to the origin
+        c = torch.cat([c, c[N - 1 :].expand(pad, 3)])
+        r = torch.cat([r, r.new_zeros(pad)])
+    cb = c.reshape(M, block_n, 3)
+    rb = r.reshape(M, block_n)
+    mid = (cb.min(dim=1).values + cb.max(dim=1).values) * 0.5
+    diff = cb - mid[:, None, :]
+    dist = torch.sqrt((diff * diff).sum(dim=-1)) + rb
+    R = dist.max(dim=1).values
+    return mid, R * R
+
+
+def sweep_spheres(centers, normals, radii):
+    """The kernels' cull operand ``[1 + M, 4]`` (x, y, z, radius^2): row 0
+    bounds the whole table (the per-instance sphere of the instanced
+    kernels), rows 1.. bound its :data:`GROUP`-leaf blocks. Compute once per
+    render and pass as ``spheres``."""
+    whole_c, whole_r2 = leaf_block_spheres(centers, normals, radii, max(centers.shape[0], 1))
+    sc, sr2 = leaf_block_spheres(centers, normals, radii, GROUP)
+    return torch.cat(
+        [torch.cat([whole_c, sc]), torch.cat([whole_r2, sr2])[:, None]], dim=1
+    ).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def fma(a, b, c):
+    """``a * b + c`` of float32 tensors rounded once, exactly as a hardware
+    fused multiply-add rounds it (``fmaf`` on the card, XLA:CPU's contracted
+    products and sums in the reference).
+
+    The product is exact in float64. The sum is rounded to float64 and then
+    to float32; to keep the second rounding from seeing a tie the first one
+    made, the float64 sum is rounded to odd (its last bit is set whenever the
+    sum was inexact, found with the error-free TwoSum), which makes the final
+    rounding the correct single one (53 >= 2 * 24 + 2 bits)."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    bits = s.view(torch.int64)
+    toward = torch.where((err > 0) == (s > 0), 1, -1)  # one ulp toward the exact sum
+    odd = torch.where((err != 0) & ((bits & 1) == 0), bits + toward, bits)
+    return odd.view(torch.float64).float()
+
+
+def dot3(a, b):
+    """Dot product over the last axis of [..., 3] vectors (``b`` broadcasts)
+    as XLA:CPU evaluates a 3-term contraction: the first product, then two
+    fused multiply-adds."""
+    return fma(a[..., 2], b[..., 2], fma(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+
+
+def _chunk_hits(p, d, centers, normals, radii, t_max):
+    """Intersection distances [B, Nc] of rays against a leaf chunk, +inf
+    where missed (reference ``canopy._chunk_hits`` as XLA:CPU rounds it)."""
+    dn = dot3(d[:, None, :], normals[None, :, :])
+    cn = (centers[:, 0] * normals[:, 0] + centers[:, 1] * normals[:, 1]) + (
+        centers[:, 2] * normals[:, 2]
+    )
+    pn = dot3(p[:, None, :], normals[None, :, :])
+    live = torch.abs(dn) > 1e-12
+    t = (cn[None, :] - pn) / torch.where(live, dn, 1e-12)
+    x = [fma(d[:, j : j + 1], t, p[:, j : j + 1]) - centers[None, :, j] for j in range(3)]
+    dist2 = fma(x[2], x[2], fma(x[1], x[1], x[0] * x[0]))
+    ok = (t > _EPS_T) & (t < t_max[:, None]) & (dist2 <= (radii * radii)[None, :]) & live
+    return torch.where(ok, t, torch.inf)
+
+
+def _chunks(centers, normals, radii, chunk):
+    for start in range(0, centers.shape[0], chunk):
+        sl = slice(start, start + chunk)
+        yield centers[sl], normals[sl], radii[sl]
+
+
+def ray_leaves_nearest_plain(p, d, t_max, centers, normals, radii, spheres=None,
+                             chunk: int = CHUNK):
+    """Nearest leaf hit along ``p + t d`` for t in (0, t_max): the chunked
+    dense sweep. Returns ``(t_hit [B], normal [B, 3], hit [B])``."""
+    B = p.shape[0]
+    best_t = torch.full((B,), torch.inf, dtype=p.dtype, device=p.device)
+    best_n = torch.zeros((B, 3), dtype=p.dtype, device=p.device)
+    best_n[:, 2] = 1.0
+    for c, n, r in _chunks(centers, normals, radii, chunk):
+        t = _chunk_hits(p, d, c, n, r, t_max)
+        tmin = t.min(dim=1).values
+        m = (t == tmin[:, None]) & torch.isfinite(tmin)[:, None]
+        cnt = torch.clamp(m.sum(dim=1), min=1).to(t.dtype)
+        n_sel = torch.stack(
+            [torch.where(m, n[None, :, j], 0.0).sum(dim=1) for j in range(3)], dim=-1
+        ) / cnt[:, None]
+        better = tmin < best_t
+        best_n = torch.where(better[:, None], n_sel, best_n)
+        best_t = torch.where(better, tmin, best_t)
+    hit = torch.isfinite(best_t)
+    return torch.where(hit, best_t, t_max), best_n, hit
+
+
+def ray_leaves_occluded_plain(p, d, t_max, centers, normals, radii, spheres=None,
+                              chunk: int = CHUNK):
+    """True where any leaf blocks the segment (shadow rays)."""
+    occ = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device)
+    for c, n, r in _chunks(centers, normals, radii, chunk):
+        occ = occ | torch.isfinite(_chunk_hits(p, d, c, n, r, t_max)).any(dim=1)
+    return occ
+
+
+def ray_leaves_nearest_instanced_plain(p, d, t_max, centers, normals, radii, offsets,
+                                       spheres=None):
+    """Nearest hit against the translated copies: scan the instances,
+    translate the ray into each instance frame, sweep the canonical cloud
+    with the running best as the cap, keep the winner."""
+    B = p.shape[0]
+    best_t = t_max
+    best_n = torch.zeros((B, 3), dtype=p.dtype, device=p.device)
+    best_n[:, 2] = 1.0
+    hit = torch.zeros(B, dtype=torch.bool, device=p.device)
+    for offset in offsets:
+        t, n, h = ray_leaves_nearest_plain(p - offset[None, :], d, best_t, centers, normals, radii)
+        better = h & (t < best_t)
+        best_t = torch.where(better, t, best_t)
+        best_n = torch.where(better[:, None], n, best_n)
+        hit = hit | better
+    return torch.where(hit, best_t, t_max), best_n, hit
+
+
+def ray_leaves_occluded_instanced_plain(p, d, t_max, centers, normals, radii, offsets,
+                                        spheres=None):
+    """Any hit against the translated copies."""
+    occ = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device)
+    for offset in offsets:
+        occ = occ | ray_leaves_occluded_plain(p - offset[None, :], d, t_max, centers, normals, radii)
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+
+def _launcher(name, n_ptr, n_int):
+    fn = _launchers.get(name)
+    if fn is None:
+        from ._build import library
+
+        fn = getattr(library(), f"{name}_launch")
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _launchers[name] = fn
+    return fn
+
+
+def _check(name, named, B, N, offsets):
+    """Validate the operands of a launch."""
+    p = named["p"]
+    for key, t in named.items():
+        if t.device != p.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, p on {p.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    shapes = {"p": (B, 3), "d": (B, 3), "t_max": (B,), "centers": (N, 3),
+              "normals": (N, 3), "radii": (N,), "spheres": (1 + -(-N // GROUP), 4)}
+    if offsets is not None:
+        shapes["offsets"] = (offsets.shape[0], 3)
+    for key, shape in shapes.items():
+        if tuple(named[key].shape) != shape:
+            raise ValueError(
+                f"{name}: {key} must be {list(shape)}, got {list(named[key].shape)}"
+            )
+    if N < 1:
+        raise ValueError(f"{name}: needs at least one leaf")
+    if offsets is not None and offsets.shape[0] < 1:
+        raise ValueError(f"{name}: needs at least one instance")
+    if B >= 2**31 or N >= 2**31:
+        raise ValueError(f"{name}: more than 2^31 - 1 lanes or leaves")
+
+
+def _launch(name, nearest, p, d, t_max, centers, normals, radii, offsets, spheres):
+    """Check the operands, allocate the outputs and launch kernel ``name``
+    on the current stream; raises if the launch fails."""
+    if spheres is None:
+        spheres = sweep_spheres(centers, normals, radii)
+    B, N = p.shape[0], centers.shape[0]
+    named = {"p": p, "d": d, "t_max": t_max, "centers": centers, "normals": normals,
+             "radii": radii, "spheres": spheres}
+    if offsets is not None:
+        named["offsets"] = offsets
+    _check(name, named, B, N, offsets)
+    if nearest:
+        outs = (
+            torch.empty(B, dtype=torch.float32, device=p.device),
+            torch.empty((B, 3), dtype=torch.float32, device=p.device),
+            torch.empty(B, dtype=torch.bool, device=p.device),
+        )
+    else:
+        outs = (torch.empty(B, dtype=torch.bool, device=p.device),)
+    if B == 0:
+        return outs
+    ins = tuple(named.values())
+    sizes = (B, N) if offsets is None else (B, N, offsets.shape[0])
+    with torch.cuda.device(p.device):
+        rc = _launcher(name, len(ins) + len(outs), len(sizes))(
+            *[t.data_ptr() for t in ins + outs], *sizes,
+            torch.cuda.current_stream(p.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launches[name] += 1
+    return outs
+
+
+def _on_cpu(p, name):
+    if p.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {p.device}")
+    return p.device.type == "cpu"
+
+
+def ray_leaves_nearest(p, d, t_max, centers, normals, radii, spheres=None):
+    """Nearest leaf-disk hit of rays ``p`` [B, 3], ``d`` [B, 3] within
+    ``t_max`` [B] against disks ``centers`` [N, 3], ``normals`` [N, 3],
+    ``radii`` [N], all float32. Returns ``(t_hit [B], normal [B, 3], hit [B]
+    bool)``. ``spheres`` optionally passes :func:`sweep_spheres` of the
+    table. CUDA tensors go through the kernel (the wrapper checks device,
+    dtype, contiguity and shapes, and raises if the launch fails); CPU
+    tensors through :func:`ray_leaves_nearest_plain`."""
+    if _on_cpu(p, "ray_leaves_nearest"):
+        return ray_leaves_nearest_plain(p, d, t_max, centers, normals, radii)
+    return _launch("ray_leaves_nearest", True, p, d, t_max, centers, normals, radii,
+                   None, spheres)
+
+
+def ray_leaves_occluded(p, d, t_max, centers, normals, radii, spheres=None):
+    """True [B] where any leaf disk blocks the segment; operands as
+    :func:`ray_leaves_nearest`."""
+    if _on_cpu(p, "ray_leaves_occluded"):
+        return ray_leaves_occluded_plain(p, d, t_max, centers, normals, radii)
+    return _launch("ray_leaves_occluded", False, p, d, t_max, centers, normals, radii,
+                   None, spheres)[0]
+
+
+def ray_leaves_nearest_instanced(p, d, t_max, centers, normals, radii, offsets,
+                                 spheres=None):
+    """:func:`ray_leaves_nearest` against the union of the canonical cloud
+    translated by each of ``offsets`` [I, 3]; ``spheres`` are those of the
+    canonical cloud."""
+    if _on_cpu(p, "ray_leaves_nearest_instanced"):
+        return ray_leaves_nearest_instanced_plain(p, d, t_max, centers, normals, radii, offsets)
+    return _launch("ray_leaves_nearest_instanced", True, p, d, t_max, centers, normals,
+                   radii, offsets, spheres)
+
+
+def ray_leaves_occluded_instanced(p, d, t_max, centers, normals, radii, offsets,
+                                  spheres=None):
+    """:func:`ray_leaves_occluded` against the translated copies."""
+    if _on_cpu(p, "ray_leaves_occluded_instanced"):
+        return ray_leaves_occluded_instanced_plain(p, d, t_max, centers, normals, radii, offsets)
+    return _launch("ray_leaves_occluded_instanced", False, p, d, t_max, centers, normals,
+                   radii, offsets, spheres)[0]

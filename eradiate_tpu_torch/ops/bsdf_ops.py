@@ -1,10 +1,10 @@
-"""Surface BSDF evaluation and sampling, batched over lanes.
+"""Surface and leaf BSDF evaluation and sampling, batched over lanes.
 
-Port of the ``lambertian``, ``hapke`` and ``black`` kinds of
-``eradiate_tpu/ops/bsdf_ops.py``. ``wi`` and ``wo`` [B, 3] point away from
-the surface (+z up); ``eval`` returns f [1/sr] with dL_o = f cos(theta_i)
-dE_i; ``sample`` returns ``(w_new, f cos / pdf)``. Parameters are
-per-spectral-row scalars.
+Port of the ``lambertian``, ``hapke`` and ``black`` surface kinds and of the
+two-sided ``bilambertian`` leaf optics of ``eradiate_tpu/ops/bsdf_ops.py``.
+``wi`` and ``wo`` [B, 3] point away from the surface (+z up); ``eval``
+returns f [1/sr] with dL_o = f cos(theta_i) dE_i; ``sample`` returns
+``(w_new, f cos / pdf)``. Parameters are per-spectral-row scalars.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ import torch
 from ..core.warp import square_to_cosine_hemisphere
 
 __all__ = ["lambertian_eval", "hapke_eval", "bsdf_eval",
-           "bsdf_sample_from_uniforms", "SUPPORTED_BSDFS"]
+           "bsdf_sample_from_uniforms", "bilambertian_eval",
+           "bilambertian_sample_from_uniforms", "SUPPORTED_BSDFS"]
 
 SUPPORTED_BSDFS = ("black", "hapke", "lambertian")
 
@@ -179,3 +180,26 @@ def bsdf_sample_from_uniforms(kind, params, wo, u):
     if kind == "black":
         return w_new, torch.zeros_like(wo[..., 0])
     return w_new, bsdf_eval(kind, params, w_new, wo) * math.pi
+
+
+def bilambertian_eval(params, wi, wo):
+    """Two-sided diffuse leaf: reflectance when ``wi`` and ``wo`` are on the
+    same side of the surface, transmittance when on opposite sides."""
+    same_side = (wi[..., 2] * wo[..., 2]) > 0
+    return torch.where(same_side, params["reflectance"], params["transmittance"]) / math.pi
+
+
+def bilambertian_sample_from_uniforms(params, wo, u_side, u):
+    """Sample the two-sided diffuse BSDF in the local leaf frame (+z = the
+    side ``wo`` leaves from) from uniforms ``u_side`` [B] and ``u`` [B, 2]:
+    reflect with probability rho / (rho + tau) (cosine-weighted, +z),
+    transmit otherwise (cosine-weighted, -z). Returns ``(w_new, weight)``
+    with weight = rho + tau."""
+    rho = params["reflectance"]
+    total = rho + params["transmittance"]
+    reflect = u_side < rho / torch.clamp(total, min=1e-12)
+    w_new = square_to_cosine_hemisphere(u)
+    flip = torch.tensor([1.0, 1.0, -1.0], dtype=w_new.dtype, device=w_new.device)
+    w_new = torch.where(reflect[..., None], w_new, w_new * flip)
+    weight = torch.where(total > 0, total, 0.0).expand(w_new.shape[:-1])
+    return w_new, weight

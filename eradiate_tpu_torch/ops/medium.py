@@ -20,7 +20,9 @@ __all__ = [
     "MU_EPS",
     "clamp_mu",
     "searchsorted_leq",
+    "take_1d",
     "tau_at_z",
+    "z_at_tau",
     "collision_fetch",
     "fetch_at_index",
 ]
@@ -55,6 +57,19 @@ def tau_at_z(z, z_levels, tau_levels):
     """Interpolate tau(z); z: [...], z_levels/tau_levels: [L+1]."""
     _, frac, ((t0, t1),) = _interp_tables(z, z_levels, (tau_levels,))
     return t0 + frac * (t1 - t0)
+
+
+def z_at_tau(tau, z_levels, tau_levels):
+    """Invert the piecewise-linear tau(z); returns (z, layer index). Within
+    zero-extinction layers tau is flat; collisions never land there, so
+    clamping into the bracketing layer is exact."""
+    idx, frac, ((z0, z1),) = _interp_tables(tau, tau_levels, (z_levels,))
+    return z0 + frac * (z1 - z0), idx
+
+
+def take_1d(table, idx):
+    """``table[idx]`` for a 1D table (reference ``take_1d``, gather form)."""
+    return table[idx]
 
 
 def fetch_at_index(idx, tables):

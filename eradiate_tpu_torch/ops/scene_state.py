@@ -4,7 +4,9 @@ Port of ``eradiate_tpu/ops/scene_state.py``: the same classes, field names
 and defaults, as plain dataclasses of tensors instead of JAX pytrees.
 :func:`from_reference` is the one place where compiled arrays cross onto the
 device, whether they come from the JAX package's ``compile_scene`` or from
-the port's own host-side compile (numpy leaves either way).
+the port's own host-side compile (numpy leaves either way);
+:func:`canopy_from_reference` does the same for a canopy's leaf arrays and
+leaf optics.
 
 Shape conventions: ``S`` spectral rows, ``L`` layers, ``C`` phase
 components, ``N`` sensor directions. Lengths in km, sigma in km^-1.
@@ -18,6 +20,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from .canopy import InstancedLeafArrays, LeafCloudArrays
+
 __all__ = [
     "MediumArrays",
     "SphericalMediumArrays",
@@ -27,6 +31,7 @@ __all__ = [
     "SceneArrays",
     "SceneConfig",
     "from_reference",
+    "canopy_from_reference",
 ]
 
 
@@ -184,3 +189,27 @@ def from_reference(scene, sensor, config, device):
         **{f.name: getattr(config, f.name) for f in dataclasses.fields(SceneConfig)}
     )
     return SceneArrays(medium, surface, illumination), sensor_t, config_t
+
+
+def canopy_from_reference(leaves, leaf_params, device):
+    """Leaf geometry and leaf optics of a compiled canopy as the port's
+    tensors on ``device``: ``leaves`` is a flat cloud (``centers``,
+    ``normals``, ``radii``) or an instanced one (``canonical``, ``offsets``),
+    the reference's or the port's; ``leaf_params`` maps ``reflectance`` and
+    ``transmittance`` to [S] rows. Returns ``(leaves, leaf_params)``."""
+
+    def cloud(c):
+        return LeafCloudArrays(
+            centers=_tensor(c.centers, device).contiguous(),
+            normals=_tensor(c.normals, device).contiguous(),
+            radii=_tensor(c.radii, device).contiguous(),
+        )
+
+    if hasattr(leaves, "canonical"):
+        out = InstancedLeafArrays(
+            canonical=cloud(leaves.canonical),
+            offsets=_tensor(leaves.offsets, device).contiguous(),
+        )
+    else:
+        out = cloud(leaves)
+    return out, {k: _tensor(v, device) for k, v in leaf_params.items()}

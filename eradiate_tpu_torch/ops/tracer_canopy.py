@@ -1,0 +1,526 @@
+"""Regenerative wavefront path tracer for canopy scenes (leaf-disk clouds,
+a ground and an optional 1D atmosphere), plane-parallel geometry.
+
+Port of the scalar regenerative path of ``eradiate_tpu/ops/tracer_canopy.py``
+(``render_canopy``). One loop iteration resolves the nearest of {medium
+collision (closed-form free flight), leaf-disk hit (nearest-hit sweep),
+ground hit, escape}; next-event estimation casts one leaf-occlusion shadow
+ray per lane and multiplies the closed-form atmospheric sun transmittance.
+Directional illumination and leaf disks only: the spot emitter, triangle
+meshes (trunks, mesh trees) and polarized transport raise
+``NotImplementedError``.
+
+The reference's ``while_loop`` is an eager Python loop here, as in
+:mod:`.tracer`: every update is gated by ``active``, ``path_end`` or
+``regen``, so the all-lanes-done flag is read on the host only every
+``check_every`` iterations. Each iteration launches the nearest-hit sweep
+once and the any-hit sweep once.
+
+Random numbers follow the reference bit for bit (threefry row and chunk keys
+on the host, pcg4d per-sample keys and per-bounce uniforms on the device).
+A sample's stream depends on (seed, spectral row, chunk, pixel, sample id
+within the chunk, depth): estimates do not depend on the lane count, and
+depend on the chunk plan. On the CPU the plan is the reference's
+(:data:`PATHS_PER_DISPATCH`, :data:`LANES_TARGET`), so same-seed runs agree
+with it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import threefry
+from ..core.device import resolve_device
+from .bsdf_ops import (
+    SUPPORTED_BSDFS,
+    bilambertian_eval,
+    bilambertian_sample_from_uniforms,
+    bsdf_eval,
+    bsdf_sample_from_uniforms,
+)
+from ..kernels.leaf_intersect import fma
+from .canopy import leaf_nearest, leaf_occluded, leaf_spheres
+from .fastrng import bounce_uniforms, derive_keys, origin_uniforms
+from .medium import clamp_mu, take_1d, tau_at_z, z_at_tau
+from .phase_ops import (
+    check_phase_kinds,
+    layer_param_slots,
+    ortho_frame,
+    phase_eval_at,
+    phase_sample_at,
+    rebuild_fetched,
+)
+from .scene_state import (
+    IlluminationArrays,
+    MediumArrays,
+    SurfaceArrays,
+    canopy_from_reference,
+    from_reference,
+)
+from .tracer import CHECK_EVERY, _row, lane_partition
+
+__all__ = ["render_canopy", "trace_paths_canopy_regen"]
+
+#: Bounces between spatial lane sorts in the regenerative loop (0 = off).
+#: Sorting lanes by the Morton code of their position makes the rays of a
+#: thread block spatially coherent, which is what lets the sweep kernels'
+#: per-group sphere culls skip groups for a whole block.
+CANOPY_SORT_EVERY = 1
+
+#: Most paths (spectral rows x pixels x samples) of one dispatch, per device
+#: type. A render with more is split into chunks of samples, each with its
+#: own key. The CPU keeps the reference's cap (its ``MAX_PATHS_PER_DISPATCH
+#: // 8``) so that CPU runs decompose like the reference's; a card takes the
+#: whole of config 5 (19 pixels x 2097152 samples) in one dispatch.
+PATHS_PER_DISPATCH = {"cpu": 2**21 // 8, "cuda": 2**26}
+
+#: Lane-count target per device type: the reference's 2^14 on the CPU; on
+#: CUDA the count that was fastest for config 5 on an H100 (PERF.md,
+#: "Layers").
+LANES_TARGET = {"cpu": 2**14, "cuda": 2**21}
+
+
+def _step(pos, d, t):
+    """``pos + d t`` for per-lane distances ``t`` [B, 1], one fused
+    multiply-add per component as XLA:CPU contracts it: a continuing ray
+    leaves a leaf at 1e-6 km along its new direction, so at grazing angles
+    rounding decides whether it meets that leaf again, and the port rounds
+    as the reference does."""
+    return fma(d, t, pos)
+
+
+def _to_world(n, v):
+    t1, t2 = ortho_frame(n)
+    return t1 * v[..., 0:1] + t2 * v[..., 1:2] + n * v[..., 2:3]
+
+
+def _to_local(n, v):
+    t1, t2 = ortho_frame(n)
+    return torch.stack([(t1 * v).sum(-1), (t2 * v).sum(-1), (n * v).sum(-1)], dim=-1)
+
+
+def _canopy_helpers(config, medium_row, leaves, illum_row):
+    """Shared closures (medium tau, emitter NEE terms) and the sweeps'
+    acceleration data, computed once per render."""
+    if config.illumination_kind != "directional":
+        raise NotImplementedError(
+            f"illumination kind {config.illumination_kind!r} (spot emitter) is "
+            "not ported yet for canopy scenes"
+        )
+    z_levels = medium_row.z_levels
+    tau_levels = medium_row.tau_levels
+    tau_top = tau_levels[-1]
+
+    d_sun = illum_row.direction
+    mu_sun = clamp_mu(-d_sun[2])
+    w_sun = -d_sun
+    E_sun = illum_row.irradiance
+    accel = leaf_spheres(leaves)
+
+    def tau_z(z):
+        return tau_at_z(z, z_levels, tau_levels)
+
+    def nee_at(pos, w_sun_b, far):
+        """Next-event terms at vertex positions [B, 3]: the irradiance
+        reaching them, visibility and transmittance included. ``w_sun_b``
+        [B, 3] and ``far`` [B] are the sun direction and the shadow rays'
+        length, broadcast once per trace."""
+        T_atm = torch.exp(-(tau_top - tau_z(pos[:, 2].contiguous())) / mu_sun)
+        occluded = leaf_occluded(pos, w_sun_b, far, leaves, accel)
+        return T_atm * torch.where(occluded, 0.0, 1.0) * E_sun
+
+    return {"tau_z": tau_z, "nee_at": nee_at, "w_sun": w_sun, "accel": accel}
+
+
+def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpers, B,
+                        eps=1e-6):
+    """Per-bounce transition shared by every lane: returns ``bounce(depth,
+    pos, d, beta, keys) -> (L_add, pos', d', beta', alive')``; updates are
+    unconditional (the caller masks finished lanes)."""
+    z_levels = medium_row.z_levels
+    tau_levels = medium_row.tau_levels
+    tau_top = tau_levels[-1]
+    z_bottom = z_levels[0]
+    z_top = z_levels[-1]
+    tau_z, nee_at, accel = helpers["tau_z"], helpers["nee_at"], helpers["accel"]
+
+    dev, dtype = z_levels.device, z_levels.dtype
+    w_nee = helpers["w_sun"].expand(B, 3).contiguous()
+    far = torch.full((B,), 1e6, dtype=dtype, device=dev)
+    ground_lift = torch.tensor([0.0, 0.0, eps], dtype=dtype, device=dev)
+
+    C = len(config.phase_kinds)
+    param_tables, param_slots = layer_param_slots(config.phase_kinds, medium_row.phase_params)
+    fetch_tables = torch.stack(
+        [medium_row.phase_weights[c] for c in range(C)] + param_tables
+    )
+
+    def bounce(depth_b, pos, d, beta, keys):
+        U = bounce_uniforms(keys, depth_b, 8)
+        u_dist = U[:, 0]
+        u_sel, u_cos, u_phi = U[:, 1], U[:, 2:4], U[:, 4]
+        u_srf = U[:, 5:7]
+        u_rr = U[:, 7]
+
+        z = pos[:, 2].contiguous()
+        mu = clamp_mu(d[:, 2])
+        tau_here = tau_z(z)
+        tau_exit = torch.where(mu > 0.0, (tau_top - tau_here) / mu, tau_here / (-mu))
+        tau_s = -torch.log1p(-u_dist)
+        collide_med = tau_s < tau_exit
+
+        tau_new = torch.minimum(torch.clamp(tau_here + mu * tau_s, min=0.0), tau_top)
+        z_med, layer = z_at_tau(tau_new, z_levels, tau_levels)
+        z_edge = torch.where(mu > 0.0, z_top, z_bottom)
+        t_med = torch.where(collide_med, (z_med - z) / mu, (z_edge - z) / mu)
+
+        # nearest leaf disk within the segment
+        t_leaf, n_leaf, hit_leaf = leaf_nearest(pos, d, t_med, leaves, accel)
+
+        event_leaf = hit_leaf
+        event_med = collide_med & ~hit_leaf
+        event_ground = (~collide_med) & ~hit_leaf & (mu < 0.0) & config.has_surface
+
+        # ---- positions --------------------------------------------------
+        pos_leaf = _step(pos, d, t_leaf[:, None])
+        pos_med = _step(pos, d, t_med[:, None])
+        t_ground = (z_bottom - z) / mu
+        pos_ground = _step(pos, d, t_ground[:, None])
+        pos_ground = torch.cat([pos_ground[:, :2], z_bottom.expand(B, 1)], dim=1)
+
+        # ---- shared NEE -------------------------------------------------
+        # one occlusion sweep per bounce: each lane evaluates NEE only at
+        # its own event vertex. Leaf frame oriented toward the incident side
+        to_front = -torch.sign((d * n_leaf).sum(-1))
+        n_shade = n_leaf * to_front[:, None]
+        wi_leaf_sign = torch.sign((n_shade * w_nee).sum(-1))[:, None]
+        # distance-scaled lift-off: pos + t d at t ~ 100 km rounds by
+        # ~ulp(t) ~ 1e-5 km in float32, so the hit can land below the disk
+        # it hit, and a fixed 1e-6 offset would leave the shadow origin
+        # occluded by its own disk. 2.4e-7 = 2 float32 ulp.
+        eps_lane = (eps + t_leaf * 2.4e-7)[:, None]
+        pos_leaf_off = _step(pos_leaf, n_shade * wi_leaf_sign, eps_lane)
+        pos_ground_off = pos_ground + ground_lift
+        pos_nee = torch.where(
+            event_leaf[:, None],
+            pos_leaf_off,
+            torch.where(event_med[:, None], pos_med, pos_ground_off),
+        )
+        E_nee = nee_at(pos_nee, w_nee, far)
+
+        # ---- medium collision -------------------------------------------
+        albedo_col = take_1d(medium_row.albedo, layer)
+        fetched = fetch_tables[:, layer]
+        weights_at = fetched[:C].T
+        params_at = rebuild_fetched(config.phase_kinds, param_slots, fetched[C:])
+        cos_nee = (w_nee * d).sum(-1)
+        p_nee = phase_eval_at(config.phase_kinds, weights_at, params_at, cos_nee)
+        L_med = beta * albedo_col * p_nee * E_nee
+        d_med = phase_sample_at(
+            config.phase_kinds, weights_at, params_at, d, u_sel, u_cos, u_phi
+        )
+        beta_med = beta * albedo_col
+
+        # ---- leaf interaction (bilambertian) ----------------------------
+        wo_leaf = _to_local(n_shade, -d)
+        wi_sun_leaf = _to_local(n_shade, w_nee)
+        f_leaf = bilambertian_eval(leaf_row, wi_sun_leaf, wo_leaf)
+        cos_sun_leaf = torch.abs((n_shade * w_nee).sum(-1))
+        # E_nee was evaluated at pos_leaf_off (the shadow origin slightly off
+        # the leaf on the emitter's side) for event_leaf lanes
+        L_leaf = beta * f_leaf * cos_sun_leaf * E_nee
+        # leaf sampling reuses the phase uniform slots (exclusive branches)
+        d_leaf_local, w_leaf = bilambertian_sample_from_uniforms(
+            leaf_row, wo_leaf, u_sel, u_cos
+        )
+        d_leaf = _to_world(n_shade, d_leaf_local)
+        beta_leaf = beta * w_leaf
+        pos_leaf_new = _step(pos_leaf, d_leaf, eps_lane)
+
+        # ---- ground -----------------------------------------------------
+        wo = -d
+        f_g = bsdf_eval(config.surface_kind, surface_row.params, w_nee, wo)
+        mu_nee_g = torch.clamp(w_nee[:, 2], min=0.0)
+        L_ground = beta * f_g * mu_nee_g * E_nee
+        d_ground, w_g = bsdf_sample_from_uniforms(
+            config.surface_kind, surface_row.params, wo, u_srf
+        )
+        beta_ground = beta * w_g
+
+        # ---- combine ----------------------------------------------------
+        L_add = torch.where(
+            event_leaf, L_leaf,
+            torch.where(event_med, L_med, torch.where(event_ground, L_ground, 0.0)),
+        )
+        pos2 = torch.where(
+            event_leaf[:, None], pos_leaf_new,
+            torch.where(event_med[:, None], pos_med, pos_ground),
+        )
+        d2 = torch.where(
+            event_leaf[:, None], d_leaf, torch.where(event_med[:, None], d_med, d_ground)
+        )
+        beta2 = torch.where(
+            event_leaf, beta_leaf,
+            torch.where(event_med, beta_med, torch.where(event_ground, beta_ground, 0.0)),
+        )
+        alive2 = (event_leaf | event_med | event_ground) & (beta2 > 0.0)
+
+        do_rr = depth_b >= config.rr_depth
+        q = torch.clamp(beta2, 0.0, 0.95)
+        survive = u_rr < q
+        beta2 = torch.where(do_rr & alive2 & survive, beta2 / q, beta2)
+        alive2 = alive2 & (survive | ~do_rr)
+        return L_add, pos2, d2, beta2, alive2
+
+    return bounce
+
+
+def _morton_u32(pos, lo, hi):
+    """7-bit/axis Morton code (int64 tensor) of positions [B, 3] within
+    [lo, hi]."""
+    span = torch.clamp(hi - lo, min=1e-12)
+    q = torch.clamp((pos - lo) / span * 127.0, 0.0, 127.0).to(torch.int64)
+    code = torch.zeros(pos.shape[0], dtype=torch.int64, device=pos.device)
+    for b in range(7):
+        for ax in range(3):
+            code = code | (((q[:, ax] >> b) & 1) << (3 * b + ax))
+    return code
+
+
+def trace_paths_canopy_regen(
+    config, medium_row, surface_row, leaf_row, leaves, illum_row, init_pos, init_d,
+    row_key, lane_first, quota, ext=None, sort_every=CANOPY_SORT_EVERY,
+    check_every=CHECK_EVERY,
+):
+    """Regenerative canopy trace (see :func:`.tracer.trace_paths_regen`):
+    lanes re-seed a fresh (pixel, sample) path on death; ``ext`` [B, 2]
+    jitters the xy origin per sample (footprint rectangle targets). Returns
+    ``(L_sum, m2_sum, iterations)`` per lane, in the caller's lane order.
+
+    With ``sort_every`` > 0 the loop permutes all lane state by the Morton
+    code of the current position every ``sort_every`` iterations (done lanes
+    are parked at TOA pointing up and sorted to the end: they miss the
+    canopy's box and sweep nothing). Keys and sums travel with their lane,
+    so per-sample paths and per-lane sums are those of the unsorted loop.
+    """
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    B = init_pos.shape[0]
+    dev, dtype = init_pos.device, init_pos.dtype
+    helpers = _canopy_helpers(config, medium_row, leaves, illum_row)
+    bounce = _make_bounce_canopy(
+        config, medium_row, surface_row, leaf_row, leaves, helpers, B
+    )
+    z_top = medium_row.z_levels[-1]
+    _, box_lo, box_hi = helpers["accel"]
+    park = torch.stack([z_top.new_zeros(()), z_top.new_zeros(()), z_top]).expand(B, 3)
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev).expand(B, 3)
+
+    def origin(keys, init_pos_l, ext_l):
+        if ext is None:
+            return init_pos_l
+        jit = (origin_uniforms(keys, 2) - 0.5) * ext_l
+        return init_pos_l + torch.cat([jit, jit.new_zeros(B, 1)], dim=-1)
+
+    ext_l = torch.zeros((B, 2), dtype=dtype, device=dev) if ext is None else ext
+    quota_l = torch.as_tensor(quota, device=dev).expand(B)
+    lane_first_l, init_pos_l, init_d_l = lane_first, init_pos, init_d
+    s_local = torch.zeros(B, dtype=torch.int64, device=dev)
+    depth = torch.zeros(B, dtype=torch.int64, device=dev)
+    keys = derive_keys(row_key, lane_first)
+    pos, d = origin(keys, init_pos, ext_l), init_d
+    beta = torch.ones(B, dtype=dtype, device=dev)
+    L_cur = torch.zeros(B, dtype=dtype, device=dev)
+    L_sum = torch.zeros(B, dtype=dtype, device=dev)
+    m2_sum = torch.zeros(B, dtype=dtype, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    orig = torch.arange(B, device=dev)
+
+    iterations = 0
+    while True:
+        L_add, pos2, d2, beta2, alive2 = bounce(depth, pos, d, beta, keys)
+        active = ~done
+        L_cur = L_cur + torch.where(active, L_add, 0.0)
+        depth = depth + 1
+        path_end = active & (~alive2 | (depth >= config.max_depth))
+
+        L_sum = L_sum + torch.where(path_end, L_cur, 0.0)
+        m2_sum = m2_sum + torch.where(path_end, L_cur * L_cur, 0.0)
+        s_local = s_local + path_end
+        done = done | (s_local >= quota_l)
+
+        # regenerate: a fresh path, with its own origin jitter, for the
+        # lane's next sample
+        regen = path_end & ~done
+        keys_new = derive_keys(row_key, lane_first_l + s_local)
+        keys = torch.where(regen[:, None], keys_new, keys)
+        pos = torch.where(regen[:, None], origin(keys_new, init_pos_l, ext_l), pos2)
+        d = torch.where(regen[:, None], init_d_l, d2)
+        beta = torch.where(regen, 1.0, beta2)
+        L_cur = torch.where(path_end, 0.0, L_cur)
+        depth = torch.where(regen, 0, depth)
+
+        # park done lanes at TOA pointing up: valid geometry that misses the
+        # canopy's box
+        pos = torch.where(done[:, None], park, pos)
+        d = torch.where(done[:, None], up, d)
+
+        if sort_every > 0 and iterations % sort_every == sort_every - 1:
+            code = _morton_u32(pos, box_lo, box_hi)
+            code = torch.where(done, 0xFFFFFFFF, code)  # done lanes to the end
+            order = torch.argsort(code, stable=True)
+            (s_local, depth, pos, d, beta, L_cur, keys, done, L_sum, m2_sum,
+             lane_first_l, quota_l, init_pos_l, init_d_l, ext_l, orig) = (
+                x[order]
+                for x in (s_local, depth, pos, d, beta, L_cur, keys, done, L_sum,
+                          m2_sum, lane_first_l, quota_l, init_pos_l, init_d_l, ext_l,
+                          orig)
+            )
+
+        iterations += 1
+        if iterations % check_every == 0 and bool(done.all()):
+            break
+
+    # undo the in-loop permutations: scatter the sums back to the caller's lanes
+    L_out = torch.zeros_like(L_sum)
+    m2_out = torch.zeros_like(m2_sum)
+    L_out[orig] = L_sum
+    m2_out[orig] = m2_sum
+    return L_out, m2_out, iterations
+
+
+def _render_row_canopy(
+    config, n_pix, spp, medium_row, surface_row, leaf_row, leaves, illum_row,
+    directions, target, ray_offset, key, target_extent, lanes_target, sort_every,
+    check_every,
+):
+    """One spectral row of one chunk: returns (radiance [N], m2 [N],
+    iterations)."""
+    lp, pix, _, lane_first, quota = lane_partition(
+        n_pix, spp, lanes_target, directions.device
+    )
+    B = n_pix * lp
+    z_top = medium_row.z_levels[-1]
+    w_v = directions[pix]
+    tgt = target[pix] if target.ndim == 2 else target.expand(B, 3)
+    ext = None
+    if target_extent is not None:
+        ext = target_extent[pix] if target_extent.ndim == 2 else target_extent.expand(B, 2)
+    # start at TOA on the line through the target, unless ray_offset is
+    # finite (start at target + ray_offset * w_v)
+    t_up = torch.where(
+        torch.isnan(ray_offset),
+        (z_top - tgt[:, 2]) / torch.clamp(w_v[:, 2], min=1e-6),
+        ray_offset,
+    )
+    init_pos = tgt + w_v * t_up[:, None]
+    L_sum, m2_sum, iterations = trace_paths_canopy_regen(
+        config, medium_row, surface_row, leaf_row, leaves, illum_row, init_pos, -w_v,
+        key, lane_first, quota, ext=ext, sort_every=sort_every, check_every=check_every,
+    )
+    radiance = L_sum.reshape(n_pix, lp).sum(dim=1) / spp
+    m2 = m2_sum.reshape(n_pix, lp).sum(dim=1) / spp
+    return radiance, m2, iterations
+
+
+def _check_supported(config, tris):
+    """Raise ``NotImplementedError`` naming each feature this slice lacks."""
+    unsupported = {
+        "polarized canopy transport": config.polarized,
+        "triangle meshes in canopy scenes (trunks, mesh trees)": tris is not None,
+        f"geometry {config.geometry!r} for canopy scenes":
+            config.geometry != "plane_parallel",
+        f"sampler {config.sampler!r}": config.sampler != "independent",
+        f"illumination kind {config.illumination_kind!r} (spot emitter) for "
+        "canopy scenes": config.illumination_kind != "directional",
+        "lr_flight": config.lr_flight,
+        f"rng {config.rng!r}": config.rng != "pcg4d",
+        f"surface kind {config.surface_kind!r}":
+            config.surface_kind not in SUPPORTED_BSDFS,
+    }
+    for feature, missing in unsupported.items():
+        if missing:
+            raise NotImplementedError(f"{feature} is not ported yet")
+    check_phase_kinds(config.phase_kinds)
+
+
+def render_canopy(
+    scene, leaf_params, leaves, sensor, config, spp, seed=0, spp_chunk=None,
+    tris=None, tri_params=None, *, device="cuda", lanes_target=None,
+    sort_every=CANOPY_SORT_EVERY, check_every=CHECK_EVERY,
+):
+    """Render a canopy (+ optional atmosphere) scene.
+
+    ``scene``/``sensor``/``config`` are a compiled scene (the medium may be
+    zero-extinction for pure canopy scenes), ``leaves`` a flat or instanced
+    leaf cloud and ``leaf_params`` ``{"reflectance": [S], "transmittance":
+    [S]}``, the reference's or the port's; all are moved to ``device``
+    first. ``spp_chunk`` (default: what :data:`PATHS_PER_DISPATCH` allows)
+    splits the samples into chunks with their own keys and so changes the
+    sample set; ``lanes_target`` (default :data:`LANES_TARGET`) and
+    ``sort_every`` change only the float summation order.
+
+    Returns a dict with ``radiance`` [S, N], ``m2`` [S, N], ``spp`` and
+    ``iterations`` (bounce iterations, summed over chunks and rows; each
+    launches the nearest-hit and the any-hit sweep once).
+    """
+    _check_supported(config, tris)
+    dev = resolve_device(device)
+    scene, sensor, config = from_reference(scene, sensor, config, dev)
+    leaves, leaf_params = canopy_from_reference(leaves, leaf_params, dev)
+    if lanes_target is None:
+        lanes_target = LANES_TARGET[dev.type]
+    med = scene.medium
+    il = scene.illumination
+    n_pix = sensor.directions.shape[0]
+    S = med.tau_levels.shape[0]
+
+    if spp_chunk is None:
+        max_spp = max(1, PATHS_PER_DISPATCH[dev.type] // max(S * n_pix, 1))
+        if spp > max_spp:
+            spp_chunk = max_spp
+    step = spp_chunk or spp
+    chunks = [min(step, spp - start) for start in range(0, spp, step)]
+
+    base_key = threefry.key(seed)
+    rad_sum = torch.zeros((S, n_pix), dtype=torch.float32, device=dev)
+    m2_sum = torch.zeros((S, n_pix), dtype=torch.float32, device=dev)
+    iterations = 0
+    for chunk_id, n in enumerate(chunks):
+        for s in range(S):
+            chunk_key = threefry.fold_in(threefry.fold_in(base_key, s), chunk_id)
+            row_key = torch.tensor(chunk_key, dtype=torch.int64, device=dev)
+            medium_row = MediumArrays(
+                z_levels=med.z_levels,
+                tau_levels=med.tau_levels[s],
+                albedo=med.albedo[s],
+                phase_weights=med.phase_weights[s],
+                phase_params=tuple(
+                    {k: v[s] for k, v in p.items()} for p in med.phase_params
+                ),
+            )
+            surface_row = SurfaceArrays(
+                params={k: _row(v, s) for k, v in scene.surface.params.items()}
+            )
+            illum_row = IlluminationArrays(
+                direction=il.direction,
+                irradiance=il.irradiance[s],
+                cos_cutoff=_row(il.cos_cutoff, s),
+                sky_radiance=_row(il.sky_radiance, s),
+            )
+            leaf_row = {k: v[s] for k, v in leaf_params.items()}
+            rad, m2, it = _render_row_canopy(
+                config, n_pix, n, medium_row, surface_row, leaf_row, leaves, illum_row,
+                sensor.directions, sensor.target, sensor.ray_offset, row_key,
+                sensor.target_extent, lanes_target, sort_every, check_every,
+            )
+            rad_sum[s] += rad * n
+            m2_sum[s] += m2 * n
+            iterations += it
+    traced = sum(chunks)
+    return {
+        "radiance": rad_sum / traced,
+        "m2": m2_sum / traced,
+        "spp": traced,
+        "iterations": iterations,
+    }

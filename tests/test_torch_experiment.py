@@ -2,8 +2,9 @@
 
 ``compile_scene`` leaves are bitwise the reference's; ``run`` at the same
 seed matches ``eradiate_tpu.run`` within 1e-5 relative and returns the same
-dataset layout; the port imports and runs with ``jax`` blocked; asking for
-CUDA without a card raises.
+dataset layout; the port imports and runs c1, c4 and a small canopy with
+``jax`` and ``eradiate_tpu`` blocked; asking for CUDA without a card raises.
+The two packages share no objects: each has its own mode and seed state.
 """
 
 import subprocess
@@ -45,9 +46,12 @@ def c1_kwargs(n_vza=11):
 
 @pytest.fixture
 def mono_single():
+    # each package has its own mode registry
     eradiate_tpu.set_mode("mono_single")
+    eradiate_tpu_torch.set_mode("mono_single")
     yield
     eradiate_tpu.set_mode("mono")
+    eradiate_tpu_torch.set_mode("mono")
 
 
 def _leaves(obj, prefix=""):
@@ -94,8 +98,8 @@ def test_run_matches_reference(mono_single):
         RefExperiment(**c1_kwargs()), spp=SPP, seed_state=SeedState(7), mesh=None
     )
     out = eradiate_tpu_torch.run(
-        AtmosphereExperiment(**c1_kwargs()), spp=SPP, seed_state=SeedState(7),
-        device="cpu",
+        AtmosphereExperiment(**c1_kwargs()), spp=SPP,
+        seed_state=eradiate_tpu_torch.SeedState(7), device="cpu",
     )
     assert set(out.data_vars) == set(ref.data_vars)
     assert set(out.coords) == set(ref.coords)
@@ -109,29 +113,52 @@ def test_run_matches_reference(mono_single):
 
 
 def test_runs_with_jax_blocked():
+    """c1, c4 and the small canopy case run with ``jax`` and ``eradiate_tpu``
+    both unimportable, and load neither."""
     code = textwrap.dedent(
         f"""
         import sys
         sys.modules["jax"] = None
+        sys.modules["eradiate_tpu"] = None
         import numpy as np
         import torch
         torch.set_num_threads(1)
         import eradiate_tpu_torch as etp
+        from eradiate_tpu_torch.test_tools.test_cases import create_het01_brfpp
         etp.set_mode("mono_single")
-        exp = etp.AtmosphereExperiment(
+        measures = {{"type": "mdistant", "construct": "hplane",
+                    "zeniths": np.linspace(-75, 75, 11), "azimuth": 0.0}}
+        c1 = etp.AtmosphereExperiment(
             illumination={{"type": "directional", "zenith": 30.0}},
-            measures={{"type": "mdistant", "construct": "hplane",
-                      "zeniths": np.linspace(-75, 75, 11), "azimuth": 0.0}},
+            measures=measures,
             surface={{"type": "lambertian", "reflectance": 0.5}},
             atmosphere={{"type": "molecular"}},
         )
-        ds = etp.run(exp, spp={SPP}, seed_state=etp.SeedState(7), device="cpu")
-        brf = np.asarray(ds["brf"])
-        assert brf.shape == (1, 11) and np.isfinite(brf).all(), brf
-        bad = [m for m in sys.modules if m.startswith(("eradiate_tpu.ops",
-               "eradiate_tpu.experiments")) or m.split(".")[0] == "jax"]
+        c4 = etp.AtmosphereExperiment(
+            geometry="spherical_shell",
+            illumination={{"type": "directional", "zenith": 75.0}},
+            measures={{**measures, "target": [0.0, 0.0, 6378.1]}},
+            surface={{"type": "hapke"}},
+            atmosphere={{"type": "molecular"}},
+        )
+        het = create_het01_brfpp(n_vza=11, n_leaves=200)
+        canopy = etp.CanopyAtmosphereExperiment(
+            canopy=het.canopy,
+            atmosphere={{"type": "molecular", "has_absorption": False}},
+            illumination={{"type": "directional", "zenith": 20.0}},
+            measures=measures,
+            surface={{"type": "lambertian", "reflectance": 0.159}},
+            integrator={{"type": "volpath"}},
+        )
+        means = []
+        for exp in (c1, c4, canopy):
+            ds = etp.run(exp, spp={SPP}, seed_state=etp.SeedState(7), device="cpu")
+            brf = np.asarray(ds["brf"])
+            assert brf.shape == (1, 11) and np.isfinite(brf).all(), brf
+            means.append(float(brf.mean()))
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "eradiate_tpu")]
         assert not [m for m in bad if sys.modules[m] is not None], bad
-        print("OK", float(brf.mean()))
+        print("OK", means)
         """
     )
     proc = subprocess.run(
@@ -150,9 +177,12 @@ def test_cuda_without_card_raises(mono_single, monkeypatch):
 
 @pytest.mark.parametrize("mode_id", ["mono_double", "mono_polarized_single", "ckd_single"])
 def test_unported_modes_raise(mode_id):
-    eradiate_tpu.set_mode(mode_id)
-    with pytest.raises(NotImplementedError, match=mode_id):
-        eradiate_tpu_torch.run(AtmosphereExperiment(**c1_kwargs()), spp=8, device="cpu")
+    eradiate_tpu_torch.set_mode(mode_id)
+    try:
+        with pytest.raises(NotImplementedError, match=mode_id):
+            eradiate_tpu_torch.run(AtmosphereExperiment(**c1_kwargs()), spp=8, device="cpu")
+    finally:
+        eradiate_tpu_torch.set_mode("mono")
 
 
 @pytest.mark.parametrize(

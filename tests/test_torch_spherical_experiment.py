@@ -70,9 +70,12 @@ def c4_kwargs(sza=75.0):
 
 @pytest.fixture
 def mono_single():
+    # each package has its own mode registry
     eradiate_tpu.set_mode("mono_single")
+    eradiate_tpu_torch.set_mode("mono_single")
     yield
     eradiate_tpu.set_mode("mono")
+    eradiate_tpu_torch.set_mode("mono")
 
 
 def _leaves(obj, prefix=""):
@@ -134,8 +137,8 @@ def test_run_matches_reference(mono_single, sza, median_bound):
         RefExperiment(**c4_kwargs(sza)), spp=SPP, seed_state=SeedState(7), mesh=None
     )
     out = eradiate_tpu_torch.run(
-        AtmosphereExperiment(**c4_kwargs(sza)), spp=SPP, seed_state=SeedState(7),
-        device="cpu",
+        AtmosphereExperiment(**c4_kwargs(sza)), spp=SPP,
+        seed_state=eradiate_tpu_torch.SeedState(7), device="cpu",
     )
     assert set(out.data_vars) == set(ref.data_vars)
     for k in ref.coords:
@@ -189,6 +192,7 @@ def test_runs_with_jax_blocked():
         f"""
         import sys
         sys.modules["jax"] = None
+        sys.modules["eradiate_tpu"] = None
         import numpy as np
         import torch
         torch.set_num_threads(1)
@@ -207,8 +211,7 @@ def test_runs_with_jax_blocked():
             ds = etp.run(exp, spp=64, seed_state=etp.SeedState(7), device="cpu")
             brf = np.asarray(ds["brf"])
             assert brf.shape == (1, 15) and np.isfinite(brf).all(), brf
-        bad = [m for m in sys.modules if m.startswith(("eradiate_tpu.ops",
-               "eradiate_tpu.experiments")) or m.split(".")[0] == "jax"]
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "eradiate_tpu")]
         assert not [m for m in bad if sys.modules[m] is not None], bad
         print("OK", float(brf.mean()))
         """
