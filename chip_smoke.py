@@ -1,23 +1,29 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's main paths on one NVIDIA GPU and check them.
 
 Run from the repository root on a machine with one CUDA device:
 
     python3 chip_smoke.py
 
-Three paths run through ``eradiate_tpu_torch.run``. BASELINE config 1
-(``bench.py`` ``_c1``): a mono single-precision plane-parallel Rayleigh
-atmosphere (AFGL, 550 nm) over a Lambertian surface (rho = 0.5), sun at
-SZA 30, seen by a 76-angle ``mdistant`` hplane sensor at 4194304 spp.
-BASELINE config 4 (``_c4``): the same column in spherical shells over a
-Hapke surface, sun at SZA 75, 15 view zeniths at 2097152 spp; at SZA 85 the
-sun-tau table is off and the exact NEE runs. The scene of BASELINE config 5
-(``_c5``) with the scalar integrator: HET01 (one 2000-leaf cloud instanced at
-15 positions, 30000 leaf disks in a 100 m x 100 m x 15 m canopy) over a
-Lambertian floor under the Rayleigh AFGL column without absorption, sun at
-SZA 20, 19 view zeniths at 2097152 spp, footprint rectangle target; once
-instanced and once as two elements, which flattens it. Phases, each fatal on
-failure:
+The paths run through ``eradiate_tpu_torch.run`` unless said otherwise.
+BASELINE config 1 (``bench.py`` ``_c1``): a mono single-precision
+plane-parallel Rayleigh atmosphere (AFGL, 550 nm) over a Lambertian surface
+(rho = 0.5), sun at SZA 30, seen by a 76-angle ``mdistant`` hplane sensor at
+4194304 spp. BASELINE config 4 (``_c4``): the same column in spherical shells
+over a Hapke surface, sun at SZA 75, 15 view zeniths at 2097152 spp; at SZA 85
+the sun-tau table is off and the exact NEE runs; with ``config.lr_flight``
+through ``render_spherical`` (the sensitivity renders' entry point) the
+flight and the exact slant depth are two launches. The scene of BASELINE
+config 5 (``_c5``) with the scalar integrator: HET01 (one 2000-leaf cloud
+instanced at 15 positions, 30000 leaf disks in a 100 m x 100 m x 15 m canopy)
+over a Lambertian floor under the Rayleigh AFGL column without absorption, sun
+at SZA 20, 19 view zeniths at 2097152 spp, footprint rectangle target; in four
+forms: instanced; as two elements, which flattens it; ``c5_trees``, the crown
+on a 6 m trunk as one abstract tree instanced at the 15 positions (instanced
+leaves and instanced trunk triangles); ``c5_wood``, the leaf cloud beside a
+mesh tree at the 15 positions, a wood skeleton of 6180 triangles that this
+script writes as an OBJ file into a temporary directory from a seed
+(flattened: 30000 disks and 92700 triangles). Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. the build of the port's CUDA kernels from ``eradiate_tpu_torch/csrc``;
@@ -32,15 +38,16 @@ failure:
    pixel within |z| <= 5 of the variances;
 5. c1 at full width: one warm-up run, then a timed run; the kernel's launch
    count over the timed run must equal its bounce iterations;
-6. the shell-flight and shell-event launchers in the library, and their
-   ptxas reports;
-7. the shell-flight (K2) and shell-event (K3) kernels against their plain
-   twins on the card: the c4 column at c4's lane count, with the lanes of a
-   real first event (rays from the top of the atmosphere along the 15 view
-   directions) and seeded interior lanes (steep descents, grazing rays,
-   tangents below the ground); the unmerged 1200-shell column; a column
-   with vacuum shells; a ragged lane count. collide, layer, t_col and
-   tau_sun bitwise; kernel and twin timed with CUDA events (median);
+6. the shell and triangle launchers in the library, and their ptxas reports;
+7. the shell-flight (K2), slant-depth (K4) and shell-event (K3) kernels
+   against their plain twins on the card: the c4 column at c4's lane count,
+   with the lanes of a real first event (rays from the top of the atmosphere
+   along the 15 view directions) and seeded interior lanes (steep descents,
+   grazing rays, tangents below the ground); the unmerged 1200-shell column;
+   a column with vacuum shells; a ragged lane count. K4 is given the event
+   points of K2's flight. collide, layer, t_col, tau_sun and tau bitwise
+   (``TAU_BLOCKED`` on the same lanes), and K4's depths equal to K3's;
+   kernel and twin timed with CUDA events (median);
 8. the port on CUDA against the port on the CPU, c4 at 15 view zeniths and
    256 spp at one seed, SZA 75 and SZA 85: every pixel within |z| <= 5,
    the median pixel within 1e-4 relative and every pixel within 5e-2 (CUDA's
@@ -59,7 +66,8 @@ failure:
     aimed at their rims. ``hit`` and ``occluded`` equal on every lane, ``t``
     and normals bitwise, differing lanes counted and printed; each kernel
     timed with CUDA events (median of 25) at the path's lane count, its plain
-    version once, in slices that fit the card's memory;
+    version once on a seeded subset of 2^18 of those lanes, in slices that
+    fit the card's memory;
 12. the port on CUDA against the port on the CPU, the c5 scene at 19 view
     zeniths and 64 spp at one seed, instanced and flat: every pixel within
     |z| <= 5, the median pixel within 1e-4 relative;
@@ -68,20 +76,42 @@ failure:
     bounce iterations;
 14. the same canopy as two elements (positions split 8 + 7) at full width
     through the flat kernels, and its BRF against phase 13's within
-    |z| <= 5 per pixel.
+    |z| <= 5 per pixel;
+15. c4 at SZA 75 with ``lr_flight`` at full width: a warm-up, then a timed
+    run; shell-flight and slant-depth launches must each equal the event
+    iterations; its radiance against the exact-NEE render (sun-tau table
+    off, shell-event kernel) of the same scene and seed, bit for bit;
+16. the four triangle-sweep kernels (K8 flat, K9 instanced) against their
+    plain versions on the card, as phase 11: the trunks of ``c5_trees`` and
+    the soup of ``c5_wood`` with the three kinds of rays clipped to the
+    mesh's box (plain versions on 2^18 and 2^16 seeded lanes), a ragged
+    lane count, rays beside the box, and rays aimed at shared edges and
+    vertices of the skeleton's closed cylinders from 0.5-3 cm and from
+    0.5-3 m; then the instanced kernels on the skeleton as canonical soup
+    (N = 6180, I = 15) against the flat kernels on its 92700 triangles;
+17. the port on CUDA against the port on the CPU, ``c5_trees`` and
+    ``c5_wood`` (the latter with a 12-branch skeleton, 4860 triangles: the
+    CPU's dense sweep of 92700 would take minutes) at 19 view zeniths and
+    64 spp: the gate of phase 12;
+18. ``c5_trees`` at full width: leaf and triangle nearest-hit and any-hit
+    launches (instanced kernels) must each equal the bounce iterations;
+19. ``c5_wood`` at full width, the same through the flat kernels; the BRF of
+    both printed beside phase 13's.
 
-It prints a ``{"kernels": [...]}`` line (each kernel with its launches on the
+It prints a ``{"kernels": [...]}`` line (each kernel with its launches on its
 main path, its error against the plain version, its time, the plain
-version's, its bound on this card and what bounds it) and the ``nvidia-smi`` line before
-the last line, ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-outside the repository, it exits non-zero and prints no result. It imports
-neither ``jax`` nor ``eradiate_tpu`` and checks so at its end.
+version's, the lane counts of both, its bound on this card and what bounds
+it) and the ``nvidia-smi`` line before the last line, ``{"ok": true,
+"device": {...}}``. Without a CUDA device, or outside the repository, it
+exits non-zero and prints no result. It imports neither ``jax`` nor
+``eradiate_tpu`` and checks so at its end.
 """
 
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -94,6 +124,10 @@ SPP_C4 = 2097152
 N_VZA_C5 = 19
 SPP_C5 = 2097152
 SEED = 1
+#: Branches of the wood skeleton of the ``wood`` form (24 triangles each).
+WOOD_BRANCHES = 256
+#: Lanes on which a sweep kernel is held against its plain version.
+PLAIN_LANES = 2**18
 
 #: Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
 #: bandwidth and float32 rate outside the tensor cores.
@@ -115,10 +149,11 @@ def reset_launches():
     from eradiate_tpu_torch.kernels import collision_fetch as cf
     from eradiate_tpu_torch.kernels import leaf_intersect as li
     from eradiate_tpu_torch.kernels import shell_flight as sf
+    from eradiate_tpu_torch.kernels import tri_intersect as ti
 
     cf.launches = 0
-    sf.launches.update(dict.fromkeys(sf.launches, 0))
-    li.launches.update(dict.fromkeys(li.launches, 0))
+    for mod in (sf, li, ti):
+        mod.launches.update(dict.fromkeys(mod.launches, 0))
 
 
 def read_launches():
@@ -126,8 +161,9 @@ def read_launches():
     from eradiate_tpu_torch.kernels import collision_fetch as cf
     from eradiate_tpu_torch.kernels import leaf_intersect as li
     from eradiate_tpu_torch.kernels import shell_flight as sf
+    from eradiate_tpu_torch.kernels import tri_intersect as ti
 
-    return {"collision_fetch": cf.launches, **sf.launches, **li.launches}
+    return {"collision_fetch": cf.launches, **sf.launches, **li.launches, **ti.launches}
 
 
 def _c1(n_vza, layer_merge_tol=1e-3):
@@ -148,11 +184,12 @@ def _c1(n_vza, layer_merge_tol=1e-3):
     )
 
 
-def _c4(sza=75.0, shell_merge_tol=1e-3):
+def _c4(sza=75.0, shell_merge_tol=1e-3, sun_tau_table="auto"):
     from eradiate_tpu_torch import AtmosphereExperiment
 
     return AtmosphereExperiment(
-        geometry={"type": "spherical_shell", "shell_merge_tol": shell_merge_tol},
+        geometry={"type": "spherical_shell", "shell_merge_tol": shell_merge_tol,
+                  "sun_tau_table": sun_tau_table},
         illumination={"type": "directional", "zenith": sza, "azimuth": 0.0},
         measures={
             "type": "mdistant",
@@ -317,27 +354,36 @@ def _shell_inputs(exp, B, seed, vacuum=False, device="cuda"):
 
 
 def check_shell_kernels(name, args, timed=False):
-    """K2 and K3 against their twins on the card, bitwise; returns
+    """K2, K3 and K4 against their twins on the card, bitwise; returns
     ({kernel: max abs error}, {kernel: (kernel ms, twin ms)}, {kernel: (bound
-    ms, bound by)}). The bound: the lanes' state and the column read once, the
-    outputs written once; per lane the levels its two sweeps have to visit on
-    this data (up to the event's shell, ~8 float32 operations a level, a
-    square root among them) and, for shell_event, ~30 operations a shell
-    for every lane that is not in the ground's shadow."""
+    ms, bound by)}). K4 (slant_tau) is given the event points of K2's flight,
+    formed as shell_event forms them, so its depths must also equal K3's.
+    The bound: the lanes' state and the column read once, the outputs
+    written once; per lane the levels its two sweeps have to visit on this
+    data (up to the event's shell, ~8 float32 operations a level, a square
+    root among them) and, for shell_event and slant_tau, ~30 operations a
+    shell for every lane that is not in the ground's shadow."""
     import torch
 
     from eradiate_tpu_torch.kernels import shell_flight as sf
+    from eradiate_tpu_torch.ops.spherical import fma
 
+    p, d, t_max, radii, sigma, _, w_sun = args
     flight_args = args[:6]
+    collide, t_col, _ = sf.shell_flight(*flight_args)
+    p_event = fma(d, torch.where(collide, t_col, t_max)[:, None], p).contiguous()
     checks = {
         "shell_flight": (sf.shell_flight, sf.shell_flight_plain, flight_args),
+        "slant_tau": (lambda *a: (sf.slant_tau(*a),), lambda *a: (sf.slant_tau_exact(*a),),
+                      (p_event, w_sun, radii, sigma)),
         "shell_event": (sf.shell_event, sf.shell_event_plain, args),
     }
     errs, times, bounds = {}, {}, {}
     L = args[4].shape[0]
     for kernel, (fn, plain, a) in checks.items():
         got, want = fn(*a), plain(*a)
-        for label, g, w in zip(("collide", "t_col", "layer", "tau_sun"), got, want):
+        labels = ("tau",) if kernel == "slant_tau" else ("collide", "t_col", "layer", "tau_sun")
+        for label, g, w in zip(labels, got, want):
             if not torch.equal(g, w):
                 gn, wn = g.cpu().numpy(), w.cpu().numpy()
                 detail = f"{int((gn != wn).sum())} lanes"
@@ -348,15 +394,21 @@ def check_shell_kernels(name, args, timed=False):
         if timed:
             times[kernel] = (_time_ms(lambda: fn(*a)), _time_ms(lambda: plain(*a), reps=5))
             n_bytes = sum(t.numel() * t.element_size() for t in tuple(a) + tuple(got))
-            flops = 8.0 * 2.0 * float((got[2].double() + 1.0).sum()) + 40.0 * a[0].shape[0]
-            if kernel == "shell_event":
-                flops += 30.0 * L * float((got[3] < 1e9).sum())
+            flops = 40.0 * a[0].shape[0]
+            if kernel != "slant_tau":
+                flops += 8.0 * 2.0 * float((got[2].double() + 1.0).sum())
+            if kernel != "shell_flight":
+                flops += 30.0 * L * float((got[-1] < 1e9).sum())
             bounds[kernel] = bound_ms(n_bytes, flops)
+        if kernel == "slant_tau":
+            tau_k4 = got[0]
+    if not torch.equal(tau_k4, got[3]):
+        raise AssertionError(f"{name}: slant_tau at the event points differs from shell_event")
     collide = got[0].float().mean().item()
     blocked = (got[3] >= 1e9).float().mean().item()
     line = (f"  {name}: B={args[0].shape[0]} L={args[4].shape[0]} collide, t_col, "
-            f"layer, tau_sun bitwise for both kernels (collide share {collide:.3f}, "
-            f"ground-shadowed share {blocked:.3f})")
+            f"layer, tau_sun, tau bitwise for the three kernels, slant_tau equal to "
+            f"shell_event's (collide share {collide:.3f}, TAU_BLOCKED share {blocked:.3f})")
     for kernel, (k_ms, p_ms) in times.items():
         line += (f"; {kernel} kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms, bound "
                  f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
@@ -422,28 +474,67 @@ def c4_full_width(sza, spp, phase):
     return launches
 
 
-def _c5(flat=False):
+def _wood_obj(directory, branches=WOOD_BRANCHES):
+    """Write the wood skeleton of one HET01 tree (a 10 m trunk and
+    ``branches`` branches of 4.5 m from the crown's centre, 36 + 24 x branches
+    triangles, metres; seed 7) as an OBJ file under ``directory``, once;
+    returns its path."""
+    from eradiate_tpu_torch.test_tools.meshes import wood_skeleton, write_obj
+
+    path = Path(directory) / f"wood_{branches}.obj"
+    if not path.exists():
+        write_obj(path, *wood_skeleton(np.random.default_rng(7), n_branches=branches))
+    return str(path)
+
+
+def _c5(form="instanced", mesh_dir=None, branches=WOOD_BRANCHES):
     """The scene of BASELINE config 5 (``bench.py`` ``_c5``) with the scalar
-    integrator; ``flat`` gives the same canopy as two elements (positions
-    split 8 + 7), which the experiment flattens."""
+    integrator, in one of four forms:
+
+    - ``instanced``: HET01's leaf cloud instanced at its 15 positions;
+    - ``flat``: the same canopy as two elements (positions split 8 + 7),
+      which the experiment flattens;
+    - ``trees``: one abstract tree (HET01's crown on a 6 m trunk of 0.25 m
+      radius, reflectance 0.125) instanced at the 15 positions: instanced
+      leaves and instanced trunk triangles;
+    - ``wood``: HET01's leaf cloud and a mesh tree (the wood skeleton of
+      :func:`_wood_obj` with ``branches`` branches, written to and read back
+      from ``mesh_dir``), both at the 15 positions: two elements, flattened
+      to 30000 disks and, with 256 branches, 92700 triangles.
+    """
     from eradiate_tpu_torch import CanopyAtmosphereExperiment
-    from eradiate_tpu_torch.scenes.biosphere import DiscreteCanopy
+    from eradiate_tpu_torch.scenes.biosphere import DiscreteCanopy, LeafCloud
     from eradiate_tpu_torch.test_tools.test_cases import create_het01_brfpp
 
-    canopy = create_het01_brfpp(n_vza=N_VZA_C5).canopy
-    if flat:
-        el = canopy.instanced_canopy_elements[0]
-        pos = np.atleast_2d(el.instance_positions)
-        canopy = DiscreteCanopy(
+    el = create_het01_brfpp(n_vza=N_VZA_C5).canopy.instanced_canopy_elements[0]
+    pos = np.atleast_2d(el.instance_positions)
+    if form == "instanced":
+        elements = [(el.canopy_element, pos)]
+    elif form == "flat":
+        elements = [(el.canopy_element, pos[:8]), (el.canopy_element, pos[8:])]
+    elif form == "trees":
+        crown = LeafCloud.sphere(
+            n_leaves=2000, leaf_radius=0.1, radius=5.0, center=(0.0, 0.0, 4.0),
+            leaf_reflectance=0.4957, leaf_transmittance=0.4409,
+        )
+        tree = {"type": "abstract_tree", "leaf_cloud": crown, "trunk_height": 6.0,
+                "trunk_radius": 0.25, "trunk_reflectance": 0.125}
+        elements = [(tree, pos)]
+    elif form == "wood":
+        wood = {"type": "mesh_tree", "mesh_tree_elements": [
+            {"mesh_filename": _wood_obj(mesh_dir, branches), "mesh_units": "m",
+             "reflectance": 0.125, "transmittance": 0.0}]}
+        elements = [(el.canopy_element, pos), (wood, pos)]
+    else:
+        raise ValueError(f"unknown form {form!r}")
+    return CanopyAtmosphereExperiment(
+        canopy=DiscreteCanopy(
             size=(100.0, 100.0, 15.0),
             instanced_canopy_elements=[
-                {"type": "instanced", "canopy_element": el.canopy_element,
-                 "instance_positions": part}
-                for part in (pos[:8], pos[8:])
+                {"type": "instanced", "canopy_element": e, "instance_positions": part}
+                for e, part in elements
             ],
-        )
-    return CanopyAtmosphereExperiment(
-        canopy=canopy,
+        ),
         atmosphere={"type": "molecular", "has_absorption": False},
         illumination={"type": "directional", "zenith": 20.0, "azimuth": 0.0},
         measures={
@@ -458,30 +549,15 @@ def _c5(flat=False):
     )
 
 
-def _leaf_inputs(exp, B, seed, miss=False, device="cuda"):
-    """Leaf-sweep operands for ``B`` lanes of the c5 scene: a third rays from
-    the top of the atmosphere along the view directions toward the jittered
-    footprint, a third from inside a crown in random directions, a third
-    shadow rays toward the sun from random points of the canopy's box
-    (``miss``: every ray passes beside the box), all clipped to the box as
-    the tracer clips them, then sorted by the tracer's Morton code. Returns
-    ``(leaves, spheres, p, d, t_cap)``."""
-    import torch
-
-    from eradiate_tpu_torch.ops.canopy import _advance_to_aabb, leaf_spheres
-    from eradiate_tpu_torch.ops.scene_state import canopy_from_reference
-    from eradiate_tpu_torch.ops.tracer_canopy import _morton_u32
-
-    m = exp.measures[0]
-    scene, sensor, _, leaf_params, leaves, _, _ = exp.compile_canopy_scene(
-        m, exp.spectral_context(m)
-    )
-    leaves, _ = canopy_from_reference(leaves, leaf_params, device)
-    spheres, lo, hi = leaf_spheres(leaves)
+def _canopy_rays(exp, scene, sensor, lo_n, hi_n, B, seed, miss=False):
+    """``B`` rays of the c5 scene as float64 numpy ``(p, d, t_max)``: a third
+    from the top of the atmosphere along the view directions toward the
+    jittered footprint, a third from inside a crown in random directions, a
+    third shadow rays toward the sun from random points of the box ``lo_n``,
+    ``hi_n`` (``miss``: every ray passes beside the box)."""
     rng = np.random.default_rng(seed)
     n0, n1 = B // 3, B // 3
     n2 = B - n0 - n1
-    lo_n, hi_n = lo.cpu().numpy(), hi.cpu().numpy()
 
     dirs = np.asarray(sensor.directions, np.float32)
     w_v = dirs[np.arange(n0) % len(dirs)]
@@ -510,21 +586,53 @@ def _leaf_inputs(exp, B, seed, miss=False, device="cuda"):
     p = np.concatenate([p0, p1, p2])
     if miss:
         p[:, 0] += 1.0  # a kilometre beside the canopy
-    p, d, t_max = (
-        torch.tensor(np.asarray(a, np.float32), device=device)
-        for a in (p, np.concatenate([d0, d1, d2]), np.concatenate([t0, t1, t2]))
-    )
+    return p, np.concatenate([d0, d1, d2]), np.concatenate([t0, t1, t2])
+
+
+def _clipped(rays, lo, hi, device="cuda"):
+    """Rays clipped to the box as the tracer clips them, then sorted by the
+    tracer's Morton code: ``(p, d, t_cap)`` float32 on ``device``."""
+    import torch
+
+    from eradiate_tpu_torch.ops.canopy import _advance_to_aabb
+    from eradiate_tpu_torch.ops.tracer_canopy import _morton_u32
+
+    p, d, t_max = (torch.tensor(np.asarray(a, np.float32), device=device) for a in rays)
     p_adv, _, t_cap = _advance_to_aabb(p, d, t_max, lo, hi)
     order = torch.argsort(_morton_u32(p_adv, lo, hi), stable=True)
-    return leaves, spheres, p_adv[order].contiguous(), d[order].contiguous(), t_cap[order]
+    return p_adv[order].contiguous(), d[order].contiguous(), t_cap[order]
+
+
+def _canopy_inputs(exp, B, seed, miss=False, device="cuda"):
+    """Sweep operands for ``B`` lanes of a form of the c5 scene (the rays of
+    :func:`_canopy_rays`, clipped to the box of the leaves and to the box of
+    the triangles, as the tracer does): returns ``(leaves, leaf spheres, leaf
+    rays, tris, triangle spheres, triangle rays)``, the last three None for a
+    canopy without triangles."""
+    from eradiate_tpu_torch.ops.canopy import leaf_spheres
+    from eradiate_tpu_torch.ops.mesh import tri_accel
+    from eradiate_tpu_torch.ops.scene_state import canopy_from_reference
+
+    m = exp.measures[0]
+    scene, sensor, _, leaf_params, leaves, tris, tri_params = exp.compile_canopy_scene(
+        m, exp.spectral_context(m)
+    )
+    leaves, _, tris, _ = canopy_from_reference(leaves, leaf_params, device, tris, tri_params)
+    spheres, lo, hi = leaf_spheres(leaves)
+    rays = _canopy_rays(exp, scene, sensor, lo.cpu().numpy(), hi.cpu().numpy(), B, seed, miss)
+    out = (leaves, spheres, _clipped(rays, lo, hi, device))
+    if tris is None:
+        return (*out, None, None, None)
+    tri_spheres, tri_lo, tri_hi = tri_accel(tris)
+    return (*out, tris, tri_spheres, _clipped(rays, tri_lo, tri_hi, device))
 
 
 def _rim_inputs(instanced, B, seed, device="cuda"):
     """A synthetic stress of the kernels' culls: 1000 random disks (radii 0.05
     to 0.2 in a box of side 2, at three offsets when ``instanced``) and rays
     aimed at points on, just inside and just outside their rims, with caps
-    that end on, just before and just behind the rim point. Same return as
-    :func:`_leaf_inputs`."""
+    that end on, just before and just behind the rim point. Returns
+    ``(leaves, spheres, (p, d, t_cap))``."""
     import torch
 
     from eradiate_tpu_torch.kernels.leaf_intersect import sweep_spheres
@@ -556,27 +664,60 @@ def _rim_inputs(instanced, B, seed, device="cuda"):
     cloud = LeafCloudArrays(to_dev(c), to_dev(n), to_dev(r))
     leaves = InstancedLeafArrays(cloud, to_dev(offsets)) if instanced else cloud
     spheres = sweep_spheres(cloud.centers, cloud.normals, cloud.radii)
-    return leaves, spheres, to_dev(p), to_dev(-back), to_dev(t_max)
+    return leaves, spheres, (to_dev(p), to_dev(-back), to_dev(t_max))
 
 
-def _leaf_calls(leaves, spheres, rays):
-    """{kernel: (wrapper, plain version, arguments)} for one leaf set."""
+def _edge_inputs(instanced, B, seed, far, device="cuda"):
+    """A stress of the triangle kernels' exact test and culls: the wood
+    skeleton (closed cylinders, 6180 triangles, at three offsets when
+    ``instanced``) and rays aimed at its shared edges, at its vertices, at
+    interior points and just beside edges, from 0.5-3 cm away (``far``: from
+    0.5-3 m, 100x farther), with caps that end on, just before and just
+    behind the target. Returns ``(tris, spheres, (p, d, t_cap))``."""
+    import torch
+
+    from eradiate_tpu_torch.kernels.tri_intersect import tri_sweep_spheres
+    from eradiate_tpu_torch.ops.mesh import (
+        InstancedTriArrays,
+        TriangleMeshArrays,
+        mesh_from_vertices,
+    )
+    from eradiate_tpu_torch.test_tools.meshes import edge_rays, wood_skeleton
+
+    v, f = wood_skeleton(np.random.default_rng(7), n_branches=WOOD_BRANCHES)
+    soup = mesh_from_vertices((v * 1e-3).astype(np.float32), f)
+    offsets = np.array([[0.0, 0, 0], [0.02, 0, 0], [0, 0.03, 0]]) if instanced else None
+    rays = edge_rays(np.random.default_rng(seed), B, soup, offsets, 1e-3 if far else 1e-5)
+    to_dev = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    tris = TriangleMeshArrays(to_dev(soup.v0), to_dev(soup.e1), to_dev(soup.e2))
+    spheres = tri_sweep_spheres(tris.v0, tris.e1, tris.e2)
+    if instanced:
+        tris = InstancedTriArrays(tris, to_dev(offsets))
+    return tris, spheres, tuple(to_dev(a) for a in rays)
+
+
+def _sweep_calls(geometry, spheres, rays):
+    """{kernel: (wrapper, plain version, arguments)} for one leaf set or one
+    triangle soup, flat or instanced."""
     from eradiate_tpu_torch.kernels import leaf_intersect as li
+    from eradiate_tpu_torch.kernels import tri_intersect as ti
 
-    if hasattr(leaves, "canonical"):
-        c = leaves.canonical
-        args = (*rays, c.centers, c.normals, c.radii, leaves.offsets)
-        names = ("ray_leaves_nearest_instanced", "ray_leaves_occluded_instanced")
+    base = geometry.canonical if hasattr(geometry, "canonical") else geometry
+    if hasattr(base, "centers"):
+        mod, stem, table = li, "ray_leaves", (base.centers, base.normals, base.radii)
     else:
-        args = (*rays, leaves.centers, leaves.normals, leaves.radii)
-        names = ("ray_leaves_nearest", "ray_leaves_occluded")
+        mod, stem, table = ti, "ray_tris", (base.v0, base.e1, base.e2)
+    args = (*rays, *table)
+    suffix = ""
+    if hasattr(geometry, "canonical"):
+        args, suffix = (*args, geometry.offsets), "_instanced"
     return {
-        n: ((lambda a, fn=getattr(li, n): fn(*a, spheres)), getattr(li, n + "_plain"), args)
-        for n in names
+        n: ((lambda a, fn=getattr(mod, n): fn(*a, spheres)), getattr(mod, n + "_plain"), args)
+        for n in (f"{stem}_nearest{suffix}", f"{stem}_occluded{suffix}")
     }
 
 
-def _sliced(plain, args, lanes=2**17):
+def _sliced(plain, args, lanes):
     """Run a plain version over the lanes (the first three arguments: p, d,
     t_max) in slices that fit the card's memory: its [lanes, 512] float64
     temporaries would take about 8 GiB each at 2^21 lanes."""
@@ -591,18 +732,19 @@ def _sliced(plain, args, lanes=2**17):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _reach_pairs(rays, cap, occluded, leaves, spheres):
-    """Disk tests this data needs at the kernels' cull granularity: for each
-    ray the 128-leaf groups whose sphere its segment (up to ``cap``) reaches,
-    over all instances; an occluded shadow ray needs one group."""
+def _reach_pairs(rays, cap, occluded, offsets, spheres):
+    """Exact tests this data needs at the kernels' cull granularity: for each
+    ray the groups (of leaves or triangles) whose sphere its segment (up to
+    ``cap``) reaches, over all instances; an occluded shadow ray needs one
+    group."""
     import torch
 
     p, d, _ = rays
-    offsets = leaves.offsets if hasattr(leaves, "canonical") else p.new_zeros((1, 3))
-    groups = spheres[1:]
+    if offsets is None:
+        offsets = p.new_zeros((1, 3))
     pairs = torch.zeros(p.shape[0], dtype=torch.int64, device=p.device)
     for off in offsets:
-        for g in groups:
+        for g in spheres[1:]:
             v = g[:3] - (p - off)
             tc = torch.minimum(torch.clamp((v * d).sum(-1), min=0.0), cap)
             e = v - d * tc[:, None]
@@ -612,43 +754,61 @@ def _reach_pairs(rays, cap, occluded, leaves, spheres):
     return int(pairs.sum())
 
 
-def check_leaf_kernels(name, exp, B, seed, miss=False, timed=False):
-    """The two leaf-sweep kernels of ``exp``'s leaf set (flat or instanced;
-    ``exp`` "flat" or "instanced" takes the synthetic rim stress of
-    :func:`_rim_inputs` instead) against their plain versions on the card;
-    returns ({kernel: max abs
-    error}, {kernel: (kernel ms, plain ms)}, {kernel: (bound ms, bound by)}).
+def check_sweep_kernels(name, geometry, spheres, rays, seed, timed=False,
+                        plain_lanes=PLAIN_LANES):
+    """The two sweep kernels (nearest and any hit) of one leaf set or one
+    triangle soup, flat or instanced, against their plain versions on the
+    card: ``hit`` and ``occluded`` equal on every lane, ``t`` and normals
+    bitwise. The kernels run on all of ``rays``; the plain versions on a
+    seeded subset of ``plain_lanes`` of them where there are more (in slices
+    that fit the card's memory). Returns ({kernel: max abs error}, {kernel:
+    (kernel ms, plain ms, lanes, plain lanes)}, {kernel: (bound ms, bound
+    by)}).
 
-    The bound: rays read once (28 bytes a lane), the leaf table and spheres
+    The bound: rays read once (28 bytes a lane), the table and its spheres
     read once, the outputs written once (17 bytes a lane for nearest, 1 for
-    any hit); the disk tests the data needs (:func:`_reach_pairs` groups of
-    up to 128 leaves, ~30 float32 operations a test)."""
+    any hit); the exact tests the data needs (:func:`_reach_pairs` groups of
+    up to 128 leaves at ~30 float32 operations a disk test, or of up to 64
+    triangles at ~45 a Moller-Trumbore test)."""
     import torch
 
-    from eradiate_tpu_torch.kernels.leaf_intersect import GROUP
+    from eradiate_tpu_torch.kernels import leaf_intersect as li
+    from eradiate_tpu_torch.kernels import tri_intersect as ti
 
-    leaves, spheres, *rays = (
-        _rim_inputs(exp == "instanced", B, seed) if isinstance(exp, str)
-        else _leaf_inputs(exp, B, seed, miss=miss)
-    )
+    base = geometry.canonical if hasattr(geometry, "canonical") else geometry
+    offsets = geometry.offsets if hasattr(geometry, "canonical") else None
+    is_leaves = hasattr(base, "centers")
+    group_ops = 30.0 * li.GROUP if is_leaves else 45.0 * ti.GROUP
+    n_items = (base.centers if is_leaves else base.v0).shape[0]
+    slice_lanes = 2**17 if is_leaves else 2**15  # [lanes, 512(, 3)] float64 temporaries
+    B = rays[0].shape[0]
+    subset = None
+    if B > plain_lanes:
+        chosen = np.sort(np.random.default_rng(seed).choice(B, plain_lanes, replace=False))
+        subset = torch.tensor(chosen, device=rays[0].device)
+    n_plain = B if subset is None else plain_lanes
     errs, times, bounds, notes = {}, {}, {}, []
-    for kernel, (fn, plain, args) in _leaf_calls(leaves, spheres, rays).items():
+    for kernel, (fn, plain, args) in _sweep_calls(geometry, spheres, rays).items():
         got = fn(args)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
+        held, plain_args = got, args
+        if subset is not None:
+            held = tuple(g[subset] for g in got)
+            plain_args = (*[a[subset].contiguous() for a in args[:3]], *args[3:])
         # the plain version runs once: the run that is compared is the run
         # that is timed
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
-        want = _sliced(plain, args)
+        want = _sliced(plain, plain_args, slice_lanes)
         end.record()
         end.synchronize()
         labels = ("t", "normal", "hit") if len(got) == 3 else ("occluded",)
         err = 0.0
-        for label, g, w in zip(labels, got, want):
-            differ = int((g != w).reshape(B, -1).any(dim=1).sum())
+        for label, g, w in zip(labels, held, want):
+            differ = int((g != w).reshape(n_plain, -1).any(dim=1).sum())
             if differ:
-                detail = f"{differ} of {B} lanes"
+                detail = f"{differ} of {n_plain} lanes"
                 if g.dtype == torch.float32:
                     ulps = _ulps(g.cpu().numpy().ravel(), w.cpu().numpy().ravel())
                     detail += f", max {int(ulps.max())} ulp"
@@ -660,49 +820,133 @@ def check_leaf_kernels(name, exp, B, seed, miss=False, timed=False):
         share = float(got[-1].float().mean())
         notes.append(f"{kernel} {'hit' if len(got) == 3 else 'occluded'} share {share:.3f}")
         if timed:
-            times[kernel] = (_time_ms(lambda: fn(args)), start.elapsed_time(end))
+            times[kernel] = (_time_ms(lambda: fn(args)), start.elapsed_time(end), B, n_plain)
             tensors = tuple(args) + (spheres,) + got
             n_bytes = sum(t.numel() * t.element_size() for t in tensors)
             cap, occ = (got[0], None) if len(got) == 3 else (rays[2], got[0])
-            pairs = _reach_pairs(rays, cap, occ, leaves, spheres)
-            bounds[kernel] = bound_ms(n_bytes, 30.0 * GROUP * pairs)
+            pairs = _reach_pairs(rays, cap, occ, offsets, spheres)
+            bounds[kernel] = bound_ms(n_bytes, group_ops * pairs)
             notes[-1] += (f", kernel {times[kernel][0]:.4f} ms, plain "
-                          f"{times[kernel][1]:.1f} ms, {pairs / B:.2f} groups a ray, bound "
-                          f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
-    n_leaves = (leaves.canonical if hasattr(leaves, "canonical") else leaves).centers.shape[0]
-    print(f"  {name}: B={B} N={n_leaves} every output bitwise, 0 lanes differ; "
-          + "; ".join(notes), flush=True)
+                          f"{times[kernel][1]:.1f} ms at {n_plain} lanes, {pairs / B:.2f} "
+                          f"groups a ray, bound {bounds[kernel][0]:.4f} ms by "
+                          f"{bounds[kernel][1]}")
+    held_on = "every lane" if subset is None else f"{n_plain} seeded lanes"
+    print(f"  {name}: B={B} N={n_items}"
+          + (f" I={offsets.shape[0]}" if offsets is not None else "")
+          + f" every output bitwise on {held_on}, 0 lanes differ; " + "; ".join(notes),
+          flush=True)
     return errs, times, bounds
 
 
-def c5_cuda_vs_cpu(flat):
-    """Phase 12 for one form of the canopy."""
+def check_leaf_kernels(name, exp, B, seed, miss=False, timed=False):
+    """Phase 11 for one case: ``exp`` "flat" or "instanced" takes the
+    synthetic rim stress of :func:`_rim_inputs`, an experiment its leaves
+    with the rays of :func:`_canopy_inputs`."""
+    if isinstance(exp, str):
+        leaves, spheres, rays = _rim_inputs(exp == "instanced", B, seed)
+    else:
+        leaves, spheres, rays, *_ = _canopy_inputs(exp, B, seed, miss=miss)
+    return check_sweep_kernels(name, leaves, spheres, rays, seed, timed)
+
+
+def instanced_against_flat(exp, B, seed, mesh_dir):
+    """The instanced triangle kernels on the wood skeleton as canonical soup
+    (N = 6180, I = 15) against the flat kernels on the flattened soup of
+    ``exp`` (the same 92700 triangles), on the same rays, both timed.
+    Translating the ray (instanced) and translating the vertices (flat) round
+    differently, so a ray through a shared edge may hit a triangle in one
+    form and slip past it in the other, to a miss or to the triangle behind:
+    the lanes whose ``hit``/``occluded`` flag differs or whose ``t`` differs
+    by more than 1e-6 km are counted, printed, and held under 1e-3 of the
+    lanes. Returns the instanced kernels' {kernel: ms}."""
+    import torch
+
+    from eradiate_tpu_torch.kernels import tri_intersect as ti
+    from eradiate_tpu_torch.ops.mesh import (
+        InstancedTriArrays,
+        TriangleMeshArrays,
+        mesh_from_vertices,
+    )
+    from eradiate_tpu_torch.scenes.shapes import FileMeshShape
+
+    *_, flat, flat_spheres, rays = _canopy_inputs(exp, B, seed)
+    v, f = FileMeshShape(filename=_wood_obj(mesh_dir), mesh_units="m").triangles()
+    soup = mesh_from_vertices(v.astype(np.float32), f)
+    to_dev = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
+    canonical = TriangleMeshArrays(to_dev(soup.v0), to_dev(soup.e1), to_dev(soup.e2))
+    offsets = to_dev(np.atleast_2d(exp.canopy.instanced_canopy_elements[1].instance_positions))
+    inst = InstancedTriArrays(canonical, offsets)
+    spheres = ti.tri_sweep_spheres(canonical.v0, canonical.e1, canonical.e2)
+    flat_calls = _sweep_calls(flat, flat_spheres, rays)
+    inst_calls = _sweep_calls(inst, spheres, rays)
+    times, notes = {}, []
+    for (k_flat, (fn_f, _, a_f)), (k_inst, (fn_i, _, a_i)) in zip(
+        flat_calls.items(), inst_calls.items()
+    ):
+        got_f, got_i = fn_f(a_f), fn_i(a_i)
+        got_f, got_i = (g if isinstance(g, tuple) else (g,) for g in (got_f, got_i))
+        differ = got_f[-1] != got_i[-1]
+        note = f"{k_inst}: {int(differ.sum())} of {B} lanes flip against {k_flat}"
+        if len(got_f) == 3:
+            dt = (got_f[0] - got_i[0]).abs()
+            moved = got_f[2] & got_i[2] & (dt > 1e-6)
+            same = got_f[2] & got_i[2] & ~moved
+            note += (f", {int(moved.sum())} hit another triangle, max |dt| "
+                     f"{float(dt[same].max()):.3e} km on the others")
+            differ = differ | moved
+        if int(differ.sum()) > 1e-3 * B:
+            raise AssertionError(f"{k_inst} and {k_flat} disagree on {int(differ.sum())} of "
+                                 f"{B} lanes")
+        ms_i, ms_f = _time_ms(lambda: fn_i(a_i)), _time_ms(lambda: fn_f(a_f))
+        times[k_inst] = ms_i
+        notes.append(note + f"; {ms_i:.4f} ms against {ms_f:.4f} ms")
+    print(f"  wood skeleton instanced (N={canonical.v0.shape[0]} I={offsets.shape[0]}) against "
+          f"flat (N={flat.v0.shape[0]}), B={B}: " + "; ".join(notes), flush=True)
+    return times
+
+
+def c5_cuda_vs_cpu(form, phase, mesh_dir=None, branches=WOOD_BRANCHES):
+    """The port on CUDA against the port on the CPU for one form of the
+    canopy, 64 spp at one seed."""
     import eradiate_tpu_torch as etp
 
     out = {}
     for dev in ("cuda", "cpu"):
-        out[dev] = etp.run(_c5(flat), spp=64, seed_state=etp.SeedState(SEED), device=dev)
+        t0 = time.perf_counter()
+        out[dev] = etp.run(_c5(form, mesh_dir, branches), spp=64,
+                           seed_state=etp.SeedState(SEED), device=dev)
+        seconds = time.perf_counter() - t0
     brf_g, brf_c = (np.asarray(out[d]["brf"]) for d in ("cuda", "cpu"))
     rad_g, rad_c = (np.asarray(out[d]["radiance"]) for d in ("cuda", "cpu"))
     var = np.asarray(out["cuda"]["var"]) + np.asarray(out["cpu"]["var"])
     rel = np.abs(brf_g - brf_c) / np.abs(brf_c)
     zmax = float(np.max(np.abs(rad_g - rad_c) / np.sqrt(var)))
-    form = "flat" if flat else "instanced"
-    print(f"[12] c5 scene ({form}), {N_VZA_C5} VZA 64 spp, CUDA vs CPU: max rel BRF diff "
+    print(f"[{phase}] c5 scene ({form}), {N_VZA_C5} VZA 64 spp, CUDA vs CPU: max rel BRF diff "
           f"{rel.max():.3e}, median {np.median(rel):.3e} (bound 1e-4), max |z| {zmax:.3e} "
-          f"(bound 5)", flush=True)
+          f"(bound 5); the CPU run took {seconds:.1f} s", flush=True)
     if not (np.isfinite(brf_g).all() and np.median(rel) <= 1e-4 and zmax <= 5.0):
         raise AssertionError(f"CUDA and CPU runs of the port disagree on the c5 scene ({form})")
 
 
-def c5_full_width(flat, spp, phase):
-    """Phases 13 and 14: a warm-up, then one timed run of the c5 scene at
-    ``spp``; returns (launch counts of the run by kernel, the dataset)."""
+#: The kernels each form of the c5 scene launches once per bounce iteration.
+C5_KERNELS = {
+    "instanced": ("ray_leaves_nearest_instanced", "ray_leaves_occluded_instanced"),
+    "flat": ("ray_leaves_nearest", "ray_leaves_occluded"),
+    "trees": ("ray_leaves_nearest_instanced", "ray_leaves_occluded_instanced",
+              "ray_tris_nearest_instanced", "ray_tris_occluded_instanced"),
+    "wood": ("ray_leaves_nearest", "ray_leaves_occluded", "ray_tris_nearest",
+             "ray_tris_occluded"),
+}
+
+
+def c5_full_width(form, spp, phase, mesh_dir=None):
+    """A warm-up, then one timed run of one form of the c5 scene at ``spp``;
+    returns (launch counts of the run by kernel, the dataset)."""
     import torch
 
     import eradiate_tpu_torch as etp
 
-    exp = _c5(flat)
+    exp = _c5(form, mesh_dir)
     etp.run(exp, spp=4096, seed_state=etp.SeedState(0), device="cuda")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -715,15 +959,13 @@ def c5_full_width(flat, spp, phase):
     iterations = exp.measures[0].results["raw"]["iterations"]
     brf = np.asarray(ds["brf"])
     samples = N_VZA_C5 * spp
-    form = "flat, two elements" if flat else "instanced"
     print(f"[{phase}] c5 scene ({form}) full width: {N_VZA_C5} VZA x {spp} spp = {samples} "
           f"samples, wall {wall:.3f} s, {samples / wall:.4e} samples/s, {iterations} bounce "
           f"iterations ({1e3 * wall / iterations:.3f} ms each), peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(f"    launches {launches}; BRF finite {bool(np.isfinite(brf).all())}, shape "
           f"{brf.shape}, BRF at nadir: {brf[0, N_VZA_C5 // 2]:.6f}", flush=True)
-    suffix = "" if flat else "_instanced"
-    mine = [f"ray_leaves_nearest{suffix}", f"ray_leaves_occluded{suffix}"]
+    mine = C5_KERNELS[form]
     if not all(launches[k] > 0 and launches[k] == iterations for k in mine):
         raise AssertionError(f"the c5 scene ({form}) did not launch {mine} once per bounce")
     if any(n for k, n in launches.items() if k not in mine):
@@ -731,6 +973,68 @@ def c5_full_width(flat, spp, phase):
     if brf.shape != (1, N_VZA_C5) or not np.isfinite(brf).all():
         raise AssertionError("c5 BRF is not finite or has the wrong shape")
     return launches, ds
+
+
+def c4_lr_flight_full_width(spp, phase):
+    """Path B: c4 at SZA 75 through ``render_spherical`` with
+    ``config.lr_flight`` at ``spp`` (a warm-up, then a timed run), held
+    against the exact-NEE render (sun-tau table off, shell-event kernel) of
+    the same scene and seed; returns the launch counts of the timed run."""
+    import dataclasses
+
+    import torch
+
+    from eradiate_tpu_torch.ops.tracer_spherical import render_spherical
+
+    def compiled(exp):
+        m = exp.measures[0]
+        return exp.compile_scene(m, exp.spectral_context(m))
+
+    scene, sensor, config = compiled(_c4(75.0))
+    config_lr = dataclasses.replace(config, lr_flight=True)
+    render_spherical(scene, sensor, config_lr, spp=4096, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = render_spherical(scene, sensor, config_lr, spp=spp, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    iterations = out["iterations"]
+    rad = out["radiance"].cpu().numpy()
+    samples = N_VZA_C4 * spp
+    print(f"[{phase}] c4 SZA 75 with lr_flight, full width: {N_VZA_C4} VZA x {spp} spp = "
+          f"{samples} samples, wall {wall:.3f} s, {samples / wall:.4e} samples/s, "
+          f"{iterations} event iterations ({1e3 * wall / iterations:.3f} ms each), peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"    launches {launches}; radiance finite {bool(np.isfinite(rad).all())}, shape "
+          f"{rad.shape}", flush=True)
+    mine = ("shell_flight", "slant_tau")
+    if not all(launches[k] > 0 and launches[k] == iterations for k in mine):
+        raise AssertionError(f"c4 with lr_flight did not launch {mine} once per event")
+    if any(n for k, n in launches.items() if k not in mine):
+        raise AssertionError("c4 with lr_flight launched a kernel of another path")
+    if rad.shape != (1, N_VZA_C4) or not (np.isfinite(rad).all() and (rad > 0).all()):
+        raise AssertionError("c4 radiance with lr_flight is not finite and positive")
+
+    scene_x, sensor_x, config_x = compiled(_c4(75.0, sun_tau_table=False))
+    if scene_x.medium.sun_tau is not None:
+        raise AssertionError("the sun-tau table is still on")
+    exact = render_spherical(scene_x, sensor_x, config_x, spp=spp, seed=SEED, device="cuda")
+    rad_x = exact["radiance"].cpu().numpy()
+    differ = int((rad != rad_x).sum())
+    rel = np.abs(rad - rad_x) / np.abs(rad_x)
+    print(f"    against the exact-NEE render (shell_event): {differ} of {rad.size} pixels "
+          f"differ, max rel {rel.max():.3e}, iterations {exact['iterations']}", flush=True)
+    if differ:
+        var = (out["m2"].cpu().numpy() - rad**2 + exact["m2"].cpu().numpy() - rad_x**2) / spp
+        z = np.abs(rad - rad_x) / np.sqrt(np.maximum(var, 1e-30))
+        print(f"    max |z| {z.max():.3e} (bound 5), median rel {np.median(rel):.3e} "
+              f"(bound 1e-5)", flush=True)
+        if not (z.max() <= 5.0 and np.median(rel) <= 1e-5):
+            raise AssertionError("lr_flight and the exact-NEE render disagree")
+    return launches
 
 
 def main():
@@ -836,18 +1140,22 @@ def main():
         raise AssertionError("jax was imported")
 
     # -- 6. the shell kernels in the library --------------------------------
-    for fn in ("shell_flight_launch", "shell_event_launch"):
-        getattr(lib, fn)
+    for fn in ("shell_flight", "shell_event", "slant_tau", "ray_tris_nearest",
+               "ray_tris_occluded", "ray_tris_nearest_instanced",
+               "ray_tris_occluded_instanced"):
+        getattr(lib, fn + "_launch")
     blocks = report.split("ptxas info    : Compiling entry function ")
-    print("[6] shell_flight and shell_event launchers loaded; ptxas:", flush=True)
+    print("[6] shell_flight, shell_event, slant_tau and ray_tris launchers loaded; ptxas:",
+          flush=True)
     for block in blocks:
-        if "shell_flight_cu" in block:
+        if "shell_flight_cu" in block or "tri_intersect_cu" in block:
             name = block.split("'")[1]
             regs = [ln.strip() for ln in block.splitlines() if "registers" in ln or "spill" in ln]
             print(f"    {name}: {'; '.join(regs)}", flush=True)
 
     # -- 7. shell kernels against their twins ------------------------------
-    print("[7] shell_flight and shell_event kernels against their plain twins", flush=True)
+    print("[7] shell_flight, slant_tau and shell_event kernels against their plain twins",
+          flush=True)
     lp = lane_partition(N_VZA_C4, SPP_C4, spherical_lanes_target(N_VZA_C4, SPP_C4, "cuda"),
                         "cpu")[0]
     B4 = N_VZA_C4 * lp
@@ -877,15 +1185,14 @@ def main():
     print("[11] leaf-sweep kernels against their plain versions", flush=True)
     lp = lane_partition(N_VZA_C5, SPP_C5, CANOPY_LANES_TARGET["cuda"], "cpu")[0]
     B5 = N_VZA_C5 * lp
-    leaf_errs, leaf_times, leaf_bounds = {}, {}, {}
-    for flat in (False, True):
-        form = "flat" if flat else "instanced"
-        exp = _c5(flat)
+    sweep_errs, sweep_times, sweep_bounds = {}, {}, {}
+    for form in ("instanced", "flat"):
+        exp = _c5(form)
         errs, times, bounds = check_leaf_kernels(
             f"HET01 {form}, the path's lane count", exp, B5, seed=20, timed=True
         )
-        leaf_times.update(times)
-        leaf_bounds.update(bounds)
+        sweep_times.update(times)
+        sweep_bounds.update(bounds)
         for label, case, B, miss in (
             (f"HET01 {form}, ragged", exp, 100_037, False),
             (f"HET01 {form}, rays beside the box", exp, 2**16, True),
@@ -893,15 +1200,16 @@ def main():
         ):
             more, _, _ = check_leaf_kernels(label, case, B, seed=21, miss=miss)
             errs = {k: max(v, more[k]) for k, v in errs.items()}
-        leaf_errs.update(errs)
+        sweep_errs.update(errs)
 
     # -- 12. c5 scene: port on CUDA against port on CPU ----------------------
-    for flat in (False, True):
-        c5_cuda_vs_cpu(flat)
+    for form in ("instanced", "flat"):
+        c5_cuda_vs_cpu(form, phase=12)
 
     # -- 13, 14. c5 scene at full width -------------------------------------
-    c5_launches, ds_inst = c5_full_width(False, SPP_C5, phase=13)
-    c5f_launches, ds_flat = c5_full_width(True, SPP_C5, phase=14)
+    c5_launches = {}
+    c5_launches["instanced"], ds_inst = c5_full_width("instanced", SPP_C5, phase=13)
+    c5_launches["flat"], ds_flat = c5_full_width("flat", SPP_C5, phase=14)
     rad_i, rad_f = (np.asarray(ds["radiance"]) for ds in (ds_inst, ds_flat))
     var = np.asarray(ds_inst["var"]) + np.asarray(ds_flat["var"])
     z = np.abs(rad_i - rad_f) / np.sqrt(var)
@@ -910,36 +1218,99 @@ def main():
           f"{rel.max():.3e}", flush=True)
     if not z.max() <= 5.0:
         raise AssertionError("the instanced and the flat c5 scene disagree")
+
+    # -- 15. path B: c4 with lr_flight at full width --------------------------
+    lr_launches = c4_lr_flight_full_width(SPP_C4, phase=15)
+
+    with tempfile.TemporaryDirectory() as mesh_dir:
+        # -- 16. triangle-sweep kernels against their plain versions ---------
+        print("[16] triangle-sweep kernels against their plain versions", flush=True)
+        for form, plain_lanes in (("trees", PLAIN_LANES), ("wood", 2**16)):
+            exp = _c5(form, mesh_dir)
+            *_, tris, spheres, rays = _canopy_inputs(exp, B5, seed=30)
+            errs, times, bounds = check_sweep_kernels(
+                f"c5_{form}, the path's lane count", tris, spheres, rays, seed=30,
+                timed=True, plain_lanes=plain_lanes,
+            )
+            sweep_times.update(times)
+            sweep_bounds.update(bounds)
+            for label, B, miss in ((f"c5_{form}, ragged", 50_021, False),
+                                   (f"c5_{form}, rays beside the box", 2**15, True)):
+                *_, tris, spheres, rays = _canopy_inputs(exp, B, seed=31, miss=miss)
+                more, _, _ = check_sweep_kernels(label, tris, spheres, rays, seed=31)
+                errs = {k: max(v, more[k]) for k, v in errs.items()}
+            for far in (False, True):
+                tris, spheres, rays = _edge_inputs(form == "trees", 100_037, seed=32, far=far)
+                more, _, _ = check_sweep_kernels(
+                    f"wood skeleton {'instanced' if form == 'trees' else 'flat'}, rays at "
+                    f"edges and vertices from {'0.5-3 m' if far else '0.5-3 cm'}",
+                    tris, spheres, rays, seed=32,
+                )
+                errs = {k: max(v, more[k]) for k, v in errs.items()}
+            sweep_errs.update(errs)
+        skeleton_ms = instanced_against_flat(_c5("wood", mesh_dir), B5, 30, mesh_dir)
+
+        # -- 17. tree and wood canopies: port on CUDA against port on CPU ----
+        c5_cuda_vs_cpu("trees", phase=17)
+        c5_cuda_vs_cpu("wood", phase=17, mesh_dir=mesh_dir, branches=12)
+
+        # -- 18, 19. tree and wood canopies at full width ----------------------
+        c5_launches["trees"], ds_trees = c5_full_width("trees", SPP_C5, phase=18)
+        c5_launches["wood"], ds_wood = c5_full_width("wood", SPP_C5, 19, mesh_dir)
+    nadir = N_VZA_C5 // 2
+    print("     BRF at nadir: leaves alone "
+          f"{np.asarray(ds_inst['brf'])[0, nadir]:.6f}, with trunks "
+          f"{np.asarray(ds_trees['brf'])[0, nadir]:.6f}, with wood skeletons "
+          f"{np.asarray(ds_wood['brf'])[0, nadir]:.6f}; mean over the views "
+          f"{np.asarray(ds_inst['brf']).mean():.6f}, {np.asarray(ds_trees['brf']).mean():.6f}, "
+          f"{np.asarray(ds_wood['brf']).mean():.6f}", flush=True)
+    print(f"     instanced triangle kernels on the wood skeleton: {skeleton_ms}", flush=True)
     for mod in ("jax", "eradiate_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
 
     def entry(name, source, replaces, n, err, times, bound):
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": n, "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
-                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+        """One kernel of the ``kernels`` line; ``times`` is (kernel ms, plain
+        ms) and, for the sweeps, the lane counts the two were taken at."""
+        out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": n, "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+               "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+        if len(times) == 4:
+            out.update(lanes=times[2], plain_lanes=times[3])
+        return out
 
     shell_src = "eradiate_tpu_torch/csrc/shell_flight.cu"
-    leaf_src = "eradiate_tpu_torch/csrc/leaf_intersect.cu"
-    leaf_ref = "eradiate_tpu/ops/pallas/leaf_intersect.py"
-    leaf_lines = {"ray_leaves_nearest": 383, "ray_leaves_occluded": 437,
-                  "ray_leaves_nearest_instanced": 533, "ray_leaves_occluded_instanced": 550}
+    pallas = "eradiate_tpu/ops/pallas"
+    #: sweep kernel -> (source, the TPU kernel it replaces, the form that launches it)
+    sweeps = {
+        "ray_leaves_nearest": ("leaf", 383, "flat"),
+        "ray_leaves_occluded": ("leaf", 437, "flat"),
+        "ray_leaves_nearest_instanced": ("leaf", 533, "instanced"),
+        "ray_leaves_occluded_instanced": ("leaf", 550, "instanced"),
+        "ray_tris_nearest": ("tri", 267, "wood"),
+        "ray_tris_occluded": ("tri", 311, "wood"),
+        "ray_tris_nearest_instanced": ("tri", 389, "trees"),
+        "ray_tris_occluded_instanced": ("tri", 404, "trees"),
+    }
     # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [
         entry("collision_fetch", "eradiate_tpu_torch/csrc/collision_fetch.cu",
-              "eradiate_tpu/ops/pallas/collision_fetch.py:59", launches, err,
+              f"{pallas}/collision_fetch.py:59", launches, err,
               (kernel_ms, plain_ms), fetch_bound),
-        entry("shell_flight", shell_src, "eradiate_tpu/ops/pallas/shell_flight.py:405",
+        entry("shell_flight", shell_src, f"{pallas}/shell_flight.py:405",
               c4_launches["shell_flight"], shell_errs["shell_flight"],
               shell_times["shell_flight"], shell_bounds["shell_flight"]),
-        entry("shell_event", shell_src, "eradiate_tpu/ops/pallas/shell_flight.py:326",
+        entry("shell_event", shell_src, f"{pallas}/shell_flight.py:326",
               c4x_launches["shell_event"], shell_errs["shell_event"],
               shell_times["shell_event"], shell_bounds["shell_event"]),
+        entry("slant_tau", shell_src, f"{pallas}/shell_flight.py:473",
+              lr_launches["slant_tau"], shell_errs["slant_tau"],
+              shell_times["slant_tau"], shell_bounds["slant_tau"]),
         *[
-            entry(k, leaf_src, f"{leaf_ref}:{line}",
-                  (c5_launches if k.endswith("instanced") else c5f_launches)[k],
-                  leaf_errs[k], leaf_times[k], leaf_bounds[k])
-            for k, line in leaf_lines.items()
+            entry(k, f"eradiate_tpu_torch/csrc/{stem}_intersect.cu",
+                  f"{pallas}/{stem}_intersect.py:{line}", c5_launches[form][k],
+                  sweep_errs[k], sweep_times[k], sweep_bounds[k])
+            for k, (stem, line, form) in sweeps.items()
         ],
     ]}), flush=True)
     print(smi, flush=True)

@@ -3,9 +3,10 @@
 Port of ``eradiate_tpu/experiments/_canopy.py``: an explicit disk-leaf
 canopy over a lambertian-like surface, without or with a 1D atmosphere. The
 host side (leaf arrays in Morton order, leaf optics) is numpy; the render
-goes to :func:`..ops.tracer_canopy.render_canopy` on one device. Leaf clouds
-only: tree elements and mesh elements (triangle soups, the ``ray_tris``
-kernels) and polarized transport raise ``NotImplementedError``.
+goes to :func:`..ops.tracer_canopy.render_canopy` on one device. Canopies
+hold leaf clouds, abstract trees (a leaf-cloud crown on a trunk) and mesh
+trees; trunks and mesh trees are triangle soups (the ``ray_tris`` kernels).
+Polarized transport raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from ..core.device import resolve_device
 from ..core.modes import mode
 from ..core.rng import root_seed_state
 from ..ops.canopy import InstancedLeafArrays, LeafCloudArrays, morton_order
+from ..ops.mesh import InstancedTriArrays, mesh_from_vertices
 from ..ops.tracer_canopy import render_canopy
 from ..scenes.biosphere import DiscreteCanopy, LeafCloud, biosphere_factory
 from ..scenes.measure import TargetRectangle
@@ -56,6 +58,13 @@ def _cloud_arrays(cloud, dtype):
     )
 
 
+def _tri_arrays(mesh, dtype):
+    """A mesh dict's vertices and faces as pre-differenced numpy arrays;
+    the vertices are cast first, so the edges are differences in ``dtype``
+    as the reference's are."""
+    return mesh_from_vertices(np.asarray(mesh["vertices"], dtype=dtype), mesh["faces"])
+
+
 @attrs.define(eq=False, slots=False)
 class CanopyAtmosphereExperiment(AtmosphereExperiment):
     """Coupled canopy + atmosphere experiment (reference
@@ -85,55 +94,78 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
             raise ValueError("canopy experiments require plane-parallel geometry")
 
     def _leaf_arrays(self):
-        """``(cloud, leaves)``: the cloud that carries the leaf optics and
-        the leaf geometry as numpy arrays, instanced where the canopy is one
-        leaf cloud replicated at >= 2 positions (instances stay instances:
-        leaf storage is the canonical cloud alone), else flattened."""
+        """``(cloud, leaves, tris, tri_mesh)``: the cloud that carries the
+        leaf optics, the leaf geometry and the triangle geometry (None
+        without trunks or meshes) as numpy arrays, and the mesh dict that
+        carries the wood optics. One element with leaves (a leaf cloud or a
+        tree with a crown) replicated at >= 2 positions stays instanced:
+        storage is the canonical cloud and the canonical soup alone, with
+        shared offsets. Anything else is flattened."""
         canopy = self.canopy
         if self.padding > 0:
             canopy = canopy.padded_copy(self.padding)
         dtype = mode().host_dtype
 
         els = canopy.instanced_canopy_elements
-        for el in els:
-            if not isinstance(el.canopy_element, LeafCloud):
-                raise NotImplementedError(
-                    f"canopy element {type(el.canopy_element).__name__} (trunks and "
-                    "mesh trees: triangle meshes, ray_tris kernels) is not ported yet"
-                )
         if len(els) == 1 and np.atleast_2d(els[0].instance_positions).shape[0] >= 2:
-            cloud = els[0].canopy_element
-            leaves = InstancedLeafArrays(
-                canonical=_cloud_arrays(cloud, dtype),
-                offsets=np.asarray(np.atleast_2d(els[0].instance_positions), dtype=dtype),
-            )
-            # the caller only reads the optics spectra off this handle; no
-            # need to materialise the flattened copies
-            return cloud, leaves
+            element = els[0].canopy_element
+            if isinstance(element, LeafCloud):
+                cloud, tri_mesh = element, None
+            else:  # tree-like: leaf_part / mesh_part protocol
+                cloud = element.leaf_part()
+                mp = element.mesh_part()
+                tri_mesh = None
+                if mp is not None:
+                    v, f, r, t = mp
+                    tri_mesh = {
+                        "vertices": np.asarray(v),
+                        "faces": np.asarray(f),
+                        "reflectance": r,
+                        "transmittance": t,
+                    }
+            if cloud is not None:
+                offsets = np.asarray(np.atleast_2d(els[0].instance_positions), dtype=dtype)
+                leaves = InstancedLeafArrays(
+                    canonical=_cloud_arrays(cloud, dtype), offsets=offsets
+                )
+                tris = None
+                if tri_mesh is not None:
+                    tris = InstancedTriArrays(
+                        canonical=_tri_arrays(tri_mesh, dtype), offsets=offsets
+                    )
+                # the caller only reads the optics spectra off these
+                # handles; no need to materialise the flattened copies
+                return cloud, leaves, tris, tri_mesh
 
         flat, mesh = canopy.flatten_full()
-        if mesh is not None:
-            raise NotImplementedError(
-                "triangle meshes in canopy scenes (ray_tris kernels) are not ported yet"
-            )
-        return flat, _cloud_arrays(flat, dtype)
+        # a canopy without a single leaf fails here, as in the reference
+        leaves = _cloud_arrays(flat, dtype)
+        tris = None if mesh is None else _tri_arrays(mesh, dtype)
+        return flat, leaves, tris, mesh
 
     def compile_canopy_scene(self, measure, ctx):
         """Compiled scene + canopy arrays for one measure: returns
         ``(scene, sensor, config, leaf_params, leaves, tris, tri_params)``
-        with numpy leaves; ``tris`` and ``tri_params`` are None (leaf clouds
-        only)."""
-        flat, leaves = self._leaf_arrays()
+        with numpy leaves and triangles; ``tris`` and ``tri_params`` are
+        None for canopies of leaf clouds alone."""
+        flat, leaves, tris, tri_mesh = self._leaf_arrays()
         dtype = mode().host_dtype
-        refl = spectrum_converter("reflectance")(flat.leaf_reflectance)
-        trans = spectrum_converter("transmittance")(flat.leaf_transmittance)
         scene, sensor, config = self.compile_scene(measure, ctx)
         w = np.asarray(ctx["w"], dtype=np.float64)
-        leaf_params = {
-            "reflectance": np.asarray(refl.eval(w), dtype=dtype),
-            "transmittance": np.asarray(trans.eval(w), dtype=dtype),
-        }
-        return scene, sensor, config, leaf_params, leaves, None, None
+
+        def optics(reflectance, transmittance):
+            refl = spectrum_converter("reflectance")(reflectance)
+            trans = spectrum_converter("transmittance")(transmittance)
+            return {
+                "reflectance": np.asarray(refl.eval(w), dtype=dtype),
+                "transmittance": np.asarray(trans.eval(w), dtype=dtype),
+            }
+
+        leaf_params = optics(flat.leaf_reflectance, flat.leaf_transmittance)
+        tri_params = None
+        if tri_mesh is not None:
+            tri_params = optics(tri_mesh["reflectance"], tri_mesh["transmittance"])
+        return scene, sensor, config, leaf_params, leaves, tris, tri_params
 
     def process(self, spp=None, seed_state=None, device="cuda"):
         if self.canopy is None:
@@ -142,13 +174,13 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
         seed_state = seed_state or root_seed_state
         for measure in self.measures:
             ctx = self.spectral_context(measure)
-            scene, sensor, config, leaf_params, leaves, _, _ = self.compile_canopy_scene(
-                measure, ctx
-            )
+            (scene, sensor, config, leaf_params, leaves, tris,
+             tri_params) = self.compile_canopy_scene(measure, ctx)
             n = int(spp) if spp is not None else int(measure.spp)
             raw = render_canopy(
                 scene, leaf_params, leaves, sensor, config, spp=n,
-                seed=int(seed_state.next()), device=dev,
+                seed=int(seed_state.next()), tris=tris, tri_params=tri_params,
+                device=dev,
             )
             measure.results = {
                 "raw": {

@@ -1,0 +1,332 @@
+"""Ray / triangle sweeps: the CUDA kernels' wrappers and their plain versions.
+
+Four functions, the counterparts of the TPU kernels of
+``eradiate_tpu/ops/pallas/tri_intersect.py``:
+
+* :func:`ray_tris_nearest` / :func:`ray_tris_occluded`: nearest hit (with the
+  geometric normal) and any hit of rays against a flat triangle soup, stored
+  pre-differenced as ``v0``, ``e1 = v1 - v0``, ``e2 = v2 - v0``;
+* :func:`ray_tris_nearest_instanced` / :func:`ray_tris_occluded_instanced`:
+  the same against ``I`` translated copies of one canonical soup, which is
+  stored once.
+
+For CUDA tensors they launch ``csrc/tri_intersect.cu``; for CPU tensors they
+run the plain versions (``*_plain``), the chunked dense sweeps of the
+reference's ``ops/mesh.py`` (``ray_tris_nearest``, ``ray_tris_occluded``,
+``_instanced_tris_nearest_xla`` and the instance scan of ``tri_occluded``).
+They never fall back from one to the other.
+
+Semantics shared by kernel and plain version. They follow the reference's XLA
+form, not its TPU kernels (which tie within 1024-triangle blocks and
+normalise with ``rsqrt`` and a ``1e-24`` clamp):
+
+* Moller-Trumbore: ``pvec = d x e2``, ``det = e1.pvec``, ``inv = 1 / det``
+  where ``|det| > 1e-12`` (else no hit), ``tvec = p - v0``,
+  ``u = (tvec.pvec) inv``, ``qvec = tvec x e1``, ``v = (d.qvec) inv``,
+  ``t = (e2.qvec) inv``; a hit where ``u >= 0``, ``v >= 0``, ``u + v <= 1``
+  and ``1e-7 < t < t_max``. Lengths are km;
+* rounding as XLA:CPU rounds the jitted reference, because a closed fan of
+  triangles decides on the last bit whether a ray through a shared edge hits
+  one triangle, both or neither: each cross-product component is
+  ``fma(a_i, b_j, -(a_j b_i))``; ``det``, ``d.qvec`` and ``e2.qvec`` are the
+  first product then two fused multiply-adds (:func:`dot3`); ``tvec.pvec`` is
+  three products and two sums, unfused; the quotient is ``1 / det`` followed
+  by multiplications;
+* the geometric normal is ``cross(e1, e2) / max(|cross(e1, e2)|, 1e-12)``
+  (:func:`tri_normals`);
+* an instance translates the ray, ``p - offset``, not the triangles;
+* exact ties of ``t`` inside one 512-triangle chunk of one instance average
+  their unit normals (the average is not renormalised); across chunks and
+  instances the first wins. The tied normals are summed in float64, so the
+  result does not depend on the order of the sum;
+* misses keep ``t = t_max`` and the normal ``(0, 0, 1)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .leaf_intersect import _launcher, _on_cpu, dot3, fma
+
+__all__ = [
+    "CHUNK",
+    "GROUP",
+    "launches",
+    "tri_block_spheres",
+    "tri_sweep_spheres",
+    "tri_normals",
+    "ray_tris_nearest",
+    "ray_tris_occluded",
+    "ray_tris_nearest_instanced",
+    "ray_tris_occluded_instanced",
+    "ray_tris_nearest_plain",
+    "ray_tris_occluded_plain",
+    "ray_tris_nearest_instanced_plain",
+    "ray_tris_occluded_instanced_plain",
+]
+
+#: Triangles per chunk of the plain sweep, which is also the tie-averaging
+#: unit (reference ``ray_tris_nearest(chunk=512)``).
+CHUNK = 512
+#: Triangles per bounding sphere of the kernels' cull. The result does not
+#: depend on it.
+GROUP = 64
+
+_EPS_T = 1e-7
+_DET_MIN = 1e-12
+
+#: Kernel launches made in this process, by kernel name.
+launches = {
+    "ray_tris_nearest": 0,
+    "ray_tris_occluded": 0,
+    "ray_tris_nearest_instanced": 0,
+    "ray_tris_occluded_instanced": 0,
+}
+
+
+def tri_block_spheres(v0, e1, e2, block_n: int = GROUP):
+    """Per-triangle-block bounding spheres (centers [M, 3], radius^2 [M]) of
+    ``block_n`` consecutive triangles (reference ``tri_block_spheres``): each
+    covers all three vertices of every triangle of its block."""
+    N = v0.shape[0]
+    M = -(-N // block_n)
+    pad = M * block_n - N
+    verts = torch.stack([v0, v0 + e1, v0 + e2], dim=1)  # [N, 3, 3]
+    if pad:
+        # the last real triangle fills the padding so the final sphere is
+        # not dragged to the origin
+        verts = torch.cat([verts, verts[N - 1 :].expand(pad, 3, 3)])
+    verts = verts.reshape(M, 3 * block_n, 3)
+    mid = (verts.min(dim=1).values + verts.max(dim=1).values) * 0.5
+    diff = verts - mid[:, None, :]
+    R = torch.sqrt((diff * diff).sum(dim=-1)).max(dim=1).values
+    return mid, R * R
+
+
+def tri_sweep_spheres(v0, e1, e2):
+    """The kernels' cull operand ``[1 + M, 4]`` (x, y, z, radius^2): row 0
+    bounds the whole soup (the per-instance sphere of the instanced
+    kernels), rows 1.. bound its :data:`GROUP`-triangle blocks. Compute once
+    per render and pass as ``spheres``."""
+    whole_c, whole_r2 = tri_block_spheres(v0, e1, e2, max(v0.shape[0], 1))
+    sc, sr2 = tri_block_spheres(v0, e1, e2, GROUP)
+    return torch.cat(
+        [torch.cat([whole_c, sc]), torch.cat([whole_r2, sr2])[:, None]], dim=1
+    ).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+
+
+def _cross(a, b):
+    """Cross product over the last axis, each component
+    ``fma(a_i, b_j, -(a_j b_i))`` as XLA:CPU contracts it."""
+    def comp(i, j):
+        return fma(a[..., i], b[..., j], -(a[..., j] * b[..., i]))
+
+    return torch.stack([comp(1, 2), comp(2, 0), comp(0, 1)], dim=-1)
+
+
+def tri_normals(e1, e2):
+    """Unit geometric normals [N, 3] of triangles with edges ``e1``, ``e2``
+    [N, 3]: ``cross(e1, e2) / max(norm, 1e-12)``, rounded as the jitted
+    reference's chunk rounds it."""
+    n = _cross(e1, e2)
+    norm = torch.sqrt(dot3(n, n).double()).float()
+    return n / torch.clamp(norm, min=1e-12)[:, None]
+
+
+def _chunk_hits(p, d, v0, e1, e2, t_max):
+    """Moller-Trumbore distances [B, Nc] of rays against a triangle chunk,
+    +inf where missed (reference ``mesh._chunk_hits`` as XLA:CPU rounds
+    it)."""
+    pvec = _cross(d[:, None, :], e2[None, :, :])  # [B, Nc, 3]
+    det = dot3(e1[None, :, :], pvec)
+    live = torch.abs(det) > _DET_MIN
+    inv_det = torch.where(live, 1.0 / det, 0.0)
+    tvec = p[:, None, :] - v0[None, :, :]
+    u = (
+        (tvec[..., 0] * pvec[..., 0] + tvec[..., 1] * pvec[..., 1])
+        + tvec[..., 2] * pvec[..., 2]
+    ) * inv_det
+    qvec = _cross(tvec, e1[None, :, :])
+    v = dot3(d[:, None, :], qvec) * inv_det
+    t = dot3(e2[None, :, :], qvec) * inv_det
+    ok = (
+        live & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+        & (t > _EPS_T) & (t < t_max[:, None])
+    )
+    return torch.where(ok, t, torch.inf)
+
+
+def _chunks(v0, e1, e2, chunk):
+    for start in range(0, v0.shape[0], chunk):
+        sl = slice(start, start + chunk)
+        yield v0[sl], e1[sl], e2[sl]
+
+
+def ray_tris_nearest_plain(p, d, t_max, v0, e1, e2, spheres=None, chunk: int = CHUNK):
+    """Nearest triangle hit along ``p + t d`` for t in (0, t_max): the
+    chunked dense sweep. Returns ``(t_hit [B], normal [B, 3], hit [B])``."""
+    B = p.shape[0]
+    best_t = torch.full((B,), torch.inf, dtype=p.dtype, device=p.device)
+    best_n = torch.zeros((B, 3), dtype=p.dtype, device=p.device)
+    best_n[:, 2] = 1.0
+    for a, b, c in _chunks(v0, e1, e2, chunk):
+        t = _chunk_hits(p, d, a, b, c, t_max)
+        n_tri = tri_normals(b, c)
+        tmin, first = t.min(dim=1)
+        # the reference sums the winners' normals into a zero, which turns a
+        # component -0.0 into +0.0; exact ties average their normals, and
+        # they are rare, so only those lanes pay for the masked sum
+        n_sel = n_tri[first] + 0.0
+        m = (t == tmin[:, None]) & torch.isfinite(tmin)[:, None]
+        cnt = m.sum(dim=1)
+        tied = torch.nonzero(cnt > 1)[:, 0]
+        if tied.numel():
+            s = ((m[tied, :, None] * n_tri.double()[None]).sum(dim=1) + 0.0).float()
+            n_sel[tied] = s / cnt[tied, None].to(t.dtype)
+        better = tmin < best_t
+        best_n = torch.where(better[:, None], n_sel, best_n)
+        best_t = torch.where(better, tmin, best_t)
+    hit = torch.isfinite(best_t)
+    return torch.where(hit, best_t, t_max), best_n, hit
+
+
+def ray_tris_occluded_plain(p, d, t_max, v0, e1, e2, spheres=None, chunk: int = CHUNK):
+    """True where any triangle blocks the segment (shadow rays)."""
+    occ = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device)
+    for a, b, c in _chunks(v0, e1, e2, chunk):
+        occ = occ | torch.isfinite(_chunk_hits(p, d, a, b, c, t_max)).any(dim=1)
+    return occ
+
+
+def ray_tris_nearest_instanced_plain(p, d, t_max, v0, e1, e2, offsets, spheres=None):
+    """Nearest hit against the translated copies: scan the instances,
+    translate the ray into each instance frame, sweep the canonical soup
+    with the running best as the cap, keep the winner."""
+    B = p.shape[0]
+    best_t = t_max
+    best_n = torch.zeros((B, 3), dtype=p.dtype, device=p.device)
+    best_n[:, 2] = 1.0
+    hit = torch.zeros(B, dtype=torch.bool, device=p.device)
+    for offset in offsets:
+        t, n, h = ray_tris_nearest_plain(p - offset[None, :], d, best_t, v0, e1, e2)
+        better = h & (t < best_t)
+        best_t = torch.where(better, t, best_t)
+        best_n = torch.where(better[:, None], n, best_n)
+        hit = hit | better
+    return torch.where(hit, best_t, t_max), best_n, hit
+
+
+def ray_tris_occluded_instanced_plain(p, d, t_max, v0, e1, e2, offsets, spheres=None):
+    """Any hit against the translated copies."""
+    occ = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device)
+    for offset in offsets:
+        occ = occ | ray_tris_occluded_plain(p - offset[None, :], d, t_max, v0, e1, e2)
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+
+
+def _check(name, named, B, N, offsets):
+    """Validate the operands of a launch."""
+    p = named["p"]
+    for key, t in named.items():
+        if t.device != p.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, p on {p.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    shapes = {"p": (B, 3), "d": (B, 3), "t_max": (B,), "v0": (N, 3), "e1": (N, 3),
+              "e2": (N, 3), "spheres": (1 + -(-N // GROUP), 4)}
+    if offsets is not None:
+        shapes["offsets"] = (offsets.shape[0], 3)
+    for key, shape in shapes.items():
+        if tuple(named[key].shape) != shape:
+            raise ValueError(
+                f"{name}: {key} must be {list(shape)}, got {list(named[key].shape)}"
+            )
+    if N < 1:
+        raise ValueError(f"{name}: needs at least one triangle")
+    if offsets is not None and offsets.shape[0] < 1:
+        raise ValueError(f"{name}: needs at least one instance")
+    if B >= 2**31 or N >= 2**31:
+        raise ValueError(f"{name}: more than 2^31 - 1 lanes or triangles")
+
+
+def _launch(name, nearest, p, d, t_max, v0, e1, e2, offsets, spheres):
+    """Check the operands, allocate the outputs and launch kernel ``name``
+    on the current stream; raises if the launch fails."""
+    if spheres is None:
+        spheres = tri_sweep_spheres(v0, e1, e2)
+    B, N = p.shape[0], v0.shape[0]
+    named = {"p": p, "d": d, "t_max": t_max, "v0": v0, "e1": e1, "e2": e2,
+             "spheres": spheres}
+    if offsets is not None:
+        named["offsets"] = offsets
+    _check(name, named, B, N, offsets)
+    if nearest:
+        outs = (
+            torch.empty(B, dtype=torch.float32, device=p.device),
+            torch.empty((B, 3), dtype=torch.float32, device=p.device),
+            torch.empty(B, dtype=torch.bool, device=p.device),
+        )
+    else:
+        outs = (torch.empty(B, dtype=torch.bool, device=p.device),)
+    if B == 0:
+        return outs
+    ins = tuple(named.values())
+    sizes = (B, N) if offsets is None else (B, N, offsets.shape[0])
+    with torch.cuda.device(p.device):
+        rc = _launcher(name, len(ins) + len(outs), len(sizes))(
+            *[t.data_ptr() for t in ins + outs], *sizes,
+            torch.cuda.current_stream(p.device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    launches[name] += 1
+    return outs
+
+
+def ray_tris_nearest(p, d, t_max, v0, e1, e2, spheres=None):
+    """Nearest triangle hit of rays ``p`` [B, 3], ``d`` [B, 3] (unit) within
+    ``t_max`` [B] against triangles ``v0``, ``e1``, ``e2`` [N, 3], all
+    float32. Returns ``(t_hit [B], normal [B, 3], hit [B] bool)``.
+    ``spheres`` optionally passes :func:`tri_sweep_spheres` of the soup.
+    CUDA tensors go through the kernel (the wrapper checks device, dtype,
+    contiguity and shapes, and raises if the launch fails); CPU tensors
+    through :func:`ray_tris_nearest_plain`."""
+    if _on_cpu(p, "ray_tris_nearest"):
+        return ray_tris_nearest_plain(p, d, t_max, v0, e1, e2)
+    return _launch("ray_tris_nearest", True, p, d, t_max, v0, e1, e2, None, spheres)
+
+
+def ray_tris_occluded(p, d, t_max, v0, e1, e2, spheres=None):
+    """True [B] where any triangle blocks the segment; operands as
+    :func:`ray_tris_nearest`."""
+    if _on_cpu(p, "ray_tris_occluded"):
+        return ray_tris_occluded_plain(p, d, t_max, v0, e1, e2)
+    return _launch("ray_tris_occluded", False, p, d, t_max, v0, e1, e2, None, spheres)[0]
+
+
+def ray_tris_nearest_instanced(p, d, t_max, v0, e1, e2, offsets, spheres=None):
+    """:func:`ray_tris_nearest` against the union of the canonical soup
+    translated by each of ``offsets`` [I, 3]; ``spheres`` are those of the
+    canonical soup."""
+    if _on_cpu(p, "ray_tris_nearest_instanced"):
+        return ray_tris_nearest_instanced_plain(p, d, t_max, v0, e1, e2, offsets)
+    return _launch("ray_tris_nearest_instanced", True, p, d, t_max, v0, e1, e2,
+                   offsets, spheres)
+
+
+def ray_tris_occluded_instanced(p, d, t_max, v0, e1, e2, offsets, spheres=None):
+    """:func:`ray_tris_occluded` against the translated copies."""
+    if _on_cpu(p, "ray_tris_occluded_instanced"):
+        return ray_tris_occluded_instanced_plain(p, d, t_max, v0, e1, e2, offsets)
+    return _launch("ray_tris_occluded_instanced", False, p, d, t_max, v0, e1, e2,
+                   offsets, spheres)[0]

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .canopy import InstancedLeafArrays, LeafCloudArrays
+from .mesh import InstancedTriArrays, TriangleMeshArrays
 
 __all__ = [
     "MediumArrays",
@@ -191,25 +192,35 @@ def from_reference(scene, sensor, config, device):
     return SceneArrays(medium, surface, illumination), sensor_t, config_t
 
 
-def canopy_from_reference(leaves, leaf_params, device):
-    """Leaf geometry and leaf optics of a compiled canopy as the port's
-    tensors on ``device``: ``leaves`` is a flat cloud (``centers``,
-    ``normals``, ``radii``) or an instanced one (``canonical``, ``offsets``),
-    the reference's or the port's; ``leaf_params`` maps ``reflectance`` and
-    ``transmittance`` to [S] rows. Returns ``(leaves, leaf_params)``."""
+def canopy_from_reference(leaves, leaf_params, device, tris=None, tri_params=None):
+    """Leaf and triangle geometry and their optics of a compiled canopy as
+    the port's tensors on ``device``: ``leaves`` is a flat cloud
+    (``centers``, ``normals``, ``radii``) or an instanced one (``canonical``,
+    ``offsets``), ``tris`` None, a flat soup (``v0``, ``e1``, ``e2``) or an
+    instanced one, the reference's or the port's; ``leaf_params`` and
+    ``tri_params`` map ``reflectance`` and ``transmittance`` to [S] rows.
+    Returns ``(leaves, leaf_params, tris, tri_params)``."""
+
+    def leaf(x):
+        return _tensor(x, device).contiguous()
 
     def cloud(c):
         return LeafCloudArrays(
-            centers=_tensor(c.centers, device).contiguous(),
-            normals=_tensor(c.normals, device).contiguous(),
-            radii=_tensor(c.radii, device).contiguous(),
+            centers=leaf(c.centers), normals=leaf(c.normals), radii=leaf(c.radii)
         )
 
-    if hasattr(leaves, "canonical"):
-        out = InstancedLeafArrays(
-            canonical=cloud(leaves.canonical),
-            offsets=_tensor(leaves.offsets, device).contiguous(),
-        )
-    else:
-        out = cloud(leaves)
-    return out, {k: _tensor(v, device) for k, v in leaf_params.items()}
+    def soup(m):
+        return TriangleMeshArrays(v0=leaf(m.v0), e1=leaf(m.e1), e2=leaf(m.e2))
+
+    def instanced(x, base, cls):
+        if hasattr(x, "canonical"):
+            return cls(canonical=base(x.canonical), offsets=leaf(x.offsets))
+        return base(x)
+
+    def optics(params):
+        return {k: _tensor(v, device) for k, v in params.items()}
+
+    out = instanced(leaves, cloud, InstancedLeafArrays), optics(leaf_params)
+    if tris is None:
+        return *out, None, None
+    return *out, instanced(tris, soup, InstancedTriArrays), optics(tri_params)

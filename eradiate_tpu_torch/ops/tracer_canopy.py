@@ -1,20 +1,23 @@
 """Regenerative wavefront path tracer for canopy scenes (leaf-disk clouds,
-a ground and an optional 1D atmosphere), plane-parallel geometry.
+triangle meshes for trunks and mesh trees, a ground and an optional 1D
+atmosphere), plane-parallel geometry.
 
 Port of the scalar regenerative path of ``eradiate_tpu/ops/tracer_canopy.py``
 (``render_canopy``). One loop iteration resolves the nearest of {medium
-collision (closed-form free flight), leaf-disk hit (nearest-hit sweep),
-ground hit, escape}; next-event estimation casts one leaf-occlusion shadow
-ray per lane and multiplies the closed-form atmospheric sun transmittance.
-Directional illumination and leaf disks only: the spot emitter, triangle
-meshes (trunks, mesh trees) and polarized transport raise
-``NotImplementedError``.
+collision (closed-form free flight), leaf-disk hit, triangle hit
+(nearest-hit sweeps), ground hit, escape}; next-event estimation casts one
+shadow ray per lane against the leaves and the triangles and multiplies the
+closed-form atmospheric sun transmittance. Leaves and triangles scatter as
+bilambertian surfaces, each with its own reflectance and transmittance.
+Directional illumination only: the spot emitter, the one-shot tracer and
+polarized transport raise ``NotImplementedError``.
 
 The reference's ``while_loop`` is an eager Python loop here, as in
 :mod:`.tracer`: every update is gated by ``active``, ``path_end`` or
 ``regen``, so the all-lanes-done flag is read on the host only every
-``check_every`` iterations. Each iteration launches the nearest-hit sweep
-once and the any-hit sweep once.
+``check_every`` iterations. Each iteration launches the leaves' nearest-hit
+sweep once and their any-hit sweep once, and with triangles the triangles'
+two sweeps as well.
 
 Random numbers follow the reference bit for bit (threefry row and chunk keys
 on the host, pcg4d per-sample keys and per-bounce uniforms on the device).
@@ -42,6 +45,7 @@ from ..kernels.leaf_intersect import fma
 from .canopy import leaf_nearest, leaf_occluded, leaf_spheres
 from .fastrng import bounce_uniforms, derive_keys, origin_uniforms
 from .medium import clamp_mu, take_1d, tau_at_z, z_at_tau
+from .mesh import tri_accel, tri_nearest, tri_occluded
 from .phase_ops import (
     check_phase_kinds,
     layer_param_slots,
@@ -99,9 +103,10 @@ def _to_local(n, v):
     return torch.stack([(t1 * v).sum(-1), (t2 * v).sum(-1), (n * v).sum(-1)], dim=-1)
 
 
-def _canopy_helpers(config, medium_row, leaves, illum_row):
+def _canopy_helpers(config, medium_row, leaves, illum_row, tris=None):
     """Shared closures (medium tau, emitter NEE terms) and the sweeps'
-    acceleration data, computed once per render."""
+    acceleration data (leaves and, with ``tris``, triangles), computed once
+    per render."""
     if config.illumination_kind != "directional":
         raise NotImplementedError(
             f"illumination kind {config.illumination_kind!r} (spot emitter) is "
@@ -116,6 +121,7 @@ def _canopy_helpers(config, medium_row, leaves, illum_row):
     w_sun = -d_sun
     E_sun = illum_row.irradiance
     accel = leaf_spheres(leaves)
+    tris_accel = None if tris is None else tri_accel(tris)
 
     def tau_z(z):
         return tau_at_z(z, z_levels, tau_levels)
@@ -127,22 +133,27 @@ def _canopy_helpers(config, medium_row, leaves, illum_row):
         length, broadcast once per trace."""
         T_atm = torch.exp(-(tau_top - tau_z(pos[:, 2].contiguous())) / mu_sun)
         occluded = leaf_occluded(pos, w_sun_b, far, leaves, accel)
+        if tris is not None:
+            occluded = occluded | tri_occluded(pos, w_sun_b, far, tris, tris_accel)
         return T_atm * torch.where(occluded, 0.0, 1.0) * E_sun
 
-    return {"tau_z": tau_z, "nee_at": nee_at, "w_sun": w_sun, "accel": accel}
+    return {"tau_z": tau_z, "nee_at": nee_at, "w_sun": w_sun, "accel": accel,
+            "tris_accel": tris_accel}
 
 
 def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpers, B,
-                        eps=1e-6):
+                        tris=None, tri_row=None, eps=1e-6):
     """Per-bounce transition shared by every lane: returns ``bounce(depth,
     pos, d, beta, keys) -> (L_add, pos', d', beta', alive')``; updates are
-    unconditional (the caller masks finished lanes)."""
+    unconditional (the caller masks finished lanes). ``tris`` and
+    ``tri_row`` are the triangle geometry and its optics row, if any."""
     z_levels = medium_row.z_levels
     tau_levels = medium_row.tau_levels
     tau_top = tau_levels[-1]
     z_bottom = z_levels[0]
     z_top = z_levels[-1]
     tau_z, nee_at, accel = helpers["tau_z"], helpers["nee_at"], helpers["accel"]
+    tris_accel = helpers["tris_accel"]
 
     dev, dtype = z_levels.device, z_levels.dtype
     w_nee = helpers["w_sun"].expand(B, 3).contiguous()
@@ -174,15 +185,35 @@ def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpe
         z_edge = torch.where(mu > 0.0, z_top, z_bottom)
         t_med = torch.where(collide_med, (z_med - z) / mu, (z_edge - z) / mu)
 
-        # nearest leaf disk within the segment
+        # nearest scatterer (leaf disk or mesh triangle) within the segment
         t_leaf, n_leaf, hit_leaf = leaf_nearest(pos, d, t_med, leaves, accel)
+        optics = leaf_row
+        if tris is not None:
+            t_tri, n_tri, hit_tri = tri_nearest(pos, d, t_med, tris, tris_accel)
+            tri_first = hit_tri & (~hit_leaf | (t_tri < t_leaf))
+            hit_leaf = hit_leaf | hit_tri
+            t_leaf = torch.where(tri_first, t_tri, t_leaf)
+            n_leaf = torch.where(tri_first[:, None], n_tri, n_leaf)
+            # per-lane optics: bilambertian either way (trunks have zero
+            # transmittance through their tri_row values)
+            optics = {k: torch.where(tri_first, tri_row[k], leaf_row[k])
+                      for k in ("reflectance", "transmittance")}
 
         event_leaf = hit_leaf
         event_med = collide_med & ~hit_leaf
         event_ground = (~collide_med) & ~hit_leaf & (mu < 0.0) & config.has_surface
 
         # ---- positions --------------------------------------------------
-        pos_leaf = _step(pos, d, t_leaf[:, None])
+        # XLA:CPU fuses this step in the graph without triangles and leaves
+        # it a separate product and sum in the graph with them; from the top
+        # of the atmosphere the two differ by half an ulp of ~100 km, which
+        # decides on which side of a trunk's wall the hit point lands. Over
+        # 60 pixel-seeds of a 3 x 3 trunk forest 12 pixels leave the
+        # reference's path with the fused step and 2 with the unfused one
+        if tris is None:
+            pos_leaf = _step(pos, d, t_leaf[:, None])
+        else:
+            pos_leaf = pos + d * t_leaf[:, None]
         pos_med = _step(pos, d, t_med[:, None])
         t_ground = (z_bottom - z) / mu
         pos_ground = _step(pos, d, t_ground[:, None])
@@ -196,8 +227,9 @@ def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpe
         wi_leaf_sign = torch.sign((n_shade * w_nee).sum(-1))[:, None]
         # distance-scaled lift-off: pos + t d at t ~ 100 km rounds by
         # ~ulp(t) ~ 1e-5 km in float32, so the hit can land below the disk
-        # it hit, and a fixed 1e-6 offset would leave the shadow origin
-        # occluded by its own disk. 2.4e-7 = 2 float32 ulp.
+        # or triangle it hit, and a fixed 1e-6 offset would leave the shadow
+        # origin occluded by its own surface (a trunk's cap seen from above
+        # went black). 2.4e-7 = 2 float32 ulp.
         eps_lane = (eps + t_leaf * 2.4e-7)[:, None]
         pos_leaf_off = _step(pos_leaf, n_shade * wi_leaf_sign, eps_lane)
         pos_ground_off = pos_ground + ground_lift
@@ -221,17 +253,17 @@ def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpe
         )
         beta_med = beta * albedo_col
 
-        # ---- leaf interaction (bilambertian) ----------------------------
+        # ---- leaf or triangle interaction (bilambertian) ----------------
         wo_leaf = _to_local(n_shade, -d)
         wi_sun_leaf = _to_local(n_shade, w_nee)
-        f_leaf = bilambertian_eval(leaf_row, wi_sun_leaf, wo_leaf)
+        f_leaf = bilambertian_eval(optics, wi_sun_leaf, wo_leaf)
         cos_sun_leaf = torch.abs((n_shade * w_nee).sum(-1))
         # E_nee was evaluated at pos_leaf_off (the shadow origin slightly off
         # the leaf on the emitter's side) for event_leaf lanes
         L_leaf = beta * f_leaf * cos_sun_leaf * E_nee
         # leaf sampling reuses the phase uniform slots (exclusive branches)
         d_leaf_local, w_leaf = bilambertian_sample_from_uniforms(
-            leaf_row, wo_leaf, u_sel, u_cos
+            optics, wo_leaf, u_sel, u_cos
         )
         d_leaf = _to_world(n_shade, d_leaf_local)
         beta_leaf = beta * w_leaf
@@ -290,11 +322,12 @@ def _morton_u32(pos, lo, hi):
 def trace_paths_canopy_regen(
     config, medium_row, surface_row, leaf_row, leaves, illum_row, init_pos, init_d,
     row_key, lane_first, quota, ext=None, sort_every=CANOPY_SORT_EVERY,
-    check_every=CHECK_EVERY,
+    check_every=CHECK_EVERY, tris=None, tri_row=None,
 ):
     """Regenerative canopy trace (see :func:`.tracer.trace_paths_regen`):
     lanes re-seed a fresh (pixel, sample) path on death; ``ext`` [B, 2]
-    jitters the xy origin per sample (footprint rectangle targets). Returns
+    jitters the xy origin per sample (footprint rectangle targets);
+    ``tris``/``tri_row`` add a triangle mesh and its optics row. Returns
     ``(L_sum, m2_sum, iterations)`` per lane, in the caller's lane order.
 
     With ``sort_every`` > 0 the loop permutes all lane state by the Morton
@@ -307,9 +340,9 @@ def trace_paths_canopy_regen(
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     B = init_pos.shape[0]
     dev, dtype = init_pos.device, init_pos.dtype
-    helpers = _canopy_helpers(config, medium_row, leaves, illum_row)
+    helpers = _canopy_helpers(config, medium_row, leaves, illum_row, tris)
     bounce = _make_bounce_canopy(
-        config, medium_row, surface_row, leaf_row, leaves, helpers, B
+        config, medium_row, surface_row, leaf_row, leaves, helpers, B, tris, tri_row
     )
     z_top = medium_row.z_levels[-1]
     _, box_lo, box_hi = helpers["accel"]
@@ -392,7 +425,7 @@ def trace_paths_canopy_regen(
 def _render_row_canopy(
     config, n_pix, spp, medium_row, surface_row, leaf_row, leaves, illum_row,
     directions, target, ray_offset, key, target_extent, lanes_target, sort_every,
-    check_every,
+    check_every, tris=None, tri_row=None,
 ):
     """One spectral row of one chunk: returns (radiance [N], m2 [N],
     iterations)."""
@@ -417,17 +450,17 @@ def _render_row_canopy(
     L_sum, m2_sum, iterations = trace_paths_canopy_regen(
         config, medium_row, surface_row, leaf_row, leaves, illum_row, init_pos, -w_v,
         key, lane_first, quota, ext=ext, sort_every=sort_every, check_every=check_every,
+        tris=tris, tri_row=tri_row,
     )
     radiance = L_sum.reshape(n_pix, lp).sum(dim=1) / spp
     m2 = m2_sum.reshape(n_pix, lp).sum(dim=1) / spp
     return radiance, m2, iterations
 
 
-def _check_supported(config, tris):
+def _check_supported(config):
     """Raise ``NotImplementedError`` naming each feature this slice lacks."""
     unsupported = {
         "polarized canopy transport": config.polarized,
-        "triangle meshes in canopy scenes (trunks, mesh trees)": tris is not None,
         f"geometry {config.geometry!r} for canopy scenes":
             config.geometry != "plane_parallel",
         f"sampler {config.sampler!r}": config.sampler != "independent",
@@ -454,20 +487,24 @@ def render_canopy(
     ``scene``/``sensor``/``config`` are a compiled scene (the medium may be
     zero-extinction for pure canopy scenes), ``leaves`` a flat or instanced
     leaf cloud and ``leaf_params`` ``{"reflectance": [S], "transmittance":
-    [S]}``, the reference's or the port's; all are moved to ``device``
-    first. ``spp_chunk`` (default: what :data:`PATHS_PER_DISPATCH` allows)
+    [S]}``, ``tris`` None or a flat or instanced triangle mesh (trunks, mesh
+    trees) with its optics ``tri_params``, the reference's or the port's; all
+    are moved to ``device`` first. ``spp_chunk`` (default: what :data:`PATHS_PER_DISPATCH` allows)
     splits the samples into chunks with their own keys and so changes the
     sample set; ``lanes_target`` (default :data:`LANES_TARGET`) and
     ``sort_every`` change only the float summation order.
 
     Returns a dict with ``radiance`` [S, N], ``m2`` [S, N], ``spp`` and
     ``iterations`` (bounce iterations, summed over chunks and rows; each
-    launches the nearest-hit and the any-hit sweep once).
+    launches the nearest-hit and the any-hit sweep of the leaves once and,
+    with ``tris``, those of the triangles).
     """
-    _check_supported(config, tris)
+    _check_supported(config)
     dev = resolve_device(device)
     scene, sensor, config = from_reference(scene, sensor, config, dev)
-    leaves, leaf_params = canopy_from_reference(leaves, leaf_params, dev)
+    leaves, leaf_params, tris, tri_params = canopy_from_reference(
+        leaves, leaf_params, dev, tris, tri_params
+    )
     if lanes_target is None:
         lanes_target = LANES_TARGET[dev.type]
     med = scene.medium
@@ -509,10 +546,12 @@ def render_canopy(
                 sky_radiance=_row(il.sky_radiance, s),
             )
             leaf_row = {k: v[s] for k, v in leaf_params.items()}
+            tri_row = None if tris is None else {k: v[s] for k, v in tri_params.items()}
             rad, m2, it = _render_row_canopy(
                 config, n_pix, n, medium_row, surface_row, leaf_row, leaves, illum_row,
                 sensor.directions, sensor.target, sensor.ray_offset, row_key,
                 sensor.target_extent, lanes_target, sort_every, check_every,
+                tris, tri_row,
             )
             rad_sum[s] += rad * n
             m2_sum[s] += m2 * n

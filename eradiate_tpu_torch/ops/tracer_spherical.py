@@ -6,9 +6,15 @@ kernel launch per event), next-event estimation aimed straight at the
 directional sun, Russian roulette on real interactions, and path
 regeneration.
 
-The sun transmittance at an event comes from one of two branches, as in the
-reference:
+The sun transmittance at an event comes from one of three branches, as in
+the reference:
 
+- **lr_flight**: with ``config.lr_flight`` (the configuration the
+  sensitivity renders use) the flight is
+  :func:`..kernels.shell_flight.shell_flight` and the exact slant depth at
+  the event point a second launch, :func:`..kernels.shell_flight.slant_tau`.
+  Only the primal is ported: the likelihood-ratio weights of the reference
+  are exactly 1 there, so the estimate equals the exact branch's;
 - **table**: when the compiled scene carries a sun slant-tau table
   (``sun_tau``, on up to SZA 80 by default), the event point's slant depth
   is fetched from it by exact bilinear interpolation
@@ -31,7 +37,7 @@ import torch
 
 from ..core import threefry
 from ..core.device import resolve_device
-from ..kernels.shell_flight import shell_event, shell_flight
+from ..kernels.shell_flight import shell_event, shell_flight, slant_tau
 from .bsdf_ops import SUPPORTED_BSDFS, bsdf_eval, bsdf_sample_from_uniforms
 from .fastrng import bounce_uniforms, derive_keys
 from .medium import fetch_at_index
@@ -48,6 +54,7 @@ from .spherical import (
     TAU_BLOCKED,
     cross_norm2,
     dot3,
+    fma,
     ray_sphere_intersect,
     sqrt_rn,
     sun_tau_fetch_fast,
@@ -150,7 +157,15 @@ def _make_event(config, medium_row, surface_row, illum_row):
 
         # exact free flight, and the sun's slant depth at the event point
         tau_s = -torch.log1p(-u_dist)
-        if use_table:
+        if config.lr_flight:
+            # primal of the likelihood-ratio flight: the plain flight, then
+            # the slant depth from the event point, formed with one fused
+            # multiply-add per component as the fused event kernel forms it
+            accept, t_col, layer = shell_flight(p, d, t_max, radii, sigma, tau_s)
+            t_step = torch.where(accept, t_col, t_max)
+            tau_sun = slant_tau(fma(d, t_step[:, None], p), w_sun, radii, sigma)
+            p_new = p + d * t_step[:, None]
+        elif use_table:
             accept, t_col, layer = shell_flight(p, d, t_max, radii, sigma, tau_s)
             t_step = torch.where(accept, t_col, t_max)
             p_new = p + d * t_step[:, None]
@@ -315,7 +330,6 @@ def _check_supported(config, medium):
         f"sampler {config.sampler!r}": config.sampler != "independent",
         f"illumination kind {config.illumination_kind!r}":
             config.illumination_kind != "directional",
-        "lr_flight": config.lr_flight,
         f"rng {config.rng!r}": config.rng != "pcg4d",
         f"surface kind {config.surface_kind!r}":
             config.surface_kind not in SUPPORTED_BSDFS,

@@ -278,7 +278,7 @@ class AbstractTree(SceneElement):
 
     def mesh_part(self):
         """Trunk triangles (vertices, faces, reflectance, transmittance)."""
-        raise NotImplementedError("not ported yet: tree trunks (triangle meshes, ray_tris kernels)")
+        from ...ops.mesh import cylinder_mesh
 
         h = float(_km(self.trunk_height))
         r = float(_km(self.trunk_radius))
@@ -298,7 +298,7 @@ class MeshTreeElement(SceneElement):
     transmittance: object = 0.0
 
     def triangles(self):
-        raise NotImplementedError("not ported yet: mesh tree elements (triangle meshes, ray_tris kernels)")
+        from ..shapes import FileMeshShape
 
         return FileMeshShape(
             filename=self.mesh_filename, mesh_units=self.mesh_units

@@ -221,8 +221,9 @@ def test_cuda_without_card_raises(mono_single, monkeypatch):
         eradiate_tpu_torch.run(port_exp(), spp=8, device="cuda")
 
 
-def _with_tree():
-    tree = bio.AbstractTree()
+def _with_tree(**overrides):
+    tree = bio.AbstractTree(leaf_cloud=bio.LeafCloud.sphere(n_leaves=20, leaf_radius=0.4,
+                                                             radius=2.0))
     return CanopyExperiment(**{
         **kwargs(bio, atmosphere=False),
         "canopy": bio.DiscreteCanopy(
@@ -232,6 +233,7 @@ def _with_tree():
                  "instance_positions": POSITIONS_M * 1e-3}
             ],
         ),
+        **overrides,
     })
 
 
@@ -241,9 +243,15 @@ def _with_tree():
      ("tris", "triangle meshes"), ("spot-config", "spot emitter")],
 )
 def test_unported_features_raise(mono_single, kind, name):
+    """Trees and triangle meshes are ported (``test_torch_tree_experiment.py``);
+    what still raises with them is what raises without them: the spot
+    emitter and polarized transport."""
     if kind == "tree":
-        with pytest.raises(NotImplementedError, match=name):
-            eradiate_tpu_torch.run(_with_tree(), spp=8, device="cpu")
+        brf = np.asarray(eradiate_tpu_torch.run(_with_tree(), spp=8, device="cpu")["brf"])
+        assert np.isfinite(brf).all()
+        with pytest.raises(NotImplementedError, match="SpotIllumination"):
+            eradiate_tpu_torch.run(_with_tree(illumination={"type": "spot"}), spp=8,
+                                   device="cpu")
         return
     if kind == "spot":
         exp = CanopyExperiment(**{**kwargs(bio, atmosphere=False),
@@ -251,17 +259,21 @@ def test_unported_features_raise(mono_single, kind, name):
         with pytest.raises(NotImplementedError, match=name):
             eradiate_tpu_torch.run(exp, spp=8, device="cpu")
         return
+    if kind == "tris":
+        scene, sensor, config, leaf_params, leaves, tris, tri_params = compiled(_with_tree())
+        assert tris.canonical.v0.shape == (36, 3)
+        with pytest.raises(NotImplementedError, match="polarized"):
+            render_canopy(scene, leaf_params, leaves, sensor,
+                          dataclasses.replace(config, polarized=True), spp=8, device="cpu",
+                          tris=tris, tri_params=tri_params)
+        return
     scene, sensor, config, leaf_params, leaves, _, _ = compiled(port_exp())
-    tris = None
     if kind == "polarized":
         config = dataclasses.replace(config, polarized=True)
-    elif kind == "spot-config":
-        config = dataclasses.replace(config, illumination_kind="spot")
     else:
-        tris = object()
+        config = dataclasses.replace(config, illumination_kind="spot")
     with pytest.raises(NotImplementedError, match=name):
-        render_canopy(scene, leaf_params, leaves, sensor, config, spp=8, device="cpu",
-                      tris=tris)
+        render_canopy(scene, leaf_params, leaves, sensor, config, spp=8, device="cpu")
 
 
 def test_polarized_mode_raises():

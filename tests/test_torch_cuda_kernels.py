@@ -15,6 +15,9 @@ rays aimed at their rims (a stress of the kernels' conservative culls), at a
 ragged lane count, from origins near the disks and from origins a hundred
 times farther away (where float32 rounding of the ray moves the hit point by
 a sizeable part of a disk, and the culls' margins have to grow with it).
+The triangle-sweep kernels are held the same way on a wood skeleton (closed
+cylinders) with rays aimed at shared edges and vertices, and the slant-depth
+kernel on points spread through the shells (steep, grazing and blocked rays).
 """
 
 import numpy as np
@@ -22,7 +25,12 @@ import pytest
 import torch
 
 from eradiate_tpu_torch.kernels import leaf_intersect as li
+from eradiate_tpu_torch.kernels import shell_flight as sf
+from eradiate_tpu_torch.kernels import tri_intersect as ti
 from eradiate_tpu_torch.ops.canopy import morton_order
+from eradiate_tpu_torch.ops.mesh import mesh_from_vertices
+from eradiate_tpu_torch.ops.spherical import TAU_BLOCKED
+from eradiate_tpu_torch.test_tools.meshes import edge_rays, wood_skeleton
 
 pytestmark = pytest.mark.cuda
 
@@ -76,3 +84,65 @@ def test_leaf_kernel_equals_plain_version(card, name, B, far):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert got[-1].any() or B == 1
+
+
+def edge_problem(B, seed, instanced, far=False):
+    """Rays aimed at edges, vertices and interiors of a 60-branch wood
+    skeleton (1476 triangles, km), from 0.5-3 cm (``far``: 0.5-3 m) away."""
+    rng = np.random.default_rng(seed)
+    v, f = wood_skeleton(np.random.default_rng(7), n_branches=60)
+    tris = mesh_from_vertices((v * 1e-3).astype(np.float32), f)
+    offsets = np.array([[0.0, 0, 0], [0.02, 0, 0], [0, 0.03, 0]]) if instanced else None
+    p, d, t_max = edge_rays(rng, B, tris, offsets, 1e-3 if far else 1e-5)
+    arrays = [p, d, t_max, tris.v0, tris.e1, tris.e2]
+    if instanced:
+        arrays.append(offsets)
+    return [np.ascontiguousarray(a, np.float32) for a in arrays]
+
+
+@pytest.mark.parametrize(
+    "name", ["ray_tris_nearest", "ray_tris_occluded", "ray_tris_nearest_instanced",
+             "ray_tris_occluded_instanced"]
+)
+@pytest.mark.parametrize("B", [1, 100_037])
+@pytest.mark.parametrize("far", [False, True])
+def test_tri_kernel_equals_plain_version(card, name, B, far):
+    problem = edge_problem(B, 3, name.endswith("instanced"), far)
+    args = [torch.tensor(a, device=card) for a in problem]
+    before = ti.launches[name]
+    got = getattr(ti, name)(*args)
+    torch.cuda.synchronize()
+    assert ti.launches[name] == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = []
+    for start in range(0, B, 2**14):  # the plain version's [B, 512] float64 temporaries
+        sl = [a[start : start + 2**14] for a in args[:3]]
+        out = getattr(ti, name + "_plain")(*sl, *args[3:])
+        want.append(out if isinstance(out, tuple) else (out,))
+    for g, w in zip(got, zip(*want)):
+        assert torch.equal(g, torch.cat(w))
+    assert got[-1].any() or B == 1
+
+
+@pytest.mark.parametrize("B", [1, 100_037])
+@pytest.mark.parametrize("L", [232, 1200])
+def test_slant_tau_kernel_equals_plain_version(card, B, L):
+    rng = np.random.default_rng(5)
+    radii = (6378.1 + np.concatenate([[0.0], np.cumsum(rng.uniform(0.02, 0.5, L))])).astype(np.float32)
+    sigma = (rng.uniform(0, 1, L) * np.exp(-np.arange(L) / 40.0) * 1e-2).astype(np.float32)
+    sigma[L // 2 : L // 2 + 5] = 0.0  # vacuum shells
+    r = rng.uniform(radii[0], radii[-1], B)
+    n = rng.normal(size=(B, 3))
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    p = (n * r[:, None]).astype(np.float32)
+    w = np.array([np.sin(1.3), 0.0, np.cos(1.3)], np.float32)
+    args = [torch.tensor(a, device=card) for a in (p, w, radii, sigma)]
+    before = sf.launches["slant_tau"]
+    got = sf.slant_tau(*args)
+    torch.cuda.synchronize()
+    assert sf.launches["slant_tau"] == before + 1
+    want = sf.slant_tau_exact(*args)
+    assert torch.equal(got, want)
+    if B > 1:
+        blocked = got == TAU_BLOCKED
+        assert blocked.any() and not blocked.all()

@@ -8,7 +8,8 @@ the port imports ``jax`` or ``eradiate_tpu``; for c1 and c4 the port's
 within 2e-6, as it is built by the port's own float64 contraction) and the
 port's ``postprocess_measure`` equals the reference's on the same raw arrays;
 the places where the copy departs from the original (mode dtypes, the warp
-namespace, DEM and mesh features) behave as documented. The two packages
+namespace, DEM features) behave as documented, and the copied mesh readers
+and trunk mesh give the reference's triangles. The two packages
 exchange numpy arrays and plain Python values only.
 """
 
@@ -209,13 +210,27 @@ def test_warp_cone_numpy(cos_cutoff):
     )
 
 
-def test_unported_host_features_raise():
+def test_unported_host_features_raise(tmp_path):
+    """DEM surfaces are not ported; tree trunks and mesh-tree elements are,
+    and give the reference's triangles."""
+    from eradiate_tpu.scenes.biosphere import AbstractTree as RefTree
+    from eradiate_tpu.scenes.biosphere import MeshTreeElement as RefElement
     from eradiate_tpu_torch.scenes.biosphere import AbstractTree, MeshTreeElement
     from eradiate_tpu_torch.scenes.surface import DEMSurface
+    from eradiate_tpu_torch.test_tools.meshes import wood_skeleton, write_obj
 
     with pytest.raises(NotImplementedError, match="DEM"):
         DEMSurface.gaussian_hill(n=5).dem_arrays()
-    with pytest.raises(NotImplementedError, match="tree trunks"):
-        AbstractTree().mesh_part()
-    with pytest.raises(NotImplementedError, match="mesh tree"):
-        MeshTreeElement(mesh_filename="tree.ply").triangles()
+    for got, want in zip(AbstractTree().mesh_part(), RefTree().mesh_part()):
+        np.testing.assert_array_equal(got, want)
+    v, f = wood_skeleton(np.random.default_rng(7), n_branches=3)
+    path = tmp_path / "wood.obj"
+    write_obj(path, v, f)
+    got = MeshTreeElement(mesh_filename=str(path), mesh_units="m").triangles()
+    want = RefElement(mesh_filename=str(path), mesh_units="m").triangles()
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(got[0], v * 1e-3)  # the file keeps every digit
+    np.testing.assert_array_equal(got[1], f)
+    with pytest.raises(OSError):
+        MeshTreeElement(mesh_filename=str(tmp_path / "missing.ply")).triangles()

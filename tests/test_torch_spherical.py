@@ -18,7 +18,9 @@ tolerances:
   ``tau_sun`` within 8 ulp where ``t_col`` is equal, within 1e-3 relative
   elsewhere (``t_col`` moves the event point).
 - Against the Pallas kernels in interpret mode: the tolerances of
-  ``tests/unit/test_shell_flight_pallas.py``.
+  ``tests/unit/test_shell_flight_pallas.py`` (``slant_tau_pallas``: the
+  blocked lanes exactly, elsewhere 5e-2 absolute and 2e-2 relative, the
+  float32 noise floor of near-tangent rays).
 - ``sun_tau_table_grid``: 2e-6 relative (float32 against float64
   contraction over the shells). ``sun_tau_fetch_fast``: within 1e-6
   relative of a float64 bilinear at the same cell location, and within the
@@ -41,7 +43,11 @@ import torch
 from eradiate_tpu.ops import bsdf_ops as ref_bsdf
 from eradiate_tpu.ops import medium as ref_medium
 from eradiate_tpu.ops import spherical as ref
-from eradiate_tpu.ops.pallas.shell_flight import shell_event_pallas, shell_flight_pallas
+from eradiate_tpu.ops.pallas.shell_flight import (
+    shell_event_pallas,
+    shell_flight_pallas,
+    slant_tau_pallas,
+)
 from eradiate_tpu_torch.kernels import shell_flight as sf
 from eradiate_tpu_torch.ops import bsdf_ops, medium, spherical
 
@@ -195,6 +201,37 @@ def test_slant_tau_exact(zenith):
     blocked = want == ref.TAU_BLOCKED
     np.testing.assert_array_equal(got == spherical.TAU_BLOCKED, blocked)
     assert _ulps(got[~blocked], want[~blocked]).max() <= 8
+
+
+@pytest.mark.parametrize("zenith", [0.0, 60.0, 85.0, 95.0])
+def test_slant_tau_exact_matches_pallas_interpret(zenith):
+    # TestSlantTauPallas: x0 and b2 formed outside the kernel, as the
+    # reference's dispatch forms them
+    radii, sigma = _shells()
+    p, *_ = _lanes(radii, seed=11, kind="random")
+    w = np.array([np.sin(np.deg2rad(zenith)), 0.0, np.cos(np.deg2rad(zenith))], np.float32)
+    x0 = jnp.einsum("bj,j->b", p, w)
+    b2 = jnp.sum(jnp.cross(p, jnp.broadcast_to(w, p.shape)) ** 2, axis=-1)
+    want = np.asarray(slant_tau_pallas(x0, b2, radii, sigma, block_b=256, interpret=True))
+    got = sf.slant_tau(*_t(p, w, radii, sigma)).numpy()
+    blocked = want >= ref.TAU_BLOCKED / 2
+    np.testing.assert_array_equal(got == spherical.TAU_BLOCKED, blocked)
+    assert blocked.any() == (zenith > 80.0)
+    np.testing.assert_allclose(got[~blocked], want[~blocked], atol=5e-2, rtol=2e-2)
+
+
+def test_slant_tau_at_the_event_point_is_the_event_twins(case):
+    """Flight, then the slant depth from the event point formed with one
+    fused multiply-add per component: what the event twin fuses, bit for
+    bit (the ``lr_flight`` branch of the tracer against the exact NEE)."""
+    radii, sigma, p, d, t_max, tau_s = case
+    args = _t(p, d, t_max, radii, sigma, tau_s)
+    w = torch.from_numpy(W_SUN)
+    collide, t_col, layer, tau_sun = sf.shell_event_plain(*args, w)
+    col2, t2, lay2 = sf.shell_flight(*args)
+    assert torch.equal(col2, collide) and torch.equal(t2, t_col) and torch.equal(lay2, layer)
+    p_event = spherical.fma(args[1], torch.where(collide, t_col, args[2])[:, None], args[0])
+    assert torch.equal(sf.slant_tau(p_event, w, args[3], args[4]), tau_sun)
 
 
 def test_flight_twin_matches_xla(case):
@@ -458,7 +495,12 @@ def test_wrappers_run_the_twins_on_cpu(case):
     w = torch.from_numpy(W_SUN)
     for got, want in zip(sf.shell_event(*args, w), sf.shell_event_plain(*args, w)):
         assert torch.equal(got, want)
+    assert torch.equal(
+        sf.slant_tau(args[0], w, args[3], args[4]),
+        spherical.slant_tau_exact(args[0], w, args[3], args[4]),
+    )
     assert sf.launches == before  # no kernel launch for CPU tensors
+    assert set(before) == {"shell_flight", "shell_event", "slant_tau"}
 
 
 def _args(L=8, n=16):
@@ -513,6 +555,17 @@ def test_wrapper_rejects_bad_inputs(kind, exc):
         _check(_bad(kind))
 
 
+@pytest.mark.parametrize("kind", ["dtype", "non-contiguous", "radii-shape", "w-shape"])
+def test_slant_tau_wrapper_rejects_bad_inputs(kind):
+    a = _args()
+    assert sf._check("slant_tau", {"p": a["p"]}, a["radii"], a["sigma"], a["w_sun"]) == (16, 8)
+    a = _bad(kind)
+    if kind == "dtype":  # slant_tau takes no t_max: the points carry the bad dtype
+        a["p"] = a["p"].double()
+    with pytest.raises(TypeError if kind == "dtype" else ValueError):
+        sf._check("slant_tau", {"p": a["p"]}, a["radii"], a["sigma"], a["w_sun"])
+
+
 def test_wrappers_reject_other_devices():
     a = {k: v.to("meta") for k, v in _args().items()}
     with pytest.raises(ValueError):
@@ -521,3 +574,5 @@ def test_wrappers_reject_other_devices():
         sf.shell_event(
             a["p"], a["d"], a["t_max"], a["radii"], a["sigma"], a["tau_s"], a["w_sun"]
         )
+    with pytest.raises(ValueError):
+        sf.slant_tau(a["p"], a["w_sun"], a["radii"], a["sigma"])

@@ -23,6 +23,12 @@ or SZA 85 (the exact NEE, shell-event kernel), 15 view zeniths.
   7.6e-4. At SZA 75 the reference also rounds the table fetch's radius
   weights to bf16, which moves the other pixels by up to ~5e-5.
 - The estimate does not depend on the lane count.
+- ``render_spherical`` with ``config.lr_flight`` (the primal of the
+  likelihood-ratio flight: shell flight, then the exact slant depth at the
+  event point) against the reference's render with the same config, within
+  the same gate; and against the port's own exact-NEE render of the scene
+  without its sun-tau table, bit for bit (the event twin fuses the same two
+  steps).
 - c4 runs with ``jax`` blocked.
 """
 
@@ -40,6 +46,7 @@ import eradiate_tpu
 import eradiate_tpu_torch
 from eradiate_tpu.core.rng import SeedState
 from eradiate_tpu.experiments import AtmosphereExperiment as RefExperiment
+from eradiate_tpu.ops.tracer_spherical import render_spherical as ref_render_spherical
 from eradiate_tpu.scenes.geometry import EARTH_RADIUS_KM
 from eradiate_tpu_torch import AtmosphereExperiment
 from eradiate_tpu_torch.ops.tracer_spherical import render_spherical
@@ -167,9 +174,61 @@ def test_estimate_independent_of_lane_count(mono_single, sza):
     np.testing.assert_allclose(out[1], out[0], rtol=1e-6, atol=0)
 
 
+def test_lr_flight_matches_reference(mono_single):
+    """The c4 gate. Over seeds 1 to 8 the pixels beyond 1e-4 are the ones
+    that also leave the reference's path on the table branch (the flight
+    flips them, not the slant depth): 2 to 6 of 15, at most 3.4e-3."""
+    (scene, sensor, config), ctx = _compile(AtmosphereExperiment, 75.0)
+    (ref_scene, ref_sensor, ref_config), _ = _compile(RefExperiment, 75.0, ctx)
+    assert not config.lr_flight
+    out = render_spherical(
+        scene, sensor, dataclasses.replace(config, lr_flight=True), spp=SPP, seed=3,
+        device="cpu",
+    )
+    ref = ref_render_spherical(
+        ref_scene.medium, ref_scene.surface, ref_scene.illumination, ref_sensor,
+        dataclasses.replace(ref_config, lr_flight=True), spp=SPP, seed=3,
+    )
+    rad, rad_ref = out["radiance"].numpy(), np.asarray(ref["radiance"])
+    assert rad.shape == rad_ref.shape == (1, 15)
+    assert np.isfinite(rad).all() and (rad > 0).all()
+    var = (out["m2"].numpy() - rad**2 + np.asarray(ref["m2"]) - rad_ref**2) / SPP
+    z = np.abs(rad - rad_ref) / np.sqrt(var)
+    rel = np.abs(rad - rad_ref) / np.abs(rad_ref)
+    assert z.max() <= 5.0
+    assert rel.max() <= 2e-3
+    assert (rel <= 1e-4).sum() >= 12
+    assert np.median(rel) <= 1e-5
+
+
+def test_lr_flight_equals_the_exact_nee_bitwise(mono_single):
+    """Flight plus slant depth is what the event twin fuses: with the table
+    off the default config runs the event twin, and the two renders are
+    equal bit for bit, iteration counts included."""
+    (scene, sensor, config), _ = _compile(AtmosphereExperiment, 75.0)
+    lr = render_spherical(
+        scene, sensor, dataclasses.replace(config, lr_flight=True), spp=64, seed=3,
+        device="cpu",
+    )
+    medium = dataclasses.replace(
+        scene.medium, sun_tau=None, mu_grid=None, sun_r_grid=None, sun_mu_warp=None
+    )
+    exact = render_spherical(
+        dataclasses.replace(scene, medium=medium), sensor, config, spp=64, seed=3, device="cpu"
+    )
+    assert lr["iterations"] == exact["iterations"]
+    for k in ("radiance", "m2"):
+        assert torch.equal(lr[k], exact[k])
+    # and the table branch is another estimate of the same radiance
+    table = render_spherical(scene, sensor, config, spp=64, seed=3, device="cpu")
+    assert not torch.equal(table["radiance"], lr["radiance"])
+    np.testing.assert_allclose(table["radiance"].numpy(), lr["radiance"].numpy(), rtol=5e-2)
+
+
 def _unported(kind, scene, config):
     if kind == "lr_flight":
-        return scene, dataclasses.replace(config, lr_flight=True)
+        # the primal of lr_flight is ported; with polarized transport it is not
+        return scene, dataclasses.replace(config, lr_flight=True, polarized=True)
     if kind == "polarized":
         return scene, dataclasses.replace(config, polarized=True)
     medium = dataclasses.replace(scene.medium, sun_r_grid=None)
@@ -183,7 +242,7 @@ def _unported(kind, scene, config):
 def test_unported_features_raise(mono_single, kind, name):
     (scene, sensor, config), _ = _compile(AtmosphereExperiment, 75.0)
     scene, config = _unported(kind, scene, config)
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(NotImplementedError, match="polarized" if kind == "lr_flight" else name):
         render_spherical(scene, sensor, config, spp=8, device="cpu")
 
 

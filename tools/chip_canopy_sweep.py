@@ -3,21 +3,25 @@
 
 Runs the scene of BASELINE config 5 with the scalar integrator (HET01, 19
 view zeniths, 2097152 spp; ``chip_smoke._c5``) through
-``eradiate_tpu_torch.ops.tracer_canopy.render_canopy`` on CUDA:
+``eradiate_tpu_torch.ops.tracer_canopy.render_canopy`` on CUDA, in the forms
+``instanced`` and ``flat`` (leaf clouds alone), ``trees`` (crowns on
+instanced trunks) and ``wood`` (leaf clouds and 92700 triangles of wood
+skeletons, flattened; its mesh file is written to a temporary directory):
 
 * ``--lanes 19 20 21 22`` renders it at each lane-count target 2^n, up the
   list and down again (so every target but the last is measured twice, and a
-  drift of the host shows), instanced and flat, and prints one table row per
-  run: lanes, bounce iterations, wall time, path samples/s, ms per
+  drift of the host shows), for each of ``--forms``, and prints one table row
+  per run: lanes, bounce iterations, wall time, path samples/s, ms per
   iteration, peak device memory;
 * ``--profile`` renders it once more at the default target under
   ``torch.profiler`` and prints the device-busy share of the wall time, the
   CUDA kernels launched per iteration, and the kernels that take most of the
-  device time, with the leaf sweeps' share.
+  device time, with the leaf and triangle sweeps' share.
 
 Usage, from the repository root on a machine with a card::
 
     python3 tools/chip_canopy_sweep.py --lanes 19 20 21 22 --profile
+    python3 tools/chip_canopy_sweep.py --forms trees wood --profile
 
 The card's name and power limit are printed first. Needs a CUDA device.
 """
@@ -27,6 +31,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -38,8 +43,8 @@ SPP = chip_smoke.SPP_C5
 N_VZA = chip_smoke.N_VZA_C5
 
 
-def compiled(flat):
-    exp = chip_smoke._c5(flat)
+def compiled(form, mesh_dir):
+    exp = chip_smoke._c5(form, mesh_dir)
     m = exp.measures[0]
     return exp.compile_canopy_scene(m, exp.spectral_context(m))
 
@@ -47,10 +52,10 @@ def compiled(flat):
 def render(scene, lanes_target=None, spp=None, seed=chip_smoke.SEED):
     from eradiate_tpu_torch.ops import tracer_canopy
 
-    s, sensor, config, leaf_params, leaves, _, _ = scene
+    s, sensor, config, leaf_params, leaves, tris, tri_params = scene
     return tracer_canopy.render_canopy(
         s, leaf_params, leaves, sensor, config, spp=SPP if spp is None else spp, seed=seed,
-        device="cuda", lanes_target=lanes_target,
+        tris=tris, tri_params=tri_params, device="cuda", lanes_target=lanes_target,
     )
 
 
@@ -100,9 +105,12 @@ def profile(form, scene):
     print(f"profile ({form}): wall {wall:.4f} s under the profiler, {iterations} iterations, "
           f"{len(kernels)} CUDA kernels ({len(kernels) / iterations:.0f} per iteration), device "
           f"time {total_ms:.2f} ms, busy share {total_ms / (1e3 * wall):.3f}", flush=True)
-    leaf_ms = sum(t for name, (t, _) in by_name.items()
-                  if "nearest_kernel" in name or "occluded_kernel" in name) / 1e3
-    print(f"  leaf sweeps: {leaf_ms:.2f} ms, {leaf_ms / total_ms:.3f} of device time", flush=True)
+    sweeps = {name: t for name, (t, _) in by_name.items()
+              if "nearest_kernel" in name or "occluded_kernel" in name}
+    for what in ("leaf", "triangle"):
+        # the triangle kernels are tri_nearest_kernel and tri_occluded_kernel
+        ms = sum(t for name, t in sweeps.items() if ("tri_" in name) == (what == "triangle")) / 1e3
+        print(f"  {what} sweeps: {ms:.2f} ms, {ms / total_ms:.3f} of device time", flush=True)
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {t / 1e3:9.2f} ms  {t / 1e3 / total_ms:6.3f}  x{n:<6d} {name[:110]}", flush=True)
 
@@ -112,7 +120,7 @@ def main(argv=None):
     parser.add_argument("--lanes", type=int, nargs="*", default=[],
                         help="lane-count targets as exponents of 2")
     parser.add_argument("--forms", nargs="*", default=["instanced", "flat"],
-                        choices=["instanced", "flat"])
+                        choices=["instanced", "flat", "trees", "wood"])
     parser.add_argument("--profile", action="store_true")
     args = parser.parse_args(argv)
 
@@ -128,13 +136,14 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip(), flush=True)
-    for form in args.forms:
-        scene = compiled(form == "flat")
-        render(scene, spp=4096, seed=0)  # builds the kernels, warms the allocator
-        if args.lanes:
-            sweep(form, scene, args.lanes)
-        if args.profile:
-            profile(form, scene)
+    with tempfile.TemporaryDirectory() as mesh_dir:
+        for form in args.forms:
+            scene = compiled(form, mesh_dir)
+            render(scene, spp=4096, seed=0)  # builds the kernels, warms the allocator
+            if args.lanes:
+                sweep(form, scene, args.lanes)
+            if args.profile:
+                profile(form, scene)
     return 0
 
 

@@ -73,6 +73,7 @@ MODULES = [
     "scenes/integrators/__init__.py",
     "scenes/measure/__init__.py",
     "scenes/phase/__init__.py",
+    "scenes/shapes/__init__.py",
     "scenes/spectra/__init__.py",
     "scenes/surface/__init__.py",
     "spectral/__init__.py",
@@ -189,12 +190,6 @@ WORDING = {r"spectral d[r]iver": "spectral loop"}  # a regular expression
 
 #: path -> {lazy import line (stripped): feature named by the error}
 NOT_PORTED = {
-    "scenes/biosphere/__init__.py": {
-        "from ...ops.mesh import cylinder_mesh":
-            "tree trunks (triangle meshes, ray_tris kernels)",
-        "from ..shapes import FileMeshShape":
-            "mesh tree elements (triangle meshes, ray_tris kernels)",
-    },
     "scenes/phase/__init__.py": {
         "from ...ops.phase_ops import tab_phase_tables, theta_grid_params":
             "tabulated phase functions",
