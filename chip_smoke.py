@@ -86,9 +86,15 @@ script writes as an OBJ file into a temporary directory from a seed
     the soup of ``c5_wood`` with the three kinds of rays clipped to the
     mesh's box (plain versions on 2^18 and 2^16 seeded lanes), a ragged
     lane count, rays beside the box, and rays aimed at shared edges and
-    vertices of the skeleton's closed cylinders from 0.5-3 cm and from
-    0.5-3 m; then the instanced kernels on the skeleton as canonical soup
-    (N = 6180, I = 15) against the flat kernels on its 92700 triangles;
+    vertices of the skeleton's closed cylinders from 0.5-3 m and from
+    50-300 m; for the flat kernels, which traverse a bounding volume
+    hierarchy (its host build's time and depth printed, and the leaves a
+    ray reaches), also rays with direction components exactly +-0 through
+    the planes of box faces, and exact ties of the hit distance inside one
+    512-triangle chunk and across two, placed so that the traversal meets
+    the higher chunk first; then the instanced kernels on the skeleton as
+    canonical soup (N = 6180, I = 15) against the flat kernels on its 92700
+    triangles;
 17. the port on CUDA against the port on the CPU, ``c5_trees`` and
     ``c5_wood`` (the latter with a 12-branch skeleton, 4860 triangles: the
     CPU's dense sweep of 92700 would take minutes) at 19 view zeniths and
@@ -101,7 +107,9 @@ script writes as an OBJ file into a temporary directory from a seed
 It prints a ``{"kernels": [...]}`` line (each kernel with its launches on its
 main path, its error against the plain version, its time, the plain
 version's, the lane counts of both, its bound on this card and what bounds
-it) and the ``nvidia-smi`` line before the last line, ``{"ok": true,
+it; a sweep's bound counts the exact tests at item granularity, so that it
+is the same whatever cull implements the sweep) and the ``nvidia-smi`` line
+before the last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
 exits non-zero and prints no result. It imports neither ``jax`` nor
 ``eradiate_tpu`` and checks so at its end.
@@ -607,8 +615,9 @@ def _canopy_inputs(exp, B, seed, miss=False, device="cuda"):
     """Sweep operands for ``B`` lanes of a form of the c5 scene (the rays of
     :func:`_canopy_rays`, clipped to the box of the leaves and to the box of
     the triangles, as the tracer does): returns ``(leaves, leaf spheres, leaf
-    rays, tris, triangle spheres, triangle rays)``, the last three None for a
-    canopy without triangles."""
+    rays, tris, triangle cull operand, triangle rays)``, the last three None
+    for a canopy without triangles; the cull operand is ``tri_accel``'s (the
+    hierarchy of a flat soup, the spheres of an instanced one)."""
     from eradiate_tpu_torch.ops.canopy import leaf_spheres
     from eradiate_tpu_torch.ops.mesh import tri_accel
     from eradiate_tpu_torch.ops.scene_state import canopy_from_reference
@@ -623,8 +632,8 @@ def _canopy_inputs(exp, B, seed, miss=False, device="cuda"):
     out = (leaves, spheres, _clipped(rays, lo, hi, device))
     if tris is None:
         return (*out, None, None, None)
-    tri_spheres, tri_lo, tri_hi = tri_accel(tris)
-    return (*out, tris, tri_spheres, _clipped(rays, tri_lo, tri_hi, device))
+    tri_cull, tri_lo, tri_hi = tri_accel(tris)
+    return (*out, tris, tri_cull, _clipped(rays, tri_lo, tri_hi, device))
 
 
 def _rim_inputs(instanced, B, seed, device="cuda"):
@@ -671,12 +680,13 @@ def _edge_inputs(instanced, B, seed, far, device="cuda"):
     """A stress of the triangle kernels' exact test and culls: the wood
     skeleton (closed cylinders, 6180 triangles, at three offsets when
     ``instanced``) and rays aimed at its shared edges, at its vertices, at
-    interior points and just beside edges, from 0.5-3 cm away (``far``: from
-    0.5-3 m, 100x farther), with caps that end on, just before and just
-    behind the target. Returns ``(tris, spheres, (p, d, t_cap))``."""
+    interior points and just beside edges, from 0.5-3 m away (``far``: from
+    50-300 m, 100x farther), with caps that end on, just before and just
+    behind the target. Returns ``(tris, cull operand, (p, d, t_cap))``: the
+    group spheres of the instanced kernels or the flat ones' hierarchy."""
     import torch
 
-    from eradiate_tpu_torch.kernels.tri_intersect import tri_sweep_spheres
+    from eradiate_tpu_torch.kernels.tri_intersect import tri_bvh, tri_sweep_spheres
     from eradiate_tpu_torch.ops.mesh import (
         InstancedTriArrays,
         TriangleMeshArrays,
@@ -690,15 +700,45 @@ def _edge_inputs(instanced, B, seed, far, device="cuda"):
     rays = edge_rays(np.random.default_rng(seed), B, soup, offsets, 1e-3 if far else 1e-5)
     to_dev = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
     tris = TriangleMeshArrays(to_dev(soup.v0), to_dev(soup.e1), to_dev(soup.e2))
-    spheres = tri_sweep_spheres(tris.v0, tris.e1, tris.e2)
     if instanced:
+        cull = tri_sweep_spheres(tris.v0, tris.e1, tris.e2)
         tris = InstancedTriArrays(tris, to_dev(offsets))
-    return tris, spheres, tuple(to_dev(a) for a in rays)
+    else:
+        cull = tri_bvh(tris.v0, tris.e1, tris.e2)
+    return tris, cull, tuple(to_dev(a) for a in rays)
 
 
-def _sweep_calls(geometry, spheres, rays):
+def _flat_stress_inputs(kind, B, seed, device="cuda"):
+    """Stresses of the flat kernels' hierarchy. ``"ties"``: the soup of
+    ``test_tools.meshes.tie_soup`` (600 triangles with scaled copies and
+    exact duplicates inside one 512-triangle chunk and across two, the copy
+    at the higher index and with the larger box, so that the traversal meets
+    it first) and rays at the originals; ``"axes near"``/``"axes far"``: the
+    wood skeleton and rays of ``axis_rays`` from 0.5-3 m or 50-300 m, with
+    direction components exactly +-0 and the zero components of the origin
+    on the planes of vertices. Returns ``(tris, hierarchy, (p, d, t_cap))``."""
+    import torch
+
+    from eradiate_tpu_torch.kernels.tri_intersect import tri_bvh
+    from eradiate_tpu_torch.ops.mesh import TriangleMeshArrays, mesh_from_vertices
+    from eradiate_tpu_torch.test_tools.meshes import axis_rays, tie_soup, wood_skeleton
+
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        arrays, rays = tie_soup(rng, B)
+    else:
+        v, f = wood_skeleton(np.random.default_rng(7), n_branches=WOOD_BRANCHES)
+        soup = mesh_from_vertices((v * 1e-3).astype(np.float32), f)
+        arrays = (soup.v0, soup.e1, soup.e2)
+        rays = axis_rays(rng, B, soup, 1e-3 if kind.endswith("far") else 1e-5)
+    to_dev = lambda a: torch.tensor(np.ascontiguousarray(a, np.float32), device=device)  # noqa: E731
+    tris = TriangleMeshArrays(*(to_dev(a) for a in arrays))
+    return tris, tri_bvh(tris.v0, tris.e1, tris.e2), tuple(to_dev(a) for a in rays)
+
+
+def _sweep_calls(geometry, cull, rays):
     """{kernel: (wrapper, plain version, arguments)} for one leaf set or one
-    triangle soup, flat or instanced."""
+    triangle soup, flat or instanced; ``cull`` is the kernels' cull operand."""
     from eradiate_tpu_torch.kernels import leaf_intersect as li
     from eradiate_tpu_torch.kernels import tri_intersect as ti
 
@@ -712,7 +752,7 @@ def _sweep_calls(geometry, spheres, rays):
     if hasattr(geometry, "canonical"):
         args, suffix = (*args, geometry.offsets), "_instanced"
     return {
-        n: ((lambda a, fn=getattr(mod, n): fn(*a, spheres)), getattr(mod, n + "_plain"), args)
+        n: ((lambda a, fn=getattr(mod, n): fn(*a, cull)), getattr(mod, n + "_plain"), args)
         for n in (f"{stem}_nearest{suffix}", f"{stem}_occluded{suffix}")
     }
 
@@ -732,29 +772,78 @@ def _sliced(plain, args, lanes):
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def _reach_pairs(rays, cap, occluded, offsets, spheres):
-    """Exact tests this data needs at the kernels' cull granularity: for each
-    ray the groups (of leaves or triangles) whose sphere its segment (up to
-    ``cap``) reaches, over all instances; an occluded shadow ray needs one
-    group."""
+def _item_pairs(geometry, rays, cap, occluded, subset, lanes=512):
+    """The exact tests this data needs at item granularity, whatever cull
+    implements the sweep: a (ray, item) pair counts where the ray's segment
+    ``p + t d``, t in [0, cap], reaches both the item's own bounding sphere
+    and its axis-aligned box (a triangle: the sphere about its box's centre
+    through its farthest vertex; a disk: centre and radius), over all
+    instances; an occluded shadow ray counts one test. Counted on the lanes
+    ``subset`` (all where None) in slices of ``lanes``, and scaled to all of
+    ``rays``. Splitting triangles into several references can go below
+    it."""
     import torch
 
-    p, d, _ = rays
+    base = geometry.canonical if hasattr(geometry, "canonical") else geometry
+    offsets = geometry.offsets if hasattr(geometry, "canonical") else None
+    if hasattr(base, "centers"):
+        c, r = base.centers, base.radii
+        half = r[:, None] * torch.sqrt(torch.clamp(1.0 - base.normals**2, min=0.0))
+        lo, hi, r2 = c - half, c + half, r * r
+    else:
+        verts = torch.stack([base.v0, base.v0 + base.e1, base.v0 + base.e2], dim=1)
+        lo, hi = verts.min(dim=1).values, verts.max(dim=1).values
+        c = 0.5 * (lo + hi)
+        r2 = ((verts - c[:, None]) ** 2).sum(-1).max(dim=1).values
+    p, d = rays[0], rays[1]
+    if subset is not None:
+        p, d, cap = p[subset], d[subset], cap[subset]
+        occluded = None if occluded is None else occluded[subset]
     if offsets is None:
         offsets = p.new_zeros((1, 3))
-    pairs = torch.zeros(p.shape[0], dtype=torch.int64, device=p.device)
-    for off in offsets:
-        for g in spheres[1:]:
-            v = g[:3] - (p - off)
-            tc = torch.minimum(torch.clamp((v * d).sum(-1), min=0.0), cap)
-            e = v - d * tc[:, None]
-            pairs += (e * e).sum(-1) <= g[3]
-    if occluded is not None:
-        pairs = torch.where(occluded, torch.clamp(pairs, max=1), pairs)
-    return int(pairs.sum())
+    inv = 1.0 / d
+    total = 0
+    for start in range(0, p.shape[0], lanes):
+        sl = slice(start, start + lanes)
+        dd, ii, cc = d[sl, None], inv[sl, None], cap[sl, None]
+        neg = ii < 0
+        count = torch.zeros(dd.shape[0], dtype=torch.int64, device=p.device)
+        for off in offsets:
+            q = (p[sl] - off)[:, None]
+            v = c[None] - q
+            tc = torch.minimum(torch.clamp((v * dd).sum(-1), min=0.0), cc)
+            e = v - dd * tc[..., None]
+            sphere = (e * e).sum(-1) <= r2[None]
+            a, b = (lo[None] - q) * ii, (hi[None] - q) * ii
+            near, far = torch.where(neg, b, a), torch.where(neg, a, b)
+            t_near = torch.fmax(torch.fmax(torch.fmax(near[..., 0], near[..., 1]),
+                                           near[..., 2]), torch.zeros_like(cc))
+            t_far = torch.fmin(torch.fmin(torch.fmin(far[..., 0], far[..., 1]), far[..., 2]), cc)
+            count += (sphere & (t_near <= t_far)).sum(-1)
+        if occluded is not None:
+            count = torch.where(occluded[sl], torch.clamp(count, max=1), count)
+        total += int(count.sum())
+    return total * rays[0].shape[0] / p.shape[0]
 
 
-def check_sweep_kernels(name, geometry, spheres, rays, seed, timed=False,
+def _leaves_reached(bvh, rays, caps, subset, lanes=256):
+    """Mean leaves of a hierarchy whose box the flat kernels' cull reaches,
+    per ray of ``subset``, for each cap of ``caps``."""
+    import torch
+
+    from eradiate_tpu_torch.kernels import tri_intersect as ti
+
+    p, d = rays[0][subset], rays[1][subset]
+    lo, hi = (torch.from_numpy(x).to(p.device) for x in ti.bvh_leaves(bvh)[2:])
+    sums = [0] * len(caps)
+    for start in range(0, p.shape[0], lanes):
+        sl = slice(start, start + lanes)
+        for k, cap in enumerate(caps):
+            sums[k] += int(ti._box_reach(p[sl], d[sl], cap[subset][sl], lo, hi).sum())
+    return [n / p.shape[0] for n in sums]
+
+
+def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
                         plain_lanes=PLAIN_LANES):
     """The two sweep kernels (nearest and any hit) of one leaf set or one
     triangle soup, flat or instanced, against their plain versions on the
@@ -765,20 +854,21 @@ def check_sweep_kernels(name, geometry, spheres, rays, seed, timed=False,
     (kernel ms, plain ms, lanes, plain lanes)}, {kernel: (bound ms, bound
     by)}).
 
-    The bound: rays read once (28 bytes a lane), the table and its spheres
-    read once, the outputs written once (17 bytes a lane for nearest, 1 for
-    any hit); the exact tests the data needs (:func:`_reach_pairs` groups of
-    up to 128 leaves at ~30 float32 operations a disk test, or of up to 64
-    triangles at ~45 a Moller-Trumbore test)."""
+    The bound: rays read once (28 bytes a lane), the table read once, the
+    outputs written once (17 bytes a lane for nearest, 1 for any hit); the
+    exact tests the data needs at item granularity (:func:`_item_pairs` on
+    the plain version's lanes, scaled to all lanes), ~30 float32 operations
+    a disk test and ~45 a Moller-Trumbore test. For the flat triangle
+    kernels, the leaves of their hierarchy that a ray reaches are printed
+    too, with the cap at the nearest hit and at ``t_max``."""
     import torch
 
-    from eradiate_tpu_torch.kernels import leaf_intersect as li
     from eradiate_tpu_torch.kernels import tri_intersect as ti
 
     base = geometry.canonical if hasattr(geometry, "canonical") else geometry
     offsets = geometry.offsets if hasattr(geometry, "canonical") else None
     is_leaves = hasattr(base, "centers")
-    group_ops = 30.0 * li.GROUP if is_leaves else 45.0 * ti.GROUP
+    item_ops = 30.0 if is_leaves else 45.0
     n_items = (base.centers if is_leaves else base.v0).shape[0]
     slice_lanes = 2**17 if is_leaves else 2**15  # [lanes, 512(, 3)] float64 temporaries
     B = rays[0].shape[0]
@@ -787,8 +877,9 @@ def check_sweep_kernels(name, geometry, spheres, rays, seed, timed=False,
         chosen = np.sort(np.random.default_rng(seed).choice(B, plain_lanes, replace=False))
         subset = torch.tensor(chosen, device=rays[0].device)
     n_plain = B if subset is None else plain_lanes
+    table = (base.centers, base.normals, base.radii) if is_leaves else (base.v0, base.e1, base.e2)
     errs, times, bounds, notes = {}, {}, {}, []
-    for kernel, (fn, plain, args) in _sweep_calls(geometry, spheres, rays).items():
+    for kernel, (fn, plain, args) in _sweep_calls(geometry, cull, rays).items():
         got = fn(args)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -821,15 +912,22 @@ def check_sweep_kernels(name, geometry, spheres, rays, seed, timed=False,
         notes.append(f"{kernel} {'hit' if len(got) == 3 else 'occluded'} share {share:.3f}")
         if timed:
             times[kernel] = (_time_ms(lambda: fn(args)), start.elapsed_time(end), B, n_plain)
-            tensors = tuple(args) + (spheres,) + got
+            tensors = tuple(rays) + table + (() if offsets is None else (offsets,)) + got
             n_bytes = sum(t.numel() * t.element_size() for t in tensors)
             cap, occ = (got[0], None) if len(got) == 3 else (rays[2], got[0])
-            pairs = _reach_pairs(rays, cap, occ, offsets, spheres)
-            bounds[kernel] = bound_ms(n_bytes, group_ops * pairs)
+            pairs = _item_pairs(geometry, rays, cap, occ, subset)
+            bounds[kernel] = bound_ms(n_bytes, item_ops * pairs)
             notes[-1] += (f", kernel {times[kernel][0]:.4f} ms, plain "
                           f"{times[kernel][1]:.1f} ms at {n_plain} lanes, {pairs / B:.2f} "
-                          f"groups a ray, bound {bounds[kernel][0]:.4f} ms by "
-                          f"{bounds[kernel][1]}")
+                          f"exact tests a ray at item granularity, bound "
+                          f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
+            if isinstance(cull, ti.TriBVH) and len(got) == 3:
+                lanes = subset if subset is not None else torch.arange(B, device=rays[0].device)
+                at_hit, at_max = _leaves_reached(cull, rays, (got[0], rays[2]), lanes)
+                notes[-1] += (f"; the hierarchy's leaves a ray reaches: {at_hit:.2f} with the "
+                              f"cap at the nearest hit, {at_max:.2f} with t_max ("
+                              f"{base.v0.shape[0] / ti.bvh_leaves(cull)[0].size:.2f} "
+                              f"triangles a leaf)")
     held_on = "every lane" if subset is None else f"{n_plain} seeded lanes"
     print(f"  {name}: B={B} N={n_items}"
           + (f" I={offsets.shape[0]}" if offsets is not None else "")
@@ -869,7 +967,7 @@ def instanced_against_flat(exp, B, seed, mesh_dir):
     )
     from eradiate_tpu_torch.scenes.shapes import FileMeshShape
 
-    *_, flat, flat_spheres, rays = _canopy_inputs(exp, B, seed)
+    *_, flat, flat_bvh, rays = _canopy_inputs(exp, B, seed)
     v, f = FileMeshShape(filename=_wood_obj(mesh_dir), mesh_units="m").triangles()
     soup = mesh_from_vertices(v.astype(np.float32), f)
     to_dev = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
@@ -877,7 +975,7 @@ def instanced_against_flat(exp, B, seed, mesh_dir):
     offsets = to_dev(np.atleast_2d(exp.canopy.instanced_canopy_elements[1].instance_positions))
     inst = InstancedTriArrays(canonical, offsets)
     spheres = ti.tri_sweep_spheres(canonical.v0, canonical.e1, canonical.e2)
-    flat_calls = _sweep_calls(flat, flat_spheres, rays)
+    flat_calls = _sweep_calls(flat, flat_bvh, rays)
     inst_calls = _sweep_calls(inst, spheres, rays)
     times, notes = {}, []
     for (k_flat, (fn_f, _, a_f)), (k_inst, (fn_i, _, a_i)) in zip(
@@ -1227,26 +1325,50 @@ def main():
         print("[16] triangle-sweep kernels against their plain versions", flush=True)
         for form, plain_lanes in (("trees", PLAIN_LANES), ("wood", 2**16)):
             exp = _c5(form, mesh_dir)
-            *_, tris, spheres, rays = _canopy_inputs(exp, B5, seed=30)
+            *_, tris, cull, rays = _canopy_inputs(exp, B5, seed=30)
+            if form == "wood":
+                from eradiate_tpu_torch.kernels.tri_intersect import bvh_leaves, tri_bvh
+
+                t0 = time.perf_counter()
+                again = tri_bvh(tris.v0, tris.e1, tris.e2)
+                build_s = time.perf_counter() - t0
+                same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+                           for x, y in ((again.nodes, cull.nodes), (again.tris, cull.tris)))
+                print(f"  c5_wood hierarchy: N={tris.v0.shape[0]} built on the host in "
+                      f"{build_s:.3f} s, depth {cull.depth}, {cull.nodes.shape[0]} inner "
+                      f"nodes, {bvh_leaves(cull)[0].size} leaves, "
+                      f"{(cull.nodes.numel() + cull.tris.numel()) * 4 / 2**20:.2f} MiB; "
+                      f"rebuilt bitwise equal: {same}", flush=True)
+                if not same:
+                    raise AssertionError("two builds of the hierarchy differ")
             errs, times, bounds = check_sweep_kernels(
-                f"c5_{form}, the path's lane count", tris, spheres, rays, seed=30,
+                f"c5_{form}, the path's lane count", tris, cull, rays, seed=30,
                 timed=True, plain_lanes=plain_lanes,
             )
             sweep_times.update(times)
             sweep_bounds.update(bounds)
             for label, B, miss in ((f"c5_{form}, ragged", 50_021, False),
                                    (f"c5_{form}, rays beside the box", 2**15, True)):
-                *_, tris, spheres, rays = _canopy_inputs(exp, B, seed=31, miss=miss)
-                more, _, _ = check_sweep_kernels(label, tris, spheres, rays, seed=31)
+                *_, tris, cull, rays = _canopy_inputs(exp, B, seed=31, miss=miss)
+                more, _, _ = check_sweep_kernels(label, tris, cull, rays, seed=31)
                 errs = {k: max(v, more[k]) for k, v in errs.items()}
             for far in (False, True):
-                tris, spheres, rays = _edge_inputs(form == "trees", 100_037, seed=32, far=far)
+                tris, cull, rays = _edge_inputs(form == "trees", 100_037, seed=32, far=far)
                 more, _, _ = check_sweep_kernels(
                     f"wood skeleton {'instanced' if form == 'trees' else 'flat'}, rays at "
-                    f"edges and vertices from {'0.5-3 m' if far else '0.5-3 cm'}",
-                    tris, spheres, rays, seed=32,
+                    f"edges and vertices from {'50-300 m' if far else '0.5-3 m'}",
+                    tris, cull, rays, seed=32,
                 )
                 errs = {k: max(v, more[k]) for k, v in errs.items()}
+            if form == "wood":
+                for kind, label in (("ties", "tie soup, exact ties inside a chunk and across"),
+                                    ("axes near", "wood skeleton flat, zero direction "
+                                     "components, from 0.5-3 m"),
+                                    ("axes far", "wood skeleton flat, zero direction "
+                                     "components, from 50-300 m")):
+                    tris, cull, rays = _flat_stress_inputs(kind, 100_037, seed=33)
+                    more, _, _ = check_sweep_kernels(label, tris, cull, rays, seed=33)
+                    errs = {k: max(v, more[k]) for k, v in errs.items()}
             sweep_errs.update(errs)
         skeleton_ms = instanced_against_flat(_c5("wood", mesh_dir), B5, 30, mesh_dir)
 

@@ -27,32 +27,66 @@
 // is not renormalised); across chunks and instances the first wins. Misses
 // keep t = t_max and the normal (0, 0, 1). The TPU kernels tie within
 // 1024-triangle blocks and normalise with rsqrt; this follows the XLA form.
+// The tie rule is written so that it does not depend on the order in which
+// triangles are visited: a hit replaces the best when its t is smaller, or
+// equal with a lower chunk; it adds its normal when t and chunk are equal.
 //
-// Design: one thread per ray, 128 rays per block. Triangles come in groups of
-// 64 consecutive triangles, each with a bounding sphere over its vertices
+// Flat soups (ray_tris_nearest, ray_tris_occluded): one thread per ray, 128
+// rays per block, no shared memory and no block-wide barrier. Each thread
+// walks a binary bounding volume hierarchy that the host builds once per
+// render (kernels/tri_intersect.py tri_bvh: binned SAH, at most kLeaf
+// triangles a leaf, each triangle referenced once) with a while-while loop
+// and a stack of kStack entries in local memory. A node is four float4 (the
+// layout of Aila and Laine 2009: both children's boxes, then their codes); a
+// leaf's triangles are three float4 each (v0 with the original index's bits,
+// e1, e2), loaded with __ldg. The nearest hit visits the nearer child first
+// and culls boxes against its running best t; the any hit stops at its first
+// hit. The Morton lane sort of the tracer keeps a warp's rays together.
+//
+// Instanced soups: a sweep of sphere-culled groups. Triangles come in groups
+// of 64 consecutive triangles, each with a bounding sphere over its vertices
 // (spheres row 1 + g; row 0 bounds the whole soup and serves as the
 // per-instance sphere). A block stages a group in shared memory (9 floats per
 // triangle, 2.25 KB) when __syncthreads_or says any of its rays can reach the
 // group's sphere within its current cap; each thread tests only groups it
-// reaches itself. The nearest sweep keeps its best t as the running cap, so
-// later spheres cull against it; the any-hit sweep retires a ray at its first
-// hit. The cull is conservative: the sphere's radius^2 is inflated by 1e-4
-// relative and by a margin that scales with the magnitude of the coordinates,
-// and the segment is lengthened at both ends by 2e-3 of the distance to the
-// sphere, which covers the error of the computed t at grazing incidence
-// (|det| > 1e-12 admits cosines down to ~1e-4 for metre-sized triangles), so
-// no cull drops a triangle the dense sweep would hit. The group size does not
-// change the result. The library is built with -fmad=false; the fused
-// multiply-adds of the exact test are written out (__fmaf_rn) where the
-// reference has them and nowhere else, and the plain versions round the same
-// way, so kernels and plain versions agree bit for bit.
+// reaches itself.
 //
-// What bounds it on this card: the soup is at most a few MB and stays in L2,
-// each ray moves 28 bytes in and 17 (nearest) or 1 (any hit) out, and each
-// exact test is ~45 float32 operations with one division: the sweep is bound
-// by operations, and by how many groups the cull leaves (long thin branches
-// fill their spheres badly).
+// The culls are conservative. A triangle the exact test accepts is met by
+// the ray's line within delta, the rounding of tvec = p - v0 and of the
+// barycentric products (about kLineSlack times the coordinates' magnitude),
+// at a t that the test computes with a relative error of up to ~1e-3 at
+// grazing incidence (|det| > 1e-12 admits cosines down to ~1e-4 for
+// metre-sized triangles): so a sphere's segment is lengthened by kCapSlack
+// of the distance at both ends, and its radius^2 is inflated to cover R +
+// delta. A sliver (a 4.5 m by 2.3 cm branch side) seen at a grazing angle
+// multiplies both errors: its sharp corner where two edge tests round
+// outward together, and the computed t. On rays aimed at a wood skeleton's
+// edges and vertices from 50-300 m, the worst accepted (ray, triangle) pair
+// needed a box grown by 5 kLineSlack times the coordinates' magnitude, and
+// its hit came 9.4e-3 of the distance before the line entered the grown
+// box. So a box is grown by kBoxSlack = 50 kLineSlack, and its segment is
+// lengthened by kBoxCapSlack = 5e-2 of the distance. The nearest hit's cap
+// is its best t so far, so a triangle has to be reached with the cap at its
+// own t, not only at t_max. A box test takes the near and far planes
+// by the sign of 1 / d: a direction component of +-0 gives +-inf, an origin
+// on a grown face of such an axis gives 0 * inf = NaN, and fmaxf/fminf drop
+// it, so the axis bounds nothing (NaN counts as reached). The box test is
+// monotone under containment and a parent's box is the exact union of its
+// children's, so a leaf that is reached has every ancestor reached. No cull
+// drops a triangle the dense sweep would hit, and neither the grouping nor
+// the visit order changes the result. The library is built with
+// -fmad=false; the fused multiply-adds of the exact test are written out
+// (__fmaf_rn) where the reference has them and nowhere else, and the plain
+// versions round the same way, so kernels and plain versions agree bit for
+// bit.
+//
+// What bounds it on this card: the soup and its hierarchy are a few MB and
+// stay in L2, each ray moves 28 bytes in and 17 (nearest) or 1 (any hit) out,
+// and each exact test is ~45 float32 operations with one division, each box
+// test ~45 more: the sweep is bound by operations, and by how many exact
+// tests the cull leaves (a sliver of a thin branch fills its box badly).
 
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
@@ -60,11 +94,19 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kGroup = 64;    // triangles per bounding sphere (GROUP)
 constexpr int kChunk = 512;   // triangles per tie-averaging chunk (CHUNK)
+constexpr int kLeaf = 4;      // most triangles per leaf (LEAF)
+constexpr int kLeafBits = 3;  // leaf code ~(first << 3 | count)
+constexpr int kStack = 64;    // traversal stack entries (STACK)
+constexpr int kDone = INT_MIN;      // no node left; no leaf has this code
+constexpr int kNoChunk = INT_MAX;   // no hit yet
 constexpr float kEpsT = 1e-7f;
 constexpr float kDetMin = 1e-12f;
 constexpr float kCullSlack = 1.0001f;
 constexpr float kLineSlack = 2e-6f;  // ~32 float32 ulp of the coordinates
-constexpr float kCapSlack = 2e-3f;   // of the distance to the sphere
+constexpr float kBoxSlack = 1e-4f;   // a box's growth, of the coordinates (BOX_SLACK)
+constexpr float kCapSlack = 2e-3f;   // of the distance to a sphere
+constexpr float kBoxCapSlack = 5e-2f;  // of the distance to a box (CAP_SLACK)
+static_assert(kLeaf < (1 << kLeafBits), "a leaf's count must fit its code");
 
 __device__ __forceinline__ float fma_rn(float a, float b, float c) {
   return __fmaf_rn(a, b, c);
@@ -85,21 +127,246 @@ __device__ __forceinline__ Ray make_ray(float px, float py, float pz, float dx,
   return Ray{px, py, pz, dx, dy, dz, fabsf(px) + fabsf(py) + fabsf(pz)};
 }
 
+// One triangle: v0, e1 (a), e2 (b).
+struct Tri {
+  float v0x, v0y, v0z, ax, ay, az, bx, by, bz;
+};
+
+// Moller-Trumbore distance of the ray to triangle q, or a negative number
+// where it misses (t_max is the strict upper gate).
+__device__ __forceinline__ float tri_hit(const Ray& r, float t_max, const Tri& q) {
+  const float pvx = fma_rn(r.dy, q.bz, -(r.dz * q.by));
+  const float pvy = fma_rn(r.dz, q.bx, -(r.dx * q.bz));
+  const float pvz = fma_rn(r.dx, q.by, -(r.dy * q.bx));
+  const float det = dot3(q.ax, q.ay, q.az, pvx, pvy, pvz);
+  if (!(fabsf(det) > kDetMin)) return -1.0f;
+  const float inv = 1.0f / det;
+  const float tvx = r.px - q.v0x, tvy = r.py - q.v0y, tvz = r.pz - q.v0z;
+  const float u = ((tvx * pvx + tvy * pvy) + tvz * pvz) * inv;
+  if (!(u >= 0.0f)) return -1.0f;
+  const float qvx = fma_rn(tvy, q.az, -(tvz * q.ay));
+  const float qvy = fma_rn(tvz, q.ax, -(tvx * q.az));
+  const float qvz = fma_rn(tvx, q.ay, -(tvy * q.ax));
+  const float v = dot3(r.dx, r.dy, r.dz, qvx, qvy, qvz) * inv;
+  if (!(v >= 0.0f) || !(u + v <= 1.0f)) return -1.0f;
+  const float t = dot3(q.bx, q.by, q.bz, qvx, qvy, qvz) * inv;
+  return (t > kEpsT && t < t_max) ? t : -1.0f;
+}
+
+// Unit geometric normal of triangle q.
+__device__ __forceinline__ void tri_normal(const Tri& q, float& nx, float& ny,
+                                           float& nz) {
+  const float cx = fma_rn(q.ay, q.bz, -(q.az * q.by));
+  const float cy = fma_rn(q.az, q.bx, -(q.ax * q.bz));
+  const float cz = fma_rn(q.ax, q.by, -(q.ay * q.bx));
+  const float norm = fmaxf(sqrtf(dot3(cx, cy, cz, cx, cy, cz)), 1e-12f);
+  nx = cx / norm;
+  ny = cy / norm;
+  nz = cz / norm;
+}
+
+// Running nearest hit with the reference's tie rule, in a form that does not
+// depend on the order of the visits.
+struct Best {
+  float t;            // running cap: t_max until a hit is found
+  double sx, sy, sz;  // sum of the tied triangles' unit normals
+  int count;          // tied triangles summed (0: no hit)
+  int chunk;          // (instance, 512-triangle chunk) id of the winner
+
+  // Take the result t of tri_hit (negative: no hit) of triangle q.
+  __device__ __forceinline__ void take(float th, int ch, const Tri& q) {
+    if (th < 0.0f) return;
+    const bool tie = th == t;
+    if (th < t || (tie && ch < chunk)) {
+      float nx, ny, nz;
+      tri_normal(q, nx, ny, nz);
+      t = th;
+      // summed into zero, as the reference's masked sum: -0.0 becomes +0.0
+      sx = 0.0 + nx; sy = 0.0 + ny; sz = 0.0 + nz;
+      count = 1;
+      chunk = ch;
+    } else if (tie && ch == chunk) {
+      float nx, ny, nz;
+      tri_normal(q, nx, ny, nz);
+      sx += nx; sy += ny; sz += nz;
+      count += 1;
+    }
+  }
+};
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ p,
+                                        const float* __restrict__ d, int b) {
+  return make_ray(p[3 * b], p[3 * b + 1], p[3 * b + 2], d[3 * b], d[3 * b + 1],
+                  d[3 * b + 2]);
+}
+
+__device__ __forceinline__ void store_nearest(const Best& best, float tm, int b,
+                                              float* __restrict__ t_hit,
+                                              float* __restrict__ normal,
+                                              bool* __restrict__ hit) {
+  const bool found = best.count > 0;
+  const float cnt = static_cast<float>(max(best.count, 1));
+  t_hit[b] = found ? best.t : tm;
+  normal[3 * b] = found ? static_cast<float>(best.sx) / cnt : 0.0f;
+  normal[3 * b + 1] = found ? static_cast<float>(best.sy) / cnt : 0.0f;
+  normal[3 * b + 2] = found ? static_cast<float>(best.sz) / cnt : 1.0f;
+  hit[b] = found;
+}
+
+// ---------------------------------------------------------------------------
+// Flat soups: the hierarchy's traversal.
+
+// Per-ray constants of the box test.
+struct Slab {
+  float ix, iy, iz;  // 1 / d: +-inf where a component is +-0
+  bool nx, ny, nz;   // 1 / d < 0: the near plane is the box's upper face
+};
+
+__device__ __forceinline__ Slab make_slab(const Ray& r) {
+  Slab s;
+  s.ix = 1.0f / r.dx;
+  s.iy = 1.0f / r.dy;
+  s.iz = 1.0f / r.dz;
+  s.nx = s.ix < 0.0f;
+  s.ny = s.iy < 0.0f;
+  s.nz = s.iz < 0.0f;
+  return s;
+}
+
+// Can the segment p + t d, t in [-slack, cap + slack], reach the box grown by
+// delta (see the header)? dist bounds the L1 distance from p to any point of
+// the box. Sets t_near, the entry distance, for the visit order.
+__device__ __forceinline__ bool box_reach(const Ray& r, const Slab& s, float cap,
+                                          float lox, float hix, float loy, float hiy,
+                                          float loz, float hiz, float& t_near) {
+  const float ax = lox - r.px, bx = hix - r.px;
+  const float ay = loy - r.py, by = hiy - r.py;
+  const float az = loz - r.pz, bz = hiz - r.pz;
+  const float dist = (fmaxf(-ax, bx) + fmaxf(-ay, by)) + fmaxf(-az, bz);
+  const float delta = kBoxSlack * (dist + r.l1);
+  const float slack = kBoxCapSlack * dist + 1e-6f;
+  const float gax = ax - delta, gbx = bx + delta;
+  const float gay = ay - delta, gby = by + delta;
+  const float gaz = az - delta, gbz = bz + delta;
+  const float nx = (s.nx ? gbx : gax) * s.ix, fx = (s.nx ? gax : gbx) * s.ix;
+  const float ny = (s.ny ? gby : gay) * s.iy, fy = (s.ny ? gay : gby) * s.iy;
+  const float nz = (s.nz ? gbz : gaz) * s.iz, fz = (s.nz ? gaz : gbz) * s.iz;
+  t_near = fmaxf(fmaxf(fmaxf(nx, ny), nz), -slack);
+  const float t_far = fminf(fminf(fminf(fx, fy), fz), cap + slack);
+  return t_near <= t_far;
+}
+
+// One step at inner node `node`: the next node to visit (a reached child,
+// the nearer first with the other pushed, or the top of the stack), or kDone.
+__device__ __forceinline__ int descend(const Ray& r, const Slab& s, float cap,
+                                       const float4* __restrict__ nodes, int node,
+                                       int* stack, int& sp) {
+  const float4 n0 = __ldg(nodes + 4 * node);
+  const float4 n1 = __ldg(nodes + 4 * node + 1);
+  const float4 n2 = __ldg(nodes + 4 * node + 2);
+  const float4 n3 = __ldg(nodes + 4 * node + 3);
+  float t0, t1;
+  const bool r0 = box_reach(r, s, cap, n0.x, n0.y, n0.z, n0.w, n2.x, n2.y, t0);
+  const bool r1 = box_reach(r, s, cap, n1.x, n1.y, n1.z, n1.w, n2.z, n2.w, t1);
+  const int c0 = __float_as_int(n3.x), c1 = __float_as_int(n3.y);
+  if (r0 && r1) {
+    const bool swap = t1 < t0;
+    stack[sp++] = swap ? c0 : c1;
+    return swap ? c1 : c0;
+  }
+  if (r0) return c0;
+  if (r1) return c1;
+  return sp > 0 ? stack[--sp] : kDone;
+}
+
+__device__ __forceinline__ Tri load_tri(const float4* __restrict__ tris, int k,
+                                        int& index) {
+  const float4 a = __ldg(tris + 3 * k);
+  const float4 e = __ldg(tris + 3 * k + 1);
+  const float4 f = __ldg(tris + 3 * k + 2);
+  index = __float_as_int(a.w);
+  return Tri{a.x, a.y, a.z, e.x, e.y, e.z, f.x, f.y, f.z};
+}
+
+__global__ void __launch_bounds__(kThreads)
+bvh_nearest_kernel(const float* __restrict__ p, const float* __restrict__ d,
+                   const float* __restrict__ t_max, const float4* __restrict__ nodes,
+                   const float4* __restrict__ tris, float* __restrict__ t_hit,
+                   float* __restrict__ normal, bool* __restrict__ hit, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Ray r = load_ray(p, d, b);
+  const float tm = t_max[b];
+  Best best{tm, 0.0, 0.0, 1.0, 0, kNoChunk};
+  // no t satisfies 1e-7 < t < t_max below this: the lane visits nothing
+  if (tm > kEpsT) {
+    const Slab s = make_slab(r);
+    int stack[kStack];
+    int sp = 0;
+    int node = 0;  // the root is an inner node
+    for (;;) {
+      while (node >= 0) node = descend(r, s, best.t, nodes, node, stack, sp);
+      if (node == kDone) break;
+      const int leaf = ~node;
+      const int first = leaf >> kLeafBits, end = first + (leaf & ((1 << kLeafBits) - 1));
+      for (int k = first; k < end; ++k) {
+        int index;
+        const Tri q = load_tri(tris, k, index);
+        best.take(tri_hit(r, tm, q), index / kChunk, q);
+      }
+      node = sp > 0 ? stack[--sp] : kDone;
+    }
+  }
+  store_nearest(best, tm, b, t_hit, normal, hit);
+}
+
+__global__ void __launch_bounds__(kThreads)
+bvh_occluded_kernel(const float* __restrict__ p, const float* __restrict__ d,
+                    const float* __restrict__ t_max, const float4* __restrict__ nodes,
+                    const float4* __restrict__ tris, bool* __restrict__ occ, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Ray r = load_ray(p, d, b);
+  const float tm = t_max[b];
+  bool occluded = false;
+  if (tm > kEpsT) {
+    const Slab s = make_slab(r);
+    int stack[kStack];
+    int sp = 0;
+    int node = 0;
+    while (!occluded) {
+      while (node >= 0) node = descend(r, s, tm, nodes, node, stack, sp);
+      if (node == kDone) break;
+      const int leaf = ~node;
+      const int first = leaf >> kLeafBits, end = first + (leaf & ((1 << kLeafBits) - 1));
+      for (int k = first; k < end && !occluded; ++k) {
+        int index;
+        occluded = tri_hit(r, tm, load_tri(tris, k, index)) >= 0.0f;
+      }
+      node = sp > 0 ? stack[--sp] : kDone;
+    }
+  }
+  occ[b] = occluded;
+}
+
+// ---------------------------------------------------------------------------
+// Instanced soups: the sphere-culled staged sweep.
+
 // One staged group: SoA rows v0x v0y v0z e1x e1y e1z e2x e2y e2z.
 struct Group {
   float v[9][kGroup];
 };
 
+__device__ __forceinline__ Tri staged(const Group& g, int k) {
+  return Tri{g.v[0][k], g.v[1][k], g.v[2][k], g.v[3][k], g.v[4][k],
+             g.v[5][k], g.v[6][k], g.v[7][k], g.v[8][k]};
+}
+
 // Can the segment p + t d, t in [0, cap], reach the sphere (conservative)?
-// A triangle the exact test accepts is met by the ray's line within delta,
-// the rounding of tvec = p - v0 and of the barycentric products (about
-// kLineSlack times the coordinates' magnitude), at a t that the test
-// computes with a relative error of up to ~1e-3 at grazing incidence: so the
-// segment is lengthened by kCapSlack of the distance at both ends, and a
-// sphere of radius R + delta has to be reached; since 2 R delta <= 0.5e-4
-// R^2 + 2e4 delta^2, half of the relative slack on R^2 plus 2e4 delta^2
-// covers it, and the other half the float32 rounding of the sphere itself.
-// Directions are unit vectors.
+// See the header; since 2 R delta <= 0.5e-4 R^2 + 2e4 delta^2, half of the
+// relative slack on R^2 plus 2e4 delta^2 covers a radius of R + delta, and
+// the other half the float32 rounding of the sphere itself. Directions are
+// unit vectors.
 __device__ __forceinline__ bool sphere_cull(const Ray& r, float cap,
                                             const float* __restrict__ s) {
   const float vx = s[0] - r.px, vy = s[1] - r.py, vz = s[2] - r.pz;
@@ -110,44 +377,6 @@ __device__ __forceinline__ bool sphere_cull(const Ray& r, float cap,
   const float ex = vx - r.dx * tc, ey = vy - r.dy * tc, ez = vz - r.dz * tc;
   const float delta = kLineSlack * (v1 + r.l1);
   return ex * ex + ey * ey + ez * ez <= s[3] * kCullSlack + 2.0001e4f * (delta * delta);
-}
-
-// Moller-Trumbore distance of the ray to staged triangle k, or a negative
-// number where it misses (t_max is the strict upper gate).
-__device__ __forceinline__ float tri_hit(const Ray& r, float t_max, const Group& g,
-                                         int k) {
-  const float ax = g.v[3][k], ay = g.v[4][k], az = g.v[5][k];
-  const float bx = g.v[6][k], by = g.v[7][k], bz = g.v[8][k];
-  const float pvx = fma_rn(r.dy, bz, -(r.dz * by));
-  const float pvy = fma_rn(r.dz, bx, -(r.dx * bz));
-  const float pvz = fma_rn(r.dx, by, -(r.dy * bx));
-  const float det = dot3(ax, ay, az, pvx, pvy, pvz);
-  if (!(fabsf(det) > kDetMin)) return -1.0f;
-  const float inv = 1.0f / det;
-  const float tvx = r.px - g.v[0][k], tvy = r.py - g.v[1][k], tvz = r.pz - g.v[2][k];
-  const float u = ((tvx * pvx + tvy * pvy) + tvz * pvz) * inv;
-  if (!(u >= 0.0f)) return -1.0f;
-  const float qvx = fma_rn(tvy, az, -(tvz * ay));
-  const float qvy = fma_rn(tvz, ax, -(tvx * az));
-  const float qvz = fma_rn(tvx, ay, -(tvy * ax));
-  const float v = dot3(r.dx, r.dy, r.dz, qvx, qvy, qvz) * inv;
-  if (!(v >= 0.0f) || !(u + v <= 1.0f)) return -1.0f;
-  const float t = dot3(bx, by, bz, qvx, qvy, qvz) * inv;
-  return (t > kEpsT && t < t_max) ? t : -1.0f;
-}
-
-// Unit geometric normal of staged triangle k.
-__device__ __forceinline__ void tri_normal(const Group& g, int k, float& nx,
-                                           float& ny, float& nz) {
-  const float ax = g.v[3][k], ay = g.v[4][k], az = g.v[5][k];
-  const float bx = g.v[6][k], by = g.v[7][k], bz = g.v[8][k];
-  const float cx = fma_rn(ay, bz, -(az * by));
-  const float cy = fma_rn(az, bx, -(ax * bz));
-  const float cz = fma_rn(ax, by, -(ay * bx));
-  const float norm = fmaxf(sqrtf(dot3(cx, cy, cz, cx, cy, cz)), 1e-12f);
-  nx = cx / norm;
-  ny = cy / norm;
-  nz = cz / norm;
 }
 
 __device__ __forceinline__ void stage_group(Group& g, const float* __restrict__ v0,
@@ -162,18 +391,11 @@ __device__ __forceinline__ void stage_group(Group& g, const float* __restrict__ 
   }
 }
 
-// Running nearest hit with the reference's tie rule.
-struct Best {
-  float t;            // running cap: t_max until a hit is found
-  double sx, sy, sz;  // sum of the tied triangles' unit normals
-  int count;          // tied triangles summed
-  int chunk;          // (instance, 512-triangle chunk) id of the winner, -1 = none
-};
-
-// Sweep one soup (one instance frame) for the nearest hit. Every thread of
+// Sweep one instance frame of the soup for the nearest hit. Every thread of
 // the block calls this together; `active` threads take part in the tests.
-__device__ __forceinline__ void sweep_nearest(const Ray& r, bool active, Best& best,
-                                              Group& g, const float* __restrict__ v0,
+__device__ __forceinline__ void sweep_nearest(const Ray& r, float tm, bool active,
+                                              Best& best, Group& g,
+                                              const float* __restrict__ v0,
                                               const float* __restrict__ e1,
                                               const float* __restrict__ e2,
                                               const float* __restrict__ spheres, int N,
@@ -189,32 +411,16 @@ __device__ __forceinline__ void sweep_nearest(const Ray& r, bool active, Best& b
     if (reach) {
       const int chunk = chunk_base + first / kChunk;
       for (int k = 0; k < count; ++k) {
-        // best.t is the gate: t_max until a hit is found, the winner's t
-        // after; a triangle wins with a strictly smaller t and ties only
-        // inside the winner's chunk
-        const float t = tri_hit(r, 3.0e38f, g, k);
-        if (t < 0.0f) continue;
-        if (t < best.t) {
-          float nx, ny, nz;
-          tri_normal(g, k, nx, ny, nz);
-          best.t = t;
-          // summed into zero, as the reference's masked sum: -0.0 becomes +0.0
-          best.sx = 0.0 + nx; best.sy = 0.0 + ny; best.sz = 0.0 + nz;
-          best.count = 1;
-          best.chunk = chunk;
-        } else if (t == best.t && chunk == best.chunk) {
-          float nx, ny, nz;
-          tri_normal(g, k, nx, ny, nz);
-          best.sx += nx; best.sy += ny; best.sz += nz;
-          best.count += 1;
-        }
+        const Tri q = staged(g, k);
+        best.take(tri_hit(r, tm, q), chunk, q);
       }
     }
     __syncthreads();
   }
 }
 
-// Sweep one soup for any hit; returns with `occluded` set where found.
+// Sweep one instance frame for any hit; returns with `occluded` set where
+// found.
 __device__ __forceinline__ void sweep_occluded(const Ray& r, float t_max, bool active,
                                                bool& occluded, Group& g,
                                                const float* __restrict__ v0,
@@ -233,7 +439,7 @@ __device__ __forceinline__ void sweep_occluded(const Ray& r, float t_max, bool a
     __syncthreads();
     if (reach) {
       for (int k = 0; k < count; ++k) {
-        if (tri_hit(r, t_max, g, k) >= 0.0f) {
+        if (tri_hit(r, t_max, staged(g, k)) >= 0.0f) {
           occluded = true;
           break;
         }
@@ -241,12 +447,6 @@ __device__ __forceinline__ void sweep_occluded(const Ray& r, float t_max, bool a
     }
     __syncthreads();
   }
-}
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ p,
-                                        const float* __restrict__ d, int b) {
-  return make_ray(p[3 * b], p[3 * b + 1], p[3 * b + 2], d[3 * b], d[3 * b + 1],
-                  d[3 * b + 2]);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -263,29 +463,16 @@ tri_nearest_kernel(const float* __restrict__ p, const float* __restrict__ d,
   const float tm = in_range ? t_max[b] : 0.0f;
   // no t satisfies 1e-7 < t < t_max below this: the lane sweeps nothing
   const bool active = in_range && tm > kEpsT;
-  Best best{tm, 0.0, 0.0, 1.0, 0, -1};
+  Best best{tm, 0.0, 0.0, 1.0, 0, kNoChunk};
   const int chunks = (N + kChunk - 1) / kChunk;
-
-  if (offsets == nullptr) {
-    sweep_nearest(r0, active, best, g, v0, e1, e2, spheres, N, 0);
-  } else {
-    for (int i = 0; i < I; ++i) {
-      const Ray r = make_ray(r0.px - offsets[3 * i], r0.py - offsets[3 * i + 1],
-                             r0.pz - offsets[3 * i + 2], r0.dx, r0.dy, r0.dz);
-      const bool reach = active && sphere_cull(r, best.t, spheres);
-      if (!__syncthreads_or(reach)) continue;
-      sweep_nearest(r, reach, best, g, v0, e1, e2, spheres, N, i * chunks);
-    }
+  for (int i = 0; i < I; ++i) {
+    const Ray r = make_ray(r0.px - offsets[3 * i], r0.py - offsets[3 * i + 1],
+                           r0.pz - offsets[3 * i + 2], r0.dx, r0.dy, r0.dz);
+    const bool reach = active && sphere_cull(r, best.t, spheres);
+    if (!__syncthreads_or(reach)) continue;
+    sweep_nearest(r, tm, reach, best, g, v0, e1, e2, spheres, N, i * chunks);
   }
-  if (in_range) {
-    const bool found = best.chunk >= 0;
-    const float cnt = static_cast<float>(max(best.count, 1));
-    t_hit[b] = found ? best.t : tm;
-    normal[3 * b] = found ? static_cast<float>(best.sx) / cnt : 0.0f;
-    normal[3 * b + 1] = found ? static_cast<float>(best.sy) / cnt : 0.0f;
-    normal[3 * b + 2] = found ? static_cast<float>(best.sz) / cnt : 1.0f;
-    hit[b] = found;
-  }
+  if (in_range) store_nearest(best, tm, b, t_hit, normal, hit);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -302,75 +489,56 @@ tri_occluded_kernel(const float* __restrict__ p, const float* __restrict__ d,
   const float tm = in_range ? t_max[b] : 0.0f;
   const bool active = in_range && tm > kEpsT;
   bool occluded = false;
-
-  if (offsets == nullptr) {
-    sweep_occluded(r0, tm, active, occluded, g, v0, e1, e2, spheres, N);
-  } else {
-    for (int i = 0; i < I; ++i) {
-      const Ray r = make_ray(r0.px - offsets[3 * i], r0.py - offsets[3 * i + 1],
-                             r0.pz - offsets[3 * i + 2], r0.dx, r0.dy, r0.dz);
-      const bool reach = active && !occluded && sphere_cull(r, tm, spheres);
-      if (!__syncthreads_or(reach)) continue;
-      sweep_occluded(r, tm, reach, occluded, g, v0, e1, e2, spheres, N);
-    }
+  for (int i = 0; i < I; ++i) {
+    const Ray r = make_ray(r0.px - offsets[3 * i], r0.py - offsets[3 * i + 1],
+                           r0.pz - offsets[3 * i + 2], r0.dx, r0.dy, r0.dz);
+    const bool reach = active && !occluded && sphere_cull(r, tm, spheres);
+    if (!__syncthreads_or(reach)) continue;
+    sweep_occluded(r, tm, reach, occluded, g, v0, e1, e2, spheres, N);
   }
   if (in_range) occ[b] = occluded;
 }
 
-int launch_nearest(const float* p, const float* d, const float* t_max, const float* v0,
-                   const float* e1, const float* e2, const float* spheres,
-                   const float* offsets, float* t_hit, float* normal, bool* hit, int B,
-                   int N, int I, void* stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  tri_nearest_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, d, t_max, v0, e1, e2, spheres, offsets, t_hit, normal, hit, B, N, I);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int launch_occluded(const float* p, const float* d, const float* t_max, const float* v0,
-                    const float* e1, const float* e2, const float* spheres,
-                    const float* offsets, bool* occ, int B, int N, int I,
-                    void* stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  tri_occluded_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, d, t_max, v0, e1, e2, spheres, offsets, occ, B, N, I);
-  return static_cast<int>(cudaGetLastError());
-}
+int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
 
 }  // namespace
 
-// Launch on `stream`; return cudaGetLastError() (0 = launched).
+// Launch on `stream`; return cudaGetLastError() (0 = launched). `nodes` and
+// `tris` are tri_bvh's arrays (16-byte aligned).
 extern "C" int ray_tris_nearest_launch(const float* p, const float* d,
-                                       const float* t_max, const float* v0,
-                                       const float* e1, const float* e2,
-                                       const float* spheres, float* t_hit,
-                                       float* normal, bool* hit, int B, int N,
-                                       void* stream) {
-  return launch_nearest(p, d, t_max, v0, e1, e2, spheres, nullptr, t_hit, normal, hit,
-                        B, N, 1, stream);
+                                       const float* t_max, const float* nodes,
+                                       const float* tris, float* t_hit, float* normal,
+                                       bool* hit, int B, void* stream) {
+  bvh_nearest_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(tris), t_hit, normal, hit, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ray_tris_occluded_launch(const float* p, const float* d,
-                                        const float* t_max, const float* v0,
-                                        const float* e1, const float* e2,
-                                        const float* spheres, bool* occ, int B, int N,
+                                        const float* t_max, const float* nodes,
+                                        const float* tris, bool* occ, int B,
                                         void* stream) {
-  return launch_occluded(p, d, t_max, v0, e1, e2, spheres, nullptr, occ, B, N, 1,
-                         stream);
+  bvh_occluded_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(tris), occ, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ray_tris_nearest_instanced_launch(
     const float* p, const float* d, const float* t_max, const float* v0,
     const float* e1, const float* e2, const float* spheres, const float* offsets,
     float* t_hit, float* normal, bool* hit, int B, int N, int I, void* stream) {
-  return launch_nearest(p, d, t_max, v0, e1, e2, spheres, offsets, t_hit, normal, hit,
-                        B, N, I, stream);
+  tri_nearest_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, v0, e1, e2, spheres, offsets, t_hit, normal, hit, B, N, I);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ray_tris_occluded_instanced_launch(
     const float* p, const float* d, const float* t_max, const float* v0,
     const float* e1, const float* e2, const float* spheres, const float* offsets,
     bool* occ, int B, int N, int I, void* stream) {
-  return launch_occluded(p, d, t_max, v0, e1, e2, spheres, offsets, occ, B, N, I,
-                         stream);
+  tri_occluded_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, v0, e1, e2, spheres, offsets, occ, B, N, I);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -27,6 +27,7 @@ from ..kernels.tri_intersect import (
     ray_tris_nearest_instanced,
     ray_tris_occluded,
     ray_tris_occluded_instanced,
+    tri_bvh,
     tri_sweep_spheres,
 )
 from .canopy import _advance_to_aabb
@@ -71,13 +72,16 @@ def mesh_from_vertices(vertices, faces) -> TriangleMeshArrays:
 
 
 def tri_accel(tris):
-    """Acceleration data for the triangle sweeps: ``(spheres, box_lo,
-    box_hi)``. ``spheres`` is the kernels' cull operand
-    (:func:`~eradiate_tpu_torch.kernels.tri_intersect.tri_sweep_spheres` of
-    the flat soup or of the canonical one) on CUDA and None on the CPU,
-    where the dense sweeps use none; the box is the vertices' (plus the
-    offsets' for instances). Compute once per render, outside the path
-    loop, and pass to every :func:`tri_nearest`/:func:`tri_occluded`."""
+    """Acceleration data for the triangle sweeps: ``(cull, box_lo,
+    box_hi)``. ``cull`` is the kernels' cull operand on CUDA, built here:
+    the bounding volume hierarchy of a flat soup
+    (:func:`~eradiate_tpu_torch.kernels.tri_intersect.tri_bvh`, on the host)
+    or the group spheres of an instanced one's canonical soup
+    (:func:`~eradiate_tpu_torch.kernels.tri_intersect.tri_sweep_spheres`);
+    None on the CPU, where the dense sweeps use none and nothing is built.
+    The box is the vertices' (plus the offsets' for instances). Compute once
+    per render, outside the path loop, and pass to every
+    :func:`tri_nearest`/:func:`tri_occluded`."""
     instanced = isinstance(tris, InstancedTriArrays)
     base = tris.canonical if instanced else tris
     verts = torch.cat([base.v0, base.v0 + base.e1, base.v0 + base.e2])
@@ -88,35 +92,37 @@ def tri_accel(tris):
         hi = hi + tris.offsets.max(dim=0).values
     if base.v0.device.type == "cpu":
         return None, lo, hi
-    return tri_sweep_spheres(base.v0, base.e1, base.e2), lo, hi
+    if instanced:
+        return tri_sweep_spheres(base.v0, base.e1, base.e2), lo, hi
+    return tri_bvh(base.v0, base.e1, base.e2), lo, hi
 
 
 def tri_nearest(p, d, t_max, tris, accel=None):
     """Nearest triangle hit of rays ``p + t d``, t in (0, t_max):
     box-advanced origins, then the sweep (flat or instanced). Returns
     ``(t [B], normal [B, 3], hit [B])``; misses keep ``t = t_max``."""
-    spheres, lo, hi = accel if accel is not None else tri_accel(tris)
+    cull, lo, hi = accel if accel is not None else tri_accel(tris)
     p_adv, t0, t_cap = _advance_to_aabb(p, d, t_max, lo, hi)
     if isinstance(tris, InstancedTriArrays):
         c = tris.canonical
         t_loc, n, hit = ray_tris_nearest_instanced(
-            p_adv, d, t_cap, c.v0, c.e1, c.e2, tris.offsets, spheres
+            p_adv, d, t_cap, c.v0, c.e1, c.e2, tris.offsets, cull
         )
     else:
-        t_loc, n, hit = ray_tris_nearest(p_adv, d, t_cap, tris.v0, tris.e1, tris.e2, spheres)
+        t_loc, n, hit = ray_tris_nearest(p_adv, d, t_cap, tris.v0, tris.e1, tris.e2, cull)
     return torch.where(hit, t0 + t_loc, t_max), n, hit
 
 
 def tri_occluded(p, d, t_max, tris, accel=None):
     """Shadow-ray any-hit with the box advance; returns bool [B]."""
-    spheres, lo, hi = accel if accel is not None else tri_accel(tris)
+    cull, lo, hi = accel if accel is not None else tri_accel(tris)
     p_adv, _, t_cap = _advance_to_aabb(p, d, t_max, lo, hi)
     if isinstance(tris, InstancedTriArrays):
         c = tris.canonical
         return ray_tris_occluded_instanced(
-            p_adv, d, t_cap, c.v0, c.e1, c.e2, tris.offsets, spheres
+            p_adv, d, t_cap, c.v0, c.e1, c.e2, tris.offsets, cull
         )
-    return ray_tris_occluded(p_adv, d, t_cap, tris.v0, tris.e1, tris.e2, spheres)
+    return ray_tris_occluded(p_adv, d, t_cap, tris.v0, tris.e1, tris.e2, cull)
 
 
 # ---------------------------------------------------------------------------

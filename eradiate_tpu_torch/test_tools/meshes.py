@@ -4,7 +4,9 @@
 with straight branches, from a seeded generator; :func:`write_obj` writes it
 as a Wavefront OBJ file that ``scenes.shapes.load_obj`` reads back exactly;
 :func:`edge_rays` aims rays at the shared edges and vertices of a mesh, where
-the last bit of the intersection test decides.
+the last bit of the intersection test decides; :func:`axis_rays` does so with
+direction components that are exactly zero; :func:`tie_soup` makes exact ties
+of the hit distance between triangles of one chunk and of two.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import numpy as np
 
 from ..ops.mesh import cylinder_mesh
 
-__all__ = ["wood_skeleton", "write_obj", "edge_rays"]
+__all__ = ["wood_skeleton", "write_obj", "edge_rays", "axis_rays", "tie_soup"]
 
 
 def _along(vertices, direction):
@@ -57,14 +59,10 @@ def write_obj(path, vertices, faces):
             fh.write(f"f {f[0]} {f[1]} {f[2]}\n")
 
 
-def edge_rays(rng, B, tris, offsets=None, distance=1e-5):
-    """``B`` rays aimed at a mesh (``tris.v0``, ``.e1``, ``.e2`` as numpy
-    arrays, km): a quarter each at points of an edge, at vertices, at
-    interior points and just beside an edge (1e-6 of the triangle off it),
-    of triangles drawn at random, in one of the instance frames ``offsets``
-    [I, 3] if given. Origins lie ``distance`` x (50..300) back along a
-    random direction; the caps are twice, exactly, just above and just below
-    the distance to the target. Returns float32 ``(p, d, t_max)``."""
+def _targets(rng, B, tris, offsets=None):
+    """``B`` float64 points of a mesh: a quarter each on an edge, at a
+    vertex, inside, and just beside an edge (1e-6 of the triangle off it),
+    of triangles drawn at random, in one of the frames ``offsets``."""
     v0, e1, e2 = (np.asarray(x, dtype=np.float64) for x in (tris.v0, tris.e1, tris.e2))
     k = rng.integers(0, v0.shape[0], B)
     kind = rng.integers(0, 4, B)
@@ -77,11 +75,97 @@ def edge_rays(rng, B, tris, offsets=None, distance=1e-5):
     target = v0[k] + (a / s)[:, None] * e1[k] + (b / s)[:, None] * e2[k]
     if offsets is not None:
         target = target + np.asarray(offsets)[rng.integers(0, len(offsets), B)]
+    return target
+
+
+def _caps(rng, dist):
+    """Caps twice, exactly, just above and just below the distance."""
+    return dist * rng.choice([2.0, 1.0, 1 + 1e-6, 1 - 1e-6], dist.shape[0])
+
+
+def edge_rays(rng, B, tris, offsets=None, distance=1e-5):
+    """``B`` rays aimed at a mesh (``tris.v0``, ``.e1``, ``.e2`` as numpy
+    arrays, km): a quarter each at points of an edge, at vertices, at
+    interior points and just beside an edge (1e-6 of the triangle off it),
+    of triangles drawn at random, in one of the instance frames ``offsets``
+    [I, 3] if given. Origins lie ``distance`` x (50..300) back along a
+    random direction; the caps are twice, exactly, just above and just below
+    the distance to the target. Returns float32 ``(p, d, t_max)``."""
+    target = _targets(rng, B, tris, offsets)
     back = rng.normal(size=(B, 3))
     back /= np.linalg.norm(back, axis=1, keepdims=True)
     dist = rng.uniform(50.0, 300.0, B) * distance
     p = (target + back * dist[:, None]).astype(np.float32)
     d = target - p
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    t_max = dist * rng.choice([2.0, 1.0, 1 + 1e-6, 1 - 1e-6], B)
-    return p, d.astype(np.float32), t_max.astype(np.float32)
+    return p, d.astype(np.float32), _caps(rng, dist).astype(np.float32)
+
+
+def axis_rays(rng, B, tris, distance=1e-5):
+    """``B`` rays aimed at a mesh as :func:`edge_rays` aims them, with
+    direction components that are exactly +0 or -0 (the sun and the views of
+    an hplane at azimuth 0 have d_y = 0): two thirds travel in the x-z
+    plane, a third along an axis (two zero components). Each zero component
+    of the origin is the target's own coordinate, so a ray through a vertex
+    lies in the planes of its triangles' box faces. Returns float32 ``(p, d,
+    t_max)``."""
+    target = _targets(rng, B, tris)
+    angle = rng.uniform(0.0, 2.0 * np.pi, B)
+    d = np.stack([np.cos(angle), np.zeros(B), np.sin(angle)], axis=1)
+    along = np.eye(3)[rng.integers(0, 3, B)] * rng.choice([-1.0, 1.0], (B, 1))
+    d = np.where((rng.integers(0, 3, B) == 2)[:, None], along, d).astype(np.float32)
+    zero = d == 0.0
+    d = np.where(zero, np.copysign(np.float32(0.0), rng.choice([-1.0, 1.0], (B, 3))), d)
+    dist = rng.uniform(50.0, 300.0, B) * distance
+    p = (target - d * dist[:, None]).astype(np.float32)
+    p = np.where(zero, target.astype(np.float32), p)
+    return p, d.astype(np.float32), _caps(rng, dist).astype(np.float32)
+
+
+def tie_soup(rng, B, n=600):
+    """A soup of ``n`` random triangles (km) with exact ties of the hit
+    distance, and ``B`` rays that meet them. Copies scaled by two about
+    ``v0`` hit at the same ``t`` bit for bit (every product scales by a power
+    of two), and so do exact duplicates; each kind sits once inside the
+    first 512-triangle chunk and once across the chunk boundary, the copy at
+    the higher index (its box contains the original's, so a traversal
+    nearest-first meets it first), and one copy has the opposite winding.
+    Those tied triangles share their normal; two pairs of coplanar squares'
+    halves of opposite winding in the plane z = 0, one pair inside chunk 0
+    and one across the boundary, do not: rays straight down onto them
+    (dyadic coordinates, so the test is exact) average two opposite normals
+    inside the chunk, and must take the lower chunk's across. A fifth of the
+    rays go straight down; the rest aim at interior points of the other
+    originals from 5 cm. Returns float32 ``(v0, e1, e2)`` and ``(p, d,
+    t_max)``."""
+    v0 = rng.uniform(-0.02, 0.02, (n, 3)).astype(np.float32)
+    e1 = rng.normal(0, 2e-3, (n, 3)).astype(np.float32)
+    e2 = rng.normal(0, 2e-3, (n, 3)).astype(np.float32)
+    v0[1], e1[1], e2[1] = v0[0], 2 * e1[0], 2 * e2[0]  # scaled, inside chunk 0
+    v0[n - 1], e1[n - 1], e2[n - 1] = v0[2], 2 * e1[2], 2 * e2[2]  # scaled, across
+    v0[3], e1[3], e2[3] = v0[4], e2[4], e1[4]  # opposite winding
+    v0[7], e1[7], e2[7] = v0[5], e1[5], e2[5]  # duplicate inside chunk 0
+    v0[n - 2], e1[n - 2], e2[n - 2] = v0[6], e1[6], e2[6]  # duplicate across
+    side = np.float32(2.0**-7)
+    ex, ey = np.array([side, 0, 0], np.float32), np.array([0, side, 0], np.float32)
+    corners = {8: (2.0**-5, 2.0**-5), 9: (2.0**-5, 2.0**-5),  # inside chunk 0
+               10: (-(2.0**-5), 2.0**-5), n - 3: (-(2.0**-5), 2.0**-5)}  # across
+    for k, (x, y) in corners.items():
+        v0[k] = (x, y, 0.0)
+        e1[k], e2[k] = (ey, ex) if k in (8, 10) else (ex, ey)  # normals -z, +z
+    k = np.array([0, 1, 2, 3, 4, 5, 6, 7, n - 1, n - 2])[np.arange(B) % 10]
+    a, b = rng.uniform(0.05, 0.4, B), rng.uniform(0.05, 0.4, B)
+    target = v0[k] + a[:, None] * e1[k] + b[:, None] * e2[k]
+    back = rng.normal(size=(B, 3))
+    back /= np.linalg.norm(back, axis=1, keepdims=True)
+    p = (target + 0.05 * back).astype(np.float32)
+    d = target - p
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    down = np.arange(B) % 5 == 4
+    square = rng.choice([8, 10], B)
+    fx, fy = (np.floor(rng.uniform(1, 32, (2, B))) * 2.0**-13).astype(np.float32)
+    p[down, 0] = v0[square, 0][down] + fx[down]
+    p[down, 1] = v0[square, 1][down] + fy[down]
+    p[down, 2] = 2.0**-4
+    d[down] = (0.0, 0.0, -1.0)
+    return (v0, e1, e2), (p, d, np.full(B, 1.0, np.float32))

@@ -16,8 +16,12 @@ ragged lane count, from origins near the disks and from origins a hundred
 times farther away (where float32 rounding of the ray moves the hit point by
 a sizeable part of a disk, and the culls' margins have to grow with it).
 The triangle-sweep kernels are held the same way on a wood skeleton (closed
-cylinders) with rays aimed at shared edges and vertices, and the slant-depth
-kernel on points spread through the shells (steep, grazing and blocked rays).
+cylinders) with rays aimed at shared edges and vertices; the flat ones, which
+traverse a bounding volume hierarchy, also with direction components exactly
++-0 (origins on the planes of box faces) and on exact ties of the hit
+distance inside one 512-triangle chunk and across two (the tie rule must not
+depend on the traversal's order). The slant-depth kernel is held on points
+spread through the shells (steep, grazing and blocked rays).
 """
 
 import numpy as np
@@ -30,7 +34,7 @@ from eradiate_tpu_torch.kernels import tri_intersect as ti
 from eradiate_tpu_torch.ops.canopy import morton_order
 from eradiate_tpu_torch.ops.mesh import mesh_from_vertices
 from eradiate_tpu_torch.ops.spherical import TAU_BLOCKED
-from eradiate_tpu_torch.test_tools.meshes import edge_rays, wood_skeleton
+from eradiate_tpu_torch.test_tools.meshes import axis_rays, edge_rays, tie_soup, wood_skeleton
 
 pytestmark = pytest.mark.cuda
 
@@ -88,7 +92,7 @@ def test_leaf_kernel_equals_plain_version(card, name, B, far):
 
 def edge_problem(B, seed, instanced, far=False):
     """Rays aimed at edges, vertices and interiors of a 60-branch wood
-    skeleton (1476 triangles, km), from 0.5-3 cm (``far``: 0.5-3 m) away."""
+    skeleton (1476 triangles, km), from 0.5-3 m (``far``: 50-300 m) away."""
     rng = np.random.default_rng(seed)
     v, f = wood_skeleton(np.random.default_rng(7), n_branches=60)
     tris = mesh_from_vertices((v * 1e-3).astype(np.float32), f)
@@ -122,6 +126,40 @@ def test_tri_kernel_equals_plain_version(card, name, B, far):
     for g, w in zip(got, zip(*want)):
         assert torch.equal(g, torch.cat(w))
     assert got[-1].any() or B == 1
+
+
+def _held(name, args, slice_lanes=2**14):
+    """Launch ``name`` once and hold it against its plain version (in slices
+    of lanes: its [B, 512] float64 temporaries) on every lane."""
+    before = ti.launches[name]
+    got = getattr(ti, name)(*args)
+    torch.cuda.synchronize()
+    assert ti.launches[name] == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = []
+    for start in range(0, args[0].shape[0], slice_lanes):
+        sl = [a[start : start + slice_lanes] for a in args[:3]]
+        out = getattr(ti, name + "_plain")(*sl, *args[3:])
+        want.append(out if isinstance(out, tuple) else (out,))
+    for g, w in zip(got, zip(*want)):
+        assert torch.equal(g, torch.cat(w))
+    return got
+
+
+@pytest.mark.parametrize("name", ["ray_tris_nearest", "ray_tris_occluded"])
+@pytest.mark.parametrize("case", ["ties", "zero components near", "zero components far"])
+def test_flat_tri_kernel_stress(card, name, case):
+    rng = np.random.default_rng(9)
+    if case == "ties":
+        tris, rays = tie_soup(rng, 30_011)
+    else:
+        v, f = wood_skeleton(np.random.default_rng(7), n_branches=60)
+        soup = mesh_from_vertices((v * 1e-3).astype(np.float32), f)
+        tris = (soup.v0, soup.e1, soup.e2)
+        rays = axis_rays(rng, 100_037, soup, 1e-3 if case.endswith("far") else 1e-5)
+    args = [torch.tensor(np.ascontiguousarray(a), device=card) for a in (*rays, *tris)]
+    got = _held(name, args)
+    assert got[-1].any()
 
 
 @pytest.mark.parametrize("B", [1, 100_037])

@@ -12,7 +12,7 @@ tolerances:
   ``hit`` and ``occluded`` equal on every lane, ``t`` within 4 ulp, normals
   within 1e-6. The meshes are closed cylinders (a wood skeleton) and the rays
   are aimed at their shared edges, at vertices, at interior points and just
-  beside edges, from 0.5-3 cm and from 0.5-3 m, so that the last bit of the
+  beside edges, from 0.5-3 m and from 50-300 m, so that the last bit of the
   barycentric test decides; lanes with exact ties of ``t`` are counted;
 - against the Pallas kernels in interpret mode, on the inputs and with the
   tolerances of ``tests/unit/test_tri_intersect_pallas.py`` (``hit`` and
@@ -22,6 +22,8 @@ tolerances:
   ``t`` within 1e-4 relative where both hit);
 - ``mesh_from_vertices``, ``cylinder_mesh``, ``cone_mesh``, ``tri_accel``'s
   box and ``tri_block_spheres``: bitwise (the spheres within 1e-6 relative).
+  ``tri_accel`` builds no cull operand on the CPU; the flat kernels' hierarchy
+  is tested in ``tests/test_torch_tri_bvh.py``.
 
 The CUDA kernels run only on the card, where ``chip_smoke.py`` and
 ``tests/test_torch_cuda_kernels.py`` hold them against these plain versions.
@@ -287,12 +289,19 @@ def test_block_spheres(block_n):
 
 
 def test_sweep_spheres_operand():
+    """The cull operands: group spheres for the instanced kernels, the
+    hierarchy for the flat ones (``tests/test_torch_tri_bvh.py`` checks its
+    contents)."""
     soup = skeleton()
     spheres = ti.tri_sweep_spheres(*_t(soup.v0, soup.e1, soup.e2))
     assert spheres.shape == (1 + -(-516 // ti.GROUP), 4) and spheres.is_contiguous()
     verts = np.concatenate([soup.v0, soup.v0 + soup.e1, soup.v0 + soup.e2]).astype(np.float64)
     whole = spheres[0].numpy()
     assert (((verts - whole[:3]) ** 2).sum(-1) <= whole[3] * (1 + 1e-5)).all()
+    bvh = ti.tri_bvh(*_t(soup.v0, soup.e1, soup.e2))
+    assert bvh.tris.shape == (516, 12) and bvh.nodes.shape[1] == 16
+    assert bvh.nodes.is_contiguous() and bvh.tris.is_contiguous()
+    assert bvh.nodes.data_ptr() % 16 == 0 and bvh.tris.data_ptr() % 16 == 0
 
 
 def test_wrappers_run_the_plain_versions_on_cpu():
@@ -313,13 +322,18 @@ def test_wrappers_run_the_plain_versions_on_cpu():
 
 
 def _named(n_rays=16, n_tris=70, instances=None):
+    """Operands of an instanced launch (``instances``) or of a flat one, with
+    the hierarchy's arrays as ``nodes`` and ``tris``."""
     named = {
         "p": torch.zeros(n_rays, 3), "d": torch.zeros(n_rays, 3), "t_max": torch.zeros(n_rays),
         "v0": torch.zeros(n_tris, 3), "e1": torch.zeros(n_tris, 3), "e2": torch.zeros(n_tris, 3),
-        "spheres": torch.zeros(1 + -(-n_tris // ti.GROUP), 4),
     }
     if instances:
+        named["spheres"] = torch.zeros(1 + -(-n_tris // ti.GROUP), 4)
         named["offsets"] = torch.zeros(instances, 3)
+    else:
+        named["nodes"] = torch.zeros(max(n_tris // 2, 1), 16)
+        named["tris"] = torch.zeros(n_tris, 12)
     return named
 
 
@@ -327,15 +341,25 @@ def _named(n_rays=16, n_tris=70, instances=None):
     "kind, exc",
     [("dtype", TypeError), ("non-contiguous", ValueError), ("rays-shape", ValueError),
      ("tris-shape", ValueError), ("spheres-shape", ValueError), ("offsets-shape", ValueError),
-     ("no-triangle", ValueError), ("device", ValueError)],
+     ("no-triangle", ValueError), ("device", ValueError),
+     ("bvh-nodes-shape", ValueError), ("bvh-tris-shape", ValueError),
+     ("bvh-dtype", TypeError), ("bvh-device", ValueError), ("bvh-non-contiguous", ValueError),
+     ("bvh-too-deep", ValueError)],
 )
 def test_wrapper_rejects_bad_inputs(kind, exc):
-    def check(named):
-        return ti._check("ray_tris_nearest_instanced", named, named["p"].shape[0],
-                         named["v0"].shape[0], named.get("offsets"))
+    """The instanced kernels' checks, and (``bvh-``) the flat kernels' checks
+    of the hierarchy: its arrays' shape, dtype, device and contiguity, and a
+    tree deeper than the kernels' stack."""
+    flat = kind.startswith("bvh-")
+    depth = 5 if flat else None
 
-    check(_named(instances=3))  # the unmodified inputs pass
-    named = _named(instances=3)
+    def check(named):
+        name = "ray_tris_nearest" if flat else "ray_tris_nearest_instanced"
+        return ti._check(name, named, named["p"].shape[0], named["v0"].shape[0],
+                         named.get("offsets"), depth=depth)
+
+    check(_named(instances=None if flat else 3))  # the unmodified inputs pass
+    named = _named(instances=None if flat else 3)
     if kind == "dtype":
         named["e1"] = named["e1"].double()
     elif kind == "non-contiguous":
@@ -350,10 +374,32 @@ def test_wrapper_rejects_bad_inputs(kind, exc):
         named["offsets"] = torch.zeros(3, 2)
     elif kind == "no-triangle":
         named = _named(n_tris=0, instances=3)
-    else:
+    elif kind == "device":
         named["v0"] = named["v0"].to("meta")
+    elif kind == "bvh-nodes-shape":
+        named["nodes"] = torch.zeros(35, 12)
+    elif kind == "bvh-tris-shape":
+        named["tris"] = torch.zeros(69, 12)
+    elif kind == "bvh-dtype":
+        named["nodes"] = named["nodes"].double()
+    elif kind == "bvh-device":
+        named["tris"] = named["tris"].to("meta")
+    elif kind == "bvh-non-contiguous":
+        named["tris"] = torch.zeros(12, 70).T
+    else:
+        depth = ti.STACK + 1
     with pytest.raises(exc):
         check(named)
+
+
+def test_flat_wrappers_take_only_the_hierarchy():
+    """A flat launch with another cull operand (the spheres) raises before
+    it reaches the card."""
+    soup = skeleton()
+    tris = _t(soup.v0, soup.e1, soup.e2)
+    spheres = ti.tri_sweep_spheres(*tris)
+    with pytest.raises(TypeError):
+        ti._launch_flat("ray_tris_nearest", True, *_t(*problem(False, False)), *tris, spheres)
 
 
 def test_wrappers_reject_other_devices():
