@@ -38,7 +38,8 @@ script writes as an OBJ file into a temporary directory from a seed
    pixel within |z| <= 5 of the variances;
 5. c1 at full width: one warm-up run, then a timed run; the kernel's launch
    count over the timed run must equal its bounce iterations;
-6. the shell and triangle launchers in the library, and their ptxas reports;
+6. the shell, triangle and leaf launchers in the library, and their ptxas
+   reports;
 7. the shell-flight (K2), slant-depth (K4) and shell-event (K3) kernels
    against their plain twins on the card: the c4 column at c4's lane count,
    with the lanes of a real first event (rays from the top of the atmosphere
@@ -62,12 +63,20 @@ script writes as an OBJ file into a temporary directory from a seed
     kinds (from the top of the atmosphere toward the footprint, from inside
     a crown in random directions, shadow rays toward the sun), clipped to
     the canopy's box as the tracer clips them; a ragged lane count; rays
-    that miss the box; and, as a stress of the culls, random disks with rays
-    aimed at their rims. ``hit`` and ``occluded`` equal on every lane, ``t``
-    and normals bitwise, differing lanes counted and printed; each kernel
-    timed with CUDA events (median of 25) at the path's lane count, its plain
-    version once on a seeded subset of 2^18 of those lanes, in slices that
-    fit the card's memory;
+    that miss the box; and, as stresses of the culls, random disks with
+    rays aimed at their rims from 0.5-3 units and from 100x farther, and
+    disks whose normals have components of exactly +-0. The flat kernels
+    traverse a bounding volume hierarchy built on the host once per render
+    (its build time, depth, leaves and size printed, a rebuild held bit for
+    bit, and the leaves a ray reaches): they are also held on exact ties of
+    the hit distance inside one 512-disk chunk and across two (the copy
+    across with the larger box, so that the traversal meets the higher
+    chunk first), rays with direction components exactly +-0 along the
+    planes of the disks' box faces, and rays at grazing incidence. Every
+    output equal bit pattern for bit pattern on every lane, differing lanes
+    counted and printed; each kernel timed with CUDA events (median of 25)
+    at the path's lane count, its plain version once on a seeded subset of
+    2^18 of those lanes, in slices that fit the card's memory;
 12. the port on CUDA against the port on the CPU, the c5 scene at 19 view
     zeniths and 64 spp at one seed, instanced and flat: every pixel within
     |z| <= 5, the median pixel within 1e-4 relative;
@@ -614,11 +623,12 @@ def _clipped(rays, lo, hi, device="cuda"):
 def _canopy_inputs(exp, B, seed, miss=False, device="cuda"):
     """Sweep operands for ``B`` lanes of a form of the c5 scene (the rays of
     :func:`_canopy_rays`, clipped to the box of the leaves and to the box of
-    the triangles, as the tracer does): returns ``(leaves, leaf spheres, leaf
-    rays, tris, triangle cull operand, triangle rays)``, the last three None
-    for a canopy without triangles; the cull operand is ``tri_accel``'s (the
-    hierarchy of a flat soup, the spheres of an instanced one)."""
-    from eradiate_tpu_torch.ops.canopy import leaf_spheres
+    the triangles, as the tracer does): returns ``(leaves, leaf cull operand,
+    leaf rays, tris, triangle cull operand, triangle rays)``, the last three
+    None for a canopy without triangles; the cull operands are
+    ``leaf_accel``'s and ``tri_accel``'s (the hierarchy of a flat table or
+    soup, the spheres of an instanced one)."""
+    from eradiate_tpu_torch.ops.canopy import leaf_accel
     from eradiate_tpu_torch.ops.mesh import tri_accel
     from eradiate_tpu_torch.ops.scene_state import canopy_from_reference
 
@@ -627,53 +637,71 @@ def _canopy_inputs(exp, B, seed, miss=False, device="cuda"):
         m, exp.spectral_context(m)
     )
     leaves, _, tris, _ = canopy_from_reference(leaves, leaf_params, device, tris, tri_params)
-    spheres, lo, hi = leaf_spheres(leaves)
+    leaf_cull, lo, hi = leaf_accel(leaves)
     rays = _canopy_rays(exp, scene, sensor, lo.cpu().numpy(), hi.cpu().numpy(), B, seed, miss)
-    out = (leaves, spheres, _clipped(rays, lo, hi, device))
+    out = (leaves, leaf_cull, _clipped(rays, lo, hi, device))
     if tris is None:
         return (*out, None, None, None)
     tri_cull, tri_lo, tri_hi = tri_accel(tris)
     return (*out, tris, tri_cull, _clipped(rays, tri_lo, tri_hi, device))
 
 
-def _rim_inputs(instanced, B, seed, device="cuda"):
-    """A synthetic stress of the kernels' culls: 1000 random disks (radii 0.05
-    to 0.2 in a box of side 2, at three offsets when ``instanced``) and rays
-    aimed at points on, just inside and just outside their rims, with caps
-    that end on, just before and just behind the rim point. Returns
-    ``(leaves, spheres, (p, d, t_cap))``."""
+def _disk_inputs(table, rays, offsets=None):
+    """Leaves (flat, or instanced at ``offsets``), their kernels' cull
+    operand (the flat kernels' hierarchy, the instanced ones' spheres) and
+    the rays, on the card."""
     import torch
 
-    from eradiate_tpu_torch.kernels.leaf_intersect import sweep_spheres
-    from eradiate_tpu_torch.ops.canopy import (
-        InstancedLeafArrays,
-        LeafCloudArrays,
-        morton_order,
-    )
+    from eradiate_tpu_torch.kernels.leaf_intersect import leaf_bvh, sweep_spheres
+    from eradiate_tpu_torch.ops.canopy import InstancedLeafArrays, LeafCloudArrays
+
+    to_dev = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
+    cloud = LeafCloudArrays(*(to_dev(a) for a in table))
+    if offsets is None:
+        return cloud, leaf_bvh(cloud.centers, cloud.normals, cloud.radii), tuple(map(to_dev, rays))
+    spheres = sweep_spheres(cloud.centers, cloud.normals, cloud.radii)
+    return InstancedLeafArrays(cloud, to_dev(offsets)), spheres, tuple(map(to_dev, rays))
+
+
+def _rim_inputs(instanced, B, seed, far=False, zero_normals=False):
+    """A synthetic stress of the kernels' culls (``test_tools.disks``): 1000
+    random disks (radii 0.05 to 0.2 in a box of side 2, at three offsets
+    when ``instanced``; ``zero_normals``: every normal with components of
+    exactly +-0) and rays aimed at points on, just inside and just outside
+    their rims from 0.5-3 units (``far``: 100x farther), with caps that end
+    on, just before and just behind the rim point. Returns ``(leaves, cull
+    operand, (p, d, t_cap))``."""
+    from eradiate_tpu_torch.test_tools import disks
 
     rng = np.random.default_rng(seed)
-    N = 1000
-    c = rng.uniform(-1, 1, (N, 3))
-    c = c[morton_order(c)]
-    n = rng.normal(size=(N, 3))
-    n /= np.linalg.norm(n, axis=1, keepdims=True)
-    r = rng.uniform(0.05, 0.2, N)
-    offsets = np.array([[0.0, 0, 0], [5.0, 0, 0], [0, 7.0, 0]]) if instanced else np.zeros((1, 3))
-    leaf = rng.integers(0, N, B)
-    u = np.cross(n[leaf], rng.normal(size=(B, 3)))
-    u /= np.linalg.norm(u, axis=1, keepdims=True)
-    rim = c[leaf] + (r[leaf] * (1 + rng.choice([0.0, 1e-7, -1e-7, 1e-6, -1e-6, -0.5], B)))[:, None] * u
-    rim = rim + offsets[rng.integers(0, len(offsets), B)]
-    back = rng.normal(size=(B, 3))
-    back /= np.linalg.norm(back, axis=1, keepdims=True)
-    dist = rng.uniform(0.5, 3.0, B)
-    p = rim + back * dist[:, None]
-    t_max = dist * rng.choice([2.0, 1.0, 1 + 1e-7, 1 - 1e-7], B)
-    to_dev = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
-    cloud = LeafCloudArrays(to_dev(c), to_dev(n), to_dev(r))
-    leaves = InstancedLeafArrays(cloud, to_dev(offsets)) if instanced else cloud
-    spheres = sweep_spheres(cloud.centers, cloud.normals, cloud.radii)
-    return leaves, spheres, (to_dev(p), to_dev(-back), to_dev(t_max))
+    c, n, r = disks.random_disks(rng, 1000)
+    if zero_normals:
+        n = disks.zero_normal_disks(rng, n, share=1.0)
+    offsets = np.array([[0.0, 0, 0], [5.0, 0, 0], [0, 7.0, 0]]) if instanced else None
+    rays = disks.rim_rays(rng, B, c, n, r, offsets, 100.0 if far else 1.0)
+    return _disk_inputs((c, n, r), rays, offsets)
+
+
+def _leaf_stress_inputs(kind, B, seed):
+    """Stresses of the flat leaf kernels' hierarchy (``test_tools.disks``).
+    ``"ties"``: 600 disks with coincident copies of opposite normal inside
+    one 512-disk chunk and across two, the copy across with the larger box,
+    so that the traversal meets the higher chunk first, and rays at the
+    originals; ``"axes near"``/``"axes far"``: 1000 random disks and rays
+    with direction components exactly +-0 along the planes of the disks' box
+    faces, from 0.5-3 or 50-300 units; ``"grazing"``: rays that meet the
+    disks at 1e-2 to 1e-5 of a right angle. Returns ``(leaves, hierarchy,
+    (p, d, t_cap))``."""
+    from eradiate_tpu_torch.test_tools import disks
+
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        table, rays = disks.tie_disks(rng, B)
+    else:
+        table = disks.random_disks(rng, 1000)
+        make = disks.grazing_rays if kind == "grazing" else disks.axis_rays
+        rays = make(rng, B, *table, distance=100.0 if kind.endswith("far") else 1.0)
+    return _disk_inputs(table, rays)
 
 
 def _edge_inputs(instanced, B, seed, far, device="cuda"):
@@ -831,15 +859,15 @@ def _leaves_reached(bvh, rays, caps, subset, lanes=256):
     per ray of ``subset``, for each cap of ``caps``."""
     import torch
 
-    from eradiate_tpu_torch.kernels import tri_intersect as ti
+    from eradiate_tpu_torch.kernels import bvh as hierarchy
 
     p, d = rays[0][subset], rays[1][subset]
-    lo, hi = (torch.from_numpy(x).to(p.device) for x in ti.bvh_leaves(bvh)[2:])
+    lo, hi = (torch.from_numpy(x).to(p.device) for x in hierarchy.bvh_leaves(bvh)[2:])
     sums = [0] * len(caps)
     for start in range(0, p.shape[0], lanes):
         sl = slice(start, start + lanes)
         for k, cap in enumerate(caps):
-            sums[k] += int(ti._box_reach(p[sl], d[sl], cap[subset][sl], lo, hi).sum())
+            sums[k] += int(hierarchy._box_reach(p[sl], d[sl], cap[subset][sl], lo, hi).sum())
     return [n / p.shape[0] for n in sums]
 
 
@@ -847,8 +875,9 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
                         plain_lanes=PLAIN_LANES):
     """The two sweep kernels (nearest and any hit) of one leaf set or one
     triangle soup, flat or instanced, against their plain versions on the
-    card: ``hit`` and ``occluded`` equal on every lane, ``t`` and normals
-    bitwise. The kernels run on all of ``rays``; the plain versions on a
+    card: every output equal bit pattern for bit pattern (floats compared
+    as int32, so a -0.0 is not taken for a +0.0). The kernels run on all of
+    ``rays``; the plain versions on a
     seeded subset of ``plain_lanes`` of them where there are more (in slices
     that fit the card's memory). Returns ({kernel: max abs error}, {kernel:
     (kernel ms, plain ms, lanes, plain lanes)}, {kernel: (bound ms, bound
@@ -858,11 +887,13 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
     outputs written once (17 bytes a lane for nearest, 1 for any hit); the
     exact tests the data needs at item granularity (:func:`_item_pairs` on
     the plain version's lanes, scaled to all lanes), ~30 float32 operations
-    a disk test and ~45 a Moller-Trumbore test. For the flat triangle
-    kernels, the leaves of their hierarchy that a ray reaches are printed
-    too, with the cap at the nearest hit and at ``t_max``."""
+    a disk test and ~45 a Moller-Trumbore test. For the flat kernels, the
+    leaves of their hierarchy that a ray reaches are printed too, with the
+    cap at the nearest hit and at ``t_max``."""
     import torch
 
+    from eradiate_tpu_torch.kernels import bvh as hierarchy
+    from eradiate_tpu_torch.kernels import leaf_intersect as li
     from eradiate_tpu_torch.kernels import tri_intersect as ti
 
     base = geometry.canonical if hasattr(geometry, "canonical") else geometry
@@ -897,7 +928,8 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
         labels = ("t", "normal", "hit") if len(got) == 3 else ("occluded",)
         err = 0.0
         for label, g, w in zip(labels, held, want):
-            differ = int((g != w).reshape(n_plain, -1).any(dim=1).sum())
+            gb, wb = (x.view(torch.int32) if x.is_floating_point() else x for x in (g, w))
+            differ = int((gb != wb).reshape(n_plain, -1).any(dim=1).sum())
             if differ:
                 detail = f"{differ} of {n_plain} lanes"
                 if g.dtype == torch.float32:
@@ -921,30 +953,49 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
                           f"{times[kernel][1]:.1f} ms at {n_plain} lanes, {pairs / B:.2f} "
                           f"exact tests a ray at item granularity, bound "
                           f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
-            if isinstance(cull, ti.TriBVH) and len(got) == 3:
+            if isinstance(cull, (ti.TriBVH, li.LeafBVH)) and len(got) == 3:
                 lanes = subset if subset is not None else torch.arange(B, device=rays[0].device)
                 at_hit, at_max = _leaves_reached(cull, rays, (got[0], rays[2]), lanes)
                 notes[-1] += (f"; the hierarchy's leaves a ray reaches: {at_hit:.2f} with the "
                               f"cap at the nearest hit, {at_max:.2f} with t_max ("
-                              f"{base.v0.shape[0] / ti.bvh_leaves(cull)[0].size:.2f} "
-                              f"triangles a leaf)")
+                              f"{n_items / hierarchy.bvh_leaves(cull)[0].size:.2f} "
+                              f"{'disks' if is_leaves else 'triangles'} a leaf)")
     held_on = "every lane" if subset is None else f"{n_plain} seeded lanes"
     print(f"  {name}: B={B} N={n_items}"
           + (f" I={offsets.shape[0]}" if offsets is not None else "")
-          + f" every output bitwise on {held_on}, 0 lanes differ; " + "; ".join(notes),
+          + f" every output's bit pattern equal on {held_on}, 0 lanes differ; "
+          + "; ".join(notes),
           flush=True)
     return errs, times, bounds
 
 
-def check_leaf_kernels(name, exp, B, seed, miss=False, timed=False):
-    """Phase 11 for one case: ``exp`` "flat" or "instanced" takes the
-    synthetic rim stress of :func:`_rim_inputs`, an experiment its leaves
-    with the rays of :func:`_canopy_inputs`."""
-    if isinstance(exp, str):
-        leaves, spheres, rays = _rim_inputs(exp == "instanced", B, seed)
-    else:
-        leaves, spheres, rays, *_ = _canopy_inputs(exp, B, seed, miss=miss)
-    return check_sweep_kernels(name, leaves, spheres, rays, seed, timed)
+def check_rebuild(label, cull, build):
+    """Build a flat table's or soup's hierarchy once more on the host
+    (``build``), timed, print its depth and size, and hold it bit for bit
+    against ``cull``, the build of the same inputs; returns the seconds."""
+    import dataclasses
+
+    import torch
+
+    from eradiate_tpu_torch.kernels import bvh as hierarchy
+
+    t0 = time.perf_counter()
+    again = build()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    arrays = [f.name for f in dataclasses.fields(cull) if f.name != "depth"]
+    same = again.depth == cull.depth and all(
+        torch.equal(getattr(again, k).view(torch.int32), getattr(cull, k).view(torch.int32))
+        for k in arrays
+    )
+    print(f"  {label} hierarchy: N={getattr(cull, arrays[1]).shape[0]} built on the host in "
+          f"{seconds:.3f} s, depth {cull.depth}, {cull.nodes.shape[0]} inner nodes, "
+          f"{hierarchy.bvh_leaves(cull)[0].size} leaves, "
+          f"{sum(getattr(cull, k).numel() for k in arrays) * 4 / 2**20:.2f} MiB; rebuilt "
+          f"bitwise equal: {same}", flush=True)
+    if not same:
+        raise AssertionError(f"two builds of the {label} hierarchy differ")
+    return seconds
 
 
 def instanced_against_flat(exp, B, seed, mesh_dir):
@@ -1145,6 +1196,8 @@ def main():
 
     import eradiate_tpu_torch as etp
     from eradiate_tpu_torch.kernels import _build
+    from eradiate_tpu_torch.kernels.leaf_intersect import leaf_bvh
+    from eradiate_tpu_torch.kernels.tri_intersect import tri_bvh
     from eradiate_tpu_torch.ops.tracer import REGEN_LANES_TARGET, lane_partition
     from eradiate_tpu_torch.ops.tracer_canopy import LANES_TARGET as CANOPY_LANES_TARGET
     from eradiate_tpu_torch.ops.tracer_spherical import spherical_lanes_target
@@ -1240,16 +1293,22 @@ def main():
     # -- 6. the shell kernels in the library --------------------------------
     for fn in ("shell_flight", "shell_event", "slant_tau", "ray_tris_nearest",
                "ray_tris_occluded", "ray_tris_nearest_instanced",
-               "ray_tris_occluded_instanced"):
+               "ray_tris_occluded_instanced", "ray_leaves_nearest", "ray_leaves_occluded",
+               "ray_leaves_nearest_instanced", "ray_leaves_occluded_instanced"):
         getattr(lib, fn + "_launch")
     blocks = report.split("ptxas info    : Compiling entry function ")
-    print("[6] shell_flight, shell_event, slant_tau and ray_tris launchers loaded; ptxas:",
-          flush=True)
+    print("[6] shell_flight, shell_event, slant_tau, ray_tris and ray_leaves launchers "
+          "loaded; ptxas:", flush=True)
     for block in blocks:
-        if "shell_flight_cu" in block or "tri_intersect_cu" in block:
+        if any(f"{stem}_cu" in block for stem in ("shell_flight", "tri_intersect",
+                                                   "leaf_intersect")):
             name = block.split("'")[1]
             regs = [ln.strip() for ln in block.splitlines() if "registers" in ln or "spill" in ln]
             print(f"    {name}: {'; '.join(regs)}", flush=True)
+    for kernel in ("leaf_bvh_nearest_kernel", "leaf_bvh_occluded_kernel", "bvh_nearest_kernel",
+                   "bvh_occluded_kernel"):
+        if kernel not in report:
+            raise AssertionError(f"the library has no {kernel}")
 
     # -- 7. shell kernels against their twins ------------------------------
     print("[7] shell_flight, slant_tau and shell_event kernels against their plain twins",
@@ -1280,23 +1339,49 @@ def main():
         raise AssertionError("jax was imported")
 
     # -- 11. leaf-sweep kernels against their plain versions ----------------
-    print("[11] leaf-sweep kernels against their plain versions", flush=True)
+    print("[11] leaf-sweep kernels against their plain versions: the flat ones "
+          "(ray_leaves_nearest, ray_leaves_occluded) traverse a bounding volume hierarchy "
+          "(leaf_bvh_nearest_kernel, leaf_bvh_occluded_kernel), the instanced ones sweep "
+          "group spheres (nearest_kernel, occluded_kernel)", flush=True)
     lp = lane_partition(N_VZA_C5, SPP_C5, CANOPY_LANES_TARGET["cuda"], "cpu")[0]
     B5 = N_VZA_C5 * lp
     sweep_errs, sweep_times, sweep_bounds = {}, {}, {}
     for form in ("instanced", "flat"):
         exp = _c5(form)
-        errs, times, bounds = check_leaf_kernels(
-            f"HET01 {form}, the path's lane count", exp, B5, seed=20, timed=True
+        leaves, cull, rays, *_ = _canopy_inputs(exp, B5, seed=20)
+        if form == "flat":
+            check_rebuild("HET01 flat", cull,
+                          lambda: leaf_bvh(leaves.centers, leaves.normals, leaves.radii))
+        errs, times, bounds = check_sweep_kernels(
+            f"HET01 {form}, the path's lane count", leaves, cull, rays, seed=20, timed=True
         )
         sweep_times.update(times)
         sweep_bounds.update(bounds)
-        for label, case, B, miss in (
-            (f"HET01 {form}, ragged", exp, 100_037, False),
-            (f"HET01 {form}, rays beside the box", exp, 2**16, True),
-            (f"random disks {form}, rays at the rims", form, 2**17, False),
-        ):
-            more, _, _ = check_leaf_kernels(label, case, B, seed=21, miss=miss)
+        inst = form == "instanced"
+        cases = [
+            (f"HET01 {form}, ragged", lambda: _canopy_inputs(exp, 100_037, 21)[:3]),
+            (f"HET01 {form}, rays beside the box",
+             lambda: _canopy_inputs(exp, 2**16, 21, miss=True)[:3]),
+            (f"random disks {form}, rays at the rims from 0.5-3 units",
+             lambda: _rim_inputs(inst, 2**17, 21)),
+            (f"random disks {form}, rays at the rims from 50-300 units",
+             lambda: _rim_inputs(inst, 2**17, 22, far=True)),
+            (f"random disks {form} with normal components of +-0, rays at the rims",
+             lambda: _rim_inputs(inst, 2**17, 23, zero_normals=True)),
+        ]
+        if not inst:
+            cases += [
+                ("disk tie soup, exact ties inside a chunk and across",
+                 lambda: _leaf_stress_inputs("ties", 2**17, 24)),
+                ("random disks flat, zero direction components, from 0.5-3 units",
+                 lambda: _leaf_stress_inputs("axes near", 2**17, 25)),
+                ("random disks flat, zero direction components, from 50-300 units",
+                 lambda: _leaf_stress_inputs("axes far", 2**17, 26)),
+                ("random disks flat, grazing incidence",
+                 lambda: _leaf_stress_inputs("grazing", 2**17, 27)),
+            ]
+        for label, make in cases:
+            more, _, _ = check_sweep_kernels(label, *make(), seed=21)
             errs = {k: max(v, more[k]) for k, v in errs.items()}
         sweep_errs.update(errs)
 
@@ -1327,20 +1412,7 @@ def main():
             exp = _c5(form, mesh_dir)
             *_, tris, cull, rays = _canopy_inputs(exp, B5, seed=30)
             if form == "wood":
-                from eradiate_tpu_torch.kernels.tri_intersect import bvh_leaves, tri_bvh
-
-                t0 = time.perf_counter()
-                again = tri_bvh(tris.v0, tris.e1, tris.e2)
-                build_s = time.perf_counter() - t0
-                same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
-                           for x, y in ((again.nodes, cull.nodes), (again.tris, cull.tris)))
-                print(f"  c5_wood hierarchy: N={tris.v0.shape[0]} built on the host in "
-                      f"{build_s:.3f} s, depth {cull.depth}, {cull.nodes.shape[0]} inner "
-                      f"nodes, {bvh_leaves(cull)[0].size} leaves, "
-                      f"{(cull.nodes.numel() + cull.tris.numel()) * 4 / 2**20:.2f} MiB; "
-                      f"rebuilt bitwise equal: {same}", flush=True)
-                if not same:
-                    raise AssertionError("two builds of the hierarchy differ")
+                check_rebuild("c5_wood", cull, lambda: tri_bvh(tris.v0, tris.e1, tris.e2))
             errs, times, bounds = check_sweep_kernels(
                 f"c5_{form}, the path's lane count", tris, cull, rays, seed=30,
                 timed=True, plain_lanes=plain_lanes,

@@ -41,7 +41,9 @@
 // leaf's triangles are three float4 each (v0 with the original index's bits,
 // e1, e2), loaded with __ldg. The nearest hit visits the nearer child first
 // and culls boxes against its running best t; the any hit stops at its first
-// hit. The Morton lane sort of the tracer keeps a warp's rays together.
+// hit. The Morton lane sort of the tracer keeps a warp's rays together. The
+// traversal, the box test and the tie rule are bvh.cuh's, shared with the
+// flat leaf-disk kernels of leaf_intersect.cu.
 //
 // Instanced soups: a sweep of sphere-culled groups. Triangles come in groups
 // of 64 consecutive triangles, each with a bounding sphere over its vertices
@@ -86,46 +88,15 @@
 // test ~45 more: the sweep is bound by operations, and by how many exact
 // tests the cull leaves (a sliver of a thin branch fills its box badly).
 
-#include <climits>
-#include <cuda_runtime.h>
+#include "bvh.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr int kGroup = 64;    // triangles per bounding sphere (GROUP)
-constexpr int kChunk = 512;   // triangles per tie-averaging chunk (CHUNK)
-constexpr int kLeaf = 4;      // most triangles per leaf (LEAF)
-constexpr int kLeafBits = 3;  // leaf code ~(first << 3 | count)
-constexpr int kStack = 64;    // traversal stack entries (STACK)
-constexpr int kDone = INT_MIN;      // no node left; no leaf has this code
-constexpr int kNoChunk = INT_MAX;   // no hit yet
-constexpr float kEpsT = 1e-7f;
 constexpr float kDetMin = 1e-12f;
 constexpr float kCullSlack = 1.0001f;
 constexpr float kLineSlack = 2e-6f;  // ~32 float32 ulp of the coordinates
-constexpr float kBoxSlack = 1e-4f;   // a box's growth, of the coordinates (BOX_SLACK)
 constexpr float kCapSlack = 2e-3f;   // of the distance to a sphere
-constexpr float kBoxCapSlack = 5e-2f;  // of the distance to a box (CAP_SLACK)
-static_assert(kLeaf < (1 << kLeafBits), "a leaf's count must fit its code");
-
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-
-__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
-                                      float by, float bz) {
-  return fma_rn(az, bz, fma_rn(ay, by, ax * bx));
-}
-
-struct Ray {
-  float px, py, pz, dx, dy, dz;
-  float l1;  // |px| + |py| + |pz|: the scale of the exact test's rounding
-};
-
-__device__ __forceinline__ Ray make_ray(float px, float py, float pz, float dx,
-                                        float dy, float dz) {
-  return Ray{px, py, pz, dx, dy, dz, fabsf(px) + fabsf(py) + fabsf(pz)};
-}
 
 // One triangle: v0, e1 (a), e2 (b).
 struct Tri {
@@ -165,120 +136,7 @@ __device__ __forceinline__ void tri_normal(const Tri& q, float& nx, float& ny,
   nz = cz / norm;
 }
 
-// Running nearest hit with the reference's tie rule, in a form that does not
-// depend on the order of the visits.
-struct Best {
-  float t;            // running cap: t_max until a hit is found
-  double sx, sy, sz;  // sum of the tied triangles' unit normals
-  int count;          // tied triangles summed (0: no hit)
-  int chunk;          // (instance, 512-triangle chunk) id of the winner
-
-  // Take the result t of tri_hit (negative: no hit) of triangle q.
-  __device__ __forceinline__ void take(float th, int ch, const Tri& q) {
-    if (th < 0.0f) return;
-    const bool tie = th == t;
-    if (th < t || (tie && ch < chunk)) {
-      float nx, ny, nz;
-      tri_normal(q, nx, ny, nz);
-      t = th;
-      // summed into zero, as the reference's masked sum: -0.0 becomes +0.0
-      sx = 0.0 + nx; sy = 0.0 + ny; sz = 0.0 + nz;
-      count = 1;
-      chunk = ch;
-    } else if (tie && ch == chunk) {
-      float nx, ny, nz;
-      tri_normal(q, nx, ny, nz);
-      sx += nx; sy += ny; sz += nz;
-      count += 1;
-    }
-  }
-};
-
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ p,
-                                        const float* __restrict__ d, int b) {
-  return make_ray(p[3 * b], p[3 * b + 1], p[3 * b + 2], d[3 * b], d[3 * b + 1],
-                  d[3 * b + 2]);
-}
-
-__device__ __forceinline__ void store_nearest(const Best& best, float tm, int b,
-                                              float* __restrict__ t_hit,
-                                              float* __restrict__ normal,
-                                              bool* __restrict__ hit) {
-  const bool found = best.count > 0;
-  const float cnt = static_cast<float>(max(best.count, 1));
-  t_hit[b] = found ? best.t : tm;
-  normal[3 * b] = found ? static_cast<float>(best.sx) / cnt : 0.0f;
-  normal[3 * b + 1] = found ? static_cast<float>(best.sy) / cnt : 0.0f;
-  normal[3 * b + 2] = found ? static_cast<float>(best.sz) / cnt : 1.0f;
-  hit[b] = found;
-}
-
-// ---------------------------------------------------------------------------
-// Flat soups: the hierarchy's traversal.
-
-// Per-ray constants of the box test.
-struct Slab {
-  float ix, iy, iz;  // 1 / d: +-inf where a component is +-0
-  bool nx, ny, nz;   // 1 / d < 0: the near plane is the box's upper face
-};
-
-__device__ __forceinline__ Slab make_slab(const Ray& r) {
-  Slab s;
-  s.ix = 1.0f / r.dx;
-  s.iy = 1.0f / r.dy;
-  s.iz = 1.0f / r.dz;
-  s.nx = s.ix < 0.0f;
-  s.ny = s.iy < 0.0f;
-  s.nz = s.iz < 0.0f;
-  return s;
-}
-
-// Can the segment p + t d, t in [-slack, cap + slack], reach the box grown by
-// delta (see the header)? dist bounds the L1 distance from p to any point of
-// the box. Sets t_near, the entry distance, for the visit order.
-__device__ __forceinline__ bool box_reach(const Ray& r, const Slab& s, float cap,
-                                          float lox, float hix, float loy, float hiy,
-                                          float loz, float hiz, float& t_near) {
-  const float ax = lox - r.px, bx = hix - r.px;
-  const float ay = loy - r.py, by = hiy - r.py;
-  const float az = loz - r.pz, bz = hiz - r.pz;
-  const float dist = (fmaxf(-ax, bx) + fmaxf(-ay, by)) + fmaxf(-az, bz);
-  const float delta = kBoxSlack * (dist + r.l1);
-  const float slack = kBoxCapSlack * dist + 1e-6f;
-  const float gax = ax - delta, gbx = bx + delta;
-  const float gay = ay - delta, gby = by + delta;
-  const float gaz = az - delta, gbz = bz + delta;
-  const float nx = (s.nx ? gbx : gax) * s.ix, fx = (s.nx ? gax : gbx) * s.ix;
-  const float ny = (s.ny ? gby : gay) * s.iy, fy = (s.ny ? gay : gby) * s.iy;
-  const float nz = (s.nz ? gbz : gaz) * s.iz, fz = (s.nz ? gaz : gbz) * s.iz;
-  t_near = fmaxf(fmaxf(fmaxf(nx, ny), nz), -slack);
-  const float t_far = fminf(fminf(fminf(fx, fy), fz), cap + slack);
-  return t_near <= t_far;
-}
-
-// One step at inner node `node`: the next node to visit (a reached child,
-// the nearer first with the other pushed, or the top of the stack), or kDone.
-__device__ __forceinline__ int descend(const Ray& r, const Slab& s, float cap,
-                                       const float4* __restrict__ nodes, int node,
-                                       int* stack, int& sp) {
-  const float4 n0 = __ldg(nodes + 4 * node);
-  const float4 n1 = __ldg(nodes + 4 * node + 1);
-  const float4 n2 = __ldg(nodes + 4 * node + 2);
-  const float4 n3 = __ldg(nodes + 4 * node + 3);
-  float t0, t1;
-  const bool r0 = box_reach(r, s, cap, n0.x, n0.y, n0.z, n0.w, n2.x, n2.y, t0);
-  const bool r1 = box_reach(r, s, cap, n1.x, n1.y, n1.z, n1.w, n2.z, n2.w, t1);
-  const int c0 = __float_as_int(n3.x), c1 = __float_as_int(n3.y);
-  if (r0 && r1) {
-    const bool swap = t1 < t0;
-    stack[sp++] = swap ? c0 : c1;
-    return swap ? c1 : c0;
-  }
-  if (r0) return c0;
-  if (r1) return c1;
-  return sp > 0 ? stack[--sp] : kDone;
-}
-
+// The flat soups' hierarchy: a leaf's triangles are three float4 rows each.
 __device__ __forceinline__ Tri load_tri(const float4* __restrict__ tris, int k,
                                         int& index) {
   const float4 a = __ldg(tris + 3 * k);
@@ -300,22 +158,15 @@ bvh_nearest_kernel(const float* __restrict__ p, const float* __restrict__ d,
   Best best{tm, 0.0, 0.0, 1.0, 0, kNoChunk};
   // no t satisfies 1e-7 < t < t_max below this: the lane visits nothing
   if (tm > kEpsT) {
-    const Slab s = make_slab(r);
-    int stack[kStack];
-    int sp = 0;
-    int node = 0;  // the root is an inner node
-    for (;;) {
-      while (node >= 0) node = descend(r, s, best.t, nodes, node, stack, sp);
-      if (node == kDone) break;
-      const int leaf = ~node;
-      const int first = leaf >> kLeafBits, end = first + (leaf & ((1 << kLeafBits) - 1));
+    traverse(r, best.t, nodes, [&](int first, int end) {
       for (int k = first; k < end; ++k) {
         int index;
         const Tri q = load_tri(tris, k, index);
-        best.take(tri_hit(r, tm, q), index / kChunk, q);
+        best.take(tri_hit(r, tm, q), index / kChunk,
+                  [&](float& nx, float& ny, float& nz) { tri_normal(q, nx, ny, nz); });
       }
-      node = sp > 0 ? stack[--sp] : kDone;
-    }
+      return false;
+    });
   }
   store_nearest(best, tm, b, t_hit, normal, hit);
 }
@@ -330,21 +181,13 @@ bvh_occluded_kernel(const float* __restrict__ p, const float* __restrict__ d,
   const float tm = t_max[b];
   bool occluded = false;
   if (tm > kEpsT) {
-    const Slab s = make_slab(r);
-    int stack[kStack];
-    int sp = 0;
-    int node = 0;
-    while (!occluded) {
-      while (node >= 0) node = descend(r, s, tm, nodes, node, stack, sp);
-      if (node == kDone) break;
-      const int leaf = ~node;
-      const int first = leaf >> kLeafBits, end = first + (leaf & ((1 << kLeafBits) - 1));
+    traverse(r, tm, nodes, [&](int first, int end) {
       for (int k = first; k < end && !occluded; ++k) {
         int index;
         occluded = tri_hit(r, tm, load_tri(tris, k, index)) >= 0.0f;
       }
-      node = sp > 0 ? stack[--sp] : kDone;
-    }
+      return occluded;
+    });
   }
   occ[b] = occluded;
 }
@@ -412,7 +255,8 @@ __device__ __forceinline__ void sweep_nearest(const Ray& r, float tm, bool activ
       const int chunk = chunk_base + first / kChunk;
       for (int k = 0; k < count; ++k) {
         const Tri q = staged(g, k);
-        best.take(tri_hit(r, tm, q), chunk, q);
+        best.take(tri_hit(r, tm, q), chunk,
+                  [&](float& nx, float& ny, float& nz) { tri_normal(q, nx, ny, nz); });
       }
     }
     __syncthreads();
@@ -498,8 +342,6 @@ tri_occluded_kernel(const float* __restrict__ p, const float* __restrict__ d,
   }
   if (in_range) occ[b] = occluded;
 }
-
-int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
 
 }  // namespace
 

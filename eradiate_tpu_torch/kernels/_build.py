@@ -3,8 +3,9 @@
 The library exposes plain C launchers (no PyTorch headers), so a build takes
 seconds: one ``nvcc -c`` per source, all started together, then one link. It
 is written to ``build/kernels/`` at the repository root under a name keyed
-by the sources' and flags' hash, and built at most once per process. A
-missing ``nvcc`` or a failed build raises.
+by the hash of the flags, the sources and the headers they include
+(``csrc/*.cuh``, found beside the source), and built at most once per
+process. A missing ``nvcc`` or a failed build raises.
 
 ``-fmad=false`` keeps nvcc from contracting a product and a sum into one
 fused multiply-add: every float operation then rounds as the plain twins'
@@ -21,7 +22,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["library", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["library", "source_tag", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -47,6 +48,17 @@ def _nvcc() -> str:
     return path
 
 
+def source_tag(csrc: Path = CSRC_DIR) -> str:
+    """The library's tag: a hash of the compiler flags and of every source
+    and header under ``csrc`` (``*.cu``, ``*.cuh``), names and contents, so
+    that a changed header gives a new library."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted([*csrc.glob("*.cu"), *csrc.glob("*.cuh")]):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built from ``csrc/*.cu`` on first call.
 
@@ -59,11 +71,7 @@ def library() -> ctypes.CDLL:
     sources = sorted(CSRC_DIR.glob("*.cu"))
     if not sources:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    out = BUILD_DIR / f"liberadiate_kernels_{h.hexdigest()[:16]}.so"
+    out = BUILD_DIR / f"liberadiate_kernels_{source_tag()}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tag = f"{out.stem}.{os.getpid()}"

@@ -4,10 +4,12 @@ Four functions, each the counterpart of a TPU kernel of
 ``eradiate_tpu/ops/pallas/leaf_intersect.py``:
 
 * :func:`ray_leaves_nearest` / :func:`ray_leaves_occluded`: nearest hit and
-  any hit of rays against a flat table of leaf disks;
+  any hit of rays against a flat table of leaf disks; the kernels traverse a
+  bounding volume hierarchy of the table (:func:`leaf_bvh`);
 * :func:`ray_leaves_nearest_instanced` / :func:`ray_leaves_occluded_instanced`:
   the same against ``I`` translated copies of one canonical cloud, which is
-  stored once.
+  stored once; the kernels cull per group of :data:`GROUP` leaves by a
+  bounding sphere (:func:`sweep_spheres`).
 
 For CUDA tensors they launch ``csrc/leaf_intersect.cu``; for CPU tensors
 they run the plain versions (``*_plain``), the chunked dense sweeps of the
@@ -26,29 +28,55 @@ Semantics shared by kernel and plain version (the reference's XLA form):
   for bit;
 * an instance translates the ray, ``p - offset``, not the leaves;
 * exact ties of ``t`` inside one 512-leaf chunk of one instance average
-  their normals; across chunks and instances the first wins;
+  their normals; across chunks and instances the first wins. The winners'
+  normals are summed into a zero, as the reference sums them, so a
+  component -0.0 comes out +0.0. The flat sweeps sum tied normals in
+  float64, rounded once, so the result does not depend on the order of the
+  sum; a kernel that visits the disks out of index order (the hierarchy's
+  traversal) applies the rule as: a hit replaces the best when its ``t`` is
+  smaller, or equal with a lower chunk (original index // 512); it adds its
+  normal when ``t`` and chunk are equal (:func:`ray_leaves_nearest_bvh_plain`);
 * misses keep ``t = t_max`` and the normal ``(0, 0, 1)``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
+from .bvh import (
+    LEAF,
+    STACK,
+    _round_down,
+    _round_up,
+    build,
+    bvh_leaves,
+    bvh_leaves_reached_plain,
+    nearest_plain,
+)
 
 __all__ = [
     "CHUNK",
     "GROUP",
+    "LEAF",
+    "STACK",
+    "LeafBVH",
     "launches",
     "leaf_block_spheres",
     "sweep_spheres",
+    "leaf_bvh",
+    "bvh_leaves",
+    "bvh_leaves_reached_plain",
     "ray_leaves_nearest",
     "ray_leaves_occluded",
     "ray_leaves_nearest_instanced",
     "ray_leaves_occluded_instanced",
     "ray_leaves_nearest_plain",
     "ray_leaves_occluded_plain",
+    "ray_leaves_nearest_bvh_plain",
     "ray_leaves_nearest_instanced_plain",
     "ray_leaves_occluded_instanced_plain",
 ]
@@ -56,7 +84,8 @@ __all__ = [
 #: Leaves per chunk of the plain sweep, which is also the tie-averaging unit
 #: (reference ``ray_leaves_nearest(chunk=512)``).
 CHUNK = 512
-#: Leaves per bounding sphere of the kernels' cull (reference ``_SUB``).
+#: Leaves per bounding sphere of the instanced kernels' cull (reference
+#: ``_SUB``).
 GROUP = 128
 
 _EPS_T = 1e-7
@@ -96,15 +125,82 @@ def leaf_block_spheres(centers, normals, radii, block_n: int = GROUP):
 
 
 def sweep_spheres(centers, normals, radii):
-    """The kernels' cull operand ``[1 + M, 4]`` (x, y, z, radius^2): row 0
-    bounds the whole table (the per-instance sphere of the instanced
-    kernels), rows 1.. bound its :data:`GROUP`-leaf blocks. Compute once per
-    render and pass as ``spheres``."""
+    """The instanced kernels' cull operand ``[1 + M, 4]`` (x, y, z,
+    radius^2): row 0 bounds the whole table (the per-instance sphere), rows
+    1.. bound its :data:`GROUP`-leaf blocks. Compute once per render and
+    pass as ``spheres``."""
     whole_c, whole_r2 = leaf_block_spheres(centers, normals, radii, max(centers.shape[0], 1))
     sc, sr2 = leaf_block_spheres(centers, normals, radii, GROUP)
     return torch.cat(
         [torch.cat([whole_c, sc]), torch.cat([whole_r2, sr2])[:, None]], dim=1
     ).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# the flat kernels' bounding volume hierarchy
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafBVH:
+    """The flat kernels' acceleration structure, made by :func:`leaf_bvh`.
+
+    ``nodes`` [M, 16] float32: the inner nodes of :mod:`~.bvh` (a leaf
+    holds ``count`` rows of ``disks`` from ``first``). Row 0 is the root.
+
+    ``disks`` [N, 12] float32: the disks in leaf order, three float4 each:
+    ``(cx, cy, cz, original index as int32 bits)``, ``(nx, ny, nz, r)`` and
+    ``(r * r, (cx nx + cy ny) + cz nz, 0, 0)``, the last two rounded as the
+    exact test rounds them (plain float32 products and sums); bitwise copies
+    of the inputs.
+
+    ``depth``: inner nodes on the longest path from the root to a leaf; the
+    kernels' stack holds :data:`STACK`."""
+
+    nodes: torch.Tensor
+    disks: torch.Tensor
+    depth: int
+
+
+def leaf_bvh(centers, normals, radii) -> LeafBVH:
+    """The flat kernels' bounding volume hierarchy of a leaf table
+    (``centers``, ``normals`` [N, 3], ``radii`` [N] float32 tensors), built
+    on the host with numpy and returned on their device
+    (:func:`~.bvh.build`: binned SAH, leaves of at most :data:`LEAF` disks,
+    each referenced once).
+
+    A disk's box is its own: ``c +- r sqrt(1 - n_i^2)`` on axis ``i`` (the
+    unit normal's components in float64), rounded outward to float32. The
+    exact test accepts a point ``q = p + d t`` within ``r`` of ``c`` that
+    lies off the disk's plane by the rounding of ``c.n - p.n``, a few ulp of
+    the coordinates; the kernels' box margin (``BOX_SLACK`` of the
+    coordinates' magnitude) covers that, and ``q`` lies on the ray's line at
+    the computed ``t`` up to the rounding of the fused multiply-add, so the
+    line crosses the grown box at ``t`` however the division rounds.
+    Deterministic: the same table gives the same bytes. Raises if the table
+    is empty, not float32, or the tree is deeper than :data:`STACK`.
+    Compute once per render and pass as ``bvh``."""
+    device = centers.device
+    c, n, r = (np.ascontiguousarray(t.detach().cpu().numpy()) for t in (centers, normals, radii))
+    if any(a.dtype != np.float32 for a in (c, n, r)):
+        raise TypeError("leaf_bvh: centers, normals and radii must be float32")
+    N = c.shape[0]
+    if N < 1:
+        raise ValueError("leaf_bvh: needs at least one leaf")
+    if N >= 2**28:
+        raise ValueError("leaf_bvh: more than 2^28 - 1 leaves")
+    c64, n64, r64 = c.astype(np.float64), n.astype(np.float64), r.astype(np.float64)
+    norm = np.linalg.norm(n64, axis=1, keepdims=True)
+    unit = n64 / np.where(norm > 0, norm, 1.0)
+    # a zero normal never passes |d.n| > 1e-12: any box will do, take the cube
+    half = r64[:, None] * np.where(norm > 0, np.sqrt(np.clip(1.0 - unit**2, 0.0, 1.0)), 1.0)
+    nodes, perm, depth = build(_round_down(c64 - half), _round_up(c64 + half), "leaf_bvh")
+    cp, npm, rp = c[perm], n[perm], r[perm]
+    disks = np.zeros((N, 12), np.float32)
+    disks[:, 0:3], disks[:, 4:7], disks[:, 7] = cp, npm, rp
+    disks[:, 3] = perm.astype(np.int32).view(np.float32)
+    disks[:, 8] = rp * rp
+    disks[:, 9] = (cp[:, 0] * npm[:, 0] + cp[:, 1] * npm[:, 1]) + cp[:, 2] * npm[:, 2]
+    return LeafBVH(torch.from_numpy(nodes).to(device), torch.from_numpy(disks).to(device), depth)
 
 
 # ---------------------------------------------------------------------------
@@ -171,12 +267,18 @@ def ray_leaves_nearest_plain(p, d, t_max, centers, normals, radii, spheres=None,
     best_n[:, 2] = 1.0
     for c, n, r in _chunks(centers, normals, radii, chunk):
         t = _chunk_hits(p, d, c, n, r, t_max)
-        tmin = t.min(dim=1).values
+        tmin, first = t.min(dim=1)
+        # the reference sums the winners' normals into a zero, which turns a
+        # component -0.0 into +0.0; exact ties average their normals (summed
+        # in float64 and rounded once, so the order of the sum does not
+        # matter), and they are rare, so only those lanes pay for the sum
+        n_sel = n[first] + 0.0
         m = (t == tmin[:, None]) & torch.isfinite(tmin)[:, None]
-        cnt = torch.clamp(m.sum(dim=1), min=1).to(t.dtype)
-        n_sel = torch.stack(
-            [torch.where(m, n[None, :, j], 0.0).sum(dim=1) for j in range(3)], dim=-1
-        ) / cnt[:, None]
+        cnt = m.sum(dim=1)
+        tied = torch.nonzero(cnt > 1)[:, 0]
+        if tied.numel():
+            s = ((m[tied, :, None] * n.double()[None]).sum(dim=1) + 0.0).float()
+            n_sel[tied] = s / cnt[tied, None].to(t.dtype)
         better = tmin < best_t
         best_n = torch.where(better[:, None], n_sel, best_n)
         best_t = torch.where(better, tmin, best_t)
@@ -191,6 +293,24 @@ def ray_leaves_occluded_plain(p, d, t_max, centers, normals, radii, spheres=None
     for c, n, r in _chunks(centers, normals, radii, chunk):
         occ = occ | torch.isfinite(_chunk_hits(p, d, c, n, r, t_max)).any(dim=1)
     return occ
+
+
+def ray_leaves_nearest_bvh_plain(p, d, t_max, bvh: LeafBVH, order=None):
+    """:func:`ray_leaves_nearest_plain` as the flat kernel computes it: the
+    disks of ``bvh`` visited one at a time in ``order`` (a permutation of
+    the rows of ``bvh.disks``; default their leaf order), each ray testing
+    only those in leaves its cull reaches with the cap ``t_max``, with the
+    order-free tie rule: a hit replaces the best when its ``t`` is smaller,
+    or equal with a lower chunk (original index // :data:`CHUNK`); it adds
+    its normal (float64 sum, from zero) when ``t`` and chunk are equal.
+    Equals the dense sweep bit for bit whatever the order."""
+    disks = bvh.disks
+
+    def test(k):
+        c, n, r = disks[k : k + 1, 0:3], disks[k : k + 1, 4:7], disks[k : k + 1, 7]
+        return _chunk_hits(p, d, c, n, r, t_max)[:, 0], n[0]
+
+    return nearest_plain(p, d, t_max, bvh, disks, test, order, CHUNK)
 
 
 def ray_leaves_nearest_instanced_plain(p, d, t_max, centers, normals, radii, offsets,
@@ -222,7 +342,7 @@ def ray_leaves_occluded_instanced_plain(p, d, t_max, centers, normals, radii, of
 
 
 # ---------------------------------------------------------------------------
-# kernel wrappers
+# kernel wrappers (the launch plumbing is shared with tri_intersect)
 
 
 def _launcher(name, n_ptr, n_int):
@@ -237,8 +357,10 @@ def _launcher(name, n_ptr, n_int):
     return fn
 
 
-def _check(name, named, B, N, offsets):
-    """Validate the operands of a launch."""
+def _check_operands(name, named, shapes, depth=None):
+    """Validate the tensors ``named`` of a launch: on ``p``'s device,
+    float32, contiguous and of the ``shapes`` given by name; a hierarchy's
+    ``depth`` within the kernels' stack."""
     p = named["p"]
     for key, t in named.items():
         if t.device != p.device:
@@ -247,34 +369,43 @@ def _check(name, named, B, N, offsets):
             raise TypeError(f"{name}: {key} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")
-    shapes = {"p": (B, 3), "d": (B, 3), "t_max": (B,), "centers": (N, 3),
-              "normals": (N, 3), "radii": (N,), "spheres": (1 + -(-N // GROUP), 4)}
-    if offsets is not None:
-        shapes["offsets"] = (offsets.shape[0], 3)
     for key, shape in shapes.items():
         if tuple(named[key].shape) != shape:
             raise ValueError(
                 f"{name}: {key} must be {list(shape)}, got {list(named[key].shape)}"
             )
+    if depth is not None and not 1 <= depth <= STACK:
+        raise ValueError(f"{name}: a hierarchy {depth} deep, the kernels' stack holds {STACK}")
+
+
+def _check(name, named, B, N, offsets, depth=None):
+    """Validate the operands of a launch: ``named`` holds the rays, the
+    table, and the cull operand: ``spheres`` (instanced kernels) or a
+    :class:`LeafBVH`'s ``nodes`` and ``disks`` with its ``depth`` (flat)."""
+    shapes = {"p": (B, 3), "d": (B, 3), "t_max": (B,), "centers": (N, 3),
+              "normals": (N, 3), "radii": (N,)}
+    if "spheres" in named:
+        shapes["spheres"] = (1 + -(-N // GROUP), 4)
+    if "nodes" in named:
+        shapes["nodes"] = (max(named["nodes"].shape[0], 1), 16)
+        shapes["disks"] = (N, 12)
+    if offsets is not None:
+        shapes["offsets"] = (offsets.shape[0], 3)
+    _check_operands(name, named, shapes, depth)
     if N < 1:
         raise ValueError(f"{name}: needs at least one leaf")
     if offsets is not None and offsets.shape[0] < 1:
         raise ValueError(f"{name}: needs at least one instance")
-    if B >= 2**31 or N >= 2**31:
-        raise ValueError(f"{name}: more than 2^31 - 1 lanes or leaves")
+    if B >= 2**31 or N >= 2**28:
+        raise ValueError(f"{name}: more than 2^31 - 1 lanes or 2^28 - 1 leaves")
 
 
-def _launch(name, nearest, p, d, t_max, centers, normals, radii, offsets, spheres):
-    """Check the operands, allocate the outputs and launch kernel ``name``
-    on the current stream; raises if the launch fails."""
-    if spheres is None:
-        spheres = sweep_spheres(centers, normals, radii)
-    B, N = p.shape[0], centers.shape[0]
-    named = {"p": p, "d": d, "t_max": t_max, "centers": centers, "normals": normals,
-             "radii": radii, "spheres": spheres}
-    if offsets is not None:
-        named["offsets"] = offsets
-    _check(name, named, B, N, offsets)
+def _launch(name, nearest, p, ins, sizes, counts):
+    """Allocate the outputs and launch kernel ``name`` on the current stream
+    with the tensors ``ins`` and the integers ``sizes``; raises if the
+    launch fails, and adds one to ``counts[name]`` where it launched. The
+    operands have been checked; ``p`` gives the lanes and the device."""
+    B = p.shape[0]
     if nearest:
         outs = (
             torch.empty(B, dtype=torch.float32, device=p.device),
@@ -285,8 +416,6 @@ def _launch(name, nearest, p, d, t_max, centers, normals, radii, offsets, sphere
         outs = (torch.empty(B, dtype=torch.bool, device=p.device),)
     if B == 0:
         return outs
-    ins = tuple(named.values())
-    sizes = (B, N) if offsets is None else (B, N, offsets.shape[0])
     with torch.cuda.device(p.device):
         rc = _launcher(name, len(ins) + len(outs), len(sizes))(
             *[t.data_ptr() for t in ins + outs], *sizes,
@@ -294,8 +423,36 @@ def _launch(name, nearest, p, d, t_max, centers, normals, radii, offsets, sphere
         )
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    launches[name] += 1
+    counts[name] += 1
     return outs
+
+
+def _launch_flat(name, nearest, p, d, t_max, centers, normals, radii, bvh):
+    """The flat kernels: check the rays, the table and its hierarchy (built
+    here when ``bvh`` is None), launch the traversal."""
+    if bvh is None:
+        bvh = leaf_bvh(centers, normals, radii)
+    if not isinstance(bvh, LeafBVH):
+        raise TypeError(f"{name}: bvh must be a LeafBVH (leaf_bvh), got {type(bvh).__name__}")
+    named = {"p": p, "d": d, "t_max": t_max, "centers": centers, "normals": normals,
+             "radii": radii, "nodes": bvh.nodes, "disks": bvh.disks}
+    _check(name, named, p.shape[0], centers.shape[0], None, depth=bvh.depth)
+    if bvh.nodes.data_ptr() % 16 or bvh.disks.data_ptr() % 16:
+        raise ValueError(f"{name}: the hierarchy's arrays must be 16-byte aligned (float4)")
+    return _launch(name, nearest, p, (p, d, t_max, bvh.nodes, bvh.disks), (p.shape[0],),
+                   launches)
+
+
+def _launch_instanced(name, nearest, p, d, t_max, centers, normals, radii, offsets, spheres):
+    """The instanced kernels: check the operands (spheres built here when
+    None), launch the sphere-culled sweep."""
+    if spheres is None:
+        spheres = sweep_spheres(centers, normals, radii)
+    named = {"p": p, "d": d, "t_max": t_max, "centers": centers, "normals": normals,
+             "radii": radii, "spheres": spheres, "offsets": offsets}
+    B, N = p.shape[0], centers.shape[0]
+    _check(name, named, B, N, offsets)
+    return _launch(name, nearest, p, tuple(named.values()), (B, N, offsets.shape[0]), launches)
 
 
 def _on_cpu(p, name):
@@ -304,38 +461,37 @@ def _on_cpu(p, name):
     return p.device.type == "cpu"
 
 
-def ray_leaves_nearest(p, d, t_max, centers, normals, radii, spheres=None):
-    """Nearest leaf-disk hit of rays ``p`` [B, 3], ``d`` [B, 3] within
-    ``t_max`` [B] against disks ``centers`` [N, 3], ``normals`` [N, 3],
-    ``radii`` [N], all float32. Returns ``(t_hit [B], normal [B, 3], hit [B]
-    bool)``. ``spheres`` optionally passes :func:`sweep_spheres` of the
+def ray_leaves_nearest(p, d, t_max, centers, normals, radii, bvh=None):
+    """Nearest leaf-disk hit of rays ``p`` [B, 3], ``d`` [B, 3] (unit)
+    within ``t_max`` [B] against disks ``centers`` [N, 3], ``normals``
+    [N, 3], ``radii`` [N], all float32. Returns ``(t_hit [B], normal [B, 3],
+    hit [B] bool)``. ``bvh`` optionally passes :func:`leaf_bvh` of the
     table. CUDA tensors go through the kernel (the wrapper checks device,
-    dtype, contiguity and shapes, and raises if the launch fails); CPU
-    tensors through :func:`ray_leaves_nearest_plain`."""
+    dtype, contiguity, shapes and the hierarchy's depth, and raises if the
+    launch fails); CPU tensors through :func:`ray_leaves_nearest_plain`."""
     if _on_cpu(p, "ray_leaves_nearest"):
         return ray_leaves_nearest_plain(p, d, t_max, centers, normals, radii)
-    return _launch("ray_leaves_nearest", True, p, d, t_max, centers, normals, radii,
-                   None, spheres)
+    return _launch_flat("ray_leaves_nearest", True, p, d, t_max, centers, normals, radii, bvh)
 
 
-def ray_leaves_occluded(p, d, t_max, centers, normals, radii, spheres=None):
+def ray_leaves_occluded(p, d, t_max, centers, normals, radii, bvh=None):
     """True [B] where any leaf disk blocks the segment; operands as
     :func:`ray_leaves_nearest`."""
     if _on_cpu(p, "ray_leaves_occluded"):
         return ray_leaves_occluded_plain(p, d, t_max, centers, normals, radii)
-    return _launch("ray_leaves_occluded", False, p, d, t_max, centers, normals, radii,
-                   None, spheres)[0]
+    return _launch_flat("ray_leaves_occluded", False, p, d, t_max, centers, normals, radii,
+                        bvh)[0]
 
 
 def ray_leaves_nearest_instanced(p, d, t_max, centers, normals, radii, offsets,
                                  spheres=None):
     """:func:`ray_leaves_nearest` against the union of the canonical cloud
-    translated by each of ``offsets`` [I, 3]; ``spheres`` are those of the
-    canonical cloud."""
+    translated by each of ``offsets`` [I, 3]; ``spheres`` optionally passes
+    :func:`sweep_spheres` of the canonical cloud."""
     if _on_cpu(p, "ray_leaves_nearest_instanced"):
         return ray_leaves_nearest_instanced_plain(p, d, t_max, centers, normals, radii, offsets)
-    return _launch("ray_leaves_nearest_instanced", True, p, d, t_max, centers, normals,
-                   radii, offsets, spheres)
+    return _launch_instanced("ray_leaves_nearest_instanced", True, p, d, t_max, centers,
+                             normals, radii, offsets, spheres)
 
 
 def ray_leaves_occluded_instanced(p, d, t_max, centers, normals, radii, offsets,
@@ -343,5 +499,5 @@ def ray_leaves_occluded_instanced(p, d, t_max, centers, normals, radii, offsets,
     """:func:`ray_leaves_occluded` against the translated copies."""
     if _on_cpu(p, "ray_leaves_occluded_instanced"):
         return ray_leaves_occluded_instanced_plain(p, d, t_max, centers, normals, radii, offsets)
-    return _launch("ray_leaves_occluded_instanced", False, p, d, t_max, centers, normals,
-                   radii, offsets, spheres)[0]
+    return _launch_instanced("ray_leaves_occluded_instanced", False, p, d, t_max, centers,
+                             normals, radii, offsets, spheres)[0]

@@ -23,6 +23,7 @@ import torch
 
 from ..kernels.leaf_intersect import (
     fma,
+    leaf_bvh,
     ray_leaves_nearest,
     ray_leaves_nearest_instanced,
     ray_leaves_occluded,
@@ -35,8 +36,8 @@ __all__ = [
     "LeafCloudArrays",
     "leaf_bounds",
     "leaf_nearest",
+    "leaf_accel",
     "leaf_occluded",
-    "leaf_spheres",
     "morton_order",
 ]
 
@@ -75,7 +76,8 @@ def leaf_bounds(leaves):
 def morton_order(positions):
     """Host-side Morton (Z-curve) ordering permutation for leaf positions
     [N, 3] (numpy). Spatially adjacent leaves land in adjacent slots, which
-    makes the per-group bounding spheres of the sweep kernels tight. Pure
+    makes the per-group bounding spheres of the instanced sweep kernels
+    tight. Pure
     reordering: the sweeps are order-invariant up to exact ties."""
     pos = np.asarray(positions, dtype=np.float64)
     lo = pos.min(axis=0)
@@ -88,18 +90,24 @@ def morton_order(positions):
     return np.argsort(code, kind="stable")
 
 
-def leaf_spheres(leaves):
-    """Acceleration data for the leaf sweeps: ``(spheres, box_lo, box_hi)``.
-    ``spheres`` is the kernels' cull operand
-    (:func:`~eradiate_tpu_torch.kernels.leaf_intersect.sweep_spheres` of the
-    flat table or of the canonical cloud) on CUDA and None on the CPU, where
-    the dense sweeps use none. Compute once per render, outside the path
-    loop, and pass to every :func:`leaf_nearest`/:func:`leaf_occluded`."""
+def leaf_accel(leaves):
+    """Acceleration data for the leaf sweeps: ``(cull, box_lo, box_hi)``.
+    ``cull`` is the kernels' cull operand on CUDA, built here: the bounding
+    volume hierarchy of a flat table
+    (:func:`~eradiate_tpu_torch.kernels.leaf_intersect.leaf_bvh`, on the
+    host) or the group spheres of an instanced one's canonical cloud
+    (:func:`~eradiate_tpu_torch.kernels.leaf_intersect.sweep_spheres`); None
+    on the CPU, where the dense sweeps use none and nothing is built. Compute
+    once per render, outside the path loop, and pass to every
+    :func:`leaf_nearest`/:func:`leaf_occluded`."""
     lo, hi = leaf_bounds(leaves)
-    base = leaves.canonical if isinstance(leaves, InstancedLeafArrays) else leaves
+    instanced = isinstance(leaves, InstancedLeafArrays)
+    base = leaves.canonical if instanced else leaves
     if base.centers.device.type == "cpu":
         return None, lo, hi
-    return sweep_spheres(base.centers, base.normals, base.radii), lo, hi
+    if instanced:
+        return sweep_spheres(base.centers, base.normals, base.radii), lo, hi
+    return leaf_bvh(base.centers, base.normals, base.radii), lo, hi
 
 
 def _advance_to_aabb(p, d, t_max, lo, hi):
@@ -149,29 +157,29 @@ def leaf_nearest(p, d, t_max, leaves, accel=None):
     """Nearest leaf hit of rays ``p + t d``, t in (0, t_max): box-advanced
     origins, then the sweep (flat or instanced). Returns ``(t [B], normal
     [B, 3], hit [B])``; misses keep ``t = t_max``."""
-    spheres, lo, hi = accel if accel is not None else leaf_spheres(leaves)
+    cull, lo, hi = accel if accel is not None else leaf_accel(leaves)
     p_adv, t0, t_cap = _advance_to_aabb(p, d, t_max, lo, hi)
     if isinstance(leaves, InstancedLeafArrays):
         c = leaves.canonical
         t_loc, n, hit = ray_leaves_nearest_instanced(
-            p_adv, d, t_cap, c.centers, c.normals, c.radii, leaves.offsets, spheres
+            p_adv, d, t_cap, c.centers, c.normals, c.radii, leaves.offsets, cull
         )
     else:
         t_loc, n, hit = ray_leaves_nearest(
-            p_adv, d, t_cap, leaves.centers, leaves.normals, leaves.radii, spheres
+            p_adv, d, t_cap, leaves.centers, leaves.normals, leaves.radii, cull
         )
     return torch.where(hit, t0 + t_loc, t_max), n, hit
 
 
 def leaf_occluded(p, d, t_max, leaves, accel=None):
     """Shadow-ray any-hit with the box advance; returns bool [B]."""
-    spheres, lo, hi = accel if accel is not None else leaf_spheres(leaves)
+    cull, lo, hi = accel if accel is not None else leaf_accel(leaves)
     p_adv, _, t_cap = _advance_to_aabb(p, d, t_max, lo, hi)
     if isinstance(leaves, InstancedLeafArrays):
         c = leaves.canonical
         return ray_leaves_occluded_instanced(
-            p_adv, d, t_cap, c.centers, c.normals, c.radii, leaves.offsets, spheres
+            p_adv, d, t_cap, c.centers, c.normals, c.radii, leaves.offsets, cull
         )
     return ray_leaves_occluded(
-        p_adv, d, t_cap, leaves.centers, leaves.normals, leaves.radii, spheres
+        p_adv, d, t_cap, leaves.centers, leaves.normals, leaves.radii, cull
     )

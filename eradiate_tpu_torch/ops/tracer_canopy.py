@@ -42,7 +42,7 @@ from .bsdf_ops import (
     bsdf_sample_from_uniforms,
 )
 from ..kernels.leaf_intersect import fma
-from .canopy import leaf_nearest, leaf_occluded, leaf_spheres
+from .canopy import leaf_accel, leaf_nearest, leaf_occluded
 from .fastrng import bounce_uniforms, derive_keys, origin_uniforms
 from .medium import clamp_mu, take_1d, tau_at_z, z_at_tau
 from .mesh import tri_accel, tri_nearest, tri_occluded
@@ -120,7 +120,7 @@ def _canopy_helpers(config, medium_row, leaves, illum_row, tris=None):
     mu_sun = clamp_mu(-d_sun[2])
     w_sun = -d_sun
     E_sun = illum_row.irradiance
-    accel = leaf_spheres(leaves)
+    accel = leaf_accel(leaves)
     tris_accel = None if tris is None else tri_accel(tris)
 
     def tau_z(z):

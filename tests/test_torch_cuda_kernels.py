@@ -10,11 +10,17 @@ time). Run them on a machine with a card with
 for the reference's tests, which these tests do not use.)
 
 They are a quick form of what ``chip_smoke.py`` checks at full size: each
-leaf-sweep kernel equals its plain version bit for bit, on random disks with
-rays aimed at their rims (a stress of the kernels' conservative culls), at a
-ragged lane count, from origins near the disks and from origins a hundred
-times farther away (where float32 rounding of the ray moves the hit point by
-a sizeable part of a disk, and the culls' margins have to grow with it).
+sweep kernel equals its plain version bit pattern for bit pattern (so that a
+-0.0 is not taken for a +0.0). Each leaf-sweep kernel is held on random
+disks with rays aimed at their rims (a stress of the kernels' conservative
+culls), at a ragged lane count, from origins near the disks and from origins
+a hundred times farther away (where float32 rounding of the ray moves the
+hit point by a sizeable part of a disk, and the culls' margins have to grow
+with it), and on disks whose normals have components of exactly +-0 (the
+winner's -0.0 comes out +0.0); the flat ones, which traverse a bounding
+volume hierarchy, also with direction components exactly +-0 along the
+planes of the disks' box faces, at grazing incidence, and on exact ties of
+the hit distance inside one 512-disk chunk and across two.
 The triangle-sweep kernels are held the same way on a wood skeleton (closed
 cylinders) with rays aimed at shared edges and vertices; the flat ones, which
 traverse a bounding volume hierarchy, also with direction components exactly
@@ -31,9 +37,9 @@ import torch
 from eradiate_tpu_torch.kernels import leaf_intersect as li
 from eradiate_tpu_torch.kernels import shell_flight as sf
 from eradiate_tpu_torch.kernels import tri_intersect as ti
-from eradiate_tpu_torch.ops.canopy import morton_order
 from eradiate_tpu_torch.ops.mesh import mesh_from_vertices
 from eradiate_tpu_torch.ops.spherical import TAU_BLOCKED
+from eradiate_tpu_torch.test_tools import disks
 from eradiate_tpu_torch.test_tools.meshes import axis_rays, edge_rays, tie_soup, wood_skeleton
 
 pytestmark = pytest.mark.cuda
@@ -46,28 +52,45 @@ def card():
     return torch.device("cuda")
 
 
-def rim_problem(B, seed, instanced, far=False):
+def same_bits(got, want):
+    """Every output equal bit pattern for bit pattern (floats as int32)."""
+    for g, w in zip(got, want):
+        if g.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+
+
+def rim_problem(B, seed, instanced, far=False, zero_normals=False):
+    """700 random disks (at three offsets when ``instanced``) and rays at
+    their rims from 0.5-3 units (``far``: 100x farther); ``zero_normals``
+    gives every normal a component of exactly +-0."""
     rng = np.random.default_rng(seed)
-    N = 700
-    c = rng.uniform(-1, 1, (N, 3))
-    c = c[morton_order(c)]
-    n = rng.normal(size=(N, 3))
-    n /= np.linalg.norm(n, axis=1, keepdims=True)
-    r = rng.uniform(0.05, 0.2, N)
-    offsets = np.array([[0.0, 0, 0], [5.0, 0, 0], [0, 7.0, 0]]) if instanced else np.zeros((1, 3))
-    leaf = rng.integers(0, N, B)
-    u = np.cross(n[leaf], rng.normal(size=(B, 3)))
-    u /= np.linalg.norm(u, axis=1, keepdims=True)
-    scale = 1 + rng.choice([0.0, 1e-7, -1e-7, 1e-6, -1e-6, -0.5], B)
-    rim = c[leaf] + (r[leaf] * scale)[:, None] * u + offsets[rng.integers(0, len(offsets), B)]
-    back = rng.normal(size=(B, 3))
-    back /= np.linalg.norm(back, axis=1, keepdims=True)
-    dist = rng.uniform(0.5, 3.0, B) * (100.0 if far else 1.0)
-    t_max = dist * rng.choice([2.0, 1.0, 1 + 1e-7, 1 - 1e-7], B)
-    arrays = [rim + back * dist[:, None], -back, t_max, c, n, r]
+    c, n, r = disks.random_disks(rng, 700)
+    if zero_normals:
+        n = disks.zero_normal_disks(rng, n, share=1.0)
+    offsets = np.array([[0.0, 0, 0], [5.0, 0, 0], [0, 7.0, 0]]) if instanced else None
+    arrays = [*disks.rim_rays(rng, B, c, n, r, offsets, 100.0 if far else 1.0), c, n, r]
     if instanced:
         arrays.append(offsets)
     return [np.asarray(a, np.float32) for a in arrays]
+
+
+def _held(mod, name, args, slice_lanes=2**14):
+    """Launch sweep ``name`` of module ``mod`` once and hold it against its
+    plain version (in slices of lanes: its [B, 512] float64 temporaries) on
+    every lane, bit pattern for bit pattern."""
+    before = mod.launches[name]
+    got = getattr(mod, name)(*args)
+    torch.cuda.synchronize()
+    assert mod.launches[name] == before + 1
+    got = got if isinstance(got, tuple) else (got,)
+    want = []
+    for start in range(0, args[0].shape[0], slice_lanes):
+        sl = [a[start : start + slice_lanes] for a in args[:3]]
+        out = getattr(mod, name + "_plain")(*sl, *args[3:])
+        want.append(out if isinstance(out, tuple) else (out,))
+    same_bits(got, [torch.cat(w) for w in zip(*want)])
+    return got
 
 
 @pytest.mark.parametrize(
@@ -78,16 +101,37 @@ def rim_problem(B, seed, instanced, far=False):
 @pytest.mark.parametrize("far", [False, True])
 def test_leaf_kernel_equals_plain_version(card, name, B, far):
     problem = rim_problem(B, 3, name.endswith("instanced"), far)
-    args = [torch.tensor(a, device=card) for a in problem]
-    before = li.launches[name]
-    got = getattr(li, name)(*args)
-    torch.cuda.synchronize()
-    assert li.launches[name] == before + 1
-    want = getattr(li, name + "_plain")(*args)
-    got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    got = _held(li, name, [torch.tensor(a, device=card) for a in problem])
     assert got[-1].any() or B == 1
+
+
+@pytest.mark.parametrize(
+    "name", ["ray_leaves_nearest", "ray_leaves_nearest_instanced"]
+)
+def test_leaf_kernel_zero_normals(card, name):
+    """Winners with a normal component of -0.0: the kernels return +0.0, as
+    the plain versions and the reference do."""
+    problem = rim_problem(100_037, 4, name.endswith("instanced"), zero_normals=True)
+    n = problem[4]
+    assert (np.signbit(n) & (n == 0)).any()
+    got = _held(li, name, [torch.tensor(a, device=card) for a in problem])
+    assert got[2].any() and not torch.signbit(got[1][got[1] == 0]).any()
+
+
+@pytest.mark.parametrize("name", ["ray_leaves_nearest", "ray_leaves_occluded"])
+@pytest.mark.parametrize("case", ["ties", "zero components near", "zero components far",
+                                  "grazing"])
+def test_flat_leaf_kernel_stress(card, name, case):
+    rng = np.random.default_rng(9)
+    if case == "ties":
+        table, rays = disks.tie_disks(rng, 30_011)
+    else:
+        table = disks.random_disks(rng, 700)
+        make = disks.grazing_rays if case == "grazing" else disks.axis_rays
+        rays = make(rng, 100_037, *table, distance=100.0 if case.endswith("far") else 1.0)
+    args = [torch.tensor(np.asarray(a, np.float32), device=card) for a in (*rays, *table)]
+    got = _held(li, name, args)
+    assert got[-1].any()
 
 
 def edge_problem(B, seed, instanced, far=False):
@@ -112,38 +156,8 @@ def edge_problem(B, seed, instanced, far=False):
 @pytest.mark.parametrize("far", [False, True])
 def test_tri_kernel_equals_plain_version(card, name, B, far):
     problem = edge_problem(B, 3, name.endswith("instanced"), far)
-    args = [torch.tensor(a, device=card) for a in problem]
-    before = ti.launches[name]
-    got = getattr(ti, name)(*args)
-    torch.cuda.synchronize()
-    assert ti.launches[name] == before + 1
-    got = got if isinstance(got, tuple) else (got,)
-    want = []
-    for start in range(0, B, 2**14):  # the plain version's [B, 512] float64 temporaries
-        sl = [a[start : start + 2**14] for a in args[:3]]
-        out = getattr(ti, name + "_plain")(*sl, *args[3:])
-        want.append(out if isinstance(out, tuple) else (out,))
-    for g, w in zip(got, zip(*want)):
-        assert torch.equal(g, torch.cat(w))
+    got = _held(ti, name, [torch.tensor(a, device=card) for a in problem])
     assert got[-1].any() or B == 1
-
-
-def _held(name, args, slice_lanes=2**14):
-    """Launch ``name`` once and hold it against its plain version (in slices
-    of lanes: its [B, 512] float64 temporaries) on every lane."""
-    before = ti.launches[name]
-    got = getattr(ti, name)(*args)
-    torch.cuda.synchronize()
-    assert ti.launches[name] == before + 1
-    got = got if isinstance(got, tuple) else (got,)
-    want = []
-    for start in range(0, args[0].shape[0], slice_lanes):
-        sl = [a[start : start + slice_lanes] for a in args[:3]]
-        out = getattr(ti, name + "_plain")(*sl, *args[3:])
-        want.append(out if isinstance(out, tuple) else (out,))
-    for g, w in zip(got, zip(*want)):
-        assert torch.equal(g, torch.cat(w))
-    return got
 
 
 @pytest.mark.parametrize("name", ["ray_tris_nearest", "ray_tris_occluded"])
@@ -158,7 +172,7 @@ def test_flat_tri_kernel_stress(card, name, case):
         tris = (soup.v0, soup.e1, soup.e2)
         rays = axis_rays(rng, 100_037, soup, 1e-3 if case.endswith("far") else 1e-5)
     args = [torch.tensor(np.ascontiguousarray(a), device=card) for a in (*rays, *tris)]
-    got = _held(name, args)
+    got = _held(ti, name, args)
     assert got[-1].any()
 
 

@@ -1,9 +1,10 @@
 """The flat triangle kernels' bounding volume hierarchy, on the CPU.
 
 ``eradiate_tpu_torch/kernels/tri_intersect.py`` builds the hierarchy the flat
-CUDA kernels traverse (``tri_bvh``) and keeps plain twins of what the kernels
-do with it: the box test of the cull (``bvh_leaves_reached_plain``, float32,
-the kernels' margins and NaN rule) and the traversal's order-free tie rule
+CUDA kernels traverse (``tri_bvh``, on the builder of ``kernels/bvh.py`` that
+the flat leaf sweeps share) and keeps plain twins of what the kernels do with
+it: the box test of the cull (``bvh_leaves_reached_plain``, float32, the
+kernels' margins and NaN rule) and the traversal's order-free tie rule
 (``ray_tris_nearest_bvh_plain``). The kernels run only on the card, where
 ``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py`` hold them against
 the plain versions bit for bit. Here:
@@ -11,7 +12,8 @@ the plain versions bit for bit. Here:
 - the structure is valid: every triangle in exactly one leaf, leaf boxes
   around their triangles' vertices, parent boxes the exact unions of their
   children's, the depth within the stack, two builds bitwise equal, the
-  re-laid-out triangles bitwise equal to the inputs by original index;
+  re-laid-out triangles bitwise equal to the inputs by original index, and
+  the bytes of a seeded skeleton's hierarchy pinned by their digest;
 - the cull is conservative: every triangle the dense sweep accepts lies in a
   leaf the twin reaches, for rays aimed at shared edges and vertices from
   near and from 100x farther, rays with direction components exactly +-0,
@@ -22,6 +24,8 @@ the plain versions bit for bit. Here:
   jitted reference's (``hit`` equal, ``t`` within 4 ulp, normals 1e-6).
 """
 
+import hashlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +33,7 @@ import pytest
 import torch
 
 from eradiate_tpu.ops import mesh as ref
+from eradiate_tpu_torch.kernels import bvh as bvh_mod
 from eradiate_tpu_torch.kernels import tri_intersect as ti
 from eradiate_tpu_torch.ops import mesh
 from eradiate_tpu_torch.test_tools.meshes import axis_rays, edge_rays, tie_soup, wood_skeleton
@@ -123,13 +128,26 @@ def test_builds_are_bitwise_equal():
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
+def test_build_bytes_are_pinned():
+    """The builder that the flat leaf sweeps share gives the bytes it gave
+    before it was shared: the digest of the seeded 60-branch skeleton's
+    hierarchy (nodes, then triangles) as ``tri_bvh`` built it when it held
+    the builder itself."""
+    s = skeleton(60)
+    b = ti.tri_bvh(*_t(s.v0, s.e1, s.e2))
+    h = hashlib.sha256(b.nodes.numpy().tobytes())
+    h.update(b.tris.numpy().tobytes())
+    assert b.depth == 12 and b.nodes.shape == (434, 16)
+    assert h.hexdigest() == "39e852be5e1b6c39266c6cbb9c8e47d2db2d8508bd50b3e86903612b2788ac95"
+
+
 def test_build_rejects_what_the_kernels_cannot_take(monkeypatch):
     s = skeleton()
     with pytest.raises(ValueError):
         ti.tri_bvh(*_t(s.v0[:0], s.e1[:0], s.e2[:0]))
     with pytest.raises(TypeError):
         ti.tri_bvh(*_t(s.v0.astype(np.float64), s.e1, s.e2))
-    monkeypatch.setattr(ti, "STACK", 3)  # 516 triangles in leaves of 4 need 8 levels
+    monkeypatch.setattr(bvh_mod, "STACK", 3)  # 516 triangles in leaves of 4 need 8 levels
     with pytest.raises(ValueError, match="deep"):
         ti.tri_bvh(*_t(s.v0, s.e1, s.e2))
 
@@ -186,7 +204,7 @@ def test_cull_is_conservative(kind):
     lo, hi = _t(lo[box], hi[box])
     for s in range(0, lanes.shape[0], 512):  # each pair's own box: the diagonal
         sl = slice(s, s + 512)
-        own = ti._box_reach(p[lanes[sl]], d[lanes[sl]], t_all[lanes[sl], tri[sl]], lo[sl], hi[sl])
+        own = bvh_mod._box_reach(p[lanes[sl]], d[lanes[sl]], t_all[lanes[sl], tri[sl]], lo[sl], hi[sl])
         assert torch.diagonal(own).all()
     t_hit, _, hit = ti.ray_tris_nearest_plain(p, d, t_max, *tris)
     at_best = accepted & (t_all == t_hit[:, None])
@@ -202,7 +220,7 @@ def test_zero_direction_component_on_a_box_face(monkeypatch):
     """The NaN rule: with no margin, a ray parallel to a face and lying in
     its plane gives 0 * inf = NaN on that axis, which bounds nothing; a ray
     one ulp outside the slab never reaches the box."""
-    monkeypatch.setattr(ti, "BOX_SLACK", 0.0)
+    monkeypatch.setattr(bvh_mod, "BOX_SLACK", 0.0)
     lo = torch.tensor([[0.0, 0.0, 0.0]])
     hi = torch.tensor([[1.0, 1.0, 1.0]])
     below = float(np.nextafter(np.float32(0.0), np.float32(-1.0)))
@@ -212,7 +230,7 @@ def test_zero_direction_component_on_a_box_face(monkeypatch):
     d = torch.tensor([[1.0, 0.0, 0.0], [1.0, -0.0, 0.0], [1.0, 0.0, 0.0],
                       [1.0, -0.0, 0.0], [1.0, 0.0, 0.0], [-1.0, -0.0, 0.0]])
     cap = torch.full((6,), 3.0)
-    got = ti._box_reach(p, d, cap, lo, hi)[:, 0]
+    got = bvh_mod._box_reach(p, d, cap, lo, hi)[:, 0]
     assert got.tolist() == [True, True, False, False, True, True]
 
 

@@ -109,9 +109,12 @@ def profile(form, scene):
               if "nearest_kernel" in name or "occluded_kernel" in name}
     for what in ("leaf", "triangle"):
         # the triangle kernels are bvh_{nearest,occluded}_kernel (flat) and
-        # tri_{nearest,occluded}_kernel (instanced)
+        # tri_{nearest,occluded}_kernel (instanced); the leaf kernels are
+        # leaf_bvh_{nearest,occluded}_kernel (flat) and
+        # {nearest,occluded}_kernel (instanced)
         ms = sum(t for name, t in sweeps.items()
-                 if ("tri_" in name or "bvh_" in name) == (what == "triangle")) / 1e3
+                 if ("tri_" in name or "bvh_" in name and "leaf_bvh_" not in name)
+                 == (what == "triangle")) / 1e3
         print(f"  {what} sweeps: {ms:.2f} ms, {ms / total_ms:.3f} of device time", flush=True)
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {t / 1e3:9.2f} ms  {t / 1e3 / total_ms:6.3f}  x{n:<6d} {name[:110]}", flush=True)
