@@ -65,14 +65,22 @@ script writes as an OBJ file into a temporary directory from a seed
     the canopy's box as the tracer clips them; a ragged lane count; rays
     that miss the box; and, as stresses of the culls, random disks with
     rays aimed at their rims from 0.5-3 units and from 100x farther, and
-    disks whose normals have components of exactly +-0. The flat kernels
-    traverse a bounding volume hierarchy built on the host once per render
-    (its build time, depth, leaves and size printed, a rebuild held bit for
-    bit, and the leaves a ray reaches): they are also held on exact ties of
+    disks whose normals have components of exactly +-0. All four traverse
+    a bounding volume hierarchy built on the host once per render, the flat
+    ones (``leaf_bvh_nearest_kernel``, ``leaf_bvh_occluded_kernel``) in one
+    level, the instanced ones (``leaf_ibvh_nearest_kernel``,
+    ``leaf_ibvh_occluded_kernel``) in two, the instances' boxes above the
+    canonical cloud's hierarchy (each build's time, depths, leaves and size
+    printed, a rebuild held bit for bit, and the leaves, or the instance
+    boxes and canonical leaves, a ray reaches). They are also held on rays
+    with direction components exactly +-0 along the planes of the disks'
+    box faces and rays at grazing incidence; the flat ones on exact ties of
     the hit distance inside one 512-disk chunk and across two (the copy
     across with the larger box, so that the traversal meets the higher
-    chunk first), rays with direction components exactly +-0 along the
-    planes of the disks' box faces, and rays at grazing incidence. Every
+    chunk first); the instanced ones on a tie table with ties also across
+    instances (opposite normals, the lower instance winning from a higher
+    chunk) and four coincident disks with normals n, n, n, -n, and on
+    instances 200 units from the world origin with rays from near it. Every
     output equal bit pattern for bit pattern on every lane, differing lanes
     counted and printed; each kernel timed with CUDA events (median of 25)
     at the path's lane count, its plain version once on a seeded subset of
@@ -626,8 +634,9 @@ def _canopy_inputs(exp, B, seed, miss=False, device="cuda"):
     the triangles, as the tracer does): returns ``(leaves, leaf cull operand,
     leaf rays, tris, triangle cull operand, triangle rays)``, the last three
     None for a canopy without triangles; the cull operands are
-    ``leaf_accel``'s and ``tri_accel``'s (the hierarchy of a flat table or
-    soup, the spheres of an instanced one)."""
+    ``leaf_accel``'s (the hierarchy of a flat table, the two-level one of
+    an instanced set) and ``tri_accel``'s (the hierarchy of a flat soup,
+    the group spheres of an instanced one)."""
     from eradiate_tpu_torch.ops.canopy import leaf_accel
     from eradiate_tpu_torch.ops.mesh import tri_accel
     from eradiate_tpu_torch.ops.scene_state import canopy_from_reference
@@ -647,20 +656,20 @@ def _canopy_inputs(exp, B, seed, miss=False, device="cuda"):
 
 
 def _disk_inputs(table, rays, offsets=None):
-    """Leaves (flat, or instanced at ``offsets``), their kernels' cull
-    operand (the flat kernels' hierarchy, the instanced ones' spheres) and
-    the rays, on the card."""
+    """Leaves (flat, or instanced at ``offsets``), their kernels' hierarchy
+    (one level, or two) and the rays, on the card."""
     import torch
 
-    from eradiate_tpu_torch.kernels.leaf_intersect import leaf_bvh, sweep_spheres
+    from eradiate_tpu_torch.kernels.leaf_intersect import leaf_bvh, leaf_instanced_bvh
     from eradiate_tpu_torch.ops.canopy import InstancedLeafArrays, LeafCloudArrays
 
     to_dev = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
     cloud = LeafCloudArrays(*(to_dev(a) for a in table))
     if offsets is None:
         return cloud, leaf_bvh(cloud.centers, cloud.normals, cloud.radii), tuple(map(to_dev, rays))
-    spheres = sweep_spheres(cloud.centers, cloud.normals, cloud.radii)
-    return InstancedLeafArrays(cloud, to_dev(offsets)), spheres, tuple(map(to_dev, rays))
+    leaves = InstancedLeafArrays(cloud, to_dev(offsets))
+    ibvh = leaf_instanced_bvh(cloud.centers, cloud.normals, cloud.radii, leaves.offsets)
+    return leaves, ibvh, tuple(map(to_dev, rays))
 
 
 def _rim_inputs(instanced, B, seed, far=False, zero_normals=False):
@@ -702,6 +711,38 @@ def _leaf_stress_inputs(kind, B, seed):
         make = disks.grazing_rays if kind == "grazing" else disks.axis_rays
         rays = make(rng, B, *table, distance=100.0 if kind.endswith("far") else 1.0)
     return _disk_inputs(table, rays)
+
+
+def _instanced_stress_inputs(kind, B, seed):
+    """Stresses of the instanced leaf kernels' two-level hierarchy
+    (``test_tools.disks``). ``"ties"``: the instanced tie table (600 disks
+    at three offsets along x, with exact ties inside a chunk, across two,
+    across instances with opposite normals, where the lower instance wins
+    from a higher chunk, and four coincident disks with normals n, n, n,
+    -n) and rays at its tied disks; ``"axes near"``/``"axes far"`` and
+    ``"grazing"``: 1000 random disks at three offsets and the rays of
+    ``axis_rays`` or ``grazing_rays`` in their frames; ``"far offsets"``:
+    1000 random disks at three offsets 200 units (100x the cloud's size)
+    from the world origin, and rays at their rims from origins within a
+    unit of the world origin. Returns ``(leaves, hierarchy, (p, d,
+    t_cap))``."""
+    from eradiate_tpu_torch.test_tools import disks
+
+    rng = np.random.default_rng(seed)
+    offsets = np.array([[0.0, 0, 0], [5.0, 0, 0], [0, 7.0, 0]])
+    if kind == "ties":
+        table, offsets, rays = disks.instanced_tie_disks(rng, B)
+        return _disk_inputs(table, rays, offsets)
+    table = disks.random_disks(rng, 1000)
+    if kind == "far offsets":
+        offsets = np.array([[200.0, 0, 0], [0, -200.0, 0], [140.0, 140.0, 30.0]])
+        rays = disks.rim_rays(rng, B, *table, offsets, origins=rng.uniform(-1, 1, (B, 3)))
+    elif kind == "grazing":
+        rays = disks.grazing_rays(rng, B, *table, offsets=offsets)
+    else:
+        rays = disks.axis_rays(rng, B, *table, 100.0 if kind.endswith("far") else 1.0,
+                               offsets)
+    return _disk_inputs(table, rays, offsets)
 
 
 def _edge_inputs(instanced, B, seed, far, device="cuda"):
@@ -871,6 +912,34 @@ def _leaves_reached(bvh, rays, caps, subset, lanes=256):
     return [n / p.shape[0] for n in sums]
 
 
+def _instances_reached(ibvh, rays, caps, subset, lanes=256):
+    """Per ray of ``subset`` and for each cap of ``caps``, the mean instance
+    boxes whose top leaf the instanced kernels' world-ray cull reaches, and
+    the mean canonical leaves that the translated ray reaches in those
+    instances: ``[(instances, canonical leaves), ...]``."""
+    import torch
+
+    from eradiate_tpu_torch.kernels import bvh as hierarchy
+
+    p, d = rays[0][subset], rays[1][subset]
+    I = ibvh.instances.shape[0]
+    inst_leaf = torch.from_numpy(hierarchy.leaf_of_row(ibvh.top, I)).to(p.device)
+    top_lo, top_hi = (torch.from_numpy(x).to(p.device) for x in hierarchy.bvh_leaves(ibvh.top)[2:])
+    lo, hi = (torch.from_numpy(x).to(p.device)
+              for x in hierarchy.bvh_leaves(ibvh.canonical)[2:])
+    sums = [[0, 0] for _ in caps]
+    for start in range(0, p.shape[0], lanes):
+        sl = slice(start, start + lanes)
+        for k, cap in enumerate(caps):
+            c = cap[subset][sl]
+            on = hierarchy._box_reach(p[sl], d[sl], c, top_lo, top_hi)[:, inst_leaf]  # [L, I]
+            sums[k][0] += int(on.sum())
+            for j in range(I):
+                leaves = hierarchy._box_reach(p[sl] - ibvh.instances[j, :3], d[sl], c, lo, hi)
+                sums[k][1] += int((leaves & on[:, j : j + 1]).sum())
+    return [(a / p.shape[0], b / p.shape[0]) for a, b in sums]
+
+
 def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
                         plain_lanes=PLAIN_LANES):
     """The two sweep kernels (nearest and any hit) of one leaf set or one
@@ -888,8 +957,9 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
     exact tests the data needs at item granularity (:func:`_item_pairs` on
     the plain version's lanes, scaled to all lanes), ~30 float32 operations
     a disk test and ~45 a Moller-Trumbore test. For the flat kernels, the
-    leaves of their hierarchy that a ray reaches are printed too, with the
-    cap at the nearest hit and at ``t_max``."""
+    leaves of their hierarchy that a ray reaches are printed too, and for
+    the instanced leaf kernels the instance boxes and canonical leaves,
+    with the cap at the nearest hit and at ``t_max``."""
     import torch
 
     from eradiate_tpu_torch.kernels import bvh as hierarchy
@@ -953,13 +1023,20 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
                           f"{times[kernel][1]:.1f} ms at {n_plain} lanes, {pairs / B:.2f} "
                           f"exact tests a ray at item granularity, bound "
                           f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
+            lanes = subset if subset is not None else torch.arange(B, device=rays[0].device)
             if isinstance(cull, (ti.TriBVH, li.LeafBVH)) and len(got) == 3:
-                lanes = subset if subset is not None else torch.arange(B, device=rays[0].device)
                 at_hit, at_max = _leaves_reached(cull, rays, (got[0], rays[2]), lanes)
                 notes[-1] += (f"; the hierarchy's leaves a ray reaches: {at_hit:.2f} with the "
                               f"cap at the nearest hit, {at_max:.2f} with t_max ("
                               f"{n_items / hierarchy.bvh_leaves(cull)[0].size:.2f} "
                               f"{'disks' if is_leaves else 'triangles'} a leaf)")
+            if isinstance(cull, li.InstancedLeafBVH) and len(got) == 3:
+                (ih, lh), (im, lm) = _instances_reached(cull, rays, (got[0], rays[2]), lanes)
+                notes[-1] += (f"; a ray reaches {ih:.2f} instance boxes and {lh:.2f} canonical "
+                              f"leaves in them with the cap at the nearest hit, {im:.2f} and "
+                              f"{lm:.2f} with t_max ("
+                              f"{n_items / hierarchy.bvh_leaves(cull.canonical)[0].size:.2f} "
+                              f"disks a leaf)")
     held_on = "every lane" if subset is None else f"{n_plain} seeded lanes"
     print(f"  {name}: B={B} N={n_items}"
           + (f" I={offsets.shape[0]}" if offsets is not None else "")
@@ -969,12 +1046,26 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
     return errs, times, bounds
 
 
-def check_rebuild(label, cull, build):
-    """Build a flat table's or soup's hierarchy once more on the host
-    (``build``), timed, print its depth and size, and hold it bit for bit
-    against ``cull``, the build of the same inputs; returns the seconds."""
+def _fields(obj, prefix=""):
+    """{name: value} of a hierarchy's fields, nested hierarchies flattened
+    (``canonical.nodes``)."""
     import dataclasses
 
+    out = {}
+    for f in dataclasses.fields(obj):
+        value = getattr(obj, f.name)
+        if dataclasses.is_dataclass(value):
+            out.update(_fields(value, f"{prefix}{f.name}."))
+        else:
+            out[prefix + f.name] = value
+    return out
+
+
+def check_rebuild(label, cull, build):
+    """Build a table's or soup's hierarchy once more on the host
+    (``build``), timed, print its depths and size, and hold it bit for bit
+    against ``cull``, the build of the same inputs, every field and every
+    nested hierarchy's field; returns the seconds."""
     import torch
 
     from eradiate_tpu_torch.kernels import bvh as hierarchy
@@ -983,15 +1074,22 @@ def check_rebuild(label, cull, build):
     again = build()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    arrays = [f.name for f in dataclasses.fields(cull) if f.name != "depth"]
-    same = again.depth == cull.depth and all(
-        torch.equal(getattr(again, k).view(torch.int32), getattr(cull, k).view(torch.int32))
-        for k in arrays
+    want, got = _fields(cull), _fields(again)
+    arrays = {k: v for k, v in want.items() if isinstance(v, torch.Tensor)}
+    same = want.keys() == got.keys() and all(
+        torch.equal(got[k].view(torch.int32), v.view(torch.int32)) if k in arrays
+        else got[k] == v
+        for k, v in want.items()
     )
-    print(f"  {label} hierarchy: N={getattr(cull, arrays[1]).shape[0]} built on the host in "
-          f"{seconds:.3f} s, depth {cull.depth}, {cull.nodes.shape[0]} inner nodes, "
-          f"{hierarchy.bvh_leaves(cull)[0].size} leaves, "
-          f"{sum(getattr(cull, k).numel() for k in arrays) * 4 / 2**20:.2f} MiB; rebuilt "
+    depths = ", ".join(f"{k} {v}" for k, v in want.items() if k not in arrays)
+    items = next(v for k, v in arrays.items() if k.endswith(("disks", "tris")))
+    nodes = next(v for k, v in arrays.items() if k.endswith("nodes"))
+    print(f"  {label} hierarchy: N={items.shape[0]}"
+          + (f" I={want['instances'].shape[0]} ({want['top'].shape[0]} top nodes)"
+             if "instances" in want else "")
+          + f" built on the host in {seconds:.3f} s, {depths}, {nodes.shape[0]} inner "
+          f"nodes, {hierarchy.bvh_leaves(nodes)[0].size} leaves, "
+          f"{sum(v.numel() for v in arrays.values()) * 4 / 2**20:.2f} MiB; rebuilt "
           f"bitwise equal: {same}", flush=True)
     if not same:
         raise AssertionError(f"two builds of the {label} hierarchy differ")
@@ -1196,7 +1294,7 @@ def main():
 
     import eradiate_tpu_torch as etp
     from eradiate_tpu_torch.kernels import _build
-    from eradiate_tpu_torch.kernels.leaf_intersect import leaf_bvh
+    from eradiate_tpu_torch.kernels.leaf_intersect import leaf_bvh, leaf_instanced_bvh
     from eradiate_tpu_torch.kernels.tri_intersect import tri_bvh
     from eradiate_tpu_torch.ops.tracer import REGEN_LANES_TARGET, lane_partition
     from eradiate_tpu_torch.ops.tracer_canopy import LANES_TARGET as CANOPY_LANES_TARGET
@@ -1305,7 +1403,8 @@ def main():
             name = block.split("'")[1]
             regs = [ln.strip() for ln in block.splitlines() if "registers" in ln or "spill" in ln]
             print(f"    {name}: {'; '.join(regs)}", flush=True)
-    for kernel in ("leaf_bvh_nearest_kernel", "leaf_bvh_occluded_kernel", "bvh_nearest_kernel",
+    for kernel in ("leaf_bvh_nearest_kernel", "leaf_bvh_occluded_kernel",
+                   "leaf_ibvh_nearest_kernel", "leaf_ibvh_occluded_kernel", "bvh_nearest_kernel",
                    "bvh_occluded_kernel"):
         if kernel not in report:
             raise AssertionError(f"the library has no {kernel}")
@@ -1341,8 +1440,9 @@ def main():
     # -- 11. leaf-sweep kernels against their plain versions ----------------
     print("[11] leaf-sweep kernels against their plain versions: the flat ones "
           "(ray_leaves_nearest, ray_leaves_occluded) traverse a bounding volume hierarchy "
-          "(leaf_bvh_nearest_kernel, leaf_bvh_occluded_kernel), the instanced ones sweep "
-          "group spheres (nearest_kernel, occluded_kernel)", flush=True)
+          "(leaf_bvh_nearest_kernel, leaf_bvh_occluded_kernel), the instanced ones a "
+          "hierarchy of two levels, instance boxes above the canonical cloud's hierarchy "
+          "(leaf_ibvh_nearest_kernel, leaf_ibvh_occluded_kernel)", flush=True)
     lp = lane_partition(N_VZA_C5, SPP_C5, CANOPY_LANES_TARGET["cuda"], "cpu")[0]
     B5 = N_VZA_C5 * lp
     sweep_errs, sweep_times, sweep_bounds = {}, {}, {}
@@ -1352,6 +1452,10 @@ def main():
         if form == "flat":
             check_rebuild("HET01 flat", cull,
                           lambda: leaf_bvh(leaves.centers, leaves.normals, leaves.radii))
+        else:
+            base = leaves.canonical
+            check_rebuild("HET01 instanced", cull, lambda: leaf_instanced_bvh(
+                base.centers, base.normals, base.radii, leaves.offsets))
         errs, times, bounds = check_sweep_kernels(
             f"HET01 {form}, the path's lane count", leaves, cull, rays, seed=20, timed=True
         )
@@ -1379,6 +1483,20 @@ def main():
                  lambda: _leaf_stress_inputs("axes far", 2**17, 26)),
                 ("random disks flat, grazing incidence",
                  lambda: _leaf_stress_inputs("grazing", 2**17, 27)),
+            ]
+        else:
+            cases += [
+                ("instanced disk tie table, exact ties inside a chunk, across chunks, "
+                 "across instances and four coincident disks",
+                 lambda: _instanced_stress_inputs("ties", 2**17, 24)),
+                ("random disks instanced, zero direction components, from 0.5-3 units",
+                 lambda: _instanced_stress_inputs("axes near", 2**17, 25)),
+                ("random disks instanced, zero direction components, from 50-300 units",
+                 lambda: _instanced_stress_inputs("axes far", 2**17, 26)),
+                ("random disks instanced, grazing incidence",
+                 lambda: _instanced_stress_inputs("grazing", 2**17, 27)),
+                ("random disks instanced 200 units from the world origin, rays from near it",
+                 lambda: _instanced_stress_inputs("far offsets", 2**17, 28)),
             ]
         for label, make in cases:
             more, _, _ = check_sweep_kernels(label, *make(), seed=21)

@@ -1,12 +1,24 @@
-// Device code shared by the flat sweep kernels of tri_intersect.cu and
-// leaf_intersect.cu: the ray, the order-free nearest-hit record, and the
-// traversal of the bounding volume hierarchy that the host builds once per
-// render (eradiate_tpu_torch/kernels/bvh.py).
+// Device code shared by the flat sweep kernels of tri_intersect.cu and the
+// leaf kernels of leaf_intersect.cu: the ray, the order-free nearest-hit
+// record, and the traversal of the bounding volume hierarchy that the host
+// builds once per render (eradiate_tpu_torch/kernels/bvh.py), in one level
+// or in two.
 //
 // The hierarchy: a binary tree, each inner node four float4 in the layout of
 // Aila and Laine (2009): both children's boxes, then their codes. A code >= 0
 // is an inner node; a code < 0 is the leaf ~(first << kLeafBits | count),
 // count (at most kLeaf) item rows from first. Row 0 is the root.
+//
+// Two levels (instanced tables): a top hierarchy whose items are instances,
+// float4 (offset, original row's bits), each instance's box the canonical
+// root box moved by its offset and grown by kBoxSlack |offset|_1 (bvh.py
+// instance_level), above the canonical hierarchy in its own frame. The
+// world ray walks the top; at a top leaf, each instance translates the ray,
+// p - offset (one float32 subtraction per component, as the reference), and
+// the translated ray walks the canonical hierarchy. Both walks read the same
+// cap. The growth makes the world test's margin at least the translated
+// one's (|p - offset|_1 <= |p|_1 + |offset|_1), so an instance whose
+// canonical items the translated walk would reach is reached.
 //
 // The cull is conservative. A box is grown by delta = kBoxSlack times the
 // coordinates' magnitude (the L1 distance to the box's far corner plus |p|),
@@ -34,6 +46,7 @@ constexpr int kChunk = 512;   // items per tie-averaging chunk (CHUNK)
 constexpr int kLeaf = 4;      // most items per leaf (LEAF)
 constexpr int kLeafBits = 3;  // leaf code ~(first << 3 | count)
 constexpr int kStack = 64;    // traversal stack entries (STACK)
+constexpr int kTopStack = 16; // the two-level walk's outer stack (TOP_STACK)
 constexpr int kDone = INT_MIN;      // no node left; no leaf has this code
 constexpr int kNoChunk = INT_MAX;   // no hit yet
 constexpr float kEpsT = 1e-7f;
@@ -178,16 +191,16 @@ __device__ __forceinline__ int descend(const Ray& r, const Slab& s, float cap,
   return sp > 0 ? stack[--sp] : kDone;
 }
 
-// Walk the hierarchy with a while-while loop and a stack of kStack entries in
+// Walk the hierarchy with a while-while loop and a stack of Stack entries in
 // local memory: visit(first, end) for the item rows of each leaf that the
 // segment reaches with the cap `cap`, which is read at every step (the
 // nearest hit passes its running best t, so later boxes cull against it).
 // Stops early where visit returns true.
-template <class Visit>
+template <int Stack = kStack, class Visit>
 __device__ __forceinline__ void traverse(const Ray& r, const float& cap,
                                          const float4* __restrict__ nodes, Visit visit) {
   const Slab s = make_slab(r);
-  int stack[kStack];
+  int stack[Stack];
   int sp = 0;
   int node = 0;  // the root is an inner node
   for (;;) {
@@ -198,6 +211,34 @@ __device__ __forceinline__ void traverse(const Ray& r, const float& cap,
     if (visit(first, first + (leaf & ((1 << kLeafBits) - 1)))) return;
     node = sp > 0 ? stack[--sp] : kDone;
   }
+}
+
+// The two-level walk: the world ray r over the top hierarchy `top`, and at
+// each instance row j of a top leaf that it reaches (instances[j] = (offset,
+// original row's bits)) the translated ray over the canonical hierarchy
+// `nodes`, both with the cap `cap`: visit(ri, row, first, end) for the item
+// rows of each canonical leaf reached, with the translated ray ri and the
+// instance's original row. Stops early where visit returns true.
+template <class Visit>
+__device__ __forceinline__ void traverse_instances(const Ray& r, const float& cap,
+                                                   const float4* __restrict__ top,
+                                                   const float4* __restrict__ instances,
+                                                   const float4* __restrict__ nodes,
+                                                   Visit visit) {
+  traverse<kTopStack>(r, cap, top, [&](int first, int end) {
+    for (int j = first; j < end; ++j) {
+      const float4 o = __ldg(instances + j);
+      const Ray ri = make_ray(r.px - o.x, r.py - o.y, r.pz - o.z, r.dx, r.dy, r.dz);
+      const int row = __float_as_int(o.w);
+      bool stop = false;
+      traverse(ri, cap, nodes, [&](int a, int b) {
+        stop = visit(ri, row, a, b);
+        return stop;
+      });
+      if (stop) return true;
+    }
+    return false;
+  });
 }
 
 int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }

@@ -3,6 +3,7 @@
 //
 // Replaces the TPU kernels ray_leaves_nearest_pallas,
 // ray_leaves_occluded_pallas and their instanced forms
+// ray_leaves_nearest_instanced_pallas and ray_leaves_occluded_instanced_pallas
 // (eradiate_tpu/ops/pallas/leaf_intersect.py). They compute what the
 // reference's XLA functions compute (ops/canopy.py ray_leaves_nearest,
 // ray_leaves_occluded, _instanced_nearest_xla and the instance scan of
@@ -21,33 +22,33 @@
 // summed into a zero, as the reference's masked sum: -0.0 comes out +0.0.
 // Misses keep t = t_max and the normal (0, 0, 1).
 //
-// Flat tables (ray_leaves_nearest, ray_leaves_occluded): one thread per ray,
-// 128 rays per block, no shared memory and no block-wide barrier. Each
-// thread walks a binary bounding volume hierarchy of the disks' own boxes
-// that the host builds once per render (kernels/leaf_intersect.py leaf_bvh;
-// the traversal, the box test and the order-free tie rule are bvh.cuh's,
-// shared with the flat triangle kernels). A leaf's disks are three float4
-// each, (c, original index's bits), (n, r), (r^2, c.n), loaded with __ldg.
-// The nearest hit visits the nearer child first and culls boxes against its
-// running best t; it sums tied normals in float64, so the result does not
-// depend on the visit order; the any hit stops at its first hit. A disk's
-// box is c +- r sqrt(1 - n_i^2) on each axis: the point q the exact test
-// accepts lies within r of c, off the disk's plane only by the rounding of
-// c.n - p.n, and on the ray's line at the computed t (up to the rounding of
-// the fused multiply-add), which the box margin covers (bvh.cuh).
+// All four kernels: one thread per ray, 128 rays per block, no shared memory
+// and no block-wide barrier. Each thread walks a binary bounding volume
+// hierarchy that the host builds once per render, with bvh.cuh's traversal,
+// box test and order-free tie rule (shared with the flat triangle kernels).
+// A leaf's disks are three float4 each, (c, original index's bits), (n, r),
+// (r^2, c.n), loaded with __ldg. The nearest hit visits the nearer child
+// first and culls boxes against its running best t; it sums tied normals in
+// float64, so the result does not depend on the visit order; the any hit
+// stops at its first hit. A disk's box is c +- r sqrt(1 - n_i^2) on each
+// axis: the point q the exact test accepts lies within r of c, off the
+// disk's plane only by the rounding of c.n - p.n, and on the ray's line at
+// the computed t (up to the rounding of the fused multiply-add), which the
+// box margin covers (bvh.cuh).
 //
-// Instanced tables: a sweep of sphere-culled groups. Leaves come in groups
-// of 128 consecutive (Morton-ordered) leaves, each with a bounding sphere
-// (spheres row 1 + g; row 0 bounds the whole table and serves as the
-// per-instance sphere). A block stages a group in shared memory (9 floats
-// per leaf, 4.5 KB) when __syncthreads_or says any of its rays can reach the
-// group's sphere within its current cap; each thread tests only groups it
-// reaches itself. The nearest sweep keeps its best t as the running cap, so
-// later spheres cull against it; the any-hit sweep retires a ray at its
-// first hit. Its sphere cull is conservative: the group sphere's radius^2 is
-// inflated by 1e-4 relative, and the test by a margin that scales with the
-// magnitude of the coordinates, several times what float32 rounding can
-// move it.
+// Flat tables (ray_leaves_nearest, ray_leaves_occluded): the hierarchy of
+// the disks' own boxes (kernels/leaf_intersect.py leaf_bvh); the tie key is
+// the chunk, original index / 512.
+//
+// Instanced tables (ray_leaves_{nearest,occluded}_instanced): two levels
+// (leaf_instanced_bvh, bvh.cuh traverse_instances). The world ray walks a
+// small hierarchy of the instances' boxes; at each instance it reaches, the
+// ray translated into the instance's frame walks the canonical cloud's
+// hierarchy, stored once, with the same running cap, so a hit in a near
+// instance culls the boxes of the far ones. The tie key is instance *
+// ceil(N / 512) + index / 512, the instance being the offset's original
+// row, so that the lower (instance, chunk) wins a tie whatever the order in
+// which the walk meets them.
 //
 // In both forms a ray first asks whether its line passes within the disk's
 // radius of the disk's centre (no division), and only then runs the exact
@@ -57,18 +58,17 @@
 // and plain versions agree bit for bit.
 //
 // What bounds it on this card: the leaf table and its hierarchy are ~2 MB
-// and stay in L2, each ray moves 28 bytes in and 17 (nearest) or 1 (any hit)
-// out, and each exact disk test is ~30 float32 operations with one
-// division, each box test ~45 more: the sweep is bound by the box and disk
-// tests its cull leaves a ray.
+// (flat) or ~0.15 MB (instanced) and stay in L2, each ray moves 28 bytes in
+// and 17 (nearest) or 1 (any hit) out, and each exact disk test is ~30
+// float32 operations with one division, each box test ~45 more: the sweep
+// is bound by the box and disk tests its cull leaves a ray, and by the
+// divergence of the walks within a warp.
 
 #include "bvh.cuh"
 
 namespace {
 
-constexpr int kGroup = 128;   // leaves per bounding sphere (GROUP)
 constexpr float kDnMin = 1e-12f;
-constexpr float kCullSlack = 1.0001f;
 constexpr float kLineSlack = 2e-6f;  // ~8 float32 ulp of the distance to a disk
 
 // One disk: centre, unit normal, radius^2, c.n (plain products and sums), r.
@@ -109,9 +109,7 @@ __device__ __forceinline__ float disk_hit(const Ray& r, float t_max, const Disk&
   return ok ? t : -1.0f;
 }
 
-// ---------------------------------------------------------------------------
-// Flat tables: the hierarchy's traversal.
-
+// Disk row k of a hierarchy's leaf-ordered table, and its original index.
 __device__ __forceinline__ Disk load_disk(const float4* __restrict__ disks, int k,
                                           int& index) {
   const float4 a = __ldg(disks + 3 * k);
@@ -120,6 +118,9 @@ __device__ __forceinline__ Disk load_disk(const float4* __restrict__ disks, int 
   index = __float_as_int(a.w);
   return Disk{a.x, a.y, a.z, n.x, n.y, n.z, e.x, e.y, n.w};
 }
+
+// ---------------------------------------------------------------------------
+// Flat tables: the hierarchy's traversal.
 
 __global__ void __launch_bounds__(kThreads)
 leaf_bvh_nearest_kernel(const float* __restrict__ p, const float* __restrict__ d,
@@ -171,190 +172,63 @@ leaf_bvh_occluded_kernel(const float* __restrict__ p, const float* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// Instanced tables: the sphere-culled staged sweep.
-
-// One staged group: SoA rows cx cy cz nx ny nz r2 cn r.
-struct Group {
-  float v[9][kGroup];
-};
-
-__device__ __forceinline__ Disk staged(const Group& g, int k) {
-  return Disk{g.v[0][k], g.v[1][k], g.v[2][k], g.v[3][k], g.v[4][k],
-              g.v[5][k], g.v[6][k], g.v[7][k], g.v[8][k]};
-}
-
-// Can the segment p + t d, t in [0, cap], reach the sphere (conservative)?
-// The point the exact test accepts lies on the segment within a disk's radius
-// of its centre, up to the rounding of q = p + d t and of this test: an error
-// delta of about kLineSlack times the coordinates' magnitude. A sphere of
-// radius R + delta has to be reached; since 2 R delta <= 0.5e-4 R^2 + 2e4
-// delta^2, half of the relative slack on R^2 plus 2e4 delta^2 covers it at
-// any distance from the origin, and the other half the float32 rounding of
-// the sphere itself.
-__device__ __forceinline__ bool sphere_cull(const Ray& r, float cap,
-                                            const float* __restrict__ s) {
-  const float vx = s[0] - r.px, vy = s[1] - r.py, vz = s[2] - r.pz;
-  const float tc = fminf(fmaxf(r.dx * vx + r.dy * vy + r.dz * vz, 0.0f), cap);
-  const float ex = vx - r.dx * tc, ey = vy - r.dy * tc, ez = vz - r.dz * tc;
-  const float delta = kLineSlack * (fabsf(vx) + fabsf(vy) + fabsf(vz) + r.l1);
-  return ex * ex + ey * ey + ez * ez <= s[3] * kCullSlack + 2.0001e4f * (delta * delta);
-}
-
-__device__ __forceinline__ void stage_group(Group& g,
-                                            const float* __restrict__ centers,
-                                            const float* __restrict__ normals,
-                                            const float* __restrict__ radii,
-                                            int first, int count) {
-  for (int k = threadIdx.x; k < count; k += blockDim.x) {
-    const int i = first + k;
-    const float cx = centers[3 * i], cy = centers[3 * i + 1], cz = centers[3 * i + 2];
-    const float nx = normals[3 * i], ny = normals[3 * i + 1], nz = normals[3 * i + 2];
-    const float rr = radii[i];
-    g.v[0][k] = cx; g.v[1][k] = cy; g.v[2][k] = cz;
-    g.v[3][k] = nx; g.v[4][k] = ny; g.v[5][k] = nz;
-    g.v[6][k] = rr * rr;
-    g.v[7][k] = (cx * nx + cy * ny) + cz * nz;
-    g.v[8][k] = rr;
-  }
-}
-
-// Running nearest hit of the instanced sweep, which visits the leaves in
-// index order: a leaf wins with a strictly smaller t and ties only inside
-// the winner's chunk.
-struct SweepBest {
-  float t;        // running cap: t_max until a hit is found
-  float nx, ny, nz;
-  int count;      // tied leaves summed into (nx, ny, nz)
-  int chunk;      // (instance, 512-leaf chunk) id of the winner, -1 = none
-};
-
-// Sweep one instance frame of the table for the nearest hit. Every thread of
-// the block calls this together; `active` threads take part in the tests.
-__device__ __forceinline__ void sweep_nearest(const Ray& r, bool active, SweepBest& best,
-                                              Group& g,
-                                              const float* __restrict__ centers,
-                                              const float* __restrict__ normals,
-                                              const float* __restrict__ radii,
-                                              const float* __restrict__ spheres,
-                                              int N, int chunk_base) {
-  const int groups = (N + kGroup - 1) / kGroup;
-  for (int j = 0; j < groups; ++j) {
-    const bool reach = active && sphere_cull(r, best.t, spheres + 4 * (1 + j));
-    if (!__syncthreads_or(reach)) continue;
-    const int first = j * kGroup;
-    const int count = min(kGroup, N - first);
-    stage_group(g, centers, normals, radii, first, count);
-    __syncthreads();
-    if (reach) {
-      const int chunk = chunk_base + first / kChunk;
-      for (int k = 0; k < count; ++k) {
-        // best.t is the gate: t_max until a hit is found, the winner's t
-        // after; a leaf wins with a strictly smaller t and ties only inside
-        // the winner's chunk
-        const float t = disk_hit(r, 3.0e38f, staged(g, k));
-        if (t < 0.0f) continue;
-        if (t < best.t) {
-          best.t = t;
-          // summed into zero, as the reference's masked sum: -0.0 becomes +0.0
-          best.nx = 0.0f + g.v[3][k]; best.ny = 0.0f + g.v[4][k];
-          best.nz = 0.0f + g.v[5][k];
-          best.count = 1;
-          best.chunk = chunk;
-        } else if (t == best.t && chunk == best.chunk) {
-          best.nx += g.v[3][k]; best.ny += g.v[4][k]; best.nz += g.v[5][k];
-          best.count += 1;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// Sweep one instance frame for any hit; returns with `occluded` set where
-// found.
-__device__ __forceinline__ void sweep_occluded(const Ray& r, float t_max, bool active,
-                                               bool& occluded, Group& g,
-                                               const float* __restrict__ centers,
-                                               const float* __restrict__ normals,
-                                               const float* __restrict__ radii,
-                                               const float* __restrict__ spheres,
-                                               int N) {
-  const int groups = (N + kGroup - 1) / kGroup;
-  for (int j = 0; j < groups; ++j) {
-    const bool reach =
-        active && !occluded && sphere_cull(r, t_max, spheres + 4 * (1 + j));
-    if (!__syncthreads_or(reach)) continue;
-    const int first = j * kGroup;
-    const int count = min(kGroup, N - first);
-    stage_group(g, centers, normals, radii, first, count);
-    __syncthreads();
-    if (reach) {
-      for (int k = 0; k < count; ++k) {
-        if (disk_hit(r, t_max, staged(g, k)) >= 0.0f) {
-          occluded = true;
-          break;
-        }
-      }
-    }
-    __syncthreads();
-  }
-}
+// Instanced tables: the two-level traversal.
 
 __global__ void __launch_bounds__(kThreads)
-nearest_kernel(const float* __restrict__ p, const float* __restrict__ d,
-               const float* __restrict__ t_max, const float* __restrict__ centers,
-               const float* __restrict__ normals, const float* __restrict__ radii,
-               const float* __restrict__ spheres, const float* __restrict__ offsets,
-               float* __restrict__ t_hit, float* __restrict__ normal,
-               bool* __restrict__ hit, int B, int N, int I) {
-  __shared__ Group g;
+leaf_ibvh_nearest_kernel(const float* __restrict__ p, const float* __restrict__ d,
+                         const float* __restrict__ t_max, const float4* __restrict__ top,
+                         const float4* __restrict__ instances,
+                         const float4* __restrict__ nodes, const float4* __restrict__ disks,
+                         float* __restrict__ t_hit, float* __restrict__ normal,
+                         bool* __restrict__ hit, int B, int N) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = b < B;  // ragged last block: keep the barriers whole
-  const Ray r0 = in_range ? load_ray(p, d, b) : make_ray(0, 0, 0, 0, 0, 1);
-  const float tm = in_range ? t_max[b] : 0.0f;
-  // no t satisfies 1e-7 < t < t_max below this: the lane sweeps nothing
-  const bool active = in_range && tm > kEpsT;
-  SweepBest best{tm, 0.0f, 0.0f, 1.0f, 0, -1};
+  if (b >= B) return;
+  const Ray r = load_ray(p, d, b);
+  const float tm = t_max[b];
   const int chunks = (N + kChunk - 1) / kChunk;
-  for (int i = 0; i < I; ++i) {
-    const Ray r = make_ray(r0.px - offsets[3 * i], r0.py - offsets[3 * i + 1],
-                           r0.pz - offsets[3 * i + 2], r0.dx, r0.dy, r0.dz);
-    const bool reach = active && sphere_cull(r, best.t, spheres);
-    if (!__syncthreads_or(reach)) continue;
-    sweep_nearest(r, reach, best, g, centers, normals, radii, spheres, N, i * chunks);
+  Best best{tm, 0.0, 0.0, 1.0, 0, kNoChunk};
+  // no t satisfies 1e-7 < t < t_max below this: the lane visits nothing
+  if (tm > kEpsT) {
+    traverse_instances(r, best.t, top, instances, nodes,
+                       [&](const Ray& ri, int row, int first, int end) {
+      for (int k = first; k < end; ++k) {
+        int index;
+        const Disk q = load_disk(disks, k, index);
+        best.take(disk_hit(ri, tm, q), row * chunks + index / kChunk,
+                  [&](float& nx, float& ny, float& nz) {
+                    nx = q.nx;
+                    ny = q.ny;
+                    nz = q.nz;
+                  });
+      }
+      return false;
+    });
   }
-  if (in_range) {
-    const bool found = best.chunk >= 0;
-    const float cnt = static_cast<float>(max(best.count, 1));
-    t_hit[b] = found ? best.t : tm;
-    normal[3 * b] = found ? best.nx / cnt : 0.0f;
-    normal[3 * b + 1] = found ? best.ny / cnt : 0.0f;
-    normal[3 * b + 2] = found ? best.nz / cnt : 1.0f;
-    hit[b] = found;
-  }
+  store_nearest(best, tm, b, t_hit, normal, hit);
 }
 
 __global__ void __launch_bounds__(kThreads)
-occluded_kernel(const float* __restrict__ p, const float* __restrict__ d,
-                const float* __restrict__ t_max, const float* __restrict__ centers,
-                const float* __restrict__ normals, const float* __restrict__ radii,
-                const float* __restrict__ spheres, const float* __restrict__ offsets,
-                bool* __restrict__ occ, int B, int N, int I) {
-  __shared__ Group g;
+leaf_ibvh_occluded_kernel(const float* __restrict__ p, const float* __restrict__ d,
+                          const float* __restrict__ t_max, const float4* __restrict__ top,
+                          const float4* __restrict__ instances,
+                          const float4* __restrict__ nodes, const float4* __restrict__ disks,
+                          bool* __restrict__ occ, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = b < B;
-  const Ray r0 = in_range ? load_ray(p, d, b) : make_ray(0, 0, 0, 0, 0, 1);
-  const float tm = in_range ? t_max[b] : 0.0f;
-  const bool active = in_range && tm > kEpsT;
+  if (b >= B) return;
+  const Ray r = load_ray(p, d, b);
+  const float tm = t_max[b];
   bool occluded = false;
-  for (int i = 0; i < I; ++i) {
-    const Ray r = make_ray(r0.px - offsets[3 * i], r0.py - offsets[3 * i + 1],
-                           r0.pz - offsets[3 * i + 2], r0.dx, r0.dy, r0.dz);
-    const bool reach = active && !occluded && sphere_cull(r, tm, spheres);
-    if (!__syncthreads_or(reach)) continue;
-    sweep_occluded(r, tm, reach, occluded, g, centers, normals, radii, spheres, N);
+  if (tm > kEpsT) {
+    traverse_instances(r, tm, top, instances, nodes,
+                       [&](const Ray& ri, int, int first, int end) {
+      for (int k = first; k < end && !occluded; ++k) {
+        int index;
+        occluded = disk_hit(ri, tm, load_disk(disks, k, index)) >= 0.0f;
+      }
+      return occluded;
+    });
   }
-  if (in_range) occ[b] = occluded;
+  occ[b] = occluded;
 }
 
 }  // namespace
@@ -383,21 +257,29 @@ extern "C" int ray_leaves_occluded_launch(const float* p, const float* d,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `top`, `instances`, `nodes` and `disks` are leaf_instanced_bvh's arrays
+// (16-byte aligned); N is the canonical cloud's disk count (the tie key's
+// chunks).
 extern "C" int ray_leaves_nearest_instanced_launch(
-    const float* p, const float* d, const float* t_max, const float* centers,
-    const float* normals, const float* radii, const float* spheres,
-    const float* offsets, float* t_hit, float* normal, bool* hit, int B, int N, int I,
-    void* stream) {
-  nearest_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, d, t_max, centers, normals, radii, spheres, offsets, t_hit, normal, hit, B, N, I);
+    const float* p, const float* d, const float* t_max, const float* top,
+    const float* instances, const float* nodes, const float* disks, float* t_hit,
+    float* normal, bool* hit, int B, int N, void* stream) {
+  leaf_ibvh_nearest_kernel<<<blocks_for(B), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(top),
+      reinterpret_cast<const float4*>(instances), reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(disks), t_hit, normal, hit, B, N);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ray_leaves_occluded_instanced_launch(
-    const float* p, const float* d, const float* t_max, const float* centers,
-    const float* normals, const float* radii, const float* spheres,
-    const float* offsets, bool* occ, int B, int N, int I, void* stream) {
-  occluded_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, d, t_max, centers, normals, radii, spheres, offsets, occ, B, N, I);
+    const float* p, const float* d, const float* t_max, const float* top,
+    const float* instances, const float* nodes, const float* disks, bool* occ, int B,
+    void* stream) {
+  leaf_ibvh_occluded_kernel<<<blocks_for(B), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(top),
+      reinterpret_cast<const float4*>(instances), reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(disks), occ, B);
   return static_cast<int>(cudaGetLastError());
 }

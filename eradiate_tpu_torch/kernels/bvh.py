@@ -1,13 +1,16 @@
-"""The flat sweep kernels' bounding volume hierarchy: its host build and the
-plain twin of the kernels' box test.
+"""The sweep kernels' bounding volume hierarchy: its host build and the
+plain twins of the kernels' box test and tie rule.
 
 Shared by the flat triangle sweeps (:func:`~.tri_intersect.tri_bvh`) and the
-flat leaf-disk sweeps (:func:`~.leaf_intersect.leaf_bvh`), whose CUDA kernels
-traverse it with the device code of ``csrc/bvh.cuh``. A caller computes one
+leaf-disk sweeps, flat (:func:`~.leaf_intersect.leaf_bvh`) and instanced
+(:func:`~.leaf_intersect.leaf_instanced_bvh`), whose CUDA kernels traverse it
+with the device code of ``csrc/bvh.cuh``. A caller computes one
 axis-aligned box per item (float32, rounded outward, so that each box
 contains its item exactly) and :func:`build` returns the inner nodes, the
 items' order in the leaves and the depth; the caller lays its items out in
-that order.
+that order. An instanced table has two levels: the canonical hierarchy, and
+above it :func:`instance_level`, a hierarchy whose items are the instances,
+each the canonical root box moved by its offset.
 
 A node is one row of 16 float32 in the layout of Aila and Laine (2009), four
 float4: ``(c0.lo.x, c0.hi.x, c0.lo.y, c0.hi.y)``, ``(c1.lo.x, c1.hi.x,
@@ -27,10 +30,14 @@ __all__ = [
     "CAP_SLACK",
     "LEAF",
     "STACK",
+    "TOP_STACK",
     "build",
     "bvh_leaves",
     "bvh_leaves_reached_plain",
+    "instance_level",
+    "leaf_of_row",
     "nearest_plain",
+    "nearest_record",
 ]
 
 #: Most items in a leaf (``kLeaf`` of the kernels).
@@ -38,6 +45,9 @@ LEAF = 4
 #: Entries of the kernels' traversal stack (``kStack``): the deepest
 #: hierarchy they take.
 STACK = 64
+#: Entries of the instanced kernels' outer stack (``kTopStack``): the deepest
+#: top level (:func:`instance_level`) they take.
+TOP_STACK = 16
 #: Margins of the kernels' cull (``kBoxSlack``, ``kBoxCapSlack``): a box is
 #: grown by BOX_SLACK times the coordinates' magnitude and the segment by
 #: CAP_SLACK of the distance to the box at both ends. A triangle sliver seen
@@ -117,7 +127,7 @@ def _sah_split(cent, lo, hi, seg, lens):
     return np.where(np.isfinite(best)[seg], side, middle)
 
 
-def build(item_lo, item_hi, name):
+def build(item_lo, item_hi, name, stack=None):
     """The hierarchy over items with boxes ``item_lo``, ``item_hi`` [N, 3]
     (float32 numpy, N >= 1): returns ``(nodes [M, 16] float32, perm [N],
     depth)``, the leaves holding the items ``perm`` in that order and
@@ -128,7 +138,7 @@ def build(item_lo, item_hi, name):
     referenced once. A child's box is the union of its items' boxes, so a
     parent's box is the exact union of its children's. Deterministic: the
     same boxes give the same bytes. Raises (naming ``name``) if the tree is
-    deeper than :data:`STACK`."""
+    deeper than ``stack`` (default :data:`STACK`)."""
     N = item_lo.shape[0]
     lo64, hi64 = item_lo.astype(np.float64), item_hi.astype(np.float64)
     cent = 0.5 * (lo64 + hi64)
@@ -159,8 +169,9 @@ def build(item_lo, item_hi, name):
         levels.append((ids, cs, ce, np.where(inner, child, ~((cs << 3) | (ce - cs)))))
         ids, starts, ends = child[inner], cs[inner], ce[inner]
     depth = len(levels)
-    if depth > STACK:
-        raise ValueError(f"{name}: the tree is {depth} deep, the kernels' stack holds {STACK}")
+    stack = STACK if stack is None else stack
+    if depth > stack:
+        raise ValueError(f"{name}: the tree is {depth} deep, the kernels' stack holds {stack}")
 
     # children's boxes: unions of their items' boxes over their ranges (the
     # ranges of one level are disjoint; a sentinel row closes the last)
@@ -189,18 +200,58 @@ def build(item_lo, item_hi, name):
     return nodes, perm, depth
 
 
+def _child_boxes(n):
+    """The children's boxes of nodes ``n`` [M, 16] (numpy): ``lo``, ``hi``
+    [M, 2, 3]."""
+    lo = np.stack([n[:, [0, 4]], n[:, [2, 6]], n[:, [8, 10]]], axis=-1)
+    hi = np.stack([n[:, [1, 5]], n[:, [3, 7]], n[:, [9, 11]]], axis=-1)
+    return lo, hi
+
+
 def bvh_leaves(bvh):
-    """The leaves of a hierarchy (anything with its ``nodes``), in the order
-    of the child slots that hold them: ``(first [L], count [L], lo [L, 3],
-    hi [L, 3])`` numpy arrays, ``count`` item rows from ``first``, and the
-    leaf's box."""
-    n = bvh.nodes.cpu().numpy()
-    lo = np.stack([n[:, [0, 4]], n[:, [2, 6]], n[:, [8, 10]]], axis=-1).reshape(-1, 3)
-    hi = np.stack([n[:, [1, 5]], n[:, [3, 7]], n[:, [9, 11]]], axis=-1).reshape(-1, 3)
+    """The leaves of a hierarchy (its ``nodes`` tensor, or anything with
+    one), in the order of the child slots that hold them: ``(first [L],
+    count [L], lo [L, 3], hi [L, 3])`` numpy arrays, ``count`` item rows
+    from ``first``, and the leaf's box."""
+    n = (bvh.nodes if hasattr(bvh, "nodes") else bvh).cpu().numpy()
+    lo, hi = (x.reshape(-1, 3) for x in _child_boxes(n))
     code = np.ascontiguousarray(n[:, 12:14]).view(np.int32).ravel()
     leaf = code < 0
     code = ~code[leaf]
     return code >> 3, code & 7, lo[leaf], hi[leaf]
+
+
+def instance_level(nodes, offsets, name):
+    """The top level of a two-level hierarchy: one item per instance of the
+    canonical hierarchy ``nodes`` [M, 16] (float32 numpy, root in row 0)
+    translated by ``offsets`` [I, 3] (float32 numpy, I >= 1). Returns
+    ``(top [T, 16], instances [I, 4], depth)``: the nodes of :func:`build`
+    over the instance boxes; the offsets in its leaf order, each with its
+    original row's int32 bits in column 3; and the depth, at most
+    :data:`TOP_STACK` (raises beyond, naming ``name``).
+
+    An instance's box is the canonical root box (the union of the root's two
+    child boxes) plus its offset, grown by ``BOX_SLACK |o|_1``, computed in
+    float64 and rounded outward to float32. The kernels test the world ray
+    ``p`` against the instance box with the margin ``BOX_SLACK (dist +
+    |p|_1)``, and the translated ray ``fl(p - o)`` against the canonical
+    boxes with ``BOX_SLACK (dist' + |p - o|_1)``. Since ``|p - o|_1 <=
+    |p|_1 + |o|_1``, the growth makes the world test's margin at least the
+    translated one's, which covers the exact test's rounding and ``fl(p -
+    o)``'s own (a few ulp of ``|p - o|``) many times over: every pair the
+    exact test accepts in an instance frame lies in an instance box the
+    world ray reaches."""
+    lo, hi = _child_boxes(nodes[:1])
+    root_lo = lo[0].min(axis=0).astype(np.float64)
+    root_hi = hi[0].max(axis=0).astype(np.float64)
+    o = offsets.astype(np.float64)
+    grow = BOX_SLACK * np.abs(o).sum(axis=1, keepdims=True)
+    top, perm, depth = build(_round_down(root_lo + o - grow), _round_up(root_hi + o + grow),
+                             name, TOP_STACK)
+    instances = np.zeros((offsets.shape[0], 4), np.float32)
+    instances[:, :3] = offsets[perm]
+    instances[:, 3] = perm.astype(np.int32).view(np.float32)
+    return top, instances, depth
 
 
 def _box_reach(p, d, cap, lo, hi):
@@ -249,41 +300,62 @@ def bvh_leaves_reached_plain(p, d, cap, bvh):
     return _box_reach(p, d, cap, *(torch.from_numpy(x).to(p.device) for x in (lo, hi)))
 
 
+def leaf_of_row(bvh, n_rows):
+    """The leaf (index into :func:`bvh_leaves`) that holds each of the
+    ``n_rows`` item rows of a hierarchy: int64 numpy [n_rows]."""
+    row_leaf = np.empty(n_rows, np.int64)
+    for leaf, (first, count) in enumerate(zip(*bvh_leaves(bvh)[:2])):
+        row_leaf[first : first + count] = leaf
+    return row_leaf
+
+
+def nearest_record(t_max, n_items, test, order=None):
+    """A nearest-hit kernel's running record as it computes it, whatever
+    the order of its visits: items ``0 .. n_items - 1`` visited one at a
+    time in ``order`` (default index order). ``test(k)`` gives item ``k``'s
+    exact distances [B] (+inf where missed, or where the kernel's cull does
+    not reach it), its normal [3] and its tie key (an int). The order-free
+    tie rule: a hit replaces the best when its ``t`` is smaller, or equal
+    with a lower key; it adds its normal (float64 sum, from zero) when ``t``
+    and key are equal. Returns ``(t_hit [B], normal [B, 3], hit [B])``."""
+    B, device = t_max.shape[0], t_max.device
+    best_t = t_max.clone()
+    best_key = torch.full((B,), torch.iinfo(torch.int64).max, dtype=torch.int64, device=device)
+    total = torch.zeros((B, 3), dtype=torch.float64, device=device)
+    cnt = torch.zeros(B, dtype=torch.int64, device=device)
+    for k in range(n_items) if order is None else order:
+        t, n, key = test(int(k))
+        found = torch.isfinite(t)
+        if not found.any():
+            continue
+        tie = found & (t == best_t)
+        replace = found & ((t < best_t) | (tie & (key < best_key)))
+        add = tie & (key == best_key)
+        n = n.double()
+        total = torch.where(replace[:, None], 0.0 + n, torch.where(add[:, None], total + n, total))
+        cnt = torch.where(replace, 1, cnt + add.long())
+        best_t = torch.where(replace, t, best_t)
+        best_key = torch.where(replace, key, best_key)
+    hit = cnt > 0
+    normal = total.float() / torch.clamp(cnt, min=1)[:, None].float()
+    normal = torch.where(hit[:, None], normal, torch.tensor([0.0, 0.0, 1.0], device=device))
+    return torch.where(hit, best_t, t_max), normal, hit
+
+
 def nearest_plain(p, d, t_max, bvh, rows, test, order=None, chunk=512):
     """A flat nearest-hit kernel's result as it computes it: the item
     ``rows`` of ``bvh`` (its leaf-ordered item array, the original index's
     int32 bits in column 3) visited one at a time in ``order`` (default
     their leaf order), each ray testing only those in leaves its cull
     reaches with the cap ``t_max``. ``test(k)`` gives row ``k``'s exact
-    distances [B] (+inf where missed) and its normal [3]. The order-free
-    tie rule: a hit replaces the best when its ``t`` is smaller, or equal
-    with a lower chunk (original index // ``chunk``); it adds its normal
-    (float64 sum, from zero) when ``t`` and chunk are equal. Returns
-    ``(t_hit [B], normal [B, 3], hit [B])``."""
-    B = p.shape[0]
-    row_leaf = np.empty(rows.shape[0], np.int64)
-    for leaf, (first, count) in enumerate(zip(*bvh_leaves(bvh)[:2])):
-        row_leaf[first : first + count] = leaf
+    distances [B] (+inf where missed) and its normal [3]. The tie key is
+    the original index // ``chunk`` (:func:`nearest_record`)."""
+    row_leaf = leaf_of_row(bvh, rows.shape[0])
     reached = bvh_leaves_reached_plain(p, d, t_max, bvh)
-    index = rows[:, 3].contiguous().view(torch.int32).long()
-    best_t = t_max.clone()
-    best_chunk = torch.full((B,), torch.iinfo(torch.int64).max, dtype=torch.int64,
-                            device=p.device)
-    total = torch.zeros((B, 3), dtype=torch.float64, device=p.device)
-    cnt = torch.zeros(B, dtype=torch.int64, device=p.device)
-    for k in range(rows.shape[0]) if order is None else order:
+    index = rows[:, 3].contiguous().view(torch.int32).tolist()
+
+    def visit(k):
         t, n = test(k)
-        found = torch.isfinite(t) & reached[:, int(row_leaf[k])]
-        ch = index[k] // chunk
-        tie = found & (t == best_t)
-        replace = found & ((t < best_t) | (tie & (ch < best_chunk)))
-        add = tie & (ch == best_chunk)
-        n = n.double()
-        total = torch.where(replace[:, None], 0.0 + n, torch.where(add[:, None], total + n, total))
-        cnt = torch.where(replace, 1, cnt + add.long())
-        best_t = torch.where(replace, t, best_t)
-        best_chunk = torch.where(replace, ch, best_chunk)
-    hit = cnt > 0
-    normal = total.float() / torch.clamp(cnt, min=1)[:, None].float()
-    normal = torch.where(hit[:, None], normal, torch.tensor([0.0, 0.0, 1.0], device=p.device))
-    return torch.where(hit, best_t, t_max), normal, hit
+        return torch.where(reached[:, int(row_leaf[k])], t, torch.inf), n, index[k] // chunk
+
+    return nearest_record(t_max, rows.shape[0], visit, order)

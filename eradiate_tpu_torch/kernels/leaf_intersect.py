@@ -8,8 +8,9 @@ Four functions, each the counterpart of a TPU kernel of
   bounding volume hierarchy of the table (:func:`leaf_bvh`);
 * :func:`ray_leaves_nearest_instanced` / :func:`ray_leaves_occluded_instanced`:
   the same against ``I`` translated copies of one canonical cloud, which is
-  stored once; the kernels cull per group of :data:`GROUP` leaves by a
-  bounding sphere (:func:`sweep_spheres`).
+  stored once; the kernels traverse a hierarchy of two levels, the
+  instances' boxes above the canonical cloud's own hierarchy
+  (:func:`leaf_instanced_bvh`).
 
 For CUDA tensors they launch ``csrc/leaf_intersect.cu``; for CPU tensors
 they run the plain versions (``*_plain``), the chunked dense sweeps of the
@@ -30,12 +31,15 @@ Semantics shared by kernel and plain version (the reference's XLA form):
 * exact ties of ``t`` inside one 512-leaf chunk of one instance average
   their normals; across chunks and instances the first wins. The winners'
   normals are summed into a zero, as the reference sums them, so a
-  component -0.0 comes out +0.0. The flat sweeps sum tied normals in
-  float64, rounded once, so the result does not depend on the order of the
-  sum; a kernel that visits the disks out of index order (the hierarchy's
+  component -0.0 comes out +0.0. Tied normals are summed in float64,
+  rounded once, so the result does not depend on the order of the sum; a
+  kernel that visits the disks out of index order (the hierarchy's
   traversal) applies the rule as: a hit replaces the best when its ``t`` is
-  smaller, or equal with a lower chunk (original index // 512); it adds its
-  normal when ``t`` and chunk are equal (:func:`ray_leaves_nearest_bvh_plain`);
+  smaller, or equal with a lower key; it adds its normal when ``t`` and key
+  are equal. The key is the chunk, original index // 512
+  (:func:`ray_leaves_nearest_bvh_plain`), and for the instanced kernels
+  ``instance * ceil(N / 512) + index // 512`` with the instance's row in
+  ``offsets`` (:func:`ray_leaves_nearest_instanced_bvh_plain`);
 * misses keep ``t = t_max`` and the normal ``(0, 0, 1)``.
 """
 
@@ -50,24 +54,28 @@ import torch
 from .bvh import (
     LEAF,
     STACK,
+    TOP_STACK,
     _round_down,
     _round_up,
     build,
     bvh_leaves,
     bvh_leaves_reached_plain,
+    instance_level,
+    leaf_of_row,
     nearest_plain,
+    nearest_record,
 )
 
 __all__ = [
     "CHUNK",
-    "GROUP",
     "LEAF",
     "STACK",
+    "TOP_STACK",
+    "InstancedLeafBVH",
     "LeafBVH",
     "launches",
-    "leaf_block_spheres",
-    "sweep_spheres",
     "leaf_bvh",
+    "leaf_instanced_bvh",
     "bvh_leaves",
     "bvh_leaves_reached_plain",
     "ray_leaves_nearest",
@@ -77,6 +85,7 @@ __all__ = [
     "ray_leaves_nearest_plain",
     "ray_leaves_occluded_plain",
     "ray_leaves_nearest_bvh_plain",
+    "ray_leaves_nearest_instanced_bvh_plain",
     "ray_leaves_nearest_instanced_plain",
     "ray_leaves_occluded_instanced_plain",
 ]
@@ -84,9 +93,6 @@ __all__ = [
 #: Leaves per chunk of the plain sweep, which is also the tie-averaging unit
 #: (reference ``ray_leaves_nearest(chunk=512)``).
 CHUNK = 512
-#: Leaves per bounding sphere of the instanced kernels' cull (reference
-#: ``_SUB``).
-GROUP = 128
 
 _EPS_T = 1e-7
 
@@ -101,43 +107,8 @@ launches = {
 _launchers = {}
 
 
-def leaf_block_spheres(centers, normals, radii, block_n: int = GROUP):
-    """Per-leaf-block bounding spheres (centers [M, 3], radius^2 [M]) of
-    ``block_n`` consecutive leaves (reference ``leaf_block_spheres``). Tight
-    spheres need spatially sorted leaves
-    (:func:`~eradiate_tpu_torch.ops.canopy.morton_order`)."""
-    N = centers.shape[0]
-    M = -(-N // block_n)
-    pad = M * block_n - N
-    c, r = centers, radii
-    if pad:
-        # the last real leaf fills the padding so the final sphere is not
-        # dragged to the origin
-        c = torch.cat([c, c[N - 1 :].expand(pad, 3)])
-        r = torch.cat([r, r.new_zeros(pad)])
-    cb = c.reshape(M, block_n, 3)
-    rb = r.reshape(M, block_n)
-    mid = (cb.min(dim=1).values + cb.max(dim=1).values) * 0.5
-    diff = cb - mid[:, None, :]
-    dist = torch.sqrt((diff * diff).sum(dim=-1)) + rb
-    R = dist.max(dim=1).values
-    return mid, R * R
-
-
-def sweep_spheres(centers, normals, radii):
-    """The instanced kernels' cull operand ``[1 + M, 4]`` (x, y, z,
-    radius^2): row 0 bounds the whole table (the per-instance sphere), rows
-    1.. bound its :data:`GROUP`-leaf blocks. Compute once per render and
-    pass as ``spheres``."""
-    whole_c, whole_r2 = leaf_block_spheres(centers, normals, radii, max(centers.shape[0], 1))
-    sc, sr2 = leaf_block_spheres(centers, normals, radii, GROUP)
-    return torch.cat(
-        [torch.cat([whole_c, sc]), torch.cat([whole_r2, sr2])[:, None]], dim=1
-    ).contiguous()
-
-
 # ---------------------------------------------------------------------------
-# the flat kernels' bounding volume hierarchy
+# the kernels' bounding volume hierarchies
 
 
 @dataclasses.dataclass(frozen=True)
@@ -201,6 +172,52 @@ def leaf_bvh(centers, normals, radii) -> LeafBVH:
     disks[:, 8] = rp * rp
     disks[:, 9] = (cp[:, 0] * npm[:, 0] + cp[:, 1] * npm[:, 1]) + cp[:, 2] * npm[:, 2]
     return LeafBVH(torch.from_numpy(nodes).to(device), torch.from_numpy(disks).to(device), depth)
+
+
+@dataclasses.dataclass(frozen=True)
+class InstancedLeafBVH:
+    """The instanced kernels' acceleration structure, made by
+    :func:`leaf_instanced_bvh`: two levels.
+
+    ``canonical``: the canonical cloud's :class:`LeafBVH`, in its own frame.
+
+    ``top`` [M, 16] float32: the inner nodes of :mod:`~.bvh` over the
+    instances (a leaf holds ``count`` rows of ``instances`` from ``first``),
+    each instance's box the canonical root box moved by its offset
+    (:func:`~.bvh.instance_level`). Row 0 is the root.
+
+    ``instances`` [I, 4] float32: the offsets in the top level's leaf order,
+    ``(ox, oy, oz, original row as int32 bits)``; bitwise copies of the
+    inputs. The row, not the position, is the instance in the tie key.
+
+    ``top_depth``: inner nodes on the longest path from the top's root to a
+    leaf; the kernels' outer stack holds :data:`TOP_STACK`."""
+
+    canonical: LeafBVH
+    top: torch.Tensor
+    instances: torch.Tensor
+    top_depth: int
+
+
+def leaf_instanced_bvh(centers, normals, radii, offsets) -> InstancedLeafBVH:
+    """The instanced kernels' hierarchy of the canonical cloud (``centers``,
+    ``normals`` [N, 3], ``radii`` [N]) at ``offsets`` [I, 3], all float32
+    tensors: :func:`leaf_bvh` of the cloud below, the instances' boxes
+    (:func:`~.bvh.instance_level`) above, built on the host with numpy and
+    returned on the tensors' device. Deterministic: the same inputs give the
+    same bytes. Raises as :func:`leaf_bvh` does, and if there is no
+    instance, the offsets are not float32, or the top level is deeper than
+    :data:`TOP_STACK`. Compute once per render and pass as ``bvh``."""
+    o = np.ascontiguousarray(offsets.detach().cpu().numpy())
+    if o.dtype != np.float32:
+        raise TypeError("leaf_instanced_bvh: offsets must be float32")
+    if o.ndim != 2 or o.shape[1] != 3 or o.shape[0] < 1:
+        raise ValueError(f"leaf_instanced_bvh: offsets must be [I >= 1, 3], got {list(o.shape)}")
+    canonical = leaf_bvh(centers, normals, radii)
+    top, instances, depth = instance_level(canonical.nodes.cpu().numpy(), o, "leaf_instanced_bvh")
+    device = centers.device
+    return InstancedLeafBVH(canonical, torch.from_numpy(top).to(device),
+                            torch.from_numpy(instances).to(device), depth)
 
 
 # ---------------------------------------------------------------------------
@@ -313,6 +330,42 @@ def ray_leaves_nearest_bvh_plain(p, d, t_max, bvh: LeafBVH, order=None):
     return nearest_plain(p, d, t_max, bvh, disks, test, order, CHUNK)
 
 
+def ray_leaves_nearest_instanced_bvh_plain(p, d, t_max, ibvh: InstancedLeafBVH, order=None):
+    """:func:`ray_leaves_nearest_instanced_plain` as the instanced kernel
+    computes it: the (instance, disk) pairs of ``ibvh`` visited one at a
+    time in ``order`` (a permutation of ``range(I * N)``, pair ``j * N + k``
+    being row ``j`` of ``ibvh.instances`` and row ``k`` of the canonical
+    ``disks``; default the leaf order of both levels), each ray testing only
+    the pairs whose top leaf it reaches with the world ray and whose
+    canonical leaf it reaches with the translated ray ``p - offset``, both
+    with the cap ``t_max``; with the order-free tie rule on the key
+    ``instance * ceil(N / 512) + index // 512``, the instance being the
+    offset's original row. Equals the dense instanced sweep bit for bit
+    whatever the order."""
+    canon = ibvh.canonical
+    disks = canon.disks
+    N, I = disks.shape[0], ibvh.instances.shape[0]
+    chunks = -(-N // CHUNK)
+    index = disks[:, 3].contiguous().view(torch.int32).tolist()
+    rows = ibvh.instances[:, 3].contiguous().view(torch.int32).tolist()
+    disk_leaf = torch.from_numpy(leaf_of_row(canon, N)).to(p.device)
+    top_reached = bvh_leaves_reached_plain(p, d, t_max, ibvh.top)
+    top_reached = top_reached[:, torch.from_numpy(leaf_of_row(ibvh.top, I)).to(p.device)]
+    c, n, r = disks[:, 0:3], disks[:, 4:7], disks[:, 7]
+    t = []
+    for j in range(I):
+        pj = p - ibvh.instances[j, :3]
+        reached = bvh_leaves_reached_plain(pj, d, t_max, canon)[:, disk_leaf]
+        reached &= top_reached[:, j : j + 1]
+        t.append(torch.where(reached, _chunk_hits(pj, d, c, n, r, t_max), torch.inf))
+
+    def visit(m):
+        j, k = divmod(m, N)
+        return t[j][:, k], n[k], rows[j] * chunks + index[k] // CHUNK
+
+    return nearest_record(t_max, I * N, visit, order)
+
+
 def ray_leaves_nearest_instanced_plain(p, d, t_max, centers, normals, radii, offsets,
                                        spheres=None):
     """Nearest hit against the translated copies: scan the instances,
@@ -378,26 +431,35 @@ def _check_operands(name, named, shapes, depth=None):
         raise ValueError(f"{name}: a hierarchy {depth} deep, the kernels' stack holds {STACK}")
 
 
-def _check(name, named, B, N, offsets, depth=None):
+def _check(name, named, B, N, offsets, depth=None, top_depth=None):
     """Validate the operands of a launch: ``named`` holds the rays, the
-    table, and the cull operand: ``spheres`` (instanced kernels) or a
-    :class:`LeafBVH`'s ``nodes`` and ``disks`` with its ``depth`` (flat)."""
+    table (with the ``offsets`` of an instanced one) and the hierarchy: a
+    :class:`LeafBVH`'s ``nodes`` and ``disks`` with its ``depth``, and for
+    the instanced kernels an :class:`InstancedLeafBVH`'s ``top`` and
+    ``instances`` with its ``top_depth``."""
     shapes = {"p": (B, 3), "d": (B, 3), "t_max": (B,), "centers": (N, 3),
               "normals": (N, 3), "radii": (N,)}
-    if "spheres" in named:
-        shapes["spheres"] = (1 + -(-N // GROUP), 4)
     if "nodes" in named:
         shapes["nodes"] = (max(named["nodes"].shape[0], 1), 16)
         shapes["disks"] = (N, 12)
     if offsets is not None:
         shapes["offsets"] = (offsets.shape[0], 3)
+    if "top" in named:
+        shapes["top"] = (max(named["top"].shape[0], 1), 16)
+        shapes["instances"] = (offsets.shape[0], 4)
     _check_operands(name, named, shapes, depth)
+    if top_depth is not None and not 1 <= top_depth <= TOP_STACK:
+        raise ValueError(f"{name}: a top level {top_depth} deep, the kernels' outer stack "
+                         f"holds {TOP_STACK}")
     if N < 1:
         raise ValueError(f"{name}: needs at least one leaf")
     if offsets is not None and offsets.shape[0] < 1:
         raise ValueError(f"{name}: needs at least one instance")
     if B >= 2**31 or N >= 2**28:
         raise ValueError(f"{name}: more than 2^31 - 1 lanes or 2^28 - 1 leaves")
+    if offsets is not None and offsets.shape[0] * -(-N // CHUNK) >= 2**31:
+        raise ValueError(f"{name}: instances x 512-leaf chunks must stay below 2^31 (the "
+                         "kernels' int32 tie key)")
 
 
 def _launch(name, nearest, p, ins, sizes, counts):
@@ -443,16 +505,26 @@ def _launch_flat(name, nearest, p, d, t_max, centers, normals, radii, bvh):
                    launches)
 
 
-def _launch_instanced(name, nearest, p, d, t_max, centers, normals, radii, offsets, spheres):
-    """The instanced kernels: check the operands (spheres built here when
-    None), launch the sphere-culled sweep."""
-    if spheres is None:
-        spheres = sweep_spheres(centers, normals, radii)
+def _launch_instanced(name, nearest, p, d, t_max, centers, normals, radii, offsets, bvh):
+    """The instanced kernels: check the rays, the table, the offsets and
+    their two-level hierarchy (built here when ``bvh`` is None), launch the
+    traversal."""
+    if bvh is None:
+        bvh = leaf_instanced_bvh(centers, normals, radii, offsets)
+    if not isinstance(bvh, InstancedLeafBVH):
+        raise TypeError(f"{name}: bvh must be an InstancedLeafBVH (leaf_instanced_bvh), got "
+                        f"{type(bvh).__name__}")
+    canon = bvh.canonical
     named = {"p": p, "d": d, "t_max": t_max, "centers": centers, "normals": normals,
-             "radii": radii, "spheres": spheres, "offsets": offsets}
+             "radii": radii, "offsets": offsets, "nodes": canon.nodes, "disks": canon.disks,
+             "top": bvh.top, "instances": bvh.instances}
     B, N = p.shape[0], centers.shape[0]
-    _check(name, named, B, N, offsets)
-    return _launch(name, nearest, p, tuple(named.values()), (B, N, offsets.shape[0]), launches)
+    _check(name, named, B, N, offsets, depth=canon.depth, top_depth=bvh.top_depth)
+    arrays = (bvh.top, bvh.instances, canon.nodes, canon.disks)
+    if any(t.data_ptr() % 16 for t in arrays):
+        raise ValueError(f"{name}: the hierarchy's arrays must be 16-byte aligned (float4)")
+    sizes = (B, N) if nearest else (B,)  # the nearest hit's tie key needs N
+    return _launch(name, nearest, p, (p, d, t_max, *arrays), sizes, launches)
 
 
 def _on_cpu(p, name):
@@ -483,21 +555,19 @@ def ray_leaves_occluded(p, d, t_max, centers, normals, radii, bvh=None):
                         bvh)[0]
 
 
-def ray_leaves_nearest_instanced(p, d, t_max, centers, normals, radii, offsets,
-                                 spheres=None):
+def ray_leaves_nearest_instanced(p, d, t_max, centers, normals, radii, offsets, bvh=None):
     """:func:`ray_leaves_nearest` against the union of the canonical cloud
-    translated by each of ``offsets`` [I, 3]; ``spheres`` optionally passes
-    :func:`sweep_spheres` of the canonical cloud."""
+    translated by each of ``offsets`` [I, 3]; ``bvh`` optionally passes
+    :func:`leaf_instanced_bvh` of the cloud and the offsets."""
     if _on_cpu(p, "ray_leaves_nearest_instanced"):
         return ray_leaves_nearest_instanced_plain(p, d, t_max, centers, normals, radii, offsets)
     return _launch_instanced("ray_leaves_nearest_instanced", True, p, d, t_max, centers,
-                             normals, radii, offsets, spheres)
+                             normals, radii, offsets, bvh)
 
 
-def ray_leaves_occluded_instanced(p, d, t_max, centers, normals, radii, offsets,
-                                  spheres=None):
+def ray_leaves_occluded_instanced(p, d, t_max, centers, normals, radii, offsets, bvh=None):
     """:func:`ray_leaves_occluded` against the translated copies."""
     if _on_cpu(p, "ray_leaves_occluded_instanced"):
         return ray_leaves_occluded_instanced_plain(p, d, t_max, centers, normals, radii, offsets)
     return _launch_instanced("ray_leaves_occluded_instanced", False, p, d, t_max, centers,
-                             normals, radii, offsets, spheres)[0]
+                             normals, radii, offsets, bvh)[0]

@@ -24,11 +24,11 @@ import torch
 from ..kernels.leaf_intersect import (
     fma,
     leaf_bvh,
+    leaf_instanced_bvh,
     ray_leaves_nearest,
     ray_leaves_nearest_instanced,
     ray_leaves_occluded,
     ray_leaves_occluded_instanced,
-    sweep_spheres,
 )
 
 __all__ = [
@@ -75,10 +75,10 @@ def leaf_bounds(leaves):
 
 def morton_order(positions):
     """Host-side Morton (Z-curve) ordering permutation for leaf positions
-    [N, 3] (numpy). Spatially adjacent leaves land in adjacent slots, which
-    makes the per-group bounding spheres of the instanced sweep kernels
-    tight. Pure
-    reordering: the sweeps are order-invariant up to exact ties."""
+    [N, 3] (numpy). Spatially adjacent leaves land in adjacent slots, as the
+    reference orders them (its TPU kernels bound groups of consecutive
+    leaves). Pure reordering: the sweeps are order-invariant up to exact
+    ties."""
     pos = np.asarray(positions, dtype=np.float64)
     lo = pos.min(axis=0)
     span = np.maximum(pos.max(axis=0) - lo, 1e-12)
@@ -92,13 +92,14 @@ def morton_order(positions):
 
 def leaf_accel(leaves):
     """Acceleration data for the leaf sweeps: ``(cull, box_lo, box_hi)``.
-    ``cull`` is the kernels' cull operand on CUDA, built here: the bounding
-    volume hierarchy of a flat table
-    (:func:`~eradiate_tpu_torch.kernels.leaf_intersect.leaf_bvh`, on the
-    host) or the group spheres of an instanced one's canonical cloud
-    (:func:`~eradiate_tpu_torch.kernels.leaf_intersect.sweep_spheres`); None
-    on the CPU, where the dense sweeps use none and nothing is built. Compute
-    once per render, outside the path loop, and pass to every
+    ``cull`` is the kernels' cull operand on CUDA, built here on the host:
+    the bounding volume hierarchy of a flat table
+    (:func:`~eradiate_tpu_torch.kernels.leaf_intersect.leaf_bvh`) or the
+    two-level one of an instanced set, the instances' boxes above the
+    canonical cloud's hierarchy
+    (:func:`~eradiate_tpu_torch.kernels.leaf_intersect.leaf_instanced_bvh`);
+    None on the CPU, where the dense sweeps use none and nothing is built.
+    Compute once per render, outside the path loop, and pass to every
     :func:`leaf_nearest`/:func:`leaf_occluded`."""
     lo, hi = leaf_bounds(leaves)
     instanced = isinstance(leaves, InstancedLeafArrays)
@@ -106,7 +107,7 @@ def leaf_accel(leaves):
     if base.centers.device.type == "cpu":
         return None, lo, hi
     if instanced:
-        return sweep_spheres(base.centers, base.normals, base.radii), lo, hi
+        return leaf_instanced_bvh(base.centers, base.normals, base.radii, leaves.offsets), lo, hi
     return leaf_bvh(base.centers, base.normals, base.radii), lo, hi
 
 

@@ -1,7 +1,7 @@
 """The port's canopy pieces against the JAX package, on the CPU.
 
 Inputs come from numpy seeds and cross between the packages as numpy arrays.
-Leaf optics, the tau inversion, the box advance, the block spheres and the
+Leaf optics, the tau inversion, the box advance, the leaf bounds and the
 Morton orderings are held to the reference functions (exact for integers and
 orderings, 1e-6 relative otherwise). The plain versions of the four
 leaf-sweep kernels are held to the reference's XLA sweeps under ``jax.jit``
@@ -279,28 +279,6 @@ def test_morton_u32_matches():
     np.testing.assert_array_equal(
         torch.argsort(out, stable=True).numpy(), np.asarray(jnp.argsort(ref))
     )
-
-
-@pytest.mark.parametrize("n, block", [(700, 128), (128, 128), (130, 64), (5, 128)])
-def test_leaf_block_spheres_match(n, block):
-    c, nrm, r = cloud(n)
-    mid_ref, r2_ref = ref_pallas.leaf_block_spheres(
-        jnp.asarray(c), jnp.asarray(nrm), jnp.asarray(r), block
-    )
-    mid, r2 = li.leaf_block_spheres(T(c), T(nrm), T(r), block)
-    np.testing.assert_allclose(mid.numpy(), np.asarray(mid_ref), rtol=1e-6, atol=0)
-    np.testing.assert_allclose(r2.numpy(), np.asarray(r2_ref), rtol=1e-6, atol=0)
-
-
-def test_sweep_spheres_enclose_their_leaves():
-    c, nrm, r = cloud(700)
-    sph = li.sweep_spheres(T(c), T(nrm), T(r)).numpy()
-    assert sph.shape == (1 + -(-700 // li.GROUP), 4)
-    reach = np.linalg.norm(c[None] - sph[:, None, :3], axis=-1) + r[None]
-    assert (reach[0] ** 2 <= sph[0, 3] * (1 + 1e-6)).all()
-    for g in range(sph.shape[0] - 1):
-        sl = slice(g * li.GROUP, (g + 1) * li.GROUP)
-        assert (reach[1 + g, sl] ** 2 <= sph[1 + g, 3] * (1 + 1e-6)).all()
 
 
 def test_leaf_bounds_match():

@@ -134,6 +134,37 @@ def test_flat_leaf_kernel_stress(card, name, case):
     assert got[-1].any()
 
 
+@pytest.mark.parametrize("name", ["ray_leaves_nearest_instanced", "ray_leaves_occluded_instanced"])
+@pytest.mark.parametrize("case", ["ties", "zero components near", "zero components far",
+                                  "grazing", "far offsets"])
+def test_instanced_leaf_kernel_stress(card, name, case):
+    """The two-level traversal on the instanced tie table (ties inside a
+    chunk, across chunks, across instances with opposite normals, where the
+    lower instance wins from a higher chunk, and four coincident disks with
+    normals n, n, n, -n, whose float32 sum in index order misses n / 2),
+    direction components exactly +-0 near and far, grazing rays, and
+    instances 200 units from the world origin with rays from near it."""
+    rng = np.random.default_rng(9)
+    offsets = np.array([[0.0, 0, 0], [5.0, 0, 0], [0, 7.0, 0]])
+    if case == "ties":
+        table, offsets, rays = disks.instanced_tie_disks(rng, 30_011)
+    else:
+        table = disks.random_disks(rng, 700)
+        if case == "far offsets":
+            offsets = np.array([[200.0, 0, 0], [0, -200.0, 0], [140.0, 140.0, 30.0]])
+            rays = disks.rim_rays(rng, 100_037, *table, offsets,
+                                  origins=rng.uniform(-1, 1, (100_037, 3)))
+        elif case == "grazing":
+            rays = disks.grazing_rays(rng, 100_037, *table, offsets=offsets)
+        else:
+            rays = disks.axis_rays(rng, 100_037, *table,
+                                   100.0 if case.endswith("far") else 1.0, offsets)
+    args = [torch.tensor(np.asarray(a, np.float32), device=card)
+            for a in (*rays, *table, offsets)]
+    got = _held(li, name, args)
+    assert got[-1].any()
+
+
 def edge_problem(B, seed, instanced, far=False):
     """Rays aimed at edges, vertices and interiors of a 60-branch wood
     skeleton (1476 triangles, km), from 0.5-3 m (``far``: 50-300 m) away."""

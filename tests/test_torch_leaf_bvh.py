@@ -331,7 +331,7 @@ def test_leaf_accel_builds_nothing_on_the_cpu(monkeypatch):
         raise AssertionError("a cull operand was built on the CPU")
 
     monkeypatch.setattr(canopy, "leaf_bvh", refuse)
-    monkeypatch.setattr(canopy, "sweep_spheres", refuse)
+    monkeypatch.setattr(canopy, "leaf_instanced_bvh", refuse)
     c, n, r = _t(*disks())
     flat = canopy.LeafCloudArrays(c, n, r)
     for leaves in (flat, canopy.InstancedLeafArrays(flat, torch.tensor([[0.0, 0, 0], [3.0, 0, 0]]))):
@@ -393,10 +393,13 @@ def test_flat_wrapper_rejects_bad_inputs(kind, exc):
 
 
 def test_flat_wrappers_take_only_the_hierarchy():
-    """A flat launch with another cull operand (the group spheres) raises
-    before it reaches the card."""
+    """A flat launch with another cull operand (a group-sphere tensor, or
+    the instanced kernels' two-level hierarchy) raises before it reaches
+    the card."""
     c, n, r = _t(*disks())
     p, d, t_max = _t(*rim_rays(np.random.default_rng(2), 8, *disks()))
-    spheres = li.sweep_spheres(c, n, r)
-    with pytest.raises(TypeError):
-        li._launch_flat("ray_leaves_nearest", True, p, d, t_max, c, n, r, spheres)
+    spheres = torch.zeros(1 + -(-c.shape[0] // 128), 4)
+    two_level = li.leaf_instanced_bvh(c, n, r, torch.zeros(2, 3))
+    for cull in (spheres, two_level):
+        with pytest.raises(TypeError):
+            li._launch_flat("ray_leaves_nearest", True, p, d, t_max, c, n, r, cull)

@@ -108,13 +108,11 @@ def profile(form, scene):
     sweeps = {name: t for name, (t, _) in by_name.items()
               if "nearest_kernel" in name or "occluded_kernel" in name}
     for what in ("leaf", "triangle"):
-        # the triangle kernels are bvh_{nearest,occluded}_kernel (flat) and
-        # tri_{nearest,occluded}_kernel (instanced); the leaf kernels are
-        # leaf_bvh_{nearest,occluded}_kernel (flat) and
-        # {nearest,occluded}_kernel (instanced)
-        ms = sum(t for name, t in sweeps.items()
-                 if ("tri_" in name or "bvh_" in name and "leaf_bvh_" not in name)
-                 == (what == "triangle")) / 1e3
+        # the leaf kernels are leaf_bvh_{nearest,occluded}_kernel (flat) and
+        # leaf_ibvh_{nearest,occluded}_kernel (instanced); the triangle
+        # kernels are bvh_{nearest,occluded}_kernel (flat) and
+        # tri_{nearest,occluded}_kernel (instanced)
+        ms = sum(t for name, t in sweeps.items() if ("leaf_" in name) == (what == "leaf")) / 1e3
         print(f"  {what} sweeps: {ms:.2f} ms, {ms / total_ms:.3f} of device time", flush=True)
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"  {t / 1e3:9.2f} ms  {t / 1e3 / total_ms:6.3f}  x{n:<6d} {name[:110]}", flush=True)
