@@ -45,19 +45,33 @@ script writes as an OBJ file into a temporary directory from a seed
    with the lanes of a real first event (rays from the top of the atmosphere
    along the 15 view directions) and seeded interior lanes (steep descents,
    grazing rays, tangents below the ground); the unmerged 1200-shell column;
-   a column with vacuum shells; a ragged lane count. K4 is given the event
-   points of K2's flight. collide, layer, t_col, tau_sun and tau bitwise
-   (``TAU_BLOCKED`` on the same lanes), and K4's depths equal to K3's;
-   kernel and twin timed with CUDA events (median);
+   a column with vacuum shells; a ragged lane count; and the slant
+   stresses of ``eradiate_tpu_torch.test_tools.shells`` (points on shell
+   radii, tangent radii on shell radii and at the ground, ``b`` above ``r``
+   by rounding, ``p.w = +-0``, points above the top radius) on three
+   columns (232 shells, the same with vacuum shells, 1200 shells) toward a
+   direction along an axis and toward the SZA 85 sun, given to K3 with no
+   flight so that its event points are the stress points; the slant loop's
+   division (the IEEE division's fast path without its range check) against
+   numpy's IEEE division on every divisor significand in [1, 2) and on
+   random pairs inside and beyond its range, bit for bit. K4 is given the
+   event points of K2's flight. collide, layer, t_col, tau_sun and tau bit
+   pattern for bit pattern (``TAU_BLOCKED`` on the same lanes; differing
+   lanes counted), and K4's depths equal to K3's; the mean first shell the
+   slant paths cross, the mean loop start of a warp (the least of its
+   lanes') and the crossed segments a lane; kernel and twin timed with
+   CUDA events (median);
 8. the port on CUDA against the port on the CPU, c4 at 15 view zeniths and
    256 spp at one seed, SZA 75 and SZA 85: every pixel within |z| <= 5,
    the median pixel within 1e-4 relative and every pixel within 5e-2 (CUDA's
    libm differs from the CPU's in the last ulp, and the event positions
    drift apart until a few paths take another branch);
 9. c4 at full width, SZA 75: one warm-up run, then a timed run; shell-flight
-   launches must equal event iterations;
+   launches must equal event iterations; then one more run with CUDA events
+   around each launch, for the kernel's device time a launch on the real
+   event mix;
 10. the SZA 85 variant at full width (2097152 spp): shell-event launches
-    must equal event iterations;
+    must equal event iterations; device time a launch as phase 9;
 11. the four leaf-sweep kernels (nearest and any hit, flat and instanced)
     against their plain versions on the card: HET01's leaves, rays of three
     kinds (from the top of the atmosphere toward the footprint, from inside
@@ -97,7 +111,8 @@ script writes as an OBJ file into a temporary directory from a seed
 15. c4 at SZA 75 with ``lr_flight`` at full width: a warm-up, then a timed
     run; shell-flight and slant-depth launches must each equal the event
     iterations; its radiance against the exact-NEE render (sun-tau table
-    off, shell-event kernel) of the same scene and seed, bit for bit;
+    off, shell-event kernel) of the same scene and seed, bit for bit; device
+    time a launch of both kernels as phase 9;
 16. the four triangle-sweep kernels (K8 flat, K9 instanced) against their
     plain versions on the card, as phase 11: the trunks of ``c5_trees`` and
     the soup of ``c5_wood`` with the three kinds of rays clipped to the
@@ -124,8 +139,11 @@ script writes as an OBJ file into a temporary directory from a seed
 It prints a ``{"kernels": [...]}`` line (each kernel with its launches on its
 main path, its error against the plain version, its time, the plain
 version's, the lane counts of both, its bound on this card and what bounds
-it; a sweep's bound counts the exact tests at item granularity, so that it
-is the same whatever cull implements the sweep) and the ``nvidia-smi`` line
+it; a sweep's bound counts the exact tests at item granularity, and the
+slant depth's the distinct segments of each path, so that each is the same
+whatever cull or order implements it; the shell kernels also with their
+device time a launch inside the full-width runs, ``run_ms``) and the
+``nvidia-smi`` line
 before the last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
 exits non-zero and prints no result. It imports neither ``jax`` nor
@@ -269,6 +287,13 @@ def _ulps(a, b):
     return np.abs(ia - ib)
 
 
+def _bits(t):
+    """A float32 tensor's bit patterns (so that -0.0 differs from +0.0)."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
 def _time_ms(fn, reps=25):
     import torch
 
@@ -378,6 +403,54 @@ def _shell_inputs(exp, B, seed, vacuum=False, device="cuda"):
     return p, d, t_max, radii, sigma, tau_s, w_sun.contiguous()
 
 
+def _slant_start_sums(p, w, radii):
+    """Where the slant sums from points ``p`` toward ``w`` start, as a
+    float64 tensor on their device: (sum of the first crossed shell l0 over
+    the lanes that loop, those lanes, sum of the loop starts of the warps
+    that loop (the least l0 of their looping lanes), those warps, crossed
+    segments, lanes)."""
+    import torch
+
+    from eradiate_tpu_torch.test_tools import shells
+
+    L = radii.shape[0] - 1
+    l0, _, blocked = shells.first_shells(p, w, radii)
+    loops = ~blocked & (l0 < L)
+    starts = shells.loop_starts(l0, loops, L)[:: shells.WARP]
+    warps = starts < L
+    return torch.stack([
+        torch.where(loops, l0, 0).sum(), loops.sum(), torch.where(warps, starts, 0).sum(),
+        warps.sum(), shells.crossed_segments(p, w, radii).sum(),
+        torch.tensor(p.shape[0], device=p.device),
+    ]).double()
+
+
+def _start_means(sums):
+    """(mean l0, mean warp loop start, mean crossed segments a lane, share
+    of the warps that loop)."""
+    from eradiate_tpu_torch.test_tools.shells import WARP
+
+    s = sums.tolist()
+    return (s[0] / max(s[1], 1), s[2] / max(s[3], 1), s[4] / max(s[5], 1),
+            s[3] / max(-(-s[5] // WARP), 1))
+
+
+def _slant_stress_inputs(column, w, B, seed, device="cuda"):
+    """Shell-kernel operands whose slant stage sees the stresses of
+    ``test_tools.shells.stress_points`` toward ``w``: no flight (t_max = 0,
+    directions with negative components so that the step adds -0 and keeps
+    a -0 coordinate), so that the event point is the point itself."""
+    import torch
+
+    from eradiate_tpu_torch.test_tools import shells
+
+    radii, sigma = shells.stress_columns(np.random.default_rng(8))[column]
+    p = shells.stress_points(np.random.default_rng(seed), radii, w, B)
+    d = np.full((B, 3), -(3.0**-0.5), np.float32)
+    ops = (p, d, np.zeros(B, np.float32), radii, sigma, np.ones(B, np.float32), w)
+    return tuple(torch.tensor(np.ascontiguousarray(a), device=device) for a in ops)
+
+
 def check_shell_kernels(name, args, timed=False):
     """K2, K3 and K4 against their twins on the card, bitwise; returns
     ({kernel: max abs error}, {kernel: (kernel ms, twin ms)}, {kernel: (bound
@@ -386,17 +459,24 @@ def check_shell_kernels(name, args, timed=False):
     The bound: the lanes' state and the column read once, the outputs
     written once; per lane the levels its two sweeps have to visit on this
     data (up to the event's shell, ~8 float32 operations a level, a square
-    root among them) and, for shell_event and slant_tau, ~30 operations a
-    shell for every lane that is not in the ground's shadow."""
+    root among them) and, for shell_event and slant_tau, ~15 operations (a
+    root and a quotient) for each distinct segment of the slant path from
+    the event point: the shells from the first one it crosses to the top,
+    and a descending path's partial segment in its point's shell
+    (``test_tools.shells.crossed_segments``), whatever implements the sum."""
     import torch
 
     from eradiate_tpu_torch.kernels import shell_flight as sf
     from eradiate_tpu_torch.ops.spherical import fma
+    from eradiate_tpu_torch.test_tools.shells import crossed_segments
 
     p, d, t_max, radii, sigma, _, w_sun = args
     flight_args = args[:6]
     collide, t_col, _ = sf.shell_flight(*flight_args)
     p_event = fma(d, torch.where(collide, t_col, t_max)[:, None], p).contiguous()
+    segments = crossed_segments(p_event, w_sun, radii)
+    mean_l0, mean_start, mean_segments, looping = _start_means(
+        _slant_start_sums(p_event, w_sun, radii))
     checks = {
         "shell_flight": (sf.shell_flight, sf.shell_flight_plain, flight_args),
         "slant_tau": (lambda *a: (sf.slant_tau(*a),), lambda *a: (sf.slant_tau_exact(*a),),
@@ -404,14 +484,13 @@ def check_shell_kernels(name, args, timed=False):
         "shell_event": (sf.shell_event, sf.shell_event_plain, args),
     }
     errs, times, bounds = {}, {}, {}
-    L = args[4].shape[0]
     for kernel, (fn, plain, a) in checks.items():
         got, want = fn(*a), plain(*a)
         labels = ("tau",) if kernel == "slant_tau" else ("collide", "t_col", "layer", "tau_sun")
         for label, g, w in zip(labels, got, want):
-            if not torch.equal(g, w):
+            if not torch.equal(_bits(g), _bits(w)):
                 gn, wn = g.cpu().numpy(), w.cpu().numpy()
-                detail = f"{int((gn != wn).sum())} lanes"
+                detail = f"{int((_bits(g) != _bits(w)).sum())} lanes"
                 if gn.dtype == np.float32:
                     detail += f", max {int(_ulps(gn, wn).max())} ulp"
                 raise AssertionError(f"{name}: {kernel} {label} differs from the twin: {detail}")
@@ -423,22 +502,101 @@ def check_shell_kernels(name, args, timed=False):
             if kernel != "slant_tau":
                 flops += 8.0 * 2.0 * float((got[2].double() + 1.0).sum())
             if kernel != "shell_flight":
-                flops += 30.0 * L * float((got[-1] < 1e9).sum())
+                flops += 15.0 * float(segments.sum())
             bounds[kernel] = bound_ms(n_bytes, flops)
         if kernel == "slant_tau":
             tau_k4 = got[0]
-    if not torch.equal(tau_k4, got[3]):
+    if not torch.equal(_bits(tau_k4), _bits(got[3])):
         raise AssertionError(f"{name}: slant_tau at the event points differs from shell_event")
     collide = got[0].float().mean().item()
     blocked = (got[3] >= 1e9).float().mean().item()
     line = (f"  {name}: B={args[0].shape[0]} L={args[4].shape[0]} collide, t_col, "
-            f"layer, tau_sun, tau bitwise for the three kernels, slant_tau equal to "
-            f"shell_event's (collide share {collide:.3f}, TAU_BLOCKED share {blocked:.3f})")
+            f"layer, tau_sun, tau bitwise for the three kernels (0 lanes differ), "
+            f"slant_tau equal to shell_event's (collide share {collide:.3f}, TAU_BLOCKED "
+            f"share {blocked:.3f}); slant from the event points: first crossed shell l0 "
+            f"mean {mean_l0:.2f}, warp loop start (least l0 of a warp) mean "
+            f"{mean_start:.2f}, crossed segments a lane {mean_segments:.2f}, warps that loop "
+            f"{looping:.3f}")
     for kernel, (k_ms, p_ms) in times.items():
         line += (f"; {kernel} kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms, bound "
                  f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
     print(line, flush=True)
     return errs, times, bounds
+
+
+def check_slant_division():
+    """The slant loop's division (``div_rn``) against numpy's IEEE float32
+    division on ``test_tools.shells.division_operands``, bit for bit."""
+    import torch
+
+    from eradiate_tpu_torch.kernels import shell_flight as sf
+    from eradiate_tpu_torch.test_tools import shells
+
+    n, d = shells.division_operands(np.random.default_rng(3))
+    got = sf.slant_division(torch.tensor(n, device="cuda"), torch.tensor(d, device="cuda"))
+    differ = int((got.cpu().numpy().view(np.int32) != (n / d).view(np.int32)).sum())
+    print(f"  the slant loop's division (div_rn) against the IEEE division: {n.size} operand "
+          f"pairs, every divisor significand in [1, 2) among them; {differ} differ", flush=True)
+    if differ:
+        raise AssertionError("the slant loop's division differs from the IEEE division")
+
+
+def launch_ms_in_run(run, names, starts=True):
+    """Call ``run()`` with the spherical tracer's kernel wrappers ``names``
+    timed by CUDA events around each call (device time, nothing
+    synchronised inside the run); returns ({name: (launches, mean ms a
+    launch)} for the wrappers it called, the ``_slant_start_sums`` of the
+    slant paths the run summed, or None where it summed none or not
+    ``starts``), the sums taken on the device after each slant launch's end
+    event."""
+    import torch
+
+    from eradiate_tpu_torch.ops import tracer_spherical as ts
+    from eradiate_tpu_torch.ops.spherical import fma
+
+    events = {n: [] for n in names}
+    saved = {n: getattr(ts, n) for n in names}
+    sums = []
+
+    def timed(name, fn):
+        def call(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            events[name].append((start, end))
+            if starts and name == "slant_tau":
+                sums.append(_slant_start_sums(args[0], args[1], args[2]))
+            elif starts and name == "shell_event":
+                p, d, t_max, radii, _, _, w = args
+                t = torch.where(out[0], out[1], t_max)[:, None]
+                sums.append(_slant_start_sums(fma(d, t, p), w, radii))
+            return out
+        return call
+
+    for n in names:
+        setattr(ts, n, timed(n, saved[n]))
+    try:
+        run()
+    finally:
+        for n, fn in saved.items():
+            setattr(ts, n, fn)
+    torch.cuda.synchronize()
+    out = {n: (len(ev), statistics.fmean(a.elapsed_time(b) for a, b in ev))
+           for n, ev in events.items() if ev}
+    return out, torch.stack(sums).sum(0) if sums else None
+
+
+def _print_in_run(in_run, sums=None):
+    line = ("    device time a launch inside the run (CUDA events around each launch, "
+            "one more run): " + ", ".join(f"{n} {ms:.4f} ms over {k} launches"
+                                          for n, (k, ms) in in_run.items()))
+    if sums is not None:
+        line += ("; slant paths from its event points: first crossed shell l0 mean "
+                 "{:.2f}, warp loop start mean {:.2f}, crossed segments a lane {:.2f}, warps "
+                 "that loop {:.3f}").format(*_start_means(sums))
+    print(line, flush=True)
 
 
 def c4_cuda_vs_cpu(sza):
@@ -464,7 +622,8 @@ def c4_cuda_vs_cpu(sza):
 
 def c4_full_width(sza, spp, phase):
     """Phases 9 and 10: one timed run of c4 at ``spp``; returns the launch
-    counts of the run by kernel."""
+    counts of the run by kernel, and the shell kernels' device time a launch
+    in one more run (``launch_ms_in_run``)."""
     import torch
 
     import eradiate_tpu_torch as etp
@@ -496,7 +655,10 @@ def c4_full_width(sza, spp, phase):
         raise AssertionError(f"c4 at SZA {sza:g} launched {others}")
     if brf.shape != (1, N_VZA_C4) or not np.isfinite(brf).all():
         raise AssertionError("c4 BRF is not finite or has the wrong shape")
-    return launches
+    in_run, sums = launch_ms_in_run(
+        lambda: etp.run(exp, spp=spp, seed_state=etp.SeedState(SEED), device="cuda"), (kernel,))
+    _print_in_run(in_run, sums)
+    return launches, in_run
 
 
 def _wood_obj(directory, branches=WOOD_BRANCHES):
@@ -1226,7 +1388,8 @@ def c4_lr_flight_full_width(spp, phase):
     """Path B: c4 at SZA 75 through ``render_spherical`` with
     ``config.lr_flight`` at ``spp`` (a warm-up, then a timed run), held
     against the exact-NEE render (sun-tau table off, shell-event kernel) of
-    the same scene and seed; returns the launch counts of the timed run."""
+    the same scene and seed; returns the launch counts of the timed run and
+    the kernels' device time a launch in one more run."""
     import dataclasses
 
     import torch
@@ -1264,6 +1427,10 @@ def c4_lr_flight_full_width(spp, phase):
         raise AssertionError("c4 with lr_flight launched a kernel of another path")
     if rad.shape != (1, N_VZA_C4) or not (np.isfinite(rad).all() and (rad > 0).all()):
         raise AssertionError("c4 radiance with lr_flight is not finite and positive")
+    in_run, sums = launch_ms_in_run(
+        lambda: render_spherical(scene, sensor, config_lr, spp=spp, seed=SEED, device="cuda"),
+        mine)
+    _print_in_run(in_run, sums)
 
     scene_x, sensor_x, config_x = compiled(_c4(75.0, sun_tau_table=False))
     if scene_x.medium.sun_tau is not None:
@@ -1281,7 +1448,7 @@ def c4_lr_flight_full_width(spp, phase):
               f"(bound 1e-5)", flush=True)
         if not (z.max() <= 5.0 and np.median(rel) <= 1e-5):
             raise AssertionError("lr_flight and the exact-NEE render disagree")
-    return launches
+    return launches, in_run
 
 
 def main():
@@ -1299,6 +1466,7 @@ def main():
     from eradiate_tpu_torch.ops.tracer import REGEN_LANES_TARGET, lane_partition
     from eradiate_tpu_torch.ops.tracer_canopy import LANES_TARGET as CANOPY_LANES_TARGET
     from eradiate_tpu_torch.ops.tracer_spherical import spherical_lanes_target
+    from eradiate_tpu_torch.test_tools import shells
 
     etp.set_mode("mono_single")
 
@@ -1426,14 +1594,25 @@ def main():
     ):
         errs, _, _ = check_shell_kernels(name, args)
         shell_errs = {k: max(v, errs[k]) for k, v in shell_errs.items()}
+    check_slant_division()
+    exp85 = _c4(85.0)
+    scene85, _, _ = exp85.compile_scene(exp85.measures[0], exp85.spectral_context(exp85.measures[0]))
+    sun_85 = -np.asarray(scene85.illumination.direction, np.float32)
+    for column in ("232 shells", "232 shells, vacuum", "1200 shells"):
+        for label, w in (("along an axis", shells.AXIS_W), ("toward the SZA 85 sun", sun_85)):
+            errs, _, _ = check_shell_kernels(
+                f"slant stresses, {column}, {label}",
+                _slant_stress_inputs(column, w, 100_037, seed=14),
+            )
+            shell_errs = {k: max(v, errs[k]) for k, v in shell_errs.items()}
 
     # -- 8. c4: port on CUDA against port on CPU -----------------------------
     for sza in (75.0, 85.0):
         c4_cuda_vs_cpu(sza)
 
     # -- 9, 10. c4 at full width -------------------------------------------
-    c4_launches = c4_full_width(75.0, SPP_C4, phase=9)
-    c4x_launches = c4_full_width(85.0, SPP_C4, phase=10)
+    c4_launches, c4_in_run = c4_full_width(75.0, SPP_C4, phase=9)
+    c4x_launches, c4x_in_run = c4_full_width(85.0, SPP_C4, phase=10)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -1521,7 +1700,7 @@ def main():
         raise AssertionError("the instanced and the flat c5 scene disagree")
 
     # -- 15. path B: c4 with lr_flight at full width --------------------------
-    lr_launches = c4_lr_flight_full_width(SPP_C4, phase=15)
+    lr_launches, lr_in_run = c4_lr_flight_full_width(SPP_C4, phase=15)
 
     with tempfile.TemporaryDirectory() as mesh_dir:
         # -- 16. triangle-sweep kernels against their plain versions ---------
@@ -1581,14 +1760,18 @@ def main():
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
 
-    def entry(name, source, replaces, n, err, times, bound):
+    def entry(name, source, replaces, n, err, times, bound, in_run=None):
         """One kernel of the ``kernels`` line; ``times`` is (kernel ms, plain
-        ms) and, for the sweeps, the lane counts the two were taken at."""
+        ms) and, for the sweeps, the lane counts the two were taken at;
+        ``in_run`` the shell kernels' (launches, ms a launch) inside a
+        full-width run."""
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": n, "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
         if len(times) == 4:
             out.update(lanes=times[2], plain_lanes=times[3])
+        if in_run is not None:
+            out.update(run_ms=in_run[name][1])
         return out
 
     shell_src = "eradiate_tpu_torch/csrc/shell_flight.cu"
@@ -1611,13 +1794,13 @@ def main():
               (kernel_ms, plain_ms), fetch_bound),
         entry("shell_flight", shell_src, f"{pallas}/shell_flight.py:405",
               c4_launches["shell_flight"], shell_errs["shell_flight"],
-              shell_times["shell_flight"], shell_bounds["shell_flight"]),
+              shell_times["shell_flight"], shell_bounds["shell_flight"], c4_in_run),
         entry("shell_event", shell_src, f"{pallas}/shell_flight.py:326",
               c4x_launches["shell_event"], shell_errs["shell_event"],
-              shell_times["shell_event"], shell_bounds["shell_event"]),
+              shell_times["shell_event"], shell_bounds["shell_event"], c4x_in_run),
         entry("slant_tau", shell_src, f"{pallas}/shell_flight.py:473",
               lr_launches["slant_tau"], shell_errs["slant_tau"],
-              shell_times["slant_tau"], shell_bounds["slant_tau"]),
+              shell_times["slant_tau"], shell_bounds["slant_tau"], lr_in_run),
         *[
             entry(k, f"eradiate_tpu_torch/csrc/{stem}_intersect.cu",
                   f"{pallas}/{stem}_intersect.py:{line}", c5_launches[form][k],

@@ -27,7 +27,14 @@ traverse a bounding volume hierarchy, also with direction components exactly
 +-0 (origins on the planes of box faces) and on exact ties of the hit
 distance inside one 512-triangle chunk and across two (the tie rule must not
 depend on the traversal's order). The slant-depth kernel is held on points
-spread through the shells (steep, grazing and blocked rays).
+spread through the shells (steep, grazing and blocked rays), and it and the
+shell-event kernel (whose flight is then given no length, so that its event
+point is the point itself) on the stresses of
+``eradiate_tpu_torch.test_tools.shells``: points on shell radii, tangent
+radii on shell radii and at the ground, ``b`` above ``r`` by rounding,
+``p.w = +-0``, points above the top radius, vacuum shells and 1200 shells;
+the slant loop's division is held against the IEEE division on every
+divisor significand and on random operands inside and beyond its range.
 """
 
 import numpy as np
@@ -39,7 +46,7 @@ from eradiate_tpu_torch.kernels import shell_flight as sf
 from eradiate_tpu_torch.kernels import tri_intersect as ti
 from eradiate_tpu_torch.ops.mesh import mesh_from_vertices
 from eradiate_tpu_torch.ops.spherical import TAU_BLOCKED
-from eradiate_tpu_torch.test_tools import disks
+from eradiate_tpu_torch.test_tools import disks, shells
 from eradiate_tpu_torch.test_tools.meshes import axis_rays, edge_rays, tie_soup, wood_skeleton
 
 pytestmark = pytest.mark.cuda
@@ -229,3 +236,53 @@ def test_slant_tau_kernel_equals_plain_version(card, B, L):
     if B > 1:
         blocked = got == TAU_BLOCKED
         assert blocked.any() and not blocked.all()
+
+
+SUN_85 = np.array([np.sin(np.deg2rad(85.0)), 0.0, np.cos(np.deg2rad(85.0))], np.float32)
+STRESS_COLUMNS = ["232 shells", "232 shells, vacuum", "1200 shells"]
+
+
+def stress_problem(card, column, axis, B=100_037):
+    radii, sigma = shells.stress_columns(np.random.default_rng(8))[column]
+    w = shells.AXIS_W if axis else SUN_85
+    p = shells.stress_points(np.random.default_rng(9), radii, w, B)
+    return [torch.tensor(a, device=card) for a in (p, w, radii, sigma)]
+
+
+def test_slant_division_equals_the_ieee_division(card):
+    """The slant loop's division (the IEEE division's fast path without its
+    range check) against numpy's IEEE float32 division, bit for bit."""
+    n, d = shells.division_operands(np.random.default_rng(3))
+    got = sf.slant_division(torch.tensor(n, device=card), torch.tensor(d, device=card))
+    want = n / d
+    assert np.array_equal(got.cpu().numpy().view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("column", STRESS_COLUMNS)
+@pytest.mark.parametrize("axis", [True, False])
+def test_slant_tau_kernel_stress(card, column, axis):
+    args = stress_problem(card, column, axis)
+    before = sf.launches["slant_tau"]
+    got = sf.slant_tau(*args)
+    torch.cuda.synchronize()
+    assert sf.launches["slant_tau"] == before + 1
+    same_bits([got], [sf.slant_tau_exact(*args)])
+
+
+@pytest.mark.parametrize("column", STRESS_COLUMNS)
+@pytest.mark.parametrize("axis", [True, False])
+def test_shell_event_kernel_stress(card, column, axis):
+    """No flight (t_max = 0, d with negative components so that the step adds
+    -0 and keeps a -0 coordinate): the slant stage sees the stress points."""
+    p, w, radii, sigma = stress_problem(card, column, axis)
+    B = p.shape[0]
+    d = torch.full((B, 3), -(3.0**-0.5), device=card)
+    t_max = torch.zeros(B, device=card)
+    tau_s = torch.ones(B, device=card)
+    args = (p, d, t_max, radii, sigma, tau_s, w)
+    before = sf.launches["shell_event"]
+    got = sf.shell_event(*args)
+    torch.cuda.synchronize()
+    assert sf.launches["shell_event"] == before + 1
+    same_bits(got, sf.shell_event_plain(*args))
+    same_bits([got[3]], [sf.slant_tau(p, w, radii, sigma)])
