@@ -38,8 +38,10 @@ script writes as an OBJ file into a temporary directory from a seed
    pixel within |z| <= 5 of the variances;
 5. c1 at full width: one warm-up run, then a timed run; the kernel's launch
    count over the timed run must equal its bounce iterations;
-6. the shell, triangle and leaf launchers in the library, and their ptxas
-   reports;
+6. the shell, triangle and leaf launchers in the library, their ptxas
+   reports, the blocks of the shell kernels that fit on an SM at 232
+   and 1200 shells, and the shell wrappers' checkpoint stride and
+   shared-memory sizes equal to the library's at 1 to 4096 shells;
 7. the shell-flight (K2), slant-depth (K4) and shell-event (K3) kernels
    against their plain twins on the card: the c4 column at c4's lane count,
    with the lanes of a real first event (rays from the top of the atmosphere
@@ -54,13 +56,30 @@ script writes as an OBJ file into a temporary directory from a seed
    flight so that its event points are the stress points; the slant loop's
    division (the IEEE division's fast path without its range check) against
    numpy's IEEE division on every divisor significand in [1, 2) and on
-   random pairs inside and beyond its range, bit for bit. K4 is given the
-   event points of K2's flight. collide, layer, t_col, tau_sun and tau bit
-   pattern for bit pattern (``TAU_BLOCKED`` on the same lanes; differing
-   lanes counted), and K4's depths equal to K3's; the mean first shell the
-   slant paths cross, the mean loop start of a warp (the least of its
-   lanes') and the crossed segments a lane; kernel and twin timed with
-   CUDA events (median);
+   random pairs inside and beyond its range, bit for bit; the flight's
+   stresses of ``test_tools.shells.flight_stress_inputs`` on six columns
+   (232 shells, the same with vacuum shells, 1200 shells, 229 shells with
+   runs of vacuum shells across checkpoint levels, its lowest 17 with one
+   vacuum run, one shell): ``v`` on a
+   level's G inside vacuum runs and at checkpoint levels, ``tau_s`` at 0
+   and one ulp either side of ``tau_max``, ``t_max = 0``, ``x0 = +-0``,
+   ``b2`` at ``fl(r_k^2)`` and one ulp either side, grazing lanes in the
+   top shell, random lanes with flights cut short; the flight loop's square
+   root (the IEEE root's fast path without its range check) against
+   ``sqrtf`` on every float32 of its range. K4 is given the event points of
+   K2's flight. collide, layer, t_col, tau_sun and tau bit pattern for bit
+   pattern (``TAU_BLOCKED`` on the same lanes; differing lanes counted),
+   and K4's depths equal to K3's; the mean first shell the slant paths
+   cross, the mean loop start of a warp (the least of its lanes') and the
+   crossed segments a lane; the flight's level passes a lane and those of
+   the slowest lane of a warp, now and under the two sweeps before, as the
+   kernels' emulation counts them on the set's lanes (``test_tools.shells
+   .shell_flight_checkpointed``, not a count taken in the kernel:
+   ``tools/chip_flight_variants.py`` holds the kernel's own count to it
+   lane for lane; fatal where an emulated lane passes more than L + S
+   levels, S the checkpoint stride), the share of lanes that resume at the
+   sweep's stop and walk past it, and the levels a flight has to read
+   (``flight_levels``); kernel and twin timed with CUDA events (median);
 8. the port on CUDA against the port on the CPU, c4 at 15 view zeniths and
    256 spp at one seed, SZA 75 and SZA 85: every pixel within |z| <= 5,
    the median pixel within 1e-4 relative and every pixel within 5e-2 (CUDA's
@@ -69,7 +88,8 @@ script writes as an OBJ file into a temporary directory from a seed
 9. c4 at full width, SZA 75: one warm-up run, then a timed run; shell-flight
    launches must equal event iterations; then one more run with CUDA events
    around each launch, for the kernel's device time a launch on the real
-   event mix;
+   event mix, and the flight statistics of phase 7 on the lanes of its
+   eighth launch;
 10. the SZA 85 variant at full width (2097152 spp): shell-event launches
     must equal event iterations; device time a launch as phase 9;
 11. the four leaf-sweep kernels (nearest and any hit, flat and instanced)
@@ -141,8 +161,9 @@ main path, its error against the plain version, its time, the plain
 version's, the lane counts of both, its bound on this card and what bounds
 it; a sweep's bound counts the exact tests at item granularity, and the
 slant depth's the distinct segments of each path, so that each is the same
-whatever cull or order implements it; the shell kernels also with their
-device time a launch inside the full-width runs, ``run_ms``) and the
+whatever cull or order implements it, the flight's the levels each lane
+has to read; the shell kernels also with their device time a launch inside
+the full-width runs, ``run_ms``) and the
 ``nvidia-smi`` line
 before the last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
@@ -451,19 +472,63 @@ def _slant_stress_inputs(column, w, B, seed, device="cuda"):
     return tuple(torch.tensor(np.ascontiguousarray(a), device=device) for a in ops)
 
 
+def _flight_stats(args):
+    """What the flights of the lanes ``args`` (the shell kernels' operands)
+    visit, from the kernels' emulation (``test_tools.shells
+    .shell_flight_checkpointed`` at the kernels' stride S): float sums
+    {lanes, level passes a lane now and under the two sweeps before, the
+    slowest lane of each warp (both counts), the most of any warp now,
+    lanes that resume at the sweep's stop and that walk past it, the levels
+    a flight has to read (``flight_levels``, the bound's count), L, S}."""
+    from eradiate_tpu_torch.kernels.shell_flight import flight_stride
+    from eradiate_tpu_torch.test_tools import shells
+
+    p, d, t_max, radii, sigma, tau_s = args[:6]
+    L = sigma.shape[0]
+    S = flight_stride(L)
+    *_, tr = shells.shell_flight_checkpointed(p, d, t_max, radii, sigma, tau_s, S)
+    visits = tr["sweep"] + tr["walk"]
+    parent = shells.parent_visits(tr, L)
+    slowest, slowest_parent = shells.warp_max(visits), shells.warp_max(parent)
+    sums = {
+        "lanes": p.shape[0], "visits": visits.sum(), "parent": parent.sum(),
+        "warps": slowest.shape[0], "slowest": slowest.sum(), "slowest_parent": slowest_parent.sum(),
+        "most": slowest.max(), "at_stop": tr["at_end"].sum(), "past_stop": (tr["kv"] > tr["end"]).sum(),
+        "levels": shells.flight_levels(tr).sum(), "L": L, "S": S,
+    }
+    return {k: float(v) for k, v in sums.items()}
+
+
+def _flight_line(st):
+    """One line of :func:`_flight_stats` (means a lane and a warp)."""
+    lanes, warps = st["lanes"], st["warps"]
+    return (f"flight, as the emulation counts it on these lanes: {st['visits'] / lanes:.2f} "
+            f"level passes a lane ({st['parent'] / lanes:.2f} "
+            f"under the two sweeps before), slowest lane of a warp {st['slowest'] / warps:.2f} "
+            f"({st['slowest_parent'] / warps:.2f}), at most {st['most']:.0f} (L + S = "
+            f"{st['L'] + st['S']:.0f}); resume at the sweep's stop {st['at_stop'] / lanes:.3f}, "
+            f"walk past it {st['past_stop'] / lanes:.3f}; levels a flight has to read "
+            f"{st['levels'] / lanes:.2f} a lane")
+
+
 def check_shell_kernels(name, args, timed=False):
     """K2, K3 and K4 against their twins on the card, bitwise; returns
     ({kernel: max abs error}, {kernel: (kernel ms, twin ms)}, {kernel: (bound
     ms, bound by)}). K4 (slant_tau) is given the event points of K2's flight,
     formed as shell_event forms them, so its depths must also equal K3's.
     The bound: the lanes' state and the column read once, the outputs
-    written once; per lane the levels its two sweeps have to visit on this
-    data (up to the event's shell, ~8 float32 operations a level, a square
-    root among them) and, for shell_event and slant_tau, ~15 operations (a
-    root and a quotient) for each distinct segment of the slant path from
-    the event point: the shells from the first one it crosses to the top,
-    and a descending path's partial segment in its point's shell
-    (``test_tools.shells.crossed_segments``), whatever implements the sum."""
+    written once; per lane ~8 float32 operations (a square root among them)
+    for each level its flight has to read, from its tangent level to the
+    highest of its brackets of |x0|, |x_max| and the sampled depth
+    (``test_tools.shells.flight_levels``), and, for shell_event and
+    slant_tau, ~15 operations (a root and a quotient) for each distinct
+    segment of the slant path from the event point: the shells from the
+    first one it crosses to the top, and a descending path's partial segment
+    in its point's shell (``test_tools.shells.crossed_segments``), whatever
+    implements them. The bound before (two sweeps from level 0 up to the
+    event's shell, 8 x 2 x (layer + 1) operations) is printed beside it.
+    Fails where a lane passes more than L + S levels in the kernels'
+    emulation (``_flight_stats``)."""
     import torch
 
     from eradiate_tpu_torch.kernels import shell_flight as sf
@@ -472,6 +537,10 @@ def check_shell_kernels(name, args, timed=False):
 
     p, d, t_max, radii, sigma, _, w_sun = args
     flight_args = args[:6]
+    flight = _flight_stats(args)
+    if flight["most"] > flight["L"] + flight["S"]:
+        raise AssertionError(f"{name}: an emulated lane passes {flight['most']:.0f} levels, "
+                             "above L + S")
     collide, t_col, _ = sf.shell_flight(*flight_args)
     p_event = fma(d, torch.where(collide, t_col, t_max)[:, None], p).contiguous()
     segments = crossed_segments(p_event, w_sun, radii)
@@ -483,7 +552,7 @@ def check_shell_kernels(name, args, timed=False):
                       (p_event, w_sun, radii, sigma)),
         "shell_event": (sf.shell_event, sf.shell_event_plain, args),
     }
-    errs, times, bounds = {}, {}, {}
+    errs, times, bounds, bounds_before = {}, {}, {}, {}
     for kernel, (fn, plain, a) in checks.items():
         got, want = fn(*a), plain(*a)
         labels = ("tau",) if kernel == "slant_tau" else ("collide", "t_col", "layer", "tau_sun")
@@ -498,12 +567,15 @@ def check_shell_kernels(name, args, timed=False):
         if timed:
             times[kernel] = (_time_ms(lambda: fn(*a)), _time_ms(lambda: plain(*a), reps=5))
             n_bytes = sum(t.numel() * t.element_size() for t in tuple(a) + tuple(got))
-            flops = 40.0 * a[0].shape[0]
+            flops = before = 40.0 * a[0].shape[0]
             if kernel != "slant_tau":
-                flops += 8.0 * 2.0 * float((got[2].double() + 1.0).sum())
+                flops += 8.0 * flight["levels"]
+                before += 8.0 * 2.0 * float((got[2].double() + 1.0).sum())
             if kernel != "shell_flight":
                 flops += 15.0 * float(segments.sum())
+                before += 15.0 * float(segments.sum())
             bounds[kernel] = bound_ms(n_bytes, flops)
+            bounds_before[kernel] = bound_ms(n_bytes, before)[0]
         if kernel == "slant_tau":
             tau_k4 = got[0]
     if not torch.equal(_bits(tau_k4), _bits(got[3])):
@@ -516,12 +588,45 @@ def check_shell_kernels(name, args, timed=False):
             f"share {blocked:.3f}); slant from the event points: first crossed shell l0 "
             f"mean {mean_l0:.2f}, warp loop start (least l0 of a warp) mean "
             f"{mean_start:.2f}, crossed segments a lane {mean_segments:.2f}, warps that loop "
-            f"{looping:.3f}")
+            f"{looping:.3f}; " + _flight_line(flight))
     for kernel, (k_ms, p_ms) in times.items():
         line += (f"; {kernel} kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms, bound "
                  f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
+        if kernel != "slant_tau":
+            line += f" ({bounds_before[kernel]:.4f} ms under the two sweeps' count)"
     print(line, flush=True)
     return errs, times, bounds
+
+
+def _flight_stress_inputs(radii, sigma, w, B, seed, device="cuda"):
+    """Shell-kernel operands on the flight's stresses of ``test_tools.shells
+    .flight_stress_inputs`` for the column ``radii``, ``sigma``, the slant
+    stage toward ``w``."""
+    import torch
+
+    from eradiate_tpu_torch.test_tools import shells
+
+    p, d, t_max, tau_s = shells.flight_stress_inputs(np.random.default_rng(seed), radii, sigma,
+                                                     B, device=device)
+    column = (torch.tensor(np.asarray(a, np.float32), device=device) for a in (radii, sigma, w))
+    radii_t, sigma_t, w_t = column
+    return p, d, t_max, radii_t, sigma_t, tau_s, w_t
+
+
+def check_flight_root():
+    """The flight loop's square root (``root_rn``: the IEEE square root's fast
+    path without its range check) against ``sqrtf`` on every float32 of its
+    range, bit for bit, on the card."""
+    from eradiate_tpu_torch.kernels import shell_flight as sf
+
+    t0 = time.perf_counter()
+    differ = sf.flight_root_differences()
+    lo, hi = sf.ROOT_RANGE
+    print(f"  the flight loop's square root (root_rn) against sqrtf: every float32 from "
+          f"{hex(lo)} to {hex(hi)} ({hi - lo + 1} values), {differ} differ "
+          f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    if differ:
+        raise AssertionError("the flight loop's square root differs from sqrtf")
 
 
 def check_slant_division():
@@ -541,14 +646,22 @@ def check_slant_division():
         raise AssertionError("the slant loop's division differs from the IEEE division")
 
 
+#: The launch of a flight kernel inside a run whose lanes are kept for
+#: their flight statistics (the eighth: a mix of first and later events).
+CAPTURE_AT = 8
+
+
 def launch_ms_in_run(run, names, starts=True):
     """Call ``run()`` with the spherical tracer's kernel wrappers ``names``
     timed by CUDA events around each call (device time, nothing
     synchronised inside the run); returns ({name: (launches, mean ms a
     launch)} for the wrappers it called, the ``_slant_start_sums`` of the
     slant paths the run summed, or None where it summed none or not
-    ``starts``), the sums taken on the device after each slant launch's end
-    event."""
+    ``starts``, and the operands of the flight kernel's ``CAPTURE_AT``-th
+    launch, or of its last where there were fewer, or None where it made
+    none or not ``starts``), the sums taken on the device after each
+    launch's end event, and only the ``CAPTURE_AT``-th launch's operands
+    copied (earlier ones held by reference)."""
     import torch
 
     from eradiate_tpu_torch.ops import tracer_spherical as ts
@@ -557,6 +670,7 @@ def launch_ms_in_run(run, names, starts=True):
     events = {n: [] for n in names}
     saved = {n: getattr(ts, n) for n in names}
     sums = []
+    captured = []
 
     def timed(name, fn):
         def call(*args):
@@ -566,6 +680,13 @@ def launch_ms_in_run(run, names, starts=True):
             out = fn(*args)
             end.record()
             events[name].append((start, end))
+            if starts and name in ("shell_flight", "shell_event"):
+                # the operands of launches before CAPTURE_AT by reference,
+                # that launch's copied (the tracer may reuse its buffers)
+                if len(events[name]) < CAPTURE_AT:
+                    captured[:] = args[:6]
+                elif len(events[name]) == CAPTURE_AT:
+                    captured[:] = [a.clone() for a in args[:6]]
             if starts and name == "slant_tau":
                 sums.append(_slant_start_sums(args[0], args[1], args[2]))
             elif starts and name == "shell_event":
@@ -585,10 +706,10 @@ def launch_ms_in_run(run, names, starts=True):
     torch.cuda.synchronize()
     out = {n: (len(ev), statistics.fmean(a.elapsed_time(b) for a, b in ev))
            for n, ev in events.items() if ev}
-    return out, torch.stack(sums).sum(0) if sums else None
+    return out, torch.stack(sums).sum(0) if sums else None, tuple(captured) or None
 
 
-def _print_in_run(in_run, sums=None):
+def _print_in_run(in_run, sums=None, lanes=None):
     line = ("    device time a launch inside the run (CUDA events around each launch, "
             "one more run): " + ", ".join(f"{n} {ms:.4f} ms over {k} launches"
                                           for n, (k, ms) in in_run.items()))
@@ -596,6 +717,8 @@ def _print_in_run(in_run, sums=None):
         line += ("; slant paths from its event points: first crossed shell l0 mean "
                  "{:.2f}, warp loop start mean {:.2f}, crossed segments a lane {:.2f}, warps "
                  "that loop {:.3f}").format(*_start_means(sums))
+    if lanes is not None:
+        line += f"; the lanes of launch {CAPTURE_AT}: " + _flight_line(_flight_stats(lanes))
     print(line, flush=True)
 
 
@@ -655,9 +778,9 @@ def c4_full_width(sza, spp, phase):
         raise AssertionError(f"c4 at SZA {sza:g} launched {others}")
     if brf.shape != (1, N_VZA_C4) or not np.isfinite(brf).all():
         raise AssertionError("c4 BRF is not finite or has the wrong shape")
-    in_run, sums = launch_ms_in_run(
+    in_run, sums, lanes = launch_ms_in_run(
         lambda: etp.run(exp, spp=spp, seed_state=etp.SeedState(SEED), device="cuda"), (kernel,))
-    _print_in_run(in_run, sums)
+    _print_in_run(in_run, sums, lanes)
     return launches, in_run
 
 
@@ -1427,10 +1550,10 @@ def c4_lr_flight_full_width(spp, phase):
         raise AssertionError("c4 with lr_flight launched a kernel of another path")
     if rad.shape != (1, N_VZA_C4) or not (np.isfinite(rad).all() and (rad > 0).all()):
         raise AssertionError("c4 radiance with lr_flight is not finite and positive")
-    in_run, sums = launch_ms_in_run(
+    in_run, sums, lanes = launch_ms_in_run(
         lambda: render_spherical(scene, sensor, config_lr, spp=spp, seed=SEED, device="cuda"),
         mine)
-    _print_in_run(in_run, sums)
+    _print_in_run(in_run, sums, lanes)
 
     scene_x, sensor_x, config_x = compiled(_c4(75.0, sun_tau_table=False))
     if scene_x.medium.sun_tau is not None:
@@ -1571,6 +1694,17 @@ def main():
             name = block.split("'")[1]
             regs = [ln.strip() for ln in block.splitlines() if "registers" in ln or "spill" in ln]
             print(f"    {name}: {'; '.join(regs)}", flush=True)
+    from eradiate_tpu_torch.kernels import shell_flight as sf
+
+    print("    blocks of 256 threads an SM (registers and shared memory; the flight kernels "
+          f"with a float64 checkpoint every ceil(L / {sf.CHECKPOINTS}) levels): " + ", ".join(
+              f"{k} {sf.blocks_per_sm(k, 232)} at L = 232, {sf.blocks_per_sm(k, 1200)} at "
+              f"L = 1200" for k in ("shell_flight", "shell_event", "slant_tau")), flush=True)
+    layout = sf.layout_differences(4096)
+    print(f"    the wrapper's checkpoint stride and shared-memory sizes against the library's "
+          f"at 1 to 4096 shells: {len(layout)} differ", flush=True)
+    if layout:
+        raise AssertionError(f"the shell wrappers' layout differs from the library's: {layout[:5]}")
     for kernel in ("leaf_bvh_nearest_kernel", "leaf_bvh_occluded_kernel",
                    "leaf_ibvh_nearest_kernel", "leaf_ibvh_occluded_kernel", "bvh_nearest_kernel",
                    "bvh_occluded_kernel"):
@@ -1595,6 +1729,7 @@ def main():
         errs, _, _ = check_shell_kernels(name, args)
         shell_errs = {k: max(v, errs[k]) for k, v in shell_errs.items()}
     check_slant_division()
+    check_flight_root()
     exp85 = _c4(85.0)
     scene85, _, _ = exp85.compile_scene(exp85.measures[0], exp85.spectral_context(exp85.measures[0]))
     sun_85 = -np.asarray(scene85.illumination.direction, np.float32)
@@ -1605,6 +1740,10 @@ def main():
                 _slant_stress_inputs(column, w, 100_037, seed=14),
             )
             shell_errs = {k: max(v, errs[k]) for k, v in shell_errs.items()}
+    for column, (radii, sigma) in shells.flight_columns(np.random.default_rng(8)).items():
+        errs, _, _ = check_shell_kernels(
+            f"flight stresses, {column}", _flight_stress_inputs(radii, sigma, sun_85, 100_037, 15))
+        shell_errs = {k: max(v, errs[k]) for k, v in shell_errs.items()}
 
     # -- 8. c4: port on CUDA against port on CPU -----------------------------
     for sza in (75.0, 85.0):

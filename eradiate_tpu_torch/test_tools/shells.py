@@ -19,6 +19,19 @@ checks hold it to the IEEE division on :func:`division_operands`.)
 ``b`` above ``r`` by rounding, ``p.w = +-0``, above the top radius).
 :func:`crossed_segments` counts the distinct segments of each lane's path,
 the work any implementation of the sum has to do. Radii are ascending.
+
+:func:`shell_flight_checkpointed` emulates the device function
+``shell_flight_lane`` the same way: one sweep from level 0 to the bracket
+of the larger of ``|x0|`` and ``|x_max|``, taking the smaller one's bracket
+on its way and keeping the float64 prefix of every ``stride``-th level, then
+the inversion of G resumed from the sweep's stop or from the last
+checkpoint with G <= v (the kernel's binary search), and a walk forward. It must equal
+:func:`~eradiate_tpu_torch.ops.spherical.shell_flight_plain` bit for bit
+whatever the stride, and returns a trace of what each lane did, from which
+:func:`flight_levels` (the levels any implementation has to read) and
+:func:`parent_visits` (what the two sweeps before it visited) are read.
+:func:`flight_columns` and :func:`flight_stress_inputs` make the flight's
+stresses.
 """
 
 from __future__ import annotations
@@ -38,6 +51,12 @@ __all__ = [
     "stress_points",
     "stress_columns",
     "division_operands",
+    "shell_flight_checkpointed",
+    "flight_levels",
+    "parent_visits",
+    "warp_max",
+    "flight_columns",
+    "flight_stress_inputs",
 ]
 
 #: Lanes that loop in step on the card.
@@ -259,3 +278,352 @@ def division_operands(rng, n_random=2**22):
     n = np.concatenate([np.repeat(n_all, d_all.size), n_rand, n_edge])
     d = np.concatenate([np.tile(d_all, n_all.size), d_rand, d_edge])
     return n, d
+
+
+
+# -- the shell free flight ------------------------------------------------
+
+
+def _flight_root(r2, b2):
+    """The kernel's ``flight_root``: ``sqrt(max(r2 - b2, 0))``, +0 selected
+    where the radicand is <= 0, the root taken of the radicand clamped to
+    2^-100."""
+    rad = r2 - b2
+    return torch.where(rad > 0.0, sqrt_rn(torch.clamp(rad, min=2.0**-100)), 0.0)
+
+
+def _tangent_levels(r2, b2, L):
+    """The last level k <= L - 1 with ``fl(r_k^2) <= b2``, 0 if none."""
+    return torch.clamp(torch.searchsorted(r2[:L].contiguous(), b2.contiguous(), right=True) - 1,
+                       min=0)
+
+
+def warp_max(x, warp=WARP):
+    """The largest value of ``x`` [B] in each warp of ``warp`` consecutive
+    lanes (the last warp ragged): [ceil(B / warp)]."""
+    pad = (-x.shape[0]) % warp
+    low = torch.iinfo(x.dtype).min if not x.is_floating_point() else -torch.inf
+    return torch.cat([x, x.new_full((pad,), low)]).view(-1, warp).amax(1)
+
+
+def shell_flight_checkpointed(p, d, t_max, radii, sigma, tau_s, stride, overshoot=0):
+    """The kernel's shell free flight in its order (module docstring), with a
+    float64 checkpoint every ``stride`` levels. ``overshoot`` > 0 is a
+    mutation: the resume from a checkpoint then starts that many levels
+    above it (with their exact prefix), as a kernel that skipped the first
+    test of its walk would. Returns ``(collide, t_col, layer, trace)``;
+    ``trace`` holds per lane (int64 unless said): ``tangent`` (the lane's
+    tangent level: the last level with X = 0, else 0), ``ka``, ``km``, ``kv`` (the
+    brackets of |x0|, |x_max| and the inversion), ``end`` (the level the
+    sweep stopped at: the larger query's bracket), ``resume`` (where the
+    inversion resumed), ``at_end`` (bool: it resumed from the sweep's stop),
+    ``sweep`` and ``walk`` (the passes of each loop's body, each reading one
+    level), and the float32 ``A`` (the depth from the tangent point to the
+    start), ``tau_max`` and ``v`` (the depth the inversion looks up)."""
+    L = sigma.shape[0]
+    B = p.shape[0]
+    lanes = torch.arange(B, device=p.device)
+    x0 = dot3(p, d)
+    b2 = cross_norm2(p, d)
+    ya = torch.abs(x0)
+    x_max = x0 + t_max
+    ym = torch.abs(x_max)
+    r2 = radii * radii
+
+    # the sweep, to the last level <= the larger query (its bracket), taking
+    # the smaller query's bracket on its way
+    a_lo = ya <= ym
+    y_lo, y_hi = torch.where(a_lo, ya, ym), torch.where(a_lo, ym, ya)
+    k = torch.zeros(B, dtype=torch.int64, device=p.device)
+    X = _flight_root(r2[k], b2)
+    acc = torch.zeros(B, dtype=torch.float64, device=p.device)
+    k_lo = torch.zeros_like(k)
+    acc_lo, X_lo = acc.clone(), X.clone()
+    n_ck = -(-L // stride)
+    ck = torch.full((n_ck, B), torch.nan, dtype=torch.float64, device=p.device)
+    ck[0] = 0.0
+    sweep = torch.zeros_like(k)
+    alive = X <= y_hi
+    while bool(alive.any()):
+        store = alive & (k % stride == 0) & (k > 0)
+        ck[(k // stride)[store], lanes[store]] = acc[store]
+        alive = alive & (k + 1 < L)
+        up = alive & (X <= y_lo)
+        k_lo, acc_lo, X_lo = (torch.where(up, k, k_lo), torch.where(up, acc, acc_lo),
+                              torch.where(up, X, X_lo))
+        sweep += alive
+        kn = torch.clamp(k + 1, max=L - 1)
+        Xn = _flight_root(r2[kn], b2)
+        alive = alive & (Xn <= y_hi)
+        nxt = acc + (sigma[k] * (Xn - X)).double()
+        acc, X, k = torch.where(alive, nxt, acc), torch.where(alive, Xn, X), torch.where(alive, kn, k)
+    up = X <= y_lo
+    k_lo, acc_lo, X_lo = torch.where(up, k, k_lo), torch.where(up, acc, acc_lo), torch.where(up, X, X_lo)
+    end, acc_end = k.clone(), acc.clone()
+    ka, km = torch.where(a_lo, k_lo, k), torch.where(a_lo, k, k_lo)
+    acc_a, acc_m = torch.where(a_lo, acc_lo, acc), torch.where(a_lo, acc, acc_lo)
+    Xa, Xm = torch.where(a_lo, X_lo, X), torch.where(a_lo, X, X_lo)
+    A = acc_a.float() + sigma[ka] * torch.clamp(ya - Xa, min=0.0)
+    Gm = acc_m.float() + sigma[km] * torch.clamp(ym - Xm, min=0.0)
+    desc = x0 < 0.0
+    tau_max = torch.where(desc, torch.where(x_max < 0.0, A - Gm, A + Gm), Gm - A)
+    collide = tau_s < torch.clamp(tau_max, min=0.0)
+    on_desc = desc & (tau_s < A)
+    v = torch.where(on_desc, A - tau_s, torch.where(desc, tau_s - A, A + tau_s))
+
+    # the resume: the sweep's stop where G <= v there, else the last
+    # checkpoint below it with G <= v (the kernel's binary search; checkpoint
+    # 0 is level 0, where also v < 0 or NaN resume)
+    at_end = acc_end.float() <= v
+    c_lo = torch.ones_like(end)
+    lo, hi = c_lo.clone(), torch.div(end - 1, stride, rounding_mode="trunc") + 1
+    while True:
+        act = lo < hi
+        if not bool(act.any()):
+            break
+        mid = (lo + hi) // 2
+        up = act & (ck[torch.clamp(mid, 0, n_ck - 1), lanes].float() <= v)
+        lo, hi = torch.where(up, mid + 1, lo), torch.where(act & ~up, mid, hi)
+    c = lo - 1
+    k = c * stride
+    acc = ck[c, lanes]
+    for _ in range(overshoot):
+        step = (c > 0) & ~at_end & (k + 1 < L)
+        kn = torch.clamp(k + 1, max=L - 1)
+        nxt = acc + (sigma[k] * (_flight_root(r2[kn], b2) - _flight_root(r2[k], b2))).double()
+        acc, k = torch.where(step, nxt, acc), torch.where(step, kn, k)
+    k = torch.where(at_end, end, k)
+    acc = torch.where(at_end, acc_end, acc)
+    resume = k.clone()
+
+    # the walk: forward while the next level's G <= v
+    X = _flight_root(r2[k], b2)
+    walk = torch.zeros_like(k)
+    alive = k + 1 < L
+    while bool(alive.any()):
+        walk += alive
+        kn = torch.clamp(k + 1, max=L - 1)
+        Xn = _flight_root(r2[kn], b2)
+        nxt = acc + (sigma[k] * (Xn - X)).double()
+        ok = alive & (nxt.float() <= v)
+        acc, X, k = torch.where(ok, nxt, acc), torch.where(ok, Xn, X), torch.where(ok, kn, k)
+        alive = ok & (k + 1 < L)
+    y = X + (v - acc.float()) / torch.clamp(sigma[k], min=1e-30)
+    x_col = torch.where(on_desc, -y, y)
+    t_col = torch.minimum(torch.clamp(x_col - x0, min=0.0), t_max)
+    trace = dict(tangent=_tangent_levels(r2, b2, L), ka=ka, km=km, kv=k, end=end, resume=resume,
+                 at_end=at_end, sweep=sweep, walk=walk, A=A, tau_max=tau_max, v=v)
+    return collide, t_col, k.to(torch.int32), trace
+
+
+def flight_levels(trace):
+    """The levels a lane's flight has to read, whatever implements it: from
+    its tangent level (below it X = 0 and G = 0) to the highest of its
+    brackets ``ka``, ``km`` and ``kv`` (``trace`` of
+    :func:`shell_flight_checkpointed`)."""
+    top = torch.maximum(torch.maximum(trace["ka"], trace["km"]), trace["kv"])
+    return top - trace["tangent"] + 1
+
+
+def parent_visits(trace, L):
+    """The levels the flight visited before this design, in two sweeps from
+    level 0: the first up to the level above both brackets of |x0| and
+    |x_max|, the second up to the level above ``kv`` (each capped at L)."""
+    top = torch.maximum(trace["ka"], trace["km"])
+    return torch.clamp(top + 2, max=L) + torch.clamp(trace["kv"] + 2, max=L)
+
+
+
+def flight_columns(rng):
+    """The flight's stress columns ``(radii, sigma)`` float32, names as
+    keys: the three of :func:`stress_columns`; 229 shells (a prime count:
+    no stride but 1 and 229 divides it) with runs of vacuum shells across
+    levels 15, 30, 104, 105 and 225 (multiples of the strides 15, 8 and 7)
+    and up to the top; its lowest 17 shells with one run of vacuum shells
+    across levels 3 to 9 (the kernels' stride there is 2); and one shell
+    (stride 1)."""
+    cols = dict(stress_columns(rng))
+    widths = rng.uniform(0.02, 0.9, 229)
+    radii = (6378.1 + np.concatenate([[0.0], np.cumsum(widths)])).astype(np.float32)
+    z = radii[:-1] - radii[0]
+    sigma = (np.exp(-z / 8.0) * 1e-2 * rng.uniform(0.5, 1.5, 229)).astype(np.float32)
+    low = sigma[:17].copy()
+    low[3:9] = 0.0
+    for a, b in ((12, 19), (27, 33), (100, 112), (140, 152), (220, 229)):
+        sigma[a:b] = 0.0
+    cols["229 shells, vacuum runs"] = (radii, sigma)
+    cols["17 shells, vacuum run"] = (radii[:18].copy(), low)
+    cols["1 shell"] = (np.float32([6378.1, 6478.1]), np.float32([1e-2]))
+    return cols
+
+
+def _prefix_table(b2, radii, sigma):
+    """The twin's ``G`` [L+1, B] (float64 prefix in level order, float32 at
+    each level) at squared impact parameters ``b2`` [B]."""
+    X = sqrt_rn(torch.clamp((radii * radii)[:, None] - b2, min=0.0))
+    acc = torch.zeros_like(b2, dtype=torch.float64)
+    rows = [acc.float()]
+    for row in sigma[:, None] * (X[1:] - X[:-1]):
+        acc = acc + row.double()
+        rows.append(acc.float())
+    return torch.stack(rows)
+
+
+def _nudge(x, ok, want, got):
+    """``x`` moved one ulp toward ``want`` where ``got`` missed it (not
+    ``ok``)."""
+    step = torch.where(got < want, torch.inf, -torch.inf).to(x.dtype)
+    return torch.where(ok, x, torch.nextafter(x, step))
+
+
+def flight_stress_inputs(rng, radii, sigma, n, device="cpu"):
+    """``(p [n, 3], d [n, 3], t_max [n], tau_s [n])`` float32 on ``device``
+    for the column ``radii``, ``sigma``, in six equal parts. Most lanes fly
+    along +y from ``p = (a, s, c)``, where ``x0 = s`` and ``b2 =
+    fma(a, a, c^2)`` come out exact:
+
+    - ``v`` equal to ``G`` at a level, inside runs of vacuum shells where
+      the column has them (flat ``G``, ties to the last equal level) for
+      half of them, at a checkpoint level of the strides 7, 8 and
+      ceil(L / 16) for the others, from the tangent point up (``v = tau_s``)
+      and on descent (``v = A - tau_s``);
+    - random lanes with ``tau_s = 0`` and ``tau_s`` one ulp either side of
+      ``tau_max``;
+    - ``x0`` exactly +0 and -0, half of them with ``t_max = 0``, and random
+      lanes with ``t_max = 0``;
+    - ``b2`` equal to ``fl(r_k^2)`` and one ulp either side of it, at the
+      tangent point and along the chord, up and down;
+    - grazing lanes, tangent in the top shell, half of them turned to a
+      random direction;
+    - random lanes through the shells (steep, grazing and isotropic), a
+      third with the flight cut short (``v`` beyond the sweep's stop).
+
+    ``t_max`` is the tracer's flight cap (``flight_bounds``) unless said."""
+    from ..ops.tracer_spherical import flight_bounds
+
+    radii_t = torch.as_tensor(np.asarray(radii, np.float32), device=device)
+    sigma_t = torch.as_tensor(np.asarray(sigma, np.float32), device=device)
+    r64 = np.asarray(radii, np.float64)
+    L = sigma_t.shape[0]
+    m = -(-n // 6)
+    f32 = np.float32
+    y_axis = np.array([0.0, 1.0, 0.0])
+
+    def axis_lanes(a, s, c, sign=1.0):
+        p = np.stack([sign * a, s, sign * c], 1)
+        return p, np.tile(y_axis, (len(a), 1))
+
+    def chord(a):
+        return np.sqrt(np.maximum(r64[-1] ** 2 - np.asarray(a, np.float64) ** 2, 0.0))
+
+    def random_lanes(k):
+        r = rng.uniform(r64[0] + 1e-3, r64[-1] - 1e-3, k)
+        up = _unit(rng.normal(size=(k, 3)))
+        iso = _unit(rng.normal(size=(k, 3)))
+        tangent = _unit(np.cross(up, iso))
+        kind = np.arange(k) % 3
+        d = np.where((kind == 0)[:, None], -up + 0.05 * iso,
+                     np.where((kind == 1)[:, None], tangent + 1e-3 * iso, iso))
+        return up * r[:, None], _unit(d)
+
+    # 1. v at a level's G: p = (a, 0, 0) up from the tangent point, and
+    # p = (a, s, 0) with s < 0 on descent; targets inside vacuum runs first
+    a = rng.uniform(r64[0] * 0.999, r64[-1], m)
+    s = np.where(np.arange(m) % 2 == 0, 0.0, -rng.uniform(0.1, 1.0, m) * chord(a))
+    p1, d1 = axis_lanes(a, s, np.zeros(m))
+    # 2. tau_s at 0 and one ulp either side of tau_max
+    p2, d2 = random_lanes(m)
+    # 3. x0 = +0 and -0 (every component of p <= 0 for -0)
+    a = rng.uniform(r64[0], r64[-1], m)
+    c = rng.uniform(0.0, 0.2, m) * a
+    sign = np.where(np.arange(m) % 2 == 0, 1.0, -1.0)
+    p3, d3 = axis_lanes(a, np.where(sign > 0, 0.0, -0.0), c, sign)
+    p3r, d3r = random_lanes(m)
+    third = np.arange(m) % 3 == 2
+    p3, d3 = np.where(third[:, None], p3r, p3), np.where(third[:, None], d3r, d3)
+    # 4. b2 at fl(r_k^2) and one ulp either side
+    k = rng.integers(0, L + 1, m)
+    rk = np.asarray(radii, f32)[k]
+    s = np.where(np.arange(m) % 3 == 0, 0.0, rng.uniform(-1.0, 1.0, m) * chord(rk))
+    p4, d4 = axis_lanes(rk.astype(np.float64), s, np.zeros(m))
+    # 5. grazing in the top shell, half turned
+    a = rng.uniform(r64[-2], r64[-1], m)
+    s = rng.uniform(-1.0, 1.0, m) * chord(a)
+    p5, d5 = axis_lanes(a, s, np.zeros(m))
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    turn = np.arange(m) % 2 == 1
+    p5[turn], d5[turn] = p5[turn] @ q.T, d5[turn] @ q.T
+    # 6. random, a third cut short
+    p6, d6 = random_lanes(m)
+
+    p = np.concatenate([p1, p2, p3, p4, p5, p6])[:n]
+    d = np.concatenate([d1, d2, d3, d4, d5, d6])[:n]
+    kind = np.repeat(np.arange(6), m)[:n]
+    p = torch.tensor(p.astype(f32), device=device)
+    d = torch.tensor(d.astype(f32), device=device)
+    kind = torch.tensor(kind, device=device)
+
+    # part 4: move c until b2 = fl(r_k^2) + 0, +1 or -1 ulp
+    four = torch.nonzero(kind == 3).flatten()
+    if len(four):
+        target = (radii_t * radii_t)[torch.tensor(k[: len(four)], device=device)]
+        ulp = np.arange(len(four)) % 3 - 1
+        target = torch.where(torch.tensor(ulp == 1, device=device),
+                             torch.nextafter(target, torch.tensor(torch.inf, device=device)), target)
+        target = torch.where(torch.tensor(ulp == -1, device=device),
+                             torch.nextafter(target, torch.tensor(0.0, device=device)), target)
+        a = p[four, 0].clone()
+        a = torch.where(target < a * a, torch.nextafter(a, torch.zeros_like(a)), a)
+        c = torch.sqrt(torch.clamp(target.double() - a.double() ** 2, min=0.0)).float()
+        for _ in range(8):
+            pk = torch.stack([a, p[four, 1], c], 1)
+            got = cross_norm2(pk, d[four])
+            c = torch.clamp(_nudge(c, got == target, target, got), min=0.0)
+        p[four, 0], p[four, 2] = a, c
+
+    t_ground, t_exit = flight_bounds(p, d, radii_t)
+    t_max = torch.minimum(t_ground, t_exit)
+    t_max = torch.where((kind == 2) & (torch.arange(len(kind), device=device) % 2 == 1),
+                        0.0, t_max)
+    short = (kind == 5) & (torch.arange(len(kind), device=device) % 3 == 0)
+    t_max = torch.where(short, t_max * torch.tensor(rng.uniform(0.05, 0.6, len(kind)).astype(f32),
+                                                     device=device), t_max)
+    tau_s = torch.tensor(rng.exponential(0.5, len(kind)).astype(f32), device=device)
+
+    # part 1: tau_s so that v = G at a target level; part 2: tau_s edges
+    _, _, _, tr = shell_flight_checkpointed(p, d, t_max, radii_t, sigma_t, tau_s, L)
+    one = torch.nonzero(kind == 0).flatten()
+    if len(one):
+        G = _prefix_table(cross_norm2(p[one], d[one]), radii_t, sigma_t)  # [L+1, m]
+        flat = torch.zeros(L + 1, dtype=torch.bool, device=device)
+        flat[1:] = sigma_t == 0.0
+        flat[:-1] |= sigma_t == 0.0
+        # checkpoint levels of the strides 7, 8 and ceil(L / 16)
+        level = torch.arange(L + 1, device=device)
+        ckpt = (level % 7 == 0) | (level % 8 == 0) | (level % -(-L // 16) == 0)
+        u = torch.tensor(rng.uniform(size=(L + 1, len(one))).astype(f32), device=device)
+        # vacuum levels first for half the lanes, checkpoint levels for the others
+        prefer = torch.where((torch.arange(len(one), device=device) % 4 < 2)[None, :],
+                             flat[:, None], ckpt[:, None])
+        score = torch.where(prefer, u + 1.0, u)
+        down = p[one, 1] < 0.0
+        # on descent the target must lie in [A / 2, A]: A - G_j is then exact
+        A = tr["A"][one]
+        reach = (G <= A) & (G >= 0.5 * A) & (G > 0.0)
+        score = torch.where(down[None, :] & ~reach, -1.0, score)
+        j = score.argmax(0)
+        Gj = G.gather(0, j[None])[0]
+        tau_s[one] = torch.where(down, A - Gj, Gj)
+        for _ in range(4):
+            _, _, _, tr = shell_flight_checkpointed(p, d, t_max, radii_t, sigma_t, tau_s, L)
+            v = tr["v"][one]
+            tau_s[one] = torch.where(down, _nudge(tau_s[one], v == Gj, -Gj, -v),
+                                     _nudge(tau_s[one], v == Gj, Gj, v))
+    two = torch.nonzero(kind == 1).flatten()
+    if len(two):
+        tm = tr["tau_max"][two]
+        pick = torch.arange(len(two), device=device) % 3
+        tau_s[two] = torch.where(pick == 0, 0.0, torch.where(
+            pick == 1, torch.nextafter(tm, torch.full_like(tm, torch.inf)),
+            torch.nextafter(tm, torch.full_like(tm, -torch.inf))))
+    return p.contiguous(), d.contiguous(), t_max.contiguous(), tau_s.contiguous()

@@ -35,6 +35,16 @@ radii on shell radii and at the ground, ``b`` above ``r`` by rounding,
 ``p.w = +-0``, points above the top radius, vacuum shells and 1200 shells;
 the slant loop's division is held against the IEEE division on every
 divisor significand and on random operands inside and beyond its range.
+The shell-flight and shell-event kernels (one sweep with float64
+checkpoints, a bounded resume) are held on the flight's stresses of
+``test_tools.shells.flight_stress_inputs`` (``v`` on a level's G inside runs
+of vacuum shells across a checkpoint, ``tau_s`` at 0 and one ulp either side
+of ``tau_max``, ``t_max = 0``, ``x0 = +-0``, ``b2`` at ``fl(r_k^2)`` and one
+ulp either side, grazing lanes in the top shell) on six columns, whose
+checkpoint strides are 15, 15, 75, 15, 2 and 1, the slant depth at the
+event points equal to the shell event's; the flight loop's square root is
+held against ``sqrtf`` on every float32 of its range, and the wrapper's
+checkpoint stride and shared-memory sizes against the library's.
 """
 
 import numpy as np
@@ -45,7 +55,7 @@ from eradiate_tpu_torch.kernels import leaf_intersect as li
 from eradiate_tpu_torch.kernels import shell_flight as sf
 from eradiate_tpu_torch.kernels import tri_intersect as ti
 from eradiate_tpu_torch.ops.mesh import mesh_from_vertices
-from eradiate_tpu_torch.ops.spherical import TAU_BLOCKED
+from eradiate_tpu_torch.ops.spherical import TAU_BLOCKED, fma
 from eradiate_tpu_torch.test_tools import disks, shells
 from eradiate_tpu_torch.test_tools.meshes import axis_rays, edge_rays, tie_soup, wood_skeleton
 
@@ -286,3 +296,40 @@ def test_shell_event_kernel_stress(card, column, axis):
     assert sf.launches["shell_event"] == before + 1
     same_bits(got, sf.shell_event_plain(*args))
     same_bits([got[3]], [sf.slant_tau(p, w, radii, sigma)])
+
+
+FLIGHT_COLUMNS = list(shells.flight_columns(np.random.default_rng(8)))
+
+
+@pytest.mark.parametrize("column", FLIGHT_COLUMNS)
+def test_flight_kernels_stress(card, column):
+    """K2 and K3 bit for bit against their plain versions on the flight's
+    stresses (the column's size sets the checkpoint stride), and K4 at K2's
+    event points equal to K3's tau_sun."""
+    radii, sigma = shells.flight_columns(np.random.default_rng(8))[column]
+    p, d, t_max, tau_s = shells.flight_stress_inputs(np.random.default_rng(5), radii, sigma,
+                                                     100_037, device=card)
+    radii, sigma, w = (torch.tensor(a, device=card) for a in (radii, sigma, SUN_85))
+    flight = (p, d, t_max, radii, sigma, tau_s)
+    before = dict(sf.launches)
+    got = sf.shell_flight(*flight)
+    event = sf.shell_event(*flight, w)
+    torch.cuda.synchronize()
+    assert sf.launches["shell_flight"] == before["shell_flight"] + 1
+    assert sf.launches["shell_event"] == before["shell_event"] + 1
+    same_bits(got, sf.shell_flight_plain(*flight))
+    same_bits(event, sf.shell_event_plain(*flight, w))
+    p_event = fma(d, torch.where(got[0], got[1], t_max)[:, None], p).contiguous()
+    same_bits([sf.slant_tau(p_event, w, radii, sigma)], [event[3]])
+
+
+def test_flight_root_equals_sqrtf(card):
+    """The flight loop's square root (the IEEE square root's fast path
+    without its range check) equals sqrtf on every float32 of its range."""
+    assert sf.flight_root_differences(card) == 0
+
+
+def test_shell_layout_matches_the_library(card):
+    """The wrapper's checkpoint stride and shared-memory sizes (its launch
+    checks) equal the library's at every column of 1 to 4096 shells."""
+    assert sf.layout_differences(4096) == []

@@ -1,0 +1,214 @@
+"""The shell free flight in the CUDA kernel's order against the plain twin.
+
+``eradiate_tpu_torch.test_tools.shells.shell_flight_checkpointed`` emulates
+the kernels' ``shell_flight_lane`` (``csrc/shell_flight.cu``): one sweep from
+level 0 to the bracket of the larger of ``|x0|`` and ``|x_max|`` that keeps
+a float64 checkpoint every S levels, then the inversion of G at ``v``
+resumed from the sweep's stop or from the last checkpoint with ``G <= v``
+(the kernel's binary search), and a walk forward. Tolerances:
+
+- the emulation against ``shell_flight_plain``: bit for bit (collide, t_col
+  and layer), on every lane, at every stride S (1, 7, 8, L, L + 1 and the
+  kernels' default ceil(L / 16));
+- the walk after a resume from a checkpoint: at most S levels; a lane's
+  levels in all: at most L + S;
+- ``flight_levels`` (the bound's count): equal to the count read off the
+  twin's own brackets, exactly;
+- the twin against the JAX package's ``_shell_flight_xla`` under
+  ``jax.jit`` (whose prefix G is a hi/lo bfloat16 matrix product, ~2^-17 of
+  the column depth from the exact sum): ``collide`` and ``layer`` equal
+  except on near-tie lanes, whose ``tau_s`` lies within 2^-14 of the
+  column depth of the twin's ``tau_max`` or whose ``v`` lies that close to
+  a level's G (the twin's own float32 values: the stresses put lanes on
+  ties of float32 quantities, where float64 geometry would miss them); a
+  tie may go either way, and on descent to either leg. Away from ties,
+  ``t_col`` within 2e-3 km plus 2^-14 of the column depth over the
+  extinction of the event's shell (the prefix error moves the event by
+  that much along the ray).
+
+The stresses (``test_tools.shells.flight_stress_inputs``) put ``v`` on a
+level's G inside runs of vacuum shells that span a checkpoint, ``tau_s`` at 0
+and one ulp either side of ``tau_max``, ``t_max = 0``, ``x0 = +-0``, ``b2``
+at ``fl(r_k^2)`` and one ulp either side, grazing lanes in the top shell and
+random lanes, a third of them cut short, on six columns (232 shells, the
+same with vacuum shells, 1200 shells, 229 with vacuum runs, the lowest 17
+of those with one vacuum run, one shell). An emulation that resumes one
+level above the checkpoint it found is caught.
+"""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from eradiate_tpu.ops import spherical as ref_spherical
+from eradiate_tpu_torch.kernels.shell_flight import flight_stride
+from eradiate_tpu_torch.ops import spherical
+from eradiate_tpu_torch.test_tools import shells
+
+torch.set_num_threads(1)
+
+N = 1200
+COLUMNS = shells.flight_columns(np.random.default_rng(8))
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _strides(L):
+    return {"1": 1, "7": 7, "8": 8, "L": L, "L + 1": L + 1, "default": flight_stride(L)}
+
+
+@functools.lru_cache(maxsize=None)
+def _column(name):
+    """(name, radii, sigma, lanes (p, d, t_max, tau_s), the twin's outputs)."""
+    radii, sigma = COLUMNS[name]
+    lanes = shells.flight_stress_inputs(np.random.default_rng(5), radii, sigma, N)
+    radii, sigma = torch.tensor(radii), torch.tensor(sigma)
+    want = spherical.shell_flight_plain(*lanes[:3], radii, sigma, lanes[3])
+    return name, radii, sigma, lanes, want
+
+
+@pytest.fixture(params=list(COLUMNS))
+def column(request):
+    return _column(request.param)
+
+
+def _emulate(column, stride, overshoot=0):
+    _, radii, sigma, (p, d, t_max, tau_s), _ = column
+    return shells.shell_flight_checkpointed(p, d, t_max, radii, sigma, tau_s, stride, overshoot)
+
+
+@pytest.mark.parametrize("stride", ["1", "7", "8", "L", "L + 1", "default"])
+def test_checkpointed_flight_equals_the_twin_bitwise(column, stride):
+    L = column[2].shape[0]
+    got = _emulate(column, _strides(L)[stride])
+    for label, g, w in zip(("collide", "t_col", "layer"), got[:3], column[4]):
+        differ = _bits(g) != _bits(w)
+        assert not differ.any(), f"{label}: {int(differ.sum())} of {N} lanes differ"
+
+
+def test_stresses_reach_the_hard_cases(column):
+    """The generator makes what the module docstring says."""
+    name, radii, sigma, (p, d, t_max, tau_s), want = column
+    L = sigma.shape[0]
+    x0 = spherical.dot3(p, d)
+    b2 = spherical.cross_norm2(p, d)
+    r2 = radii * radii
+    _, _, _, trace = _emulate(column, flight_stride(L))
+    assert ((x0 == 0) & ~torch.signbit(x0)).any() and ((x0 == 0) & torch.signbit(x0)).any()
+    assert (t_max == 0).sum() >= N // 20 and (tau_s == 0).any()
+    inf = torch.tensor(np.inf)
+    for r2_near in (r2, torch.nextafter(r2, inf), torch.nextafter(r2, -inf)):
+        assert torch.isin(b2, r2_near).sum() >= N // 40
+    assert ((b2 > r2[-2]) & (b2 < r2[-1])).sum() >= N // 20  # tangent in the top shell
+    # tau_s one ulp either side of tau_max: both decisions taken
+    tm = trace["tau_max"]
+    above, below = tau_s == torch.nextafter(tm, inf), tau_s == torch.nextafter(tm, -inf)
+    assert (above & ~want[0]).any() and (below & (tm > 0)).any() and want[0][below & (tm > 0)].all()
+    # v on a level's G, on the ascending and on the descending side
+    G = shells._prefix_table(b2, radii, sigma)
+    on_level = (G == trace["v"][None]).any(0)
+    assert (on_level & (x0 == 0)).sum() >= N // 20 and (on_level & (x0 < 0)).sum() >= N // 40
+    if (sigma == 0).any():
+        # flat runs of G spanning a checkpoint, v on them: the inversion ties
+        # to the last equal level, past the checkpoint inside the run
+        S = flight_stride(L)
+        kv = want[2].long()
+        flat_below = (kv > 0) & (sigma[torch.clamp(kv - 1, min=0)] == 0)
+        crosses = (trace["resume"] < kv) & (trace["resume"] % S == 0) & ~trace["at_end"]
+        assert (on_level & flat_below & crosses).any()
+
+
+#: Where a resume one level too high can give another answer: not with one
+#: shell, and not where each checkpoint level's G equals the next level's:
+#: at the default stride (15) of the column with every third shell vacuum,
+#: and at stride 8 of the 17-shell column (its checkpoint 8 inside the
+#: vacuum run).
+UNMUTABLE = {("232 shells, vacuum", "default"), ("17 shells, vacuum run", "8")}
+MUTABLE = [(c, s) for c in COLUMNS if c != "1 shell" for s in ("1", "7", "8", "default")
+           if (c, s) not in UNMUTABLE]
+
+
+@pytest.mark.parametrize("name, stride", MUTABLE, ids=[f"{c}-{s}" for c, s in MUTABLE])
+def test_resume_one_level_too_high_is_caught(name, stride):
+    """A mutated emulation that resumes one level above the checkpoint it
+    found (with that level's exact prefix) differs from the twin: the
+    stresses put v where the found checkpoint's level is the answer."""
+    column = _column(name)
+    L = column[2].shape[0]
+    got = _emulate(column, _strides(L)[stride], overshoot=1)
+    assert (got[2] != column[4][2]).any()
+
+
+def test_walk_is_bounded_by_the_stride(column):
+    """After a resume from a checkpoint (inside the sweep's range) the walk
+    reads at most S levels; a lane's two loops read at most L + S levels."""
+    L = column[2].shape[0]
+    for stride in sorted(set(_strides(L).values())):
+        _, _, _, trace = _emulate(column, stride)
+        inside = ~trace["at_end"]
+        assert (trace["walk"][inside] <= stride).all(), stride
+        assert (trace["sweep"] + trace["walk"]).max() <= L + stride
+        assert (trace["kv"][inside] <= trace["end"][inside]).all()
+
+
+def test_flight_levels_equal_the_twins_brackets(column):
+    """``flight_levels``: from the lane's tangent level (the last with X = 0)
+    to the highest of the twin's brackets of |x0|, |x_max| and v."""
+    _, radii, sigma, (p, d, t_max, tau_s), want = column
+    L = sigma.shape[0]
+    x0 = spherical.dot3(p, d)
+    b2 = spherical.cross_norm2(p, d)
+    X = spherical.sqrt_rn(torch.clamp((radii * radii)[:, None] - b2, min=0.0))
+    _, _, _, trace = _emulate(column, flight_stride(L))
+
+    def bracket(table, y):
+        return torch.clamp((table <= y).sum(0) - 1, 0, L - 1)
+
+    ka, km = bracket(X, torch.abs(x0)), bracket(X, torch.abs(x0 + t_max))
+    kv = want[2].long()
+    assert torch.equal(trace["ka"], ka) and torch.equal(trace["km"], km)
+    tangent = torch.clamp((X[:L] == 0).sum(0) - 1, min=0)
+    top = torch.maximum(torch.maximum(ka, km), kv)
+    assert torch.equal(shells.flight_levels(trace), top - tangent + 1)
+    assert (shells.flight_levels(trace) >= 1).all()
+
+
+def test_parent_visits_are_the_two_sweeps():
+    """The two sweeps before this design: from level 0 to the level above the
+    larger bracket of |x0| and |x_max|, and to the level above kv, each
+    capped at L passes."""
+    trace = {"ka": torch.tensor([0, 5, 9, 9]), "km": torch.tensor([3, 2, 9, 0]),
+             "kv": torch.tensor([0, 4, 9, 7])}
+    assert shells.parent_visits(trace, L=10).tolist() == [5 + 2, 7 + 6, 10 + 10, 10 + 9]
+    assert shells.warp_max(torch.arange(70), warp=32).tolist() == [31, 63, 69]
+
+
+#: The near-tie width and the reference's prefix error, relative to the
+#: column depth (as ``tests/test_torch_spherical.py`` finds near ties).
+REL = 2.0**-14
+
+
+def test_twin_matches_the_reference_on_the_stresses(column):
+    """The plain twin (which the kernels equal bit for bit) against the JAX
+    package's ``_shell_flight_xla`` under ``jax.jit``, on the flight's
+    stresses; tolerances in the module docstring."""
+    _, radii, sigma, (p, d, t_max, tau_s), want = column
+    ref = [torch.from_numpy(np.array(o)) for o in jax.jit(ref_spherical._shell_flight_xla)(
+        *(a.numpy() for a in (p, d, t_max, radii, sigma, tau_s)))]
+    _, _, _, trace = _emulate(column, 1)
+    G = shells._prefix_table(spherical.cross_norm2(p, d), radii, sigma).double()
+    eps = REL * G[-1]
+    ties = ((tau_s.double() - trace["tau_max"].double()).abs() <= eps) | (
+        (G - trace["v"].double()[None]).abs().amin(0) <= eps)
+    differ = (want[0] != ref[0]) | ((want[2] != ref[2]) & ref[0])
+    assert not (differ & ~ties).any(), f"{int((differ & ~ties).sum())} lanes differ off a tie"
+    agree = ~differ & ~ties & ref[0]
+    assert agree.sum() >= N // 20
+    err = (want[1].double() - ref[1].double()).abs()
+    tol = 2e-3 + eps / torch.clamp(sigma[want[2].long()].double(), min=1e-30)
+    assert (err <= tol)[agree].all(), f"t_col off by {float((err / tol)[agree].max()):.3g} x tol"

@@ -8,10 +8,11 @@ commit), in the order given, one process imports that tree's
 * the shell flight (K2), shell event (K3) and slant depth (K4) kernels on
   ``chip_smoke.py`` phase 7's lanes (the c4 column at c4's lane count, seed
   10; K4 on the event points of K2's flight): CUDA events, median of 25;
-* c4 at SZA 85 (exact NEE, K3) and path B (c4 at SZA 75 through
-  ``render_spherical`` with ``lr_flight``, K2 + K4) at full width (15 view
-  zeniths x 2097152 spp): a warm-up, a timed run (wall time), then one more
-  run with CUDA events around each kernel launch (device time a launch).
+* c4 at SZA 75 (the sun-tau table, K2), c4 at SZA 85 (exact NEE, K3) and
+  path B (c4 at SZA 75 through ``render_spherical`` with ``lr_flight``, K2 +
+  K4) at full width (15 view zeniths x 2097152 spp): a warm-up, a timed run
+  (wall time), then one more run with CUDA events around each kernel launch
+  (device time a launch).
 
 It prints one JSON line per turn, then the medians by tree, the card's name
 and power limit, and the kernels' bounds on those lanes from this tree's
@@ -90,17 +91,20 @@ def one_turn(root):
         run(cs.SPP_C4)
         torch.cuda.synchronize()
         out[f"{label}_wall_s"] = time.perf_counter() - t0
-        in_run, _ = helpers.launch_ms_in_run(lambda: run(cs.SPP_C4), names, starts=False)
+        in_run, *_ = helpers.launch_ms_in_run(lambda: run(cs.SPP_C4), names, starts=False)
         for n, (k, ms) in in_run.items():
             out[f"{label}_{n}_run_ms"] = ms
             out[f"{label}_{n}_launches"] = k
 
+    exp75 = cs._c4(75.0)
+    timed_runs("c4_sza75", lambda spp: etp.run(
+        exp75, spp=spp, seed_state=etp.SeedState(cs.SEED), device="cuda"), ("shell_flight",))
     exp = cs._c4(85.0)
     timed_runs("c4_sza85", lambda spp: etp.run(
         exp, spp=spp, seed_state=etp.SeedState(cs.SEED), device="cuda"), ("shell_event",))
-    exp75 = cs._c4(75.0)
-    m = exp75.measures[0]
-    scene, sensor, config = exp75.compile_scene(m, exp75.spectral_context(m))
+    exp_b = cs._c4(75.0)
+    m = exp_b.measures[0]
+    scene, sensor, config = exp_b.compile_scene(m, exp_b.spectral_context(m))
     config_lr = dataclasses.replace(config, lr_flight=True)
     timed_runs("path_b", lambda spp: render_spherical(
         scene, sensor, config_lr, spp=spp, seed=cs.SEED, device="cuda"),
