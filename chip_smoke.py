@@ -139,14 +139,25 @@ script writes as an OBJ file into a temporary directory from a seed
     mesh's box (plain versions on 2^18 and 2^16 seeded lanes), a ragged
     lane count, rays beside the box, and rays aimed at shared edges and
     vertices of the skeleton's closed cylinders from 0.5-3 m and from
-    50-300 m; for the flat kernels, which traverse a bounding volume
-    hierarchy (its host build's time and depth printed, and the leaves a
-    ray reaches), also rays with direction components exactly +-0 through
-    the planes of box faces, and exact ties of the hit distance inside one
-    512-triangle chunk and across two, placed so that the traversal meets
-    the higher chunk first; then the instanced kernels on the skeleton as
-    canonical soup (N = 6180, I = 15) against the flat kernels on its 92700
-    triangles;
+    50-300 m. All four traverse a bounding volume hierarchy built on the
+    host once per render, the flat ones (``bvh_nearest_kernel``,
+    ``bvh_occluded_kernel``) in one level, the instanced ones
+    (``tri_ibvh_nearest_kernel``, ``tri_ibvh_occluded_kernel``) in two, the
+    instances' boxes above the canonical soup's hierarchy (each build's
+    time, depths and size printed, a rebuild held bit for bit, and the
+    leaves, or the instance boxes and canonical leaves, a ray reaches). The
+    flat ones are also held on rays with direction components exactly +-0
+    through the planes of box faces, and on exact ties of the hit distance
+    inside one 512-triangle chunk and across two, placed so that the
+    traversal meets the higher chunk first; the instanced ones on the trunk
+    soup with direction components exactly +-0 near and far, with normal
+    components of exactly +-0, and at three positions 2 km from the world
+    origin with rays from near it, and on a tie soup at nine offsets with
+    ties also across instances, placed so that the walk meets the higher
+    instance first; then the instanced kernels on the skeleton as canonical
+    soup (N = 6180, I = 15, its two-level build printed) against the flat
+    kernels on its 92700 triangles, both timed, the instanced ones with
+    their bound;
 17. the port on CUDA against the port on the CPU, ``c5_trees`` and
     ``c5_wood`` (the latter with a 12-branch skeleton, 4860 triangles: the
     CPU's dense sweep of 92700 would take minutes) at 19 view zeniths and
@@ -163,7 +174,9 @@ it; a sweep's bound counts the exact tests at item granularity, and the
 slant depth's the distinct segments of each path, so that each is the same
 whatever cull or order implements it, the flight's the levels each lane
 has to read; the shell kernels also with their device time a launch inside
-the full-width runs, ``run_ms``) and the
+the full-width runs, ``run_ms``; a sweep's nearest hit with what a ray
+reaches of its hierarchy, ``reach``; the instanced triangle kernels with
+their time and bound on the wood skeleton, ``skeleton``) and the
 ``nvidia-smi`` line
 before the last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
@@ -921,7 +934,7 @@ def _canopy_inputs(exp, B, seed, miss=False, device="cuda"):
     None for a canopy without triangles; the cull operands are
     ``leaf_accel``'s (the hierarchy of a flat table, the two-level one of
     an instanced set) and ``tri_accel``'s (the hierarchy of a flat soup,
-    the group spheres of an instanced one)."""
+    the two-level one of an instanced soup)."""
     from eradiate_tpu_torch.ops.canopy import leaf_accel
     from eradiate_tpu_torch.ops.mesh import tri_accel
     from eradiate_tpu_torch.ops.scene_state import canopy_from_reference
@@ -1037,10 +1050,10 @@ def _edge_inputs(instanced, B, seed, far, device="cuda"):
     interior points and just beside edges, from 0.5-3 m away (``far``: from
     50-300 m, 100x farther), with caps that end on, just before and just
     behind the target. Returns ``(tris, cull operand, (p, d, t_cap))``: the
-    group spheres of the instanced kernels or the flat ones' hierarchy."""
+    two-level hierarchy of the instanced kernels or the flat ones'."""
     import torch
 
-    from eradiate_tpu_torch.kernels.tri_intersect import tri_bvh, tri_sweep_spheres
+    from eradiate_tpu_torch.kernels.tri_intersect import tri_bvh, tri_instanced_bvh
     from eradiate_tpu_torch.ops.mesh import (
         InstancedTriArrays,
         TriangleMeshArrays,
@@ -1055,8 +1068,9 @@ def _edge_inputs(instanced, B, seed, far, device="cuda"):
     to_dev = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
     tris = TriangleMeshArrays(to_dev(soup.v0), to_dev(soup.e1), to_dev(soup.e2))
     if instanced:
-        cull = tri_sweep_spheres(tris.v0, tris.e1, tris.e2)
         tris = InstancedTriArrays(tris, to_dev(offsets))
+        cull = tri_instanced_bvh(tris.canonical.v0, tris.canonical.e1, tris.canonical.e2,
+                                 tris.offsets)
     else:
         cull = tri_bvh(tris.v0, tris.e1, tris.e2)
     return tris, cull, tuple(to_dev(a) for a in rays)
@@ -1088,6 +1102,51 @@ def _flat_stress_inputs(kind, B, seed, device="cuda"):
     to_dev = lambda a: torch.tensor(np.ascontiguousarray(a, np.float32), device=device)  # noqa: E731
     tris = TriangleMeshArrays(*(to_dev(a) for a in arrays))
     return tris, tri_bvh(tris.v0, tris.e1, tris.e2), tuple(to_dev(a) for a in rays)
+
+
+def _instanced_tri_stress_inputs(kind, B, seed, trunks=None):
+    """Stresses of the instanced triangle kernels' two-level hierarchy
+    (``test_tools.meshes``). ``"ties"``: the instanced tie soup (600
+    triangles at nine offsets, three at each: exact ties inside a chunk,
+    across two, and across instances, where the lowest instance wins from a
+    higher chunk and from a lower one after the walk, nearer first, has met
+    a higher instance) and rays at its tied triangles; the others on the
+    trunk soup of ``c5_trees`` at its 15 positions (``trunks``, its
+    ``InstancedTriArrays``): ``"axes near"``/``"axes far"``, rays of
+    ``axis_rays`` from 0.5-3 m or 50-300 m with direction components exactly
+    +-0 and the zero components of the origin on the planes of vertices;
+    ``"zero normals"``, every trunk triangle moved into a plane of a
+    coordinate (normal components exactly +-0) and rays at its edges;
+    ``"far offsets"``, the trunk at three positions 2 km from the world
+    origin and rays at its edges from within 10 m of it. Returns ``(tris,
+    hierarchy, (p, d, t_cap))``."""
+    import torch
+
+    from eradiate_tpu_torch.kernels.tri_intersect import tri_instanced_bvh
+    from eradiate_tpu_torch.ops.mesh import InstancedTriArrays, TriangleMeshArrays
+    from eradiate_tpu_torch.test_tools import meshes
+
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        arrays, offsets, rays = meshes.instanced_tie_soup(rng, B)
+    else:
+        base = trunks.canonical
+        arrays = tuple(x.cpu().numpy() for x in (base.v0, base.e1, base.e2))
+        offsets = trunks.offsets.cpu().numpy()
+        if kind == "zero normals":
+            arrays = meshes.zero_normal_tris(rng, *arrays, share=1.0)
+        soup = TriangleMeshArrays(*arrays)
+        if kind == "far offsets":
+            offsets = np.array([[2.0, 0, 0], [0, -2.0, 0], [1.4, 1.4, 0.3]])
+            rays = meshes.edge_rays(rng, B, soup, offsets, origins=rng.uniform(-0.01, 0.01, (B, 3)))
+        elif kind == "zero normals":
+            rays = meshes.edge_rays(rng, B, soup, offsets)
+        else:
+            rays = meshes.axis_rays(rng, B, soup, 1e-3 if kind.endswith("far") else 1e-5, offsets)
+    to_dev = lambda a: torch.tensor(np.ascontiguousarray(a, np.float32), device="cuda")  # noqa: E731
+    tris = InstancedTriArrays(TriangleMeshArrays(*(to_dev(a) for a in arrays)), to_dev(offsets))
+    c = tris.canonical
+    return tris, tri_instanced_bvh(c.v0, c.e1, c.e2, tris.offsets), tuple(map(to_dev, rays))
 
 
 def _sweep_calls(geometry, cull, rays):
@@ -1235,7 +1294,8 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
     seeded subset of ``plain_lanes`` of them where there are more (in slices
     that fit the card's memory). Returns ({kernel: max abs error}, {kernel:
     (kernel ms, plain ms, lanes, plain lanes)}, {kernel: (bound ms, bound
-    by)}).
+    by)}, {kernel: what a ray reaches of the hierarchy with the cap at its
+    nearest hit}), the last three filled where ``timed``.
 
     The bound: rays read once (28 bytes a lane), the table read once, the
     outputs written once (17 bytes a lane for nearest, 1 for any hit); the
@@ -1243,8 +1303,8 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
     the plain version's lanes, scaled to all lanes), ~30 float32 operations
     a disk test and ~45 a Moller-Trumbore test. For the flat kernels, the
     leaves of their hierarchy that a ray reaches are printed too, and for
-    the instanced leaf kernels the instance boxes and canonical leaves,
-    with the cap at the nearest hit and at ``t_max``."""
+    the instanced kernels the instance boxes and canonical leaves, with the
+    cap at the nearest hit and at ``t_max``."""
     import torch
 
     from eradiate_tpu_torch.kernels import bvh as hierarchy
@@ -1264,7 +1324,7 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
         subset = torch.tensor(chosen, device=rays[0].device)
     n_plain = B if subset is None else plain_lanes
     table = (base.centers, base.normals, base.radii) if is_leaves else (base.v0, base.e1, base.e2)
-    errs, times, bounds, notes = {}, {}, {}, []
+    errs, times, bounds, reach, notes = {}, {}, {}, {}, []
     for kernel, (fn, plain, args) in _sweep_calls(geometry, cull, rays).items():
         got = fn(args)
         torch.cuda.synchronize()
@@ -1309,26 +1369,29 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
                           f"exact tests a ray at item granularity, bound "
                           f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
             lanes = subset if subset is not None else torch.arange(B, device=rays[0].device)
+            items = "disks" if is_leaves else "triangles"
             if isinstance(cull, (ti.TriBVH, li.LeafBVH)) and len(got) == 3:
                 at_hit, at_max = _leaves_reached(cull, rays, (got[0], rays[2]), lanes)
+                reach[kernel] = {"leaves": at_hit}
                 notes[-1] += (f"; the hierarchy's leaves a ray reaches: {at_hit:.2f} with the "
                               f"cap at the nearest hit, {at_max:.2f} with t_max ("
                               f"{n_items / hierarchy.bvh_leaves(cull)[0].size:.2f} "
-                              f"{'disks' if is_leaves else 'triangles'} a leaf)")
-            if isinstance(cull, li.InstancedLeafBVH) and len(got) == 3:
+                              f"{items} a leaf)")
+            if isinstance(cull, (ti.InstancedTriBVH, li.InstancedLeafBVH)) and len(got) == 3:
                 (ih, lh), (im, lm) = _instances_reached(cull, rays, (got[0], rays[2]), lanes)
+                reach[kernel] = {"instance_boxes": ih, "canonical_leaves": lh}
                 notes[-1] += (f"; a ray reaches {ih:.2f} instance boxes and {lh:.2f} canonical "
                               f"leaves in them with the cap at the nearest hit, {im:.2f} and "
                               f"{lm:.2f} with t_max ("
                               f"{n_items / hierarchy.bvh_leaves(cull.canonical)[0].size:.2f} "
-                              f"disks a leaf)")
+                              f"{items} a leaf)")
     held_on = "every lane" if subset is None else f"{n_plain} seeded lanes"
     print(f"  {name}: B={B} N={n_items}"
           + (f" I={offsets.shape[0]}" if offsets is not None else "")
           + f" every output's bit pattern equal on {held_on}, 0 lanes differ; "
           + "; ".join(notes),
           flush=True)
-    return errs, times, bounds
+    return errs, times, bounds, reach
 
 
 def _fields(obj, prefix=""):
@@ -1381,19 +1444,23 @@ def check_rebuild(label, cull, build):
     return seconds
 
 
-def instanced_against_flat(exp, B, seed, mesh_dir):
+def instanced_against_flat(exp, B, seed, mesh_dir, plain_lanes=2**16):
     """The instanced triangle kernels on the wood skeleton as canonical soup
-    (N = 6180, I = 15) against the flat kernels on the flattened soup of
-    ``exp`` (the same 92700 triangles), on the same rays, both timed.
-    Translating the ray (instanced) and translating the vertices (flat) round
-    differently, so a ray through a shared edge may hit a triangle in one
-    form and slip past it in the other, to a miss or to the triangle behind:
-    the lanes whose ``hit``/``occluded`` flag differs or whose ``t`` differs
-    by more than 1e-6 km are counted, printed, and held under 1e-3 of the
-    lanes. Returns the instanced kernels' {kernel: ms}."""
+    (N = 6180, I = 15; its two-level hierarchy built and timed here) against
+    the flat kernels on the flattened soup of ``exp`` (the same 92700
+    triangles), on the same rays, both timed. Translating the ray
+    (instanced) and translating the vertices (flat) round differently, so a
+    ray through a shared edge may hit a triangle in one form and slip past it
+    in the other, to a miss or to the triangle behind: the lanes whose
+    ``hit``/``occluded`` flag differs or whose ``t`` differs by more than
+    1e-6 km are counted, printed, and held under 1e-3 of the lanes. The
+    instanced kernels' bound counts the exact tests at item granularity
+    (:func:`_item_pairs` on ``plain_lanes`` seeded lanes, scaled), as
+    :func:`check_sweep_kernels` does. Returns the instanced kernels' {kernel:
+    (ms, bound ms, bound by)}."""
     import torch
 
-    from eradiate_tpu_torch.kernels import tri_intersect as ti
+    from eradiate_tpu_torch.kernels.tri_intersect import tri_instanced_bvh
     from eradiate_tpu_torch.ops.mesh import (
         InstancedTriArrays,
         TriangleMeshArrays,
@@ -1408,10 +1475,14 @@ def instanced_against_flat(exp, B, seed, mesh_dir):
     canonical = TriangleMeshArrays(to_dev(soup.v0), to_dev(soup.e1), to_dev(soup.e2))
     offsets = to_dev(np.atleast_2d(exp.canopy.instanced_canopy_elements[1].instance_positions))
     inst = InstancedTriArrays(canonical, offsets)
-    spheres = ti.tri_sweep_spheres(canonical.v0, canonical.e1, canonical.e2)
+    ibvh = tri_instanced_bvh(canonical.v0, canonical.e1, canonical.e2, offsets)
+    check_rebuild("wood skeleton instanced", ibvh, lambda: tri_instanced_bvh(
+        canonical.v0, canonical.e1, canonical.e2, offsets))
     flat_calls = _sweep_calls(flat, flat_bvh, rays)
-    inst_calls = _sweep_calls(inst, spheres, rays)
-    times, notes = {}, []
+    inst_calls = _sweep_calls(inst, ibvh, rays)
+    subset = torch.tensor(np.sort(np.random.default_rng(seed).choice(B, plain_lanes, replace=False)),
+                          device="cuda")
+    out, notes = {}, []
     for (k_flat, (fn_f, _, a_f)), (k_inst, (fn_i, _, a_i)) in zip(
         flat_calls.items(), inst_calls.items()
     ):
@@ -1430,11 +1501,22 @@ def instanced_against_flat(exp, B, seed, mesh_dir):
             raise AssertionError(f"{k_inst} and {k_flat} disagree on {int(differ.sum())} of "
                                  f"{B} lanes")
         ms_i, ms_f = _time_ms(lambda: fn_i(a_i)), _time_ms(lambda: fn_f(a_f))
-        times[k_inst] = ms_i
-        notes.append(note + f"; {ms_i:.4f} ms against {ms_f:.4f} ms")
+        tensors = (*rays, canonical.v0, canonical.e1, canonical.e2, offsets, *got_i)
+        cap, occ = (got_i[0], None) if len(got_i) == 3 else (rays[2], got_i[0])
+        pairs = _item_pairs(inst, rays, cap, occ, subset)
+        bound = bound_ms(sum(t.numel() * t.element_size() for t in tensors), 45.0 * pairs)
+        out[k_inst] = (ms_i, *bound)
+        note += (f"; {ms_i:.4f} ms against {ms_f:.4f} ms; {pairs / B:.2f} exact tests a ray "
+                 f"at item granularity, bound {bound[0]:.4f} ms by {bound[1]}")
+        if len(got_i) == 3:
+            (ih, lh), (im, lm) = _instances_reached(ibvh, rays, (got_i[0], rays[2]), subset)
+            note += (f"; a ray reaches {ih:.2f} instance boxes and {lh:.2f} canonical leaves "
+                     f"in them with the cap at the nearest hit, {im:.2f} and {lm:.2f} with "
+                     f"t_max")
+        notes.append(note)
     print(f"  wood skeleton instanced (N={canonical.v0.shape[0]} I={offsets.shape[0]}) against "
           f"flat (N={flat.v0.shape[0]}), B={B}: " + "; ".join(notes), flush=True)
-    return times
+    return out
 
 
 def c5_cuda_vs_cpu(form, phase, mesh_dir=None, branches=WOOD_BRANCHES):
@@ -1585,7 +1667,7 @@ def main():
     import eradiate_tpu_torch as etp
     from eradiate_tpu_torch.kernels import _build
     from eradiate_tpu_torch.kernels.leaf_intersect import leaf_bvh, leaf_instanced_bvh
-    from eradiate_tpu_torch.kernels.tri_intersect import tri_bvh
+    from eradiate_tpu_torch.kernels.tri_intersect import tri_bvh, tri_instanced_bvh
     from eradiate_tpu_torch.ops.tracer import REGEN_LANES_TARGET, lane_partition
     from eradiate_tpu_torch.ops.tracer_canopy import LANES_TARGET as CANOPY_LANES_TARGET
     from eradiate_tpu_torch.ops.tracer_spherical import spherical_lanes_target
@@ -1707,7 +1789,7 @@ def main():
         raise AssertionError(f"the shell wrappers' layout differs from the library's: {layout[:5]}")
     for kernel in ("leaf_bvh_nearest_kernel", "leaf_bvh_occluded_kernel",
                    "leaf_ibvh_nearest_kernel", "leaf_ibvh_occluded_kernel", "bvh_nearest_kernel",
-                   "bvh_occluded_kernel"):
+                   "bvh_occluded_kernel", "tri_ibvh_nearest_kernel", "tri_ibvh_occluded_kernel"):
         if kernel not in report:
             raise AssertionError(f"the library has no {kernel}")
 
@@ -1763,7 +1845,7 @@ def main():
           "(leaf_ibvh_nearest_kernel, leaf_ibvh_occluded_kernel)", flush=True)
     lp = lane_partition(N_VZA_C5, SPP_C5, CANOPY_LANES_TARGET["cuda"], "cpu")[0]
     B5 = N_VZA_C5 * lp
-    sweep_errs, sweep_times, sweep_bounds = {}, {}, {}
+    sweep_errs, sweep_times, sweep_bounds, sweep_reach = {}, {}, {}, {}
     for form in ("instanced", "flat"):
         exp = _c5(form)
         leaves, cull, rays, *_ = _canopy_inputs(exp, B5, seed=20)
@@ -1774,11 +1856,12 @@ def main():
             base = leaves.canonical
             check_rebuild("HET01 instanced", cull, lambda: leaf_instanced_bvh(
                 base.centers, base.normals, base.radii, leaves.offsets))
-        errs, times, bounds = check_sweep_kernels(
+        errs, times, bounds, reach = check_sweep_kernels(
             f"HET01 {form}, the path's lane count", leaves, cull, rays, seed=20, timed=True
         )
         sweep_times.update(times)
         sweep_bounds.update(bounds)
+        sweep_reach.update(reach)
         inst = form == "instanced"
         cases = [
             (f"HET01 {form}, ragged", lambda: _canopy_inputs(exp, 100_037, 21)[:3]),
@@ -1817,7 +1900,7 @@ def main():
                  lambda: _instanced_stress_inputs("far offsets", 2**17, 28)),
             ]
         for label, make in cases:
-            more, _, _ = check_sweep_kernels(label, *make(), seed=21)
+            more, *_ = check_sweep_kernels(label, *make(), seed=21)
             errs = {k: max(v, more[k]) for k, v in errs.items()}
         sweep_errs.update(errs)
 
@@ -1843,26 +1926,36 @@ def main():
 
     with tempfile.TemporaryDirectory() as mesh_dir:
         # -- 16. triangle-sweep kernels against their plain versions ---------
-        print("[16] triangle-sweep kernels against their plain versions", flush=True)
+        print("[16] triangle-sweep kernels against their plain versions: the flat ones "
+              "(ray_tris_nearest, ray_tris_occluded) traverse a bounding volume hierarchy "
+              "(bvh_nearest_kernel, bvh_occluded_kernel), the instanced ones a hierarchy of two "
+              "levels, instance boxes above the canonical soup's hierarchy "
+              "(tri_ibvh_nearest_kernel, tri_ibvh_occluded_kernel)", flush=True)
         for form, plain_lanes in (("trees", PLAIN_LANES), ("wood", 2**16)):
             exp = _c5(form, mesh_dir)
             *_, tris, cull, rays = _canopy_inputs(exp, B5, seed=30)
             if form == "wood":
                 check_rebuild("c5_wood", cull, lambda: tri_bvh(tris.v0, tris.e1, tris.e2))
-            errs, times, bounds = check_sweep_kernels(
+            else:
+                trunks = tris
+                check_rebuild("c5_trees trunks", cull, lambda: tri_instanced_bvh(
+                    trunks.canonical.v0, trunks.canonical.e1, trunks.canonical.e2,
+                    trunks.offsets))
+            errs, times, bounds, reach = check_sweep_kernels(
                 f"c5_{form}, the path's lane count", tris, cull, rays, seed=30,
                 timed=True, plain_lanes=plain_lanes,
             )
             sweep_times.update(times)
             sweep_bounds.update(bounds)
+            sweep_reach.update(reach)
             for label, B, miss in ((f"c5_{form}, ragged", 50_021, False),
                                    (f"c5_{form}, rays beside the box", 2**15, True)):
                 *_, tris, cull, rays = _canopy_inputs(exp, B, seed=31, miss=miss)
-                more, _, _ = check_sweep_kernels(label, tris, cull, rays, seed=31)
+                more, *_ = check_sweep_kernels(label, tris, cull, rays, seed=31)
                 errs = {k: max(v, more[k]) for k, v in errs.items()}
             for far in (False, True):
                 tris, cull, rays = _edge_inputs(form == "trees", 100_037, seed=32, far=far)
-                more, _, _ = check_sweep_kernels(
+                more, *_ = check_sweep_kernels(
                     f"wood skeleton {'instanced' if form == 'trees' else 'flat'}, rays at "
                     f"edges and vertices from {'50-300 m' if far else '0.5-3 m'}",
                     tris, cull, rays, seed=32,
@@ -1875,7 +1968,21 @@ def main():
                                     ("axes far", "wood skeleton flat, zero direction "
                                      "components, from 50-300 m")):
                     tris, cull, rays = _flat_stress_inputs(kind, 100_037, seed=33)
-                    more, _, _ = check_sweep_kernels(label, tris, cull, rays, seed=33)
+                    more, *_ = check_sweep_kernels(label, tris, cull, rays, seed=33)
+                    errs = {k: max(v, more[k]) for k, v in errs.items()}
+            else:
+                for kind, label in (
+                    ("ties", "instanced tie soup, exact ties inside a chunk, across chunks and "
+                     "across instances (the walk meets the higher instance first)"),
+                    ("axes near", "c5_trees trunks, zero direction components, from 0.5-3 m"),
+                    ("axes far", "c5_trees trunks, zero direction components, from 50-300 m"),
+                    ("zero normals", "c5_trees trunks with normal components of +-0, rays at "
+                     "the edges"),
+                    ("far offsets", "c5_trees trunks 2 km from the world origin, rays from "
+                     "near it"),
+                ):
+                    tris, cull, rays = _instanced_tri_stress_inputs(kind, 100_037, 34, trunks)
+                    more, *_ = check_sweep_kernels(label, tris, cull, rays, seed=34)
                     errs = {k: max(v, more[k]) for k, v in errs.items()}
             sweep_errs.update(errs)
         skeleton_ms = instanced_against_flat(_c5("wood", mesh_dir), B5, 30, mesh_dir)
@@ -1894,7 +2001,8 @@ def main():
           f"{np.asarray(ds_wood['brf'])[0, nadir]:.6f}; mean over the views "
           f"{np.asarray(ds_inst['brf']).mean():.6f}, {np.asarray(ds_trees['brf']).mean():.6f}, "
           f"{np.asarray(ds_wood['brf']).mean():.6f}", flush=True)
-    print(f"     instanced triangle kernels on the wood skeleton: {skeleton_ms}", flush=True)
+    print(f"     instanced triangle kernels on the wood skeleton (ms, bound ms, bound by): "
+          f"{skeleton_ms}", flush=True)
     for mod in ("jax", "eradiate_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
@@ -1903,7 +2011,9 @@ def main():
         """One kernel of the ``kernels`` line; ``times`` is (kernel ms, plain
         ms) and, for the sweeps, the lane counts the two were taken at;
         ``in_run`` the shell kernels' (launches, ms a launch) inside a
-        full-width run."""
+        full-width run. A sweep's nearest hit also carries what a ray
+        reaches of its hierarchy (``reach``), and the instanced triangle
+        kernels their time and bound on the wood skeleton (``skeleton``)."""
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": n, "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
@@ -1911,6 +2021,11 @@ def main():
             out.update(lanes=times[2], plain_lanes=times[3])
         if in_run is not None:
             out.update(run_ms=in_run[name][1])
+        if name in sweep_reach:
+            out.update(reach=sweep_reach[name])
+        if name in skeleton_ms:
+            ms, b_ms, b_by = skeleton_ms[name]
+            out.update(skeleton={"ms": ms, "bound_ms": b_ms, "bound_by": b_by})
         return out
 
     shell_src = "eradiate_tpu_torch/csrc/shell_flight.cu"

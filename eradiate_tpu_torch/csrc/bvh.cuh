@@ -1,4 +1,4 @@
-// Device code shared by the flat sweep kernels of tri_intersect.cu and the
+// Device code shared by the triangle kernels of tri_intersect.cu and the
 // leaf kernels of leaf_intersect.cu: the ray, the order-free nearest-hit
 // record, and the traversal of the bounding volume hierarchy that the host
 // builds once per render (eradiate_tpu_torch/kernels/bvh.py), in one level

@@ -29,7 +29,8 @@
 // 1024-triangle blocks and normalise with rsqrt; this follows the XLA form.
 // The tie rule is written so that it does not depend on the order in which
 // triangles are visited: a hit replaces the best when its t is smaller, or
-// equal with a lower chunk; it adds its normal when t and chunk are equal.
+// equal with a lower key; it adds its normal when t and key are equal. The
+// key is the chunk, or for instanced soups (instance, chunk) (below).
 //
 // Flat soups (ray_tris_nearest, ray_tris_occluded): one thread per ray, 128
 // rays per block, no shared memory and no block-wide barrier. Each thread
@@ -45,58 +46,62 @@
 // traversal, the box test and the tie rule are bvh.cuh's, shared with the
 // flat leaf-disk kernels of leaf_intersect.cu.
 //
-// Instanced soups: a sweep of sphere-culled groups. Triangles come in groups
-// of 64 consecutive triangles, each with a bounding sphere over its vertices
-// (spheres row 1 + g; row 0 bounds the whole soup and serves as the
-// per-instance sphere). A block stages a group in shared memory (9 floats per
-// triangle, 2.25 KB) when __syncthreads_or says any of its rays can reach the
-// group's sphere within its current cap; each thread tests only groups it
-// reaches itself.
+// Instanced soups (ray_tris_{nearest,occluded}_instanced): two levels
+// (kernels/tri_intersect.py tri_instanced_bvh, bvh.cuh traverse_instances),
+// as the instanced leaf kernels of leaf_intersect.cu. The world ray walks a
+// small hierarchy of the instances' boxes (each the canonical root box moved
+// by its offset and grown by kBoxSlack |offset|_1); at each instance it
+// reaches, the ray translated into the instance's frame, fl(p - offset) in
+// float32 as the plain version computes it, walks the canonical soup's
+// tri_bvh, stored once, with the same running cap, so a hit in a near
+// instance culls the boxes of the far ones. The tie key is instance *
+// ceil(N / 512) + index / 512, the instance being the offset's original
+// row, so that the lower (instance, chunk) wins a tie whatever the order in
+// which the walk meets them. One thread per ray, no shared memory, no
+// block-wide barrier: a ray pays for the instances its segment reaches, not
+// for all of them.
 //
 // The culls are conservative. A triangle the exact test accepts is met by
-// the ray's line within delta, the rounding of tvec = p - v0 and of the
-// barycentric products (about kLineSlack times the coordinates' magnitude),
-// at a t that the test computes with a relative error of up to ~1e-3 at
-// grazing incidence (|det| > 1e-12 admits cosines down to ~1e-4 for
-// metre-sized triangles): so a sphere's segment is lengthened by kCapSlack
-// of the distance at both ends, and its radius^2 is inflated to cover R +
-// delta. A sliver (a 4.5 m by 2.3 cm branch side) seen at a grazing angle
-// multiplies both errors: its sharp corner where two edge tests round
+// the ray's line within the rounding of tvec = p - v0 and of the
+// barycentric products (a few ulp of the coordinates' magnitude), at a t
+// that the test computes with a relative error of up to ~1e-3 at grazing
+// incidence (|det| > 1e-12 admits cosines down to ~1e-4 for metre-sized
+// triangles). A sliver (a 4.5 m by 2.3 cm branch side) seen at a grazing
+// angle multiplies both errors: its sharp corner where two edge tests round
 // outward together, and the computed t. On rays aimed at a wood skeleton's
 // edges and vertices from 50-300 m, the worst accepted (ray, triangle) pair
-// needed a box grown by 5 kLineSlack times the coordinates' magnitude, and
-// its hit came 9.4e-3 of the distance before the line entered the grown
-// box. So a box is grown by kBoxSlack = 50 kLineSlack, and its segment is
-// lengthened by kBoxCapSlack = 5e-2 of the distance. The nearest hit's cap
-// is its best t so far, so a triangle has to be reached with the cap at its
-// own t, not only at t_max. A box test takes the near and far planes
-// by the sign of 1 / d: a direction component of +-0 gives +-inf, an origin
-// on a grown face of such an axis gives 0 * inf = NaN, and fmaxf/fminf drop
-// it, so the axis bounds nothing (NaN counts as reached). The box test is
-// monotone under containment and a parent's box is the exact union of its
-// children's, so a leaf that is reached has every ancestor reached. No cull
-// drops a triangle the dense sweep would hit, and neither the grouping nor
-// the visit order changes the result. The library is built with
+// needed a box grown by 1e-5 of the coordinates' magnitude, and its hit
+// came 9.4e-3 of the distance before the line entered the grown box. So a
+// box is grown by kBoxSlack = 1e-4 of the coordinates' magnitude, and its
+// segment is lengthened by kBoxCapSlack = 5e-2 of the distance (bvh.cuh).
+// The nearest hit's cap is its best t so far, so a triangle has to be
+// reached with the cap at its own t, not only at t_max. A box test takes
+// the near and far planes by the sign of 1 / d: a direction component of
+// +-0 gives +-inf, an origin on a grown face of such an axis gives 0 * inf
+// = NaN, and fmaxf/fminf drop it, so the axis bounds nothing (NaN counts as
+// reached). The box test is monotone under containment and a parent's box
+// is the exact union of its children's, so a leaf that is reached has every
+// ancestor reached. No cull drops a triangle the dense sweep would hit, and
+// the visit order does not change the result. The library is built with
 // -fmad=false; the fused multiply-adds of the exact test are written out
 // (__fmaf_rn) where the reference has them and nowhere else, and the plain
 // versions round the same way, so kernels and plain versions agree bit for
 // bit.
 //
-// What bounds it on this card: the soup and its hierarchy are a few MB and
-// stay in L2, each ray moves 28 bytes in and 17 (nearest) or 1 (any hit) out,
-// and each exact test is ~45 float32 operations with one division, each box
-// test ~45 more: the sweep is bound by operations, and by how many exact
-// tests the cull leaves (a sliver of a thin branch fills its box badly).
+// What bounds it on this card: the soup and its hierarchy are a few MB (a
+// flat soup) or a few KB (a canonical soup and its instances) and stay in
+// L2, each ray moves 28 bytes in and 17 (nearest) or 1 (any hit) out, and
+// each exact test is ~45 float32 operations with one division, each box test
+// ~45 more: the sweep is bound by operations, and by how many exact and box
+// tests the cull leaves (a sliver of a thin branch fills its box badly; an
+// instanced ray also tests the instance boxes and the canonical root of
+// every instance it reaches), and by the divergence of the walks in a warp.
 
 #include "bvh.cuh"
 
 namespace {
 
-constexpr int kGroup = 64;    // triangles per bounding sphere (GROUP)
 constexpr float kDetMin = 1e-12f;
-constexpr float kCullSlack = 1.0001f;
-constexpr float kLineSlack = 2e-6f;  // ~32 float32 ulp of the coordinates
-constexpr float kCapSlack = 2e-3f;   // of the distance to a sphere
 
 // One triangle: v0, e1 (a), e2 (b).
 struct Tri {
@@ -136,7 +141,8 @@ __device__ __forceinline__ void tri_normal(const Tri& q, float& nx, float& ny,
   nz = cz / norm;
 }
 
-// The flat soups' hierarchy: a leaf's triangles are three float4 rows each.
+// A hierarchy's leaf-ordered triangles: three float4 rows each (v0 with the
+// original index's bits, e1, e2).
 __device__ __forceinline__ Tri load_tri(const float4* __restrict__ tris, int k,
                                         int& index) {
   const float4 a = __ldg(tris + 3 * k);
@@ -193,154 +199,59 @@ bvh_occluded_kernel(const float* __restrict__ p, const float* __restrict__ d,
 }
 
 // ---------------------------------------------------------------------------
-// Instanced soups: the sphere-culled staged sweep.
+// Instanced soups: the two-level traversal.
 
-// One staged group: SoA rows v0x v0y v0z e1x e1y e1z e2x e2y e2z.
-struct Group {
-  float v[9][kGroup];
-};
-
-__device__ __forceinline__ Tri staged(const Group& g, int k) {
-  return Tri{g.v[0][k], g.v[1][k], g.v[2][k], g.v[3][k], g.v[4][k],
-             g.v[5][k], g.v[6][k], g.v[7][k], g.v[8][k]};
-}
-
-// Can the segment p + t d, t in [0, cap], reach the sphere (conservative)?
-// See the header; since 2 R delta <= 0.5e-4 R^2 + 2e4 delta^2, half of the
-// relative slack on R^2 plus 2e4 delta^2 covers a radius of R + delta, and
-// the other half the float32 rounding of the sphere itself. Directions are
-// unit vectors.
-__device__ __forceinline__ bool sphere_cull(const Ray& r, float cap,
-                                            const float* __restrict__ s) {
-  const float vx = s[0] - r.px, vy = s[1] - r.py, vz = s[2] - r.pz;
-  const float v1 = fabsf(vx) + fabsf(vy) + fabsf(vz);
-  const float slack_t = kCapSlack * v1 + 1e-6f;
-  const float tc =
-      fminf(fmaxf(r.dx * vx + r.dy * vy + r.dz * vz, -slack_t), cap + slack_t);
-  const float ex = vx - r.dx * tc, ey = vy - r.dy * tc, ez = vz - r.dz * tc;
-  const float delta = kLineSlack * (v1 + r.l1);
-  return ex * ex + ey * ey + ez * ez <= s[3] * kCullSlack + 2.0001e4f * (delta * delta);
-}
-
-__device__ __forceinline__ void stage_group(Group& g, const float* __restrict__ v0,
-                                            const float* __restrict__ e1,
-                                            const float* __restrict__ e2, int first,
-                                            int count) {
-  for (int k = threadIdx.x; k < count; k += blockDim.x) {
-    const int i = first + k;
-    g.v[0][k] = v0[3 * i]; g.v[1][k] = v0[3 * i + 1]; g.v[2][k] = v0[3 * i + 2];
-    g.v[3][k] = e1[3 * i]; g.v[4][k] = e1[3 * i + 1]; g.v[5][k] = e1[3 * i + 2];
-    g.v[6][k] = e2[3 * i]; g.v[7][k] = e2[3 * i + 1]; g.v[8][k] = e2[3 * i + 2];
-  }
-}
-
-// Sweep one instance frame of the soup for the nearest hit. Every thread of
-// the block calls this together; `active` threads take part in the tests.
-__device__ __forceinline__ void sweep_nearest(const Ray& r, float tm, bool active,
-                                              Best& best, Group& g,
-                                              const float* __restrict__ v0,
-                                              const float* __restrict__ e1,
-                                              const float* __restrict__ e2,
-                                              const float* __restrict__ spheres, int N,
-                                              int chunk_base) {
-  const int groups = (N + kGroup - 1) / kGroup;
-  for (int j = 0; j < groups; ++j) {
-    const bool reach = active && sphere_cull(r, best.t, spheres + 4 * (1 + j));
-    if (!__syncthreads_or(reach)) continue;
-    const int first = j * kGroup;
-    const int count = min(kGroup, N - first);
-    stage_group(g, v0, e1, e2, first, count);
-    __syncthreads();
-    if (reach) {
-      const int chunk = chunk_base + first / kChunk;
-      for (int k = 0; k < count; ++k) {
-        const Tri q = staged(g, k);
-        best.take(tri_hit(r, tm, q), chunk,
+__global__ void __launch_bounds__(kThreads)
+tri_ibvh_nearest_kernel(const float* __restrict__ p, const float* __restrict__ d,
+                        const float* __restrict__ t_max, const float4* __restrict__ top,
+                        const float4* __restrict__ instances,
+                        const float4* __restrict__ nodes, const float4* __restrict__ tris,
+                        float* __restrict__ t_hit, float* __restrict__ normal,
+                        bool* __restrict__ hit, int B, int N) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Ray r = load_ray(p, d, b);
+  const float tm = t_max[b];
+  const int chunks = (N + kChunk - 1) / kChunk;
+  Best best{tm, 0.0, 0.0, 1.0, 0, kNoChunk};
+  // no t satisfies 1e-7 < t < t_max below this: the lane visits nothing
+  if (tm > kEpsT) {
+    traverse_instances(r, best.t, top, instances, nodes,
+                       [&](const Ray& ri, int row, int first, int end) {
+      for (int k = first; k < end; ++k) {
+        int index;
+        const Tri q = load_tri(tris, k, index);
+        best.take(tri_hit(ri, tm, q), row * chunks + index / kChunk,
                   [&](float& nx, float& ny, float& nz) { tri_normal(q, nx, ny, nz); });
       }
-    }
-    __syncthreads();
+      return false;
+    });
   }
-}
-
-// Sweep one instance frame for any hit; returns with `occluded` set where
-// found.
-__device__ __forceinline__ void sweep_occluded(const Ray& r, float t_max, bool active,
-                                               bool& occluded, Group& g,
-                                               const float* __restrict__ v0,
-                                               const float* __restrict__ e1,
-                                               const float* __restrict__ e2,
-                                               const float* __restrict__ spheres,
-                                               int N) {
-  const int groups = (N + kGroup - 1) / kGroup;
-  for (int j = 0; j < groups; ++j) {
-    const bool reach =
-        active && !occluded && sphere_cull(r, t_max, spheres + 4 * (1 + j));
-    if (!__syncthreads_or(reach)) continue;
-    const int first = j * kGroup;
-    const int count = min(kGroup, N - first);
-    stage_group(g, v0, e1, e2, first, count);
-    __syncthreads();
-    if (reach) {
-      for (int k = 0; k < count; ++k) {
-        if (tri_hit(r, t_max, staged(g, k)) >= 0.0f) {
-          occluded = true;
-          break;
-        }
-      }
-    }
-    __syncthreads();
-  }
+  store_nearest(best, tm, b, t_hit, normal, hit);
 }
 
 __global__ void __launch_bounds__(kThreads)
-tri_nearest_kernel(const float* __restrict__ p, const float* __restrict__ d,
-                   const float* __restrict__ t_max, const float* __restrict__ v0,
-                   const float* __restrict__ e1, const float* __restrict__ e2,
-                   const float* __restrict__ spheres, const float* __restrict__ offsets,
-                   float* __restrict__ t_hit, float* __restrict__ normal,
-                   bool* __restrict__ hit, int B, int N, int I) {
-  __shared__ Group g;
+tri_ibvh_occluded_kernel(const float* __restrict__ p, const float* __restrict__ d,
+                         const float* __restrict__ t_max, const float4* __restrict__ top,
+                         const float4* __restrict__ instances,
+                         const float4* __restrict__ nodes, const float4* __restrict__ tris,
+                         bool* __restrict__ occ, int B) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = b < B;  // ragged last block: keep the barriers whole
-  const Ray r0 = in_range ? load_ray(p, d, b) : make_ray(0, 0, 0, 0, 0, 1);
-  const float tm = in_range ? t_max[b] : 0.0f;
-  // no t satisfies 1e-7 < t < t_max below this: the lane sweeps nothing
-  const bool active = in_range && tm > kEpsT;
-  Best best{tm, 0.0, 0.0, 1.0, 0, kNoChunk};
-  const int chunks = (N + kChunk - 1) / kChunk;
-  for (int i = 0; i < I; ++i) {
-    const Ray r = make_ray(r0.px - offsets[3 * i], r0.py - offsets[3 * i + 1],
-                           r0.pz - offsets[3 * i + 2], r0.dx, r0.dy, r0.dz);
-    const bool reach = active && sphere_cull(r, best.t, spheres);
-    if (!__syncthreads_or(reach)) continue;
-    sweep_nearest(r, tm, reach, best, g, v0, e1, e2, spheres, N, i * chunks);
-  }
-  if (in_range) store_nearest(best, tm, b, t_hit, normal, hit);
-}
-
-__global__ void __launch_bounds__(kThreads)
-tri_occluded_kernel(const float* __restrict__ p, const float* __restrict__ d,
-                    const float* __restrict__ t_max, const float* __restrict__ v0,
-                    const float* __restrict__ e1, const float* __restrict__ e2,
-                    const float* __restrict__ spheres,
-                    const float* __restrict__ offsets, bool* __restrict__ occ, int B,
-                    int N, int I) {
-  __shared__ Group g;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = b < B;
-  const Ray r0 = in_range ? load_ray(p, d, b) : make_ray(0, 0, 0, 0, 0, 1);
-  const float tm = in_range ? t_max[b] : 0.0f;
-  const bool active = in_range && tm > kEpsT;
+  if (b >= B) return;
+  const Ray r = load_ray(p, d, b);
+  const float tm = t_max[b];
   bool occluded = false;
-  for (int i = 0; i < I; ++i) {
-    const Ray r = make_ray(r0.px - offsets[3 * i], r0.py - offsets[3 * i + 1],
-                           r0.pz - offsets[3 * i + 2], r0.dx, r0.dy, r0.dz);
-    const bool reach = active && !occluded && sphere_cull(r, tm, spheres);
-    if (!__syncthreads_or(reach)) continue;
-    sweep_occluded(r, tm, reach, occluded, g, v0, e1, e2, spheres, N);
+  if (tm > kEpsT) {
+    traverse_instances(r, tm, top, instances, nodes,
+                       [&](const Ray& ri, int, int first, int end) {
+      for (int k = first; k < end && !occluded; ++k) {
+        int index;
+        occluded = tri_hit(ri, tm, load_tri(tris, k, index)) >= 0.0f;
+      }
+      return occluded;
+    });
   }
-  if (in_range) occ[b] = occluded;
+  occ[b] = occluded;
 }
 
 }  // namespace
@@ -367,20 +278,29 @@ extern "C" int ray_tris_occluded_launch(const float* p, const float* d,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `top`, `instances`, `nodes` and `tris` are tri_instanced_bvh's arrays
+// (16-byte aligned); N is the canonical soup's triangle count (the tie key's
+// chunks).
 extern "C" int ray_tris_nearest_instanced_launch(
-    const float* p, const float* d, const float* t_max, const float* v0,
-    const float* e1, const float* e2, const float* spheres, const float* offsets,
-    float* t_hit, float* normal, bool* hit, int B, int N, int I, void* stream) {
-  tri_nearest_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, d, t_max, v0, e1, e2, spheres, offsets, t_hit, normal, hit, B, N, I);
+    const float* p, const float* d, const float* t_max, const float* top,
+    const float* instances, const float* nodes, const float* tris, float* t_hit,
+    float* normal, bool* hit, int B, int N, void* stream) {
+  tri_ibvh_nearest_kernel<<<blocks_for(B), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(top),
+      reinterpret_cast<const float4*>(instances), reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(tris), t_hit, normal, hit, B, N);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int ray_tris_occluded_instanced_launch(
-    const float* p, const float* d, const float* t_max, const float* v0,
-    const float* e1, const float* e2, const float* spheres, const float* offsets,
-    bool* occ, int B, int N, int I, void* stream) {
-  tri_occluded_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      p, d, t_max, v0, e1, e2, spheres, offsets, occ, B, N, I);
+    const float* p, const float* d, const float* t_max, const float* top,
+    const float* instances, const float* nodes, const float* tris, bool* occ, int B,
+    void* stream) {
+  tri_ibvh_occluded_kernel<<<blocks_for(B), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(top),
+      reinterpret_cast<const float4*>(instances), reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const float4*>(tris), occ, B);
   return static_cast<int>(cudaGetLastError());
 }

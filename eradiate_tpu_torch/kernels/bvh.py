@@ -35,6 +35,7 @@ __all__ = [
     "bvh_leaves",
     "bvh_leaves_reached_plain",
     "instance_level",
+    "instanced_nearest_plain",
     "leaf_of_row",
     "nearest_plain",
     "nearest_record",
@@ -359,3 +360,40 @@ def nearest_plain(p, d, t_max, bvh, rows, test, order=None, chunk=512):
         return torch.where(reached[:, int(row_leaf[k])], t, torch.inf), n, index[k] // chunk
 
     return nearest_record(t_max, rows.shape[0], visit, order)
+
+
+def instanced_nearest_plain(p, d, t_max, ibvh, rows, hits, normals, order=None, chunk=512):
+    """An instanced nearest-hit kernel's result as it computes it: the
+    (instance, item) pairs of the two-level hierarchy ``ibvh`` (its
+    ``top``, ``instances`` and ``canonical`` level, whose leaf-ordered item
+    array is ``rows``, the original index's int32 bits in column 3) visited
+    one at a time in ``order`` (a permutation of ``range(I * N)``, pair ``j
+    * N + k`` being row ``j`` of ``ibvh.instances`` and row ``k`` of
+    ``rows``; default the leaf order of both levels), each ray testing only
+    the pairs whose top leaf it reaches with the world ray and whose
+    canonical leaf it reaches with the translated ray ``p - offset``, both
+    with the cap ``t_max``. ``hits(pj)`` gives the exact distances [B, N] of
+    the translated rays ``pj`` against ``rows`` (+inf where missed) and
+    ``normals`` [N, 3] their normals. The tie key is ``instance * ceil(N /
+    chunk) + index // chunk``, the instance being the offset's original row
+    (:func:`nearest_record`)."""
+    canon = ibvh.canonical
+    N, I = rows.shape[0], ibvh.instances.shape[0]
+    chunks = -(-N // chunk)
+    index = rows[:, 3].contiguous().view(torch.int32).tolist()
+    inst_rows = ibvh.instances[:, 3].contiguous().view(torch.int32).tolist()
+    item_leaf = torch.from_numpy(leaf_of_row(canon, N)).to(p.device)
+    top_reached = bvh_leaves_reached_plain(p, d, t_max, ibvh.top)
+    top_reached = top_reached[:, torch.from_numpy(leaf_of_row(ibvh.top, I)).to(p.device)]
+    t = []
+    for j in range(I):
+        pj = p - ibvh.instances[j, :3]
+        reached = bvh_leaves_reached_plain(pj, d, t_max, canon)[:, item_leaf]
+        reached &= top_reached[:, j : j + 1]
+        t.append(torch.where(reached, hits(pj), torch.inf))
+
+    def visit(m):
+        j, k = divmod(m, N)
+        return t[j][:, k], normals[k], inst_rows[j] * chunks + index[k] // chunk
+
+    return nearest_record(t_max, I * N, visit, order)

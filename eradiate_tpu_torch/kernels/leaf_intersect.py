@@ -61,9 +61,8 @@ from .bvh import (
     bvh_leaves,
     bvh_leaves_reached_plain,
     instance_level,
-    leaf_of_row,
+    instanced_nearest_plain,
     nearest_plain,
-    nearest_record,
 )
 
 __all__ = [
@@ -342,28 +341,10 @@ def ray_leaves_nearest_instanced_bvh_plain(p, d, t_max, ibvh: InstancedLeafBVH, 
     ``instance * ceil(N / 512) + index // 512``, the instance being the
     offset's original row. Equals the dense instanced sweep bit for bit
     whatever the order."""
-    canon = ibvh.canonical
-    disks = canon.disks
-    N, I = disks.shape[0], ibvh.instances.shape[0]
-    chunks = -(-N // CHUNK)
-    index = disks[:, 3].contiguous().view(torch.int32).tolist()
-    rows = ibvh.instances[:, 3].contiguous().view(torch.int32).tolist()
-    disk_leaf = torch.from_numpy(leaf_of_row(canon, N)).to(p.device)
-    top_reached = bvh_leaves_reached_plain(p, d, t_max, ibvh.top)
-    top_reached = top_reached[:, torch.from_numpy(leaf_of_row(ibvh.top, I)).to(p.device)]
+    disks = ibvh.canonical.disks
     c, n, r = disks[:, 0:3], disks[:, 4:7], disks[:, 7]
-    t = []
-    for j in range(I):
-        pj = p - ibvh.instances[j, :3]
-        reached = bvh_leaves_reached_plain(pj, d, t_max, canon)[:, disk_leaf]
-        reached &= top_reached[:, j : j + 1]
-        t.append(torch.where(reached, _chunk_hits(pj, d, c, n, r, t_max), torch.inf))
-
-    def visit(m):
-        j, k = divmod(m, N)
-        return t[j][:, k], n[k], rows[j] * chunks + index[k] // CHUNK
-
-    return nearest_record(t_max, I * N, visit, order)
+    return instanced_nearest_plain(p, d, t_max, ibvh, disks,
+                                   lambda pj: _chunk_hits(pj, d, c, n, r, t_max), n, order, CHUNK)
 
 
 def ray_leaves_nearest_instanced_plain(p, d, t_max, centers, normals, radii, offsets,

@@ -9,8 +9,9 @@ Four functions, the counterparts of the TPU kernels of
   traverse a bounding volume hierarchy of the soup (:func:`tri_bvh`);
 * :func:`ray_tris_nearest_instanced` / :func:`ray_tris_occluded_instanced`:
   the same against ``I`` translated copies of one canonical soup, which is
-  stored once; the kernels cull per group of :data:`GROUP` triangles by a
-  bounding sphere (:func:`tri_sweep_spheres`).
+  stored once; the kernels traverse a hierarchy of two levels, the
+  instances' boxes above the canonical soup's own hierarchy
+  (:func:`tri_instanced_bvh`).
 
 For CUDA tensors they launch ``csrc/tri_intersect.cu``; for CPU tensors they
 run the plain versions (``*_plain``), the chunked dense sweeps of the
@@ -43,8 +44,11 @@ normalise with ``rsqrt`` and a ``1e-24`` clamp):
   result does not depend on the order of the sum. A kernel that visits the
   triangles out of index order (the hierarchy's traversal) applies the rule
   as: a hit replaces the best when its ``t`` is smaller, or equal with a
-  lower chunk (original index // 512); it adds its normal when ``t`` and
-  chunk are equal (:func:`ray_tris_nearest_bvh_plain`);
+  lower key; it adds its normal when ``t`` and key are equal. The key is
+  the chunk, original index // 512 (:func:`ray_tris_nearest_bvh_plain`),
+  and for the instanced kernels ``instance * ceil(N / 512) + index // 512``
+  with the instance's row in ``offsets``
+  (:func:`ray_tris_nearest_instanced_bvh_plain`);
 * misses keep ``t = t_max`` and the normal ``(0, 0, 1)``.
 """
 
@@ -58,25 +62,28 @@ import torch
 from .bvh import (
     LEAF,
     STACK,
+    TOP_STACK,
     _round_down,
     _round_up,
     build,
     bvh_leaves,
     bvh_leaves_reached_plain,
+    instance_level,
+    instanced_nearest_plain,
     nearest_plain,
 )
 from .leaf_intersect import _check_operands, _launch, _on_cpu, dot3, fma
 
 __all__ = [
     "CHUNK",
-    "GROUP",
     "LEAF",
     "STACK",
+    "TOP_STACK",
+    "InstancedTriBVH",
     "TriBVH",
     "launches",
-    "tri_block_spheres",
-    "tri_sweep_spheres",
     "tri_bvh",
+    "tri_instanced_bvh",
     "bvh_leaves",
     "bvh_leaves_reached_plain",
     "tri_normals",
@@ -87,6 +94,7 @@ __all__ = [
     "ray_tris_nearest_plain",
     "ray_tris_occluded_plain",
     "ray_tris_nearest_bvh_plain",
+    "ray_tris_nearest_instanced_bvh_plain",
     "ray_tris_nearest_instanced_plain",
     "ray_tris_occluded_instanced_plain",
 ]
@@ -94,9 +102,6 @@ __all__ = [
 #: Triangles per chunk of the plain sweep, which is also the tie-averaging
 #: unit (reference ``ray_tris_nearest(chunk=512)``).
 CHUNK = 512
-#: Triangles per bounding sphere of the instanced kernels' cull. The result
-#: does not depend on it.
-GROUP = 64
 _EPS_T = 1e-7
 _DET_MIN = 1e-12
 
@@ -109,39 +114,8 @@ launches = {
 }
 
 
-def tri_block_spheres(v0, e1, e2, block_n: int = GROUP):
-    """Per-triangle-block bounding spheres (centers [M, 3], radius^2 [M]) of
-    ``block_n`` consecutive triangles (reference ``tri_block_spheres``): each
-    covers all three vertices of every triangle of its block."""
-    N = v0.shape[0]
-    M = -(-N // block_n)
-    pad = M * block_n - N
-    verts = torch.stack([v0, v0 + e1, v0 + e2], dim=1)  # [N, 3, 3]
-    if pad:
-        # the last real triangle fills the padding so the final sphere is
-        # not dragged to the origin
-        verts = torch.cat([verts, verts[N - 1 :].expand(pad, 3, 3)])
-    verts = verts.reshape(M, 3 * block_n, 3)
-    mid = (verts.min(dim=1).values + verts.max(dim=1).values) * 0.5
-    diff = verts - mid[:, None, :]
-    R = torch.sqrt((diff * diff).sum(dim=-1)).max(dim=1).values
-    return mid, R * R
-
-
-def tri_sweep_spheres(v0, e1, e2):
-    """The instanced kernels' cull operand ``[1 + M, 4]`` (x, y, z,
-    radius^2): row 0 bounds the whole soup (the per-instance sphere), rows
-    1.. bound its :data:`GROUP`-triangle blocks. Compute once per render and
-    pass as ``spheres``."""
-    whole_c, whole_r2 = tri_block_spheres(v0, e1, e2, max(v0.shape[0], 1))
-    sc, sr2 = tri_block_spheres(v0, e1, e2, GROUP)
-    return torch.cat(
-        [torch.cat([whole_c, sc]), torch.cat([whole_r2, sr2])[:, None]], dim=1
-    ).contiguous()
-
-
 # ---------------------------------------------------------------------------
-# the flat kernels' bounding volume hierarchy
+# the kernels' bounding volume hierarchies
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,6 +164,52 @@ def tri_bvh(v0, e1, e2) -> TriBVH:
     tris[:, 0:3], tris[:, 4:7], tris[:, 8:11] = v0n[perm], e1n[perm], e2n[perm]
     tris[:, 3] = perm.astype(np.int32).view(np.float32)
     return TriBVH(torch.from_numpy(nodes).to(device), torch.from_numpy(tris).to(device), depth)
+
+
+@dataclasses.dataclass(frozen=True)
+class InstancedTriBVH:
+    """The instanced kernels' acceleration structure, made by
+    :func:`tri_instanced_bvh`: two levels.
+
+    ``canonical``: the canonical soup's :class:`TriBVH`, in its own frame.
+
+    ``top`` [M, 16] float32: the inner nodes of :mod:`~.bvh` over the
+    instances (a leaf holds ``count`` rows of ``instances`` from ``first``),
+    each instance's box the canonical root box moved by its offset
+    (:func:`~.bvh.instance_level`). Row 0 is the root.
+
+    ``instances`` [I, 4] float32: the offsets in the top level's leaf order,
+    ``(ox, oy, oz, original row as int32 bits)``; bitwise copies of the
+    inputs. The row, not the position, is the instance in the tie key.
+
+    ``top_depth``: inner nodes on the longest path from the top's root to a
+    leaf; the kernels' outer stack holds :data:`TOP_STACK`."""
+
+    canonical: TriBVH
+    top: torch.Tensor
+    instances: torch.Tensor
+    top_depth: int
+
+
+def tri_instanced_bvh(v0, e1, e2, offsets) -> InstancedTriBVH:
+    """The instanced kernels' hierarchy of the canonical soup (``v0``,
+    ``e1``, ``e2`` [N, 3]) at ``offsets`` [I, 3], all float32 tensors:
+    :func:`tri_bvh` of the soup below, the instances' boxes
+    (:func:`~.bvh.instance_level`) above, built on the host with numpy and
+    returned on the tensors' device. Deterministic: the same inputs give the
+    same bytes. Raises as :func:`tri_bvh` does, and if there is no instance,
+    the offsets are not float32, or the top level is deeper than
+    :data:`TOP_STACK`. Compute once per render and pass as ``bvh``."""
+    o = np.ascontiguousarray(offsets.detach().cpu().numpy())
+    if o.dtype != np.float32:
+        raise TypeError("tri_instanced_bvh: offsets must be float32")
+    if o.ndim != 2 or o.shape[1] != 3 or o.shape[0] < 1:
+        raise ValueError(f"tri_instanced_bvh: offsets must be [I >= 1, 3], got {list(o.shape)}")
+    canonical = tri_bvh(v0, e1, e2)
+    top, instances, depth = instance_level(canonical.nodes.cpu().numpy(), o, "tri_instanced_bvh")
+    device = v0.device
+    return InstancedTriBVH(canonical, torch.from_numpy(top).to(device),
+                           torch.from_numpy(instances).to(device), depth)
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +263,7 @@ def _chunks(v0, e1, e2, chunk):
         yield v0[sl], e1[sl], e2[sl]
 
 
-def ray_tris_nearest_plain(p, d, t_max, v0, e1, e2, spheres=None, chunk: int = CHUNK):
+def ray_tris_nearest_plain(p, d, t_max, v0, e1, e2, chunk: int = CHUNK):
     """Nearest triangle hit along ``p + t d`` for t in (0, t_max): the
     chunked dense sweep. Returns ``(t_hit [B], normal [B, 3], hit [B])``."""
     B = p.shape[0]
@@ -271,7 +291,7 @@ def ray_tris_nearest_plain(p, d, t_max, v0, e1, e2, spheres=None, chunk: int = C
     return torch.where(hit, best_t, t_max), best_n, hit
 
 
-def ray_tris_occluded_plain(p, d, t_max, v0, e1, e2, spheres=None, chunk: int = CHUNK):
+def ray_tris_occluded_plain(p, d, t_max, v0, e1, e2, chunk: int = CHUNK):
     """True where any triangle blocks the segment (shadow rays)."""
     occ = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device)
     for a, b, c in _chunks(v0, e1, e2, chunk):
@@ -297,7 +317,26 @@ def ray_tris_nearest_bvh_plain(p, d, t_max, bvh: TriBVH, order=None):
     return nearest_plain(p, d, t_max, bvh, tris, test, order, CHUNK)
 
 
-def ray_tris_nearest_instanced_plain(p, d, t_max, v0, e1, e2, offsets, spheres=None):
+def ray_tris_nearest_instanced_bvh_plain(p, d, t_max, ibvh: InstancedTriBVH, order=None):
+    """:func:`ray_tris_nearest_instanced_plain` as the instanced kernel
+    computes it: the (instance, triangle) pairs of ``ibvh`` visited one at a
+    time in ``order`` (a permutation of ``range(I * N)``, pair ``j * N + k``
+    being row ``j`` of ``ibvh.instances`` and row ``k`` of the canonical
+    ``tris``; default the leaf order of both levels), each ray testing only
+    the pairs whose top leaf it reaches with the world ray and whose
+    canonical leaf it reaches with the translated ray ``p - offset``, both
+    with the cap ``t_max``; with the order-free tie rule on the key
+    ``instance * ceil(N / 512) + index // 512``, the instance being the
+    offset's original row. Equals the dense instanced sweep bit for bit
+    whatever the order."""
+    tris = ibvh.canonical.tris
+    v0, e1, e2 = tris[:, 0:3], tris[:, 4:7], tris[:, 8:11]
+    return instanced_nearest_plain(p, d, t_max, ibvh, tris,
+                                   lambda pj: _chunk_hits(pj, d, v0, e1, e2, t_max),
+                                   tri_normals(e1, e2), order, CHUNK)
+
+
+def ray_tris_nearest_instanced_plain(p, d, t_max, v0, e1, e2, offsets):
     """Nearest hit against the translated copies: scan the instances,
     translate the ray into each instance frame, sweep the canonical soup
     with the running best as the cap, keep the winner."""
@@ -315,7 +354,7 @@ def ray_tris_nearest_instanced_plain(p, d, t_max, v0, e1, e2, offsets, spheres=N
     return torch.where(hit, best_t, t_max), best_n, hit
 
 
-def ray_tris_occluded_instanced_plain(p, d, t_max, v0, e1, e2, offsets, spheres=None):
+def ray_tris_occluded_instanced_plain(p, d, t_max, v0, e1, e2, offsets):
     """Any hit against the translated copies."""
     occ = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device)
     for offset in offsets:
@@ -327,26 +366,35 @@ def ray_tris_occluded_instanced_plain(p, d, t_max, v0, e1, e2, offsets, spheres=
 # kernel wrappers
 
 
-def _check(name, named, B, N, offsets, depth=None):
+def _check(name, named, B, N, offsets, depth=None, top_depth=None):
     """Validate the operands of a launch: ``named`` holds the rays, the
-    soup, and the cull operand: ``spheres`` (instanced kernels) or a
-    :class:`TriBVH`'s ``nodes`` and ``tris`` with its ``depth`` (flat)."""
+    soup (with the ``offsets`` of an instanced one) and the hierarchy: a
+    :class:`TriBVH`'s ``nodes`` and ``tris`` with its ``depth``, and for the
+    instanced kernels an :class:`InstancedTriBVH`'s ``top`` and
+    ``instances`` with its ``top_depth``."""
     shapes = {"p": (B, 3), "d": (B, 3), "t_max": (B,), "v0": (N, 3), "e1": (N, 3),
               "e2": (N, 3)}
-    if "spheres" in named:
-        shapes["spheres"] = (1 + -(-N // GROUP), 4)
     if "nodes" in named:
         shapes["nodes"] = (max(named["nodes"].shape[0], 1), 16)
         shapes["tris"] = (N, 12)
     if offsets is not None:
         shapes["offsets"] = (offsets.shape[0], 3)
+    if "top" in named:
+        shapes["top"] = (max(named["top"].shape[0], 1), 16)
+        shapes["instances"] = (offsets.shape[0], 4)
     _check_operands(name, named, shapes, depth)
+    if top_depth is not None and not 1 <= top_depth <= TOP_STACK:
+        raise ValueError(f"{name}: a top level {top_depth} deep, the kernels' outer stack "
+                         f"holds {TOP_STACK}")
     if N < 1:
         raise ValueError(f"{name}: needs at least one triangle")
     if offsets is not None and offsets.shape[0] < 1:
         raise ValueError(f"{name}: needs at least one instance")
     if B >= 2**31 or N >= 2**28:
         raise ValueError(f"{name}: more than 2^31 - 1 lanes or 2^28 - 1 triangles")
+    if offsets is not None and offsets.shape[0] * -(-N // CHUNK) >= 2**31:
+        raise ValueError(f"{name}: instances x 512-triangle chunks must stay below 2^31 (the "
+                         "kernels' int32 tie key)")
 
 
 def _launch_flat(name, nearest, p, d, t_max, v0, e1, e2, bvh):
@@ -365,17 +413,26 @@ def _launch_flat(name, nearest, p, d, t_max, v0, e1, e2, bvh):
                    launches)
 
 
-def _launch_instanced(name, nearest, p, d, t_max, v0, e1, e2, offsets, spheres):
-    """The instanced kernels: check the operands (spheres built here when
-    None), launch the sphere-culled sweep."""
-    if spheres is None:
-        spheres = tri_sweep_spheres(v0, e1, e2)
+def _launch_instanced(name, nearest, p, d, t_max, v0, e1, e2, offsets, bvh):
+    """The instanced kernels: check the rays, the soup, the offsets and
+    their two-level hierarchy (built here when ``bvh`` is None), launch the
+    traversal."""
+    if bvh is None:
+        bvh = tri_instanced_bvh(v0, e1, e2, offsets)
+    if not isinstance(bvh, InstancedTriBVH):
+        raise TypeError(f"{name}: bvh must be an InstancedTriBVH (tri_instanced_bvh), got "
+                        f"{type(bvh).__name__}")
+    canon = bvh.canonical
     named = {"p": p, "d": d, "t_max": t_max, "v0": v0, "e1": e1, "e2": e2,
-             "spheres": spheres, "offsets": offsets}
+             "offsets": offsets, "nodes": canon.nodes, "tris": canon.tris, "top": bvh.top,
+             "instances": bvh.instances}
     B, N = p.shape[0], v0.shape[0]
-    _check(name, named, B, N, offsets)
-    return _launch(name, nearest, p, tuple(named.values()), (B, N, offsets.shape[0]),
-                   launches)
+    _check(name, named, B, N, offsets, depth=canon.depth, top_depth=bvh.top_depth)
+    arrays = (bvh.top, bvh.instances, canon.nodes, canon.tris)
+    if any(t.data_ptr() % 16 for t in arrays):
+        raise ValueError(f"{name}: the hierarchy's arrays must be 16-byte aligned (float4)")
+    sizes = (B, N) if nearest else (B,)  # the nearest hit's tie key needs N
+    return _launch(name, nearest, p, (p, d, t_max, *arrays), sizes, launches)
 
 
 def ray_tris_nearest(p, d, t_max, v0, e1, e2, bvh=None):
@@ -399,19 +456,19 @@ def ray_tris_occluded(p, d, t_max, v0, e1, e2, bvh=None):
     return _launch_flat("ray_tris_occluded", False, p, d, t_max, v0, e1, e2, bvh)[0]
 
 
-def ray_tris_nearest_instanced(p, d, t_max, v0, e1, e2, offsets, spheres=None):
+def ray_tris_nearest_instanced(p, d, t_max, v0, e1, e2, offsets, bvh=None):
     """:func:`ray_tris_nearest` against the union of the canonical soup
-    translated by each of ``offsets`` [I, 3]; ``spheres`` optionally passes
-    :func:`tri_sweep_spheres` of the canonical soup."""
+    translated by each of ``offsets`` [I, 3]; ``bvh`` optionally passes
+    :func:`tri_instanced_bvh` of the soup and the offsets."""
     if _on_cpu(p, "ray_tris_nearest_instanced"):
         return ray_tris_nearest_instanced_plain(p, d, t_max, v0, e1, e2, offsets)
     return _launch_instanced("ray_tris_nearest_instanced", True, p, d, t_max, v0, e1, e2,
-                             offsets, spheres)
+                             offsets, bvh)
 
 
-def ray_tris_occluded_instanced(p, d, t_max, v0, e1, e2, offsets, spheres=None):
+def ray_tris_occluded_instanced(p, d, t_max, v0, e1, e2, offsets, bvh=None):
     """:func:`ray_tris_occluded` against the translated copies."""
     if _on_cpu(p, "ray_tris_occluded_instanced"):
         return ray_tris_occluded_instanced_plain(p, d, t_max, v0, e1, e2, offsets)
     return _launch_instanced("ray_tris_occluded_instanced", False, p, d, t_max, v0, e1, e2,
-                             offsets, spheres)[0]
+                             offsets, bvh)[0]

@@ -28,7 +28,7 @@ from ..kernels.tri_intersect import (
     ray_tris_occluded,
     ray_tris_occluded_instanced,
     tri_bvh,
-    tri_sweep_spheres,
+    tri_instanced_bvh,
 )
 from .canopy import _advance_to_aabb
 
@@ -73,11 +73,12 @@ def mesh_from_vertices(vertices, faces) -> TriangleMeshArrays:
 
 def tri_accel(tris):
     """Acceleration data for the triangle sweeps: ``(cull, box_lo,
-    box_hi)``. ``cull`` is the kernels' cull operand on CUDA, built here:
-    the bounding volume hierarchy of a flat soup
-    (:func:`~eradiate_tpu_torch.kernels.tri_intersect.tri_bvh`, on the host)
-    or the group spheres of an instanced one's canonical soup
-    (:func:`~eradiate_tpu_torch.kernels.tri_intersect.tri_sweep_spheres`);
+    box_hi)``. ``cull`` is the kernels' cull operand on CUDA, built here on
+    the host: the bounding volume hierarchy of a flat soup
+    (:func:`~eradiate_tpu_torch.kernels.tri_intersect.tri_bvh`) or the
+    two-level one of an instanced set, the instances' boxes above the
+    canonical soup's hierarchy
+    (:func:`~eradiate_tpu_torch.kernels.tri_intersect.tri_instanced_bvh`);
     None on the CPU, where the dense sweeps use none and nothing is built.
     The box is the vertices' (plus the offsets' for instances). Compute once
     per render, outside the path loop, and pass to every
@@ -93,7 +94,7 @@ def tri_accel(tris):
     if base.v0.device.type == "cpu":
         return None, lo, hi
     if instanced:
-        return tri_sweep_spheres(base.v0, base.e1, base.e2), lo, hi
+        return tri_instanced_bvh(base.v0, base.e1, base.e2, tris.offsets), lo, hi
     return tri_bvh(base.v0, base.e1, base.e2), lo, hi
 
 

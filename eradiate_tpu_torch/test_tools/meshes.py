@@ -6,7 +6,9 @@ as a Wavefront OBJ file that ``scenes.shapes.load_obj`` reads back exactly;
 :func:`edge_rays` aims rays at the shared edges and vertices of a mesh, where
 the last bit of the intersection test decides; :func:`axis_rays` does so with
 direction components that are exactly zero; :func:`tie_soup` makes exact ties
-of the hit distance between triangles of one chunk and of two.
+of the hit distance between triangles of one chunk and of two, and
+:func:`instanced_tie_soup` also between instances; :func:`zero_normal_tris`
+gives triangles whose normals have components exactly +-0.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import numpy as np
 
 from ..ops.mesh import cylinder_mesh
 
-__all__ = ["wood_skeleton", "write_obj", "edge_rays", "axis_rays", "tie_soup"]
+__all__ = ["wood_skeleton", "write_obj", "edge_rays", "axis_rays", "tie_soup",
+           "instanced_tie_soup", "zero_normal_tris"]
 
 
 def _along(vertices, direction):
@@ -83,33 +86,38 @@ def _caps(rng, dist):
     return dist * rng.choice([2.0, 1.0, 1 + 1e-6, 1 - 1e-6], dist.shape[0])
 
 
-def edge_rays(rng, B, tris, offsets=None, distance=1e-5):
+def edge_rays(rng, B, tris, offsets=None, distance=1e-5, origins=None):
     """``B`` rays aimed at a mesh (``tris.v0``, ``.e1``, ``.e2`` as numpy
     arrays, km): a quarter each at points of an edge, at vertices, at
     interior points and just beside an edge (1e-6 of the triangle off it),
     of triangles drawn at random, in one of the instance frames ``offsets``
     [I, 3] if given. Origins lie ``distance`` x (50..300) back along a
-    random direction; the caps are twice, exactly, just above and just below
-    the distance to the target. Returns float32 ``(p, d, t_max)``."""
+    random direction, or at ``origins`` [B, 3] if given; the caps are twice,
+    exactly, just above and just below the distance to the target. Returns
+    float32 ``(p, d, t_max)``."""
     target = _targets(rng, B, tris, offsets)
     back = rng.normal(size=(B, 3))
     back /= np.linalg.norm(back, axis=1, keepdims=True)
     dist = rng.uniform(50.0, 300.0, B) * distance
+    if origins is not None:
+        dist = np.linalg.norm(origins - target, axis=1)
+        back = (origins - target) / dist[:, None]
     p = (target + back * dist[:, None]).astype(np.float32)
     d = target - p
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return p, d.astype(np.float32), _caps(rng, dist).astype(np.float32)
 
 
-def axis_rays(rng, B, tris, distance=1e-5):
+def axis_rays(rng, B, tris, distance=1e-5, offsets=None):
     """``B`` rays aimed at a mesh as :func:`edge_rays` aims them, with
     direction components that are exactly +0 or -0 (the sun and the views of
     an hplane at azimuth 0 have d_y = 0): two thirds travel in the x-z
     plane, a third along an axis (two zero components). Each zero component
-    of the origin is the target's own coordinate, so a ray through a vertex
-    lies in the planes of its triangles' box faces. Returns float32 ``(p, d,
+    of the origin is the (world) target's own coordinate, so a ray through a
+    vertex lies in the planes of its triangles' box faces. In one of the
+    instance frames ``offsets`` [I, 3] if given. Returns float32 ``(p, d,
     t_max)``."""
-    target = _targets(rng, B, tris)
+    target = _targets(rng, B, tris, offsets)
     angle = rng.uniform(0.0, 2.0 * np.pi, B)
     d = np.stack([np.cos(angle), np.zeros(B), np.sin(angle)], axis=1)
     along = np.eye(3)[rng.integers(0, 3, B)] * rng.choice([-1.0, 1.0], (B, 1))
@@ -169,3 +177,73 @@ def tie_soup(rng, B, n=600):
     p[down, 2] = 2.0**-4
     d[down] = (0.0, 0.0, -1.0)
     return (v0, e1, e2), (p, d, np.full(B, 1.0, np.float32))
+
+
+def instanced_tie_soup(rng, B, n=600):
+    """A canonical soup of ``n`` triangles (km) at nine offsets, with exact
+    ties of the hit distance inside an instance and across instances, and
+    ``B`` rays that meet them.
+
+    Inside an instance, the soup and rays of :func:`tie_soup` (rows 0-10 and
+    the last three), five lanes in seven.
+
+    Across instances: four squares' halves ``a`` (rows 11-14, chunk 0) in
+    the plane z = 0 with the normal -z, and their copies ``b`` (rows n-5 down
+    to n-8, the last chunk) moved by ``shift = (delta, 0, delta)``, ``delta =
+    1 / 16``, with the opposite winding (+z); dyadic coordinates, so that the
+    exact test is exact. Offsets: rows 0-2 at 0 (``A``), rows 3-5 at
+    ``shift`` (``B``) and rows 6-8 at ``-shift`` (``C``), three instances
+    at each offset. ``A``'s ``b`` and ``B``'s ``a`` then coincide, and so do
+    ``A``'s ``a`` and ``C``'s ``b``. A lane in seven goes straight down onto
+    the first pair: the lowest instance, row 0, wins from the higher chunk,
+    with ``b``'s normal. Another goes straight up onto the second: row 0
+    wins from the lower chunk, with ``a``'s normal. Both travel along z, with
+    x and y direction components of exactly +0 or -0. The offsets' clusters
+    are apart along the diagonal, so the top level holds each in leaves of
+    its own; ``B``'s boxes reach higher than ``A``'s and ``C``'s lower, so a
+    walk of the instances nearer first meets the higher instance (``B``,
+    then ``C``) before ``A``, and the winner replaces a tie of a higher key.
+
+    Returns float32 ``(v0, e1, e2)``, ``offsets`` [9, 3] and ``(p, d,
+    t_max)``."""
+    (v0, e1, e2), (p, d, t_max) = tie_soup(rng, B, n)
+    delta = 2.0**-4
+    side = np.float32(2.0**-7)
+    ex, ey = np.array([side, 0, 0], np.float32), np.array([0, side, 0], np.float32)
+    xs = -(2.0**-5) + 2.0**-6 * np.arange(4)
+    a, b = 11 + np.arange(4), n - 5 - np.arange(4)
+    v0[a] = np.stack([xs, np.full(4, -delta), np.zeros(4)], axis=1)
+    e1[a], e2[a] = ey, ex  # normal -z
+    v0[b] = v0[a] + np.float32([delta, 0.0, delta])
+    e1[b], e2[b] = ex, ey  # normal +z
+    shift = np.array([delta, 0.0, delta])
+    offsets = np.repeat(np.stack([np.zeros(3), shift, 0.0 - shift]), 3, axis=0).astype(np.float32)
+
+    kind = np.arange(B) % 7
+    k = rng.integers(0, 4, B)
+    fx = rng.integers(1, 63, B)
+    fy = (rng.uniform(0, 1, B) * (63 - fx)).astype(np.int64) + 1  # fx + fy <= 63
+    for want, dz, z, move in ((5, -1.0, 0.25, delta), (6, 1.0, -0.25, 0.0)):
+        lanes = kind == want
+        p[lanes, 0] = xs[k[lanes]] + move + fx[lanes] * 2.0**-13
+        p[lanes, 1] = -delta + fy[lanes] * 2.0**-13
+        p[lanes, 2] = z
+        signs = rng.choice([-1.0, 1.0], (int(lanes.sum()), 2))
+        d[lanes] = np.concatenate([np.copysign(0.0, signs), np.full((signs.shape[0], 1), dz)],
+                                  axis=1)
+    return (v0, e1, e2), offsets, (p, d, t_max)
+
+
+def zero_normal_tris(rng, v0, e1, e2, share=0.5):
+    """The soup ``v0``, ``e1``, ``e2`` [N, 3] with, on a ``share`` of the
+    triangles, one coordinate of both edges set to exactly +0 or -0: the
+    triangle then lies in a plane of that coordinate, and its normal's two
+    other components are +-0 as the cross product's signed zeros give them.
+    Returns float32 ``(v0, e1, e2)``."""
+    e1, e2 = (np.array(x, np.float32) for x in (e1, e2))
+    N = e1.shape[0]
+    pick = np.nonzero(rng.uniform(0, 1, N) < share)[0]
+    axis = rng.integers(0, 3, pick.size)
+    for e in (e1, e2):
+        e[pick, axis] = np.copysign(np.float32(0.0), rng.choice([-1.0, 1.0], pick.size))
+    return np.asarray(v0, np.float32), e1, e2

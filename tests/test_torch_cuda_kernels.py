@@ -26,7 +26,12 @@ cylinders) with rays aimed at shared edges and vertices; the flat ones, which
 traverse a bounding volume hierarchy, also with direction components exactly
 +-0 (origins on the planes of box faces) and on exact ties of the hit
 distance inside one 512-triangle chunk and across two (the tie rule must not
-depend on the traversal's order). The slant-depth kernel is held on points
+depend on the traversal's order); the instanced ones, which traverse a
+hierarchy of two levels, also with direction components exactly +-0 near
+and far, on triangles whose normals have components of exactly +-0, on
+instances 2 km from the world origin with rays from near it, and on the
+instanced tie soup (ties inside a chunk, across chunks, and across
+instances, where the walk meets the higher instance first). The slant-depth kernel is held on points
 spread through the shells (steep, grazing and blocked rays), and it and the
 shell-event kernel (whose flight is then given no length, so that its event
 point is the point itself) on the stresses of
@@ -57,7 +62,14 @@ from eradiate_tpu_torch.kernels import tri_intersect as ti
 from eradiate_tpu_torch.ops.mesh import mesh_from_vertices
 from eradiate_tpu_torch.ops.spherical import TAU_BLOCKED, fma
 from eradiate_tpu_torch.test_tools import disks, shells
-from eradiate_tpu_torch.test_tools.meshes import axis_rays, edge_rays, tie_soup, wood_skeleton
+from eradiate_tpu_torch.test_tools.meshes import (
+    axis_rays,
+    edge_rays,
+    instanced_tie_soup,
+    tie_soup,
+    wood_skeleton,
+    zero_normal_tris,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -222,6 +234,42 @@ def test_flat_tri_kernel_stress(card, name, case):
     args = [torch.tensor(np.ascontiguousarray(a), device=card) for a in (*rays, *tris)]
     got = _held(ti, name, args)
     assert got[-1].any()
+
+
+@pytest.mark.parametrize("name", ["ray_tris_nearest_instanced", "ray_tris_occluded_instanced"])
+@pytest.mark.parametrize("case", ["ties", "zero components near", "zero components far",
+                                  "zero normals", "far offsets"])
+def test_instanced_tri_kernel_stress(card, name, case):
+    """The two-level traversal on the instanced tie soup (ties inside a
+    chunk, across chunks, across instances, three instances at each offset,
+    the lowest winning after the walk has met a higher one), direction
+    components exactly +-0 near and far, normals with components of exactly
+    +-0 (the winner's -0.0 comes out +0.0), and instances 2 km from the
+    world origin with rays from near it."""
+    rng = np.random.default_rng(9)
+    offsets = np.array([[0.0, 0, 0], [0.02, 0, 0], [0, 0.03, 0]])
+    if case == "ties":
+        tris, offsets, rays = instanced_tie_soup(rng, 30_011)
+    else:
+        v, f = wood_skeleton(np.random.default_rng(7), n_branches=60)
+        soup = mesh_from_vertices((v * 1e-3).astype(np.float32), f)
+        tris = (soup.v0, soup.e1, soup.e2)
+        if case == "zero normals":
+            tris = zero_normal_tris(rng, *tris, share=1.0)
+            rays = edge_rays(rng, 100_037, type(soup)(*tris), offsets)
+        elif case == "far offsets":
+            offsets = np.array([[2.0, 0, 0], [0, -2.0, 0], [1.4, 1.4, 0.3]])
+            rays = edge_rays(rng, 100_037, soup, offsets,
+                             origins=rng.uniform(-0.01, 0.01, (100_037, 3)))
+        else:
+            rays = axis_rays(rng, 100_037, soup, 1e-3 if case.endswith("far") else 1e-5,
+                             offsets)
+    args = [torch.tensor(np.ascontiguousarray(a, np.float32), device=card)
+            for a in (*rays, *tris, offsets)]
+    got = _held(ti, name, args)
+    assert got[-1].any()
+    if case == "zero normals" and len(got) == 3:
+        assert not torch.signbit(got[1][got[1] == 0]).any()
 
 
 @pytest.mark.parametrize("B", [1, 100_037])

@@ -20,10 +20,10 @@ tolerances:
   ``tests/unit/test_instanced_canopy.py`` (the TPU kernel translates the
   triangles, the XLA form and the port the ray: under 2% of the lanes flip,
   ``t`` within 1e-4 relative where both hit);
-- ``mesh_from_vertices``, ``cylinder_mesh``, ``cone_mesh``, ``tri_accel``'s
-  box and ``tri_block_spheres``: bitwise (the spheres within 1e-6 relative).
-  ``tri_accel`` builds no cull operand on the CPU; the flat kernels' hierarchy
-  is tested in ``tests/test_torch_tri_bvh.py``.
+- ``mesh_from_vertices``, ``cylinder_mesh``, ``cone_mesh`` and
+  ``tri_accel``'s box: bitwise. ``tri_accel`` builds no cull operand on the
+  CPU; the kernels' hierarchies are tested in ``tests/test_torch_tri_bvh.py``
+  (flat) and ``tests/test_torch_tri_instanced_bvh.py`` (two levels).
 
 The CUDA kernels run only on the card, where ``chip_smoke.py`` and
 ``tests/test_torch_cuda_kernels.py`` hold them against these plain versions.
@@ -160,7 +160,7 @@ def test_dispatchers_match_jitted_reference(jitted, far, instanced):
     t_max = (t_max + back).astype(np.float32)
     rt, pt = ref_tris(instanced=instanced), port_tris(instanced=instanced)
     accel, ref_accel = mesh.tri_accel(pt), ref.tri_accel(jnp.asarray(p), rt)
-    assert accel[0] is None and ref_accel[0] is None  # no cull spheres on the CPU
+    assert accel[0] is None and ref_accel[0] is None  # no cull operand on the CPU
     for g, w in zip(accel[1:], ref_accel[1:]):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
     held(mesh.tri_nearest(*_t(p, d, t_max), pt, accel),
@@ -271,37 +271,23 @@ def test_instanced_plain_sweeps_match_pallas_interpret():
     assert (occ != occ_pl).mean() < 0.02
 
 
-@pytest.mark.parametrize("block_n", [64, 256, 1024])
-def test_block_spheres(block_n):
-    soup = skeleton()
-    c, r2 = ti.tri_block_spheres(*_t(soup.v0, soup.e1, soup.e2), block_n)
-    c_ref, r2_ref = ref_pallas.tri_block_spheres(
-        *(jnp.asarray(x) for x in (soup.v0, soup.e1, soup.e2)), block_n
-    )
-    np.testing.assert_allclose(c.numpy(), np.asarray(c_ref), rtol=1e-6, atol=1e-9)
-    np.testing.assert_allclose(r2.numpy(), np.asarray(r2_ref), rtol=1e-5)
-    # every vertex of a block lies in its sphere, up to rounding
-    verts = np.stack([soup.v0, soup.v0 + soup.e1, soup.v0 + soup.e2], 1).astype(np.float64)
-    for m in range(c.shape[0]):
-        block = verts[m * block_n : (m + 1) * block_n].reshape(-1, 3)
-        dist2 = ((block - c[m].numpy()) ** 2).sum(-1)
-        assert dist2.max() <= r2[m].item() * (1 + 1e-5)
-
-
 def test_sweep_spheres_operand():
-    """The cull operands: group spheres for the instanced kernels, the
-    hierarchy for the flat ones (``tests/test_torch_tri_bvh.py`` checks its
-    contents)."""
+    """The cull operands: the two-level hierarchy for the instanced kernels,
+    the hierarchy for the flat ones (``tests/test_torch_tri_instanced_bvh.py``
+    and ``tests/test_torch_tri_bvh.py`` check their contents): contiguous,
+    16-byte aligned float4 rows, the canonical level the flat one's."""
     soup = skeleton()
-    spheres = ti.tri_sweep_spheres(*_t(soup.v0, soup.e1, soup.e2))
-    assert spheres.shape == (1 + -(-516 // ti.GROUP), 4) and spheres.is_contiguous()
-    verts = np.concatenate([soup.v0, soup.v0 + soup.e1, soup.v0 + soup.e2]).astype(np.float64)
-    whole = spheres[0].numpy()
-    assert (((verts - whole[:3]) ** 2).sum(-1) <= whole[3] * (1 + 1e-5)).all()
-    bvh = ti.tri_bvh(*_t(soup.v0, soup.e1, soup.e2))
+    tris = _t(soup.v0, soup.e1, soup.e2)
+    ibvh = ti.tri_instanced_bvh(*tris, _t(OFFSETS)[0])
+    assert ibvh.top.shape[1] == 16 and ibvh.instances.shape == (3, 4)
+    assert 1 <= ibvh.top_depth <= ti.TOP_STACK
+    bvh = ti.tri_bvh(*tris)
     assert bvh.tris.shape == (516, 12) and bvh.nodes.shape[1] == 16
-    assert bvh.nodes.is_contiguous() and bvh.tris.is_contiguous()
-    assert bvh.nodes.data_ptr() % 16 == 0 and bvh.tris.data_ptr() % 16 == 0
+    for t in (bvh.nodes, bvh.tris, ibvh.top, ibvh.instances, ibvh.canonical.nodes,
+              ibvh.canonical.tris):
+        assert t.is_contiguous() and t.data_ptr() % 16 == 0
+    for x, y in ((ibvh.canonical.nodes, bvh.nodes), (ibvh.canonical.tris, bvh.tris)):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 def test_wrappers_run_the_plain_versions_on_cpu():
@@ -322,18 +308,18 @@ def test_wrappers_run_the_plain_versions_on_cpu():
 
 
 def _named(n_rays=16, n_tris=70, instances=None):
-    """Operands of an instanced launch (``instances``) or of a flat one, with
-    the hierarchy's arrays as ``nodes`` and ``tris``."""
+    """Operands of an instanced launch (``instances``: with the two-level
+    hierarchy's ``top`` and ``instances``) or of a flat one, with the
+    (canonical) hierarchy's arrays as ``nodes`` and ``tris``."""
     named = {
         "p": torch.zeros(n_rays, 3), "d": torch.zeros(n_rays, 3), "t_max": torch.zeros(n_rays),
         "v0": torch.zeros(n_tris, 3), "e1": torch.zeros(n_tris, 3), "e2": torch.zeros(n_tris, 3),
+        "nodes": torch.zeros(max(n_tris // 2, 1), 16), "tris": torch.zeros(n_tris, 12),
     }
     if instances:
-        named["spheres"] = torch.zeros(1 + -(-n_tris // ti.GROUP), 4)
         named["offsets"] = torch.zeros(instances, 3)
-    else:
-        named["nodes"] = torch.zeros(max(n_tris // 2, 1), 16)
-        named["tris"] = torch.zeros(n_tris, 12)
+        named["top"] = torch.zeros(2, 16)
+        named["instances"] = torch.zeros(instances, 4)
     return named
 
 
@@ -349,14 +335,15 @@ def _named(n_rays=16, n_tris=70, instances=None):
 def test_wrapper_rejects_bad_inputs(kind, exc):
     """The instanced kernels' checks, and (``bvh-``) the flat kernels' checks
     of the hierarchy: its arrays' shape, dtype, device and contiguity, and a
-    tree deeper than the kernels' stack."""
+    tree deeper than the kernels' stack. ``spheres-shape``: a group-sphere
+    table's [M, 4] where the instanced kernels' top level goes."""
     flat = kind.startswith("bvh-")
-    depth = 5 if flat else None
+    depth = 5
 
     def check(named):
         name = "ray_tris_nearest" if flat else "ray_tris_nearest_instanced"
         return ti._check(name, named, named["p"].shape[0], named["v0"].shape[0],
-                         named.get("offsets"), depth=depth)
+                         named.get("offsets"), depth=depth, top_depth=None if flat else 2)
 
     check(_named(instances=None if flat else 3))  # the unmodified inputs pass
     named = _named(instances=None if flat else 3)
@@ -369,7 +356,7 @@ def test_wrapper_rejects_bad_inputs(kind, exc):
     elif kind == "tris-shape":
         named["e2"] = torch.zeros(69, 3)
     elif kind == "spheres-shape":
-        named["spheres"] = torch.zeros(2, 4)
+        named["top"] = torch.zeros(1 + -(-70 // 64), 4)
     elif kind == "offsets-shape":
         named["offsets"] = torch.zeros(3, 2)
     elif kind == "no-triangle":
@@ -393,13 +380,16 @@ def test_wrapper_rejects_bad_inputs(kind, exc):
 
 
 def test_flat_wrappers_take_only_the_hierarchy():
-    """A flat launch with another cull operand (the spheres) raises before
-    it reaches the card."""
+    """A flat launch with another cull operand (a group-sphere table, or the
+    instanced kernels' two-level hierarchy) raises before it reaches the
+    card."""
     soup = skeleton()
     tris = _t(soup.v0, soup.e1, soup.e2)
-    spheres = ti.tri_sweep_spheres(*tris)
-    with pytest.raises(TypeError):
-        ti._launch_flat("ray_tris_nearest", True, *_t(*problem(False, False)), *tris, spheres)
+    spheres = torch.zeros(1 + -(-516 // 64), 4)
+    for cull in (spheres, ti.tri_instanced_bvh(*tris, _t(OFFSETS)[0])):
+        for name, nearest in (("ray_tris_nearest", True), ("ray_tris_occluded", False)):
+            with pytest.raises(TypeError):
+                ti._launch_flat(name, nearest, *_t(*problem(False, False)), *tris, cull)
 
 
 def test_wrappers_reject_other_devices():

@@ -111,7 +111,7 @@ def profile(form, scene):
         # the leaf kernels are leaf_bvh_{nearest,occluded}_kernel (flat) and
         # leaf_ibvh_{nearest,occluded}_kernel (instanced); the triangle
         # kernels are bvh_{nearest,occluded}_kernel (flat) and
-        # tri_{nearest,occluded}_kernel (instanced)
+        # tri_ibvh_{nearest,occluded}_kernel (instanced)
         ms = sum(t for name, t in sweeps.items() if ("leaf_" in name) == (what == "leaf")) / 1e3
         print(f"  {what} sweeps: {ms:.2f} ms, {ms / total_ms:.3f} of device time", flush=True)
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
