@@ -29,15 +29,24 @@ script writes as an OBJ file into a temporary directory from a seed
 2. the build of the port's CUDA kernels from ``eradiate_tpu_torch/csrc``;
 3. the collision-fetch kernel against its plain PyTorch twin on the card, at
    the main path's shapes (the merged c1 column and its lane count), on the
-   unmerged 1200-layer column, on a table with flat runs, and at a ragged
-   lane count: layer and fetched values bitwise, z bitwise or within 1 ulp;
-   kernel and twin timed with CUDA events (median of several launches);
+   unmerged 1200-layer column, on a table with flat runs, at lane counts of
+   every remainder modulo 4, on queries from a misaligned ``q[1:]`` view,
+   and on random columns at L = 1, L = 12287 (the search tree alone staged)
+   and K = 16; the queries of ``test_tools.collision_fetch.stress_queries``
+   (NaN, +-inf, -0.0, every level and one ulp either side): z, layer and
+   fetched values bit pattern for bit pattern on every lane, fatal on any
+   lane that differs; at L = 46 and L = 1200 the wrapper's call time (CUDA
+   events around it), the kernel's device time (``torch.profiler``'s
+   records of it), once more with the L2 cache flushed before each launch
+   (128 MB written), and the twin's time, medians of 25;
 4. the port on CUDA against the port on the CPU, c1 at 11 view zeniths and
    256 spp at one seed: BRF within 1e-4 relative (CUDA's expf/log1pf differ
    from the CPU's in the last ulp, which can flip a rare branch), and every
    pixel within |z| <= 5 of the variances;
 5. c1 at full width: one warm-up run, then a timed run; the kernel's launch
-   count over the timed run must equal its bounce iterations;
+   count over the timed run must equal its bounce iterations; then one more
+   run with the profiler on for 40 of its collision fetches, for the
+   kernel's device time a launch inside the run;
 6. the shell, triangle and leaf launchers in the library, their ptxas
    reports, the blocks of the shell kernels that fit on an SM at 232
    and 1200 shells, and the shell wrappers' checkpoint stride and
@@ -168,9 +177,15 @@ script writes as an OBJ file into a temporary directory from a seed
     both printed beside phase 13's.
 
 It prints a ``{"kernels": [...]}`` line (each kernel with its launches on its
-main path, its error against the plain version, its time, the plain
-version's, the lane counts of both, its bound on this card and what bounds
-it; a sweep's bound counts the exact tests at item granularity, and the
+main path, its error against the plain version, its call time (``ms``) and
+device time (``device_ms``, without the wrapper's host time: the
+durations of its CUDA kernel in ``torch.profiler``'s records, or CUDA
+events around calls enqueued while the card spins where the profiler kept
+too few, as ``device_by`` says), the plain version's, the lane counts of
+both, its bound on this card and what bounds it; the collision fetch also
+its device time with the L2 flushed and a launch inside the c1 run,
+``flushed_device_ms`` and ``run_device_ms``; a sweep's bound counts the
+exact tests at item granularity, and the
 slant depth's the distinct segments of each path, so that each is the same
 whatever cull or order implements it, the flight's the levels each lane
 has to read; the shell kernels also with their device time a launch inside
@@ -185,6 +200,7 @@ exits non-zero and prints no result. It imports neither ``jax`` nor
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -210,6 +226,29 @@ PLAIN_LANES = 2**18
 #: bandwidth and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+#: Each wrapper's CUDA kernel, by which its device time is read.
+KERNELS = {
+    "collision_fetch": "collision_fetch_kernel",
+    "shell_flight": "shell_flight_kernel",
+    "shell_event": "shell_event_kernel",
+    "slant_tau": "slant_tau_kernel",
+    "ray_leaves_nearest": "leaf_bvh_nearest_kernel",
+    "ray_leaves_occluded": "leaf_bvh_occluded_kernel",
+    "ray_leaves_nearest_instanced": "leaf_ibvh_nearest_kernel",
+    "ray_leaves_occluded_instanced": "leaf_ibvh_occluded_kernel",
+    "ray_tris_nearest": "bvh_nearest_kernel",
+    "ray_tris_occluded": "bvh_occluded_kernel",
+    "ray_tris_nearest_instanced": "tri_ibvh_nearest_kernel",
+    "ray_tris_occluded_instanced": "tri_ibvh_occluded_kernel",
+}
+#: Cycles of the spin kernel the card runs while the host enqueues the
+#: calls that ``_device_ms`` times (about 10 ms on an H100).
+SPIN_CYCLES = 20_000_000
+#: The fewest launches inside the c1 run whose device time is averaged.
+RUN_WINDOW_MIN = 32
+#: Bytes written before each launch where a kernel is timed with the L2
+#: cache flushed (the H100's L2 holds 50 MB).
+FLUSH_BYTES = 128 * 2**20
 
 
 def bound_ms(n_bytes, flops):
@@ -281,38 +320,6 @@ def _c4(sza=75.0, shell_merge_tol=1e-3, sun_tau_table="auto"):
     )
 
 
-def _fetch_inputs(exp, device="cuda"):
-    """The collision-fetch operands of the tracer's first spectral row."""
-    import torch
-
-    from eradiate_tpu_torch.ops.phase_ops import layer_param_slots
-
-    m = exp.measures[0]
-    scene, _, config = exp.compile_scene(m, exp.spectral_context(m))
-    med = scene.medium
-    params = tuple({k: v[0] for k, v in p.items()} for p in med.phase_params)
-    extra, _ = layer_param_slots(config.phase_kinds, params)
-    tables = np.stack([med.albedo[0], *med.phase_weights[0], *extra])
-    return [
-        torch.tensor(a, device=device)
-        for a in (med.z_levels, med.tau_levels[0], np.ascontiguousarray(tables))
-    ]
-
-
-def _queries(tau, n, seed):
-    """n sampled optical depths: uniform in [0, tau_top] with the edges
-    (0, tau_top, every level, one ulp either side) written over the head."""
-    tau = tau.cpu().numpy()
-    q = np.random.default_rng(seed).uniform(0.0, tau[-1], n).astype(np.float32)
-    edges = np.concatenate(
-        [[0.0, tau[-1]], tau, np.nextafter(tau, np.float32(np.inf)),
-         np.nextafter(tau[1:], np.float32(0.0))]
-    ).astype(np.float32)
-    k = min(n, edges.size)
-    q[:k] = edges[:k]
-    return q
-
-
 def _ulps(a, b):
     ia = a.view(np.int32).astype(np.int64)
     ib = b.view(np.int32).astype(np.int64)
@@ -329,6 +336,9 @@ def _bits(t):
 
 
 def _time_ms(fn, reps=25):
+    """Call time: the median over ``reps`` calls of ``fn`` of the CUDA events
+    recorded before and after it. The stream is idle when the start event is
+    recorded, so a wrapper's host time before its launch counts."""
     import torch
 
     fn()
@@ -345,42 +355,115 @@ def _time_ms(fn, reps=25):
     return statistics.median(times)
 
 
-def check_collision_fetch(name, z_levels, tau_levels, tables, B, seed, timed=False):
-    """Kernel vs twin on the card; returns (max |dz|, kernel ms, twin ms,
-    (bound ms, bound by)). The bound: the queries read once, the tables read
-    once, z, layer and the fetched rows written once; a binary search of the
-    levels and one interpolation per lane."""
+def _kernel_records(prof, kernel):
+    """The device times (ms) of the profiler's records of the CUDA kernel
+    named ``kernel`` (the function's own name, so that ``bvh_nearest_kernel``
+    is not taken for ``leaf_bvh_nearest_kernel``; demangled or not)."""
+    from torch.autograd import DeviceType
+
+    name = re.compile(rf"(?<![A-Za-z_]){kernel}(?![a-z_])")
+    return [e.device_time / 1e3 for e in prof.events()
+            if e.device_type == DeviceType.CUDA and name.search(e.name)]
+
+
+def _device_ms(fn, kernel, reps=25, flush=False):
+    """Device time of ``fn``'s kernel ``kernel``, without the host time
+    around its launch; returns (ms, by). The ``reps`` calls are enqueued
+    while the card runs a spin kernel, each between two CUDA events (with
+    ``flush``, after writing ``FLUSH_BYTES``, so that the kernel finds the
+    L2 cache cold), so that no call waits for the host; ``torch.profiler``
+    records the kernel's own durations on the same calls. ``by`` is
+    "profiler": the median of those records, where the profiler kept at
+    least half of them (it drops records now and then, at times most of a
+    sweep's), else "events": the median of the calls' event times (the
+    kernels a call launches, back to back)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    scratch = torch.empty(FLUSH_BYTES // 4, device="cuda") if flush else None
+    torch.cuda.synchronize()
+    spin = SPIN_CYCLES
+    while True:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(spin)
+            spun = torch.cuda.Event()
+            spun.record()
+            pairs = []
+            for _ in range(reps):
+                if scratch is not None:
+                    scratch.fill_(1.0)
+                pairs.append([torch.cuda.Event(enable_timing=True) for _ in range(2)])
+                pairs[-1][0].record()
+                fn()
+                pairs[-1][1].record()
+            caught_up = spun.query()  # the card finished the spin before the last call
+            torch.cuda.synchronize()
+        if not caught_up:
+            break
+        if spin >= 64 * SPIN_CYCLES:
+            raise AssertionError(f"the host could not enqueue {reps} calls of {kernel} "
+                                 "within the spin")
+        spin *= 4
+    records = _kernel_records(prof, kernel)
+    if len(records) > reps:
+        raise AssertionError(f"the profiler recorded {len(records)} launches of {kernel} in "
+                             f"{reps} calls")
+    if len(records) >= reps // 2:
+        return statistics.median(records), "profiler"
+    return statistics.median(a.elapsed_time(b) for a, b in pairs), "events"
+
+
+def check_collision_fetch(name, column, B, seed, timed=False, offset=0):
+    """The collision-fetch kernel against its twin on the card, on ``column``
+    (``(z_levels, tau_levels, tables)``, numpy) and ``B`` queries of
+    ``test_tools.collision_fetch.stress_queries`` (NaN, +-inf, -0.0, every
+    level and one ulp either side over the head of uniform ones); ``offset``
+    1 takes them as a ``q[1:]`` view, 4 bytes past a 16-byte boundary. z,
+    layer and every fetched row bit pattern for bit pattern on every lane,
+    fatal on any lane that differs. Returns (max |dz| where finite, times,
+    (bound ms, bound by)), the last two where ``timed``: the wrapper's call
+    time, the kernel's device time and its device time with the L2 cache
+    flushed before each launch, and the twin's call time. The bound: the
+    queries and the tables read once, z, layer and the fetched rows written
+    once; T = ceil(log2(L + 2)) comparisons and one interpolation a lane."""
     import torch
 
     from eradiate_tpu_torch.kernels import collision_fetch as cf
+    from eradiate_tpu_torch.test_tools.collision_fetch import search_trips, stress_queries
 
-    q = torch.tensor(_queries(tau_levels, B, seed), device=tau_levels.device)
+    z_levels, tau_levels, tables = (torch.tensor(a, device="cuda") for a in column)
+    q = torch.tensor(stress_queries(column[1], B + offset, seed), device="cuda")[offset:]
     args = (q, z_levels, tau_levels, tables)
     got = cf.collision_fetch(*args)
     want = cf.collision_fetch_plain(*args)
-    if not torch.equal(got[1], want[1]):
-        raise AssertionError(f"{name}: layer indices differ from the twin")
-    if not torch.equal(got[2], want[2]):
-        raise AssertionError(f"{name}: fetched values differ from the twin")
-    za, zb = got[0].cpu().numpy(), want[0].cpu().numpy()
-    ulps = int(_ulps(za, zb).max())
-    if ulps > 1:
-        raise AssertionError(f"{name}: z differs from the twin by {ulps} ulp")
-    err = float(np.max(np.abs(za - zb)))
-    line = (f"  {name}: B={B} L={tables.shape[1]} K={tables.shape[0]} layer and "
-            f"fetched bitwise, z max ulp {ulps}")
-    if ulps:
-        line += " (rounding of the interpolation differs by one ulp)"
-    kernel_ms = plain_ms = bound = None
+    for label, g, w in zip(("z", "layer", "fetched"), got, want):
+        differ = (_bits(g) != _bits(w)).reshape(-1, B).any(dim=0)
+        if differ.any():
+            raise AssertionError(f"{name}: {label} differs from the twin on "
+                                 f"{int(differ.sum())} of {B} lanes")
+    err = float(torch.nan_to_num((got[0] - want[0]).abs(), nan=0.0).max())
+    K, L = tables.shape
+    line = (f"  {name}: B={B} L={L} K={K}{' from a q[1:] view' if offset else ''}: z, layer "
+            f"and fetched bit for bit on every lane, 0 lanes differ"
+            + ("" if offset else f" (the NaN query: layer {int(got[1][0])}, z {float(got[0][0])})"))
+    times = bound = None
     if timed:
-        kernel_ms = _time_ms(lambda: cf.collision_fetch(*args))
-        plain_ms = _time_ms(lambda: cf.collision_fetch_plain(*args))
+        device, by = _device_ms(lambda: cf.collision_fetch(*args), KERNELS["collision_fetch"])
+        flushed, flushed_by = _device_ms(lambda: cf.collision_fetch(*args),
+                                         KERNELS["collision_fetch"], flush=True)
+        times = {"ms": _time_ms(lambda: cf.collision_fetch(*args)), "device_ms": device,
+                 "device_by": by, "flushed_device_ms": flushed,
+                 "plain_ms": _time_ms(lambda: cf.collision_fetch_plain(*args))}
         n_bytes = sum(t.numel() * t.element_size() for t in args + tuple(got))
-        bound = bound_ms(n_bytes, B * (int(np.ceil(np.log2(tables.shape[1] + 1))) + 6))
-        line += (f"; kernel {kernel_ms:.4f} ms, twin {plain_ms:.4f} ms (median), bound "
-                 f"{bound[0]:.4f} ms by {bound[1]}")
+        bound = bound_ms(n_bytes, B * (search_trips(L) + 6))
+        line += (f"; call {times['ms']:.4f} ms (CUDA events around the wrapper), device "
+                 f"{device:.4f} ms (by the {by}), with the L2 flushed between launches (128 MB "
+                 f"written) {flushed:.4f} ms (by the {flushed_by}), twin "
+                 f"{times['plain_ms']:.4f} ms (medians of 25), bound {bound[0]:.4f} ms by "
+                 f"{bound[1]}")
     print(line, flush=True)
-    return err, kernel_ms, plain_ms, bound
+    return err, times, bound
 
 
 def _shell_inputs(exp, B, seed, vacuum=False, device="cuda"):
@@ -526,9 +609,10 @@ def _flight_line(st):
 
 def check_shell_kernels(name, args, timed=False):
     """K2, K3 and K4 against their twins on the card, bitwise; returns
-    ({kernel: max abs error}, {kernel: (kernel ms, twin ms)}, {kernel: (bound
-    ms, bound by)}). K4 (slant_tau) is given the event points of K2's flight,
-    formed as shell_event forms them, so its depths must also equal K3's.
+    ({kernel: max abs error}, {kernel: {"ms": call ms, "device_ms": device
+    ms, "device_by", "plain_ms": twin ms}}, {kernel: (bound ms, bound by)}).
+    K4 (slant_tau) is given the event points of K2's flight, formed as
+    shell_event forms them, so its depths must also equal K3's.
     The bound: the lanes' state and the column read once, the outputs
     written once; per lane ~8 float32 operations (a square root among them)
     for each level its flight has to read, from its tangent level to the
@@ -578,7 +662,9 @@ def check_shell_kernels(name, args, timed=False):
                 raise AssertionError(f"{name}: {kernel} {label} differs from the twin: {detail}")
         errs[kernel] = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
         if timed:
-            times[kernel] = (_time_ms(lambda: fn(*a)), _time_ms(lambda: plain(*a), reps=5))
+            device, by = _device_ms(lambda: fn(*a), KERNELS[kernel])
+            times[kernel] = {"ms": _time_ms(lambda: fn(*a)), "device_ms": device,
+                             "device_by": by, "plain_ms": _time_ms(lambda: plain(*a), reps=5)}
             n_bytes = sum(t.numel() * t.element_size() for t in tuple(a) + tuple(got))
             flops = before = 40.0 * a[0].shape[0]
             if kernel != "slant_tau":
@@ -602,9 +688,11 @@ def check_shell_kernels(name, args, timed=False):
             f"mean {mean_l0:.2f}, warp loop start (least l0 of a warp) mean "
             f"{mean_start:.2f}, crossed segments a lane {mean_segments:.2f}, warps that loop "
             f"{looping:.3f}; " + _flight_line(flight))
-    for kernel, (k_ms, p_ms) in times.items():
-        line += (f"; {kernel} kernel {k_ms:.4f} ms, twin {p_ms:.4f} ms, bound "
-                 f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
+    for kernel, t in times.items():
+        line += (f"; {kernel} kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} by the "
+                 f"{t['device_by']}), twin "
+                 f"{t['plain_ms']:.4f} ms, bound {bounds[kernel][0]:.4f} ms by "
+                 f"{bounds[kernel][1]}")
         if kernel != "slant_tau":
             line += f" ({bounds_before[kernel]:.4f} ms under the two sweeps' count)"
     print(line, flush=True)
@@ -720,6 +808,50 @@ def launch_ms_in_run(run, names, starts=True):
     out = {n: (len(ev), statistics.fmean(a.elapsed_time(b) for a, b in ev))
            for n, ev in events.items() if ev}
     return out, torch.stack(sums).sum(0) if sums else None, tuple(captured) or None
+
+
+def fetch_device_ms_in_run(run, skip=100, window=48):
+    """Call ``run()`` with the plane-parallel tracer's collision fetch
+    profiled over a window of ``window`` launches after the first ``skip``
+    (``torch.profiler`` started before the window's first launch and stopped,
+    after a synchronise, after its last); returns (launches in the window,
+    mean device time a launch in ms) from the records of the kernel (the
+    profiler drops a record now and then; fails where it kept fewer than
+    ``RUN_WINDOW_MIN``). The
+    kernel's durations do not count the host time around each launch, which
+    the loop spends while the stream is idle."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from eradiate_tpu_torch.ops import tracer
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    saved = tracer.collision_fetch
+    calls = [0]
+
+    def call(*args):
+        if calls[0] == skip:
+            prof.start()
+        out = saved(*args)
+        calls[0] += 1
+        if calls[0] == skip + window:
+            torch.cuda.synchronize()
+            prof.stop()
+        return out
+
+    tracer.collision_fetch = call
+    try:
+        run()
+    finally:
+        tracer.collision_fetch = saved
+    if calls[0] < skip + window:
+        raise AssertionError(f"the run made {calls[0]} collision fetches, fewer than "
+                             f"{skip + window}")
+    times = _kernel_records(prof, KERNELS["collision_fetch"])
+    if not RUN_WINDOW_MIN <= len(times) <= window:
+        raise AssertionError(f"the profiler recorded {len(times)} of the window's {window} "
+                             "collision fetches")
+    return len(times), statistics.fmean(times)
 
 
 def _print_in_run(in_run, sums=None, lanes=None):
@@ -1293,9 +1425,10 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
     ``rays``; the plain versions on a
     seeded subset of ``plain_lanes`` of them where there are more (in slices
     that fit the card's memory). Returns ({kernel: max abs error}, {kernel:
-    (kernel ms, plain ms, lanes, plain lanes)}, {kernel: (bound ms, bound
-    by)}, {kernel: what a ray reaches of the hierarchy with the cap at its
-    nearest hit}), the last three filled where ``timed``.
+    {"ms", "device_ms", "device_by", "plain_ms", "lanes", "plain_lanes"}},
+    {kernel: (bound ms, bound by)}, {kernel: what a ray reaches of the
+    hierarchy with the cap at its nearest hit}), the last three filled where
+    ``timed``.
 
     The bound: rays read once (28 bytes a lane), the table read once, the
     outputs written once (17 bytes a lane for nearest, 1 for any hit); the
@@ -1358,14 +1491,18 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
         share = float(got[-1].float().mean())
         notes.append(f"{kernel} {'hit' if len(got) == 3 else 'occluded'} share {share:.3f}")
         if timed:
-            times[kernel] = (_time_ms(lambda: fn(args)), start.elapsed_time(end), B, n_plain)
+            device, by = _device_ms(lambda: fn(args), KERNELS[kernel])
+            times[kernel] = {"ms": _time_ms(lambda: fn(args)), "device_ms": device,
+                             "device_by": by, "plain_ms": start.elapsed_time(end), "lanes": B,
+                             "plain_lanes": n_plain}
             tensors = tuple(rays) + table + (() if offsets is None else (offsets,)) + got
             n_bytes = sum(t.numel() * t.element_size() for t in tensors)
             cap, occ = (got[0], None) if len(got) == 3 else (rays[2], got[0])
             pairs = _item_pairs(geometry, rays, cap, occ, subset)
             bounds[kernel] = bound_ms(n_bytes, item_ops * pairs)
-            notes[-1] += (f", kernel {times[kernel][0]:.4f} ms, plain "
-                          f"{times[kernel][1]:.1f} ms at {n_plain} lanes, {pairs / B:.2f} "
+            notes[-1] += (f", kernel {times[kernel]['ms']:.4f} ms (device "
+                          f"{device:.4f} by the {by}), plain "
+                          f"{times[kernel]['plain_ms']:.1f} ms at {n_plain} lanes, {pairs / B:.2f} "
                           f"exact tests a ray at item granularity, bound "
                           f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
             lanes = subset if subset is not None else torch.arange(B, device=rays[0].device)
@@ -1457,7 +1594,7 @@ def instanced_against_flat(exp, B, seed, mesh_dir, plain_lanes=2**16):
     instanced kernels' bound counts the exact tests at item granularity
     (:func:`_item_pairs` on ``plain_lanes`` seeded lanes, scaled), as
     :func:`check_sweep_kernels` does. Returns the instanced kernels' {kernel:
-    (ms, bound ms, bound by)}."""
+    {"ms", "device_ms", "device_by", "bound_ms", "bound_by"}}."""
     import torch
 
     from eradiate_tpu_torch.kernels.tri_intersect import tri_instanced_bvh
@@ -1501,13 +1638,16 @@ def instanced_against_flat(exp, B, seed, mesh_dir, plain_lanes=2**16):
             raise AssertionError(f"{k_inst} and {k_flat} disagree on {int(differ.sum())} of "
                                  f"{B} lanes")
         ms_i, ms_f = _time_ms(lambda: fn_i(a_i)), _time_ms(lambda: fn_f(a_f))
+        dev_i, by_i = _device_ms(lambda: fn_i(a_i), KERNELS[k_inst])
         tensors = (*rays, canonical.v0, canonical.e1, canonical.e2, offsets, *got_i)
         cap, occ = (got_i[0], None) if len(got_i) == 3 else (rays[2], got_i[0])
         pairs = _item_pairs(inst, rays, cap, occ, subset)
         bound = bound_ms(sum(t.numel() * t.element_size() for t in tensors), 45.0 * pairs)
-        out[k_inst] = (ms_i, *bound)
-        note += (f"; {ms_i:.4f} ms against {ms_f:.4f} ms; {pairs / B:.2f} exact tests a ray "
-                 f"at item granularity, bound {bound[0]:.4f} ms by {bound[1]}")
+        out[k_inst] = {"ms": ms_i, "device_ms": dev_i, "device_by": by_i, "bound_ms": bound[0],
+                       "bound_by": bound[1]}
+        note += (f"; {ms_i:.4f} ms (device {dev_i:.4f} by the {by_i}) against {ms_f:.4f} ms; "
+                 f"{pairs / B:.2f} "
+                 f"exact tests a ray at item granularity, bound {bound[0]:.4f} ms by {bound[1]}")
         if len(got_i) == 3:
             (ih, lh), (im, lm) = _instances_reached(ibvh, rays, (got_i[0], rays[2]), subset)
             note += (f"; a ray reaches {ih:.2f} instance boxes and {lh:.2f} canonical leaves "
@@ -1694,24 +1834,43 @@ def main():
 
     # -- 3. kernel against twin ---------------------------------------------
     print("[3] collision_fetch kernel against its plain twin", flush=True)
-    c1_fetch = _fetch_inputs(_c1(N_VZA))
+    from eradiate_tpu_torch.test_tools import collision_fetch as fetch_tools
+
+    c1_column = fetch_tools.column_operands()
+    column_1200 = fetch_tools.column_operands(None)
     lp = lane_partition(N_VZA, SPP_C1, REGEN_LANES_TARGET["cuda"], "cpu")[0]
     B = N_VZA * lp
-    err, kernel_ms, plain_ms, fetch_bound = check_collision_fetch(
-        "c1 merged column", *c1_fetch, B, seed=0, timed=True
+    err, fetch_times, fetch_bound = check_collision_fetch(
+        "c1 merged column", c1_column, B, seed=0, timed=True
     )
-    check_collision_fetch("c1 merged column, ragged", *c1_fetch, B + 37, seed=1)
-    check_collision_fetch(
-        "unmerged 1200-layer column", *_fetch_inputs(_c1(N_VZA, None)), B, seed=2,
-        timed=True,
-    )
-    flat_tau = np.concatenate([[0.0], np.cumsum([0.1, 0, 0, 0.3, 0.2, 0, 0.5])])
-    flat = [
-        torch.tensor(np.asarray(a, np.float32), device="cuda")
-        for a in (np.arange(8.0), flat_tau,
-                  np.random.default_rng(3).uniform(size=(3, 7)))
+    _, fetch_times_1200, bound_1200 = check_collision_fetch(
+        "unmerged 1200-layer column", column_1200, B, seed=2, timed=True)
+    rng = np.random.default_rng(4)
+    cases = [
+        ("c1 merged column, ragged (B % 4 = 1)", c1_column, B + 37, 0),
+        ("c1 merged column, B % 4 = 2", c1_column, B + 2, 0),
+        ("c1 merged column, B % 4 = 3", c1_column, B + 3, 0),
+        ("c1 merged column, queries from a misaligned view", c1_column, B, 1),
+        ("unmerged 1200-layer column, ragged, misaligned", column_1200, B + 37, 1),
+        ("7-layer table with flat runs", fetch_tools.flat_run_operands(), 1000, 0),
+        ("7-layer table with flat runs, 2^20 + 1 lanes", fetch_tools.flat_run_operands(), 2**20 + 1,
+         0),
     ]
-    check_collision_fetch("7-layer table with flat runs", *flat, 1000, seed=3)
+    for L, K in ((1, 3), (1200, 16), (12287, 1), (46, 16)):
+        dtau = rng.uniform(0.0, 1.0, L) * (rng.uniform(size=L) > 0.2)
+        levels = np.concatenate([[0.0], np.cumsum(dtau)])
+        z_levels = np.concatenate([[0.0], np.cumsum(rng.uniform(0.05, 1.0, L))])
+        column = tuple(np.asarray(a, np.float32)
+                       for a in (z_levels, levels, rng.uniform(size=(K, L))))
+        cases.append((f"random column, L = {L}, K = {K}", column, 2**20 + 3, 0))
+    for i, (label, column, lanes, offset) in enumerate(cases):
+        more, *_ = check_collision_fetch(label, column, lanes, seed=1 + i, offset=offset)
+        err = max(err, more)
+    print(f"    device time against call time (ms): L = 46 {fetch_times['device_ms']:.4f} against "
+          f"{fetch_times['ms']:.4f}, L2 flushed {fetch_times['flushed_device_ms']:.4f}; L = 1200 "
+          f"{fetch_times_1200['device_ms']:.4f} against {fetch_times_1200['ms']:.4f}, L2 flushed "
+          f"{fetch_times_1200['flushed_device_ms']:.4f}; bound {fetch_bound[0]:.4f} and "
+          f"{bound_1200[0]:.4f} by {fetch_bound[1]}", flush=True)
 
     # -- 4. port on CUDA against port on CPU ----------------------------------
     out = {}
@@ -1760,6 +1919,11 @@ def main():
         raise AssertionError("c1 BRF is not finite or has the wrong shape")
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
+    in_run, fetch_times["run_device_ms"] = fetch_device_ms_in_run(
+        lambda: etp.run(exp, spp=SPP_C1, seed_state=etp.SeedState(SEED), device="cuda"))
+    print(f"    device time a launch inside the run (profiler records of "
+          f"{KERNELS['collision_fetch']} over {in_run} launches of one more run): "
+          f"{fetch_times['run_device_ms']:.4f} ms", flush=True)
 
     # -- 6. the shell kernels in the library --------------------------------
     for fn in ("shell_flight", "shell_event", "slant_tau", "ray_tris_nearest",
@@ -2001,31 +2165,30 @@ def main():
           f"{np.asarray(ds_wood['brf'])[0, nadir]:.6f}; mean over the views "
           f"{np.asarray(ds_inst['brf']).mean():.6f}, {np.asarray(ds_trees['brf']).mean():.6f}, "
           f"{np.asarray(ds_wood['brf']).mean():.6f}", flush=True)
-    print(f"     instanced triangle kernels on the wood skeleton (ms, bound ms, bound by): "
-          f"{skeleton_ms}", flush=True)
+    print(f"     instanced triangle kernels on the wood skeleton: {skeleton_ms}", flush=True)
     for mod in ("jax", "eradiate_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
 
     def entry(name, source, replaces, n, err, times, bound, in_run=None):
-        """One kernel of the ``kernels`` line; ``times`` is (kernel ms, plain
-        ms) and, for the sweeps, the lane counts the two were taken at;
-        ``in_run`` the shell kernels' (launches, ms a launch) inside a
-        full-width run. A sweep's nearest hit also carries what a ray
-        reaches of its hierarchy (``reach``), and the instanced triangle
-        kernels their time and bound on the wood skeleton (``skeleton``)."""
+        """One kernel of the ``kernels`` line; ``times`` holds its call time
+        (``ms``), its device time (``device_ms``), the plain version's time
+        and, for the sweeps, the lane counts the two were taken at
+        (``lanes``, ``plain_lanes``), for the collision fetch also its device
+        time with the L2 flushed and a launch inside the c1 run; ``in_run``
+        the shell kernels' (launches, ms a launch) inside a full-width run.
+        A sweep's nearest hit also carries what a ray reaches of its
+        hierarchy (``reach``), and the instanced triangle kernels their time
+        and bound on the wood skeleton (``skeleton``)."""
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-               "launches": n, "max_abs_err": err, "ms": times[0], "plain_ms": times[1],
+               "launches": n, "max_abs_err": err, **times,
                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
-        if len(times) == 4:
-            out.update(lanes=times[2], plain_lanes=times[3])
         if in_run is not None:
             out.update(run_ms=in_run[name][1])
         if name in sweep_reach:
             out.update(reach=sweep_reach[name])
         if name in skeleton_ms:
-            ms, b_ms, b_by = skeleton_ms[name]
-            out.update(skeleton={"ms": ms, "bound_ms": b_ms, "bound_by": b_by})
+            out.update(skeleton=skeleton_ms[name])
         return out
 
     shell_src = "eradiate_tpu_torch/csrc/shell_flight.cu"
@@ -2044,8 +2207,7 @@ def main():
     # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [
         entry("collision_fetch", "eradiate_tpu_torch/csrc/collision_fetch.cu",
-              f"{pallas}/collision_fetch.py:59", launches, err,
-              (kernel_ms, plain_ms), fetch_bound),
+              f"{pallas}/collision_fetch.py:59", launches, err, fetch_times, fetch_bound),
         entry("shell_flight", shell_src, f"{pallas}/shell_flight.py:405",
               c4_launches["shell_flight"], shell_errs["shell_flight"],
               shell_times["shell_flight"], shell_bounds["shell_flight"], c4_in_run),

@@ -13,84 +13,187 @@
 //   fetched[k, b] = tables[k, idx]          (k < K)
 //
 // with (t0, t1) and (z0, z1) the levels bracketing layer idx. Ties, tau_q
-// at the top level and runs of equal levels go to the upper bound, as
-// torch.searchsorted(right=True) does.
+// at the top level and runs of equal levels go to the upper bound, and a NaN
+// query past every level (layer L - 1, z NaN), as
+// torch.searchsorted(right=True) and the twin's NaN-propagating clamp do.
 //
-// Design: one thread per lane. Each block stages tau_levels ((L+1) floats,
-// 4.8 KB for a 1200-layer column) in shared memory and binary-searches it;
-// z0, z1 and the K table values are loaded straight from global memory,
-// where the few-KB tables stay hot in L1/L2. The arithmetic is written with
-// round-to-nearest intrinsics so nvcc cannot contract it into an FMA: the
-// kernel then equals its plain PyTorch twin on the card bit for bit.
+// What bounds it on this card: bytes. A lane reads tau_q and writes z, its
+// layer and K fetched values: (K + 3) * 4 bytes, 24 at c1's K = 3, so the
+// path's 2^21 lanes move 50 MB a launch, 0.015 ms at 3.35 TB/s. The tables
+// (L + 1 levels, K rows of L) are a few KB and stay in L1 and L2. The design
+// keeps the memory traffic at those bytes, in 16-byte accesses, and the
+// work of a lane short enough, in registers few enough, that the card keeps
+// its loads in flight:
 //
-// What bounds it on this card: per lane it moves (K + 3) floats of global
-// traffic (tau_q in; z, layer and K fetched values out) plus table reads
-// that hit cache, and does ~log2(L+1) dependent shared-memory probes. At the
-// c1 lane counts (1e4 to 1e6 lanes, K = 3) that is a few MB per launch, so
-// the kernel is latency-bound (launch and the dependent search), far from
-// the 3.35 TB/s memory roof; it is one launch per bounce in an eager loop.
+// * Four lanes a thread, in blocks of 256: tau_q is read as one 16-byte
+//   value (before the block stages its tree, so that the two overlap), and
+//   z, the layers and each fetched row are written as 16-byte values.
+// * A branch-free search of a fixed trip count T = ceil(log2(L + 2)), the
+//   four lanes' searches interleaved, down the levels staged in shared
+//   memory as an implicit binary tree in breadth-first order (node i at
+//   depth d holds sorted level (2 (i - 2^d) + 1) 2^(T-1-d) - 1, +inf past
+//   the last): the nodes a trip can reach are contiguous, so a warp's first
+//   six trips read distinct banks, where a sorted array's power-of-two
+//   strides put them in one bank.
+// * The bracketing levels and the table rows are read through the
+//   read-only cache; the record (t0, w, z0, dz) is rounded with the twin's
+//   own operations.
+// * A lane at a time where four lanes cannot be read or written as one
+//   value: a tau_q that is not 16-byte aligned (a q[1:] view), and the
+//   ragged tail; where B % 4 != 0 the rows of `fetched` (row k starts at
+//   k * B) are written a value at a time.
+//
+// Measured against a persistent grid of resident blocks (with and without
+// the records and rows staged in shared memory, and with the queries
+// brought in by cp.async), this shape was the fastest: the per-lane work
+// overlaps the memory traffic only with enough warps resident, so the
+// launch bounds hold the kernel to 48 registers, five blocks an SM
+// (PERF.md §6).
+//
+// The arithmetic is written with round-to-nearest intrinsics so that nvcc
+// cannot contract it into an FMA: the kernel equals its plain PyTorch twin on
+// the card bit for bit.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
+// Blocks an SM must hold: caps the registers at 48 a thread.
+constexpr int kMinBlocks = 5;
 
-__global__ void collision_fetch_kernel(const float* __restrict__ tau_q,
-                                       const float* __restrict__ z_levels,
-                                       const float* __restrict__ tau_levels,
-                                       const float* __restrict__ tables,
-                                       float* __restrict__ z_out,
-                                       int* __restrict__ layer_out,
-                                       float* __restrict__ fetched_out,
-                                       int B, int L, int K) {
-  extern __shared__ float s_tau[];  // L + 1 levels
-  for (int i = threadIdx.x; i <= L; i += blockDim.x) s_tau[i] = tau_levels[i];
-  __syncthreads();
+// Trips of the search at L layers: the least T with 2^T >= L + 2 outcomes.
+int search_trips(int L) {
+  int T = 0;
+  while ((1 << T) < L + 2) ++T;
+  return T;
+}
 
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;  // ragged last block
+struct Column {
+  const float* z_levels;    // [L + 1]
+  const float* tau_levels;  // [L + 1], ascending
+  const float* tables;      // [K, L]
+  int L, K, T;
+};
 
-  const float q = tau_q[b];
-  int lo = 0, hi = L + 1;  // upper bound: first level > q
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (s_tau[mid] <= q) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
+// z at query q inside layer i, rounded as the twin rounds it; the clamp
+// keeps a NaN.
+__device__ __forceinline__ float interpolate(const Column& c, float q, int i) {
+  const float t0 = __ldg(c.tau_levels + i);
+  const float t1 = __ldg(c.tau_levels + i + 1);
+  const float z0 = __ldg(c.z_levels + i);
+  const float z1 = __ldg(c.z_levels + i + 1);
+  float frac = __fdiv_rn(__fsub_rn(q, t0), fmaxf(__fsub_rn(t1, t0), 1e-30f));
+  if (frac == frac) frac = fminf(fmaxf(frac, 0.0f), 1.0f);  // a NaN is kept
+  return __fadd_rn(z0, __fmul_rn(frac, __fsub_rn(z1, z0)));
+}
+
+// N interleaved searches down the tree: each trip goes right where
+// !(q < node), so the leaf reached less 2^T counts the levels at or below q
+// (a NaN goes right everywhere); the layer is that count less one, clamped.
+template <int N>
+__device__ __forceinline__ void search(const float* tree, const Column& c, const float (&q)[N],
+                                       int (&layer)[N]) {
+  unsigned node[N];
+#pragma unroll
+  for (int j = 0; j < N; ++j) node[j] = 1;
+  for (int t = 0; t < c.T; ++t) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) node[j] = 2 * node[j] + !(q[j] < tree[node[j]]);
   }
-  const int idx = min(max(lo - 1, 0), L - 1);
-
-  const float t0 = s_tau[idx];
-  const float t1 = s_tau[idx + 1];
-  const float z0 = z_levels[idx];
-  const float z1 = z_levels[idx + 1];
-  const float width = fmaxf(__fsub_rn(t1, t0), 1e-30f);
-  const float frac =
-      fminf(fmaxf(__fdiv_rn(__fsub_rn(q, t0), width), 0.0f), 1.0f);
-  z_out[b] = __fadd_rn(z0, __fmul_rn(frac, __fsub_rn(z1, z0)));
-  layer_out[b] = idx;
-  for (int k = 0; k < K; ++k) {
-    fetched_out[static_cast<size_t>(k) * B + b] =
-        tables[static_cast<size_t>(k) * L + idx];
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    layer[j] = min(max(static_cast<int>(node[j]) - (1 << c.T) - 1, 0), c.L - 1);
   }
 }
 
+// Thread t takes quad t of the lanes where `vec` (queries 16-byte aligned),
+// and lane 4 * quads + t a lane at a time: the ragged tail, or every lane.
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+collision_fetch_kernel(const float* __restrict__ tau_q, Column c, float* __restrict__ z_out,
+                       int* __restrict__ layer_out, float* __restrict__ fetched_out, int B,
+                       bool vec) {
+  extern __shared__ float tree[];  // 2^T, node 0 unused
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long quads = vec ? B / 4 : 0;
+  float4 qv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (t < quads) qv = __ldg(reinterpret_cast<const float4*>(tau_q) + t);
+
+  for (int i = threadIdx.x; i < (1 << c.T); i += blockDim.x) {
+    float v = __int_as_float(0x7f800000);  // +inf
+    if (i > 0) {
+      const int d = 31 - __clz(i);
+      const int s = ((2 * (i - (1 << d)) + 1) << (c.T - 1 - d)) - 1;
+      if (s <= c.L) v = __ldg(c.tau_levels + s);
+    }
+    tree[i] = v;
+  }
+  __syncthreads();
+
+  if (t < quads) {
+    const float q[4] = {qv.x, qv.y, qv.z, qv.w};
+    int layer[4];
+    search<4>(tree, c, q, layer);
+    float z[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) z[j] = interpolate(c, q[j], layer[j]);
+    reinterpret_cast<float4*>(z_out)[t] = make_float4(z[0], z[1], z[2], z[3]);
+    reinterpret_cast<int4*>(layer_out)[t] = make_int4(layer[0], layer[1], layer[2], layer[3]);
+    for (int k = 0; k < c.K; ++k) {
+      const float* table = c.tables + static_cast<size_t>(k) * c.L;
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = __ldg(table + layer[j]);
+      float* row = fetched_out + static_cast<size_t>(k) * B + 4 * t;
+      if (B % 4 == 0) {
+        *reinterpret_cast<float4*>(row) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) row[j] = v[j];
+      }
+    }
+  }
+  const long long b = 4 * quads + t;
+  if (b < B) {
+    const float q[1] = {__ldg(tau_q + b)};
+    int layer[1];
+    search<1>(tree, c, q, layer);
+    z_out[b] = interpolate(c, q[0], layer[0]);
+    layer_out[b] = layer[0];
+    for (int k = 0; k < c.K; ++k) {
+      fetched_out[static_cast<size_t>(k) * B + b] =
+          __ldg(c.tables + static_cast<size_t>(k) * c.L + layer[0]);
+    }
+  }
+}
+
+bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
+// Launch on `stream`; returns the CUDA error (0 = launched).
 extern "C" int collision_fetch_launch(const float* tau_q, const float* z_levels,
-                                      const float* tau_levels,
-                                      const float* tables, float* z_out,
-                                      int* layer_out, float* fetched_out, int B,
-                                      int L, int K, void* stream) {
-  const int blocks = (B + kThreads - 1) / kThreads;
-  const size_t smem = static_cast<size_t>(L + 1) * sizeof(float);
-  collision_fetch_kernel<<<blocks, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      tau_q, z_levels, tau_levels, tables, z_out, layer_out, fetched_out, B, L,
-      K);
+                                      const float* tau_levels, const float* tables, float* z_out,
+                                      int* layer_out, float* fetched_out, int B, int L, int K,
+                                      void* stream) {
+  const Column c{z_levels, tau_levels, tables, L, K, search_trips(L)};
+  const size_t bytes = sizeof(float) << c.T;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        collision_fetch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) {
+      cudaGetLastError();  // clear it: the next launch reports its own error
+      return static_cast<int>(err);
+    }
+  }
+  const bool vec = aligned(tau_q) && aligned(z_out) && aligned(layer_out) && aligned(fetched_out);
+  const long long quads = vec ? B / 4 : 0;
+  const long long threads = quads > B - 4 * quads ? quads : B - 4 * quads;
+  const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
+  collision_fetch_kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      tau_q, c, z_out, layer_out, fetched_out, B, vec);
   return static_cast<int>(cudaGetLastError());
 }

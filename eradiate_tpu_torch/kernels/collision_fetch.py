@@ -5,6 +5,9 @@ at each lane's sampled tau and fetches that layer's per-layer table values
 (albedo, phase weights, Rayleigh depolarisation for c1). For CUDA tensors it
 launches ``csrc/collision_fetch.cu``; for CPU tensors it runs
 :func:`collision_fetch_plain`. It never falls back from one to the other.
+The kernel's search (a branch-free walk down the levels staged as a tree,
+a fixed number of trips) is emulated in numpy by
+:mod:`eradiate_tpu_torch.test_tools.collision_fetch`.
 """
 
 from __future__ import annotations
@@ -13,14 +16,14 @@ import ctypes
 
 import torch
 
-__all__ = ["collision_fetch", "collision_fetch_plain", "launches", "SMEM_BYTES"]
+__all__ = ["collision_fetch", "collision_fetch_plain", "launches", "MAX_LEVELS"]
 
 #: Kernel launches made by :func:`collision_fetch` in this process.
 launches = 0
 
-#: Shared memory the kernel asks for is (L + 1) * 4 bytes of dynamic shared
-#: memory, within the 48 KB a launch gets without opting in.
-SMEM_BYTES = 48 * 1024
+#: The most levels (L + 1) the kernel takes: its search tree, 2^T float32
+#: with T = ceil(log2(L + 2)), then fills 64 KB of shared memory.
+MAX_LEVELS = 12288
 
 _launcher = None
 
@@ -78,10 +81,10 @@ def _check(tau_q, z_levels, tau_levels, tables):
             f"tau_levels and z_levels must be [{L + 1}], got "
             f"{tuple(tau_levels.shape)} and {tuple(z_levels.shape)}"
         )
-    if (L + 1) * 4 > SMEM_BYTES:
+    if L + 1 > MAX_LEVELS:
         raise ValueError(
-            f"{L + 1} levels need {(L + 1) * 4} bytes of shared memory; the "
-            f"kernel asks for at most {SMEM_BYTES}"
+            f"{L + 1} levels: the kernel's search tree holds at most {MAX_LEVELS} in "
+            "shared memory"
         )
     if tau_q.shape[0] >= 2**31:
         raise ValueError("more than 2^31 - 1 lanes")

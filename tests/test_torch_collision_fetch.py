@@ -5,7 +5,10 @@ On the CPU the twin is what runs; it must equal ``medium.collision_fetch``
 is also held against the Pallas kernel in interpret mode, within the bounds
 of that kernel's hi/lo-bf16 fetch (as ``tests/unit/test_pallas_kernels.py``
 holds it). The CUDA kernel itself runs only on the card, where ``chip_smoke.py``
-compares it with the twin bit for bit.
+and ``tests/test_torch_cuda_kernels.py`` compare it with the twin bit for
+bit. Its search, a fixed number of branch-free trips down the levels staged
+as a breadth-first tree, is emulated by ``test_tools.collision_fetch`` and
+held here to ``torch.searchsorted(right=True)``, on NaN and +-inf too.
 """
 
 import jax.numpy as jnp
@@ -17,6 +20,7 @@ from eradiate_tpu.ops.medium import collision_fetch as ref_collision_fetch
 from eradiate_tpu.ops.pallas.collision_fetch import collision_fetch_pallas
 from eradiate_tpu_torch.kernels import collision_fetch as cf
 from eradiate_tpu_torch.ops import medium
+from eradiate_tpu_torch.test_tools import collision_fetch as fetch_tools
 
 torch.set_num_threads(1)
 
@@ -154,7 +158,7 @@ def _bad_args(kind):
     elif kind == "rank":
         args[0] = torch.zeros(4, 4)
     elif kind == "shared-memory":
-        args = _args(L=cf.SMEM_BYTES // 4)
+        args = _args(L=cf.MAX_LEVELS)
     return args
 
 
@@ -178,3 +182,86 @@ def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError):
         cf.collision_fetch(*[a.to("meta") for a in _args()])
 
+
+
+def _random_levels(L, seed):
+    """L + 1 ascending float32 levels with runs of equal ones."""
+    rng = np.random.default_rng(seed)
+    dtau = rng.uniform(0.0, 1.0, L) * (rng.uniform(size=L) > 0.3)
+    return np.concatenate([[0.0], np.cumsum(dtau)]).astype(np.float32)
+
+
+def _searchsorted(levels, q):
+    return torch.searchsorted(torch.as_tensor(levels), torch.as_tensor(q), right=True).numpy()
+
+
+@pytest.mark.parametrize("L", [*range(1, 65), 1200])
+def test_fixed_trip_search_equals_searchsorted(L):
+    """The kernel's search (its trip count, tree layout and comparison)
+    counts what ``searchsorted(right=True)`` counts on every level, one ulp
+    either side, runs of equal levels, -0.0 and -inf; on NaN and +inf it
+    counts past the last level, which the kernel's clamp makes the same."""
+    levels = _random_levels(L, seed=L)
+    q = fetch_tools.stress_queries(levels, 3 * L + 600, seed=L)
+    count = fetch_tools.upper_bound_fixed(levels, q)
+    want = _searchsorted(levels, q)
+    past = np.isnan(q) | (q == np.inf)
+    np.testing.assert_array_equal(count[~past], want[~past])
+    assert (want[past] == L + 1).all() and (count[past] >= L + 1).all()
+    assert np.array_equal(np.clip(count - 1, 0, L - 1), np.clip(want - 1, 0, L - 1))
+
+
+@pytest.mark.parametrize("L", [1, 2, 3, 6, 7, 46, 1200])
+def test_fixed_trip_search_one_trip_too_few_is_caught(L):
+    """With one trip fewer (and the tree it fills) the search cannot tell
+    L + 2 outcomes apart; the queries on every level find it out."""
+    levels = _random_levels(L, seed=L)
+    q = fetch_tools.stress_queries(levels, 3 * L + 600, seed=L)
+    short = fetch_tools.upper_bound_fixed(levels, q, fetch_tools.search_trips(L) - 1)
+    assert not np.array_equal(np.minimum(short, L + 1), _searchsorted(levels, q))
+    if 2 ** (fetch_tools.search_trips(L) - 1) <= L:  # and then a layer (the
+        # counts it loses, 2^(T-1) and above, are not all clamped to L - 1)
+        assert not np.array_equal(np.clip(short - 1, 0, L - 1),
+                                  np.clip(_searchsorted(levels, q) - 1, 0, L - 1))
+
+
+@pytest.mark.parametrize("L", [1, 5, 46, 1200, 12287])
+def test_search_tree_is_the_levels_in_breadth_first_order(L):
+    """An in-order walk of the staged tree gives the levels in order, then
+    the +inf padding; the tree fits the trip count."""
+    levels = _random_levels(L, seed=L)
+    T = fetch_tools.search_trips(L)
+    assert 2 ** (T - 1) < L + 2 <= 2**T
+    tree = fetch_tools.search_tree(levels)
+    assert tree.size == 2**T
+
+    walk, stack, i = [], [], 1
+    while stack or i < 2**T:  # in order, without recursion
+        while i < 2**T:
+            stack.append(i)
+            i = 2 * i
+        i = stack.pop()
+        walk.append(tree[i])
+        i = 2 * i + 1
+    walk = np.asarray(walk, np.float32)
+    np.testing.assert_array_equal(walk[: L + 1], levels)
+    assert walk.size == 2**T - 1 and np.isinf(walk[L + 1 :]).all()
+
+
+def test_twin_matches_medium_collision_fetch_on_special_queries(case):
+    """NaN, +-inf and -0.0: the twin and the JAX package's CPU path put NaN
+    and +inf in the last layer, -inf in the first; z is NaN only for NaN."""
+    levels, tau, tables, _ = case
+    q = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, -1.0, np.float32(3.4e38)], np.float32)
+    z_ref, idx_ref, fetched_ref = ref_collision_fetch(
+        jnp.asarray(q), jnp.asarray(levels), jnp.asarray(tau),
+        [jnp.asarray(t) for t in tables],
+    )
+    z, layer, fetched = _twin(levels, tau, tables, q)
+    L = tables.shape[1]
+    np.testing.assert_array_equal(layer.numpy(), np.asarray(idx_ref))
+    np.testing.assert_array_equal(layer.numpy()[:3], [L - 1, L - 1, 0])
+    np.testing.assert_array_equal(fetched.numpy(), np.stack([np.asarray(f) for f in fetched_ref]))
+    np.testing.assert_array_equal(np.isnan(z.numpy()), np.isnan(q))
+    np.testing.assert_array_equal(np.isnan(np.asarray(z_ref)), np.isnan(q))
+    np.testing.assert_allclose(z.numpy()[1:], np.asarray(z_ref)[1:], rtol=1e-6)

@@ -10,8 +10,13 @@ time). Run them on a machine with a card with
 for the reference's tests, which these tests do not use.)
 
 They are a quick form of what ``chip_smoke.py`` checks at full size: each
-sweep kernel equals its plain version bit pattern for bit pattern (so that a
--0.0 is not taken for a +0.0). Each leaf-sweep kernel is held on random
+kernel equals its plain version bit pattern for bit pattern (so that a
+-0.0 is not taken for a +0.0). The collision fetch is held on the c1 column
+merged and not, and on a table with runs of equal levels, with queries of
+NaN, +-inf, -0.0, every level and its neighbours one ulp either side, at lane
+counts of every remainder modulo 4 and on a misaligned ``q[1:]`` view (its
+scalar paths), at L = 1 and L = 12287 (a 64 KB search tree) and at K = 1 and
+K = 16 (the table rows read through the read-only cache). Each leaf-sweep kernel is held on random
 disks with rays aimed at their rims (a stress of the kernels' conservative
 culls), at a ragged lane count, from origins near the disks and from origins
 a hundred times farther away (where float32 rounding of the ray moves the
@@ -56,11 +61,13 @@ import numpy as np
 import pytest
 import torch
 
+from eradiate_tpu_torch.kernels import collision_fetch as cf
 from eradiate_tpu_torch.kernels import leaf_intersect as li
 from eradiate_tpu_torch.kernels import shell_flight as sf
 from eradiate_tpu_torch.kernels import tri_intersect as ti
 from eradiate_tpu_torch.ops.mesh import mesh_from_vertices
 from eradiate_tpu_torch.ops.spherical import TAU_BLOCKED, fma
+from eradiate_tpu_torch.test_tools import collision_fetch as fetch_tools
 from eradiate_tpu_torch.test_tools import disks, shells
 from eradiate_tpu_torch.test_tools.meshes import (
     axis_rays,
@@ -87,6 +94,71 @@ def same_bits(got, want):
         if g.is_floating_point():
             g, w = g.view(torch.int32), w.view(torch.int32)
         assert torch.equal(g, w)
+
+
+@pytest.fixture(scope="module")
+def fetch_columns():
+    """The collision fetch's operands: the c1 column merged and unmerged,
+    and the table with runs of equal levels (numpy, float32)."""
+    import eradiate_tpu_torch as etp
+
+    etp.set_mode("mono_single")
+    return {"c1": fetch_tools.column_operands(),
+            "1200 layers": fetch_tools.column_operands(None),
+            "flat runs": fetch_tools.flat_run_operands()}
+
+
+def random_column(L, K, seed):
+    """L random layers (a fifth of them empty: runs of equal levels) and K
+    seeded table rows."""
+    rng = np.random.default_rng(seed)
+    dtau = rng.uniform(0.0, 1.0, L) * (rng.uniform(size=L) > 0.2)
+    tau = np.concatenate([[0.0], np.cumsum(dtau)])
+    z = np.concatenate([[0.0], np.cumsum(rng.uniform(0.05, 1.0, L))])
+    return [np.asarray(a, np.float32) for a in (z, tau, rng.uniform(size=(K, L)))]
+
+
+def fetch_held(q, column, card):
+    """Launch the collision fetch once on queries ``q`` (a CUDA tensor) and
+    hold it against its twin bit pattern for bit pattern on every lane."""
+    args = (q, *(torch.tensor(a, device=card) for a in column))
+    before = cf.launches
+    got = cf.collision_fetch(*args)
+    torch.cuda.synchronize()
+    assert cf.launches == before + 1
+    same_bits(got, cf.collision_fetch_plain(*args))
+    return got
+
+
+@pytest.mark.parametrize("column", ["c1", "1200 layers", "flat runs"])
+@pytest.mark.parametrize("B", [1_000_000, 1_000_001, 1_000_002, 1_000_003])
+def test_collision_fetch_kernel_equals_plain_version(card, fetch_columns, column, B):
+    levels = fetch_columns[column]
+    q = torch.tensor(fetch_tools.stress_queries(levels[1], B, seed=B), device=card)
+    _, layer, _ = fetch_held(q, levels, card)
+    L = levels[2].shape[1]
+    assert int(layer[0]) == L - 1  # the NaN query: past every level
+    assert int(layer.min()) == 0 and int(layer.max()) == L - 1
+
+
+@pytest.mark.parametrize("column", ["c1", "1200 layers"])
+@pytest.mark.parametrize("B", [5, 100_004])
+def test_collision_fetch_kernel_misaligned_queries(card, fetch_columns, column, B):
+    """A ``q[1:]`` view: the queries start 4 bytes past a 16-byte boundary."""
+    levels = fetch_columns[column]
+    base = torch.tensor(fetch_tools.stress_queries(levels[1], B + 1, seed=7), device=card)
+    q = base[1:]
+    assert q.data_ptr() % 16 == 4
+    fetch_held(q, levels, card)
+
+
+@pytest.mark.parametrize("L, K", [(1, 3), (2, 1), (46, 16), (1200, 1), (1200, 16), (12287, 1),
+                                  (12287, 3)])
+@pytest.mark.parametrize("B", [3, 200_001])
+def test_collision_fetch_kernel_shapes(card, L, K, B):
+    column = random_column(L, K, seed=L + K)
+    q = torch.tensor(fetch_tools.stress_queries(column[1], B, seed=B), device=card)
+    fetch_held(q, column, card)
 
 
 def rim_problem(B, seed, instanced, far=False, zero_normals=False):

@@ -9,9 +9,11 @@ cull operands (its ``ops.mesh.tri_accel`` and ``ops.canopy.leaf_accel``):
 * the instanced triangle kernels (K9) on ``chip_smoke.py`` phase 16's lanes
   of ``c5_trees`` (the trunks, N = 36, I = 15, at the path's lane count,
   seed 30), and the instanced leaf kernels (K7, the control) on the same
-  scene's leaf lanes: CUDA events, median of 25; and K9's floors on those
-  lanes: ``empty``, every cap 0, so that a lane loads its ray and stores
-  its result and visits nothing; ``unreached``, the instances moved 1000 km
+  scene's leaf lanes: CUDA events around each call, median of 25, and,
+  where the tree's ``chip_smoke`` has ``_device_ms``, the kernel's device
+  time (``*_device_ms``); and K9's floors on those lanes: ``empty``, every
+  cap 0, so that a lane loads its ray and stores its result and visits
+  nothing; ``unreached``, the instances moved 1000 km
   up (the tree's own cull operand for them), so that a lane tests the top
   level's root and reaches nothing;
 * K9 on the wood skeleton as canonical soup (N = 6180, I = 15) and the flat
@@ -83,12 +85,23 @@ def one_turn(root):
                                                                  device="cuda"))
     floors = {"empty": (*tri_rays[:2], torch.zeros_like(tri_rays[2]), *tri_args[3:]),
               "unreached": (*tri_rays, c.v0, c.e1, c.e2, far.offsets, mesh.tri_accel(far)[0])}
+    # device time where the tree's chip_smoke has it
+    device = getattr(cs, "_device_ms", None)
     for name in K9:
         out[f"{name}_ms"] = cs._time_ms(lambda: getattr(ti, name)(*tri_args))
+        if device:
+            out[f"{name}_device_ms"] = device(lambda: getattr(ti, name)(*tri_args),
+                                              cs.KERNELS[name])[0]
         for floor, args in floors.items():
             out[f"{name}_{floor}_ms"] = cs._time_ms(lambda: getattr(ti, name)(*args))
+            if device:
+                out[f"{name}_{floor}_device_ms"] = device(lambda: getattr(ti, name)(*args),
+                                                          cs.KERNELS[name])[0]
     for name in ("ray_leaves_nearest_instanced", "ray_leaves_occluded_instanced"):
         out[f"{name}_ms"] = cs._time_ms(lambda: getattr(li, name)(*leaf_args))
+        if device:
+            out[f"{name}_device_ms"] = device(lambda: getattr(li, name)(*leaf_args),
+                                              cs.KERNELS[name])[0]
 
     with tempfile.TemporaryDirectory() as mesh_dir:
         wood = cs._c5("wood", mesh_dir)
