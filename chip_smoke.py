@@ -23,7 +23,12 @@ on a 6 m trunk as one abstract tree instanced at the 15 positions (instanced
 leaves and instanced trunk triangles); ``c5_wood``, the leaf cloud beside a
 mesh tree at the 15 positions, a wood skeleton of 6180 triangles that this
 script writes as an OBJ file into a temporary directory from a seed
-(flattened: 30000 disks and 92700 triangles). Phases, each fatal on failure:
+(flattened: 30000 disks and 92700 triangles). Config 1 and config 5 (as
+``bench.py`` builds it, integrator ``{"type": "volpath", "stokes": True}``)
+also run with polarized transport, in ``mono_polarized_single`` (``bench.py``
+names ``mono_polarized``, the double-precision mode, whose path state the
+JAX package keeps in float32 unless x64 is on; the port's double modes are
+not ported). Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. the build of the port's CUDA kernels from ``eradiate_tpu_torch/csrc``;
@@ -174,7 +179,26 @@ script writes as an OBJ file into a temporary directory from a seed
 18. ``c5_trees`` at full width: leaf and triangle nearest-hit and any-hit
     launches (instanced kernels) must each equal the bounce iterations;
 19. ``c5_wood`` at full width, the same through the flat kernels; the BRF of
-    both printed beside phase 13's.
+    both printed beside phase 13's;
+20. polarized c1 (Stokes output) on CUDA against the CPU, 11 view zeniths
+    and 256 spp at one seed: I within 1e-4 relative, and every Stokes
+    component of every pixel within |z| <= 5 (of the two runs' I
+    variances, the only ones kept);
+21. polarized c1 at full width (76 x 4194304): one run with the profiler on
+    for 48 bounce iterations after the first 100 (it warms the card), then
+    a timed run; the collision fetch's launches must equal the bounce
+    iterations, and no other kernel launches; wall, samples/s, peak memory,
+    I, Q/I and DoLP at the view nearest nadir, CUDA kernels and device time
+    an iteration, the busy share (device time over the timed wall) and
+    K1's device time a launch inside the run;
+22. polarized c5 on CUDA against the CPU, 64 spp, the scene exactly as
+    ``bench.py`` builds it, instanced, flat and
+    ``c5_trees``: the gate of phase 20; the launches of each CUDA run
+    (K7; K5/K6; K7 and K9) go into the ``kernels`` line;
+23. polarized c5 at full width (instanced, 19 x 2097152), as phase 21 with
+    40 iterations profiled after the first 20: K7 nearest-hit and any-hit
+    launches must each equal the bounce iterations, each one's device time
+    a launch inside the run; the BRF at nadir beside phase 13's.
 
 It prints a ``{"kernels": [...]}`` line (each kernel with its launches on its
 main path, its error against the plain version, its call time (``ms``) and
@@ -191,8 +215,10 @@ whatever cull or order implements it, the flight's the levels each lane
 has to read; the shell kernels also with their device time a launch inside
 the full-width runs, ``run_ms``; a sweep's nearest hit with what a ray
 reaches of its hierarchy, ``reach``; the instanced triangle kernels with
-their time and bound on the wood skeleton, ``skeleton``) and the
-``nvidia-smi`` line
+their time and bound on the wood skeleton, ``skeleton``; every kernel its
+launches on the polarized paths, ``polarized_launches``, and K1 and K7
+their device time a launch inside the polarized full-width runs,
+``polarized_run_ms``) and the ``nvidia-smi`` line
 before the last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
 exits non-zero and prints no result. It imports neither ``jax`` nor
@@ -282,10 +308,13 @@ def read_launches():
     return {"collision_fetch": cf.launches, **sf.launches, **li.launches, **ti.launches}
 
 
-def _c1(n_vza, layer_merge_tol=1e-3):
+def _c1(n_vza, layer_merge_tol=1e-3, stokes=False):
+    """BASELINE config 1; ``stokes`` asks for the Stokes integrator (render
+    it in ``mono_polarized_single``)."""
     from eradiate_tpu_torch import AtmosphereExperiment
 
     return AtmosphereExperiment(
+        integrator={"type": "volpath", "stokes": True} if stokes else None,
         illumination={"type": "directional", "zenith": 30.0, "azimuth": 0.0},
         measures={
             "type": "mdistant",
@@ -810,48 +839,99 @@ def launch_ms_in_run(run, names, starts=True):
     return out, torch.stack(sums).sum(0) if sums else None, tuple(captured) or None
 
 
-def fetch_device_ms_in_run(run, skip=100, window=48):
-    """Call ``run()`` with the plane-parallel tracer's collision fetch
-    profiled over a window of ``window`` launches after the first ``skip``
-    (``torch.profiler`` started before the window's first launch and stopped,
-    after a synchronise, after its last); returns (launches in the window,
-    mean device time a launch in ms) from the records of the kernel (the
-    profiler drops a record now and then; fails where it kept fewer than
-    ``RUN_WINDOW_MIN``). The
-    kernel's durations do not count the host time around each launch, which
-    the loop spends while the stream is idle."""
+def profile_window(run, module, attr, skip, window):
+    """Call ``run()`` with ``module.attr``, a function the loop calls once a
+    bounce iteration, wrapped so that ``torch.profiler`` records a window of
+    ``window`` iterations after the first ``skip`` (started before the
+    window's first call, stopped after a synchronise after its last).
+    Returns the profiler; fails where the run made fewer calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from eradiate_tpu_torch.ops import tracer
-
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    saved = tracer.collision_fetch
+    saved = getattr(module, attr)
     calls = [0]
 
-    def call(*args):
+    def call(*args, **kwargs):
         if calls[0] == skip:
             prof.start()
-        out = saved(*args)
+        out = saved(*args, **kwargs)
         calls[0] += 1
         if calls[0] == skip + window:
             torch.cuda.synchronize()
             prof.stop()
         return out
 
-    tracer.collision_fetch = call
+    setattr(module, attr, call)
     try:
         run()
     finally:
-        tracer.collision_fetch = saved
+        setattr(module, attr, saved)
     if calls[0] < skip + window:
-        raise AssertionError(f"the run made {calls[0]} collision fetches, fewer than "
+        raise AssertionError(f"the run called {attr} {calls[0]} times, fewer than "
                              f"{skip + window}")
-    times = _kernel_records(prof, KERNELS["collision_fetch"])
-    if not RUN_WINDOW_MIN <= len(times) <= window:
-        raise AssertionError(f"the profiler recorded {len(times)} of the window's {window} "
-                             "collision fetches")
+    return prof
+
+
+#: Families of CUDA kernels in a profiler window, by a word of their names
+#: (the port's own kernels by their names in ``KERNELS``).
+KERNEL_FAMILIES = (("element-wise", "elementwise"), ("reduction", "reduce"),
+                   ("sort", "sort"), ("indexing", "index"), ("gather", "gather"),
+                   ("scatter", "scatter"), ("stack and cat", "cat"))
+
+
+def window_device(prof, window):
+    """(CUDA kernels, device ms) an iteration in a profiler window of
+    ``window`` iterations: the records of every CUDA kernel, their durations
+    summed (one stream: no overlap); and the window's device time by kernel
+    family (the port's kernels, PyTorch's element-wise kernels,
+    reductions, sorts, indexing, copies), as shares."""
+    from torch.autograd import DeviceType
+
+    ours = tuple(KERNELS.values())
+    families = {}
+    # names are matched lower-cased: torch.stack and torch.cat launch
+    # CatArrayBatchedCopy
+    total = count = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ms = e.device_time / 1e3
+        total, count = total + ms, count + 1
+        family = "the port's kernels" if any(k in e.name for k in ours) else next(
+            (f for f, word in KERNEL_FAMILIES if word in e.name.lower()), "other")
+        families[family] = families.get(family, 0.0) + ms
+    shares = {f: ms / total for f, ms in sorted(families.items(), key=lambda x: -x[1])}
+    return count / window, total / window, shares
+
+
+def kernel_ms_in_window(prof, kernel, launches_min):
+    """Mean device ms of ``kernel``'s records in a profiler window; fails
+    where the profiler kept fewer than ``launches_min`` of them. Returns
+    (records, ms)."""
+    times = _kernel_records(prof, kernel)
+    if len(times) < launches_min:
+        raise AssertionError(f"the profiler recorded {len(times)} launches of {kernel}, fewer "
+                             f"than {launches_min}")
     return len(times), statistics.fmean(times)
+
+
+def fetch_device_ms_in_run(run, skip=100, window=48):
+    """Call ``run()`` with the plane-parallel tracer's collision fetch
+    profiled over a window of ``window`` launches after the first ``skip``;
+    returns (launches in the window, mean device
+    time a launch in ms) from the records of the kernel (the profiler drops
+    a record now and then; fails where it kept fewer than
+    ``RUN_WINDOW_MIN``). The kernel's durations do not count the host time
+    around each launch, which the loop spends while the stream is idle."""
+    from eradiate_tpu_torch.ops import tracer
+
+    prof = profile_window(run, tracer, "collision_fetch", skip, window)
+    n, ms = kernel_ms_in_window(prof, KERNELS["collision_fetch"], RUN_WINDOW_MIN)
+    if n > window:
+        raise AssertionError(f"the profiler recorded {n} of the window's {window} "
+                             "collision fetches")
+    return n, ms
 
 
 def _print_in_run(in_run, sums=None, lanes=None):
@@ -942,9 +1022,10 @@ def _wood_obj(directory, branches=WOOD_BRANCHES):
     return str(path)
 
 
-def _c5(form="instanced", mesh_dir=None, branches=WOOD_BRANCHES):
+def _c5(form="instanced", mesh_dir=None, branches=WOOD_BRANCHES, stokes=False):
     """The scene of BASELINE config 5 (``bench.py`` ``_c5``) with the scalar
-    integrator, in one of four forms:
+    integrator (with ``stokes``, config 5 as ``bench.py`` builds it: render
+    it in ``mono_polarized_single``), in one of four forms:
 
     - ``instanced``: HET01's leaf cloud instanced at its 15 positions;
     - ``flat``: the same canopy as two elements (positions split 8 + 7),
@@ -1000,7 +1081,7 @@ def _c5(form="instanced", mesh_dir=None, branches=WOOD_BRANCHES):
             "id": "m",
         },
         surface={"type": "lambertian", "reflectance": 0.159},
-        integrator={"type": "volpath"},
+        integrator={"type": "volpath", "stokes": stokes},
     )
 
 
@@ -1659,27 +1740,179 @@ def instanced_against_flat(exp, B, seed, mesh_dir, plain_lanes=2**16):
     return out
 
 
-def c5_cuda_vs_cpu(form, phase, mesh_dir=None, branches=WOOD_BRANCHES):
+#: The mode of the polarized phases (``bench.py`` names ``mono_polarized``,
+#: the double-precision mode, whose path state the JAX package keeps in
+#: float32 without x64; the port's double modes are not ported).
+POLARIZED_MODE = "mono_polarized_single"
+
+
+def stokes_gate(gpu, cpu):
+    """(max relative I difference, max |z| of the Stokes components): each
+    component's difference over the standard deviation of the two runs' I
+    estimates (the only variances the runs keep)."""
+    rel = np.abs(gpu["I"] - cpu["I"]) / np.abs(cpu["I"])
+    sd = np.sqrt(gpu["var"] + cpu["var"])
+    z = 0.0
+    for c in "IQUV":
+        diff = np.abs(gpu[c] - cpu[c])
+        z = max(z, float(np.max(np.where(diff > 0, diff, 0.0) / np.where(diff > 0, sd, 1.0))))
+    return float(rel.max()), z
+
+
+def _nadir(ds):
+    """I, Q/I and DoLP at the view nearest nadir, and that view's zenith."""
+    i = int(np.argmin(np.abs(np.asarray(ds["vza"]))))
+    I, Q, dolp = (float(np.asarray(ds[k])[0, i]) for k in ("I", "Q", "dolp"))
+    return I, Q / I, dolp, float(np.asarray(ds["vza"])[i])
+
+
+def c5_cuda_vs_cpu(form, phase, mesh_dir=None, branches=WOOD_BRANCHES, stokes=False):
     """The port on CUDA against the port on the CPU for one form of the
-    canopy, 64 spp at one seed."""
+    canopy, 64 spp at one seed. Scalar: every pixel within |z| <= 5, the
+    median pixel within 1e-4 relative. With ``stokes`` (in
+    ``mono_polarized_single``), the gate of phase 20: I within 1e-4 relative
+    on every pixel and each Stokes component within |z| <= 5. Returns the
+    CUDA run's launches."""
     import eradiate_tpu_torch as etp
 
     out = {}
     for dev in ("cuda", "cpu"):
+        reset_launches()
         t0 = time.perf_counter()
-        out[dev] = etp.run(_c5(form, mesh_dir, branches), spp=64,
-                           seed_state=etp.SeedState(SEED), device=dev)
+        ds = etp.run(_c5(form, mesh_dir, branches, stokes), spp=64,
+                     seed_state=etp.SeedState(SEED), device=dev)
         seconds = time.perf_counter() - t0
-    brf_g, brf_c = (np.asarray(out[d]["brf"]) for d in ("cuda", "cpu"))
-    rad_g, rad_c = (np.asarray(out[d]["radiance"]) for d in ("cuda", "cpu"))
-    var = np.asarray(out["cuda"]["var"]) + np.asarray(out["cpu"]["var"])
+        out[dev] = {k: np.asarray(ds[k]) for k in ds.data_vars}
+        if dev == "cuda":
+            launches = read_launches()
+    gpu, cpu = out["cuda"], out["cpu"]
+    brf_g, brf_c = gpu["brf"], cpu["brf"]
     rel = np.abs(brf_g - brf_c) / np.abs(brf_c)
-    zmax = float(np.max(np.abs(rad_g - rad_c) / np.sqrt(var)))
-    print(f"[{phase}] c5 scene ({form}), {N_VZA_C5} VZA 64 spp, CUDA vs CPU: max rel BRF diff "
-          f"{rel.max():.3e}, median {np.median(rel):.3e} (bound 1e-4), max |z| {zmax:.3e} "
-          f"(bound 5); the CPU run took {seconds:.1f} s", flush=True)
+    zmax = float(np.max(np.abs(gpu["radiance"] - cpu["radiance"])
+                        / np.sqrt(gpu["var"] + cpu["var"])))
+    label = f"[{phase}] {'polarized ' if stokes else ''}c5 scene ({form}), {N_VZA_C5} VZA 64 spp"
+    if stokes:
+        rel_I, z = stokes_gate(gpu, cpu)
+        print(f"{label}, CUDA vs CPU: max rel I diff {rel_I:.3e} (bound 1e-4), max |z| of I, Q, "
+              f"U, V {z:.3e} (bound 5); the CPU run took {seconds:.1f} s; "
+              f"launches {', '.join(f'{k} {n}' for k, n in launches.items() if n)}",
+              flush=True)
+        if not (np.isfinite(gpu["I"]).all() and rel_I <= 1e-4 and z <= 5.0):
+            raise AssertionError(f"CUDA and CPU runs of the port disagree on the polarized c5 "
+                                 f"scene ({form})")
+        return launches
+    print(f"{label}, CUDA vs CPU: max rel BRF diff {rel.max():.3e}, median "
+          f"{np.median(rel):.3e} (bound 1e-4), max |z| {zmax:.3e} (bound 5); the CPU run took "
+          f"{seconds:.1f} s", flush=True)
     if not (np.isfinite(brf_g).all() and np.median(rel) <= 1e-4 and zmax <= 5.0):
         raise AssertionError(f"CUDA and CPU runs of the port disagree on the c5 scene ({form})")
+    return launches
+
+
+def polarized_c1_cuda_vs_cpu(phase):
+    """c1 with Stokes output at 11 view zeniths and 256 spp, one seed, on
+    CUDA and on the CPU: I within 1e-4 relative, each Stokes component of
+    each pixel within |z| <= 5."""
+    import eradiate_tpu_torch as etp
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ds = etp.run(_c1(11, stokes=True), spp=256, seed_state=etp.SeedState(SEED), device=dev)
+        out[dev] = {k: np.asarray(ds[k]) for k in ds.data_vars}
+    rel, z = stokes_gate(out["cuda"], out["cpu"])
+    print(f"[{phase}] polarized c1 11 VZA 256 spp, CUDA vs CPU: max rel I diff {rel:.3e} "
+          f"(bound 1e-4), max |z| of I, Q, U, V {z:.3e} (bound 5)", flush=True)
+    if not (np.isfinite(out["cuda"]["I"]).all() and rel <= 1e-4 and z <= 5.0):
+        raise AssertionError("CUDA and CPU runs of the port disagree on polarized c1")
+
+
+def _polarized_full_width(exp, spp, n_vza, module, attr, skip, window, label):
+    """One full-width run with the profiler on for a window of ``window``
+    bounce iterations after ``skip`` (it warms the card and the allocator),
+    then a timed run; returns (dataset, launches, iterations, wall s, peak
+    GiB, profiler, kernels an iteration, device ms an iteration)."""
+    import torch
+
+    import eradiate_tpu_torch as etp
+
+    def run():
+        return etp.run(exp, spp=spp, seed_state=etp.SeedState(SEED), device="cuda")
+
+    prof = profile_window(run, module, attr, skip, window)
+    per_it, dev_ms, shares = window_device(prof, window)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    ds = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    iterations = exp.measures[0].results["raw"]["iterations"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    samples = n_vza * spp
+    I, q, dolp, vza = _nadir(ds)
+    print(f"{label}: {n_vza} VZA x {spp} spp = {samples} samples, wall {wall:.3f} s, "
+          f"{samples / wall:.4e} samples/s, {iterations} bounce iterations "
+          f"({1e3 * wall / iterations:.3f} ms each), peak device memory {peak:.2f} GiB",
+          flush=True)
+    print(f"    launches {launches}; at VZA {vza:.2f}: I {I:.6e}, Q/I {q:.6f}, DoLP {dolp:.6f}; "
+          f"profiler window of {window} iterations (warm-up run): {per_it:.1f} CUDA kernels and "
+          f"{dev_ms:.3f} ms of device time an iteration, busy share "
+          f"{dev_ms * iterations / (1e3 * wall):.3f} of the timed run's wall; device time by "
+          f"kernel family: {', '.join(f'{f} {x:.3f}' for f, x in shares.items())}", flush=True)
+    stokes = np.stack([np.asarray(ds[c]) for c in "IQUV"], -1)
+    dolp_all = np.asarray(ds["dolp"])
+    if stokes.shape != (1, n_vza, 4) or not np.isfinite(stokes).all():
+        raise AssertionError(f"{label}: Stokes vectors not finite or of the wrong shape")
+    if not ((stokes[..., 0] > 0).all() and (dolp_all >= 0).all() and (dolp_all <= 1).all()):
+        raise AssertionError(f"{label}: I not positive or DoLP outside [0, 1]")
+    return ds, launches, iterations, wall, peak, prof, per_it, dev_ms
+
+
+def polarized_c1_full_width(phase):
+    """Polarized c1 at full width: K1's launches must equal the bounce
+    iterations, and it alone launches; its device time a launch inside the
+    run from the profiler's window. Returns (launches, run device ms of K1,
+    the row for PERF.md)."""
+    from eradiate_tpu_torch.ops import tracer_polarized
+
+    ds, launches, iterations, wall, peak, prof, per_it, dev_ms = _polarized_full_width(
+        _c1(N_VZA, stokes=True), SPP_C1, N_VZA, tracer_polarized, "collision_fetch", 100, 48,
+        f"[{phase}] polarized c1 full width")
+    n, ms = kernel_ms_in_window(prof, KERNELS["collision_fetch"], RUN_WINDOW_MIN)
+    print(f"    collision_fetch launches {launches['collision_fetch']}, bounce iterations "
+          f"{iterations}; device time a launch inside the run {ms:.4f} ms ({n} profiler "
+          "records)", flush=True)
+    if not (launches["collision_fetch"] > 0 and launches["collision_fetch"] == iterations):
+        raise AssertionError("polarized c1 did not run through K1 once per bounce")
+    if any(k for k, v in launches.items() if v and k != "collision_fetch"):
+        raise AssertionError("polarized c1 launched a kernel of another path")
+    return launches, ms
+
+
+def polarized_c5_full_width(phase, scalar_ds):
+    """Polarized c5 (instanced) at full width: K7 nearest and any-hit
+    launches must each equal the bounce iterations, and they alone launch;
+    each one's device time a launch inside the run from the profiler's
+    window. Returns (launches, {kernel: run device ms})."""
+    from eradiate_tpu_torch.ops import tracer_canopy_polarized
+
+    ds, launches, iterations, wall, peak, prof, per_it, dev_ms = _polarized_full_width(
+        _c5("instanced", stokes=True), SPP_C5, N_VZA_C5, tracer_canopy_polarized,
+        "leaf_nearest", 20, 40, f"[{phase}] polarized c5 scene (instanced) full width")
+    mine = C5_KERNELS["instanced"]
+    in_run = {k: kernel_ms_in_window(prof, KERNELS[k], 20)[1] for k in mine}
+    nadir = N_VZA_C5 // 2
+    print(f"    {', '.join(f'{k} {ms:.4f} ms' for k, ms in in_run.items())} of device time a "
+          f"launch inside the run; BRF at nadir {np.asarray(ds['brf'])[0, nadir]:.6f} "
+          f"(the scalar run's, phase 13: {np.asarray(scalar_ds['brf'])[0, nadir]:.6f})",
+          flush=True)
+    if not all(launches[k] > 0 and launches[k] == iterations for k in mine):
+        raise AssertionError(f"polarized c5 did not launch {mine} once per bounce")
+    if any(n for k, n in launches.items() if k not in mine):
+        raise AssertionError("polarized c5 launched a kernel of another path")
+    return launches, in_run
 
 
 #: The kernels each form of the c5 scene launches once per bounce iteration.
@@ -2166,9 +2399,30 @@ def main():
           f"{np.asarray(ds_inst['brf']).mean():.6f}, {np.asarray(ds_trees['brf']).mean():.6f}, "
           f"{np.asarray(ds_wood['brf']).mean():.6f}", flush=True)
     print(f"     instanced triangle kernels on the wood skeleton: {skeleton_ms}", flush=True)
+
+    # -- 20-23. polarized transport (mono_polarized_single) ------------------
+    etp.set_mode(POLARIZED_MODE)
+    polarized_c1_cuda_vs_cpu(phase=20)
+    pol_c1_launches, pol_fetch_ms = polarized_c1_full_width(phase=21)
+    pol_small = {form: c5_cuda_vs_cpu(form, phase=22, stokes=True)
+                 for form in ("instanced", "flat", "trees")}
+    pol_c5_launches, pol_sweep_ms = polarized_c5_full_width(23, ds_inst)
     for mod in ("jax", "eradiate_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
+
+    # each kernel's launches on the polarized paths: the full-width runs (K1
+    # on c1, K7 on c5) and the 64-spp CUDA runs of phase 22 (K5/K6 flat, K7
+    # and K9 on the tree form)
+    polarized = {k: {} for k in KERNELS}
+    polarized["collision_fetch"]["c1_polarized"] = pol_c1_launches["collision_fetch"]
+    for k in C5_KERNELS["instanced"]:
+        polarized[k]["c5_polarized"] = pol_c5_launches[k]
+    for form, counts in pol_small.items():
+        for k, n in counts.items():
+            if n:
+                polarized[k][f"c5_polarized_{form}_64spp"] = n
+    polarized_run_ms = {"collision_fetch": pol_fetch_ms, **pol_sweep_ms}
 
     def entry(name, source, replaces, n, err, times, bound, in_run=None):
         """One kernel of the ``kernels`` line; ``times`` holds its call time
@@ -2179,10 +2433,16 @@ def main():
         the shell kernels' (launches, ms a launch) inside a full-width run.
         A sweep's nearest hit also carries what a ray reaches of its
         hierarchy (``reach``), and the instanced triangle kernels their time
-        and bound on the wood skeleton (``skeleton``)."""
+        and bound on the wood skeleton (``skeleton``). Every kernel carries
+        its launches on the polarized paths (``polarized_launches``), K1
+        and K7 their device time a launch inside the polarized full-width
+        runs (``polarized_run_ms``)."""
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": n, "max_abs_err": err, **times,
-               "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+               "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+               "polarized_launches": polarized[name]}
+        if name in polarized_run_ms:
+            out.update(polarized_run_ms=polarized_run_ms[name])
         if in_run is not None:
             out.update(run_ms=in_run[name][1])
         if name in sweep_reach:
@@ -2207,7 +2467,8 @@ def main():
     # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [
         entry("collision_fetch", "eradiate_tpu_torch/csrc/collision_fetch.cu",
-              f"{pallas}/collision_fetch.py:59", launches, err, fetch_times, fetch_bound),
+              f"{pallas}/collision_fetch.py:59", c1_launches["collision_fetch"], err,
+              fetch_times, fetch_bound),
         entry("shell_flight", shell_src, f"{pallas}/shell_flight.py:405",
               c4_launches["shell_flight"], shell_errs["shell_flight"],
               shell_times["shell_flight"], shell_bounds["shell_flight"], c4_in_run),

@@ -3,10 +3,11 @@
 Port of ``eradiate_tpu/experiments/_canopy.py``: an explicit disk-leaf
 canopy over a lambertian-like surface, without or with a 1D atmosphere. The
 host side (leaf arrays in Morton order, leaf optics) is numpy; the render
-goes to :func:`..ops.tracer_canopy.render_canopy` on one device. Canopies
-hold leaf clouds, abstract trees (a leaf-cloud crown on a trunk) and mesh
-trees; trunks and mesh trees are triangle soups (the ``ray_tris`` kernels).
-Polarized transport raises ``NotImplementedError``.
+goes to :func:`..ops.tracer_canopy.render_canopy` on one device, or in a
+polarized mode to :func:`..ops.tracer_canopy_polarized.render_canopy_polarized`.
+Canopies hold leaf clouds, abstract trees (a leaf-cloud crown on a trunk)
+and mesh trees; trunks and mesh trees are triangle soups (the ``ray_tris``
+kernels).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from ..core.rng import root_seed_state
 from ..ops.canopy import InstancedLeafArrays, LeafCloudArrays, morton_order
 from ..ops.mesh import InstancedTriArrays, mesh_from_vertices
 from ..ops.tracer_canopy import render_canopy
+from ..ops.tracer_canopy_polarized import render_canopy_polarized
 from ..scenes.biosphere import DiscreteCanopy, LeafCloud, biosphere_factory
 from ..scenes.measure import TargetRectangle
 from ..scenes.spectra import converter as spectrum_converter
@@ -177,7 +179,8 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
             (scene, sensor, config, leaf_params, leaves, tris,
              tri_params) = self.compile_canopy_scene(measure, ctx)
             n = int(spp) if spp is not None else int(measure.spp)
-            raw = render_canopy(
+            renderer = render_canopy_polarized if config.polarized else render_canopy
+            raw = renderer(
                 scene, leaf_params, leaves, sensor, config, spp=n,
                 seed=int(seed_state.next()), tris=tris, tri_params=tri_params,
                 device=dev,

@@ -1,10 +1,12 @@
 """Experiment core: compile each measure's scene, render it, post-process.
 
 Port of ``eradiate_tpu/experiments/_core.py`` as a single-device path (no
-mesh, no checkpoint): plane-parallel scenes go to :mod:`..ops.tracer`,
-spherical-shell scenes to :mod:`..ops.tracer_spherical`. The result is the
-same :mod:`..xr` Dataset layout the reference returns, assembled by the
-port's copy of ``pipelines.logic.postprocess_measure``.
+mesh, no checkpoint): plane-parallel scenes go to :mod:`..ops.tracer`, or
+to :mod:`..ops.tracer_polarized` in a polarized mode, spherical-shell scenes
+to :mod:`..ops.tracer_spherical`. The result is the same :mod:`..xr`
+Dataset layout the reference returns (with the Stokes components and
+``dolp`` in a polarized mode), assembled by the port's copy of
+``pipelines.logic.postprocess_measure``.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..spectral.ckd_quad import CKDQuadConfig
 
 from ..core.device import resolve_device
 from ..ops.tracer import render
+from ..ops.tracer_polarized import render_polarized
 from ..ops.tracer_spherical import render_spherical
 
 __all__ = ["EarthObservationExperiment", "run", "check_mode"]
@@ -49,12 +52,18 @@ def _integrator_converter(value):
     return integrator_factory.convert(value, Integrator)
 
 
+#: The modes the port renders: single precision only, so the double modes
+#: (and the unsuffixed aliases ``mono`` and ``mono_polarized``, which name
+#: them) raise.
+SUPPORTED_MODES = ("mono_single", "mono_polarized_single")
+
+
 def check_mode():
-    """The active mode, which this slice supports only as ``mono_single``."""
+    """The active mode, if the port supports it."""
     m = mode()
-    if m.id != "mono_single":
+    if m.id not in SUPPORTED_MODES:
         raise NotImplementedError(
-            f"mode {m.id!r} is not ported yet (supported: mono_single)"
+            f"mode {m.id!r} is not ported yet (supported: {', '.join(SUPPORTED_MODES)})"
         )
     return m
 
@@ -141,7 +150,13 @@ class EarthObservationExperiment(SceneElement):
 
     def _render_one(self, scene, sensor, config, n, seed, device):
         if config.geometry == "spherical_shell":
+            if config.polarized:
+                raise NotImplementedError(
+                    "polarized transport in spherical-shell geometry is not ported yet"
+                )
             return render_spherical(scene, sensor, config, spp=n, seed=seed, device=device)
+        if config.polarized:
+            return render_polarized(scene, sensor, config, spp=n, seed=seed, device=device)
         return render(scene, sensor, config, spp=n, seed=seed, device=device)
 
     def postprocess(self):

@@ -39,6 +39,8 @@ __all__ = [
     "leaf_of_row",
     "nearest_plain",
     "nearest_record",
+    "nearest_over_instances",
+    "occluded_over_instances",
 ]
 
 #: Most items in a leaf (``kLeaf`` of the kernels).
@@ -62,6 +64,13 @@ BOX_SLACK = 1e-4
 CAP_SLACK = 5e-2
 
 _BINS = 16  # SAH bins per axis of the build
+
+#: Most rays (lanes x instances) the instanced plain sweeps hand their flat
+#: sweep at once: the few lanes of a CPU render take every instance in one
+#: call (the flat sweeps cost a few operations a chunk whatever the rays),
+#: and 4096 or more lanes one instance a call, each call's [rays, chunk]
+#: temporaries as large as before.
+INSTANCE_BATCH_RAYS = 4096
 
 
 def _round_down(x):
@@ -360,6 +369,54 @@ def nearest_plain(p, d, t_max, bvh, rows, test, order=None, chunk=512):
         return torch.where(reached[:, int(row_leaf[k])], t, torch.inf), n, index[k] // chunk
 
     return nearest_record(t_max, rows.shape[0], visit, order)
+
+
+def _instance_batches(p, d, t_max, offsets):
+    """The rays translated into each instance's frame (``p - offset``), in
+    batches of whole instances of at most :data:`INSTANCE_BATCH_RAYS` rays
+    (one instance at least): yields ``(k, p', d', t_max')``, the batch's ``k``
+    instances' rays one instance after the other."""
+    B = p.shape[0]
+    per = max(1, INSTANCE_BATCH_RAYS // max(B, 1))
+    for start in range(0, offsets.shape[0], per):
+        off = offsets[start : start + per]
+        k = off.shape[0]
+        yield k, (p[None] - off[:, None]).reshape(k * B, 3), d.repeat(k, 1), t_max.repeat(k)
+
+
+def nearest_over_instances(p, d, t_max, offsets, flat_nearest):
+    """Nearest hit against the copies of a table translated by ``offsets``
+    [I, 3]: ``flat_nearest(p', d', t_max')`` (a flat sweep's ``(t, normal,
+    hit)``) swept in every instance's frame with the cap ``t_max``, batches
+    of instances at once, and the hits kept in instance order where their
+    ``t`` is below the best so far. That equals sweeping each instance with
+    the running best as its cap: a hit at or beyond the best is never kept,
+    and below it the two sweeps find the same nearest hit, chunk and tied
+    normals."""
+    B = p.shape[0]
+    best_t = t_max
+    best_n = torch.zeros((B, 3), dtype=p.dtype, device=p.device)
+    best_n[:, 2] = 1.0
+    hit = torch.zeros(B, dtype=torch.bool, device=p.device)
+    for k, pj, dj, tj in _instance_batches(p, d, t_max, offsets):
+        t, n, h = flat_nearest(pj, dj, tj)
+        for i in range(k):
+            sl = slice(i * B, (i + 1) * B)
+            better = h[sl] & (t[sl] < best_t)
+            best_t = torch.where(better, t[sl], best_t)
+            best_n = torch.where(better[:, None], n[sl], best_n)
+            hit = hit | better
+    return torch.where(hit, best_t, t_max), best_n, hit
+
+
+def occluded_over_instances(p, d, t_max, offsets, flat_occluded):
+    """Any hit against the translated copies: ``flat_occluded(p', d',
+    t_max')`` in every instance's frame, batches of instances at once."""
+    B = p.shape[0]
+    occ = torch.zeros(B, dtype=torch.bool, device=p.device)
+    for k, pj, dj, tj in _instance_batches(p, d, t_max, offsets):
+        occ = occ | flat_occluded(pj, dj, tj).reshape(k, B).any(dim=0)
+    return occ
 
 
 def instanced_nearest_plain(p, d, t_max, ibvh, rows, hits, normals, order=None, chunk=512):

@@ -70,7 +70,9 @@ from .bvh import (
     bvh_leaves_reached_plain,
     instance_level,
     instanced_nearest_plain,
+    nearest_over_instances,
     nearest_plain,
+    occluded_over_instances,
 )
 from .leaf_intersect import _check_operands, _launch, _on_cpu, dot3, fma
 
@@ -337,29 +339,19 @@ def ray_tris_nearest_instanced_bvh_plain(p, d, t_max, ibvh: InstancedTriBVH, ord
 
 
 def ray_tris_nearest_instanced_plain(p, d, t_max, v0, e1, e2, offsets):
-    """Nearest hit against the translated copies: scan the instances,
-    translate the ray into each instance frame, sweep the canonical soup
-    with the running best as the cap, keep the winner."""
-    B = p.shape[0]
-    best_t = t_max
-    best_n = torch.zeros((B, 3), dtype=p.dtype, device=p.device)
-    best_n[:, 2] = 1.0
-    hit = torch.zeros(B, dtype=torch.bool, device=p.device)
-    for offset in offsets:
-        t, n, h = ray_tris_nearest_plain(p - offset[None, :], d, best_t, v0, e1, e2)
-        better = h & (t < best_t)
-        best_t = torch.where(better, t, best_t)
-        best_n = torch.where(better[:, None], n, best_n)
-        hit = hit | better
-    return torch.where(hit, best_t, t_max), best_n, hit
+    """Nearest hit against the translated copies: the canonical soup swept
+    in each instance's frame, the winner kept in instance order
+    (:func:`~.bvh.nearest_over_instances`)."""
+    return nearest_over_instances(
+        p, d, t_max, offsets,
+        lambda pj, dj, tj: ray_tris_nearest_plain(pj, dj, tj, v0, e1, e2))
 
 
 def ray_tris_occluded_instanced_plain(p, d, t_max, v0, e1, e2, offsets):
     """Any hit against the translated copies."""
-    occ = torch.zeros(p.shape[0], dtype=torch.bool, device=p.device)
-    for offset in offsets:
-        occ = occ | ray_tris_occluded_plain(p - offset[None, :], d, t_max, v0, e1, e2)
-    return occ
+    return occluded_over_instances(
+        p, d, t_max, offsets,
+        lambda pj, dj, tj: ray_tris_occluded_plain(pj, dj, tj, v0, e1, e2))
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,17 @@
 """Surface and leaf BSDF evaluation and sampling, batched over lanes.
 
-Port of the ``lambertian``, ``hapke`` and ``black`` surface kinds and of the
-two-sided ``bilambertian`` leaf optics of ``eradiate_tpu/ops/bsdf_ops.py``.
+Port of the ``lambertian``, ``hapke`` and ``black`` surface kinds, of the
+RPV base of ``maignan`` (:func:`rpv_eval`), of the scalar (I-I) components
+of the polarized ``maignan`` and ``ocean_mishchenko`` surfaces (their
+Mueller matrices are :mod:`.bsdf_polarized`'s) and of the two-sided
+``bilambertian`` leaf optics of ``eradiate_tpu/ops/bsdf_ops.py``.
 ``wi`` and ``wo`` [B, 3] point away from the surface (+z up); ``eval``
 returns f [1/sr] with dL_o = f cos(theta_i) dE_i; ``sample`` returns
 ``(w_new, f cos / pdf)``. Parameters are per-spectral-row scalars.
+
+The scalar tracers take the kinds of :data:`SUPPORTED_BSDFS`; the polarized
+surfaces are rendered by the polarized tracers only (``rpv`` alone is not
+ported yet).
 """
 
 from __future__ import annotations
@@ -14,12 +21,19 @@ import math
 import torch
 
 from ..core.warp import square_to_cosine_hemisphere
+from .spherical import sqrt_rn
 
-__all__ = ["lambertian_eval", "hapke_eval", "bsdf_eval",
+__all__ = ["lambertian_eval", "hapke_eval", "rpv_eval", "bsdf_eval",
            "bsdf_sample_from_uniforms", "bilambertian_eval",
-           "bilambertian_sample_from_uniforms", "SUPPORTED_BSDFS"]
+           "bilambertian_sample_from_uniforms", "SUPPORTED_BSDFS",
+           "POLARIZED_SURFACES"]
 
+#: Surface kinds of the scalar tracers.
 SUPPORTED_BSDFS = ("black", "hapke", "lambertian")
+
+#: Surface kinds with a Mueller matrix of their own (:mod:`.bsdf_polarized`);
+#: the polarized tracers take them beside :data:`SUPPORTED_BSDFS`.
+POLARIZED_SURFACES = ("maignan", "ocean_mishchenko")
 
 
 def _mu(w):
@@ -29,6 +43,35 @@ def _mu(w):
 def lambertian_eval(params, wi, wo):
     rho = params["reflectance"]
     return torch.where((_mu(wi) > 0) & (_mu(wo) > 0), rho / math.pi, 0.0)
+
+
+def rpv_eval(params, wi, wo):
+    """Rahman, Pinty & Verstraete (1993) BRDF, the base of ``maignan``
+    (reference ``rpv_eval``); hot spot at wi == wo."""
+    rho_0, k, g = params["rho_0"], params["k"], params["g"]
+    rho_c = params.get("rho_c", rho_0)
+
+    mu_i = _mu(wi)
+    mu_o = _mu(wo)
+    valid = (mu_i > 1e-7) & (mu_o > 1e-7)
+    mu_i = torch.clamp(mu_i, min=1e-7)
+    mu_o = torch.clamp(mu_o, min=1e-7)
+
+    # Minnaert-like bowl term
+    M = (mu_i * mu_o * (mu_i + mu_o)) ** (k - 1.0)
+    # Henyey-Greenstein term; cos(Theta) = wi . wo (+1 at backscattering)
+    cos_T = wi[..., 0] * wo[..., 0] + wi[..., 1] * wo[..., 1] + wi[..., 2] * wo[..., 2]
+    F = (1.0 - g * g) / torch.clamp((1.0 + g * g + 2.0 * g * cos_T) ** 1.5, min=1e-12)
+    # hot-spot factor G = sqrt(tan^2 i + tan^2 o - 2 tan i tan o cos dphi)
+    ti = sqrt_rn(torch.clamp(1.0 - mu_i * mu_i, min=0.0)) / mu_i
+    to = sqrt_rn(torch.clamp(1.0 - mu_o * mu_o, min=0.0)) / mu_o
+    sin_i = sqrt_rn(torch.clamp(1.0 - mu_i * mu_i, min=1e-30))
+    sin_o = sqrt_rn(torch.clamp(1.0 - mu_o * mu_o, min=1e-30))
+    cos_dphi = torch.clamp((cos_T - mu_i * mu_o) / (sin_i * sin_o), -1.0, 1.0)
+    G = sqrt_rn(torch.clamp(ti * ti + to * to - 2.0 * ti * to * cos_dphi, min=0.0))
+    H = 1.0 + (1.0 - rho_c) / (1.0 + G)
+    # Rahman's rho is a BRF; BRDF = BRF / pi
+    return torch.where(valid, rho_0 * M * F * H / math.pi, 0.0)
 
 
 # Hapke (2012) IMSA with the shadow-hiding opposition effect and Hapke (1984)
@@ -153,14 +196,33 @@ def hapke_eval(params, wi, wo):
     return torch.where(valid, torch.clamp(f, min=0.0), 0.0)
 
 
-_EVAL = {"lambertian": lambertian_eval, "hapke": hapke_eval}
+def _maignan_eval(params, wi, wo):
+    from .bsdf_polarized import maignan_eval
+
+    return maignan_eval(params, wi, wo)
+
+
+def _ocean_mishchenko_eval(params, wi, wo):
+    from .bsdf_polarized import ocean_mishchenko_eval
+
+    return ocean_mishchenko_eval(params, wi, wo)
+
+
+# the scalar (I-I) components of the polarized surfaces, as the reference
+# registers them (lazy imports break the module cycle)
+_EVAL = {
+    "lambertian": lambertian_eval,
+    "hapke": hapke_eval,
+    "maignan": _maignan_eval,
+    "ocean_mishchenko": _ocean_mishchenko_eval,
+}
 
 
 def _check_kind(kind):
-    if kind not in SUPPORTED_BSDFS:
+    if kind != "black" and kind not in _EVAL:
         raise NotImplementedError(
             f"surface kind {kind!r} is not ported yet (supported: "
-            f"{', '.join(SUPPORTED_BSDFS)})"
+            f"{', '.join(SUPPORTED_BSDFS + POLARIZED_SURFACES)})"
         )
 
 

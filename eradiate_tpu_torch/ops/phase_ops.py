@@ -8,6 +8,8 @@ axis: blend weights are ``[B, C]``, fetched layer parameters ``[B]``.
 Conventions: ``cos_theta`` is the cosine between the incident and the
 scattered propagation directions; phase functions integrate to 1 over the
 sphere [1/sr]; sampling is exact (importance weight 1).
+:func:`phase_mueller_at` is the polarized tracers' blend of phase matrices
+(the reference's ``tracer_polarized._phase_mueller``).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import math
 import torch
 
 from .fastmath import cos_sin_2pi
+from .mueller import depolarizer, rayleigh_mueller
 
 __all__ = [
     "ortho_frame",
@@ -27,6 +30,7 @@ __all__ = [
     "rebuild_fetched",
     "phase_eval_at",
     "phase_sample_at",
+    "phase_mueller_at",
     "check_phase_kinds",
 ]
 
@@ -36,6 +40,11 @@ _SUPPORTED_KINDS = ("rayleigh",)
 def check_phase_kinds(phase_kinds):
     """Raise ``NotImplementedError`` for a component kind the port lacks."""
     for kind in phase_kinds:
+        if kind == "tab_polarized":
+            raise NotImplementedError(
+                "phase kind 'tab_polarized' (tabulated polarized phase matrices, "
+                "aerosols) is not ported yet"
+            )
         if kind not in _SUPPORTED_KINDS:
             raise NotImplementedError(
                 f"phase kind {kind!r} is not ported yet (supported: "
@@ -135,6 +144,24 @@ def phase_eval_at(phase_kinds, weights_at, params_at, cos_theta):
         total = total + weights_at[:, c] * _component_eval_at(
             phase_kinds[c], params_at[c], cos_theta
         )
+    return total
+
+
+def phase_mueller_at(phase_kinds, weights_at, params_at, cos_theta):
+    """Blend-weighted Mueller phase matrix ``[B, 4, 4]`` in scattering-plane
+    frames: Rayleigh components contribute their full matrices, scalar
+    components ideal depolarizers of their phase value (no polarization
+    memory)."""
+    total = None
+    for c, kind in enumerate(phase_kinds):
+        if kind == "rayleigh":
+            m = rayleigh_mueller(cos_theta, params_at[c]["depol"])
+        elif kind == "tab_polarized":
+            raise NotImplementedError("phase kind 'tab_polarized' is not ported yet")
+        else:
+            m = depolarizer(_component_eval_at(kind, params_at[c], cos_theta))
+        term = weights_at[:, c, None, None] * m
+        total = term if total is None else total + term
     return total
 
 

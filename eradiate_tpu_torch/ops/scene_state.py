@@ -33,7 +33,16 @@ __all__ = [
     "SceneConfig",
     "from_reference",
     "canopy_from_reference",
+    "SURFACE_PARAMS",
 ]
+
+#: The rows the polarized surfaces' parameters must hold (``maignan``: the
+#: RPV base and the Fresnel peak; ``ocean_mishchenko``: the Cox-Munk glint).
+#: A compiled scene that lacks one is refused on transfer.
+SURFACE_PARAMS = {
+    "maignan": ("rho_0", "k", "g", "C", "ndvi", "refr_re", "refr_im", "ext_ior"),
+    "ocean_mishchenko": ("wind_speed", "eta", "k", "ext_ior", "shadowing"),
+}
 
 
 @dataclasses.dataclass
@@ -140,6 +149,9 @@ def from_reference(scene, sensor, config, device):
     ``SceneArrays``/``SensorArrays``/``SceneConfig`` or the port's own; only
     field names are read, and every leaf goes through ``np.asarray``.
     Floating leaves become float32 (the port runs single precision only).
+    Surface parameters travel as they are, every row of every kind,
+    polarized ones (``maignan``, ``ocean_mishchenko``) included; a kind of
+    :data:`SURFACE_PARAMS` must carry its rows.
     A spherical-shell scene (``config.geometry == "spherical_shell"``) carries
     a :class:`SphericalMediumArrays`.
     """
@@ -168,6 +180,12 @@ def from_reference(scene, sensor, config, device):
             z_levels=_tensor(med.z_levels, device),
             tau_levels=_tensor(med.tau_levels, device),
             **common,
+        )
+    missing = set(SURFACE_PARAMS.get(config.surface_kind, ())) - set(scene.surface.params)
+    if missing:
+        raise ValueError(
+            f"surface kind {config.surface_kind!r}: the compiled scene lacks the "
+            f"parameter rows {sorted(missing)}"
         )
     surface = SurfaceArrays(
         params={k: _tensor(v, device) for k, v in scene.surface.params.items()}

@@ -63,8 +63,8 @@ def sqrt_rn(x):
     CUDA's ``sqrtf`` are. torch's vectorised CPU square root is off by one
     ulp for about 0.7% of float32 inputs; the float64 root rounded to
     float32 is correctly rounded (double rounding is innocuous for a square
-    root)."""
-    return torch.sqrt(x.double()).float()
+    root); float64 input keeps its own root."""
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def fma(a, b, c):

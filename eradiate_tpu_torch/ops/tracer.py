@@ -44,7 +44,7 @@ from .scene_state import (
     from_reference,
 )
 
-__all__ = ["render", "trace_paths_regen", "lane_partition"]
+__all__ = ["render", "trace_paths_regen", "lane_partition", "row_arrays", "row_key"]
 
 #: Lane-count target per device type. CPU keeps the reference's 2^14 so that
 #: CPU runs decompose like the reference's. On CUDA the eager loop costs
@@ -301,9 +301,14 @@ def _render_row_regen(
 
 
 def _check_supported(config):
-    """Raise ``NotImplementedError`` naming each feature this slice lacks."""
+    """Raise ``NotImplementedError`` naming each feature this slice lacks,
+    and for a polarized config, which has a renderer of its own."""
+    if config.polarized:
+        raise NotImplementedError(
+            "the scalar tracer does not render polarized transport: call "
+            "ops.tracer_polarized.render_polarized"
+        )
     unsupported = {
-        "polarized transport": config.polarized,
         f"geometry {config.geometry!r}": config.geometry != "plane_parallel",
         f"sampler {config.sampler!r}": config.sampler != "independent",
         f"illumination kind {config.illumination_kind!r}":
@@ -322,6 +327,37 @@ def _check_supported(config):
 def _row(x, s):
     """Row ``s`` of a per-spectral-row leaf (scalars are shared)."""
     return x[s] if isinstance(x, torch.Tensor) and x.ndim >= 1 else x
+
+
+def row_arrays(scene, s):
+    """``(medium_row, surface_row, illum_row)``: spectral row ``s`` of a
+    plane-parallel scene."""
+    med = scene.medium
+    il = scene.illumination
+    medium_row = MediumArrays(
+        z_levels=med.z_levels,
+        tau_levels=med.tau_levels[s],
+        albedo=med.albedo[s],
+        phase_weights=med.phase_weights[s],
+        phase_params=tuple({k: v[s] for k, v in p.items()} for p in med.phase_params),
+    )
+    surface_row = SurfaceArrays(
+        params={k: _row(v, s) for k, v in scene.surface.params.items()}
+    )
+    illum_row = IlluminationArrays(
+        direction=il.direction,
+        irradiance=il.irradiance[s],
+        cos_cutoff=_row(il.cos_cutoff, s),
+        sky_radiance=_row(il.sky_radiance, s),
+    )
+    return medium_row, surface_row, illum_row
+
+
+def row_key(seed, s, chunk_id, device):
+    """The chunk key ``[2]`` of spectral row ``s``: key(seed) -> fold_in(row)
+    -> fold_in(chunk), as the reference's renders derive it."""
+    key = threefry.fold_in(threefry.fold_in(threefry.key(seed), s), chunk_id)
+    return torch.tensor(key, dtype=torch.int64, device=device)
 
 
 def render(
@@ -345,36 +381,15 @@ def render(
     scene, sensor, config = from_reference(scene, sensor, config, dev)
     if lanes_target is None:
         lanes_target = REGEN_LANES_TARGET[dev.type]
-    med = scene.medium
-    il = scene.illumination
     n_pix = sensor.directions.shape[0]
-    base_key = threefry.key(seed)
 
     rads, m2s, iterations = [], [], 0
-    for s in range(med.tau_levels.shape[0]):
-        # key(seed) -> fold_in(row) -> fold_in(chunk 0), as _render_full
-        chunk_key = threefry.fold_in(threefry.fold_in(base_key, s), 0)
-        row_key = torch.tensor(chunk_key, dtype=torch.int64, device=dev)
-        medium_row = MediumArrays(
-            z_levels=med.z_levels,
-            tau_levels=med.tau_levels[s],
-            albedo=med.albedo[s],
-            phase_weights=med.phase_weights[s],
-            phase_params=tuple({k: v[s] for k, v in p.items()} for p in med.phase_params),
-        )
-        surface_row = SurfaceArrays(
-            params={k: _row(v, s) for k, v in scene.surface.params.items()}
-        )
-        illum_row = IlluminationArrays(
-            direction=il.direction,
-            irradiance=il.irradiance[s],
-            cos_cutoff=_row(il.cos_cutoff, s),
-            sky_radiance=_row(il.sky_radiance, s),
-        )
+    for s in range(scene.medium.tau_levels.shape[0]):
+        medium_row, surface_row, illum_row = row_arrays(scene, s)
         rad, m2, it = _render_row_regen(
             config, n_pix, spp, medium_row, surface_row, illum_row,
-            sensor.directions, row_key, sensor.target, sensor.ray_offset,
-            sensor.target_extent, lanes_target, check_every,
+            sensor.directions, row_key(seed, s, 0, dev), sensor.target,
+            sensor.ray_offset, sensor.target_extent, lanes_target, check_every,
         )
         rads.append(rad)
         m2s.append(m2)

@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import torch
 
-from ..core import threefry
 from ..core.device import resolve_device
 from .bsdf_ops import (
     SUPPORTED_BSDFS,
@@ -54,16 +53,11 @@ from .phase_ops import (
     phase_sample_at,
     rebuild_fetched,
 )
-from .scene_state import (
-    IlluminationArrays,
-    MediumArrays,
-    SurfaceArrays,
-    canopy_from_reference,
-    from_reference,
-)
-from .tracer import CHECK_EVERY, _row, lane_partition
+from .scene_state import canopy_from_reference, from_reference
+from .tracer import CHECK_EVERY, lane_partition, row_arrays, row_key
 
-__all__ = ["render_canopy", "trace_paths_canopy_regen"]
+__all__ = ["render_canopy", "trace_paths_canopy_regen", "lane_rays", "chunk_plan",
+           "canopy_rows"]
 
 #: Bounces between spatial lane sorts in the regenerative loop (0 = off).
 #: Sorting lanes by the Morton code of their position makes the rays of a
@@ -422,6 +416,26 @@ def trace_paths_canopy_regen(
     return L_out, m2_out, iterations
 
 
+def lane_rays(medium_row, directions, target, ray_offset, target_extent, pix):
+    """Per-lane ``(init_pos [B, 3], init_d [B, 3], ext [B, 2] or None)``: rays
+    start at TOA on the line through the target (``ray_offset`` NaN) or at
+    ``target + ray_offset * w_v``; ``ext`` jitters each sample's origin over
+    the footprint rectangle."""
+    B = pix.shape[0]
+    z_top = medium_row.z_levels[-1]
+    w_v = directions[pix]
+    tgt = target[pix] if target.ndim == 2 else target.expand(B, 3)
+    ext = None
+    if target_extent is not None:
+        ext = target_extent[pix] if target_extent.ndim == 2 else target_extent.expand(B, 2)
+    t_up = torch.where(
+        torch.isnan(ray_offset),
+        (z_top - tgt[:, 2]) / torch.clamp(w_v[:, 2], min=1e-6),
+        ray_offset,
+    )
+    return tgt + w_v * t_up[:, None], -w_v, ext
+
+
 def _render_row_canopy(
     config, n_pix, spp, medium_row, surface_row, leaf_row, leaves, illum_row,
     directions, target, ray_offset, key, target_extent, lanes_target, sort_every,
@@ -432,23 +446,11 @@ def _render_row_canopy(
     lp, pix, _, lane_first, quota = lane_partition(
         n_pix, spp, lanes_target, directions.device
     )
-    B = n_pix * lp
-    z_top = medium_row.z_levels[-1]
-    w_v = directions[pix]
-    tgt = target[pix] if target.ndim == 2 else target.expand(B, 3)
-    ext = None
-    if target_extent is not None:
-        ext = target_extent[pix] if target_extent.ndim == 2 else target_extent.expand(B, 2)
-    # start at TOA on the line through the target, unless ray_offset is
-    # finite (start at target + ray_offset * w_v)
-    t_up = torch.where(
-        torch.isnan(ray_offset),
-        (z_top - tgt[:, 2]) / torch.clamp(w_v[:, 2], min=1e-6),
-        ray_offset,
+    init_pos, init_d, ext = lane_rays(
+        medium_row, directions, target, ray_offset, target_extent, pix
     )
-    init_pos = tgt + w_v * t_up[:, None]
     L_sum, m2_sum, iterations = trace_paths_canopy_regen(
-        config, medium_row, surface_row, leaf_row, leaves, illum_row, init_pos, -w_v,
+        config, medium_row, surface_row, leaf_row, leaves, illum_row, init_pos, init_d,
         key, lane_first, quota, ext=ext, sort_every=sort_every, check_every=check_every,
         tris=tris, tri_row=tri_row,
     )
@@ -458,9 +460,14 @@ def _render_row_canopy(
 
 
 def _check_supported(config):
-    """Raise ``NotImplementedError`` naming each feature this slice lacks."""
+    """Raise ``NotImplementedError`` naming each feature this slice lacks,
+    and for a polarized config, which has a renderer of its own."""
+    if config.polarized:
+        raise NotImplementedError(
+            "the scalar canopy tracer does not render polarized transport: call "
+            "ops.tracer_canopy_polarized.render_canopy_polarized"
+        )
     unsupported = {
-        "polarized canopy transport": config.polarized,
         f"geometry {config.geometry!r} for canopy scenes":
             config.geometry != "plane_parallel",
         f"sampler {config.sampler!r}": config.sampler != "independent",
@@ -507,55 +514,22 @@ def render_canopy(
     )
     if lanes_target is None:
         lanes_target = LANES_TARGET[dev.type]
-    med = scene.medium
-    il = scene.illumination
-    n_pix = sensor.directions.shape[0]
-    S = med.tau_levels.shape[0]
+    S, n_pix = scene.medium.tau_levels.shape[0], sensor.directions.shape[0]
+    chunks = chunk_plan(spp, spp_chunk, S, n_pix, dev.type)
 
-    if spp_chunk is None:
-        max_spp = max(1, PATHS_PER_DISPATCH[dev.type] // max(S * n_pix, 1))
-        if spp > max_spp:
-            spp_chunk = max_spp
-    step = spp_chunk or spp
-    chunks = [min(step, spp - start) for start in range(0, spp, step)]
-
-    base_key = threefry.key(seed)
     rad_sum = torch.zeros((S, n_pix), dtype=torch.float32, device=dev)
     m2_sum = torch.zeros((S, n_pix), dtype=torch.float32, device=dev)
     iterations = 0
-    for chunk_id, n in enumerate(chunks):
-        for s in range(S):
-            chunk_key = threefry.fold_in(threefry.fold_in(base_key, s), chunk_id)
-            row_key = torch.tensor(chunk_key, dtype=torch.int64, device=dev)
-            medium_row = MediumArrays(
-                z_levels=med.z_levels,
-                tau_levels=med.tau_levels[s],
-                albedo=med.albedo[s],
-                phase_weights=med.phase_weights[s],
-                phase_params=tuple(
-                    {k: v[s] for k, v in p.items()} for p in med.phase_params
-                ),
-            )
-            surface_row = SurfaceArrays(
-                params={k: _row(v, s) for k, v in scene.surface.params.items()}
-            )
-            illum_row = IlluminationArrays(
-                direction=il.direction,
-                irradiance=il.irradiance[s],
-                cos_cutoff=_row(il.cos_cutoff, s),
-                sky_radiance=_row(il.sky_radiance, s),
-            )
-            leaf_row = {k: v[s] for k, v in leaf_params.items()}
-            tri_row = None if tris is None else {k: v[s] for k, v in tri_params.items()}
-            rad, m2, it = _render_row_canopy(
-                config, n_pix, n, medium_row, surface_row, leaf_row, leaves, illum_row,
-                sensor.directions, sensor.target, sensor.ray_offset, row_key,
-                sensor.target_extent, lanes_target, sort_every, check_every,
-                tris, tri_row,
-            )
-            rad_sum[s] += rad * n
-            m2_sum[s] += m2 * n
-            iterations += it
+    for n, s, key, rows in canopy_rows(scene, leaf_params, tri_params, seed, chunks, dev):
+        medium_row, surface_row, leaf_row, illum_row, tri_row = rows
+        rad, m2, it = _render_row_canopy(
+            config, n_pix, n, medium_row, surface_row, leaf_row, leaves, illum_row,
+            sensor.directions, sensor.target, sensor.ray_offset, key,
+            sensor.target_extent, lanes_target, sort_every, check_every, tris, tri_row,
+        )
+        rad_sum[s] += rad * n
+        m2_sum[s] += m2 * n
+        iterations += it
     traced = sum(chunks)
     return {
         "radiance": rad_sum / traced,
@@ -563,3 +537,28 @@ def render_canopy(
         "spp": traced,
         "iterations": iterations,
     }
+
+
+def chunk_plan(spp, spp_chunk, S, n_pix, device_type):
+    """Samples of each chunk: ``spp_chunk`` each, by default as many as
+    :data:`PATHS_PER_DISPATCH` allows for ``S`` rows of ``n_pix`` pixels."""
+    if spp_chunk is None:
+        max_spp = max(1, PATHS_PER_DISPATCH[device_type] // max(S * n_pix, 1))
+        if spp > max_spp:
+            spp_chunk = max_spp
+    step = spp_chunk or spp
+    return [min(step, spp - start) for start in range(0, spp, step)]
+
+
+def canopy_rows(scene, leaf_params, tri_params, seed, chunks, dev):
+    """For each chunk and spectral row: ``(n, s, key, (medium_row,
+    surface_row, leaf_row, illum_row, tri_row))``, ``n`` the chunk's samples
+    and ``key`` its row key ``fold_in(fold_in(key(seed), s), chunk)``."""
+    for chunk_id, n in enumerate(chunks):
+        for s in range(scene.medium.tau_levels.shape[0]):
+            medium_row, surface_row, illum_row = row_arrays(scene, s)
+            leaf_row = {k: v[s] for k, v in leaf_params.items()}
+            tri_row = None if tri_params is None else {k: v[s] for k, v in tri_params.items()}
+            yield n, s, row_key(seed, s, chunk_id, dev), (
+                medium_row, surface_row, leaf_row, illum_row, tri_row
+            )

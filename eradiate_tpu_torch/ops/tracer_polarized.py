@@ -1,0 +1,364 @@
+"""Regenerative wavefront path tracer with polarized (Stokes/Mueller)
+transport, plane-parallel geometry.
+
+Port of ``eradiate_tpu/ops/tracer_polarized.py`` (``render_polarized``).
+Backward tracing accumulates the left Mueller product
+
+    P_k = M_1 R_1 ... M_{k-1}            (4x4 per lane)
+
+so that every next-event connection adds ``P_k R M_phase(theta) S_sun``
+with ``S_sun = E [1, 0, 0, 0]`` (unpolarized sun). Directions are sampled
+from the scalar phase function and the Mueller weight divides by its pdf,
+which keeps every Stokes component unbiased. Each lane carries the
+reference basis ``b`` of its current light segment; scattering frames use
+the in-plane ("parallel") convention of :func:`.mueller.rayleigh_mueller`;
+the output Stokes vectors are referenced to the viewing direction's
+meridian basis.
+
+As in the reference, the sun is an ideal directional emitter here (no cone
+sampling), an escaping path adds nothing (no sky term), and the per-bounce
+uniform slots are those of the scalar tracer, so a scalar and a polarized
+run with one seed trace the same paths. Each collision is resolved by the
+collision fetch (:func:`.medium.collision_fetch`: K1 on the card, its plain
+twin on the CPU), which also fetches the layer's albedo, phase weights and
+Rayleigh depolarization. The eager loop, its host ``done`` check every
+``check_every`` iterations and the random streams are those of
+:mod:`.tracer`; the 4x4 products are :mod:`.mueller`'s fixed-order sums.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.device import resolve_device
+from .bsdf_ops import POLARIZED_SURFACES, SUPPORTED_BSDFS, bsdf_sample_from_uniforms
+from .bsdf_polarized import surface_mueller
+from .fastrng import bounce_uniforms, derive_keys
+from .medium import clamp_mu, collision_fetch, tau_at_z
+from .mueller import (
+    cross,
+    default_basis,
+    dot,
+    matmul4,
+    matvec4,
+    norm,
+    rotate_basis_angle,
+    rotator,
+)
+from .phase_ops import (
+    check_phase_kinds,
+    layer_param_slots,
+    ortho_frame,
+    phase_eval_at,
+    phase_mueller_at,
+    phase_sample_at,
+    rebuild_fetched,
+)
+from .scene_state import from_reference
+from .tracer import CHECK_EVERY, REGEN_LANES_TARGET, lane_partition, row_arrays, row_key
+
+__all__ = ["render_polarized", "trace_paths_polarized_regen", "scatter_frames"]
+
+#: Surface kinds of the polarized tracers.
+SUPPORTED_SURFACES = SUPPORTED_BSDFS + POLARIZED_SURFACES
+
+
+def scatter_frames(l_in, l_out):
+    """In-plane bases ``(h_in, h_out)`` of the scattering plane spanned by
+    the light propagation directions ``l_in -> l_out`` [B, 3]; where
+    ``|l_in x l_out| <= 1e-7`` (forward and backward scattering) the plane's
+    normal is an arbitrary perpendicular of ``l_in`` (reference
+    ``_scatter_frames``)."""
+    n = cross(l_in, l_out)
+    nn = norm(n)[:, None]
+    t1, _ = ortho_frame(l_in)
+    n = torch.where(nn > 1e-7, n / torch.clamp(nn, min=1e-12), t1)
+    h_in = cross(n, l_in)
+    h_in = h_in / torch.clamp(norm(h_in)[:, None], min=1e-12)
+    h_out = cross(n, l_out)
+    h_out = h_out / torch.clamp(norm(h_out)[:, None], min=1e-12)
+    return h_in, h_out
+
+
+def unpolarized(value):
+    """Stokes vectors ``[B, 4]`` of unpolarized light of intensity
+    ``value`` [B]."""
+    z = torch.zeros_like(value)
+    return torch.stack([value, z, z, z], dim=-1)
+
+
+def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
+    """Per-bounce Mueller transition shared by every lane: returns
+    ``bounce(depth, z, xy, d, P, b, beta, keys) -> (S_add, z', xy', d', P',
+    b', beta', alive')``; updates are unconditional (the caller masks
+    finished lanes)."""
+    z_levels = medium_row.z_levels
+    tau_levels = medium_row.tau_levels
+    tau_top = tau_levels[-1]
+    z_bottom = z_levels[0]
+
+    d_sun = illum_row.direction
+    mu_sun = clamp_mu(-d_sun[2])
+    w_sun = -d_sun
+    E_sun = illum_row.irradiance
+    T_sun_bottom = torch.exp(-tau_top / mu_sun)
+
+    C = len(config.phase_kinds)
+    param_tables, param_slots = layer_param_slots(
+        config.phase_kinds, medium_row.phase_params
+    )
+    # albedo, blend weights and layer-indexed phase parameters (Rayleigh
+    # depolarization), fetched by the collision fetch in one launch a bounce
+    fetch_tables = torch.stack(
+        [medium_row.albedo]
+        + [medium_row.phase_weights[c] for c in range(C)]
+        + param_tables
+    ).contiguous()
+
+    def tau_z(z):
+        return tau_at_z(z, z_levels, tau_levels)
+
+    def bounce(depth, z, xy, d, P, b, beta, keys):
+        B = z.shape[0]
+        # the scalar tracer's slot layout (slots 1-2, its sun cone, unused)
+        U = bounce_uniforms(keys, depth, 10)
+        u_dist = U[:, 0]
+        u_ph_sel, u_ph_cos, u_ph_phi = U[:, 3], U[:, 4:6], U[:, 6]
+        u_srf = U[:, 7:9]
+        u_rr = U[:, 9]
+        d_sun_b = d_sun.expand(B, 3)
+
+        mu = clamp_mu(d[:, 2])
+        tau_here = tau_z(z)
+        tau_exit = torch.where(mu > 0.0, (tau_top - tau_here) / mu, tau_here / (-mu))
+        tau_s = -torch.log1p(-u_dist)
+        collide = tau_s < tau_exit
+
+        # ---- volume collision (K1: z, layer and the layer's tables) ------
+        tau_new = torch.minimum(torch.clamp(tau_here + mu * tau_s, min=0.0), tau_top)
+        z_col, _, fetched = collision_fetch(tau_new, z_levels, tau_levels, fetch_tables)
+        albedo_col = fetched[0]
+        weights_at = fetched[1 : 1 + C].T  # [B, C]
+        params_at = rebuild_fetched(config.phase_kinds, param_slots, fetched[1 + C :])
+        xy_col = xy + d[:, :2] * ((z_col - z) / mu)[:, None]
+
+        l_out = -d  # light leaves the vertex toward the sensor path
+
+        # NEE at the collision
+        cos_nee = dot(d_sun_b, l_out)
+        _, h_out_nee = scatter_frames(d_sun_b, l_out)
+        M_nee = phase_mueller_at(config.phase_kinds, weights_at, params_at, cos_nee)
+        R_out = rotator(rotate_basis_angle(l_out, h_out_nee, b))
+        T_sun = torch.exp(-(tau_top - tau_z(z_col)) / mu_sun)
+        S_sun = unpolarized(E_sun * T_sun * albedo_col * beta)
+        S_col = matvec4(P, matvec4(R_out, matvec4(M_nee, S_sun)))
+
+        # sampled continuation
+        d_new = phase_sample_at(
+            config.phase_kinds, weights_at, params_at, d, u_ph_sel, u_ph_cos, u_ph_phi
+        )
+        cos_scat = dot(d_new, d)
+        p_scalar = phase_eval_at(config.phase_kinds, weights_at, params_at, cos_scat)
+        h_in_s, h_out_s = scatter_frames(-d_new, l_out)
+        M_s = phase_mueller_at(config.phase_kinds, weights_at, params_at, cos_scat)
+        R_s = rotator(rotate_basis_angle(l_out, h_out_s, b))
+        M_full = matmul4(R_s, M_s) / torch.clamp(p_scalar, min=1e-30)[:, None, None]
+        P_col = matmul4(P, M_full)
+        beta_col = beta * albedo_col
+
+        # ---- surface hit (Mueller-general; scalar kinds depolarize) -----
+        hit_surface = (~collide) & (mu < 0.0) & config.has_surface
+        xy_surf = xy + d[:, :2] * ((z_bottom - z) / mu)[:, None]
+        wo = -d
+        # NEE: incident light propagates along d_sun, leaves along wo
+        M_nee_srf = surface_mueller(
+            config.surface_kind, surface_row.params, w_sun.expand(B, 3), wo
+        )
+        _, h_out_srf = scatter_frames(d_sun_b, wo)
+        R_out_srf = rotator(rotate_basis_angle(wo, h_out_srf, b))
+        S_sun_srf = unpolarized(beta * mu_sun * T_sun_bottom * E_sun)
+        S_surf = matvec4(P, matvec4(R_out_srf, matvec4(M_nee_srf, S_sun_srf)))
+
+        # sampled continuation: light would come from d_srf (propagating
+        # along -d_srf) and leave along wo
+        d_srf, w_srf = bsdf_sample_from_uniforms(
+            config.surface_kind, surface_row.params, wo, u_srf
+        )
+        M_cont = surface_mueller(config.surface_kind, surface_row.params, d_srf, wo)
+        h_in_c, h_out_c = scatter_frames(-d_srf, wo)
+        R_out_c = rotator(rotate_basis_angle(wo, h_out_c, b))
+        f_scalar = torch.clamp(M_cont[:, 0, 0], min=1e-30)
+        P_surf = matmul4(P, matmul4(R_out_c, M_cont / f_scalar[:, None, None]))
+        beta_surf = beta * w_srf
+
+        # ---- combine ----------------------------------------------------
+        S_add = torch.where(
+            collide[:, None], S_col, torch.where(hit_surface[:, None], S_surf, 0.0)
+        )
+        z2 = torch.where(collide, z_col, z_bottom)
+        xy2 = torch.where(collide[:, None], xy_col, xy_surf)
+        d2 = torch.where(collide[:, None], d_new, d_srf)
+        P2 = torch.where(
+            collide[:, None, None], P_col, torch.where(hit_surface[:, None, None], P_surf, P)
+        )
+        b2 = torch.where(collide[:, None], h_in_s, h_in_c)
+        beta2 = torch.where(collide, beta_col, torch.where(hit_surface, beta_surf, 0.0))
+        alive2 = (collide | hit_surface) & (beta2 > 0.0)
+
+        # ---- Russian roulette: reweights beta once, not P (every
+        # contribution is P ... S_in(beta ...), so scaling P too would
+        # square the 1/q factor)
+        do_rr = depth >= config.rr_depth
+        q = torch.clamp(beta2, 0.0, 0.95)
+        survive = u_rr < q
+        beta2 = beta2 * torch.where(do_rr & alive2 & survive, 1.0 / q, 1.0)
+        alive2 = alive2 & (survive | ~do_rr)
+        return S_add, z2, xy2, d2, P2, b2, beta2, alive2
+
+    return bounce
+
+
+def trace_paths_polarized_regen(
+    config, medium_row, surface_row, illum_row, init_z, init_xy, init_d,
+    row_key, lane_first, quota, check_every=CHECK_EVERY,
+):
+    """Regenerative Mueller trace (see :func:`.tracer.trace_paths_regen`):
+    lane ``l`` renders samples ``lane_first[l] .. lane_first[l] + quota[l] -
+    1`` of its pixel, each from a fresh ``P = I`` and the meridian basis of
+    its viewing direction. Returns ``(S_sum [B, 4], m2_sum [B], iterations)``:
+    per-lane sums of the samples' Stokes vectors and of their I squared, and
+    the bounce iterations run."""
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    B = init_z.shape[0]
+    dev, dtype = init_z.device, init_z.dtype
+    bounce = _make_bounce_polarized(config, medium_row, surface_row, illum_row)
+    b_init = default_basis(-init_d)
+    eye4 = torch.eye(4, dtype=dtype, device=dev).expand(B, 4, 4)
+
+    s_local = torch.zeros(B, dtype=torch.int64, device=dev)
+    depth = torch.zeros(B, dtype=torch.int64, device=dev)
+    keys = derive_keys(row_key, lane_first)
+    z, xy, d, P, b = init_z, init_xy, init_d, eye4, b_init
+    beta = torch.ones(B, dtype=dtype, device=dev)
+    S_cur = torch.zeros((B, 4), dtype=dtype, device=dev)
+    S_sum = torch.zeros((B, 4), dtype=dtype, device=dev)
+    m2_sum = torch.zeros(B, dtype=dtype, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+
+    iterations = 0
+    while True:
+        S_add, z2, xy2, d2, P2, b2, beta2, alive2 = bounce(
+            depth, z, xy, d, P, b, beta, keys
+        )
+        active = ~done
+        S_cur = S_cur + torch.where(active[:, None], S_add, 0.0)
+        depth = depth + 1
+        path_end = active & (~alive2 | (depth >= config.max_depth))
+
+        S_sum = S_sum + torch.where(path_end[:, None], S_cur, 0.0)
+        m2_sum = m2_sum + torch.where(path_end, S_cur[:, 0] * S_cur[:, 0], 0.0)
+        s_local = s_local + path_end
+        done = done | (s_local >= quota)
+
+        # regenerate: a fresh path, P and basis for the lane's next sample
+        regen = path_end & ~done
+        keys = torch.where(regen[:, None], derive_keys(row_key, lane_first + s_local), keys)
+        z = torch.where(regen, init_z, z2)
+        xy = torch.where(regen[:, None], init_xy, xy2)
+        d = torch.where(regen[:, None], init_d, d2)
+        P = torch.where(regen[:, None, None], eye4, P2)
+        b = torch.where(regen[:, None], b_init, b2)
+        beta = torch.where(regen, 1.0, beta2)
+        S_cur = torch.where(path_end[:, None], 0.0, S_cur)
+        depth = torch.where(regen, 0, depth)
+
+        iterations += 1
+        if iterations % check_every == 0 and bool(done.all()):
+            return S_sum, m2_sum, iterations
+
+
+def _render_row_polarized(
+    config, n_pix, spp, medium_row, surface_row, illum_row, directions, key,
+    lanes_target, check_every,
+):
+    """One spectral row: every lane starts at the top of the atmosphere
+    above the origin, along its pixel's view direction (reference
+    ``_render_row_polarized``). Returns (stokes [N, 4], m2 [N],
+    iterations)."""
+    lp, pix, _, lane_first, quota = lane_partition(
+        n_pix, spp, lanes_target, directions.device
+    )
+    B = n_pix * lp
+    z_top = medium_row.z_levels[-1]
+    S_sum, m2_sum, iterations = trace_paths_polarized_regen(
+        config, medium_row, surface_row, illum_row, z_top.expand(B).contiguous(),
+        torch.zeros((B, 2), dtype=z_top.dtype, device=z_top.device), -directions[pix],
+        key, lane_first, quota, check_every=check_every,
+    )
+    stokes = S_sum.reshape(n_pix, lp, 4).sum(dim=1) / spp
+    m2 = m2_sum.reshape(n_pix, lp).sum(dim=1) / spp
+    return stokes, m2, iterations
+
+
+def _check_supported(config):
+    """Raise ``NotImplementedError`` naming each feature this slice lacks;
+    ``ValueError`` for an unpolarized config."""
+    if not config.polarized:
+        raise ValueError("config.polarized is False: render it with ops.tracer.render")
+    unsupported = {
+        f"polarized geometry {config.geometry!r}": config.geometry != "plane_parallel",
+        f"sampler {config.sampler!r}": config.sampler != "independent",
+        f"illumination kind {config.illumination_kind!r}":
+            config.illumination_kind != "directional",
+        "lr_flight": config.lr_flight,
+        f"rng {config.rng!r}": config.rng != "pcg4d",
+        f"polarized surface kind {config.surface_kind!r}":
+            config.surface_kind not in SUPPORTED_SURFACES,
+    }
+    for feature, missing in unsupported.items():
+        if missing:
+            raise NotImplementedError(f"{feature} is not ported yet")
+    check_phase_kinds(config.phase_kinds)
+
+
+def render_polarized(
+    scene, sensor, config, spp, seed=0, *, device="cuda", lanes_target=None,
+    check_every=CHECK_EVERY,
+):
+    """Polarized render of the spectral batch of one distant-sensor bank.
+
+    ``scene``/``sensor``/``config`` are a compiled scene with
+    ``config.polarized`` (the reference's or the port's), moved to
+    ``device`` first; ``lanes_target`` (default
+    :data:`.tracer.REGEN_LANES_TARGET`) changes only the float summation
+    order. Returns a dict with ``stokes`` [S, N, 4] (meridian-aligned),
+    ``radiance`` [S, N] (= I), ``m2`` [S, N] (second moment of I), ``spp`` and
+    ``iterations`` (bounce iterations, summed over rows; one collision fetch
+    each).
+    """
+    _check_supported(config)
+    dev = resolve_device(device)
+    scene, sensor, config = from_reference(scene, sensor, config, dev)
+    if lanes_target is None:
+        lanes_target = REGEN_LANES_TARGET[dev.type]
+    n_pix = sensor.directions.shape[0]
+
+    stokes, m2s, iterations = [], [], 0
+    for s in range(scene.medium.tau_levels.shape[0]):
+        medium_row, surface_row, illum_row = row_arrays(scene, s)
+        st, m2, it = _render_row_polarized(
+            config, n_pix, spp, medium_row, surface_row, illum_row, sensor.directions,
+            row_key(seed, s, 0, dev), lanes_target, check_every,
+        )
+        stokes.append(st)
+        m2s.append(m2)
+        iterations += it
+    stokes = torch.stack(stokes)
+    return {
+        "stokes": stokes,
+        "radiance": stokes[..., 0],
+        "m2": torch.stack(m2s),
+        "spp": spp,
+        "iterations": iterations,
+    }

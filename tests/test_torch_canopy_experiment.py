@@ -239,13 +239,15 @@ def _with_tree(**overrides):
 
 @pytest.mark.parametrize(
     "kind, name",
-    [("tree", "AbstractTree"), ("spot", "SpotIllumination"), ("polarized", "polarized"),
-     ("tris", "triangle meshes"), ("spot-config", "spot emitter")],
+    [("tree", "AbstractTree"), ("spot", "SpotIllumination"),
+     ("polarized", "render_canopy_polarized"), ("tris", "triangle meshes"),
+     ("spot-config", "spot emitter")],
 )
 def test_unported_features_raise(mono_single, kind, name):
     """Trees and triangle meshes are ported (``test_torch_tree_experiment.py``);
     what still raises with them is what raises without them: the spot
-    emitter and polarized transport."""
+    emitter, and a polarized config given to the scalar tracer, which names
+    the polarized renderer."""
     if kind == "tree":
         brf = np.asarray(eradiate_tpu_torch.run(_with_tree(), spp=8, device="cpu")["brf"])
         assert np.isfinite(brf).all()
@@ -262,7 +264,7 @@ def test_unported_features_raise(mono_single, kind, name):
     if kind == "tris":
         scene, sensor, config, leaf_params, leaves, tris, tri_params = compiled(_with_tree())
         assert tris.canonical.v0.shape == (36, 3)
-        with pytest.raises(NotImplementedError, match="polarized"):
+        with pytest.raises(NotImplementedError, match="render_canopy_polarized"):
             render_canopy(scene, leaf_params, leaves, sensor,
                           dataclasses.replace(config, polarized=True), spp=8, device="cpu",
                           tris=tris, tri_params=tri_params)
@@ -277,9 +279,12 @@ def test_unported_features_raise(mono_single, kind, name):
 
 
 def test_polarized_mode_raises():
-    eradiate_tpu_torch.set_mode("mono_polarized_single")
+    """``mono_polarized`` names the double-precision polarized mode, which is
+    not ported (``mono_polarized_single`` is:
+    ``test_torch_polarized_canopy.py``)."""
+    eradiate_tpu_torch.set_mode("mono_polarized")
     try:
-        with pytest.raises(NotImplementedError, match="mono_polarized_single"):
+        with pytest.raises(NotImplementedError, match="mono_polarized_double"):
             eradiate_tpu_torch.run(port_exp(), spp=8, device="cpu")
     finally:
         eradiate_tpu_torch.set_mode("mono")

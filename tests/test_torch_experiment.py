@@ -2,8 +2,9 @@
 
 ``compile_scene`` leaves are bitwise the reference's; ``run`` at the same
 seed matches ``eradiate_tpu.run`` within 1e-5 relative and returns the same
-dataset layout; the port imports and runs c1, c4 and a small canopy with
-``jax`` and ``eradiate_tpu`` blocked; asking for CUDA without a card raises.
+dataset layout; the port imports and runs c1, c4, a small canopy and a
+polarized c1 with ``jax`` and ``eradiate_tpu`` blocked; asking for CUDA
+without a card raises.
 The two packages share no objects: each has its own mode and seed state.
 """
 
@@ -113,8 +114,9 @@ def test_run_matches_reference(mono_single):
 
 
 def test_runs_with_jax_blocked():
-    """c1, c4 and the small canopy case run with ``jax`` and ``eradiate_tpu``
-    both unimportable, and load neither."""
+    """c1, c4, the small canopy case and c1 with Stokes output
+    (``mono_polarized_single``) run with ``jax`` and ``eradiate_tpu`` both
+    unimportable, and load neither."""
     code = textwrap.dedent(
         f"""
         import sys
@@ -156,6 +158,12 @@ def test_runs_with_jax_blocked():
             brf = np.asarray(ds["brf"])
             assert brf.shape == (1, 11) and np.isfinite(brf).all(), brf
             means.append(float(brf.mean()))
+        etp.set_mode("mono_polarized_single")  # c1 with Stokes output
+        ds = etp.run(c1, spp={SPP}, seed_state=etp.SeedState(7), device="cpu")
+        stokes = np.stack([np.asarray(ds[c]) for c in "IQUV"], -1)
+        assert stokes.shape == (1, 11, 4) and np.isfinite(stokes).all(), stokes
+        assert np.asarray(ds["dolp"]).max() > 0.05
+        means.append(float(stokes[..., 0].mean()))
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "eradiate_tpu")]
         assert not [m for m in bad if sys.modules[m] is not None], bad
         print("OK", means)
@@ -175,7 +183,7 @@ def test_cuda_without_card_raises(mono_single, monkeypatch):
         eradiate_tpu_torch.run(AtmosphereExperiment(**c1_kwargs()), spp=8, device="cuda")
 
 
-@pytest.mark.parametrize("mode_id", ["mono_double", "mono_polarized_single", "ckd_single"])
+@pytest.mark.parametrize("mode_id", ["mono_double", "mono_polarized_double", "ckd_single"])
 def test_unported_modes_raise(mode_id):
     eradiate_tpu_torch.set_mode(mode_id)
     try:

@@ -95,7 +95,7 @@ def test_lane_partition_tiles_sample_ids(spp):
 @pytest.mark.parametrize(
     "field, value, name",
     [
-        ("polarized", True, "polarized"),
+        ("polarized", True, "render_polarized"),
         ("geometry", "spherical_shell", "spherical_shell"),
         ("sampler", "stratified", "stratified"),
         ("phase_kinds", ("hg",), "'hg'"),

@@ -58,6 +58,7 @@ MODULES = [
     "physics/shell_merge.py",
     "physics/solar_data.py",
     "physics/thermoprops.py",
+    "physics/vector_doubling.py",
     "physics/zgrid.py",
     "pipelines/__init__.py",
     "pipelines/logic.py",
