@@ -28,7 +28,15 @@ script writes as an OBJ file into a temporary directory from a seed
 also run with polarized transport, in ``mono_polarized_single`` (``bench.py``
 names ``mono_polarized``, the double-precision mode, whose path state the
 JAX package keeps in float32 unless x64 is on; the port's double modes are
-not ported). Phases, each fatal on failure:
+not ported). BASELINE config 2 (``_c2``): an RPV floor under the AFGL
+Rayleigh column with a 0-2 km continental aerosol layer (tau 0.2 at 550 nm,
+the packaged Govaerts 2021 dataset, a tabulated phase function on 181
+nodes), sun at SZA 30, 76 view zeniths at 2097152 spp. BASELINE config 3
+(``_c3``): the synthetic CKD database over the Sentinel-2A MSI band 4
+response, a Lambertian floor of 0.2, 76 view zeniths at 65536 spp on each
+of 56 spectral rows (7 bins x 8 g-points), in ``ckd_single`` (``bench.py``
+names ``ckd``, the double mode, which the port does not render). Phases,
+each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. the build of the port's CUDA kernels from ``eradiate_tpu_torch/csrc``;
@@ -198,7 +206,23 @@ not ported). Phases, each fatal on failure:
 23. polarized c5 at full width (instanced, 19 x 2097152), as phase 21 with
     40 iterations profiled after the first 20: K7 nearest-hit and any-hit
     launches must each equal the bounce iterations, each one's device time
-    a launch inside the run; the BRF at nadir beside phase 13's.
+    a launch inside the run; the BRF at nadir beside phase 13's;
+24. the collision-fetch kernel against its twin as in phase 3 on c2's
+    merged column (46 layers, K = 4: albedo, the Rayleigh and aerosol blend
+    weights, the depolarisation) at the c2 path's lane count, timed as in
+    phase 3 with its bound, ragged and from a misaligned view, and on c3's
+    most absorbing row (37 layers, K = 3) at its lane count;
+25. c2 (``mono_single``) and c3 (``ckd_single``) on CUDA against the CPU,
+    11 view zeniths and 256 spp at one seed: BRF within 1e-4 relative and
+    every pixel within |z| <= 5, and so every raw spectral row (c3's 56)
+    before the CKD aggregation;
+26. c2 at full width (76 x 2097152), as phase 21 with 48 iterations
+    profiled after the first 64: K1's launches must equal the bounce
+    iterations, and no other kernel launches; K1's device time a launch
+    inside the run;
+27. c3 at full width (76 x 65536 x 56 rows), the same with 48 iterations
+    profiled after the first 100; the iterations of each row, which must
+    sum to K1's launches.
 
 It prints a ``{"kernels": [...]}`` line (each kernel with its launches on its
 main path, its error against the plain version, its call time (``ms``) and
@@ -242,6 +266,11 @@ N_VZA_C4 = 15
 SPP_C4 = 2097152
 N_VZA_C5 = 19
 SPP_C5 = 2097152
+SPP_C2 = 2097152
+SPP_C3 = 65536
+#: Spectral rows of c3 in ``ckd_single``: the 7 bins of Sentinel-2A MSI band 4
+#: times 8 g-points.
+ROWS_C3 = 56
 SEED = 1
 #: Branches of the wood skeleton of the ``wood`` form (24 triangles each).
 WOOD_BRANCHES = 256
@@ -346,6 +375,39 @@ def _c4(sza=75.0, shell_merge_tol=1e-3, sun_tau_table="auto"):
         },
         surface={"type": "hapke"},
         atmosphere={"type": "molecular"},
+    )
+
+
+def _c2(n_vza):
+    """BASELINE config 2 (``bench.py`` ``_c2``), from the port's copy of its
+    factory: RPV floor, AFGL Rayleigh with a 0-2 km continental aerosol
+    layer (tau 0.2 at 550 nm), SZA 30."""
+    from eradiate_tpu_torch.test_tools.test_cases import create_rpv_afgl1986_continental_brfpp
+
+    return create_rpv_afgl1986_continental_brfpp(n_vza=n_vza)
+
+
+def _c3(n_vza):
+    """BASELINE config 3 (``bench.py`` ``_c3``): the synthetic CKD database,
+    the Sentinel-2A MSI band 4 response, a Lambertian floor of 0.2, at most
+    8 g-points a bin; render it in ``ckd_single``."""
+    from eradiate_tpu_torch import AtmosphereExperiment
+    from eradiate_tpu_torch.physics.absorption import make_synthetic_ckd_db
+
+    return AtmosphereExperiment(
+        illumination={"type": "directional", "zenith": 30.0, "azimuth": 0.0},
+        measures={
+            "type": "mdistant",
+            "construct": "hplane",
+            "zeniths": np.linspace(-75, 75, n_vza),
+            "azimuth": 0.0,
+            "srf": "sentinel_2a-msi-4",
+            "id": "m",
+        },
+        surface={"type": "lambertian", "reflectance": 0.2},
+        atmosphere={"type": "molecular",
+                    "absorption_data": make_synthetic_ckd_db(base_sigma=2e-3, ng=8)},
+        ckd_quad_config={"ng_max": 8},
     )
 
 
@@ -2029,6 +2091,131 @@ def c4_lr_flight_full_width(spp, phase):
     return launches, in_run
 
 
+def _max_z(a, b, var):
+    """The largest |a - b| over the standard deviation sqrt(var) (pixels
+    that agree exactly count 0)."""
+    diff = np.abs(a - b)
+    return float(np.max(np.where(diff > 0, diff, 0.0) / np.where(diff > 0, np.sqrt(var), 1.0)))
+
+
+def rows_cuda_vs_cpu(phase, label, make, rows):
+    """c1, c2 or c3 at 11 view zeniths and 256 spp, one seed, on CUDA and on
+    the CPU: the BRF within 1e-4 relative and every pixel within |z| <= 5,
+    and so each of the ``rows`` raw spectral rows before the CKD
+    aggregation. Returns the CUDA run's launches."""
+    import eradiate_tpu_torch as etp
+
+    out, seconds = {}, {}
+    for dev in ("cuda", "cpu"):
+        exp = make(11)
+        reset_launches()
+        t0 = time.perf_counter()
+        ds = etp.run(exp, spp=256, seed_state=etp.SeedState(SEED), device=dev)
+        seconds[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            launches = read_launches()
+        raw = exp.measures[0].results["raw"]
+        rad, m2 = (np.asarray(raw[k], np.float64) for k in ("radiance", "m2"))
+        out[dev] = {"brf": np.asarray(ds["brf"]), "radiance": np.asarray(ds["radiance"]),
+                    "var": np.asarray(ds["var"]), "rows": rad,
+                    "rows_var": np.maximum(m2 - rad * rad, 0.0) / raw["spp"]}
+    g, c = out["cuda"], out["cpu"]
+    rel = float(np.max(np.abs(g["brf"] - c["brf"]) / np.abs(c["brf"])))
+    z = _max_z(g["radiance"], c["radiance"], g["var"] + c["var"])
+    rel_rows = float(np.max(np.abs(g["rows"] - c["rows"]) / np.abs(c["rows"])))
+    z_rows = _max_z(g["rows"], c["rows"], g["rows_var"] + c["rows_var"])
+    print(f"[{phase}] {label}, 11 VZA 256 spp, CUDA vs CPU: max rel BRF diff {rel:.3e} (bound "
+          f"1e-4), max |z| {z:.3e} (bound 5); the {g['rows'].shape[0]} raw rows: max rel "
+          f"{rel_rows:.3e} (bound 1e-4), max |z| {z_rows:.3e} (bound 5); CUDA run "
+          f"{seconds['cuda']:.1f} s, CPU run {seconds['cpu']:.1f} s; launches "
+          f"{', '.join(f'{k} {n}' for k, n in launches.items() if n)}", flush=True)
+    if g["rows"].shape != (rows, 11):
+        raise AssertionError(f"{label}: {g['rows'].shape[0]} raw rows, not {rows}")
+    if not (np.isfinite(g["brf"]).all() and rel <= 1e-4 and z <= 5.0 and rel_rows <= 1e-4
+            and z_rows <= 5.0):
+        raise AssertionError(f"CUDA and CPU runs of the port disagree on {label}")
+    return launches
+
+
+def top_ops(prof, n=6):
+    """The ``n`` PyTorch operators with the most device time of their own
+    in a profiler window, as (name, share of the window's device time)."""
+    ops = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+           if e.key.startswith("aten::") and e.self_device_time_total > 0]
+    total = sum(t for _, t in ops) or 1.0
+    return [(k, t / total) for k, t in sorted(ops, key=lambda x: -x[1])[:n]]
+
+
+def rows_full_width(phase, label, exp, spp, n_vza, skip, window):
+    """One full-width run of c2 or c3 with the profiler on for a window of
+    ``window`` bounce iterations after ``skip`` (it warms the card), then a
+    timed run: K1's launches must equal the bounce iterations summed over the
+    spectral rows, and no other kernel launches. Prints wall, samples/s,
+    iterations (each row's too), CUDA kernels and device time an iteration,
+    the busy share, the device time by kernel family and by operator
+    (``top_ops``), K1's device time a launch inside the run and the peak
+    memory. Returns (launches, K1 ms a launch inside the run, iterations,
+    per-row iterations, dataset)."""
+    import torch
+
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.ops import tracer
+
+    def run():
+        return etp.run(exp, spp=spp, seed_state=etp.SeedState(SEED), device="cuda")
+
+    prof = profile_window(run, tracer, "collision_fetch", skip, window)
+    per_it, dev_ms, shares = window_device(prof, window)
+    n_rec, k1_ms = kernel_ms_in_window(prof, KERNELS["collision_fetch"], RUN_WINDOW_MIN)
+    per_row = []
+    saved = tracer._render_row_regen
+
+    def counted(*args, **kwargs):
+        out = saved(*args, **kwargs)
+        per_row.append(out[2])
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tracer._render_row_regen = counted
+    try:
+        t0 = time.perf_counter()
+        ds = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tracer._render_row_regen = saved
+    launches = read_launches()
+    iterations = exp.measures[0].results["raw"]["iterations"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    brf = np.asarray(ds["brf"])
+    samples = n_vza * spp * len(per_row)
+    rows = (f"; iterations a row: min {min(per_row)}, median {statistics.median(per_row):g}, "
+            f"max {max(per_row)} ({', '.join(map(str, per_row))})" if len(per_row) > 1 else "")
+    print(f"[{phase}] {label} full width: {n_vza} VZA x {spp} spp x {len(per_row)} spectral "
+          f"rows = {samples} samples, wall {wall:.3f} s, {samples / wall:.4e} samples/s, "
+          f"{iterations} bounce iterations ({1e3 * wall / iterations:.3f} ms each){rows}; peak "
+          f"device memory {peak:.2f} GiB", flush=True)
+    print(f"    launches {launches}; profiler window of {window} iterations (warm-up run): "
+          f"{per_it:.1f} CUDA kernels and {dev_ms:.3f} ms of device time an iteration, busy "
+          f"share {dev_ms * iterations / (1e3 * wall):.3f} of the timed run's wall; device "
+          f"time by kernel family: {', '.join(f'{f} {x:.3f}' for f, x in shares.items())}; "
+          f"collision_fetch {k1_ms:.4f} ms of device time a launch inside the run ({n_rec} "
+          f"profiler records); operators with the most device time: "
+          f"{', '.join(f'{k} {x:.3f}' for k, x in top_ops(prof))}; BRF shape {brf.shape}, "
+          f"mean {brf.mean():.6f}", flush=True)
+    if sum(per_row) != iterations:
+        raise AssertionError(f"{label}: the rows' iterations do not sum to the run's")
+    if not (launches["collision_fetch"] > 0 and launches["collision_fetch"] == iterations):
+        raise AssertionError(f"{label} did not run through K1 once per bounce")
+    if any(n for k, n in launches.items() if k != "collision_fetch"):
+        raise AssertionError(f"{label} launched a kernel of another path")
+    if brf.shape[-1] != n_vza or not np.isfinite(brf).all():
+        raise AssertionError(f"{label}: BRF not finite or of the wrong shape")
+    return launches, k1_ms, iterations, per_row, ds
+
+
 def main():
     import torch
 
@@ -2106,18 +2293,7 @@ def main():
           f"{bound_1200[0]:.4f} by {fetch_bound[1]}", flush=True)
 
     # -- 4. port on CUDA against port on CPU ----------------------------------
-    out = {}
-    for dev in ("cuda", "cpu"):
-        out[dev] = etp.run(_c1(11), spp=256, seed_state=etp.SeedState(SEED), device=dev)
-    brf_g, brf_c = (np.asarray(out[d]["brf"]) for d in ("cuda", "cpu"))
-    rad_g, rad_c = (np.asarray(out[d]["radiance"]) for d in ("cuda", "cpu"))
-    var = np.asarray(out["cuda"]["var"]) + np.asarray(out["cpu"]["var"])
-    rel = float(np.max(np.abs(brf_g - brf_c) / np.abs(brf_c)))
-    zmax = float(np.max(np.abs(rad_g - rad_c) / np.sqrt(var)))
-    print(f"[4] c1 11 VZA 256 spp, CUDA vs CPU: max rel BRF diff {rel:.3e} "
-          f"(bound 1e-4), max |z| {zmax:.3e} (bound 5)", flush=True)
-    if not (np.isfinite(brf_g).all() and rel <= 1e-4 and zmax <= 5.0):
-        raise AssertionError("CUDA and CPU runs of the port disagree")
+    rows_cuda_vs_cpu(4, "c1", _c1, 1)
 
     # -- 5. c1 at full width --------------------------------------------------
     exp = _c1(N_VZA)
@@ -2407,9 +2583,54 @@ def main():
     pol_small = {form: c5_cuda_vs_cpu(form, phase=22, stokes=True)
                  for form in ("instanced", "flat", "trees")}
     pol_c5_launches, pol_sweep_ms = polarized_c5_full_width(23, ds_inst)
+
+    # -- 24-27. c2 (mono_single) and c3 (ckd_single) through K1 ---------------
+    etp.set_mode("mono_single")
+    print("[24] collision_fetch kernel against its plain twin on c2's and c3's columns",
+          flush=True)
+    c2_column = fetch_tools.experiment_operands(_c2(1))
+    lp2 = lane_partition(N_VZA, SPP_C2, REGEN_LANES_TARGET["cuda"], "cpu")[0]
+    B2 = N_VZA * lp2
+    more, c2_fetch_times, c2_fetch_bound = check_collision_fetch(
+        "c2 merged column (albedo, two blend weights, depolarisation)", c2_column, B2, seed=40,
+        timed=True)
+    err = max(err, more)
+    for label, lanes, offset in (("c2 merged column, ragged (B % 4 = 3)", B2 + 3, 0),
+                                 ("c2 merged column, queries from a misaligned view", B2, 1)):
+        more, *_ = check_collision_fetch(label, c2_column, lanes, seed=41, offset=offset)
+        err = max(err, more)
+    etp.set_mode("ckd_single")
+    exp3 = _c3(1)
+    scene3, _, _ = exp3.compile_scene(exp3.measures[0],
+                                      exp3.spectral_context(exp3.measures[0]))
+    row3 = int(np.argmax(np.asarray(scene3.medium.tau_levels)[:, -1]))
+    lp3 = lane_partition(N_VZA, SPP_C3, REGEN_LANES_TARGET["cuda"], "cpu")[0]
+    more, *_ = check_collision_fetch(
+        f"c3 column, row {row3} of {ROWS_C3} (the most absorbing g-point)",
+        fetch_tools.experiment_operands(exp3, row3), N_VZA * lp3, seed=42)
+    err = max(err, more)
+    etp.set_mode("mono_single")
+    c2_small = rows_cuda_vs_cpu(25, "c2", _c2, 1)
+    etp.set_mode("ckd_single")
+    c3_small = rows_cuda_vs_cpu(25, "c3 (ckd_single)", _c3, ROWS_C3)
+    etp.set_mode("mono_single")
+    c2_launches, c2_run_ms, c2_iterations, _, _ = rows_full_width(
+        26, "c2", _c2(N_VZA), SPP_C2, N_VZA, 64, 48)
+    etp.set_mode("ckd_single")
+    c3_launches, c3_run_ms, c3_iterations, c3_rows, _ = rows_full_width(
+        27, "c3 (ckd_single)", _c3(N_VZA), SPP_C3, N_VZA, 100, 48)
+    if len(c3_rows) != ROWS_C3:
+        raise AssertionError(f"c3 rendered {len(c3_rows)} rows, not {ROWS_C3}")
     for mod in ("jax", "eradiate_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
+    fetch_times["c2_column"] = {**c2_fetch_times, "lanes": B2, "bound_ms": c2_fetch_bound[0],
+                                "bound_by": c2_fetch_bound[1]}
+    fetch_times.update(c2_launches=c2_launches["collision_fetch"], c2_run_device_ms=c2_run_ms,
+                       c3_launches=c3_launches["collision_fetch"], c3_run_device_ms=c3_run_ms,
+                       c3_launches_a_row=c3_rows,
+                       small_launches={"c2_256spp": c2_small["collision_fetch"],
+                                       "c3_256spp": c3_small["collision_fetch"]})
 
     # each kernel's launches on the polarized paths: the full-width runs (K1
     # on c1, K7 on c5) and the 64-spp CUDA runs of phase 22 (K5/K6 flat, K7
@@ -2436,7 +2657,11 @@ def main():
         and bound on the wood skeleton (``skeleton``). Every kernel carries
         its launches on the polarized paths (``polarized_launches``), K1
         and K7 their device time a launch inside the polarized full-width
-        runs (``polarized_run_ms``)."""
+        runs (``polarized_run_ms``). K1 also carries its times and bound on
+        c2's column (``c2_column``) and its launches and device time a
+        launch inside the c2 and c3 full-width runs (``c2_launches``,
+        ``c2_run_device_ms``, ``c3_launches``, ``c3_run_device_ms``, and c3's
+        launches a row, ``c3_launches_a_row``)."""
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": n, "max_abs_err": err, **times,
                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,

@@ -1,7 +1,8 @@
 """One-dimensional atmosphere experiment, mono slice.
 
 Port of ``eradiate_tpu/experiments/_atmosphere.py``: the same attrs fields
-and converters, the mono spectral context, and ``compile_scene`` for
+and converters, the mono and CKD spectral contexts (CKD: one spectral row
+for each (bin, g-point) pair of the quadrature), and ``compile_scene`` for
 plane-parallel geometry (with the optional error-bounded layer merge) and
 spherical-shell geometry (with the error-bounded shell merge and the sun
 slant-tau table), directional illumination and distant measures. Host
@@ -36,7 +37,7 @@ from ..scenes.illumination import (
 )
 from ..scenes.measure import TargetPoint, TargetRectangle
 from ..scenes.surface import Surface, surface_converter
-from ..spectral.grid import MonoSpectralGrid
+from ..spectral.grid import CKDSpectralGrid, MonoSpectralGrid
 
 from ..ops.scene_state import (
     IlluminationArrays,
@@ -110,19 +111,54 @@ class AtmosphereExperiment(EarthObservationExperiment):
             if m.target is None and m.is_distant:
                 m.target = TargetPoint(xyz=np.array([0.0, 0.0, z_target]))
 
-    def spectral_context(self, measure) -> dict:
-        """Mono spectral context: ``{"w": wavelengths [S]}``."""
-        check_mode()
+    def spectral_grid_for(self, measure):
+        """The measure's spectral grid: mono wavelengths, or the CKD bins its
+        response selects with their quadratures."""
+        m = check_mode()
+        if m.is_mono:
+            grid = None
+            if (
+                isinstance(self.atmosphere, MolecularAtmosphere)
+                and self.atmosphere.absorption_data is not None
+                and self.atmosphere.absorption_data.kind == "mono"
+            ):
+                grid = MonoSpectralGrid(self.atmosphere.absorption_data.wavelengths)
+            if grid is None:
+                grid = MonoSpectralGrid.default()
+            return grid.select(measure.srf)
         grid = None
-        if (
-            isinstance(self.atmosphere, MolecularAtmosphere)
-            and self.atmosphere.absorption_data is not None
-            and self.atmosphere.absorption_data.kind == "mono"
-        ):
-            grid = MonoSpectralGrid(self.atmosphere.absorption_data.wavelengths)
+        db = getattr(self.atmosphere, "absorption_data", None)
+        if db is not None and getattr(db, "kind", None) == "ckd":
+            grid = db.spectral_grid()
         if grid is None:
-            grid = MonoSpectralGrid.default()
-        return {"w": grid.select(measure.srf).wavelengths}
+            grid = CKDSpectralGrid.default()
+        return grid.select(measure.srf).walk_quads(self.ckd_quad_config, db)
+
+    def spectral_context(self, measure) -> dict:
+        """Mono: ``{"w": wavelengths [S]}``. CKD: the flattened (bin, g)
+        pairs, ``w`` (the bin's centre), ``g``, ``bin_index``, ``g_weights``
+        (each bin's sum to 1) [S] and ``bin_wcenters`` [bins]."""
+        grid = self.spectral_grid_for(measure)
+        if check_mode().is_mono:
+            return {"w": grid.wavelengths}
+        ws, gs, bidx, gw = [], [], [], []
+        for i in range(len(grid)):
+            quad = grid.quad_for_bin(i)
+            nodes = quad.eval_nodes((0.0, 1.0))
+            # normalized weights on [0, 1]
+            weights = quad.weights / 2.0
+            for gnode, wt in zip(nodes, weights):
+                ws.append(grid.wcenters[i])
+                gs.append(gnode)
+                bidx.append(i)
+                gw.append(wt)
+        return {
+            "w": np.asarray(ws),
+            "g": np.asarray(gs),
+            "bin_index": np.asarray(bidx, dtype=np.int64),
+            "g_weights": np.asarray(gw),
+            "bin_wcenters": grid.wcenters,
+        }
 
     def _plane_parallel_medium(self, sigma_t, albedo, params, weights, L):
         levels = self.geometry.zgrid.levels
@@ -233,14 +269,15 @@ class AtmosphereExperiment(EarthObservationExperiment):
                 f"geometry {self.geometry.kind!r} is not ported yet"
             )
         w = np.asarray(spectral_ctx["w"], dtype=np.float64)
+        g = spectral_ctx.get("g")
         S = w.size
         zgrid = self.geometry.zgrid
         L = zgrid.n_layers
 
         # Medium
         if self.atmosphere is not None:
-            sigma_t = self.atmosphere.eval_sigma_t(w, None, zgrid)
-            albedo = self.atmosphere.eval_albedo(w, None, zgrid)
+            sigma_t = self.atmosphere.eval_sigma_t(w, g, zgrid)
+            albedo = self.atmosphere.eval_albedo(w, g, zgrid)
             kinds, params, weights = self.atmosphere.eval_phase(w, zgrid)
         else:
             sigma_t = np.zeros((S, L))

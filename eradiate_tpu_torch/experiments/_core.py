@@ -53,9 +53,9 @@ def _integrator_converter(value):
 
 
 #: The modes the port renders: single precision only, so the double modes
-#: (and the unsuffixed aliases ``mono`` and ``mono_polarized``, which name
-#: them) raise.
-SUPPORTED_MODES = ("mono_single", "mono_polarized_single")
+#: (and the unsuffixed aliases ``mono``, ``mono_polarized`` and ``ckd``, which
+#: name them) raise, as does polarized CKD.
+SUPPORTED_MODES = ("mono_single", "mono_polarized_single", "ckd_single")
 
 
 def check_mode():

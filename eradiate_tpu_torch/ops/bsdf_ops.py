@@ -1,7 +1,7 @@
 """Surface and leaf BSDF evaluation and sampling, batched over lanes.
 
-Port of the ``lambertian``, ``hapke`` and ``black`` surface kinds, of the
-RPV base of ``maignan`` (:func:`rpv_eval`), of the scalar (I-I) components
+Port of the ``lambertian``, ``rpv``, ``hapke`` and ``black`` surface kinds
+(``rpv`` also the base of ``maignan``), of the scalar (I-I) components
 of the polarized ``maignan`` and ``ocean_mishchenko`` surfaces (their
 Mueller matrices are :mod:`.bsdf_polarized`'s) and of the two-sided
 ``bilambertian`` leaf optics of ``eradiate_tpu/ops/bsdf_ops.py``.
@@ -10,8 +10,8 @@ returns f [1/sr] with dL_o = f cos(theta_i) dE_i; ``sample`` returns
 ``(w_new, f cos / pdf)``. Parameters are per-spectral-row scalars.
 
 The scalar tracers take the kinds of :data:`SUPPORTED_BSDFS`; the polarized
-surfaces are rendered by the polarized tracers only (``rpv`` alone is not
-ported yet).
+surfaces are rendered by the polarized tracers only, which also take every
+scalar kind as a depolarizer.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ __all__ = ["lambertian_eval", "hapke_eval", "rpv_eval", "bsdf_eval",
            "POLARIZED_SURFACES"]
 
 #: Surface kinds of the scalar tracers.
-SUPPORTED_BSDFS = ("black", "hapke", "lambertian")
+SUPPORTED_BSDFS = ("black", "hapke", "lambertian", "rpv")
 
 #: Surface kinds with a Mueller matrix of their own (:mod:`.bsdf_polarized`);
 #: the polarized tracers take them beside :data:`SUPPORTED_BSDFS`.
@@ -212,6 +212,7 @@ def _ocean_mishchenko_eval(params, wi, wo):
 # registers them (lazy imports break the module cycle)
 _EVAL = {
     "lambertian": lambertian_eval,
+    "rpv": rpv_eval,
     "hapke": hapke_eval,
     "maignan": _maignan_eval,
     "ocean_mishchenko": _ocean_mishchenko_eval,

@@ -4,6 +4,8 @@ Port of ``eradiate_tpu/ops/medium.py``, gather form (the reference's CPU
 branch): with a piecewise-constant extinction profile the cumulative
 vertical optical depth tau(z) is piecewise linear, so transmittance is
 closed form and free-flight sampling inverts tau by table search.
+:func:`interp_fetch` and :func:`fetch_pairs_at` are the same bracketed
+interpolation for the tabulated phase function's tables.
 
 :func:`collision_fetch` is the per-bounce search-and-fetch; it runs the
 CUDA kernel for CUDA tensors and its plain twin for CPU tensors
@@ -21,6 +23,8 @@ __all__ = [
     "clamp_mu",
     "searchsorted_leq",
     "take_1d",
+    "interp_fetch",
+    "fetch_pairs_at",
     "tau_at_z",
     "z_at_tau",
     "collision_fetch",
@@ -39,7 +43,7 @@ def clamp_mu(mu):
 
 def searchsorted_leq(table, x):
     """Index i of the last table[i] <= x, clipped to [0, len(table) - 2]."""
-    idx = torch.searchsorted(table, x, right=True) - 1
+    idx = torch.searchsorted(table, x.contiguous(), right=True) - 1
     return torch.clamp(idx, 0, table.shape[0] - 2)
 
 
@@ -51,6 +55,24 @@ def _interp_tables(x, x_table, y_tables):
     ys = [(yt[idx], yt[idx + 1]) for yt in y_tables]
     frac = torch.clamp((x - x0) / torch.clamp(x1 - x0, min=1e-30), 0.0, 1.0)
     return idx, frac, ys
+
+
+def interp_fetch(x, x_table, y_tables):
+    """Bracketed linear interpolation of several tables: the bracket of each
+    x in ``x_table`` [M] by search, then ``(y0, dy)`` of each table there.
+    Returns ``(idx, frac, [(y0, dy), ...])``; interpolate as ``y0 + frac * dy``
+    (reference ``interp_fetch``, its CPU gather branch)."""
+    idx, frac, ys = _interp_tables(x, x_table, y_tables)
+    return idx, frac, [(y0, y1 - y0) for y0, y1 in ys]
+
+
+def fetch_pairs_at(idx, y_tables):
+    """``(y[idx], y[idx + 1] - y[idx])`` of each table [M] at brackets
+    ``idx`` the caller found (reference ``fetch_pairs_at``, its CPU gather
+    branch)."""
+    M = y_tables[0].shape[-1]
+    nxt = torch.clamp(idx + 1, max=M - 1)
+    return [(yt[idx], yt[nxt] - yt[idx]) for yt in y_tables]
 
 
 def tau_at_z(z, z_levels, tau_levels):

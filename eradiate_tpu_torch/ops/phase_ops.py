@@ -1,9 +1,14 @@
 """Phase function evaluation and sampling, batched over lanes.
 
-Port of the parts of ``eradiate_tpu/ops/phase_ops.py`` that the
-plane-parallel tracer runs, for the ``rayleigh`` kind. The reference
-``vmap``s its per-path functions; here every function takes a leading lane
-axis: blend weights are ``[B, C]``, fetched layer parameters ``[B]``.
+Port of ``eradiate_tpu/ops/phase_ops.py`` for the scalar kinds
+``rayleigh``, ``hg``, ``isotropic`` and ``tab``. The reference ``vmap``s its
+per-path functions; here every function takes a leading lane axis: blend
+weights are ``[B, C]``, fetched layer parameters ``[B]``. A component's own
+parameters (one spectral row: ``hg``'s ``g`` [], ``tab``'s ``mu``,
+``values``, ``cdf`` [M] and, on a theta-uniform grid, ``tg0`` and ``itg``
+[]) are shared by every lane. :func:`tab_phase_tables` and
+:func:`theta_grid_params` are the host side (numpy) of ``tab``, which the
+scene elements call when they compile.
 
 Conventions: ``cos_theta`` is the cosine between the incident and the
 scattered propagation directions; phase functions integrate to 1 over the
@@ -16,9 +21,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .fastmath import cos_sin_2pi
+from .medium import fetch_pairs_at, interp_fetch
 from .mueller import depolarizer, rayleigh_mueller
 
 __all__ = [
@@ -26,6 +33,13 @@ __all__ = [
     "direction_from_cos_u",
     "rayleigh_eval",
     "rayleigh_sample_cos",
+    "hg_eval",
+    "hg_sample_cos",
+    "iso_eval",
+    "tab_phase_tables",
+    "theta_grid_params",
+    "tab_eval",
+    "tab_sample_cos",
     "layer_param_slots",
     "rebuild_fetched",
     "phase_eval_at",
@@ -34,7 +48,7 @@ __all__ = [
     "check_phase_kinds",
 ]
 
-_SUPPORTED_KINDS = ("rayleigh",)
+_SUPPORTED_KINDS = ("rayleigh", "hg", "isotropic", "tab")
 
 
 def check_phase_kinds(phase_kinds):
@@ -104,6 +118,82 @@ def rayleigh_sample_cos(depol, u):
     return torch.where(u[..., 0] < w_uniform, t, _cbrt(t))
 
 
+def hg_eval(g, cos_theta):
+    """Henyey-Greenstein phase function of asymmetry ``g``."""
+    denom = 1.0 + g * g + 2.0 * g * cos_theta
+    return (1.0 - g * g) / (4.0 * math.pi * torch.pow(torch.clamp(denom, min=1e-12), 1.5))
+
+
+def hg_sample_cos(g, u):
+    """Exact inverse-CDF sample of cos_theta; isotropic below |g| = 1e-4."""
+    u1 = u[..., 0]
+    small = torch.abs(g) < 1e-4
+    g_safe = torch.where(small, 1e-4, g)
+    sqr = (1.0 - g * g) / (1.0 - g_safe + 2.0 * g_safe * u1)
+    cos_hg = (1.0 + g * g - sqr * sqr) / (2.0 * g_safe)
+    return torch.where(small, 2.0 * u1 - 1.0, torch.clamp(cos_hg, -1.0, 1.0))
+
+
+def iso_eval(cos_theta):
+    return torch.full_like(cos_theta, 1.0 / (4.0 * math.pi))
+
+
+def tab_phase_tables(mu, values):
+    """Sampling CDF of a tabulated phase function (host side, numpy).
+
+    ``mu`` ascending [M], ``values`` [..., M] phase values [1/sr]. Returns
+    ``(values_normalized, cdf)``: the CDF over mu by the trapezoid rule, and
+    the values rescaled so that 2 pi times their integral over mu is 1.
+    """
+    mu = np.asarray(mu, dtype=np.float64)
+    v = np.asarray(values, dtype=np.float64)
+    seg = 0.5 * (v[..., 1:] + v[..., :-1]) * np.diff(mu)
+    integral = 2.0 * np.pi * np.sum(seg, axis=-1, keepdims=True)
+    v = v / integral
+    seg = seg / integral
+    cdf = np.concatenate(
+        [np.zeros(v.shape[:-1] + (1,)), np.cumsum(seg * 2.0 * np.pi, axis=-1)], axis=-1
+    )
+    # cdf[-1] = 1 exactly
+    cdf = cdf / cdf[..., -1:]
+    return v, cdf
+
+
+def theta_grid_params(mu):
+    """``(theta0, inv_dtheta)`` when ``mu`` is uniform in theta, else None
+    (host side, numpy): :func:`tab_eval` then finds a cosine's cell as
+    ``(theta0 - acos(c)) * inv_dtheta``."""
+    theta = np.arccos(np.clip(np.asarray(mu, np.float64), -1.0, 1.0))
+    d = np.diff(theta)
+    if d.size and np.allclose(d, d[0], rtol=1e-6, atol=1e-9) and d[0] < 0:
+        return float(theta[0]), float(1.0 / (-d[0]))
+    return None
+
+
+def tab_eval(params, cos_theta):
+    """Tabulated phase value, linear in mu: the cell from the arithmetic
+    theta index where the grid is theta-uniform (``tg0`` present), else from
+    a search of ``mu``."""
+    if params.get("tg0") is not None:
+        M = params["mu"].shape[-1]
+        c = torch.clamp(cos_theta, -1.0, 1.0)
+        theta = torch.arccos(c)
+        k = torch.clamp(
+            ((params["tg0"] - theta) * params["itg"]).to(torch.int32), 0, M - 2
+        ).long()
+        (v0, dv), (m0, dm) = fetch_pairs_at(k, (params["values"], params["mu"]))
+        frac = torch.clamp((c - m0) / torch.where(dm == 0.0, 1.0, dm), 0.0, 1.0)
+        return v0 + frac * dv
+    _, frac, ((v0, dv),) = interp_fetch(cos_theta, params["mu"], (params["values"],))
+    return v0 + frac * dv
+
+
+def tab_sample_cos(params, u):
+    """Inverse-CDF sample of cos_theta, linear inside the CDF's cell."""
+    _, frac, ((m0, dm),) = interp_fetch(u[..., 0], params["cdf"], (params["mu"],))
+    return m0 + frac * dm
+
+
 def layer_param_slots(phase_kinds, phase_params):
     """Per-layer parameter tables the components index by layer, and their
     (component, name) slots; the tables ride the collision fetch."""
@@ -123,31 +213,46 @@ def rebuild_fetched(phase_kinds, slots, fetched):
     return tuple(at)
 
 
-def _component_eval_at(kind, at, cos_theta):
+def _component_eval_at(kind, params, at, cos_theta):
+    """One component's phase value from its own parameters ``params`` and
+    its fetched layer values ``at``."""
     if kind == "rayleigh":
         return rayleigh_eval(at["depol"], cos_theta)
+    if kind == "hg":
+        return hg_eval(params["g"], cos_theta)
+    if kind == "isotropic":
+        return iso_eval(cos_theta)
+    if kind == "tab":
+        return tab_eval(params, cos_theta)
     raise NotImplementedError(f"phase kind {kind!r} is not ported yet")
 
 
-def _component_sample_cos_at(kind, at, u):
+def _component_sample_cos_at(kind, params, at, u):
     if kind == "rayleigh":
         return rayleigh_sample_cos(at["depol"], u)
+    if kind == "hg":
+        return hg_sample_cos(params["g"], u)
+    if kind == "isotropic":
+        return 2.0 * u[..., 0] - 1.0
+    if kind == "tab":
+        return tab_sample_cos(params, u)
     raise NotImplementedError(f"phase kind {kind!r} is not ported yet")
 
 
-def phase_eval_at(phase_kinds, weights_at, params_at, cos_theta):
-    """Blend-weighted phase value; ``weights_at`` [B, C]."""
+def phase_eval_at(phase_kinds, phase_params, weights_at, params_at, cos_theta):
+    """Blend-weighted phase value; ``weights_at`` [B, C], ``phase_params``
+    the components' parameters of one spectral row."""
     total = weights_at[:, 0] * _component_eval_at(
-        phase_kinds[0], params_at[0], cos_theta
+        phase_kinds[0], phase_params[0], params_at[0], cos_theta
     )
     for c in range(1, len(phase_kinds)):
         total = total + weights_at[:, c] * _component_eval_at(
-            phase_kinds[c], params_at[c], cos_theta
+            phase_kinds[c], phase_params[c], params_at[c], cos_theta
         )
     return total
 
 
-def phase_mueller_at(phase_kinds, weights_at, params_at, cos_theta):
+def phase_mueller_at(phase_kinds, phase_params, weights_at, params_at, cos_theta):
     """Blend-weighted Mueller phase matrix ``[B, 4, 4]`` in scattering-plane
     frames: Rayleigh components contribute their full matrices, scalar
     components ideal depolarizers of their phase value (no polarization
@@ -159,13 +264,17 @@ def phase_mueller_at(phase_kinds, weights_at, params_at, cos_theta):
         elif kind == "tab_polarized":
             raise NotImplementedError("phase kind 'tab_polarized' is not ported yet")
         else:
-            m = depolarizer(_component_eval_at(kind, params_at[c], cos_theta))
+            m = depolarizer(
+                _component_eval_at(kind, phase_params[c], params_at[c], cos_theta)
+            )
         term = weights_at[:, c, None, None] * m
         total = term if total is None else total + term
     return total
 
 
-def phase_sample_at(phase_kinds, weights_at, params_at, d_in, u_sel, u_cos, u_phi):
+def phase_sample_at(
+    phase_kinds, phase_params, weights_at, params_at, d_in, u_sel, u_cos, u_phi
+):
     """Sample scattered directions from the blend: pick a component by
     weight, sample its cosine exactly, then the azimuth."""
     total = weights_at[:, 0]
@@ -177,7 +286,7 @@ def phase_sample_at(phase_kinds, weights_at, params_at, d_in, u_sel, u_cos, u_ph
     prev_hit = torch.zeros_like(u_sel, dtype=torch.bool)
     for c, kind in enumerate(phase_kinds):
         cdf = cdf + weights_at[:, c] / total
-        cos_c = _component_sample_cos_at(kind, params_at[c], u_cos)
+        cos_c = _component_sample_cos_at(kind, phase_params[c], params_at[c], u_cos)
         hit = u_sel < cdf
         cos_theta = torch.where(hit & ~prev_hit, cos_c, cos_theta)
         prev_hit = hit

@@ -34,14 +34,27 @@ __all__ = [
     "from_reference",
     "canopy_from_reference",
     "SURFACE_PARAMS",
+    "PHASE_PARAMS",
 ]
 
-#: The rows the polarized surfaces' parameters must hold (``maignan``: the
-#: RPV base and the Fresnel peak; ``ocean_mishchenko``: the Cox-Munk glint).
-#: A compiled scene that lacks one is refused on transfer.
+#: The rows the surfaces' parameters must hold (``rpv``: Rahman's three;
+#: ``maignan``: the RPV base and the Fresnel peak; ``ocean_mishchenko``: the
+#: Cox-Munk glint). A compiled scene that lacks one is refused on transfer.
 SURFACE_PARAMS = {
+    "rpv": ("rho_0", "k", "g"),
     "maignan": ("rho_0", "k", "g", "C", "ndvi", "refr_re", "refr_im", "ext_ior"),
     "ocean_mishchenko": ("wind_speed", "eta", "k", "ext_ior", "shadowing"),
+}
+
+#: The parameters each phase component must hold, rows [S, ...]:
+#: ``rayleigh`` its depolarization per layer [S, L], ``hg`` its asymmetry
+#: [S], ``tab`` its table on the mu grid [S, M] (and, on a theta-uniform
+#: grid, ``tg0`` and ``itg`` [S]). A compiled scene that lacks one is refused
+#: on transfer.
+PHASE_PARAMS = {
+    "rayleigh": ("depol",),
+    "hg": ("g",),
+    "tab": ("mu", "values", "cdf"),
 }
 
 
@@ -142,6 +155,12 @@ def _tensor(x, device):
     return torch.tensor(a, device=device)
 
 
+def _require(what, names, params):
+    missing = set(names) - set(params)
+    if missing:
+        raise ValueError(f"{what}: the compiled scene lacks the parameter rows {sorted(missing)}")
+
+
 def from_reference(scene, sensor, config, device):
     """Turn a compiled scene into the port's tensors on ``device``.
 
@@ -149,13 +168,18 @@ def from_reference(scene, sensor, config, device):
     ``SceneArrays``/``SensorArrays``/``SceneConfig`` or the port's own; only
     field names are read, and every leaf goes through ``np.asarray``.
     Floating leaves become float32 (the port runs single precision only).
-    Surface parameters travel as they are, every row of every kind,
-    polarized ones (``maignan``, ``ocean_mishchenko``) included; a kind of
+    Phase and surface parameters travel as they are, every row of every
+    kind (the tabulated phase function's tables, RPV's and the polarized
+    surfaces' rows); a kind of :data:`PHASE_PARAMS` or
     :data:`SURFACE_PARAMS` must carry its rows.
     A spherical-shell scene (``config.geometry == "spherical_shell"``) carries
     a :class:`SphericalMediumArrays`.
     """
     med = scene.medium
+    for kind, params in zip(config.phase_kinds, med.phase_params):
+        _require(f"phase kind {kind!r}", PHASE_PARAMS.get(kind, ()), params)
+    _require(f"surface kind {config.surface_kind!r}",
+             SURFACE_PARAMS.get(config.surface_kind, ()), scene.surface.params)
     common = dict(
         albedo=_tensor(med.albedo, device),
         phase_weights=_tensor(med.phase_weights, device),
@@ -180,12 +204,6 @@ def from_reference(scene, sensor, config, device):
             z_levels=_tensor(med.z_levels, device),
             tau_levels=_tensor(med.tau_levels, device),
             **common,
-        )
-    missing = set(SURFACE_PARAMS.get(config.surface_kind, ())) - set(scene.surface.params)
-    if missing:
-        raise ValueError(
-            f"surface kind {config.surface_kind!r}: the compiled scene lacks the "
-            f"parameter rows {sorted(missing)}"
         )
     surface = SurfaceArrays(
         params={k: _tensor(v, device) for k, v in scene.surface.params.items()}

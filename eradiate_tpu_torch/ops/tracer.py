@@ -78,9 +78,8 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
     t1_sun, t2_sun = ortho_frame(w_sun)
 
     C = len(config.phase_kinds)
-    param_tables, param_slots = layer_param_slots(
-        config.phase_kinds, medium_row.phase_params
-    )
+    phase_params = medium_row.phase_params
+    param_tables, param_slots = layer_param_slots(config.phase_kinds, phase_params)
     # albedo, blend weights and layer-indexed phase parameters, fetched in
     # one kernel launch per bounce
     fetch_tables = torch.stack(
@@ -123,11 +122,11 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
         # NEE: the collision's vertical tau is tau_new, so the sun-path
         # transmittance is closed form
         cos_nee = w_nee[:, 0] * d[:, 0] + w_nee[:, 1] * d[:, 1] + w_nee[:, 2] * d[:, 2]
-        p_nee = phase_eval_at(config.phase_kinds, weights_at, params_at, cos_nee)
+        p_nee = phase_eval_at(config.phase_kinds, phase_params, weights_at, params_at, cos_nee)
         T_sun_col = torch.exp(-(tau_top - tau_new) / mu_nee)
         L_col = beta * albedo_col * p_nee * T_sun_col * E_sun
         d_col = phase_sample_at(
-            config.phase_kinds, weights_at, params_at, d, u_ph_sel, u_ph_cos,
+            config.phase_kinds, phase_params, weights_at, params_at, d, u_ph_sel, u_ph_cos,
             u_ph_phi,
         )
         beta_col = beta * albedo_col

@@ -155,7 +155,8 @@ def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpe
     ground_lift = torch.tensor([0.0, 0.0, eps], dtype=dtype, device=dev)
 
     C = len(config.phase_kinds)
-    param_tables, param_slots = layer_param_slots(config.phase_kinds, medium_row.phase_params)
+    phase_params = medium_row.phase_params
+    param_tables, param_slots = layer_param_slots(config.phase_kinds, phase_params)
     fetch_tables = torch.stack(
         [medium_row.phase_weights[c] for c in range(C)] + param_tables
     )
@@ -240,10 +241,10 @@ def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpe
         weights_at = fetched[:C].T
         params_at = rebuild_fetched(config.phase_kinds, param_slots, fetched[C:])
         cos_nee = (w_nee * d).sum(-1)
-        p_nee = phase_eval_at(config.phase_kinds, weights_at, params_at, cos_nee)
+        p_nee = phase_eval_at(config.phase_kinds, phase_params, weights_at, params_at, cos_nee)
         L_med = beta * albedo_col * p_nee * E_nee
         d_med = phase_sample_at(
-            config.phase_kinds, weights_at, params_at, d, u_sel, u_cos, u_phi
+            config.phase_kinds, phase_params, weights_at, params_at, d, u_sel, u_cos, u_phi
         )
         beta_med = beta * albedo_col
 

@@ -101,7 +101,8 @@ def _make_bounce_canopy_polarized(
     depolarize = depolarizer(torch.ones((B,), dtype=dtype, device=dev))
 
     C = len(config.phase_kinds)
-    param_tables, param_slots = layer_param_slots(config.phase_kinds, medium_row.phase_params)
+    phase_params = medium_row.phase_params
+    param_tables, param_slots = layer_param_slots(config.phase_kinds, phase_params)
     fetch_tables = torch.stack(
         [medium_row.phase_weights[c] for c in range(C)] + param_tables
     )
@@ -174,18 +175,18 @@ def _make_bounce_canopy_polarized(
         params_at = rebuild_fetched(config.phase_kinds, param_slots, fetched[C:])
         cos_nee = dot(w_nee, d)
         _, h_out_nee = scatter_frames(-w_nee, l_out)
-        M_nee = phase_mueller_at(config.phase_kinds, weights_at, params_at, cos_nee)
+        M_nee = phase_mueller_at(config.phase_kinds, phase_params, weights_at, params_at, cos_nee)
         R_out = rotator(rotate_basis_angle(l_out, h_out_nee, b))
         S_in_med = unpolarized(E_nee * albedo_col * beta)
         S_med = matvec4(P, matvec4(R_out, matvec4(M_nee, S_in_med)))
 
         d_med = phase_sample_at(
-            config.phase_kinds, weights_at, params_at, d, u_sel, u_cos, u_phi
+            config.phase_kinds, phase_params, weights_at, params_at, d, u_sel, u_cos, u_phi
         )
         cos_scat = dot(d_med, d)
-        p_scalar = phase_eval_at(config.phase_kinds, weights_at, params_at, cos_scat)
+        p_scalar = phase_eval_at(config.phase_kinds, phase_params, weights_at, params_at, cos_scat)
         h_in_s, h_out_s = scatter_frames(-d_med, l_out)
-        M_s = phase_mueller_at(config.phase_kinds, weights_at, params_at, cos_scat)
+        M_s = phase_mueller_at(config.phase_kinds, phase_params, weights_at, params_at, cos_scat)
         R_s = rotator(rotate_basis_angle(l_out, h_out_s, b))
         M_full = matmul4(R_s, M_s) / torch.clamp(p_scalar, min=1e-30)[:, None, None]
         P_med = matmul4(P, M_full)

@@ -104,9 +104,8 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
     T_sun_bottom = torch.exp(-tau_top / mu_sun)
 
     C = len(config.phase_kinds)
-    param_tables, param_slots = layer_param_slots(
-        config.phase_kinds, medium_row.phase_params
-    )
+    phase_params = medium_row.phase_params
+    param_tables, param_slots = layer_param_slots(config.phase_kinds, phase_params)
     # albedo, blend weights and layer-indexed phase parameters (Rayleigh
     # depolarization), fetched by the collision fetch in one launch a bounce
     fetch_tables = torch.stack(
@@ -147,7 +146,7 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
         # NEE at the collision
         cos_nee = dot(d_sun_b, l_out)
         _, h_out_nee = scatter_frames(d_sun_b, l_out)
-        M_nee = phase_mueller_at(config.phase_kinds, weights_at, params_at, cos_nee)
+        M_nee = phase_mueller_at(config.phase_kinds, phase_params, weights_at, params_at, cos_nee)
         R_out = rotator(rotate_basis_angle(l_out, h_out_nee, b))
         T_sun = torch.exp(-(tau_top - tau_z(z_col)) / mu_sun)
         S_sun = unpolarized(E_sun * T_sun * albedo_col * beta)
@@ -155,12 +154,13 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
 
         # sampled continuation
         d_new = phase_sample_at(
-            config.phase_kinds, weights_at, params_at, d, u_ph_sel, u_ph_cos, u_ph_phi
+            config.phase_kinds, phase_params, weights_at, params_at, d, u_ph_sel, u_ph_cos,
+            u_ph_phi,
         )
         cos_scat = dot(d_new, d)
-        p_scalar = phase_eval_at(config.phase_kinds, weights_at, params_at, cos_scat)
+        p_scalar = phase_eval_at(config.phase_kinds, phase_params, weights_at, params_at, cos_scat)
         h_in_s, h_out_s = scatter_frames(-d_new, l_out)
-        M_s = phase_mueller_at(config.phase_kinds, weights_at, params_at, cos_scat)
+        M_s = phase_mueller_at(config.phase_kinds, phase_params, weights_at, params_at, cos_scat)
         R_s = rotator(rotate_basis_angle(l_out, h_out_s, b))
         M_full = matmul4(R_s, M_s) / torch.clamp(p_scalar, min=1e-30)[:, None, None]
         P_col = matmul4(P, M_full)

@@ -135,9 +135,8 @@ def _make_event(config, medium_row, surface_row, illum_row):
     use_table = medium_row.sun_tau is not None
 
     C = len(config.phase_kinds)
-    param_tables, param_slots = layer_param_slots(
-        config.phase_kinds, medium_row.phase_params
-    )
+    phase_params = medium_row.phase_params
+    param_tables, param_slots = layer_param_slots(config.phase_kinds, phase_params)
     # albedo, blend weights and layer-indexed phase parameters: one gather
     fetch_tables = torch.stack(
         [medium_row.albedo]
@@ -196,10 +195,11 @@ def _make_event(config, medium_row, surface_row, illum_row):
 
         # ---- volume collision ------------------------------------------
         cos_nee = dot3(-d, d_sun)
-        p_nee = phase_eval_at(config.phase_kinds, weights_at, params_at, cos_nee)
+        p_nee = phase_eval_at(config.phase_kinds, phase_params, weights_at, params_at, cos_nee)
         L_col = beta * albedo_col * p_nee * T_sun * E_sun
         d_col = phase_sample_at(
-            config.phase_kinds, weights_at, params_at, d, u_ph_sel, u_ph_cos, u_ph_phi
+            config.phase_kinds, phase_params, weights_at, params_at, d, u_ph_sel, u_ph_cos,
+            u_ph_phi,
         )
         beta_col = beta * albedo_col
 

@@ -215,7 +215,7 @@ class ParticleLayer(Atmosphere):
 
     def __attrs_post_init__(self):
         from .particle_dist import UniformParticleDistribution
-        raise NotImplementedError("not ported yet: particle layers (aerosol datasets)")
+        from .aerosols import load_particle_dataset
 
         self.bottom = float(np.asarray(to_quantity(self.bottom, "km").m_as("km")))
         self.top = float(np.asarray(to_quantity(self.top, "km").m_as("km")))
@@ -226,7 +226,7 @@ class ParticleLayer(Atmosphere):
             self.dataset = load_particle_dataset(self.dataset)
         elif hasattr(self.dataset, "data_vars"):
             # xarray particle dataset (e.g. from load_aerosol_libradtran)
-            raise NotImplementedError("not ported yet: particle layers (aerosol datasets)")
+            from .aerosols import particle_dataset_from_xarray
 
             self.dataset = particle_dataset_from_xarray(self.dataset)
 

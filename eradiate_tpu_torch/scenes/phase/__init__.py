@@ -121,7 +121,7 @@ class TabulatedPhaseFunction(PhaseFunction):
             )
 
     def compile(self, w_nm, n_layers: int) -> tuple:
-        raise NotImplementedError("not ported yet: tabulated phase functions")
+        from ...ops.phase_ops import tab_phase_tables, theta_grid_params
 
         w = np.atleast_1d(np.asarray(w_nm, dtype=np.float64))
         S = w.size
@@ -203,7 +203,7 @@ class TabulatedPolarizedPhaseFunction(PhaseFunction):
             )
 
     def compile(self, w_nm, n_layers: int) -> tuple:
-        raise NotImplementedError("not ported yet: tabulated phase functions")
+        from ...ops.phase_ops import tab_phase_tables, theta_grid_params
 
         w = np.atleast_1d(np.asarray(w_nm, dtype=np.float64))
         S = w.size

@@ -73,31 +73,39 @@ def upper_bound_fixed(levels, q, trips=None):
 
 
 def column_operands(layer_merge_tol=1e-3):
-    """The c1 column's collision-fetch operands at 550 nm, as the
-    plane-parallel tracer's first spectral row holds them: ``(z_levels
-    [L+1], tau_levels [L+1], tables [K, L])`` float32 (albedo, phase weight,
-    depolarisation: K = 3). ``layer_merge_tol=None`` keeps the 1200 layers of
-    0.1 km; c1's 1e-3 merges them into 46. It compiles the scene under the
-    mode that is set (c1's is ``mono_single``)."""
+    """The c1 column's collision-fetch operands at 550 nm (albedo, phase
+    weight, depolarisation: K = 3; :func:`experiment_operands`).
+    ``layer_merge_tol=None`` keeps the 1200 layers of 0.1 km; c1's 1e-3
+    merges them into 46. It compiles the scene under the mode that is set
+    (c1's is ``mono_single``)."""
     from ..experiments import AtmosphereExperiment
-    from ..ops.phase_ops import layer_param_slots
 
-    exp = AtmosphereExperiment(
+    return experiment_operands(AtmosphereExperiment(
         illumination={"type": "directional", "zenith": 30.0, "azimuth": 0.0},
         measures={"type": "mdistant", "construct": "hplane", "zeniths": [0.0],
                   "azimuth": 0.0, "id": "m"},
         surface={"type": "lambertian", "reflectance": 0.5},
         atmosphere={"type": "molecular"},
         geometry={"type": "plane_parallel", "layer_merge_tol": layer_merge_tol},
-    )
+    ))
+
+
+def experiment_operands(exp, row=0):
+    """The collision-fetch operands of a plane-parallel experiment's first
+    measure, spectral row ``row``, as the tracer holds them: ``(z_levels
+    [L+1], tau_levels [L+1], tables [K, L])`` float32, the tables the albedo,
+    each phase component's weight and the layer-indexed phase parameters
+    (c2: K = 4). It compiles the scene under the mode that is set."""
+    from ..ops.phase_ops import layer_param_slots
+
     m = exp.measures[0]
     scene, _, config = exp.compile_scene(m, exp.spectral_context(m))
     med = scene.medium
-    params = tuple({k: v[0] for k, v in p.items()} for p in med.phase_params)
+    params = tuple({k: v[row] for k, v in p.items()} for p in med.phase_params)
     extra, _ = layer_param_slots(config.phase_kinds, params)
-    tables = np.stack([med.albedo[0], *med.phase_weights[0], *extra])
+    tables = np.stack([med.albedo[row], *med.phase_weights[row], *extra])
     return tuple(np.ascontiguousarray(a, np.float32)
-                 for a in (med.z_levels, med.tau_levels[0], tables))
+                 for a in (med.z_levels, med.tau_levels[row], tables))
 
 
 def flat_run_operands(K=3, seed=3):

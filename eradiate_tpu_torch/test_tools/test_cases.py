@@ -9,9 +9,42 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..experiments import CanopyExperiment
+from ..experiments import AtmosphereExperiment, CanopyExperiment
 
-__all__ = ["create_het01_brfpp"]
+__all__ = ["create_rpv_afgl1986_continental_brfpp", "create_het01_brfpp"]
+
+
+def create_rpv_afgl1986_continental_brfpp(spp=1000, n_vza=76, absorption_data=None):
+    """Adds a continental aerosol layer (mirror of
+    ``test_cases/atmospheres.py:83``)."""
+    molecular = {"type": "molecular"}
+    if absorption_data is not None:
+        molecular["absorption_data"] = absorption_data
+    return AtmosphereExperiment(
+        illumination={"type": "directional", "zenith": 30.0, "azimuth": 0.0},
+        measures={
+            "type": "mdistant",
+            "construct": "hplane",
+            "zeniths": np.linspace(-75, 75, n_vza),
+            "azimuth": 0.0,
+            "spp": spp,
+            "id": "brfpp",
+        },
+        surface={"type": "rpv"},
+        atmosphere={
+            "type": "heterogeneous",
+            "molecular_atmosphere": molecular,
+            "particle_layers": [
+                {
+                    "type": "particle_layer",
+                    "bottom": 0.0,
+                    "top": 2.0,
+                    "tau_ref": 0.2,
+                    "dataset": "govaerts_2021-continental",
+                }
+            ],
+        },
+    )
 
 
 def create_het01_brfpp(spp=256, n_vza=19, n_leaves=2000, seed=5):

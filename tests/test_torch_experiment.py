@@ -183,7 +183,8 @@ def test_cuda_without_card_raises(mono_single, monkeypatch):
         eradiate_tpu_torch.run(AtmosphereExperiment(**c1_kwargs()), spp=8, device="cuda")
 
 
-@pytest.mark.parametrize("mode_id", ["mono_double", "mono_polarized_double", "ckd_single"])
+@pytest.mark.parametrize("mode_id", ["mono_double", "mono_polarized_double",
+                                     "ckd_polarized_single"])
 def test_unported_modes_raise(mode_id):
     eradiate_tpu_torch.set_mode(mode_id)
     try:
@@ -196,7 +197,7 @@ def test_unported_modes_raise(mode_id):
 @pytest.mark.parametrize(
     "override, name",
     [
-        ({"surface": {"type": "rpv"}}, "rpv"),
+        ({"surface": {"type": "rtls"}}, "rtls"),
         ({"illumination": {"type": "constant"}}, "ConstantIllumination"),
     ],
 )

@@ -195,22 +195,32 @@ def test_scatter_frames(edge):
         np.testing.assert_allclose((h * _t(ell)).sum(-1).numpy(), 0.0, atol=1e-6)
 
 
+@pytest.mark.parametrize("second", ["rayleigh", "tab"])
 @pytest.mark.parametrize("depol", [0.0, 0.0279])
-def test_phase_mueller_at(depol):
+def test_phase_mueller_at(depol, second):
     """The Mueller phase blend against the reference's ``_phase_mueller``
-    (two Rayleigh components over 6 layers, gathered at random layers)."""
+    (a Rayleigh component and a second Rayleigh or a tabulated one, which
+    enters as a depolarizer, over 6 layers, gathered at random layers)."""
     L = 6
     rng = np.random.default_rng(11)
     weights = rng.uniform(0.1, 1.0, (2, L)).astype(np.float32)
     depols = np.stack([np.full(L, depol), rng.uniform(0.0, 0.1, L)]).astype(np.float32)
     layer = rng.integers(0, L, N).astype(np.int32)
     c = _unit(12, N, -1.0, 1.0)
-    kinds = ("rayleigh", "rayleigh")
-    params = tuple({"depol": jnp.asarray(depols[i])} for i in range(2))
+    kinds = ("rayleigh", second)
+    mu = np.linspace(-1.0, 1.0, 41)
+    values, cdf = phase_ops.tab_phase_tables(mu, 1.0 + 2.0 * (1.0 + mu) ** 3)
+    tab = {k: np.asarray(v, np.float32) for k, v in (("mu", mu), ("values", values),
+                                                     ("cdf", cdf))}
+    params = ({"depol": depols[0]}, {"depol": depols[1]} if second == "rayleigh" else tab)
     ref = (jax.vmap(lambda l, cc: ref_tracer._phase_mueller(
-        kinds, params, jnp.asarray(weights), l, cc)))(jnp.asarray(layer), jnp.asarray(c))
-    at = tuple({"depol": _t(depols[i][layer])} for i in range(2))
-    out = phase_ops.phase_mueller_at(kinds, _t(weights.T[layer]), at, _t(c))
+        kinds, tuple({k: jnp.asarray(v) for k, v in p.items()} for p in params),
+        jnp.asarray(weights), l, cc)))(jnp.asarray(layer), jnp.asarray(c))
+    at = ({"depol": _t(depols[0][layer])},
+          {"depol": _t(depols[1][layer])} if second == "rayleigh" else {})
+    out = phase_ops.phase_mueller_at(kinds, tuple({k: _t(v) for k, v in p.items()}
+                                                  for p in params),
+                                     _t(weights.T[layer]), at, _t(c))
     close(out, ref)
 
 
@@ -218,7 +228,7 @@ def test_tab_polarized_raises():
     with pytest.raises(NotImplementedError, match="tab_polarized"):
         phase_ops.check_phase_kinds(("rayleigh", "tab_polarized"))
     with pytest.raises(NotImplementedError, match="tab_polarized"):
-        phase_ops.phase_mueller_at(("tab_polarized",), torch.ones(2, 1), ({},),
+        phase_ops.phase_mueller_at(("tab_polarized",), ({},), torch.ones(2, 1), ({},),
                                    torch.zeros(2))
 
 
@@ -314,12 +324,13 @@ def test_fresnel_elements(m):
 
 
 def test_scalar_tracers_keep_their_surface_kinds():
-    """The polarized surfaces are the polarized tracers' only; rpv is
-    nobody's yet."""
-    assert bsdf_ops.SUPPORTED_BSDFS == ("black", "hapke", "lambertian")
+    """The polarized surfaces are the polarized tracers' only; rpv is a
+    scalar kind (the polarized tracers depolarize it); rtls is nobody's
+    yet."""
+    assert bsdf_ops.SUPPORTED_BSDFS == ("black", "hapke", "lambertian", "rpv")
     assert bsdf_ops.POLARIZED_SURFACES == ref_bpol.POLARIZED_SURFACES
-    with pytest.raises(NotImplementedError, match="rpv"):
-        bsdf_ops.bsdf_eval("rpv", _tparams(MAIGNAN, _t(_dirs(1))), _t(_dirs(1)),
+    with pytest.raises(NotImplementedError, match="rtls"):
+        bsdf_ops.bsdf_eval("rtls", _tparams(MAIGNAN, _t(_dirs(1))), _t(_dirs(1)),
                            _t(_dirs(2)))
 
 

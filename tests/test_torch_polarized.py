@@ -2,7 +2,7 @@
 
 Same seed, same samples: on a tiny c1-class scene (8 Rayleigh layers with
 air's depolarization, 4 view zeniths, 4 spectral rows) over Lambertian,
-Maignan and Mishchenko-ocean floors, the port's ``render_polarized`` gives
+Maignan, Mishchenko-ocean and RPV (a depolarizer) floors, the port's ``render_polarized`` gives
 the reference's I within 1e-5 relative per pixel (the c1 gate) and its Q, U
 and V within 1e-5 of I; so does ``run()`` on c1 in ``mono_polarized_single``,
 with the same dataset layout (Stokes components and ``dolp``). The estimate
@@ -44,6 +44,7 @@ SURFACES = {
                 "refr_re": 1.5, "refr_im": 0.0, "ext_ior": 1.000277},
     "ocean_mishchenko": {"wind_speed": 2.0, "eta": 1.33, "k": 0.0, "ext_ior": 1.000277,
                          "shadowing": 1.0},
+    "rpv": {"rho_0": 0.183, "k": 0.78, "g": -0.1, "rho_c": 0.183},
 }
 
 
@@ -174,7 +175,7 @@ def test_scalar_tracer_refuses_polarized_config():
 
 @pytest.mark.parametrize(
     "field, value, name",
-    [("geometry", "spherical_shell", "spherical_shell"), ("surface_kind", "rpv", "'rpv'"),
+    [("geometry", "spherical_shell", "spherical_shell"), ("surface_kind", "rtls", "'rtls'"),
      ("phase_kinds", ("tab_polarized",), "tab_polarized"), ("lr_flight", True, "lr_flight")],
 )
 def test_unported_features_raise(field, value, name):

@@ -98,8 +98,8 @@ def test_lane_partition_tiles_sample_ids(spp):
         ("polarized", True, "render_polarized"),
         ("geometry", "spherical_shell", "spherical_shell"),
         ("sampler", "stratified", "stratified"),
-        ("phase_kinds", ("hg",), "'hg'"),
-        ("surface_kind", "rpv", "'rpv'"),
+        ("phase_kinds", ("tab_polarized",), "'tab_polarized'"),
+        ("surface_kind", "rtls", "'rtls'"),
         ("illumination_kind", "spot", "spot"),
         ("lr_flight", True, "lr_flight"),
         ("rng", "threefry", "threefry"),

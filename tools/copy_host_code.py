@@ -14,6 +14,9 @@ path under ``eradiate_tpu_torch/`` with its content unchanged except for
   which become ``NotImplementedError`` naming the feature;
 * a phrase of the docstrings (:data:`WORDING`).
 
+The data files of :data:`DATA` are copied byte for byte into the port's
+``data/store``.
+
 Relative imports need no rewriting: they resolve inside the port. From
 ``test_tools/test_cases.py`` only the scene factories in :data:`TEST_CASE_FACTORIES`
 are taken.
@@ -66,6 +69,7 @@ MODULES = [
     "scenes/core.py",
     "scenes/geometry.py",
     "scenes/atmosphere/__init__.py",
+    "scenes/atmosphere/aerosols.py",
     "scenes/atmosphere/particle_dist.py",
     "scenes/biosphere/__init__.py",
     "scenes/biosphere/rami.py",
@@ -85,7 +89,14 @@ MODULES = [
 ]
 
 #: scene factories taken from test_tools/test_cases.py
-TEST_CASE_FACTORIES = ["create_het01_brfpp"]
+TEST_CASE_FACTORIES = ["create_rpv_afgl1986_continental_brfpp", "create_het01_brfpp"]
+
+#: packaged data files the port's paths read (the c3 band's spectral response
+#: and the c2 aerosol), copied byte for byte
+DATA = [
+    "data/store/aerosol/govaerts_2021-continental.npz",
+    "data/store/srf/sentinel_2a-msi-4.npz",
+]
 TEST_CASES_HEADER = '''"""Canonical scene factories shared by the tests and the smoke script.
 
 The factories of ``eradiate_tpu/test_tools/test_cases.py`` that the port's
@@ -96,7 +107,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..experiments import CanopyExperiment
+from ..experiments import AtmosphereExperiment, CanopyExperiment
 
 __all__ = [{names}]
 '''
@@ -191,18 +202,9 @@ WORDING = {r"spectral d[r]iver": "spectral loop"}  # a regular expression
 
 #: path -> {lazy import line (stripped): feature named by the error}
 NOT_PORTED = {
-    "scenes/phase/__init__.py": {
-        "from ...ops.phase_ops import tab_phase_tables, theta_grid_params":
-            "tabulated phase functions",
-    },
     "scenes/bsdfs/__init__.py": {
         "from ...physics.ocean_data import case1_water_reflectance, water_ior":
             "the ocean BSDF",
-    },
-    "scenes/atmosphere/__init__.py": {
-        "from .aerosols import load_particle_dataset": "particle layers (aerosol datasets)",
-        "from .aerosols import particle_dataset_from_xarray":
-            "particle layers (aerosol datasets)",
     },
     "physics/absorption.py": {
         "from ..data.absorption_io import load_absorption_netcdf":
@@ -251,12 +253,15 @@ def test_cases() -> str:
     return "".join(parts)
 
 
-def outputs() -> dict[str, str]:
+def outputs() -> dict[str, str | bytes]:
+    """Every file the script writes, by path under the port: module copies
+    as text, data files as bytes."""
     out = {rel: transform(rel) for rel in MODULES}
     out["test_tools/__init__.py"] = _banner("test_tools/__init__.py") + (
         '"""Scene factories for tests and smoke runs."""\n'
     )
     out["test_tools/test_cases.py"] = test_cases()
+    out.update({rel: (SRC / rel).read_bytes() for rel in DATA})
     return out
 
 
@@ -266,6 +271,8 @@ def check_imports(files) -> list[str]:
     bad = []
     for rel in files:
         path = DST / rel
+        if not path.is_file():  # reported as stale
+            continue
         pkg = path.parent.relative_to(DST).parts
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
@@ -283,6 +290,10 @@ def check_imports(files) -> list[str]:
     return bad
 
 
+def _bytes(data):
+    return data.encode() if isinstance(data, str) else data
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--check", action="store_true",
@@ -290,17 +301,17 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     out = outputs()
     if args.check:
-        stale = [rel for rel, text in out.items()
-                 if not (DST / rel).is_file() or (DST / rel).read_text() != text]
+        stale = [rel for rel, data in out.items()
+                 if not (DST / rel).is_file() or (DST / rel).read_bytes() != _bytes(data)]
         for rel in stale:
             print(f"stale: eradiate_tpu_torch/{rel}")
     else:
         stale = []
-        for rel, text in out.items():
+        for rel, data in out.items():
             (DST / rel).parent.mkdir(parents=True, exist_ok=True)
-            (DST / rel).write_text(text)
+            (DST / rel).write_bytes(_bytes(data))
         print(f"wrote {len(out)} files under {DST.relative_to(ROOT)}/")
-    bad = check_imports(out)
+    bad = check_imports([rel for rel in out if rel.endswith(".py")])
     for line in bad:
         print(f"unresolved: {line}")
     return 1 if stale or bad else 0
