@@ -222,7 +222,31 @@ each fatal on failure:
     inside the run;
 27. c3 at full width (76 x 65536 x 56 rows), the same with 48 iterations
     profiled after the first 100; the iterations of each row, which must
-    sum to K1's launches.
+    sum to K1's launches;
+28. polarized c4 (the ``stokes`` integrator through
+    ``render_spherical_polarized``) on CUDA against the CPU, 15 view
+    zeniths and 256 spp at one seed, at SZA 75 (K2 and the sun-tau table),
+    SZA 85 (K3) and as path B (``lr_flight``: K2 then K4): the card's c4
+    gate on I (|z| <= 5, the median pixel within 1e-4 relative) and
+    |z| <= 5 on Q, U and V with I's variances; on the card, path B's Stokes
+    vectors and iterations equal, bit for bit, the exact-NEE render (K3) of
+    the scene without its sun-tau table;
+29. polarized c4 at full width, SZA 75 (15 x 2097152, in the reference's
+    chunks of ``MAX_PATHS_PER_DISPATCH // 15`` samples, each with its own
+    key), as phase 21 with 48 event iterations profiled after the first 64:
+    K2's launches must equal the event iterations summed over the chunks,
+    and no other kernel launches; wall, samples/s, chunks, iterations a
+    chunk, busy share, peak memory, CUDA kernels and device time an
+    iteration, K2's device time a launch inside the run; I, Q/I and DoLP at
+    the view nearest nadir beside phase 9's scalar BRF;
+30. polarized c2 (the aerosol as ``tab_polarized``): CUDA against the CPU
+    at 11 view zeniths and 256 spp (I within 1e-4, Stokes |z| <= 5), then
+    at full width (76 x 2097152) as phase 26: K1's launches must equal the
+    bounce iterations, K1's device time a launch inside the run;
+31. c3 in ``ckd_polarized_single`` on CUDA against the CPU, 11 view zeniths
+    and 256 spp a row: each of the 56 raw rows' I within 1e-4 relative and
+    its Stokes components within |z| <= 5, and so the aggregated I; K1's
+    launches must equal the bounce iterations summed over the rows.
 
 It prints a ``{"kernels": [...]}`` line (each kernel with its launches on its
 main path, its error against the plain version, its call time (``ms``) and
@@ -240,9 +264,10 @@ has to read; the shell kernels also with their device time a launch inside
 the full-width runs, ``run_ms``; a sweep's nearest hit with what a ray
 reaches of its hierarchy, ``reach``; the instanced triangle kernels with
 their time and bound on the wood skeleton, ``skeleton``; every kernel its
-launches on the polarized paths, ``polarized_launches``, and K1 and K7
-their device time a launch inside the polarized full-width runs,
-``polarized_run_ms``) and the ``nvidia-smi`` line
+launches on the polarized paths, ``polarized_launches``, and K1, K2 and
+K7 their device time a launch inside the polarized full-width runs,
+``polarized_run_ms``, by path: K1 on c1 and c2, K2 on c4, K7 on c5) and the
+``nvidia-smi`` line
 before the last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
 exits non-zero and prints no result. It imports neither ``jax`` nor
@@ -358,10 +383,13 @@ def _c1(n_vza, layer_merge_tol=1e-3, stokes=False):
     )
 
 
-def _c4(sza=75.0, shell_merge_tol=1e-3, sun_tau_table="auto"):
+def _c4(sza=75.0, shell_merge_tol=1e-3, sun_tau_table="auto", stokes=False):
+    """BASELINE config 4; ``stokes`` asks for the Stokes integrator (render
+    it in ``mono_polarized_single``)."""
     from eradiate_tpu_torch import AtmosphereExperiment
 
     return AtmosphereExperiment(
+        integrator={"type": "volpath", "stokes": True} if stokes else None,
         geometry={"type": "spherical_shell", "shell_merge_tol": shell_merge_tol,
                   "sun_tau_table": sun_tau_table},
         illumination={"type": "directional", "zenith": sza, "azimuth": 0.0},
@@ -446,15 +474,47 @@ def _time_ms(fn, reps=25):
     return statistics.median(times)
 
 
+def window_records(prof):
+    """What the analyses read of a stopped profiler: ``(kernels, own)``, each
+    device record's ``(name, ms)`` and, for each ``aten::`` operator, the
+    device ms of the kernels it launched itself (its self device time). Read
+    from the profiler's raw records and kept on ``prof``: ``prof.events()``
+    first builds an event object for each record, some 60 us a record, and
+    a polarized window of 48 iterations holds ~5e5 of them. Kernels are
+    tied to the operator whose correlation id they carry, and operators
+    that end on another thread (asynchronous) are left out, as
+    ``prof.events()`` ties and leaves them."""
+    cached = getattr(prof, "_window_records", None)
+    if cached is not None:
+        return cached
+    from torch.autograd import DeviceType
+
+    kernels, by_op, op_names = [], {}, {}
+    for e in prof.profiler.kineto_results.events():
+        kind = e.device_type()
+        if kind == DeviceType.CUDA:
+            ms = e.duration_ns() / 1e6
+            kernels.append((e.name(), ms))
+            by_op[e.linked_correlation_id()] = by_op.get(e.linked_correlation_id(), 0.0) + ms
+        elif kind == DeviceType.CPU and not e.is_async() and (
+                e.start_thread_id() == e.end_thread_id()):
+            name = e.name()
+            if name.startswith("aten::"):
+                op_names[e.correlation_id()] = name
+    own = {}
+    for corr, name in op_names.items():
+        if corr in by_op:
+            own[name] = own.get(name, 0.0) + by_op[corr]
+    prof._window_records = kernels, own
+    return prof._window_records
+
+
 def _kernel_records(prof, kernel):
     """The device times (ms) of the profiler's records of the CUDA kernel
     named ``kernel`` (the function's own name, so that ``bvh_nearest_kernel``
     is not taken for ``leaf_bvh_nearest_kernel``; demangled or not)."""
-    from torch.autograd import DeviceType
-
     name = re.compile(rf"(?<![A-Za-z_]){kernel}(?![a-z_])")
-    return [e.device_time / 1e3 for e in prof.events()
-            if e.device_type == DeviceType.CUDA and name.search(e.name)]
+    return [ms for n, ms in window_records(prof)[0] if name.search(n)]
 
 
 def _device_ms(fn, kernel, reps=25, flush=False):
@@ -948,20 +1008,15 @@ def window_device(prof, window):
     summed (one stream: no overlap); and the window's device time by kernel
     family (the port's kernels, PyTorch's element-wise kernels,
     reductions, sorts, indexing, copies), as shares."""
-    from torch.autograd import DeviceType
-
     ours = tuple(KERNELS.values())
     families = {}
     # names are matched lower-cased: torch.stack and torch.cat launch
     # CatArrayBatchedCopy
     total = count = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        ms = e.device_time / 1e3
+    for name, ms in window_records(prof)[0]:
         total, count = total + ms, count + 1
-        family = "the port's kernels" if any(k in e.name for k in ours) else next(
-            (f for f, word in KERNEL_FAMILIES if word in e.name.lower()), "other")
+        family = "the port's kernels" if any(k in name for k in ours) else next(
+            (f for f, word in KERNEL_FAMILIES if word in name.lower()), "other")
         families[family] = families.get(family, 0.0) + ms
     shares = {f: ms / total for f, ms in sorted(families.items(), key=lambda x: -x[1])}
     return count / window, total / window, shares
@@ -1032,8 +1087,8 @@ def c4_cuda_vs_cpu(sza):
 
 def c4_full_width(sza, spp, phase):
     """Phases 9 and 10: one timed run of c4 at ``spp``; returns the launch
-    counts of the run by kernel, and the shell kernels' device time a launch
-    in one more run (``launch_ms_in_run``)."""
+    counts of the run by kernel, the shell kernels' device time a launch in
+    one more run (``launch_ms_in_run``), and the BRF at VZA -5."""
     import torch
 
     import eradiate_tpu_torch as etp
@@ -1068,7 +1123,7 @@ def c4_full_width(sza, spp, phase):
     in_run, sums, lanes = launch_ms_in_run(
         lambda: etp.run(exp, spp=spp, seed_state=etp.SeedState(SEED), device="cuda"), (kernel,))
     _print_in_run(in_run, sums, lanes)
-    return launches, in_run
+    return launches, in_run, float(brf[0, 8])
 
 
 def _wood_obj(directory, branches=WOOD_BRANCHES):
@@ -1871,21 +1926,27 @@ def c5_cuda_vs_cpu(form, phase, mesh_dir=None, branches=WOOD_BRANCHES, stokes=Fa
     return launches
 
 
-def polarized_c1_cuda_vs_cpu(phase):
-    """c1 with Stokes output at 11 view zeniths and 256 spp, one seed, on
-    CUDA and on the CPU: I within 1e-4 relative, each Stokes component of
-    each pixel within |z| <= 5."""
+def polarized_c1_cuda_vs_cpu(phase, label="polarized c1", make=None):
+    """c1 (or ``make(11)``, c2) with Stokes output at 11 view zeniths and
+    256 spp, one seed, on CUDA and on the CPU: I within 1e-4 relative, each
+    Stokes component of each pixel within |z| <= 5. Returns the CUDA run's
+    launches."""
     import eradiate_tpu_torch as etp
 
     out = {}
     for dev in ("cuda", "cpu"):
-        ds = etp.run(_c1(11, stokes=True), spp=256, seed_state=etp.SeedState(SEED), device=dev)
+        exp = _c1(11, stokes=True) if make is None else make(11)
+        reset_launches()
+        ds = etp.run(exp, spp=256, seed_state=etp.SeedState(SEED), device=dev)
+        if dev == "cuda":
+            launches = read_launches()
         out[dev] = {k: np.asarray(ds[k]) for k in ds.data_vars}
     rel, z = stokes_gate(out["cuda"], out["cpu"])
-    print(f"[{phase}] polarized c1 11 VZA 256 spp, CUDA vs CPU: max rel I diff {rel:.3e} "
+    print(f"[{phase}] {label} 11 VZA 256 spp, CUDA vs CPU: max rel I diff {rel:.3e} "
           f"(bound 1e-4), max |z| of I, Q, U, V {z:.3e} (bound 5)", flush=True)
     if not (np.isfinite(out["cuda"]["I"]).all() and rel <= 1e-4 and z <= 5.0):
-        raise AssertionError("CUDA and CPU runs of the port disagree on polarized c1")
+        raise AssertionError(f"CUDA and CPU runs of the port disagree on {label}")
+    return launches
 
 
 def _polarized_full_width(exp, spp, n_vza, module, attr, skip, window, label):
@@ -1932,24 +1993,24 @@ def _polarized_full_width(exp, spp, n_vza, module, attr, skip, window, label):
     return ds, launches, iterations, wall, peak, prof, per_it, dev_ms
 
 
-def polarized_c1_full_width(phase):
-    """Polarized c1 at full width: K1's launches must equal the bounce
-    iterations, and it alone launches; its device time a launch inside the
-    run from the profiler's window. Returns (launches, run device ms of K1,
-    the row for PERF.md)."""
+def polarized_c1_full_width(phase, label="polarized c1", exp=None, spp=SPP_C1, skip=100):
+    """Polarized c1 (or ``exp`` at ``spp``, c2) at full width: K1's launches
+    must equal the bounce iterations, and it alone launches; its device time
+    a launch inside the run from the profiler's window of 48 iterations
+    after ``skip``. Returns (launches, run device ms of K1)."""
     from eradiate_tpu_torch.ops import tracer_polarized
 
     ds, launches, iterations, wall, peak, prof, per_it, dev_ms = _polarized_full_width(
-        _c1(N_VZA, stokes=True), SPP_C1, N_VZA, tracer_polarized, "collision_fetch", 100, 48,
-        f"[{phase}] polarized c1 full width")
+        _c1(N_VZA, stokes=True) if exp is None else exp, spp, N_VZA, tracer_polarized,
+        "collision_fetch", skip, 48, f"[{phase}] {label} full width")
     n, ms = kernel_ms_in_window(prof, KERNELS["collision_fetch"], RUN_WINDOW_MIN)
     print(f"    collision_fetch launches {launches['collision_fetch']}, bounce iterations "
           f"{iterations}; device time a launch inside the run {ms:.4f} ms ({n} profiler "
           "records)", flush=True)
     if not (launches["collision_fetch"] > 0 and launches["collision_fetch"] == iterations):
-        raise AssertionError("polarized c1 did not run through K1 once per bounce")
+        raise AssertionError(f"{label} did not run through K1 once per bounce")
     if any(k for k, v in launches.items() if v and k != "collision_fetch"):
-        raise AssertionError("polarized c1 launched a kernel of another path")
+        raise AssertionError(f"{label} launched a kernel of another path")
     return launches, ms
 
 
@@ -2140,8 +2201,7 @@ def rows_cuda_vs_cpu(phase, label, make, rows):
 def top_ops(prof, n=6):
     """The ``n`` PyTorch operators with the most device time of their own
     in a profiler window, as (name, share of the window's device time)."""
-    ops = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-           if e.key.startswith("aten::") and e.self_device_time_total > 0]
+    ops = [(k, ms) for k, ms in window_records(prof)[1].items() if ms > 0]
     total = sum(t for _, t in ops) or 1.0
     return [(k, t / total) for k, t in sorted(ops, key=lambda x: -x[1])[:n]]
 
@@ -2214,6 +2274,188 @@ def rows_full_width(phase, label, exp, spp, n_vza, skip, window):
     if brf.shape[-1] != n_vza or not np.isfinite(brf).all():
         raise AssertionError(f"{label}: BRF not finite or of the wrong shape")
     return launches, k1_ms, iterations, per_row, ds
+
+def _compiled(exp):
+    m = exp.measures[0]
+    return exp.compile_scene(m, exp.spectral_context(m))
+
+
+def _stokes_render(scene, sensor, config, spp, device):
+    """``render_spherical_polarized`` at ``SEED``; (stokes [1, N, 4], I's
+    variance [1, N], iterations) as numpy."""
+    from eradiate_tpu_torch.ops.tracer_spherical_polarized import render_spherical_polarized
+
+    out = render_spherical_polarized(scene, sensor, config, spp, seed=SEED, device=device)
+    st, m2 = out["stokes"].cpu().numpy(), out["m2"].cpu().numpy()
+    return st, (m2 - st[..., 0] ** 2) / spp, out["iterations"]
+
+
+def polarized_c4_cuda_vs_cpu(phase):
+    """Polarized c4 at 15 view zeniths and 256 spp on CUDA and on the CPU,
+    at SZA 75, SZA 85 and as path B: the card's c4 gate on I and |z| <= 5
+    on Q, U and V (I's variances); then path B against the exact-NEE render
+    of the scene without its table on the card, bit for bit. Returns the
+    CUDA runs' launches by form."""
+    import dataclasses
+
+    launches = {}
+    for form, sza, lr in (("sza75", 75.0, False), ("sza85", 85.0, False),
+                          ("path_b", 75.0, True)):
+        scene, sensor, config = _compiled(_c4(sza, stokes=True))
+        config = dataclasses.replace(config, lr_flight=lr)
+        out, seconds = {}, {}
+        for dev in ("cuda", "cpu"):
+            reset_launches()
+            t0 = time.perf_counter()
+            out[dev] = _stokes_render(scene, sensor, config, 256, dev)
+            seconds[dev] = time.perf_counter() - t0
+            if dev == "cuda":
+                launches[form] = read_launches()
+        (st_g, var_g, it_g), (st_c, var_c, _) = out["cuda"], out["cpu"]
+        rel = np.abs(st_g[..., 0] - st_c[..., 0]) / np.abs(st_c[..., 0])
+        z = max(_max_z(st_g[..., c], st_c[..., c], var_g + var_c) for c in range(4))
+        mine = {"sza75": ("shell_flight",), "sza85": ("shell_event",),
+                "path_b": ("shell_flight", "slant_tau")}[form]
+        print(f"[{phase}] polarized c4 {form}, {N_VZA_C4} VZA 256 spp, CUDA vs CPU: max rel I "
+              f"diff {rel.max():.3e}, median {np.median(rel):.3e} (bound 1e-4), pixels above "
+              f"1e-4: {int((rel > 1e-4).sum())}, max |z| of I, Q, U, V {z:.3e} (bound 5); CUDA "
+              f"run {seconds['cuda']:.1f} s, CPU run {seconds['cpu']:.1f} s; {it_g} event "
+              f"iterations; launches {', '.join(f'{k} {n}' for k, n in launches[form].items() if n)}",
+              flush=True)
+        if not (np.isfinite(st_g).all() and np.median(rel) <= 1e-4 and z <= 5.0):
+            raise AssertionError(f"CUDA and CPU runs of the port disagree on polarized c4 "
+                                 f"({form})")
+        if not all(launches[form][k] == it_g > 0 for k in mine) or any(
+                n for k, n in launches[form].items() if k not in mine):
+            raise AssertionError(f"polarized c4 ({form}) did not launch {mine} once per event")
+    scene, sensor, config = _compiled(_c4(75.0, stokes=True))
+    lr = _stokes_render(scene, sensor, dataclasses.replace(config, lr_flight=True), 256, "cuda")
+    scene_x, sensor_x, config_x = _compiled(_c4(75.0, sun_tau_table=False, stokes=True))
+    if scene_x.medium.sun_tau is not None:
+        raise AssertionError("the sun-tau table is still on")
+    exact = _stokes_render(scene_x, sensor_x, config_x, 256, "cuda")
+    same = np.array_equal(lr[0].view(np.int32), exact[0].view(np.int32)) and lr[2] == exact[2]
+    print(f"    path B against the exact-NEE render (shell_event) on the card: Stokes and "
+          f"iterations bit for bit equal: {same} ({lr[2]} and {exact[2]} iterations)", flush=True)
+    if not same:
+        raise AssertionError("polarized path B and the exact-NEE render differ on the card")
+    return launches
+
+
+def polarized_c4_full_width(phase, scalar_brf, skip=64, window=48):
+    """Polarized c4 at SZA 75 at full width, in the reference's chunks: a
+    warm-up run with the profiler on for ``window`` event iterations after
+    ``skip``, then a timed run; K2's launches must equal the event
+    iterations summed over the chunks, and no other kernel launches.
+    Returns (launches, K2's device ms a launch inside the run)."""
+    import torch
+
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.ops import tracer_spherical, tracer_spherical_polarized as tsp
+    from eradiate_tpu_torch.ops.tracer import MAX_PATHS_PER_DISPATCH, chunk_plan
+
+    exp = _c4(75.0, stokes=True)
+
+    def run():
+        return etp.run(exp, spp=SPP_C4, seed_state=etp.SeedState(SEED), device="cuda")
+
+    prof = profile_window(run, tracer_spherical, "shell_flight", skip, window)
+    per_it, dev_ms, shares = window_device(prof, window)
+    n_rec, k2_ms = kernel_ms_in_window(prof, KERNELS["shell_flight"], RUN_WINDOW_MIN)
+    per_chunk = []
+    saved = tsp._render_row
+
+    def counted(*args, **kwargs):
+        out = saved(*args, **kwargs)
+        per_chunk.append(out[2])
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    tsp._render_row = counted
+    try:
+        t0 = time.perf_counter()
+        ds = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        tsp._render_row = saved
+    launches = read_launches()
+    iterations = exp.measures[0].results["raw"]["iterations"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    chunks = chunk_plan(SPP_C4, None, 1, N_VZA_C4, MAX_PATHS_PER_DISPATCH)
+    samples = N_VZA_C4 * SPP_C4
+    I, q, dolp, vza = _nadir(ds)
+    brf = np.asarray(ds["brf"])
+    print(f"[{phase}] polarized c4 SZA 75 full width: {N_VZA_C4} VZA x {SPP_C4} spp = {samples} "
+          f"samples in {len(per_chunk)} chunks ({chunks[0]} spp, the last {chunks[-1]}), wall "
+          f"{wall:.3f} s, {samples / wall:.4e} samples/s, {iterations} event iterations "
+          f"({1e3 * wall / iterations:.3f} ms each); iterations a chunk: "
+          f"{', '.join(map(str, per_chunk))}; peak device memory {peak:.2f} GiB", flush=True)
+    print(f"    launches {launches}; profiler window of {window} iterations (warm-up run): "
+          f"{per_it:.1f} CUDA kernels and {dev_ms:.3f} ms of device time an iteration, busy "
+          f"share {dev_ms * iterations / (1e3 * wall):.3f} of the timed run's wall; device "
+          f"time by kernel family: {', '.join(f'{f} {x:.3f}' for f, x in shares.items())}; "
+          f"operators with the most device time: "
+          f"{', '.join(f'{k} {x:.3f}' for k, x in top_ops(prof))}; shell_flight {k2_ms:.4f} "
+          f"ms of device time a launch inside the run ({n_rec} profiler records)", flush=True)
+    print(f"    at VZA {vza:.2f}: I {I:.6e}, Q/I {q:.6f}, DoLP {dolp:.6f}, BRF {brf[0, 8]:.6f} "
+          f"(the scalar run's, phase 9: {scalar_brf:.6f})", flush=True)
+    if len(per_chunk) != len(chunks) or sum(per_chunk) != iterations:
+        raise AssertionError("polarized c4: the chunks' iterations do not sum to the run's")
+    if not (launches["shell_flight"] > 0 and launches["shell_flight"] == iterations):
+        raise AssertionError("polarized c4 did not run through K2 once per event")
+    if any(n for k, n in launches.items() if k != "shell_flight"):
+        raise AssertionError("polarized c4 launched a kernel of another path")
+    stokes = np.stack([np.asarray(ds[c]) for c in "IQUV"], -1)
+    if stokes.shape != (1, N_VZA_C4, 4) or not np.isfinite(stokes).all() or not (
+            stokes[..., 0] > 0).all():
+        raise AssertionError("polarized c4: Stokes vectors not finite, positive or shaped")
+    return launches, k2_ms
+
+
+def polarized_rows_cuda_vs_cpu(phase):
+    """c3 in ``ckd_polarized_single`` at 11 view zeniths and 256 spp a row,
+    one seed, on CUDA and on the CPU: each of the 56 raw rows' I within
+    1e-4 relative and every Stokes component within |z| <= 5 (the rows' I
+    variances), and so the aggregated I; K1's launches must equal the bounce
+    iterations summed over the rows, and no other kernel launches. Returns
+    the CUDA run's launches."""
+    import eradiate_tpu_torch as etp
+
+    out, seconds = {}, {}
+    for dev in ("cuda", "cpu"):
+        exp = _c3(11)
+        reset_launches()
+        t0 = time.perf_counter()
+        ds = etp.run(exp, spp=256, seed_state=etp.SeedState(SEED), device=dev)
+        seconds[dev] = time.perf_counter() - t0
+        raw = exp.measures[0].results["raw"]
+        if dev == "cuda":
+            launches, iterations = read_launches(), raw["iterations"]
+        st = np.asarray(raw["stokes"], np.float64)
+        out[dev] = {"I": np.asarray(ds["I"]), "rows": st,
+                    "var": np.maximum(np.asarray(raw["m2"]) - st[..., 0] ** 2, 0.0) / raw["spp"]}
+    g, c = out["cuda"], out["cpu"]
+    rel_rows = float(np.max(np.abs(g["rows"][..., 0] - c["rows"][..., 0]) / c["rows"][..., 0]))
+    z = max(_max_z(g["rows"][..., k], c["rows"][..., k], g["var"] + c["var"]) for k in range(4))
+    rel = float(np.max(np.abs(g["I"] - c["I"]) / np.abs(c["I"])))
+    print(f"[{phase}] c3 (ckd_polarized_single), 11 VZA 256 spp, CUDA vs CPU: the "
+          f"{g['rows'].shape[0]} raw rows: max rel I diff {rel_rows:.3e} (bound 1e-4), max |z| "
+          f"of I, Q, U, V {z:.3e} (bound 5); aggregated I (bins {g['I'].shape[0]}): max rel "
+          f"{rel:.3e} (bound 1e-4); CUDA run {seconds['cuda']:.1f} s, CPU run "
+          f"{seconds['cpu']:.1f} s; {iterations} bounce iterations; launches "
+          f"{', '.join(f'{k} {n}' for k, n in launches.items() if n)}", flush=True)
+    if g["rows"].shape != (ROWS_C3, 11, 4):
+        raise AssertionError(f"polarized c3: raw Stokes of shape {g['rows'].shape}")
+    if not (np.isfinite(g["rows"]).all() and rel_rows <= 1e-4 and z <= 5.0 and rel <= 1e-4):
+        raise AssertionError("CUDA and CPU runs of the port disagree on polarized c3")
+    if not (launches["collision_fetch"] > 0 and launches["collision_fetch"] == iterations):
+        raise AssertionError("polarized c3 did not run through K1 once per bounce")
+    if any(n for k, n in launches.items() if k != "collision_fetch"):
+        raise AssertionError("polarized c3 launched a kernel of another path")
+    return launches
 
 
 def main():
@@ -2405,8 +2647,8 @@ def main():
         c4_cuda_vs_cpu(sza)
 
     # -- 9, 10. c4 at full width -------------------------------------------
-    c4_launches, c4_in_run = c4_full_width(75.0, SPP_C4, phase=9)
-    c4x_launches, c4x_in_run = c4_full_width(85.0, SPP_C4, phase=10)
+    c4_launches, c4_in_run, c4_brf_nadir = c4_full_width(75.0, SPP_C4, phase=9)
+    c4x_launches, c4x_in_run, _ = c4_full_width(85.0, SPP_C4, phase=10)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
@@ -2621,6 +2863,17 @@ def main():
         27, "c3 (ckd_single)", _c3(N_VZA), SPP_C3, N_VZA, 100, 48)
     if len(c3_rows) != ROWS_C3:
         raise AssertionError(f"c3 rendered {len(c3_rows)} rows, not {ROWS_C3}")
+
+    # -- 28-31. polarized c4 (K2-K4), c2 and c3 (K1) ----------------------------
+    etp.set_mode(POLARIZED_MODE)
+    pol_c4_small = polarized_c4_cuda_vs_cpu(28)
+    pol_c4_launches, pol_c4_k2_ms = polarized_c4_full_width(29, c4_brf_nadir)
+    pol_c2_small = polarized_c1_cuda_vs_cpu(30, "polarized c2", _c2)
+    pol_c2_launches, pol_c2_k1_ms = polarized_c1_full_width(
+        30, "polarized c2", _c2(N_VZA), SPP_C2, skip=64)
+    etp.set_mode("ckd_polarized_single")
+    pol_c3_small = polarized_rows_cuda_vs_cpu(31)
+    etp.set_mode("mono_single")
     for mod in ("jax", "eradiate_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
@@ -2633,17 +2886,27 @@ def main():
                                        "c3_256spp": c3_small["collision_fetch"]})
 
     # each kernel's launches on the polarized paths: the full-width runs (K1
-    # on c1, K7 on c5) and the 64-spp CUDA runs of phase 22 (K5/K6 flat, K7
-    # and K9 on the tree form)
+    # on c1 and c2, K2 on c4, K7 on c5), the small CUDA runs of phase 22
+    # (K5/K6 flat, K7 and K9 on the tree form), 28 (K2, K3, K4), 30 and 31
+    # (K1)
     polarized = {k: {} for k in KERNELS}
     polarized["collision_fetch"]["c1_polarized"] = pol_c1_launches["collision_fetch"]
+    polarized["collision_fetch"]["c2_polarized"] = pol_c2_launches["collision_fetch"]
+    polarized["shell_flight"]["c4_polarized"] = pol_c4_launches["shell_flight"]
     for k in C5_KERNELS["instanced"]:
         polarized[k]["c5_polarized"] = pol_c5_launches[k]
-    for form, counts in pol_small.items():
+    smaller = {f"c5_polarized_{form}_64spp": counts
+               for form, counts in pol_small.items()}
+    smaller.update({f"c4_polarized_{form}_256spp": counts
+                    for form, counts in pol_c4_small.items()})
+    smaller.update(c2_polarized_256spp=pol_c2_small, c3_polarized_256spp=pol_c3_small)
+    for label, counts in smaller.items():
         for k, n in counts.items():
             if n:
-                polarized[k][f"c5_polarized_{form}_64spp"] = n
-    polarized_run_ms = {"collision_fetch": pol_fetch_ms, **pol_sweep_ms}
+                polarized[k][label] = n
+    polarized_run_ms = {"collision_fetch": {"c1": pol_fetch_ms, "c2": pol_c2_k1_ms},
+                        "shell_flight": {"c4": pol_c4_k2_ms},
+                        **{k: {"c5": ms} for k, ms in pol_sweep_ms.items()}}
 
     def entry(name, source, replaces, n, err, times, bound, in_run=None):
         """One kernel of the ``kernels`` line; ``times`` holds its call time
@@ -2655,9 +2918,9 @@ def main():
         A sweep's nearest hit also carries what a ray reaches of its
         hierarchy (``reach``), and the instanced triangle kernels their time
         and bound on the wood skeleton (``skeleton``). Every kernel carries
-        its launches on the polarized paths (``polarized_launches``), K1
+        its launches on the polarized paths (``polarized_launches``), K1, K2
         and K7 their device time a launch inside the polarized full-width
-        runs (``polarized_run_ms``). K1 also carries its times and bound on
+        runs by path (``polarized_run_ms``). K1 also carries its times and bound on
         c2's column (``c2_column``) and its launches and device time a
         launch inside the c2 and c3 full-width runs (``c2_launches``,
         ``c2_run_device_ms``, ``c3_launches``, ``c3_run_device_ms``, and c3's

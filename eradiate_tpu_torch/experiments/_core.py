@@ -3,7 +3,8 @@
 Port of ``eradiate_tpu/experiments/_core.py`` as a single-device path (no
 mesh, no checkpoint): plane-parallel scenes go to :mod:`..ops.tracer`, or
 to :mod:`..ops.tracer_polarized` in a polarized mode, spherical-shell scenes
-to :mod:`..ops.tracer_spherical`. The result is the same :mod:`..xr`
+to :mod:`..ops.tracer_spherical`, or to
+:mod:`..ops.tracer_spherical_polarized`. The result is the same :mod:`..xr`
 Dataset layout the reference returns (with the Stokes components and
 ``dolp`` in a polarized mode), assembled by the port's copy of
 ``pipelines.logic.postprocess_measure``.
@@ -32,6 +33,7 @@ from ..core.device import resolve_device
 from ..ops.tracer import render
 from ..ops.tracer_polarized import render_polarized
 from ..ops.tracer_spherical import render_spherical
+from ..ops.tracer_spherical_polarized import render_spherical_polarized
 
 __all__ = ["EarthObservationExperiment", "run", "check_mode"]
 
@@ -54,8 +56,8 @@ def _integrator_converter(value):
 
 #: The modes the port renders: single precision only, so the double modes
 #: (and the unsuffixed aliases ``mono``, ``mono_polarized`` and ``ckd``, which
-#: name them) raise, as does polarized CKD.
-SUPPORTED_MODES = ("mono_single", "mono_polarized_single", "ckd_single")
+#: name them) raise.
+SUPPORTED_MODES = ("mono_single", "mono_polarized_single", "ckd_single", "ckd_polarized_single")
 
 
 def check_mode():
@@ -151,8 +153,8 @@ class EarthObservationExperiment(SceneElement):
     def _render_one(self, scene, sensor, config, n, seed, device):
         if config.geometry == "spherical_shell":
             if config.polarized:
-                raise NotImplementedError(
-                    "polarized transport in spherical-shell geometry is not ported yet"
+                return render_spherical_polarized(
+                    scene, sensor, config, spp=n, seed=seed, device=device
                 )
             return render_spherical(scene, sensor, config, spp=n, seed=seed, device=device)
         if config.polarized:

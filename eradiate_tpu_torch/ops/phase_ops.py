@@ -1,7 +1,10 @@
 """Phase function evaluation and sampling, batched over lanes.
 
-Port of ``eradiate_tpu/ops/phase_ops.py`` for the scalar kinds
-``rayleigh``, ``hg``, ``isotropic`` and ``tab``. The reference ``vmap``s its
+Port of ``eradiate_tpu/ops/phase_ops.py`` for the kinds ``rayleigh``,
+``hg``, ``isotropic``, ``tab`` and ``tab_polarized`` (the aerosols'
+tabulated phase matrix, which only a polarized mode compiles to: its
+``values``, ``cdf``, ``tg0`` and ``itg`` are a ``tab`` component's, its
+``m12`` .. ``m44`` rows enter :func:`phase_mueller_at`). The reference ``vmap``s its
 per-path functions; here every function takes a leading lane axis: blend
 weights are ``[B, C]``, fetched layer parameters ``[B]``. A component's own
 parameters (one spectral row: ``hg``'s ``g`` [], ``tab``'s ``mu``,
@@ -26,7 +29,8 @@ import torch
 
 from .fastmath import cos_sin_2pi
 from .medium import fetch_pairs_at, interp_fetch
-from .mueller import depolarizer, rayleigh_mueller
+from .mueller import depolarizer, matrix4, rayleigh_mueller
+from .spherical import fma
 
 __all__ = [
     "ortho_frame",
@@ -45,24 +49,31 @@ __all__ = [
     "phase_eval_at",
     "phase_sample_at",
     "phase_mueller_at",
+    "interp",
+    "tab_polarized_mueller",
     "check_phase_kinds",
 ]
 
-_SUPPORTED_KINDS = ("rayleigh", "hg", "isotropic", "tab")
+_SCALAR_KINDS = ("rayleigh", "hg", "isotropic", "tab")
 
 
-def check_phase_kinds(phase_kinds):
-    """Raise ``NotImplementedError`` for a component kind the port lacks."""
+def check_phase_kinds(phase_kinds, polarized=False):
+    """Raise ``NotImplementedError`` for a component kind the calling tracer
+    lacks: ``tab_polarized`` only where ``polarized`` (the plane-parallel and
+    spherical polarized tracers), any kind the port lacks everywhere."""
     for kind in phase_kinds:
         if kind == "tab_polarized":
+            if polarized:
+                continue
             raise NotImplementedError(
                 "phase kind 'tab_polarized' (tabulated polarized phase matrices, "
-                "aerosols) is not ported yet"
+                "aerosols) is not ported for this tracer (render it with "
+                "render_polarized or render_spherical_polarized)"
             )
-        if kind not in _SUPPORTED_KINDS:
+        if kind not in _SCALAR_KINDS:
             raise NotImplementedError(
                 f"phase kind {kind!r} is not ported yet (supported: "
-                f"{', '.join(_SUPPORTED_KINDS)})"
+                f"{', '.join(_SCALAR_KINDS + ('tab_polarized',))})"
             )
 
 
@@ -222,7 +233,7 @@ def _component_eval_at(kind, params, at, cos_theta):
         return hg_eval(params["g"], cos_theta)
     if kind == "isotropic":
         return iso_eval(cos_theta)
-    if kind == "tab":
+    if kind in ("tab", "tab_polarized"):
         return tab_eval(params, cos_theta)
     raise NotImplementedError(f"phase kind {kind!r} is not ported yet")
 
@@ -234,7 +245,7 @@ def _component_sample_cos_at(kind, params, at, u):
         return hg_sample_cos(params["g"], u)
     if kind == "isotropic":
         return 2.0 * u[..., 0] - 1.0
-    if kind == "tab":
+    if kind in ("tab", "tab_polarized"):
         return tab_sample_cos(params, u)
     raise NotImplementedError(f"phase kind {kind!r} is not ported yet")
 
@@ -252,17 +263,56 @@ def phase_eval_at(phase_kinds, phase_params, weights_at, params_at, cos_theta):
     return total
 
 
+def interp(x, xp, fp):
+    """``jnp.interp(x, xp, fp)`` as the reference's jitted code computes it:
+    the bracket ``i`` from ``searchsorted(side="right")`` clipped to [1, M -
+    1], ``fp[i - 1] + (delta / dx) * df`` rounded once (XLA:CPU contracts it
+    into a fused multiply-add), ``fp[i - 1]`` where ``|dx|`` is below
+    ``np.spacing(eps)``, and ``fp`` at either end outside ``xp``. ``fp`` is
+    a sequence of tables [M] on the grid ``xp`` [M]; returns one [B]
+    tensor for each."""
+    M = xp.shape[-1]
+    i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1, M - 1)
+    x0 = xp[i - 1]
+    dx = xp[i] - x0
+    dx0 = torch.abs(dx) <= float(np.spacing(np.finfo(np.float32).eps))
+    q = (x - x0) / torch.where(dx0, 1.0, dx)
+    below, above = x < xp[0], x > xp[-1]
+    out = []
+    for table in fp:
+        f0 = table[i - 1]
+        f = torch.where(dx0, f0, fma(q, table[i] - f0, f0))
+        out.append(torch.where(above, table[-1], torch.where(below, table[0], f)))
+    return out
+
+
+def tab_polarized_mueller(params, cos_theta):
+    """Tabulated polarized phase matrix ``[B, 4, 4]`` (reference
+    ``tracer_polarized._tab_polarized_mueller``): m11 (``values``, the
+    scalar phase), m12, m22, m33, m34 and m44 interpolated in mu by
+    :func:`interp`, in the block layout [[m11, m12], [m12, m22]] and [[m33,
+    m34], [-m34, m44]]."""
+    m11, m12, m22, m33, m34, m44 = interp(
+        cos_theta, params["mu"],
+        [params[k] for k in ("values", "m12", "m22", "m33", "m34", "m44")],
+    )
+    z = torch.zeros_like(m11)
+    return matrix4(
+        [[m11, m12, z, z], [m12, m22, z, z], [z, z, m33, m34], [z, z, -m34, m44]]
+    )
+
+
 def phase_mueller_at(phase_kinds, phase_params, weights_at, params_at, cos_theta):
     """Blend-weighted Mueller phase matrix ``[B, 4, 4]`` in scattering-plane
-    frames: Rayleigh components contribute their full matrices, scalar
-    components ideal depolarizers of their phase value (no polarization
-    memory)."""
+    frames: Rayleigh and ``tab_polarized`` components contribute their full
+    matrices, scalar components ideal depolarizers of their phase value (no
+    polarization memory)."""
     total = None
     for c, kind in enumerate(phase_kinds):
         if kind == "rayleigh":
             m = rayleigh_mueller(cos_theta, params_at[c]["depol"])
         elif kind == "tab_polarized":
-            raise NotImplementedError("phase kind 'tab_polarized' is not ported yet")
+            m = tab_polarized_mueller(phase_params[c], cos_theta)
         else:
             m = depolarizer(
                 _component_eval_at(kind, phase_params[c], params_at[c], cos_theta)

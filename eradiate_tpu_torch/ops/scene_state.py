@@ -49,12 +49,14 @@ SURFACE_PARAMS = {
 #: The parameters each phase component must hold, rows [S, ...]:
 #: ``rayleigh`` its depolarization per layer [S, L], ``hg`` its asymmetry
 #: [S], ``tab`` its table on the mu grid [S, M] (and, on a theta-uniform
-#: grid, ``tg0`` and ``itg`` [S]). A compiled scene that lacks one is refused
-#: on transfer.
+#: grid, ``tg0`` and ``itg`` [S]), ``tab_polarized`` a ``tab`` table and the
+#: phase matrix's other elements on the same grid [S, M]. A compiled scene
+#: that lacks one is refused on transfer.
 PHASE_PARAMS = {
     "rayleigh": ("depol",),
     "hg": ("g",),
     "tab": ("mu", "values", "cdf"),
+    "tab_polarized": ("mu", "values", "cdf", "m12", "m22", "m33", "m34", "m44"),
 }
 
 

@@ -44,7 +44,8 @@ from .scene_state import (
     from_reference,
 )
 
-__all__ = ["render", "trace_paths_regen", "lane_partition", "row_arrays", "row_key"]
+__all__ = ["render", "trace_paths_regen", "lane_partition", "row_arrays", "row_key",
+           "chunk_plan", "MAX_PATHS_PER_DISPATCH", "CANOPY_PATHS_PER_DISPATCH"]
 
 #: Lane-count target per device type. CPU keeps the reference's 2^14 so that
 #: CPU runs decompose like the reference's. On CUDA the eager loop costs
@@ -350,6 +351,37 @@ def row_arrays(scene, s):
         sky_radiance=_row(il.sky_radiance, s),
     )
     return medium_row, surface_row, illum_row
+
+
+#: Most paths (spectral rows x pixels x samples) of one dispatch of the
+#: reference's renders (its ``MAX_PATHS_PER_DISPATCH``): a render with more
+#: splits its samples into chunks (:func:`chunk_plan`), each with its own key.
+#: The chunk plan decides the sample set, so where the port keeps this cap
+#: its renders follow the reference's stream. The polarized spherical tracer
+#: keeps it on every device: the reference chunks that render by itself, and
+#: a full-width render on the card is held to it as it is (polarized c4: 16
+#: chunks of 262,140 lanes, each drained on its own; one dispatch with a key
+#: a lane's chunk is ROADMAP queue 2's follow-up).
+MAX_PATHS_PER_DISPATCH = 2**21
+
+#: The canopy tracers' cap per device type. The CPU keeps the reference's
+#: canopy cap (``MAX_PATHS_PER_DISPATCH // 8``) so that CPU runs decompose
+#: like the reference's and same-seed tests hold; a card takes the whole of
+#: config 5 (19 pixels x 2097152 samples) in one dispatch, since its
+#: full-width renders are held to the reference by statistics, not by stream.
+CANOPY_PATHS_PER_DISPATCH = {"cpu": MAX_PATHS_PER_DISPATCH // 8, "cuda": 2**26}
+
+
+def chunk_plan(spp, spp_chunk, S, n_pix, cap):
+    """Samples of each chunk of a render: ``spp_chunk`` each, by default as
+    many as a dispatch of ``cap`` paths allows for ``S`` rows of ``n_pix``
+    pixels, the last chunk what remains (the reference's chunking)."""
+    if spp_chunk is None:
+        max_spp = max(1, cap // max(S * n_pix, 1))
+        if spp > max_spp:
+            spp_chunk = max_spp
+    step = spp_chunk or spp
+    return [min(step, spp - start) for start in range(0, spp, step)]
 
 
 def row_key(seed, s, chunk_id, device):

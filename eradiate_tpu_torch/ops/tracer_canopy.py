@@ -24,8 +24,8 @@ on the host, pcg4d per-sample keys and per-bounce uniforms on the device).
 A sample's stream depends on (seed, spectral row, chunk, pixel, sample id
 within the chunk, depth): estimates do not depend on the lane count, and
 depend on the chunk plan. On the CPU the plan is the reference's
-(:data:`PATHS_PER_DISPATCH`, :data:`LANES_TARGET`), so same-seed runs agree
-with it.
+(:data:`.tracer.CANOPY_PATHS_PER_DISPATCH`, :data:`LANES_TARGET`), so
+same-seed runs agree with it.
 """
 
 from __future__ import annotations
@@ -54,9 +54,16 @@ from .phase_ops import (
     rebuild_fetched,
 )
 from .scene_state import canopy_from_reference, from_reference
-from .tracer import CHECK_EVERY, lane_partition, row_arrays, row_key
+from .tracer import (
+    CANOPY_PATHS_PER_DISPATCH,
+    CHECK_EVERY,
+    chunk_plan,
+    lane_partition,
+    row_arrays,
+    row_key,
+)
 
-__all__ = ["render_canopy", "trace_paths_canopy_regen", "lane_rays", "chunk_plan",
+__all__ = ["render_canopy", "trace_paths_canopy_regen", "lane_rays",
            "canopy_rows"]
 
 #: Bounces between spatial lane sorts in the regenerative loop (0 = off).
@@ -64,13 +71,6 @@ __all__ = ["render_canopy", "trace_paths_canopy_regen", "lane_rays", "chunk_plan
 #: thread block spatially coherent, which is what lets the sweep kernels'
 #: per-group sphere culls skip groups for a whole block.
 CANOPY_SORT_EVERY = 1
-
-#: Most paths (spectral rows x pixels x samples) of one dispatch, per device
-#: type. A render with more is split into chunks of samples, each with its
-#: own key. The CPU keeps the reference's cap (its ``MAX_PATHS_PER_DISPATCH
-#: // 8``) so that CPU runs decompose like the reference's; a card takes the
-#: whole of config 5 (19 pixels x 2097152 samples) in one dispatch.
-PATHS_PER_DISPATCH = {"cpu": 2**21 // 8, "cuda": 2**26}
 
 #: Lane-count target per device type: the reference's 2^14 on the CPU; on
 #: CUDA the count that was fastest for config 5 on an H100 (PERF.md,
@@ -497,7 +497,8 @@ def render_canopy(
     leaf cloud and ``leaf_params`` ``{"reflectance": [S], "transmittance":
     [S]}``, ``tris`` None or a flat or instanced triangle mesh (trunks, mesh
     trees) with its optics ``tri_params``, the reference's or the port's; all
-    are moved to ``device`` first. ``spp_chunk`` (default: what :data:`PATHS_PER_DISPATCH` allows)
+    are moved to ``device`` first. ``spp_chunk`` (default: what
+    :data:`.tracer.CANOPY_PATHS_PER_DISPATCH` allows)
     splits the samples into chunks with their own keys and so changes the
     sample set; ``lanes_target`` (default :data:`LANES_TARGET`) and
     ``sort_every`` change only the float summation order.
@@ -516,7 +517,7 @@ def render_canopy(
     if lanes_target is None:
         lanes_target = LANES_TARGET[dev.type]
     S, n_pix = scene.medium.tau_levels.shape[0], sensor.directions.shape[0]
-    chunks = chunk_plan(spp, spp_chunk, S, n_pix, dev.type)
+    chunks = chunk_plan(spp, spp_chunk, S, n_pix, CANOPY_PATHS_PER_DISPATCH[dev.type])
 
     rad_sum = torch.zeros((S, n_pix), dtype=torch.float32, device=dev)
     m2_sum = torch.zeros((S, n_pix), dtype=torch.float32, device=dev)
@@ -538,17 +539,6 @@ def render_canopy(
         "spp": traced,
         "iterations": iterations,
     }
-
-
-def chunk_plan(spp, spp_chunk, S, n_pix, device_type):
-    """Samples of each chunk: ``spp_chunk`` each, by default as many as
-    :data:`PATHS_PER_DISPATCH` allows for ``S`` rows of ``n_pix`` pixels."""
-    if spp_chunk is None:
-        max_spp = max(1, PATHS_PER_DISPATCH[device_type] // max(S * n_pix, 1))
-        if spp > max_spp:
-            spp_chunk = max_spp
-    step = spp_chunk or spp
-    return [min(step, spp - start) for start in range(0, spp, step)]
 
 
 def canopy_rows(scene, leaf_params, tri_params, seed, chunks, dev):

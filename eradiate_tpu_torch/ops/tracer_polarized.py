@@ -21,7 +21,8 @@ uniform slots are those of the scalar tracer, so a scalar and a polarized
 run with one seed trace the same paths. Each collision is resolved by the
 collision fetch (:func:`.medium.collision_fetch`: K1 on the card, its plain
 twin on the CPU), which also fetches the layer's albedo, phase weights and
-Rayleigh depolarization. The eager loop, its host ``done`` check every
+Rayleigh depolarization; a ``tab_polarized`` component (an aerosol) reads
+its phase matrix from its spectral row's tables, not from the fetch. The eager loop, its host ``done`` check every
 ``check_every`` iterations and the random streams are those of
 :mod:`.tracer`; the 4x4 products are :mod:`.mueller`'s fixed-order sums.
 """
@@ -57,7 +58,15 @@ from .phase_ops import (
 from .scene_state import from_reference
 from .tracer import CHECK_EVERY, REGEN_LANES_TARGET, lane_partition, row_arrays, row_key
 
-__all__ = ["render_polarized", "trace_paths_polarized_regen", "scatter_frames"]
+__all__ = [
+    "render_polarized",
+    "trace_paths_polarized_regen",
+    "scatter_frames",
+    "basis_rotator",
+    "phase_vertex",
+    "surface_vertex",
+    "roulette",
+]
 
 #: Surface kinds of the polarized tracers.
 SUPPORTED_SURFACES = SUPPORTED_BSDFS + POLARIZED_SURFACES
@@ -85,6 +94,62 @@ def unpolarized(value):
     ``value`` [B]."""
     z = torch.zeros_like(value)
     return torch.stack([value, z, z, z], dim=-1)
+
+
+def basis_rotator(l_in, l_out, b):
+    """``(h_in, R)``: the in-plane basis of ``l_in`` in the scattering plane
+    of the light propagation directions ``l_in -> l_out`` [B, 3], and the
+    rotator that turns the carried basis ``b`` of ``l_out`` into the plane's
+    basis of ``l_out``."""
+    h_in, h_out = scatter_frames(l_in, l_out)
+    return h_in, rotator(rotate_basis_angle(l_out, h_out, b))
+
+
+def phase_vertex(
+    kinds, phase_params, weights_at, params_at, P, b, d, l_sun, R_sun, S_sun, u_sel, u_cos,
+    u_phi,
+):
+    """The Mueller vertex of a volume collision, shared by the polarized
+    tracers: the sun's next-event Stokes vector ``P R_sun M(l_sun . l_out)
+    S_sun`` (``l_out = -d``; ``R_sun`` from :func:`basis_rotator` of
+    ``l_sun``) and the continuation sampled from the scalar phase function,
+    whose Mueller matrix divides by that pdf. Returns ``(S_nee, d_new,
+    P_new, b_new)``."""
+    l_out = -d
+    cos_nee = dot(l_sun, l_out)
+    M_nee = phase_mueller_at(kinds, phase_params, weights_at, params_at, cos_nee)
+    S_nee = matvec4(P, matvec4(R_sun, matvec4(M_nee, S_sun)))
+
+    d_new = phase_sample_at(kinds, phase_params, weights_at, params_at, d, u_sel, u_cos, u_phi)
+    cos_scat = dot(d_new, d)
+    p_scalar = phase_eval_at(kinds, phase_params, weights_at, params_at, cos_scat)
+    b_new, R_s = basis_rotator(-d_new, l_out, b)
+    M_s = phase_mueller_at(kinds, phase_params, weights_at, params_at, cos_scat)
+    M_full = matmul4(R_s, M_s) / torch.clamp(p_scalar, min=1e-30)[:, None, None]
+    return S_nee, d_new, matmul4(P, M_full), b_new
+
+
+def surface_vertex(P, b, l_out, R_sun, M_nee, S_sun, d_cont, M_cont):
+    """The Mueller vertex of a surface hit, shared by the polarized tracers
+    (a scalar kind's matrices are depolarizers): the sun's next-event Stokes
+    vector ``P R_sun M_nee S_sun`` and the continuation along the sampled
+    world direction ``d_cont``, whose Mueller matrix ``M_cont`` is
+    normalised by its own I-to-I element (the sampling weight lives in
+    beta). Returns ``(S_nee, P_new, b_new)``."""
+    S_nee = matvec4(P, matvec4(R_sun, matvec4(M_nee, S_sun)))
+    b_new, R_c = basis_rotator(-d_cont, l_out, b)
+    f_scalar = torch.clamp(M_cont[:, 0, 0], min=1e-30)
+    return S_nee, matmul4(P, matmul4(R_c, M_cont / f_scalar[:, None, None])), b_new
+
+
+def roulette(beta, alive, do_rr, u_rr):
+    """Russian roulette on ``beta`` where ``do_rr``: it reweights beta once,
+    not P (every contribution is ``P ... S_in(beta ...)``, so scaling P too
+    would square the ``1/q`` factor). Returns ``(beta', alive')``."""
+    q = torch.clamp(beta, 0.0, 0.95)
+    survive = u_rr < q
+    beta = beta * torch.where(do_rr & alive & survive, 1.0 / q, 1.0)
+    return beta, alive & (survive | ~do_rr)
 
 
 def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
@@ -142,53 +207,35 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
         xy_col = xy + d[:, :2] * ((z_col - z) / mu)[:, None]
 
         l_out = -d  # light leaves the vertex toward the sensor path
+        # the sun's light arrives along d_sun at either vertex kind: one
+        # rotation into its scattering plane serves both estimates
+        _, R_sun = basis_rotator(d_sun_b, l_out, b)
 
-        # NEE at the collision
-        cos_nee = dot(d_sun_b, l_out)
-        _, h_out_nee = scatter_frames(d_sun_b, l_out)
-        M_nee = phase_mueller_at(config.phase_kinds, phase_params, weights_at, params_at, cos_nee)
-        R_out = rotator(rotate_basis_angle(l_out, h_out_nee, b))
         T_sun = torch.exp(-(tau_top - tau_z(z_col)) / mu_sun)
         S_sun = unpolarized(E_sun * T_sun * albedo_col * beta)
-        S_col = matvec4(P, matvec4(R_out, matvec4(M_nee, S_sun)))
-
-        # sampled continuation
-        d_new = phase_sample_at(
-            config.phase_kinds, phase_params, weights_at, params_at, d, u_ph_sel, u_ph_cos,
-            u_ph_phi,
+        S_col, d_new, P_col, h_in_s = phase_vertex(
+            config.phase_kinds, phase_params, weights_at, params_at, P, b, d, d_sun_b, R_sun,
+            S_sun, u_ph_sel, u_ph_cos, u_ph_phi,
         )
-        cos_scat = dot(d_new, d)
-        p_scalar = phase_eval_at(config.phase_kinds, phase_params, weights_at, params_at, cos_scat)
-        h_in_s, h_out_s = scatter_frames(-d_new, l_out)
-        M_s = phase_mueller_at(config.phase_kinds, phase_params, weights_at, params_at, cos_scat)
-        R_s = rotator(rotate_basis_angle(l_out, h_out_s, b))
-        M_full = matmul4(R_s, M_s) / torch.clamp(p_scalar, min=1e-30)[:, None, None]
-        P_col = matmul4(P, M_full)
         beta_col = beta * albedo_col
 
         # ---- surface hit (Mueller-general; scalar kinds depolarize) -----
         hit_surface = (~collide) & (mu < 0.0) & config.has_surface
         xy_surf = xy + d[:, :2] * ((z_bottom - z) / mu)[:, None]
-        wo = -d
-        # NEE: incident light propagates along d_sun, leaves along wo
+        # NEE: incident light propagates along d_sun, leaves along l_out;
+        # the sampled continuation comes from d_srf (propagating along
+        # -d_srf)
         M_nee_srf = surface_mueller(
-            config.surface_kind, surface_row.params, w_sun.expand(B, 3), wo
+            config.surface_kind, surface_row.params, w_sun.expand(B, 3), l_out
         )
-        _, h_out_srf = scatter_frames(d_sun_b, wo)
-        R_out_srf = rotator(rotate_basis_angle(wo, h_out_srf, b))
         S_sun_srf = unpolarized(beta * mu_sun * T_sun_bottom * E_sun)
-        S_surf = matvec4(P, matvec4(R_out_srf, matvec4(M_nee_srf, S_sun_srf)))
-
-        # sampled continuation: light would come from d_srf (propagating
-        # along -d_srf) and leave along wo
         d_srf, w_srf = bsdf_sample_from_uniforms(
-            config.surface_kind, surface_row.params, wo, u_srf
+            config.surface_kind, surface_row.params, l_out, u_srf
         )
-        M_cont = surface_mueller(config.surface_kind, surface_row.params, d_srf, wo)
-        h_in_c, h_out_c = scatter_frames(-d_srf, wo)
-        R_out_c = rotator(rotate_basis_angle(wo, h_out_c, b))
-        f_scalar = torch.clamp(M_cont[:, 0, 0], min=1e-30)
-        P_surf = matmul4(P, matmul4(R_out_c, M_cont / f_scalar[:, None, None]))
+        M_cont = surface_mueller(config.surface_kind, surface_row.params, d_srf, l_out)
+        S_surf, P_surf, h_in_c = surface_vertex(
+            P, b, l_out, R_sun, M_nee_srf, S_sun_srf, d_srf, M_cont
+        )
         beta_surf = beta * w_srf
 
         # ---- combine ----------------------------------------------------
@@ -204,15 +251,7 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
         b2 = torch.where(collide[:, None], h_in_s, h_in_c)
         beta2 = torch.where(collide, beta_col, torch.where(hit_surface, beta_surf, 0.0))
         alive2 = (collide | hit_surface) & (beta2 > 0.0)
-
-        # ---- Russian roulette: reweights beta once, not P (every
-        # contribution is P ... S_in(beta ...), so scaling P too would
-        # square the 1/q factor)
-        do_rr = depth >= config.rr_depth
-        q = torch.clamp(beta2, 0.0, 0.95)
-        survive = u_rr < q
-        beta2 = beta2 * torch.where(do_rr & alive2 & survive, 1.0 / q, 1.0)
-        alive2 = alive2 & (survive | ~do_rr)
+        beta2, alive2 = roulette(beta2, alive2, depth >= config.rr_depth, u_rr)
         return S_add, z2, xy2, d2, P2, b2, beta2, alive2
 
     return bounce
@@ -319,7 +358,7 @@ def _check_supported(config):
     for feature, missing in unsupported.items():
         if missing:
             raise NotImplementedError(f"{feature} is not ported yet")
-    check_phase_kinds(config.phase_kinds)
+    check_phase_kinds(config.phase_kinds, polarized=True)
 
 
 def render_polarized(

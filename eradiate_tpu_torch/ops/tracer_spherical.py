@@ -35,10 +35,9 @@ from __future__ import annotations
 
 import torch
 
-from ..core import threefry
 from ..core.device import resolve_device
 from ..kernels.shell_flight import shell_event, shell_flight, slant_tau
-from .bsdf_ops import SUPPORTED_BSDFS, bsdf_eval, bsdf_sample_from_uniforms
+from .bsdf_ops import POLARIZED_SURFACES, SUPPORTED_BSDFS, bsdf_eval, bsdf_sample_from_uniforms
 from .fastrng import bounce_uniforms, derive_keys
 from .medium import fetch_at_index
 from .phase_ops import (
@@ -59,14 +58,21 @@ from .spherical import (
     sqrt_rn,
     sun_tau_fetch_fast,
 )
-from .tracer import CHECK_EVERY, _row, lane_partition
+from .tracer import CHECK_EVERY, _row, lane_partition, row_key
 
 __all__ = [
     "render_spherical",
     "trace_paths_spherical_regen",
     "spherical_lanes_target",
+    "sun_flight",
     "flight_bounds",
     "toa_rays",
+    "to_local",
+    "to_world",
+    "spherical_row",
+    "check_supported",
+    "EPS_T",
+    "MAX_ITERATIONS",
 ]
 
 #: CUDA lane-count target. The eager loop costs a roughly fixed host time per
@@ -95,13 +101,13 @@ def spherical_lanes_target(n_pix, spp, device_type="cpu"):
     return _LANES_HI if n_pix * spp >= _LANES_HI * _QUOTA_DEEP else _LANES_LO
 
 
-def _to_local(n, v):
+def to_local(n, v):
     """World vectors -> local frames with +z = n."""
     t1, t2 = ortho_frame(n)
     return torch.stack([dot3(t1, v), dot3(t2, v), dot3(n, v)], dim=-1)
 
 
-def _to_world(n, v):
+def to_world(n, v):
     t1, t2 = ortho_frame(n)
     return t1 * v[..., 0:1] + t2 * v[..., 1:2] + n * v[..., 2:3]
 
@@ -122,17 +128,51 @@ def flight_bounds(p, d, radii):
     return t_ground, torch.clamp(ttf, min=EPS_T)
 
 
+def sun_flight(config, medium_row, w_sun, p, d, u_dist):
+    """An event's exact free flight from ``p`` along ``d`` and the sun's
+    slant depth toward ``w_sun`` at its end, by the branch that ``config``
+    and the medium pick (module docstring). Returns ``(accept, layer, p_new,
+    tau_sun, t_ground, t_exit)``: the collide flag, the collision's layer,
+    the event point (the collision, or the flight cap where the path leaves
+    the medium), and the flight cap's two distances."""
+    radii = medium_row.radii
+    sigma = medium_row.sigma_t
+    r_ground = radii[0]
+    t_ground, t_exit = flight_bounds(p, d, radii)
+    t_max = torch.minimum(t_ground, t_exit)
+
+    tau_s = -torch.log1p(-u_dist)
+    if config.lr_flight:
+        # primal of the likelihood-ratio flight: the plain flight, then the
+        # slant depth from the event point, formed with one fused
+        # multiply-add per component as the fused event kernel forms it
+        accept, t_col, layer = shell_flight(p, d, t_max, radii, sigma, tau_s)
+        t_step = torch.where(accept, t_col, t_max)[:, None]
+        tau_sun = slant_tau(fma(d, t_step, p), w_sun, radii, sigma)
+        p_new = p + d * t_step
+    elif medium_row.sun_tau is not None:
+        accept, t_col, layer = shell_flight(p, d, t_max, radii, sigma, tau_s)
+        p_new = p + d * torch.where(accept, t_col, t_max)[:, None]
+        r_ev = sqrt_rn(dot3(p_new, p_new))
+        mu_ev = dot3(p_new, w_sun) / torch.clamp(r_ev, min=1e-12)
+        blocked = (mu_ev < 0.0) & (cross_norm2(p_new, w_sun) <= r_ground * r_ground)
+        tau_fetch = sun_tau_fetch_fast(
+            medium_row.sun_tau, medium_row.sun_r_grid, medium_row.sun_mu_warp, r_ev, mu_ev,
+        )
+        tau_sun = torch.where(blocked, TAU_BLOCKED, tau_fetch)
+    else:
+        accept, t_col, layer, tau_sun = shell_event(p, d, t_max, radii, sigma, tau_s, w_sun)
+        p_new = p + d * torch.where(accept, t_col, t_max)[:, None]
+    return accept, layer, p_new, tau_sun, t_ground, t_exit
+
+
 def _make_event(config, medium_row, surface_row, illum_row):
     """Per-event transition shared by every lane: returns
     ``event(evt, p, d, beta, depth, keys)`` ->
     ``(contribution, p', d', beta', depth', alive')``."""
-    radii = medium_row.radii
-    sigma = medium_row.sigma_t
-    r_ground = radii[0]
     d_sun = illum_row.direction
     w_sun = -d_sun
     E_sun = illum_row.irradiance
-    use_table = medium_row.sun_tau is not None
 
     C = len(config.phase_kinds)
     phase_params = medium_row.phase_params
@@ -146,43 +186,13 @@ def _make_event(config, medium_row, surface_row, illum_row):
 
     def event(evt, p, d, beta, depth, keys):
         U = bounce_uniforms(keys, evt, 8)
-        u_dist = U[:, 0]
         u_ph_sel, u_ph_cos, u_ph_phi = U[:, 1], U[:, 2:4], U[:, 4]
         u_srf = U[:, 5:7]
         u_rr = U[:, 7]
 
-        t_ground, t_exit = flight_bounds(p, d, radii)
-        t_max = torch.minimum(t_ground, t_exit)
-
-        # exact free flight, and the sun's slant depth at the event point
-        tau_s = -torch.log1p(-u_dist)
-        if config.lr_flight:
-            # primal of the likelihood-ratio flight: the plain flight, then
-            # the slant depth from the event point, formed with one fused
-            # multiply-add per component as the fused event kernel forms it
-            accept, t_col, layer = shell_flight(p, d, t_max, radii, sigma, tau_s)
-            t_step = torch.where(accept, t_col, t_max)
-            tau_sun = slant_tau(fma(d, t_step[:, None], p), w_sun, radii, sigma)
-            p_new = p + d * t_step[:, None]
-        elif use_table:
-            accept, t_col, layer = shell_flight(p, d, t_max, radii, sigma, tau_s)
-            t_step = torch.where(accept, t_col, t_max)
-            p_new = p + d * t_step[:, None]
-            r_ev = sqrt_rn(dot3(p_new, p_new))
-            mu_ev = dot3(p_new, w_sun) / torch.clamp(r_ev, min=1e-12)
-            blocked = (mu_ev < 0.0) & (cross_norm2(p_new, w_sun) <= r_ground * r_ground)
-            tau_fetch = sun_tau_fetch_fast(
-                medium_row.sun_tau, medium_row.sun_r_grid, medium_row.sun_mu_warp,
-                r_ev, mu_ev,
-            )
-            tau_sun = torch.where(blocked, TAU_BLOCKED, tau_fetch)
-        else:
-            accept, t_col, layer, tau_sun = shell_event(
-                p, d, t_max, radii, sigma, tau_s, w_sun
-            )
-            t_step = torch.where(accept, t_col, t_max)
-            p_new = p + d * t_step[:, None]
-
+        accept, layer, p_new, tau_sun, t_ground, t_exit = sun_flight(
+            config, medium_row, w_sun, p, d, U[:, 0]
+        )
         hit_surface = (~accept) & (t_ground <= t_exit) & config.has_surface
 
         fetched = fetch_at_index(layer, fetch_tables)
@@ -207,14 +217,14 @@ def _make_event(config, medium_row, surface_row, illum_row):
         r_new = sqrt_rn(dot3(p_new, p_new))
         n_srf = p_new / torch.clamp(r_new, min=1e-12)[:, None]
         mu_sun_srf = dot3(n_srf, w_sun)
-        wo_local = _to_local(n_srf, -d)
-        wi_sun_local = _to_local(n_srf, w_sun.expand_as(p_new))
+        wo_local = to_local(n_srf, -d)
+        wi_sun_local = to_local(n_srf, w_sun.expand_as(p_new))
         f_nee = bsdf_eval(config.surface_kind, surface_row.params, wi_sun_local, wo_local)
         L_srf = beta * f_nee * torch.clamp(mu_sun_srf, min=0.0) * T_sun * E_sun
         d_srf_local, w_srf = bsdf_sample_from_uniforms(
             config.surface_kind, surface_row.params, wo_local, u_srf
         )
-        d_srf = _to_world(n_srf, d_srf_local)
+        d_srf = to_world(n_srf, d_srf_local)
         beta_srf = beta * w_srf
         p_srf = p_new + n_srf * EPS_T  # lifted off the surface
 
@@ -299,8 +309,10 @@ def trace_paths_spherical_regen(
 def toa_rays(w_v, target, r_top):
     """Path starts for viewing directions ``w_v`` [B, 3] (toward the
     sensor): the point at radius ``r_top`` on the viewing ray through
-    ``target``, and the direction ``-w_v`` into the atmosphere."""
-    _, t_far, _ = ray_sphere_intersect(target.expand(w_v.shape), w_v, r_top)
+    ``target``, and the direction ``-w_v`` into the atmosphere. The distance
+    is rounded as the jitted reference rounds it here (``fused``), so that
+    the ground hit below lands on the reference's side of the ground."""
+    _, t_far, _ = ray_sphere_intersect(target.expand(w_v.shape), w_v, r_top, fused=True)
     return target + w_v * t_far[:, None], -w_v
 
 
@@ -322,24 +334,58 @@ def _render_row_spherical(
     return radiance, m2, iterations
 
 
-def _check_supported(config, medium):
-    """Raise ``NotImplementedError`` naming each feature this slice lacks."""
+def spherical_row(scene, s):
+    """Spectral row ``s`` of a compiled spherical-shell scene on the device:
+    ``(medium_row, surface_row, illum_row)``."""
+    med, il = scene.medium, scene.illumination
+    medium_row = SphericalMediumArrays(
+        radii=med.radii,
+        sigma_t=med.sigma_t[s],
+        sigma_majorant=med.sigma_majorant[s],
+        albedo=med.albedo[s],
+        phase_weights=med.phase_weights[s],
+        phase_params=tuple({k: v[s] for k, v in p.items()} for p in med.phase_params),
+        sun_tau=None if med.sun_tau is None else med.sun_tau[s],
+        mu_grid=med.mu_grid,
+        sun_r_grid=med.sun_r_grid,
+        sun_mu_warp=med.sun_mu_warp,
+    )
+    surface_row = SurfaceArrays(params={k: _row(v, s) for k, v in scene.surface.params.items()})
+    illum_row = IlluminationArrays(
+        direction=il.direction,
+        irradiance=il.irradiance[s],
+        cos_cutoff=_row(il.cos_cutoff, s),
+        sky_radiance=_row(il.sky_radiance, s),
+    )
+    return medium_row, surface_row, illum_row
+
+
+def check_supported(config, medium, polarized=False):
+    """Raise ``NotImplementedError`` naming each feature the spherical
+    tracer (``polarized``: its polarized twin) lacks, and a config of the
+    other kind of transport, naming the renderer it belongs to."""
+    if config.polarized and not polarized:
+        raise NotImplementedError(
+            "polarized transport in spherical shells is rendered by "
+            "ops.tracer_spherical_polarized.render_spherical_polarized"
+        )
+    if polarized and not config.polarized:
+        raise ValueError("config.polarized is False: render it with render_spherical")
+    surfaces = SUPPORTED_BSDFS + (POLARIZED_SURFACES if polarized else ())
     unsupported = {
-        "polarized transport": config.polarized,
         f"geometry {config.geometry!r}": config.geometry != "spherical_shell",
         f"sampler {config.sampler!r}": config.sampler != "independent",
         f"illumination kind {config.illumination_kind!r}":
             config.illumination_kind != "directional",
         f"rng {config.rng!r}": config.rng != "pcg4d",
-        f"surface kind {config.surface_kind!r}":
-            config.surface_kind not in SUPPORTED_BSDFS,
+        f"surface kind {config.surface_kind!r}": config.surface_kind not in surfaces,
         "the legacy sun_tau_fetch (a sun-tau table without sun_r_grid)":
             medium.sun_tau is not None and medium.sun_r_grid is None,
     }
     for feature, missing in unsupported.items():
         if missing:
             raise NotImplementedError(f"{feature} is not ported yet")
-    check_phase_kinds(config.phase_kinds)
+    check_phase_kinds(config.phase_kinds, polarized=polarized)
 
 
 def render_spherical(
@@ -357,45 +403,21 @@ def render_spherical(
     Returns a dict with ``radiance`` [S, N], ``m2`` [S, N], ``spp`` and
     ``iterations`` (event iterations, summed over rows).
     """
-    _check_supported(config, scene.medium)
+    check_supported(config, scene.medium)
     dev = resolve_device(device)
     scene, sensor, config = from_reference(scene, sensor, config, dev)
-    med = scene.medium
-    il = scene.illumination
     n_pix = sensor.directions.shape[0]
     if lanes_target is None:
         lanes_target = spherical_lanes_target(n_pix, spp, dev.type)
-    base_key = threefry.key(seed)
 
     rads, m2s, iterations = [], [], 0
-    for s in range(med.sigma_t.shape[0]):
-        # key(seed) -> fold_in(row) -> fold_in(chunk 0), as render_spherical
-        chunk_key = threefry.fold_in(threefry.fold_in(base_key, s), 0)
-        row_key = torch.tensor(chunk_key, dtype=torch.int64, device=dev)
-        medium_row = SphericalMediumArrays(
-            radii=med.radii,
-            sigma_t=med.sigma_t[s],
-            sigma_majorant=med.sigma_majorant[s],
-            albedo=med.albedo[s],
-            phase_weights=med.phase_weights[s],
-            phase_params=tuple({k: v[s] for k, v in p.items()} for p in med.phase_params),
-            sun_tau=None if med.sun_tau is None else med.sun_tau[s],
-            mu_grid=med.mu_grid,
-            sun_r_grid=med.sun_r_grid,
-            sun_mu_warp=med.sun_mu_warp,
-        )
-        surface_row = SurfaceArrays(
-            params={k: _row(v, s) for k, v in scene.surface.params.items()}
-        )
-        illum_row = IlluminationArrays(
-            direction=il.direction,
-            irradiance=il.irradiance[s],
-            cos_cutoff=_row(il.cos_cutoff, s),
-            sky_radiance=_row(il.sky_radiance, s),
-        )
+    # key(seed) -> fold_in(row) -> fold_in(chunk 0), as render_spherical
+    for s in range(scene.medium.sigma_t.shape[0]):
+        medium_row, surface_row, illum_row = spherical_row(scene, s)
         rad, m2, it = _render_row_spherical(
             config, n_pix, spp, medium_row, surface_row, illum_row,
-            sensor.directions, sensor.target, row_key, lanes_target, check_every,
+            sensor.directions, sensor.target, row_key(seed, s, 0, dev), lanes_target,
+            check_every,
         )
         rads.append(rad)
         m2s.append(m2)

@@ -8,8 +8,9 @@ table fetches) against the reference's under ``jax.jit`` on seeded inputs,
 each with its tolerance; the host side of ``tab`` and the packaged
 continental dataset bit for bit, read from the port's own store and not from
 the analytic surrogate; c2's compiled leaves bit for bit; c2 end to end at
-the same seed within 1e-5 relative per pixel; a polarized aerosol layer
-still refused, naming ``tab_polarized``.
+the same seed within 1e-5 relative per pixel. In a polarized mode the
+aerosol compiles to ``tab_polarized`` (bit for bit, carried across by
+``from_reference``), and polarized c2 holds the polarized c1 gate.
 """
 
 import dataclasses
@@ -395,13 +396,57 @@ def test_transfer_refuses_a_tab_component_without_its_tables(mono_single):
         from_reference(dataclasses.replace(scene, medium=med), sensor, config, "cpu")
 
 
-def test_polarized_aerosol_layer_still_raises():
-    """In a polarized mode the dataset's Mueller rows compile to
-    ``tab_polarized``, which is not ported."""
+@pytest.fixture
+def mono_polarized_single():
+    eradiate_tpu.set_mode("mono_polarized_single")
     eradiate_tpu_torch.set_mode("mono_polarized_single")
-    try:
-        exp = create_rpv_afgl1986_continental_brfpp(n_vza=3)
-        with pytest.raises(NotImplementedError, match="tab_polarized"):
-            eradiate_tpu_torch.run(exp, spp=8, device="cpu")
-    finally:
-        eradiate_tpu_torch.set_mode("mono")
+    yield
+    eradiate_tpu.set_mode("mono")
+    eradiate_tpu_torch.set_mode("mono")
+
+
+def test_polarized_aerosol_compiles_to_tab_polarized(mono_polarized_single):
+    """In a polarized mode the dataset's Mueller rows compile to
+    ``tab_polarized``: the port's compiled leaves equal the reference's bit
+    for bit, ``from_reference`` carries every row of the component bit for
+    bit and refuses a component that lacks one."""
+    ref_exp, exp = ref_c2(n_vza=3), create_rpv_afgl1986_continental_brfpp(n_vza=3)
+    ctx = exp.spectral_context(exp.measures[0])
+    ref_scene = ref_exp.compile_scene(ref_exp.measures[0], ctx)
+    scene, sensor, config = exp.compile_scene(exp.measures[0], ctx)
+    ref, got = _leaves(ref_scene), _leaves((scene, sensor, config))
+    assert got.keys() == ref.keys()
+    for k, v in ref.items():
+        if isinstance(v, np.ndarray):
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
+        else:
+            assert got[k] == v, k
+    assert config.phase_kinds == ("rayleigh", "tab_polarized") and config.polarized
+    tab = ref_scene[0].medium.phase_params[1]
+    assert set(tab) == {"mu", "values", "cdf", "m12", "m22", "m33", "m34", "m44", "tg0", "itg"}
+    out, _, _ = from_reference(*ref_scene, "cpu")
+    for k, v in tab.items():
+        np.testing.assert_array_equal(out.medium.phase_params[1][k].numpy(), np.asarray(v))
+    med = dataclasses.replace(ref_scene[0].medium, phase_params=(
+        ref_scene[0].medium.phase_params[0], {k: v for k, v in tab.items() if k != "m34"}))
+    with pytest.raises(ValueError, match="m34"):
+        from_reference(dataclasses.replace(ref_scene[0], medium=med), *ref_scene[1:], "cpu")
+
+
+def test_polarized_c2_matches_reference(mono_polarized_single):
+    """Polarized c2 (the aerosol layer as ``tab_polarized``) at 11 view
+    zeniths and 256 spp, one seed: I within 1e-5 relative per pixel (the c1
+    gate), Q, U and V within 1e-5 of I, the same dataset layout."""
+    ref = eradiate_tpu.run(ref_c2(n_vza=11), spp=256, seed_state=SeedState(7), mesh=None)
+    out = eradiate_tpu_torch.run(create_rpv_afgl1986_continental_brfpp(n_vza=11), spp=256,
+                                 seed_state=eradiate_tpu_torch.SeedState(7), device="cpu")
+    assert set(out.data_vars) == set(ref.data_vars) and {"I", "Q", "U", "V", "dolp"} <= set(
+        out.data_vars)
+    for k in ref.coords:
+        np.testing.assert_array_equal(np.asarray(out[k]), np.asarray(ref[k]))
+    stokes, ref_stokes = (np.stack([np.asarray(ds[c]) for c in "IQUV"], -1) for ds in (out, ref))
+    assert stokes.shape == (1, 11, 4) and np.isfinite(stokes).all()
+    I = ref_stokes[..., 0]
+    np.testing.assert_allclose(stokes[..., 0], I, rtol=1e-5, atol=0)
+    assert (np.abs(stokes[..., 1:] - ref_stokes[..., 1:]) <= 1e-5 * I[..., None]).all()
+    assert np.asarray(out["dolp"]).max() > 0.05

@@ -207,12 +207,13 @@ def test_chunks_use_the_reference_keys(mono_single):
 
 def test_cpu_plan_is_the_reference_plan():
     from eradiate_tpu.ops import tracer as ref_tracer
-    from eradiate_tpu_torch.ops import tracer_canopy
+    from eradiate_tpu_torch.ops import tracer, tracer_canopy
 
-    assert tracer_canopy.PATHS_PER_DISPATCH["cpu"] == ref_tracer.MAX_PATHS_PER_DISPATCH // 8
+    caps = tracer.CANOPY_PATHS_PER_DISPATCH
+    assert caps["cpu"] == ref_tracer.MAX_PATHS_PER_DISPATCH // 8
     assert tracer_canopy.LANES_TARGET["cpu"] == ref_tracer.REGEN_LANES_TARGET
     # config 5: 19 pixels -> 13797 spp per chunk, 152 chunks of 2097152 spp
-    assert tracer_canopy.PATHS_PER_DISPATCH["cpu"] // 19 == 13797
+    assert caps["cpu"] // 19 == 13797
 
 
 def test_cuda_without_card_raises(mono_single, monkeypatch):

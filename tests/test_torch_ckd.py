@@ -4,12 +4,13 @@ c3 (``bench.py`` ``_c3``: a synthetic CKD absorption database, the
 Sentinel-2A MSI band 4 response, a Lambertian floor of 0.2, at most 8
 g-points a bin) renders 56 spectral rows, one for each (bin, g-point) pair,
 and aggregates them by bin. ``bench.py`` names ``ckd``, the double mode; the
-port renders ``ckd_single`` and refuses the double and polarized CKD modes.
-Held here: the spectral context and the compiled leaves bit for bit (each
-g-point its own extinction), the post-processing on the same raw arrays
-bit for bit, every raw row and the aggregated BRF within 1e-5 relative at
-the same seed, and c2 and c3 running with ``jax`` and ``eradiate_tpu``
-blocked.
+port renders ``ckd_single`` and ``ckd_polarized_single`` and refuses the
+double CKD modes. Held here: the spectral context and the compiled leaves
+bit for bit (each g-point its own extinction), the post-processing on the
+same raw arrays bit for bit, every raw row and the aggregated BRF within
+1e-5 relative at the same seed (in ``ckd_polarized_single`` every raw row's
+Stokes vector and the per-bin Stokes vectors), and c2 and c3 running with
+``jax`` and ``eradiate_tpu`` blocked.
 """
 
 import subprocess
@@ -166,8 +167,38 @@ def test_run_matches_reference(ckd_single):
         np.testing.assert_allclose(np.asarray(out[k]), np.asarray(ref[k]), rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("mode_id", ["ckd_double", "ckd_polarized_single",
-                                     "ckd_polarized_double"])
+def test_ckd_polarized_single_matches_reference():
+    """c3 in ``ckd_polarized_single`` at 2 view zeniths and 64 spp a row,
+    one seed: each of the 56 raw rows' I within 1e-5 relative and its Q, U
+    and V within 1e-5 of I, then the per-bin Stokes vectors aggregated by
+    ``postprocess_measure`` the same way."""
+    eradiate_tpu.set_mode("ckd_polarized_single")
+    eradiate_tpu_torch.set_mode("ckd_polarized_single")
+    try:
+        ref_exp = RefExperiment(**c3_kwargs(ref_ckd_db(base_sigma=2e-3, ng=8), n_vza=2))
+        exp = AtmosphereExperiment(**c3_kwargs(make_synthetic_ckd_db(base_sigma=2e-3, ng=8),
+                                               n_vza=2))
+        ref = eradiate_tpu.run(ref_exp, spp=64, seed_state=SeedState(7), mesh=None)
+        out = eradiate_tpu_torch.run(exp, spp=64, seed_state=eradiate_tpu_torch.SeedState(7),
+                                     device="cpu")
+    finally:
+        eradiate_tpu.set_mode("mono")
+        eradiate_tpu_torch.set_mode("mono")
+    raw, ref_raw = exp.measures[0].results["raw"], ref_exp.measures[0].results["raw"]
+    for st, ref_st in ((raw["stokes"], np.asarray(ref_raw["stokes"])),
+                       (*(np.stack([np.asarray(ds[c]) for c in "IQUV"], -1)
+                          for ds in (out, ref)),)):
+        assert st.shape == ref_st.shape and np.isfinite(st).all()
+        I = ref_st[..., 0]
+        np.testing.assert_allclose(st[..., 0], I, rtol=1e-5, atol=0)
+        assert (np.abs(st[..., 1:] - ref_st[..., 1:]) <= 1e-5 * I[..., None]).all()
+    assert raw["stokes"].shape == (ROWS, 2, 4)
+    assert np.asarray(out["I"]).shape == (7, 2)  # the band's 7 bins
+    assert set(out.data_vars) == set(ref.data_vars) and "dolp" in out.data_vars
+    assert (np.asarray(out["dolp"]) >= 0).all()
+
+
+@pytest.mark.parametrize("mode_id", ["ckd_double", "ckd_polarized_double"])
 def test_other_ckd_modes_raise(mode_id):
     eradiate_tpu_torch.set_mode(mode_id)
     try:

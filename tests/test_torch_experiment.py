@@ -183,8 +183,24 @@ def test_cuda_without_card_raises(mono_single, monkeypatch):
         eradiate_tpu_torch.run(AtmosphereExperiment(**c1_kwargs()), spp=8, device="cuda")
 
 
+def test_ckd_polarized_single_renders():
+    """c1 in ``ckd_polarized_single``: the band's rows through the polarized
+    tracer, aggregated to Stokes vectors per bin."""
+    eradiate_tpu_torch.set_mode("ckd_polarized_single")
+    try:
+        exp = AtmosphereExperiment(**c1_kwargs())
+        ds = eradiate_tpu_torch.run(exp, spp=8, device="cpu")
+    finally:
+        eradiate_tpu_torch.set_mode("mono")
+    raw = exp.measures[0].results["raw"]
+    assert raw["stokes"].ndim == 3 and raw["stokes"].shape[1:] == (11, 4)
+    stokes = np.stack([np.asarray(ds[c]) for c in "IQUV"], -1)
+    assert stokes.shape[-2:] == (11, 4) and np.isfinite(stokes).all()
+    assert (stokes[..., 0] > 0).all()
+
+
 @pytest.mark.parametrize("mode_id", ["mono_double", "mono_polarized_double",
-                                     "ckd_polarized_single"])
+                                     "ckd_polarized_double"])
 def test_unported_modes_raise(mode_id):
     eradiate_tpu_torch.set_mode(mode_id)
     try:

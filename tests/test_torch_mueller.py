@@ -14,6 +14,10 @@ also held where they are hardest to keep: forward and backward scattering
 fallback); the surfaces at the hot spot, the specular direction, a zenith
 sun and below the horizon.
 
+``tab_polarized``'s phase matrix equals the jitted reference's bit for
+bit: its ``jnp.interp`` rounds ``fp[i - 1] + (delta / dx) * df`` once, as
+XLA:CPU contracts it, and the port forms it with one fused multiply-add.
+
 The collision fetch's plain twin (what K1 computes on the card) gives the
 reference's layer and altitude on the c1 column bit for bit: against an
 eager ``z_at_tau`` as it is, and against the jitted one when its
@@ -195,12 +199,26 @@ def test_scatter_frames(edge):
         np.testing.assert_allclose((h * _t(ell)).sum(-1).numpy(), 0.0, atol=1e-6)
 
 
-@pytest.mark.parametrize("second", ["rayleigh", "tab"])
+def _tab_polarized_params(seed, M=181):
+    """A ``tab_polarized`` row as the scene compiles one: a theta-uniform mu
+    grid, a normalized m11 (``values``) with its CDF, and random m12 .. m44
+    (float32)."""
+    rng = np.random.default_rng(seed)
+    mu = np.cos(np.linspace(np.pi, 0.0, M))
+    values, cdf = phase_ops.tab_phase_tables(mu, 1.0 + 2.0 * (1.0 + mu) ** 3)
+    params = {"mu": mu, "values": values, "cdf": cdf}
+    params.update({k: rng.uniform(-0.5, 0.5, M) * values for k in ("m12", "m22", "m33", "m34",
+                                                                  "m44")})
+    return {k: np.asarray(v, np.float32) for k, v in params.items()}
+
+
+@pytest.mark.parametrize("second", ["rayleigh", "tab", "tab_polarized"])
 @pytest.mark.parametrize("depol", [0.0, 0.0279])
 def test_phase_mueller_at(depol, second):
     """The Mueller phase blend against the reference's ``_phase_mueller``
-    (a Rayleigh component and a second Rayleigh or a tabulated one, which
-    enters as a depolarizer, over 6 layers, gathered at random layers)."""
+    (a Rayleigh component and a second Rayleigh, a tabulated one, which
+    enters as a depolarizer, or a tabulated phase matrix, over 6 layers,
+    gathered at random layers)."""
     L = 6
     rng = np.random.default_rng(11)
     weights = rng.uniform(0.1, 1.0, (2, L)).astype(np.float32)
@@ -212,6 +230,8 @@ def test_phase_mueller_at(depol, second):
     values, cdf = phase_ops.tab_phase_tables(mu, 1.0 + 2.0 * (1.0 + mu) ** 3)
     tab = {k: np.asarray(v, np.float32) for k, v in (("mu", mu), ("values", values),
                                                      ("cdf", cdf))}
+    if second == "tab_polarized":
+        tab = _tab_polarized_params(13)
     params = ({"depol": depols[0]}, {"depol": depols[1]} if second == "rayleigh" else tab)
     ref = (jax.vmap(lambda l, cc: ref_tracer._phase_mueller(
         kinds, tuple({k: jnp.asarray(v) for k, v in p.items()} for p in params),
@@ -224,12 +244,42 @@ def test_phase_mueller_at(depol, second):
     close(out, ref)
 
 
+def test_tab_polarized_mueller_bitwise():
+    """``tab_polarized``'s phase matrix against the jitted reference
+    ``_tab_polarized_mueller`` (``jnp.interp`` on each element), bit for
+    bit: on random cosines, on both grid ends, on every node and one ulp
+    either side of it, and on the nodes of a flat (zero-width) cell."""
+    params = _tab_polarized_params(14)
+    mu = params["mu"].copy()
+    mu[90] = mu[91]  # a zero-width cell: jnp.interp's guard
+    params["mu"] = mu
+    c = np.concatenate([
+        _unit(15, N, -1.0, 1.0), np.float32([-1.0, 1.0]), mu,
+        np.nextafter(mu, np.float32(-2.0)), np.nextafter(mu, np.float32(2.0)),
+    ]).astype(np.float32)
+    ref = jax.jit(ref_tracer._tab_polarized_mueller)(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(c))
+    out = phase_ops.tab_polarized_mueller({k: _t(v) for k, v in params.items()}, _t(c))
+    assert out.shape == (c.size, 4, 4)
+    np.testing.assert_array_equal(out.numpy().view(np.int32), np.asarray(ref).view(np.int32))
+    assert (out[:, 2, 3] == -out[:, 3, 2]).all() and (out[:, 0, 1] == out[:, 1, 0]).all()
+
+
 def test_tab_polarized_raises():
+    """The split of ``tab_polarized``: the scalar tracers' check refuses it
+    by name, the polarized tracers' accepts it, and ``phase_mueller_at``
+    computes it (the scalar blend reads its ``tab`` table)."""
     with pytest.raises(NotImplementedError, match="tab_polarized"):
         phase_ops.check_phase_kinds(("rayleigh", "tab_polarized"))
-    with pytest.raises(NotImplementedError, match="tab_polarized"):
-        phase_ops.phase_mueller_at(("tab_polarized",), ({},), torch.ones(2, 1), ({},),
-                                   torch.zeros(2))
+    phase_ops.check_phase_kinds(("rayleigh", "tab_polarized"), polarized=True)
+    with pytest.raises(NotImplementedError, match="'mie'"):
+        phase_ops.check_phase_kinds(("mie",), polarized=True)
+    params = {k: _t(v) for k, v in _tab_polarized_params(16).items()}
+    c = _t(_unit(17, 64, -1.0, 1.0))
+    m = phase_ops.phase_mueller_at(("tab_polarized",), (params,), torch.ones(64, 1), ({},), c)
+    np.testing.assert_array_equal(m.numpy(), phase_ops.tab_polarized_mueller(params, c).numpy())
+    scalar = phase_ops.phase_eval_at(("tab_polarized",), (params,), torch.ones(64, 1), ({},), c)
+    np.testing.assert_array_equal(scalar.numpy(), phase_ops.tab_eval(params, c).numpy())
 
 
 MAIGNAN = {"rho_0": 0.183, "k": 0.78, "g": -0.1, "rho_c": 0.183, "C": 5.0, "ndvi": 0.8,

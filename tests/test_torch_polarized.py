@@ -9,7 +9,9 @@ with the same dataset layout (Stokes components and ``dolp``). The estimate
 does not change with the lane count or the host's check interval. Each
 collision goes through the collision fetch (K1's plain twin here). The
 scalar tracer refuses a polarized config and names the polarized renderer;
-a polarized spherical-shell render is not ported yet.
+``run()`` takes a polarized spherical-shell scene to the polarized
+spherical tracer (held against the reference in
+``test_torch_spherical_polarized.py``).
 """
 
 import dataclasses
@@ -176,7 +178,7 @@ def test_scalar_tracer_refuses_polarized_config():
 @pytest.mark.parametrize(
     "field, value, name",
     [("geometry", "spherical_shell", "spherical_shell"), ("surface_kind", "rtls", "'rtls'"),
-     ("phase_kinds", ("tab_polarized",), "tab_polarized"), ("lr_flight", True, "lr_flight")],
+     ("rng", "threefry", "'threefry'"), ("lr_flight", True, "lr_flight")],
 )
 def test_unported_features_raise(field, value, name):
     scene, sensor, config = tiny("lambertian")
@@ -185,13 +187,18 @@ def test_unported_features_raise(field, value, name):
                          device="cpu")
 
 
-def test_polarized_spherical_run_raises(mono_polarized_single):
+def test_polarized_spherical_run_renders(mono_polarized_single):
+    """``run()`` takes a polarized spherical-shell scene to
+    ``render_spherical_polarized``: Stokes vectors in the polarized
+    layout."""
     exp = AtmosphereExperiment(**{**c1_kwargs(), "geometry": "spherical_shell",
                                   "measures": {"type": "mdistant", "construct": "hplane",
                                                "zeniths": [0.0, 30.0],
                                                "target": [0.0, 0.0, 6378.1]}})
-    with pytest.raises(NotImplementedError, match="polarized"):
-        eradiate_tpu_torch.run(exp, spp=8, device="cpu")
+    ds = eradiate_tpu_torch.run(exp, spp=8, device="cpu")
+    stokes = np.stack([np.asarray(ds[c]) for c in "IQUV"], -1)
+    assert stokes.shape == (1, 2, 4) and np.isfinite(stokes).all() and (stokes[..., 0] > 0).all()
+    assert exp.measures[0].results["raw"]["iterations"] > 0
 
 
 @pytest.mark.parametrize("kind", ["maignan", "ocean_mishchenko"])
