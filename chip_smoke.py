@@ -27,16 +27,16 @@ script writes as an OBJ file into a temporary directory from a seed
 ``bench.py`` builds it, integrator ``{"type": "volpath", "stokes": True}``)
 also run with polarized transport, in ``mono_polarized_single`` (``bench.py``
 names ``mono_polarized``, the double-precision mode, whose path state the
-JAX package keeps in float32 unless x64 is on; the port's double modes are
-not ported). BASELINE config 2 (``_c2``): an RPV floor under the AFGL
-Rayleigh column with a 0-2 km continental aerosol layer (tau 0.2 at 550 nm,
-the packaged Govaerts 2021 dataset, a tabulated phase function on 181
-nodes), sun at SZA 30, 76 view zeniths at 2097152 spp. BASELINE config 3
-(``_c3``): the synthetic CKD database over the Sentinel-2A MSI band 4
-response, a Lambertian floor of 0.2, 76 view zeniths at 65536 spp on each
-of 56 spectral rows (7 bins x 8 g-points), in ``ckd_single`` (``bench.py``
-names ``ckd``, the double mode, which the port does not render). Phases,
-each fatal on failure:
+JAX package keeps in float32 unless x64 is on; the port runs its double
+modes in float64, phases 32-37). BASELINE config 2 (``_c2``): an RPV floor
+under the AFGL Rayleigh column with a 0-2 km continental aerosol layer (tau
+0.2 at 550 nm, the packaged Govaerts 2021 dataset, a tabulated phase
+function on 181 nodes), sun at SZA 30, 76 view zeniths at 2097152 spp.
+BASELINE config 3 (``_c3``): the synthetic CKD database over the
+Sentinel-2A MSI band 4 response, a Lambertian floor of 0.2, 76 view zeniths
+at 65536 spp on each of 56 spectral rows (7 bins x 8 g-points), in
+``ckd_single``, and in ``ckd`` as ``bench.py`` names it (phase 36: float64
+path state on the card, float32 on a TPU). Phases, each fatal on failure:
 
 1. the card's name and power limit (``nvidia-smi``), torch and CUDA versions;
 2. the build of the port's CUDA kernels from ``eradiate_tpu_torch/csrc``;
@@ -193,9 +193,10 @@ each fatal on failure:
     component of every pixel within |z| <= 5 (of the two runs' I
     variances, the only ones kept);
 21. polarized c1 at full width (76 x 4194304): one run with the profiler on
-    for 48 bounce iterations after the first 100 (it warms the card), then
-    a timed run; the collision fetch's launches must equal the bounce
-    iterations, and no other kernel launches; wall, samples/s, peak memory,
+    for 48 bounce iterations after the first 100 (it warms the card; every
+    profiled run ends once its window has closed), then a timed run; the
+    collision fetch's launches must equal the bounce iterations, and no
+    other kernel launches; wall, samples/s, peak memory,
     I, Q/I and DoLP at the view nearest nadir, CUDA kernels and device time
     an iteration, the busy share (device time over the timed wall) and
     K1's device time a launch inside the run;
@@ -246,7 +247,43 @@ each fatal on failure:
 31. c3 in ``ckd_polarized_single`` on CUDA against the CPU, 11 view zeniths
     and 256 spp a row: each of the 56 raw rows' I within 1e-4 relative and
     its Stokes components within |z| <= 5, and so the aggregated I; K1's
-    launches must equal the bounce iterations summed over the rows.
+    launches must equal the bounce iterations summed over the rows;
+32. the float64 build of the collision fetch (``collision_fetch_f64_kernel``)
+    against its plain twin on the card, as phase 3: the c1 column compiled
+    in ``mono_double`` at the c1 lanes (timed, with its bound over the
+    float64 rate), ragged and from a ``q[1:]`` view, the unmerged column,
+    the table with flat runs, random columns at L = 1 and 12287 (a 128 KiB
+    search tree) and K = 16; float64 NaN, +-inf, -0.0 and every level one
+    ulp either side among the queries;
+33. the float64 builds of K2, K3 and K4 (``shell_flight_f64_kernel``,
+    ``shell_event_f64_kernel``, ``slant_tau_f64_kernel``) against their
+    plain twins on the card, bit pattern for bit pattern, K4 at K2's event
+    points equal to K3's tau_sun: the c4 column compiled in ``mono_double``
+    at c4's lane count (timed, with its bound), ragged, the unmerged
+    1200-shell column, the slant and the flight stresses of phase 7 taken
+    into float64, and a planet of 1e6 km (1200 shells of 0.1 km, which
+    float32 cannot tell apart);
+34. the port on CUDA against the port on the CPU in the double modes at one
+    seed: c1 (``mono_double``, 11 view zeniths, 256 spp), polarized c1
+    (``mono_polarized_double``, 64 spp) and c4 at SZA 75 and 85
+    (``mono_double``, 256 spp): every raw pixel's radiance and second
+    moment within 1e-10 relative, Stokes components within 1e-10 of I,
+    every pixel within |z| <= 5;
+35. c1 at full width in ``mono_double`` (K1's float64 build) and, the same
+    way, in ``mono_single``: a run with the profiler on for 48 bounce
+    iterations after the first 100, ended there, then a timed run; K1's
+    launches equal to the iterations, no other kernel; wall, samples/s,
+    ms an iteration, CUDA kernels and device time an iteration, busy share,
+    device time by kernel family, K1's device time a launch, peak memory;
+36. c3 at full width in ``ckd``, as ``bench.py`` names it (K1's float64
+    build, 56 rows), the same way; its ``ckd_single`` numbers are phase 27's;
+37. c4 at SZA 75 at full width in ``mono_double`` (no sun-tau table in a
+    double mode: K3's float64 build, the exact NEE) and in ``mono_single``
+    (K2 and the table), the same way with 32 event iterations after 16;
+    path B (``lr_flight``) in ``mono_double`` at 8192 spp: K2's and K4's
+    float64 builds launched once an event, radiance and iterations bit for
+    bit with the exact-NEE render; then each double run's numbers beside
+    its single mode's.
 
 It prints a ``{"kernels": [...]}`` line (each kernel with its launches on its
 main path, its error against the plain version, its call time (``ms``) and
@@ -266,7 +303,12 @@ reaches of its hierarchy, ``reach``; the instanced triangle kernels with
 their time and bound on the wood skeleton, ``skeleton``; every kernel its
 launches on the polarized paths, ``polarized_launches``, and K1, K2 and
 K7 their device time a launch inside the polarized full-width runs,
-``polarized_run_ms``, by path: K1 on c1 and c2, K2 on c4, K7 on c5) and the
+``polarized_run_ms``, by path: K1 on c1 and c2, K2 on c4, K7 on c5; the four
+float64 builds as entries of their own, ``collision_fetch_f64`` (launches on
+c1 in ``mono_double``, its device time a launch inside that run and inside
+c3's in ``ckd``), ``shell_event_f64`` (c4 SZA 75 in ``mono_double``),
+``shell_flight_f64`` and ``slant_tau_f64`` (path B at 8192 spp), their
+bounds over the float64 rate) and the
 ``nvidia-smi`` line
 before the last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
@@ -303,15 +345,20 @@ WOOD_BRANCHES = 256
 PLAIN_LANES = 2**18
 
 #: Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
-#: bandwidth and float32 rate outside the tensor cores.
+#: bandwidth, and the float32 and float64 rates outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
 #: Each wrapper's CUDA kernel, by which its device time is read.
 KERNELS = {
     "collision_fetch": "collision_fetch_kernel",
     "shell_flight": "shell_flight_kernel",
     "shell_event": "shell_event_kernel",
     "slant_tau": "slant_tau_kernel",
+    "collision_fetch_f64": "collision_fetch_f64_kernel",
+    "shell_flight_f64": "shell_flight_f64_kernel",
+    "shell_event_f64": "shell_event_f64_kernel",
+    "slant_tau_f64": "slant_tau_f64_kernel",
     "ray_leaves_nearest": "leaf_bvh_nearest_kernel",
     "ray_leaves_occluded": "leaf_bvh_occluded_kernel",
     "ray_leaves_nearest_instanced": "leaf_ibvh_nearest_kernel",
@@ -331,12 +378,13 @@ RUN_WINDOW_MIN = 32
 FLUSH_BYTES = 128 * 2**20
 
 
-def bound_ms(n_bytes, flops):
+def bound_ms(n_bytes, flops, peak_flops=PEAK_F32_FLOPS):
     """The least time (ms) the card could take: the larger of the bytes
-    moved over the memory rate and the float32 operations over the peak
-    rate; returns (ms, "bytes" or "operations")."""
+    moved over the memory rate and the operations over the peak rate of
+    their type (``PEAK_F32_FLOPS``, or ``PEAK_F64_FLOPS`` for the float64
+    builds); returns (ms, "bytes" or "operations")."""
     by_bytes = 1e3 * n_bytes / PEAK_BYTES_PER_S
-    by_ops = 1e3 * flops / PEAK_F32_FLOPS
+    by_ops = 1e3 * flops / peak_flops
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -347,9 +395,9 @@ def reset_launches():
     from eradiate_tpu_torch.kernels import shell_flight as sf
     from eradiate_tpu_torch.kernels import tri_intersect as ti
 
-    cf.launches = 0
-    for mod in (sf, li, ti):
-        mod.launches.update(dict.fromkeys(mod.launches, 0))
+    cf.launches = cf.launches_f64 = 0
+    for counts in (sf.launches, sf.launches_f64, li.launches, ti.launches):
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def read_launches():
@@ -359,7 +407,9 @@ def read_launches():
     from eradiate_tpu_torch.kernels import shell_flight as sf
     from eradiate_tpu_torch.kernels import tri_intersect as ti
 
-    return {"collision_fetch": cf.launches, **sf.launches, **li.launches, **ti.launches}
+    return {"collision_fetch": cf.launches, **sf.launches, **li.launches, **ti.launches,
+            "collision_fetch_f64": cf.launches_f64,
+            **{f"{k}_f64": n for k, n in sf.launches_f64.items()}}
 
 
 def _c1(n_vza, layer_merge_tol=1e-3, stokes=False):
@@ -448,10 +498,11 @@ def _ulps(a, b):
 
 
 def _bits(t):
-    """A float32 tensor's bit patterns (so that -0.0 differs from +0.0)."""
+    """A float tensor's bit patterns (so that -0.0 differs from +0.0)."""
     import torch
 
-    return t.view(torch.int32) if t.dtype == torch.float32 else t
+    bits = {torch.float32: torch.int32, torch.float64: torch.int64}.get(t.dtype)
+    return t if bits is None else t.view(bits)
 
 
 def _time_ms(fn, reps=25):
@@ -586,6 +637,8 @@ def check_collision_fetch(name, column, B, seed, timed=False, offset=0):
     z_levels, tau_levels, tables = (torch.tensor(a, device="cuda") for a in column)
     q = torch.tensor(stress_queries(column[1], B + offset, seed), device="cuda")[offset:]
     args = (q, z_levels, tau_levels, tables)
+    f64 = q.dtype == torch.float64
+    kernel = KERNELS["collision_fetch_f64" if f64 else "collision_fetch"]
     got = cf.collision_fetch(*args)
     want = cf.collision_fetch_plain(*args)
     for label, g, w in zip(("z", "layer", "fetched"), got, want):
@@ -595,19 +648,20 @@ def check_collision_fetch(name, column, B, seed, timed=False, offset=0):
                                  f"{int(differ.sum())} of {B} lanes")
     err = float(torch.nan_to_num((got[0] - want[0]).abs(), nan=0.0).max())
     K, L = tables.shape
-    line = (f"  {name}: B={B} L={L} K={K}{' from a q[1:] view' if offset else ''}: z, layer "
+    line = (f"  {name}: B={B} L={L} K={K} {q.dtype}{' from a q[1:] view' if offset else ''}: "
+            f"z, layer "
             f"and fetched bit for bit on every lane, 0 lanes differ"
             + ("" if offset else f" (the NaN query: layer {int(got[1][0])}, z {float(got[0][0])})"))
     times = bound = None
     if timed:
-        device, by = _device_ms(lambda: cf.collision_fetch(*args), KERNELS["collision_fetch"])
-        flushed, flushed_by = _device_ms(lambda: cf.collision_fetch(*args),
-                                         KERNELS["collision_fetch"], flush=True)
+        device, by = _device_ms(lambda: cf.collision_fetch(*args), kernel)
+        flushed, flushed_by = _device_ms(lambda: cf.collision_fetch(*args), kernel, flush=True)
         times = {"ms": _time_ms(lambda: cf.collision_fetch(*args)), "device_ms": device,
                  "device_by": by, "flushed_device_ms": flushed,
                  "plain_ms": _time_ms(lambda: cf.collision_fetch_plain(*args))}
         n_bytes = sum(t.numel() * t.element_size() for t in args + tuple(got))
-        bound = bound_ms(n_bytes, B * (search_trips(L) + 6))
+        bound = bound_ms(n_bytes, B * (search_trips(L) + 6),
+                         PEAK_F64_FLOPS if f64 else PEAK_F32_FLOPS)
         line += (f"; call {times['ms']:.4f} ms (CUDA events around the wrapper), device "
                  f"{device:.4f} ms (by the {by}), with the L2 flushed between launches (128 MB "
                  f"written) {flushed:.4f} ms (by the {flushed_by}), twin "
@@ -961,12 +1015,17 @@ def launch_ms_in_run(run, names, starts=True):
     return out, torch.stack(sums).sum(0) if sums else None, tuple(captured) or None
 
 
+class _WindowClosed(Exception):
+    """Raised inside a run to end it once its profiler window has closed."""
+
+
 def profile_window(run, module, attr, skip, window):
     """Call ``run()`` with ``module.attr``, a function the loop calls once a
     bounce iteration, wrapped so that ``torch.profiler`` records a window of
     ``window`` iterations after the first ``skip`` (started before the
-    window's first call, stopped after a synchronise after its last).
-    Returns the profiler; fails where the run made fewer calls."""
+    window's first call, stopped after a synchronise after its last), and
+    end the run there: the window is all the run is for. Returns the
+    profiler; fails where the run made fewer calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -982,11 +1041,14 @@ def profile_window(run, module, attr, skip, window):
         if calls[0] == skip + window:
             torch.cuda.synchronize()
             prof.stop()
+            raise _WindowClosed
         return out
 
     setattr(module, attr, call)
     try:
         run()
+    except _WindowClosed:
+        pass
     finally:
         setattr(module, attr, saved)
     if calls[0] < skip + window:
@@ -2215,7 +2277,7 @@ def rows_full_width(phase, label, exp, spp, n_vza, skip, window):
     the busy share, the device time by kernel family and by operator
     (``top_ops``), K1's device time a launch inside the run and the peak
     memory. Returns (launches, K1 ms a launch inside the run, iterations,
-    per-row iterations, dataset)."""
+    per-row iterations, dataset, timed wall s)."""
     import torch
 
     import eradiate_tpu_torch as etp
@@ -2273,7 +2335,7 @@ def rows_full_width(phase, label, exp, spp, n_vza, skip, window):
         raise AssertionError(f"{label} launched a kernel of another path")
     if brf.shape[-1] != n_vza or not np.isfinite(brf).all():
         raise AssertionError(f"{label}: BRF not finite or of the wrong shape")
-    return launches, k1_ms, iterations, per_row, ds
+    return launches, k1_ms, iterations, per_row, ds, wall
 
 def _compiled(exp):
     m = exp.measures[0]
@@ -2456,6 +2518,364 @@ def polarized_rows_cuda_vs_cpu(phase):
     if any(n for k, n in launches.items() if k != "collision_fetch"):
         raise AssertionError("polarized c3 launched a kernel of another path")
     return launches
+
+
+# ---- float64 builds and the double modes (phases 32-37) ----------------------
+
+
+def _f64(args):
+    """Shell-kernel operands taken exactly into float64."""
+    return tuple(a.double().contiguous() for a in args)
+
+
+def _shell_inputs_f64(exp, B, seed, device="cuda"):
+    """``_shell_inputs`` of ``exp`` compiled in the double mode that is set,
+    every operand in float64 and the flight caps recomputed from the float64
+    lanes, as the tracer computes them."""
+    import torch
+
+    from eradiate_tpu_torch.ops.tracer_spherical import flight_bounds
+
+    p, d, _, radii, sigma, tau_s, w_sun = _f64(_shell_inputs(exp, B, seed, device=device))
+    t_ground, t_exit = flight_bounds(p, d, radii)
+    return p, d, torch.minimum(t_ground, t_exit).contiguous(), radii, sigma, tau_s, w_sun
+
+
+def _flight_levels_f64(args, layer):
+    """The levels a float64 flight lane has to read, whatever implements it:
+    from its tangent level to the highest of its brackets of |x0|, |x_max|
+    and the sampled depth (``layer``), as ``test_tools.shells.flight_levels``
+    counts them for the float32 kernels."""
+    import torch
+
+    from eradiate_tpu_torch.ops.spherical import cross_norm2, dot3
+
+    p, d, t_max, radii, _, _, _ = args
+    L = radii.shape[0] - 1
+    x0 = dot3(p, d)
+    b2 = cross_norm2(p, d)
+    r2 = radii * radii
+    X = torch.sqrt(torch.clamp(r2[:, None] - b2, min=0.0))
+
+    def bracket(y):
+        return torch.clamp((X <= y).sum(0) - 1, 0, L - 1)
+
+    top = torch.maximum(torch.maximum(bracket(x0.abs()), bracket((x0 + t_max).abs())),
+                        layer.long())
+    tangent = torch.clamp((r2[:, None] <= b2).sum(0) - 1, 0, L - 1)
+    return torch.clamp(top - tangent + 1, min=1)
+
+
+def check_shell_kernels_f64(name, args, timed=False):
+    """K2, K3 and K4's float64 builds against their twins on the card, bit
+    pattern for bit pattern (``args`` float64, as ``_shell_inputs`` orders
+    them); K4 at K2's event points must equal K3's tau_sun. Returns (max abs
+    errors, times, bounds) by kernel, as ``check_shell_kernels``. The
+    bound: the lanes' state and the column read once, the outputs written
+    once; ~10 float64 operations (a square root among them) for each level
+    a flight has to read (``_flight_levels_f64``) and ~15 (two roots and a
+    quotient among them) for each distinct segment of the slant path from
+    the event point (``test_tools.shells.crossed_segments``), over the card's
+    float64 rate."""
+    import torch
+
+    from eradiate_tpu_torch.kernels import shell_flight as sf
+    from eradiate_tpu_torch.ops.spherical import fma
+    from eradiate_tpu_torch.test_tools.shells import crossed_segments
+
+    p, d, t_max, radii, sigma, _, w_sun = args
+    flight_args = args[:6]
+    collide, t_col, layer = sf.shell_flight(*flight_args)
+    p_event = fma(d, torch.where(collide, t_col, t_max)[:, None], p).contiguous()
+    levels = _flight_levels_f64(args, layer)
+    segments = crossed_segments(p_event, w_sun, radii)
+    checks = {
+        "shell_flight": (sf.shell_flight, sf.shell_flight_plain, flight_args),
+        "slant_tau": (lambda *a: (sf.slant_tau(*a),), lambda *a: (sf.slant_tau_exact(*a),),
+                      (p_event, w_sun, radii, sigma)),
+        "shell_event": (sf.shell_event, sf.shell_event_plain, args),
+    }
+    errs, times, bounds = {}, {}, {}
+    for kernel, (fn, plain, a) in checks.items():
+        got, want = fn(*a), plain(*a)
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(_bits(g), _bits(w)):
+                raise AssertionError(f"{name}: {kernel} (float64) differs from the twin on "
+                                     f"{int((_bits(g) != _bits(w)).sum())} lanes")
+        errs[kernel] = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+        if timed:
+            device, by = _device_ms(lambda: fn(*a), KERNELS[kernel + "_f64"])
+            times[kernel] = {"ms": _time_ms(lambda: fn(*a)), "device_ms": device,
+                             "device_by": by, "plain_ms": _time_ms(lambda: plain(*a), reps=5)}
+            n_bytes = sum(t.numel() * t.element_size() for t in tuple(a) + tuple(got))
+            flops = 40.0 * a[0].shape[0]
+            if kernel != "slant_tau":
+                flops += 10.0 * float(levels.sum())
+            if kernel != "shell_flight":
+                flops += 15.0 * float(segments.sum())
+            bounds[kernel] = bound_ms(n_bytes, flops, PEAK_F64_FLOPS)
+        if kernel == "slant_tau":
+            tau_k4 = got[0]
+    if not torch.equal(_bits(tau_k4), _bits(got[3])):
+        raise AssertionError(f"{name}: slant_tau_f64 at the event points differs from "
+                             "shell_event_f64")
+    line = (f"  {name}: B={p.shape[0]} L={sigma.shape[0]} float64: collide, t_col, layer, "
+            f"tau_sun, tau bit for bit for the three float64 builds (0 lanes differ), K4 equal "
+            f"to K3's tau_sun (collide share {collide.double().mean().item():.3f}, TAU_BLOCKED "
+            f"share {(got[3] >= 1e9).double().mean().item():.3f}); levels a flight reads "
+            f"{levels.double().mean().item():.2f}, crossed segments a lane "
+            f"{segments.double().mean().item():.2f}")
+    for kernel, t in times.items():
+        line += (f"; {kernel}_f64 kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} by the "
+                 f"{t['device_by']}), twin {t['plain_ms']:.4f} ms, bound "
+                 f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
+    print(line, flush=True)
+    return errs, times, bounds
+
+
+def double_pixels_gate(phase, label, make, mode, spp, n_vza):
+    """The port on CUDA against the port on the CPU in a double mode, one
+    seed: every raw pixel's radiance and second moment within 1e-10
+    relative (Q, U and V within 1e-10 of I with Stokes output) and every
+    pixel within |z| <= 5. Returns the CUDA run's launches."""
+    import eradiate_tpu_torch as etp
+
+    etp.set_mode(mode)
+    raw, seconds = {}, {}
+    for dev in ("cuda", "cpu"):
+        exp = make(n_vza)
+        reset_launches()
+        t0 = time.perf_counter()
+        ds = etp.run(exp, spp=spp, seed_state=etp.SeedState(SEED), device=dev)
+        seconds[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            launches = read_launches()
+        raw[dev] = {k: np.asarray(v) for k, v in exp.measures[0].results["raw"].items()
+                    if not np.isscalar(v)}
+        raw[dev]["brf"] = np.asarray(ds["brf"])
+    g, c = raw["cuda"], raw["cpu"]
+    rel = {k: float(np.max(np.abs(g[k] - c[k]) / np.abs(c[k]))) for k in ("radiance", "m2")}
+    I = np.abs(c["radiance"])
+    if "stokes" in c:
+        rel["stokes"] = float(np.max(np.abs(g["stokes"] - c["stokes"]) / I[..., None]))
+    var = 2.0 * np.maximum(c["m2"] - c["radiance"] ** 2, 0.0) / spp
+    z = _max_z(g["radiance"], c["radiance"], var)
+    print(f"[{phase}] {label} ({mode}), {n_vza} VZA {spp} spp, CUDA vs CPU: dtype "
+          f"{g['radiance'].dtype}, max rel " + ", ".join(f"{k} {x:.3e}" for k, x in rel.items())
+          + f" (bound 1e-10; Stokes against I), max |z| {z:.3e} (bound 5); CUDA run "
+          f"{seconds['cuda']:.1f} s, CPU run {seconds['cpu']:.1f} s; launches "
+          f"{', '.join(f'{k} {n}' for k, n in launches.items() if n)}", flush=True)
+    if g["radiance"].dtype != np.float64 or not np.isfinite(g["brf"]).all():
+        raise AssertionError(f"{label} in {mode}: not float64 or not finite")
+    if max(rel.values()) > 1e-10 or z > 5.0:
+        raise AssertionError(f"CUDA and CPU runs of the port disagree on {label} in {mode}")
+    return launches
+
+
+def profiled_full_width(phase, label, make, mode, spp, n_vza, module, attr, key, skip, window):
+    """A full-width run in ``mode`` with the profiler on for ``window``
+    iterations of ``module.attr`` (called once an iteration) after ``skip``,
+    ended there, then a timed run: the wrapper ``key``'s launches must equal the
+    iterations, and no other kernel launch. Prints wall, samples/s, ms an
+    iteration, CUDA kernels and device ms an iteration, the busy share
+    (device time an iteration times the iterations over the timed wall),
+    the device time by kernel family, ``key``'s device ms a launch in the
+    window, and the peak memory. Returns a dict of them."""
+    import torch
+
+    import eradiate_tpu_torch as etp
+
+    etp.set_mode(mode)
+    exp = make(n_vza)
+
+    def run():
+        return etp.run(exp, spp=spp, seed_state=etp.SeedState(SEED), device="cuda")
+
+    prof = profile_window(run, module, attr, skip, window)
+    per_it, dev_ms, shares = window_device(prof, window)
+    n_rec, k_ms = kernel_ms_in_window(prof, KERNELS[key], window // 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    ds = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    iterations = exp.measures[0].results["raw"]["iterations"]
+    rows = np.asarray(exp.measures[0].results["raw"]["radiance"]).shape[0]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    brf = np.asarray(ds["brf"])
+    samples = n_vza * spp * rows
+    busy = dev_ms * iterations / (1e3 * wall)
+    print(f"[{phase}] {label} ({mode}) full width: {n_vza} VZA x {spp} spp x {rows} rows = "
+          f"{samples} samples, wall {wall:.3f} s, {samples / wall:.4e} samples/s, {iterations} "
+          f"iterations ({1e3 * wall / iterations:.3f} ms each), peak device memory "
+          f"{peak:.2f} GiB", flush=True)
+    print(f"    launches {', '.join(f'{k} {n}' for k, n in launches.items() if n)}; profiler "
+          f"window of {window} iterations (warm-up run): {per_it:.1f} CUDA kernels and "
+          f"{dev_ms:.3f} ms of device time an iteration, busy share {busy:.3f}; by kernel "
+          f"family: {', '.join(f'{f} {x:.3f}' for f, x in shares.items())}; {key} "
+          f"{k_ms:.4f} ms a launch inside the run ({n_rec} records); BRF shape {brf.shape}, "
+          f"mean {brf.mean():.6f}", flush=True)
+    if not (launches[key] > 0 and launches[key] == iterations):
+        raise AssertionError(f"{label} in {mode} did not launch {key} once an iteration")
+    if any(n for k, n in launches.items() if k != key):
+        raise AssertionError(f"{label} in {mode} launched a kernel of another path")
+    if not np.isfinite(brf).all():
+        raise AssertionError(f"{label} in {mode}: BRF not finite")
+    return {"wall_s": wall, "samples_per_s": samples / wall, "iterations": iterations,
+            "kernels_an_iteration": per_it, "device_ms_an_iteration": dev_ms, "busy": busy,
+            "peak_gib": peak, "launches": launches[key], "run_device_ms": k_ms,
+            "brf_mean": float(brf.mean())}
+
+
+def path_b_double(phase, spp):
+    """c4 at SZA 75 with ``lr_flight`` in ``mono_double`` on the card at
+    ``spp``: K2's and K4's float64 builds launched once an event each, and
+    the radiance and iterations equal, bit for bit, to the exact-NEE render
+    (K3's float64 build) of the same scene. Returns the launches."""
+    import dataclasses
+
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.ops.tracer_spherical import render_spherical
+
+    etp.set_mode("mono_double")
+    scene, sensor, config = _compiled(_c4(75.0))
+    out = {}
+    for lr in (True, False):
+        reset_launches()
+        t0 = time.perf_counter()
+        r = render_spherical(scene, sensor, dataclasses.replace(config, lr_flight=lr), spp,
+                             seed=SEED, device="cuda")
+        out[lr] = (r["radiance"].cpu().numpy(), r["iterations"], read_launches(),
+                   time.perf_counter() - t0)
+    (rad, it, launches, wall), (rad_x, it_x, launches_x, _) = out[True], out[False]
+    same = bool(np.array_equal(rad.view(np.int64), rad_x.view(np.int64))) and it == it_x
+    print(f"[{phase}] c4 SZA 75 path B (lr_flight, mono_double), {N_VZA_C4} VZA x {spp} spp on "
+          f"the card: {wall:.3f} s, {it} event iterations, launches "
+          f"{', '.join(f'{k} {n}' for k, n in launches.items() if n)}; radiance and iterations "
+          f"bit for bit with the exact-NEE render ({launches_x['shell_event_f64']} "
+          f"shell_event_f64 launches): {same}", flush=True)
+    if not (launches["shell_flight_f64"] == launches["slant_tau_f64"] == it > 0):
+        raise AssertionError("path B in mono_double did not launch K2 and K4 once an event")
+    if any(n for k, n in launches.items() if k not in ("shell_flight_f64", "slant_tau_f64")):
+        raise AssertionError("path B in mono_double launched a kernel of another path")
+    if not same:
+        raise AssertionError("path B in mono_double differs from the exact-NEE render")
+    return launches
+
+
+def double_phases(fetch_times, B4, sun_85, c3_wall):
+    """Phases 32-37, the double modes through the float64 builds of K1-K4
+    (``fetch_times``: phase 3's K1 times; ``B4``: c4's lane count; ``sun_85``:
+    the SZA 85 sun; ``c3_wall``: phase 27's c3 wall in ``ckd_single``).
+    Returns the full-width runs by (config, mode), path B's launches, the
+    polarized c1 run's launches, and K1's and K2-K4's (errors, times,
+    bounds)."""
+    import torch
+
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.ops.tracer import REGEN_LANES_TARGET, lane_partition
+    from eradiate_tpu_torch.test_tools import collision_fetch as fetch_tools
+    from eradiate_tpu_torch.test_tools import shells
+
+    from eradiate_tpu_torch.ops import tracer as pp_tracer
+    from eradiate_tpu_torch.ops import tracer_spherical as sph_tracer
+
+    etp.set_mode("mono_double")
+    print("[32] collision_fetch float64 build against its plain twin", flush=True)
+    B1 = N_VZA * lane_partition(N_VZA, SPP_C1, REGEN_LANES_TARGET["cuda"], "cpu")[0]
+    c1_column64 = fetch_tools.column_operands(dtype=np.float64)
+    err64, fetch64_times, fetch64_bound = check_collision_fetch(
+        "c1 merged column, mono_double", c1_column64, B1, seed=50, timed=True)
+    rng = np.random.default_rng(51)
+    cases64 = [
+        ("c1 merged column, mono_double, ragged", c1_column64, B1 + 37, 0),
+        ("c1 merged column, mono_double, queries from a q[1:] view", c1_column64, B1, 1),
+        ("unmerged 1200-layer column, mono_double",
+         fetch_tools.column_operands(None, dtype=np.float64), 2**20 + 3, 0),
+        ("7-layer table with flat runs, float64", fetch_tools.flat_run_operands(dtype=np.float64),
+         2**20 + 1, 0),
+    ]
+    for L, K in ((1, 3), (12287, 1), (46, 16)):
+        dtau = rng.uniform(0.0, 1.0, L) * (rng.uniform(size=L) > 0.2)
+        column = (np.concatenate([[0.0], np.cumsum(rng.uniform(0.05, 1.0, L))]),
+                  np.concatenate([[0.0], np.cumsum(dtau)]), rng.uniform(size=(K, L)))
+        cases64.append((f"random column, L = {L}, K = {K}, float64", column, 2**20 + 3, 0))
+    for i, (label, column, lanes, offset) in enumerate(cases64):
+        more, *_ = check_collision_fetch(label, column, lanes, seed=52 + i, offset=offset)
+        err64 = max(err64, more)
+    print(f"    float64 build at L = 46: device {fetch64_times['device_ms']:.4f} ms, call "
+          f"{fetch64_times['ms']:.4f} ms, L2 flushed {fetch64_times['flushed_device_ms']:.4f} "
+          f"ms, twin {fetch64_times['plain_ms']:.4f} ms, bound {fetch64_bound[0]:.4f} ms by "
+          f"{fetch64_bound[1]} (float32 kernel at the same lanes: device "
+          f"{fetch_times['device_ms']:.4f} ms)", flush=True)
+
+    print("[33] shell_flight, slant_tau and shell_event float64 builds against their plain "
+          "twins", flush=True)
+    shell64_errs, shell64_times, shell64_bounds = check_shell_kernels_f64(
+        "c4 column, mono_double", _shell_inputs_f64(_c4(), B4, seed=10), timed=True)
+    sets64 = [
+        ("c4 column, mono_double, ragged", _shell_inputs_f64(_c4(), 100_037, seed=11)),
+        ("unmerged 1200-shell column, mono_double", _shell_inputs_f64(_c4(85.0, None), 2**18, 12)),
+    ]
+    for column in ("232 shells", "232 shells, vacuum", "1200 shells"):
+        for label, w in (("along an axis", shells.AXIS_W), ("toward the SZA 85 sun", sun_85)):
+            sets64.append((f"slant stresses, {column}, {label}, in float64",
+                           _f64(_slant_stress_inputs(column, w, 100_037, seed=14))))
+    for column, (radii, sigma) in shells.flight_columns(np.random.default_rng(8)).items():
+        sets64.append((f"flight stresses, {column}, in float64",
+                       _f64(_flight_stress_inputs(radii, sigma, sun_85, 100_037, 15))))
+    p, d, t_max, tau_s, radii, sigma = shells.planet_inputs(
+        np.random.default_rng(16), 2**18, device="cuda")
+    sets64.append(("a planet of 1e6 km, 1200 shells of 0.1 km", (
+        p, d, t_max, radii, sigma, tau_s, torch.tensor(sun_85, device="cuda").double())))
+    for label, args in sets64:
+        errs, _, _ = check_shell_kernels_f64(label, args)
+        shell64_errs = {k: max(v, errs[k]) for k, v in shell64_errs.items()}
+
+    double_pixels_gate(34, "c1", _c1, "mono_double", 256, 11)
+    pol_c1_double = double_pixels_gate(34, "polarized c1", lambda n: _c1(n, stokes=True),
+                                       "mono_polarized_double", 64, 11)
+    for sza in (75.0, 85.0):
+        double_pixels_gate(34, f"c4 SZA {sza:g}", lambda n, sza=sza: _c4(sza), "mono_double",
+                           256, N_VZA_C4)
+
+    runs = {}
+    for mode, key in (("mono_double", "collision_fetch_f64"), ("mono_single", "collision_fetch")):
+        runs["c1", mode] = profiled_full_width(35, "c1", _c1, mode, SPP_C1, N_VZA, pp_tracer,
+                                               "collision_fetch", key, 100, 48)
+    runs["c3", "ckd"] = profiled_full_width(36, "c3, as bench.py names it", _c3, "ckd", SPP_C3,
+                                            N_VZA, pp_tracer, "collision_fetch",
+                                            "collision_fetch_f64", 100, 48)
+    for mode, attr in (("mono_double", "shell_event"), ("mono_single", "shell_flight")):
+        key = attr + ("_f64" if mode == "mono_double" else "")
+        runs["c4", mode] = profiled_full_width(37, "c4 SZA 75", lambda n: _c4(75.0), mode,
+                                               SPP_C4, N_VZA_C4, sph_tracer, attr, key, 16, 32)
+    path_b64 = path_b_double(37, 8192)
+    single = {"c1": runs["c1", "mono_single"], "c4": runs["c4", "mono_single"],
+              "c3": {"wall_s": c3_wall, "samples_per_s": N_VZA * SPP_C3 * ROWS_C3 / c3_wall}}
+    for cfg, mode in (("c1", "mono_double"), ("c3", "ckd"), ("c4", "mono_double")):
+        dbl, sgl = runs[cfg, mode], single[cfg]
+        print(f"     {cfg} in {mode} (float64 path state on the card; bench.py's ckd and mono "
+              f"are float32 path state on a TPU) against its single mode in this run: wall "
+              f"{dbl['wall_s']:.3f} s against {sgl['wall_s']:.3f} s "
+              f"({dbl['wall_s'] / sgl['wall_s']:.3f}x), samples/s {dbl['samples_per_s']:.4e} "
+              f"against {sgl['samples_per_s']:.4e}"
+              + (f", busy {dbl['busy']:.3f} against {sgl['busy']:.3f}, kernels an iteration "
+                 f"{dbl['kernels_an_iteration']:.1f} against {sgl['kernels_an_iteration']:.1f}, "
+                 f"peak {dbl['peak_gib']:.2f} against {sgl['peak_gib']:.2f} GiB"
+                 if "busy" in sgl else " (phase 27 prints its busy share, kernels and peak)"),
+              flush=True)
+    etp.set_mode("mono_single")
+    fetch64_times.update(run_device_ms=runs["c1", "mono_double"]["run_device_ms"],
+                         c3_launches=runs["c3", "ckd"]["launches"],
+                         c3_run_device_ms=runs["c3", "ckd"]["run_device_ms"])
+    shell64_times["shell_event"]["run_device_ms"] = runs["c4", "mono_double"]["run_device_ms"]
+    return {"runs": runs, "path_b": path_b64, "pol_c1": pol_c1_double,
+            "fetch": (err64, fetch64_times, fetch64_bound),
+            "shells": (shell64_errs, shell64_times, shell64_bounds)}
 
 
 def main():
@@ -2856,10 +3276,10 @@ def main():
     etp.set_mode("ckd_single")
     c3_small = rows_cuda_vs_cpu(25, "c3 (ckd_single)", _c3, ROWS_C3)
     etp.set_mode("mono_single")
-    c2_launches, c2_run_ms, c2_iterations, _, _ = rows_full_width(
+    c2_launches, c2_run_ms, c2_iterations, _, _, _ = rows_full_width(
         26, "c2", _c2(N_VZA), SPP_C2, N_VZA, 64, 48)
     etp.set_mode("ckd_single")
-    c3_launches, c3_run_ms, c3_iterations, c3_rows, _ = rows_full_width(
+    c3_launches, c3_run_ms, c3_iterations, c3_rows, _, c3_wall = rows_full_width(
         27, "c3 (ckd_single)", _c3(N_VZA), SPP_C3, N_VZA, 100, 48)
     if len(c3_rows) != ROWS_C3:
         raise AssertionError(f"c3 rendered {len(c3_rows)} rows, not {ROWS_C3}")
@@ -2874,6 +3294,12 @@ def main():
     etp.set_mode("ckd_polarized_single")
     pol_c3_small = polarized_rows_cuda_vs_cpu(31)
     etp.set_mode("mono_single")
+
+    double = double_phases(fetch_times, B4, sun_85, c3_wall)
+    # -- 32-37. the double modes through the float64 builds of K1-K4 -----------
+    runs, path_b64, pol_c1_double = double["runs"], double["path_b"], double["pol_c1"]
+    err64, fetch64_times, fetch64_bound = double["fetch"]
+    shell64_errs, shell64_times, shell64_bounds = double["shells"]
     for mod in ("jax", "eradiate_tpu"):
         if mod in sys.modules:
             raise AssertionError(f"{mod} was imported")
@@ -2900,6 +3326,7 @@ def main():
     smaller.update({f"c4_polarized_{form}_256spp": counts
                     for form, counts in pol_c4_small.items()})
     smaller.update(c2_polarized_256spp=pol_c2_small, c3_polarized_256spp=pol_c3_small)
+    smaller.update(c1_polarized_double_64spp=pol_c1_double)
     for label, counts in smaller.items():
         for k, n in counts.items():
             if n:
@@ -2972,6 +3399,20 @@ def main():
                   sweep_errs[k], sweep_times[k], sweep_bounds[k])
             for k, (stem, line, form) in sweeps.items()
         ],
+        # the float64 builds of the double modes: K1 on c1 (mono_double), K3 on
+        # c4 at SZA 75 (mono_double), K2 and K4 on c4's path B at 8192 spp
+        entry("collision_fetch_f64", "eradiate_tpu_torch/csrc/collision_fetch.cu",
+              f"{pallas}/collision_fetch.py:59", runs["c1", "mono_double"]["launches"], err64,
+              fetch64_times, fetch64_bound),
+        entry("shell_flight_f64", shell_src, f"{pallas}/shell_flight.py:405",
+              path_b64["shell_flight_f64"], shell64_errs["shell_flight"],
+              shell64_times["shell_flight"], shell64_bounds["shell_flight"]),
+        entry("shell_event_f64", shell_src, f"{pallas}/shell_flight.py:326",
+              runs["c4", "mono_double"]["launches"], shell64_errs["shell_event"],
+              shell64_times["shell_event"], shell64_bounds["shell_event"]),
+        entry("slant_tau_f64", shell_src, f"{pallas}/shell_flight.py:473",
+              path_b64["slant_tau_f64"], shell64_errs["slant_tau"],
+              shell64_times["slant_tau"], shell64_bounds["slant_tau"]),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

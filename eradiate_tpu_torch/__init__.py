@@ -1,6 +1,7 @@
 """eradiate_tpu_torch — the PyTorch/CUDA port of eradiate_tpu.
 
-The port runs, in ``mono_single`` on one NVIDIA GPU:
+The port runs on one NVIDIA GPU, in the single modes (and, for the
+atmosphere experiment, in the double modes, with float64 path state):
 
 * the plane-parallel scalar path (BASELINE config 1: a Rayleigh atmosphere
   over a Lambertian surface seen by a distant sensor bank), with the

@@ -53,6 +53,13 @@
 // The arithmetic is written with round-to-nearest intrinsics so that nvcc
 // cannot contract it into an FMA: the kernel equals its plain PyTorch twin on
 // the card bit for bit.
+//
+// The double modes take a float64 build of their own,
+// collision_fetch_f64_kernel: the same search, tree and record in float64,
+// one lane a thread (no 16-byte quads: the first float64 build is the
+// simple one). Its tree of 2^T doubles needs twice the shared memory, 128
+// KiB at MAX_LEVELS = 12288 (T = 14), within the 227 KiB a block may take.
+// It reads 8 bytes and writes (K + 1) * 8 + 4 a lane, 44 at c1's K = 3.
 
 #include <cuda_runtime.h>
 
@@ -71,12 +78,15 @@ int search_trips(int L) {
   return T;
 }
 
-struct Column {
-  const float* z_levels;    // [L + 1]
-  const float* tau_levels;  // [L + 1], ascending
-  const float* tables;      // [K, L]
+template <typename R>
+struct ColumnT {
+  const R* z_levels;    // [L + 1]
+  const R* tau_levels;  // [L + 1], ascending
+  const R* tables;      // [K, L]
   int L, K, T;
 };
+using Column = ColumnT<float>;
+using Column64 = ColumnT<double>;
 
 // z at query q inside layer i, rounded as the twin rounds it; the clamp
 // keeps a NaN.
@@ -90,11 +100,22 @@ __device__ __forceinline__ float interpolate(const Column& c, float q, int i) {
   return __fadd_rn(z0, __fmul_rn(frac, __fsub_rn(z1, z0)));
 }
 
+// z at query q inside layer i in float64, rounded as the twin rounds it.
+__device__ __forceinline__ double interpolate(const Column64& c, double q, int i) {
+  const double t0 = __ldg(c.tau_levels + i);
+  const double t1 = __ldg(c.tau_levels + i + 1);
+  const double z0 = __ldg(c.z_levels + i);
+  const double z1 = __ldg(c.z_levels + i + 1);
+  double frac = __ddiv_rn(__dsub_rn(q, t0), fmax(__dsub_rn(t1, t0), 1e-30));
+  if (frac == frac) frac = fmin(fmax(frac, 0.0), 1.0);  // a NaN is kept
+  return __dadd_rn(z0, __dmul_rn(frac, __dsub_rn(z1, z0)));
+}
+
 // N interleaved searches down the tree: each trip goes right where
 // !(q < node), so the leaf reached less 2^T counts the levels at or below q
 // (a NaN goes right everywhere); the layer is that count less one, clamped.
-template <int N>
-__device__ __forceinline__ void search(const float* tree, const Column& c, const float (&q)[N],
+template <int N, typename R>
+__device__ __forceinline__ void search(const R* tree, const ColumnT<R>& c, const R (&q)[N],
                                        int (&layer)[N]) {
   unsigned node[N];
 #pragma unroll
@@ -109,6 +130,18 @@ __device__ __forceinline__ void search(const float* tree, const Column& c, const
   }
 }
 
+// Tree node i of the levels in breadth-first order (+inf past the last).
+template <typename R>
+__device__ __forceinline__ R tree_node(const ColumnT<R>& c, int i) {
+  R v = static_cast<R>(__int_as_float(0x7f800000));  // +inf
+  if (i > 0) {
+    const int d = 31 - __clz(i);
+    const int s = ((2 * (i - (1 << d)) + 1) << (c.T - 1 - d)) - 1;
+    if (s <= c.L) v = __ldg(c.tau_levels + s);
+  }
+  return v;
+}
+
 // Thread t takes quad t of the lanes where `vec` (queries 16-byte aligned),
 // and lane 4 * quads + t a lane at a time: the ragged tail, or every lane.
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -121,15 +154,7 @@ collision_fetch_kernel(const float* __restrict__ tau_q, Column c, float* __restr
   float4 qv = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   if (t < quads) qv = __ldg(reinterpret_cast<const float4*>(tau_q) + t);
 
-  for (int i = threadIdx.x; i < (1 << c.T); i += blockDim.x) {
-    float v = __int_as_float(0x7f800000);  // +inf
-    if (i > 0) {
-      const int d = 31 - __clz(i);
-      const int s = ((2 * (i - (1 << d)) + 1) << (c.T - 1 - d)) - 1;
-      if (s <= c.L) v = __ldg(c.tau_levels + s);
-    }
-    tree[i] = v;
-  }
+  for (int i = threadIdx.x; i < (1 << c.T); i += blockDim.x) tree[i] = tree_node(c, i);
   __syncthreads();
 
   if (t < quads) {
@@ -169,7 +194,38 @@ collision_fetch_kernel(const float* __restrict__ tau_q, Column c, float* __restr
   }
 }
 
+// The float64 build: one lane a thread.
+__global__ void __launch_bounds__(kThreads)
+collision_fetch_f64_kernel(const double* __restrict__ tau_q, Column64 c,
+                           double* __restrict__ z_out, int* __restrict__ layer_out,
+                           double* __restrict__ fetched_out, int B) {
+  extern __shared__ double tree64[];  // 2^T, node 0 unused
+  for (int i = threadIdx.x; i < (1 << c.T); i += blockDim.x) tree64[i] = tree_node(c, i);
+  __syncthreads();
+  const long long b = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const double q[1] = {__ldg(tau_q + b)};
+  int layer[1];
+  search<1>(tree64, c, q, layer);
+  z_out[b] = interpolate(c, q[0], layer[0]);
+  layer_out[b] = layer[0];
+  for (int k = 0; k < c.K; ++k) {
+    fetched_out[static_cast<size_t>(k) * B + b] =
+        __ldg(c.tables + static_cast<size_t>(k) * c.L + layer[0]);
+  }
+}
+
 bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Allow a kernel `bytes` of dynamic shared memory (0 = set).
+template <typename Kernel>
+cudaError_t allow_shared(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err != cudaSuccess) cudaGetLastError();  // clear it: the next launch reports its own
+  return err;
+}
 
 }  // namespace
 
@@ -180,20 +236,28 @@ extern "C" int collision_fetch_launch(const float* tau_q, const float* z_levels,
                                       void* stream) {
   const Column c{z_levels, tau_levels, tables, L, K, search_trips(L)};
   const size_t bytes = sizeof(float) << c.T;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        collision_fetch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) {
-      cudaGetLastError();  // clear it: the next launch reports its own error
-      return static_cast<int>(err);
-    }
-  }
+  const cudaError_t err = allow_shared(collision_fetch_kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec = aligned(tau_q) && aligned(z_out) && aligned(layer_out) && aligned(fetched_out);
   const long long quads = vec ? B / 4 : 0;
   const long long threads = quads > B - 4 * quads ? quads : B - 4 * quads;
   const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
   collision_fetch_kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       tau_q, c, z_out, layer_out, fetched_out, B, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 build; launch on `stream`, returns the CUDA error (0 = launched).
+extern "C" int collision_fetch_f64_launch(const double* tau_q, const double* z_levels,
+                                          const double* tau_levels, const double* tables,
+                                          double* z_out, int* layer_out, double* fetched_out,
+                                          int B, int L, int K, void* stream) {
+  const Column64 c{z_levels, tau_levels, tables, L, K, search_trips(L)};
+  const size_t bytes = sizeof(double) << c.T;
+  const cudaError_t err = allow_shared(collision_fetch_f64_kernel, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = static_cast<int>((static_cast<long long>(B) + kThreads - 1) / kThreads);
+  collision_fetch_f64_kernel<<<blocks, kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      tau_q, c, z_out, layer_out, fetched_out, B);
   return static_cast<int>(cudaGetLastError());
 }

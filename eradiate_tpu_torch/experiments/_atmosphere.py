@@ -6,10 +6,12 @@ for each (bin, g-point) pair of the quadrature), and ``compile_scene`` for
 plane-parallel geometry (with the optional error-bounded layer merge) and
 spherical-shell geometry (with the error-bounded shell merge and the sun
 slant-tau table), directional illumination and distant measures. Host
-arithmetic stays numpy float64 up to a single cast to float32, as in the
-reference; the sun-tau table is computed on the host from the float32
-radii and extinction. The compiled leaves are numpy arrays that
-:func:`..ops.scene_state.from_reference` ships to the device.
+arithmetic stays numpy float64 up to a single cast to the mode's dtype
+(float32 in a single mode, float64 in a double one), as the reference casts
+to ``mode().device_dtype``; the sun-tau table is built only in float32, from
+the float32 radii and extinction, as in the reference. The compiled leaves
+are numpy arrays that :func:`..ops.scene_state.from_reference` ships to the
+device.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 
 import torch
 
+from ..core.modes import mode
 from ..physics.shell_merge import (
     adaptive_layer_groups_pp,
     adaptive_shell_groups,
@@ -64,8 +67,9 @@ def _atmosphere_converter(value):
     raise TypeError(f"cannot convert {type(value)} to Atmosphere")
 
 
-def _f32(x):
-    return np.asarray(x, dtype=np.float32)
+def _cast(x):
+    """``x`` as a numpy array of the active mode's dtype."""
+    return np.asarray(x, dtype=mode().host_dtype)
 
 
 def _merge_params(params, groups, w_scat, L):
@@ -195,11 +199,11 @@ class AtmosphereExperiment(EarthObservationExperiment):
             axis=-1,
         )
         return MediumArrays(
-            z_levels=_f32(levels),
-            tau_levels=_f32(tau_np),
-            albedo=_f32(albedo),
-            phase_weights=_f32(weights),
-            phase_params=tuple({k: _f32(v) for k, v in p.items()} for p in params),
+            z_levels=_cast(levels),
+            tau_levels=_cast(tau_np),
+            albedo=_cast(albedo),
+            phase_weights=_cast(weights),
+            phase_params=tuple({k: _cast(v) for k, v in p.items()} for p in params),
         )
 
     def _spherical_medium(self, sigma_t, albedo, params, weights, L):
@@ -222,19 +226,21 @@ class AtmosphereExperiment(EarthObservationExperiment):
             params = _merge_params(params, groups, w_scat, L)
             levels = levels[groups]
 
-        radii = _f32(geom.planet_radius + levels)
-        sig = _f32(sigma_t)
+        radii = _cast(geom.planet_radius + levels)
+        sig = _cast(sigma_t)
         # NEE sun transmittance from a (radius, local cosine) slant-tau table
         # where the terminator guardrail allows it (SZA <= 80 by default);
         # otherwise the tracer computes the exact slant depth per event
         table = getattr(geom, "sun_tau_table", "auto")
         if table == "auto":
             table = getattr(self.illumination, "zenith", 0.0) <= 80.0
+        # the table is float32 only: a double mode takes the exact slant depth
+        table = table and mode().host_dtype == np.float32
         sun_tau = mu_grid = sun_r_grid = warp = None
         if table:
             mu_np, warp = sun_mu_grid_warped(128)
-            mu_grid = _f32(mu_np)
-            sun_r_grid = _f32(
+            mu_grid = _cast(mu_np)
+            sun_r_grid = _cast(
                 np.linspace(
                     float(geom.planet_radius + levels[0]),
                     float(geom.planet_radius + levels[-1]),
@@ -250,10 +256,10 @@ class AtmosphereExperiment(EarthObservationExperiment):
         return SphericalMediumArrays(
             radii=radii,
             sigma_t=sig,
-            sigma_majorant=_f32(np.max(np.asarray(sigma_t), axis=1)),
-            albedo=_f32(albedo),
-            phase_weights=_f32(weights),
-            phase_params=tuple({k: _f32(v) for k, v in p.items()} for p in params),
+            sigma_majorant=_cast(np.max(np.asarray(sigma_t), axis=1)),
+            albedo=_cast(albedo),
+            phase_weights=_cast(weights),
+            phase_params=tuple({k: _cast(v) for k, v in p.items()} for p in params),
             sun_tau=sun_tau,
             mu_grid=mu_grid,
             sun_r_grid=sun_r_grid,
@@ -261,8 +267,8 @@ class AtmosphereExperiment(EarthObservationExperiment):
         )
 
     def compile_scene(self, measure, spectral_ctx):
-        """Compile to (SceneArrays, SensorArrays, SceneConfig) with float32
-        numpy leaves."""
+        """Compile to (SceneArrays, SensorArrays, SceneConfig) with numpy
+        leaves in the mode's dtype."""
         m = check_mode()
         if self.geometry.kind not in ("plane_parallel", "spherical_shell"):
             raise NotImplementedError(
@@ -295,7 +301,7 @@ class AtmosphereExperiment(EarthObservationExperiment):
         if self.surface is not None:
             surf_kind = self.surface.bsdf_kind
             sparams = {
-                k: v if isinstance(v, str) else _f32(v)
+                k: v if isinstance(v, str) else _cast(v)
                 for k, v in self.surface.eval_bsdf_params(w).items()
             }
         else:
@@ -308,10 +314,10 @@ class AtmosphereExperiment(EarthObservationExperiment):
                 f"{type(self.illumination).__name__} is not ported yet"
             )
         illum = IlluminationArrays(
-            direction=_f32(self.illumination.direction),
-            irradiance=_f32(self.illumination.eval_irradiance(w)),
-            cos_cutoff=_f32(self.illumination.cos_cutoff),
-            sky_radiance=np.zeros(S, dtype=np.float32),
+            direction=_cast(self.illumination.direction),
+            irradiance=_cast(self.illumination.eval_irradiance(w)),
+            cos_cutoff=_cast(self.illumination.cos_cutoff),
+            sky_radiance=_cast(np.zeros(S)),
         )
         scene = SceneArrays(medium, SurfaceArrays(params=sparams), illum)
 
@@ -337,10 +343,10 @@ class AtmosphereExperiment(EarthObservationExperiment):
             target = np.zeros(3)
         ray_offset = getattr(measure, "ray_offset", None)
         sensor = SensorArrays(
-            directions=_f32(measure.sensor_directions()),
-            target=_f32(target),
-            ray_offset=_f32(np.nan if ray_offset is None else ray_offset),
-            target_extent=None if extent is None else _f32(extent),
+            directions=_cast(measure.sensor_directions()),
+            target=_cast(target),
+            ray_offset=_cast(np.nan if ray_offset is None else ray_offset),
+            target_extent=None if extent is None else _cast(extent),
         )
 
         integrator = self.integrator

@@ -31,6 +31,16 @@ from ._atmosphere import AtmosphereExperiment
 __all__ = ["CanopyExperiment", "CanopyAtmosphereExperiment"]
 
 
+def _check_canopy_mode():
+    """Refuse a double mode: the canopy renders single precision only."""
+    m = mode()
+    if m.is_double_precision:
+        raise NotImplementedError(
+            f"mode {m.id!r}: the canopy is not ported to double precision yet "
+            "(use the mode's single-precision twin)"
+        )
+
+
 def _canopy_converter(value):
     if value is None:
         return None
@@ -150,6 +160,7 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
         ``(scene, sensor, config, leaf_params, leaves, tris, tri_params)``
         with numpy leaves and triangles; ``tris`` and ``tri_params`` are
         None for canopies of leaf clouds alone."""
+        _check_canopy_mode()
         flat, leaves, tris, tri_mesh = self._leaf_arrays()
         dtype = mode().host_dtype
         scene, sensor, config = self.compile_scene(measure, ctx)
@@ -172,6 +183,7 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
     def process(self, spp=None, seed_state=None, device="cuda"):
         if self.canopy is None:
             return super().process(spp=spp, seed_state=seed_state, device=device)
+        _check_canopy_mode()
         dev = resolve_device(device)
         seed_state = seed_state or root_seed_state
         for measure in self.measures:

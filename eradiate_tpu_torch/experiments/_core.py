@@ -54,10 +54,13 @@ def _integrator_converter(value):
     return integrator_factory.convert(value, Integrator)
 
 
-#: The modes the port renders: single precision only, so the double modes
-#: (and the unsuffixed aliases ``mono``, ``mono_polarized`` and ``ckd``, which
-#: name them) raise.
-SUPPORTED_MODES = ("mono_single", "mono_polarized_single", "ckd_single", "ckd_polarized_single")
+#: The modes the port renders. The double modes (and the unsuffixed aliases
+#: ``mono``, ``mono_polarized``, ``ckd`` and ``ckd_polarized``, which name
+#: them) run their path state in float64 on every device.
+SUPPORTED_MODES = (
+    "mono_single", "mono_polarized_single", "ckd_single", "ckd_polarized_single",
+    "mono_double", "mono_polarized_double", "ckd_double", "ckd_polarized_double",
+)
 
 
 def check_mode():

@@ -3,8 +3,10 @@
 :func:`collision_fetch` inverts the cumulative vertical optical-depth table
 at each lane's sampled tau and fetches that layer's per-layer table values
 (albedo, phase weights, Rayleigh depolarisation for c1). For CUDA tensors it
-launches ``csrc/collision_fetch.cu``; for CPU tensors it runs
-:func:`collision_fetch_plain`. It never falls back from one to the other.
+launches ``csrc/collision_fetch.cu``: float32 tensors its float32 kernel,
+float64 tensors (the double modes) its float64 build; for CPU tensors it
+runs :func:`collision_fetch_plain`. It never falls back from one to the
+other, and any other dtype, or mixed dtypes, raise.
 The kernel's search (a branch-free walk down the levels staged as a tree,
 a fixed number of trips) is emulated in numpy by
 :mod:`eradiate_tpu_torch.test_tools.collision_fetch`.
@@ -18,14 +20,18 @@ import torch
 
 __all__ = ["collision_fetch", "collision_fetch_plain", "launches", "MAX_LEVELS"]
 
-#: Kernel launches made by :func:`collision_fetch` in this process.
+#: Kernel launches made by :func:`collision_fetch` in this process, by
+#: build: ``launches`` the float32 kernel's, ``launches_f64`` the float64
+#: build's.
 launches = 0
+launches_f64 = 0
 
-#: The most levels (L + 1) the kernel takes: its search tree, 2^T float32
-#: with T = ceil(log2(L + 2)), then fills 64 KB of shared memory.
+#: The most levels (L + 1) the kernels take: their search tree, 2^T values
+#: with T = ceil(log2(L + 2)), then fills 64 KB (float32) or 128 KB
+#: (float64) of shared memory.
 MAX_LEVELS = 12288
 
-_launcher = None
+_launchers = {}
 
 
 def collision_fetch_plain(tau_q, z_levels, tau_levels, tables):
@@ -49,26 +55,28 @@ def collision_fetch_plain(tau_q, z_levels, tau_levels, tables):
     return z0 + frac * (z1 - z0), layer, tables[:, i]
 
 
-def _get_launcher():
-    global _launcher
-    if _launcher is None:
+def _get_launcher(dtype):
+    if dtype not in _launchers:
         from ._build import library
 
-        fn = library().collision_fetch_launch
+        name = "collision_fetch_launch" if dtype == torch.float32 else "collision_fetch_f64_launch"
+        fn = getattr(library(), name)
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _launcher = fn
-    return _launcher
+        _launchers[dtype] = fn
+    return _launchers[dtype]
 
 
 def _check(tau_q, z_levels, tau_levels, tables):
     named = {"tau_q": tau_q, "z_levels": z_levels, "tau_levels": tau_levels,
              "tables": tables}
+    if tau_q.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"tau_q must be float32 or float64, got {tau_q.dtype}")
     for name, t in named.items():
         if t.device != tau_q.device:
             raise ValueError(f"{name} is on {t.device}, tau_q on {tau_q.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != tau_q.dtype:
+            raise TypeError(f"{name} is {t.dtype}, tau_q {tau_q.dtype}: one dtype for all")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if tau_q.ndim != 1 or tables.ndim != 2:
@@ -96,11 +104,11 @@ def collision_fetch(tau_q, z_levels, tau_levels, tables):
     contiguous ``[K, L]`` tensor).
 
     Returns ``(z [B], layer [B] int32, fetched [K, B])``. CUDA tensors go
-    through the kernel (the wrapper checks device, dtype, contiguity and
-    shapes, and raises if the launch fails); CPU tensors through
-    :func:`collision_fetch_plain`.
+    through the kernel of their dtype, float32 or float64 (the wrapper
+    checks device, dtype, contiguity and shapes, and raises if the launch
+    fails); CPU tensors through :func:`collision_fetch_plain`.
     """
-    global launches
+    global launches, launches_f64
     if tau_q.device.type == "cpu":
         return collision_fetch_plain(tau_q, z_levels, tau_levels, tables)
     if tau_q.device.type != "cuda":
@@ -110,10 +118,10 @@ def collision_fetch(tau_q, z_levels, tau_levels, tables):
     B = tau_q.shape[0]
     z = torch.empty_like(tau_q)
     layer = torch.empty(B, dtype=torch.int32, device=tau_q.device)
-    fetched = torch.empty((K, B), dtype=torch.float32, device=tau_q.device)
+    fetched = torch.empty((K, B), dtype=tau_q.dtype, device=tau_q.device)
     if B == 0:
         return z, layer, fetched
-    launch = _get_launcher()
+    launch = _get_launcher(tau_q.dtype)
     with torch.cuda.device(tau_q.device):
         rc = launch(
             tau_q.data_ptr(), z_levels.data_ptr(), tau_levels.data_ptr(),
@@ -123,5 +131,8 @@ def collision_fetch(tau_q, z_levels, tau_levels, tables):
         )
     if rc != 0:
         raise RuntimeError(f"collision_fetch kernel launch failed: CUDA error {rc}")
-    launches += 1
+    if tau_q.dtype == torch.float64:
+        launches_f64 += 1
+    else:
+        launches += 1
     return z, layer, fetched

@@ -21,7 +21,7 @@ import math
 import torch
 
 from ..core.warp import square_to_cosine_hemisphere
-from .spherical import sqrt_rn
+from .fastmath import cosine_hemisphere_xla, fma32, sqrt_rn
 
 __all__ = ["lambertian_eval", "hapke_eval", "rpv_eval", "bsdf_eval",
            "bsdf_sample_from_uniforms", "bilambertian_eval",
@@ -38,6 +38,19 @@ POLARIZED_SURFACES = ("maignan", "ocean_mishchenko")
 
 def _mu(w):
     return torch.clamp(w[..., 2], min=0.0)
+
+
+def _one_minus_sq(mu, exact):
+    """``1 - mu * mu``; with ``exact`` (a float32 ``mu`` in float64 path
+    state) rounded once, as XLA:CPU fuses it."""
+    if exact and mu.dtype == torch.float32:
+        return fma32(-mu, mu, 1.0)
+    return 1.0 - mu * mu
+
+
+def _mixed(wi, wo):
+    """Whether a float32 sampled direction meets float64 path state."""
+    return wi.dtype == torch.float32 and wo.dtype == torch.float64
 
 
 def lambertian_eval(params, wi, wo):
@@ -63,9 +76,10 @@ def rpv_eval(params, wi, wo):
     cos_T = wi[..., 0] * wo[..., 0] + wi[..., 1] * wo[..., 1] + wi[..., 2] * wo[..., 2]
     F = (1.0 - g * g) / torch.clamp((1.0 + g * g + 2.0 * g * cos_T) ** 1.5, min=1e-12)
     # hot-spot factor G = sqrt(tan^2 i + tan^2 o - 2 tan i tan o cos dphi)
-    ti = sqrt_rn(torch.clamp(1.0 - mu_i * mu_i, min=0.0)) / mu_i
+    exact = _mixed(wi, wo)
+    ti = sqrt_rn(torch.clamp(_one_minus_sq(mu_i, exact), min=0.0)) / mu_i
     to = sqrt_rn(torch.clamp(1.0 - mu_o * mu_o, min=0.0)) / mu_o
-    sin_i = sqrt_rn(torch.clamp(1.0 - mu_i * mu_i, min=1e-30))
+    sin_i = sqrt_rn(torch.clamp(_one_minus_sq(mu_i, exact), min=1e-30))
     sin_o = sqrt_rn(torch.clamp(1.0 - mu_o * mu_o, min=1e-30))
     cos_dphi = torch.clamp((cos_T - mu_i * mu_o) / (sin_i * sin_o), -1.0, 1.0)
     G = sqrt_rn(torch.clamp(ti * ti + to * to - 2.0 * ti * to * cos_dphi, min=0.0))
@@ -97,7 +111,7 @@ def _hapke_H(w, x):
     return 1.0 / (1.0 - w * x * (r0 + 0.5 * (1.0 - 2.0 * r0 * x) * ln_term))
 
 
-def _hapke_roughness(theta, mu_i, mu_o, cos_phi, sin_phi):
+def _hapke_roughness(theta, mu_i, mu_o, cos_phi, sin_phi, sin_i):
     """Hapke (1984) macroscopic roughness: effective cosines and the
     shadowing factor ``(mu0_e, mu_e, S)``."""
     theta = torch.clamp(theta, min=1e-4)
@@ -105,7 +119,6 @@ def _hapke_roughness(theta, mu_i, mu_o, cos_phi, sin_phi):
     cot_t = 1.0 / tan_t
     chi = 1.0 / torch.sqrt(1.0 + math.pi * tan_t * tan_t)
 
-    sin_i = torch.sqrt(torch.clamp(1.0 - mu_i * mu_i, min=1e-12))
     sin_o = torch.sqrt(torch.clamp(1.0 - mu_o * mu_o, min=1e-12))
     tan_i = sin_i / mu_i
     tan_o = sin_o / mu_o
@@ -175,14 +188,16 @@ def hapke_eval(params, wi, wo):
     half_tan_g = torch.sqrt(torch.clamp((1.0 - cos_g) / (1.0 + cos_g), min=0.0))
 
     # azimuth difference of the horizontal projections
-    sin_i = torch.sqrt(torch.clamp(1.0 - mu_i * mu_i, min=1e-12))
+    exact = _mixed(wi, wo)
+    root = sqrt_rn if exact else torch.sqrt
+    sin_i = root(torch.clamp(_one_minus_sq(mu_i, exact), min=1e-12))
     sin_o = torch.sqrt(torch.clamp(1.0 - mu_o * mu_o, min=1e-12))
     cos_phi = torch.clamp((cos_g - mu_i * mu_o) / (sin_i * sin_o), -1.0, 1.0)
     sin_phi = torch.sqrt(torch.clamp(1.0 - cos_phi * cos_phi, min=0.0))
 
     P = _hapke_phase(b, c, cos_g)
     B_sh = torch.where(h > 0, B_0 / (1.0 + half_tan_g / torch.clamp(h, min=1e-9)), 0.0)
-    mu0e, mue, S = _hapke_roughness(theta, mu_i, mu_o, cos_phi, sin_phi)
+    mu0e, mue, S = _hapke_roughness(theta, mu_i, mu_o, cos_phi, sin_phi, sin_i)
     H_i = _hapke_H(w, mu0e)
     H_o = _hapke_H(w, mue)
 
@@ -227,19 +242,35 @@ def _check_kind(kind):
         )
 
 
+def _strong(params):
+    """Per-row scalars as 1-element tensors: torch lets a 0-d float64
+    tensor take a float32 operand's dtype (the sampled direction's), where
+    JAX promotes the operand to float64; a 1-element tensor promotes as JAX
+    does, and broadcasts the same."""
+    return {
+        k: v.reshape(1) if isinstance(v, torch.Tensor) and v.ndim == 0 else v
+        for k, v in params.items()
+    }
+
+
 def bsdf_eval(kind, params, wi, wo):
     """BRDF value f(wi, wo) [1/sr]."""
     _check_kind(kind)
     if kind == "black":
         return torch.zeros_like(wi[..., 0])
-    return _EVAL[kind](params, wi, wo)
+    return _EVAL[kind](_strong(params), wi, wo)
 
 
 def bsdf_sample_from_uniforms(kind, params, wo, u):
     """Cosine-hemisphere continuation from uniforms ``u`` [B, 2]; returns
-    ``(w_new, weight)`` with weight = f cos / pdf = f pi."""
+    ``(w_new, weight)`` with weight = f cos / pdf = f pi. Float32 uniforms in
+    float64 path state (``wo``) give a float32 direction rounded as the
+    jitted reference's (:func:`.fastmath.cosine_hemisphere_xla`)."""
     _check_kind(kind)
-    w_new = square_to_cosine_hemisphere(u)
+    if wo.dtype == torch.float64 and u.dtype == torch.float32:
+        w_new = cosine_hemisphere_xla(u)
+    else:
+        w_new = square_to_cosine_hemisphere(u)
     if kind == "black":
         return w_new, torch.zeros_like(wo[..., 0])
     return w_new, bsdf_eval(kind, params, w_new, wo) * math.pi

@@ -42,8 +42,9 @@ def clamp_mu(mu):
 
 
 def searchsorted_leq(table, x):
-    """Index i of the last table[i] <= x, clipped to [0, len(table) - 2]."""
-    idx = torch.searchsorted(table, x.contiguous(), right=True) - 1
+    """Index i of the last table[i] <= x, clipped to [0, len(table) - 2]
+    (``x`` taken in the table's dtype, as JAX promotes it)."""
+    idx = torch.searchsorted(table, x.to(table.dtype).contiguous(), right=True) - 1
     return torch.clamp(idx, 0, table.shape[0] - 2)
 
 

@@ -27,7 +27,7 @@ import math
 import numpy as np
 import torch
 
-from .fastmath import cos_sin_2pi
+from .fastmath import cbrt_xla, cos_sin_2pi, sin_from_cos_xla
 from .medium import fetch_pairs_at, interp_fetch
 from .mueller import depolarizer, matrix4, rayleigh_mueller
 from .spherical import fma
@@ -91,10 +91,16 @@ def ortho_frame(d):
 
 def direction_from_cos_u(d_in, cos_theta, u_phi):
     """Scattered directions at (cos_theta, phi = 2*pi*u_phi) around
-    ``d_in`` [B, 3]."""
+    ``d_in`` [B, 3]. In float64 path state the float32 steps on a float32
+    ``cos_theta`` and on ``u_phi`` round as the jitted reference's do
+    (:mod:`.fastmath`)."""
     t1, t2 = ortho_frame(d_in)
-    sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, 0.0, 1.0))
-    cp, sp = cos_sin_2pi(u_phi)
+    exact = d_in.dtype == torch.float64
+    if exact and cos_theta.dtype == torch.float32:
+        sin_theta = sin_from_cos_xla(cos_theta)
+    else:
+        sin_theta = torch.sqrt(torch.clamp(1.0 - cos_theta * cos_theta, 0.0, 1.0))
+    cp, sp = cos_sin_2pi(u_phi, fused=exact)
     return (
         t1 * (sin_theta * cp)[..., None]
         + t2 * (sin_theta * sp)[..., None]
@@ -122,11 +128,22 @@ def _cbrt(t):
 
 def rayleigh_sample_cos(depol, u):
     """Exact inverse-CDF sample of cos_theta from a + b cos^2: a uniform
-    component of mass 2a and a cubic one of mass 2b/3."""
+    component of mass 2a and a cubic one of mass 2b/3. The cube root of
+    the float32 ``2u - 1`` is XLA's (:func:`.fastmath.cbrt_xla`) where
+    ``depol`` is float64 path state."""
     a, b = _rayleigh_ab(depol)
     w_uniform = (2.0 * a) / (2.0 * a + 2.0 * b / 3.0)
     t = 2.0 * u[..., 1] - 1.0
-    return torch.where(u[..., 0] < w_uniform, t, _cbrt(t))
+    exact = depol.dtype == torch.float64 and t.dtype == torch.float32
+    cbrt = cbrt_xla if exact else _cbrt
+    return torch.where(u[..., 0] < w_uniform, t, cbrt(t))
+
+
+def _strong(x):
+    """A 0-d tensor as a 1-element one. torch lets a 0-d float64 tensor take
+    a float32 operand's dtype, where JAX promotes the operand to float64;
+    a 1-element tensor promotes as JAX does, and broadcasts the same."""
+    return x.reshape(1) if isinstance(x, torch.Tensor) and x.ndim == 0 else x
 
 
 def hg_eval(g, cos_theta):
@@ -138,6 +155,7 @@ def hg_eval(g, cos_theta):
 def hg_sample_cos(g, u):
     """Exact inverse-CDF sample of cos_theta; isotropic below |g| = 1e-4."""
     u1 = u[..., 0]
+    g = _strong(g)
     small = torch.abs(g) < 1e-4
     g_safe = torch.where(small, 1e-4, g)
     sqr = (1.0 - g * g) / (1.0 - g_safe + 2.0 * g_safe * u1)
@@ -268,14 +286,16 @@ def interp(x, xp, fp):
     the bracket ``i`` from ``searchsorted(side="right")`` clipped to [1, M -
     1], ``fp[i - 1] + (delta / dx) * df`` rounded once (XLA:CPU contracts it
     into a fused multiply-add), ``fp[i - 1]`` where ``|dx|`` is below
-    ``np.spacing(eps)``, and ``fp`` at either end outside ``xp``. ``fp`` is
+    ``np.spacing(eps)`` of ``xp``'s dtype, and ``fp`` at either end outside ``xp``. ``fp`` is
     a sequence of tables [M] on the grid ``xp`` [M]; returns one [B]
     tensor for each."""
     M = xp.shape[-1]
+    x = x.to(xp.dtype)
     i = torch.clamp(torch.searchsorted(xp, x.contiguous(), right=True), 1, M - 1)
     x0 = xp[i - 1]
     dx = xp[i] - x0
-    dx0 = torch.abs(dx) <= float(np.spacing(np.finfo(np.float32).eps))
+    eps = np.finfo(np.float64 if xp.dtype == torch.float64 else np.float32).eps
+    dx0 = torch.abs(dx) <= float(np.spacing(eps))
     q = (x - x0) / torch.where(dx0, 1.0, dx)
     below, above = x < xp[0], x > xp[-1]
     out = []

@@ -33,6 +33,7 @@ __all__ = [
     "SceneConfig",
     "from_reference",
     "canopy_from_reference",
+    "scene_dtype",
     "SURFACE_PARAMS",
     "PHASE_PARAMS",
 ]
@@ -147,14 +148,24 @@ class SceneConfig:
     rng: str = "pcg4d"
 
 
-def _tensor(x, device):
-    """One leaf to the device: floating data as float32, strings kept."""
+def _tensor(x, device, dtype=np.float32):
+    """One leaf to the device: floating data as ``dtype``, strings kept."""
     if x is None or isinstance(x, str):
         return x
     a = np.asarray(x)
     if a.dtype.kind == "f":
-        a = a.astype(np.float32, copy=False)
+        a = a.astype(dtype, copy=False)
     return torch.tensor(a, device=device)
+
+
+def scene_dtype(medium):
+    """The numpy dtype a compiled scene runs in: float64 when its
+    optical-depth leaf (``tau_levels``, or ``radii`` for shells) is float64,
+    as a double mode compiles it, else float32."""
+    leaf = getattr(medium, "tau_levels", None)
+    if leaf is None:
+        leaf = medium.radii
+    return np.float64 if np.asarray(leaf).dtype == np.float64 else np.float32
 
 
 def _require(what, names, params):
@@ -169,7 +180,8 @@ def from_reference(scene, sensor, config, device):
     ``scene``/``sensor``/``config`` may be the JAX package's
     ``SceneArrays``/``SensorArrays``/``SceneConfig`` or the port's own; only
     field names are read, and every leaf goes through ``np.asarray``.
-    Floating leaves become float32 (the port runs single precision only).
+    Floating leaves take the scene's dtype (:func:`scene_dtype`): float64
+    for a scene compiled in a double mode, float32 otherwise.
     Phase and surface parameters travel as they are, every row of every
     kind (the tabulated phase function's tables, RPV's and the polarized
     surfaces' rows); a kind of :data:`PHASE_PARAMS` or
@@ -178,51 +190,56 @@ def from_reference(scene, sensor, config, device):
     a :class:`SphericalMediumArrays`.
     """
     med = scene.medium
+    dt = scene_dtype(med)
+
+    def tensor(x):
+        return _tensor(x, device, dt)
+
     for kind, params in zip(config.phase_kinds, med.phase_params):
         _require(f"phase kind {kind!r}", PHASE_PARAMS.get(kind, ()), params)
     _require(f"surface kind {config.surface_kind!r}",
              SURFACE_PARAMS.get(config.surface_kind, ()), scene.surface.params)
     common = dict(
-        albedo=_tensor(med.albedo, device),
-        phase_weights=_tensor(med.phase_weights, device),
+        albedo=tensor(med.albedo),
+        phase_weights=tensor(med.phase_weights),
         phase_params=tuple(
-            {k: _tensor(v, device) for k, v in p.items()} for p in med.phase_params
+            {k: tensor(v) for k, v in p.items()} for p in med.phase_params
         ),
     )
     if config.geometry == "spherical_shell":
         warp = med.sun_mu_warp
         medium = SphericalMediumArrays(
-            radii=_tensor(med.radii, device),
-            sigma_t=_tensor(med.sigma_t, device),
-            sigma_majorant=_tensor(med.sigma_majorant, device),
-            sun_tau=_tensor(med.sun_tau, device),
-            mu_grid=_tensor(med.mu_grid, device),
-            sun_r_grid=_tensor(med.sun_r_grid, device),
+            radii=tensor(med.radii),
+            sigma_t=tensor(med.sigma_t),
+            sigma_majorant=tensor(med.sigma_majorant),
+            sun_tau=tensor(med.sun_tau),
+            mu_grid=tensor(med.mu_grid),
+            sun_r_grid=tensor(med.sun_r_grid),
             sun_mu_warp=None if warp is None else tuple(float(x) for x in warp),
             **common,
         )
     else:
         medium = MediumArrays(
-            z_levels=_tensor(med.z_levels, device),
-            tau_levels=_tensor(med.tau_levels, device),
+            z_levels=tensor(med.z_levels),
+            tau_levels=tensor(med.tau_levels),
             **common,
         )
     surface = SurfaceArrays(
-        params={k: _tensor(v, device) for k, v in scene.surface.params.items()}
+        params={k: tensor(v) for k, v in scene.surface.params.items()}
     )
     il = scene.illumination
     illumination = IlluminationArrays(
-        direction=_tensor(il.direction, device),
-        irradiance=_tensor(il.irradiance, device),
-        cos_cutoff=_tensor(il.cos_cutoff, device),
-        sky_radiance=_tensor(il.sky_radiance, device),
-        position=_tensor(il.position, device),
+        direction=tensor(il.direction),
+        irradiance=tensor(il.irradiance),
+        cos_cutoff=tensor(il.cos_cutoff),
+        sky_radiance=tensor(il.sky_radiance),
+        position=tensor(il.position),
     )
     sensor_t = SensorArrays(
-        directions=_tensor(sensor.directions, device),
-        target=_tensor(sensor.target, device),
-        ray_offset=_tensor(sensor.ray_offset, device),
-        target_extent=_tensor(sensor.target_extent, device),
+        directions=tensor(sensor.directions),
+        target=tensor(sensor.target),
+        ray_offset=tensor(sensor.ray_offset),
+        target_extent=tensor(sensor.target_extent),
     )
     config_t = SceneConfig(
         **{f.name: getattr(config, f.name) for f in dataclasses.fields(SceneConfig)}

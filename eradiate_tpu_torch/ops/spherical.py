@@ -25,8 +25,15 @@ every rounding the kernels reproduce:
   float32 at each level for the prefix, once at the end for the slant).
 
 The reference builds its prefix with a hi/lo-bf16 triangular matmul
-(~2^-17 relative); a lane's collide bit and layer differ from it only where
-its query lies within that error of a level.
+(~2^-17 relative); in float32 a lane's collide bit and layer differ from it
+only where its query lies within that error of a level.
+
+Float64 tensors (the double modes) take the same steps in float64: the
+reference's XLA forms under x64 run on them, so there is no float32
+rounding to reproduce. Its prefix is the hi/lo-bf16 matmul all the same,
+and the float64 twin forms it as the reference does (:func:`bf16_split`);
+``fma`` is then ``a * b + c`` rounded twice, where XLA:CPU forms a float64
+fused multiply-add (an ulp apart at most).
 
 The sun-tau table (:func:`sun_tau_table_grid`) is built on the host at scene
 compile time; the tracer fetches it per event with
@@ -38,10 +45,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .fastmath import fma32, sqrt_rn
+
 __all__ = [
     "TAU_BLOCKED",
     "sqrt_rn",
     "fma",
+    "bf16_split",
     "dot3",
     "cross_norm2",
     "ray_sphere_intersect",
@@ -58,19 +68,14 @@ __all__ = [
 TAU_BLOCKED = 1e10
 
 
-def sqrt_rn(x):
-    """Correctly rounded float32 square root on every device, as XLA's and
-    CUDA's ``sqrtf`` are. torch's vectorised CPU square root is off by one
-    ulp for about 0.7% of float32 inputs; the float64 root rounded to
-    float32 is correctly rounded (double rounding is innocuous for a square
-    root); float64 input keeps its own root."""
-    return torch.sqrt(x.double()).to(x.dtype)
-
-
 def fma(a, b, c):
     """``a * b + c`` rounded once to float32, as a fused multiply-add does
-    (evaluated in float64, where the product is exact)."""
-    return (a.double() * b.double() + c.double()).float()
+    (evaluated in float64, where the product is exact). Float64 operands
+    take ``a * b + c`` as it stands: torch has no fused multiply-add, and
+    XLA's differs from it by an ulp at most."""
+    if torch.float64 in (a.dtype, b.dtype, c.dtype):
+        return a * b + c
+    return fma32(a, b, c)
 
 
 def dot3(a, b):
@@ -147,17 +152,42 @@ def _shell_paths(b2, b, r, lo, hi, descending):
 
 def _sum_levels(x):
     """Sum of ``x`` [L, B] over the levels in level order, in float64,
-    rounded once to float32."""
+    rounded once to ``x``'s dtype."""
     acc = torch.zeros(x.shape[1:], dtype=torch.float64, device=x.device)
     for row in x:
         acc = acc + row.double()
-    return acc.float()
+    return acc.to(x.dtype)
+
+
+def bf16_split(c):
+    """``(hi, lo)`` of float64 ``c``: ``hi`` rounded to bfloat16, ``lo`` the
+    remainder rounded to bfloat16, both as float64; each rounds through
+    float32 first, as XLA converts float64 to bfloat16."""
+    hi = c.to(torch.bfloat16).double()
+    return hi, (c - hi).to(torch.bfloat16).double()
 
 
 def _prefix_levels(c):
     """Exclusive prefix ``G[k] = sum_{j<k} c[j]`` of ``c`` [L, B] over the
-    levels: accumulated in float64 in level order and rounded to float32 at
-    each level. Returns ``G`` [L+1, B] with ``G[0] = 0``."""
+    levels; returns ``G`` [L+1, B] with ``G[0] = 0``.
+
+    Float32: accumulated in float64 in level order and rounded to float32 at
+    each level. Float64 (the double modes): the reference's own prefix under
+    x64, a triangular matrix product of the bfloat16 halves of ``c``
+    (:func:`bf16_split`, ~2^-17 of ``c``) with float64 sums, which is the
+    two running float64 sums of the halves added at each level. Those sums
+    are exact (8-bit terms within 2^45 of each other), so the order of
+    either sum does not change them."""
+    if c.dtype == torch.float64:
+        hi_sum = torch.zeros(c.shape[1:], dtype=torch.float64, device=c.device)
+        lo_sum = torch.zeros_like(hi_sum)
+        rows = [hi_sum + lo_sum]
+        for row in c:
+            hi, lo = bf16_split(row)
+            hi_sum = hi_sum + hi
+            lo_sum = lo_sum + lo
+            rows.append(hi_sum + lo_sum)
+        return torch.stack(rows)
     acc = torch.zeros(c.shape[1:], dtype=torch.float64, device=c.device)
     rows = [acc.float()]
     for row in c:

@@ -27,6 +27,7 @@ from ..core import threefry
 from ..core.device import resolve_device
 from ..core.warp import square_to_uniform_cone
 from .bsdf_ops import SUPPORTED_BSDFS, bsdf_eval, bsdf_sample_from_uniforms
+from .fastmath import depth_sample, uniform_cone_xla
 from .fastrng import bounce_uniforms, derive_keys, origin_uniforms
 from .medium import clamp_mu, collision_fetch, tau_at_z
 from .phase_ops import (
@@ -77,6 +78,10 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
     L_sky = illum_row.sky_radiance
     cos_cutoff = illum_row.cos_cutoff
     t1_sun, t2_sun = ortho_frame(w_sun)
+    # float64 path state: the float32 steps on the uniforms round as the
+    # jitted reference's (ops/fastmath)
+    exact = tau_levels.dtype == torch.float64
+    cone = uniform_cone_xla if exact else square_to_uniform_cone
 
     C = len(config.phase_kinds)
     phase_params = medium_row.phase_params
@@ -98,7 +103,7 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
         u_rr = U[:, 9]
 
         # cone-sampled directions toward the (possibly finite) sun
-        local = square_to_uniform_cone(u_sun, cos_cutoff)
+        local = cone(u_sun, cos_cutoff)
         w_nee = (
             t1_sun[None, :] * local[:, 0:1]
             + t2_sun[None, :] * local[:, 1:2]
@@ -108,7 +113,7 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
 
         mu = clamp_mu(d[:, 2])
         tau_exit = torch.where(mu > 0.0, (tau_top - tau_here) / mu, tau_here / (-mu))
-        tau_s = -torch.log1p(-u_dist)
+        tau_s = depth_sample(u_dist, exact)
         collide = tau_s < tau_exit
 
         # ---- volume collision ------------------------------------------

@@ -34,6 +34,7 @@ import torch
 from ..core.device import resolve_device
 from .bsdf_ops import POLARIZED_SURFACES, SUPPORTED_BSDFS, bsdf_sample_from_uniforms
 from .bsdf_polarized import surface_mueller
+from .fastmath import depth_sample
 from .fastrng import bounce_uniforms, derive_keys
 from .medium import clamp_mu, collision_fetch, tau_at_z
 from .mueller import (
@@ -195,7 +196,7 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
         mu = clamp_mu(d[:, 2])
         tau_here = tau_z(z)
         tau_exit = torch.where(mu > 0.0, (tau_top - tau_here) / mu, tau_here / (-mu))
-        tau_s = -torch.log1p(-u_dist)
+        tau_s = depth_sample(u_dist, exact=tau_levels.dtype == torch.float64)
         collide = tau_s < tau_exit
 
         # ---- volume collision (K1: z, layer and the layer's tables) ------

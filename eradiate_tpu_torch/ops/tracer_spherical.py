@@ -38,6 +38,7 @@ import torch
 from ..core.device import resolve_device
 from ..kernels.shell_flight import shell_event, shell_flight, slant_tau
 from .bsdf_ops import POLARIZED_SURFACES, SUPPORTED_BSDFS, bsdf_eval, bsdf_sample_from_uniforms
+from .fastmath import depth_sample
 from .fastrng import bounce_uniforms, derive_keys
 from .medium import fetch_at_index
 from .phase_ops import (
@@ -141,7 +142,9 @@ def sun_flight(config, medium_row, w_sun, p, d, u_dist):
     t_ground, t_exit = flight_bounds(p, d, radii)
     t_max = torch.minimum(t_ground, t_exit)
 
-    tau_s = -torch.log1p(-u_dist)
+    # float32 uniforms: the depth is float32, taken exactly into the path
+    # state's dtype, as the reference promotes it
+    tau_s = depth_sample(u_dist, exact=radii.dtype == torch.float64).to(radii.dtype)
     if config.lr_flight:
         # primal of the likelihood-ratio flight: the plain flight, then the
         # slant depth from the event point, formed with one fused

@@ -265,8 +265,9 @@ def render_spherical_polarized(
     S, n_pix = scene.medium.sigma_t.shape[0], sensor.directions.shape[0]
     chunks = chunk_plan(spp, spp_chunk, S, n_pix, MAX_PATHS_PER_DISPATCH)
 
-    st_sum = torch.zeros((S, n_pix, 4), dtype=torch.float32, device=dev)
-    m2_sum = torch.zeros((S, n_pix), dtype=torch.float32, device=dev)
+    acc = scene.medium.sigma_t.dtype  # the mode's accumulator dtype
+    st_sum = torch.zeros((S, n_pix, 4), dtype=acc, device=dev)
+    m2_sum = torch.zeros((S, n_pix), dtype=acc, device=dev)
     iterations = 0
     for chunk_id, n in enumerate(chunks):
         lanes = spherical_lanes_target(n_pix, n, dev.type) if lanes_target is None else lanes_target

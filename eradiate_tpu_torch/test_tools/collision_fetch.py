@@ -72,12 +72,12 @@ def upper_bound_fixed(levels, q, trips=None):
     return node - 2**T
 
 
-def column_operands(layer_merge_tol=1e-3):
+def column_operands(layer_merge_tol=1e-3, dtype=np.float32):
     """The c1 column's collision-fetch operands at 550 nm (albedo, phase
     weight, depolarisation: K = 3; :func:`experiment_operands`).
     ``layer_merge_tol=None`` keeps the 1200 layers of 0.1 km; c1's 1e-3
     merges them into 46. It compiles the scene under the mode that is set
-    (c1's is ``mono_single``)."""
+    (c1's is ``mono_single``, or ``mono_double`` for ``dtype`` float64)."""
     from ..experiments import AtmosphereExperiment
 
     return experiment_operands(AtmosphereExperiment(
@@ -87,15 +87,16 @@ def column_operands(layer_merge_tol=1e-3):
         surface={"type": "lambertian", "reflectance": 0.5},
         atmosphere={"type": "molecular"},
         geometry={"type": "plane_parallel", "layer_merge_tol": layer_merge_tol},
-    ))
+    ), dtype=dtype)
 
 
-def experiment_operands(exp, row=0):
+def experiment_operands(exp, row=0, dtype=np.float32):
     """The collision-fetch operands of a plane-parallel experiment's first
     measure, spectral row ``row``, as the tracer holds them: ``(z_levels
-    [L+1], tau_levels [L+1], tables [K, L])`` float32, the tables the albedo,
-    each phase component's weight and the layer-indexed phase parameters
-    (c2: K = 4). It compiles the scene under the mode that is set."""
+    [L+1], tau_levels [L+1], tables [K, L])`` of ``dtype``, the tables the
+    albedo, each phase component's weight and the layer-indexed phase
+    parameters (c2: K = 4). It compiles the scene under the mode that is
+    set."""
     from ..ops.phase_ops import layer_param_slots
 
     m = exp.measures[0]
@@ -104,30 +105,33 @@ def experiment_operands(exp, row=0):
     params = tuple({k: v[row] for k, v in p.items()} for p in med.phase_params)
     extra, _ = layer_param_slots(config.phase_kinds, params)
     tables = np.stack([med.albedo[row], *med.phase_weights[row], *extra])
-    return tuple(np.ascontiguousarray(a, np.float32)
+    return tuple(np.ascontiguousarray(a, dtype)
                  for a in (med.z_levels, med.tau_levels[row], tables))
 
 
-def flat_run_operands(K=3, seed=3):
+def flat_run_operands(K=3, seed=3, dtype=np.float32):
     """Seven layers whose extinction is 0 in three of them (levels 1, 2 and 3
     equal, and levels 5 and 6), with ``K`` seeded table rows."""
     tau = np.concatenate([[0.0], np.cumsum([0.1, 0, 0, 0.3, 0.2, 0, 0.5])])
     tables = np.random.default_rng(seed).uniform(size=(K, 7))
-    return tuple(np.ascontiguousarray(a, np.float32) for a in (np.arange(8.0), tau, tables))
+    return tuple(np.ascontiguousarray(a, dtype) for a in (np.arange(8.0), tau, tables))
 
 
 def stress_queries(tau, n, seed):
-    """``n`` float32 queries: uniform in ``[0, tau_top]``, with NaN, +-inf,
-    -0.0, +0.0, a negative value, values past the top, every level and its
-    neighbours one ulp either side written over the head (as many as fit)."""
-    tau = np.asarray(tau, np.float32)
-    q = np.random.default_rng(seed).uniform(0.0, tau[-1], n).astype(np.float32)
+    """``n`` queries of ``tau``'s dtype (float32 or float64): uniform in
+    ``[0, tau_top]``, with NaN, +-inf, -0.0, +0.0, a negative value, values
+    past the top, every level and its neighbours one ulp either side written
+    over the head (as many as fit)."""
+    tau = np.asarray(tau)
+    dt = np.float64 if tau.dtype == np.float64 else np.float32
+    tau = tau.astype(dt)
+    q = np.random.default_rng(seed).uniform(0.0, tau[-1], n).astype(dt)
     edges = np.concatenate([
-        [np.nan, np.inf, -np.inf, -0.0, 0.0, -1.0, 1.5 * tau[-1], np.float32(3.4e38)],
+        [np.nan, np.inf, -np.inf, -0.0, 0.0, -1.0, 1.5 * tau[-1], 3.4e38 if dt is np.float32 else 1.7e308],
         tau,
-        np.nextafter(tau, np.float32(np.inf)),
-        np.nextafter(tau, np.float32(-np.inf)),
-    ]).astype(np.float32)
+        np.nextafter(tau, dt(np.inf)),
+        np.nextafter(tau, dt(-np.inf)),
+    ]).astype(dt)
     k = min(n, edges.size)
     q[:k] = edges[:k]
     return q

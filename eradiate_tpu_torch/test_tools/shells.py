@@ -31,7 +31,8 @@ whatever the stride, and returns a trace of what each lane did, from which
 :func:`flight_levels` (the levels any implementation has to read) and
 :func:`parent_visits` (what the two sweeps before it visited) are read.
 :func:`flight_columns` and :func:`flight_stress_inputs` make the flight's
-stresses.
+stresses. :func:`planet_inputs` makes float64 lanes on a planet of 1e6 km,
+for the float64 builds: there float32 cannot tell 0.1 km shells apart.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ __all__ = [
     "warp_max",
     "flight_columns",
     "flight_stress_inputs",
+    "planet_inputs",
 ]
 
 #: Lanes that loop in step on the card.
@@ -627,3 +629,31 @@ def flight_stress_inputs(rng, radii, sigma, n, device="cpu"):
             pick == 1, torch.nextafter(tm, torch.full_like(tm, torch.inf)),
             torch.nextafter(tm, torch.full_like(tm, -torch.inf))))
     return p.contiguous(), d.contiguous(), t_max.contiguous(), tau_s.contiguous()
+
+
+def planet_inputs(rng, n, radius=1e6, device="cpu"):
+    """Float64 lanes ``(p, d, t_max, tau_s)`` and the column ``(radii,
+    sigma)`` of 1200 shells of 0.1 km (an exponential profile with a run of
+    vacuum shells) on a planet of ``radius`` km, where float32 resolves no
+    shell (its ulp there is 0.06 km): points spread through the shells,
+    steep, grazing and isotropic directions, ``t_max`` the tracer's flight
+    cap, ``tau_s`` exponential. Returns ``(p, d, t_max, tau_s, radii,
+    sigma)`` on ``device``."""
+    from ..ops.tracer_spherical import flight_bounds
+
+    radii = radius + 0.1 * np.arange(1201, dtype=np.float64)
+    sigma = np.exp(-(radii[:-1] - radius) / 8.0) * 1e-2
+    sigma[400:420] = 0.0
+    r = rng.uniform(radii[0] + 1e-3, radii[-1] - 1e-3, n)
+    up = _unit(rng.normal(size=(n, 3)))
+    iso = _unit(rng.normal(size=(n, 3)))
+    tangent = _unit(np.cross(up, iso))
+    kind = np.arange(n) % 3
+    d = np.where((kind == 0)[:, None], -up + 0.05 * iso,
+                 np.where((kind == 1)[:, None], tangent + 1e-4 * iso, iso))
+    p = torch.tensor(up * r[:, None], device=device)
+    d = torch.tensor(_unit(d), device=device)
+    radii_t, sigma_t = (torch.tensor(a, device=device) for a in (radii, sigma))
+    t_ground, t_exit = flight_bounds(p, d, radii_t)
+    tau_s = torch.tensor(rng.exponential(size=n), device=device)
+    return p, d, torch.minimum(t_ground, t_exit), tau_s, radii_t, sigma_t

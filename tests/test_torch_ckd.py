@@ -4,8 +4,9 @@ c3 (``bench.py`` ``_c3``: a synthetic CKD absorption database, the
 Sentinel-2A MSI band 4 response, a Lambertian floor of 0.2, at most 8
 g-points a bin) renders 56 spectral rows, one for each (bin, g-point) pair,
 and aggregates them by bin. ``bench.py`` names ``ckd``, the double mode; the
-port renders ``ckd_single`` and ``ckd_polarized_single`` and refuses the
-double CKD modes. Held here: the spectral context and the compiled leaves
+port renders ``ckd_single`` and ``ckd_polarized_single`` here, and the
+double CKD modes in ``test_torch_double.py``; a canopy in a double CKD mode
+raises. Held here: the spectral context and the compiled leaves
 bit for bit (each g-point its own extinction), the post-processing on the
 same raw arrays bit for bit, every raw row and the aggregated BRF within
 1e-5 relative at the same seed (in ``ckd_polarized_single`` every raw row's
@@ -200,9 +201,19 @@ def test_ckd_polarized_single_matches_reference():
 
 @pytest.mark.parametrize("mode_id", ["ckd_double", "ckd_polarized_double"])
 def test_other_ckd_modes_raise(mode_id):
+    """The double CKD modes render c3 (``test_torch_double.py``); a canopy
+    over the same CKD atmosphere, not ported to them, raises naming the
+    mode."""
+    from eradiate_tpu_torch import CanopyAtmosphereExperiment
+    from eradiate_tpu_torch.test_tools.test_cases import create_het01_brfpp
+
     eradiate_tpu_torch.set_mode(mode_id)
     try:
-        exp = _pair()[1]
+        kw = c3_kwargs(make_synthetic_ckd_db(base_sigma=2e-3, ng=8), n_vza=1)
+        exp = CanopyAtmosphereExperiment(
+            canopy=create_het01_brfpp(n_vza=1, n_leaves=20).canopy,
+            **{k: kw[k] for k in ("measures", "atmosphere", "ckd_quad_config")},
+        )
         with pytest.raises(NotImplementedError, match=mode_id):
             eradiate_tpu_torch.run(exp, spp=8, device="cpu")
     finally:

@@ -9,8 +9,15 @@ and ``tests/test_torch_cuda_kernels.py`` compare it with the twin bit for
 bit. Its search, a fixed number of branch-free trips down the levels staged
 as a breadth-first tree, is emulated by ``test_tools.collision_fetch`` and
 held here to ``torch.searchsorted(right=True)``, on NaN and +-inf too.
+
+The float64 twin (what the double modes' float64 build equals on the card)
+is held against ``medium.collision_fetch`` under x64 on float64 queries:
+NaN, +-inf, -0.0, every level and one ulp either side, random ones. The
+layer and the fetched values exactly, z to the last bit but where XLA
+flushes a subnormal. The wrapper refuses float16 and mixed dtypes.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -265,3 +272,42 @@ def test_twin_matches_medium_collision_fetch_on_special_queries(case):
     np.testing.assert_array_equal(np.isnan(z.numpy()), np.isnan(q))
     np.testing.assert_array_equal(np.isnan(np.asarray(z_ref)), np.isnan(q))
     np.testing.assert_allclose(z.numpy()[1:], np.asarray(z_ref)[1:], rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(TABLES))
+def test_float64_twin_matches_medium_collision_fetch_under_x64(name):
+    levels, tau, tables = (np.ascontiguousarray(a, np.float64) for a in TABLES[name]())
+    q = fetch_tools.stress_queries(tau, 5000, seed=len(tau))
+    assert q.dtype == np.float64 and np.isnan(q[0]) and (q == -0.0).any()
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        z_ref, idx_ref, fetched_ref = (np.asarray(x) if not isinstance(x, list) else x
+                                       for x in ref_collision_fetch(
+            jnp.asarray(q), jnp.asarray(levels), jnp.asarray(tau),
+            [jnp.asarray(t) for t in tables]))
+        fetched_ref = np.stack([np.asarray(f) for f in fetched_ref])
+    finally:
+        jax.config.update("jax_enable_x64", old)
+    assert z_ref.dtype == fetched_ref.dtype == np.float64
+    z, layer, fetched = _twin(levels, tau, tables, q)
+    assert z.dtype == fetched.dtype == torch.float64 and layer.dtype == torch.int32
+    np.testing.assert_array_equal(layer.numpy(), idx_ref)
+    assert int(layer[0]) == tables.shape[1] - 1  # NaN: past every level
+    np.testing.assert_array_equal(fetched.numpy(), fetched_ref)
+    same = (z.numpy() == z_ref) | (np.isnan(z.numpy()) & np.isnan(z_ref))
+    # XLA:CPU flushes subnormals to zero (the query one ulp above tau = 0)
+    flushed = ~same & (np.abs(z.numpy()) < np.finfo(np.float64).tiny) & (z_ref == 0.0)
+    assert (same | flushed).all(), np.nonzero(~(same | flushed))
+
+
+@pytest.mark.parametrize("case_", ["float16", "mixed"])
+def test_wrapper_rejects_float16_and_mixed_dtypes(case_):
+    cf._check(*[a.double() for a in _args()])  # all float64 passes
+    args = _args()
+    if case_ == "float16":
+        args = [a.half() for a in args]
+    else:
+        args[3] = args[3].double()
+    with pytest.raises(TypeError):
+        cf._check(*args)

@@ -55,6 +55,16 @@ checkpoint strides are 15, 15, 75, 15, 2 and 1, the slant depth at the
 event points equal to the shell event's; the flight loop's square root is
 held against ``sqrtf`` on every float32 of its range, and the wrapper's
 checkpoint stride and shared-memory sizes against the library's.
+
+The float64 builds of the double modes (K1's ``collision_fetch_f64_kernel``,
+K2-K4's ``shell_flight_f64_kernel``, ``shell_event_f64_kernel`` and
+``slant_tau_f64_kernel``) are held the same way on float64 operands: the
+collision fetch on the c1 column compiled in ``mono_double`` (merged and
+not) and on random columns up to L = 12287 (a 128 KiB search tree), with
+float64 NaN, +-inf, -0.0 and every level one ulp either side; the shell
+kernels on the flight's and the slant's stresses taken into float64 and on
+a planet of 1e6 km (1200 shells of 0.1 km, which float32 cannot tell
+apart), K4 at K2's event points equal to K3's tau_sun.
 """
 
 import numpy as np
@@ -89,10 +99,13 @@ def card():
 
 
 def same_bits(got, want):
-    """Every output equal bit pattern for bit pattern (floats as int32)."""
+    """Every output equal bit pattern for bit pattern (floats as integers of
+    their width)."""
     for g, w in zip(got, want):
+        assert g.dtype == w.dtype
         if g.is_floating_point():
-            g, w = g.view(torch.int32), w.view(torch.int32)
+            bits = torch.int64 if g.dtype == torch.float64 else torch.int32
+            g, w = g.view(bits), w.view(bits)
         assert torch.equal(g, w)
 
 
@@ -159,6 +172,53 @@ def test_collision_fetch_kernel_shapes(card, L, K, B):
     column = random_column(L, K, seed=L + K)
     q = torch.tensor(fetch_tools.stress_queries(column[1], B, seed=B), device=card)
     fetch_held(q, column, card)
+
+
+@pytest.fixture(scope="module")
+def fetch_columns_f64():
+    """The c1 column's operands compiled in ``mono_double``, merged and not,
+    and the table with runs of equal levels (numpy, float64)."""
+    import eradiate_tpu_torch as etp
+
+    etp.set_mode("mono_double")
+    try:
+        return {"c1": fetch_tools.column_operands(dtype=np.float64),
+                "1200 layers": fetch_tools.column_operands(None, dtype=np.float64),
+                "flat runs": fetch_tools.flat_run_operands(dtype=np.float64)}
+    finally:
+        etp.set_mode("mono_single")
+
+
+def fetch_held_f64(q, column, card):
+    """The float64 build once on queries ``q``, held against its twin."""
+    args = (q, *(torch.tensor(a, device=card) for a in column))
+    before = cf.launches, cf.launches_f64
+    got = cf.collision_fetch(*args)
+    torch.cuda.synchronize()
+    assert (cf.launches, cf.launches_f64) == (before[0], before[1] + 1)
+    assert got[0].dtype == got[2].dtype == torch.float64
+    same_bits(got, cf.collision_fetch_plain(*args))
+    return got
+
+
+@pytest.mark.parametrize("column", ["c1", "1200 layers", "flat runs"])
+@pytest.mark.parametrize("B", [1_000_000, 1_000_003])
+def test_collision_fetch_f64_kernel_equals_plain_version(card, fetch_columns_f64, column, B):
+    levels = fetch_columns_f64[column]
+    assert levels[1].dtype == np.float64
+    q = torch.tensor(fetch_tools.stress_queries(levels[1], B, seed=B), device=card)
+    _, layer, _ = fetch_held_f64(q, levels, card)
+    L = levels[2].shape[1]
+    assert int(layer[0]) == L - 1  # the NaN query: past every level
+    assert int(layer.min()) == 0 and int(layer.max()) == L - 1
+
+
+@pytest.mark.parametrize("L, K", [(1, 3), (46, 16), (1200, 3), (12287, 1)])
+@pytest.mark.parametrize("B", [3, 200_001])
+def test_collision_fetch_f64_kernel_shapes(card, L, K, B):
+    column = [a.astype(np.float64) for a in random_column(L, K, seed=L + K)]
+    q = torch.tensor(fetch_tools.stress_queries(column[1], B, seed=B), device=card)
+    fetch_held_f64(q, column, card)
 
 
 def rim_problem(B, seed, instanced, far=False, zero_normals=False):
@@ -453,3 +513,51 @@ def test_shell_layout_matches_the_library(card):
     """The wrapper's checkpoint stride and shared-memory sizes (its launch
     checks) equal the library's at every column of 1 to 4096 shells."""
     assert sf.layout_differences(4096) == []
+
+
+def f64_shells_held(card, p, d, t_max, tau_s, radii, sigma, w):
+    """K2, K3 and K4's float64 builds once each, held against their twins
+    bit for bit; K4 at K2's event points equal to K3's tau_sun."""
+    flight = (p, d, t_max, radii, sigma, tau_s)
+    before = dict(sf.launches), dict(sf.launches_f64)
+    got = sf.shell_flight(*flight)
+    event = sf.shell_event(*flight, w)
+    p_event = fma(d, torch.where(got[0], got[1], t_max)[:, None], p).contiguous()
+    slant = sf.slant_tau(p_event, w, radii, sigma)
+    torch.cuda.synchronize()
+    assert sf.launches == before[0]
+    assert sf.launches_f64 == {k: n + 1 for k, n in before[1].items()}
+    same_bits(got, sf.shell_flight_plain(*flight))
+    same_bits(event, sf.shell_event_plain(*flight, w))
+    same_bits([slant], [event[3]])
+    same_bits([slant], [sf.slant_tau_exact(p_event, w, radii, sigma)])
+    return got
+
+
+@pytest.mark.parametrize("column", FLIGHT_COLUMNS)
+def test_shell_f64_kernels_flight_stress(card, column):
+    """The flight's stresses taken exactly into float64."""
+    radii, sigma = shells.flight_columns(np.random.default_rng(8))[column]
+    lanes = shells.flight_stress_inputs(np.random.default_rng(5), radii, sigma, 100_037,
+                                        device=card)
+    radii, sigma, w = (torch.tensor(a, device=card).double() for a in (radii, sigma, SUN_85))
+    f64_shells_held(card, *(x.double() for x in lanes), radii, sigma, w)
+
+
+@pytest.mark.parametrize("column", STRESS_COLUMNS)
+@pytest.mark.parametrize("axis", [True, False])
+def test_shell_f64_kernels_slant_stress(card, column, axis):
+    """The slant's stresses taken into float64, the event given no flight."""
+    p, w, radii, sigma = (x.double() for x in stress_problem(card, column, axis))
+    B = p.shape[0]
+    d = torch.full((B, 3), -(3.0**-0.5), dtype=torch.float64, device=card)
+    zeros = torch.zeros(B, dtype=torch.float64, device=card)
+    f64_shells_held(card, p, d, zeros, zeros + 1.0, radii, sigma, w)
+
+
+def test_shell_f64_kernels_planet_of_1e6_km(card):
+    p, d, t_max, tau_s, radii, sigma = shells.planet_inputs(np.random.default_rng(6), 200_003,
+                                                            device=card)
+    w = torch.tensor(SUN_85, device=card).double()
+    collide, _, layer = f64_shells_held(card, p, d, t_max, tau_s, radii, sigma, w)
+    assert collide.any() and not collide.all() and int(layer.max()) > 1000

@@ -202,10 +202,20 @@ def test_ckd_polarized_single_renders():
 @pytest.mark.parametrize("mode_id", ["mono_double", "mono_polarized_double",
                                      "ckd_polarized_double"])
 def test_unported_modes_raise(mode_id):
+    """The double modes render the atmosphere experiment
+    (``test_torch_double.py``); the canopy, not ported to them, raises
+    naming the mode."""
+    from eradiate_tpu_torch import CanopyAtmosphereExperiment
+    from eradiate_tpu_torch.test_tools.test_cases import create_het01_brfpp
+
     eradiate_tpu_torch.set_mode(mode_id)
     try:
+        exp = CanopyAtmosphereExperiment(
+            canopy=create_het01_brfpp(n_vza=3, n_leaves=20).canopy,
+            measures={"type": "mdistant", "construct": "hplane", "zeniths": [0.0]},
+        )
         with pytest.raises(NotImplementedError, match=mode_id):
-            eradiate_tpu_torch.run(AtmosphereExperiment(**c1_kwargs()), spp=8, device="cpu")
+            eradiate_tpu_torch.run(exp, spp=8, device="cpu")
     finally:
         eradiate_tpu_torch.set_mode("mono")
 

@@ -26,6 +26,16 @@ resumed from the sweep's stop or from the last checkpoint with ``G <= v``
   extinction of the event's shell (the prefix error moves the event by
   that much along the ray).
 
+The float64 twin (what the double modes' float64 builds of K2 and K3 equal
+on the card: its prefix is the reference's bfloat16-halves matrix product,
+summed in float64) is held against ``_shell_flight_xla`` under x64 on the
+stresses taken into float64 and on a planet of 1e6 km
+(``test_tools.shells.planet_inputs``): ``collide`` and ``layer`` equal on
+every lane, ``t_col`` within 1e-8 of the flight cap (at least 1 km): XLA
+fuses the radicands ``r^2 - b^2`` and the dot products into float64
+multiply-adds where the twin rounds twice, which moves a collision by a few
+parts in a billion of the cap at most.
+
 The stresses (``test_tools.shells.flight_stress_inputs``) put ``v`` on a
 level's G inside runs of vacuum shells that span a checkpoint, ``tau_s`` at 0
 and one ulp either side of ``tau_max``, ``t_max = 0``, ``x0 = +-0``, ``b2``
@@ -212,3 +222,53 @@ def test_twin_matches_the_reference_on_the_stresses(column):
     err = (want[1].double() - ref[1].double()).abs()
     tol = 2e-3 + eps / torch.clamp(sigma[want[2].long()].double(), min=1e-30)
     assert (err <= tol)[agree].all(), f"t_col off by {float((err / tol)[agree].max()):.3g} x tol"
+
+
+@pytest.mark.parametrize("name", [*COLUMNS, "planet of 1e6 km"])
+def test_float64_twin_matches_the_reference_under_x64(name):
+    if name in COLUMNS:
+        _, radii, sigma, lanes, _ = _column(name)
+        p, d, t_max, tau_s = (x.double() for x in lanes)
+        radii, sigma = radii.double(), sigma.double()
+    else:
+        p, d, t_max, tau_s, radii, sigma = shells.planet_inputs(np.random.default_rng(6), 3000)
+    want = spherical.shell_flight_plain(p, d, t_max, radii, sigma, tau_s)
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        ref = [torch.from_numpy(np.array(o)) for o in jax.jit(ref_spherical._shell_flight_xla)(
+            *(a.numpy() for a in (p, d, t_max, radii, sigma, tau_s)))]
+    finally:
+        jax.config.update("jax_enable_x64", old)
+    assert want[1].dtype == ref[1].dtype == torch.float64
+    assert torch.equal(want[0], ref[0]) and torch.equal(want[2], ref[2])
+    err = (want[1] - ref[1]).abs() / torch.clamp(t_max, min=1.0)
+    assert float(err.max()) <= 1e-8, float(err.max())
+
+
+@pytest.mark.parametrize("case_", ["float16", "mixed"])
+@pytest.mark.parametrize("kernel", ["shell_flight", "shell_event", "slant_tau"])
+def test_wrappers_reject_float16_and_mixed_dtypes(kernel, case_):
+    """The shell wrappers take all float32 or all float64 (the float64
+    builds, which need no shared memory: no shell cap) and refuse the rest."""
+    from eradiate_tpu_torch.kernels import shell_flight as sf
+
+    def operands(dtype, L=30000):
+        lanes = {"p": torch.zeros(16, 3, dtype=dtype), "d": torch.zeros(16, 3, dtype=dtype),
+                 "t_max": torch.zeros(16, dtype=dtype), "tau_s": torch.zeros(16, dtype=dtype)}
+        if kernel == "slant_tau":
+            lanes = {"p": lanes["p"]}
+        radii = torch.linspace(6378.0, 6398.0, L + 1, dtype=dtype)
+        return lanes, radii, torch.zeros(L, dtype=dtype), torch.zeros(3, dtype=dtype)
+
+    lanes, radii, sigma, w = operands(torch.float64)
+    assert sf._check(kernel, lanes, radii, sigma, None if kernel == "shell_flight" else w) == (
+        16, 30000)
+    with pytest.raises(ValueError):  # the float32 kernels' shared memory
+        sf._check(kernel, *operands(torch.float32)[:3])
+    lanes, radii, sigma, w = operands(torch.float16 if case_ == "float16" else torch.float64,
+                                      L=8)
+    if case_ == "mixed":
+        sigma = sigma.float()
+    with pytest.raises(TypeError):
+        sf._check(kernel, lanes, radii, sigma, None if kernel == "shell_flight" else w)

@@ -23,6 +23,15 @@ the ground (and one ulp either side of it), ``b`` above ``r`` by rounding,
 and toward a sun at 85 degrees. A twin that reuses a root across a one-ulp
 difference of the endpoint is caught. Two shapes reach XLA (232 and 1200
 shells), each compiled once.
+
+In float64 (the double modes; what the float64 build equals on the card)
+the twin is held against ``_slant_tau_exact_xla`` under x64 on the same
+stresses and on a planet of 1e6 km (``test_tools.shells.planet_inputs``):
+the blocked lanes exactly; elsewhere the median lane within 8 ulps and
+every lane within 4e-6 relative (2e-5 on the planet). Near a tangent the
+reference forms the radicand ``r^2 - b^2`` with a float64 fused
+multiply-add where the twin rounds the product first, and the cancellation
+turns that last ulp into a part in a million of the depth.
 """
 
 import jax
@@ -142,3 +151,41 @@ def test_warp_start_is_the_least_first_shell_of_its_looping_lanes():
     start = shells.loop_starts(l0, loops, L=10, warp=2)
     assert start.tolist() == [3, 3, 7, 7, 8, 8]
     assert shells.loop_starts(l0, torch.zeros(6, dtype=torch.bool), 10, 2).tolist() == [10] * 6
+
+
+def _x64_slant(p, w, radii, sigma):
+    old = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        out = jax.jit(ref._slant_tau_exact_xla)(*(a.numpy() for a in (p, w, radii, sigma)))
+        return torch.from_numpy(np.array(out))
+    finally:
+        jax.config.update("jax_enable_x64", old)
+
+
+def _ulps64(a, b):
+    ia, ib = (torch.where(x.view(torch.int64) < 0, -(2**63) - x.view(torch.int64),
+                          x.view(torch.int64)) for x in (a, b))
+    return (ia - ib).abs()
+
+
+def _float64_gate(p, w, radii, sigma, rel_max, median_ulps):
+    want = spherical.slant_tau_exact(p, w, radii, sigma)
+    got = _x64_slant(p, w, radii, sigma)
+    assert want.dtype == got.dtype == torch.float64
+    blocked = want >= 1e9
+    assert torch.equal(blocked, got >= 1e9) and blocked.any() and not blocked.all()
+    assert torch.equal(want[blocked], got[blocked])
+    rel = (want - got).abs() / got.abs().clamp(min=1e-300)
+    assert float(rel.max()) <= rel_max, float(rel.max())
+    assert float(_ulps64(want, got)[~blocked].double().median()) <= median_ulps
+
+
+def test_float64_twin_matches_the_reference_on_the_stresses(case):
+    _float64_gate(*(torch.as_tensor(a).double() for a in case), 4e-6, 8)
+
+
+def test_float64_twin_matches_the_reference_on_a_planet_of_1e6_km():
+    p, _, _, _, radii, sigma = shells.planet_inputs(np.random.default_rng(6), 3000)
+    w = torch.tensor(SUN_85).double()
+    _float64_gate(p, w, radii, sigma, 2e-5, 8)

@@ -114,9 +114,9 @@ __all__ = [{names}]
 
 _MODES_DTYPES = '''    @property
     def device_dtype(self):
-        """Path-state dtype for device code, as a torch dtype. The port runs
-        single precision only; double modes name float64 and are refused by
-        the experiments."""
+        """Path-state dtype for device code, as a torch dtype: float64 in a
+        double mode (on every device, without an x64 switch), float32 in a
+        single one. Random uniforms stay float32 in every mode."""
         import torch
 
         return torch.float64 if self.is_double_precision else torch.float32
