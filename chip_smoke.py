@@ -28,7 +28,7 @@ script writes as an OBJ file into a temporary directory from a seed
 also run with polarized transport, in ``mono_polarized_single`` (``bench.py``
 names ``mono_polarized``, the double-precision mode, whose path state the
 JAX package keeps in float32 unless x64 is on; the port runs its double
-modes in float64, phases 32-37). BASELINE config 2 (``_c2``): an RPV floor
+modes in float64, phases 32-40: c5 in ``mono_polarized`` in phase 39). BASELINE config 2 (``_c2``): an RPV floor
 under the AFGL Rayleigh column with a 0-2 km continental aerosol layer (tau
 0.2 at 550 nm, the packaged Govaerts 2021 dataset, a tabulated phase
 function on 181 nodes), sun at SZA 30, 76 view zeniths at 2097152 spp.
@@ -283,7 +283,34 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
     path B (``lr_flight``) in ``mono_double`` at 8192 spp: K2's and K4's
     float64 builds launched once an event, radiance and iterations bit for
     bit with the exact-NEE render; then each double run's numbers beside
-    its single mode's.
+    its single mode's;
+38. the float64 builds of the leaf sweeps (``leaf_bvh_nearest_f64_kernel``,
+    ``leaf_bvh_occluded_f64_kernel``, ``leaf_ibvh_nearest_f64_kernel``,
+    ``leaf_ibvh_occluded_f64_kernel``) against their float64 plain versions
+    on the card, bit pattern for bit pattern on every lane: HET01 compiled
+    in ``mono_double``, flat (N = 30000) and instanced (N = 2000, I = 15),
+    at the path's lane count (timed, with each kernel's device and call
+    time, its plain version's on 2^16 seeded lanes, what a ray reaches and
+    its bound over the float64 rate, beside phase 11's float32 device
+    time), ragged and beside the box; random disks with rays at their rims
+    from 0.5-3 and 50-300 units and with normal components of +-0; the
+    float64 tie table (two-, three- and four-way ties inside a chunk,
+    whose float64 normals the kernels sum again in index order, ties
+    across chunks and, instanced, across instances); direction components
+    exactly +-0 near and far, grazing incidence, and instances 200 units
+    from the world origin;
+39. c5 as ``bench.py`` builds it (instanced HET01, the ``stokes``
+    integrator, 19 x 2097152) in ``mono_polarized``, the double mode
+    ``bench.py`` names, at full width, as phase 23: K7's float64 builds
+    launched once an iteration each and nothing else, their device time a
+    launch inside the run; wall, samples/s, iterations, kernels and device
+    time an iteration, busy share, peak memory and the BRF at nadir beside
+    phase 23's ``mono_polarized_single`` numbers;
+40. the flat and the instanced c5 scene in ``mono_double`` at full width
+    the same way (K5/K6's and K7's float64 builds), beside phases 13 and
+    14; then both forms in ``mono_double`` and the instanced one in
+    ``mono_polarized_double`` at 64 spp on the card against the CPU, with
+    the gate of phases 12 and 22, their worst pixel difference printed.
 
 It prints a ``{"kernels": [...]}`` line (each kernel with its launches on its
 main path, its error against the plain version, its call time (``ms``) and
@@ -307,8 +334,13 @@ K7 their device time a launch inside the polarized full-width runs,
 float64 builds as entries of their own, ``collision_fetch_f64`` (launches on
 c1 in ``mono_double``, its device time a launch inside that run and inside
 c3's in ``ckd``), ``shell_event_f64`` (c4 SZA 75 in ``mono_double``),
-``shell_flight_f64`` and ``slant_tau_f64`` (path B at 8192 spp), their
-bounds over the float64 rate) and the
+``shell_flight_f64`` and ``slant_tau_f64`` (path B at 8192 spp), and the
+leaf sweeps' ``ray_leaves_nearest_f64``, ``ray_leaves_occluded_f64`` (the
+flat c5 in ``mono_double``), ``ray_leaves_nearest_instanced_f64`` and
+``ray_leaves_occluded_instanced_f64`` (c5 in ``mono_polarized``), with
+their launches on the other double paths, ``launches_on``, and device time
+a launch inside the full-width runs, ``run_device_ms``; their bounds over
+the float64 rate) and the
 ``nvidia-smi`` line
 before the last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
@@ -367,6 +399,10 @@ KERNELS = {
     "ray_tris_occluded": "bvh_occluded_kernel",
     "ray_tris_nearest_instanced": "tri_ibvh_nearest_kernel",
     "ray_tris_occluded_instanced": "tri_ibvh_occluded_kernel",
+    "ray_leaves_nearest_f64": "leaf_bvh_nearest_f64_kernel",
+    "ray_leaves_occluded_f64": "leaf_bvh_occluded_f64_kernel",
+    "ray_leaves_nearest_instanced_f64": "leaf_ibvh_nearest_f64_kernel",
+    "ray_leaves_occluded_instanced_f64": "leaf_ibvh_occluded_f64_kernel",
 }
 #: Cycles of the spin kernel the card runs while the host enqueues the
 #: calls that ``_device_ms`` times (about 10 ms on an H100).
@@ -396,7 +432,7 @@ def reset_launches():
     from eradiate_tpu_torch.kernels import tri_intersect as ti
 
     cf.launches = cf.launches_f64 = 0
-    for counts in (sf.launches, sf.launches_f64, li.launches, ti.launches):
+    for counts in (sf.launches, sf.launches_f64, li.launches, li.launches_f64, ti.launches):
         counts.update(dict.fromkeys(counts, 0))
 
 
@@ -409,7 +445,7 @@ def read_launches():
 
     return {"collision_fetch": cf.launches, **sf.launches, **li.launches, **ti.launches,
             "collision_fetch_f64": cf.launches_f64,
-            **{f"{k}_f64": n for k, n in sf.launches_f64.items()}}
+            **{f"{k}_f64": n for k, n in sf.launches_f64.items()}, **li.launches_f64}
 
 
 def _c1(n_vza, layer_merge_tol=1e-3, stokes=False):
@@ -1304,15 +1340,15 @@ def _canopy_rays(exp, scene, sensor, lo_n, hi_n, B, seed, miss=False):
     return p, np.concatenate([d0, d1, d2]), np.concatenate([t0, t1, t2])
 
 
-def _clipped(rays, lo, hi, device="cuda"):
+def _clipped(rays, lo, hi, device="cuda", dtype=np.float32):
     """Rays clipped to the box as the tracer clips them, then sorted by the
-    tracer's Morton code: ``(p, d, t_cap)`` float32 on ``device``."""
+    tracer's Morton code: ``(p, d, t_cap)`` in ``dtype`` on ``device``."""
     import torch
 
     from eradiate_tpu_torch.ops.canopy import _advance_to_aabb
     from eradiate_tpu_torch.ops.tracer_canopy import _morton_u32
 
-    p, d, t_max = (torch.tensor(np.asarray(a, np.float32), device=device) for a in rays)
+    p, d, t_max = (torch.tensor(np.asarray(a, dtype), device=device) for a in rays)
     p_adv, _, t_cap = _advance_to_aabb(p, d, t_max, lo, hi)
     order = torch.argsort(_morton_u32(p_adv, lo, hi), stable=True)
     return p_adv[order].contiguous(), d[order].contiguous(), t_cap[order]
@@ -1326,34 +1362,36 @@ def _canopy_inputs(exp, B, seed, miss=False, device="cuda"):
     None for a canopy without triangles; the cull operands are
     ``leaf_accel``'s (the hierarchy of a flat table, the two-level one of
     an instanced set) and ``tri_accel``'s (the hierarchy of a flat soup,
-    the two-level one of an instanced soup)."""
+    the two-level one of an instanced soup). The operands take the dtype
+    the experiment compiles in (float64 in a double mode)."""
     from eradiate_tpu_torch.ops.canopy import leaf_accel
     from eradiate_tpu_torch.ops.mesh import tri_accel
-    from eradiate_tpu_torch.ops.scene_state import canopy_from_reference
+    from eradiate_tpu_torch.ops.scene_state import canopy_from_reference, scene_dtype
 
     m = exp.measures[0]
     scene, sensor, _, leaf_params, leaves, tris, tri_params = exp.compile_canopy_scene(
         m, exp.spectral_context(m)
     )
-    leaves, _, tris, _ = canopy_from_reference(leaves, leaf_params, device, tris, tri_params)
+    dt = scene_dtype(scene.medium)
+    leaves, _, tris, _ = canopy_from_reference(leaves, leaf_params, device, tris, tri_params, dt)
     leaf_cull, lo, hi = leaf_accel(leaves)
     rays = _canopy_rays(exp, scene, sensor, lo.cpu().numpy(), hi.cpu().numpy(), B, seed, miss)
-    out = (leaves, leaf_cull, _clipped(rays, lo, hi, device))
+    out = (leaves, leaf_cull, _clipped(rays, lo, hi, device, dt))
     if tris is None:
         return (*out, None, None, None)
     tri_cull, tri_lo, tri_hi = tri_accel(tris)
     return (*out, tris, tri_cull, _clipped(rays, tri_lo, tri_hi, device))
 
 
-def _disk_inputs(table, rays, offsets=None):
+def _disk_inputs(table, rays, offsets=None, dtype=np.float32):
     """Leaves (flat, or instanced at ``offsets``), their kernels' hierarchy
-    (one level, or two) and the rays, on the card."""
+    (one level, or two) and the rays, on the card, in ``dtype``."""
     import torch
 
     from eradiate_tpu_torch.kernels.leaf_intersect import leaf_bvh, leaf_instanced_bvh
     from eradiate_tpu_torch.ops.canopy import InstancedLeafArrays, LeafCloudArrays
 
-    to_dev = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
+    to_dev = lambda a: torch.tensor(np.asarray(a, dtype), device="cuda")  # noqa: E731
     cloud = LeafCloudArrays(*(to_dev(a) for a in table))
     if offsets is None:
         return cloud, leaf_bvh(cloud.centers, cloud.normals, cloud.radii), tuple(map(to_dev, rays))
@@ -1362,14 +1400,14 @@ def _disk_inputs(table, rays, offsets=None):
     return leaves, ibvh, tuple(map(to_dev, rays))
 
 
-def _rim_inputs(instanced, B, seed, far=False, zero_normals=False):
+def _rim_inputs(instanced, B, seed, far=False, zero_normals=False, dtype=np.float32):
     """A synthetic stress of the kernels' culls (``test_tools.disks``): 1000
     random disks (radii 0.05 to 0.2 in a box of side 2, at three offsets
     when ``instanced``; ``zero_normals``: every normal with components of
     exactly +-0) and rays aimed at points on, just inside and just outside
     their rims from 0.5-3 units (``far``: 100x farther), with caps that end
-    on, just before and just behind the rim point. Returns ``(leaves, cull
-    operand, (p, d, t_cap))``."""
+    on, just before and just behind the rim point; in ``dtype``. Returns
+    ``(leaves, cull operand, (p, d, t_cap))``."""
     from eradiate_tpu_torch.test_tools import disks
 
     rng = np.random.default_rng(seed)
@@ -1377,11 +1415,11 @@ def _rim_inputs(instanced, B, seed, far=False, zero_normals=False):
     if zero_normals:
         n = disks.zero_normal_disks(rng, n, share=1.0)
     offsets = np.array([[0.0, 0, 0], [5.0, 0, 0], [0, 7.0, 0]]) if instanced else None
-    rays = disks.rim_rays(rng, B, c, n, r, offsets, 100.0 if far else 1.0)
-    return _disk_inputs((c, n, r), rays, offsets)
+    rays = disks.rim_rays(rng, B, c, n, r, offsets, 100.0 if far else 1.0, dtype=dtype)
+    return _disk_inputs((c, n, r), rays, offsets, dtype)
 
 
-def _leaf_stress_inputs(kind, B, seed):
+def _leaf_stress_inputs(kind, B, seed, dtype=np.float32):
     """Stresses of the flat leaf kernels' hierarchy (``test_tools.disks``).
     ``"ties"``: 600 disks with coincident copies of opposite normal inside
     one 512-disk chunk and across two, the copy across with the larger box,
@@ -1389,21 +1427,26 @@ def _leaf_stress_inputs(kind, B, seed):
     originals; ``"axes near"``/``"axes far"``: 1000 random disks and rays
     with direction components exactly +-0 along the planes of the disks' box
     faces, from 0.5-3 or 50-300 units; ``"grazing"``: rays that meet the
-    disks at 1e-2 to 1e-5 of a right angle. Returns ``(leaves, hierarchy,
-    (p, d, t_cap))``."""
+    disks at 1e-2 to 1e-5 of a right angle. In float64 (``dtype``) the tie
+    table is the instanced one's canonical cloud (it also holds three- and
+    four-way ties, whose float64 normals sum in index order) and its rays.
+    Returns ``(leaves, hierarchy, (p, d, t_cap))``."""
     from eradiate_tpu_torch.test_tools import disks
 
     rng = np.random.default_rng(seed)
-    if kind == "ties":
+    if kind == "ties" and dtype == np.float64:
+        table, _, rays = disks.instanced_tie_disks(rng, B, dtype=dtype)
+    elif kind == "ties":
         table, rays = disks.tie_disks(rng, B)
     else:
         table = disks.random_disks(rng, 1000)
         make = disks.grazing_rays if kind == "grazing" else disks.axis_rays
-        rays = make(rng, B, *table, distance=100.0 if kind.endswith("far") else 1.0)
-    return _disk_inputs(table, rays)
+        rays = make(rng, B, *table, distance=100.0 if kind.endswith("far") else 1.0,
+                    dtype=dtype)
+    return _disk_inputs(table, rays, dtype=dtype)
 
 
-def _instanced_stress_inputs(kind, B, seed):
+def _instanced_stress_inputs(kind, B, seed, dtype=np.float32):
     """Stresses of the instanced leaf kernels' two-level hierarchy
     (``test_tools.disks``). ``"ties"``: the instanced tie table (600 disks
     at three offsets along x, with exact ties inside a chunk, across two,
@@ -1414,25 +1457,26 @@ def _instanced_stress_inputs(kind, B, seed):
     ``axis_rays`` or ``grazing_rays`` in their frames; ``"far offsets"``:
     1000 random disks at three offsets 200 units (100x the cloud's size)
     from the world origin, and rays at their rims from origins within a
-    unit of the world origin. Returns ``(leaves, hierarchy, (p, d,
-    t_cap))``."""
+    unit of the world origin; in ``dtype``. Returns ``(leaves, hierarchy,
+    (p, d, t_cap))``."""
     from eradiate_tpu_torch.test_tools import disks
 
     rng = np.random.default_rng(seed)
     offsets = np.array([[0.0, 0, 0], [5.0, 0, 0], [0, 7.0, 0]])
     if kind == "ties":
-        table, offsets, rays = disks.instanced_tie_disks(rng, B)
-        return _disk_inputs(table, rays, offsets)
+        table, offsets, rays = disks.instanced_tie_disks(rng, B, dtype=dtype)
+        return _disk_inputs(table, rays, offsets, dtype)
     table = disks.random_disks(rng, 1000)
     if kind == "far offsets":
         offsets = np.array([[200.0, 0, 0], [0, -200.0, 0], [140.0, 140.0, 30.0]])
-        rays = disks.rim_rays(rng, B, *table, offsets, origins=rng.uniform(-1, 1, (B, 3)))
+        rays = disks.rim_rays(rng, B, *table, offsets, origins=rng.uniform(-1, 1, (B, 3)),
+                              dtype=dtype)
     elif kind == "grazing":
-        rays = disks.grazing_rays(rng, B, *table, offsets=offsets)
+        rays = disks.grazing_rays(rng, B, *table, offsets=offsets, dtype=dtype)
     else:
         rays = disks.axis_rays(rng, B, *table, 100.0 if kind.endswith("far") else 1.0,
-                               offsets)
-    return _disk_inputs(table, rays, offsets)
+                               offsets, dtype=dtype)
+    return _disk_inputs(table, rays, offsets, dtype)
 
 
 def _edge_inputs(instanced, B, seed, far, device="cuda"):
@@ -1644,7 +1688,8 @@ def _leaves_reached(bvh, rays, caps, subset, lanes=256):
     for start in range(0, p.shape[0], lanes):
         sl = slice(start, start + lanes)
         for k, cap in enumerate(caps):
-            sums[k] += int(hierarchy._box_reach(p[sl], d[sl], cap[subset][sl], lo, hi).sum())
+            box = hierarchy.box_ray(p[sl], d[sl], cap[subset][sl])  # float64: as the kernels
+            sums[k] += int(hierarchy._box_reach(*box, lo, hi).sum())
     return [n / p.shape[0] for n in sums]
 
 
@@ -1668,10 +1713,12 @@ def _instances_reached(ibvh, rays, caps, subset, lanes=256):
         sl = slice(start, start + lanes)
         for k, cap in enumerate(caps):
             c = cap[subset][sl]
-            on = hierarchy._box_reach(p[sl], d[sl], c, top_lo, top_hi)[:, inst_leaf]  # [L, I]
+            on = hierarchy._box_reach(*hierarchy.box_ray(p[sl], d[sl], c), top_lo,
+                                      top_hi)[:, inst_leaf]  # [L, I]
             sums[k][0] += int(on.sum())
             for j in range(I):
-                leaves = hierarchy._box_reach(p[sl] - ibvh.instances[j, :3], d[sl], c, lo, hi)
+                leaves = hierarchy._box_reach(
+                    *hierarchy.box_ray(p[sl] - ibvh.instances[j, :3], d[sl], c), lo, hi)
                 sums[k][1] += int((leaves & on[:, j : j + 1]).sum())
     return [(a / p.shape[0], b / p.shape[0]) for a, b in sums]
 
@@ -1681,8 +1728,10 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
     """The two sweep kernels (nearest and any hit) of one leaf set or one
     triangle soup, flat or instanced, against their plain versions on the
     card: every output equal bit pattern for bit pattern (floats compared
-    as int32, so a -0.0 is not taken for a +0.0). The kernels run on all of
-    ``rays``; the plain versions on a
+    as int32, float64 as int64, so a -0.0 is not taken for a +0.0). Float64
+    operands run the float64 builds, whose results are keyed by the
+    kernel's name with ``_f64`` and bounded over the float64 rate. The
+    kernels run on all of ``rays``; the plain versions on a
     seeded subset of ``plain_lanes`` of them where there are more (in slices
     that fit the card's memory). Returns ({kernel: max abs error}, {kernel:
     {"ms", "device_ms", "device_by", "plain_ms", "lanes", "plain_lanes"}},
@@ -1708,6 +1757,8 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
     offsets = geometry.offsets if hasattr(geometry, "canonical") else None
     is_leaves = hasattr(base, "centers")
     item_ops = 30.0 if is_leaves else 45.0
+    f64 = rays[0].dtype == torch.float64
+    suffix, peak = ("_f64", PEAK_F64_FLOPS) if f64 else ("", PEAK_F32_FLOPS)
     n_items = (base.centers if is_leaves else base.v0).shape[0]
     slice_lanes = 2**17 if is_leaves else 2**15  # [lanes, 512(, 3)] float64 temporaries
     B = rays[0].shape[0]
@@ -1719,6 +1770,7 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
     table = (base.centers, base.normals, base.radii) if is_leaves else (base.v0, base.e1, base.e2)
     errs, times, bounds, reach, notes = {}, {}, {}, {}, []
     for kernel, (fn, plain, args) in _sweep_calls(geometry, cull, rays).items():
+        kernel += suffix
         got = fn(args)
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -1736,7 +1788,11 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
         labels = ("t", "normal", "hit") if len(got) == 3 else ("occluded",)
         err = 0.0
         for label, g, w in zip(labels, held, want):
-            gb, wb = (x.view(torch.int32) if x.is_floating_point() else x for x in (g, w))
+            if g.dtype != w.dtype:
+                raise AssertionError(f"{name}: {kernel} {label} is {g.dtype}, the plain "
+                                     f"version's {w.dtype}")
+            bits = torch.int64 if g.dtype == torch.float64 else torch.int32
+            gb, wb = (x.view(bits) if x.is_floating_point() else x for x in (g, w))
             differ = int((gb != wb).reshape(n_plain, -1).any(dim=1).sum())
             if differ:
                 detail = f"{differ} of {n_plain} lanes"
@@ -1746,7 +1802,7 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
                 raise AssertionError(
                     f"{name}: {kernel} {label} differs from the plain version: {detail}"
                 )
-            err = max(err, float((g.float() - w.float()).abs().max()))
+            err = max(err, float((g.double() - w.double()).abs().max()))
         errs[kernel] = err
         share = float(got[-1].float().mean())
         notes.append(f"{kernel} {'hit' if len(got) == 3 else 'occluded'} share {share:.3f}")
@@ -1759,7 +1815,7 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
             n_bytes = sum(t.numel() * t.element_size() for t in tensors)
             cap, occ = (got[0], None) if len(got) == 3 else (rays[2], got[0])
             pairs = _item_pairs(geometry, rays, cap, occ, subset)
-            bounds[kernel] = bound_ms(n_bytes, item_ops * pairs)
+            bounds[kernel] = bound_ms(n_bytes, item_ops * pairs, peak)
             notes[-1] += (f", kernel {times[kernel]['ms']:.4f} ms (device "
                           f"{device:.4f} by the {by}), plain "
                           f"{times[kernel]['plain_ms']:.1f} ms at {n_plain} lanes, {pairs / B:.2f} "
@@ -1965,11 +2021,15 @@ def c5_cuda_vs_cpu(form, phase, mesh_dir=None, branches=WOOD_BRANCHES, stokes=Fa
         if dev == "cuda":
             launches = read_launches()
     gpu, cpu = out["cuda"], out["cpu"]
+    mode = etp.mode()
+    if mode.is_double_precision and not gpu["brf"].dtype == cpu["brf"].dtype == np.float64:
+        raise AssertionError(f"the c5 scene ({form}) in {mode.id} did not render in float64")
     brf_g, brf_c = gpu["brf"], cpu["brf"]
     rel = np.abs(brf_g - brf_c) / np.abs(brf_c)
     zmax = float(np.max(np.abs(gpu["radiance"] - cpu["radiance"])
                         / np.sqrt(gpu["var"] + cpu["var"])))
-    label = f"[{phase}] {'polarized ' if stokes else ''}c5 scene ({form}), {N_VZA_C5} VZA 64 spp"
+    label = (f"[{phase}] {'polarized ' if stokes else ''}c5 scene ({form}, {mode.id}, "
+             f"{gpu['brf'].dtype}), {N_VZA_C5} VZA 64 spp")
     if stokes:
         rel_I, z = stokes_gate(gpu, cpu)
         print(f"{label}, CUDA vs CPU: max rel I diff {rel_I:.3e} (bound 1e-4), max |z| of I, Q, "
@@ -2076,28 +2136,37 @@ def polarized_c1_full_width(phase, label="polarized c1", exp=None, spp=SPP_C1, s
     return launches, ms
 
 
-def polarized_c5_full_width(phase, scalar_ds):
-    """Polarized c5 (instanced) at full width: K7 nearest and any-hit
-    launches must each equal the bounce iterations, and they alone launch;
-    each one's device time a launch inside the run from the profiler's
-    window. Returns (launches, {kernel: run device ms})."""
+def polarized_c5_full_width(phase, scalar_ds, suffix="", against="the scalar run's, phase 13"):
+    """Polarized c5 (instanced) at full width in the mode that is set: K7
+    nearest and any-hit launches (their float64 builds', with ``suffix``
+    ``"_f64"``) must each equal the bounce iterations, and they alone
+    launch; each one's device time a launch inside the run from the
+    profiler's window. Returns (launches, {kernel: run device ms}, the
+    run's numbers: wall, samples/s, iterations, kernels and device ms an
+    iteration, busy share, peak GiB, BRF at nadir)."""
+    import eradiate_tpu_torch as etp
     from eradiate_tpu_torch.ops import tracer_canopy_polarized
 
+    mode = etp.mode().id
     ds, launches, iterations, wall, peak, prof, per_it, dev_ms = _polarized_full_width(
         _c5("instanced", stokes=True), SPP_C5, N_VZA_C5, tracer_canopy_polarized,
-        "leaf_nearest", 20, 40, f"[{phase}] polarized c5 scene (instanced) full width")
-    mine = C5_KERNELS["instanced"]
+        "leaf_nearest", 20, 40, f"[{phase}] polarized c5 scene (instanced, {mode}) full width")
+    mine = tuple(k + suffix for k in C5_KERNELS["instanced"])
     in_run = {k: kernel_ms_in_window(prof, KERNELS[k], 20)[1] for k in mine}
     nadir = N_VZA_C5 // 2
+    brf = np.asarray(ds["brf"])
     print(f"    {', '.join(f'{k} {ms:.4f} ms' for k, ms in in_run.items())} of device time a "
-          f"launch inside the run; BRF at nadir {np.asarray(ds['brf'])[0, nadir]:.6f} "
-          f"(the scalar run's, phase 13: {np.asarray(scalar_ds['brf'])[0, nadir]:.6f})",
-          flush=True)
+          f"launch inside the run; BRF at nadir {brf[0, nadir]:.6f} ({against}: "
+          f"{np.asarray(scalar_ds['brf'])[0, nadir]:.6f}); BRF dtype {brf.dtype}", flush=True)
     if not all(launches[k] > 0 and launches[k] == iterations for k in mine):
         raise AssertionError(f"polarized c5 did not launch {mine} once per bounce")
     if any(n for k, n in launches.items() if k not in mine):
         raise AssertionError("polarized c5 launched a kernel of another path")
-    return launches, in_run
+    stats = {"wall_s": wall, "samples_per_s": N_VZA_C5 * SPP_C5 / wall,
+             "iterations": iterations, "kernels_an_iteration": per_it,
+             "device_ms_an_iteration": dev_ms, "busy": dev_ms * iterations / (1e3 * wall),
+             "peak_gib": peak, "brf_nadir": float(brf[0, nadir]), "ds": ds}
+    return launches, in_run, stats
 
 
 #: The kernels each form of the c5 scene launches once per bounce iteration.
@@ -2113,7 +2182,7 @@ C5_KERNELS = {
 
 def c5_full_width(form, spp, phase, mesh_dir=None):
     """A warm-up, then one timed run of one form of the c5 scene at ``spp``;
-    returns (launch counts of the run by kernel, the dataset)."""
+    returns (launch counts of the run by kernel, the dataset, the wall s)."""
     import torch
 
     import eradiate_tpu_torch as etp
@@ -2144,7 +2213,7 @@ def c5_full_width(form, spp, phase, mesh_dir=None):
         raise AssertionError(f"the c5 scene ({form}) launched a kernel of another path")
     if brf.shape != (1, N_VZA_C5) or not np.isfinite(brf).all():
         raise AssertionError("c5 BRF is not finite or has the wrong shape")
-    return launches, ds
+    return launches, ds, wall
 
 
 def c4_lr_flight_full_width(spp, phase):
@@ -2675,12 +2744,14 @@ def double_pixels_gate(phase, label, make, mode, spp, n_vza):
 def profiled_full_width(phase, label, make, mode, spp, n_vza, module, attr, key, skip, window):
     """A full-width run in ``mode`` with the profiler on for ``window``
     iterations of ``module.attr`` (called once an iteration) after ``skip``,
-    ended there, then a timed run: the wrapper ``key``'s launches must equal the
-    iterations, and no other kernel launch. Prints wall, samples/s, ms an
-    iteration, CUDA kernels and device ms an iteration, the busy share
-    (device time an iteration times the iterations over the timed wall),
-    the device time by kernel family, ``key``'s device ms a launch in the
-    window, and the peak memory. Returns a dict of them."""
+    ended there, then a timed run: the launches of the wrapper ``key`` (or
+    of each of a tuple of them) must equal the iterations, and no other
+    kernel launch. Prints wall, samples/s, ms an iteration, CUDA kernels and
+    device ms an iteration, the busy share (device time an iteration times
+    the iterations over the timed wall), the device time by kernel family,
+    each key's device ms a launch in the window, the peak memory and the
+    BRF at the middle view. Returns a dict of them (``launches`` and
+    ``run_device_ms`` by key for a tuple)."""
     import torch
 
     import eradiate_tpu_torch as etp
@@ -2691,9 +2762,10 @@ def profiled_full_width(phase, label, make, mode, spp, n_vza, module, attr, key,
     def run():
         return etp.run(exp, spp=spp, seed_state=etp.SeedState(SEED), device="cuda")
 
+    keys = (key,) if isinstance(key, str) else key
     prof = profile_window(run, module, attr, skip, window)
     per_it, dev_ms, shares = window_device(prof, window)
-    n_rec, k_ms = kernel_ms_in_window(prof, KERNELS[key], window // 2)
+    k_ms = {k: kernel_ms_in_window(prof, KERNELS[k], window // 2)[1] for k in keys}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -2708,6 +2780,7 @@ def profiled_full_width(phase, label, make, mode, spp, n_vza, module, attr, key,
     brf = np.asarray(ds["brf"])
     samples = n_vza * spp * rows
     busy = dev_ms * iterations / (1e3 * wall)
+    middle = float(brf[0, n_vza // 2])
     print(f"[{phase}] {label} ({mode}) full width: {n_vza} VZA x {spp} spp x {rows} rows = "
           f"{samples} samples, wall {wall:.3f} s, {samples / wall:.4e} samples/s, {iterations} "
           f"iterations ({1e3 * wall / iterations:.3f} ms each), peak device memory "
@@ -2715,19 +2788,22 @@ def profiled_full_width(phase, label, make, mode, spp, n_vza, module, attr, key,
     print(f"    launches {', '.join(f'{k} {n}' for k, n in launches.items() if n)}; profiler "
           f"window of {window} iterations (warm-up run): {per_it:.1f} CUDA kernels and "
           f"{dev_ms:.3f} ms of device time an iteration, busy share {busy:.3f}; by kernel "
-          f"family: {', '.join(f'{f} {x:.3f}' for f, x in shares.items())}; {key} "
-          f"{k_ms:.4f} ms a launch inside the run ({n_rec} records); BRF shape {brf.shape}, "
-          f"mean {brf.mean():.6f}", flush=True)
-    if not (launches[key] > 0 and launches[key] == iterations):
-        raise AssertionError(f"{label} in {mode} did not launch {key} once an iteration")
-    if any(n for k, n in launches.items() if k != key):
+          f"family: {', '.join(f'{f} {x:.3f}' for f, x in shares.items())}; "
+          f"{', '.join(f'{k} {ms:.4f} ms' for k, ms in k_ms.items())} a launch inside the run; "
+          f"BRF {brf.dtype}, shape {brf.shape}, mean {brf.mean():.6f}, at the middle view "
+          f"{middle:.6f}", flush=True)
+    if not all(launches[k] > 0 and launches[k] == iterations for k in keys):
+        raise AssertionError(f"{label} in {mode} did not launch {keys} once an iteration")
+    if any(n for k, n in launches.items() if k not in keys):
         raise AssertionError(f"{label} in {mode} launched a kernel of another path")
     if not np.isfinite(brf).all():
         raise AssertionError(f"{label} in {mode}: BRF not finite")
+    one = isinstance(key, str)
     return {"wall_s": wall, "samples_per_s": samples / wall, "iterations": iterations,
             "kernels_an_iteration": per_it, "device_ms_an_iteration": dev_ms, "busy": busy,
-            "peak_gib": peak, "launches": launches[key], "run_device_ms": k_ms,
-            "brf_mean": float(brf.mean())}
+            "peak_gib": peak, "launches": launches[key] if one else launches,
+            "run_device_ms": k_ms[key] if one else k_ms, "brf_mean": float(brf.mean()),
+            "brf_middle": middle}
 
 
 def path_b_double(phase, spp):
@@ -2764,6 +2840,124 @@ def path_b_double(phase, spp):
     if not same:
         raise AssertionError("path B in mono_double differs from the exact-NEE render")
     return launches
+
+
+def canopy_double_phases(B5, single_times, pol_single, ds_pol_single, c5_single):
+    """Phases 38-40, the leaf canopy in the double modes through the float64
+    builds of K5, K6 and K7 (``B5``: the c5 path's lane count;
+    ``single_times``: phase 11's times of the float32 kernels;
+    ``pol_single``: phase 23's numbers of polarized c5 in
+    ``mono_polarized_single``, ``ds_pol_single`` its dataset; ``c5_single``:
+    phases 13 and 14's walls and BRF at nadir by form). Returns the four
+    float64 sweeps' errors, times, bounds, reach, launches on their paths
+    and launches and device times on the other double paths."""
+    import torch
+
+    import eradiate_tpu_torch as etp
+
+    etp.set_mode("mono_double")
+    print("[38] leaf-sweep kernels' float64 builds against their float64 plain versions: "
+          "leaf_bvh_nearest_f64_kernel, leaf_bvh_occluded_f64_kernel (flat), "
+          "leaf_ibvh_nearest_f64_kernel, leaf_ibvh_occluded_f64_kernel (instanced)", flush=True)
+    errs, times, bounds, reach = {}, {}, {}, {}
+    f64 = np.float64
+    for form in ("flat", "instanced"):
+        exp = _c5(form)
+        leaves, cull, rays, *_ = _canopy_inputs(exp, B5, seed=60)
+        if rays[0].dtype != torch.float64:
+            raise AssertionError("the c5 scene did not compile float64 leaves in mono_double")
+        form_errs, t, b, r = check_sweep_kernels(
+            f"HET01 {form} in float64, the path's lane count", leaves, cull, rays, seed=60,
+            timed=True, plain_lanes=2**16)
+        times.update(t)
+        bounds.update(b)
+        reach.update(r)
+        inst = form == "instanced"
+        stress = _instanced_stress_inputs if inst else _leaf_stress_inputs
+        cases = [
+            (f"HET01 {form} in float64, ragged", lambda: _canopy_inputs(exp, 50_021, 61)[:3]),
+            (f"HET01 {form} in float64, rays beside the box",
+             lambda: _canopy_inputs(exp, 2**15, 61, miss=True)[:3]),
+            (f"random disks {form} in float64, rays at the rims from 0.5-3 units",
+             lambda: _rim_inputs(inst, 2**16, 62, dtype=f64)),
+            (f"random disks {form} in float64, rays at the rims from 50-300 units",
+             lambda: _rim_inputs(inst, 2**16, 63, far=True, dtype=f64)),
+            (f"random disks {form} in float64 with normal components of +-0, rays at the rims",
+             lambda: _rim_inputs(inst, 2**16, 64, zero_normals=True, dtype=f64)),
+            (f"float64 tie table {form}: exact two-, three- and four-way ties inside a chunk, "
+             "ties across chunks" + (" and across instances" if inst else ""),
+             lambda: stress("ties", 2**16, 65, dtype=f64)),
+            (f"random disks {form} in float64, zero direction components, from 0.5-3 units",
+             lambda: stress("axes near", 2**16, 66, dtype=f64)),
+            (f"random disks {form} in float64, zero direction components, from 50-300 units",
+             lambda: stress("axes far", 2**16, 67, dtype=f64)),
+            (f"random disks {form} in float64, grazing incidence",
+             lambda: stress("grazing", 2**16, 68, dtype=f64)),
+        ]
+        if inst:
+            cases.append(("random disks instanced in float64 200 units from the world origin, "
+                          "rays from near it", lambda: stress("far offsets", 2**16, 69, dtype=f64)))
+        for label, make in cases:
+            more, *_ = check_sweep_kernels(label, *make(), seed=61, plain_lanes=2**16)
+            form_errs = {k: max(v, more[k]) for k, v in form_errs.items()}
+        errs.update(form_errs)
+    for k, t in times.items():
+        one = single_times[k[: -len("_f64")]]
+        print(f"    {k}: device {t['device_ms']:.4f} ms against the float32 kernel's "
+              f"{one['device_ms']:.4f} ms ({t['device_ms'] / one['device_ms']:.2f}x), call "
+              f"{t['ms']:.4f} ms, plain {t['plain_ms']:.1f} ms at {t['plain_lanes']} lanes, "
+              f"bound {bounds[k][0]:.4f} ms by {bounds[k][1]} (float64 rate)", flush=True)
+
+    # -- 39. c5 as bench.py builds it, in mono_polarized ------------------------
+    etp.set_mode("mono_polarized")
+    pol_launches, pol_ms, pol = polarized_c5_full_width(
+        39, ds_pol_single, "_f64", "mono_polarized_single's, phase 23")
+    pol.pop("ds")
+    print(f"     c5 in mono_polarized (float64 path state on the card; bench.py's "
+          f"mono_polarized is float32 path state on a TPU) against mono_polarized_single "
+          f"(phase 23) in this run: wall {pol['wall_s']:.3f} s against "
+          f"{pol_single['wall_s']:.3f} s ({pol['wall_s'] / pol_single['wall_s']:.3f}x), "
+          f"samples/s {pol['samples_per_s']:.4e} against {pol_single['samples_per_s']:.4e}, "
+          f"iterations {pol['iterations']} against {pol_single['iterations']}, kernels an "
+          f"iteration {pol['kernels_an_iteration']:.1f} against "
+          f"{pol_single['kernels_an_iteration']:.1f}, device ms an iteration "
+          f"{pol['device_ms_an_iteration']:.3f} against {pol_single['device_ms_an_iteration']:.3f}, "
+          f"busy {pol['busy']:.3f} against {pol_single['busy']:.3f}, peak "
+          f"{pol['peak_gib']:.2f} against {pol_single['peak_gib']:.2f} GiB", flush=True)
+
+    # -- 40. mono_double at full width; double against the CPU at 64 spp -------
+    from eradiate_tpu_torch.ops import tracer_canopy
+
+    runs = {form: profiled_full_width(
+        40, f"c5 scene ({form})", lambda n, form=form: _c5(form), "mono_double", SPP_C5,
+        N_VZA_C5, tracer_canopy, "leaf_nearest",
+        tuple(k + "_f64" for k in C5_KERNELS[form]), 20, 40) for form in ("flat", "instanced")}
+    for form, run in runs.items():
+        one = c5_single[form]
+        print(f"     c5 ({form}) in mono_double against mono_single (phase "
+              f"{13 if form == 'instanced' else 14}): wall {run['wall_s']:.3f} s against "
+              f"{one['wall_s']:.3f} s ({run['wall_s'] / one['wall_s']:.3f}x), BRF at nadir "
+              f"{run['brf_middle']:.6f} against {one['brf_nadir']:.6f}", flush=True)
+    small = {}
+    for form in ("instanced", "flat"):
+        small[form] = c5_cuda_vs_cpu(form, phase=40)
+    etp.set_mode("mono_polarized_double")
+    small["polarized"] = c5_cuda_vs_cpu("instanced", phase=40, stokes=True)
+    etp.set_mode("mono_single")
+    launches = {"ray_leaves_nearest_f64": runs["flat"]["launches"]["ray_leaves_nearest_f64"],
+                "ray_leaves_occluded_f64": runs["flat"]["launches"]["ray_leaves_occluded_f64"],
+                **{k: pol_launches[k] for k in ("ray_leaves_nearest_instanced_f64",
+                                                "ray_leaves_occluded_instanced_f64")}}
+    other = {"c5_mono_double_instanced": runs["instanced"]["launches"],
+             **{f"c5_64spp_{k}": v for k, v in small.items()}}
+    extra = {k: {"launches_on": {path: counts[k] for path, counts in other.items()
+                                 if counts.get(k)},
+                 "run_device_ms": {**{f: runs[f]["run_device_ms"][k] for f in runs
+                                      if k in runs[f]["run_device_ms"]},
+                                   **({"c5_mono_polarized": pol_ms[k]} if k in pol_ms else {})}}
+             for k in launches}
+    return {"errs": errs, "times": times, "bounds": bounds, "reach": reach,
+            "launches": launches, "extra": extra, "pol": pol, "runs": runs}
 
 
 def double_phases(fetch_times, B4, sun_85, c3_wall):
@@ -3024,7 +3218,9 @@ def main():
         raise AssertionError(f"the shell wrappers' layout differs from the library's: {layout[:5]}")
     for kernel in ("leaf_bvh_nearest_kernel", "leaf_bvh_occluded_kernel",
                    "leaf_ibvh_nearest_kernel", "leaf_ibvh_occluded_kernel", "bvh_nearest_kernel",
-                   "bvh_occluded_kernel", "tri_ibvh_nearest_kernel", "tri_ibvh_occluded_kernel"):
+                   "bvh_occluded_kernel", "tri_ibvh_nearest_kernel", "tri_ibvh_occluded_kernel",
+                   "leaf_bvh_nearest_f64_kernel", "leaf_bvh_occluded_f64_kernel",
+                   "leaf_ibvh_nearest_f64_kernel", "leaf_ibvh_occluded_f64_kernel"):
         if kernel not in report:
             raise AssertionError(f"the library has no {kernel}")
 
@@ -3145,8 +3341,11 @@ def main():
 
     # -- 13, 14. c5 scene at full width -------------------------------------
     c5_launches = {}
-    c5_launches["instanced"], ds_inst = c5_full_width("instanced", SPP_C5, phase=13)
-    c5_launches["flat"], ds_flat = c5_full_width("flat", SPP_C5, phase=14)
+    c5_launches["instanced"], ds_inst, wall_inst = c5_full_width("instanced", SPP_C5, phase=13)
+    c5_launches["flat"], ds_flat, wall_flat = c5_full_width("flat", SPP_C5, phase=14)
+    c5_single = {form: {"wall_s": w, "brf_nadir": float(np.asarray(d["brf"])[0, N_VZA_C5 // 2])}
+                 for form, d, w in (("instanced", ds_inst, wall_inst),
+                                    ("flat", ds_flat, wall_flat))}
     rad_i, rad_f = (np.asarray(ds["radiance"]) for ds in (ds_inst, ds_flat))
     var = np.asarray(ds_inst["var"]) + np.asarray(ds_flat["var"])
     z = np.abs(rad_i - rad_f) / np.sqrt(var)
@@ -3227,8 +3426,8 @@ def main():
         c5_cuda_vs_cpu("wood", phase=17, mesh_dir=mesh_dir, branches=12)
 
         # -- 18, 19. tree and wood canopies at full width ----------------------
-        c5_launches["trees"], ds_trees = c5_full_width("trees", SPP_C5, phase=18)
-        c5_launches["wood"], ds_wood = c5_full_width("wood", SPP_C5, 19, mesh_dir)
+        c5_launches["trees"], ds_trees, _ = c5_full_width("trees", SPP_C5, phase=18)
+        c5_launches["wood"], ds_wood, _ = c5_full_width("wood", SPP_C5, 19, mesh_dir)
     nadir = N_VZA_C5 // 2
     print("     BRF at nadir: leaves alone "
           f"{np.asarray(ds_inst['brf'])[0, nadir]:.6f}, with trunks "
@@ -3244,7 +3443,7 @@ def main():
     pol_c1_launches, pol_fetch_ms = polarized_c1_full_width(phase=21)
     pol_small = {form: c5_cuda_vs_cpu(form, phase=22, stokes=True)
                  for form in ("instanced", "flat", "trees")}
-    pol_c5_launches, pol_sweep_ms = polarized_c5_full_width(23, ds_inst)
+    pol_c5_launches, pol_sweep_ms, pol_c5_stats = polarized_c5_full_width(23, ds_inst)
 
     # -- 24-27. c2 (mono_single) and c3 (ckd_single) through K1 ---------------
     etp.set_mode("mono_single")
@@ -3296,6 +3495,9 @@ def main():
     etp.set_mode("mono_single")
 
     double = double_phases(fetch_times, B4, sun_85, c3_wall)
+    # -- 38-40. the leaf canopy in the double modes through K5-K7's float64 builds
+    canopy64 = canopy_double_phases(B5, sweep_times, pol_c5_stats, pol_c5_stats.pop("ds"),
+                                    c5_single)
     # -- 32-37. the double modes through the float64 builds of K1-K4 -----------
     runs, path_b64, pol_c1_double = double["runs"], double["path_b"], double["pol_c1"]
     err64, fetch64_times, fetch64_bound = double["fetch"]
@@ -3327,13 +3529,19 @@ def main():
                     for form, counts in pol_c4_small.items()})
     smaller.update(c2_polarized_256spp=pol_c2_small, c3_polarized_256spp=pol_c3_small)
     smaller.update(c1_polarized_double_64spp=pol_c1_double)
+    for k in ("ray_leaves_nearest_instanced_f64", "ray_leaves_occluded_instanced_f64"):
+        polarized[k]["c5_mono_polarized"] = canopy64["launches"][k]
+    sweep_reach.update(canopy64["reach"])
     for label, counts in smaller.items():
         for k, n in counts.items():
             if n:
                 polarized[k][label] = n
     polarized_run_ms = {"collision_fetch": {"c1": pol_fetch_ms, "c2": pol_c2_k1_ms},
                         "shell_flight": {"c4": pol_c4_k2_ms},
-                        **{k: {"c5": ms} for k, ms in pol_sweep_ms.items()}}
+                        **{k: {"c5": ms} for k, ms in pol_sweep_ms.items()},
+                        **{k: {"c5_mono_polarized": v["run_device_ms"]["c5_mono_polarized"]}
+                           for k, v in canopy64["extra"].items()
+                           if "c5_mono_polarized" in v["run_device_ms"]}}
 
     def entry(name, source, replaces, n, err, times, bound, in_run=None):
         """One kernel of the ``kernels`` line; ``times`` holds its call time
@@ -3379,6 +3587,16 @@ def main():
         "ray_tris_nearest_instanced": ("tri", 389, "trees"),
         "ray_tris_occluded_instanced": ("tri", 404, "trees"),
     }
+    def sweep64(k, line):
+        """A float64 leaf build's entry: launches on its path (K5/K6 on the
+        flat c5 in mono_double, K7 on c5 in mono_polarized), its other paths'
+        launches and device ms a launch inside the full-width runs."""
+        out = entry(k, "eradiate_tpu_torch/csrc/leaf_intersect.cu",
+                    f"{pallas}/leaf_intersect.py:{line}", canopy64["launches"][k],
+                    canopy64["errs"][k], canopy64["times"][k], canopy64["bounds"][k])
+        out.update(canopy64["extra"][k])
+        return out
+
     # no single PyTorch call computes any of these functions: library_ms is null
     print(json.dumps({"kernels": [
         entry("collision_fetch", "eradiate_tpu_torch/csrc/collision_fetch.cu",
@@ -3413,6 +3631,12 @@ def main():
         entry("slant_tau_f64", shell_src, f"{pallas}/shell_flight.py:473",
               path_b64["slant_tau_f64"], shell64_errs["slant_tau"],
               shell64_times["slant_tau"], shell64_bounds["slant_tau"]),
+        # the leaf sweeps' float64 builds: K5/K6 on the flat c5 in mono_double,
+        # K7 on c5 as bench.py builds it (mono_polarized)
+        sweep64("ray_leaves_nearest_f64", 383),
+        sweep64("ray_leaves_occluded_f64", 437),
+        sweep64("ray_leaves_nearest_instanced_f64", 533),
+        sweep64("ray_leaves_occluded_instanced_f64", 550),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,8 +31,14 @@
 // the exact union of its children's, so a leaf that is reached has every
 // ancestor reached.
 //
+// The float64 builds (the double modes) keep the float32 hierarchy: their
+// items and exact tests are float64, and the box tests read the float64 ray
+// rounded to the nearest float32 (box_ray) and the running cap rounded up
+// (cull_cap). The rounding moves the ray by 6e-8 of its coordinates and of
+// the distance it travels, far inside the margins above.
+//
 // Every file that includes this header is built with -fmad=false; the fused
-// multiply-adds of the exact tests are written out (__fmaf_rn).
+// multiply-adds of the exact tests are written out (__fmaf_rn, __fma_rn).
 
 #pragma once
 
@@ -80,6 +86,34 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ p,
                   d[3 * b + 2]);
 }
 
+// A float64 ray (the float64 builds' exact tests).
+struct Ray64 {
+  double px, py, pz, dx, dy, dz;
+  double l1;  // |px| + |py| + |pz|
+};
+
+__device__ __forceinline__ Ray64 make_ray64(double px, double py, double pz, double dx,
+                                            double dy, double dz) {
+  return Ray64{px, py, pz, dx, dy, dz, fabs(px) + fabs(py) + fabs(pz)};
+}
+
+__device__ __forceinline__ Ray64 load_ray64(const double* __restrict__ p,
+                                            const double* __restrict__ d, int b) {
+  return make_ray64(p[3 * b], p[3 * b + 1], p[3 * b + 2], d[3 * b], d[3 * b + 1],
+                    d[3 * b + 2]);
+}
+
+// The ray the box tests read: a float64 ray rounded to the nearest float32.
+__device__ __forceinline__ Ray box_ray(const Ray64& r) {
+  return make_ray(__double2float_rn(r.px), __double2float_rn(r.py), __double2float_rn(r.pz),
+                  __double2float_rn(r.dx), __double2float_rn(r.dy), __double2float_rn(r.dz));
+}
+
+// The cap the box tests read: a float32 cap as it is, a float64 one rounded
+// up, so that the cull never cuts a segment short.
+__device__ __forceinline__ float cull_cap(float cap) { return cap; }
+__device__ __forceinline__ float cull_cap(double cap) { return __double2float_ru(cap); }
+
 // Running nearest hit with the reference's tie rule, in a form that does not
 // depend on the order of the visits: a hit replaces the best when its t is
 // smaller, or equal with a lower chunk; it adds its normal when t and chunk
@@ -114,6 +148,49 @@ struct Best {
     }
   }
 };
+
+// The float64 builds' record: Best with float64 distances and normals. Two
+// tied normals sum alike in either order; three or more are summed again in
+// index order after the walk (leaf_intersect.cu), as the reference sums
+// them, so the running sum here is used only where count <= 2.
+struct Best64 {
+  double t;
+  double sx, sy, sz;
+  int count;
+  int chunk;
+
+  template <class Normal>
+  __device__ __forceinline__ void take(double th, int ch, Normal normal) {
+    if (th < 0.0) return;
+    const bool tie = th == t;
+    if (th < t || (tie && ch < chunk)) {
+      double nx, ny, nz;
+      normal(nx, ny, nz);
+      t = th;
+      sx = 0.0 + nx; sy = 0.0 + ny; sz = 0.0 + nz;
+      count = 1;
+      chunk = ch;
+    } else if (tie && ch == chunk) {
+      double nx, ny, nz;
+      normal(nx, ny, nz);
+      sx += nx; sy += ny; sz += nz;
+      count += 1;
+    }
+  }
+};
+
+__device__ __forceinline__ void store_nearest64(const Best64& best, double tm, int b,
+                                                double* __restrict__ t_hit,
+                                                double* __restrict__ normal,
+                                                bool* __restrict__ hit) {
+  const bool found = best.count > 0;
+  const double cnt = static_cast<double>(max(best.count, 1));
+  t_hit[b] = found ? best.t : tm;
+  normal[3 * b] = found ? best.sx / cnt : 0.0;
+  normal[3 * b + 1] = found ? best.sy / cnt : 0.0;
+  normal[3 * b + 2] = found ? best.sz / cnt : 1.0;
+  hit[b] = found;
+}
 
 __device__ __forceinline__ void store_nearest(const Best& best, float tm, int b,
                                               float* __restrict__ t_hit,
@@ -193,18 +270,19 @@ __device__ __forceinline__ int descend(const Ray& r, const Slab& s, float cap,
 
 // Walk the hierarchy with a while-while loop and a stack of Stack entries in
 // local memory: visit(first, end) for the item rows of each leaf that the
-// segment reaches with the cap `cap`, which is read at every step (the
-// nearest hit passes its running best t, so later boxes cull against it).
-// Stops early where visit returns true.
-template <int Stack = kStack, class Visit>
-__device__ __forceinline__ void traverse(const Ray& r, const float& cap,
+// segment reaches with the cap `cap` (float, or a float64 one read through
+// cull_cap), which is read at every step (the nearest hit passes its
+// running best t, so later boxes cull against it). Stops early where visit
+// returns true.
+template <int Stack = kStack, class Cap, class Visit>
+__device__ __forceinline__ void traverse(const Ray& r, const Cap& cap,
                                          const float4* __restrict__ nodes, Visit visit) {
   const Slab s = make_slab(r);
   int stack[Stack];
   int sp = 0;
   int node = 0;  // the root is an inner node
   for (;;) {
-    while (node >= 0) node = descend(r, s, cap, nodes, node, stack, sp);
+    while (node >= 0) node = descend(r, s, cull_cap(cap), nodes, node, stack, sp);
     if (node == kDone) return;
     const int leaf = ~node;
     const int first = leaf >> kLeafBits;
@@ -232,6 +310,34 @@ __device__ __forceinline__ void traverse_instances(const Ray& r, const float& ca
       const int row = __float_as_int(o.w);
       bool stop = false;
       traverse(ri, cap, nodes, [&](int a, int b) {
+        stop = visit(ri, row, a, b);
+        return stop;
+      });
+      if (stop) return true;
+    }
+    return false;
+  });
+}
+
+// The two-level walk of the float64 builds: as traverse_instances, with the
+// float64 world ray r (its box tests on box_ray(r)), float64 instance rows
+// (instances: two double2 each, (ox, oy), (oz, original row's int64 bits)),
+// the translated ray p - offset in float64 and a float64 cap:
+// visit(ri, row, first, end) with the float64 translated ray ri.
+template <class Visit>
+__device__ __forceinline__ void traverse_instances64(const Ray64& r, const double& cap,
+                                                     const float4* __restrict__ top,
+                                                     const double2* __restrict__ instances,
+                                                     const float4* __restrict__ nodes,
+                                                     Visit visit) {
+  traverse<kTopStack>(box_ray(r), cap, top, [&](int first, int end) {
+    for (int j = first; j < end; ++j) {
+      const double2 o0 = __ldg(instances + 2 * j);
+      const double2 o1 = __ldg(instances + 2 * j + 1);
+      const Ray64 ri = make_ray64(r.px - o0.x, r.py - o0.y, r.pz - o1.x, r.dx, r.dy, r.dz);
+      const int row = static_cast<int>(__double_as_longlong(o1.y));
+      bool stop = false;
+      traverse(box_ray(ri), cap, nodes, [&](int a, int b) {
         stop = visit(ri, row, a, b);
         return stop;
       });

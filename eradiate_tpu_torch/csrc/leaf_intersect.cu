@@ -57,6 +57,19 @@
 // and nowhere else, and the plain versions round the same way, so kernels
 // and plain versions agree bit for bit.
 //
+// The float64 builds (the double modes: *_f64 below) run the same walks
+// over the same float32 hierarchy, one thread per ray, with float64 rays,
+// disks (three double4 a disk, (c, original index's int64 bits), (n, r),
+// (r^2, c.n)) and exact tests (__fma_rn, the IEEE float64 division), the
+// box tests on the ray rounded to float32 (bvh.cuh box_ray, cull_cap).
+// They replace the same TPU kernels, which take float32 only; the
+// reference renders its double modes through its XLA sweeps, whose float64
+// arithmetic they reproduce. Tied float64 normals do not sum exactly: two
+// sum alike in either order, and where three or more tie, the nearest-hit
+// kernels sum them again after the walk in index order from zero (the
+// reference's masked sum), testing the winning 512-disk chunk's disks
+// (and, instanced, the winning instance's) in the table's original order.
+//
 // What bounds it on this card: the leaf table and its hierarchy are ~2 MB
 // (flat) or ~0.15 MB (instanced) and stay in L2, each ray moves 28 bytes in
 // and 17 (nearest) or 1 (any hit) out, and each exact disk test is ~30
@@ -231,6 +244,219 @@ leaf_ibvh_occluded_kernel(const float* __restrict__ p, const float* __restrict__
   occ[b] = occluded;
 }
 
+// ---------------------------------------------------------------------------
+// The float64 builds.
+
+constexpr double kDnMin64 = 1e-12;
+constexpr double kEpsT64 = 1e-7;
+constexpr double kLineSlack64 = 2e-6;  // the float32 margin: ~1e10 float64 ulp
+
+struct Disk64 {
+  double cx, cy, cz, nx, ny, nz, r2, cn, r;
+};
+
+// line_near in float64 (a cull only: its margin dwarfs float64 rounding).
+__device__ __forceinline__ bool line_near64(const Ray64& r, const Disk64& q) {
+  const double vx = q.cx - r.px, vy = q.cy - r.py, vz = q.cz - r.pz;
+  const double tc = __fma_rn(r.dz, vz, __fma_rn(r.dy, vy, r.dx * vx));
+  const double ex = __fma_rn(-r.dx, tc, vx);
+  const double ey = __fma_rn(-r.dy, tc, vy);
+  const double ez = __fma_rn(-r.dz, tc, vz);
+  const double reach =
+      q.r + kLineSlack64 * (fabs(vx) + fabs(vy) + fabs(vz) + r.l1 + q.r);
+  return __fma_rn(ez, ez, __fma_rn(ey, ey, ex * ex)) <= reach * reach;
+}
+
+__device__ __forceinline__ double dot3_64(double ax, double ay, double az, double bx,
+                                          double by, double bz) {
+  return __fma_rn(az, bz, __fma_rn(ay, by, ax * bx));
+}
+
+// disk_hit in float64: the same test, rounded as the reference under x64.
+__device__ __forceinline__ double disk_hit64(const Ray64& r, double t_max, const Disk64& q) {
+  if (!line_near64(r, q)) return -1.0;
+  const double dn = dot3_64(r.dx, r.dy, r.dz, q.nx, q.ny, q.nz);
+  const bool live = fabs(dn) > kDnMin64;
+  const double pn = dot3_64(r.px, r.py, r.pz, q.nx, q.ny, q.nz);
+  const double t = (q.cn - pn) / (live ? dn : kDnMin64);
+  const double qx = __fma_rn(r.dx, t, r.px) - q.cx;
+  const double qy = __fma_rn(r.dy, t, r.py) - q.cy;
+  const double qz = __fma_rn(r.dz, t, r.pz) - q.cz;
+  const double dist2 = dot3_64(qx, qy, qz, qx, qy, qz);
+  const bool ok = (t > kEpsT64) && (t < t_max) && (dist2 <= q.r2) && live;
+  return ok ? t : -1.0;
+}
+
+// Disk row k of a float64 hierarchy's table (six double2), and its index.
+__device__ __forceinline__ Disk64 load_disk64(const double2* __restrict__ disks, int k,
+                                              int& index) {
+  const double2 a = __ldg(disks + 6 * k);
+  const double2 b = __ldg(disks + 6 * k + 1);
+  const double2 n = __ldg(disks + 6 * k + 2);
+  const double2 m = __ldg(disks + 6 * k + 3);
+  const double2 e = __ldg(disks + 6 * k + 4);
+  index = static_cast<int>(__double_as_longlong(b.y));
+  return Disk64{a.x, a.y, b.x, n.x, n.y, m.x, e.x, e.y, m.y};
+}
+
+// Disk `i` of the table in its original order, c.n and r^2 rounded as the
+// host rounds them into the hierarchy's rows (plain products and sums).
+__device__ __forceinline__ Disk64 original_disk64(const double* __restrict__ c,
+                                                  const double* __restrict__ n,
+                                                  const double* __restrict__ rad, int i) {
+  Disk64 q;
+  q.cx = c[3 * i]; q.cy = c[3 * i + 1]; q.cz = c[3 * i + 2];
+  q.nx = n[3 * i]; q.ny = n[3 * i + 1]; q.nz = n[3 * i + 2];
+  q.r = rad[i];
+  q.r2 = q.r * q.r;
+  q.cn = (q.cx * q.nx + q.cy * q.ny) + q.cz * q.nz;
+  return q;
+}
+
+// Three or more tied normals: sum them again from zero in index order over
+// 512-disk chunk `chunk` of the table (the reference's masked sum).
+__device__ __forceinline__ void resum_ties(Best64& best, const Ray64& r, double tm, int chunk,
+                                           const double* __restrict__ c,
+                                           const double* __restrict__ n,
+                                           const double* __restrict__ rad, int N) {
+  if (best.count < 3) return;
+  double sx = 0.0, sy = 0.0, sz = 0.0;
+  int count = 0;
+  const int end = min(N, (chunk + 1) * kChunk);
+  for (int i = chunk * kChunk; i < end; ++i) {
+    const Disk64 q = original_disk64(c, n, rad, i);
+    if (disk_hit64(r, tm, q) == best.t) {
+      sx += q.nx; sy += q.ny; sz += q.nz;
+      ++count;
+    }
+  }
+  best.sx = sx; best.sy = sy; best.sz = sz;
+  best.count = count;
+}
+
+__global__ void __launch_bounds__(kThreads)
+leaf_bvh_nearest_f64_kernel(const double* __restrict__ p, const double* __restrict__ d,
+                            const double* __restrict__ t_max,
+                            const float4* __restrict__ nodes,
+                            const double2* __restrict__ disks,
+                            const double* __restrict__ centers,
+                            const double* __restrict__ normals,
+                            const double* __restrict__ radii, double* __restrict__ t_hit,
+                            double* __restrict__ normal, bool* __restrict__ hit, int B, int N) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Ray64 r = load_ray64(p, d, b);
+  const double tm = t_max[b];
+  Best64 best{tm, 0.0, 0.0, 1.0, 0, kNoChunk};
+  if (tm > kEpsT64) {
+    traverse(box_ray(r), best.t, nodes, [&](int first, int end) {
+      for (int k = first; k < end; ++k) {
+        int index;
+        const Disk64 q = load_disk64(disks, k, index);
+        best.take(disk_hit64(r, tm, q), index / kChunk, [&](double& nx, double& ny, double& nz) {
+          nx = q.nx;
+          ny = q.ny;
+          nz = q.nz;
+        });
+      }
+      return false;
+    });
+    resum_ties(best, r, tm, best.chunk, centers, normals, radii, N);
+  }
+  store_nearest64(best, tm, b, t_hit, normal, hit);
+}
+
+__global__ void __launch_bounds__(kThreads)
+leaf_bvh_occluded_f64_kernel(const double* __restrict__ p, const double* __restrict__ d,
+                             const double* __restrict__ t_max,
+                             const float4* __restrict__ nodes,
+                             const double2* __restrict__ disks, bool* __restrict__ occ, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Ray64 r = load_ray64(p, d, b);
+  const double tm = t_max[b];
+  bool occluded = false;
+  if (tm > kEpsT64) {
+    traverse(box_ray(r), tm, nodes, [&](int first, int end) {
+      for (int k = first; k < end && !occluded; ++k) {
+        int index;
+        occluded = disk_hit64(r, tm, load_disk64(disks, k, index)) >= 0.0;
+      }
+      return occluded;
+    });
+  }
+  occ[b] = occluded;
+}
+
+__global__ void __launch_bounds__(kThreads)
+leaf_ibvh_nearest_f64_kernel(const double* __restrict__ p, const double* __restrict__ d,
+                             const double* __restrict__ t_max, const float4* __restrict__ top,
+                             const double2* __restrict__ instances,
+                             const float4* __restrict__ nodes,
+                             const double2* __restrict__ disks,
+                             const double* __restrict__ centers,
+                             const double* __restrict__ normals,
+                             const double* __restrict__ radii,
+                             const double* __restrict__ offsets, double* __restrict__ t_hit,
+                             double* __restrict__ normal, bool* __restrict__ hit, int B,
+                             int N) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Ray64 r = load_ray64(p, d, b);
+  const double tm = t_max[b];
+  const int chunks = (N + kChunk - 1) / kChunk;
+  Best64 best{tm, 0.0, 0.0, 1.0, 0, kNoChunk};
+  if (tm > kEpsT64) {
+    traverse_instances64(r, best.t, top, instances, nodes,
+                         [&](const Ray64& ri, int row, int first, int end) {
+      for (int k = first; k < end; ++k) {
+        int index;
+        const Disk64 q = load_disk64(disks, k, index);
+        best.take(disk_hit64(ri, tm, q), row * chunks + index / kChunk,
+                  [&](double& nx, double& ny, double& nz) {
+                    nx = q.nx;
+                    ny = q.ny;
+                    nz = q.nz;
+                  });
+      }
+      return false;
+    });
+    if (best.count >= 3) {
+      // the winner's instance frame, the ray translated as the walk did
+      const int row = best.chunk / chunks;
+      const Ray64 ri = make_ray64(r.px - offsets[3 * row], r.py - offsets[3 * row + 1],
+                                  r.pz - offsets[3 * row + 2], r.dx, r.dy, r.dz);
+      resum_ties(best, ri, tm, best.chunk % chunks, centers, normals, radii, N);
+    }
+  }
+  store_nearest64(best, tm, b, t_hit, normal, hit);
+}
+
+__global__ void __launch_bounds__(kThreads)
+leaf_ibvh_occluded_f64_kernel(const double* __restrict__ p, const double* __restrict__ d,
+                              const double* __restrict__ t_max, const float4* __restrict__ top,
+                              const double2* __restrict__ instances,
+                              const float4* __restrict__ nodes,
+                              const double2* __restrict__ disks, bool* __restrict__ occ,
+                              int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Ray64 r = load_ray64(p, d, b);
+  const double tm = t_max[b];
+  bool occluded = false;
+  if (tm > kEpsT64) {
+    traverse_instances64(r, tm, top, instances, nodes,
+                         [&](const Ray64& ri, int, int first, int end) {
+      for (int k = first; k < end && !occluded; ++k) {
+        int index;
+        occluded = disk_hit64(ri, tm, load_disk64(disks, k, index)) >= 0.0;
+      }
+      return occluded;
+    });
+  }
+  occ[b] = occluded;
+}
+
 }  // namespace
 
 // Launch on `stream`; return cudaGetLastError() (0 = launched). `nodes` and
@@ -281,5 +507,58 @@ extern "C" int ray_leaves_occluded_instanced_launch(
       p, d, t_max, reinterpret_cast<const float4*>(top),
       reinterpret_cast<const float4*>(instances), reinterpret_cast<const float4*>(nodes),
       reinterpret_cast<const float4*>(disks), occ, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 builds: float64 rays, outputs and tables (leaf_bvh and
+// leaf_instanced_bvh of float64 disks; the nodes stay float32). The nearest
+// hits also take the table (and the offsets) in their original order, where
+// they sum three or more tied normals; N is the disk count.
+extern "C" int ray_leaves_nearest_f64_launch(
+    const double* p, const double* d, const double* t_max, const float* nodes,
+    const double* disks, const double* centers, const double* normals, const double* radii,
+    double* t_hit, double* normal, bool* hit, int B, int N, void* stream) {
+  leaf_bvh_nearest_f64_kernel<<<blocks_for(B), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const double2*>(disks), centers, normals, radii, t_hit, normal, hit, B,
+      N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ray_leaves_occluded_f64_launch(const double* p, const double* d,
+                                              const double* t_max, const float* nodes,
+                                              const double* disks, bool* occ, int B,
+                                              void* stream) {
+  leaf_bvh_occluded_f64_kernel<<<blocks_for(B), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const double2*>(disks), occ, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ray_leaves_nearest_instanced_f64_launch(
+    const double* p, const double* d, const double* t_max, const float* top,
+    const double* instances, const float* nodes, const double* disks, const double* centers,
+    const double* normals, const double* radii, const double* offsets, double* t_hit,
+    double* normal, bool* hit, int B, int N, void* stream) {
+  leaf_ibvh_nearest_f64_kernel<<<blocks_for(B), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(top),
+      reinterpret_cast<const double2*>(instances), reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const double2*>(disks), centers, normals, radii, offsets, t_hit, normal,
+      hit, B, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ray_leaves_occluded_instanced_f64_launch(
+    const double* p, const double* d, const double* t_max, const float* top,
+    const double* instances, const float* nodes, const double* disks, bool* occ, int B,
+    void* stream) {
+  leaf_ibvh_occluded_f64_kernel<<<blocks_for(B), kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(top),
+      reinterpret_cast<const double2*>(instances), reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const double2*>(disks), occ, B);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,9 @@ goes to :func:`..ops.tracer_canopy.render_canopy` on one device, or in a
 polarized mode to :func:`..ops.tracer_canopy_polarized.render_canopy_polarized`.
 Canopies hold leaf clouds, abstract trees (a leaf-cloud crown on a trunk)
 and mesh trees; trunks and mesh trees are triangle soups (the ``ray_tris``
-kernels).
+kernels). The double modes render leaf canopies in float64; a canopy with
+triangles raises in them, naming the mode (the triangle sweeps have no
+float64 build yet).
 """
 
 from __future__ import annotations
@@ -31,12 +33,15 @@ from ._atmosphere import AtmosphereExperiment
 __all__ = ["CanopyExperiment", "CanopyAtmosphereExperiment"]
 
 
-def _check_canopy_mode():
-    """Refuse a double mode: the canopy renders single precision only."""
+def _check_canopy_mode(tris):
+    """Refuse a double mode with triangles (trunks, mesh trees, a wood
+    mesh): the leaf sweeps have float64 builds, the triangle sweeps (K8,
+    K9) not yet. ``tris`` is the canopy's triangle geometry or None."""
     m = mode()
-    if m.is_double_precision:
+    if m.is_double_precision and tris is not None:
         raise NotImplementedError(
-            f"mode {m.id!r}: the canopy is not ported to double precision yet "
+            f"mode {m.id!r}: a canopy with triangles (trunks, mesh trees) does not render "
+            "in double precision yet: the triangle sweeps K8 and K9 have no float64 build "
             "(use the mode's single-precision twin)"
         )
 
@@ -158,10 +163,12 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
     def compile_canopy_scene(self, measure, ctx):
         """Compiled scene + canopy arrays for one measure: returns
         ``(scene, sensor, config, leaf_params, leaves, tris, tri_params)``
-        with numpy leaves and triangles; ``tris`` and ``tri_params`` are
-        None for canopies of leaf clouds alone."""
-        _check_canopy_mode()
+        with numpy leaves and triangles in the mode's dtype (float64 in a
+        double mode); ``tris`` and ``tri_params`` are None for canopies of
+        leaf clouds alone. A double mode with triangles raises
+        ``NotImplementedError`` naming the mode."""
         flat, leaves, tris, tri_mesh = self._leaf_arrays()
+        _check_canopy_mode(tris)
         dtype = mode().host_dtype
         scene, sensor, config = self.compile_scene(measure, ctx)
         w = np.asarray(ctx["w"], dtype=np.float64)
@@ -183,7 +190,6 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
     def process(self, spp=None, seed_state=None, device="cuda"):
         if self.canopy is None:
             return super().process(spp=spp, seed_state=seed_state, device=device)
-        _check_canopy_mode()
         dev = resolve_device(device)
         seed_state = seed_state or root_seed_state
         for measure in self.measures:

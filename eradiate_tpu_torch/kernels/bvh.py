@@ -31,6 +31,7 @@ __all__ = [
     "LEAF",
     "STACK",
     "TOP_STACK",
+    "box_ray",
     "build",
     "bvh_leaves",
     "bvh_leaves_reached_plain",
@@ -41,6 +42,7 @@ __all__ = [
     "nearest_record",
     "nearest_over_instances",
     "occluded_over_instances",
+    "row_index",
 ]
 
 #: Most items in a leaf (``kLeaf`` of the kernels).
@@ -234,10 +236,11 @@ def bvh_leaves(bvh):
 def instance_level(nodes, offsets, name):
     """The top level of a two-level hierarchy: one item per instance of the
     canonical hierarchy ``nodes`` [M, 16] (float32 numpy, root in row 0)
-    translated by ``offsets`` [I, 3] (float32 numpy, I >= 1). Returns
-    ``(top [T, 16], instances [I, 4], depth)``: the nodes of :func:`build`
-    over the instance boxes; the offsets in its leaf order, each with its
-    original row's int32 bits in column 3; and the depth, at most
+    translated by ``offsets`` [I, 3] (float32 or float64 numpy, I >= 1).
+    Returns ``(top [T, 16], instances [I, 4], depth)``: the nodes of
+    :func:`build` over the instance boxes; the offsets in its leaf order, in
+    their dtype, each with its original row's int32 (int64 for float64)
+    bits in column 3; and the depth, at most
     :data:`TOP_STACK` (raises beyond, naming ``name``).
 
     An instance's box is the canonical root box (the union of the root's two
@@ -258,9 +261,10 @@ def instance_level(nodes, offsets, name):
     grow = BOX_SLACK * np.abs(o).sum(axis=1, keepdims=True)
     top, perm, depth = build(_round_down(root_lo + o - grow), _round_up(root_hi + o + grow),
                              name, TOP_STACK)
-    instances = np.zeros((offsets.shape[0], 4), np.float32)
+    instances = np.zeros((offsets.shape[0], 4), offsets.dtype)
     instances[:, :3] = offsets[perm]
-    instances[:, 3] = perm.astype(np.int32).view(np.float32)
+    index = np.int32 if offsets.dtype == np.float32 else np.int64
+    instances[:, 3] = perm.astype(index).view(offsets.dtype)
     return top, instances, depth
 
 
@@ -301,13 +305,34 @@ def _box_reach(p, d, cap, lo, hi):
     return t_near <= t_far
 
 
+def box_ray(p, d, cap):
+    """The ray and cap the kernels' box test reads: float32 as they are; a
+    float64 ray (the float64 builds) rounded to the nearest float32 and its
+    cap rounded up. The shift, 6e-8 of the coordinates and of the distance
+    travelled, lies far inside the test's margins."""
+    if p.dtype == torch.float32:
+        return p, d, cap
+    cap32 = cap.float()
+    below = cap32.double() < cap
+    cap32 = torch.where(below, torch.nextafter(cap32, torch.full_like(cap32, np.inf)), cap32)
+    return p.float(), d.float(), cap32
+
+
+def row_index(rows):
+    """The original indices of a leaf-ordered item array's rows, from the
+    bits of its column 3 (int32 in a float32 array, int64 in a float64 one):
+    a list of ints."""
+    bits = torch.int32 if rows.dtype == torch.float32 else torch.int64
+    return rows[:, 3].contiguous().view(bits).tolist()
+
+
 def bvh_leaves_reached_plain(p, d, cap, bvh):
     """Which leaves of :func:`bvh_leaves` the kernels' cull reaches for rays
-    ``p``, ``d`` [B, 3] with caps ``cap`` [B] (float32): bool [B, L]. The
-    plain twin of the kernels' box test (same margins, same NaN rule),
-    applied to each leaf's own box."""
+    ``p``, ``d`` [B, 3] with caps ``cap`` [B] (float32, or float64 rounded
+    by :func:`box_ray`): bool [B, L]. The plain twin of the kernels' box
+    test (same margins, same NaN rule), applied to each leaf's own box."""
     _, _, lo, hi = bvh_leaves(bvh)
-    return _box_reach(p, d, cap, *(torch.from_numpy(x).to(p.device) for x in (lo, hi)))
+    return _box_reach(*box_ray(p, d, cap), *(torch.from_numpy(x).to(p.device) for x in (lo, hi)))
 
 
 def leaf_of_row(bvh, n_rows):
@@ -319,15 +344,21 @@ def leaf_of_row(bvh, n_rows):
     return row_leaf
 
 
-def nearest_record(t_max, n_items, test, order=None):
+def nearest_record(t_max, n_items, test, order=None, index_order=None):
     """A nearest-hit kernel's running record as it computes it, whatever
     the order of its visits: items ``0 .. n_items - 1`` visited one at a
     time in ``order`` (default index order). ``test(k)`` gives item ``k``'s
     exact distances [B] (+inf where missed, or where the kernel's cull does
     not reach it), its normal [3] and its tie key (an int). The order-free
     tie rule: a hit replaces the best when its ``t`` is smaller, or equal
-    with a lower key; it adds its normal (float64 sum, from zero) when ``t``
-    and key are equal. Returns ``(t_hit [B], normal [B, 3], hit [B])``."""
+    with a lower key; it adds its normal when ``t`` and key are equal.
+    Float32 normals are summed in float64 from zero, which is exact in any
+    order. Float64 normals (``t_max`` float64) are summed from zero in
+    float64 in the reference's order, the items' original order
+    ``index_order`` (a permutation of the items, default index order), in a
+    second pass over the winners, as the float64 kernels sum three or more
+    tied normals (two are summed alike in either order). Returns ``(t_hit
+    [B], normal [B, 3], hit [B])``."""
     B, device = t_max.shape[0], t_max.device
     best_t = t_max.clone()
     best_key = torch.full((B,), torch.iinfo(torch.int64).max, dtype=torch.int64, device=device)
@@ -347,8 +378,16 @@ def nearest_record(t_max, n_items, test, order=None):
         best_t = torch.where(replace, t, best_t)
         best_key = torch.where(replace, key, best_key)
     hit = cnt > 0
-    normal = total.float() / torch.clamp(cnt, min=1)[:, None].float()
-    normal = torch.where(hit[:, None], normal, torch.tensor([0.0, 0.0, 1.0], device=device))
+    dtype = t_max.dtype
+    if dtype == torch.float64:
+        total = torch.zeros((B, 3), dtype=torch.float64, device=device)
+        for k in range(n_items) if index_order is None else index_order:
+            t, n, key = test(int(k))
+            add = torch.isfinite(t) & (t == best_t) & (key == best_key)
+            total = torch.where(add[:, None], total + n, total)
+    normal = total.to(dtype) / torch.clamp(cnt, min=1)[:, None].to(dtype)
+    up = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=device)
+    normal = torch.where(hit[:, None], normal, up)
     return torch.where(hit, best_t, t_max), normal, hit
 
 
@@ -362,13 +401,13 @@ def nearest_plain(p, d, t_max, bvh, rows, test, order=None, chunk=512):
     the original index // ``chunk`` (:func:`nearest_record`)."""
     row_leaf = leaf_of_row(bvh, rows.shape[0])
     reached = bvh_leaves_reached_plain(p, d, t_max, bvh)
-    index = rows[:, 3].contiguous().view(torch.int32).tolist()
+    index = row_index(rows)
 
     def visit(k):
         t, n = test(k)
         return torch.where(reached[:, int(row_leaf[k])], t, torch.inf), n, index[k] // chunk
 
-    return nearest_record(t_max, rows.shape[0], visit, order)
+    return nearest_record(t_max, rows.shape[0], visit, order, np.argsort(index))
 
 
 def _instance_batches(p, d, t_max, offsets):
@@ -437,8 +476,8 @@ def instanced_nearest_plain(p, d, t_max, ibvh, rows, hits, normals, order=None, 
     canon = ibvh.canonical
     N, I = rows.shape[0], ibvh.instances.shape[0]
     chunks = -(-N // chunk)
-    index = rows[:, 3].contiguous().view(torch.int32).tolist()
-    inst_rows = ibvh.instances[:, 3].contiguous().view(torch.int32).tolist()
+    index = row_index(rows)
+    inst_rows = row_index(ibvh.instances)
     item_leaf = torch.from_numpy(leaf_of_row(canon, N)).to(p.device)
     top_reached = bvh_leaves_reached_plain(p, d, t_max, ibvh.top)
     top_reached = top_reached[:, torch.from_numpy(leaf_of_row(ibvh.top, I)).to(p.device)]
@@ -453,4 +492,5 @@ def instanced_nearest_plain(p, d, t_max, ibvh, rows, hits, normals, order=None, 
         j, k = divmod(m, N)
         return t[j][:, k], normals[k], inst_rows[j] * chunks + index[k] // chunk
 
-    return nearest_record(t_max, I * N, visit, order)
+    originals = np.add.outer(np.asarray(inst_rows) * N, index).reshape(-1)
+    return nearest_record(t_max, I * N, visit, order, np.argsort(originals))

@@ -427,15 +427,25 @@ def _launch_instanced(name, nearest, p, d, t_max, v0, e1, e2, offsets, bvh):
     return _launch(name, nearest, p, (p, d, t_max, *arrays), sizes, launches)
 
 
+def _on_cpu_f32(p, name):
+    """:func:`~.leaf_intersect._on_cpu`, refusing float64 rays first: the
+    triangle sweeps have no float64 build (a float64 soup is never cut to
+    float32)."""
+    if p.dtype == torch.float64:
+        raise TypeError(f"{name}: float64 rays and triangles: the triangle sweeps have no "
+                        "float64 build yet")
+    return _on_cpu(p, name)
+
+
 def ray_tris_nearest(p, d, t_max, v0, e1, e2, bvh=None):
     """Nearest triangle hit of rays ``p`` [B, 3], ``d`` [B, 3] (unit) within
     ``t_max`` [B] against triangles ``v0``, ``e1``, ``e2`` [N, 3], all
-    float32. Returns ``(t_hit [B], normal [B, 3], hit [B] bool)``.
-    ``bvh`` optionally passes :func:`tri_bvh` of the soup. CUDA tensors go
+    float32 (float64 raises). Returns ``(t_hit [B], normal [B, 3], hit [B]
+    bool)``. ``bvh`` optionally passes :func:`tri_bvh` of the soup. CUDA tensors go
     through the kernel (the wrapper checks device, dtype, contiguity, shapes
     and the hierarchy's depth, and raises if the launch fails); CPU tensors
     through :func:`ray_tris_nearest_plain`."""
-    if _on_cpu(p, "ray_tris_nearest"):
+    if _on_cpu_f32(p, "ray_tris_nearest"):
         return ray_tris_nearest_plain(p, d, t_max, v0, e1, e2)
     return _launch_flat("ray_tris_nearest", True, p, d, t_max, v0, e1, e2, bvh)
 
@@ -443,7 +453,7 @@ def ray_tris_nearest(p, d, t_max, v0, e1, e2, bvh=None):
 def ray_tris_occluded(p, d, t_max, v0, e1, e2, bvh=None):
     """True [B] where any triangle blocks the segment; operands as
     :func:`ray_tris_nearest`."""
-    if _on_cpu(p, "ray_tris_occluded"):
+    if _on_cpu_f32(p, "ray_tris_occluded"):
         return ray_tris_occluded_plain(p, d, t_max, v0, e1, e2)
     return _launch_flat("ray_tris_occluded", False, p, d, t_max, v0, e1, e2, bvh)[0]
 
@@ -452,7 +462,7 @@ def ray_tris_nearest_instanced(p, d, t_max, v0, e1, e2, offsets, bvh=None):
     """:func:`ray_tris_nearest` against the union of the canonical soup
     translated by each of ``offsets`` [I, 3]; ``bvh`` optionally passes
     :func:`tri_instanced_bvh` of the soup and the offsets."""
-    if _on_cpu(p, "ray_tris_nearest_instanced"):
+    if _on_cpu_f32(p, "ray_tris_nearest_instanced"):
         return ray_tris_nearest_instanced_plain(p, d, t_max, v0, e1, e2, offsets)
     return _launch_instanced("ray_tris_nearest_instanced", True, p, d, t_max, v0, e1, e2,
                              offsets, bvh)
@@ -460,7 +470,7 @@ def ray_tris_nearest_instanced(p, d, t_max, v0, e1, e2, offsets, bvh=None):
 
 def ray_tris_occluded_instanced(p, d, t_max, v0, e1, e2, offsets, bvh=None):
     """:func:`ray_tris_occluded` against the translated copies."""
-    if _on_cpu(p, "ray_tris_occluded_instanced"):
+    if _on_cpu_f32(p, "ray_tris_occluded_instanced"):
         return ray_tris_occluded_instanced_plain(p, d, t_max, v0, e1, e2, offsets)
     return _launch_instanced("ray_tris_occluded_instanced", False, p, d, t_max, v0, e1, e2,
                              offsets, bvh)[0]

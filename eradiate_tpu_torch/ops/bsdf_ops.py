@@ -288,11 +288,16 @@ def bilambertian_sample_from_uniforms(params, wo, u_side, u):
     side ``wo`` leaves from) from uniforms ``u_side`` [B] and ``u`` [B, 2]:
     reflect with probability rho / (rho + tau) (cosine-weighted, +z),
     transmit otherwise (cosine-weighted, -z). Returns ``(w_new, weight)``
-    with weight = rho + tau."""
+    with weight = rho + tau. Float32 uniforms in float64 path state (``wo``)
+    give a float32 direction rounded as the jitted reference's
+    (:func:`.fastmath.cosine_hemisphere_xla`)."""
     rho = params["reflectance"]
     total = rho + params["transmittance"]
     reflect = u_side < rho / torch.clamp(total, min=1e-12)
-    w_new = square_to_cosine_hemisphere(u)
+    if wo.dtype == torch.float64 and u.dtype == torch.float32:
+        w_new = cosine_hemisphere_xla(u)
+    else:
+        w_new = square_to_cosine_hemisphere(u)
     flip = torch.tensor([1.0, 1.0, -1.0], dtype=w_new.dtype, device=w_new.device)
     w_new = torch.where(reflect[..., None], w_new, w_new * flip)
     weight = torch.where(total > 0, total, 0.0).expand(w_new.shape[:-1])

@@ -10,7 +10,10 @@ union of the translated copies without materialising them.
 bounding box (:func:`_advance_to_aabb`, an accuracy fix for float32 as much
 as a cull) and hand the clipped segment to the sweeps of
 :mod:`eradiate_tpu_torch.kernels.leaf_intersect`: CUDA kernels for CUDA
-tensors, the plain dense sweeps for CPU tensors.
+tensors, the plain sweeps for CPU tensors. Everything follows the dtype of
+the leaves and the rays: float32, or float64 in the double modes (the
+kernels' float64 builds; the box advance's fused multiply-adds exact in
+float64, as XLA:CPU rounds them under x64).
 """
 
 from __future__ import annotations

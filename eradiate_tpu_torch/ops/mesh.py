@@ -82,9 +82,14 @@ def tri_accel(tris):
     None on the CPU, where the dense sweeps use none and nothing is built.
     The box is the vertices' (plus the offsets' for instances). Compute once
     per render, outside the path loop, and pass to every
-    :func:`tri_nearest`/:func:`tri_occluded`."""
+    :func:`tri_nearest`/:func:`tri_occluded`. A float64 soup raises
+    ``NotImplementedError``: the triangle sweeps take float32 only."""
     instanced = isinstance(tris, InstancedTriArrays)
     base = tris.canonical if instanced else tris
+    if base.v0.dtype == torch.float64:
+        raise NotImplementedError(
+            "float64 triangles (a double mode): the triangle sweeps (K8, K9) have no "
+            "float64 build yet")
     verts = torch.cat([base.v0, base.v0 + base.e1, base.v0 + base.e2])
     lo = verts.min(dim=0).values
     hi = verts.max(dim=0).values

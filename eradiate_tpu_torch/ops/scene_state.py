@@ -247,17 +247,20 @@ def from_reference(scene, sensor, config, device):
     return SceneArrays(medium, surface, illumination), sensor_t, config_t
 
 
-def canopy_from_reference(leaves, leaf_params, device, tris=None, tri_params=None):
+def canopy_from_reference(leaves, leaf_params, device, tris=None, tri_params=None,
+                          dtype=np.float32):
     """Leaf and triangle geometry and their optics of a compiled canopy as
     the port's tensors on ``device``: ``leaves`` is a flat cloud
     (``centers``, ``normals``, ``radii``) or an instanced one (``canonical``,
     ``offsets``), ``tris`` None, a flat soup (``v0``, ``e1``, ``e2``) or an
     instanced one, the reference's or the port's; ``leaf_params`` and
     ``tri_params`` map ``reflectance`` and ``transmittance`` to [S] rows.
-    Returns ``(leaves, leaf_params, tris, tri_params)``."""
+    Floating leaves take ``dtype``, the scene's (:func:`scene_dtype`):
+    float64 in a double mode. Returns ``(leaves, leaf_params, tris,
+    tri_params)``."""
 
     def leaf(x):
-        return _tensor(x, device).contiguous()
+        return _tensor(x, device, dtype).contiguous()
 
     def cloud(c):
         return LeafCloudArrays(
@@ -273,7 +276,7 @@ def canopy_from_reference(leaves, leaf_params, device, tris=None, tri_params=Non
         return base(x)
 
     def optics(params):
-        return {k: _tensor(v, device) for k, v in params.items()}
+        return {k: _tensor(v, device, dtype) for k, v in params.items()}
 
     out = instanced(leaves, cloud, InstancedLeafArrays), optics(leaf_params)
     if tris is None:

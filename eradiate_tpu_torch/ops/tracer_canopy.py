@@ -19,6 +19,12 @@ The reference's ``while_loop`` is an eager Python loop here, as in
 sweep once and their any-hit sweep once, and with triangles the triangles'
 two sweeps as well.
 
+In a double mode the path state, the leaves and the sums are float64 (the
+leaf sweeps' float64 builds on the card), as in the reference under x64;
+the uniforms stay float32, and their float32 arithmetic rounds as the
+jitted reference's (:mod:`.fastmath`'s depth sample, the bilambertian and
+Lambertian directions).
+
 Random numbers follow the reference bit for bit (threefry row and chunk keys
 on the host, pcg4d per-sample keys and per-bounce uniforms on the device).
 A sample's stream depends on (seed, spectral row, chunk, pixel, sample id
@@ -42,6 +48,7 @@ from .bsdf_ops import (
 )
 from ..kernels.leaf_intersect import fma
 from .canopy import leaf_accel, leaf_nearest, leaf_occluded
+from .fastmath import depth_sample
 from .fastrng import bounce_uniforms, derive_keys, origin_uniforms
 from .medium import clamp_mu, take_1d, tau_at_z, z_at_tau
 from .mesh import tri_accel, tri_nearest, tri_occluded
@@ -53,7 +60,7 @@ from .phase_ops import (
     phase_sample_at,
     rebuild_fetched,
 )
-from .scene_state import canopy_from_reference, from_reference
+from .scene_state import canopy_from_reference, from_reference, scene_dtype
 from .tracer import (
     CANOPY_PATHS_PER_DISPATCH,
     CHECK_EVERY,
@@ -172,7 +179,7 @@ def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpe
         mu = clamp_mu(d[:, 2])
         tau_here = tau_z(z)
         tau_exit = torch.where(mu > 0.0, (tau_top - tau_here) / mu, tau_here / (-mu))
-        tau_s = -torch.log1p(-u_dist)
+        tau_s = depth_sample(u_dist, exact=dtype == torch.float64)
         collide_med = tau_s < tau_exit
 
         tau_new = torch.minimum(torch.clamp(tau_here + mu * tau_s, min=0.0), tau_top)
@@ -510,17 +517,19 @@ def render_canopy(
     """
     _check_supported(config)
     dev = resolve_device(device)
+    dt = scene_dtype(scene.medium)
     scene, sensor, config = from_reference(scene, sensor, config, dev)
     leaves, leaf_params, tris, tri_params = canopy_from_reference(
-        leaves, leaf_params, dev, tris, tri_params
+        leaves, leaf_params, dev, tris, tri_params, dt
     )
+    dtype = scene.medium.tau_levels.dtype  # float64 in a double mode, as the reference's sums
     if lanes_target is None:
         lanes_target = LANES_TARGET[dev.type]
     S, n_pix = scene.medium.tau_levels.shape[0], sensor.directions.shape[0]
     chunks = chunk_plan(spp, spp_chunk, S, n_pix, CANOPY_PATHS_PER_DISPATCH[dev.type])
 
-    rad_sum = torch.zeros((S, n_pix), dtype=torch.float32, device=dev)
-    m2_sum = torch.zeros((S, n_pix), dtype=torch.float32, device=dev)
+    rad_sum = torch.zeros((S, n_pix), dtype=dtype, device=dev)
+    m2_sum = torch.zeros((S, n_pix), dtype=dtype, device=dev)
     iterations = 0
     for n, s, key, rows in canopy_rows(scene, leaf_params, tri_params, seed, chunks, dev):
         medium_row, surface_row, leaf_row, illum_row, tri_row = rows

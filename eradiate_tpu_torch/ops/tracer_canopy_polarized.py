@@ -24,6 +24,11 @@ triangles, the triangle sweeps (K8 flat, K9 instanced) launch once each a
 bounce iteration on the card. The Morton lane sort permutes P and the
 basis with the rest of a lane's state; regeneration resets them; Russian
 roulette reweights beta once, not P.
+
+In ``mono_polarized_double`` (``bench.py``'s ``mono_polarized``) the path
+state, the Mueller chain, the leaves and the sums are float64, as in the
+reference under x64, and the leaf sweeps run their float64 builds on the
+card.
 """
 
 from __future__ import annotations
@@ -38,12 +43,13 @@ from .bsdf_ops import (
 )
 from .bsdf_polarized import surface_mueller
 from .canopy import leaf_nearest
+from .fastmath import depth_sample
 from .fastrng import bounce_uniforms, derive_keys, origin_uniforms
 from .medium import clamp_mu, take_1d, z_at_tau
 from .mesh import tri_nearest
 from .mueller import default_basis, depolarizer, matmul4, matvec4
 from .phase_ops import check_phase_kinds, layer_param_slots, rebuild_fetched
-from .scene_state import canopy_from_reference, from_reference
+from .scene_state import canopy_from_reference, from_reference, scene_dtype
 from .tracer import CANOPY_PATHS_PER_DISPATCH, CHECK_EVERY, chunk_plan, lane_partition
 from .tracer_canopy import (
     CANOPY_SORT_EVERY,
@@ -110,7 +116,7 @@ def _make_bounce_canopy_polarized(
         mu = clamp_mu(d[:, 2])
         tau_here = tau_z(z)
         tau_exit = torch.where(mu > 0.0, (tau_top - tau_here) / mu, tau_here / (-mu))
-        tau_s = -torch.log1p(-u_dist)
+        tau_s = depth_sample(u_dist, exact=dtype == torch.float64)
         collide_med = tau_s < tau_exit
 
         tau_new = torch.minimum(torch.clamp(tau_here + mu * tau_s, min=0.0), tau_top)
@@ -391,17 +397,19 @@ def render_canopy_polarized(
     """
     _check_supported(config)
     dev = resolve_device(device)
+    dt = scene_dtype(scene.medium)
     scene, sensor, config = from_reference(scene, sensor, config, dev)
     leaves, leaf_params, tris, tri_params = canopy_from_reference(
-        leaves, leaf_params, dev, tris, tri_params
+        leaves, leaf_params, dev, tris, tri_params, dt
     )
+    dtype = scene.medium.tau_levels.dtype  # float64 in a double mode, as the reference's sums
     if lanes_target is None:
         lanes_target = LANES_TARGET[dev.type]
     S, n_pix = scene.medium.tau_levels.shape[0], sensor.directions.shape[0]
     chunks = chunk_plan(spp, spp_chunk, S, n_pix, CANOPY_PATHS_PER_DISPATCH[dev.type])
 
-    st_sum = torch.zeros((S, n_pix, 4), dtype=torch.float32, device=dev)
-    m2_sum = torch.zeros((S, n_pix), dtype=torch.float32, device=dev)
+    st_sum = torch.zeros((S, n_pix, 4), dtype=dtype, device=dev)
+    m2_sum = torch.zeros((S, n_pix), dtype=dtype, device=dev)
     iterations = 0
     for n, s, key, rows in canopy_rows(scene, leaf_params, tri_params, seed, chunks, dev):
         medium_row, surface_row, leaf_row, illum_row, tri_row = rows

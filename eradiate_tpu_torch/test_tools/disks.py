@@ -8,7 +8,9 @@ rims; :func:`axis_rays` does so with direction components that are exactly
 the disks at grazing incidence; :func:`tie_disks` makes exact ties of the
 hit distance between disks of one 512-disk chunk and of two;
 :func:`zero_normal_disks` gives normals with components exactly +-0.
-Every function draws from the generator it is given.
+Every function draws from the generator it is given; the rays and the tie
+tables come in float32 unless ``dtype`` asks for float64 (the float64
+builds' stresses, at full float64 resolution).
 """
 
 from __future__ import annotations
@@ -54,13 +56,13 @@ def _frames(rng, B, offsets):
     return offsets[rng.integers(0, len(offsets), B)]
 
 
-def rim_rays(rng, B, c, n, r, offsets=None, distance=1.0, origins=None):
+def rim_rays(rng, B, c, n, r, offsets=None, distance=1.0, origins=None, dtype=np.float32):
     """``B`` rays aimed at points of disks drawn at random: on the rim, just
     inside and just outside it (1e-7 and 1e-6 of the radius) and halfway in,
     in one of the instance frames ``offsets`` [I, 3] if given. Origins lie
     ``distance`` x (0.5..3) back along a random direction, or at ``origins``
     [B, 3] if given; the caps are twice, exactly, just above and just below
-    the distance to the target. Returns float32 ``(p, d, t_max)``."""
+    the distance to the target. Returns ``(p, d, t_max)`` in ``dtype``."""
     offsets = np.zeros((1, 3)) if offsets is None else np.asarray(offsets)
     leaf = rng.integers(0, c.shape[0], B)
     u = _in_plane(rng, n[leaf])
@@ -72,10 +74,10 @@ def rim_rays(rng, B, c, n, r, offsets=None, distance=1.0, origins=None):
         back = _unit(origins - rim)
         dist = np.linalg.norm(origins - rim, axis=1)
     t_max = _caps(rng, dist)
-    return tuple(np.asarray(a, np.float32) for a in (rim + back * dist[:, None], -back, t_max))
+    return tuple(np.asarray(a, dtype) for a in (rim + back * dist[:, None], -back, t_max))
 
 
-def axis_rays(rng, B, c, n, r, distance=1.0, offsets=None):
+def axis_rays(rng, B, c, n, r, distance=1.0, offsets=None, dtype=np.float32):
     """``B`` rays with direction components that are exactly +0 or -0 (the
     sun and the views of an hplane at azimuth 0 have d_y = 0): two thirds
     travel in the x-z plane, a third along an axis. Half aim at the point of
@@ -84,14 +86,14 @@ def axis_rays(rng, B, c, n, r, distance=1.0, offsets=None):
     rest at interior points, starting on the target's own coordinates. In
     one of the instance frames ``offsets`` [I, 3] if given (the world
     target's coordinates). Origins lie ``distance`` x (0.5..3) back.
-    Returns float32 ``(p, d, t_max)``."""
+    Returns ``(p, d, t_max)`` in ``dtype``."""
     leaf = rng.integers(0, c.shape[0], B)
     angle = rng.uniform(0.0, 2.0 * np.pi, B)
     d = np.stack([np.cos(angle), np.zeros(B), np.sin(angle)], axis=1)
     along = np.eye(3)[rng.integers(0, 3, B)] * rng.choice([-1.0, 1.0], (B, 1))
-    d = np.where((rng.integers(0, 3, B) == 2)[:, None], along, d).astype(np.float32)
+    d = np.where((rng.integers(0, 3, B) == 2)[:, None], along, d).astype(dtype)
     zero = d == 0.0
-    d = np.where(zero, np.copysign(np.float32(0.0), rng.choice([-1.0, 1.0], (B, 3))), d)
+    d = np.where(zero, np.copysign(dtype(0.0), rng.choice([-1.0, 1.0], (B, 3))), d)
     # a zero axis of each ray, and the rim point extreme along it
     axis = np.argmax(zero, axis=1)
     e = np.eye(3)[axis] * rng.choice([-1.0, 1.0], (B, 1))
@@ -103,17 +105,17 @@ def axis_rays(rng, B, c, n, r, distance=1.0, offsets=None):
     target = np.where((rng.integers(0, 2, B) == 0)[:, None], extreme, inner)
     target = target + _frames(rng, B, offsets)
     dist = rng.uniform(0.5, 3.0, B) * distance
-    p = (target - d * dist[:, None]).astype(np.float32)
-    p = np.where(zero, target.astype(np.float32), p)
-    return p, d.astype(np.float32), _caps(rng, dist).astype(np.float32)
+    p = (target - d * dist[:, None]).astype(dtype)
+    p = np.where(zero, target.astype(dtype), p)
+    return p, d.astype(dtype), _caps(rng, dist).astype(dtype)
 
 
-def grazing_rays(rng, B, c, n, r, distance=1.0, offsets=None):
+def grazing_rays(rng, B, c, n, r, distance=1.0, offsets=None, dtype=np.float32):
     """``B`` rays that meet a disk drawn at random at grazing incidence: an
     in-plane direction tilted toward the normal by 1e-2 to 1e-5 (either
     side), aimed at interior and rim points, in one of the instance frames
     ``offsets`` [I, 3] if given. Origins lie ``distance`` x (0.5..3) back.
-    Returns float32 ``(p, d, t_max)``."""
+    Returns ``(p, d, t_max)`` in ``dtype``."""
     leaf = rng.integers(0, c.shape[0], B)
     nl = n[leaf]
     tilt = rng.choice([1e-2, 1e-3, 1e-4, 1e-5], B) * rng.choice([-1.0, 1.0], B)
@@ -122,7 +124,7 @@ def grazing_rays(rng, B, c, n, r, distance=1.0, offsets=None):
     target = c[leaf] + (r[leaf] * s)[:, None] * _in_plane(rng, nl) + _frames(rng, B, offsets)
     dist = rng.uniform(0.5, 3.0, B) * distance
     p = target - d * dist[:, None]
-    return tuple(np.asarray(a, np.float32) for a in (p, d, _caps(rng, dist)))
+    return tuple(np.asarray(a, dtype) for a in (p, d, _caps(rng, dist)))
 
 
 def zero_normal_disks(rng, n, share=0.5):
@@ -170,12 +172,12 @@ def tie_disks(rng, B, N=600):
 
 
 def _sum_in_order_differs(n):
-    """Does float32 summation in index order, fl(fl(fl(n + n) + n) - n),
-    miss 2n exactly in a component of ``n`` [3] (float32)?"""
-    return bool((((n + n) + n) - n != np.float32(2) * n).any())
+    """Does summation in index order in ``n``'s dtype, fl(fl(fl(n + n) + n)
+    - n), miss 2n exactly in a component of ``n`` [3]?"""
+    return bool((((n + n) + n) - n != n.dtype.type(2) * n).any())
 
 
-def instanced_tie_disks(rng, B, N=600):
+def instanced_tie_disks(rng, B, N=600, dtype=np.float32):
     """A canonical table of ``N`` disks (km) at three offsets, ``(0, 0, 0)``,
     ``(delta, 0, 0)`` and ``(-delta, 0, 0)`` with ``delta = 1 / 16``, wider
     than the cloud, with exact ties of the hit
@@ -188,6 +190,10 @@ def instanced_tie_disks(rng, B, N=600):
     disks (rows 6-9) in chunk 0 with normals n, n, n, -n, whose average is
     n / 2 exactly when summed in float64 and not when summed in float32 in
     index order (n is drawn until fl(fl(3n) - n) != 2n in a component).
+    With ``dtype`` float64 (the float64 builds' table, full float64
+    coordinates and normals) n is drawn until that holds in float64, so
+    that only the reference's order of the sum, index order from zero,
+    gives its average.
 
     Across instances: disks a (rows 10-13) whose normals have an x component
     of exactly 0, each with a copy b = (c_a + delta x, -n_a, r_a) in the
@@ -199,13 +205,13 @@ def instanced_tie_disks(rng, B, N=600):
 
     Rays from 5 cm aim within half the radius at rows 0, 2, 4, 5, the quad,
     the a and the b disks of instance 0, a seventh of the lanes each.
-    Returns float32 ``(c, n, r)``, ``offsets`` [3, 3] and ``(p, d,
-    t_max)``."""
+    Returns ``(c, n, r)``, ``offsets`` [3, 3] and ``(p, d, t_max)`` in
+    ``dtype``."""
     delta = 2.0**-4
     c = rng.uniform(-0.02, 0.02, (N, 3))
     n = _unit(rng.normal(size=(N, 3)))
     r = rng.uniform(1e-3, 3e-3, N)
-    c, n, r = (np.asarray(a, np.float32) for a in (c, n, r))
+    c, n, r = (np.asarray(a, dtype) for a in (c, n, r))
     c[1], n[1], r[1] = c[0], -n[0], r[0]  # opposite normal, inside chunk 0
     c[N - 1], n[N - 1], r[N - 1] = c[2], -n[2], 2 * r[2]  # opposite, larger, across
     c[3], n[3], r[3] = c[4], n[4], 2 * r[4]  # larger, inside chunk 0
@@ -219,8 +225,8 @@ def instanced_tie_disks(rng, B, N=600):
     na = n[a].astype(np.float64)
     na[:, 0] = 0.0
     n[a] = _unit(na)
-    c[b], n[b], r[b] = c[a] + np.float32([delta, 0.0, 0.0]), -n[a], r[a]
-    offsets = np.array([[0.0, 0.0, 0.0], [delta, 0.0, 0.0], [-delta, 0.0, 0.0]], np.float32)
+    c[b], n[b], r[b] = c[a] + np.asarray([delta, 0.0, 0.0], dtype), -n[a], r[a]
+    offsets = np.array([[0.0, 0.0, 0.0], [delta, 0.0, 0.0], [-delta, 0.0, 0.0]], dtype)
 
     kind = np.arange(B) % 7
     k = np.array([0, 2, 4, 5, 6, 10, N - 3])[kind]
@@ -229,6 +235,6 @@ def instanced_tie_disks(rng, B, N=600):
     u = _in_plane(rng, n[k].astype(np.float64))
     target = c[k] + (0.5 * r[k] * rng.uniform(0, 1, B))[:, None] * u
     back = _unit(rng.normal(size=(B, 3)))
-    p = (target + 0.05 * back).astype(np.float32)
-    d = _unit(target - p).astype(np.float32)
-    return (c, n, r), offsets, (p, d, np.full(B, 0.1, np.float32))
+    p = (target + 0.05 * back).astype(dtype)
+    d = _unit(target - p).astype(dtype)
+    return (c, n, r), offsets, (p, d, np.full(B, 0.1, dtype))

@@ -201,19 +201,32 @@ def test_ckd_polarized_single_matches_reference():
 
 @pytest.mark.parametrize("mode_id", ["ckd_double", "ckd_polarized_double"])
 def test_other_ckd_modes_raise(mode_id):
-    """The double CKD modes render c3 (``test_torch_double.py``); a canopy
-    over the same CKD atmosphere, not ported to them, raises naming the
-    mode."""
+    """The double CKD modes render c3 (``test_torch_double.py``) and a leaf
+    canopy over the same CKD atmosphere, every raw row in float64; the
+    canopy given a tree's trunks (triangles, whose sweeps have no float64
+    build yet) raises naming the mode."""
     from eradiate_tpu_torch import CanopyAtmosphereExperiment
+    from eradiate_tpu_torch.scenes import biosphere as bio
     from eradiate_tpu_torch.test_tools.test_cases import create_het01_brfpp
 
     eradiate_tpu_torch.set_mode(mode_id)
     try:
-        kw = c3_kwargs(make_synthetic_ckd_db(base_sigma=2e-3, ng=8), n_vza=1)
+        kw = c3_kwargs(make_synthetic_ckd_db(base_sigma=2e-3, ng=2), n_vza=1)
+        atmosphere = {"measures": kw["measures"], "atmosphere": kw["atmosphere"],
+                      "ckd_quad_config": {"ng_max": 2}}
         exp = CanopyAtmosphereExperiment(
-            canopy=create_het01_brfpp(n_vza=1, n_leaves=20).canopy,
-            **{k: kw[k] for k in ("measures", "atmosphere", "ckd_quad_config")},
-        )
+            canopy=create_het01_brfpp(n_vza=1, n_leaves=20).canopy, **atmosphere)
+        ds = eradiate_tpu_torch.run(exp, spp=8, device="cpu")
+        raw = exp.measures[0].results["raw"]["radiance"]
+        assert raw.dtype == np.float64 and raw.shape[0] == 14  # 7 bins x 2 g-points
+        assert np.isfinite(np.asarray(ds["brf"])).all()
+        tree = bio.AbstractTree(leaf_cloud=bio.LeafCloud.sphere(n_leaves=20, leaf_radius=0.4,
+                                                                 radius=2.0))
+        exp = CanopyAtmosphereExperiment(
+            canopy=bio.DiscreteCanopy(size=(30.0, 30.0, 15.0), instanced_canopy_elements=[
+                {"type": "instanced", "canopy_element": tree,
+                 "instance_positions": [[-8e-3, -5e-3, 0.0], [6e-3, -7e-3, 0.0]]}]),
+            **atmosphere)
         with pytest.raises(NotImplementedError, match=mode_id):
             eradiate_tpu_torch.run(exp, spp=8, device="cpu")
     finally:

@@ -64,7 +64,13 @@ not) and on random columns up to L = 12287 (a 128 KiB search tree), with
 float64 NaN, +-inf, -0.0 and every level one ulp either side; the shell
 kernels on the flight's and the slant's stresses taken into float64 and on
 a planet of 1e6 km (1200 shells of 0.1 km, which float32 cannot tell
-apart), K4 at K2's event points equal to K3's tau_sun.
+apart), K4 at K2's event points equal to K3's tau_sun. The leaf sweeps'
+float64 builds (``leaf_bvh_nearest_f64_kernel``,
+``leaf_bvh_occluded_f64_kernel``, ``leaf_ibvh_nearest_f64_kernel``,
+``leaf_ibvh_occluded_f64_kernel``) are held on float64 disks and rays as
+the float32 kernels are, and on the float64 tie table (three- and four-way
+ties, whose float64 normals they sum again in index order); a float64
+operand beside float32 ones raises before any launch.
 """
 
 import numpy as np
@@ -221,29 +227,33 @@ def test_collision_fetch_f64_kernel_shapes(card, L, K, B):
     fetch_held_f64(q, column, card)
 
 
-def rim_problem(B, seed, instanced, far=False, zero_normals=False):
+def rim_problem(B, seed, instanced, far=False, zero_normals=False, dtype=np.float32):
     """700 random disks (at three offsets when ``instanced``) and rays at
     their rims from 0.5-3 units (``far``: 100x farther); ``zero_normals``
-    gives every normal a component of exactly +-0."""
+    gives every normal a component of exactly +-0. In ``dtype``."""
     rng = np.random.default_rng(seed)
     c, n, r = disks.random_disks(rng, 700)
     if zero_normals:
         n = disks.zero_normal_disks(rng, n, share=1.0)
     offsets = np.array([[0.0, 0, 0], [5.0, 0, 0], [0, 7.0, 0]]) if instanced else None
-    arrays = [*disks.rim_rays(rng, B, c, n, r, offsets, 100.0 if far else 1.0), c, n, r]
+    arrays = [*disks.rim_rays(rng, B, c, n, r, offsets, 100.0 if far else 1.0, dtype=dtype),
+              c, n, r]
     if instanced:
         arrays.append(offsets)
-    return [np.asarray(a, np.float32) for a in arrays]
+    return [np.asarray(a, dtype) for a in arrays]
 
 
 def _held(mod, name, args, slice_lanes=2**14):
     """Launch sweep ``name`` of module ``mod`` once and hold it against its
     plain version (in slices of lanes: its [B, 512] float64 temporaries) on
-    every lane, bit pattern for bit pattern."""
-    before = mod.launches[name]
+    every lane, bit pattern for bit pattern. Float64 operands launch the
+    float64 build, counted in ``launches_f64``."""
+    counts, key = ((mod.launches_f64, name + "_f64") if args[0].dtype == torch.float64
+                   else (mod.launches, name))
+    before = counts[key]
     got = getattr(mod, name)(*args)
     torch.cuda.synchronize()
-    assert mod.launches[name] == before + 1
+    assert counts[key] == before + 1
     got = got if isinstance(got, tuple) else (got,)
     want = []
     for start in range(0, args[0].shape[0], slice_lanes):
@@ -561,3 +571,75 @@ def test_shell_f64_kernels_planet_of_1e6_km(card):
     w = torch.tensor(SUN_85, device=card).double()
     collide, _, layer = f64_shells_held(card, p, d, t_max, tau_s, radii, sigma, w)
     assert collide.any() and not collide.all() and int(layer.max()) > 1000
+
+
+# ---------------------------------------------------------------------------
+# the float64 builds of the leaf sweeps (K5, K6, K7: the double modes)
+
+LEAF_SWEEPS = ["ray_leaves_nearest", "ray_leaves_occluded", "ray_leaves_nearest_instanced",
+               "ray_leaves_occluded_instanced"]
+
+
+@pytest.mark.parametrize("name", LEAF_SWEEPS)
+@pytest.mark.parametrize("B", [1, 100_037])
+@pytest.mark.parametrize("far", [False, True])
+def test_leaf_f64_kernel_equals_plain_version(card, name, B, far):
+    problem = rim_problem(B, 5, name.endswith("instanced"), far, dtype=np.float64)
+    got = _held(li, name, [torch.tensor(a, device=card) for a in problem])
+    assert got[0].dtype == torch.float64 or name.startswith("ray_leaves_occluded")
+    assert got[-1].any() or B == 1
+
+
+@pytest.mark.parametrize("name", ["ray_leaves_nearest", "ray_leaves_nearest_instanced"])
+def test_leaf_f64_kernel_zero_normals(card, name):
+    """Float64 winners with a normal component of -0.0 come out +0.0."""
+    problem = rim_problem(100_037, 6, name.endswith("instanced"), zero_normals=True,
+                          dtype=np.float64)
+    got = _held(li, name, [torch.tensor(a, device=card) for a in problem])
+    assert got[2].any() and not torch.signbit(got[1][got[1] == 0]).any()
+
+
+@pytest.mark.parametrize("name", LEAF_SWEEPS)
+@pytest.mark.parametrize("case", ["ties", "zero components near", "zero components far",
+                                  "grazing", "far offsets"])
+def test_leaf_f64_kernel_stress(card, name, case):
+    """The float64 builds on the float64 tie table (two-, three- and
+    four-way ties inside a chunk, whose float64 normals the kernels sum
+    again in index order, ties across chunks and, instanced, across
+    instances), direction components exactly +-0 near and far, grazing
+    rays and (instanced) instances 200 units from the world origin."""
+    inst = name.endswith("instanced")
+    if case == "far offsets" and not inst:
+        pytest.skip("instances only")
+    rng = np.random.default_rng(10)
+    offsets = np.array([[0.0, 0, 0], [5.0, 0, 0], [0, 7.0, 0]])
+    f64 = np.float64
+    if case == "ties":
+        table, offsets, rays = disks.instanced_tie_disks(rng, 30_011, dtype=f64)
+    else:
+        table = disks.random_disks(rng, 700)
+        if case == "far offsets":
+            offsets = np.array([[200.0, 0, 0], [0, -200.0, 0], [140.0, 140.0, 30.0]])
+            rays = disks.rim_rays(rng, 100_037, *table, offsets,
+                                  origins=rng.uniform(-1, 1, (100_037, 3)), dtype=f64)
+        elif case == "grazing":
+            rays = disks.grazing_rays(rng, 100_037, *table, offsets=offsets if inst else None,
+                                      dtype=f64)
+        else:
+            rays = disks.axis_rays(rng, 100_037, *table, 100.0 if case.endswith("far") else 1.0,
+                                   offsets if inst else None, dtype=f64)
+    arrays = (*rays, *table) + ((offsets,) if inst else ())
+    got = _held(li, name, [torch.tensor(np.asarray(a, f64), device=card) for a in arrays])
+    assert got[-1].any()
+
+
+def test_leaf_f64_wrappers_refuse_mixed_dtypes(card):
+    """Float64 rays against a float32 table (or the reverse) raise before
+    any launch: a float64 operand is never cut to float32."""
+    problem = rim_problem(1000, 7, False, dtype=np.float64)
+    args = [torch.tensor(a, device=card) for a in problem]
+    before = (dict(li.launches), dict(li.launches_f64))
+    for mixed in (args[:3] + [a.float() for a in args[3:]], [a.float() for a in args[:3]] + args[3:]):
+        with pytest.raises(TypeError):
+            li.ray_leaves_nearest(*mixed)
+    assert (li.launches, li.launches_f64) == before

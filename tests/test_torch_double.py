@@ -17,8 +17,8 @@ direction). Gates, at the same seed:
 - the sensitivity case: the port's single-precision render of the same c1
   scene misses that gate (its path state is float32);
 - every double mode id and alias resolves to float64 path state and renders
-  a small plane-parallel and a small spherical scene; the canopy raises
-  naming the mode;
+  a small plane-parallel and a small spherical scene and a small leaf
+  canopy in float64; a canopy with triangles raises naming the mode;
 - ``compile_scene`` in a double mode gives the reference's leaves under x64
   bit for bit, float64 each (plane-parallel and spherical: no sun-tau table,
   which is float32 only);
@@ -51,6 +51,7 @@ from eradiate_tpu_torch.test_tools.test_cases import (
     create_het01_brfpp,
     create_rpv_afgl1986_continental_brfpp,
 )
+from test_torch_canopy_experiment import _with_tree
 from test_torch_experiment import _leaves
 
 torch.set_num_threads(1)
@@ -163,8 +164,9 @@ def _small(mode_id, spherical):
 @pytest.mark.parametrize("mode_id", [*DOUBLE_MODES, *ALIASES])
 def test_every_double_mode_renders_in_float64(mode_id):
     """Each double mode id and alias: float64 path state, a small
-    plane-parallel and a small spherical render, and the canopy refused by
-    name."""
+    plane-parallel and a small spherical render, a small leaf canopy
+    rendered in float64 (the float64 builds of the leaf sweeps), and a
+    canopy with triangles (a tree's trunks) refused naming the mode."""
     eradiate_tpu_torch.set_mode(mode_id)
     try:
         m = eradiate_tpu_torch.mode()
@@ -181,8 +183,12 @@ def test_every_double_mode_renders_in_float64(mode_id):
         canopy = CanopyAtmosphereExperiment(
             canopy=create_het01_brfpp(n_vza=1, n_leaves=20).canopy,
             measures={"type": "mdistant", "construct": "hplane", "zeniths": [0.0]})
-        with pytest.raises(NotImplementedError, match=m.id):
-            eradiate_tpu_torch.run(canopy, spp=8, device="cpu")
+        ds = eradiate_tpu_torch.run(canopy, spp=8, seed_state=eradiate_tpu_torch.SeedState(3),
+                                    device="cpu")
+        assert canopy.measures[0].results["raw"]["radiance"].dtype == np.float64
+        assert np.isfinite(np.asarray(ds["brf"])).all()
+        with pytest.raises(NotImplementedError, match=f"{m.id}.*K8 and K9"):
+            eradiate_tpu_torch.run(_with_tree(), spp=8, device="cpu")
     finally:
         eradiate_tpu_torch.set_mode("mono")
 
