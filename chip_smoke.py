@@ -28,7 +28,7 @@ script writes as an OBJ file into a temporary directory from a seed
 also run with polarized transport, in ``mono_polarized_single`` (``bench.py``
 names ``mono_polarized``, the double-precision mode, whose path state the
 JAX package keeps in float32 unless x64 is on; the port runs its double
-modes in float64, phases 32-40: c5 in ``mono_polarized`` in phase 39). BASELINE config 2 (``_c2``): an RPV floor
+modes in float64, phases 32-43: c5 in ``mono_polarized`` in phase 39). BASELINE config 2 (``_c2``): an RPV floor
 under the AFGL Rayleigh column with a 0-2 km continental aerosol layer (tau
 0.2 at 550 nm, the packaged Govaerts 2021 dataset, a tabulated phase
 function on 181 nodes), sun at SZA 30, 76 view zeniths at 2097152 spp.
@@ -310,7 +310,42 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
     the same way (K5/K6's and K7's float64 builds), beside phases 13 and
     14; then both forms in ``mono_double`` and the instanced one in
     ``mono_polarized_double`` at 64 spp on the card against the CPU, with
-    the gate of phases 12 and 22, their worst pixel difference printed.
+    the gate of phases 12 and 22, their worst pixel difference printed;
+41. the float64 builds of the triangle sweeps (``bvh_nearest_f64_kernel``,
+    ``bvh_occluded_f64_kernel``, ``tri_ibvh_nearest_f64_kernel``,
+    ``tri_ibvh_occluded_f64_kernel``) against their float64 plain versions
+    on the card, bit pattern for bit pattern on every lane: ``c5_trees``'
+    trunks at their 15 positions and ``c5_wood``'s 92700 triangles compiled
+    in ``mono_double``, at the path's lane count (timed, with each kernel's
+    device and call time, its plain version's on 2^16 (trunks) and 2^14
+    (wood) seeded lanes, what a ray reaches and its bound over the float64
+    rate, beside phase 16's float32 device time), ragged and beside the
+    box; the wood skeleton (flat, or at three offsets) in float64 with rays
+    at its shared edges and vertices and rays exactly at its vertices (a
+    cap's apex joins 12 triangles, a side vertex 6: ties of three and more,
+    whose float64 normals the kernels sum again in index order) from 0.5-3
+    m and 50-300 m; the float64 tie soups (ties inside a chunk and across
+    two, placed so that the walk meets the higher chunk first, and across
+    instances); direction components exactly +-0 near and far; the trunks
+    at their vertices, and at three positions 2 km from the world origin;
+    then the instanced kernels on the skeleton as canonical soup (N = 6180,
+    I = 15) against the flat ones on its 92700 triangles in float64, both
+    timed, the instanced ones with their bound;
+42. ``c5_trees`` and ``c5_wood`` in ``mono_double`` at full width (19 x
+    2097152), as phase 40: the leaves' and the triangles' float64 builds
+    launched once an iteration each and nothing else; wall, samples/s,
+    iterations, kernels and device ms an iteration, busy share, peak memory,
+    each triangle kernel's device time a launch inside the run, and the
+    wall and BRF at nadir beside phases 18 and 19's ``mono_single`` runs;
+43. ``c5_trees`` in ``mono_double`` and ``mono_polarized_double`` and
+    ``c5_wood`` (the 12-branch skeleton of phase 17) in ``mono_double`` at
+    64 spp on the card against the CPU, with the gate of phases 12 and 22,
+    their worst pixel difference printed.
+
+The CPU sides of the canopy phases' CUDA-against-CPU gates (12, 17, 22,
+40, 43) render in one background process (one thread, no card), submitted
+after the build, so that their minutes overlap the card's work; the script
+ends that process on exit.
 
 It prints a ``{"kernels": [...]}`` line (each kernel with its launches on its
 main path, its error against the plain version, its call time (``ms``) and
@@ -337,7 +372,10 @@ c3's in ``ckd``), ``shell_event_f64`` (c4 SZA 75 in ``mono_double``),
 ``shell_flight_f64`` and ``slant_tau_f64`` (path B at 8192 spp), and the
 leaf sweeps' ``ray_leaves_nearest_f64``, ``ray_leaves_occluded_f64`` (the
 flat c5 in ``mono_double``), ``ray_leaves_nearest_instanced_f64`` and
-``ray_leaves_occluded_instanced_f64`` (c5 in ``mono_polarized``), with
+``ray_leaves_occluded_instanced_f64`` (c5 in ``mono_polarized``), and the
+triangle sweeps' ``ray_tris_nearest_f64``, ``ray_tris_occluded_f64``
+(``c5_wood`` in ``mono_double``), ``ray_tris_nearest_instanced_f64`` and
+``ray_tris_occluded_instanced_f64`` (``c5_trees`` in ``mono_double``), with
 their launches on the other double paths, ``launches_on``, and device time
 a launch inside the full-width runs, ``run_device_ms``; their bounds over
 the float64 rate) and the
@@ -403,6 +441,10 @@ KERNELS = {
     "ray_leaves_occluded_f64": "leaf_bvh_occluded_f64_kernel",
     "ray_leaves_nearest_instanced_f64": "leaf_ibvh_nearest_f64_kernel",
     "ray_leaves_occluded_instanced_f64": "leaf_ibvh_occluded_f64_kernel",
+    "ray_tris_nearest_f64": "bvh_nearest_f64_kernel",
+    "ray_tris_occluded_f64": "bvh_occluded_f64_kernel",
+    "ray_tris_nearest_instanced_f64": "tri_ibvh_nearest_f64_kernel",
+    "ray_tris_occluded_instanced_f64": "tri_ibvh_occluded_f64_kernel",
 }
 #: Cycles of the spin kernel the card runs while the host enqueues the
 #: calls that ``_device_ms`` times (about 10 ms on an H100).
@@ -432,7 +474,8 @@ def reset_launches():
     from eradiate_tpu_torch.kernels import tri_intersect as ti
 
     cf.launches = cf.launches_f64 = 0
-    for counts in (sf.launches, sf.launches_f64, li.launches, li.launches_f64, ti.launches):
+    for counts in (sf.launches, sf.launches_f64, li.launches, li.launches_f64, ti.launches,
+                   ti.launches_f64):
         counts.update(dict.fromkeys(counts, 0))
 
 
@@ -445,7 +488,8 @@ def read_launches():
 
     return {"collision_fetch": cf.launches, **sf.launches, **li.launches, **ti.launches,
             "collision_fetch_f64": cf.launches_f64,
-            **{f"{k}_f64": n for k, n in sf.launches_f64.items()}, **li.launches_f64}
+            **{f"{k}_f64": n for k, n in sf.launches_f64.items()}, **li.launches_f64,
+            **ti.launches_f64}
 
 
 def _c1(n_vza, layer_merge_tol=1e-3, stokes=False):
@@ -1380,7 +1424,7 @@ def _canopy_inputs(exp, B, seed, miss=False, device="cuda"):
     if tris is None:
         return (*out, None, None, None)
     tri_cull, tri_lo, tri_hi = tri_accel(tris)
-    return (*out, tris, tri_cull, _clipped(rays, tri_lo, tri_hi, device))
+    return (*out, tris, tri_cull, _clipped(rays, tri_lo, tri_hi, device, dt))
 
 
 def _disk_inputs(table, rays, offsets=None, dtype=np.float32):
@@ -1479,14 +1523,17 @@ def _instanced_stress_inputs(kind, B, seed, dtype=np.float32):
     return _disk_inputs(table, rays, offsets, dtype)
 
 
-def _edge_inputs(instanced, B, seed, far, device="cuda"):
+def _edge_inputs(instanced, B, seed, far, device="cuda", dtype=np.float32, vertices=False):
     """A stress of the triangle kernels' exact test and culls: the wood
     skeleton (closed cylinders, 6180 triangles, at three offsets when
     ``instanced``) and rays aimed at its shared edges, at its vertices, at
     interior points and just beside edges, from 0.5-3 m away (``far``: from
     50-300 m, 100x farther), with caps that end on, just before and just
-    behind the target. Returns ``(tris, cull operand, (p, d, t_cap))``: the
-    two-level hierarchy of the instanced kernels or the flat ones'."""
+    behind the target; with ``vertices``, rays aimed exactly at its
+    vertices, half along an axis (``test_tools.meshes.vertex_rays``: a cap's
+    apex joins twelve triangles, a side vertex up to six). In ``dtype``.
+    Returns ``(tris, cull operand, (p, d, t_cap))``: the two-level hierarchy
+    of the instanced kernels or the flat ones'."""
     import torch
 
     from eradiate_tpu_torch.kernels.tri_intersect import tri_bvh, tri_instanced_bvh
@@ -1495,13 +1542,18 @@ def _edge_inputs(instanced, B, seed, far, device="cuda"):
         TriangleMeshArrays,
         mesh_from_vertices,
     )
-    from eradiate_tpu_torch.test_tools.meshes import edge_rays, wood_skeleton
+    from eradiate_tpu_torch.test_tools.meshes import edge_rays, vertex_rays, wood_skeleton
 
     v, f = wood_skeleton(np.random.default_rng(7), n_branches=WOOD_BRANCHES)
-    soup = mesh_from_vertices((v * 1e-3).astype(np.float32), f)
+    soup = mesh_from_vertices((v * 1e-3).astype(dtype), f)
     offsets = np.array([[0.0, 0, 0], [0.02, 0, 0], [0, 0.03, 0]]) if instanced else None
-    rays = edge_rays(np.random.default_rng(seed), B, soup, offsets, 1e-3 if far else 1e-5)
-    to_dev = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)  # noqa: E731
+    rng = np.random.default_rng(seed)
+    if vertices:
+        verts = v * 1e-3 if offsets is None else np.concatenate([v * 1e-3 + o for o in offsets])
+        rays = vertex_rays(rng, B, verts, 1e-3 if far else 1e-5, dtype=dtype)
+    else:
+        rays = edge_rays(rng, B, soup, offsets, 1e-3 if far else 1e-5, dtype=dtype)
+    to_dev = lambda a: torch.tensor(np.asarray(a, dtype), device=device)  # noqa: E731
     tris = TriangleMeshArrays(to_dev(soup.v0), to_dev(soup.e1), to_dev(soup.e2))
     if instanced:
         tris = InstancedTriArrays(tris, to_dev(offsets))
@@ -1512,7 +1564,7 @@ def _edge_inputs(instanced, B, seed, far, device="cuda"):
     return tris, cull, tuple(to_dev(a) for a in rays)
 
 
-def _flat_stress_inputs(kind, B, seed, device="cuda"):
+def _flat_stress_inputs(kind, B, seed, device="cuda", dtype=np.float32):
     """Stresses of the flat kernels' hierarchy. ``"ties"``: the soup of
     ``test_tools.meshes.tie_soup`` (600 triangles with scaled copies and
     exact duplicates inside one 512-triangle chunk and across two, the copy
@@ -1520,7 +1572,8 @@ def _flat_stress_inputs(kind, B, seed, device="cuda"):
     it first) and rays at the originals; ``"axes near"``/``"axes far"``: the
     wood skeleton and rays of ``axis_rays`` from 0.5-3 m or 50-300 m, with
     direction components exactly +-0 and the zero components of the origin
-    on the planes of vertices. Returns ``(tris, hierarchy, (p, d, t_cap))``."""
+    on the planes of vertices. In ``dtype``. Returns ``(tris, hierarchy, (p, d,
+    t_cap))``."""
     import torch
 
     from eradiate_tpu_torch.kernels.tri_intersect import tri_bvh
@@ -1529,18 +1582,18 @@ def _flat_stress_inputs(kind, B, seed, device="cuda"):
 
     rng = np.random.default_rng(seed)
     if kind == "ties":
-        arrays, rays = tie_soup(rng, B)
+        arrays, rays = tie_soup(rng, B, dtype=dtype)
     else:
         v, f = wood_skeleton(np.random.default_rng(7), n_branches=WOOD_BRANCHES)
-        soup = mesh_from_vertices((v * 1e-3).astype(np.float32), f)
+        soup = mesh_from_vertices((v * 1e-3).astype(dtype), f)
         arrays = (soup.v0, soup.e1, soup.e2)
-        rays = axis_rays(rng, B, soup, 1e-3 if kind.endswith("far") else 1e-5)
-    to_dev = lambda a: torch.tensor(np.ascontiguousarray(a, np.float32), device=device)  # noqa: E731
+        rays = axis_rays(rng, B, soup, 1e-3 if kind.endswith("far") else 1e-5, dtype=dtype)
+    to_dev = lambda a: torch.tensor(np.ascontiguousarray(a, dtype), device=device)  # noqa: E731
     tris = TriangleMeshArrays(*(to_dev(a) for a in arrays))
     return tris, tri_bvh(tris.v0, tris.e1, tris.e2), tuple(to_dev(a) for a in rays)
 
 
-def _instanced_tri_stress_inputs(kind, B, seed, trunks=None):
+def _instanced_tri_stress_inputs(kind, B, seed, trunks=None, dtype=np.float32):
     """Stresses of the instanced triangle kernels' two-level hierarchy
     (``test_tools.meshes``). ``"ties"``: the instanced tie soup (600
     triangles at nine offsets, three at each: exact ties inside a chunk,
@@ -1554,8 +1607,10 @@ def _instanced_tri_stress_inputs(kind, B, seed, trunks=None):
     ``"zero normals"``, every trunk triangle moved into a plane of a
     coordinate (normal components exactly +-0) and rays at its edges;
     ``"far offsets"``, the trunk at three positions 2 km from the world
-    origin and rays at its edges from within 10 m of it. Returns ``(tris,
-    hierarchy, (p, d, t_cap))``."""
+    origin and rays at its edges from within 10 m of it; ``"vertices"``, rays
+    exactly at the trunks' vertices, half along an axis (a cap's apex joins
+    twelve triangles, a side vertex six). In ``dtype``.
+    Returns ``(tris, hierarchy, (p, d, t_cap))``."""
     import torch
 
     from eradiate_tpu_torch.kernels.tri_intersect import tri_instanced_bvh
@@ -1564,7 +1619,7 @@ def _instanced_tri_stress_inputs(kind, B, seed, trunks=None):
 
     rng = np.random.default_rng(seed)
     if kind == "ties":
-        arrays, offsets, rays = meshes.instanced_tie_soup(rng, B)
+        arrays, offsets, rays = meshes.instanced_tie_soup(rng, B, dtype=dtype)
     else:
         base = trunks.canonical
         arrays = tuple(x.cpu().numpy() for x in (base.v0, base.e1, base.e2))
@@ -1574,12 +1629,18 @@ def _instanced_tri_stress_inputs(kind, B, seed, trunks=None):
         soup = TriangleMeshArrays(*arrays)
         if kind == "far offsets":
             offsets = np.array([[2.0, 0, 0], [0, -2.0, 0], [1.4, 1.4, 0.3]])
-            rays = meshes.edge_rays(rng, B, soup, offsets, origins=rng.uniform(-0.01, 0.01, (B, 3)))
+            rays = meshes.edge_rays(rng, B, soup, offsets, origins=rng.uniform(-0.01, 0.01, (B, 3)),
+                                    dtype=dtype)
         elif kind == "zero normals":
-            rays = meshes.edge_rays(rng, B, soup, offsets)
+            rays = meshes.edge_rays(rng, B, soup, offsets, dtype=dtype)
+        elif kind == "vertices":
+            corners = np.concatenate([arrays[0], arrays[0] + arrays[1], arrays[0] + arrays[2]])
+            rays = meshes.vertex_rays(rng, B, np.concatenate([corners + o for o in offsets]),
+                                      dtype=dtype)
         else:
-            rays = meshes.axis_rays(rng, B, soup, 1e-3 if kind.endswith("far") else 1e-5, offsets)
-    to_dev = lambda a: torch.tensor(np.ascontiguousarray(a, np.float32), device="cuda")  # noqa: E731
+            rays = meshes.axis_rays(rng, B, soup, 1e-3 if kind.endswith("far") else 1e-5, offsets,
+                                    dtype=dtype)
+    to_dev = lambda a: torch.tensor(np.ascontiguousarray(a, dtype), device="cuda")  # noqa: E731
     tris = InstancedTriArrays(TriangleMeshArrays(*(to_dev(a) for a in arrays)), to_dev(offsets))
     c = tris.canonical
     return tris, tri_instanced_bvh(c.v0, c.e1, c.e2, tris.offsets), tuple(map(to_dev, rays))
@@ -1897,7 +1958,7 @@ def check_rebuild(label, cull, build):
     return seconds
 
 
-def instanced_against_flat(exp, B, seed, mesh_dir, plain_lanes=2**16):
+def instanced_against_flat(exp, B, seed, mesh_dir, plain_lanes=2**16, dtype=np.float32):
     """The instanced triangle kernels on the wood skeleton as canonical soup
     (N = 6180, I = 15; its two-level hierarchy built and timed here) against
     the flat kernels on the flattened soup of ``exp`` (the same 92700
@@ -1909,8 +1970,11 @@ def instanced_against_flat(exp, B, seed, mesh_dir, plain_lanes=2**16):
     1e-6 km are counted, printed, and held under 1e-3 of the lanes. The
     instanced kernels' bound counts the exact tests at item granularity
     (:func:`_item_pairs` on ``plain_lanes`` seeded lanes, scaled), as
-    :func:`check_sweep_kernels` does. Returns the instanced kernels' {kernel:
-    {"ms", "device_ms", "device_by", "bound_ms", "bound_by"}}."""
+    :func:`check_sweep_kernels` does. In ``dtype``: float64 runs the float64
+    builds (the flat soup compiled in the double mode that is set), keyed
+    ``_f64`` and bounded over the float64 rate. Returns the instanced
+    kernels' {kernel: {"ms", "device_ms", "device_by", "bound_ms",
+    "bound_by"}}."""
     import torch
 
     from eradiate_tpu_torch.kernels.tri_intersect import tri_instanced_bvh
@@ -1922,9 +1986,12 @@ def instanced_against_flat(exp, B, seed, mesh_dir, plain_lanes=2**16):
     from eradiate_tpu_torch.scenes.shapes import FileMeshShape
 
     *_, flat, flat_bvh, rays = _canopy_inputs(exp, B, seed)
+    if rays[0].dtype != (torch.float64 if dtype == np.float64 else torch.float32):
+        raise AssertionError(f"the c5_wood soup did not compile in {np.dtype(dtype)}")
+    suffix, peak = ("_f64", PEAK_F64_FLOPS) if dtype == np.float64 else ("", PEAK_F32_FLOPS)
     v, f = FileMeshShape(filename=_wood_obj(mesh_dir), mesh_units="m").triangles()
-    soup = mesh_from_vertices(v.astype(np.float32), f)
-    to_dev = lambda a: torch.tensor(np.asarray(a, np.float32), device="cuda")  # noqa: E731
+    soup = mesh_from_vertices(v.astype(dtype), f)
+    to_dev = lambda a: torch.tensor(np.asarray(a, dtype), device="cuda")  # noqa: E731
     canonical = TriangleMeshArrays(to_dev(soup.v0), to_dev(soup.e1), to_dev(soup.e2))
     offsets = to_dev(np.atleast_2d(exp.canopy.instanced_canopy_elements[1].instance_positions))
     inst = InstancedTriArrays(canonical, offsets)
@@ -1939,6 +2006,7 @@ def instanced_against_flat(exp, B, seed, mesh_dir, plain_lanes=2**16):
     for (k_flat, (fn_f, _, a_f)), (k_inst, (fn_i, _, a_i)) in zip(
         flat_calls.items(), inst_calls.items()
     ):
+        k_flat, k_inst = k_flat + suffix, k_inst + suffix
         got_f, got_i = fn_f(a_f), fn_i(a_i)
         got_f, got_i = (g if isinstance(g, tuple) else (g,) for g in (got_f, got_i))
         differ = got_f[-1] != got_i[-1]
@@ -1958,7 +2026,7 @@ def instanced_against_flat(exp, B, seed, mesh_dir, plain_lanes=2**16):
         tensors = (*rays, canonical.v0, canonical.e1, canonical.e2, offsets, *got_i)
         cap, occ = (got_i[0], None) if len(got_i) == 3 else (rays[2], got_i[0])
         pairs = _item_pairs(inst, rays, cap, occ, subset)
-        bound = bound_ms(sum(t.numel() * t.element_size() for t in tensors), 45.0 * pairs)
+        bound = bound_ms(sum(t.numel() * t.element_size() for t in tensors), 45.0 * pairs, peak)
         out[k_inst] = {"ms": ms_i, "device_ms": dev_i, "device_by": by_i, "bound_ms": bound[0],
                        "bound_by": bound[1]}
         note += (f"; {ms_i:.4f} ms (device {dev_i:.4f} by the {by_i}) against {ms_f:.4f} ms; "
@@ -2001,27 +2069,79 @@ def _nadir(ds):
     return I, Q / I, dolp, float(np.asarray(ds["vza"])[i])
 
 
-def c5_cuda_vs_cpu(form, phase, mesh_dir=None, branches=WOOD_BRANCHES, stokes=False):
+def _cpu_worker_init():
+    """Set-up of :class:`CpuRenders`' process: it sees no card and runs one
+    thread."""
+    import os
+
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def _cpu_c5_render(mode, form, branches, stokes):
+    """One 64-spp render of a form of the c5 scene on the CPU in ``mode``, at
+    the seed of the CUDA runs (:class:`CpuRenders`' job): its data variables
+    as numpy arrays, and the seconds it took."""
+    import eradiate_tpu_torch as etp
+
+    etp.set_mode(mode)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as mesh_dir:
+        ds = etp.run(_c5(form, mesh_dir, branches, stokes), spp=64,
+                     seed_state=etp.SeedState(SEED), device="cpu")
+        out = {k: np.asarray(ds[k]) for k in ds.data_vars}
+    return out, time.perf_counter() - t0
+
+
+class CpuRenders:
+    """The CPU sides of the canopy phases' CUDA-against-CPU gates (12, 17,
+    22, 40, 43), rendered in one background process, one thread, that sees
+    no card: submitted at the start and collected where a phase compares
+    them with its CUDA run, so that their minutes overlap the card's work.
+    The process ends in :meth:`close` (registered at exit)."""
+
+    def __init__(self):
+        import atexit
+        import multiprocessing
+
+        self._pool = multiprocessing.get_context("spawn").Pool(1, initializer=_cpu_worker_init)
+        self._jobs = {}
+        atexit.register(self.close)
+
+    def submit(self, mode, form, branches=WOOD_BRANCHES, stokes=False):
+        key = (mode, form, branches, stokes)
+        if key not in self._jobs:
+            self._jobs[key] = self._pool.apply_async(_cpu_c5_render, key)
+
+    def get(self, mode, form, branches=WOOD_BRANCHES, stokes=False):
+        """The render's (data variables, seconds), waiting for it."""
+        self.submit(mode, form, branches, stokes)
+        return self._jobs[mode, form, branches, stokes].get()
+
+    def close(self):
+        self._pool.terminate()
+        self._pool.join()
+
+
+def c5_cuda_vs_cpu(form, phase, cpu, mesh_dir=None, branches=WOOD_BRANCHES, stokes=False):
     """The port on CUDA against the port on the CPU for one form of the
     canopy, 64 spp at one seed. Scalar: every pixel within |z| <= 5, the
     median pixel within 1e-4 relative. With ``stokes`` (in
     ``mono_polarized_single``), the gate of phase 20: I within 1e-4 relative
-    on every pixel and each Stokes component within |z| <= 5. Returns the
-    CUDA run's launches."""
+    on every pixel and each Stokes component within |z| <= 5. The CPU run
+    comes from ``cpu`` (:class:`CpuRenders`). Returns the CUDA run's
+    launches."""
     import eradiate_tpu_torch as etp
 
-    out = {}
-    for dev in ("cuda", "cpu"):
-        reset_launches()
-        t0 = time.perf_counter()
-        ds = etp.run(_c5(form, mesh_dir, branches, stokes), spp=64,
-                     seed_state=etp.SeedState(SEED), device=dev)
-        seconds = time.perf_counter() - t0
-        out[dev] = {k: np.asarray(ds[k]) for k in ds.data_vars}
-        if dev == "cuda":
-            launches = read_launches()
-    gpu, cpu = out["cuda"], out["cpu"]
     mode = etp.mode()
+    reset_launches()
+    ds = etp.run(_c5(form, mesh_dir, branches, stokes), spp=64, seed_state=etp.SeedState(SEED),
+                 device="cuda")
+    gpu = {k: np.asarray(ds[k]) for k in ds.data_vars}
+    launches = read_launches()
+    cpu, seconds = cpu.get(mode.id, form, branches, stokes)
     if mode.is_double_precision and not gpu["brf"].dtype == cpu["brf"].dtype == np.float64:
         raise AssertionError(f"the c5 scene ({form}) in {mode.id} did not render in float64")
     brf_g, brf_c = gpu["brf"], cpu["brf"]
@@ -2842,13 +2962,14 @@ def path_b_double(phase, spp):
     return launches
 
 
-def canopy_double_phases(B5, single_times, pol_single, ds_pol_single, c5_single):
+def canopy_double_phases(B5, single_times, pol_single, ds_pol_single, c5_single, cpu):
     """Phases 38-40, the leaf canopy in the double modes through the float64
     builds of K5, K6 and K7 (``B5``: the c5 path's lane count;
     ``single_times``: phase 11's times of the float32 kernels;
     ``pol_single``: phase 23's numbers of polarized c5 in
     ``mono_polarized_single``, ``ds_pol_single`` its dataset; ``c5_single``:
-    phases 13 and 14's walls and BRF at nadir by form). Returns the four
+    phases 13 and 14's walls and BRF at nadir by form; ``cpu``: the
+    :class:`CpuRenders` of the CPU runs). Returns the four
     float64 sweeps' errors, times, bounds, reach, launches on their paths
     and launches and device times on the other double paths."""
     import torch
@@ -2940,9 +3061,9 @@ def canopy_double_phases(B5, single_times, pol_single, ds_pol_single, c5_single)
               f"{run['brf_middle']:.6f} against {one['brf_nadir']:.6f}", flush=True)
     small = {}
     for form in ("instanced", "flat"):
-        small[form] = c5_cuda_vs_cpu(form, phase=40)
+        small[form] = c5_cuda_vs_cpu(form, 40, cpu)
     etp.set_mode("mono_polarized_double")
-    small["polarized"] = c5_cuda_vs_cpu("instanced", phase=40, stokes=True)
+    small["polarized"] = c5_cuda_vs_cpu("instanced", 40, cpu, stokes=True)
     etp.set_mode("mono_single")
     launches = {"ray_leaves_nearest_f64": runs["flat"]["launches"]["ray_leaves_nearest_f64"],
                 "ray_leaves_occluded_f64": runs["flat"]["launches"]["ray_leaves_occluded_f64"],
@@ -2958,6 +3079,141 @@ def canopy_double_phases(B5, single_times, pol_single, ds_pol_single, c5_single)
              for k in launches}
     return {"errs": errs, "times": times, "bounds": bounds, "reach": reach,
             "launches": launches, "extra": extra, "pol": pol, "runs": runs}
+
+
+#: The float64 builds of the triangle sweeps, by the form of the c5 scene
+#: whose path launches them.
+TRI_F64 = {form: tuple(k + "_f64" for k in C5_KERNELS[form] if k.startswith("ray_tris"))
+           for form in ("trees", "wood")}
+
+
+def tri_double_phases(B5, single_times, tri_single, cpu):
+    """Phases 41-43, canopies with triangles in the double modes through the
+    float64 builds of K8 and K9 (``B5``: the c5 path's lane count;
+    ``single_times``: phase 16's times of the float32 kernels;
+    ``tri_single``: phases 18 and 19's walls and BRF at nadir by form;
+    ``cpu``: the :class:`CpuRenders` of the CPU runs). Returns the four
+    float64 triangle sweeps' errors, times, bounds, reach, skeleton times,
+    launches on their paths and launches and device times on the other
+    double paths."""
+    import torch
+
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.kernels.tri_intersect import tri_bvh, tri_instanced_bvh
+    from eradiate_tpu_torch.ops import tracer_canopy
+
+    f64 = np.float64
+    etp.set_mode("mono_double")
+    print("[41] triangle-sweep kernels' float64 builds against their float64 plain versions: "
+          "bvh_nearest_f64_kernel, bvh_occluded_f64_kernel (flat), tri_ibvh_nearest_f64_kernel, "
+          "tri_ibvh_occluded_f64_kernel (instanced)", flush=True)
+    errs, times, bounds, reach = {}, {}, {}, {}
+    with tempfile.TemporaryDirectory() as mesh_dir:
+        for form, plain_lanes in (("trees", 2**16), ("wood", 2**14)):
+            exp = _c5(form, mesh_dir)
+            *_, tris, cull, rays = _canopy_inputs(exp, B5, seed=70)
+            if rays[0].dtype != torch.float64:
+                raise AssertionError(f"c5_{form} did not compile float64 triangles in mono_double")
+            if form == "wood":
+                check_rebuild("c5_wood in float64", cull,
+                              lambda: tri_bvh(tris.v0, tris.e1, tris.e2))
+            else:
+                trunks = tris
+                check_rebuild("c5_trees trunks in float64", cull, lambda: tri_instanced_bvh(
+                    trunks.canonical.v0, trunks.canonical.e1, trunks.canonical.e2,
+                    trunks.offsets))
+            form_errs, t, b, r = check_sweep_kernels(
+                f"c5_{form} in float64, the path's lane count", tris, cull, rays, seed=70,
+                timed=True, plain_lanes=plain_lanes)
+            times.update(t)
+            bounds.update(b)
+            reach.update(r)
+            inst = form == "trees"
+            # the float64 plain sweep of 92700 triangles runs on every lane
+            # of these: fewer lanes for the wood
+            ragged, beside = (50_021, 2**15) if inst else (16_411, 2**13)
+            cases = [
+                (f"c5_{form} in float64, ragged ({ragged} lanes)",
+                 lambda: _canopy_inputs(exp, ragged, 71)[3:]),
+                (f"c5_{form} in float64, rays beside the box",
+                 lambda: _canopy_inputs(exp, beside, 71, miss=True)[3:]),
+            ]
+            kind = "instanced" if inst else "flat"
+            for far, label in ((False, "0.5-3 m"), (True, "50-300 m")):
+                cases += [
+                    (f"wood skeleton {kind} in float64, rays at edges and vertices from {label}",
+                     lambda far=far: _edge_inputs(inst, 2**15, 72, far, dtype=f64)),
+                    (f"wood skeleton {kind} in float64, rays exactly at its vertices (cap apexes "
+                     f"of 12 and 8 triangles, side vertices of 6) from {label}",
+                     lambda far=far: _edge_inputs(inst, 2**15, 73, far, dtype=f64,
+                                                  vertices=True)),
+                ]
+            if not inst:
+                cases += [
+                    ("float64 tie soup, exact ties inside a chunk and across (the walk meets "
+                     "the higher chunk first)",
+                     lambda: _flat_stress_inputs("ties", 2**16, 74, dtype=f64)),
+                    ("wood skeleton flat in float64, zero direction components, from 0.5-3 m",
+                     lambda: _flat_stress_inputs("axes near", 2**16, 75, dtype=f64)),
+                    ("wood skeleton flat in float64, zero direction components, from 50-300 m",
+                     lambda: _flat_stress_inputs("axes far", 2**16, 76, dtype=f64)),
+                ]
+            else:
+                cases += [
+                    (f"float64 instanced tie soup, exact ties inside a chunk, across chunks and "
+                     f"across instances (the walk meets the higher instance first)",
+                     lambda: _instanced_tri_stress_inputs("ties", 2**16, 74, dtype=f64)),
+                    ("c5_trees trunks in float64, rays exactly at their vertices",
+                     lambda: _instanced_tri_stress_inputs("vertices", 2**16, 75, trunks, f64)),
+                    ("c5_trees trunks in float64, zero direction components, from 0.5-3 m",
+                     lambda: _instanced_tri_stress_inputs("axes near", 2**16, 76, trunks, f64)),
+                    ("c5_trees trunks in float64, zero direction components, from 50-300 m",
+                     lambda: _instanced_tri_stress_inputs("axes far", 2**16, 77, trunks, f64)),
+                    ("c5_trees trunks in float64 2 km from the world origin, rays from near it",
+                     lambda: _instanced_tri_stress_inputs("far offsets", 2**16, 78, trunks, f64)),
+                ]
+            for label, make in cases:
+                more, *_ = check_sweep_kernels(label, *make(), seed=71, plain_lanes=2**16)
+                form_errs = {k: max(v, more[k]) for k, v in form_errs.items()}
+            errs.update(form_errs)
+        skeleton = instanced_against_flat(_c5("wood", mesh_dir), B5, 70, mesh_dir, dtype=f64)
+        for k, t in times.items():
+            one = single_times[k[: -len("_f64")]]
+            print(f"    {k}: device {t['device_ms']:.4f} ms against the float32 kernel's "
+                  f"{one['device_ms']:.4f} ms ({t['device_ms'] / one['device_ms']:.2f}x), call "
+                  f"{t['ms']:.4f} ms, plain {t['plain_ms']:.1f} ms at {t['plain_lanes']} lanes, "
+                  f"reach {reach.get(k, 'not measured')}, bound {bounds[k][0]:.4f} ms by "
+                  f"{bounds[k][1]} (float64 rate)", flush=True)
+
+        # -- 42. c5_trees and c5_wood in mono_double at full width ------------
+        runs = {form: profiled_full_width(
+            42, f"c5_{form}", lambda n, form=form: _c5(form, mesh_dir), "mono_double", SPP_C5,
+            N_VZA_C5, tracer_canopy, "leaf_nearest",
+            tuple(k + "_f64" for k in C5_KERNELS[form]), 20, 40) for form in ("trees", "wood")}
+        for form, run in runs.items():
+            one = tri_single[form]
+            print(f"     c5_{form} in mono_double against mono_single (phase "
+                  f"{18 if form == 'trees' else 19}): wall {run['wall_s']:.3f} s against "
+                  f"{one['wall_s']:.3f} s ({run['wall_s'] / one['wall_s']:.3f}x), samples/s "
+                  f"{run['samples_per_s']:.4e}, BRF at nadir {run['brf_middle']:.6f} against "
+                  f"{one['brf_nadir']:.6f}; "
+                  + ", ".join(f"{k} {run['run_device_ms'][k]:.4f} ms" for k in TRI_F64[form])
+                  + " of device time a launch inside the run", flush=True)
+
+        # -- 43. CUDA against the CPU at 64 spp ----------------------------------
+        small = {"trees": c5_cuda_vs_cpu("trees", 43, cpu),
+                 "wood": c5_cuda_vs_cpu("wood", 43, cpu, mesh_dir, branches=12)}
+        etp.set_mode("mono_polarized_double")
+        small["trees_polarized"] = c5_cuda_vs_cpu("trees", 43, cpu, stokes=True)
+    etp.set_mode("mono_single")
+    launches = {k: runs[form]["launches"][k] for form, keys in TRI_F64.items() for k in keys}
+    extra = {k: {"launches_on": {f"c5_{form}_64spp": n for form, counts in small.items()
+                                 if (n := counts.get(k))},
+                 "run_device_ms": {f"c5_{form}": runs[form]["run_device_ms"][k]
+                                   for form in runs if k in runs[form]["run_device_ms"]}}
+             for k in launches}
+    return {"errs": errs, "times": times, "bounds": bounds, "reach": reach,
+            "skeleton": skeleton, "launches": launches, "extra": extra, "runs": runs}
 
 
 def double_phases(fetch_times, B4, sun_85, c3_wall):
@@ -3107,6 +3363,24 @@ def main():
           f"{lib._name}", flush=True)
     report = Path(lib._name).with_suffix(".log").read_text().strip()
     print("    " + report.replace("\n", "\n    "), flush=True)
+    # the CPU sides of the canopy gates, in the order the phases need them
+    cpu = CpuRenders()
+    for mode, form, branches, stokes in (
+        ("mono_single", "instanced", WOOD_BRANCHES, False),  # 12
+        ("mono_single", "flat", WOOD_BRANCHES, False),
+        ("mono_single", "trees", WOOD_BRANCHES, False),  # 17
+        ("mono_single", "wood", 12, False),
+        (POLARIZED_MODE, "instanced", WOOD_BRANCHES, True),  # 22
+        (POLARIZED_MODE, "flat", WOOD_BRANCHES, True),
+        (POLARIZED_MODE, "trees", WOOD_BRANCHES, True),
+        ("mono_double", "instanced", WOOD_BRANCHES, False),  # 40
+        ("mono_double", "flat", WOOD_BRANCHES, False),
+        ("mono_polarized_double", "instanced", WOOD_BRANCHES, True),
+        ("mono_double", "trees", WOOD_BRANCHES, False),  # 43
+        ("mono_double", "wood", 12, False),
+        ("mono_polarized_double", "trees", WOOD_BRANCHES, True),
+    ):
+        cpu.submit(mode, form, branches, stokes)
 
     # -- 3. kernel against twin ---------------------------------------------
     print("[3] collision_fetch kernel against its plain twin", flush=True)
@@ -3337,7 +3611,7 @@ def main():
 
     # -- 12. c5 scene: port on CUDA against port on CPU ----------------------
     for form in ("instanced", "flat"):
-        c5_cuda_vs_cpu(form, phase=12)
+        c5_cuda_vs_cpu(form, 12, cpu)
 
     # -- 13, 14. c5 scene at full width -------------------------------------
     c5_launches = {}
@@ -3422,12 +3696,14 @@ def main():
         skeleton_ms = instanced_against_flat(_c5("wood", mesh_dir), B5, 30, mesh_dir)
 
         # -- 17. tree and wood canopies: port on CUDA against port on CPU ----
-        c5_cuda_vs_cpu("trees", phase=17)
-        c5_cuda_vs_cpu("wood", phase=17, mesh_dir=mesh_dir, branches=12)
+        c5_cuda_vs_cpu("trees", 17, cpu)
+        c5_cuda_vs_cpu("wood", 17, cpu, mesh_dir, branches=12)
 
         # -- 18, 19. tree and wood canopies at full width ----------------------
-        c5_launches["trees"], ds_trees, _ = c5_full_width("trees", SPP_C5, phase=18)
-        c5_launches["wood"], ds_wood, _ = c5_full_width("wood", SPP_C5, 19, mesh_dir)
+        c5_launches["trees"], ds_trees, wall_trees = c5_full_width("trees", SPP_C5, phase=18)
+        c5_launches["wood"], ds_wood, wall_wood = c5_full_width("wood", SPP_C5, 19, mesh_dir)
+    tri_single = {form: {"wall_s": w, "brf_nadir": float(np.asarray(d["brf"])[0, N_VZA_C5 // 2])}
+                  for form, d, w in (("trees", ds_trees, wall_trees), ("wood", ds_wood, wall_wood))}
     nadir = N_VZA_C5 // 2
     print("     BRF at nadir: leaves alone "
           f"{np.asarray(ds_inst['brf'])[0, nadir]:.6f}, with trunks "
@@ -3441,7 +3717,7 @@ def main():
     etp.set_mode(POLARIZED_MODE)
     polarized_c1_cuda_vs_cpu(phase=20)
     pol_c1_launches, pol_fetch_ms = polarized_c1_full_width(phase=21)
-    pol_small = {form: c5_cuda_vs_cpu(form, phase=22, stokes=True)
+    pol_small = {form: c5_cuda_vs_cpu(form, 22, cpu, stokes=True)
                  for form in ("instanced", "flat", "trees")}
     pol_c5_launches, pol_sweep_ms, pol_c5_stats = polarized_c5_full_width(23, ds_inst)
 
@@ -3497,7 +3773,10 @@ def main():
     double = double_phases(fetch_times, B4, sun_85, c3_wall)
     # -- 38-40. the leaf canopy in the double modes through K5-K7's float64 builds
     canopy64 = canopy_double_phases(B5, sweep_times, pol_c5_stats, pol_c5_stats.pop("ds"),
-                                    c5_single)
+                                    c5_single, cpu)
+    # -- 41-43. canopies with triangles in the double modes through K8's and
+    # K9's float64 builds
+    tri64 = tri_double_phases(B5, sweep_times, tri_single, cpu)
     # -- 32-37. the double modes through the float64 builds of K1-K4 -----------
     runs, path_b64, pol_c1_double = double["runs"], double["path_b"], double["pol_c1"]
     err64, fetch64_times, fetch64_bound = double["fetch"]
@@ -3531,7 +3810,12 @@ def main():
     smaller.update(c1_polarized_double_64spp=pol_c1_double)
     for k in ("ray_leaves_nearest_instanced_f64", "ray_leaves_occluded_instanced_f64"):
         polarized[k]["c5_mono_polarized"] = canopy64["launches"][k]
+    for k in TRI_F64["trees"]:
+        polarized[k]["c5_trees_mono_polarized_double_64spp"] = (
+            tri64["extra"][k]["launches_on"].get("c5_trees_polarized_64spp", 0))
     sweep_reach.update(canopy64["reach"])
+    sweep_reach.update(tri64["reach"])
+    skeleton_ms.update(tri64["skeleton"])
     for label, counts in smaller.items():
         for k, n in counts.items():
             if n:
@@ -3587,14 +3871,15 @@ def main():
         "ray_tris_nearest_instanced": ("tri", 389, "trees"),
         "ray_tris_occluded_instanced": ("tri", 404, "trees"),
     }
-    def sweep64(k, line):
-        """A float64 leaf build's entry: launches on its path (K5/K6 on the
-        flat c5 in mono_double, K7 on c5 in mono_polarized), its other paths'
-        launches and device ms a launch inside the full-width runs."""
-        out = entry(k, "eradiate_tpu_torch/csrc/leaf_intersect.cu",
-                    f"{pallas}/leaf_intersect.py:{line}", canopy64["launches"][k],
-                    canopy64["errs"][k], canopy64["times"][k], canopy64["bounds"][k])
-        out.update(canopy64["extra"][k])
+    def sweep64(k, line, phases=canopy64, stem="leaf"):
+        """A float64 sweep build's entry: launches on its path (K5/K6 on the
+        flat c5 in mono_double, K7 on c5 in mono_polarized; K8 on c5_wood
+        and K9 on c5_trees in mono_double), its other paths' launches and
+        device ms a launch inside the full-width runs."""
+        out = entry(k, f"eradiate_tpu_torch/csrc/{stem}_intersect.cu",
+                    f"{pallas}/{stem}_intersect.py:{line}", phases["launches"][k],
+                    phases["errs"][k], phases["times"][k], phases["bounds"][k])
+        out.update(phases["extra"][k])
         return out
 
     # no single PyTorch call computes any of these functions: library_ms is null
@@ -3637,6 +3922,12 @@ def main():
         sweep64("ray_leaves_occluded_f64", 437),
         sweep64("ray_leaves_nearest_instanced_f64", 533),
         sweep64("ray_leaves_occluded_instanced_f64", 550),
+        # the triangle sweeps' float64 builds: K8 on c5_wood, K9 on c5_trees,
+        # both in mono_double
+        sweep64("ray_tris_nearest_f64", 267, tri64, "tri"),
+        sweep64("ray_tris_occluded_f64", 311, tri64, "tri"),
+        sweep64("ray_tris_nearest_instanced_f64", 389, tri64, "tri"),
+        sweep64("ray_tris_occluded_instanced_f64", 404, tri64, "tri"),
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -151,8 +151,9 @@ struct Best {
 
 // The float64 builds' record: Best with float64 distances and normals. Two
 // tied normals sum alike in either order; three or more are summed again in
-// index order after the walk (leaf_intersect.cu), as the reference sums
-// them, so the running sum here is used only where count <= 2.
+// index order after the walk (leaf_intersect.cu, tri_intersect.cu), as the
+// reference sums them, so the running sum here is used only where
+// count <= 2.
 struct Best64 {
   double t;
   double sx, sy, sz;

@@ -88,6 +88,25 @@
 // versions round the same way, so kernels and plain versions agree bit for
 // bit.
 //
+// The float64 builds (the double modes: *_f64 below) run the same walks
+// over the same float32 hierarchies, one thread per ray, with float64 rays,
+// triangles (three double4 a triangle, (v0, original index's int64 bits),
+// (e1, 0), (e2, 0)) and exact tests (__fma_rn where the float32 test has
+// fma_rn and nowhere else, 1.0 / det as the IEEE float64 division, the same
+// 1e-12 and 1e-7 gates; the normal's norm __dsqrt_rn, clamped with fmax), the
+// box tests on the ray rounded to float32 and the cap rounded up (bvh.cuh
+// box_ray, cull_cap). They replace the same TPU kernels, which take float32
+// only; the reference renders its double modes through its XLA sweeps,
+// whose float64 arithmetic they reproduce. The float64 exact test errs far
+// less than the float32 one the margins were set for, and the rounding of
+// the ray moves it by 6e-8 of its coordinates. Tied float64 normals do not
+// sum exactly: two sum alike in either order, and where three or more tie
+// (a ray through a cap's apex meets twelve triangles at one t), the
+// nearest-hit kernels sum them again after the walk in index order from
+// zero (the reference's masked sum), testing the winning 512-triangle
+// chunk's triangles (and, instanced, in the winning instance's frame) in
+// the soup's original order.
+//
 // What bounds it on this card: the soup and its hierarchy are a few MB (a
 // flat soup) or a few KB (a canonical soup and its instances) and stay in
 // L2, each ray moves 28 bytes in and 17 (nearest) or 1 (any hit) out, and
@@ -96,6 +115,9 @@
 // tests the cull leaves (a sliver of a thin branch fills its box badly; an
 // instanced ray also tests the instance boxes and the canonical root of
 // every instance it reaches), and by the divergence of the walks in a warp.
+// The float64 builds move 56 bytes in and 33 or 1 out a ray, and their exact
+// test is ~45 float64 operations with one float64 division, at half the
+// float32 rate and a software division.
 
 #include "bvh.cuh"
 
@@ -254,6 +276,207 @@ tri_ibvh_occluded_kernel(const float* __restrict__ p, const float* __restrict__ 
   occ[b] = occluded;
 }
 
+// ---------------------------------------------------------------------------
+// The float64 builds.
+
+constexpr double kDetMin64 = 1e-12;
+constexpr double kEpsT64 = 1e-7;
+
+struct Tri64 {
+  double v0x, v0y, v0z, ax, ay, az, bx, by, bz;
+};
+
+__device__ __forceinline__ double dot3_64(double ax, double ay, double az, double bx,
+                                          double by, double bz) {
+  return __fma_rn(az, bz, __fma_rn(ay, by, ax * bx));
+}
+
+// tri_hit in float64: the same test, rounded as the reference under x64.
+__device__ __forceinline__ double tri_hit64(const Ray64& r, double t_max, const Tri64& q) {
+  const double pvx = __fma_rn(r.dy, q.bz, -(r.dz * q.by));
+  const double pvy = __fma_rn(r.dz, q.bx, -(r.dx * q.bz));
+  const double pvz = __fma_rn(r.dx, q.by, -(r.dy * q.bx));
+  const double det = dot3_64(q.ax, q.ay, q.az, pvx, pvy, pvz);
+  if (!(fabs(det) > kDetMin64)) return -1.0;
+  const double inv = 1.0 / det;
+  const double tvx = r.px - q.v0x, tvy = r.py - q.v0y, tvz = r.pz - q.v0z;
+  const double u = ((tvx * pvx + tvy * pvy) + tvz * pvz) * inv;
+  if (!(u >= 0.0)) return -1.0;
+  const double qvx = __fma_rn(tvy, q.az, -(tvz * q.ay));
+  const double qvy = __fma_rn(tvz, q.ax, -(tvx * q.az));
+  const double qvz = __fma_rn(tvx, q.ay, -(tvy * q.ax));
+  const double v = dot3_64(r.dx, r.dy, r.dz, qvx, qvy, qvz) * inv;
+  if (!(v >= 0.0) || !(u + v <= 1.0)) return -1.0;
+  const double t = dot3_64(q.bx, q.by, q.bz, qvx, qvy, qvz) * inv;
+  return (t > kEpsT64 && t < t_max) ? t : -1.0;
+}
+
+// tri_normal in float64.
+__device__ __forceinline__ void tri_normal64(const Tri64& q, double& nx, double& ny,
+                                             double& nz) {
+  const double cx = __fma_rn(q.ay, q.bz, -(q.az * q.by));
+  const double cy = __fma_rn(q.az, q.bx, -(q.ax * q.bz));
+  const double cz = __fma_rn(q.ax, q.by, -(q.ay * q.bx));
+  const double norm = fmax(__dsqrt_rn(dot3_64(cx, cy, cz, cx, cy, cz)), 1e-12);
+  nx = cx / norm;
+  ny = cy / norm;
+  nz = cz / norm;
+}
+
+// Triangle row k of a float64 hierarchy's soup (six double2), and its index.
+__device__ __forceinline__ Tri64 load_tri64(const double2* __restrict__ tris, int k,
+                                            int& index) {
+  const double2 a = __ldg(tris + 6 * k);
+  const double2 b = __ldg(tris + 6 * k + 1);
+  const double2 e = __ldg(tris + 6 * k + 2);
+  const double2 f = __ldg(tris + 6 * k + 3);
+  const double2 g = __ldg(tris + 6 * k + 4);
+  const double2 h = __ldg(tris + 6 * k + 5);
+  index = static_cast<int>(__double_as_longlong(b.y));
+  return Tri64{a.x, a.y, b.x, e.x, e.y, f.x, g.x, g.y, h.x};
+}
+
+// Triangle `i` of the soup in its original order.
+__device__ __forceinline__ Tri64 original_tri64(const double* __restrict__ v0,
+                                                const double* __restrict__ e1,
+                                                const double* __restrict__ e2, int i) {
+  return Tri64{v0[3 * i], v0[3 * i + 1], v0[3 * i + 2], e1[3 * i], e1[3 * i + 1],
+               e1[3 * i + 2], e2[3 * i], e2[3 * i + 1], e2[3 * i + 2]};
+}
+
+// Three or more tied normals: sum them again from zero in index order over
+// 512-triangle chunk `chunk` of the soup (the reference's masked sum).
+__device__ __forceinline__ void resum_ties(Best64& best, const Ray64& r, double tm, int chunk,
+                                           const double* __restrict__ v0,
+                                           const double* __restrict__ e1,
+                                           const double* __restrict__ e2, int N) {
+  if (best.count < 3) return;
+  double sx = 0.0, sy = 0.0, sz = 0.0;
+  int count = 0;
+  const int end = min(N, (chunk + 1) * kChunk);
+  for (int i = chunk * kChunk; i < end; ++i) {
+    const Tri64 q = original_tri64(v0, e1, e2, i);
+    if (tri_hit64(r, tm, q) == best.t) {
+      double nx, ny, nz;
+      tri_normal64(q, nx, ny, nz);
+      sx += nx; sy += ny; sz += nz;
+      ++count;
+    }
+  }
+  best.sx = sx; best.sy = sy; best.sz = sz;
+  best.count = count;
+}
+
+__global__ void __launch_bounds__(kThreads)
+bvh_nearest_f64_kernel(const double* __restrict__ p, const double* __restrict__ d,
+                       const double* __restrict__ t_max, const float4* __restrict__ nodes,
+                       const double2* __restrict__ tris, const double* __restrict__ v0,
+                       const double* __restrict__ e1, const double* __restrict__ e2,
+                       double* __restrict__ t_hit, double* __restrict__ normal,
+                       bool* __restrict__ hit, int B, int N) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Ray64 r = load_ray64(p, d, b);
+  const double tm = t_max[b];
+  Best64 best{tm, 0.0, 0.0, 1.0, 0, kNoChunk};
+  // no t satisfies 1e-7 < t < t_max below this: the lane visits nothing
+  if (tm > kEpsT64) {
+    traverse(box_ray(r), best.t, nodes, [&](int first, int end) {
+      for (int k = first; k < end; ++k) {
+        int index;
+        const Tri64 q = load_tri64(tris, k, index);
+        best.take(tri_hit64(r, tm, q), index / kChunk,
+                  [&](double& nx, double& ny, double& nz) { tri_normal64(q, nx, ny, nz); });
+      }
+      return false;
+    });
+    resum_ties(best, r, tm, best.chunk, v0, e1, e2, N);
+  }
+  store_nearest64(best, tm, b, t_hit, normal, hit);
+}
+
+__global__ void __launch_bounds__(kThreads)
+bvh_occluded_f64_kernel(const double* __restrict__ p, const double* __restrict__ d,
+                        const double* __restrict__ t_max, const float4* __restrict__ nodes,
+                        const double2* __restrict__ tris, bool* __restrict__ occ, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Ray64 r = load_ray64(p, d, b);
+  const double tm = t_max[b];
+  bool occluded = false;
+  if (tm > kEpsT64) {
+    traverse(box_ray(r), tm, nodes, [&](int first, int end) {
+      for (int k = first; k < end && !occluded; ++k) {
+        int index;
+        occluded = tri_hit64(r, tm, load_tri64(tris, k, index)) >= 0.0;
+      }
+      return occluded;
+    });
+  }
+  occ[b] = occluded;
+}
+
+__global__ void __launch_bounds__(kThreads)
+tri_ibvh_nearest_f64_kernel(const double* __restrict__ p, const double* __restrict__ d,
+                            const double* __restrict__ t_max, const float4* __restrict__ top,
+                            const double2* __restrict__ instances,
+                            const float4* __restrict__ nodes,
+                            const double2* __restrict__ tris, const double* __restrict__ v0,
+                            const double* __restrict__ e1, const double* __restrict__ e2,
+                            const double* __restrict__ offsets, double* __restrict__ t_hit,
+                            double* __restrict__ normal, bool* __restrict__ hit, int B, int N) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Ray64 r = load_ray64(p, d, b);
+  const double tm = t_max[b];
+  const int chunks = (N + kChunk - 1) / kChunk;
+  Best64 best{tm, 0.0, 0.0, 1.0, 0, kNoChunk};
+  if (tm > kEpsT64) {
+    traverse_instances64(r, best.t, top, instances, nodes,
+                         [&](const Ray64& ri, int row, int first, int end) {
+      for (int k = first; k < end; ++k) {
+        int index;
+        const Tri64 q = load_tri64(tris, k, index);
+        best.take(tri_hit64(ri, tm, q), row * chunks + index / kChunk,
+                  [&](double& nx, double& ny, double& nz) { tri_normal64(q, nx, ny, nz); });
+      }
+      return false;
+    });
+    if (best.count >= 3) {
+      // the winner's instance frame, the ray translated as the walk did
+      const int row = best.chunk / chunks;
+      const Ray64 ri = make_ray64(r.px - offsets[3 * row], r.py - offsets[3 * row + 1],
+                                  r.pz - offsets[3 * row + 2], r.dx, r.dy, r.dz);
+      resum_ties(best, ri, tm, best.chunk % chunks, v0, e1, e2, N);
+    }
+  }
+  store_nearest64(best, tm, b, t_hit, normal, hit);
+}
+
+__global__ void __launch_bounds__(kThreads)
+tri_ibvh_occluded_f64_kernel(const double* __restrict__ p, const double* __restrict__ d,
+                             const double* __restrict__ t_max, const float4* __restrict__ top,
+                             const double2* __restrict__ instances,
+                             const float4* __restrict__ nodes,
+                             const double2* __restrict__ tris, bool* __restrict__ occ, int B) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const Ray64 r = load_ray64(p, d, b);
+  const double tm = t_max[b];
+  bool occluded = false;
+  if (tm > kEpsT64) {
+    traverse_instances64(r, tm, top, instances, nodes,
+                         [&](const Ray64& ri, int, int first, int end) {
+      for (int k = first; k < end && !occluded; ++k) {
+        int index;
+        occluded = tri_hit64(ri, tm, load_tri64(tris, k, index)) >= 0.0;
+      }
+      return occluded;
+    });
+  }
+  occ[b] = occluded;
+}
+
 }  // namespace
 
 // Launch on `stream`; return cudaGetLastError() (0 = launched). `nodes` and
@@ -302,5 +525,54 @@ extern "C" int ray_tris_occluded_instanced_launch(
       p, d, t_max, reinterpret_cast<const float4*>(top),
       reinterpret_cast<const float4*>(instances), reinterpret_cast<const float4*>(nodes),
       reinterpret_cast<const float4*>(tris), occ, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The float64 builds: float64 rays, outputs and soups (tri_bvh and
+// tri_instanced_bvh of float64 triangles; the nodes stay float32). The
+// nearest hits also take the soup (and the offsets) in their original
+// order, where they sum three or more tied normals; N is the triangle count.
+extern "C" int ray_tris_nearest_f64_launch(
+    const double* p, const double* d, const double* t_max, const float* nodes,
+    const double* tris, const double* v0, const double* e1, const double* e2, double* t_hit,
+    double* normal, bool* hit, int B, int N, void* stream) {
+  bvh_nearest_f64_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const double2*>(tris), v0, e1, e2, t_hit, normal, hit, B, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ray_tris_occluded_f64_launch(const double* p, const double* d,
+                                            const double* t_max, const float* nodes,
+                                            const double* tris, bool* occ, int B,
+                                            void* stream) {
+  bvh_occluded_f64_kernel<<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const double2*>(tris), occ, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ray_tris_nearest_instanced_f64_launch(
+    const double* p, const double* d, const double* t_max, const float* top,
+    const double* instances, const float* nodes, const double* tris, const double* v0,
+    const double* e1, const double* e2, const double* offsets, double* t_hit, double* normal,
+    bool* hit, int B, int N, void* stream) {
+  tri_ibvh_nearest_f64_kernel<<<blocks_for(B), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(top),
+      reinterpret_cast<const double2*>(instances), reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const double2*>(tris), v0, e1, e2, offsets, t_hit, normal, hit, B, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int ray_tris_occluded_instanced_f64_launch(
+    const double* p, const double* d, const double* t_max, const float* top,
+    const double* instances, const float* nodes, const double* tris, bool* occ, int B,
+    void* stream) {
+  tri_ibvh_occluded_f64_kernel<<<blocks_for(B), kThreads, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      p, d, t_max, reinterpret_cast<const float4*>(top),
+      reinterpret_cast<const double2*>(instances), reinterpret_cast<const float4*>(nodes),
+      reinterpret_cast<const double2*>(tris), occ, B);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,9 +7,8 @@ goes to :func:`..ops.tracer_canopy.render_canopy` on one device, or in a
 polarized mode to :func:`..ops.tracer_canopy_polarized.render_canopy_polarized`.
 Canopies hold leaf clouds, abstract trees (a leaf-cloud crown on a trunk)
 and mesh trees; trunks and mesh trees are triangle soups (the ``ray_tris``
-kernels). The double modes render leaf canopies in float64; a canopy with
-triangles raises in them, naming the mode (the triangle sweeps have no
-float64 build yet).
+kernels). The double modes render every canopy in float64, leaves and
+triangles, as the reference under x64.
 """
 
 from __future__ import annotations
@@ -31,19 +30,6 @@ from ..scenes.spectra import converter as spectrum_converter
 from ._atmosphere import AtmosphereExperiment
 
 __all__ = ["CanopyExperiment", "CanopyAtmosphereExperiment"]
-
-
-def _check_canopy_mode(tris):
-    """Refuse a double mode with triangles (trunks, mesh trees, a wood
-    mesh): the leaf sweeps have float64 builds, the triangle sweeps (K8,
-    K9) not yet. ``tris`` is the canopy's triangle geometry or None."""
-    m = mode()
-    if m.is_double_precision and tris is not None:
-        raise NotImplementedError(
-            f"mode {m.id!r}: a canopy with triangles (trunks, mesh trees) does not render "
-            "in double precision yet: the triangle sweeps K8 and K9 have no float64 build "
-            "(use the mode's single-precision twin)"
-        )
 
 
 def _canopy_converter(value):
@@ -165,10 +151,8 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
         ``(scene, sensor, config, leaf_params, leaves, tris, tri_params)``
         with numpy leaves and triangles in the mode's dtype (float64 in a
         double mode); ``tris`` and ``tri_params`` are None for canopies of
-        leaf clouds alone. A double mode with triangles raises
-        ``NotImplementedError`` naming the mode."""
+        leaf clouds alone."""
         flat, leaves, tris, tri_mesh = self._leaf_arrays()
-        _check_canopy_mode(tris)
         dtype = mode().host_dtype
         scene, sensor, config = self.compile_scene(measure, ctx)
         w = np.asarray(ctx["w"], dtype=np.float64)

@@ -646,12 +646,14 @@ def _launch(name, nearest, p, ins, sizes, counts):
     return outs
 
 
-def _build(name, p):
+def _build(name, p, counts=None, counts_f64=None):
     """The kernel's name and launch counts for ``p``'s dtype: the float32
-    kernel, or its float64 build (``_f64``, counted in :data:`launches_f64`)."""
+    kernel (counted in ``counts``, default :data:`launches`), or its float64
+    build (``_f64``, counted in ``counts_f64``, default
+    :data:`launches_f64`)."""
     if p.dtype == torch.float64:
-        return f"{name}_f64", launches_f64
-    return name, launches
+        return f"{name}_f64", launches_f64 if counts_f64 is None else counts_f64
+    return name, launches if counts is None else counts
 
 
 def _launch_flat(name, nearest, p, d, t_max, centers, normals, radii, bvh):

@@ -11,7 +11,8 @@ union of the translated copies without materialising them.
 bounding box (:func:`..canopy._advance_to_aabb`, as the leaf sweeps do) and
 hand the clipped segment to the sweeps of
 :mod:`eradiate_tpu_torch.kernels.tri_intersect`: CUDA kernels for CUDA
-tensors, the plain dense sweeps for CPU tensors.
+tensors (float32, or their float64 builds for a float64 soup and rays), the
+plain sweeps for CPU tensors.
 """
 
 from __future__ import annotations
@@ -80,16 +81,13 @@ def tri_accel(tris):
     canonical soup's hierarchy
     (:func:`~eradiate_tpu_torch.kernels.tri_intersect.tri_instanced_bvh`);
     None on the CPU, where the dense sweeps use none and nothing is built.
-    The box is the vertices' (plus the offsets' for instances). Compute once
-    per render, outside the path loop, and pass to every
-    :func:`tri_nearest`/:func:`tri_occluded`. A float64 soup raises
-    ``NotImplementedError``: the triangle sweeps take float32 only."""
+    The box is the vertices' (plus the offsets' for instances), in the
+    soup's dtype; a float64 soup (a double mode) gets the float64 hierarchy,
+    which the float64 builds of the sweeps traverse. Compute once per
+    render, outside the path loop, and pass to every
+    :func:`tri_nearest`/:func:`tri_occluded`."""
     instanced = isinstance(tris, InstancedTriArrays)
     base = tris.canonical if instanced else tris
-    if base.v0.dtype == torch.float64:
-        raise NotImplementedError(
-            "float64 triangles (a double mode): the triangle sweeps (K8, K9) have no "
-            "float64 build yet")
     verts = torch.cat([base.v0, base.v0 + base.e1, base.v0 + base.e2])
     lo = verts.min(dim=0).values
     hi = verts.max(dim=0).values

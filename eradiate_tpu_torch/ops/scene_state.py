@@ -255,8 +255,8 @@ def canopy_from_reference(leaves, leaf_params, device, tris=None, tri_params=Non
     ``offsets``), ``tris`` None, a flat soup (``v0``, ``e1``, ``e2``) or an
     instanced one, the reference's or the port's; ``leaf_params`` and
     ``tri_params`` map ``reflectance`` and ``transmittance`` to [S] rows.
-    Floating leaves take ``dtype``, the scene's (:func:`scene_dtype`):
-    float64 in a double mode. Returns ``(leaves, leaf_params, tris,
+    Floating leaves (disks, triangles, offsets, optics) take ``dtype``, the
+    scene's (:func:`scene_dtype`): float64 in a double mode. Returns ``(leaves, leaf_params, tris,
     tri_params)``."""
 
     def leaf(x):

@@ -19,8 +19,9 @@ The reference's ``while_loop`` is an eager Python loop here, as in
 sweep once and their any-hit sweep once, and with triangles the triangles'
 two sweeps as well.
 
-In a double mode the path state, the leaves and the sums are float64 (the
-leaf sweeps' float64 builds on the card), as in the reference under x64;
+In a double mode the path state, the leaves, the triangles and the sums are
+float64 (the leaf and triangle sweeps' float64 builds on the card), as in
+the reference under x64;
 the uniforms stay float32, and their float32 arithmetic rounds as the
 jitted reference's (:mod:`.fastmath`'s depth sample, the bilambertian and
 Lambertian directions).
@@ -211,7 +212,11 @@ def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpe
         # of the atmosphere the two differ by half an ulp of ~100 km, which
         # decides on which side of a trunk's wall the hit point lands. Over
         # 60 pixel-seeds of a 3 x 3 trunk forest 12 pixels leave the
-        # reference's path with the fused step and 2 with the unfused one
+        # reference's path with the fused step and 2 with the unfused one.
+        # The float64 graph with triangles (x64) keeps the float32 graph's
+        # form here: its half ulp, ~7e-12 km, showed in no lane either way
+        # (1280 lanes of the small c5_trees, 6 x 40 of the forest: every
+        # lane sum within 4e-16 of the reference's with either step)
         if tris is None:
             pos_leaf = _step(pos, d, t_leaf[:, None])
         else:

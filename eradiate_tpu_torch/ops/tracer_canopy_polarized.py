@@ -26,9 +26,9 @@ basis with the rest of a lane's state; regeneration resets them; Russian
 roulette reweights beta once, not P.
 
 In ``mono_polarized_double`` (``bench.py``'s ``mono_polarized``) the path
-state, the Mueller chain, the leaves and the sums are float64, as in the
-reference under x64, and the leaf sweeps run their float64 builds on the
-card.
+state, the Mueller chain, the leaves, the triangles and the sums are
+float64, as in the reference under x64, and the leaf and triangle sweeps
+run their float64 builds on the card.
 """
 
 from __future__ import annotations

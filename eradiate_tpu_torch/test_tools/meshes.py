@@ -5,10 +5,13 @@ with straight branches, from a seeded generator; :func:`write_obj` writes it
 as a Wavefront OBJ file that ``scenes.shapes.load_obj`` reads back exactly;
 :func:`edge_rays` aims rays at the shared edges and vertices of a mesh, where
 the last bit of the intersection test decides; :func:`axis_rays` does so with
-direction components that are exactly zero; :func:`tie_soup` makes exact ties
-of the hit distance between triangles of one chunk and of two, and
-:func:`instanced_tie_soup` also between instances; :func:`zero_normal_tris`
-gives triangles whose normals have components exactly +-0.
+direction components that are exactly zero; :func:`vertex_rays` aims rays
+exactly at the vertices where many triangles meet (a capped cylinder's apex
+joins twelve); :func:`tie_soup` makes exact ties of the hit distance between
+triangles of one chunk and of two, and :func:`instanced_tie_soup` also
+between instances; :func:`zero_normal_tris` gives triangles whose normals
+have components exactly +-0. The rays and soups come in float32, or in
+float64 with ``dtype``.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ import numpy as np
 
 from ..ops.mesh import cylinder_mesh
 
-__all__ = ["wood_skeleton", "write_obj", "edge_rays", "axis_rays", "tie_soup",
+__all__ = ["wood_skeleton", "write_obj", "edge_rays", "axis_rays", "vertex_rays", "tie_soup",
            "instanced_tie_soup", "zero_normal_tris"]
 
 
@@ -86,7 +89,7 @@ def _caps(rng, dist):
     return dist * rng.choice([2.0, 1.0, 1 + 1e-6, 1 - 1e-6], dist.shape[0])
 
 
-def edge_rays(rng, B, tris, offsets=None, distance=1e-5, origins=None):
+def edge_rays(rng, B, tris, offsets=None, distance=1e-5, origins=None, dtype=np.float32):
     """``B`` rays aimed at a mesh (``tris.v0``, ``.e1``, ``.e2`` as numpy
     arrays, km): a quarter each at points of an edge, at vertices, at
     interior points and just beside an edge (1e-6 of the triangle off it),
@@ -94,7 +97,7 @@ def edge_rays(rng, B, tris, offsets=None, distance=1e-5, origins=None):
     [I, 3] if given. Origins lie ``distance`` x (50..300) back along a
     random direction, or at ``origins`` [B, 3] if given; the caps are twice,
     exactly, just above and just below the distance to the target. Returns
-    float32 ``(p, d, t_max)``."""
+    ``(p, d, t_max)`` in ``dtype``."""
     target = _targets(rng, B, tris, offsets)
     back = rng.normal(size=(B, 3))
     back /= np.linalg.norm(back, axis=1, keepdims=True)
@@ -102,35 +105,62 @@ def edge_rays(rng, B, tris, offsets=None, distance=1e-5, origins=None):
     if origins is not None:
         dist = np.linalg.norm(origins - target, axis=1)
         back = (origins - target) / dist[:, None]
-    p = (target + back * dist[:, None]).astype(np.float32)
+    p = (target + back * dist[:, None]).astype(dtype)
     d = target - p
     d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return p, d.astype(np.float32), _caps(rng, dist).astype(np.float32)
+    return p, d.astype(dtype), _caps(rng, dist).astype(dtype)
 
 
-def axis_rays(rng, B, tris, distance=1e-5, offsets=None):
+def axis_rays(rng, B, tris, distance=1e-5, offsets=None, dtype=np.float32):
     """``B`` rays aimed at a mesh as :func:`edge_rays` aims them, with
     direction components that are exactly +0 or -0 (the sun and the views of
     an hplane at azimuth 0 have d_y = 0): two thirds travel in the x-z
     plane, a third along an axis (two zero components). Each zero component
     of the origin is the (world) target's own coordinate, so a ray through a
     vertex lies in the planes of its triangles' box faces. In one of the
-    instance frames ``offsets`` [I, 3] if given. Returns float32 ``(p, d,
-    t_max)``."""
+    instance frames ``offsets`` [I, 3] if given. Returns ``(p, d, t_max)`` in
+    ``dtype``."""
     target = _targets(rng, B, tris, offsets)
     angle = rng.uniform(0.0, 2.0 * np.pi, B)
     d = np.stack([np.cos(angle), np.zeros(B), np.sin(angle)], axis=1)
     along = np.eye(3)[rng.integers(0, 3, B)] * rng.choice([-1.0, 1.0], (B, 1))
-    d = np.where((rng.integers(0, 3, B) == 2)[:, None], along, d).astype(np.float32)
+    d = np.where((rng.integers(0, 3, B) == 2)[:, None], along, d).astype(dtype)
     zero = d == 0.0
-    d = np.where(zero, np.copysign(np.float32(0.0), rng.choice([-1.0, 1.0], (B, 3))), d)
+    d = np.where(zero, np.copysign(dtype(0.0), rng.choice([-1.0, 1.0], (B, 3))), d)
     dist = rng.uniform(50.0, 300.0, B) * distance
-    p = (target - d * dist[:, None]).astype(np.float32)
-    p = np.where(zero, target.astype(np.float32), p)
-    return p, d.astype(np.float32), _caps(rng, dist).astype(np.float32)
+    p = (target - d * dist[:, None]).astype(dtype)
+    p = np.where(zero, target.astype(dtype), p)
+    return p, d.astype(dtype), _caps(rng, dist).astype(dtype)
 
 
-def tie_soup(rng, B, n=600):
+def vertex_rays(rng, B, vertices, distance=1e-5, dtype=np.float32):
+    """``B`` rays aimed exactly at ``vertices`` [V, 3] (km, taken into
+    ``dtype`` first) of a mesh, where several triangles meet and tie: a
+    capped 12-segment cylinder's apex joins twelve, its side vertices up to
+    six. Half come from random directions ``distance`` x (50..300) away;
+    the other half travel along an axis, with two direction components
+    exactly +0 or -0 and the origin's two other coordinates the vertex's
+    own. The caps are twice, exactly, just above and just below the
+    distance to the vertex. Returns ``(p, d, t_max)`` in ``dtype``."""
+    target = np.asarray(vertices, dtype)[rng.integers(0, len(vertices), B)].astype(np.float64)
+    dist = rng.uniform(50.0, 300.0, B) * distance
+    back = rng.normal(size=(B, 3))
+    back /= np.linalg.norm(back, axis=1, keepdims=True)
+    p = (target + back * dist[:, None]).astype(dtype)
+    d = target - p
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d = d.astype(dtype)
+    along = np.arange(B) % 2 == 1
+    axis = np.eye(3)[rng.integers(0, 3, B)] * rng.choice([-1.0, 1.0], (B, 1))
+    zero = np.copysign(0.0, rng.choice([-1.0, 1.0], (B, 3)))
+    d_axis = np.where(axis == 0.0, zero, axis).astype(dtype)
+    d = np.where(along[:, None], d_axis, d)
+    p = np.where(along[:, None], (target - d_axis * dist[:, None]).astype(dtype), p)
+    p = np.where(along[:, None] & (axis == 0.0), target.astype(dtype), p)
+    return p, d, _caps(rng, dist).astype(dtype)
+
+
+def tie_soup(rng, B, n=600, dtype=np.float32):
     """A soup of ``n`` random triangles (km) with exact ties of the hit
     distance, and ``B`` rays that meet them. Copies scaled by two about
     ``v0`` hit at the same ``t`` bit for bit (every product scales by a power
@@ -144,8 +174,8 @@ def tie_soup(rng, B, n=600):
     (dyadic coordinates, so the test is exact) average two opposite normals
     inside the chunk, and must take the lower chunk's across. A fifth of the
     rays go straight down; the rest aim at interior points of the other
-    originals from 5 cm. Returns float32 ``(v0, e1, e2)`` and ``(p, d,
-    t_max)``."""
+    originals from 5 cm. Returns ``(v0, e1, e2)`` and ``(p, d, t_max)``, built
+    in float32 and taken exactly into ``dtype`` (the ties stay ties)."""
     v0 = rng.uniform(-0.02, 0.02, (n, 3)).astype(np.float32)
     e1 = rng.normal(0, 2e-3, (n, 3)).astype(np.float32)
     e2 = rng.normal(0, 2e-3, (n, 3)).astype(np.float32)
@@ -176,10 +206,11 @@ def tie_soup(rng, B, n=600):
     p[down, 1] = v0[square, 1][down] + fy[down]
     p[down, 2] = 2.0**-4
     d[down] = (0.0, 0.0, -1.0)
-    return (v0, e1, e2), (p, d, np.full(B, 1.0, np.float32))
+    arrays = (v0, e1, e2), (p, d, np.full(B, 1.0, np.float32))
+    return tuple(tuple(a.astype(dtype) for a in part) for part in arrays)
 
 
-def instanced_tie_soup(rng, B, n=600):
+def instanced_tie_soup(rng, B, n=600, dtype=np.float32):
     """A canonical soup of ``n`` triangles (km) at nine offsets, with exact
     ties of the hit distance inside an instance and across instances, and
     ``B`` rays that meet them.
@@ -204,8 +235,8 @@ def instanced_tie_soup(rng, B, n=600):
     walk of the instances nearer first meets the higher instance (``B``,
     then ``C``) before ``A``, and the winner replaces a tie of a higher key.
 
-    Returns float32 ``(v0, e1, e2)``, ``offsets`` [9, 3] and ``(p, d,
-    t_max)``."""
+    Returns ``(v0, e1, e2)``, ``offsets`` [9, 3] and ``(p, d, t_max)``, built
+    in float32 and taken exactly into ``dtype``."""
     (v0, e1, e2), (p, d, t_max) = tie_soup(rng, B, n)
     delta = 2.0**-4
     side = np.float32(2.0**-7)
@@ -231,7 +262,8 @@ def instanced_tie_soup(rng, B, n=600):
         signs = rng.choice([-1.0, 1.0], (int(lanes.sum()), 2))
         d[lanes] = np.concatenate([np.copysign(0.0, signs), np.full((signs.shape[0], 1), dz)],
                                   axis=1)
-    return (v0, e1, e2), offsets, (p, d, t_max)
+    cast = lambda arrays: tuple(a.astype(dtype) for a in arrays)  # noqa: E731
+    return cast((v0, e1, e2)), offsets.astype(dtype), cast((p, d, t_max))
 
 
 def zero_normal_tris(rng, v0, e1, e2, share=0.5):

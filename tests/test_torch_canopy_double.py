@@ -34,8 +34,9 @@ float64 there and its loop carries change type (a ``TypeError``).
   sample's float32 cosine-hemisphere direction rounds as XLA's
   (``fastmath.cosine_hemisphere_xla``); rounded as torch's, some lanes
   leave the gate.
-- A double mode with triangles (an ``abstract_tree``'s trunks) raises
-  ``NotImplementedError`` naming the mode and the triangle sweeps.
+- A double mode renders a canopy with triangles (an ``abstract_tree``'s
+  trunks) in float64 (``test_torch_tri_double.py`` holds it against the
+  reference).
 """
 
 from fractions import Fraction
@@ -317,24 +318,39 @@ def test_tie_rule_f64_does_not_depend_on_the_visit_order():
 
 
 def test_f64_wrappers_on_the_cpu_and_refusals():
-    """float64 CPU tensors run the plain versions and count no launch;
-    mixed dtypes raise; the triangle sweeps refuse float64 by name."""
+    """float64 CPU tensors run the plain versions and count no launch, the
+    leaf sweeps' and the triangle sweeps'; mixed dtypes raise."""
     problem, offs = _instanced("rims")
     args = T(*problem)
-    before = (dict(li.launches), dict(li.launches_f64))
+    before = (dict(li.launches), dict(li.launches_f64), dict(ti.launches), dict(ti.launches_f64))
     _same(li.ray_leaves_nearest(*args), li.ray_leaves_nearest_plain(*args))
     _same(li.ray_leaves_occluded_instanced(*args, *T(offs)),
           li.ray_leaves_occluded_instanced_plain(*args, *T(offs)))
-    assert (li.launches, li.launches_f64) == before
     named = {"p": args[0], "d": args[1], "t_max": args[2], "centers": args[3],
              "normals": args[4].float(), "radii": args[5]}
     with pytest.raises(TypeError):
         li._check("ray_leaves_nearest", named, args[0].shape[0], args[3].shape[0], None)
     with pytest.raises(TypeError):
         li.leaf_instanced_bvh(*args[3:], T(offs)[0].float())
-    v0 = torch.zeros((4, 3), dtype=torch.float64)
-    with pytest.raises(TypeError, match="float64"):
-        ti.ray_tris_nearest(args[0], args[1], args[2], v0, v0, v0)
+    # a float64 triangle: the ray at the first lane's target hits it
+    v0 = torch.tensor([[-1.0, -1.0, 0.0]], dtype=torch.float64)
+    e1 = torch.tensor([[4.0, 0.0, 0.0]], dtype=torch.float64)
+    e2 = torch.tensor([[0.0, 4.0, 0.0]], dtype=torch.float64)
+    p = torch.tensor([[0.25, 0.5, 1.0]], dtype=torch.float64)
+    d = torch.tensor([[0.0, 0.0, -1.0]], dtype=torch.float64)
+    t_max = torch.tensor([2.0], dtype=torch.float64)
+    t, n, hit = ti.ray_tris_nearest(p, d, t_max, v0, e1, e2)
+    assert t.dtype == n.dtype == torch.float64 and hit.all() and t.item() == 1.0
+    assert n.tolist() == [[0.0, 0.0, 1.0]]
+    _same(ti.ray_tris_occluded_instanced(p, d, t_max, v0, e1, e2, torch.zeros((2, 3),
+                                         dtype=torch.float64)),
+          np.array([True]))
+    assert (li.launches, li.launches_f64, ti.launches, ti.launches_f64) == before
+    with pytest.raises(TypeError, match="float32 or all float64"):
+        ti.ray_tris_nearest(p, d, t_max, v0.float(), e1, e2)
+    named = {"p": p, "d": d, "t_max": t_max.float(), "v0": v0, "e1": e1, "e2": e2}
+    with pytest.raises(TypeError):
+        ti._check("ray_tris_nearest", named, 1, 1, None)
 
 
 # ---------------------------------------------------------------------------
@@ -381,14 +397,16 @@ def _row0(x):
 
 def _ref_lanes(compiled, spp, seed):
     """Per-lane sums of the reference's regenerative canopy trace (its
-    ``_render_row_canopy``'s, jitted; row 0, chunk 0): ``(sums [B] or
-    [B, 4], m2 [B])``."""
-    scene, sensor, config, leaf_params, leaves = compiled[:5]
+    ``_render_row_canopy``'s, jitted; row 0, chunk 0), with the triangles of
+    the compiled canopy where it has any: ``(sums [B] or [B, 4], m2
+    [B])``."""
+    scene, sensor, config, leaf_params, leaves, tris, tri_params = compiled
     n_pix = sensor.directions.shape[0]
     trace = (ref_tcp.trace_paths_canopy_polarized_regen if config.polarized
              else ref_tc.trace_paths_canopy_regen)
 
-    def lanes(med, surface, il, leaf_params, leaves, directions, target, ext, key):
+    def lanes(med, surface, il, leaf_params, leaves, tris, tri_params, directions, target, ext,
+              key):
         medium_row = RefMedium(
             z_levels=med.z_levels, tau_levels=med.tau_levels[0], albedo=med.albedo[0],
             phase_weights=med.phase_weights[0],
@@ -403,23 +421,25 @@ def _ref_lanes(compiled, spp, seed):
         B = pix.shape[0]
         tgt = jnp.broadcast_to(target, (B, 3))
         t_up = (medium_row.z_levels[-1] - tgt[:, 2]) / jnp.maximum(w_v[:, 2], 1e-6)
+        tri_row = None if tri_params is None else {k: v[0] for k, v in tri_params.items()}
         return trace(config, medium_row, surface_row, leaf_row, leaves, illum_row,
                      tgt + w_v * t_up[:, None], -w_v, key, lane_first, quota,
-                     ext=jnp.broadcast_to(ext, (B, 2)))
+                     ext=jnp.broadcast_to(ext, (B, 2)), tris=tris, tri_row=tri_row)
 
     key = jax.random.fold_in(jax.random.fold_in(jax.random.key(seed), 0), 0)
     return [np.asarray(x) for x in jax.jit(lanes)(
-        scene.medium, scene.surface, scene.illumination, leaf_params, leaves,
+        scene.medium, scene.surface, scene.illumination, leaf_params, leaves, tris, tri_params,
         jnp.asarray(sensor.directions), jnp.asarray(sensor.target),
         jnp.asarray(sensor.target_extent), key)]
 
 
 def _port_lanes(compiled, spp, seed):
     """The port's per-lane sums as :func:`_ref_lanes`, on the CPU."""
-    scene, sensor, config, leaf_params, leaves = compiled[:5]
+    scene, sensor, config, leaf_params, leaves, tris, tri_params = compiled
     dt = np.asarray(scene.medium.tau_levels).dtype
     scene, sensor, config = from_reference(scene, sensor, config, "cpu")
-    leaves, leaf_params, _, _ = canopy_from_reference(leaves, leaf_params, "cpu", dtype=dt)
+    leaves, leaf_params, tris, tri_params = canopy_from_reference(
+        leaves, leaf_params, "cpu", tris, tri_params, dt)
     from eradiate_tpu_torch.ops.tracer import row_arrays
 
     medium_row, surface_row, illum_row = row_arrays(scene, 0)
@@ -430,8 +450,10 @@ def _port_lanes(compiled, spp, seed):
                                       sensor.ray_offset, sensor.target_extent, pix)
     trace = (trace_paths_canopy_polarized_regen if config.polarized
              else trace_paths_canopy_regen)
+    tri_row = None if tri_params is None else {k: v[0] for k, v in tri_params.items()}
     out = trace(config, medium_row, surface_row, leaf_row, leaves, illum_row, init_pos, init_d,
-                row_key(seed, 0, 0, "cpu"), lane_first, quota, ext=ext)
+                row_key(seed, 0, 0, "cpu"), lane_first, quota, ext=ext, tris=tris,
+                tri_row=tri_row)
     return [o.numpy() for o in out[:2]]
 
 
@@ -482,19 +504,20 @@ def test_het01_lane_gate_against_reference_under_x64(x64, mode_id, split):
 
 @pytest.mark.parametrize("mode_id", ["mono_double", "mono_polarized"])
 def test_double_mode_with_triangles_raises_by_name(mode_id):
-    """A tree's trunks are triangles: the triangle sweeps (K8, K9) have no
-    float64 build, so a double mode refuses the canopy naming the mode; the
-    same canopy of leaves alone renders in float64."""
+    """A tree's trunks are triangles: since the triangle sweeps (K8, K9) have
+    float64 builds, a double mode (``mono_polarized`` an alias of
+    ``mono_polarized_double``) renders the tree canopy in float64, as it
+    does the same canopy of leaves alone; nothing is refused by name. (The
+    name is the test's from when the triangles were refused.)"""
     from test_torch_canopy_experiment import _with_tree
 
     eradiate_tpu_torch.set_mode(mode_id)
     try:
-        m = eradiate_tpu_torch.mode()
-        with pytest.raises(NotImplementedError, match=f"{m.id}.*K8 and K9"):
-            eradiate_tpu_torch.run(_with_tree(), spp=8, device="cpu")
-        exp = eradiate_tpu_torch.CanopyExperiment(**kwargs(bio, atmosphere=False))
-        ds = eradiate_tpu_torch.run(exp, spp=8, device="cpu")
-        raw = exp.measures[0].results["raw"]
-        assert raw["radiance"].dtype == F64 and np.isfinite(np.asarray(ds["brf"])).all()
+        leaves_only = eradiate_tpu_torch.CanopyExperiment(**kwargs(bio, atmosphere=False))
+        for exp in (_with_tree(), leaves_only):
+            ds = eradiate_tpu_torch.run(exp, spp=8, seed_state=eradiate_tpu_torch.SeedState(3),
+                                        device="cpu")
+            raw = exp.measures[0].results["raw"]
+            assert raw["radiance"].dtype == F64 and np.isfinite(np.asarray(ds["brf"])).all()
     finally:
         eradiate_tpu_torch.set_mode("mono")

@@ -281,16 +281,15 @@ def test_unported_features_raise(mono_single, kind, name):
 
 def test_polarized_mode_raises():
     """``mono_polarized`` names the double-precision polarized mode: it
-    renders the leaf canopy with float64 path state
-    (``test_torch_canopy_double.py``), and raises naming the mode for a
-    canopy with triangles, whose sweeps have no float64 build yet."""
+    renders the leaf canopy (``test_torch_canopy_double.py``) and a canopy
+    with triangles (``test_torch_tri_double.py``) with float64 path state.
+    (The name is the test's from when the canopy with triangles was
+    refused.)"""
     eradiate_tpu_torch.set_mode("mono_polarized")
     try:
-        exp = port_exp()
-        ds = eradiate_tpu_torch.run(exp, spp=8, device="cpu")
-        assert exp.measures[0].results["raw"]["radiance"].dtype == np.float64
-        assert np.isfinite(np.asarray(ds["brf"])).all()
-        with pytest.raises(NotImplementedError, match="mono_polarized_double"):
-            eradiate_tpu_torch.run(_with_tree(), spp=8, device="cpu")
+        for exp in (port_exp(), _with_tree()):
+            ds = eradiate_tpu_torch.run(exp, spp=8, device="cpu")
+            assert exp.measures[0].results["raw"]["radiance"].dtype == np.float64
+            assert np.isfinite(np.asarray(ds["brf"])).all()
     finally:
         eradiate_tpu_torch.set_mode("mono")

@@ -202,9 +202,10 @@ def test_ckd_polarized_single_matches_reference():
 @pytest.mark.parametrize("mode_id", ["ckd_double", "ckd_polarized_double"])
 def test_other_ckd_modes_raise(mode_id):
     """The double CKD modes render c3 (``test_torch_double.py``) and a leaf
-    canopy over the same CKD atmosphere, every raw row in float64; the
-    canopy given a tree's trunks (triangles, whose sweeps have no float64
-    build yet) raises naming the mode."""
+    canopy over the same CKD atmosphere, every raw row in float64, and so
+    the canopy given a tree's trunks (triangles, through the triangle
+    sweeps' float64 builds). (The name is the test's from when the canopy
+    with triangles was refused.)"""
     from eradiate_tpu_torch import CanopyAtmosphereExperiment
     from eradiate_tpu_torch.scenes import biosphere as bio
     from eradiate_tpu_torch.test_tools.test_cases import create_het01_brfpp
@@ -227,8 +228,10 @@ def test_other_ckd_modes_raise(mode_id):
                 {"type": "instanced", "canopy_element": tree,
                  "instance_positions": [[-8e-3, -5e-3, 0.0], [6e-3, -7e-3, 0.0]]}]),
             **atmosphere)
-        with pytest.raises(NotImplementedError, match=mode_id):
-            eradiate_tpu_torch.run(exp, spp=8, device="cpu")
+        ds = eradiate_tpu_torch.run(exp, spp=8, device="cpu")
+        raw = exp.measures[0].results["raw"]["radiance"]
+        assert raw.dtype == np.float64 and raw.shape[0] == 14
+        assert np.isfinite(np.asarray(ds["brf"])).all()
     finally:
         eradiate_tpu_torch.set_mode("mono")
 

@@ -70,7 +70,14 @@ float64 builds (``leaf_bvh_nearest_f64_kernel``,
 ``leaf_ibvh_occluded_f64_kernel``) are held on float64 disks and rays as
 the float32 kernels are, and on the float64 tie table (three- and four-way
 ties, whose float64 normals they sum again in index order); a float64
-operand beside float32 ones raises before any launch.
+operand beside float32 ones raises before any launch. The triangle sweeps'
+float64 builds (``bvh_nearest_f64_kernel``, ``bvh_occluded_f64_kernel``,
+``tri_ibvh_nearest_f64_kernel``, ``tri_ibvh_occluded_f64_kernel``) are held
+on the float64 wood skeleton with rays at its edges from near and far, with
+direction components of +-0, and exactly at its vertices (a cap's apex
+joins twelve triangles: three- to twelve-way ties, whose float64 normals
+they sum again in index order), on the float64 tie soups, and on instances
+2 km from the world origin.
 """
 
 import numpy as np
@@ -90,6 +97,7 @@ from eradiate_tpu_torch.test_tools.meshes import (
     edge_rays,
     instanced_tie_soup,
     tie_soup,
+    vertex_rays,
     wood_skeleton,
     zero_normal_tris,
 )
@@ -412,6 +420,56 @@ def test_instanced_tri_kernel_stress(card, name, case):
     assert got[-1].any()
     if case == "zero normals" and len(got) == 3:
         assert not torch.signbit(got[1][got[1] == 0]).any()
+
+
+@pytest.mark.parametrize(
+    "name", ["ray_tris_nearest", "ray_tris_occluded", "ray_tris_nearest_instanced",
+             "ray_tris_occluded_instanced"]
+)
+@pytest.mark.parametrize("case", ["edges near", "edges far", "zero components", "vertices",
+                                  "ties", "far offsets"])
+def test_tri_f64_kernel_equals_plain_version(card, name, case):
+    """The float64 builds against their float64 plain versions: the
+    60-branch wood skeleton in float64 (at three offsets for the instanced
+    kernels; or 2 km from the world origin, at three offsets there for the
+    instanced kernels, with rays from near the origin),
+    rays at its edges from 0.5-3 m and 50-300 m, with direction components
+    of +-0, and exactly at its vertices; the tie soups taken into float64."""
+    instanced = name.endswith("instanced")
+    f64 = np.float64
+    rng = np.random.default_rng(19)
+    offsets = np.array([[0.0, 0, 0], [0.02, 0, 0], [0, 0.03, 0]]) if instanced else None
+    B = 100_037
+    if case == "ties":
+        if instanced:
+            tris, offsets, rays = instanced_tie_soup(rng, 30_011, dtype=f64)
+        else:
+            tris, rays = tie_soup(rng, 30_011, dtype=f64)
+    else:
+        v, f = wood_skeleton(np.random.default_rng(7), n_branches=60)
+        if case == "far offsets" and not instanced:
+            v = v + np.array([2000.0, -2000.0, 300.0])  # the flat soup itself 2 km away
+        soup = mesh_from_vertices((v * 1e-3).astype(f64), f)
+        tris = (soup.v0, soup.e1, soup.e2)
+        if case == "far offsets":
+            if instanced:
+                offsets = np.array([[2.0, 0, 0], [0, -2.0, 0], [1.4, 1.4, 0.3]])
+            rays = edge_rays(rng, B, soup, offsets, origins=rng.uniform(-0.01, 0.01, (B, 3)),
+                             dtype=f64)
+        elif case == "vertices":
+            verts = v * 1e-3 if offsets is None else np.concatenate([v * 1e-3 + o
+                                                                     for o in offsets])
+            rays = vertex_rays(rng, B, verts, 1e-5, dtype=f64)
+        elif case == "zero components":
+            rays = axis_rays(rng, B, soup, 1e-3, offsets, dtype=f64)
+        else:
+            rays = edge_rays(rng, B, soup, offsets, 1e-3 if case.endswith("far") else 1e-5,
+                             dtype=f64)
+    arrays = (*rays, *tris) + ((offsets,) if instanced else ())
+    args = [torch.tensor(np.ascontiguousarray(a, f64), device=card) for a in arrays]
+    got = _held(ti, name, args)
+    assert got[0].dtype == (torch.float64 if len(got) == 3 else torch.bool)
+    assert got[-1].any()
 
 
 @pytest.mark.parametrize("B", [1, 100_037])

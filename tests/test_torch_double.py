@@ -166,7 +166,8 @@ def test_every_double_mode_renders_in_float64(mode_id):
     """Each double mode id and alias: float64 path state, a small
     plane-parallel and a small spherical render, a small leaf canopy
     rendered in float64 (the float64 builds of the leaf sweeps), and a
-    canopy with triangles (a tree's trunks) refused naming the mode."""
+    canopy with triangles (a tree's trunks) rendered in float64 too (the
+    float64 builds of the triangle sweeps)."""
     eradiate_tpu_torch.set_mode(mode_id)
     try:
         m = eradiate_tpu_torch.mode()
@@ -187,8 +188,11 @@ def test_every_double_mode_renders_in_float64(mode_id):
                                     device="cpu")
         assert canopy.measures[0].results["raw"]["radiance"].dtype == np.float64
         assert np.isfinite(np.asarray(ds["brf"])).all()
-        with pytest.raises(NotImplementedError, match=f"{m.id}.*K8 and K9"):
-            eradiate_tpu_torch.run(_with_tree(), spp=8, device="cpu")
+        tree = _with_tree()
+        ds = eradiate_tpu_torch.run(tree, spp=8, seed_state=eradiate_tpu_torch.SeedState(3),
+                                    device="cpu")
+        assert tree.measures[0].results["raw"]["radiance"].dtype == np.float64
+        assert np.isfinite(np.asarray(ds["brf"])).all()
     finally:
         eradiate_tpu_torch.set_mode("mono")
 

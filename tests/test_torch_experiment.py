@@ -203,9 +203,10 @@ def test_ckd_polarized_single_renders():
                                      "ckd_polarized_double"])
 def test_unported_modes_raise(mode_id):
     """The double modes render the atmosphere experiment
-    (``test_torch_double.py``) and a leaf canopy, in float64
-    (``test_torch_canopy_double.py``); a canopy with triangles, whose sweeps
-    have no float64 build yet, raises naming the mode."""
+    (``test_torch_double.py``), a leaf canopy (``test_torch_canopy_double.py``)
+    and a canopy with triangles (``test_torch_tri_double.py``), in float64:
+    no double mode is refused any more. (The name is the test's from when
+    the canopy with triangles was refused.)"""
     from eradiate_tpu_torch import CanopyAtmosphereExperiment
     from eradiate_tpu_torch.test_tools.test_cases import create_het01_brfpp
     from test_torch_canopy_experiment import _with_tree
@@ -216,10 +217,10 @@ def test_unported_modes_raise(mode_id):
             canopy=create_het01_brfpp(n_vza=3, n_leaves=20).canopy,
             measures={"type": "mdistant", "construct": "hplane", "zeniths": [0.0]},
         )
-        eradiate_tpu_torch.run(exp, spp=8, device="cpu")
-        assert exp.measures[0].results["raw"]["radiance"].dtype == np.float64
-        with pytest.raises(NotImplementedError, match=mode_id):
-            eradiate_tpu_torch.run(_with_tree(), spp=8, device="cpu")
+        for exp in (exp, _with_tree()):
+            ds = eradiate_tpu_torch.run(exp, spp=8, device="cpu")
+            assert exp.measures[0].results["raw"]["radiance"].dtype == np.float64
+            assert np.isfinite(np.asarray(ds["brf"])).all()
     finally:
         eradiate_tpu_torch.set_mode("mono")
 
