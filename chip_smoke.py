@@ -256,13 +256,17 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
     search tree) and K = 16; float64 NaN, +-inf, -0.0 and every level one
     ulp either side among the queries;
 33. the float64 builds of K2, K3 and K4 (``shell_flight_f64_kernel``,
-    ``shell_event_f64_kernel``, ``slant_tau_f64_kernel``) against their
-    plain twins on the card, bit pattern for bit pattern, K4 at K2's event
-    points equal to K3's tau_sun: the c4 column compiled in ``mono_double``
-    at c4's lane count (timed, with its bound), ragged, the unmerged
-    1200-shell column, the slant and the flight stresses of phase 7 taken
-    into float64, and a planet of 1e6 km (1200 shells of 0.1 km, which
-    float32 cannot tell apart);
+    ``shell_event_f64_kernel``, ``slant_tau_f64_kernel``, on the float32
+    kernels' designs: one sweep with checkpoints of two float64 sums, the
+    slant from the first crossed shell, the shells in shared memory): their
+    blocks an SM, shell caps and the wrapper's float64 layout mirror against
+    the library's (fatal if one differs), then against their plain twins on
+    the card, bit pattern for bit pattern, K4 at K2's event points equal to
+    K3's tau_sun: the c4 column compiled in ``mono_double`` at c4's lane
+    count (timed, with its bound), ragged, the unmerged 1200-shell column,
+    the slant and the flight stresses of phase 7 taken into float64 and
+    made in float64 (each tie and ulp a float64 one), and a planet of 1e6
+    km (1200 shells of 0.1 km, which float32 cannot tell apart);
 34. the port on CUDA against the port on the CPU in the double modes at one
     seed: c1 (``mono_double``, 11 view zeniths, 256 spp), polarized c1
     (``mono_polarized_double``, 64 spp) and c4 at SZA 75 and 85
@@ -280,10 +284,11 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
 37. c4 at SZA 75 at full width in ``mono_double`` (no sun-tau table in a
     double mode: K3's float64 build, the exact NEE) and in ``mono_single``
     (K2 and the table), the same way with 32 event iterations after 16;
-    path B (``lr_flight``) in ``mono_double`` at 8192 spp: K2's and K4's
-    float64 builds launched once an event, radiance and iterations bit for
-    bit with the exact-NEE render; then each double run's numbers beside
-    its single mode's;
+    path B (``lr_flight``) in ``mono_double`` at full width:
+    K2's and K4's float64 builds launched once an event, radiance and
+    iterations bit for bit with the exact-NEE render, then one more run with
+    CUDA events around each launch (K2 f64 and K4 f64 a launch in the run);
+    then each double run's numbers beside its single mode's;
 38. the float64 builds of the leaf sweeps (``leaf_bvh_nearest_f64_kernel``,
     ``leaf_bvh_occluded_f64_kernel``, ``leaf_ibvh_nearest_f64_kernel``,
     ``leaf_ibvh_occluded_f64_kernel``) against their float64 plain versions
@@ -369,7 +374,8 @@ K7 their device time a launch inside the polarized full-width runs,
 float64 builds as entries of their own, ``collision_fetch_f64`` (launches on
 c1 in ``mono_double``, its device time a launch inside that run and inside
 c3's in ``ckd``), ``shell_event_f64`` (c4 SZA 75 in ``mono_double``),
-``shell_flight_f64`` and ``slant_tau_f64`` (path B at 8192 spp), and the
+``shell_flight_f64`` and ``slant_tau_f64`` (path B at full width, with
+their device time a launch inside that run, ``run_ms``), and the
 leaf sweeps' ``ray_leaves_nearest_f64``, ``ray_leaves_occluded_f64`` (the
 flat c5 in ``mono_double``), ``ray_leaves_nearest_instanced_f64`` and
 ``ray_leaves_occluded_instanced_f64`` (c5 in ``mono_polarized``), and the
@@ -837,20 +843,22 @@ def _start_means(sums):
             s[3] / max(-(-s[5] // WARP), 1))
 
 
-def _slant_stress_inputs(column, w, B, seed, device="cuda"):
+def _slant_stress_inputs(column, w, B, seed, device="cuda", dtype=np.float32):
     """Shell-kernel operands whose slant stage sees the stresses of
     ``test_tools.shells.stress_points`` toward ``w``: no flight (t_max = 0,
     directions with negative components so that the step adds -0 and keeps
-    a -0 coordinate), so that the event point is the point itself."""
+    a -0 coordinate), so that the event point is the point itself. With
+    ``dtype`` float64 the stresses are made in float64 (each ulp a float64
+    one)."""
     import torch
 
     from eradiate_tpu_torch.test_tools import shells
 
     radii, sigma = shells.stress_columns(np.random.default_rng(8))[column]
-    p = shells.stress_points(np.random.default_rng(seed), radii, w, B)
+    p = shells.stress_points(np.random.default_rng(seed), radii, w, B, dtype=dtype)
     d = np.full((B, 3), -(3.0**-0.5), np.float32)
     ops = (p, d, np.zeros(B, np.float32), radii, sigma, np.ones(B, np.float32), w)
-    return tuple(torch.tensor(np.ascontiguousarray(a), device=device) for a in ops)
+    return tuple(torch.tensor(np.ascontiguousarray(a, dtype), device=device) for a in ops)
 
 
 def _flight_stats(args):
@@ -866,7 +874,7 @@ def _flight_stats(args):
 
     p, d, t_max, radii, sigma, tau_s = args[:6]
     L = sigma.shape[0]
-    S = flight_stride(L)
+    S = flight_stride(L, p.dtype)
     *_, tr = shells.shell_flight_checkpointed(p, d, t_max, radii, sigma, tau_s, S)
     visits = tr["sweep"] + tr["walk"]
     parent = shells.parent_visits(tr, L)
@@ -984,17 +992,19 @@ def check_shell_kernels(name, args, timed=False):
     return errs, times, bounds
 
 
-def _flight_stress_inputs(radii, sigma, w, B, seed, device="cuda"):
+def _flight_stress_inputs(radii, sigma, w, B, seed, device="cuda", dtype=np.float32):
     """Shell-kernel operands on the flight's stresses of ``test_tools.shells
     .flight_stress_inputs`` for the column ``radii``, ``sigma``, the slant
-    stage toward ``w``."""
+    stage toward ``w``; with ``dtype`` float64 made in float64 (each tie and
+    ulp a float64 one)."""
     import torch
 
     from eradiate_tpu_torch.test_tools import shells
 
+    radii, sigma = (np.asarray(a, dtype) for a in (radii, sigma))
     p, d, t_max, tau_s = shells.flight_stress_inputs(np.random.default_rng(seed), radii, sigma,
-                                                     B, device=device)
-    column = (torch.tensor(np.asarray(a, np.float32), device=device) for a in (radii, sigma, w))
+                                                     B, device=device, dtype=dtype)
+    column = (torch.tensor(np.asarray(a, dtype), device=device) for a in (radii, sigma, w))
     radii_t, sigma_t, w_t = column
     return p, d, t_max, radii_t, sigma_t, tau_s, w_t
 
@@ -2765,7 +2775,8 @@ def check_shell_kernels_f64(name, args, timed=False):
     a flight has to read (``_flight_levels_f64``) and ~15 (two roots and a
     quotient among them) for each distinct segment of the slant path from
     the event point (``test_tools.shells.crossed_segments``), over the card's
-    float64 rate."""
+    float64 rate. Fails where a lane passes more than L + S levels in the
+    kernels' emulation (``_flight_stats``), as ``check_shell_kernels``."""
     import torch
 
     from eradiate_tpu_torch.kernels import shell_flight as sf
@@ -2774,6 +2785,10 @@ def check_shell_kernels_f64(name, args, timed=False):
 
     p, d, t_max, radii, sigma, _, w_sun = args
     flight_args = args[:6]
+    flight = _flight_stats(args)
+    if flight["most"] > flight["L"] + flight["S"]:
+        raise AssertionError(f"{name}: an emulated float64 lane passes {flight['most']:.0f} "
+                             "levels, above L + S")
     collide, t_col, layer = sf.shell_flight(*flight_args)
     p_event = fma(d, torch.where(collide, t_col, t_max)[:, None], p).contiguous()
     levels = _flight_levels_f64(args, layer)
@@ -2813,7 +2828,7 @@ def check_shell_kernels_f64(name, args, timed=False):
             f"to K3's tau_sun (collide share {collide.double().mean().item():.3f}, TAU_BLOCKED "
             f"share {(got[3] >= 1e9).double().mean().item():.3f}); levels a flight reads "
             f"{levels.double().mean().item():.2f}, crossed segments a lane "
-            f"{segments.double().mean().item():.2f}")
+            f"{segments.double().mean().item():.2f}; " + _flight_line(flight))
     for kernel, t in times.items():
         line += (f"; {kernel}_f64 kernel {t['ms']:.4f} ms (device {t['device_ms']:.4f} by the "
                  f"{t['device_by']}), twin {t['plain_ms']:.4f} ms, bound "
@@ -2930,7 +2945,9 @@ def path_b_double(phase, spp):
     """c4 at SZA 75 with ``lr_flight`` in ``mono_double`` on the card at
     ``spp``: K2's and K4's float64 builds launched once an event each, and
     the radiance and iterations equal, bit for bit, to the exact-NEE render
-    (K3's float64 build) of the same scene. Returns the launches."""
+    (K3's float64 build) of the same scene; then one more ``lr_flight`` run
+    with CUDA events around each launch. Returns the launches and
+    ({wrapper: (launches, device ms a launch)}) of that run."""
     import dataclasses
 
     import eradiate_tpu_torch as etp
@@ -2946,10 +2963,12 @@ def path_b_double(phase, spp):
                              seed=SEED, device="cuda")
         out[lr] = (r["radiance"].cpu().numpy(), r["iterations"], read_launches(),
                    time.perf_counter() - t0)
-    (rad, it, launches, wall), (rad_x, it_x, launches_x, _) = out[True], out[False]
+    (rad, it, launches, wall), (rad_x, it_x, launches_x, wall_x) = out[True], out[False]
     same = bool(np.array_equal(rad.view(np.int64), rad_x.view(np.int64))) and it == it_x
+    samples = N_VZA_C4 * spp
     print(f"[{phase}] c4 SZA 75 path B (lr_flight, mono_double), {N_VZA_C4} VZA x {spp} spp on "
-          f"the card: {wall:.3f} s, {it} event iterations, launches "
+          f"the card: wall {wall:.3f} s ({samples / wall:.4e} samples/s; the exact-NEE render "
+          f"{wall_x:.3f} s), {it} event iterations, launches "
           f"{', '.join(f'{k} {n}' for k, n in launches.items() if n)}; radiance and iterations "
           f"bit for bit with the exact-NEE render ({launches_x['shell_event_f64']} "
           f"shell_event_f64 launches): {same}", flush=True)
@@ -2959,7 +2978,12 @@ def path_b_double(phase, spp):
         raise AssertionError("path B in mono_double launched a kernel of another path")
     if not same:
         raise AssertionError("path B in mono_double differs from the exact-NEE render")
-    return launches
+    config_lr = dataclasses.replace(config, lr_flight=True)
+    in_run, _, _ = launch_ms_in_run(
+        lambda: render_spherical(scene, sensor, config_lr, spp, seed=SEED, device="cuda"),
+        ("shell_flight", "slant_tau"), starts=False)
+    _print_in_run(in_run)
+    return launches, in_run
 
 
 def canopy_double_phases(B5, single_times, pol_single, ds_pol_single, c5_single, cpu):
@@ -3264,6 +3288,22 @@ def double_phases(fetch_times, B4, sun_85, c3_wall):
 
     print("[33] shell_flight, slant_tau and shell_event float64 builds against their plain "
           "twins", flush=True)
+    from eradiate_tpu_torch.kernels import shell_flight as sf
+
+    print("    blocks of 256 threads an SM (registers and shared memory; the float64 flight "
+          "kernels with a checkpoint of two float64 sums every ceil(L / "
+          f"{sf.CHECKPOINTS_F64}) levels): " + ", ".join(
+              f"{k}_f64 {sf.blocks_per_sm(k, 232, torch.float64)} at L = 232, "
+              f"{sf.blocks_per_sm(k, 1200, torch.float64)} at L = 1200"
+              for k in ("shell_flight", "shell_event", "slant_tau")) + "; shell caps "
+          + ", ".join(f"{k}_f64 {sf.shell_cap(k, torch.float64)}"
+                      for k in ("shell_flight", "shell_event", "slant_tau")), flush=True)
+    layout = sf.layout_differences(4096)
+    print("    the wrapper's checkpoint stride and shared-memory sizes, float32 and float64 "
+          f"builds, against the library's at 1 to 4096 shells: {len(layout)} differ", flush=True)
+    if layout:
+        raise AssertionError("the shell wrappers' float64 layout differs from the library's: "
+                             f"{layout[:5]}")
     shell64_errs, shell64_times, shell64_bounds = check_shell_kernels_f64(
         "c4 column, mono_double", _shell_inputs_f64(_c4(), B4, seed=10), timed=True)
     sets64 = [
@@ -3274,9 +3314,13 @@ def double_phases(fetch_times, B4, sun_85, c3_wall):
         for label, w in (("along an axis", shells.AXIS_W), ("toward the SZA 85 sun", sun_85)):
             sets64.append((f"slant stresses, {column}, {label}, in float64",
                            _f64(_slant_stress_inputs(column, w, 100_037, seed=14))))
+            sets64.append((f"slant stresses, {column}, {label}, made in float64",
+                           _slant_stress_inputs(column, w, 100_037, 17, dtype=np.float64)))
     for column, (radii, sigma) in shells.flight_columns(np.random.default_rng(8)).items():
         sets64.append((f"flight stresses, {column}, in float64",
                        _f64(_flight_stress_inputs(radii, sigma, sun_85, 100_037, 15))))
+        sets64.append((f"flight stresses, {column}, made in float64",
+                       _flight_stress_inputs(radii, sigma, sun_85, 100_037, 18, dtype=np.float64)))
     p, d, t_max, tau_s, radii, sigma = shells.planet_inputs(
         np.random.default_rng(16), 2**18, device="cuda")
     sets64.append(("a planet of 1e6 km, 1200 shells of 0.1 km", (
@@ -3303,7 +3347,7 @@ def double_phases(fetch_times, B4, sun_85, c3_wall):
         key = attr + ("_f64" if mode == "mono_double" else "")
         runs["c4", mode] = profiled_full_width(37, "c4 SZA 75", lambda n: _c4(75.0), mode,
                                                SPP_C4, N_VZA_C4, sph_tracer, attr, key, 16, 32)
-    path_b64 = path_b_double(37, 8192)
+    path_b64, path_b64_in_run = path_b_double(37, SPP_C4)
     single = {"c1": runs["c1", "mono_single"], "c4": runs["c4", "mono_single"],
               "c3": {"wall_s": c3_wall, "samples_per_s": N_VZA * SPP_C3 * ROWS_C3 / c3_wall}}
     for cfg, mode in (("c1", "mono_double"), ("c3", "ckd"), ("c4", "mono_double")):
@@ -3323,6 +3367,8 @@ def double_phases(fetch_times, B4, sun_85, c3_wall):
                          c3_launches=runs["c3", "ckd"]["launches"],
                          c3_run_device_ms=runs["c3", "ckd"]["run_device_ms"])
     shell64_times["shell_event"]["run_device_ms"] = runs["c4", "mono_double"]["run_device_ms"]
+    for k in ("shell_flight", "slant_tau"):
+        shell64_times[k]["run_ms"] = path_b64_in_run[k][1]
     return {"runs": runs, "path_b": path_b64, "pol_c1": pol_c1_double,
             "fetch": (err64, fetch64_times, fetch64_bound),
             "shells": (shell64_errs, shell64_times, shell64_bounds)}
@@ -3903,7 +3949,7 @@ def main():
             for k, (stem, line, form) in sweeps.items()
         ],
         # the float64 builds of the double modes: K1 on c1 (mono_double), K3 on
-        # c4 at SZA 75 (mono_double), K2 and K4 on c4's path B at 8192 spp
+        # c4 at SZA 75 (mono_double), K2 and K4 on c4's path B, all at full width
         entry("collision_fetch_f64", "eradiate_tpu_torch/csrc/collision_fetch.cu",
               f"{pallas}/collision_fetch.py:59", runs["c1", "mono_double"]["launches"], err64,
               fetch64_times, fetch64_bound),

@@ -1,18 +1,20 @@
 """The slant-depth sum as the CUDA kernel orders it, and points that stress
 it, for the tests and the smoke script.
 
-:func:`slant_tau_shared` emulates the device function ``slant_tau`` of
-``csrc/shell_flight.cu`` in PyTorch, in the kernel's order: each lane starts
-at the first shell its path crosses (:func:`first_shells`), a warp of 32
-lanes loops from the least start of its lanes, the root at a shell's upper
-radius is carried to the next shell as the root at its lower one (its
-radicand clamped to 2^-100, which changes no root a term reads), a root is reused only where the endpoint compares equal to the
-radius it was taken of, and each shell's term is one up segment plus the down one (the same
-segment below the point's shell, the twin's partial segment in it, nothing
-above), summed in float64 in level order. It must equal
-:func:`~eradiate_tpu_torch.ops.spherical.slant_tau_exact` bit for bit. (The
-kernel divides with the IEEE division's fast path, ``div_rn``; the card's
-checks hold it to the IEEE division on :func:`division_operands`.)
+:func:`slant_tau_shared` emulates the device functions ``slant_tau`` and
+``slant_tau64`` (its float64 build) of ``csrc/shell_flight.cu`` in PyTorch,
+in the dtype of the points and in the kernels' order: each lane starts at
+the first shell its path crosses (:func:`first_shells`), a warp of 32 lanes
+loops from the least start of its lanes, the root at a shell's upper radius
+is carried to the next shell as the root at its lower one (its radicand
+clamped to 2^-100 in float32, which changes no root a term reads; exact in
+float64), a root is reused only where the endpoint compares equal to the
+radius it was taken of, and each shell's term is one up segment plus the
+down one (the same segment below the point's shell, the twin's partial
+segment in it, nothing above), summed in float64 in level order. It must
+equal :func:`~eradiate_tpu_torch.ops.spherical.slant_tau_exact` bit for bit.
+(The kernel divides with the IEEE division's fast path, ``div_rn``; the
+card's checks hold it to the IEEE division on :func:`division_operands`.)
 
 :func:`stress_points` places points where that equality is hardest to keep
 (on shell radii, with tangent radii on shell radii and at the ground, with
@@ -20,19 +22,22 @@ checks hold it to the IEEE division on :func:`division_operands`.)
 :func:`crossed_segments` counts the distinct segments of each lane's path,
 the work any implementation of the sum has to do. Radii are ascending.
 
-:func:`shell_flight_checkpointed` emulates the device function
-``shell_flight_lane`` the same way: one sweep from level 0 to the bracket
-of the larger of ``|x0|`` and ``|x_max|``, taking the smaller one's bracket
-on its way and keeping the float64 prefix of every ``stride``-th level, then
-the inversion of G resumed from the sweep's stop or from the last
-checkpoint with G <= v (the kernel's binary search), and a walk forward. It must equal
+:func:`shell_flight_checkpointed` emulates the device functions
+``shell_flight_lane`` and ``shell_flight_lane64`` the same way (a float64
+checkpoint holds the two running sums of the bfloat16 halves): one sweep
+from level 0 to the bracket of the larger of ``|x0|`` and ``|x_max|``,
+taking the smaller one's bracket on its way and keeping the float64 prefix
+of every ``stride``-th level, then the inversion of G resumed from the
+sweep's stop or from the last checkpoint with G <= v (the kernel's binary
+search), and a walk forward. It must equal
 :func:`~eradiate_tpu_torch.ops.spherical.shell_flight_plain` bit for bit
 whatever the stride, and returns a trace of what each lane did, from which
 :func:`flight_levels` (the levels any implementation has to read) and
 :func:`parent_visits` (what the two sweeps before it visited) are read.
 :func:`flight_columns` and :func:`flight_stress_inputs` make the flight's
-stresses. :func:`planet_inputs` makes float64 lanes on a planet of 1e6 km,
-for the float64 builds: there float32 cannot tell 0.1 km shells apart.
+stresses (the stress generators also in float64, each tie and ulp then a
+float64 one). :func:`planet_inputs` makes float64 lanes on a planet of 1e6
+km, for the float64 builds: there float32 cannot tell 0.1 km shells apart.
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.spherical import TAU_BLOCKED, _seg, cross_norm2, dot3, sqrt_rn
+from ..ops.spherical import (TAU_BLOCKED, _prefix_levels, _seg, bf16_split, cross_norm2,
+                             dot3, sqrt_rn)
 
 __all__ = [
     "WARP",
@@ -107,18 +113,23 @@ def loop_starts(l0, loops, L, warp=WARP):
 
 
 def _square(x):
-    """``x^2`` in float64, exact for float32 ``x``."""
+    """``x^2`` in float64: exact for float32 ``x``, ``fl(x * x)`` for float64
+    ``x`` (as the twin rounds ``r * r``)."""
     return x.double() * x.double()
 
 
 def _root(x2, b2):
-    """``sqrt(max(x^2 - b2, 0))`` from ``x^2`` in float64, rounded once."""
-    return sqrt_rn(torch.clamp((x2 - b2.double()).float(), min=0.0))
+    """``sqrt(max(x^2 - b2, 0))`` from ``x^2`` in float64, the radicand
+    rounded once to ``b2``'s dtype."""
+    return sqrt_rn(torch.clamp((x2 - b2.double()).to(b2.dtype), min=0.0))
 
 
 def _loop_root(x2, b2):
-    """:func:`_root` with the radicand clamped to 2^-100, as the kernel's
-    loop takes it: the same value on a lane's own shells."""
+    """:func:`_root` as the kernel's loop takes it: in float32 with the
+    radicand clamped to 2^-100, which changes no root of a lane's own shells;
+    in float64 exact (the kernel's ``root64``)."""
+    if b2.dtype == torch.float64:
+        return _root(x2, b2)
     return sqrt_rn(torch.clamp((x2 - b2.double()).float(), min=2.0**-100))
 
 
@@ -147,14 +158,18 @@ def slant_tau_shared(p, w, radii, sigma, same=torch.eq):
         f_hi = _loop_root(r2[l + 1], b2)
         a = torch.minimum(torch.maximum(lo, c), hi)
         f_a = torch.where(same(a, c), f_c, torch.where(same(a, lo), f_lo, f_hi))
-        empty = a == hi  # below the lane's first shell: the term is +0
-        q = torch.where(empty, 1.0, (hi - a) * (hi + a)) / torch.where(empty, 1.0, f_a + f_hi)
-        up = torch.where(empty, 0.0, q)
+        # below the lane's first shell (a == hi) the term is +0; so is it
+        # where the twin's quotient has no denominator (never in float32,
+        # whose loop roots are at least 2^-50)
+        den = f_a + f_hi
+        term = (a != hi) & (den > 0.0)
+        q = torch.where(term, (hi - a) * (hi + a), 1.0) / torch.where(
+            term, torch.clamp(den, min=1e-30), 1.0)
+        up = torch.where(term, q, 0.0)
         down = torch.where(l < l_r, up, torch.where(l == l_r, down_r, 0.0))
-        term = ((down + up) * sigma[l]).double()
-        acc = torch.where(loops & (l >= start), acc + term, acc)
+        acc = torch.where(loops & (l >= start), acc + ((down + up) * sigma[l]).double(), acc)
         f_lo = f_hi
-    tau = torch.where(loops, acc.float(), 0.0)
+    tau = torch.where(loops, acc.to(p.dtype), 0.0)
     return torch.where(blocked, TAU_BLOCKED, tau)
 
 
@@ -176,9 +191,10 @@ def _unit(v):
     return v / np.linalg.norm(v, axis=-1, keepdims=True)
 
 
-def stress_points(rng, radii, w, n):
-    """``n`` points [n, 3] float32 for the direction ``w`` [3], in equal
-    parts:
+def stress_points(rng, radii, w, n, dtype=np.float32):
+    """``n`` points [n, 3] of ``dtype`` (float32, or float64 for the float64
+    builds, each ulp then a float64 one) for the direction ``w`` [3], in
+    equal parts:
 
     - on shell radii along the coordinate axes (``r`` exact), and on random
       directions at the radii (``r`` within an ulp of them);
@@ -191,8 +207,9 @@ def stress_points(rng, radii, w, n):
       plane, the -0 ones with every component negative or -0);
     - above the top radius, by an ulp to 10 km, ascending and descending.
     """
-    radii = np.asarray(radii, np.float32)
-    w = np.asarray(w, np.float32)
+    dtype = np.dtype(dtype).type
+    radii = np.asarray(radii, dtype)
+    w = np.asarray(w, dtype)
     L = radii.size - 1
     top = float(radii[-1])
     m = -(-n // 5)
@@ -209,10 +226,10 @@ def stress_points(rng, radii, w, n):
 
     # tangents on radii: p = s w + t u, b = t
     t = radii[rng.integers(0, L + 1, m)].astype(np.float64)
-    ground = np.array([np.nextafter(radii[0], np.float32(0)), radii[0],
-                       np.nextafter(radii[0], np.float32(np.inf))], np.float32)
+    ground = np.array([np.nextafter(radii[0], dtype(0)), radii[0],
+                       np.nextafter(radii[0], dtype(np.inf))], dtype)
     t[: m // 4] = ground[np.arange(m // 4) % 3]
-    t = t.astype(np.float32)
+    t = t.astype(dtype)
     reach = np.sqrt(np.maximum(top**2 - t.astype(np.float64) ** 2, 0.0))
     s = rng.uniform(-1.0, 1.0, m) * reach
     s[::5] = 0.0  # at the tangent point itself
@@ -236,9 +253,9 @@ def stress_points(rng, radii, w, n):
     # above the top
     above = _unit(rng.normal(size=(m, 3))) * (top + rng.uniform(0.0, 10.0, m))[:, None]
     above[::4] = np.eye(3)[rng.integers(0, 3, len(above[::4]))] * np.nextafter(
-        np.float32(top), np.float32(np.inf))
+        dtype(top), dtype(np.inf))
 
-    out = np.concatenate([on, tan, right, yz, above])[:n].astype(np.float32)
+    out = np.concatenate([on, tan, right, yz, above])[:n].astype(dtype)
     return np.ascontiguousarray(out)
 
 
@@ -287,11 +304,28 @@ def division_operands(rng, n_random=2**22):
 
 
 def _flight_root(r2, b2):
-    """The kernel's ``flight_root``: ``sqrt(max(r2 - b2, 0))``, +0 selected
-    where the radicand is <= 0, the root taken of the radicand clamped to
-    2^-100."""
+    """The kernels' ``flight_root`` (float32) and ``root64`` (float64):
+    ``sqrt(max(r2 - b2, 0))``, +0 selected where the radicand is <= 0; in
+    float32 the root is taken of the radicand clamped to 2^-100."""
     rad = r2 - b2
-    return torch.where(rad > 0.0, sqrt_rn(torch.clamp(rad, min=2.0**-100)), 0.0)
+    floor = 2.0**-100 if rad.dtype == torch.float32 else 0.0
+    return torch.where(rad > 0.0, sqrt_rn(torch.clamp(rad, min=floor)), 0.0)
+
+
+def _prefix_add(acc, c):
+    """The flight's prefix ``acc`` [n, B] float64 after adding ``c`` [B]:
+    float32 ``c`` to one running sum (n = 1); float64 ``c`` split into its
+    bfloat16 halves, each added to its own running sum (n = 2), the
+    reference's x64 prefix (``ops.spherical._prefix_levels``)."""
+    if c.dtype == torch.float64:
+        return acc + torch.stack(bf16_split(c))
+    return acc + c.double()[None]
+
+
+def _prefix_value(acc, dtype):
+    """G of the prefix ``acc`` [n, B]: the running sum rounded to float32,
+    or the two float64 sums added."""
+    return acc[0] + acc[1] if dtype == torch.float64 else acc[0].float()
 
 
 def _tangent_levels(r2, b2, L):
@@ -309,21 +343,25 @@ def warp_max(x, warp=WARP):
 
 
 def shell_flight_checkpointed(p, d, t_max, radii, sigma, tau_s, stride, overshoot=0):
-    """The kernel's shell free flight in its order (module docstring), with a
-    float64 checkpoint every ``stride`` levels. ``overshoot`` > 0 is a
-    mutation: the resume from a checkpoint then starts that many levels
-    above it (with their exact prefix), as a kernel that skipped the first
-    test of its walk would. Returns ``(collide, t_col, layer, trace)``;
-    ``trace`` holds per lane (int64 unless said): ``tangent`` (the lane's
-    tangent level: the last level with X = 0, else 0), ``ka``, ``km``, ``kv`` (the
-    brackets of |x0|, |x_max| and the inversion), ``end`` (the level the
-    sweep stopped at: the larger query's bracket), ``resume`` (where the
-    inversion resumed), ``at_end`` (bool: it resumed from the sweep's stop),
-    ``sweep`` and ``walk`` (the passes of each loop's body, each reading one
-    level), and the float32 ``A`` (the depth from the tangent point to the
+    """The kernels' shell free flight in their order (module docstring), in
+    the dtype of the lanes, with a checkpoint of the prefix every ``stride``
+    levels: float32 lanes (``shell_flight_lane``) keep one float64 running
+    sum, float64 lanes (``shell_flight_lane64``) the two float64 running sums
+    of the bfloat16 halves. ``overshoot`` > 0 is a mutation: the resume from
+    a checkpoint then starts that many levels above it (with their exact
+    prefix), as a kernel that skipped the first test of its walk would.
+    Returns ``(collide, t_col, layer, trace)``; ``trace`` holds per lane
+    (int64 unless said): ``tangent`` (the lane's tangent level: the last
+    level with X = 0, else 0), ``ka``, ``km``, ``kv`` (the brackets of |x0|,
+    |x_max| and the inversion), ``end`` (the level the sweep stopped at: the
+    larger query's bracket), ``resume`` (where the inversion resumed),
+    ``at_end`` (bool: it resumed from the sweep's stop), ``sweep`` and
+    ``walk`` (the passes of each loop's body, each reading one level), and,
+    in the lanes' dtype, ``A`` (the depth from the tangent point to the
     start), ``tau_max`` and ``v`` (the depth the inversion looks up)."""
     L = sigma.shape[0]
     B = p.shape[0]
+    dtype = p.dtype
     lanes = torch.arange(B, device=p.device)
     x0 = dot3(p, d)
     b2 = cross_norm2(p, d)
@@ -332,23 +370,30 @@ def shell_flight_checkpointed(p, d, t_max, radii, sigma, tau_s, stride, overshoo
     ym = torch.abs(x_max)
     r2 = radii * radii
 
+    def G(acc):
+        return _prefix_value(acc, dtype)
+
+    def step(acc, k, X, Xn):
+        return _prefix_add(acc, sigma[k] * (Xn - X))
+
     # the sweep, to the last level <= the larger query (its bracket), taking
     # the smaller query's bracket on its way
     a_lo = ya <= ym
     y_lo, y_hi = torch.where(a_lo, ya, ym), torch.where(a_lo, ym, ya)
     k = torch.zeros(B, dtype=torch.int64, device=p.device)
     X = _flight_root(r2[k], b2)
-    acc = torch.zeros(B, dtype=torch.float64, device=p.device)
+    acc = torch.zeros(2 if dtype == torch.float64 else 1, B, dtype=torch.float64,
+                      device=p.device)
     k_lo = torch.zeros_like(k)
     acc_lo, X_lo = acc.clone(), X.clone()
     n_ck = -(-L // stride)
-    ck = torch.full((n_ck, B), torch.nan, dtype=torch.float64, device=p.device)
+    ck = torch.full((n_ck, *acc.shape), torch.nan, dtype=torch.float64, device=p.device)
     ck[0] = 0.0
     sweep = torch.zeros_like(k)
     alive = X <= y_hi
     while bool(alive.any()):
         store = alive & (k % stride == 0) & (k > 0)
-        ck[(k // stride)[store], lanes[store]] = acc[store]
+        ck[(k // stride)[store], :, lanes[store]] = acc[:, store].T
         alive = alive & (k + 1 < L)
         up = alive & (X <= y_lo)
         k_lo, acc_lo, X_lo = (torch.where(up, k, k_lo), torch.where(up, acc, acc_lo),
@@ -357,16 +402,16 @@ def shell_flight_checkpointed(p, d, t_max, radii, sigma, tau_s, stride, overshoo
         kn = torch.clamp(k + 1, max=L - 1)
         Xn = _flight_root(r2[kn], b2)
         alive = alive & (Xn <= y_hi)
-        nxt = acc + (sigma[k] * (Xn - X)).double()
-        acc, X, k = torch.where(alive, nxt, acc), torch.where(alive, Xn, X), torch.where(alive, kn, k)
+        acc = torch.where(alive, step(acc, k, X, Xn), acc)
+        X, k = torch.where(alive, Xn, X), torch.where(alive, kn, k)
     up = X <= y_lo
     k_lo, acc_lo, X_lo = torch.where(up, k, k_lo), torch.where(up, acc, acc_lo), torch.where(up, X, X_lo)
     end, acc_end = k.clone(), acc.clone()
     ka, km = torch.where(a_lo, k_lo, k), torch.where(a_lo, k, k_lo)
     acc_a, acc_m = torch.where(a_lo, acc_lo, acc), torch.where(a_lo, acc, acc_lo)
     Xa, Xm = torch.where(a_lo, X_lo, X), torch.where(a_lo, X, X_lo)
-    A = acc_a.float() + sigma[ka] * torch.clamp(ya - Xa, min=0.0)
-    Gm = acc_m.float() + sigma[km] * torch.clamp(ym - Xm, min=0.0)
+    A = G(acc_a) + sigma[ka] * torch.clamp(ya - Xa, min=0.0)
+    Gm = G(acc_m) + sigma[km] * torch.clamp(ym - Xm, min=0.0)
     desc = x0 < 0.0
     tau_max = torch.where(desc, torch.where(x_max < 0.0, A - Gm, A + Gm), Gm - A)
     collide = tau_s < torch.clamp(tau_max, min=0.0)
@@ -376,7 +421,7 @@ def shell_flight_checkpointed(p, d, t_max, radii, sigma, tau_s, stride, overshoo
     # the resume: the sweep's stop where G <= v there, else the last
     # checkpoint below it with G <= v (the kernel's binary search; checkpoint
     # 0 is level 0, where also v < 0 or NaN resume)
-    at_end = acc_end.float() <= v
+    at_end = G(acc_end) <= v
     c_lo = torch.ones_like(end)
     lo, hi = c_lo.clone(), torch.div(end - 1, stride, rounding_mode="trunc") + 1
     while True:
@@ -384,16 +429,16 @@ def shell_flight_checkpointed(p, d, t_max, radii, sigma, tau_s, stride, overshoo
         if not bool(act.any()):
             break
         mid = (lo + hi) // 2
-        up = act & (ck[torch.clamp(mid, 0, n_ck - 1), lanes].float() <= v)
+        up = act & (G(ck[torch.clamp(mid, 0, n_ck - 1), :, lanes].T) <= v)
         lo, hi = torch.where(up, mid + 1, lo), torch.where(act & ~up, mid, hi)
     c = lo - 1
     k = c * stride
-    acc = ck[c, lanes]
+    acc = ck[c, :, lanes].T
     for _ in range(overshoot):
-        step = (c > 0) & ~at_end & (k + 1 < L)
+        over = (c > 0) & ~at_end & (k + 1 < L)
         kn = torch.clamp(k + 1, max=L - 1)
-        nxt = acc + (sigma[k] * (_flight_root(r2[kn], b2) - _flight_root(r2[k], b2))).double()
-        acc, k = torch.where(step, nxt, acc), torch.where(step, kn, k)
+        nxt = step(acc, k, _flight_root(r2[k], b2), _flight_root(r2[kn], b2))
+        acc, k = torch.where(over, nxt, acc), torch.where(over, kn, k)
     k = torch.where(at_end, end, k)
     acc = torch.where(at_end, acc_end, acc)
     resume = k.clone()
@@ -406,11 +451,11 @@ def shell_flight_checkpointed(p, d, t_max, radii, sigma, tau_s, stride, overshoo
         walk += alive
         kn = torch.clamp(k + 1, max=L - 1)
         Xn = _flight_root(r2[kn], b2)
-        nxt = acc + (sigma[k] * (Xn - X)).double()
-        ok = alive & (nxt.float() <= v)
+        nxt = step(acc, k, X, Xn)
+        ok = alive & (G(nxt) <= v)
         acc, X, k = torch.where(ok, nxt, acc), torch.where(ok, Xn, X), torch.where(ok, kn, k)
         alive = ok & (k + 1 < L)
-    y = X + (v - acc.float()) / torch.clamp(sigma[k], min=1e-30)
+    y = X + (v - G(acc)) / torch.clamp(sigma[k], min=1e-30)
     x_col = torch.where(on_desc, -y, y)
     t_col = torch.minimum(torch.clamp(x_col - x0, min=0.0), t_max)
     trace = dict(tangent=_tangent_levels(r2, b2, L), ka=ka, km=km, kv=k, end=end, resume=resume,
@@ -460,15 +505,11 @@ def flight_columns(rng):
 
 
 def _prefix_table(b2, radii, sigma):
-    """The twin's ``G`` [L+1, B] (float64 prefix in level order, float32 at
-    each level) at squared impact parameters ``b2`` [B]."""
+    """The twin's ``G`` [L+1, B] at squared impact parameters ``b2`` [B]: in
+    float32 the float64 prefix in level order, float32 at each level; in
+    float64 the reference's prefix of bfloat16 halves."""
     X = sqrt_rn(torch.clamp((radii * radii)[:, None] - b2, min=0.0))
-    acc = torch.zeros_like(b2, dtype=torch.float64)
-    rows = [acc.float()]
-    for row in sigma[:, None] * (X[1:] - X[:-1]):
-        acc = acc + row.double()
-        rows.append(acc.float())
-    return torch.stack(rows)
+    return _prefix_levels(sigma[:, None] * (X[1:] - X[:-1]))
 
 
 def _nudge(x, ok, want, got):
@@ -478,16 +519,19 @@ def _nudge(x, ok, want, got):
     return torch.where(ok, x, torch.nextafter(x, step))
 
 
-def flight_stress_inputs(rng, radii, sigma, n, device="cpu"):
-    """``(p [n, 3], d [n, 3], t_max [n], tau_s [n])`` float32 on ``device``
-    for the column ``radii``, ``sigma``, in six equal parts. Most lanes fly
+def flight_stress_inputs(rng, radii, sigma, n, device="cpu", dtype=np.float32):
+    """``(p [n, 3], d [n, 3], t_max [n], tau_s [n])`` of ``dtype`` (float32,
+    or float64 for the float64 builds: each tie and ulp then a float64 one)
+    on ``device`` for the column ``radii``, ``sigma`` (taken into
+    ``dtype``), in six equal parts. Most lanes fly
     along +y from ``p = (a, s, c)``, where ``x0 = s`` and ``b2 =
     fma(a, a, c^2)`` come out exact:
 
     - ``v`` equal to ``G`` at a level, inside runs of vacuum shells where
       the column has them (flat ``G``, ties to the last equal level) for
-      half of them, at a checkpoint level of the strides 7, 8 and
-      ceil(L / 16) for the others, from the tangent point up (``v = tau_s``)
+      half of them, at a checkpoint level of the strides 7, 8 and the
+      kernels' (ceil(L / 16), in float64 ceil(L / 8)) for the others, from
+      the tangent point up (``v = tau_s``)
       and on descent (``v = A - tau_s``);
     - random lanes with ``tau_s = 0`` and ``tau_s`` one ulp either side of
       ``tau_max``;
@@ -503,12 +547,11 @@ def flight_stress_inputs(rng, radii, sigma, n, device="cpu"):
     ``t_max`` is the tracer's flight cap (``flight_bounds``) unless said."""
     from ..ops.tracer_spherical import flight_bounds
 
-    radii_t = torch.as_tensor(np.asarray(radii, np.float32), device=device)
-    sigma_t = torch.as_tensor(np.asarray(sigma, np.float32), device=device)
+    radii_t = torch.as_tensor(np.asarray(radii, dtype), device=device)
+    sigma_t = torch.as_tensor(np.asarray(sigma, dtype), device=device)
     r64 = np.asarray(radii, np.float64)
     L = sigma_t.shape[0]
     m = -(-n // 6)
-    f32 = np.float32
     y_axis = np.array([0.0, 1.0, 0.0])
 
     def axis_lanes(a, s, c, sign=1.0):
@@ -545,7 +588,7 @@ def flight_stress_inputs(rng, radii, sigma, n, device="cpu"):
     p3, d3 = np.where(third[:, None], p3r, p3), np.where(third[:, None], d3r, d3)
     # 4. b2 at fl(r_k^2) and one ulp either side
     k = rng.integers(0, L + 1, m)
-    rk = np.asarray(radii, f32)[k]
+    rk = np.asarray(radii, dtype)[k]
     s = np.where(np.arange(m) % 3 == 0, 0.0, rng.uniform(-1.0, 1.0, m) * chord(rk))
     p4, d4 = axis_lanes(rk.astype(np.float64), s, np.zeros(m))
     # 5. grazing in the top shell, half turned
@@ -561,8 +604,8 @@ def flight_stress_inputs(rng, radii, sigma, n, device="cpu"):
     p = np.concatenate([p1, p2, p3, p4, p5, p6])[:n]
     d = np.concatenate([d1, d2, d3, d4, d5, d6])[:n]
     kind = np.repeat(np.arange(6), m)[:n]
-    p = torch.tensor(p.astype(f32), device=device)
-    d = torch.tensor(d.astype(f32), device=device)
+    p = torch.tensor(p.astype(dtype), device=device)
+    d = torch.tensor(d.astype(dtype), device=device)
     kind = torch.tensor(kind, device=device)
 
     # part 4: move c until b2 = fl(r_k^2) + 0, +1 or -1 ulp
@@ -571,12 +614,12 @@ def flight_stress_inputs(rng, radii, sigma, n, device="cpu"):
         target = (radii_t * radii_t)[torch.tensor(k[: len(four)], device=device)]
         ulp = np.arange(len(four)) % 3 - 1
         target = torch.where(torch.tensor(ulp == 1, device=device),
-                             torch.nextafter(target, torch.tensor(torch.inf, device=device)), target)
+                             torch.nextafter(target, torch.full_like(target, torch.inf)), target)
         target = torch.where(torch.tensor(ulp == -1, device=device),
-                             torch.nextafter(target, torch.tensor(0.0, device=device)), target)
+                             torch.nextafter(target, torch.zeros_like(target)), target)
         a = p[four, 0].clone()
         a = torch.where(target < a * a, torch.nextafter(a, torch.zeros_like(a)), a)
-        c = torch.sqrt(torch.clamp(target.double() - a.double() ** 2, min=0.0)).float()
+        c = torch.sqrt(torch.clamp(target.double() - a.double() ** 2, min=0.0)).to(p.dtype)
         for _ in range(8):
             pk = torch.stack([a, p[four, 1], c], 1)
             got = cross_norm2(pk, d[four])
@@ -588,9 +631,9 @@ def flight_stress_inputs(rng, radii, sigma, n, device="cpu"):
     t_max = torch.where((kind == 2) & (torch.arange(len(kind), device=device) % 2 == 1),
                         0.0, t_max)
     short = (kind == 5) & (torch.arange(len(kind), device=device) % 3 == 0)
-    t_max = torch.where(short, t_max * torch.tensor(rng.uniform(0.05, 0.6, len(kind)).astype(f32),
+    t_max = torch.where(short, t_max * torch.tensor(rng.uniform(0.05, 0.6, len(kind)).astype(dtype),
                                                      device=device), t_max)
-    tau_s = torch.tensor(rng.exponential(0.5, len(kind)).astype(f32), device=device)
+    tau_s = torch.tensor(rng.exponential(0.5, len(kind)).astype(dtype), device=device)
 
     # part 1: tau_s so that v = G at a target level; part 2: tau_s edges
     _, _, _, tr = shell_flight_checkpointed(p, d, t_max, radii_t, sigma_t, tau_s, L)
@@ -600,10 +643,11 @@ def flight_stress_inputs(rng, radii, sigma, n, device="cpu"):
         flat = torch.zeros(L + 1, dtype=torch.bool, device=device)
         flat[1:] = sigma_t == 0.0
         flat[:-1] |= sigma_t == 0.0
-        # checkpoint levels of the strides 7, 8 and ceil(L / 16)
+        # checkpoint levels of the strides 7, 8 and the kernels'
         level = torch.arange(L + 1, device=device)
-        ckpt = (level % 7 == 0) | (level % 8 == 0) | (level % -(-L // 16) == 0)
-        u = torch.tensor(rng.uniform(size=(L + 1, len(one))).astype(f32), device=device)
+        S = -(-L // (8 if dtype == np.float64 else 16))
+        ckpt = (level % 7 == 0) | (level % 8 == 0) | (level % S == 0)
+        u = torch.tensor(rng.uniform(size=(L + 1, len(one))).astype(dtype), device=device)
         # vacuum levels first for half the lanes, checkpoint levels for the others
         prefer = torch.where((torch.arange(len(one), device=device) % 4 < 2)[None, :],
                              flat[:, None], ckpt[:, None])

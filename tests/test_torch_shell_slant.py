@@ -8,9 +8,12 @@ reuses a root only where the endpoint compares equal to the radius it was
 taken of, and forms one up segment a shell with the down one as an exact
 doubling below the point's shell. Tolerances:
 
-- the emulation against ``slant_tau_exact``: bit for bit, on every lane;
+- the emulation against ``slant_tau_exact``: bit for bit, on every lane,
+  in float32 and in float64 (the float64 builds' ``slant_tau64`` takes the
+  same order, its roots exact);
 - every per-shell term of the twin below the first crossed shell: exactly
-  +0 (the bits of 0.0), so that skipping it leaves the float64 sum as it is;
+  +0 (the bits of 0.0, in float32 and in float64), so that skipping it
+  leaves the float64 sum as it is;
 - ``slant_tau_exact`` against the reference's ``_slant_tau_exact_xla`` under
   ``jit``: the tolerance of ``tests/test_torch_spherical.py``
   (``test_slant_tau_exact``): the blocked lanes exactly, elsewhere 8 ulp (the
@@ -20,9 +23,10 @@ The stresses are points on shell radii, tangent radii on shell radii and at
 the ground (and one ulp either side of it), ``b`` above ``r`` by rounding,
 ``p.w = +-0``, points above the top radius, vacuum shells and a column of
 1200 shells, toward a direction along an axis (where these come out exact)
-and toward a sun at 85 degrees. A twin that reuses a root across a one-ulp
-difference of the endpoint is caught. Two shapes reach XLA (232 and 1200
-shells), each compiled once.
+and toward a sun at 85 degrees, made in float32 and in float64 (each ulp
+then a float64 one), and in float64 a planet of 1e6 km. A twin that reuses
+a root across a one-ulp difference of the endpoint is caught in both
+dtypes. Two shapes reach XLA (232 and 1200 shells), each compiled once.
 
 In float64 (the double modes; what the float64 build equals on the card)
 the twin is held against ``_slant_tau_exact_xla`` under x64 on the same
@@ -50,21 +54,38 @@ COLUMNS = shells.stress_columns(np.random.default_rng(8))
 SUN_85 = np.array([np.sin(np.deg2rad(85.0)), 0.0, np.cos(np.deg2rad(85.0))], np.float32)
 DIRECTIONS = {"axis": shells.AXIS_W, "sun at 85 deg": SUN_85}
 CASES = [(c, d) for c in COLUMNS for d in DIRECTIONS]
+#: The float64 cases (the double modes' builds): the stresses made in
+#: float64 (each ulp a float64 one), and a planet of 1e6 km toward the SZA 85
+#: sun (float64 only).
+PLANET = "planet of 1e6 km"
+CASES_F64 = [(c, d, "float64") for c, d in CASES] + [(PLANET, "sun at 85 deg", "float64")]
 
 
 def _bits(x):
-    return x.view(torch.int32)
+    return x.view(torch.int32 if x.dtype == torch.float32 else torch.int64)
 
 
-def _case(column, direction):
-    radii, sigma = COLUMNS[column]
+def _case(column, direction, dtype="float32"):
+    """``(p, w, radii, sigma)`` numpy arrays of ``dtype``."""
     w = DIRECTIONS[direction]
-    p = shells.stress_points(np.random.default_rng(len(column) + len(direction)), radii, w, N)
-    return p, w, radii, sigma
+    if column == PLANET:
+        p, _, _, _, radii, sigma = shells.planet_inputs(np.random.default_rng(6), 3000)
+        return p.numpy(), w.astype(np.float64), radii.numpy(), sigma.numpy()
+    radii, sigma = COLUMNS[column]
+    p = shells.stress_points(np.random.default_rng(len(column) + len(direction)), radii, w, N,
+                             dtype=dtype)
+    return tuple(a.astype(dtype) for a in (p, w, radii, sigma))
 
 
 @pytest.fixture(params=CASES, ids=[f"{c}, {d}" for c, d in CASES], scope="module")
 def case(request):
+    return _case(*request.param)
+
+
+@pytest.fixture(params=CASES + CASES_F64, ids=[", ".join(c) for c in CASES + CASES_F64],
+                scope="module")
+def any_case(request):
+    """A float32 case of ``case`` or a float64 one."""
     return _case(*request.param)
 
 
@@ -89,17 +110,19 @@ def test_stresses_reach_the_hard_cases():
     assert ((r > radii[-1]) & descending & ~blocked).any()
 
 
-def test_shared_sum_equals_the_twin_bitwise(case):
-    p, w, radii, sigma = _torch(*case)
+def test_shared_sum_equals_the_twin_bitwise(any_case):
+    p, w, radii, sigma = _torch(*any_case)
     want = spherical.slant_tau_exact(p, w, radii, sigma)
     got = shells.slant_tau_shared(p, w, radii, sigma)
+    assert got.dtype == want.dtype == p.dtype
     differ = _bits(got) != _bits(want)
-    assert not differ.any(), f"{int(differ.sum())} of {N} lanes differ"
-    assert (want == 0).any() and (want == spherical.TAU_BLOCKED).any()
+    assert not differ.any(), f"{int(differ.sum())} of {len(p)} lanes differ"
+    assert (want == spherical.TAU_BLOCKED).any()
+    assert (want == 0).any() or len(p) != N  # the planet has no point above its top
 
 
-def test_terms_below_the_first_crossed_shell_are_zero(case):
-    p, w, radii, sigma = _torch(*case)
+def test_terms_below_the_first_crossed_shell_are_zero(any_case):
+    p, w, radii, sigma = _torch(*any_case)
     L = sigma.shape[0]
     r, descending, b2, b = shells._geometry(p, w)
     D = spherical._shell_paths(b2, b, r, radii[:-1, None], radii[1:, None], descending)
@@ -131,11 +154,13 @@ def test_twin_matches_the_reference_on_the_stresses(case):
     assert np.abs(ia - ib).max() <= 8
 
 
-@pytest.mark.parametrize("column", list(COLUMNS))
+@pytest.mark.parametrize("column", [*COLUMNS, *(f"{c}, float64" for c in COLUMNS)])
 def test_root_reuse_across_one_ulp_is_caught(column):
     """A mutated emulation that takes the root at a radius for an endpoint
-    within one ulp of it differs from the twin: the stresses see the rule."""
-    p, w, radii, sigma = _torch(*_case(column, "axis"))
+    within one ulp of it differs from the twin: the stresses see the rule,
+    in float32 and in float64."""
+    name, _, dtype = column.partition(", float64")
+    p, w, radii, sigma = _torch(*_case(name, "axis", "float64" if column != name else "float32"))
     want = spherical.slant_tau_exact(p, w, radii, sigma)
 
     def within_an_ulp(x, y):
@@ -145,12 +170,24 @@ def test_root_reuse_across_one_ulp_is_caught(column):
     assert (_bits(mutated) != _bits(want)).any()
 
 
-def test_warp_start_is_the_least_first_shell_of_its_looping_lanes():
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_warp_start_is_the_least_first_shell_of_its_looping_lanes(dtype):
     l0 = torch.tensor([5, 3, 9, 7, 2, 8])
     loops = torch.tensor([True, True, False, True, False, True])
     start = shells.loop_starts(l0, loops, L=10, warp=2)
     assert start.tolist() == [3, 3, 7, 7, 8, 8]
     assert shells.loop_starts(l0, torch.zeros(6, dtype=torch.bool), 10, 2).tolist() == [10] * 6
+    # on the stresses of this dtype: each warp of 32 lanes from the least l0
+    # of its looping lanes
+    p, w, radii, _ = _torch(*_case("232 shells", "sun at 85 deg", dtype))
+    l0, _, blocked = shells.first_shells(p, w, radii)
+    L = radii.shape[0] - 1
+    loops = ~blocked & (l0 < L)
+    start = shells.loop_starts(l0, loops, L)
+    for i in range(0, len(p), shells.WARP):
+        mine = l0[i:i + shells.WARP][loops[i:i + shells.WARP]]
+        assert (start[i:i + shells.WARP] == (mine.min() if len(mine) else L)).all()
+    assert (start[loops] <= l0[loops]).all() and (start[loops] < l0[loops]).any()
 
 
 def _x64_slant(p, w, radii, sigma):

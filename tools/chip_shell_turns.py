@@ -14,17 +14,23 @@ commit), in the order given, one process imports that tree's
   (wall time), then one more run with CUDA events around each kernel launch
   (device time a launch).
 
+With ``--double`` it measures the float64 builds in ``mono_double``
+instead: K2, K3 and K4 f64 on ``chip_smoke.py`` phase 33's lanes (the c4
+column compiled in ``mono_double``; device time, ``chip_smoke._device_ms``,
+median of 25), c4 at SZA 75 (exact NEE, K3 f64) and path B (K2 + K4 f64)
+at full width, as above.
+
 It prints one JSON line per turn, then the medians by tree, the card's name
 and power limit, and the kernels' bounds on those lanes from this tree's
-``chip_smoke.check_shell_kernels`` (which also holds this tree's kernels
-against their twins there): a bound depends on the data alone, so it is the
-same for every tree.
+``chip_smoke.check_shell_kernels`` (``check_shell_kernels_f64`` with
+``--double``; either also holds this tree's kernels against their twins
+there): a bound depends on the data alone, so it is the same for every tree.
 
 Usage, from the repository root on a machine with a card (the parent
 unpacked into the git-ignored ``build/``)::
 
     git archive HEAD~1 | tar -x -C build/parent
-    python3 tools/chip_shell_turns.py build/parent . . build/parent
+    python3 tools/chip_shell_turns.py build/parent . . build/parent [--double]
 """
 
 from __future__ import annotations
@@ -50,8 +56,9 @@ def _here_smoke():
     return mod
 
 
-def one_turn(root):
-    """Measure the tree at ``root``; returns a dict of its numbers."""
+def one_turn(root, double=False):
+    """Measure the tree at ``root`` (its float64 builds in ``mono_double``
+    with ``double``); returns a dict of its numbers."""
     root = str(Path(root).resolve())
     sys.path.insert(0, root)
     import dataclasses
@@ -69,20 +76,26 @@ def one_turn(root):
     for mod in (cs, etp):
         assert Path(mod.__file__).resolve().is_relative_to(root), mod.__file__
     helpers = _here_smoke()
-    etp.set_mode("mono_single")
+    etp.set_mode("mono_double" if double else "mono_single")
     _build.library()
     out = {"root": root}
 
     lp = lane_partition(cs.N_VZA_C4, cs.SPP_C4,
                         spherical_lanes_target(cs.N_VZA_C4, cs.SPP_C4, "cuda"), "cpu")[0]
-    args = cs._shell_inputs(cs._c4(), cs.N_VZA_C4 * lp, seed=10)
+    inputs = cs._shell_inputs_f64 if double else cs._shell_inputs
+    args = inputs(cs._c4(), cs.N_VZA_C4 * lp, seed=10)
     p, d, t_max, radii, sigma, _, w = args
     collide, t_col, _ = sf.shell_flight(*args[:6])
     p_event = fma(d, torch.where(collide, t_col, t_max)[:, None], p).contiguous()
     out["lanes"] = p.shape[0]
-    out["shell_flight_ms"] = cs._time_ms(lambda: sf.shell_flight(*args[:6]))
-    out["shell_event_ms"] = cs._time_ms(lambda: sf.shell_event(*args))
-    out["slant_tau_ms"] = cs._time_ms(lambda: sf.slant_tau(p_event, w, radii, sigma))
+    calls = {"shell_flight": lambda: sf.shell_flight(*args[:6]),
+             "shell_event": lambda: sf.shell_event(*args),
+             "slant_tau": lambda: sf.slant_tau(p_event, w, radii, sigma)}
+    for name, call in calls.items():
+        if double:
+            out[f"{name}_f64_device_ms"] = cs._device_ms(call, f"{name}_f64_kernel")[0]
+        else:
+            out[f"{name}_ms"] = cs._time_ms(call)
 
     def timed_runs(label, run, names):
         run(4096)
@@ -97,11 +110,14 @@ def one_turn(root):
             out[f"{label}_{n}_launches"] = k
 
     exp75 = cs._c4(75.0)
+    # a double mode has no sun-tau table: c4 at SZA 75 takes the exact NEE (K3)
     timed_runs("c4_sza75", lambda spp: etp.run(
-        exp75, spp=spp, seed_state=etp.SeedState(cs.SEED), device="cuda"), ("shell_flight",))
-    exp = cs._c4(85.0)
-    timed_runs("c4_sza85", lambda spp: etp.run(
-        exp, spp=spp, seed_state=etp.SeedState(cs.SEED), device="cuda"), ("shell_event",))
+        exp75, spp=spp, seed_state=etp.SeedState(cs.SEED), device="cuda"),
+        ("shell_event",) if double else ("shell_flight",))
+    if not double:
+        exp = cs._c4(85.0)
+        timed_runs("c4_sza85", lambda spp: etp.run(
+            exp, spp=spp, seed_state=etp.SeedState(cs.SEED), device="cuda"), ("shell_event",))
     exp_b = cs._c4(75.0)
     m = exp_b.measures[0]
     scene, sensor, config = exp_b.compile_scene(m, exp_b.spectral_context(m))
@@ -116,9 +132,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*", help="tree roots, in turn order")
     ap.add_argument("--one", help="measure this tree in this process and print its JSON")
+    ap.add_argument("--double", action="store_true", help="the float64 builds, mono_double")
     a = ap.parse_args()
     if a.one:
-        print(json.dumps(one_turn(a.one)), flush=True)
+        print(json.dumps(one_turn(a.one, a.double)), flush=True)
         return 0
 
     import torch
@@ -131,8 +148,8 @@ def main():
     print(f"card: {smi}", flush=True)
     turns = []
     for tree in map(lambda t: str(Path(t).resolve()), a.trees):
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--one", tree],
-                              capture_output=True, text=True, cwd=tree)
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--one", tree]
+                              + ["--double"] * a.double, capture_output=True, text=True, cwd=tree)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode
@@ -150,12 +167,17 @@ def main():
     from eradiate_tpu_torch.ops.tracer import lane_partition
     from eradiate_tpu_torch.ops.tracer_spherical import spherical_lanes_target
 
-    etp.set_mode("mono_single")
+    etp.set_mode("mono_double" if a.double else "mono_single")
     lp = lane_partition(cs.N_VZA_C4, cs.SPP_C4,
                         spherical_lanes_target(cs.N_VZA_C4, cs.SPP_C4, "cuda"), "cpu")[0]
     print("bounds on these lanes, this tree's kernels held against their twins:", flush=True)
-    cs.check_shell_kernels("c4 column", cs._shell_inputs(cs._c4(), cs.N_VZA_C4 * lp, seed=10),
-                           timed=True)
+    if a.double:
+        cs.check_shell_kernels_f64(
+            "c4 column, mono_double", cs._shell_inputs_f64(cs._c4(), cs.N_VZA_C4 * lp, seed=10),
+            timed=True)
+    else:
+        cs.check_shell_kernels("c4 column", cs._shell_inputs(cs._c4(), cs.N_VZA_C4 * lp, seed=10),
+                               timed=True)
     print(f"card: {smi}", flush=True)
     return 0
 
