@@ -345,10 +345,36 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
 43. ``c5_trees`` in ``mono_double`` and ``mono_polarized_double`` and
     ``c5_wood`` (the 12-branch skeleton of phase 17) in ``mono_double`` at
     64 spp on the card against the CPU, with the gate of phases 12 and 22,
-    their worst pixel difference printed.
+    their worst pixel difference printed;
+A.  c1's column over ``rtls`` with the scene class's defaults (f_iso 0.209,
+    f_vol 0.081, f_geo 0.004) at full width (76 x 4194304, ``mono_single``),
+    as phase 35: a run with the profiler on for 48 bounce iterations after
+    the first 100, ended there, then a timed run; K1's launches equal to the
+    iterations and no other kernel; wall, samples/s, ms and CUDA kernels an
+    iteration, device ms an iteration and busy share, beside phase 35's c1
+    over its Lambertian floor;
+B.  c2's atmosphere (the 0-2 km continental aerosol, ``tab``, K1 at K = 4)
+    over ``ocean_legacy`` at 5 m/s wind (its other parameters at their
+    defaults) at full width (76 x 2097152), the same way, beside phase 26's
+    c2 over its RPV floor;
+C.  c1's column on CUDA against the CPU at 11 view zeniths and 256 spp, as
+    phase 4 (BRF within 1e-4, |z| <= 5), with the target off the origin,
+    over every kind of the reference's ``_EVAL`` that the phases before do
+    not run (``rtls``, ``bilambertian``, ``ocean_legacy``, ``ocean_grasp``,
+    ``mqdiffuse``, ``bitmap``, ``checkerboard``, ``maignan`` and
+    ``ocean_mishchenko`` in ``mono_single``) and the three composites
+    (``central_patch``, ``opacity_mask``, ``selectbsdf``); ``rtls`` and
+    ``bitmap`` also in ``mono_double`` (as phase 34, within 1e-10) and in
+    ``mono_polarized_single`` (as phase 20);
+D.  c4 at SZA 75 under c2's continental aerosol (the scalar ``tab`` phase;
+    K2) on CUDA against the CPU at 256 spp with phase 8's gate; the c5
+    scene instanced (K7) over a ``checkerboard`` ground and over a
+    ``central_patch`` ground (an ``rtls`` patch), and polarized under c2's
+    aerosol (``tab_polarized`` over a canopy), at 16 spp with phase 12's
+    and phase 22's gates; then the seconds phases A-D took.
 
 The CPU sides of the canopy phases' CUDA-against-CPU gates (12, 17, 22,
-40, 43) render in one background process (one thread, no card), submitted
+40, 43, D) render in one background process (one thread, no card), submitted
 after the build, so that their minutes overlap the card's work; the script
 ends that process on exit.
 
@@ -384,7 +410,9 @@ triangle sweeps' ``ray_tris_nearest_f64``, ``ray_tris_occluded_f64``
 ``ray_tris_occluded_instanced_f64`` (``c5_trees`` in ``mono_double``), with
 their launches on the other double paths, ``launches_on``, and device time
 a launch inside the full-width runs, ``run_device_ms``; their bounds over
-the float64 rate) and the
+the float64 rate; every kernel its launches on phases A-D,
+``surface_launches``, and K1 its device time a launch inside A and B,
+``surface_run_device_ms``) and the
 ``nvidia-smi`` line
 before the last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
@@ -419,6 +447,54 @@ SEED = 1
 WOOD_BRANCHES = 256
 #: Lanes on which a sweep kernel is held against its plain version.
 PLAIN_LANES = 2**18
+#: c2's atmosphere (``bench.py`` ``_c2``): AFGL Rayleigh with the 0-2 km
+#: continental aerosol layer, tau 0.2 at 550 nm (phases B and D).
+C2_ATMOSPHERE = {
+    "type": "heterogeneous",
+    "molecular_atmosphere": {"type": "molecular"},
+    "particle_layers": [{"type": "particle_layer", "bottom": 0.0, "top": 2.0, "tau_ref": 0.2,
+                         "dataset": "govaerts_2021-continental"}],
+}
+#: The surfaces of phase C on c1's column: every kind of the reference's
+#: ``_EVAL`` that the phases before it do not run, and the three composites
+#: (their maps and grids from a seed).
+_surface_rng = np.random.default_rng(19)
+SURFACE_CASES = {
+    "rtls": {"type": "rtls"},
+    "bilambertian": {"type": "bilambertian", "reflectance": 0.3, "transmittance": 0.2},
+    "ocean_legacy": {"type": "ocean_legacy", "wind_speed": 5.0},
+    "ocean_grasp": {"type": "ocean_grasp", "wind_speed": 2.0, "water_body_reflectance": 0.02},
+    "mqdiffuse": {"type": "mqdiffuse", "data": _surface_rng.uniform(0.05, 0.5, (6, 9, 5))},
+    "bitmap": {"type": "bitmap", "data": _surface_rng.uniform(0.1, 0.9, (6, 8)), "extent": 20.0},
+    "checkerboard": {"type": "checkerboard"},
+    "maignan": {"type": "maignan"},
+    "ocean_mishchenko": {"type": "ocean_mishchenko", "wind_speed": 2.0},
+    "central_patch": {"type": "central_patch", "bsdf": {"type": "rtls"},
+                      "patch_bsdf": {"type": "lambertian", "reflectance": 0.8},
+                      "patch_edges": 1.0},
+    "opacity_mask": {"type": "opacity_mask", "nested_bsdf": {"type": "rpv"},
+                     "opacity": _surface_rng.uniform(0.2, 1.0, (4, 4)), "extent": 5.0},
+    "selectbsdf": {"type": "selectbsdf",
+                   "bsdfs": [{"type": "lambertian", "reflectance": 0.1}, {"type": "rtls"},
+                             {"type": "black"}],
+                   "index_map": [[0, 1], [2, 1]], "extent": 4.0},
+}
+#: Phase C's target, off the origin, so that the composites' and textures'
+#: surface points differ from the defaults.
+SURFACE_TARGET = [0.3, -0.2, 0.0]
+#: Samples a pixel of phase D's canopy gates (their CPU sides render in
+#: :class:`CpuRenders` beside the 64-spp ones of phases 12-43; a quarter of
+#: the samples keeps that process's added minutes from the card's host).
+SPP_D = 16
+#: Phase D's textured grounds under the c5 canopy (100 m wide): the
+#: checkerboard's 500 m cells meet under its centre; an ``rtls`` patch 40 m
+#: wide on the Lambertian floor.
+C5_GROUNDS = {
+    "checkerboard": {"type": "checkerboard", "reflectance_a": 0.1, "reflectance_b": 0.3},
+    "central_patch": {"type": "central_patch",
+                      "bsdf": {"type": "lambertian", "reflectance": 0.159},
+                      "patch_bsdf": {"type": "rtls"}, "patch_edges": 0.02},
+}
 
 #: Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
 #: bandwidth, and the float32 and float64 rates outside the tensor cores.
@@ -498,30 +574,35 @@ def read_launches():
             **ti.launches_f64}
 
 
-def _c1(n_vza, layer_merge_tol=1e-3, stokes=False):
+def _c1(n_vza, layer_merge_tol=1e-3, stokes=False, surface=None, target=None):
     """BASELINE config 1; ``stokes`` asks for the Stokes integrator (render
-    it in ``mono_polarized_single``)."""
+    it in ``mono_polarized_single``); ``surface`` replaces its Lambertian
+    floor and ``target`` its target at the origin."""
     from eradiate_tpu_torch import AtmosphereExperiment
 
+    measures = {
+        "type": "mdistant",
+        "construct": "hplane",
+        "zeniths": np.linspace(-75, 75, n_vza),
+        "azimuth": 0.0,
+        "id": "m",
+    }
+    if target is not None:
+        measures["target"] = target
     return AtmosphereExperiment(
         integrator={"type": "volpath", "stokes": True} if stokes else None,
         illumination={"type": "directional", "zenith": 30.0, "azimuth": 0.0},
-        measures={
-            "type": "mdistant",
-            "construct": "hplane",
-            "zeniths": np.linspace(-75, 75, n_vza),
-            "azimuth": 0.0,
-            "id": "m",
-        },
-        surface={"type": "lambertian", "reflectance": 0.5},
+        measures=measures,
+        surface=surface or {"type": "lambertian", "reflectance": 0.5},
         atmosphere={"type": "molecular"},
         geometry={"type": "plane_parallel", "layer_merge_tol": layer_merge_tol},
     )
 
 
-def _c4(sza=75.0, shell_merge_tol=1e-3, sun_tau_table="auto", stokes=False):
+def _c4(sza=75.0, shell_merge_tol=1e-3, sun_tau_table="auto", stokes=False, atmosphere=None):
     """BASELINE config 4; ``stokes`` asks for the Stokes integrator (render
-    it in ``mono_polarized_single``)."""
+    it in ``mono_polarized_single``); ``atmosphere`` replaces its Rayleigh
+    column."""
     from eradiate_tpu_torch import AtmosphereExperiment
 
     return AtmosphereExperiment(
@@ -538,7 +619,7 @@ def _c4(sza=75.0, shell_merge_tol=1e-3, sun_tau_table="auto", stokes=False):
             "id": "m",
         },
         surface={"type": "hapke"},
-        atmosphere={"type": "molecular"},
+        atmosphere=atmosphere or {"type": "molecular"},
     )
 
 
@@ -549,6 +630,20 @@ def _c2(n_vza):
     from eradiate_tpu_torch.test_tools.test_cases import create_rpv_afgl1986_continental_brfpp
 
     return create_rpv_afgl1986_continental_brfpp(n_vza=n_vza)
+
+
+def _c2_over(n_vza, surface):
+    """c2's scene (``bench.py`` ``_c2``: AFGL Rayleigh with the 0-2 km
+    continental aerosol layer, sun at SZA 30) over ``surface``."""
+    from eradiate_tpu_torch import AtmosphereExperiment
+
+    return AtmosphereExperiment(
+        illumination={"type": "directional", "zenith": 30.0, "azimuth": 0.0},
+        measures={"type": "mdistant", "construct": "hplane",
+                  "zeniths": np.linspace(-75, 75, n_vza), "azimuth": 0.0, "id": "m"},
+        surface=surface,
+        atmosphere=C2_ATMOSPHERE,
+    )
 
 
 def _c3(n_vza):
@@ -1216,25 +1311,31 @@ def _print_in_run(in_run, sums=None, lanes=None):
     print(line, flush=True)
 
 
-def c4_cuda_vs_cpu(sza):
-    """Phase 8 for one sun zenith; returns (max rel, median rel, max |z|)."""
+def c4_cuda_vs_cpu(sza, phase=8, label="c4", atmosphere=None):
+    """Phase 8 for one sun zenith (phase D: c4 under ``atmosphere``); returns
+    the CUDA run's launches."""
     import eradiate_tpu_torch as etp
 
     out = {}
     for dev in ("cuda", "cpu"):
-        out[dev] = etp.run(_c4(sza), spp=256, seed_state=etp.SeedState(SEED), device=dev)
+        reset_launches()
+        out[dev] = etp.run(_c4(sza, atmosphere=atmosphere), spp=256,
+                           seed_state=etp.SeedState(SEED), device=dev)
+        if dev == "cuda":
+            launches = read_launches()
     brf_g, brf_c = (np.asarray(out[d]["brf"]) for d in ("cuda", "cpu"))
     rad_g, rad_c = (np.asarray(out[d]["radiance"]) for d in ("cuda", "cpu"))
     var = np.asarray(out["cuda"]["var"]) + np.asarray(out["cpu"]["var"])
     rel = np.abs(brf_g - brf_c) / np.abs(brf_c)
     zmax = float(np.max(np.abs(rad_g - rad_c) / np.sqrt(var)))
-    print(f"[8] c4 SZA {sza:g}, 15 VZA 256 spp, CUDA vs CPU: max rel BRF diff "
+    print(f"[{phase}] {label} SZA {sza:g}, 15 VZA 256 spp, CUDA vs CPU: max rel BRF diff "
           f"{rel.max():.3e} (bound 5e-2), median {np.median(rel):.3e} (bound 1e-4), "
           f"pixels above 1e-4: {int((rel > 1e-4).sum())}, max |z| {zmax:.3e} "
           f"(bound 5)", flush=True)
     if not (np.isfinite(brf_g).all() and rel.max() <= 5e-2 and np.median(rel) <= 1e-4
             and zmax <= 5.0):
-        raise AssertionError(f"CUDA and CPU runs of the port disagree on c4 at SZA {sza:g}")
+        raise AssertionError(f"CUDA and CPU runs of the port disagree on {label} at SZA {sza:g}")
+    return launches
 
 
 def c4_full_width(sza, spp, phase):
@@ -1291,7 +1392,7 @@ def _wood_obj(directory, branches=WOOD_BRANCHES):
     return str(path)
 
 
-def _c5(form="instanced", mesh_dir=None, branches=WOOD_BRANCHES, stokes=False):
+def _c5(form="instanced", mesh_dir=None, branches=WOOD_BRANCHES, stokes=False, variant=None):
     """The scene of BASELINE config 5 (``bench.py`` ``_c5``) with the scalar
     integrator (with ``stokes``, config 5 as ``bench.py`` builds it: render
     it in ``mono_polarized_single``), in one of four forms:
@@ -1306,6 +1407,10 @@ def _c5(form="instanced", mesh_dir=None, branches=WOOD_BRANCHES, stokes=False):
       :func:`_wood_obj` with ``branches`` branches, written to and read back
       from ``mesh_dir``), both at the 15 positions: two elements, flattened
       to 30000 disks and, with 256 branches, 92700 triangles.
+
+    ``variant`` (phase D): ``checkerboard`` or ``central_patch`` replace the
+    Lambertian floor by :data:`C5_GROUNDS`' textured grounds, ``aerosol``
+    the Rayleigh column by c2's atmosphere with its aerosol layer.
     """
     from eradiate_tpu_torch import CanopyAtmosphereExperiment
     from eradiate_tpu_torch.scenes.biosphere import DiscreteCanopy, LeafCloud
@@ -1340,7 +1445,8 @@ def _c5(form="instanced", mesh_dir=None, branches=WOOD_BRANCHES, stokes=False):
                 for e, part in elements
             ],
         ),
-        atmosphere={"type": "molecular", "has_absorption": False},
+        atmosphere=(C2_ATMOSPHERE if variant == "aerosol"
+                    else {"type": "molecular", "has_absorption": False}),
         illumination={"type": "directional", "zenith": 20.0, "azimuth": 0.0},
         measures={
             "type": "mdistant",
@@ -1349,7 +1455,7 @@ def _c5(form="instanced", mesh_dir=None, branches=WOOD_BRANCHES, stokes=False):
             "azimuth": 0.0,
             "id": "m",
         },
-        surface={"type": "lambertian", "reflectance": 0.159},
+        surface=C5_GROUNDS.get(variant, {"type": "lambertian", "reflectance": 0.159}),
         integrator={"type": "volpath", "stokes": stokes},
     )
 
@@ -2090,24 +2196,26 @@ def _cpu_worker_init():
     torch.set_num_threads(1)
 
 
-def _cpu_c5_render(mode, form, branches, stokes):
-    """One 64-spp render of a form of the c5 scene on the CPU in ``mode``, at
-    the seed of the CUDA runs (:class:`CpuRenders`' job): its data variables
-    as numpy arrays, and the seconds it took."""
+def _cpu_c5_render(mode, form, branches, stokes, variant=None):
+    """One 64-spp render of a form of the c5 scene (``variant``, phase D's:
+    :data:`SPP_D`; see :func:`_c5`) on the CPU in ``mode``, at the seed of
+    the CUDA runs (:class:`CpuRenders`' job): its data variables as numpy
+    arrays, and the seconds it took."""
     import eradiate_tpu_torch as etp
 
     etp.set_mode(mode)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as mesh_dir:
-        ds = etp.run(_c5(form, mesh_dir, branches, stokes), spp=64,
-                     seed_state=etp.SeedState(SEED), device="cpu")
+        ds = etp.run(_c5(form, mesh_dir, branches, stokes, variant),
+                     spp=64 if variant is None else SPP_D, seed_state=etp.SeedState(SEED),
+                     device="cpu")
         out = {k: np.asarray(ds[k]) for k in ds.data_vars}
     return out, time.perf_counter() - t0
 
 
 class CpuRenders:
     """The CPU sides of the canopy phases' CUDA-against-CPU gates (12, 17,
-    22, 40, 43), rendered in one background process, one thread, that sees
+    22, 40, 43, D), rendered in one background process, one thread, that sees
     no card: submitted at the start and collected where a phase compares
     them with its CUDA run, so that their minutes overlap the card's work.
     The process ends in :meth:`close` (registered at exit)."""
@@ -2120,38 +2228,40 @@ class CpuRenders:
         self._jobs = {}
         atexit.register(self.close)
 
-    def submit(self, mode, form, branches=WOOD_BRANCHES, stokes=False):
-        key = (mode, form, branches, stokes)
+    def submit(self, mode, form, branches=WOOD_BRANCHES, stokes=False, variant=None):
+        key = (mode, form, branches, stokes, variant)
         if key not in self._jobs:
             self._jobs[key] = self._pool.apply_async(_cpu_c5_render, key)
 
-    def get(self, mode, form, branches=WOOD_BRANCHES, stokes=False):
+    def get(self, mode, form, branches=WOOD_BRANCHES, stokes=False, variant=None):
         """The render's (data variables, seconds), waiting for it."""
-        self.submit(mode, form, branches, stokes)
-        return self._jobs[mode, form, branches, stokes].get()
+        self.submit(mode, form, branches, stokes, variant)
+        return self._jobs[mode, form, branches, stokes, variant].get()
 
     def close(self):
         self._pool.terminate()
         self._pool.join()
 
 
-def c5_cuda_vs_cpu(form, phase, cpu, mesh_dir=None, branches=WOOD_BRANCHES, stokes=False):
+def c5_cuda_vs_cpu(form, phase, cpu, mesh_dir=None, branches=WOOD_BRANCHES, stokes=False,
+                   variant=None):
     """The port on CUDA against the port on the CPU for one form of the
     canopy, 64 spp at one seed. Scalar: every pixel within |z| <= 5, the
     median pixel within 1e-4 relative. With ``stokes`` (in
     ``mono_polarized_single``), the gate of phase 20: I within 1e-4 relative
     on every pixel and each Stokes component within |z| <= 5. The CPU run
-    comes from ``cpu`` (:class:`CpuRenders`). Returns the CUDA run's
-    launches."""
+    comes from ``cpu`` (:class:`CpuRenders`); ``variant`` as :func:`_c5`, at
+    :data:`SPP_D`. Returns the CUDA run's launches."""
     import eradiate_tpu_torch as etp
 
     mode = etp.mode()
     reset_launches()
-    ds = etp.run(_c5(form, mesh_dir, branches, stokes), spp=64, seed_state=etp.SeedState(SEED),
-                 device="cuda")
+    spp = 64 if variant is None else SPP_D
+    ds = etp.run(_c5(form, mesh_dir, branches, stokes, variant), spp=spp,
+                 seed_state=etp.SeedState(SEED), device="cuda")
     gpu = {k: np.asarray(ds[k]) for k in ds.data_vars}
     launches = read_launches()
-    cpu, seconds = cpu.get(mode.id, form, branches, stokes)
+    cpu, seconds = cpu.get(mode.id, form, branches, stokes, variant)
     if mode.is_double_precision and not gpu["brf"].dtype == cpu["brf"].dtype == np.float64:
         raise AssertionError(f"the c5 scene ({form}) in {mode.id} did not render in float64")
     brf_g, brf_c = gpu["brf"], cpu["brf"]
@@ -2159,7 +2269,7 @@ def c5_cuda_vs_cpu(form, phase, cpu, mesh_dir=None, branches=WOOD_BRANCHES, stok
     zmax = float(np.max(np.abs(gpu["radiance"] - cpu["radiance"])
                         / np.sqrt(gpu["var"] + cpu["var"])))
     label = (f"[{phase}] {'polarized ' if stokes else ''}c5 scene ({form}, {mode.id}, "
-             f"{gpu['brf'].dtype}), {N_VZA_C5} VZA 64 spp")
+             f"{gpu['brf'].dtype}{', ' + variant if variant else ''}), {N_VZA_C5} VZA {spp} spp")
     if stokes:
         rel_I, z = stokes_gate(gpu, cpu)
         print(f"{label}, CUDA vs CPU: max rel I diff {rel_I:.3e} (bound 1e-4), max |z| of I, Q, "
@@ -2476,7 +2586,8 @@ def rows_full_width(phase, label, exp, spp, n_vza, skip, window):
     the busy share, the device time by kernel family and by operator
     (``top_ops``), K1's device time a launch inside the run and the peak
     memory. Returns (launches, K1 ms a launch inside the run, iterations,
-    per-row iterations, dataset, timed wall s)."""
+    per-row iterations, dataset, timed wall s, and a dict of the printed
+    numbers as :func:`profiled_full_width` returns them)."""
     import torch
 
     import eradiate_tpu_torch as etp
@@ -2534,7 +2645,10 @@ def rows_full_width(phase, label, exp, spp, n_vza, skip, window):
         raise AssertionError(f"{label} launched a kernel of another path")
     if brf.shape[-1] != n_vza or not np.isfinite(brf).all():
         raise AssertionError(f"{label}: BRF not finite or of the wrong shape")
-    return launches, k1_ms, iterations, per_row, ds, wall
+    stats = {"wall_s": wall, "samples_per_s": samples / wall, "iterations": iterations,
+             "kernels_an_iteration": per_it, "device_ms_an_iteration": dev_ms,
+             "busy": dev_ms * iterations / (1e3 * wall), "peak_gib": peak}
+    return launches, k1_ms, iterations, per_row, ds, wall, stats
 
 def _compiled(exp):
     m = exp.measures[0]
@@ -3374,6 +3488,103 @@ def double_phases(fetch_times, B4, sun_85, c3_wall):
             "shells": (shell64_errs, shell64_times, shell64_bounds)}
 
 
+# ---- the surfaces of the reference's _EVAL (phases A-D) ------------------------
+
+
+def _beside(phase, label, run, base, base_label):
+    """A full-width run's wall, samples/s, ms, CUDA kernels and device ms an
+    iteration and busy share beside ``base``'s from this run."""
+    def ms(r):
+        return 1e3 * r["wall_s"] / r["iterations"]
+
+    print(f"[{phase}] {label} against {base_label} in this run: wall {run['wall_s']:.3f} s "
+          f"against {base['wall_s']:.3f} s ({run['wall_s'] / base['wall_s']:.3f}x), samples/s "
+          f"{run['samples_per_s']:.4e} against {base['samples_per_s']:.4e}, iterations "
+          f"{run['iterations']} against {base['iterations']}, ms an iteration {ms(run):.3f} "
+          f"against {ms(base):.3f}, CUDA kernels an iteration {run['kernels_an_iteration']:.1f} "
+          f"against {base['kernels_an_iteration']:.1f}, device ms an iteration "
+          f"{run['device_ms_an_iteration']:.3f} against {base['device_ms_an_iteration']:.3f}, "
+          f"busy {run['busy']:.3f} against {base['busy']:.3f}", flush=True)
+
+
+def surface_phases(cpu, c1_single, c2_single):
+    """Phases A-D, the surface kinds of the reference's ``_EVAL`` and its
+    composites: A and B at full width (c1's column over ``rtls``, c2's
+    atmosphere over ``ocean_legacy``) beside c1's and c2's runs of this
+    script (``c1_single``: phase 35's ``mono_single`` run; ``c2_single``:
+    phase 26's), C the kinds and composites on c1's column on CUDA against
+    the CPU, D the aerosol in c4 and the textured grounds and the polarized
+    aerosol under the c5 canopy against the CPU (``cpu``:
+    :class:`CpuRenders`). Returns each kernel's launches on these paths
+    and K1's device ms a launch inside A and B."""
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.ops import tracer as pp_tracer
+
+    t0 = time.perf_counter()
+    runs = {
+        "c1_rtls": profiled_full_width(
+            "A", "c1's column over rtls (f_iso 0.209, f_vol 0.081, f_geo 0.004)",
+            lambda n: _c1(n, surface={"type": "rtls"}), "mono_single", SPP_C1, N_VZA,
+            pp_tracer, "collision_fetch", "collision_fetch", 100, 48),
+    }
+    _beside("A", "c1 over rtls", runs["c1_rtls"], c1_single,
+            "c1 over its Lambertian floor (phase 35, mono_single)")
+    runs["c2_ocean_legacy"] = profiled_full_width(
+        "B", "c2's atmosphere over ocean_legacy (wind 5 m/s)",
+        lambda n: _c2_over(n, {"type": "ocean_legacy", "wind_speed": 5.0}), "mono_single",
+        SPP_C2, N_VZA, pp_tracer, "collision_fetch", "collision_fetch", 64, 48)
+    _beside("B", "c2's atmosphere over ocean_legacy", runs["c2_ocean_legacy"], c2_single,
+            "c2 over its RPV floor (phase 26)")
+    t_ab = time.perf_counter() - t0
+
+    small = {}
+    etp.set_mode("mono_single")
+    for name, surface in SURFACE_CASES.items():
+        small[f"c1_{name}"] = rows_cuda_vs_cpu(
+            "C", f"c1 over {name}", lambda n, s=surface: _c1(n, surface=s, target=SURFACE_TARGET),
+            1)
+    for name in ("rtls", "bitmap"):
+        surface = SURFACE_CASES[name]
+        small[f"c1_{name}_mono_double"] = double_pixels_gate(
+            "C", f"c1 over {name}", lambda n, s=surface: _c1(n, surface=s, target=SURFACE_TARGET),
+            "mono_double", 256, 11)
+        etp.set_mode(POLARIZED_MODE)
+        small[f"c1_{name}_polarized"] = polarized_c1_cuda_vs_cpu(
+            "C", f"polarized c1 over {name}",
+            lambda n, s=surface: _c1(n, stokes=True, surface=s, target=SURFACE_TARGET))
+    etp.set_mode("mono_single")
+    t_c = time.perf_counter() - t0 - t_ab
+
+    small["c4_aerosol_sza75"] = c4_cuda_vs_cpu(75.0, "D", "c4 under c2's aerosol", C2_ATMOSPHERE)
+    for variant in C5_GROUNDS:
+        small[f"c5_{variant}"] = c5_cuda_vs_cpu("instanced", "D", cpu, variant=variant)
+    etp.set_mode(POLARIZED_MODE)
+    small["c5_polarized_aerosol"] = c5_cuda_vs_cpu("instanced", "D", cpu, stokes=True,
+                                                   variant="aerosol")
+    etp.set_mode("mono_single")
+    t_d = time.perf_counter() - t0 - t_ab - t_c
+
+    launches = {k: {} for k in KERNELS}
+    for label, run in runs.items():
+        launches["collision_fetch"][label] = run["launches"]
+    for label, counts in small.items():
+        for k, n in counts.items():
+            if n:
+                launches[k][f"{label}_small"] = n
+    needs = {"c4_aerosol_sza75": ("shell_flight",),
+             **{f"c5_{v}": ("ray_leaves_nearest_instanced", "ray_leaves_occluded_instanced")
+                for v in (*C5_GROUNDS, "polarized_aerosol")}}
+    for label, counts in small.items():
+        keys = needs.get(label, ("collision_fetch_f64",) if label.endswith("double")
+                         else ("collision_fetch",))
+        if not all(counts[k] > 0 for k in keys):
+            raise AssertionError(f"phase C/D's {label} did not launch {keys}")
+    print(f"[D] phases A-D took {t_ab + t_c + t_d:.1f} s: A and B {t_ab:.1f} s, C "
+          f"{t_c:.1f} s, D {t_d:.1f} s", flush=True)
+    return {"launches": launches,
+            "run_device_ms": {label: run["run_device_ms"] for label, run in runs.items()}}
+
+
 def main():
     import torch
 
@@ -3427,6 +3638,10 @@ def main():
         ("mono_polarized_double", "trees", WOOD_BRANCHES, True),
     ):
         cpu.submit(mode, form, branches, stokes)
+    for mode, stokes, variant in (("mono_single", False, "checkerboard"),  # D
+                                  ("mono_single", False, "central_patch"),
+                                  (POLARIZED_MODE, True, "aerosol")):
+        cpu.submit(mode, "instanced", WOOD_BRANCHES, stokes, variant)
 
     # -- 3. kernel against twin ---------------------------------------------
     print("[3] collision_fetch kernel against its plain twin", flush=True)
@@ -3797,10 +4012,10 @@ def main():
     etp.set_mode("ckd_single")
     c3_small = rows_cuda_vs_cpu(25, "c3 (ckd_single)", _c3, ROWS_C3)
     etp.set_mode("mono_single")
-    c2_launches, c2_run_ms, c2_iterations, _, _, _ = rows_full_width(
+    c2_launches, c2_run_ms, c2_iterations, _, _, _, c2_stats = rows_full_width(
         26, "c2", _c2(N_VZA), SPP_C2, N_VZA, 64, 48)
     etp.set_mode("ckd_single")
-    c3_launches, c3_run_ms, c3_iterations, c3_rows, _, c3_wall = rows_full_width(
+    c3_launches, c3_run_ms, c3_iterations, c3_rows, _, c3_wall, _ = rows_full_width(
         27, "c3 (ckd_single)", _c3(N_VZA), SPP_C3, N_VZA, 100, 48)
     if len(c3_rows) != ROWS_C3:
         raise AssertionError(f"c3 rendered {len(c3_rows)} rows, not {ROWS_C3}")
@@ -3823,6 +4038,9 @@ def main():
     # -- 41-43. canopies with triangles in the double modes through K8's and
     # K9's float64 builds
     tri64 = tri_double_phases(B5, sweep_times, tri_single, cpu)
+    # -- A-D. every surface kind of the reference, the aerosol over c4 and
+    # the canopy
+    surfaces = surface_phases(cpu, double["runs"]["c1", "mono_single"], c2_stats)
     # -- 32-37. the double modes through the float64 builds of K1-K4 -----------
     runs, path_b64, pol_c1_double = double["runs"], double["path_b"], double["pol_c1"]
     err64, fetch64_times, fetch64_bound = double["fetch"]
@@ -3885,7 +4103,10 @@ def main():
         and bound on the wood skeleton (``skeleton``). Every kernel carries
         its launches on the polarized paths (``polarized_launches``), K1, K2
         and K7 their device time a launch inside the polarized full-width
-        runs by path (``polarized_run_ms``). K1 also carries its times and bound on
+        runs by path (``polarized_run_ms``), and its launches on the surface
+        phases A-D (``surface_launches``: A and B by their full-width runs,
+        C and D by their small CUDA runs). K1 also carries its device time a
+        launch inside A and B (``surface_run_device_ms``), its times and bound on
         c2's column (``c2_column``) and its launches and device time a
         launch inside the c2 and c3 full-width runs (``c2_launches``,
         ``c2_run_device_ms``, ``c3_launches``, ``c3_run_device_ms``, and c3's
@@ -3893,7 +4114,10 @@ def main():
         out = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": n, "max_abs_err": err, **times,
                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
-               "polarized_launches": polarized[name]}
+               "polarized_launches": polarized[name],
+               "surface_launches": surfaces["launches"][name]}
+        if name == "collision_fetch":
+            out.update(surface_run_device_ms=surfaces["run_device_ms"])
         if name in polarized_run_ms:
             out.update(polarized_run_ms=polarized_run_ms[name])
         if in_run is not None:

@@ -98,7 +98,7 @@ def _facet_geometry(wi, wo):
     return cos_gamma, cos_beta
 
 
-def maignan_mueller(params, wi, wo):
+def maignan_mueller(params, wi, wo, p=None):
     """Maignan (2009) polarized BRDF: the RPV base (depolarizing) plus the
     one-parameter Fresnel specular peak (their Eq. 21),
     ``C exp(-nu NDVI) exp(-tan gamma) F(gamma, m) / (4 (mu_i + mu_o))``,
@@ -124,9 +124,9 @@ def maignan_mueller(params, wi, wo):
     return depolarizer(rpv_eval(params, wi, wo)) + peak
 
 
-def maignan_eval(params, wi, wo):
+def maignan_eval(params, wi, wo, p=None):
     """Scalar (I-I) Maignan BRDF: RPV base plus the peak's intensity."""
-    return maignan_mueller(params, wi, wo)[..., 0, 0]
+    return maignan_mueller(params, wi, wo, p)[..., 0, 0]
 
 
 def _smith_lambda(mu, sigma2):
@@ -138,7 +138,7 @@ def _smith_lambda(mu, sigma2):
     return 0.5 * (torch.exp(-v * v) / (v * math.sqrt(math.pi)) - torch.special.erfc(v))
 
 
-def ocean_mishchenko_mueller(params, wi, wo):
+def ocean_mishchenko_mueller(params, wi, wo, p=None):
     """Mishchenko & Travis (1997) polarized sunglint: the Cox-Munk Gaussian
     facet distribution times the Fresnel reflection Mueller matrix times
     bistatic Smith shadowing (opaque surface, glint only)."""
@@ -168,18 +168,19 @@ def ocean_mishchenko_mueller(params, wi, wo):
     return amp[..., None, None] * F
 
 
-def ocean_mishchenko_eval(params, wi, wo):
+def ocean_mishchenko_eval(params, wi, wo, p=None):
     """Scalar (I-I) Mishchenko glint BRDF."""
-    return ocean_mishchenko_mueller(params, wi, wo)[..., 0, 0]
+    return ocean_mishchenko_mueller(params, wi, wo, p)[..., 0, 0]
 
 
-def surface_mueller(kind, params, wi, wo):
-    """Mueller BRDF matrix ``[..., 4, 4]`` in plane-of-incidence frames: the
-    polarized kinds' full matrices, every other kind an ideal depolarizer
-    scaled by its scalar BRDF (exactly the scalar path for unpolarized
-    light)."""
+def surface_mueller(kind, params, wi, wo, p=None):
+    """Mueller BRDF matrix ``[..., 4, 4]`` in plane-of-incidence frames at
+    the surface points ``p`` (None: no position): the polarized kinds' full
+    matrices, every other kind an ideal depolarizer scaled by its scalar
+    BRDF (exactly the scalar path for unpolarized light). The polarized
+    kinds ignore ``p``, as the reference's do."""
     if kind == "maignan":
-        return maignan_mueller(params, wi, wo)
+        return maignan_mueller(params, wi, wo, p)
     if kind == "ocean_mishchenko":
-        return ocean_mishchenko_mueller(params, wi, wo)
-    return depolarizer(bsdf_eval(kind, params, wi, wo))
+        return ocean_mishchenko_mueller(params, wi, wo, p)
+    return depolarizer(bsdf_eval(kind, params, wi, wo, p))

@@ -26,7 +26,8 @@ import torch
 from ..core import threefry
 from ..core.device import resolve_device
 from ..core.warp import square_to_uniform_cone
-from .bsdf_ops import SUPPORTED_BSDFS, bsdf_eval, bsdf_sample_from_uniforms
+from ..kernels.leaf_intersect import fma
+from .bsdf_ops import bsdf_eval, bsdf_sample_from_uniforms, check_kind, uses_position
 from .fastmath import depth_sample, uniform_cone_xla
 from .fastrng import bounce_uniforms, derive_keys, origin_uniforms
 from .medium import clamp_mu, collision_fetch, tau_at_z
@@ -72,6 +73,7 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
     tau_levels = medium_row.tau_levels
     tau_top = tau_levels[-1]
     z_bottom = z_levels[0]
+    fused = uses_position(config.surface_kind)
 
     w_sun = -illum_row.direction  # unit vector toward the sun
     E_sun = illum_row.irradiance
@@ -123,7 +125,7 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
         weights_at = fetched[1 : 1 + C].T  # [B, C]
         params_at = rebuild_fetched(config.phase_kinds, param_slots, fetched[1 + C :])
         s_col = (z_col - z) / mu
-        xy_col = xy + d[:, :2] * s_col[:, None]
+        xy_col = advance_xy(xy, d, s_col, fused)
 
         # NEE: the collision's vertical tau is tau_new, so the sun-path
         # transmittance is closed form
@@ -140,13 +142,13 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
         # ---- surface hit ------------------------------------------------
         hit_surface = (~collide) & (mu < 0.0) & config.has_surface
         s_surf = (z_bottom - z) / mu
-        xy_surf = xy + d[:, :2] * s_surf[:, None]
+        xy_surf = advance_xy(xy, d, s_surf, fused)
         wo = -d
         T_sun_bottom = torch.exp(-tau_top / mu_nee)
-        f_nee = bsdf_eval(config.surface_kind, surface_row.params, w_nee, wo)
+        f_nee = bsdf_eval(config.surface_kind, surface_row.params, w_nee, wo, xy_surf)
         L_surf = beta * f_nee * mu_nee * T_sun_bottom * E_sun
         d_surf, w_surf = bsdf_sample_from_uniforms(
-            config.surface_kind, surface_row.params, wo, u_srf
+            config.surface_kind, surface_row.params, wo, u_srf, xy_surf
         )
         beta_surf = beta * w_surf
 
@@ -266,9 +268,22 @@ def lane_partition(n_pix, spp, lanes_target, device):
     return lp, pix, slot, pix * spp + start, quota
 
 
-def _ray_anchors(medium_row, pix, directions, target, ray_offset, target_extent):
+def advance_xy(xy, d, s, fused):
+    """The horizontal position ``xy + d[:, :2] * s`` [B, 2]; ``fused``
+    rounds it once, as XLA:CPU contracts it in the reference, so that a
+    textured surface (:func:`.bsdf_ops.uses_position`) is looked up where
+    the reference's is. Other surfaces ignore the position, and take the
+    cheaper rounding."""
+    if fused:
+        return fma(d[:, :2], s[:, None].expand(-1, 2), xy)
+    return xy + d[:, :2] * s[:, None]
+
+
+def _ray_anchors(medium_row, pix, directions, target, ray_offset, target_extent,
+                 fused=False):
     """Per-lane ray anchors (init_z, init_xy, init_d, ext): rays start at
-    TOA on the line through the target, or ``ray_offset`` along it."""
+    TOA on the line through the target, or ``ray_offset`` along it;
+    ``fused`` as :func:`advance_xy`."""
     z_top = medium_row.z_levels[-1]
     w_v = directions[pix]
     B = pix.shape[0]
@@ -280,7 +295,7 @@ def _ray_anchors(medium_row, pix, directions, target, ray_offset, target_extent)
         torch.isnan(ray_offset), (z_top - tgt[:, 2]) / clamp_mu(w_v[:, 2]), ray_offset
     )
     init_z = torch.minimum(tgt[:, 2] + w_v[:, 2] * t_start, z_top)
-    init_xy = tgt[:, :2] + w_v[:, :2] * t_start[:, None]
+    init_xy = advance_xy(tgt[:, :2], w_v, t_start, fused)
     return init_z, init_xy, -w_v, ext
 
 
@@ -294,7 +309,8 @@ def _render_row_regen(
         n_pix, spp, lanes_target, directions.device
     )
     init_z, init_xy, init_d, ext = _ray_anchors(
-        medium_row, pix, directions, target, ray_offset, target_extent
+        medium_row, pix, directions, target, ray_offset, target_extent,
+        uses_position(config.surface_kind),
     )
     L_sum, m2_sum, iterations = trace_paths_regen(
         config, medium_row, surface_row, illum_row, init_z, init_xy, init_d,
@@ -307,7 +323,8 @@ def _render_row_regen(
 
 def _check_supported(config):
     """Raise ``NotImplementedError`` naming each feature this slice lacks,
-    and for a polarized config, which has a renderer of its own."""
+    and for a polarized config, which has a renderer of its own;
+    ``ValueError`` for an unknown surface kind."""
     if config.polarized:
         raise NotImplementedError(
             "the scalar tracer does not render polarized transport: call "
@@ -320,12 +337,11 @@ def _check_supported(config):
             config.illumination_kind != "directional",
         "lr_flight": config.lr_flight,
         f"rng {config.rng!r}": config.rng != "pcg4d",
-        f"surface kind {config.surface_kind!r}":
-            config.surface_kind not in SUPPORTED_BSDFS,
     }
     for feature, missing in unsupported.items():
         if missing:
             raise NotImplementedError(f"{feature} is not ported yet")
+    check_kind(config.surface_kind)
     check_phase_kinds(config.phase_kinds)
 
 

@@ -41,11 +41,11 @@ import torch
 
 from ..core.device import resolve_device
 from .bsdf_ops import (
-    SUPPORTED_BSDFS,
     bilambertian_eval,
     bilambertian_sample_from_uniforms,
     bsdf_eval,
     bsdf_sample_from_uniforms,
+    check_kind,
 )
 from ..kernels.leaf_intersect import fma
 from .canopy import leaf_accel, leaf_nearest, leaf_occluded
@@ -278,11 +278,12 @@ def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpe
 
         # ---- ground -----------------------------------------------------
         wo = -d
-        f_g = bsdf_eval(config.surface_kind, surface_row.params, w_nee, wo)
+        xy_ground = pos_ground[:, :2]
+        f_g = bsdf_eval(config.surface_kind, surface_row.params, w_nee, wo, xy_ground)
         mu_nee_g = torch.clamp(w_nee[:, 2], min=0.0)
         L_ground = beta * f_g * mu_nee_g * E_nee
         d_ground, w_g = bsdf_sample_from_uniforms(
-            config.surface_kind, surface_row.params, wo, u_srf
+            config.surface_kind, surface_row.params, wo, u_srf, xy_ground
         )
         beta_ground = beta * w_g
 
@@ -474,7 +475,8 @@ def _render_row_canopy(
 
 def _check_supported(config):
     """Raise ``NotImplementedError`` naming each feature this slice lacks,
-    and for a polarized config, which has a renderer of its own."""
+    and for a polarized config, which has a renderer of its own;
+    ``ValueError`` for an unknown surface kind."""
     if config.polarized:
         raise NotImplementedError(
             "the scalar canopy tracer does not render polarized transport: call "
@@ -488,12 +490,11 @@ def _check_supported(config):
         "canopy scenes": config.illumination_kind != "directional",
         "lr_flight": config.lr_flight,
         f"rng {config.rng!r}": config.rng != "pcg4d",
-        f"surface kind {config.surface_kind!r}":
-            config.surface_kind not in SUPPORTED_BSDFS,
     }
     for feature, missing in unsupported.items():
         if missing:
             raise NotImplementedError(f"{feature} is not ported yet")
+    check_kind(config.surface_kind)
     check_phase_kinds(config.phase_kinds)
 
 

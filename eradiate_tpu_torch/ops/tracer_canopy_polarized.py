@@ -40,6 +40,7 @@ from .bsdf_ops import (
     bilambertian_eval,
     bilambertian_sample_from_uniforms,
     bsdf_sample_from_uniforms,
+    check_kind,
 )
 from .bsdf_polarized import surface_mueller
 from .canopy import leaf_nearest
@@ -63,7 +64,6 @@ from .tracer_canopy import (
     lane_rays,
 )
 from .tracer_polarized import (
-    SUPPORTED_SURFACES,
     basis_rotator,
     phase_vertex,
     roulette,
@@ -199,13 +199,18 @@ def _make_bounce_canopy_polarized(
         pos_leaf_new = _step(pos_leaf, d_leaf, eps_lane)
 
         # ---- ground (Mueller-general surface) -----------------------------
-        M_nee_srf = surface_mueller(config.surface_kind, surface_row.params, w_nee, l_out)
+        xy_ground = pos_ground[:, :2]
+        M_nee_srf = surface_mueller(
+            config.surface_kind, surface_row.params, w_nee, l_out, xy_ground
+        )
         mu_nee_g = torch.clamp(w_nee[:, 2], min=0.0)
         S_in_g = unpolarized(beta * mu_nee_g * E_nee)
         d_ground, w_g = bsdf_sample_from_uniforms(
-            config.surface_kind, surface_row.params, l_out, u_srf
+            config.surface_kind, surface_row.params, l_out, u_srf, xy_ground
         )
-        M_cont = surface_mueller(config.surface_kind, surface_row.params, d_ground, l_out)
+        M_cont = surface_mueller(
+            config.surface_kind, surface_row.params, d_ground, l_out, xy_ground
+        )
         S_ground, P_ground, h_in_c = surface_vertex(
             P, b, l_out, R_sun, M_nee_srf, S_in_g, d_ground, M_cont
         )
@@ -357,7 +362,7 @@ def _render_row_canopy_polarized(
 
 def _check_supported(config):
     """Raise ``NotImplementedError`` naming each feature this slice lacks;
-    ``ValueError`` for an unpolarized config."""
+    ``ValueError`` for an unpolarized config or an unknown surface kind."""
     if not config.polarized:
         raise ValueError(
             "config.polarized is False: render it with ops.tracer_canopy.render_canopy"
@@ -370,15 +375,12 @@ def _check_supported(config):
         "canopy scenes": config.illumination_kind != "directional",
         "lr_flight": config.lr_flight,
         f"rng {config.rng!r}": config.rng != "pcg4d",
-        f"polarized surface kind {config.surface_kind!r}":
-            config.surface_kind not in SUPPORTED_SURFACES,
     }
     for feature, missing in unsupported.items():
         if missing:
             raise NotImplementedError(f"{feature} is not ported yet")
-    # tab_polarized (an aerosol layer) stays refused over a canopy: no test
-    # holds one against the reference yet
-    check_phase_kinds(config.phase_kinds)
+    check_kind(config.surface_kind)
+    check_phase_kinds(config.phase_kinds, polarized=True)
 
 
 def render_canopy_polarized(

@@ -32,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from ..core.device import resolve_device
-from .bsdf_ops import POLARIZED_SURFACES, SUPPORTED_BSDFS, bsdf_sample_from_uniforms
+from .bsdf_ops import bsdf_sample_from_uniforms, check_kind, uses_position
 from .bsdf_polarized import surface_mueller
 from .fastmath import depth_sample
 from .fastrng import bounce_uniforms, derive_keys
@@ -57,7 +57,14 @@ from .phase_ops import (
     rebuild_fetched,
 )
 from .scene_state import from_reference
-from .tracer import CHECK_EVERY, REGEN_LANES_TARGET, lane_partition, row_arrays, row_key
+from .tracer import (
+    CHECK_EVERY,
+    REGEN_LANES_TARGET,
+    advance_xy,
+    lane_partition,
+    row_arrays,
+    row_key,
+)
 
 __all__ = [
     "render_polarized",
@@ -68,9 +75,6 @@ __all__ = [
     "surface_vertex",
     "roulette",
 ]
-
-#: Surface kinds of the polarized tracers.
-SUPPORTED_SURFACES = SUPPORTED_BSDFS + POLARIZED_SURFACES
 
 
 def scatter_frames(l_in, l_out):
@@ -162,6 +166,7 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
     tau_levels = medium_row.tau_levels
     tau_top = tau_levels[-1]
     z_bottom = z_levels[0]
+    fused = uses_position(config.surface_kind)
 
     d_sun = illum_row.direction
     mu_sun = clamp_mu(-d_sun[2])
@@ -205,7 +210,7 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
         albedo_col = fetched[0]
         weights_at = fetched[1 : 1 + C].T  # [B, C]
         params_at = rebuild_fetched(config.phase_kinds, param_slots, fetched[1 + C :])
-        xy_col = xy + d[:, :2] * ((z_col - z) / mu)[:, None]
+        xy_col = advance_xy(xy, d, (z_col - z) / mu, fused)
 
         l_out = -d  # light leaves the vertex toward the sensor path
         # the sun's light arrives along d_sun at either vertex kind: one
@@ -222,18 +227,20 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
 
         # ---- surface hit (Mueller-general; scalar kinds depolarize) -----
         hit_surface = (~collide) & (mu < 0.0) & config.has_surface
-        xy_surf = xy + d[:, :2] * ((z_bottom - z) / mu)[:, None]
+        xy_surf = advance_xy(xy, d, (z_bottom - z) / mu, fused)
         # NEE: incident light propagates along d_sun, leaves along l_out;
         # the sampled continuation comes from d_srf (propagating along
         # -d_srf)
         M_nee_srf = surface_mueller(
-            config.surface_kind, surface_row.params, w_sun.expand(B, 3), l_out
+            config.surface_kind, surface_row.params, w_sun.expand(B, 3), l_out, xy_surf
         )
         S_sun_srf = unpolarized(beta * mu_sun * T_sun_bottom * E_sun)
         d_srf, w_srf = bsdf_sample_from_uniforms(
-            config.surface_kind, surface_row.params, l_out, u_srf
+            config.surface_kind, surface_row.params, l_out, u_srf, xy_surf
         )
-        M_cont = surface_mueller(config.surface_kind, surface_row.params, d_srf, l_out)
+        M_cont = surface_mueller(
+            config.surface_kind, surface_row.params, d_srf, l_out, xy_surf
+        )
         S_surf, P_surf, h_in_c = surface_vertex(
             P, b, l_out, R_sun, M_nee_srf, S_sun_srf, d_srf, M_cont
         )
@@ -343,7 +350,7 @@ def _render_row_polarized(
 
 def _check_supported(config):
     """Raise ``NotImplementedError`` naming each feature this slice lacks;
-    ``ValueError`` for an unpolarized config."""
+    ``ValueError`` for an unpolarized config or an unknown surface kind."""
     if not config.polarized:
         raise ValueError("config.polarized is False: render it with ops.tracer.render")
     unsupported = {
@@ -353,12 +360,11 @@ def _check_supported(config):
             config.illumination_kind != "directional",
         "lr_flight": config.lr_flight,
         f"rng {config.rng!r}": config.rng != "pcg4d",
-        f"polarized surface kind {config.surface_kind!r}":
-            config.surface_kind not in SUPPORTED_SURFACES,
     }
     for feature, missing in unsupported.items():
         if missing:
             raise NotImplementedError(f"{feature} is not ported yet")
+    check_kind(config.surface_kind)
     check_phase_kinds(config.phase_kinds, polarized=True)
 
 

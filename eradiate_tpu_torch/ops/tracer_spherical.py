@@ -37,7 +37,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..kernels.shell_flight import shell_event, shell_flight, slant_tau
-from .bsdf_ops import POLARIZED_SURFACES, SUPPORTED_BSDFS, bsdf_eval, bsdf_sample_from_uniforms
+from .bsdf_ops import bsdf_eval, bsdf_sample_from_uniforms, check_kind
 from .fastmath import depth_sample
 from .fastrng import bounce_uniforms, derive_keys
 from .medium import fetch_at_index
@@ -366,7 +366,9 @@ def spherical_row(scene, s):
 def check_supported(config, medium, polarized=False):
     """Raise ``NotImplementedError`` naming each feature the spherical
     tracer (``polarized``: its polarized twin) lacks, and a config of the
-    other kind of transport, naming the renderer it belongs to."""
+    other kind of transport, naming the renderer it belongs to;
+    ``ValueError`` for an unknown surface kind. The surfaces take no
+    position here (``p=None``), as in the reference."""
     if config.polarized and not polarized:
         raise NotImplementedError(
             "polarized transport in spherical shells is rendered by "
@@ -374,20 +376,19 @@ def check_supported(config, medium, polarized=False):
         )
     if polarized and not config.polarized:
         raise ValueError("config.polarized is False: render it with render_spherical")
-    surfaces = SUPPORTED_BSDFS + (POLARIZED_SURFACES if polarized else ())
     unsupported = {
         f"geometry {config.geometry!r}": config.geometry != "spherical_shell",
         f"sampler {config.sampler!r}": config.sampler != "independent",
         f"illumination kind {config.illumination_kind!r}":
             config.illumination_kind != "directional",
         f"rng {config.rng!r}": config.rng != "pcg4d",
-        f"surface kind {config.surface_kind!r}": config.surface_kind not in surfaces,
         "the legacy sun_tau_fetch (a sun-tau table without sun_r_grid)":
             medium.sun_tau is not None and medium.sun_r_grid is None,
     }
     for feature, missing in unsupported.items():
         if missing:
             raise NotImplementedError(f"{feature} is not ported yet")
+    check_kind(config.surface_kind)
     check_phase_kinds(config.phase_kinds, polarized=polarized)
 
 

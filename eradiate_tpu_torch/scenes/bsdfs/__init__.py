@@ -345,7 +345,7 @@ class OceanLegacyBSDF(BSDF):
     kind: str = attrs.field(default="ocean_legacy", init=False)
 
     def eval_params(self, w_nm) -> dict:
-        raise NotImplementedError("not ported yet: the ocean BSDF")
+        from ...physics.ocean_data import case1_water_reflectance, water_ior
 
         w = np.atleast_1d(np.asarray(w_nm))
         return {

@@ -228,7 +228,7 @@ def test_unported_modes_raise(mode_id):
 @pytest.mark.parametrize(
     "override, name",
     [
-        ({"surface": {"type": "rtls"}}, "rtls"),
+        ({"illumination": {"type": "spot"}}, "SpotIllumination"),
         ({"illumination": {"type": "constant"}}, "ConstantIllumination"),
     ],
 )

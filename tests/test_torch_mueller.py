@@ -374,13 +374,16 @@ def test_fresnel_elements(m):
 
 
 def test_scalar_tracers_keep_their_surface_kinds():
-    """The polarized surfaces are the polarized tracers' only; rpv is a
-    scalar kind (the polarized tracers depolarize it); rtls is nobody's
-    yet."""
-    assert bsdf_ops.SUPPORTED_BSDFS == ("black", "hapke", "lambertian", "rpv")
+    """Every tracer takes the reference's surface kinds, the polarized
+    surfaces' scalar (I-I) components among them; the polarized tracers
+    give those two their Mueller matrices and depolarize the rest; an
+    unknown kind raises ``ValueError`` naming it, as the reference's
+    dispatch does."""
+    assert bsdf_ops.SUPPORTED_BSDFS == ref_bsdf.SUPPORTED_BSDFS
+    assert {"maignan", "ocean_mishchenko", "rpv", "rtls"} <= set(bsdf_ops.SUPPORTED_BSDFS)
     assert bsdf_ops.POLARIZED_SURFACES == ref_bpol.POLARIZED_SURFACES
-    with pytest.raises(NotImplementedError, match="rtls"):
-        bsdf_ops.bsdf_eval("rtls", _tparams(MAIGNAN, _t(_dirs(1))), _t(_dirs(1)),
+    with pytest.raises(ValueError, match="'no_such_kind'"):
+        bsdf_ops.bsdf_eval("no_such_kind", _tparams(MAIGNAN, _t(_dirs(1))), _t(_dirs(1)),
                            _t(_dirs(2)))
 
 

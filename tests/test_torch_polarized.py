@@ -176,13 +176,17 @@ def test_scalar_tracer_refuses_polarized_config():
 
 
 @pytest.mark.parametrize(
-    "field, value, name",
-    [("geometry", "spherical_shell", "spherical_shell"), ("surface_kind", "rtls", "'rtls'"),
-     ("rng", "threefry", "'threefry'"), ("lr_flight", True, "lr_flight")],
+    "field, value, error, name",
+    [("geometry", "spherical_shell", NotImplementedError, "spherical_shell"),
+     ("surface_kind", "no_such_kind", ValueError, "'no_such_kind'"),
+     ("rng", "threefry", NotImplementedError, "'threefry'"),
+     ("lr_flight", True, NotImplementedError, "lr_flight")],
 )
-def test_unported_features_raise(field, value, name):
+def test_unported_features_raise(field, value, error, name):
+    """Unported features raise ``NotImplementedError`` naming them; an
+    unknown surface kind raises ``ValueError`` naming it."""
     scene, sensor, config = tiny("lambertian")
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(error, match=name):
         render_polarized(scene, sensor, dataclasses.replace(config, **{field: value}), 8,
                          device="cpu")
 

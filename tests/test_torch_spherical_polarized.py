@@ -323,7 +323,7 @@ def test_i_agrees_with_the_scalar_tracer(polarized):
 
 @pytest.mark.parametrize("field, value, error, name", [
     ("polarized", False, ValueError, "render_spherical"),
-    ("surface_kind", "rtls", NotImplementedError, "'rtls'"),
+    ("surface_kind", "no_such_kind", ValueError, "'no_such_kind'"),
     ("geometry", "plane_parallel", NotImplementedError, "plane_parallel"),
 ])
 def test_unported_features_raise(polarized, field, value, error, name):

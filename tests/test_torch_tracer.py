@@ -93,22 +93,24 @@ def test_lane_partition_tiles_sample_ids(spp):
 
 
 @pytest.mark.parametrize(
-    "field, value, name",
+    "field, value, error, name",
     [
-        ("polarized", True, "render_polarized"),
-        ("geometry", "spherical_shell", "spherical_shell"),
-        ("sampler", "stratified", "stratified"),
-        ("phase_kinds", ("tab_polarized",), "'tab_polarized'"),
-        ("surface_kind", "rtls", "'rtls'"),
-        ("illumination_kind", "spot", "spot"),
-        ("lr_flight", True, "lr_flight"),
-        ("rng", "threefry", "threefry"),
+        ("polarized", True, NotImplementedError, "render_polarized"),
+        ("geometry", "spherical_shell", NotImplementedError, "spherical_shell"),
+        ("sampler", "stratified", NotImplementedError, "stratified"),
+        ("phase_kinds", ("tab_polarized",), NotImplementedError, "'tab_polarized'"),
+        ("surface_kind", "no_such_kind", ValueError, "'no_such_kind'"),
+        ("illumination_kind", "spot", NotImplementedError, "spot"),
+        ("lr_flight", True, NotImplementedError, "lr_flight"),
+        ("rng", "threefry", NotImplementedError, "threefry"),
     ],
 )
-def test_unported_features_raise(tiny, field, value, name):
+def test_unported_features_raise(tiny, field, value, error, name):
+    """Unported features raise ``NotImplementedError`` naming them; an
+    unknown surface kind raises ``ValueError`` naming it."""
     scene, sensor, _ = tiny
     config = SceneConfig(max_depth=8, **{field: value})
-    with pytest.raises(NotImplementedError, match=name):
+    with pytest.raises(error, match=name):
         render(scene, sensor, config, 8, device="cpu")
 
 

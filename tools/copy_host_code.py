@@ -56,6 +56,8 @@ MODULES = [
     "physics/__init__.py",
     "physics/absorption.py",
     "physics/afgl1986_data.py",
+    "physics/mie.py",
+    "physics/ocean_data.py",
     "physics/radprofile.py",
     "physics/rayleigh.py",
     "physics/shell_merge.py",
@@ -202,10 +204,6 @@ WORDING = {r"spectral d[r]iver": "spectral loop"}  # a regular expression
 
 #: path -> {lazy import line (stripped): feature named by the error}
 NOT_PORTED = {
-    "scenes/bsdfs/__init__.py": {
-        "from ...physics.ocean_data import case1_water_reflectance, water_ior":
-            "the ocean BSDF",
-    },
     "physics/absorption.py": {
         "from ..data.absorption_io import load_absorption_netcdf":
             "NetCDF absorption databases",
