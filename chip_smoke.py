@@ -371,12 +371,44 @@ D.  c4 at SZA 75 under c2's continental aerosol (the scalar ``tab`` phase;
     scene instanced (K7) over a ``checkerboard`` ground and over a
     ``central_patch`` ground (an ``rtls`` patch), and polarized under c2's
     aerosol (``tab_polarized`` over a canopy), at 16 spp with phase 12's
-    and phase 22's gates; then the seconds phases A-D took.
+    and phase 22's gates; then the seconds phases A-D took;
+E.  c1's column seen by a ``perspective`` camera 2 km above the target,
+    looking down at 30 degrees: a 128 x 128 film with the Gaussian filter,
+    oversampled twice (65536 sub-pixel rays) at 512 spp, as phase A
+    (profiled window of 16 iterations after 4); then against the CPU (8 x 8
+    film, 64 spp: radiance within 1e-4 relative, |z| <= 5);
+F.  on c1's column, timed once each (K1's launches equal to the
+    iterations, no other kernel; wall, samples/s, the worst pixel's
+    relative standard error): ``distant_flux`` 32 x 32 at 65536 spp with
+    its radiosity and albedo, ``mpdistant`` 64 x 64 at 16384 spp over a 10
+    km rectangle on the reference test's ``selectbsdf`` floor (halves of
+    0.1 and 0.9), and a constant sky of radiance 1 at c1's 76 views and
+    1048576 spp; each against the CPU (8 x 8, or 11 views, at 64 spp; the
+    radiosity within 1e-4 too);
+G.  c1 at 76 views and 262144 spp with the ``independent`` sampler (the
+    regenerative loop), then ``stratified`` and ``ldsampler`` (the one-shot
+    loop, in chunks of 2^21 // 76 samples a pixel, the budget rounded up to
+    whole chunks): samples/s and the worst pixel's relative standard error
+    beside the independent run's; K1's device time a launch inside the
+    stratified run (48 launches after 8); both structured kinds against the
+    CPU at 11 views and 64 spp;
+H.  the c5 scene as ``bench.py`` builds it (instanced HET01) lit by
+    ``SpotIllumination.from_size_at_target`` (a 50 m spot at the plot's
+    centre, beam half-width 30 degrees, 86.6 m up) and seen by a 128 x 128
+    box ``perspective`` camera 90 m south of the plot and 70 m up: 128 spp
+    in ``mono_single`` and, with Stokes output, 32 spp in
+    ``mono_polarized_single`` (K7's launches equal to the iterations); K7
+    nearest and any hit against their plain versions, bit for bit, on the
+    run's own rays of an eighth launch (the path rays, and the shadow rays
+    that end at the spot, finite ``t_max``; timed with their bound); both
+    runs against the CPU on an 8 x 8 film at 64 spp with the canopy gate
+    (lit pixels within 2e-3, the median within 1e-4, |z| <= 5 of I, Q, U
+    and V; dark pixels dark in both); then the seconds phases E-H took.
 
 The CPU sides of the canopy phases' CUDA-against-CPU gates (12, 17, 22,
 40, 43, D) render in one background process (one thread, no card), submitted
-after the build, so that their minutes overlap the card's work; the script
-ends that process on exit.
+after the build, so that their minutes overlap the card's work, and those
+of E-H in a second one; the script ends both processes on exit.
 
 It prints a ``{"kernels": [...]}`` line (each kernel with its launches on its
 main path, its error against the plain version, its call time (``ms``) and
@@ -411,8 +443,11 @@ triangle sweeps' ``ray_tris_nearest_f64``, ``ray_tris_occluded_f64``
 their launches on the other double paths, ``launches_on``, and device time
 a launch inside the full-width runs, ``run_device_ms``; their bounds over
 the float64 rate; every kernel its launches on phases A-D,
-``surface_launches``, and K1 its device time a launch inside A and B,
-``surface_run_device_ms``) and the
+``surface_launches``, and on E-H, ``sensor_launches``; K1 its device time
+a launch inside A and B, ``surface_run_device_ms``, inside E's camera run,
+``perspective_run_device_ms``, and inside G's one-shot run,
+``one_shot_run_device_ms``; K7's any hit its times and bound on H's shadow
+rays, ``spot_shadow_rays``) and the
 ``nvidia-smi`` line
 before the last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
@@ -495,6 +530,86 @@ C5_GROUNDS = {
                       "bsdf": {"type": "lambertian", "reflectance": 0.159},
                       "patch_bsdf": {"type": "rtls"}, "patch_edges": 0.02},
 }
+
+#: Phase E's camera on c1's column: 2 km above the target and 1.1547 km
+#: south of it, looking down at 30 degrees from the vertical.
+E_CAMERA = {"type": "perspective", "origin": [0.0, -1.1547, 2.0], "target": [0.0, 0.0, 0.0],
+            "fov": 40.0, "rfilter": "gaussian", "rfilter_oversample": 2, "id": "m"}
+#: Phase E-H at full width: E's film side and spp, F's, G's, H's. Cut to
+#: keep the script inside its time limit on a loaded host: F's
+#: ``distant_flux`` from 262144 spp and its constant sky from c1's 4194304,
+#: G from 1048576, H from c5's 2097152 (128 scalar, 32 polarized).
+E_FILM, E_SPP = 128, 512
+F_FLUX_FILM, F_FLUX_SPP = 32, 65536
+F_MPD_FILM, F_MPD_SPP = 64, 16384
+F_SKY_SPP = 1048576
+G_SPP = 262144
+H_SPP, H_SPP_POLARIZED = 128, 32
+#: Lanes of H's captured launches on which K7 is held to its plain versions
+#: (a seeded sample; the kernels run on all of them).
+H_PLAIN_LANES = 2**16
+#: The CPU gates of E-H: 8 x 8 films (11 views for the mdistant cases) at 64 spp.
+GATE_FILM, GATE_VZA, GATE_SPP = 8, 11, 64
+#: The floor of the reference's mpdistant test
+#: (``tests/system/test_mpdistant.py:20``): reflectance 0.1 and 0.9 on the
+#: two halves of a 20 km square.
+HALF_SURFACE = {"type": "selectbsdf",
+                "bsdfs": [{"type": "lambertian", "reflectance": 0.1},
+                          {"type": "lambertian", "reflectance": 0.9}],
+                "index_map": [[0, 1]], "extent": 20.0}
+#: Phase H's camera over the c5 plot: 90 m south of its centre and 70 m up.
+H_CAMERA = {"type": "perspective", "origin": [0.0, -0.09, 0.07], "target": [0.0, 0.0, 0.0],
+            "fov": 70.0, "id": "m"}
+
+
+def _spot():
+    """Phase H's spot: ``SpotIllumination.from_size_at_target`` over the c5
+    plot's centre, a 50 m spot (the plot is 100 m wide) under a beam of 30
+    degrees half-width, straight down."""
+    from eradiate_tpu_torch.scenes.illumination import SpotIllumination
+
+    return SpotIllumination.from_size_at_target(
+        target=[0.0, 0.0, 0.0], direction=[0.0, 0.0, -1.0], spot_radius=0.05, beam_width=30.0)
+
+
+def _sensor_case(case, size):
+    """The scenes of phases E-G on c1's column (``_c1``'s atmosphere, floor
+    and sun): ``perspective`` (:data:`E_CAMERA`, a ``size`` x ``size``
+    film), ``distant_flux`` and ``mpdistant`` (``size`` x ``size``; mpdistant
+    over a 10 km rectangle on :data:`HALF_SURFACE`), ``constant`` (a
+    constant sky of radiance 1 over ``size`` views), and ``independent``,
+    ``stratified``, ``ldsampler`` (c1 at ``size`` views with that
+    sampler)."""
+    from eradiate_tpu_torch import AtmosphereExperiment
+
+    kw = dict(illumination={"type": "directional", "zenith": 30.0, "azimuth": 0.0},
+              surface={"type": "lambertian", "reflectance": 0.5},
+              atmosphere={"type": "molecular"},
+              geometry={"type": "plane_parallel", "layer_merge_tol": 1e-3})
+    mdistant = {"type": "mdistant", "construct": "hplane",
+                "zeniths": np.linspace(-75, 75, size), "azimuth": 0.0, "id": "m"}
+    if case == "perspective":
+        kw["measures"] = {**E_CAMERA, "film_resolution": (size, size)}
+    elif case == "distant_flux":
+        kw["measures"] = {"type": "distant_flux", "film_resolution": (size, size), "id": "m"}
+    elif case == "mpdistant":
+        kw["surface"] = HALF_SURFACE
+        kw["measures"] = {"type": "mpdistant", "film_resolution": (size, size),
+                          "direction": [0.3, 0.1, 0.9], "id": "m",
+                          "target": {"type": "rectangle", "xmin": -5.0, "xmax": 5.0,
+                                     "ymin": -5.0, "ymax": 5.0}}
+    elif case == "constant":
+        kw["illumination"] = {"type": "constant", "radiance": 1.0}
+        kw["measures"] = mdistant
+    elif case in SAMPLER_CASES:
+        kw["measures"] = {**mdistant, "sampler": case}
+    else:
+        raise ValueError(f"unknown case {case!r}")
+    return AtmosphereExperiment(**kw)
+
+
+SAMPLER_CASES = ("independent", "stratified", "ldsampler")
+
 
 #: Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
 #: bandwidth, and the float32 and float64 rates outside the tensor cores.
@@ -1410,7 +1525,9 @@ def _c5(form="instanced", mesh_dir=None, branches=WOOD_BRANCHES, stokes=False, v
 
     ``variant`` (phase D): ``checkerboard`` or ``central_patch`` replace the
     Lambertian floor by :data:`C5_GROUNDS`' textured grounds, ``aerosol``
-    the Rayleigh column by c2's atmosphere with its aerosol layer.
+    the Rayleigh column by c2's atmosphere with its aerosol layer; (phase H)
+    ``spot`` lights the scene by :func:`_spot` and sees it by a 128 x 128
+    box camera (:data:`H_CAMERA`), ``spot_gate`` by an 8 x 8 one.
     """
     from eradiate_tpu_torch import CanopyAtmosphereExperiment
     from eradiate_tpu_torch.scenes.biosphere import DiscreteCanopy, LeafCloud
@@ -1447,14 +1564,17 @@ def _c5(form="instanced", mesh_dir=None, branches=WOOD_BRANCHES, stokes=False, v
         ),
         atmosphere=(C2_ATMOSPHERE if variant == "aerosol"
                     else {"type": "molecular", "has_absorption": False}),
-        illumination={"type": "directional", "zenith": 20.0, "azimuth": 0.0},
-        measures={
-            "type": "mdistant",
-            "construct": "hplane",
-            "zeniths": np.linspace(-75, 75, N_VZA_C5),
-            "azimuth": 0.0,
-            "id": "m",
-        },
+        illumination=(_spot() if variant in ("spot", "spot_gate")
+                      else {"type": "directional", "zenith": 20.0, "azimuth": 0.0}),
+        measures=(
+            {**H_CAMERA, "film_resolution": (128, 128) if variant == "spot" else (8, 8)}
+            if variant in ("spot", "spot_gate") else {
+                "type": "mdistant",
+                "construct": "hplane",
+                "zeniths": np.linspace(-75, 75, N_VZA_C5),
+                "azimuth": 0.0,
+                "id": "m",
+            }),
         surface=C5_GROUNDS.get(variant, {"type": "lambertian", "reflectance": 0.159}),
         integrator={"type": "volpath", "stokes": stokes},
     )
@@ -2196,6 +2316,11 @@ def _cpu_worker_init():
     torch.set_num_threads(1)
 
 
+def _gate_spp(variant):
+    """Samples a pixel of a canopy gate: 64, phase D's :data:`SPP_D`."""
+    return SPP_D if variant in C5_GROUNDS or variant == "aerosol" else GATE_SPP
+
+
 def _cpu_c5_render(mode, form, branches, stokes, variant=None):
     """One 64-spp render of a form of the c5 scene (``variant``, phase D's:
     :data:`SPP_D`; see :func:`_c5`) on the CPU in ``mode``, at the seed of
@@ -2206,37 +2331,53 @@ def _cpu_c5_render(mode, form, branches, stokes, variant=None):
     etp.set_mode(mode)
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as mesh_dir:
-        ds = etp.run(_c5(form, mesh_dir, branches, stokes, variant),
-                     spp=64 if variant is None else SPP_D, seed_state=etp.SeedState(SEED),
-                     device="cpu")
+        ds = etp.run(_c5(form, mesh_dir, branches, stokes, variant), spp=_gate_spp(variant),
+                     seed_state=etp.SeedState(SEED), device="cpu")
         out = {k: np.asarray(ds[k]) for k in ds.data_vars}
     return out, time.perf_counter() - t0
 
 
-class CpuRenders:
-    """The CPU sides of the canopy phases' CUDA-against-CPU gates (12, 17,
-    22, 40, 43, D), rendered in one background process, one thread, that sees
-    no card: submitted at the start and collected where a phase compares
-    them with its CUDA run, so that their minutes overlap the card's work.
-    The process ends in :meth:`close` (registered at exit)."""
+def _cpu_case_render(mode, case, size):
+    """One render of a scene of phases E-G (:func:`_sensor_case`) on the CPU
+    in ``mode`` at :data:`GATE_SPP` and the seed of the CUDA runs: its data
+    variables as numpy arrays, and the seconds it took."""
+    import eradiate_tpu_torch as etp
 
-    def __init__(self):
+    etp.set_mode(mode)
+    t0 = time.perf_counter()
+    ds = etp.run(_sensor_case(case, size), spp=GATE_SPP, seed_state=etp.SeedState(SEED),
+                 device="cpu")
+    return {k: np.asarray(ds[k]) for k in ds.data_vars}, time.perf_counter() - t0
+
+
+class CpuRenders:
+    """The CPU sides of the CUDA-against-CPU gates of the canopy phases (12,
+    17, 22, 40, 43, D, H), of c3's (25, 31) and of phases E-G, rendered in
+    ``workers`` background processes, one thread each, that see no card:
+    submitted at the start and collected where a phase compares them with
+    its CUDA run, so that their minutes overlap the card's work. The
+    processes end in :meth:`close` (registered at exit)."""
+
+    def __init__(self, workers=1):
         import atexit
         import multiprocessing
 
-        self._pool = multiprocessing.get_context("spawn").Pool(1, initializer=_cpu_worker_init)
+        self._pool = multiprocessing.get_context("spawn").Pool(workers,
+                                                               initializer=_cpu_worker_init)
         self._jobs = {}
         atexit.register(self.close)
 
-    def submit(self, mode, form, branches=WOOD_BRANCHES, stokes=False, variant=None):
-        key = (mode, form, branches, stokes, variant)
+    def submit(self, fn, *args):
+        """Queue ``fn(*args)`` (:func:`_cpu_c5_render` or
+        :func:`_cpu_case_render`), once for each ``fn`` and ``args``."""
+        key = (fn.__name__, args)
         if key not in self._jobs:
-            self._jobs[key] = self._pool.apply_async(_cpu_c5_render, key)
+            self._jobs[key] = self._pool.apply_async(fn, args)
 
-    def get(self, mode, form, branches=WOOD_BRANCHES, stokes=False, variant=None):
+    def get(self, fn, *args):
         """The render's (data variables, seconds), waiting for it."""
-        self.submit(mode, form, branches, stokes, variant)
-        return self._jobs[mode, form, branches, stokes, variant].get()
+        self.submit(fn, *args)
+        return self._jobs[fn.__name__, args].get()
 
     def close(self):
         self._pool.terminate()
@@ -2251,17 +2392,32 @@ def c5_cuda_vs_cpu(form, phase, cpu, mesh_dir=None, branches=WOOD_BRANCHES, stok
     ``mono_polarized_single``), the gate of phase 20: I within 1e-4 relative
     on every pixel and each Stokes component within |z| <= 5. The CPU run
     comes from ``cpu`` (:class:`CpuRenders`); ``variant`` as :func:`_c5`, at
-    :data:`SPP_D`. Returns the CUDA run's launches."""
+    :data:`SPP_D`. A camera (``variant`` ``spot_gate``, phase H) takes the
+    canopy gate over the pixels the CPU run lit (:func:`_lit_gate`): max
+    relative 2e-3, median 1e-4, |z| <= 5, Q, U and V in the |z| with Stokes
+    output. Returns the CUDA run's launches."""
     import eradiate_tpu_torch as etp
 
     mode = etp.mode()
     reset_launches()
-    spp = 64 if variant is None else SPP_D
+    spp = _gate_spp(variant)
     ds = etp.run(_c5(form, mesh_dir, branches, stokes, variant), spp=spp,
                  seed_state=etp.SeedState(SEED), device="cuda")
     gpu = {k: np.asarray(ds[k]) for k in ds.data_vars}
     launches = read_launches()
-    cpu, seconds = cpu.get(mode.id, form, branches, stokes, variant)
+    cpu, seconds = cpu.get(_cpu_c5_render, mode.id, form, branches, stokes, variant)
+    if "brf" not in cpu:
+        got = _lit_gate(gpu, cpu)
+        label = (f"[{phase}] {'polarized ' if stokes else ''}c5 scene ({form}, {mode.id}, "
+                 f"{variant}), 8 x 8 camera, {spp} spp")
+        print(f"{label}, CUDA vs CPU: "
+              + (f"max rel {got[0]:.3e} (bound 2e-3), median {got[1]:.3e} (bound 1e-4), max "
+                 f"|z| {got[2]:.3e} (bound 5)" if got else "a pixel dark in one run only")
+              + f"; the CPU run took {seconds:.1f} s", flush=True)
+        if got is None or got[0] > 2e-3 or got[1] > 1e-4 or got[2] > 5.0:
+            raise AssertionError(f"CUDA and CPU runs of the port disagree on the c5 scene "
+                                 f"({form}, {variant})")
+        return launches
     if mode.is_double_precision and not gpu["brf"].dtype == cpu["brf"].dtype == np.float64:
         raise AssertionError(f"the c5 scene ({form}) in {mode.id} did not render in float64")
     brf_g, brf_c = gpu["brf"], cpu["brf"]
@@ -2530,27 +2686,62 @@ def _max_z(a, b, var):
     return float(np.max(np.where(diff > 0, diff, 0.0) / np.where(diff > 0, np.sqrt(var), 1.0)))
 
 
-def rows_cuda_vs_cpu(phase, label, make, rows):
-    """c1, c2 or c3 at 11 view zeniths and 256 spp, one seed, on CUDA and on
-    the CPU: the BRF within 1e-4 relative and every pixel within |z| <= 5,
-    and so each of the ``rows`` raw spectral rows before the CKD
-    aggregation. Returns the CUDA run's launches."""
+def _rows_render(make, stokes, device):
+    """``make(11)`` at 256 spp and the seed of the gates on ``device``: the
+    variables :func:`rows_cuda_vs_cpu` (``stokes``:
+    :func:`polarized_rows_cuda_vs_cpu`) compares, as numpy arrays, and the
+    seconds the run took."""
+    import eradiate_tpu_torch as etp
+
+    exp = make(11)
+    t0 = time.perf_counter()
+    ds = etp.run(exp, spp=256, seed_state=etp.SeedState(SEED), device=device)
+    seconds = time.perf_counter() - t0
+    raw = exp.measures[0].results["raw"]
+    if stokes:
+        st = np.asarray(raw["stokes"], np.float64)
+        return {"I": np.asarray(ds["I"]), "rows": st, "iterations": raw["iterations"],
+                "var": np.maximum(np.asarray(raw["m2"]) - st[..., 0] ** 2, 0.0)
+                / raw["spp"]}, seconds
+    rad, m2 = (np.asarray(raw[k], np.float64) for k in ("radiance", "m2"))
+    return {"brf": np.asarray(ds["brf"]), "radiance": np.asarray(ds["radiance"]),
+            "var": np.asarray(ds["var"]), "rows": rad,
+            "rows_var": np.maximum(m2 - rad * rad, 0.0) / raw["spp"]}, seconds
+
+
+def _cpu_rows_render(mode, make, stokes):
+    """:func:`_rows_render` on the CPU in ``mode`` (a :class:`CpuRenders`
+    job; ``make`` a module-level function)."""
+    import eradiate_tpu_torch as etp
+
+    etp.set_mode(mode)
+    return _rows_render(make, stokes, "cpu")
+
+
+def _rows_pair(make, stokes, cpu):
+    """The CUDA and CPU sides of a rows gate, the CPU one from ``cpu``
+    (:class:`CpuRenders`) where given, else rendered here after the CUDA
+    one: (outputs by device, seconds by device, the CUDA run's launches)."""
     import eradiate_tpu_torch as etp
 
     out, seconds = {}, {}
-    for dev in ("cuda", "cpu"):
-        exp = make(11)
-        reset_launches()
-        t0 = time.perf_counter()
-        ds = etp.run(exp, spp=256, seed_state=etp.SeedState(SEED), device=dev)
-        seconds[dev] = time.perf_counter() - t0
-        if dev == "cuda":
-            launches = read_launches()
-        raw = exp.measures[0].results["raw"]
-        rad, m2 = (np.asarray(raw[k], np.float64) for k in ("radiance", "m2"))
-        out[dev] = {"brf": np.asarray(ds["brf"]), "radiance": np.asarray(ds["radiance"]),
-                    "var": np.asarray(ds["var"]), "rows": rad,
-                    "rows_var": np.maximum(m2 - rad * rad, 0.0) / raw["spp"]}
+    reset_launches()
+    out["cuda"], seconds["cuda"] = _rows_render(make, stokes, "cuda")
+    launches = read_launches()
+    if cpu is None:
+        out["cpu"], seconds["cpu"] = _rows_render(make, stokes, "cpu")
+    else:
+        out["cpu"], seconds["cpu"] = cpu.get(_cpu_rows_render, etp.mode().id, make, stokes)
+    return out, seconds, launches
+
+
+def rows_cuda_vs_cpu(phase, label, make, rows, cpu=None):
+    """c1, c2 or c3 at 11 view zeniths and 256 spp, one seed, on CUDA and on
+    the CPU (from ``cpu``, :class:`CpuRenders`, where given): the BRF within
+    1e-4 relative and every pixel within |z| <= 5, and so each of the
+    ``rows`` raw spectral rows before the CKD aggregation. Returns the CUDA
+    run's launches."""
+    out, seconds, launches = _rows_pair(make, False, cpu)
     g, c = out["cuda"], out["cpu"]
     rel = float(np.max(np.abs(g["brf"] - c["brf"]) / np.abs(c["brf"])))
     z = _max_z(g["radiance"], c["radiance"], g["var"] + c["var"])
@@ -2790,29 +2981,16 @@ def polarized_c4_full_width(phase, scalar_brf, skip=64, window=48):
     return launches, k2_ms
 
 
-def polarized_rows_cuda_vs_cpu(phase):
+def polarized_rows_cuda_vs_cpu(phase, cpu=None):
     """c3 in ``ckd_polarized_single`` at 11 view zeniths and 256 spp a row,
-    one seed, on CUDA and on the CPU: each of the 56 raw rows' I within
-    1e-4 relative and every Stokes component within |z| <= 5 (the rows' I
-    variances), and so the aggregated I; K1's launches must equal the bounce
-    iterations summed over the rows, and no other kernel launches. Returns
-    the CUDA run's launches."""
-    import eradiate_tpu_torch as etp
-
-    out, seconds = {}, {}
-    for dev in ("cuda", "cpu"):
-        exp = _c3(11)
-        reset_launches()
-        t0 = time.perf_counter()
-        ds = etp.run(exp, spp=256, seed_state=etp.SeedState(SEED), device=dev)
-        seconds[dev] = time.perf_counter() - t0
-        raw = exp.measures[0].results["raw"]
-        if dev == "cuda":
-            launches, iterations = read_launches(), raw["iterations"]
-        st = np.asarray(raw["stokes"], np.float64)
-        out[dev] = {"I": np.asarray(ds["I"]), "rows": st,
-                    "var": np.maximum(np.asarray(raw["m2"]) - st[..., 0] ** 2, 0.0) / raw["spp"]}
+    one seed, on CUDA and on the CPU (from ``cpu`` where given): each of the
+    56 raw rows' I within 1e-4 relative and every Stokes component within
+    |z| <= 5 (the rows' I variances), and so the aggregated I; K1's launches
+    must equal the bounce iterations summed over the rows, and no other
+    kernel launches. Returns the CUDA run's launches."""
+    out, seconds, launches = _rows_pair(_c3, True, cpu)
     g, c = out["cuda"], out["cpu"]
+    iterations = g["iterations"]
     rel_rows = float(np.max(np.abs(g["rows"][..., 0] - c["rows"][..., 0]) / c["rows"][..., 0]))
     z = max(_max_z(g["rows"][..., k], c["rows"][..., k], g["var"] + c["var"]) for k in range(4))
     rel = float(np.max(np.abs(g["I"] - c["I"]) / np.abs(c["I"])))
@@ -3029,7 +3207,7 @@ def profiled_full_width(phase, label, make, mode, spp, n_vza, module, attr, key,
     brf = np.asarray(ds["brf"])
     samples = n_vza * spp * rows
     busy = dev_ms * iterations / (1e3 * wall)
-    middle = float(brf[0, n_vza // 2])
+    middle = float(brf[0, brf.shape[-1] // 2])
     print(f"[{phase}] {label} ({mode}) full width: {n_vza} VZA x {spp} spp x {rows} rows = "
           f"{samples} samples, wall {wall:.3f} s, {samples / wall:.4e} samples/s, {iterations} "
           f"iterations ({1e3 * wall / iterations:.3f} ms each), peak device memory "
@@ -3585,6 +3763,305 @@ def surface_phases(cpu, c1_single, c2_single):
             "run_device_ms": {label: run["run_device_ms"] for label, run in runs.items()}}
 
 
+def _lit_gate(gpu, cpu):
+    """(max rel, median rel, max |z|) of the radiance of two runs over the
+    pixels the CPU run lit, |z| against the two runs' variances, Q, U and V
+    (with Stokes output) joining the |z|; None where a pixel is dark in one
+    run and not in the other, or the CUDA run is not finite."""
+    rad_g, rad_c = gpu["radiance"], cpu["radiance"]
+    lit = rad_c != 0
+    if not (np.isfinite(rad_g).all() and np.array_equal(lit, rad_g != 0) and lit.any()):
+        return None
+    rel = np.abs(rad_g - rad_c)[lit] / np.abs(rad_c[lit])
+    var = (gpu["var"] + cpu["var"])[lit]
+    z = max(_max_z(gpu[c][lit], cpu[c][lit], var)
+            for c in (("radiance", "Q", "U", "V") if "Q" in cpu else ("radiance",)))
+    return float(rel.max()), float(np.median(rel)), z
+
+
+def case_cuda_vs_cpu(phase, label, case, size, cpu, mode="mono_single"):
+    """A scene of phases E-G (:func:`_sensor_case`) at :data:`GATE_SPP` on
+    CUDA against its CPU run from ``cpu`` (:class:`CpuRenders`): every lit
+    pixel's radiance (and radiosity, where the measure has it) within 1e-4
+    relative and |z| <= 5, dark pixels dark in both. Returns the CUDA run's
+    launches."""
+    import eradiate_tpu_torch as etp
+
+    etp.set_mode(mode)
+    reset_launches()
+    t0 = time.perf_counter()
+    ds = etp.run(_sensor_case(case, size), spp=GATE_SPP, seed_state=etp.SeedState(SEED),
+                 device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    gpu = {k: np.asarray(ds[k]) for k in ds.data_vars}
+    cpu_vars, cpu_s = cpu.get(_cpu_case_render, mode, case, size)
+    got = _lit_gate(gpu, cpu_vars)
+    r = 0.0
+    if "radiosity" in cpu_vars:
+        r = float(np.max(np.abs(gpu["radiosity"] / cpu_vars["radiosity"] - 1.0)))
+    print(f"[{phase}] {label} ({case}, {size}, {GATE_SPP} spp), CUDA vs CPU: "
+          + (f"max rel {got[0]:.3e}, median {got[1]:.3e} (bound 1e-4), max |z| {got[2]:.3e} "
+             f"(bound 5)" if got else "a pixel dark in one run only")
+          + (f", radiosity rel {r:.3e}" if "radiosity" in cpu_vars else "")
+          + f"; CUDA run {seconds:.1f} s, CPU run {cpu_s:.1f} s; variables {sorted(gpu)}; "
+          f"launches {', '.join(f'{k} {n}' for k, n in launches.items() if n)}", flush=True)
+    if (got is None or got[0] > 1e-4 or got[2] > 5.0 or r > 1e-4
+            or set(gpu) != set(cpu_vars)):
+        raise AssertionError(f"CUDA and CPU runs of the port disagree on {label}")
+    return launches
+
+
+def timed_full_width(phase, label, exp, spp, n_pix, mode="mono_single"):
+    """One timed run of a plane-parallel scene at ``spp`` on ``n_pix``
+    pixels (raw pixels: a filtered camera's sub-pixel rays): K1's launches
+    must equal the bounce iterations and no other kernel launch. Prints the
+    wall, samples/s, iterations, ms an iteration and the worst pixel's
+    relative standard error (the dataset's ``var``: the iid estimate of
+    the variance of the mean). Returns a dict of them and the dataset."""
+    import torch
+
+    import eradiate_tpu_torch as etp
+
+    etp.set_mode(mode)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ds = etp.run(exp, spp=spp, seed_state=etp.SeedState(SEED), device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    raw = exp.measures[0].results["raw"]
+    iterations, traced = raw["iterations"], raw["spp"]
+    rad, var = np.asarray(ds["radiance"]), np.asarray(ds["var"])
+    rse = float(np.max(np.sqrt(var) / np.abs(rad)))
+    samples = n_pix * traced
+    print(f"[{phase}] {label} full width: {n_pix} pixels x {traced} spp = {samples} samples, "
+          f"wall {wall:.3f} s, {samples / wall:.4e} samples/s, {iterations} iterations "
+          f"({1e3 * wall / iterations:.3f} ms each); worst pixel's relative standard error "
+          f"{rse:.4e}; radiance mean {rad.mean():.6e}; launches "
+          f"{', '.join(f'{k} {n}' for k, n in launches.items() if n)}", flush=True)
+    if not (launches["collision_fetch"] > 0 and launches["collision_fetch"] == iterations):
+        raise AssertionError(f"{label} did not run through K1 once per bounce")
+    if any(n for k, n in launches.items() if k != "collision_fetch"):
+        raise AssertionError(f"{label} launched a kernel of another path")
+    if not np.isfinite(rad).all() or raw["radiance"].shape[-1] != n_pix:
+        raise AssertionError(f"{label}: radiance not finite or of the wrong shape")
+    return {"wall_s": wall, "samples_per_s": samples / wall, "iterations": iterations,
+            "launches": launches["collision_fetch"], "worst_rse": rse, "spp": traced}, ds
+
+
+def spot_c5_runs(phase, cpu):
+    """Phase H: the c5 scene as ``bench.py`` builds it (instanced HET01)
+    under :func:`_spot`, seen by the 128 x 128 box camera :data:`H_CAMERA`:
+    a warm-up and a timed run at :data:`H_SPP` in ``mono_single`` (K7's
+    nearest and any-hit launches equal to the iterations, no other kernel;
+    the operands of both sweeps' ``CAPTURE_AT``-th launch kept), then K7
+    nearest and any hit against their plain versions on those rays, the
+    shadow rays (each ending at the spot) timed with their bound; the same
+    with Stokes output in ``mono_polarized_single`` at
+    :data:`H_SPP_POLARIZED`; and both against their CPU runs (8 x 8, 64
+    spp) by the canopy gate. Returns (launches by run, the any-hit sweep's
+    times and bound on the shadow rays, its max error)."""
+    import torch
+
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.ops import canopy as canopy_ops
+    from eradiate_tpu_torch.ops import tracer_canopy
+    from eradiate_tpu_torch.ops.canopy import InstancedLeafArrays, LeafCloudArrays
+
+    out = {}
+    captured = {}
+    names = ("ray_leaves_nearest_instanced", "ray_leaves_occluded_instanced")
+    saved = {n: getattr(canopy_ops, n) for n in names}
+    saved["leaf_occluded"] = tracer_canopy.leaf_occluded
+
+    def capture(name):
+        calls = [0]
+
+        def call(*args):
+            calls[0] += 1
+            if calls[0] == CAPTURE_AT:
+                captured[name] = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+            return saved[name](*args)
+        return call
+
+    def set_all(fns):
+        setattr(tracer_canopy, "leaf_occluded", fns["leaf_occluded"])
+        for n in names:
+            setattr(canopy_ops, n, fns[n])
+
+    for stokes, mode, spp in ((False, "mono_single", H_SPP),
+                              (True, POLARIZED_MODE, H_SPP_POLARIZED)):
+        etp.set_mode(mode)
+        exp = _c5("instanced", stokes=stokes, variant="spot")
+        etp.run(exp, spp=4, seed_state=etp.SeedState(0), device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        if not stokes:
+            set_all({n: capture(n) for n in saved})
+        try:
+            t0 = time.perf_counter()
+            ds = etp.run(exp, spp=spp, seed_state=etp.SeedState(SEED), device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            set_all(saved)
+        launches = read_launches()
+        iterations = exp.measures[0].results["raw"]["iterations"]
+        rad = np.asarray(ds["radiance"])
+        samples = rad.shape[-1] * spp
+        label = f"{'polarized ' if stokes else ''}c5 scene under the spot ({mode})"
+        print(f"[{phase}] {label}, 128 x 128 box camera: {samples} samples, wall {wall:.3f} s, "
+              f"{samples / wall:.4e} samples/s, {iterations} iterations "
+              f"({1e3 * wall / iterations:.3f} ms each), peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; lit pixels "
+              f"{float((rad > 0).mean()):.3f}, radiance mean {rad.mean():.6e}; launches "
+              f"{', '.join(f'{k} {n}' for k, n in launches.items() if n)}", flush=True)
+        mine = C5_KERNELS["instanced"]
+        if not all(launches[k] > 0 and launches[k] == iterations for k in mine):
+            raise AssertionError(f"{label} did not launch {mine} once per bounce")
+        if any(n for k, n in launches.items() if k not in mine):
+            raise AssertionError(f"{label} launched a kernel of another path")
+        if not (np.isfinite(rad).all() and (rad > 0).mean() > 0.2):
+            raise AssertionError(f"{label}: radiance not finite or mostly dark")
+        out["c5_spot_polarized" if stokes else "c5_spot"] = launches
+
+    # K7 on the run's own rays: the camera and path rays of the nearest
+    # sweep, the shadow rays (ending at the spot) of the any-hit sweep
+    near, occ = captured[names[0]], captured[names[1]]
+    leaves = InstancedLeafArrays(canonical=LeafCloudArrays(*occ[3:6]), offsets=occ[6])
+    errs, _, _, _ = check_sweep_kernels(
+        f"[{phase}] K7 on the spot run's path rays (launch {CAPTURE_AT})", leaves, near[7],
+        tuple(near[:3]), seed=70, plain_lanes=H_PLAIN_LANES)
+    errs_s, times, bounds, _ = check_sweep_kernels(
+        f"[{phase}] K7 on the spot run's shadow rays (launch {CAPTURE_AT}, each ending at the "
+        "spot)", leaves, occ[7], tuple(occ[:3]), seed=71, timed=True, plain_lanes=H_PLAIN_LANES)
+    # the shadow rays' lengths, before and after the box advance: the spot
+    # stands above the canopy's box, so the box's exit caps most of them;
+    # the same vertices toward a point inside a crown (its instance's centre,
+    # 10 m up) are cut by their t_max inside the box
+    pos, w, t_max = captured["leaf_occluded"][:3]
+    _, lo, hi = captured["leaf_occluded"][4]
+    far = torch.full_like(t_max, 1e6)
+    _, _, cap = canopy_ops._advance_to_aabb(pos, w, t_max, lo, hi)
+    _, _, cap_far = canopy_ops._advance_to_aabb(pos, w, far, lo, hi)
+    crown = occ[6][0] + torch.tensor([0.0, 0.0, 0.010], dtype=pos.dtype, device=pos.device)
+    v = crown - pos
+    r = torch.linalg.vector_norm(v, dim=-1)
+    d_in = (v / r[:, None]).contiguous()
+    p_in, _, cap_in = canopy_ops._advance_to_aabb(pos, d_in, r, lo, hi)
+    _, _, cap_in_far = canopy_ops._advance_to_aabb(pos, d_in, far, lo, hi)
+    print(f"    the any-hit launch's shadow rays: t_max {float(t_max.min()):.4e} to "
+          f"{float(t_max.max()):.4e} km (the sun's 1e6), cut inside the box on "
+          f"{float((cap < cap_far).double().mean()):.4f} of the lanes; toward the crown "
+          f"centre on {float((cap_in < cap_in_far).double().mean()):.4f}", flush=True)
+    errs_in, _, _, _ = check_sweep_kernels(
+        f"[{phase}] K7 on the spot run's vertices toward a crown centre (t_max cut in the box)",
+        leaves, occ[7], (p_in.contiguous(), d_in, cap_in.contiguous()), seed=72,
+        plain_lanes=H_PLAIN_LANES)
+    err = max(*errs.values(), *errs_s.values(), *errs_in.values())
+
+    for stokes, mode in ((False, "mono_single"), (True, POLARIZED_MODE)):
+        etp.set_mode(mode)
+        out[f"c5_spot{'_polarized' if stokes else ''}_{GATE_SPP}spp"] = c5_cuda_vs_cpu(
+            "instanced", phase, cpu, stokes=stokes, variant="spot_gate")
+    etp.set_mode("mono_single")
+    return out, times["ray_leaves_occluded_instanced"], bounds["ray_leaves_occluded_instanced"], err
+
+
+def submit_sensor_gates(cpu):
+    """Queue the CPU sides of phases E-H on ``cpu`` (:class:`CpuRenders`):
+    E-G's plane-parallel scenes (a second each), then H's canopy under the
+    spot (minutes each)."""
+    for case, size in (("perspective", GATE_FILM), ("distant_flux", GATE_FILM),
+                       ("mpdistant", GATE_FILM), ("constant", GATE_VZA),
+                       ("stratified", GATE_VZA), ("ldsampler", GATE_VZA)):
+        cpu.submit(_cpu_case_render, "mono_single", case, size)
+    for mode, stokes in (("mono_single", False), (POLARIZED_MODE, True)):
+        cpu.submit(_cpu_c5_render, mode, "instanced", WOOD_BRANCHES, stokes, "spot_gate")
+
+
+def sensor_phases(cpu):
+    """Phases E-H, the sensors, emitters and samplers of the reference's
+    experiments: E c1's column seen by a perspective camera (Gaussian
+    filter, 128 x 128 oversampled twice) at full width, profiled; F three
+    runs on c1's column (``distant_flux`` 32 x 32 with its radiosity,
+    ``mpdistant`` 64 x 64 over a 10 km rectangle on the reference test's
+    ``selectbsdf`` floor, the constant sky at c1's width); G c1 with the
+    ``stratified`` and ``ldsampler`` samplers (the one-shot loop's chunks)
+    beside the ``independent`` one at :data:`G_SPP`, K1 a launch inside the
+    stratified run; H the c5 scene under a spot (:func:`spot_c5_runs`).
+    Each against its CPU run from ``cpu`` (:class:`CpuRenders`). Returns
+    each kernel's launches on these paths and the phases' extra numbers."""
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.ops import tracer as pp_tracer
+
+    t0 = time.perf_counter()
+    runs, small = {}, {}
+    runs["perspective"] = profiled_full_width(
+        "E", f"c1's column seen by a {E_FILM} x {E_FILM} perspective camera (Gaussian filter, "
+        "oversampled twice)", lambda n: _sensor_case("perspective", E_FILM), "mono_single",
+        E_SPP, (2 * E_FILM) ** 2, pp_tracer, "collision_fetch", "collision_fetch", 4, 16)
+    small["perspective"] = case_cuda_vs_cpu("E", "c1's column, camera", "perspective",
+                                            GATE_FILM, cpu)
+    t_e = time.perf_counter() - t0
+
+    f_runs = {}
+    for case, film, spp, n_pix in (("distant_flux", F_FLUX_FILM, F_FLUX_SPP, F_FLUX_FILM ** 2),
+                                   ("mpdistant", F_MPD_FILM, F_MPD_SPP, F_MPD_FILM ** 2),
+                                   ("constant", N_VZA, F_SKY_SPP, N_VZA)):
+        f_runs[case], ds = timed_full_width("F", f"c1's column, {case}",
+                                            _sensor_case(case, film), spp, n_pix)
+        if case == "distant_flux":
+            print(f"    radiosity {float(np.asarray(ds['radiosity']).ravel()[0]):.6e}, albedo "
+                  f"{float(np.asarray(ds['albedo']).ravel()[0]):.6f}", flush=True)
+        small[case] = case_cuda_vs_cpu(
+            "F", "c1's column", case, GATE_VZA if case == "constant" else GATE_FILM, cpu)
+    t_f = time.perf_counter() - t0 - t_e
+
+    g_runs = {}
+    for case in SAMPLER_CASES:
+        g_runs[case], _ = timed_full_width("G", f"c1, {case} sampler", _sensor_case(case, N_VZA),
+                                           G_SPP, N_VZA)
+    for case in SAMPLER_CASES[1:]:
+        r, base = g_runs[case], g_runs["independent"]
+        print(f"[G] {case} against independent in this run: samples/s "
+              f"{r['samples_per_s']:.4e} against {base['samples_per_s']:.4e} "
+              f"({r['samples_per_s'] / base['samples_per_s']:.3f}x), worst pixel's relative "
+              f"standard error {r['worst_rse']:.4e} against {base['worst_rse']:.4e}, traced "
+              f"spp {r['spp']} against {base['spp']}", flush=True)
+        small[case] = case_cuda_vs_cpu("G", "c1", case, GATE_VZA, cpu)
+    n_rec, g_k1_ms = fetch_device_ms_in_run(
+        lambda: etp.run(_sensor_case("stratified", N_VZA), spp=G_SPP,
+                        seed_state=etp.SeedState(SEED), device="cuda"), skip=8, window=48)
+    print(f"[G] collision_fetch {g_k1_ms:.4f} ms of device time a launch inside the stratified "
+          f"run ({n_rec} profiler records, {2**21 // N_VZA * N_VZA} lanes a chunk)", flush=True)
+    t_g = time.perf_counter() - t0 - t_e - t_f
+
+    spot, shadow_times, shadow_bound, shadow_err = spot_c5_runs("H", cpu)
+    t_h = time.perf_counter() - t0 - t_e - t_f - t_g
+
+    launches = {k: {} for k in KERNELS}
+    launches["collision_fetch"]["perspective"] = runs["perspective"]["launches"]
+    for case, r in {**f_runs, **{f"sampler_{k}": v for k, v in g_runs.items()}}.items():
+        launches["collision_fetch"][case] = r["launches"]
+    for label, counts in {**{f"{k}_{GATE_SPP}spp": v for k, v in small.items()},
+                          **spot}.items():
+        for k, n in counts.items():
+            if n:
+                launches[k][label] = n
+    print(f"[H] phases E-H took {t_e + t_f + t_g + t_h:.1f} s: E {t_e:.1f} s, F {t_f:.1f} s, "
+          f"G {t_g:.1f} s, H {t_h:.1f} s", flush=True)
+    return {"launches": launches,
+            "collision_fetch": {"perspective_run_device_ms": runs["perspective"]["run_device_ms"],
+                                "one_shot_run_device_ms": g_k1_ms},
+            "ray_leaves_occluded_instanced": {
+                "spot_shadow_rays": {**shadow_times, "bound_ms": shadow_bound[0],
+                                     "bound_by": shadow_bound[1], "max_abs_err": shadow_err}}}
+
+
 def main():
     import torch
 
@@ -3620,8 +4097,9 @@ def main():
           f"{lib._name}", flush=True)
     report = Path(lib._name).with_suffix(".log").read_text().strip()
     print("    " + report.replace("\n", "\n    "), flush=True)
-    # the CPU sides of the canopy gates, in the order the phases need them
-    cpu = CpuRenders()
+    # the CPU sides of the canopy gates, in the order the phases need them,
+    # two at a time so that phase 22 does not wait for phase 12's and 17's
+    cpu = CpuRenders(workers=2)
     for mode, form, branches, stokes in (
         ("mono_single", "instanced", WOOD_BRANCHES, False),  # 12
         ("mono_single", "flat", WOOD_BRANCHES, False),
@@ -3637,11 +4115,17 @@ def main():
         ("mono_double", "wood", 12, False),
         ("mono_polarized_double", "trees", WOOD_BRANCHES, True),
     ):
-        cpu.submit(mode, form, branches, stokes)
+        cpu.submit(_cpu_c5_render, mode, form, branches, stokes, None)
     for mode, stokes, variant in (("mono_single", False, "checkerboard"),  # D
                                   ("mono_single", False, "central_patch"),
                                   (POLARIZED_MODE, True, "aerosol")):
-        cpu.submit(mode, "instanced", WOOD_BRANCHES, stokes, variant)
+        cpu.submit(_cpu_c5_render, mode, "instanced", WOOD_BRANCHES, stokes, variant)
+    # c3's (phases 25 and 31) and phases E-H's CPU sides, in a process of
+    # their own: the first pool's queue takes most of the script's time
+    cpu_bg = CpuRenders()
+    cpu_bg.submit(_cpu_rows_render, "ckd_single", _c3, False)
+    cpu_bg.submit(_cpu_rows_render, "ckd_polarized_single", _c3, True)
+    submit_sensor_gates(cpu_bg)
 
     # -- 3. kernel against twin ---------------------------------------------
     print("[3] collision_fetch kernel against its plain twin", flush=True)
@@ -4010,7 +4494,7 @@ def main():
     etp.set_mode("mono_single")
     c2_small = rows_cuda_vs_cpu(25, "c2", _c2, 1)
     etp.set_mode("ckd_single")
-    c3_small = rows_cuda_vs_cpu(25, "c3 (ckd_single)", _c3, ROWS_C3)
+    c3_small = rows_cuda_vs_cpu(25, "c3 (ckd_single)", _c3, ROWS_C3, cpu_bg)
     etp.set_mode("mono_single")
     c2_launches, c2_run_ms, c2_iterations, _, _, _, c2_stats = rows_full_width(
         26, "c2", _c2(N_VZA), SPP_C2, N_VZA, 64, 48)
@@ -4028,7 +4512,7 @@ def main():
     pol_c2_launches, pol_c2_k1_ms = polarized_c1_full_width(
         30, "polarized c2", _c2(N_VZA), SPP_C2, skip=64)
     etp.set_mode("ckd_polarized_single")
-    pol_c3_small = polarized_rows_cuda_vs_cpu(31)
+    pol_c3_small = polarized_rows_cuda_vs_cpu(31, cpu_bg)
     etp.set_mode("mono_single")
 
     double = double_phases(fetch_times, B4, sun_85, c3_wall)
@@ -4041,6 +4525,9 @@ def main():
     # -- A-D. every surface kind of the reference, the aerosol over c4 and
     # the canopy
     surfaces = surface_phases(cpu, double["runs"]["c1", "mono_single"], c2_stats)
+    # -- E-H. cameras, mpdistant, the constant sky, the structured samplers
+    # and the spot over the canopy
+    sensors = sensor_phases(cpu_bg)
     # -- 32-37. the double modes through the float64 builds of K1-K4 -----------
     runs, path_b64, pol_c1_double = double["runs"], double["path_b"], double["pol_c1"]
     err64, fetch64_times, fetch64_bound = double["fetch"]
@@ -4105,7 +4592,11 @@ def main():
         and K7 their device time a launch inside the polarized full-width
         runs by path (``polarized_run_ms``), and its launches on the surface
         phases A-D (``surface_launches``: A and B by their full-width runs,
-        C and D by their small CUDA runs). K1 also carries its device time a
+        C and D by their small CUDA runs) and on phases E-H
+        (``sensor_launches``: E-G's full-width runs and their CPU gates' CUDA
+        runs, H's runs); K1 its device time a launch inside E's camera run and
+        G's one-shot run, K7's any hit its times and bound on H's shadow rays
+        (``spot_shadow_rays``). K1 also carries its device time a
         launch inside A and B (``surface_run_device_ms``), its times and bound on
         c2's column (``c2_column``) and its launches and device time a
         launch inside the c2 and c3 full-width runs (``c2_launches``,
@@ -4115,7 +4606,8 @@ def main():
                "launches": n, "max_abs_err": err, **times,
                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
                "polarized_launches": polarized[name],
-               "surface_launches": surfaces["launches"][name]}
+               "surface_launches": surfaces["launches"][name],
+               "sensor_launches": sensors["launches"][name], **sensors.get(name, {})}
         if name == "collision_fetch":
             out.update(surface_run_device_ms=surfaces["run_device_ms"])
         if name in polarized_run_ms:

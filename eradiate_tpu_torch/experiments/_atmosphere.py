@@ -5,7 +5,9 @@ and converters, the mono and CKD spectral contexts (CKD: one spectral row
 for each (bin, g-point) pair of the quadrature), and ``compile_scene`` for
 plane-parallel geometry (with the optional error-bounded layer merge) and
 spherical-shell geometry (with the error-bounded shell merge and the sun
-slant-tau table), directional illumination and distant measures. Host
+slant-tau table), directional, spot and constant illumination, and every
+measure: distant banks, cameras (rays from the camera's origin) and
+``mpdistant`` (a target subcell a pixel). Host
 arithmetic stays numpy float64 up to a single cast to the mode's dtype
 (float32 in a single mode, float64 in a double one), as the reference casts
 to ``mode().device_dtype``; the sun-tau table is built only in float32, from
@@ -309,31 +311,44 @@ class AtmosphereExperiment(EarthObservationExperiment):
             sparams = {}
 
         # Illumination
-        if isinstance(self.illumination, (SpotIllumination, ConstantIllumination)):
-            raise NotImplementedError(
-                f"{type(self.illumination).__name__} is not ported yet"
+        illumination_kind = "directional"
+        if isinstance(self.illumination, SpotIllumination):
+            illumination_kind = "spot"
+            illum = IlluminationArrays(
+                direction=_cast(self.illumination.direction),
+                irradiance=_cast(self.illumination.eval_intensity(w)),
+                cos_cutoff=_cast(self.illumination.cos_cutoff),
+                sky_radiance=_cast(np.zeros(S)),
+                position=_cast(self.illumination.origin),
             )
-        illum = IlluminationArrays(
-            direction=_cast(self.illumination.direction),
-            irradiance=_cast(self.illumination.eval_irradiance(w)),
-            cos_cutoff=_cast(self.illumination.cos_cutoff),
-            sky_radiance=_cast(np.zeros(S)),
-        )
+        elif isinstance(self.illumination, ConstantIllumination):
+            illum = IlluminationArrays(
+                direction=_cast(np.array([0.0, 0.0, -1.0])),
+                irradiance=_cast(np.zeros(S)),
+                cos_cutoff=_cast(1.0),
+                sky_radiance=_cast(self.illumination.radiance.eval(w)),
+            )
+        else:
+            illum = IlluminationArrays(
+                direction=_cast(self.illumination.direction),
+                irradiance=_cast(self.illumination.eval_irradiance(w)),
+                cos_cutoff=_cast(self.illumination.cos_cutoff),
+                sky_radiance=_cast(np.zeros(S)),
+            )
         scene = SceneArrays(medium, SurfaceArrays(params=sparams), illum)
 
         # Sensor
-        if getattr(measure, "ray_anchor", None) is not None:
-            raise NotImplementedError(
-                f"measure {type(measure).__name__} (ray anchor) is not ported yet"
-            )
+        anchor = getattr(measure, "ray_anchor", None)
         pixel_targets = getattr(measure, "pixel_targets", None)
-        if callable(pixel_targets) and pixel_targets() is not None:
-            raise NotImplementedError(
-                f"measure {type(measure).__name__} (per-pixel targets) is not "
-                "ported yet"
-            )
+        per_pixel = pixel_targets() if callable(pixel_targets) else None
         extent = None
-        if isinstance(measure.target, TargetPoint):
+        if anchor is not None:
+            # a camera: rays start at its origin
+            target = np.asarray(anchor, dtype=np.float64)
+        elif per_pixel is not None:
+            # mpdistant: one target subcell a film pixel
+            target, extent = per_pixel
+        elif isinstance(measure.target, TargetPoint):
             target = measure.target.xyz
         elif isinstance(measure.target, TargetRectangle):
             r = measure.target
@@ -361,6 +376,6 @@ class AtmosphereExperiment(EarthObservationExperiment):
             toa_altitude=self.geometry.toa_altitude,
             has_surface=self.surface is not None,
             sampler=measure.sampler,
-            illumination_kind="directional",
+            illumination_kind=illumination_kind,
         )
         return scene, sensor, config

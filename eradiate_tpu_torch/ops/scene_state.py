@@ -101,7 +101,9 @@ class SurfaceArrays:
 
 @dataclasses.dataclass
 class IlluminationArrays:
-    """Directional illumination; ``direction`` points down into the scene."""
+    """The emitter: ``direction`` points down into the scene (a spot's beam
+    axis); ``irradiance`` is a spot's intensity; ``sky_radiance`` a constant
+    sky's radiance; ``position`` a spot's origin (None otherwise)."""
 
     direction: Any  # [3]
     irradiance: Any  # [S]

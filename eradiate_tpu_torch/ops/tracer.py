@@ -1,22 +1,29 @@
-"""Regenerative wavefront path tracer, plane-parallel geometry.
+"""Wavefront path tracer, plane-parallel geometry.
 
-Port of ``eradiate_tpu/ops/tracer.py`` for the ``independent`` sampler:
-exact free-flight sampling by inverting the cumulative vertical optical
-depth (one collision fetch per bounce), next-event estimation toward the
-directional emitter, Russian roulette, and path regeneration so that a lane
-starts its next sample the moment one ends.
+Port of ``eradiate_tpu/ops/tracer.py``: exact free-flight sampling by
+inverting the cumulative vertical optical depth (one collision fetch per
+bounce), next-event estimation toward the directional emitter, a uniform sky
+collected by escaping paths, and Russian roulette. The ``independent``
+sampler renders through the regenerative loop (:func:`trace_paths_regen`: a
+lane starts its next sample the moment one ends); the structured samplers
+(:mod:`.samplers`) through the one-shot loop (:func:`trace_paths`: one sample
+a lane, a loop over depth), whose first flight draws the sampler's point set
+and whose other dimensions draw Owen-scrambled points, in chunks of the
+reference's size.
 
 The reference's ``while_loop`` is an eager Python loop here. Every update in
-the loop body is gated by ``active``, ``path_end`` or ``regen``, so a lane
-whose quota is done is left unchanged by further iterations; the loop
-therefore reads ``done`` on the host only every ``check_every`` iterations
-(one device sync each) without changing the result.
+the loop body is gated by ``active``, ``path_end`` or ``regen`` (one-shot:
+``alive``), so a lane whose quota is done is left unchanged by further
+iterations; the loop therefore reads ``done`` on the host only every
+``check_every`` iterations (one device sync each) without changing the
+result.
 
 Random numbers follow the reference bit for bit: threefry row and chunk keys
-on the host (:mod:`..core.threefry`), pcg4d per-sample keys and per-bounce
-uniforms on the device (:mod:`.fastrng`). Each sample's stream depends only
-on (seed, spectral row, pixel, global sample id, depth), so the estimate
-does not depend on the lane count.
+on the host (:mod:`..core.threefry`), pcg4d (or, with ``config.rng``
+``"threefry"``, threefry) per-sample keys and per-bounce uniforms on the
+device (:mod:`.fastrng`). Each sample's stream depends only on (seed,
+spectral row, pixel, global sample id, depth), so the estimate does not
+depend on the lane count.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..core import threefry
+from ..core.threefry import bits_t, fold_in_t, uniform_t
 from ..core.device import resolve_device
 from ..core.warp import square_to_uniform_cone
 from ..kernels.leaf_intersect import fma
@@ -31,6 +39,7 @@ from .bsdf_ops import bsdf_eval, bsdf_sample_from_uniforms, check_kind, uses_pos
 from .fastmath import depth_sample, uniform_cone_xla
 from .fastrng import bounce_uniforms, derive_keys, origin_uniforms
 from .medium import clamp_mu, collision_fetch, tau_at_z
+from .samplers import padded_bounce_uniforms, primary_samples
 from .phase_ops import (
     check_phase_kinds,
     layer_param_slots,
@@ -46,8 +55,9 @@ from .scene_state import (
     from_reference,
 )
 
-__all__ = ["render", "trace_paths_regen", "lane_partition", "row_arrays", "row_key",
-           "chunk_plan", "MAX_PATHS_PER_DISPATCH", "CANOPY_PATHS_PER_DISPATCH"]
+__all__ = ["render", "trace_paths", "trace_paths_regen", "lane_partition", "row_arrays",
+           "row_key", "chunk_plan", "one_shot_chunks", "MAX_PATHS_PER_DISPATCH",
+           "CANOPY_PATHS_PER_DISPATCH"]
 
 #: Lane-count target per device type. CPU keeps the reference's 2^14 so that
 #: CPU runs decompose like the reference's. On CUDA the eager loop costs
@@ -66,9 +76,12 @@ CHECK_EVERY = 16
 
 def _make_bounce(config, medium_row, surface_row, illum_row):
     """Per-bounce transition shared by every lane: returns
-    ``bounce(depth, z, tau_here, xy, d, beta, keys)`` ->
-    ``(contribution, z', tau', xy', d', beta', alive')``; updates are
-    unconditional (the caller masks finished lanes)."""
+    ``bounce(depth, z, tau_here, xy, d, beta, keys, u0_dist=None, ld=None)``
+    -> ``(contribution, z', tau', xy', d', beta', alive')``; updates are
+    unconditional (the caller masks finished lanes). ``u0_dist`` [B]
+    replaces the distance uniform of the first flight (a structured
+    sampler's primary dimension); ``ld = (slot, pix_seed)`` draws every
+    dimension from Owen-scrambled points (:func:`.samplers.padded_bounce_uniforms`)."""
     z_levels = medium_row.z_levels
     tau_levels = medium_row.tau_levels
     tau_top = tau_levels[-1]
@@ -96,8 +109,11 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
         + param_tables
     ).contiguous()
 
-    def bounce(depth, z, tau_here, xy, d, beta, keys):
-        U = bounce_uniforms(keys, depth, 10)
+    def bounce(depth, z, tau_here, xy, d, beta, keys, u0_dist=None, ld=None):
+        if ld is not None:
+            U = padded_bounce_uniforms(ld[0], ld[1], depth)
+        else:
+            U = bounce_uniforms(keys, depth, 10, config.rng)
         u_dist = U[:, 0]
         u_sun = U[:, 1:3]
         u_ph_sel, u_ph_cos, u_ph_phi = U[:, 3], U[:, 4:6], U[:, 6]
@@ -115,6 +131,8 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
 
         mu = clamp_mu(d[:, 2])
         tau_exit = torch.where(mu > 0.0, (tau_top - tau_here) / mu, tau_here / (-mu))
+        if u0_dist is not None:
+            u_dist = torch.where(depth == 0, u0_dist, u_dist)
         tau_s = depth_sample(u_dist, exact)
         collide = tau_s < tau_exit
 
@@ -197,11 +215,12 @@ def trace_paths_regen(
     def origin_xy(keys):
         if ext is None:
             return init_xy
-        return init_xy + (origin_uniforms(keys, 2) - 0.5) * ext
+        u = origin_uniforms(keys, 2, config.rng, init_xy.dtype)
+        return init_xy + (u - 0.5) * ext
 
     s_local = torch.zeros(B, dtype=torch.int64, device=dev)
     depth = torch.zeros(B, dtype=torch.int64, device=dev)
-    keys = derive_keys(row_key, lane_first)
+    keys = derive_keys(row_key, lane_first, config.rng)
     z, tau_here, xy, d = init_z, tau0, origin_xy(keys), init_d
     beta = torch.ones_like(init_z)
     L_cur = torch.zeros_like(init_z)
@@ -227,7 +246,7 @@ def trace_paths_regen(
 
         # regenerate: fresh path for the lane's next sample
         regen = path_end & ~done
-        keys_new = derive_keys(row_key, lane_first + s_local)
+        keys_new = derive_keys(row_key, lane_first + s_local, config.rng)
         keys = torch.where(regen[:, None], keys_new, keys)
         z = torch.where(regen, init_z, z2)
         tau_here = torch.where(regen, tau0, tau2)
@@ -240,6 +259,39 @@ def trace_paths_regen(
         iterations += 1
         if iterations % check_every == 0 and bool(done.all()):
             return L_sum, m2_sum, iterations
+
+
+def trace_paths(
+    config, medium_row, surface_row, illum_row, init_z, init_xy, init_d, keys,
+    u0_dist=None, ld=None, check_every=CHECK_EVERY,
+):
+    """One-shot trace, one sample a lane: the loop runs over depth until no
+    path is alive or ``config.max_depth``. ``u0_dist`` [B] and ``ld`` as in
+    :func:`_make_bounce`. Returns ``(L [B], iterations)``: each lane's
+    sample contribution and the number of bounce iterations run."""
+    if check_every < 1:
+        raise ValueError(f"check_every must be >= 1, got {check_every}")
+    B = init_z.shape[0]
+    bounce = _make_bounce(config, medium_row, surface_row, illum_row)
+    z, xy, d = init_z, init_xy, init_d
+    tau_here = tau_at_z(init_z, medium_row.z_levels, medium_row.tau_levels)
+    beta = torch.ones_like(init_z)
+    L = torch.zeros_like(init_z)
+    alive = torch.ones(B, dtype=torch.bool, device=init_z.device)
+    depth = torch.zeros(B, dtype=torch.int64, device=init_z.device)
+    iterations = 0
+    while iterations < config.max_depth:
+        contribution, z, tau_here, xy, d, beta, alive2 = bounce(
+            depth, z, tau_here, xy, d, beta, keys, u0_dist, ld
+        )
+        L = L + torch.where(alive, contribution, 0.0)
+        alive = alive & alive2
+        depth = depth + 1
+        iterations += 1
+        # a dead lane adds nothing more, so the host reads the flag rarely
+        if iterations % check_every == 0 and not bool(alive.any()):
+            break
+    return L, iterations
 
 
 def _lane_plan(n_pix, spp, lanes_target):
@@ -280,10 +332,15 @@ def advance_xy(xy, d, s, fused):
 
 
 def _ray_anchors(medium_row, pix, directions, target, ray_offset, target_extent,
-                 fused=False):
+                 fused=False, jitter_key=None):
     """Per-lane ray anchors (init_z, init_xy, init_d, ext): rays start at
-    TOA on the line through the target, or ``ray_offset`` along it;
-    ``fused`` as :func:`advance_xy`."""
+    TOA on the line through the target (``[3]``, or ``[N, 3]`` a target a
+    pixel), or ``ray_offset`` along it (a camera's origin: 0); ``fused`` as
+    :func:`advance_xy`. ``ext`` [B, 2] is the rectangle over which the
+    regenerative loop jitters each sample's origin (``target_extent`` [2] or
+    [N, 2]). With ``jitter_key`` (the one-shot loop) the target itself is
+    jittered once a lane, from ``uniform(fold_in(key, 0x7A19), (B, 2))``,
+    and ``ext`` is None."""
     z_top = medium_row.z_levels[-1]
     w_v = directions[pix]
     B = pix.shape[0]
@@ -291,6 +348,10 @@ def _ray_anchors(medium_row, pix, directions, target, ray_offset, target_extent,
     ext = None
     if target_extent is not None:
         ext = target_extent[pix] if target_extent.ndim == 2 else target_extent.expand(B, 2)
+    if jitter_key is not None and ext is not None:
+        u = uniform_t(fold_in_t(jitter_key, 0x7A19), (B, 2), tgt.dtype)
+        tgt = tgt + torch.cat([(u - 0.5) * ext, tgt.new_zeros(B, 1)], dim=-1)
+        ext = None
     t_start = torch.where(
         torch.isnan(ray_offset), (z_top - tgt[:, 2]) / clamp_mu(w_v[:, 2]), ray_offset
     )
@@ -321,22 +382,61 @@ def _render_row_regen(
     return radiance, m2, iterations
 
 
+def _render_row(
+    config, n_pix, spp, medium_row, surface_row, illum_row, directions, key,
+    target, ray_offset, target_extent, check_every,
+):
+    """One spectral row with the one-shot loop (a structured sampler):
+    ``n_pix * spp`` lanes, one sample each. Each pixel's primary point set
+    comes from the key ``fold_in(fold_in(key, 0x5A17), pixel)``, its
+    scramble base from ``bits(fold_in(key, 0x0E11), (n_pix,))``. Returns
+    (radiance [N], m2 [N], iterations)."""
+    dev = directions.device
+    B = n_pix * spp
+    pix = torch.arange(n_pix, device=dev).repeat_interleave(spp)
+    slot = torch.arange(spp, device=dev).repeat(n_pix)
+    init_z, init_xy, init_d, _ = _ray_anchors(
+        medium_row, pix, directions, target, ray_offset, target_extent,
+        uses_position(config.surface_kind), jitter_key=key,
+    )
+    keys = derive_keys(key, pix * spp + slot, config.rng)
+    u0 = ld = None
+    if config.sampler != "independent":
+        pix_keys = fold_in_t(fold_in_t(key, 0x5A17).expand(n_pix, 2),
+                             torch.arange(n_pix, device=dev))
+        u0 = primary_samples(config.sampler, spp, pix_keys).reshape(B).to(init_z.dtype)
+        ld = (slot, bits_t(fold_in_t(key, 0x0E11), (n_pix,))[pix])
+    L, iterations = trace_paths(
+        config, medium_row, surface_row, illum_row, init_z, init_xy, init_d, keys,
+        u0_dist=u0, ld=ld, check_every=check_every,
+    )
+    L = L.reshape(n_pix, spp)
+    return L.mean(dim=1), (L * L).mean(dim=1), iterations
+
+
+#: The reference's words for a spot seen by a distant sensor bank.
+SPOT_REFUSAL = (
+    "point-source (spot) illumination is supported by the canopy tracer only "
+    "— distant radiometer banks cannot see a point source directly; use "
+    "CanopyExperiment for lab scenes"
+)
+
+
 def _check_supported(config):
     """Raise ``NotImplementedError`` naming each feature this slice lacks,
-    and for a polarized config, which has a renderer of its own;
-    ``ValueError`` for an unknown surface kind."""
+    for a spot emitter (with the reference's words) and for a polarized
+    config, which has a renderer of its own; ``ValueError`` for an unknown
+    surface kind."""
     if config.polarized:
         raise NotImplementedError(
             "the scalar tracer does not render polarized transport: call "
             "ops.tracer_polarized.render_polarized"
         )
+    if config.illumination_kind != "directional":
+        raise NotImplementedError(SPOT_REFUSAL)
     unsupported = {
         f"geometry {config.geometry!r}": config.geometry != "plane_parallel",
-        f"sampler {config.sampler!r}": config.sampler != "independent",
-        f"illumination kind {config.illumination_kind!r}":
-            config.illumination_kind != "directional",
         "lr_flight": config.lr_flight,
-        f"rng {config.rng!r}": config.rng != "pcg4d",
     }
     for feature, missing in unsupported.items():
         if missing:
@@ -370,6 +470,7 @@ def row_arrays(scene, s):
         irradiance=il.irradiance[s],
         cos_cutoff=_row(il.cos_cutoff, s),
         sky_radiance=_row(il.sky_radiance, s),
+        position=il.position,
     )
     return medium_row, surface_row, illum_row
 
@@ -412,9 +513,43 @@ def row_key(seed, s, chunk_id, device):
     return torch.tensor(key, dtype=torch.int64, device=device)
 
 
+def one_shot_chunks(spp, spp_chunk, paths):
+    """Samples of each chunk of a structured sampler's render, ``paths``
+    paths a sample: ``spp_chunk`` each, by default as many as a dispatch of
+    :data:`MAX_PATHS_PER_DISPATCH` allows; the chunks are uniform, so the
+    budget rounds up to whole chunks (reference ``render``)."""
+    if spp_chunk is None:
+        spp_chunk = max(1, MAX_PATHS_PER_DISPATCH // max(paths, 1))
+    step = min(spp_chunk, spp)
+    return [step] * -(-spp // step)
+
+
+def _render_structured(scene, sensor, config, spp, seed, spp_chunk, check_every):
+    """:func:`render` for a structured sampler: one-shot chunks."""
+    dev = sensor.directions.device
+    S, n_pix = scene.medium.tau_levels.shape[0], sensor.directions.shape[0]
+    chunks = one_shot_chunks(spp, spp_chunk, S * n_pix)
+    rad = torch.zeros((S, n_pix), dtype=scene.medium.tau_levels.dtype, device=dev)
+    m2 = torch.zeros_like(rad)
+    iterations = 0
+    for chunk_id, n in enumerate(chunks):
+        for s in range(S):
+            medium_row, surface_row, illum_row = row_arrays(scene, s)
+            r, m, it = _render_row(
+                config, n_pix, n, medium_row, surface_row, illum_row, sensor.directions,
+                row_key(seed, s, chunk_id, dev), sensor.target, sensor.ray_offset,
+                sensor.target_extent, check_every,
+            )
+            rad[s] += r
+            m2[s] += m
+            iterations += it
+    return {"radiance": rad / len(chunks), "m2": m2 / len(chunks), "spp": sum(chunks),
+            "iterations": iterations}
+
+
 def render(
     scene, sensor, config, spp, seed=0, *, device="cuda", lanes_target=None,
-    check_every=CHECK_EVERY,
+    check_every=CHECK_EVERY, spp_chunk=None,
 ):
     """Render the spectral batch of one distant-sensor bank.
 
@@ -424,9 +559,14 @@ def render(
     :data:`REGEN_LANES_TARGET`) sets the lane count and does not change the
     estimate beyond float summation order.
 
+    A structured sampler renders through the one-shot loop in chunks of
+    ``MAX_PATHS_PER_DISPATCH // (S * n_pix)`` samples (``spp_chunk``
+    overrides it), each with its own key; the budget is rounded up to whole
+    chunks and ``spp`` reports what was traced, as in the reference.
+
     Returns a dict with ``radiance`` [S, N], ``m2`` [S, N] (second moment of
     per-sample contributions), ``spp`` and ``iterations`` (bounce
-    iterations, summed over rows).
+    iterations, summed over rows and chunks).
     """
     _check_supported(config)
     dev = resolve_device(device)
@@ -434,6 +574,8 @@ def render(
     if lanes_target is None:
         lanes_target = REGEN_LANES_TARGET[dev.type]
     n_pix = sensor.directions.shape[0]
+    if config.sampler != "independent":
+        return _render_structured(scene, sensor, config, spp, seed, spp_chunk, check_every)
 
     rads, m2s, iterations = [], [], 0
     for s in range(scene.medium.tau_levels.shape[0]):

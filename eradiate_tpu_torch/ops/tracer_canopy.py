@@ -9,8 +9,10 @@ collision (closed-form free flight), leaf-disk hit, triangle hit
 shadow ray per lane against the leaves and the triangles and multiplies the
 closed-form atmospheric sun transmittance. Leaves and triangles scatter as
 bilambertian surfaces, each with its own reflectance and transmittance.
-Directional illumination only: the spot emitter, the one-shot tracer and
-polarized transport raise ``NotImplementedError``.
+The emitter is the directional sun or a spot (a point source with a top-hat
+beam, whose shadow rays end at it); as in the reference, any sampler renders
+as ``independent`` and the constant sky is never read. Polarized transport
+has a tracer of its own (:mod:`.tracer_canopy_polarized`).
 
 The reference's ``while_loop`` is an eager Python loop here, as in
 :mod:`.tracer`: every update is gated by ``active``, ``path_end`` or
@@ -49,7 +51,7 @@ from .bsdf_ops import (
 )
 from ..kernels.leaf_intersect import fma
 from .canopy import leaf_accel, leaf_nearest, leaf_occluded
-from .fastmath import depth_sample
+from .fastmath import depth_sample, sqrt_rn
 from .fastrng import bounce_uniforms, derive_keys, origin_uniforms
 from .medium import clamp_mu, take_1d, tau_at_z, z_at_tau
 from .mesh import tri_accel, tri_nearest, tri_occluded
@@ -105,42 +107,75 @@ def _to_local(n, v):
     return torch.stack([(t1 * v).sum(-1), (t2 * v).sum(-1), (n * v).sum(-1)], dim=-1)
 
 
-def _canopy_helpers(config, medium_row, leaves, illum_row, tris=None):
+def _canopy_helpers(config, medium_row, leaves, illum_row, B, tris=None):
     """Shared closures (medium tau, emitter NEE terms) and the sweeps'
     acceleration data (leaves and, with ``tris``, triangles), computed once
-    per render."""
-    if config.illumination_kind != "directional":
-        raise NotImplementedError(
-            f"illumination kind {config.illumination_kind!r} (spot emitter) is "
-            "not ported yet for canopy scenes"
-        )
+    per render for ``B`` lanes.
+
+    ``nee_dir(pos)`` is the direction toward the emitter [B, 3] and
+    ``nee_at(pos)`` its next-event terms at vertex positions [B, 3]:
+    ``(w_nee, E)``, the direction and the irradiance reaching the vertex,
+    visibility and transmittance included. The sun's shadow rays run 1e6 km;
+    a spot's (``config.illumination_kind == "spot"``) end at the emitter, and
+    its irradiance is the intensity over r^2 (1e-6 / r^2 from km to m) inside
+    its top-hat beam, times the finite segment's transmittance through the
+    1D medium (reference ``ops/tracer_canopy.py`` ``nee_at``)."""
     z_levels = medium_row.z_levels
     tau_levels = medium_row.tau_levels
     tau_top = tau_levels[-1]
-
-    d_sun = illum_row.direction
-    mu_sun = clamp_mu(-d_sun[2])
-    w_sun = -d_sun
-    E_sun = illum_row.irradiance
+    z_bottom, z_top = z_levels[0], z_levels[-1]
+    dev, dtype = z_levels.device, z_levels.dtype
     accel = leaf_accel(leaves)
     tris_accel = None if tris is None else tri_accel(tris)
 
     def tau_z(z):
         return tau_at_z(z, z_levels, tau_levels)
 
-    def nee_at(pos, w_sun_b, far):
-        """Next-event terms at vertex positions [B, 3]: the irradiance
-        reaching them, visibility and transmittance included. ``w_sun_b``
-        [B, 3] and ``far`` [B] are the sun direction and the shadow rays'
-        length, broadcast once per trace."""
-        T_atm = torch.exp(-(tau_top - tau_z(pos[:, 2].contiguous())) / mu_sun)
-        occluded = leaf_occluded(pos, w_sun_b, far, leaves, accel)
+    def occluded(pos, w, t_max):
+        occ = leaf_occluded(pos, w, t_max, leaves, accel)
         if tris is not None:
-            occluded = occluded | tri_occluded(pos, w_sun_b, far, tris, tris_accel)
-        return T_atm * torch.where(occluded, 0.0, 1.0) * E_sun
+            occ = occ | tri_occluded(pos, w, t_max, tris, tris_accel)
+        return occ
 
-    return {"tau_z": tau_z, "nee_at": nee_at, "w_sun": w_sun, "accel": accel,
+    if config.illumination_kind == "spot":
+        position, axis = illum_row.position, illum_row.direction
+        tau_spot = tau_z(torch.clamp(position[2], z_bottom, z_top).reshape(1))
+
+        def nee_dir(pos):
+            v = position - pos
+            return v / torch.clamp(_norm(v), min=1e-9)[:, None]
+
+        def nee_at(pos):
+            v = position - pos
+            r = _norm(v)
+            w_nee = (v / torch.clamp(r, min=1e-9)[:, None]).contiguous()
+            in_beam = (-w_nee * axis).sum(-1) >= illum_row.cos_cutoff
+            dtau = torch.abs(tau_spot - tau_z(pos[:, 2].contiguous()))
+            T_atm = torch.exp(-dtau / torch.clamp(torch.abs(w_nee[:, 2]), min=1e-6))
+            occ = occluded(pos, w_nee, r)
+            E = illum_row.irradiance * 1e-6 / torch.clamp(r * r, min=1e-12)
+            return w_nee, torch.where(in_beam & ~occ, E * T_atm, 0.0)
+    else:
+        mu_sun = clamp_mu(-illum_row.direction[2])
+        w_sun = (-illum_row.direction).expand(B, 3).contiguous()
+        far = torch.full((B,), 1e6, dtype=dtype, device=dev)
+
+        def nee_dir(pos):
+            return w_sun
+
+        def nee_at(pos):
+            T_atm = torch.exp(-(tau_top - tau_z(pos[:, 2].contiguous())) / mu_sun)
+            occ = occluded(pos, w_sun, far)
+            return w_sun, T_atm * torch.where(occ, 0.0, 1.0) * illum_row.irradiance
+
+    return {"tau_z": tau_z, "nee_dir": nee_dir, "nee_at": nee_at, "accel": accel,
             "tris_accel": tris_accel}
+
+
+def _norm(v):
+    """Euclidean norms [B] of vectors [B, 3], the root correctly rounded on
+    every device."""
+    return sqrt_rn((v * v).sum(-1))
 
 
 def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpers, B,
@@ -154,12 +189,10 @@ def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpe
     tau_top = tau_levels[-1]
     z_bottom = z_levels[0]
     z_top = z_levels[-1]
-    tau_z, nee_at, accel = helpers["tau_z"], helpers["nee_at"], helpers["accel"]
-    tris_accel = helpers["tris_accel"]
+    tau_z, nee_dir, nee_at = helpers["tau_z"], helpers["nee_dir"], helpers["nee_at"]
+    accel, tris_accel = helpers["accel"], helpers["tris_accel"]
 
     dev, dtype = z_levels.device, z_levels.dtype
-    w_nee = helpers["w_sun"].expand(B, 3).contiguous()
-    far = torch.full((B,), 1e6, dtype=dtype, device=dev)
     ground_lift = torch.tensor([0.0, 0.0, eps], dtype=dtype, device=dev)
 
     C = len(config.phase_kinds)
@@ -170,7 +203,7 @@ def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpe
     )
 
     def bounce(depth_b, pos, d, beta, keys):
-        U = bounce_uniforms(keys, depth_b, 8)
+        U = bounce_uniforms(keys, depth_b, 8, config.rng)
         u_dist = U[:, 0]
         u_sel, u_cos, u_phi = U[:, 1], U[:, 2:4], U[:, 4]
         u_srf = U[:, 5:7]
@@ -231,7 +264,9 @@ def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpe
         # its own event vertex. Leaf frame oriented toward the incident side
         to_front = -torch.sign((d * n_leaf).sum(-1))
         n_shade = n_leaf * to_front[:, None]
-        wi_leaf_sign = torch.sign((n_shade * w_nee).sum(-1))[:, None]
+        # the emitter's side of the leaf: the spot's direction from the hit
+        # (it barely turns over the lift-off), the sun's everywhere
+        wi_leaf_sign = torch.sign((n_shade * nee_dir(pos_leaf)).sum(-1))[:, None]
         # distance-scaled lift-off: pos + t d at t ~ 100 km rounds by
         # ~ulp(t) ~ 1e-5 km in float32, so the hit can land below the disk
         # or triangle it hit, and a fixed 1e-6 offset would leave the shadow
@@ -245,7 +280,7 @@ def _make_bounce_canopy(config, medium_row, surface_row, leaf_row, leaves, helpe
             pos_leaf_off,
             torch.where(event_med[:, None], pos_med, pos_ground_off),
         )
-        E_nee = nee_at(pos_nee, w_nee, far)
+        w_nee, E_nee = nee_at(pos_nee)
 
         # ---- medium collision -------------------------------------------
         albedo_col = take_1d(medium_row.albedo, layer)
@@ -348,7 +383,7 @@ def trace_paths_canopy_regen(
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     B = init_pos.shape[0]
     dev, dtype = init_pos.device, init_pos.dtype
-    helpers = _canopy_helpers(config, medium_row, leaves, illum_row, tris)
+    helpers = _canopy_helpers(config, medium_row, leaves, illum_row, B, tris)
     bounce = _make_bounce_canopy(
         config, medium_row, surface_row, leaf_row, leaves, helpers, B, tris, tri_row
     )
@@ -360,7 +395,7 @@ def trace_paths_canopy_regen(
     def origin(keys, init_pos_l, ext_l):
         if ext is None:
             return init_pos_l
-        jit = (origin_uniforms(keys, 2) - 0.5) * ext_l
+        jit = (origin_uniforms(keys, 2, config.rng, dtype) - 0.5) * ext_l
         return init_pos_l + torch.cat([jit, jit.new_zeros(B, 1)], dim=-1)
 
     ext_l = torch.zeros((B, 2), dtype=dtype, device=dev) if ext is None else ext
@@ -368,7 +403,7 @@ def trace_paths_canopy_regen(
     lane_first_l, init_pos_l, init_d_l = lane_first, init_pos, init_d
     s_local = torch.zeros(B, dtype=torch.int64, device=dev)
     depth = torch.zeros(B, dtype=torch.int64, device=dev)
-    keys = derive_keys(row_key, lane_first)
+    keys = derive_keys(row_key, lane_first, config.rng)
     pos, d = origin(keys, init_pos, ext_l), init_d
     beta = torch.ones(B, dtype=dtype, device=dev)
     L_cur = torch.zeros(B, dtype=dtype, device=dev)
@@ -393,7 +428,7 @@ def trace_paths_canopy_regen(
         # regenerate: a fresh path, with its own origin jitter, for the
         # lane's next sample
         regen = path_end & ~done
-        keys_new = derive_keys(row_key, lane_first_l + s_local)
+        keys_new = derive_keys(row_key, lane_first_l + s_local, config.rng)
         keys = torch.where(regen[:, None], keys_new, keys)
         pos = torch.where(regen[:, None], origin(keys_new, init_pos_l, ext_l), pos2)
         d = torch.where(regen[:, None], init_d_l, d2)
@@ -485,11 +520,7 @@ def _check_supported(config):
     unsupported = {
         f"geometry {config.geometry!r} for canopy scenes":
             config.geometry != "plane_parallel",
-        f"sampler {config.sampler!r}": config.sampler != "independent",
-        f"illumination kind {config.illumination_kind!r} (spot emitter) for "
-        "canopy scenes": config.illumination_kind != "directional",
         "lr_flight": config.lr_flight,
-        f"rng {config.rng!r}": config.rng != "pcg4d",
     }
     for feature, missing in unsupported.items():
         if missing:

@@ -23,7 +23,9 @@ calls are the same: the leaf sweeps (K5/K6 flat, K7 instanced) and, with
 triangles, the triangle sweeps (K8 flat, K9 instanced) launch once each a
 bounce iteration on the card. The Morton lane sort permutes P and the
 basis with the rest of a lane's state; regeneration resets them; Russian
-roulette reweights beta once, not P.
+roulette reweights beta once, not P. The emitter is the sun or a spot (the
+scalar tracer's NEE terms, :func:`.tracer_canopy._canopy_helpers`), whose
+light reaches each vertex along its own direction.
 
 In ``mono_polarized_double`` (``bench.py``'s ``mono_polarized``) the path
 state, the Mueller chain, the leaves, the triangles and the sums are
@@ -88,13 +90,10 @@ def _make_bounce_canopy_polarized(
     tau_top = tau_levels[-1]
     z_bottom = z_levels[0]
     z_top = z_levels[-1]
-    tau_z, nee_at, accel = helpers["tau_z"], helpers["nee_at"], helpers["accel"]
-    tris_accel = helpers["tris_accel"]
+    tau_z, nee_dir, nee_at = helpers["tau_z"], helpers["nee_dir"], helpers["nee_at"]
+    accel, tris_accel = helpers["accel"], helpers["tris_accel"]
 
     dev, dtype = z_levels.device, z_levels.dtype
-    w_nee = helpers["w_sun"].expand(B, 3).contiguous()
-    l_sun = -w_nee  # the sun's light propagates along -w_nee
-    far = torch.full((B,), 1e6, dtype=dtype, device=dev)
     ground_lift = torch.tensor([0.0, 0.0, eps], dtype=dtype, device=dev)
     depolarize = depolarizer(torch.ones((B,), dtype=dtype, device=dev))
 
@@ -106,7 +105,7 @@ def _make_bounce_canopy_polarized(
     )
 
     def bounce(depth_b, pos, d, P, b, beta, keys):
-        U = bounce_uniforms(keys, depth_b, 8)
+        U = bounce_uniforms(keys, depth_b, 8, config.rng)
         u_dist = U[:, 0]
         u_sel, u_cos, u_phi = U[:, 1], U[:, 2:4], U[:, 4]
         u_srf = U[:, 5:7]
@@ -153,7 +152,7 @@ def _make_bounce_canopy_polarized(
         # ---- shared NEE: one shadow sweep a bounce ------------------------
         to_front = -torch.sign((d * n_leaf).sum(-1))
         n_shade = n_leaf * to_front[:, None]
-        wi_leaf_sign = torch.sign((n_shade * w_nee).sum(-1))[:, None]
+        wi_leaf_sign = torch.sign((n_shade * nee_dir(pos_leaf)).sum(-1))[:, None]
         eps_lane = (eps + t_leaf * 2.4e-7)[:, None]
         pos_leaf_off = _step(pos_leaf, n_shade * wi_leaf_sign, eps_lane)
         pos_ground_off = pos_ground + ground_lift
@@ -162,11 +161,12 @@ def _make_bounce_canopy_polarized(
             pos_leaf_off,
             torch.where(event_med[:, None], pos_med, pos_ground_off),
         )
-        E_nee = nee_at(pos_nee, w_nee, far)
+        w_nee, E_nee = nee_at(pos_nee)
 
         l_out = -d  # light leaves every vertex toward the sensor path
-        # the sun's light arrives along -w_nee at either Mueller vertex: one
-        # rotation into its scattering plane serves both estimates
+        # the emitter's light arrives along l_sun = -w_nee at either Mueller
+        # vertex: one rotation into its scattering plane serves both estimates
+        l_sun = -w_nee
         _, R_sun = basis_rotator(l_sun, l_out, b)
 
         # ---- medium collision (Mueller phase) -----------------------------
@@ -253,7 +253,7 @@ def trace_paths_canopy_polarized_regen(
         raise ValueError(f"check_every must be >= 1, got {check_every}")
     B = init_pos.shape[0]
     dev, dtype = init_pos.device, init_pos.dtype
-    helpers = _canopy_helpers(config, medium_row, leaves, illum_row, tris)
+    helpers = _canopy_helpers(config, medium_row, leaves, illum_row, B, tris)
     bounce = _make_bounce_canopy_polarized(
         config, medium_row, surface_row, leaf_row, leaves, helpers, B, tris, tri_row
     )
@@ -266,7 +266,7 @@ def trace_paths_canopy_polarized_regen(
     def origin(keys, init_pos_l, ext_l):
         if ext is None:
             return init_pos_l
-        jit = (origin_uniforms(keys, 2) - 0.5) * ext_l
+        jit = (origin_uniforms(keys, 2, config.rng, dtype) - 0.5) * ext_l
         return init_pos_l + torch.cat([jit, jit.new_zeros(B, 1)], dim=-1)
 
     ext_l = torch.zeros((B, 2), dtype=dtype, device=dev) if ext is None else ext
@@ -275,7 +275,7 @@ def trace_paths_canopy_polarized_regen(
     b_init_l = default_basis(-init_d)
     s_local = torch.zeros(B, dtype=torch.int64, device=dev)
     depth = torch.zeros(B, dtype=torch.int64, device=dev)
-    keys = derive_keys(row_key, lane_first)
+    keys = derive_keys(row_key, lane_first, config.rng)
     pos, d, P, b = origin(keys, init_pos, ext_l), init_d, eye4, b_init_l
     beta = torch.ones(B, dtype=dtype, device=dev)
     S_cur = torch.zeros((B, 4), dtype=dtype, device=dev)
@@ -298,7 +298,7 @@ def trace_paths_canopy_polarized_regen(
         done = done | (s_local >= quota_l)
 
         regen = path_end & ~done
-        keys_new = derive_keys(row_key, lane_first_l + s_local)
+        keys_new = derive_keys(row_key, lane_first_l + s_local, config.rng)
         keys = torch.where(regen[:, None], keys_new, keys)
         pos = torch.where(regen[:, None], origin(keys_new, init_pos_l, ext_l), pos2)
         d = torch.where(regen[:, None], init_d_l, d2)
@@ -370,11 +370,7 @@ def _check_supported(config):
     unsupported = {
         f"geometry {config.geometry!r} for canopy scenes":
             config.geometry != "plane_parallel",
-        f"sampler {config.sampler!r}": config.sampler != "independent",
-        f"illumination kind {config.illumination_kind!r} (spot emitter) for "
-        "canopy scenes": config.illumination_kind != "directional",
         "lr_flight": config.lr_flight,
-        f"rng {config.rng!r}": config.rng != "pcg4d",
     }
     for feature, missing in unsupported.items():
         if missing:

@@ -191,7 +191,7 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
     def bounce(depth, z, xy, d, P, b, beta, keys):
         B = z.shape[0]
         # the scalar tracer's slot layout (slots 1-2, its sun cone, unused)
-        U = bounce_uniforms(keys, depth, 10)
+        U = bounce_uniforms(keys, depth, 10, config.rng)
         u_dist = U[:, 0]
         u_ph_sel, u_ph_cos, u_ph_phi = U[:, 3], U[:, 4:6], U[:, 6]
         u_srf = U[:, 7:9]
@@ -285,7 +285,7 @@ def trace_paths_polarized_regen(
 
     s_local = torch.zeros(B, dtype=torch.int64, device=dev)
     depth = torch.zeros(B, dtype=torch.int64, device=dev)
-    keys = derive_keys(row_key, lane_first)
+    keys = derive_keys(row_key, lane_first, config.rng)
     z, xy, d, P, b = init_z, init_xy, init_d, eye4, b_init
     beta = torch.ones(B, dtype=dtype, device=dev)
     S_cur = torch.zeros((B, 4), dtype=dtype, device=dev)
@@ -310,7 +310,8 @@ def trace_paths_polarized_regen(
 
         # regenerate: a fresh path, P and basis for the lane's next sample
         regen = path_end & ~done
-        keys = torch.where(regen[:, None], derive_keys(row_key, lane_first + s_local), keys)
+        keys_new = derive_keys(row_key, lane_first + s_local, config.rng)
+        keys = torch.where(regen[:, None], keys_new, keys)
         z = torch.where(regen, init_z, z2)
         xy = torch.where(regen[:, None], init_xy, xy2)
         d = torch.where(regen[:, None], init_d, d2)
@@ -355,11 +356,7 @@ def _check_supported(config):
         raise ValueError("config.polarized is False: render it with ops.tracer.render")
     unsupported = {
         f"polarized geometry {config.geometry!r}": config.geometry != "plane_parallel",
-        f"sampler {config.sampler!r}": config.sampler != "independent",
-        f"illumination kind {config.illumination_kind!r}":
-            config.illumination_kind != "directional",
         "lr_flight": config.lr_flight,
-        f"rng {config.rng!r}": config.rng != "pcg4d",
     }
     for feature, missing in unsupported.items():
         if missing:

@@ -1,10 +1,11 @@
 """Regenerative wavefront path tracer, spherical-shell geometry.
 
-Port of ``eradiate_tpu/ops/tracer_spherical.py`` for the ``independent``
-sampler: exact free flight through concentric shells (one shell-flight
-kernel launch per event), next-event estimation aimed straight at the
-directional sun, Russian roulette on real interactions, and path
-regeneration.
+Port of ``eradiate_tpu/ops/tracer_spherical.py``: exact free flight through
+concentric shells (one shell-flight kernel launch per event), next-event
+estimation aimed straight at the directional sun, Russian roulette on real
+interactions, and path regeneration. As in the reference, any sampler
+renders as ``independent`` and the constant sky is carried in the rows but
+never read.
 
 The sun transmittance at an event comes from one of three branches, as in
 the reference:
@@ -188,7 +189,7 @@ def _make_event(config, medium_row, surface_row, illum_row):
     )
 
     def event(evt, p, d, beta, depth, keys):
-        U = bounce_uniforms(keys, evt, 8)
+        U = bounce_uniforms(keys, evt, 8, config.rng)
         u_ph_sel, u_ph_cos, u_ph_phi = U[:, 1], U[:, 2:4], U[:, 4]
         u_srf = U[:, 5:7]
         u_rr = U[:, 7]
@@ -273,7 +274,7 @@ def trace_paths_spherical_regen(
     s_local = torch.zeros(B, dtype=torch.int64, device=dev)
     evt = torch.zeros(B, dtype=torch.int64, device=dev)
     depth = torch.zeros(B, dtype=torch.int64, device=dev)
-    keys = derive_keys(row_key, lane_first)
+    keys = derive_keys(row_key, lane_first, config.rng)
     p, d = init_p, init_d
     beta = torch.ones(B, device=dev)
     L_cur = torch.zeros(B, device=dev)
@@ -296,7 +297,8 @@ def trace_paths_spherical_regen(
 
         # regenerate: fresh path for the lane's next sample
         regen = path_end & ~done
-        keys = torch.where(regen[:, None], derive_keys(row_key, lane_first + s_local), keys)
+        keys_new = derive_keys(row_key, lane_first + s_local, config.rng)
+        keys = torch.where(regen[:, None], keys_new, keys)
         p = torch.where(regen[:, None], init_p, p2)
         d = torch.where(regen[:, None], init_d, d2)
         beta = torch.where(regen, 1.0, beta2)
@@ -378,10 +380,6 @@ def check_supported(config, medium, polarized=False):
         raise ValueError("config.polarized is False: render it with render_spherical")
     unsupported = {
         f"geometry {config.geometry!r}": config.geometry != "spherical_shell",
-        f"sampler {config.sampler!r}": config.sampler != "independent",
-        f"illumination kind {config.illumination_kind!r}":
-            config.illumination_kind != "directional",
-        f"rng {config.rng!r}": config.rng != "pcg4d",
         "the legacy sun_tau_fetch (a sun-tau table without sun_r_grid)":
             medium.sun_tau is not None and medium.sun_r_grid is None,
     }

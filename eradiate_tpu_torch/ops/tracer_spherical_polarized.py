@@ -93,7 +93,7 @@ def _make_event_polarized(config, medium_row, surface_row, illum_row):
 
     def event(evt, p, d, P, b, beta, depth, keys):
         B = p.shape[0]
-        U = bounce_uniforms(keys, evt, 8)
+        U = bounce_uniforms(keys, evt, 8, config.rng)
         u_ph_sel, u_ph_cos, u_ph_phi = U[:, 1], U[:, 2:4], U[:, 4]
         u_srf = U[:, 5:7]
         u_rr = U[:, 7]
@@ -185,7 +185,7 @@ def trace_paths_spherical_polarized_regen(
     s_local = torch.zeros(B, dtype=torch.int64, device=dev)
     evt = torch.zeros(B, dtype=torch.int64, device=dev)
     depth = torch.zeros(B, dtype=torch.int64, device=dev)
-    keys = derive_keys(row_key, lane_first)
+    keys = derive_keys(row_key, lane_first, config.rng)
     p, d, P, b = init_p, init_d, eye4, b_init
     beta = torch.ones(B, dtype=dtype, device=dev)
     S_cur = torch.zeros((B, 4), dtype=dtype, device=dev)
@@ -208,7 +208,8 @@ def trace_paths_spherical_polarized_regen(
 
         # regenerate: a fresh path, P and basis for the lane's next sample
         regen = path_end & ~done
-        keys = torch.where(regen[:, None], derive_keys(row_key, lane_first + s_local), keys)
+        keys_new = derive_keys(row_key, lane_first + s_local, config.rng)
+        keys = torch.where(regen[:, None], keys_new, keys)
         p = torch.where(regen[:, None], init_p, p2)
         d = torch.where(regen[:, None], init_d, d2)
         P = torch.where(regen[:, None, None], eye4, P2)

@@ -240,27 +240,17 @@ def _with_tree(**overrides):
 
 @pytest.mark.parametrize(
     "kind, name",
-    [("tree", "AbstractTree"), ("spot", "SpotIllumination"),
-     ("polarized", "render_canopy_polarized"), ("tris", "triangle meshes"),
-     ("spot-config", "spot emitter")],
+    [("tree", "AbstractTree"), ("polarized", "render_canopy_polarized"),
+     ("tris", "triangle meshes")],
 )
 def test_unported_features_raise(mono_single, kind, name):
-    """Trees and triangle meshes are ported (``test_torch_tree_experiment.py``);
-    what still raises with them is what raises without them: the spot
-    emitter, and a polarized config given to the scalar tracer, which names
-    the polarized renderer."""
+    """Trees, triangle meshes and the spot emitter are ported
+    (``test_torch_tree_experiment.py``, ``test_torch_spot.py``); what still
+    raises with them is what raises without them: a polarized config given
+    to the scalar tracer, which names the polarized renderer."""
     if kind == "tree":
         brf = np.asarray(eradiate_tpu_torch.run(_with_tree(), spp=8, device="cpu")["brf"])
         assert np.isfinite(brf).all()
-        with pytest.raises(NotImplementedError, match="SpotIllumination"):
-            eradiate_tpu_torch.run(_with_tree(illumination={"type": "spot"}), spp=8,
-                                   device="cpu")
-        return
-    if kind == "spot":
-        exp = CanopyExperiment(**{**kwargs(bio, atmosphere=False),
-                                  "illumination": {"type": "spot"}})
-        with pytest.raises(NotImplementedError, match=name):
-            eradiate_tpu_torch.run(exp, spp=8, device="cpu")
         return
     if kind == "tris":
         scene, sensor, config, leaf_params, leaves, tris, tri_params = compiled(_with_tree())
@@ -271,10 +261,7 @@ def test_unported_features_raise(mono_single, kind, name):
                           tris=tris, tri_params=tri_params)
         return
     scene, sensor, config, leaf_params, leaves, _, _ = compiled(port_exp())
-    if kind == "polarized":
-        config = dataclasses.replace(config, polarized=True)
-    else:
-        config = dataclasses.replace(config, illumination_kind="spot")
+    config = dataclasses.replace(config, polarized=True)
     with pytest.raises(NotImplementedError, match=name):
         render_canopy(scene, leaf_params, leaves, sensor, config, spp=8, device="cpu")
 

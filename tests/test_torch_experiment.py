@@ -227,12 +227,11 @@ def test_unported_modes_raise(mode_id):
 
 @pytest.mark.parametrize(
     "override, name",
-    [
-        ({"illumination": {"type": "spot"}}, "SpotIllumination"),
-        ({"illumination": {"type": "constant"}}, "ConstantIllumination"),
-    ],
+    [({"illumination": {"type": "spot"}}, "canopy tracer only")],
 )
 def test_unported_scene_features_raise(mono_single, override, name):
+    """A spot seen by a distant sensor bank raises, with the reference's
+    words; the constant sky renders (``test_torch_sensors.py``)."""
     exp = AtmosphereExperiment(**{**c1_kwargs(), **override})
     with pytest.raises(NotImplementedError, match=name):
         eradiate_tpu_torch.run(exp, spp=8, device="cpu")

@@ -179,7 +179,6 @@ def test_scalar_tracer_refuses_polarized_config():
     "field, value, error, name",
     [("geometry", "spherical_shell", NotImplementedError, "spherical_shell"),
      ("surface_kind", "no_such_kind", ValueError, "'no_such_kind'"),
-     ("rng", "threefry", NotImplementedError, "'threefry'"),
      ("lr_flight", True, NotImplementedError, "lr_flight")],
 )
 def test_unported_features_raise(field, value, error, name):

@@ -162,9 +162,5 @@ def test_unpolarized_config_and_unported_features_raise(mono_polarized_single):
         render_canopy_polarized(scene, leaf_params, leaves, sensor,
                                 dataclasses.replace(config, polarized=False), spp=8,
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="spot"):
-        render_canopy_polarized(scene, leaf_params, leaves, sensor,
-                                dataclasses.replace(config, illumination_kind="spot"), spp=8,
-                                device="cpu")
     with pytest.raises(NotImplementedError, match="render_canopy_polarized"):
         render_canopy(scene, leaf_params, leaves, sensor, config, spp=8, device="cpu")

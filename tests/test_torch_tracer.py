@@ -97,12 +97,10 @@ def test_lane_partition_tiles_sample_ids(spp):
     [
         ("polarized", True, NotImplementedError, "render_polarized"),
         ("geometry", "spherical_shell", NotImplementedError, "spherical_shell"),
-        ("sampler", "stratified", NotImplementedError, "stratified"),
         ("phase_kinds", ("tab_polarized",), NotImplementedError, "'tab_polarized'"),
         ("surface_kind", "no_such_kind", ValueError, "'no_such_kind'"),
         ("illumination_kind", "spot", NotImplementedError, "spot"),
         ("lr_flight", True, NotImplementedError, "lr_flight"),
-        ("rng", "threefry", NotImplementedError, "threefry"),
     ],
 )
 def test_unported_features_raise(tiny, field, value, error, name):
