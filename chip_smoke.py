@@ -140,7 +140,7 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
     output equal bit pattern for bit pattern on every lane, differing lanes
     counted and printed; each kernel timed with CUDA events (median of 25)
     at the path's lane count, its plain version once on a seeded subset of
-    2^18 of those lanes, in slices that fit the card's memory;
+    2^16 of those lanes, in slices that fit the card's memory;
 12. the port on CUDA against the port on the CPU, the c5 scene at 19 view
     zeniths and 64 spp at one seed, instanced and flat: every pixel within
     |z| <= 5, the median pixel within 1e-4 relative;
@@ -158,7 +158,7 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
 16. the four triangle-sweep kernels (K8 flat, K9 instanced) against their
     plain versions on the card, as phase 11: the trunks of ``c5_trees`` and
     the soup of ``c5_wood`` with the three kinds of rays clipped to the
-    mesh's box (plain versions on 2^18 and 2^16 seeded lanes), a ragged
+    mesh's box (plain versions on 2^16 seeded lanes), a ragged
     lane count, rays beside the box, and rays aimed at shared edges and
     vertices of the skeleton's closed cylinders from 0.5-3 m and from
     50-300 m. All four traverse a bounding volume hierarchy built on the
@@ -214,7 +214,8 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
     phase 3 with its bound, ragged and from a misaligned view, and on c3's
     most absorbing row (37 layers, K = 3) at its lane count;
 25. c2 (``mono_single``) and c3 (``ckd_single``) on CUDA against the CPU,
-    11 view zeniths and 256 spp at one seed: BRF within 1e-4 relative and
+    11 view zeniths and 256 spp (c3: 64 spp a row) at one seed: BRF within
+    1e-4 relative and
     every pixel within |z| <= 5, and so every raw spectral row (c3's 56)
     before the CKD aggregation;
 26. c2 at full width (76 x 2097152), as phase 21 with 48 iterations
@@ -245,7 +246,7 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
     at full width (76 x 2097152) as phase 26: K1's launches must equal the
     bounce iterations, K1's device time a launch inside the run;
 31. c3 in ``ckd_polarized_single`` on CUDA against the CPU, 11 view zeniths
-    and 256 spp a row: each of the 56 raw rows' I within 1e-4 relative and
+    and 64 spp a row: each of the 56 raw rows' I within 1e-4 relative and
     its Stokes components within |z| <= 5, and so the aggregated I; K1's
     launches must equal the bounce iterations summed over the rows;
 32. the float64 build of the collision fetch (``collision_fetch_f64_kernel``)
@@ -404,11 +405,39 @@ H.  the c5 scene as ``bench.py`` builds it (instanced HET01) lit by
     runs against the CPU on an 8 x 8 film at 64 spp with the canopy gate
     (lit pixels within 2e-3, the median within 1e-4, |z| <= 5 of I, Q, U
     and V; dark pixels dark in both); then the seconds phases E-H took.
+I.  DEM terrain (``DEMExperiment``) at full width in ``mono_single``: c1's
+    column over a 15 km x 15 km tile at 30 m posts (a 501 x 501 gaussian
+    hill 1 km high, sigma 2 km; the size of a Copernicus GLO-30 / SRTM
+    tile crop), Lambertian 0.5, SZA 30, 19 view zeniths at 2097152 spp over
+    a rectangle target on the central 4 km x 4 km at z = 1.1 km. The
+    marched heightfield (128 steps, 16 bisections; plain PyTorch, no kernel
+    of the port): a profiled warm-up window, then a timed run (wall,
+    samples/s, iterations, CUDA kernels and device ms an iteration, busy
+    share). Triangulated (500,000 triangles through K8): the hierarchy's
+    build time apart from the render, a profiled warm-up window (K8's
+    device ms a launch inside the run), then a timed run: K8 nearest
+    launches equal to the iterations, any hit to twice them;
+J.  K8 and its float64 build on the terrain soup, on the rays of an eighth
+    launch of phase I's triangulated run (nearest hit on the path rays, any
+    hit on the shadow rays), against their plain versions bit for bit on a
+    2^14-lane sample
+    (the plain sweep run only on the 512-triangle chunks whose boxes a ray's
+    clipped segment reaches, which leaves its result the dense sweep's),
+    with call time, device time and bound;
+K.  the port on CUDA against the port on the CPU on the 33 x 33 hill
+    (``gaussian_hill(height_km=1.0, sigma_km=1.0, extent_km=10.0, n=33)``,
+    SZA 60, three view zeniths over a 4 km x 4 km target, 64 spp), both
+    intersectors: ``mono_single``, ``ckd_single`` (one bin of 4 g-points)
+    and ``mono_polarized_single`` (a scalar result) within 1e-4 relative and
+    |z| <= 5, ``mono_double`` within 1e-10 (K8's float64 build); then the
+    seconds phases I-K took.
 
 The CPU sides of the canopy phases' CUDA-against-CPU gates (12, 17, 22,
-40, 43, D) render in one background process (one thread, no card), submitted
-after the build, so that their minutes overlap the card's work, and those
-of E-H in a second one; the script ends both processes on exit.
+40, 43, D) render in a pool of four background processes (one thread each,
+no card), submitted after the build, so that their minutes overlap the
+card's work, and those of 25, 31, E-H and K in a second pool of two; the
+script ends both pools on exit. The script prints its own total (seconds
+from its start) before the kernels line.
 
 It prints a ``{"kernels": [...]}`` line (each kernel with its launches on its
 main path, its error against the plain version, its call time (``ms``) and
@@ -482,6 +511,19 @@ SEED = 1
 WOOD_BRANCHES = 256
 #: Lanes on which a sweep kernel is held against its plain version.
 PLAIN_LANES = 2**18
+#: Lanes of the seeded sample on which the sweep checks at a path's lane
+#: count run the plain versions (phases 11, 16, 38 and 41).
+PATH_PLAIN_LANES = 2**16
+#: Lanes of the seeded sample of phase 16's ragged and beside-the-box
+#: checks on c5_wood's 92,700 triangles.
+WOOD_PLAIN_LANES = 2**13
+#: The last lanes of a set, always in a plain version's sample.
+SAMPLE_TAIL = 128
+#: Lanes on which a timed sweep check counts its bound's exact tests and the
+#: hierarchy a ray reaches (estimates, scaled to every lane).
+STATS_LANES = 2**13
+#: Samples a pixel of the c3 gates (phases 25 and 31), on CUDA and the CPU.
+C3_GATE_SPP = 64
 #: c2's atmosphere (``bench.py`` ``_c2``): AFGL Rayleigh with the 0-2 km
 #: continental aerosol layer, tau 0.2 at 550 nm (phases B and D).
 C2_ATMOSPHERE = {
@@ -614,6 +656,8 @@ SAMPLER_CASES = ("independent", "stratified", "ldsampler")
 #: Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
 #: bandwidth, and the float32 and float64 rates outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
+#: The script's start (set by main), for the total it prints.
+T_START = time.perf_counter()
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
 #: Each wrapper's CUDA kernel, by which its device time is read.
@@ -2020,6 +2064,21 @@ def _instances_reached(ibvh, rays, caps, subset, lanes=256):
     return [(a / p.shape[0], b / p.shape[0]) for a, b in sums]
 
 
+def _stats_lanes(B, subset, device, seed):
+    """The lanes (a tensor of indices) on which a timed sweep check counts
+    its bound's exact tests and the hierarchy a ray reaches: the plain
+    version's lanes, or a seeded sample of :data:`STATS_LANES` of them where
+    there are more."""
+    import torch
+
+    lanes = subset if subset is not None else torch.arange(B, device=device)
+    if lanes.shape[0] <= STATS_LANES:
+        return lanes
+    keep = np.sort(np.random.default_rng(seed + 1).choice(lanes.shape[0], STATS_LANES,
+                                                          replace=False))
+    return lanes[torch.tensor(keep, device=device)]
+
+
 def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
                         plain_lanes=PLAIN_LANES):
     """The two sweep kernels (nearest and any hit) of one leaf set or one
@@ -2039,7 +2098,7 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
     The bound: rays read once (28 bytes a lane), the table read once, the
     outputs written once (17 bytes a lane for nearest, 1 for any hit); the
     exact tests the data needs at item granularity (:func:`_item_pairs` on
-    the plain version's lanes, scaled to all lanes), ~30 float32 operations
+    :func:`_stats_lanes`, scaled to all lanes), ~30 float32 operations
     a disk test and ~45 a Moller-Trumbore test. For the flat kernels, the
     leaves of their hierarchy that a ray reaches are printed too, and for
     the instanced kernels the instance boxes and canonical leaves, with the
@@ -2061,7 +2120,13 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
     B = rays[0].shape[0]
     subset = None
     if B > plain_lanes:
-        chosen = np.sort(np.random.default_rng(seed).choice(B, plain_lanes, replace=False))
+        # a seeded sample, and always the last lanes (a ragged lane
+        # count's partial block)
+        tail = min(SAMPLE_TAIL, plain_lanes)
+        chosen = np.concatenate([
+            np.random.default_rng(seed).choice(B - tail, plain_lanes - tail, replace=False),
+            np.arange(B - tail, B)])
+        chosen = np.sort(chosen)
         subset = torch.tensor(chosen, device=rays[0].device)
     n_plain = B if subset is None else plain_lanes
     table = (base.centers, base.normals, base.radii) if is_leaves else (base.v0, base.e1, base.e2)
@@ -2111,14 +2176,17 @@ def check_sweep_kernels(name, geometry, cull, rays, seed, timed=False,
             tensors = tuple(rays) + table + (() if offsets is None else (offsets,)) + got
             n_bytes = sum(t.numel() * t.element_size() for t in tensors)
             cap, occ = (got[0], None) if len(got) == 3 else (rays[2], got[0])
-            pairs = _item_pairs(geometry, rays, cap, occ, subset)
+            # the bound's and the reach's counts are estimates scaled to
+            # every lane: a seeded sample of STATS_LANES lanes
+            stats = _stats_lanes(B, subset, rays[0].device, seed)
+            pairs = _item_pairs(geometry, rays, cap, occ, stats)
             bounds[kernel] = bound_ms(n_bytes, item_ops * pairs, peak)
             notes[-1] += (f", kernel {times[kernel]['ms']:.4f} ms (device "
                           f"{device:.4f} by the {by}), plain "
                           f"{times[kernel]['plain_ms']:.1f} ms at {n_plain} lanes, {pairs / B:.2f} "
                           f"exact tests a ray at item granularity, bound "
                           f"{bounds[kernel][0]:.4f} ms by {bounds[kernel][1]}")
-            lanes = subset if subset is not None else torch.arange(B, device=rays[0].device)
+            lanes = stats
             items = "disks" if is_leaves else "triangles"
             if isinstance(cull, (ti.TriBVH, li.LeafBVH)) and len(got) == 3:
                 at_hit, at_max = _leaves_reached(cull, rays, (got[0], rays[2]), lanes)
@@ -2686,8 +2754,8 @@ def _max_z(a, b, var):
     return float(np.max(np.where(diff > 0, diff, 0.0) / np.where(diff > 0, np.sqrt(var), 1.0)))
 
 
-def _rows_render(make, stokes, device):
-    """``make(11)`` at 256 spp and the seed of the gates on ``device``: the
+def _rows_render(make, stokes, device, spp=256):
+    """``make(11)`` at ``spp`` and the seed of the gates on ``device``: the
     variables :func:`rows_cuda_vs_cpu` (``stokes``:
     :func:`polarized_rows_cuda_vs_cpu`) compares, as numpy arrays, and the
     seconds the run took."""
@@ -2695,7 +2763,7 @@ def _rows_render(make, stokes, device):
 
     exp = make(11)
     t0 = time.perf_counter()
-    ds = etp.run(exp, spp=256, seed_state=etp.SeedState(SEED), device=device)
+    ds = etp.run(exp, spp=spp, seed_state=etp.SeedState(SEED), device=device)
     seconds = time.perf_counter() - t0
     raw = exp.measures[0].results["raw"]
     if stokes:
@@ -2709,16 +2777,16 @@ def _rows_render(make, stokes, device):
             "rows_var": np.maximum(m2 - rad * rad, 0.0) / raw["spp"]}, seconds
 
 
-def _cpu_rows_render(mode, make, stokes):
+def _cpu_rows_render(mode, make, stokes, spp=256):
     """:func:`_rows_render` on the CPU in ``mode`` (a :class:`CpuRenders`
     job; ``make`` a module-level function)."""
     import eradiate_tpu_torch as etp
 
     etp.set_mode(mode)
-    return _rows_render(make, stokes, "cpu")
+    return _rows_render(make, stokes, "cpu", spp)
 
 
-def _rows_pair(make, stokes, cpu):
+def _rows_pair(make, stokes, cpu, spp=256):
     """The CUDA and CPU sides of a rows gate, the CPU one from ``cpu``
     (:class:`CpuRenders`) where given, else rendered here after the CUDA
     one: (outputs by device, seconds by device, the CUDA run's launches)."""
@@ -2726,28 +2794,28 @@ def _rows_pair(make, stokes, cpu):
 
     out, seconds = {}, {}
     reset_launches()
-    out["cuda"], seconds["cuda"] = _rows_render(make, stokes, "cuda")
+    out["cuda"], seconds["cuda"] = _rows_render(make, stokes, "cuda", spp)
     launches = read_launches()
     if cpu is None:
-        out["cpu"], seconds["cpu"] = _rows_render(make, stokes, "cpu")
+        out["cpu"], seconds["cpu"] = _rows_render(make, stokes, "cpu", spp)
     else:
-        out["cpu"], seconds["cpu"] = cpu.get(_cpu_rows_render, etp.mode().id, make, stokes)
+        out["cpu"], seconds["cpu"] = cpu.get(_cpu_rows_render, etp.mode().id, make, stokes, spp)
     return out, seconds, launches
 
 
-def rows_cuda_vs_cpu(phase, label, make, rows, cpu=None):
-    """c1, c2 or c3 at 11 view zeniths and 256 spp, one seed, on CUDA and on
+def rows_cuda_vs_cpu(phase, label, make, rows, cpu=None, spp=256):
+    """c1, c2 or c3 at 11 view zeniths and ``spp``, one seed, on CUDA and on
     the CPU (from ``cpu``, :class:`CpuRenders`, where given): the BRF within
     1e-4 relative and every pixel within |z| <= 5, and so each of the
     ``rows`` raw spectral rows before the CKD aggregation. Returns the CUDA
     run's launches."""
-    out, seconds, launches = _rows_pair(make, False, cpu)
+    out, seconds, launches = _rows_pair(make, False, cpu, spp)
     g, c = out["cuda"], out["cpu"]
     rel = float(np.max(np.abs(g["brf"] - c["brf"]) / np.abs(c["brf"])))
     z = _max_z(g["radiance"], c["radiance"], g["var"] + c["var"])
     rel_rows = float(np.max(np.abs(g["rows"] - c["rows"]) / np.abs(c["rows"])))
     z_rows = _max_z(g["rows"], c["rows"], g["rows_var"] + c["rows_var"])
-    print(f"[{phase}] {label}, 11 VZA 256 spp, CUDA vs CPU: max rel BRF diff {rel:.3e} (bound "
+    print(f"[{phase}] {label}, 11 VZA {spp} spp, CUDA vs CPU: max rel BRF diff {rel:.3e} (bound "
           f"1e-4), max |z| {z:.3e} (bound 5); the {g['rows'].shape[0]} raw rows: max rel "
           f"{rel_rows:.3e} (bound 1e-4), max |z| {z_rows:.3e} (bound 5); CUDA run "
           f"{seconds['cuda']:.1f} s, CPU run {seconds['cpu']:.1f} s; launches "
@@ -2982,19 +3050,20 @@ def polarized_c4_full_width(phase, scalar_brf, skip=64, window=48):
 
 
 def polarized_rows_cuda_vs_cpu(phase, cpu=None):
-    """c3 in ``ckd_polarized_single`` at 11 view zeniths and 256 spp a row,
+    """c3 in ``ckd_polarized_single`` at 11 view zeniths and
+    :data:`C3_GATE_SPP` a row,
     one seed, on CUDA and on the CPU (from ``cpu`` where given): each of the
     56 raw rows' I within 1e-4 relative and every Stokes component within
     |z| <= 5 (the rows' I variances), and so the aggregated I; K1's launches
     must equal the bounce iterations summed over the rows, and no other
     kernel launches. Returns the CUDA run's launches."""
-    out, seconds, launches = _rows_pair(_c3, True, cpu)
+    out, seconds, launches = _rows_pair(_c3, True, cpu, C3_GATE_SPP)
     g, c = out["cuda"], out["cpu"]
     iterations = g["iterations"]
     rel_rows = float(np.max(np.abs(g["rows"][..., 0] - c["rows"][..., 0]) / c["rows"][..., 0]))
     z = max(_max_z(g["rows"][..., k], c["rows"][..., k], g["var"] + c["var"]) for k in range(4))
     rel = float(np.max(np.abs(g["I"] - c["I"]) / np.abs(c["I"])))
-    print(f"[{phase}] c3 (ckd_polarized_single), 11 VZA 256 spp, CUDA vs CPU: the "
+    print(f"[{phase}] c3 (ckd_polarized_single), 11 VZA {C3_GATE_SPP} spp, CUDA vs CPU: the "
           f"{g['rows'].shape[0]} raw rows: max rel I diff {rel_rows:.3e} (bound 1e-4), max |z| "
           f"of I, Q, U, V {z:.3e} (bound 5); aggregated I (bins {g['I'].shape[0]}): max rel "
           f"{rel:.3e} (bound 1e-4); CUDA run {seconds['cuda']:.1f} s, CPU run "
@@ -3492,7 +3561,8 @@ def tri_double_phases(B5, single_times, tri_single, cpu):
                 more, *_ = check_sweep_kernels(label, *make(), seed=71, plain_lanes=2**16)
                 form_errs = {k: max(v, more[k]) for k, v in form_errs.items()}
             errs.update(form_errs)
-        skeleton = instanced_against_flat(_c5("wood", mesh_dir), B5, 70, mesh_dir, dtype=f64)
+        skeleton = instanced_against_flat(_c5("wood", mesh_dir), B5, 70, mesh_dir,
+                                          plain_lanes=2**13, dtype=f64)
         for k, t in times.items():
             one = single_times[k[: -len("_f64")]]
             print(f"    {k}: device {t['device_ms']:.4f} ms against the float32 kernel's "
@@ -4062,8 +4132,425 @@ def sensor_phases(cpu):
                                      "bound_by": shadow_bound[1], "max_abs_err": shadow_err}}}
 
 
+# ---- DEM terrain (phases I-K) -------------------------------------------------
+
+#: Phase I's tile: 15 km x 15 km at 30 m posts (501 x 501), the size of a
+#: Copernicus GLO-30 / SRTM tile crop.
+DEM_TILE = {"height_km": 1.0, "sigma_km": 2.0, "extent_km": 15.0, "n": 501}
+#: Phase K's hill, the CPU tests' shape.
+DEM_HILL = {"height_km": 1.0, "sigma_km": 1.0, "extent_km": 10.0, "n": 33}
+N_VZA_DEM = 19
+SPP_DEM = 2097152
+#: Iterations before, and in, the profiler window of phase I's warm-up runs.
+DEM_SKIP, DEM_WINDOW = 8, 16
+#: Lanes of phase J's sample of the captured rays.
+DEM_PLAIN_LANES = 2**14
+#: Box growth (km) of phase J's chunk cull: far above float32's rounding of
+#: a hit point 20 km from the ray's origin.
+DEM_CULL_SLACK = 0.1
+#: Chunks of the soup a call of the plain version takes in phase J.
+DEM_CULL_RUN = 16
+#: The modes of phase K's gates and their relative bounds.
+DEM_GATE_MODES = (("mono_single", 1e-4), ("mono_double", 1e-10), ("ckd_single", 1e-4),
+                  ("mono_polarized_single", 1e-4))
+#: G-points of the CKD gate's bin (4 spectral rows; the default 16 took 47 s
+#: through the marcher on the card's host).
+DEM_GATE_NG = 4
+
+
+def _dem(full, triangulate, ng_max=None):
+    """Phase I's terrain (``full``) or phase K's hill as a
+    ``DEMExperiment`` on c1's column; ``ng_max`` caps the g-points of a
+    CKD bin."""
+    from eradiate_tpu_torch.experiments import DEMExperiment
+    from eradiate_tpu_torch.scenes.surface import DEMSurface
+
+    surface = DEMSurface.gaussian_hill(**(DEM_TILE if full else DEM_HILL),
+                                       bsdf={"type": "lambertian", "reflectance": 0.5})
+    surface.triangulate = triangulate
+    half = 2.0
+    return DEMExperiment(
+        illumination={"type": "directional", "zenith": 30.0 if full else 60.0, "azimuth": 0.0},
+        measures={"type": "mdistant", "construct": "hplane", "azimuth": 0.0, "id": "m",
+                  "zeniths": np.linspace(-75, 75, N_VZA_DEM) if full else [-45.0, 0.0, 45.0],
+                  "target": {"type": "rectangle", "xmin": -half, "xmax": half,
+                             "ymin": -half, "ymax": half, "z": 1.1}},
+        surface=surface,
+        atmosphere={"type": "molecular"},
+        geometry={"type": "plane_parallel", "layer_merge_tol": 1e-3},
+        **({} if ng_max is None else {"ckd_quad_config": {"ng_max": ng_max}}),
+    )
+
+
+def _dem_gate_render(mode, triangulate, device):
+    """Phase K's hill at :data:`GATE_SPP` and the gates' seed on
+    ``device``: (radiance, variance, brf, data variables' names), seconds."""
+    import eradiate_tpu_torch as etp
+
+    etp.set_mode(mode)
+    exp = _dem(False, triangulate, DEM_GATE_NG if mode.startswith("ckd") else None)
+    t0 = time.perf_counter()
+    ds = etp.run(exp, spp=GATE_SPP, seed_state=etp.SeedState(SEED), device=device)
+    seconds = time.perf_counter() - t0
+    raw = exp.measures[0].results["raw"]
+    rad, m2 = (np.asarray(raw[k], np.float64) for k in ("radiance", "m2"))
+    return {"radiance": rad, "var": np.maximum(m2 - rad * rad, 0.0) / raw["spp"],
+            "brf": np.asarray(ds["brf"]), "variables": sorted(ds.data_vars)}, seconds
+
+
+def _cpu_dem_render(mode, triangulate):
+    """:func:`_dem_gate_render` on the CPU (a :class:`CpuRenders` job)."""
+    return _dem_gate_render(mode, triangulate, "cpu")
+
+
+def submit_dem_gates(cpu):
+    """Queue phase K's CPU sides on ``cpu``."""
+    for mode, _ in DEM_GATE_MODES:
+        for triangulate in (False, True):
+            cpu.submit(_cpu_dem_render, mode, triangulate)
+
+
+def _dem_run(triangulate, window):
+    """A full-width run of phase I's terrain in ``mono_single``; with
+    ``window`` it is the profiled warm-up: the profiler records
+    :data:`DEM_WINDOW` iterations after :data:`DEM_SKIP` and the run ends
+    there, and the operands of K8's :data:`CAPTURE_AT`-th nearest and
+    any-hit launches are kept. Returns (profiler or dataset, the
+    experiment, the hierarchy's build seconds, the captured ``p``, ``d``,
+    ``t_cap`` by wrapper, the soup and the hierarchy the render built)."""
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.ops import mesh, tracer_dem
+
+    etp.set_mode("mono_single")
+    exp = _dem(True, triangulate)
+    build, built = [], []
+    captured = {}
+    saved = {"tri_accel": tracer_dem.tri_accel, "ray_tris_nearest": mesh.ray_tris_nearest,
+             "ray_tris_occluded": mesh.ray_tris_occluded}
+
+    def timed_accel(tris):
+        import torch
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = saved["tri_accel"](tris)
+        torch.cuda.synchronize()
+        build.append(time.perf_counter() - t0)
+        built[:] = [tris, out]
+        return out
+
+    def capturing(name):
+        calls = [0]
+
+        def call(*args):
+            calls[0] += 1
+            if calls[0] == CAPTURE_AT:
+                captured[name] = [a.clone() for a in args[:3]]
+            return saved[name](*args)
+        return call
+
+    def run():
+        return etp.run(exp, spp=SPP_DEM, seed_state=etp.SeedState(SEED), device="cuda")
+
+    tracer_dem.tri_accel = timed_accel
+    if window:
+        mesh.ray_tris_nearest = capturing("ray_tris_nearest")
+        mesh.ray_tris_occluded = capturing("ray_tris_occluded")
+    try:
+        if window:
+            out = profile_window(run, tracer_dem, "bounce_uniforms", DEM_SKIP, DEM_WINDOW)
+        else:
+            out = run()
+    finally:
+        tracer_dem.tri_accel = saved["tri_accel"]
+        mesh.ray_tris_nearest = saved["ray_tris_nearest"]
+        mesh.ray_tris_occluded = saved["ray_tris_occluded"]
+    return out, exp, sum(build), captured, built
+
+
+def dem_full_width(phase, triangulate):
+    """Phase I for one intersector: the profiled warm-up, then the timed
+    run. Returns a dict of the numbers printed, the captured K8 operands
+    (triangulated) and the soup."""
+    import torch
+
+    label = "triangulated (K8)" if triangulate else "marched"
+    prof, _, build_warm, captured, _ = _dem_run(triangulate, window=True)
+    per_it, dev_ms, shares = window_device(prof, DEM_WINDOW)
+    k8 = {}
+    if triangulate:
+        for k in ("ray_tris_nearest", "ray_tris_occluded"):
+            k8[k] = kernel_ms_in_window(prof, KERNELS[k], DEM_WINDOW // 2)[1]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    ds, exp, build, _, built = _dem_run(triangulate, window=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    iterations = exp.measures[0].results["raw"]["iterations"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    brf = np.asarray(ds["brf"])
+    samples = N_VZA_DEM * SPP_DEM
+    busy = dev_ms * iterations / (1e3 * wall)
+    n_tris = built[0].v0.shape[0] if triangulate else 0
+    print(f"[{phase}] DEM {label}, {DEM_TILE['n']} x {DEM_TILE['n']} posts"
+          + (f", {n_tris} triangles" if triangulate else "")
+          + f" (mono_single) full width: {N_VZA_DEM} VZA x {SPP_DEM} spp = {samples} samples, "
+          f"wall {wall:.3f} s" + (f" (of which the hierarchy's build {build:.3f} s; warm-up "
+                                  f"build {build_warm:.3f} s)" if triangulate else "")
+          + f", {samples / wall:.4e} samples/s, {iterations} iterations "
+          f"({1e3 * wall / iterations:.3f} ms each), peak device memory {peak:.2f} GiB",
+          flush=True)
+    print(f"    profiler window of {DEM_WINDOW} iterations after {DEM_SKIP} (warm-up run): "
+          f"{per_it:.1f} CUDA kernels and {dev_ms:.3f} ms of device time an iteration, busy "
+          f"share {busy:.3f}; by kernel family: "
+          f"{', '.join(f'{f} {x:.3f}' for f, x in shares.items())}"
+          + "".join(f"; {k} {ms:.4f} ms a launch inside the run" for k, ms in k8.items())
+          + f"; launches {', '.join(f'{k} {n}' for k, n in launches.items() if n) or 'none'}; "
+          f"BRF {brf.dtype}, shape {brf.shape}, mean {brf.mean():.6f}, at nadir "
+          f"{float(brf[0, N_VZA_DEM // 2]):.6f}", flush=True)
+    if triangulate:
+        if not (launches["ray_tris_nearest"] == iterations > 0
+                and launches["ray_tris_occluded"] == 2 * iterations):
+            raise AssertionError("the triangulated DEM did not launch K8 nearest once and any "
+                                 "hit twice an iteration")
+        others = {k for k, n in launches.items() if n} - {"ray_tris_nearest",
+                                                         "ray_tris_occluded"}
+        if n_tris != 500_000 or set(captured) != {"ray_tris_nearest", "ray_tris_occluded"}:
+            raise AssertionError("the triangulated DEM is not the 500,000-triangle soup, or "
+                                 "no K8 launch was captured")
+    else:
+        others = {k for k, n in launches.items() if n}
+    if others:
+        raise AssertionError(f"the DEM {label} launched kernels of other paths: {others}")
+    if brf.shape != (1, N_VZA_DEM) or not np.isfinite(brf).all() or not (
+            0.2 < brf.mean() < 0.8):
+        raise AssertionError(f"the DEM {label} BRF is not finite or out of range")
+    out = {"wall_s": wall, "samples_per_s": samples / wall, "iterations": iterations,
+           "kernels_an_iteration": per_it, "device_ms_an_iteration": dev_ms, "busy": busy,
+           "peak_gib": peak, "brf_mean": float(brf.mean()), "launches": launches}
+    if triangulate:
+        out.update(build_s=build, run_device_ms=k8, triangles=n_tris)
+    return out, captured, built
+
+
+def _chunk_culled_plain(plain, args, occluded, slack=DEM_CULL_SLACK):
+    """The plain K8 sweep ``plain`` on rays ``args[:3]`` (``p``, ``d``,
+    ``t_cap``) against the soup ``args[3:6]``, run on runs of
+    :data:`DEM_CULL_RUN` chunks of
+    :data:`~eradiate_tpu_torch.kernels.tri_intersect.CHUNK` triangles in
+    their order, each on the rays whose clipped segment's box (grown by
+    ``slack``) reaches the run's box, and merged as the dense sweep merges
+    its chunks (a strictly nearer chunk replaces the best; any hit ors). A
+    run holds no triangle the exact test accepts for a ray whose segment's
+    box misses its box, and it holds whole chunks in their order, so the
+    result is the dense sweep's bit for bit, at a fraction of its pairs.
+    Returns the plain version's outputs and the pairs it tested."""
+    import torch
+
+    from eradiate_tpu_torch.kernels.tri_intersect import CHUNK
+
+    p, d, t = args[:3]
+    v0, e1, e2 = args[3:6]
+    B, N = p.shape[0], v0.shape[0]
+    end = p + d * t[:, None]
+    s_lo, s_hi = torch.minimum(p, end) - slack, torch.maximum(p, end) + slack
+    verts = torch.stack([v0, v0 + e1, v0 + e2], dim=1)  # [N, 3, 3]
+    pad = (-N) % CHUNK
+    lo = verts.min(dim=1).values
+    hi = verts.max(dim=1).values
+    if pad:
+        lo = torch.cat([lo, lo[-1:].expand(pad, 3)])
+        hi = torch.cat([hi, hi[-1:].expand(pad, 3)])
+    c_lo = lo.reshape(-1, CHUNK, 3).min(dim=1).values
+    c_hi = hi.reshape(-1, CHUNK, 3).max(dim=1).values
+    # runs of DEM_CULL_RUN chunks: fewer, larger calls; a run holds whole
+    # chunks in their order, so the plain version's own chunks are the soup's
+    pad = (-c_lo.shape[0]) % DEM_CULL_RUN
+    c_lo = torch.cat([c_lo, c_lo[-1:].expand(pad, 3)]).reshape(-1, DEM_CULL_RUN, 3)
+    c_hi = torch.cat([c_hi, c_hi[-1:].expand(pad, 3)]).reshape(-1, DEM_CULL_RUN, 3)
+    c_lo, c_hi = c_lo.min(dim=1).values, c_hi.max(dim=1).values
+    run = CHUNK * DEM_CULL_RUN
+    best_t = torch.full((B,), torch.inf, dtype=p.dtype, device=p.device)
+    best_n = torch.zeros((B, 3), dtype=p.dtype, device=p.device)
+    best_n[:, 2] = 1.0
+    occ = torch.zeros(B, dtype=torch.bool, device=p.device)
+    pairs = 0
+    for c in range(c_lo.shape[0]):
+        reach = ((s_lo <= c_hi[c]) & (s_hi >= c_lo[c])).all(dim=1)
+        lanes = torch.nonzero(reach).squeeze(1)
+        if not lanes.numel():
+            continue
+        sl = slice(c * run, min((c + 1) * run, N))
+        pairs += lanes.numel() * (sl.stop - sl.start)
+        out = plain(p[lanes], d[lanes], t[lanes], v0[sl], e1[sl], e2[sl])
+        if occluded:
+            occ[lanes] |= out
+            continue
+        t_c, n_c, hit_c = out
+        tmin = torch.where(hit_c, t_c, torch.inf)
+        better = tmin < best_t[lanes]
+        best_n[lanes] = torch.where(better[:, None], n_c, best_n[lanes])
+        best_t[lanes] = torch.where(better, tmin, best_t[lanes])
+    if occluded:
+        return (occ,), pairs
+    hit = torch.isfinite(best_t)
+    return (torch.where(hit, best_t, t), best_n, hit), pairs
+
+
+def check_terrain_kernels(label, tris, cull, rays, seed, f64, name):
+    """Phase J for one wrapper ``name`` (K8 nearest or any hit) and one
+    build: the kernel on ``rays`` (the captured ``p``, ``d``, ``t_cap`` of
+    its own launches) against the terrain soup ``tris``, every output bit
+    pattern for bit pattern with the plain version on a seeded sample of
+    :data:`DEM_PLAIN_LANES` lanes (:func:`_chunk_culled_plain`), timed (call
+    and device ms, the culled plain's ms) with its bound (:func:`_item_pairs`
+    on 512 of the sampled lanes, scaled). Returns (kernel, max abs error,
+    times, bound)."""
+    import torch
+
+    from eradiate_tpu_torch.kernels import tri_intersect as ti
+
+    suffix, peak = ("_f64", PEAK_F64_FLOPS) if f64 else ("", PEAK_F32_FLOPS)
+    kernel, occluded = name + suffix, name == "ray_tris_occluded"
+    B = rays[0].shape[0]
+    chosen = np.sort(np.random.default_rng(seed).choice(B, DEM_PLAIN_LANES, replace=False))
+    subset = torch.tensor(chosen, device=rays[0].device)
+    table = (tris.v0, tris.e1, tris.e2)
+    fn = getattr(ti, name)
+
+    def call():
+        return fn(*rays, *table, cull)
+
+    got = call()
+    got = got if isinstance(got, tuple) else (got,)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want, pairs = _chunk_culled_plain(getattr(ti, name + "_plain"),
+                                      (*[a[subset].contiguous() for a in rays], *table),
+                                      occluded)
+    end.record()
+    end.synchronize()
+    err = 0.0
+    for g, w in zip((g[subset] for g in got), want):
+        bits = torch.int64 if g.dtype == torch.float64 else torch.int32
+        gb, wb = (x.view(bits) if x.is_floating_point() else x for x in (g, w))
+        differ = int((gb != wb).reshape(DEM_PLAIN_LANES, -1).any(dim=1).sum())
+        if g.dtype != w.dtype or differ:
+            raise AssertionError(f"{label}: {kernel} differs from the plain version on "
+                                 f"{differ} of {DEM_PLAIN_LANES} lanes")
+        err = max(err, float((g.double() - w.double()).abs().max()))
+    device, by = _device_ms(call, KERNELS[kernel])
+    times = {"ms": _time_ms(call), "device_ms": device, "device_by": by,
+             "plain_ms": start.elapsed_time(end), "lanes": B, "plain_lanes": DEM_PLAIN_LANES,
+             "plain_pairs": pairs}
+    n_bytes = sum(x.numel() * x.element_size() for x in tuple(rays) + table + got)
+    cap, occ = (rays[2], got[0]) if occluded else (got[0], None)
+    item_pairs = _item_pairs(tris, rays, cap, occ, subset[:512], lanes=32)
+    bound = bound_ms(n_bytes, 45.0 * item_pairs, peak)
+    print(f"  {label}: B={B} N={tris.v0.shape[0]} every output's bit pattern equal on "
+          f"{DEM_PLAIN_LANES} seeded lanes, 0 lanes differ; {kernel} "
+          f"{'occluded' if occluded else 'hit'} share {float(got[-1].float().mean()):.3f}, "
+          f"culled plain {times['plain_ms']:.1f} ms ({pairs / DEM_PLAIN_LANES:.0f} triangles "
+          f"a lane), kernel {times['ms']:.4f} ms (device {device:.4f} by the {by}), "
+          f"{item_pairs / B:.2f} exact tests a ray at item granularity, bound "
+          f"{bound[0]:.4f} ms by {bound[1]}", flush=True)
+    return kernel, err, times, bound
+
+
+def dem_gate(phase, mode, rtol, triangulate, cpu):
+    """Phase K for one mode and intersector: the hill on CUDA against its
+    CPU run from ``cpu``: radiance within ``rtol`` relative and |z| <= 5,
+    the same data variables. Returns the CUDA run's launches."""
+    reset_launches()
+    gpu, seconds = _dem_gate_render(mode, triangulate, "cuda")
+    launches = read_launches()
+    ref, cpu_s = cpu.get(_cpu_dem_render, mode, triangulate)
+    rel = float(np.max(np.abs(gpu["radiance"] - ref["radiance"]) / np.abs(ref["radiance"])))
+    z = _max_z(gpu["radiance"], ref["radiance"], gpu["var"] + ref["var"])
+    label = "triangulated" if triangulate else "marched"
+    print(f"[{phase}] DEM hill {label} ({mode}, {GATE_SPP} spp), CUDA vs CPU: max rel "
+          f"{rel:.3e} (bound {rtol:g}), max |z| {z:.3e} (bound 5), rows "
+          f"{gpu['radiance'].shape[0]}; CUDA run {seconds:.1f} s, CPU run {cpu_s:.1f} s; "
+          f"launches {', '.join(f'{k} {n}' for k, n in launches.items() if n) or 'none'}",
+          flush=True)
+    k8 = "ray_tris_nearest_f64" if mode == "mono_double" else "ray_tris_nearest"
+    if triangulate and not launches[k8]:
+        raise AssertionError(f"the triangulated DEM in {mode} did not launch {k8}")
+    if not (np.isfinite(gpu["radiance"]).all() and rel <= rtol and z <= 5.0
+            and gpu["variables"] == ref["variables"]):
+        raise AssertionError(f"CUDA and CPU runs of the DEM hill disagree in {mode}")
+    if mode == "mono_polarized_single" and "I" in gpu["variables"]:
+        raise AssertionError("the DEM rendered Stokes output in a polarized mode")
+    return launches
+
+
+def dem_phases(cpu):
+    """Phases I-K. Returns the DEM numbers of K8 and its float64 build for
+    the kernels line: launches, times and bounds on the terrain, and the
+    device ms a launch inside phase I's run."""
+    import torch
+
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.ops.dem import mesh_from_dem
+    from eradiate_tpu_torch.ops.mesh import tri_accel
+
+    t0 = time.perf_counter()
+    marched, _, _ = dem_full_width("I", False)
+    tri, captured, built = dem_full_width("I", True)
+    print(f"    triangulated against marched: samples/s {tri['samples_per_s']:.4e} against "
+          f"{marched['samples_per_s']:.4e}, BRF mean {tri['brf_mean']:.6f} against "
+          f"{marched['brf_mean']:.6f}", flush=True)
+
+    print("[J] K8 (bvh_nearest_kernel, bvh_occluded_kernel) and its float64 build on the "
+          "terrain soup, on the rays of phase I's eighth launches", flush=True)
+    tris, (cull, _, _) = built
+    s = _dem(True, True).surface
+    t1 = time.perf_counter()
+    tris64 = mesh_from_dem(s.elevation, s.x0, s.y0, s.dx, s.dy, dtype=np.float64, device="cuda")
+    cull64 = tri_accel(tris64)[0]
+    print(f"    float64 soup and hierarchy built in {time.perf_counter() - t1:.3f} s", flush=True)
+    errs, times, bounds = {}, {}, {}
+    # each wrapper on its own rays: nearest on the path rays, any hit on
+    # the shadow rays
+    for kind, what in (("ray_tris_nearest", "path"), ("ray_tris_occluded", "shadow")):
+        rays = tuple(a.contiguous() for a in captured[kind])
+        for f64 in (False, True):
+            k, errs[k], times[k], bounds[k] = check_terrain_kernels(
+                f"terrain, {what} rays" + (" in float64" if f64 else ""),
+                tris64 if f64 else tris, cull64 if f64 else cull,
+                tuple(a.double() for a in rays) if f64 else rays, seed=80, f64=f64, name=kind)
+    del tris, tris64, cull, cull64, built, captured
+    torch.cuda.empty_cache()
+
+    launches64 = {}
+    for mode, rtol in DEM_GATE_MODES:
+        for triangulate in (False, True):
+            n = dem_gate("K", mode, rtol, triangulate, cpu)
+            if triangulate and mode == "mono_double":
+                launches64 = {k: n[k + "_f64"] for k in ("ray_tris_nearest", "ray_tris_occluded")}
+    etp.set_mode("mono_single")
+    print(f"    phases I-K took {time.perf_counter() - t0:.1f} s", flush=True)
+    out = {}
+    for k in ("ray_tris_nearest", "ray_tris_occluded"):
+        out[k] = {"launches": tri["launches"][k], "iterations": tri["iterations"],
+                  "run_device_ms": tri["run_device_ms"][k], "max_abs_err": errs[k],
+                  **times[k], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                  "wall_s": tri["wall_s"], "build_s": tri["build_s"]}
+        out[k + "_f64"] = {"launches_hill_mono_double": launches64[k],
+                           "max_abs_err": errs[k + "_f64"], **times[k + "_f64"],
+                           "bound_ms": bounds[k + "_f64"][0], "bound_by": bounds[k + "_f64"][1]}
+    out["marched"] = marched
+    return out
+
+
 def main():
     import torch
+
+    global T_START
+    T_START = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; a CUDA device "
@@ -4099,7 +4586,7 @@ def main():
     print("    " + report.replace("\n", "\n    "), flush=True)
     # the CPU sides of the canopy gates, in the order the phases need them,
     # two at a time so that phase 22 does not wait for phase 12's and 17's
-    cpu = CpuRenders(workers=2)
+    cpu = CpuRenders(workers=4)
     for mode, form, branches, stokes in (
         ("mono_single", "instanced", WOOD_BRANCHES, False),  # 12
         ("mono_single", "flat", WOOD_BRANCHES, False),
@@ -4122,10 +4609,11 @@ def main():
         cpu.submit(_cpu_c5_render, mode, "instanced", WOOD_BRANCHES, stokes, variant)
     # c3's (phases 25 and 31) and phases E-H's CPU sides, in a process of
     # their own: the first pool's queue takes most of the script's time
-    cpu_bg = CpuRenders()
-    cpu_bg.submit(_cpu_rows_render, "ckd_single", _c3, False)
-    cpu_bg.submit(_cpu_rows_render, "ckd_polarized_single", _c3, True)
+    cpu_bg = CpuRenders(workers=2)
+    cpu_bg.submit(_cpu_rows_render, "ckd_single", _c3, False, C3_GATE_SPP)
+    cpu_bg.submit(_cpu_rows_render, "ckd_polarized_single", _c3, True, C3_GATE_SPP)
     submit_sensor_gates(cpu_bg)
+    submit_dem_gates(cpu_bg)
 
     # -- 3. kernel against twin ---------------------------------------------
     print("[3] collision_fetch kernel against its plain twin", flush=True)
@@ -4307,7 +4795,8 @@ def main():
             check_rebuild("HET01 instanced", cull, lambda: leaf_instanced_bvh(
                 base.centers, base.normals, base.radii, leaves.offsets))
         errs, times, bounds, reach = check_sweep_kernels(
-            f"HET01 {form}, the path's lane count", leaves, cull, rays, seed=20, timed=True
+            f"HET01 {form}, the path's lane count", leaves, cull, rays, seed=20, timed=True,
+            plain_lanes=PATH_PLAIN_LANES,
         )
         sweep_times.update(times)
         sweep_bounds.update(bounds)
@@ -4384,7 +4873,7 @@ def main():
               "(bvh_nearest_kernel, bvh_occluded_kernel), the instanced ones a hierarchy of two "
               "levels, instance boxes above the canonical soup's hierarchy "
               "(tri_ibvh_nearest_kernel, tri_ibvh_occluded_kernel)", flush=True)
-        for form, plain_lanes in (("trees", PLAIN_LANES), ("wood", 2**16)):
+        for form, plain_lanes in (("trees", PATH_PLAIN_LANES), ("wood", PATH_PLAIN_LANES)):
             exp = _c5(form, mesh_dir)
             *_, tris, cull, rays = _canopy_inputs(exp, B5, seed=30)
             if form == "wood":
@@ -4404,7 +4893,9 @@ def main():
             for label, B, miss in ((f"c5_{form}, ragged", 50_021, False),
                                    (f"c5_{form}, rays beside the box", 2**15, True)):
                 *_, tris, cull, rays = _canopy_inputs(exp, B, seed=31, miss=miss)
-                more, *_ = check_sweep_kernels(label, tris, cull, rays, seed=31)
+                more, *_ = check_sweep_kernels(
+                    label, tris, cull, rays, seed=31,
+                    plain_lanes=WOOD_PLAIN_LANES if form == "wood" else PLAIN_LANES)
                 errs = {k: max(v, more[k]) for k, v in errs.items()}
             for far in (False, True):
                 tris, cull, rays = _edge_inputs(form == "trees", 100_037, seed=32, far=far)
@@ -4438,7 +4929,8 @@ def main():
                     more, *_ = check_sweep_kernels(label, tris, cull, rays, seed=34)
                     errs = {k: max(v, more[k]) for k, v in errs.items()}
             sweep_errs.update(errs)
-        skeleton_ms = instanced_against_flat(_c5("wood", mesh_dir), B5, 30, mesh_dir)
+        skeleton_ms = instanced_against_flat(_c5("wood", mesh_dir), B5, 30, mesh_dir,
+                                             plain_lanes=2**13)
 
         # -- 17. tree and wood canopies: port on CUDA against port on CPU ----
         c5_cuda_vs_cpu("trees", 17, cpu)
@@ -4494,7 +4986,7 @@ def main():
     etp.set_mode("mono_single")
     c2_small = rows_cuda_vs_cpu(25, "c2", _c2, 1)
     etp.set_mode("ckd_single")
-    c3_small = rows_cuda_vs_cpu(25, "c3 (ckd_single)", _c3, ROWS_C3, cpu_bg)
+    c3_small = rows_cuda_vs_cpu(25, "c3 (ckd_single)", _c3, ROWS_C3, cpu_bg, C3_GATE_SPP)
     etp.set_mode("mono_single")
     c2_launches, c2_run_ms, c2_iterations, _, _, _, c2_stats = rows_full_width(
         26, "c2", _c2(N_VZA), SPP_C2, N_VZA, 64, 48)
@@ -4528,6 +5020,9 @@ def main():
     # -- E-H. cameras, mpdistant, the constant sky, the structured samplers
     # and the spot over the canopy
     sensors = sensor_phases(cpu_bg)
+    # -- I-K. DEM terrain: the marched heightfield and the triangulated tile
+    # through K8
+    dem = dem_phases(cpu_bg)
     # -- 32-37. the double modes through the float64 builds of K1-K4 -----------
     runs, path_b64, pol_c1_double = double["runs"], double["path_b"], double["pol_c1"]
     err64, fetch64_times, fetch64_bound = double["fetch"]
@@ -4645,7 +5140,7 @@ def main():
         return out
 
     # no single PyTorch call computes any of these functions: library_ms is null
-    print(json.dumps({"kernels": [
+    kernels = [
         entry("collision_fetch", "eradiate_tpu_torch/csrc/collision_fetch.cu",
               f"{pallas}/collision_fetch.py:59", c1_launches["collision_fetch"], err,
               fetch_times, fetch_bound),
@@ -4690,7 +5185,12 @@ def main():
         sweep64("ray_tris_occluded_f64", 311, tri64, "tri"),
         sweep64("ray_tris_nearest_instanced_f64", 389, tri64, "tri"),
         sweep64("ray_tris_occluded_instanced_f64", 404, tri64, "tri"),
-    ]}), flush=True)
+    ]
+    for k in kernels:
+        if k["name"] in dem:
+            k["dem"] = dem[k["name"]]
+    print(f"chip_smoke total: {time.perf_counter() - T_START:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,16 +1,25 @@
 """eradiate_tpu_torch — the PyTorch/CUDA port of eradiate_tpu.
 
-The port runs on one NVIDIA GPU, in the single modes (and, for the
-atmosphere experiment, in the double modes, with float64 path state):
+The port runs on one NVIDIA GPU, in every single and double mode (the
+double modes with float64 path state, through float64 builds of the
+kernels):
 
-* the plane-parallel scalar path (BASELINE config 1: a Rayleigh atmosphere
-  over a Lambertian surface seen by a distant sensor bank), with the
+* the plane-parallel paths (BASELINE configs 1-3: Rayleigh and aerosol
+  columns, mono and CKD, over every surface kind, seen by distant sensor
+  banks, cameras and radiancemeters, with every sampler), with the
   per-bounce collision fetch as a CUDA kernel (``csrc/collision_fetch.cu``);
-* the spherical-shell scalar path (config 4), with the exact shell free
-  flight and shell event as CUDA kernels (``csrc/shell_flight.cu``);
-* the scalar canopy path (the scene of config 5: a disk-leaf canopy, flat
-  or instanced, under a Rayleigh atmosphere), with the nearest-hit and
-  any-hit leaf-disk sweeps as CUDA kernels (``csrc/leaf_intersect.cu``).
+* the spherical-shell paths (config 4), with the exact shell free flight,
+  shell event and slant optical depth as CUDA kernels
+  (``csrc/shell_flight.cu``);
+* canopies (the scene of config 5: disk-leaf clouds, abstract trees and
+  mesh trees, flat or instanced, under the sun or a spot), with the
+  nearest-hit and any-hit leaf-disk and triangle sweeps as CUDA kernels
+  (``csrc/leaf_intersect.cu``, ``csrc/tri_intersect.cu``);
+* polarized transport for all three (``mono_polarized_*``,
+  ``ckd_polarized_*``);
+* DEM terrain (``experiments.DEMExperiment``): the bilinear heightfield
+  marched in plain PyTorch (``ops/dem.py``) or, triangulated, through the
+  flat triangle sweeps.
 
 The package stands alone: it imports ``torch`` and ``numpy``, never ``jax``
 and nothing of ``eradiate_tpu``. Its host-side code (mode registry, seed

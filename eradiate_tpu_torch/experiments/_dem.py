@@ -1,0 +1,72 @@
+"""DEM experiment: a 1D atmosphere over a terrain.
+
+Port of ``eradiate_tpu/experiments/_dem.py``: an
+:class:`~._atmosphere.AtmosphereExperiment` whose surface is a
+:class:`~..scenes.surface.DEMSurface` renders through
+:func:`..ops.tracer_dem.render_dem` on one device, the marched heightfield or,
+with ``triangulate``, the triangulated grid through the triangle sweeps. As
+in the reference, each measure draws one seed and renders all its spectral
+rows in one call (no spectral chunks), and a polarized mode renders the
+scalar result.
+"""
+
+from __future__ import annotations
+
+import attrs
+import torch
+
+from ..core.device import resolve_device
+from ..core.modes import mode
+from ..core.rng import root_seed_state
+from ..ops.dem import mesh_from_dem
+from ..ops.tracer_dem import render_dem
+from ..scenes.surface import DEMSurface
+from ._atmosphere import AtmosphereExperiment
+
+__all__ = ["DEMExperiment"]
+
+
+@attrs.define(eq=False, slots=False)
+class DEMExperiment(AtmosphereExperiment):
+    """1D atmosphere + DEM surface (reference ``DEMExperiment``)."""
+
+    def __attrs_post_init__(self):
+        super().__attrs_post_init__()
+        if self.geometry.kind != "plane_parallel":
+            raise ValueError("DEMExperiment requires plane-parallel geometry")
+
+    def process(self, spp=None, seed_state=None, device="cuda", mesh=None):
+        """Render every measure on ``device``. ``mesh`` (a device mesh for
+        the reference's sharded render) is refused: the port renders on one
+        GPU."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded DEM rendering (mesh=) is not ported: the port renders on "
+                "one GPU; multi-GPU rendering is not ported yet"
+            )
+        if not isinstance(self.surface, DEMSurface):
+            return super().process(spp=spp, seed_state=seed_state, device=device)
+        dev = resolve_device(device)
+        seed_state = seed_state or root_seed_state
+        dtype = mode().host_dtype
+        surface = self.surface
+        dem = surface.dem_arrays(dtype=dtype)
+        tris = None
+        if surface.triangulate:
+            tris = mesh_from_dem(surface.elevation, surface.x0, surface.y0, surface.dx,
+                                 surface.dy, dtype=dtype)
+        for measure in self.measures:
+            ctx = self.spectral_context(measure)
+            scene, sensor, config = self.compile_scene(measure, ctx)
+            n = int(spp) if spp is not None else int(measure.spp)
+            raw = render_dem(
+                scene, dem, sensor, config, spp=n, seed=int(seed_state.next()), tris=tris,
+                n_march=surface.march_steps, n_bisect=surface.bisect_steps, device=dev,
+            )
+            measure.results = {
+                "raw": {
+                    k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                    for k, v in raw.items()
+                },
+                "spectral_ctx": ctx,
+            }

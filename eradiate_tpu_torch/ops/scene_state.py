@@ -6,7 +6,7 @@ and defaults, as plain dataclasses of tensors instead of JAX pytrees.
 device, whether they come from the JAX package's ``compile_scene`` or from
 the port's own host-side compile (numpy leaves either way);
 :func:`canopy_from_reference` does the same for a canopy's leaf arrays and
-leaf optics.
+leaf optics, :func:`dem_from_reference` for a terrain's grid.
 
 Shape conventions: ``S`` spectral rows, ``L`` layers, ``C`` phase
 components, ``N`` sensor directions. Lengths in km, sigma in km^-1.
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from .canopy import InstancedLeafArrays, LeafCloudArrays
+from .dem import DemArrays
 from .mesh import InstancedTriArrays, TriangleMeshArrays
 
 __all__ = [
@@ -33,6 +34,7 @@ __all__ = [
     "SceneConfig",
     "from_reference",
     "canopy_from_reference",
+    "dem_from_reference",
     "scene_dtype",
     "SURFACE_PARAMS",
     "PHASE_PARAMS",
@@ -284,3 +286,12 @@ def canopy_from_reference(leaves, leaf_params, device, tris=None, tri_params=Non
     if tris is None:
         return *out, None, None
     return *out, instanced(tris, soup, InstancedTriArrays), optics(tri_params)
+
+
+def dem_from_reference(heights, x0, y0, dx, dy, device, dtype=np.float32):
+    """A terrain's grid as the port's :class:`~.dem.DemArrays` on
+    ``device``: ``heights`` [Ny, Nx] (a numpy array) and the grid's west and
+    south edges and spacings (plain floats), each cast to ``dtype``, as the
+    reference's ``DEMSurface.dem_arrays`` casts them."""
+    return DemArrays(*(_tensor(np.asarray(x, dtype=dtype), device, dtype)
+                       for x in (heights, x0, y0, dx, dy)))

@@ -150,8 +150,10 @@ class DEMSurface(Surface):
         return self.bsdf.eval_params(w_nm)
 
     def dem_arrays(self, dtype=np.float32):
-        raise NotImplementedError(
-            "DEM surfaces are not ported yet (heightfield tracer)"
+        from ...ops.scene_state import dem_from_reference
+
+        return dem_from_reference(
+            self.elevation, self.x0, self.y0, self.dx, self.dy, "cpu", dtype
         )
 
 

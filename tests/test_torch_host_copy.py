@@ -8,7 +8,7 @@ the port imports ``jax`` or ``eradiate_tpu``; for c1 and c4 the port's
 within 2e-6, as it is built by the port's own float64 contraction) and the
 port's ``postprocess_measure`` equals the reference's on the same raw arrays;
 the places where the copy departs from the original (mode dtypes, the warp
-namespace, DEM features) behave as documented, and the copied mesh readers
+namespace, the DEM surface's terrain arrays) behave as documented, and the copied mesh readers
 and trunk mesh give the reference's triangles. The two packages
 exchange numpy arrays and plain Python values only.
 """
@@ -210,17 +210,43 @@ def test_warp_cone_numpy(cos_cutoff):
     )
 
 
+@pytest.mark.parametrize("mode_id", ["mono_single", "mono_double"])
+def test_dem_arrays_patch(mode_id):
+    """The copy's ``DEMSurface.dem_arrays`` (patched by the copy script)
+    returns the port's ``DemArrays`` in the mode's dtype, equal to the grid
+    cast as the reference casts it."""
+    from eradiate_tpu.scenes.surface import DEMSurface as RefSurface
+    from eradiate_tpu_torch.ops.dem import DemArrays
+    from eradiate_tpu_torch.scenes.surface import DEMSurface
+
+    eradiate_tpu_torch.set_mode(mode_id)
+    try:
+        dtype = eradiate_tpu_torch.mode().host_dtype
+        got = DEMSurface.gaussian_hill(height_km=1.0, sigma_km=1.0, n=33).dem_arrays(dtype=dtype)
+    finally:
+        eradiate_tpu_torch.set_mode("mono")
+    assert isinstance(got, DemArrays)
+    want = RefSurface.gaussian_hill(height_km=1.0, sigma_km=1.0, n=33)
+    for k, v in (("heights", want.elevation), ("x0", want.x0), ("y0", want.y0),
+                 ("dx", want.dx), ("dy", want.dy)):
+        t = getattr(got, k)
+        assert t.dtype == (torch.float64 if mode_id == "mono_double" else torch.float32)
+        assert t.device.type == "cpu"
+        np.testing.assert_array_equal(t.numpy(), np.asarray(v, dtype=dtype))
+
+
 def test_unported_host_features_raise(tmp_path):
-    """DEM surfaces are not ported; tree trunks and mesh-tree elements are,
-    and give the reference's triangles."""
+    """DEM surfaces, tree trunks and mesh-tree elements are ported: a DEM
+    surface gives the port's terrain arrays, trunks and mesh trees the
+    reference's triangles."""
     from eradiate_tpu.scenes.biosphere import AbstractTree as RefTree
     from eradiate_tpu.scenes.biosphere import MeshTreeElement as RefElement
     from eradiate_tpu_torch.scenes.biosphere import AbstractTree, MeshTreeElement
+    from eradiate_tpu_torch.ops.dem import DemArrays
     from eradiate_tpu_torch.scenes.surface import DEMSurface
     from eradiate_tpu_torch.test_tools.meshes import wood_skeleton, write_obj
 
-    with pytest.raises(NotImplementedError, match="DEM"):
-        DEMSurface.gaussian_hill(n=5).dem_arrays()
+    assert isinstance(DEMSurface.gaussian_hill(n=5).dem_arrays(), DemArrays)
     for got, want in zip(AbstractTree().mesh_part(), RefTree().mesh_part()):
         np.testing.assert_array_equal(got, want)
     v, f = wood_skeleton(np.random.default_rng(7), n_branches=3)

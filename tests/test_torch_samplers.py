@@ -459,3 +459,109 @@ def test_canopy_threefry_matches_reference_under_x64(x64):
         assert a.dtype == b.dtype == np.float64 and (b > 0).all(), k
         np.testing.assert_allclose(a, b, rtol=1e-10, atol=0, err_msg=k)
     assert not torch.equal(out["radiance"], pcg["radiance"])
+
+
+def threefry_canopy_lanes(seed, spp=64):
+    """The threefry stream in the float32 canopy tracer, lane by lane: the
+    small HET01 under the Rayleigh atmosphere (``mono_single``, one
+    spectral row, ``spp`` samples a pixel in the reference's lane plan)
+    traced by the reference's jitted ``trace_paths_canopy_regen``, by the
+    reference's bounce (``_make_bounce_canopy``) jitted alone and stepped
+    on the host through the same regenerative updates, and by the port.
+    Returns the three lanes' sums (numpy)."""
+    from eradiate_tpu.ops import tracer_canopy as ref_tc
+    from eradiate_tpu.ops.fastrng import derive_keys as ref_derive
+    from eradiate_tpu.ops.fastrng import origin_uniforms as ref_origin
+    from eradiate_tpu_torch.ops import tracer_canopy
+    from eradiate_tpu_torch.ops.scene_state import canopy_from_reference
+    from test_torch_canopy_experiment import compiled
+
+    eradiate_tpu.set_mode("mono_single")
+    eradiate_tpu_torch.set_mode("mono_single")
+    try:
+        scene, sensor, config, leaf_params, leaves = compiled(canopy_ref_exp())[:5]
+    finally:
+        eradiate_tpu.set_mode("mono")
+        eradiate_tpu_torch.set_mode("mono")
+    config = dataclasses.replace(config, rng="threefry")
+    n_pix = sensor.directions.shape[0]
+    _, pix, _, lane_first, quota = ref_tracer.lane_partition(n_pix, spp)
+    med, il = scene.medium, scene.illumination
+    mr = ref_state.MediumArrays(
+        z_levels=med.z_levels, tau_levels=med.tau_levels[0], albedo=med.albedo[0],
+        phase_weights=med.phase_weights[0],
+        phase_params=jax.tree.map(lambda x: x[0], med.phase_params))
+    sr = jax.tree.map(lambda x: x[0] if getattr(x, "ndim", 0) else x, scene.surface)
+    ir = ref_state.IlluminationArrays(
+        direction=il.direction, irradiance=il.irradiance[0], cos_cutoff=il.cos_cutoff,
+        sky_radiance=il.sky_radiance[0] if il.sky_radiance.ndim else il.sky_radiance,
+        position=il.position)
+    leaf_row = {k: v[0] for k, v in leaf_params.items()}
+    w_v = jnp.asarray(sensor.directions)[pix]
+    B = pix.shape[0]
+    tgt = jnp.broadcast_to(jnp.asarray(sensor.target), (B, 3))
+    ext = jnp.broadcast_to(jnp.asarray(sensor.target_extent), (B, 2))
+    init_pos = tgt + w_v * ((mr.z_levels[-1] - tgt[:, 2]) / jnp.maximum(w_v[:, 2], 1e-6))[:, None]
+    key = jax.random.fold_in(jax.random.fold_in(jax.random.key(seed), 0), 0)
+
+    loop = jax.jit(ref_tc.trace_paths_canopy_regen, static_argnums=(0,))(
+        config, mr, sr, leaf_row, leaves, ir, init_pos, -w_v, key, lane_first, quota, ext=ext)[0]
+
+    helpers = ref_tc._canopy_helpers(config, mr, leaf_row, leaves, ir, None, None)
+    bounce = jax.jit(ref_tc._make_bounce_canopy(
+        config, mr, sr, leaf_row, leaves, ir, None, None, helpers["tau_z"], helpers["nee_dir"],
+        helpers["nee_at"], 1e-6, spheres=helpers["spheres"], tris_accel=helpers["tris_accel"]))
+    row_keys = jnp.broadcast_to(key, (B,))
+
+    def origin(k):
+        jit = (ref_origin(config.rng, k, 2, dtype=jnp.float32) - 0.5) * ext
+        return init_pos + jnp.concatenate([jit, jnp.zeros((B, 1))], -1)
+
+    keys = ref_derive(config.rng, row_keys, lane_first)
+    pos, d, beta = origin(keys), -w_v, jnp.ones(B)
+    depth = s_local = jnp.zeros(B, jnp.int32)
+    L_cur = L_sum = jnp.zeros(B)
+    done = jnp.zeros(B, bool)
+    while not bool(done.all()):
+        L_add, pos2, d2, beta2, alive2 = bounce(depth, pos, d, beta, keys)
+        active = ~done
+        L_cur = L_cur + jnp.where(active, L_add, 0.0)
+        depth = depth + 1
+        path_end = active & (~alive2 | (depth >= config.max_depth))
+        L_sum = L_sum + jnp.where(path_end, L_cur, 0.0)
+        s_local = s_local + path_end.astype(jnp.int32)
+        done = done | (s_local >= quota)
+        regen = path_end & ~done
+        keys_new = ref_derive(config.rng, row_keys, lane_first + s_local)
+        keys = jnp.where(regen, keys_new, keys)
+        pos = jnp.where(regen[:, None], origin(keys_new), pos2)
+        d = jnp.where(regen[:, None], -w_v, d2)
+        beta = jnp.where(regen, 1.0, beta2)
+        L_cur = jnp.where(path_end, 0.0, L_cur)
+        depth = jnp.where(regen, 0, depth)
+
+    sc, se, cf = from_reference(scene, sensor, config, "cpu")
+    p_leaves, p_params, _, _ = canopy_from_reference(leaves, leaf_params, "cpu")
+    medium_row, surface_row, illum_row = tracer.row_arrays(sc, 0)
+    _, p_pix, _, p_first, p_quota = tracer.lane_partition(n_pix, spp, 2**14, "cpu")
+    p_pos, p_d, p_ext = tracer_canopy.lane_rays(medium_row, se.directions, se.target,
+                                                se.ray_offset, se.target_extent, p_pix)
+    port = tracer_canopy.trace_paths_canopy_regen(
+        cf, medium_row, surface_row, {k: v[0] for k, v in p_params.items()}, p_leaves,
+        illum_row, p_pos, p_d, torch.as_tensor(_int(jax.random.key_data(key))), p_first,
+        p_quota, ext=p_ext)[0]
+    return np.asarray(loop), np.asarray(L_sum), port.numpy()
+
+
+@pytest.mark.parametrize("seed", [2, 5])
+def test_canopy_threefry_follows_the_reference_bounce(seed):
+    """The float32 canopy tracer with the threefry stream equals, on every
+    lane within 1e-5 relative (float summation order), the reference's
+    bounce jitted alone and stepped on the host. The reference's jitted
+    ``while_loop`` leaves that path on a few lanes of these seeds (2: lane
+    0; 5: lanes 13 and 29): XLA compiles the loop's body with the threefry
+    stream in it otherwise than the bounce alone, which the port follows
+    (``tools/threefry_canopy_lanes.py`` counts the lanes over 32 seeds)."""
+    _, stepped, port = threefry_canopy_lanes(seed)
+    assert (stepped > 0).any()
+    np.testing.assert_allclose(port, stepped, rtol=RTOL, atol=1e-12)

@@ -191,8 +191,9 @@ PATCHES = {
             r"        import jax\.numpy as jnp\n\n"
             r"        from \.\.\.ops\.dem import DemArrays\n\n"
             r"        return DemArrays\(.*?\n        \)\n",
-            "        raise NotImplementedError(\n"
-            '            "DEM surfaces are not ported yet (heightfield tracer)"\n'
+            "        from ...ops.scene_state import dem_from_reference\n\n"
+            "        return dem_from_reference(\n"
+            "            self.elevation, self.x0, self.y0, self.dx, self.dy, \"cpu\", dtype\n"
             "        )\n",
         ),
     ],
