@@ -515,15 +515,29 @@ PLAIN_LANES = 2**18
 #: count run the plain versions (phases 11, 16, 38 and 41).
 PATH_PLAIN_LANES = 2**16
 #: Lanes of the seeded sample of phase 16's ragged and beside-the-box
-#: checks on c5_wood's 92,700 triangles.
+#: checks on c5_wood's 92,700 triangles, and of its check at the path's
+#: lanes (2^16 before, 21 s of the script).
 WOOD_PLAIN_LANES = 2**13
+WOOD_PATH_PLAIN_LANES = 2**14
+#: Lanes of phase 16's sets of rays at the wood skeleton's edges and
+#: vertices and of its flat tie and zero-direction soups (100,037 before;
+#: the float64 sets of phase 41 take 32,768 and 65,536): their plain sweeps
+#: on every lane took 2-7 s a set.
+EDGE_LANES = 32_771
+#: Lanes of each shell stress set: phase 7's flight sets, phase 33's
+#: float64 sets and the shell depths' sets of phase L (a ragged count; each
+#: stress kind is a part of every set).
+STRESS_LANES = 100_037
 #: The last lanes of a set, always in a plain version's sample.
 SAMPLE_TAIL = 128
 #: Lanes on which a timed sweep check counts its bound's exact tests and the
 #: hierarchy a ray reaches (estimates, scaled to every lane).
 STATS_LANES = 2**13
-#: Samples a pixel of the c3 gates (phases 25 and 31), on CUDA and the CPU.
+#: Samples a pixel of the c3 gates (phases 25 and 31), on CUDA and the CPU,
+#: and their g-points a bin (:func:`_c3_gate`: 7 bins x 2 = 14 rows).
 C3_GATE_SPP = 64
+C3_GATE_NG = 2
+C3_GATE_ROWS = 14
 #: c2's atmosphere (``bench.py`` ``_c2``): AFGL Rayleigh with the 0-2 km
 #: continental aerosol layer, tau 0.2 at 550 nm (phases B and D).
 C2_ATMOSPHERE = {
@@ -805,10 +819,10 @@ def _c2_over(n_vza, surface):
     )
 
 
-def _c3(n_vza):
+def _c3(n_vza, ng_max=8):
     """BASELINE config 3 (``bench.py`` ``_c3``): the synthetic CKD database,
     the Sentinel-2A MSI band 4 response, a Lambertian floor of 0.2, at most
-    8 g-points a bin; render it in ``ckd_single``."""
+    ``ng_max`` (8) g-points a bin; render it in ``ckd_single``."""
     from eradiate_tpu_torch import AtmosphereExperiment
     from eradiate_tpu_torch.physics.absorption import make_synthetic_ckd_db
 
@@ -825,8 +839,15 @@ def _c3(n_vza):
         surface={"type": "lambertian", "reflectance": 0.2},
         atmosphere={"type": "molecular",
                     "absorption_data": make_synthetic_ckd_db(base_sigma=2e-3, ng=8)},
-        ckd_quad_config={"ng_max": 8},
+        ckd_quad_config={"ng_max": ng_max},
     )
+
+
+def _c3_gate(n_vza):
+    """The c3 gates' scene (phases 25 and 31): c3 with 2 g-points a bin (14
+    of its 56 rows, the same 7 bins). The gates are host-bound over the
+    rows, whatever the samples; phases 27 and 36 render all 56 rows."""
+    return _c3(n_vza, C3_GATE_NG)
 
 
 def _ulps(a, b):
@@ -908,7 +929,7 @@ def _kernel_records(prof, kernel):
     return [ms for n, ms in window_records(prof)[0] if name.search(n)]
 
 
-def _device_ms(fn, kernel, reps=25, flush=False):
+def _device_ms(fn, kernel, reps=25, flush=False, per_call=1):
     """Device time of ``fn``'s kernel ``kernel``, without the host time
     around its launch; returns (ms, by). The ``reps`` calls are enqueued
     while the card runs a spin kernel, each between two CUDA events (with
@@ -918,7 +939,9 @@ def _device_ms(fn, kernel, reps=25, flush=False):
     "profiler": the median of those records, where the profiler kept at
     least half of them (it drops records now and then, at times most of a
     sweep's), else "events": the median of the calls' event times (the
-    kernels a call launches, back to back)."""
+    kernels a call launches, back to back). ``per_call``: the launches of
+    ``kernel`` a call makes (a forward rule's two); the time is then the
+    median record times ``per_call``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -948,11 +971,11 @@ def _device_ms(fn, kernel, reps=25, flush=False):
                                  "within the spin")
         spin *= 4
     records = _kernel_records(prof, kernel)
-    if len(records) > reps:
+    if len(records) > reps * per_call:
         raise AssertionError(f"the profiler recorded {len(records)} launches of {kernel} in "
                              f"{reps} calls")
-    if len(records) >= reps // 2:
-        return statistics.median(records), "profiler"
+    if len(records) >= reps * per_call // 2:
+        return per_call * statistics.median(records), "profiler"
     return statistics.median(a.elapsed_time(b) for a, b in pairs), "events"
 
 
@@ -1246,11 +1269,26 @@ def check_shell_kernels(name, args, timed=False):
     return errs, times, bounds
 
 
+#: Operands made by :func:`_flight_stress_inputs`, by their arguments: the
+#: phases that check the same stresses (7, 33 and L) make them once.
+_FLIGHT_STRESS = {}
+
+
 def _flight_stress_inputs(radii, sigma, w, B, seed, device="cuda", dtype=np.float32):
     """Shell-kernel operands on the flight's stresses of ``test_tools.shells
     .flight_stress_inputs`` for the column ``radii``, ``sigma``, the slant
     stage toward ``w``; with ``dtype`` float64 made in float64 (each tie and
-    ulp a float64 one)."""
+    ulp a float64 one). Made once for each set of arguments (the making, on
+    the host, takes seconds a column: longer than the checks)."""
+    key = tuple(np.asarray(a, dtype).tobytes() for a in (radii, sigma, w)) + (
+        B, seed, device, np.dtype(dtype).str)
+    if key not in _FLIGHT_STRESS:
+        _FLIGHT_STRESS[key] = _make_flight_stress_inputs(radii, sigma, w, B, seed, device,
+                                                         dtype)
+    return _FLIGHT_STRESS[key]
+
+
+def _make_flight_stress_inputs(radii, sigma, w, B, seed, device, dtype):
     import torch
 
     from eradiate_tpu_torch.test_tools import shells
@@ -1688,6 +1726,26 @@ def _canopy_inputs(exp, B, seed, miss=False, device="cuda"):
     an instanced set) and ``tri_accel``'s (the hierarchy of a flat soup,
     the two-level one of an instanced soup). The operands take the dtype
     the experiment compiles in (float64 in a double mode)."""
+    key = (id(exp), device)
+    if _CANOPY.get(key, (None,))[0] is not exp:
+        _CANOPY[key] = (exp, _canopy_compiled(exp, device))
+    scene, sensor, dt, leaves, leaf_cull, lo, hi, tris, tri_cull, tri_lo, tri_hi = _CANOPY[key][1]
+    rays = _canopy_rays(exp, scene, sensor, lo.cpu().numpy(), hi.cpu().numpy(), B, seed, miss)
+    out = (leaves, leaf_cull, _clipped(rays, lo, hi, device, dt))
+    if tris is None:
+        return (*out, None, None, None)
+    return (*out, tris, tri_cull, _clipped(rays, tri_lo, tri_hi, device, dt))
+
+
+#: What :func:`_canopy_inputs` compiles and builds of an experiment, by its
+#: id and device (with the experiment, so that a reused id is told apart):
+#: the checks that take several ray sets of one form compile it once.
+_CANOPY = {}
+
+
+def _canopy_compiled(exp, device):
+    """The compiled scene, the leaves and triangles on ``device`` and their
+    hierarchies (:func:`_canopy_inputs`)."""
     from eradiate_tpu_torch.ops.canopy import leaf_accel
     from eradiate_tpu_torch.ops.mesh import tri_accel
     from eradiate_tpu_torch.ops.scene_state import canopy_from_reference, scene_dtype
@@ -1699,12 +1757,10 @@ def _canopy_inputs(exp, B, seed, miss=False, device="cuda"):
     dt = scene_dtype(scene.medium)
     leaves, _, tris, _ = canopy_from_reference(leaves, leaf_params, device, tris, tri_params, dt)
     leaf_cull, lo, hi = leaf_accel(leaves)
-    rays = _canopy_rays(exp, scene, sensor, lo.cpu().numpy(), hi.cpu().numpy(), B, seed, miss)
-    out = (leaves, leaf_cull, _clipped(rays, lo, hi, device, dt))
-    if tris is None:
-        return (*out, None, None, None)
-    tri_cull, tri_lo, tri_hi = tri_accel(tris)
-    return (*out, tris, tri_cull, _clipped(rays, tri_lo, tri_hi, device, dt))
+    tri_cull = tri_lo = tri_hi = None
+    if tris is not None:
+        tri_cull, tri_lo, tri_hi = tri_accel(tris)
+    return scene, sensor, dt, leaves, leaf_cull, lo, hi, tris, tri_cull, tri_lo, tri_hi
 
 
 def _disk_inputs(table, rays, offsets=None, dtype=np.float32):
@@ -3051,25 +3107,26 @@ def polarized_c4_full_width(phase, scalar_brf, skip=64, window=48):
 
 def polarized_rows_cuda_vs_cpu(phase, cpu=None):
     """c3 in ``ckd_polarized_single`` at 11 view zeniths and
-    :data:`C3_GATE_SPP` a row,
-    one seed, on CUDA and on the CPU (from ``cpu`` where given): each of the
-    56 raw rows' I within 1e-4 relative and every Stokes component within
+    :data:`C3_GATE_SPP` a row at 2 g-points a bin (:func:`_c3_gate`), one
+    seed, on CUDA and on the CPU (from ``cpu`` where given): each of the
+    14 raw rows' I within 1e-4 relative and every Stokes component within
     |z| <= 5 (the rows' I variances), and so the aggregated I; K1's launches
     must equal the bounce iterations summed over the rows, and no other
     kernel launches. Returns the CUDA run's launches."""
-    out, seconds, launches = _rows_pair(_c3, True, cpu, C3_GATE_SPP)
+    out, seconds, launches = _rows_pair(_c3_gate, True, cpu, C3_GATE_SPP)
     g, c = out["cuda"], out["cpu"]
     iterations = g["iterations"]
     rel_rows = float(np.max(np.abs(g["rows"][..., 0] - c["rows"][..., 0]) / c["rows"][..., 0]))
     z = max(_max_z(g["rows"][..., k], c["rows"][..., k], g["var"] + c["var"]) for k in range(4))
     rel = float(np.max(np.abs(g["I"] - c["I"]) / np.abs(c["I"])))
-    print(f"[{phase}] c3 (ckd_polarized_single), 11 VZA {C3_GATE_SPP} spp, CUDA vs CPU: the "
+    print(f"[{phase}] c3 (ckd_polarized_single, 2 g-points a bin), 11 VZA {C3_GATE_SPP} spp, "
+          "CUDA vs CPU: the "
           f"{g['rows'].shape[0]} raw rows: max rel I diff {rel_rows:.3e} (bound 1e-4), max |z| "
           f"of I, Q, U, V {z:.3e} (bound 5); aggregated I (bins {g['I'].shape[0]}): max rel "
           f"{rel:.3e} (bound 1e-4); CUDA run {seconds['cuda']:.1f} s, CPU run "
           f"{seconds['cpu']:.1f} s; {iterations} bounce iterations; launches "
           f"{', '.join(f'{k} {n}' for k, n in launches.items() if n)}", flush=True)
-    if g["rows"].shape != (ROWS_C3, 11, 4):
+    if g["rows"].shape != (C3_GATE_ROWS, 11, 4):
         raise AssertionError(f"polarized c3: raw Stokes of shape {g['rows'].shape}")
     if not (np.isfinite(g["rows"]).all() and rel_rows <= 1e-4 and z <= 5.0 and rel <= 1e-4):
         raise AssertionError("CUDA and CPU runs of the port disagree on polarized c3")
@@ -3515,8 +3572,8 @@ def tri_double_phases(B5, single_times, tri_single, cpu):
             reach.update(r)
             inst = form == "trees"
             # the float64 plain sweep of 92700 triangles runs on every lane
-            # of these: fewer lanes for the wood
-            ragged, beside = (50_021, 2**15) if inst else (16_411, 2**13)
+            # of these: fewer lanes for the wood (16,411 and 2^13 before)
+            ragged, beside = (50_021, 2**15) if inst else (4_099, 2**12)
             cases = [
                 (f"c5_{form} in float64, ragged ({ragged} lanes)",
                  lambda: _canopy_inputs(exp, ragged, 71)[3:]),
@@ -3668,27 +3725,36 @@ def double_phases(fetch_times, B4, sun_85, c3_wall):
                              f"{layout[:5]}")
     shell64_errs, shell64_times, shell64_bounds = check_shell_kernels_f64(
         "c4 column, mono_double", _shell_inputs_f64(_c4(), B4, seed=10), timed=True)
+    # each set built where it is checked, not all up front
+    n64 = STRESS_LANES
     sets64 = [
-        ("c4 column, mono_double, ragged", _shell_inputs_f64(_c4(), 100_037, seed=11)),
-        ("unmerged 1200-shell column, mono_double", _shell_inputs_f64(_c4(85.0, None), 2**18, 12)),
+        ("c4 column, mono_double, ragged", lambda: _shell_inputs_f64(_c4(), n64, seed=11)),
+        ("unmerged 1200-shell column, mono_double",
+         lambda: _shell_inputs_f64(_c4(85.0, None), 2**18, 12)),
     ]
     for column in ("232 shells", "232 shells, vacuum", "1200 shells"):
         for label, w in (("along an axis", shells.AXIS_W), ("toward the SZA 85 sun", sun_85)):
             sets64.append((f"slant stresses, {column}, {label}, in float64",
-                           _f64(_slant_stress_inputs(column, w, 100_037, seed=14))))
+                           lambda c=column, w=w: _f64(_slant_stress_inputs(c, w, n64, seed=14))))
             sets64.append((f"slant stresses, {column}, {label}, made in float64",
-                           _slant_stress_inputs(column, w, 100_037, 17, dtype=np.float64)))
+                           lambda c=column, w=w: _slant_stress_inputs(c, w, n64, 17,
+                                                                      dtype=np.float64)))
     for column, (radii, sigma) in shells.flight_columns(np.random.default_rng(8)).items():
         sets64.append((f"flight stresses, {column}, in float64",
-                       _f64(_flight_stress_inputs(radii, sigma, sun_85, 100_037, 15))))
+                       lambda r=radii, s=sigma: _f64(_flight_stress_inputs(
+                           r, s, sun_85, n64, 15))))
         sets64.append((f"flight stresses, {column}, made in float64",
-                       _flight_stress_inputs(radii, sigma, sun_85, 100_037, 18, dtype=np.float64)))
-    p, d, t_max, tau_s, radii, sigma = shells.planet_inputs(
-        np.random.default_rng(16), 2**18, device="cuda")
-    sets64.append(("a planet of 1e6 km, 1200 shells of 0.1 km", (
-        p, d, t_max, radii, sigma, tau_s, torch.tensor(sun_85, device="cuda").double())))
-    for label, args in sets64:
-        errs, _, _ = check_shell_kernels_f64(label, args)
+                       lambda r=radii, s=sigma: _flight_stress_inputs(r, s, sun_85, n64, 18,
+                                                                      dtype=np.float64)))
+
+    def planet():
+        p, d, t_max, tau_s, radii, sigma = shells.planet_inputs(
+            np.random.default_rng(16), 2**18, device="cuda")
+        return p, d, t_max, radii, sigma, tau_s, torch.tensor(sun_85, device="cuda").double()
+
+    sets64.append(("a planet of 1e6 km, 1200 shells of 0.1 km", planet))
+    for label, make in sets64:
+        errs, _, _ = check_shell_kernels_f64(label, make())
         shell64_errs = {k: max(v, errs[k]) for k, v in shell64_errs.items()}
 
     double_pixels_gate(34, "c1", _c1, "mono_double", 256, 11)
@@ -4145,6 +4211,9 @@ SPP_DEM = 2097152
 DEM_SKIP, DEM_WINDOW = 8, 16
 #: Lanes of phase J's sample of the captured rays.
 DEM_PLAIN_LANES = 2**14
+#: The same for the float64 builds (2^14 before: the float64 plain sweep
+#: tests a pair ~9x slower, 26 and 15 s of the script).
+DEM_PLAIN_LANES_F64 = 2**12
 #: Box growth (km) of phase J's chunk cull: far above float32's rounding of
 #: a hit point 20 km from the ray's origin.
 DEM_CULL_SLACK = 0.1
@@ -4405,7 +4474,8 @@ def check_terrain_kernels(label, tris, cull, rays, seed, f64, name):
     build: the kernel on ``rays`` (the captured ``p``, ``d``, ``t_cap`` of
     its own launches) against the terrain soup ``tris``, every output bit
     pattern for bit pattern with the plain version on a seeded sample of
-    :data:`DEM_PLAIN_LANES` lanes (:func:`_chunk_culled_plain`), timed (call
+    :data:`DEM_PLAIN_LANES` lanes (float64: :data:`DEM_PLAIN_LANES_F64`;
+    :func:`_chunk_culled_plain`), timed (call
     and device ms, the culled plain's ms) with its bound (:func:`_item_pairs`
     on 512 of the sampled lanes, scaled). Returns (kernel, max abs error,
     times, bound)."""
@@ -4416,7 +4486,8 @@ def check_terrain_kernels(label, tris, cull, rays, seed, f64, name):
     suffix, peak = ("_f64", PEAK_F64_FLOPS) if f64 else ("", PEAK_F32_FLOPS)
     kernel, occluded = name + suffix, name == "ray_tris_occluded"
     B = rays[0].shape[0]
-    chosen = np.sort(np.random.default_rng(seed).choice(B, DEM_PLAIN_LANES, replace=False))
+    n_plain = DEM_PLAIN_LANES_F64 if f64 else DEM_PLAIN_LANES
+    chosen = np.sort(np.random.default_rng(seed).choice(B, n_plain, replace=False))
     subset = torch.tensor(chosen, device=rays[0].device)
     table = (tris.v0, tris.e1, tris.e2)
     fn = getattr(ti, name)
@@ -4437,23 +4508,23 @@ def check_terrain_kernels(label, tris, cull, rays, seed, f64, name):
     for g, w in zip((g[subset] for g in got), want):
         bits = torch.int64 if g.dtype == torch.float64 else torch.int32
         gb, wb = (x.view(bits) if x.is_floating_point() else x for x in (g, w))
-        differ = int((gb != wb).reshape(DEM_PLAIN_LANES, -1).any(dim=1).sum())
+        differ = int((gb != wb).reshape(n_plain, -1).any(dim=1).sum())
         if g.dtype != w.dtype or differ:
             raise AssertionError(f"{label}: {kernel} differs from the plain version on "
-                                 f"{differ} of {DEM_PLAIN_LANES} lanes")
+                                 f"{differ} of {n_plain} lanes")
         err = max(err, float((g.double() - w.double()).abs().max()))
     device, by = _device_ms(call, KERNELS[kernel])
     times = {"ms": _time_ms(call), "device_ms": device, "device_by": by,
-             "plain_ms": start.elapsed_time(end), "lanes": B, "plain_lanes": DEM_PLAIN_LANES,
+             "plain_ms": start.elapsed_time(end), "lanes": B, "plain_lanes": n_plain,
              "plain_pairs": pairs}
     n_bytes = sum(x.numel() * x.element_size() for x in tuple(rays) + table + got)
     cap, occ = (rays[2], got[0]) if occluded else (got[0], None)
     item_pairs = _item_pairs(tris, rays, cap, occ, subset[:512], lanes=32)
     bound = bound_ms(n_bytes, 45.0 * item_pairs, peak)
     print(f"  {label}: B={B} N={tris.v0.shape[0]} every output's bit pattern equal on "
-          f"{DEM_PLAIN_LANES} seeded lanes, 0 lanes differ; {kernel} "
+          f"{n_plain} seeded lanes, 0 lanes differ; {kernel} "
           f"{'occluded' if occluded else 'hit'} share {float(got[-1].float().mean()):.3f}, "
-          f"culled plain {times['plain_ms']:.1f} ms ({pairs / DEM_PLAIN_LANES:.0f} triangles "
+          f"culled plain {times['plain_ms']:.1f} ms ({pairs / n_plain:.0f} triangles "
           f"a lane), kernel {times['ms']:.4f} ms (device {device:.4f} by the {by}), "
           f"{item_pairs / B:.2f} exact tests a ray at item granularity, bound "
           f"{bound[0]:.4f} ms by {bound[1]}", flush=True)
@@ -4546,6 +4617,486 @@ def dem_phases(cpu):
     return out
 
 
+# -- L-N. forward-mode sensitivities ------------------------------------------
+
+#: Phase M's channels on c1, and the retrieval's (the JAX package's
+#: ``tests/system/test_retrieval.py``: truth, start, views, samples, seeds).
+SENS_C1_CHANNELS = ("surface.reflectance", "medium.albedo", "medium.tau_scale")
+RETRIEVAL_TRUTH, RETRIEVAL_START = (0.32, 1.35), (0.5, 1.0)
+RETRIEVAL_ZENITHS = (-60.0, -30.0, 0.0, 30.0, 60.0)
+RETRIEVAL_SPP = 16384
+#: Phase N's samples a pixel: c1 at 11 views; the spherical, canopy and DEM
+#: scenes at 3 views.
+SENS_GATE_SPP, SENS_SMALL_SPP = 256, 64
+#: Phase N's channels by scene.
+SENS_GATE_CHANNELS = {
+    "c1": SENS_C1_CHANNELS,
+    "spherical": ("surface.reflectance", "medium.albedo", "medium.tau_scale"),
+    "canopy": ("canopy.reflectance", "canopy.transmittance", "surface.reflectance"),
+    "dem": ("surface.reflectance", "medium.tau_scale"),
+}
+
+
+def _sens_scene(case):
+    """Phase N's scenes: ``c1`` at 11 views; ``spherical``, c1's column in
+    shells under an SZA 30 sun at views -45, 0, 45; ``canopy``, the 200-leaf
+    cloud of the JAX package's canopy sensitivity tests; ``dem``, phase K's
+    33 x 33 hill."""
+    import eradiate_tpu_torch as etp
+
+    views = {"type": "mdistant", "construct": "hplane", "zeniths": [-45.0, 0.0, 45.0],
+             "azimuth": 0.0, "id": "m"}
+    sun = {"type": "directional", "zenith": 30.0, "azimuth": 0.0}
+    if case == "c1":
+        return _c1(11)
+    if case == "spherical":
+        return etp.AtmosphereExperiment(
+            geometry={"type": "spherical_shell"}, illumination=sun, measures=views,
+            surface={"type": "lambertian", "reflectance": 0.5}, atmosphere={"type": "molecular"})
+    if case == "canopy":
+        return etp.CanopyExperiment(
+            canopy={"type": "leaf_cloud", "construct": "cuboid", "n_leaves": 200,
+                    "leaf_radius": 0.12, "l_horizontal": 10.0, "l_vertical": 2.0,
+                    "leaf_reflectance": 0.45, "leaf_transmittance": 0.25, "seed": 5},
+            illumination=sun, measures={**views, "zeniths": [-30.0, 0.0, 30.0]},
+            surface={"type": "lambertian", "reflectance": 0.3})
+    return _dem(False, False)
+
+
+def _sens_render(case, device):
+    """Phase N's sensitivities of ``case`` on ``device``: the measure's entry
+    (numpy), and the seconds it took."""
+    from eradiate_tpu_torch.sensitivity import sensitivities
+
+    t0 = time.perf_counter()
+    spp = SENS_GATE_SPP if case == "c1" else SENS_SMALL_SPP
+    (entry,) = sensitivities(_sens_scene(case), SENS_GATE_CHANNELS[case], spp=spp, seed=SEED,
+                             device=device).values()
+    return entry, time.perf_counter() - t0
+
+
+def _cpu_sens_render(mode, case):
+    """:func:`_sens_render` on the CPU in ``mode`` (:class:`CpuRenders`' job)."""
+    import eradiate_tpu_torch as etp
+
+    etp.set_mode(mode)
+    return _sens_render(case, "cpu")
+
+
+def submit_sensitivity_gates(cpu):
+    """Queue phase N's CPU sides."""
+    for case in SENS_GATE_CHANNELS:
+        cpu.submit(_cpu_sens_render, "mono_single", case)
+
+
+def _dual_refusals():
+    """A forward-mode dual into each geometry wrapper (K2, K3, K5-K9, the
+    terrain march) and into the operands of K1, K4 and the shell depths that
+    have no rule must raise ``NotImplementedError``, launching nothing
+    (``test_tools/duals.geometry_calls``); returns the names held."""
+    import torch
+    import torch.autograd.forward_ad as fwAD
+
+    from eradiate_tpu_torch.test_tools.duals import geometry_calls
+
+    p, calls = geometry_calls("cuda", B=64)
+    before = read_launches()
+    with fwAD.dual_level():
+        dual = fwAD.make_dual(p, torch.ones_like(p))
+        for name, call in calls.items():
+            try:
+                call(dual)
+            except NotImplementedError:
+                continue
+            raise AssertionError(f"{name} took a forward-mode dual without raising")
+    if read_launches() != before:
+        raise AssertionError("a refused dual launched a kernel")
+    return list(calls)
+
+
+def _rule_case(label, kernel_fn, plain_fn, kernel, f64, n_bytes, flops, times=True,
+               per_call=1):
+    """One forward rule (or the shell depths) on the card against the same
+    function on the plain versions: every output bit for bit; with
+    ``times`` its call time, device time (of ``kernel``, the rule's second
+    launch included), the plain version's time and the bound. Returns
+    (0.0, times)."""
+    import torch
+
+    got, want = kernel_fn(), plain_fn()
+    for i, (g, w) in enumerate(zip(got, want)):
+        differ = (_bits(g) != _bits(w)).reshape(-1)
+        if differ.any():
+            raise AssertionError(f"{label}: output {i} differs from the plain version on "
+                                 f"{int(differ.sum())} of {differ.numel()} lanes")
+    lanes = got[0].shape[-1]
+    line = f"  {label}: {lanes} lanes, {got[0].dtype}: bit for bit on every lane"
+    out = None
+    if times:
+        device, by = _device_ms(kernel_fn, kernel, per_call=per_call)
+        out = {"ms": _time_ms(kernel_fn), "device_ms": device, "device_by": by,
+               "plain_ms": _time_ms(plain_fn, reps=5), "lanes": lanes}
+        bound = bound_ms(n_bytes, flops, PEAK_F64_FLOPS if f64 else PEAK_F32_FLOPS)
+        out.update(bound_ms=bound[0], bound_by=bound[1])
+        line += (f"; call {out['ms']:.4f} ms, device {device:.4f} ms (by the {by}), plain "
+                 f"{out['plain_ms']:.4f} ms, bound {bound[0]:.4f} ms by {bound[1]}")
+    print(line, flush=True)
+    torch.cuda.synchronize()
+    return 0.0, out
+
+
+def _tangent(x):
+    import torch.autograd.forward_ad as fwAD
+
+    return fwAD.unpack_dual(x).tangent
+
+
+def _depth_levels(p, d, t_max, radii):
+    """The levels a lane's depths need: those up to the bracket of the
+    larger of |x0| and |x0 + t_max| (the sweep reads every level; the
+    bound counts these)."""
+    import torch
+
+    from eradiate_tpu_torch.ops.spherical import cross_norm2, dot3, sqrt_rn
+
+    x0 = dot3(p, d)
+    X = sqrt_rn(torch.clamp((radii * radii)[:, None] - cross_norm2(p, d), min=0.0))
+    y = torch.maximum(x0.abs(), (x0 + t_max).abs())
+    return int((X <= y).sum())
+
+
+def forward_rule_phase(phase, B1, B4, sun_85):
+    """Phase L: K1's rule (a tangent on the fetched tables) at c1's lanes
+    ``B1`` and K4's (a tangent on sigma) at path B's ``B4``, float32 and
+    float64, against the same rules on the plain versions, bit for bit;
+    the shell depths (float32 and float64) against their plain version on
+    the flight's stress lanes (six columns) and on every lane of path B's
+    first events; every geometry wrapper refusing a dual. Returns {name: (err,
+    times)} for ``collision_fetch_rule``, ``slant_tau_rule`` (and ``_f64``)
+    and ``shell_depths`` (and ``_f64``)."""
+    import torch
+    import torch.autograd.forward_ad as fwAD
+
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.kernels import collision_fetch as cf
+    from eradiate_tpu_torch.kernels import shell_flight as sf
+    from eradiate_tpu_torch.ops.spherical import TAU_BLOCKED, fma, shell_depths_plain
+    from eradiate_tpu_torch.ops.spherical import slant_tau_exact
+    from eradiate_tpu_torch.test_tools import collision_fetch as fetch_tools
+    from eradiate_tpu_torch.test_tools import shells
+    from eradiate_tpu_torch.test_tools.collision_fetch import search_trips, stress_queries
+
+    print(f"[{phase}] the forward rules of K1 and K4 and the shell depths against their plain "
+          "versions", flush=True)
+    out = {}
+    rng = np.random.default_rng(70)
+    for dt in (np.float32, np.float64):
+        f64 = dt == np.float64
+        sfx = "_f64" if f64 else ""
+        etp.set_mode("mono_double" if f64 else "mono_single")
+        column = fetch_tools.column_operands(dtype=dt)
+        z_lv, tau_lv, tables = (torch.tensor(a, device="cuda") for a in column)
+        q = torch.tensor(stress_queries(column[1], B1, 71), device="cuda")
+        # the tables of the likelihood-ratio flight: the layers' thicknesses
+        # first; tangents as the tau_scale and albedo channels give them
+        tabs = torch.cat([torch.diff(tau_lv)[None], tables]).contiguous()
+        tan = torch.cat([torch.diff(tau_lv)[None], torch.ones_like(tables[:1]),
+                         torch.zeros_like(tables[1:])]).contiguous()
+
+        def rule():
+            with fwAD.dual_level():
+                z, layer, f = cf.collision_fetch(q, z_lv, tau_lv, fwAD.make_dual(tabs, tan))
+                return (fwAD.unpack_dual(z).primal.clone(), layer, fwAD.unpack_dual(f).primal
+                        .clone(), _tangent(f).clone())
+
+        def plain():
+            z, layer, f = cf.collision_fetch_plain(q, z_lv, tau_lv, tabs)
+            return z, layer, f, cf.collision_fetch_plain(q, z_lv, tau_lv, tan)[2]
+
+        K, L = tabs.shape
+        # what the function must move: the queries and both level tables
+        # read once, the tables and their tangents read once, z, the layer
+        # (int32), the fetched rows and their tangents written once; and one
+        # search a lane (the rule's second launch repeats it)
+        n_bytes = q.element_size() * (B1 * (2 + 2 * K) + 2 * (L + 1) + 2 * K * L) + 4 * B1
+        out["collision_fetch_rule" + sfx] = _rule_case(
+            f"K1{' f64' if f64 else ''}'s rule, c1 column (K = {K} with the layers' "
+            "thicknesses)", rule, plain, KERNELS["collision_fetch" + sfx], f64, n_bytes,
+            B1 * (search_trips(L) + 6), per_call=2)
+
+        exp4 = _c4(75.0)
+        p, d, t_max, radii, sigma, tau_s, w = (_shell_inputs_f64 if f64 else _shell_inputs)(
+            exp4, B4, seed=72)
+        collide, t_col, layer = sf.shell_flight(p, d, t_max, radii, sigma, tau_s)
+        t_step = torch.where(collide, t_col, t_max)[:, None]
+        pe = fma(d, t_step, p).contiguous()
+        sig_t = (sigma * torch.tensor(rng.uniform(0.5, 1.5, sigma.shape[0]),
+                                      device="cuda", dtype=sigma.dtype)).contiguous()
+
+        def slant_rule():
+            with fwAD.dual_level():
+                tau = sf.slant_tau(pe, w, radii, fwAD.make_dual(sigma, sig_t))
+                return fwAD.unpack_dual(tau).primal.clone(), _tangent(tau).clone()
+
+        def slant_plain():
+            tau = slant_tau_exact(pe, w, radii, sigma)
+            return tau, torch.where(tau == TAU_BLOCKED, 0.0, slant_tau_exact(pe, w, radii, sig_t))
+
+        segs = float(shells.crossed_segments(pe, w, radii).sum())
+        out["slant_tau_rule" + sfx] = _rule_case(
+            f"K4{' f64' if f64 else ''}'s rule, path B's event points", slant_rule, slant_plain,
+            KERNELS["slant_tau" + sfx], f64, pe.element_size() * B4 * 5,
+            2 * (40.0 * B4 + 15.0 * segs), per_call=2)
+
+        full = (p, d, t_col, layer, t_max, radii, sigma)
+        pick = torch.tensor(np.sort(np.random.default_rng(74).choice(B4, 2**16, replace=False)),
+                            device="cuda")
+        sample = tuple(a[pick].contiguous() for a in full[:5]) + full[5:]
+        cases = [("path B's first events, a seeded 2^16-lane sample", sample)]
+        for column_name, (r_c, s_c) in shells.flight_columns(np.random.default_rng(8)).items():
+            # the flight's stress sets of phases 7 and 33 (made in float64)
+            ps, ds, tm, rr, ss, ts, _ = _flight_stress_inputs(
+                r_c, s_c, sun_85, STRESS_LANES,
+                18 if f64 else 15, dtype=dt)
+            _, tc, lay = sf.shell_flight(ps, ds, tm, rr, ss, ts)
+            cases.append((f"flight stresses, {column_name}", (ps, ds, tc, lay, tm, rr, ss)))
+        for label, args in cases:
+            _rule_case(f"shell_depths{' f64' if f64 else ''}, {label}",
+                       lambda: sf.shell_depths(*args), lambda: shell_depths_plain(*args), None,
+                       f64, 0, 0, times=False)
+        # timed at path B's lanes (the plain version on the sample); the
+        # bound counts the levels up to each lane's larger bracket
+        name = "shell_depths" + sfx
+        device, by = _device_ms(lambda: sf.shell_depths(*full), name + "_kernel")
+        levels = _depth_levels(sample[0], sample[1], sample[4], radii) * B4 / 2**16
+        bound = bound_ms(p.element_size() * B4 * 10 + 4 * B4, 5.0 * levels,
+                         PEAK_F64_FLOPS if f64 else PEAK_F32_FLOPS)
+        times = {"ms": _time_ms(lambda: sf.shell_depths(*full)), "device_ms": device,
+                 "device_by": by, "plain_ms": _time_ms(lambda: shell_depths_plain(*sample), reps=5),
+                 "lanes": B4, "plain_lanes": 2**16, "bound_ms": bound[0], "bound_by": bound[1]}
+        print(f"  {name} at path B's {B4} lanes: call {times['ms']:.4f} ms, device {device:.4f} "
+              f"ms (by the {by}), plain {times['plain_ms']:.4f} ms on the 2^16-lane sample, "
+              f"{levels / B4:.2f} levels a lane, bound {bound[0]:.4f} ms by {bound[1]}",
+              flush=True)
+        out[name] = (0.0, times)
+    etp.set_mode("mono_single")
+    names = _dual_refusals()
+    print(f"  a dual into {', '.join(names)}: NotImplementedError, nothing launched",
+          flush=True)
+    return out
+
+
+def _profiled_iteration(run, module, attr, iterations):
+    """(CUDA kernels, device ms) an iteration of ``run`` over a profiler
+    window of ``module.attr``'s calls (one an iteration): 8 iterations
+    after the run's first sixteenth (the run ends there)."""
+    window = min(8, iterations // 4)
+    prof = profile_window(run, module, attr, iterations // 16, window)
+    n, ms, _ = window_device(prof, window)
+    return n, ms
+
+
+def sensitivity_full_width(phase):
+    """Phase M: c1 (76 VZA x 4194304 spp) with each channel of
+    :data:`SENS_C1_CHANNELS` and path B (c4 at SZA 75, 15 VZA x 2097152 spp)
+    with ``medium.tau_scale``, each channel one ``sensitivities`` pass, beside
+    the primal render they share (the same config: RR off, ``lr_flight``)
+    in one run: walls, iterations, launches against them (K1: once an
+    iteration, twice where the tables carry a tangent; path B: K2 and the
+    shell depths once, K4 twice), CUDA kernels and device ms an iteration,
+    busy share. The pass's radiance must equal the primal render bit for
+    bit. Then path B's pass in ``mono_double`` (the float64 builds), and
+    the Gauss-Newton retrieval. Returns its records."""
+    import dataclasses
+
+    import torch
+
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.ops import tracer, tracer_spherical
+    from eradiate_tpu_torch.sensitivity import sensitivities
+
+    rec = {"passes": {}}
+
+    def case(label, exp, spp, channels, module, attr, expect, seed=SEED):
+        m = exp.measures[0]
+        scene, sensor, config = exp.compile_scene(m, exp.spectral_context(m))
+        cfg = dataclasses.replace(config, rr_depth=config.max_depth, lr_flight=True)
+        n_pix = len(np.asarray(sensor.directions))
+        sensitivities(exp, channels[-1:], spp=1024, seed=seed, device="cuda")  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        raw = exp._render_one(scene, sensor, cfg, spp, seed, device="cuda")
+        torch.cuda.synchronize()
+        wall0 = time.perf_counter() - t0
+        its = raw["iterations"]
+        primal = raw["radiance"].cpu().numpy()
+        launches = read_launches()
+        kn, kms = _profiled_iteration(
+            lambda: exp._render_one(scene, sensor, cfg, spp, seed, device="cuda"), module, attr,
+            its)
+        print(f"[{phase}] {label}: primal render (RR off, lr_flight) {n_pix} VZA x {spp} spp, "
+              f"wall {wall0:.3f} s, {its} iterations ({1e3 * wall0 / its:.3f} ms each), "
+              f"{kn:.1f} kernels and {kms:.3f} device ms an iteration, busy "
+              f"{kms * its / (1e3 * wall0):.3f}; launches {_nonzero(launches)}",
+              flush=True)
+        out = {"primal_wall_s": wall0, "iterations": its, "kernels_an_iteration": kn,
+               "device_ms_an_iteration": kms}
+        for ch in channels:
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            (entry,) = sensitivities(exp, [ch], spp=spp, seed=seed, device="cuda").values()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+            jac = entry["jac"][ch]["brf"]
+            kn, kms = _profiled_iteration(
+                lambda: sensitivities(exp, [ch], spp=spp, seed=seed, device="cuda"), module,
+                attr, its)
+            print(f"    {ch}: pass wall {wall:.3f} s ({wall / wall0:.3f}x the primal), "
+                  f"{kn:.1f} kernels and {kms:.3f} device ms an iteration, busy "
+                  f"{kms * its / (1e3 * wall):.3f}; launches {_nonzero(launches)}; BRF tangent "
+                  f"at nadir {jac[0, n_pix // 2]:.6f}, finite {bool(np.isfinite(jac).all())}",
+                  flush=True)
+            for k, mult in expect(ch).items():
+                if launches[k] != mult * its:
+                    raise AssertionError(f"{label}, {ch}: {k} launched {launches[k]} times, not "
+                                         f"{mult} x {its} iterations")
+            if any(n for k, n in launches.items() if k not in expect(ch)):
+                raise AssertionError(f"{label}, {ch}: a kernel of another path launched")
+            if not np.array_equal(entry["radiance"], primal):
+                raise AssertionError(f"{label}, {ch}: the pass's radiance differs from the "
+                                     "primal render")
+            if not (np.isfinite(jac).all() and np.abs(jac).max() > 0):
+                raise AssertionError(f"{label}, {ch}: the tangent is not finite and non-zero")
+            out[ch] = {"wall_s": wall, "ratio": wall / wall0, "launches": _nonzero(launches),
+                       "kernels_an_iteration": kn, "device_ms_an_iteration": kms}
+        rec["passes"][label] = out
+        return out
+
+    etp.set_mode("mono_single")
+    case("c1", _c1(N_VZA), SPP_C1, SENS_C1_CHANNELS, tracer, "collision_fetch",
+         lambda ch: {"collision_fetch": 1 if ch == "surface.reflectance" else 2})
+    path_b = {"shell_flight": 1, "shell_depths": 1, "slant_tau": 2}
+    case("path B", _c4(75.0), SPP_C4, ("medium.tau_scale",), tracer_spherical, "shell_flight",
+         lambda ch: path_b)
+    etp.set_mode("mono_double")
+    case("path B, mono_double", _c4(75.0), SPP_C4, ("medium.tau_scale",), tracer_spherical,
+         "shell_flight", lambda ch: {f"{k}_f64": n for k, n in path_b.items()})
+    etp.set_mode("mono_single")
+    rec["retrieval"] = retrieval(phase)
+    return rec
+
+
+def _nonzero(launches):
+    return {k: n for k, n in launches.items() if n}
+
+
+def _retrieval_exp(rho, scale):
+    """The retrieval's scene: a homogeneous scattering and absorbing 10 km
+    layer whose depth scales with ``scale``, over a Lambertian floor."""
+    from eradiate_tpu_torch import AtmosphereExperiment
+
+    return AtmosphereExperiment(
+        illumination={"type": "directional", "zenith": 30.0, "azimuth": 0.0},
+        measures={"type": "mdistant", "construct": "hplane", "zeniths": RETRIEVAL_ZENITHS,
+                  "azimuth": 0.0, "spp": RETRIEVAL_SPP, "id": "m"},
+        surface={"type": "lambertian", "reflectance": float(rho)},
+        atmosphere={"type": "homogeneous", "top": 10.0, "sigma_s": 0.02 * float(scale),
+                    "sigma_a": 0.01 * float(scale)})
+
+
+def retrieval(phase):
+    """A Gauss-Newton fit of (rho, tau scale) from synthetic 5-angle BRFs at
+    16384 spp with the port's Jacobians on the card (the JAX package's
+    ``tests/system/test_retrieval.py``: its start, steps, damping, seeds and
+    gate, |rho - 0.32| < 0.015 and |s - 1.35| < 0.08)."""
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.sensitivity import sensitivities
+
+    t0 = time.perf_counter()
+    y_obs = np.asarray(etp.run(_retrieval_exp(*RETRIEVAL_TRUTH), seed_state=etp.SeedState(123),
+                               device="cuda")["brf"]).ravel()
+    x = np.array(RETRIEVAL_START)
+    tail = []
+    for it in range(6):
+        (e,) = sensitivities(_retrieval_exp(*x), ["surface.reflectance", "medium.tau_scale"],
+                             seed=1000, device="cuda").values()
+        J = np.stack([e["jac"]["surface.reflectance"]["brf"].ravel(),
+                      e["jac"]["medium.tau_scale"]["brf"].ravel() / x[1]], axis=1)
+        dx = np.linalg.solve(J.T @ J + 1e-6 * np.eye(2), J.T @ (y_obs - e["brf"].ravel()))
+        x = x + np.clip(dx, -0.5, 0.5)
+        x = np.array([np.clip(x[0], 0.01, 0.95), np.clip(x[1], 0.1, 3.0)])
+        if it >= 3:
+            tail.append(x.copy())
+    x_hat = np.mean(tail, axis=0)
+    wall = time.perf_counter() - t0
+    err = np.abs(x_hat - np.array(RETRIEVAL_TRUTH))
+    print(f"    retrieval: 6 Gauss-Newton iterations in {wall:.3f} s, (rho, tau scale) "
+          f"{x_hat[0]:.5f}, {x_hat[1]:.5f} against {RETRIEVAL_TRUTH} (errors {err[0]:.5f}, "
+          f"{err[1]:.5f}; bounds 0.015, 0.08)", flush=True)
+    if not (err[0] < 0.015 and err[1] < 0.08):
+        raise AssertionError("the retrieval did not converge to the truth")
+    return {"iterations": 6, "wall_s": wall, "x_hat": x_hat.tolist()}
+
+
+def _tangent_gate(label, ch, gpu, cpu, pixel, median):
+    """Each pixel's tangent within ``pixel`` of the channel's largest
+    |tangent| and their median within ``median``."""
+    a, b = gpu["jac"][ch]["radiance"], cpu["jac"][ch]["radiance"]
+    scale = np.abs(b).max()
+    dev = np.abs(a - b) / scale
+    print(f"    {label} {ch}: tangent max {dev.max():.3e}, median {np.median(dev):.3e} of the "
+          f"largest |tangent| {scale:.4e} (bounds {pixel:g}, {median:g})", flush=True)
+    if not (dev.max() <= pixel and np.median(dev) <= median):
+        raise AssertionError(f"{label} {ch}: the CUDA tangent differs from the CPU's")
+
+
+def sensitivity_gates(phase, cpu):
+    """Phase N: the sensitivities on CUDA against the CPU at one seed: c1 at
+    11 views and 256 spp (values within 1e-4 and |z| <= 5, tangents within
+    1e-3 of each channel's largest |tangent|); the spherical, canopy and DEM
+    scenes at 64 spp (values |z| <= 5; tangents each pixel within 1e-2 of
+    the channel's largest, their median within 1e-3). Returns the CUDA
+    walls."""
+    walls = {}
+    for case, channels in SENS_GATE_CHANNELS.items():
+        gpu, wall = _sens_render(case, "cuda")
+        cpu_entry, cpu_wall = cpu.get(_cpu_sens_render, "mono_single", case)
+        walls[case] = wall
+        a, b = gpu["radiance"], cpu_entry["radiance"]
+        rel = np.abs(a - b) / np.abs(b)
+        z = np.abs(a - b) / np.sqrt(np.maximum(gpu["radiance_var"] + cpu_entry["radiance_var"],
+                                               1e-30))
+        print(f"[{phase}] {case} sensitivities on CUDA ({wall:.2f} s) against the CPU "
+              f"({cpu_wall:.2f} s): values max rel {rel.max():.3e}, max |z| {z.max():.3e}",
+              flush=True)
+        if z.max() > 5.0 or (case == "c1" and rel.max() > 1e-4):
+            raise AssertionError(f"{case}: the CUDA values differ from the CPU's")
+        for ch in channels:
+            if case == "c1":
+                _tangent_gate(case, ch, gpu, cpu_entry, 1e-3, 1e-3)
+            else:
+                _tangent_gate(case, ch, gpu, cpu_entry, 1e-2, 1e-3)
+    return walls
+
+
+
+#: The phase group whose seconds :func:`stamp` prints next, and its start.
+_STAMP = {"label": "1. card", "t": None}
+
+
+def stamp(label):
+    """Print the seconds of the phase group that ends here (since the
+    previous stamp, or the script's start) and the total so far; ``label``
+    names the group that starts."""
+    now = time.perf_counter()
+    start = T_START if _STAMP["t"] is None else _STAMP["t"]
+    print(f"[seconds] {_STAMP['label']}: {now - start:.1f} s (total {now - T_START:.1f} s)",
+          flush=True)
+    _STAMP.update(label=label, t=now)
+
 def main():
     import torch
 
@@ -4577,6 +5128,7 @@ def main():
     print(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
+    stamp('2. build')
     # -- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
     lib = _build.library()
@@ -4610,11 +5162,13 @@ def main():
     # c3's (phases 25 and 31) and phases E-H's CPU sides, in a process of
     # their own: the first pool's queue takes most of the script's time
     cpu_bg = CpuRenders(workers=2)
-    cpu_bg.submit(_cpu_rows_render, "ckd_single", _c3, False, C3_GATE_SPP)
-    cpu_bg.submit(_cpu_rows_render, "ckd_polarized_single", _c3, True, C3_GATE_SPP)
+    cpu_bg.submit(_cpu_rows_render, "ckd_single", _c3_gate, False, C3_GATE_SPP)
+    cpu_bg.submit(_cpu_rows_render, "ckd_polarized_single", _c3_gate, True, C3_GATE_SPP)
     submit_sensor_gates(cpu_bg)
     submit_dem_gates(cpu_bg)
+    submit_sensitivity_gates(cpu_bg)
 
+    stamp('3. kernel against twin')
     # -- 3. kernel against twin ---------------------------------------------
     print("[3] collision_fetch kernel against its plain twin", flush=True)
     from eradiate_tpu_torch.test_tools import collision_fetch as fetch_tools
@@ -4655,9 +5209,11 @@ def main():
           f"{fetch_times_1200['flushed_device_ms']:.4f}; bound {fetch_bound[0]:.4f} and "
           f"{bound_1200[0]:.4f} by {fetch_bound[1]}", flush=True)
 
+    stamp('4. port on CUDA against port on CPU')
     # -- 4. port on CUDA against port on CPU ----------------------------------
     rows_cuda_vs_cpu(4, "c1", _c1, 1)
 
+    stamp('5. c1 at full width')
     # -- 5. c1 at full width --------------------------------------------------
     exp = _c1(N_VZA)
     etp.run(exp, spp=SPP_C1, seed_state=etp.SeedState(0), device="cuda")
@@ -4697,6 +5253,7 @@ def main():
           f"{KERNELS['collision_fetch']} over {in_run} launches of one more run): "
           f"{fetch_times['run_device_ms']:.4f} ms", flush=True)
 
+    stamp('6. the shell kernels in the library')
     # -- 6. the shell kernels in the library --------------------------------
     for fn in ("shell_flight", "shell_event", "slant_tau", "ray_tris_nearest",
                "ray_tris_occluded", "ray_tris_nearest_instanced",
@@ -4731,6 +5288,7 @@ def main():
         if kernel not in report:
             raise AssertionError(f"the library has no {kernel}")
 
+    stamp('7. shell kernels against their twins')
     # -- 7. shell kernels against their twins ------------------------------
     print("[7] shell_flight, slant_tau and shell_event kernels against their plain twins",
           flush=True)
@@ -4762,19 +5320,23 @@ def main():
             shell_errs = {k: max(v, errs[k]) for k, v in shell_errs.items()}
     for column, (radii, sigma) in shells.flight_columns(np.random.default_rng(8)).items():
         errs, _, _ = check_shell_kernels(
-            f"flight stresses, {column}", _flight_stress_inputs(radii, sigma, sun_85, 100_037, 15))
+            f"flight stresses, {column}",
+            _flight_stress_inputs(radii, sigma, sun_85, STRESS_LANES, 15))
         shell_errs = {k: max(v, errs[k]) for k, v in shell_errs.items()}
 
+    stamp('8. c4: port on CUDA against port on CPU')
     # -- 8. c4: port on CUDA against port on CPU -----------------------------
     for sza in (75.0, 85.0):
         c4_cuda_vs_cpu(sza)
 
+    stamp('9, 10. c4 at full width')
     # -- 9, 10. c4 at full width -------------------------------------------
     c4_launches, c4_in_run, c4_brf_nadir = c4_full_width(75.0, SPP_C4, phase=9)
     c4x_launches, c4x_in_run, _ = c4_full_width(85.0, SPP_C4, phase=10)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
 
+    stamp('11. leaf-sweep kernels against their plain versions')
     # -- 11. leaf-sweep kernels against their plain versions ----------------
     print("[11] leaf-sweep kernels against their plain versions: the flat ones "
           "(ray_leaves_nearest, ray_leaves_occluded) traverse a bounding volume hierarchy "
@@ -4843,10 +5405,12 @@ def main():
             errs = {k: max(v, more[k]) for k, v in errs.items()}
         sweep_errs.update(errs)
 
+    stamp('12. c5 scene: port on CUDA against port on CPU')
     # -- 12. c5 scene: port on CUDA against port on CPU ----------------------
     for form in ("instanced", "flat"):
         c5_cuda_vs_cpu(form, 12, cpu)
 
+    stamp('13, 14. c5 scene at full width')
     # -- 13, 14. c5 scene at full width -------------------------------------
     c5_launches = {}
     c5_launches["instanced"], ds_inst, wall_inst = c5_full_width("instanced", SPP_C5, phase=13)
@@ -4863,6 +5427,7 @@ def main():
     if not z.max() <= 5.0:
         raise AssertionError("the instanced and the flat c5 scene disagree")
 
+    stamp('15. path B: c4 with lr_flight at full width')
     # -- 15. path B: c4 with lr_flight at full width --------------------------
     lr_launches, lr_in_run = c4_lr_flight_full_width(SPP_C4, phase=15)
 
@@ -4873,7 +5438,7 @@ def main():
               "(bvh_nearest_kernel, bvh_occluded_kernel), the instanced ones a hierarchy of two "
               "levels, instance boxes above the canonical soup's hierarchy "
               "(tri_ibvh_nearest_kernel, tri_ibvh_occluded_kernel)", flush=True)
-        for form, plain_lanes in (("trees", PATH_PLAIN_LANES), ("wood", PATH_PLAIN_LANES)):
+        for form, plain_lanes in (("trees", PATH_PLAIN_LANES), ("wood", WOOD_PATH_PLAIN_LANES)):
             exp = _c5(form, mesh_dir)
             *_, tris, cull, rays = _canopy_inputs(exp, B5, seed=30)
             if form == "wood":
@@ -4898,7 +5463,7 @@ def main():
                     plain_lanes=WOOD_PLAIN_LANES if form == "wood" else PLAIN_LANES)
                 errs = {k: max(v, more[k]) for k, v in errs.items()}
             for far in (False, True):
-                tris, cull, rays = _edge_inputs(form == "trees", 100_037, seed=32, far=far)
+                tris, cull, rays = _edge_inputs(form == "trees", EDGE_LANES, seed=32, far=far)
                 more, *_ = check_sweep_kernels(
                     f"wood skeleton {'instanced' if form == 'trees' else 'flat'}, rays at "
                     f"edges and vertices from {'50-300 m' if far else '0.5-3 m'}",
@@ -4911,7 +5476,7 @@ def main():
                                      "components, from 0.5-3 m"),
                                     ("axes far", "wood skeleton flat, zero direction "
                                      "components, from 50-300 m")):
-                    tris, cull, rays = _flat_stress_inputs(kind, 100_037, seed=33)
+                    tris, cull, rays = _flat_stress_inputs(kind, EDGE_LANES, seed=33)
                     more, *_ = check_sweep_kernels(label, tris, cull, rays, seed=33)
                     errs = {k: max(v, more[k]) for k, v in errs.items()}
             else:
@@ -4950,6 +5515,7 @@ def main():
           f"{np.asarray(ds_wood['brf']).mean():.6f}", flush=True)
     print(f"     instanced triangle kernels on the wood skeleton: {skeleton_ms}", flush=True)
 
+    stamp('20-23. polarized transport (mono_polarized_single)')
     # -- 20-23. polarized transport (mono_polarized_single) ------------------
     etp.set_mode(POLARIZED_MODE)
     polarized_c1_cuda_vs_cpu(phase=20)
@@ -4958,6 +5524,7 @@ def main():
                  for form in ("instanced", "flat", "trees")}
     pol_c5_launches, pol_sweep_ms, pol_c5_stats = polarized_c5_full_width(23, ds_inst)
 
+    stamp('24-27. c2 (mono_single) and c3 (ckd_single) through K1')
     # -- 24-27. c2 (mono_single) and c3 (ckd_single) through K1 ---------------
     etp.set_mode("mono_single")
     print("[24] collision_fetch kernel against its plain twin on c2's and c3's columns",
@@ -4986,7 +5553,8 @@ def main():
     etp.set_mode("mono_single")
     c2_small = rows_cuda_vs_cpu(25, "c2", _c2, 1)
     etp.set_mode("ckd_single")
-    c3_small = rows_cuda_vs_cpu(25, "c3 (ckd_single)", _c3, ROWS_C3, cpu_bg, C3_GATE_SPP)
+    c3_small = rows_cuda_vs_cpu(25, "c3 (ckd_single, 2 g-points a bin)", _c3_gate,
+                                C3_GATE_ROWS, cpu_bg, C3_GATE_SPP)
     etp.set_mode("mono_single")
     c2_launches, c2_run_ms, c2_iterations, _, _, _, c2_stats = rows_full_width(
         26, "c2", _c2(N_VZA), SPP_C2, N_VZA, 64, 48)
@@ -4996,6 +5564,7 @@ def main():
     if len(c3_rows) != ROWS_C3:
         raise AssertionError(f"c3 rendered {len(c3_rows)} rows, not {ROWS_C3}")
 
+    stamp('28-31. polarized c4 (K2-K4), c2 and c3 (K1)')
     # -- 28-31. polarized c4 (K2-K4), c2 and c3 (K1) ----------------------------
     etp.set_mode(POLARIZED_MODE)
     pol_c4_small = polarized_c4_cuda_vs_cpu(28)
@@ -5007,22 +5576,40 @@ def main():
     pol_c3_small = polarized_rows_cuda_vs_cpu(31, cpu_bg)
     etp.set_mode("mono_single")
 
+    stamp("32-37. the double modes through the float64 builds of K1-K4")
     double = double_phases(fetch_times, B4, sun_85, c3_wall)
+    stamp("38-40. the leaf canopy in the double modes through K5-K7's float64 builds")
     # -- 38-40. the leaf canopy in the double modes through K5-K7's float64 builds
     canopy64 = canopy_double_phases(B5, sweep_times, pol_c5_stats, pol_c5_stats.pop("ds"),
                                     c5_single, cpu)
+    stamp("41-43. canopies with triangles in the double modes through K8's and")
     # -- 41-43. canopies with triangles in the double modes through K8's and
     # K9's float64 builds
     tri64 = tri_double_phases(B5, sweep_times, tri_single, cpu)
+    stamp('A-D. every surface kind of the reference, the aerosol over c4 and')
     # -- A-D. every surface kind of the reference, the aerosol over c4 and
     # the canopy
     surfaces = surface_phases(cpu, double["runs"]["c1", "mono_single"], c2_stats)
+    stamp('E-H. cameras, mpdistant, the constant sky, the structured samplers')
     # -- E-H. cameras, mpdistant, the constant sky, the structured samplers
     # and the spot over the canopy
     sensors = sensor_phases(cpu_bg)
+    stamp('I-K. DEM terrain: the marched heightfield and the triangulated tile')
     # -- I-K. DEM terrain: the marched heightfield and the triangulated tile
     # through K8
     dem = dem_phases(cpu_bg)
+    # -- L-N. forward-mode sensitivities: the kernels' forward rules and the
+    # shell depths against their plain versions, c1 and path B at full width,
+    # the retrieval, CUDA against the CPU
+    stamp("L. the forward rules and the shell depths")
+    rules = forward_rule_phase(
+        "L", N_VZA * lane_partition(N_VZA, SPP_C1, REGEN_LANES_TARGET["cuda"], "cpu")[0], B4,
+        sun_85)
+    stamp("M. sensitivities at full width, and the retrieval")
+    sens = sensitivity_full_width("M")
+    stamp("N. sensitivities on CUDA against the CPU")
+    sensitivity_gates("N", cpu_bg)
+    stamp("the kernels line")
     # -- 32-37. the double modes through the float64 builds of K1-K4 -----------
     runs, path_b64, pol_c1_double = double["runs"], double["path_b"], double["pol_c1"]
     err64, fetch64_times, fetch64_bound = double["fetch"]
@@ -5189,6 +5776,32 @@ def main():
     for k in kernels:
         if k["name"] in dem:
             k["dem"] = dem[k["name"]]
+    # the sensitivity path (phases L and M): K1's and K4's forward rules (the
+    # rule's two launches timed together) and the passes' launches of K1, K2
+    # and K4; the shell depths, the one kernel of this path alone
+    by_name = {k["name"]: k for k in kernels}
+    passes = sens["passes"]
+    for sfx, pb in (("", "path B"), ("_f64", "path B, mono_double")):
+        tangent = passes[pb]["medium.tau_scale"]["launches"]
+        by_name["collision_fetch" + sfx]["sensitivity"] = {
+            "rule": rules["collision_fetch_rule" + sfx][1]}
+        by_name["slant_tau" + sfx]["sensitivity"] = {
+            "rule": rules["slant_tau_rule" + sfx][1], "path_b_tau_scale_launches":
+            tangent["slant_tau" + sfx], "path_b_iterations": passes[pb]["iterations"]}
+        by_name["shell_flight" + sfx]["sensitivity"] = {
+            "path_b_tau_scale_launches": tangent["shell_flight" + sfx]}
+        err, times = rules["shell_depths" + sfx]
+        kernels.append({
+            "name": "shell_depths" + sfx, "route": "cuda", "source": shell_src,
+            # XLA work of the reference's likelihood-ratio flight (no Pallas
+            # source): the attached path depths of _shell_flight_xla
+            "replaces": "eradiate_tpu/ops/spherical.py:417",
+            "launches": tangent["shell_depths" + sfx], "max_abs_err": err, **times,
+            "library_ms": None,
+            "path_b_iterations": passes[pb]["iterations"]})
+    by_name["collision_fetch"]["sensitivity"]["c1_launches"] = {
+        ch: passes["c1"][ch]["launches"]["collision_fetch"] for ch in SENS_C1_CHANNELS}
+    by_name["collision_fetch"]["sensitivity"]["c1_iterations"] = passes["c1"]["iterations"]
     print(f"chip_smoke total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

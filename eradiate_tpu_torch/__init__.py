@@ -19,7 +19,12 @@ kernels):
   ``ckd_polarized_*``);
 * DEM terrain (``experiments.DEMExperiment``): the bilinear heightfield
   marched in plain PyTorch (``ops/dem.py``) or, triangulated, through the
-  flat triangle sweeps.
+  flat triangle sweeps;
+* forward-mode sensitivities (``sensitivity.sensitivities``): BRF Jacobians
+  by ``torch.autograd.forward_ad``, one pass a channel, through the
+  kernels' forward rules (the collision fetch, the slant depth) and the
+  shell depths of the likelihood-ratio flight, launched on the
+  extinction's tangent, on every tracer family.
 
 The package stands alone: it imports ``torch`` and ``numpy``, never ``jax``
 and nothing of ``eradiate_tpu``. Its host-side code (mode registry, seed
@@ -32,7 +37,7 @@ stays the reference the tests hold the port against, exchanging numpy
 arrays and plain Python values only.
 
 Public surface: ``set_mode``/``mode``, ``SeedState``/``root_seed_state``,
-the experiments and ``run``. Every entry point takes an explicit ``device``
+the experiments, ``run`` and ``sensitivity``. Every entry point takes an explicit ``device``
 ("cuda" by default); asking for CUDA without a card raises instead of
 running on the CPU.
 """
@@ -46,6 +51,7 @@ from .experiments import (  # noqa: F401
     CanopyExperiment,
     run,
 )
+from . import sensitivity  # noqa: F401
 
 _apply_settings()
 

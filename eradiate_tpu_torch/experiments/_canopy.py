@@ -171,6 +171,19 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
             tri_params = optics(tri_mesh["reflectance"], tri_mesh["transmittance"])
         return scene, sensor, config, leaf_params, leaves, tris, tri_params
 
+    @staticmethod
+    def _render_canopy_raw(scene, leaf_params, leaves, sensor, config, n, seed, tris,
+                           tri_params, device="cuda"):
+        """One canopy render on ``device``, scalar or polarized as ``config``
+        says (reference ``_render_canopy_raw``, one device): the canopy
+        counterpart of :meth:`._core.EarthObservationExperiment._render_one`,
+        which :func:`..sensitivity.sensitivities` also calls."""
+        renderer = render_canopy_polarized if config.polarized else render_canopy
+        return renderer(
+            scene, leaf_params, leaves, sensor, config, spp=n, seed=seed, tris=tris,
+            tri_params=tri_params, device=device,
+        )
+
     def process(self, spp=None, seed_state=None, device="cuda"):
         if self.canopy is None:
             return super().process(spp=spp, seed_state=seed_state, device=device)
@@ -181,11 +194,9 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
             (scene, sensor, config, leaf_params, leaves, tris,
              tri_params) = self.compile_canopy_scene(measure, ctx)
             n = int(spp) if spp is not None else int(measure.spp)
-            renderer = render_canopy_polarized if config.polarized else render_canopy
-            raw = renderer(
-                scene, leaf_params, leaves, sensor, config, spp=n,
-                seed=int(seed_state.next()), tris=tris, tri_params=tri_params,
-                device=dev,
+            raw = self._render_canopy_raw(
+                scene, leaf_params, leaves, sensor, config, n, int(seed_state.next()), tris,
+                tri_params, device=dev,
             )
             measure.results = {
                 "raw": {

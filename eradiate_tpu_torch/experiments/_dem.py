@@ -35,6 +35,31 @@ class DEMExperiment(AtmosphereExperiment):
         if self.geometry.kind != "plane_parallel":
             raise ValueError("DEMExperiment requires plane-parallel geometry")
 
+    def terrain(self):
+        """The terrain's arrays, made once per experiment: ``(dem, tris)``,
+        the heightfield's :class:`~..ops.dem.DemArrays` and, with
+        ``triangulate``, its triangulation (else None), in the mode's host
+        dtype."""
+        dtype = mode().host_dtype
+        surface = self.surface
+        tris = None
+        if surface.triangulate:
+            tris = mesh_from_dem(surface.elevation, surface.x0, surface.y0, surface.dx,
+                                 surface.dy, dtype=dtype)
+        return surface.dem_arrays(dtype=dtype), tris
+
+    def _render_dem_raw(self, scene, terrain, sensor, config, n, seed, device="cuda"):
+        """One render over the terrain ``terrain`` (:meth:`terrain`) on
+        ``device``: :func:`..ops.tracer_dem.render_dem` with the surface's
+        march and bisection steps, which :func:`..sensitivity.sensitivities`
+        also calls."""
+        dem, tris = terrain
+        return render_dem(
+            scene, dem, sensor, config, spp=n, seed=seed, tris=tris,
+            n_march=self.surface.march_steps, n_bisect=self.surface.bisect_steps,
+            device=device,
+        )
+
     def process(self, spp=None, seed_state=None, device="cuda", mesh=None):
         """Render every measure on ``device``. ``mesh`` (a device mesh for
         the reference's sharded render) is refused: the port renders on one
@@ -48,20 +73,13 @@ class DEMExperiment(AtmosphereExperiment):
             return super().process(spp=spp, seed_state=seed_state, device=device)
         dev = resolve_device(device)
         seed_state = seed_state or root_seed_state
-        dtype = mode().host_dtype
-        surface = self.surface
-        dem = surface.dem_arrays(dtype=dtype)
-        tris = None
-        if surface.triangulate:
-            tris = mesh_from_dem(surface.elevation, surface.x0, surface.y0, surface.dx,
-                                 surface.dy, dtype=dtype)
+        terrain = self.terrain()
         for measure in self.measures:
             ctx = self.spectral_context(measure)
             scene, sensor, config = self.compile_scene(measure, ctx)
             n = int(spp) if spp is not None else int(measure.spp)
-            raw = render_dem(
-                scene, dem, sensor, config, spp=n, seed=int(seed_state.next()), tris=tris,
-                n_march=surface.march_steps, n_bisect=surface.bisect_steps, device=dev,
+            raw = self._render_dem_raw(
+                scene, terrain, sensor, config, n, int(seed_state.next()), device=dev
             )
             measure.results = {
                 "raw": {

@@ -18,6 +18,8 @@ import ctypes
 
 import torch
 
+from .dual import refuse_tangents, tangent
+
 __all__ = ["collision_fetch", "collision_fetch_plain", "launches", "MAX_LEVELS"]
 
 #: Kernel launches made by :func:`collision_fetch` in this process, by
@@ -98,6 +100,29 @@ def _check(tau_q, z_levels, tau_levels, tables):
         raise ValueError("more than 2^31 - 1 lanes")
 
 
+class _CollisionFetchRule(torch.autograd.Function):
+    """:func:`collision_fetch` with a forward rule for a tangent on
+    ``tables``: the fetched tangent is the fetch of the tangent tables at
+    the same queries and levels (the same bracket, so the same layer); z and
+    the layer have none."""
+
+    @staticmethod
+    def forward(tau_q, z_levels, tau_levels, tables):
+        return _collision_fetch(tau_q, z_levels, tau_levels, tables)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(output[1])
+        ctx.save_for_forward(*inputs[:3])
+
+    @staticmethod
+    def jvp(ctx, d_tau_q, d_z_levels, d_tau_levels, d_tables):
+        tau_q, z_levels, tau_levels = ctx.saved_tensors
+        fetched = _collision_fetch(tau_q, z_levels, tau_levels, d_tables.contiguous())[2]
+        return torch.zeros_like(tau_q), None, fetched
+
+
 def collision_fetch(tau_q, z_levels, tau_levels, tables):
     """Search-and-fetch at each lane's sampled tau (reference
     ``medium.collision_fetch``, with the layer tables stacked as one
@@ -106,8 +131,18 @@ def collision_fetch(tau_q, z_levels, tau_levels, tables):
     Returns ``(z [B], layer [B] int32, fetched [K, B])``. CUDA tensors go
     through the kernel of their dtype, float32 or float64 (the wrapper
     checks device, dtype, contiguity and shapes, and raises if the launch
-    fails); CPU tensors through :func:`collision_fetch_plain`.
+    fails); CPU tensors through :func:`collision_fetch_plain`. A
+    forward-mode tangent on ``tables`` is carried by the rule (a second
+    launch, on the tangent tables); one on the other operands raises.
     """
+    refuse_tangents("collision_fetch", tau_q=tau_q, z_levels=z_levels, tau_levels=tau_levels)
+    if tangent(tables) is not None:
+        return _CollisionFetchRule.apply(tau_q, z_levels, tau_levels, tables)
+    return _collision_fetch(tau_q, z_levels, tau_levels, tables)
+
+
+def _collision_fetch(tau_q, z_levels, tau_levels, tables):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
     global launches, launches_f64
     if tau_q.device.type == "cpu":
         return collision_fetch_plain(tau_q, z_levels, tau_levels, tables)

@@ -72,6 +72,7 @@ from .bvh import (
     nearest_plain,
     occluded_over_instances,
 )
+from .dual import refuse_tangents
 
 __all__ = [
     "CHUNK",
@@ -721,6 +722,8 @@ def ray_leaves_nearest(p, d, t_max, centers, normals, radii, bvh=None):
     device, dtype, contiguity, shapes and the hierarchy's depth, and raises
     on mixed or other dtypes and if the launch fails); CPU tensors through
     :func:`ray_leaves_nearest_plain`."""
+    refuse_tangents("ray_leaves_nearest", p=p, d=d, t_max=t_max,
+                    centers=centers, normals=normals, radii=radii)
     if _on_cpu(p, "ray_leaves_nearest"):
         return ray_leaves_nearest_plain(p, d, t_max, centers, normals, radii)
     return _launch_flat("ray_leaves_nearest", True, p, d, t_max, centers, normals, radii, bvh)
@@ -729,6 +732,8 @@ def ray_leaves_nearest(p, d, t_max, centers, normals, radii, bvh=None):
 def ray_leaves_occluded(p, d, t_max, centers, normals, radii, bvh=None):
     """True [B] where any leaf disk blocks the segment; operands as
     :func:`ray_leaves_nearest`."""
+    refuse_tangents("ray_leaves_occluded", p=p, d=d, t_max=t_max,
+                    centers=centers, normals=normals, radii=radii)
     if _on_cpu(p, "ray_leaves_occluded"):
         return ray_leaves_occluded_plain(p, d, t_max, centers, normals, radii)
     return _launch_flat("ray_leaves_occluded", False, p, d, t_max, centers, normals, radii,
@@ -739,6 +744,8 @@ def ray_leaves_nearest_instanced(p, d, t_max, centers, normals, radii, offsets, 
     """:func:`ray_leaves_nearest` against the union of the canonical cloud
     translated by each of ``offsets`` [I, 3]; ``bvh`` optionally passes
     :func:`leaf_instanced_bvh` of the cloud and the offsets."""
+    refuse_tangents("ray_leaves_nearest_instanced", p=p, d=d, t_max=t_max,
+                    centers=centers, normals=normals, radii=radii, offsets=offsets)
     if _on_cpu(p, "ray_leaves_nearest_instanced"):
         return ray_leaves_nearest_instanced_plain(p, d, t_max, centers, normals, radii, offsets)
     return _launch_instanced("ray_leaves_nearest_instanced", True, p, d, t_max, centers,
@@ -747,6 +754,8 @@ def ray_leaves_nearest_instanced(p, d, t_max, centers, normals, radii, offsets, 
 
 def ray_leaves_occluded_instanced(p, d, t_max, centers, normals, radii, offsets, bvh=None):
     """:func:`ray_leaves_occluded` against the translated copies."""
+    refuse_tangents("ray_leaves_occluded_instanced", p=p, d=d, t_max=t_max,
+                    centers=centers, normals=normals, radii=radii, offsets=offsets)
     if _on_cpu(p, "ray_leaves_occluded_instanced"):
         return ray_leaves_occluded_instanced_plain(p, d, t_max, centers, normals, radii, offsets)
     return _launch_instanced("ray_leaves_occluded_instanced", False, p, d, t_max, centers,

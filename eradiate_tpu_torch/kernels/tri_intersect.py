@@ -89,6 +89,7 @@ from .bvh import (
     nearest_plain,
     occluded_over_instances,
 )
+from .dual import refuse_tangents
 from .leaf_intersect import (
     _build,
     _check_operands,
@@ -572,6 +573,7 @@ def ray_tris_nearest(p, d, t_max, v0, e1, e2, bvh=None):
     float64 build (the wrapper checks device, dtype, contiguity, shapes and
     the hierarchy's depth, and raises on mixed or other dtypes and if the
     launch fails); CPU tensors through :func:`ray_tris_nearest_plain`."""
+    refuse_tangents("ray_tris_nearest", p=p, d=d, t_max=t_max, v0=v0, e1=e1, e2=e2)
     if _plain("ray_tris_nearest", p, d, t_max, v0, e1, e2):
         return ray_tris_nearest_plain(p, d, t_max, v0, e1, e2)
     return _launch_flat("ray_tris_nearest", True, p, d, t_max, v0, e1, e2, bvh)
@@ -580,6 +582,7 @@ def ray_tris_nearest(p, d, t_max, v0, e1, e2, bvh=None):
 def ray_tris_occluded(p, d, t_max, v0, e1, e2, bvh=None):
     """True [B] where any triangle blocks the segment; operands as
     :func:`ray_tris_nearest`."""
+    refuse_tangents("ray_tris_occluded", p=p, d=d, t_max=t_max, v0=v0, e1=e1, e2=e2)
     if _plain("ray_tris_occluded", p, d, t_max, v0, e1, e2):
         return ray_tris_occluded_plain(p, d, t_max, v0, e1, e2)
     return _launch_flat("ray_tris_occluded", False, p, d, t_max, v0, e1, e2, bvh)[0]
@@ -589,6 +592,8 @@ def ray_tris_nearest_instanced(p, d, t_max, v0, e1, e2, offsets, bvh=None):
     """:func:`ray_tris_nearest` against the union of the canonical soup
     translated by each of ``offsets`` [I, 3]; ``bvh`` optionally passes
     :func:`tri_instanced_bvh` of the soup and the offsets."""
+    refuse_tangents("ray_tris_nearest_instanced", p=p, d=d, t_max=t_max,
+                    v0=v0, e1=e1, e2=e2, offsets=offsets)
     if _plain("ray_tris_nearest_instanced", p, d, t_max, v0, e1, e2, offsets):
         return ray_tris_nearest_instanced_plain(p, d, t_max, v0, e1, e2, offsets)
     return _launch_instanced("ray_tris_nearest_instanced", True, p, d, t_max, v0, e1, e2,
@@ -597,6 +602,8 @@ def ray_tris_nearest_instanced(p, d, t_max, v0, e1, e2, offsets, bvh=None):
 
 def ray_tris_occluded_instanced(p, d, t_max, v0, e1, e2, offsets, bvh=None):
     """:func:`ray_tris_occluded` against the translated copies."""
+    refuse_tangents("ray_tris_occluded_instanced", p=p, d=d, t_max=t_max,
+                    v0=v0, e1=e1, e2=e2, offsets=offsets)
     if _plain("ray_tris_occluded_instanced", p, d, t_max, v0, e1, e2, offsets):
         return ray_tris_occluded_instanced_plain(p, d, t_max, v0, e1, e2, offsets)
     return _launch_instanced("ray_tris_occluded_instanced", False, p, d, t_max, v0, e1, e2,

@@ -598,17 +598,31 @@ def bilambertian_sample_from_uniforms(params, wo, u_side, u):
     transmit otherwise (cosine-weighted, -z). Returns ``(w_new, weight)``
     with weight = rho + tau. Float32 uniforms in float64 path state (``wo``)
     give a float32 direction rounded as the jitted reference's
-    (:func:`.fastmath.cosine_hemisphere_xla`)."""
+    (:func:`.fastmath.cosine_hemisphere_xla`).
+
+    The side is chosen from the detached probability and the weight carries
+    the reference's likelihood ratio of the chosen side (``p / p.detach()``
+    or ``(1 - p) / (1 - p.detach())``, 1 where that probability is 0 or 1),
+    so that a forward-mode tangent on rho or tau keeps the choice's boundary
+    term; its primal is exactly 1 (x / x in IEEE), so the weight is rho +
+    tau bit for bit."""
     rho = params["reflectance"]
     total = rho + params["transmittance"]
-    reflect = u_side < rho / torch.clamp(total, min=1e-12)
+    p_ref = rho / torch.clamp(total, min=1e-12)
+    p_det = p_ref.detach()
+    reflect = u_side < p_det
+    ratio = torch.where(
+        reflect,
+        torch.where(p_det > 0, p_ref / torch.clamp(p_det, min=1e-30), 1.0),
+        torch.where(p_det < 1.0, (1.0 - p_ref) / torch.clamp(1.0 - p_det, min=1e-30), 1.0),
+    )
     if wo.dtype == torch.float64 and u.dtype == torch.float32:
         w_new = cosine_hemisphere_xla(u)
     else:
         w_new = square_to_cosine_hemisphere(u)
     flip = torch.tensor([1.0, 1.0, -1.0], dtype=w_new.dtype, device=w_new.device)
     w_new = torch.where(reflect[..., None], w_new, w_new * flip)
-    weight = torch.where(total > 0, total, 0.0).expand(w_new.shape[:-1])
+    weight = torch.where(total > 0, total * ratio, 0.0).expand(w_new.shape[:-1])
     return w_new, weight
 
 

@@ -31,6 +31,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..kernels.dual import refuse_tangents
 from ..kernels.leaf_intersect import dot3, fma
 from .fastmath import sqrt_rn
 from ..kernels.tri_intersect import _sqrt_rn
@@ -199,7 +200,10 @@ def dem_intersect(dem, p, d, t_max, n_march=128, n_bisect=16, lanes=None,
     ``n_bisect`` bisections of the crossed step. Returns ``(t_hit, hit)``
     [B]; misses keep ``t_max``. ``lanes`` [B] bool, if given, marches only
     those lanes (the others miss); ``block`` changes nothing but the
-    speed."""
+    speed. No forward-mode tangent may reach the march (the terrain and
+    the rays are geometry, which the sensitivity renders detach): one
+    raises."""
+    refuse_tangents("dem_intersect", p=p, d=d, t_max=t_max, heights=dem.heights)
     t_max = t_max.to(p.dtype)
     idx, p_c, d_c, dt_c, s0 = _setup(dem, p, d, t_max, n_march, lanes)
     found, t_lo, t_hi = _march(dem, p_c, d_c, dt_c, s0, n_march, block)
@@ -220,7 +224,9 @@ def dem_intersect(dem, p, d, t_max, n_march=128, n_bisect=16, lanes=None,
 def dem_occluded(dem, p, d, t_max, n_march=128, lanes=None, block=MARCH_BLOCK):
     """Whether ``p + t d`` crosses the terrain within the march of
     :func:`dem_intersect` (its ``hit``, without the bisection): the
-    shadow-ray form. Returns bool [B]."""
+    shadow-ray form. Returns bool [B]; a forward-mode tangent raises, as in
+    :func:`dem_intersect`."""
+    refuse_tangents("dem_occluded", p=p, d=d, t_max=t_max, heights=dem.heights)
     t_max = t_max.to(p.dtype)
     idx, p_c, d_c, dt_c, s0 = _setup(dem, p, d, t_max, n_march, lanes)
     found, _, _ = _march(dem, p_c, d_c, dt_c, s0, n_march, block)

@@ -153,9 +153,17 @@ class SceneConfig:
 
 
 def _tensor(x, device, dtype=np.float32):
-    """One leaf to the device: floating data as ``dtype``, strings kept."""
+    """One leaf to the device: floating data as ``dtype``, strings kept. A
+    tensor stays a tensor (moved and cast, so that a forward-mode dual keeps
+    its tangent, as the sensitivity renders pass their perturbed leaves);
+    anything else goes through ``np.asarray``."""
     if x is None or isinstance(x, str):
         return x
+    if isinstance(x, torch.Tensor):
+        if x.is_floating_point():
+            f64 = np.dtype(dtype) == np.float64
+            return x.to(device=device, dtype=torch.float64 if f64 else torch.float32)
+        return x.to(device=device)
     a = np.asarray(x)
     if a.dtype.kind == "f":
         a = a.astype(dtype, copy=False)
@@ -169,7 +177,9 @@ def scene_dtype(medium):
     leaf = getattr(medium, "tau_levels", None)
     if leaf is None:
         leaf = medium.radii
-    return np.float64 if np.asarray(leaf).dtype == np.float64 else np.float32
+    f64 = leaf.dtype == torch.float64 if isinstance(leaf, torch.Tensor) else (
+        np.asarray(leaf).dtype == np.float64)
+    return np.float64 if f64 else np.float32
 
 
 def _require(what, names, params):
@@ -183,7 +193,8 @@ def from_reference(scene, sensor, config, device):
 
     ``scene``/``sensor``/``config`` may be the JAX package's
     ``SceneArrays``/``SensorArrays``/``SceneConfig`` or the port's own; only
-    field names are read, and every leaf goes through ``np.asarray``.
+    field names are read, and every leaf goes through ``np.asarray``, but
+    for a tensor, which stays one (a forward-mode dual keeps its tangent).
     Floating leaves take the scene's dtype (:func:`scene_dtype`): float64
     for a scene compiled in a double mode, float32 otherwise.
     Phase and surface parameters travel as they are, every row of every

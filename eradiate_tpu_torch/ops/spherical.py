@@ -58,6 +58,7 @@ __all__ = [
     "slant_tau_exact",
     "shell_flight_plain",
     "shell_event_plain",
+    "shell_depths_plain",
     "slant_path_matrix",
     "sun_mu_grid_warped",
     "sun_tau_table_grid",
@@ -281,6 +282,50 @@ def shell_event_plain(p, d, t_max, radii, sigma, tau_s, w_sun):
     t_step = torch.where(collide, t_col, t_max)
     p_new = fma(d, t_step[:, None], p)
     return collide, t_col, layer, slant_tau_exact(p_new, w_sun, radii, sigma)
+
+
+def shell_depths_plain(p, d, t_col, layer, t_max, radii, v):
+    """Path integrals of a per-shell quantity ``v`` [L] along ``p + s d``
+    over ``s`` in ``[0, t_col]`` and in ``[0, t_max]``: the plain version of
+    the shell-depth kernel (``csrc/shell_flight.cu`` ``shell_depths``).
+
+    Launched on an extinction ``sigma`` these are optical depths; they are
+    linear in ``v``, so launched on a tangent of ``sigma`` they are the
+    tangents of the attached path depths of the likelihood-ratio flight
+    (reference ``_shell_flight_xla`` with ``sigma_attached``: ``tau_path_att``
+    and ``tau_max_att``), at the geometry the detached flight sampled:
+    ``t_col`` and ``layer`` [B] int32 are that flight's. The prefix ``G`` of
+    ``v`` over the levels and its evaluation at ``|x|`` are
+    :func:`shell_flight_plain`'s (the coordinate x from the ray's closest
+    approach to the centre; float32 sums in float64 rounded at each level,
+    float64 the reference's bfloat16 halves). The collision's end is
+    evaluated in the flight's ``layer``, as the reference evaluates it at
+    the flight's own coordinate: ``|x0 + t_col|`` may round an ulp into the
+    shell below, where the bracket would read the prefix of the level
+    (the halves' sum, ~2^-17 of a shell's depth off in float64) for the
+    shell's exact depth. Returns ``(depth_col [B], depth_max [B])``.
+    """
+    L = v.shape[0]
+    x0 = dot3(p, d)
+    b2 = cross_norm2(p, d)
+    X = sqrt_rn(torch.clamp((radii * radii)[:, None] - b2, min=0.0))  # [L+1, B]
+    G = _prefix_levels(v[:, None] * (X[1:] - X[:-1]))  # [L+1, B]
+
+    def G_at(y, k=None):
+        if k is None:
+            k = torch.clamp((X <= y).sum(0) - 1, 0, L - 1)
+        Xk = X.gather(0, k[None])[0]
+        return G.gather(0, k[None])[0] + v[k] * torch.clamp(y - Xk, min=0.0)
+
+    desc = x0 < 0.0
+    A = G_at(torch.abs(x0))
+
+    def depth(t, k=None):
+        x1 = x0 + t
+        G1 = G_at(torch.abs(x1), k)
+        return torch.where(desc, torch.where(x1 < 0.0, A - G1, A + G1), G1 - A)
+
+    return depth(t_col, torch.clamp(layer.long(), 0, L - 1)), depth(t_max)
 
 
 # -- sun slant-tau table ------------------------------------------------------

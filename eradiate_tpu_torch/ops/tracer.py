@@ -3,7 +3,10 @@
 Port of ``eradiate_tpu/ops/tracer.py``: exact free-flight sampling by
 inverting the cumulative vertical optical depth (one collision fetch per
 bounce), next-event estimation toward the directional emitter, a uniform sky
-collected by escaping paths, and Russian roulette. The ``independent``
+collected by escaping paths, and Russian roulette. With ``config.lr_flight``
+(the sensitivity renders) the flight is the reference's likelihood-ratio
+one: sampled from the detached medium, with weights whose primal is exactly
+1, so that the render equals the production one bit for bit. The ``independent``
 sampler renders through the regenerative loop (:func:`trace_paths_regen`: a
 lane starts its next sample the moment one ends); the structured samplers
 (:mod:`.samplers`) through the one-shot loop (:func:`trace_paths`: one sample
@@ -102,12 +105,20 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
     phase_params = medium_row.phase_params
     param_tables, param_slots = layer_param_slots(config.phase_kinds, phase_params)
     # albedo, blend weights and layer-indexed phase parameters, fetched in
-    # one kernel launch per bounce
+    # one kernel launch per bounce; under the likelihood-ratio flight first
+    # the layers' optical thicknesses, attached (their tangent carries the
+    # extinction's)
+    lr = config.lr_flight
     fetch_tables = torch.stack(
-        [medium_row.albedo]
+        ([torch.diff(tau_levels)] if lr else [])
+        + [medium_row.albedo]
         + [medium_row.phase_weights[c] for c in range(C)]
         + param_tables
     ).contiguous()
+    off = 1 if lr else 0
+    # the likelihood-ratio flight samples from the detached medium
+    tau_levels_s = tau_levels.detach() if lr else tau_levels
+    tau_top_s = tau_top.detach() if lr else tau_top
 
     def bounce(depth, z, tau_here, xy, d, beta, keys, u0_dist=None, ld=None):
         if ld is not None:
@@ -137,11 +148,25 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
         collide = tau_s < tau_exit
 
         # ---- volume collision ------------------------------------------
-        tau_new = torch.minimum(torch.clamp(tau_here + mu * tau_s, min=0.0), tau_top)
-        z_col, _, fetched = collision_fetch(tau_new, z_levels, tau_levels, fetch_tables)
-        albedo_col = fetched[0]
-        weights_at = fetched[1 : 1 + C].T  # [B, C]
-        params_at = rebuild_fetched(config.phase_kinds, param_slots, fetched[1 + C :])
+        tau_here_s = tau_here.detach() if lr else tau_here
+        tau_new = torch.minimum(torch.clamp(tau_here_s + mu * tau_s, min=0.0), tau_top_s)
+        z_col, _, fetched = collision_fetch(tau_new, z_levels, tau_levels_s, fetch_tables)
+        albedo_col = fetched[off]
+        weights_at = fetched[off + 1 : off + 1 + C].T  # [B, C]
+        params_at = rebuild_fetched(config.phase_kinds, param_slots, fetched[off + 1 + C :])
+        r_col = r_bnd = None
+        if lr:
+            # likelihood-ratio flight (reference ops/tracer.py): the
+            # collision altitude and the event are the detached medium's;
+            # the attached medium re-enters through weights whose primal is
+            # exactly 1 (exp(g - g.detach()), g finite) and through tau at
+            # the fixed altitude (primal: tau_new + 0)
+            tau_att = tau_at_z(z_col, z_levels, tau_levels)
+            tau_new = tau_new + (tau_att - tau_att.detach())
+            tau_path = torch.abs(tau_new - tau_here) / torch.abs(mu)
+            g_col = torch.log(torch.clamp(fetched[0], min=1e-30)) - tau_path
+            r_col = torch.exp(g_col - g_col.detach())
+            r_bnd = torch.exp(-(tau_exit - tau_exit.detach()))
         s_col = (z_col - z) / mu
         xy_col = advance_xy(xy, d, s_col, fused)
 
@@ -150,12 +175,13 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
         cos_nee = w_nee[:, 0] * d[:, 0] + w_nee[:, 1] * d[:, 1] + w_nee[:, 2] * d[:, 2]
         p_nee = phase_eval_at(config.phase_kinds, phase_params, weights_at, params_at, cos_nee)
         T_sun_col = torch.exp(-(tau_top - tau_new) / mu_nee)
-        L_col = beta * albedo_col * p_nee * T_sun_col * E_sun
+        beta_w = beta if r_col is None else beta * r_col  # r_col: primal 1
+        L_col = beta_w * albedo_col * p_nee * T_sun_col * E_sun
         d_col = phase_sample_at(
             config.phase_kinds, phase_params, weights_at, params_at, d, u_ph_sel, u_ph_cos,
             u_ph_phi,
         )
-        beta_col = beta * albedo_col
+        beta_col = beta_w * albedo_col
 
         # ---- surface hit ------------------------------------------------
         hit_surface = (~collide) & (mu < 0.0) & config.has_surface
@@ -164,15 +190,16 @@ def _make_bounce(config, medium_row, surface_row, illum_row):
         wo = -d
         T_sun_bottom = torch.exp(-tau_top / mu_nee)
         f_nee = bsdf_eval(config.surface_kind, surface_row.params, w_nee, wo, xy_surf)
-        L_surf = beta * f_nee * mu_nee * T_sun_bottom * E_sun
+        beta_b = beta if r_bnd is None else beta * r_bnd  # r_bnd: primal 1
+        L_surf = beta_b * f_nee * mu_nee * T_sun_bottom * E_sun
         d_surf, w_surf = bsdf_sample_from_uniforms(
             config.surface_kind, surface_row.params, wo, u_srf, xy_surf
         )
-        beta_surf = beta * w_surf
+        beta_surf = beta_b * w_surf
 
         # ---- combine ----------------------------------------------------
         contribution = torch.where(
-            collide, L_col, torch.where(hit_surface, L_surf, beta * L_sky)
+            collide, L_col, torch.where(hit_surface, L_surf, beta_b * L_sky)
         )
         z2 = torch.where(collide, z_col, z_bottom)
         tau2 = torch.where(collide, tau_new, 0.0)
@@ -434,13 +461,8 @@ def _check_supported(config):
         )
     if config.illumination_kind != "directional":
         raise NotImplementedError(SPOT_REFUSAL)
-    unsupported = {
-        f"geometry {config.geometry!r}": config.geometry != "plane_parallel",
-        "lr_flight": config.lr_flight,
-    }
-    for feature, missing in unsupported.items():
-        if missing:
-            raise NotImplementedError(f"{feature} is not ported yet")
+    if config.geometry != "plane_parallel":
+        raise NotImplementedError(f"geometry {config.geometry!r} is not ported yet")
     check_kind(config.surface_kind)
     check_phase_kinds(config.phase_kinds)
 

@@ -511,20 +511,19 @@ def _render_row_canopy(
 def _check_supported(config):
     """Raise ``NotImplementedError`` naming each feature this slice lacks,
     and for a polarized config, which has a renderer of its own;
-    ``ValueError`` for an unknown surface kind."""
+    ``ValueError`` for an unknown surface kind. ``config.lr_flight`` changes
+    nothing here, as in the reference: the canopy tracers have no
+    likelihood-ratio flight, and the sensitivities refuse their extinction
+    channels."""
     if config.polarized:
         raise NotImplementedError(
             "the scalar canopy tracer does not render polarized transport: call "
             "ops.tracer_canopy_polarized.render_canopy_polarized"
         )
-    unsupported = {
-        f"geometry {config.geometry!r} for canopy scenes":
-            config.geometry != "plane_parallel",
-        "lr_flight": config.lr_flight,
-    }
-    for feature, missing in unsupported.items():
-        if missing:
-            raise NotImplementedError(f"{feature} is not ported yet")
+    if config.geometry != "plane_parallel":
+        raise NotImplementedError(
+            f"geometry {config.geometry!r} for canopy scenes is not ported yet"
+        )
     check_kind(config.surface_kind)
     check_phase_kinds(config.phase_kinds)
 

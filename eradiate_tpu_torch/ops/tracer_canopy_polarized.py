@@ -362,19 +362,16 @@ def _render_row_canopy_polarized(
 
 def _check_supported(config):
     """Raise ``NotImplementedError`` naming each feature this slice lacks;
-    ``ValueError`` for an unpolarized config or an unknown surface kind."""
+    ``ValueError`` for an unpolarized config or an unknown surface kind.
+    ``config.lr_flight`` changes nothing here, as in the reference."""
     if not config.polarized:
         raise ValueError(
             "config.polarized is False: render it with ops.tracer_canopy.render_canopy"
         )
-    unsupported = {
-        f"geometry {config.geometry!r} for canopy scenes":
-            config.geometry != "plane_parallel",
-        "lr_flight": config.lr_flight,
-    }
-    for feature, missing in unsupported.items():
-        if missing:
-            raise NotImplementedError(f"{feature} is not ported yet")
+    if config.geometry != "plane_parallel":
+        raise NotImplementedError(
+            f"geometry {config.geometry!r} for canopy scenes is not ported yet"
+        )
     check_kind(config.surface_kind)
     check_phase_kinds(config.phase_kinds, polarized=True)
 

@@ -5,6 +5,9 @@ Port of ``eradiate_tpu/ops/tracer_dem.py`` (``render_dem``). Every
 candidate free-flight segment is tested against the terrain, and next-event
 estimation casts terrain-occlusion shadow rays toward the sun (self-shadowing
 at low sun) at the collision point and at the terrain point, two a bounce.
+With ``config.lr_flight`` (the sensitivity renders) the flight is the
+reference's likelihood-ratio one, terrain hits carrying a weight of their
+own; its weights' primal is exactly 1.
 The terrain is the marched bilinear heightfield of :mod:`.dem` or, with
 ``tris``, its triangulation (:func:`.dem.mesh_from_dem`) through the
 triangle sweeps of :mod:`.mesh` (K8: the nearest-hit sweep once an
@@ -109,6 +112,15 @@ def _make_bounce_dem(config, medium_row, surface_row, dem, illum_row, B, tris=No
         [medium_row.phase_weights[c] for c in range(C)] + param_tables
     )
 
+    # the likelihood-ratio flight (reference ops/tracer_dem.py): sampling
+    # from the detached medium, the attached one re-entering through weights
+    # whose primal is exactly 1; a terrain hit at depth tau_path has
+    # probability exp(-tau_path), its weight exp(-(tau_path - sg(tau_path)))
+    lr = config.lr_flight
+    tau_levels_s = tau_levels.detach() if lr else tau_levels
+    tau_top_s = tau_top.detach() if lr else tau_top
+    dtau_layers = torch.diff(tau_levels) if lr else None
+
     def tau_z(z):
         return tau_at_z(z, z_levels, tau_levels)
 
@@ -133,12 +145,13 @@ def _make_bounce_dem(config, medium_row, surface_row, dem, illum_row, B, tris=No
         z = pos[:, 2].contiguous()
         mu = clamp_mu(d[:, 2])
         tau_here = tau_z(z)
-        tau_exit = torch.where(mu > 0.0, (tau_top - tau_here) / mu, tau_here / (-mu))
+        tau_here_s = tau_here.detach() if lr else tau_here
+        tau_exit = torch.where(mu > 0.0, (tau_top_s - tau_here_s) / mu, tau_here_s / (-mu))
         tau_s = depth_sample(u_dist, exact=dtype == torch.float64)
         collide_med = tau_s < tau_exit
 
-        tau_new = torch.minimum(torch.clamp(tau_here + mu * tau_s, min=0.0), tau_top)
-        z_med, layer = z_at_tau(tau_new, z_levels, tau_levels)
+        tau_new = torch.minimum(torch.clamp(tau_here_s + mu * tau_s, min=0.0), tau_top_s)
+        z_med, layer = z_at_tau(tau_new, z_levels, tau_levels_s)
         z_edge = torch.where(mu > 0.0, z_top, z_bottom)
         t_cand = torch.where(collide_med, (z_med - z) / mu, (z_edge - z) / mu)
         t_cand = torch.clamp(t_cand, min=EPS)
@@ -157,6 +170,18 @@ def _make_bounce_dem(config, medium_row, surface_row, dem, illum_row, B, tris=No
         pos_dem = _advance(pos, d, t_dem[:, None])
         pos_med = _advance(pos, d, t_cand[:, None])
 
+        beta_med = beta_dem = beta
+        if lr:
+            # the weights of a collision (density dtau exp(-tau_path) at the
+            # fixed altitude) and of a terrain hit (exp(-tau_path)), on the
+            # attached tau(z) at the detached geometry; primal exactly 1
+            abs_mu = torch.abs(mu)
+            tau_path_col = torch.abs(tau_z(z_med) - tau_here) / abs_mu
+            g_col = torch.log(torch.clamp(take_1d(dtau_layers, layer), min=1e-30)) - tau_path_col
+            tau_path_dem = torch.abs(tau_z(pos_dem[:, 2].contiguous()) - tau_here) / abs_mu
+            beta_med = beta * torch.exp(g_col - g_col.detach())
+            beta_dem = beta * torch.exp(-(tau_path_dem - tau_path_dem.detach()))
+
         # ---- medium collision -------------------------------------------
         albedo_col = take_1d(medium_row.albedo, layer)
         fetched = fetch_tables[:, layer]
@@ -164,11 +189,11 @@ def _make_bounce_dem(config, medium_row, surface_row, dem, illum_row, B, tris=No
         params_at = rebuild_fetched(config.phase_kinds, param_slots, fetched[C:])
         cos_nee = (w_sun * d).sum(-1)
         p_nee = phase_eval_at(config.phase_kinds, phase_params, weights_at, params_at, cos_nee)
-        L_med = beta * albedo_col * p_nee * sun_T(pos_med, live & event_med) * E_sun
+        L_med = beta_med * albedo_col * p_nee * sun_T(pos_med, live & event_med) * E_sun
         d_med = phase_sample_at(
             config.phase_kinds, phase_params, weights_at, params_at, d, u_sel, u_cos, u_phi
         )
-        beta_med = beta * albedo_col
+        beta_med = beta_med * albedo_col
 
         # ---- terrain hit ------------------------------------------------
         if tris is not None:
@@ -184,12 +209,12 @@ def _make_bounce_dem(config, medium_row, surface_row, dem, illum_row, B, tris=No
         f_nee = bsdf_eval(config.surface_kind, surface_row.params, wi_sun_l, wo_l, xy_dem)
         cos_sun = torch.clamp((n_srf * w_sun).sum(-1), min=0.0)
         pos_dem_off = _advance(pos_dem, n_srf, torch.full_like(n_srf, EPS))
-        L_dem = beta * f_nee * cos_sun * sun_T(pos_dem_off, live & event_dem) * E_sun
+        L_dem = beta_dem * f_nee * cos_sun * sun_T(pos_dem_off, live & event_dem) * E_sun
         d_srf_l, w_srf = bsdf_sample_from_uniforms(
             config.surface_kind, surface_row.params, wo_l, u_srf, xy_dem
         )
         d_srf = _to_world(n_srf, d_srf_l)
-        beta_srf = beta * w_srf
+        beta_srf = beta_dem * w_srf
 
         # ---- combine ----------------------------------------------------
         L_add = torch.where(event_dem, L_dem, torch.where(event_med, L_med, 0.0))
@@ -271,11 +296,6 @@ def _check_supported(config):
     render; ``ValueError`` for an unknown surface kind. Like the
     reference's, it renders any sampler as ``independent``, reads no
     constant sky and takes a spot for a sun along its axis."""
-    if config.lr_flight:
-        raise NotImplementedError(
-            "lr_flight (the likelihood-ratio flight of the sensitivities) is not "
-            "ported yet for DEM scenes"
-        )
     if config.geometry != "plane_parallel":
         raise NotImplementedError(f"geometry {config.geometry!r} for DEM scenes")
     check_kind(config.surface_kind)

@@ -178,12 +178,19 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
     phase_params = medium_row.phase_params
     param_tables, param_slots = layer_param_slots(config.phase_kinds, phase_params)
     # albedo, blend weights and layer-indexed phase parameters (Rayleigh
-    # depolarization), fetched by the collision fetch in one launch a bounce
+    # depolarization), fetched by the collision fetch in one launch a bounce;
+    # under the likelihood-ratio flight first the layers' optical
+    # thicknesses, attached
+    lr = config.lr_flight
     fetch_tables = torch.stack(
-        [medium_row.albedo]
+        ([torch.diff(tau_levels)] if lr else [])
+        + [medium_row.albedo]
         + [medium_row.phase_weights[c] for c in range(C)]
         + param_tables
     ).contiguous()
+    off = 1 if lr else 0
+    tau_levels_s = tau_levels.detach() if lr else tau_levels
+    tau_top_s = tau_top.detach() if lr else tau_top
 
     def tau_z(z):
         return tau_at_z(z, z_levels, tau_levels)
@@ -205,25 +212,37 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
         collide = tau_s < tau_exit
 
         # ---- volume collision (K1: z, layer and the layer's tables) ------
-        tau_new = torch.minimum(torch.clamp(tau_here + mu * tau_s, min=0.0), tau_top)
-        z_col, _, fetched = collision_fetch(tau_new, z_levels, tau_levels, fetch_tables)
-        albedo_col = fetched[0]
-        weights_at = fetched[1 : 1 + C].T  # [B, C]
-        params_at = rebuild_fetched(config.phase_kinds, param_slots, fetched[1 + C :])
+        tau_here_s = tau_here.detach() if lr else tau_here
+        tau_new = torch.minimum(torch.clamp(tau_here_s + mu * tau_s, min=0.0), tau_top_s)
+        z_col, _, fetched = collision_fetch(tau_new, z_levels, tau_levels_s, fetch_tables)
+        albedo_col = fetched[off]
+        weights_at = fetched[off + 1 : off + 1 + C].T  # [B, C]
+        params_at = rebuild_fetched(config.phase_kinds, param_slots, fetched[off + 1 + C :])
         xy_col = advance_xy(xy, d, (z_col - z) / mu, fused)
+        tau_col = tau_z(z_col)
+        r_col = r_bnd = None
+        if lr:
+            # likelihood-ratio flight (reference ops/tracer_polarized.py):
+            # z is a fixed position, so tau_z(z_col) and tau_here are the
+            # attached depths; the weights' primal is exactly 1
+            tau_path = torch.abs(tau_col - tau_here) / torch.abs(mu)
+            g_col = torch.log(torch.clamp(fetched[0], min=1e-30)) - tau_path
+            r_col = torch.exp(g_col - g_col.detach())
+            r_bnd = torch.exp(-(tau_exit - tau_exit.detach()))
 
         l_out = -d  # light leaves the vertex toward the sensor path
         # the sun's light arrives along d_sun at either vertex kind: one
         # rotation into its scattering plane serves both estimates
         _, R_sun = basis_rotator(d_sun_b, l_out, b)
 
-        T_sun = torch.exp(-(tau_top - tau_z(z_col)) / mu_sun)
-        S_sun = unpolarized(E_sun * T_sun * albedo_col * beta)
+        T_sun = torch.exp(-(tau_top - tau_col) / mu_sun)
+        beta_w = beta if r_col is None else beta * r_col  # r_col: primal 1
+        S_sun = unpolarized(E_sun * T_sun * albedo_col * beta_w)
         S_col, d_new, P_col, h_in_s = phase_vertex(
             config.phase_kinds, phase_params, weights_at, params_at, P, b, d, d_sun_b, R_sun,
             S_sun, u_ph_sel, u_ph_cos, u_ph_phi,
         )
-        beta_col = beta * albedo_col
+        beta_col = beta_w * albedo_col
 
         # ---- surface hit (Mueller-general; scalar kinds depolarize) -----
         hit_surface = (~collide) & (mu < 0.0) & config.has_surface
@@ -234,7 +253,8 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
         M_nee_srf = surface_mueller(
             config.surface_kind, surface_row.params, w_sun.expand(B, 3), l_out, xy_surf
         )
-        S_sun_srf = unpolarized(beta * mu_sun * T_sun_bottom * E_sun)
+        beta_b = beta if r_bnd is None else beta * r_bnd  # r_bnd: primal 1
+        S_sun_srf = unpolarized(beta_b * mu_sun * T_sun_bottom * E_sun)
         d_srf, w_srf = bsdf_sample_from_uniforms(
             config.surface_kind, surface_row.params, l_out, u_srf, xy_surf
         )
@@ -244,7 +264,7 @@ def _make_bounce_polarized(config, medium_row, surface_row, illum_row):
         S_surf, P_surf, h_in_c = surface_vertex(
             P, b, l_out, R_sun, M_nee_srf, S_sun_srf, d_srf, M_cont
         )
-        beta_surf = beta * w_srf
+        beta_surf = beta_b * w_srf
 
         # ---- combine ----------------------------------------------------
         S_add = torch.where(
@@ -354,13 +374,8 @@ def _check_supported(config):
     ``ValueError`` for an unpolarized config or an unknown surface kind."""
     if not config.polarized:
         raise ValueError("config.polarized is False: render it with ops.tracer.render")
-    unsupported = {
-        f"polarized geometry {config.geometry!r}": config.geometry != "plane_parallel",
-        "lr_flight": config.lr_flight,
-    }
-    for feature, missing in unsupported.items():
-        if missing:
-            raise NotImplementedError(f"{feature} is not ported yet")
+    if config.geometry != "plane_parallel":
+        raise NotImplementedError(f"polarized geometry {config.geometry!r} is not ported yet")
     check_kind(config.surface_kind)
     check_phase_kinds(config.phase_kinds, polarized=True)
 

@@ -12,10 +12,13 @@ the reference:
 
 - **lr_flight**: with ``config.lr_flight`` (the configuration the
   sensitivity renders use) the flight is
-  :func:`..kernels.shell_flight.shell_flight` and the exact slant depth at
-  the event point a second launch, :func:`..kernels.shell_flight.slant_tau`.
-  Only the primal is ported: the likelihood-ratio weights of the reference
-  are exactly 1 there, so the estimate equals the exact branch's;
+  :func:`..kernels.shell_flight.shell_flight` on the detached extinction and
+  the exact slant depth at the event point a second launch,
+  :func:`..kernels.shell_flight.slant_tau`, on the attached one (its forward
+  rule carries the extinction's tangent). Where the extinction carries a
+  tangent, the reference's likelihood-ratio weights follow
+  (:func:`lr_weights`: the shell-depth kernel on the tangent, primal exactly
+  1), so the estimate equals the exact branch's bit for bit;
 - **table**: when the compiled scene carries a sun slant-tau table
   (``sun_tau``, on up to SZA 80 by default), the event point's slant depth
   is fetched from it by exact bilinear interpolation
@@ -37,7 +40,10 @@ from __future__ import annotations
 import torch
 
 from ..core.device import resolve_device
-from ..kernels.shell_flight import shell_event, shell_flight, slant_tau
+import torch.autograd.forward_ad as fwAD
+
+from ..kernels.dual import tangent
+from ..kernels.shell_flight import shell_depths, shell_event, shell_flight, slant_tau
 from .bsdf_ops import bsdf_eval, bsdf_sample_from_uniforms, check_kind
 from .fastmath import depth_sample
 from .fastrng import bounce_uniforms, derive_keys
@@ -130,13 +136,35 @@ def flight_bounds(p, d, radii):
     return t_ground, torch.clamp(ttf, min=EPS_T)
 
 
+def lr_weights(p, d, t_col, t_max, radii, sigma, layer):
+    """The likelihood-ratio flight's weights ``(r_col, r_bnd)`` of the
+    reference's ``exp(g_col - sg(g_col))`` and ``exp(-(tau_max - sg(tau_max)))``
+    for a flight sampled on the detached ``sigma``: primal exactly 1, tangents
+    ``sigma'[layer] / sigma[layer] - tau_path'`` and ``-tau_max'``, the path
+    depths' tangents from the shell-depth kernel launched on ``sigma'`` (one
+    launch). ``(None, None)`` where ``sigma`` carries no tangent: the weights
+    are then 1 and nothing is launched."""
+    sig_t = tangent(sigma)
+    if sig_t is None:
+        return None, None
+    depth_col, depth_max = shell_depths(p, d, t_col, layer, t_max, radii, sig_t.contiguous())
+    idx = layer.long()
+    s_at = fwAD.unpack_dual(sigma).primal[idx]
+    g_t = torch.where(s_at > 1e-30, sig_t[idx] / s_at, 0.0) - depth_col
+    one = torch.ones_like(t_col)
+    return fwAD.make_dual(one, g_t), fwAD.make_dual(one.clone(), -depth_max)
+
+
 def sun_flight(config, medium_row, w_sun, p, d, u_dist):
     """An event's exact free flight from ``p`` along ``d`` and the sun's
     slant depth toward ``w_sun`` at its end, by the branch that ``config``
     and the medium pick (module docstring). Returns ``(accept, layer, p_new,
-    tau_sun, t_ground, t_exit)``: the collide flag, the collision's layer,
-    the event point (the collision, or the flight cap where the path leaves
-    the medium), and the flight cap's two distances."""
+    tau_sun, t_ground, t_exit, r_col, r_bnd)``: the collide flag, the
+    collision's layer, the event point (the collision, or the flight cap
+    where the path leaves the medium), the flight cap's two distances and
+    the likelihood-ratio weights of the collision and the boundary event
+    (:func:`lr_weights`; None outside the likelihood-ratio flight and where
+    the extinction carries no tangent)."""
     radii = medium_row.radii
     sigma = medium_row.sigma_t
     r_ground = radii[0]
@@ -146,14 +174,17 @@ def sun_flight(config, medium_row, w_sun, p, d, u_dist):
     # float32 uniforms: the depth is float32, taken exactly into the path
     # state's dtype, as the reference promotes it
     tau_s = depth_sample(u_dist, exact=radii.dtype == torch.float64).to(radii.dtype)
+    r_col = r_bnd = None
     if config.lr_flight:
-        # primal of the likelihood-ratio flight: the plain flight, then the
-        # slant depth from the event point, formed with one fused
-        # multiply-add per component as the fused event kernel forms it
-        accept, t_col, layer = shell_flight(p, d, t_max, radii, sigma, tau_s)
+        # the likelihood-ratio flight: sampled on the detached extinction,
+        # then the slant depth from the event point on the attached one,
+        # formed with one fused multiply-add per component as the fused
+        # event kernel forms it
+        accept, t_col, layer = shell_flight(p, d, t_max, radii, sigma.detach(), tau_s)
         t_step = torch.where(accept, t_col, t_max)[:, None]
         tau_sun = slant_tau(fma(d, t_step, p), w_sun, radii, sigma)
         p_new = p + d * t_step
+        r_col, r_bnd = lr_weights(p, d, t_col, t_max, radii, sigma, layer)
     elif medium_row.sun_tau is not None:
         accept, t_col, layer = shell_flight(p, d, t_max, radii, sigma, tau_s)
         p_new = p + d * torch.where(accept, t_col, t_max)[:, None]
@@ -167,7 +198,7 @@ def sun_flight(config, medium_row, w_sun, p, d, u_dist):
     else:
         accept, t_col, layer, tau_sun = shell_event(p, d, t_max, radii, sigma, tau_s, w_sun)
         p_new = p + d * torch.where(accept, t_col, t_max)[:, None]
-    return accept, layer, p_new, tau_sun, t_ground, t_exit
+    return accept, layer, p_new, tau_sun, t_ground, t_exit, r_col, r_bnd
 
 
 def _make_event(config, medium_row, surface_row, illum_row):
@@ -194,9 +225,11 @@ def _make_event(config, medium_row, surface_row, illum_row):
         u_srf = U[:, 5:7]
         u_rr = U[:, 7]
 
-        accept, layer, p_new, tau_sun, t_ground, t_exit = sun_flight(
+        accept, layer, p_new, tau_sun, t_ground, t_exit, r_col, r_bnd = sun_flight(
             config, medium_row, w_sun, p, d, U[:, 0]
         )
+        beta_w = beta if r_col is None else beta * r_col  # primal 1
+        beta_b = beta if r_bnd is None else beta * r_bnd
         hit_surface = (~accept) & (t_ground <= t_exit) & config.has_surface
 
         fetched = fetch_at_index(layer, fetch_tables)
@@ -210,12 +243,12 @@ def _make_event(config, medium_row, surface_row, illum_row):
         # ---- volume collision ------------------------------------------
         cos_nee = dot3(-d, d_sun)
         p_nee = phase_eval_at(config.phase_kinds, phase_params, weights_at, params_at, cos_nee)
-        L_col = beta * albedo_col * p_nee * T_sun * E_sun
+        L_col = beta_w * albedo_col * p_nee * T_sun * E_sun
         d_col = phase_sample_at(
             config.phase_kinds, phase_params, weights_at, params_at, d, u_ph_sel, u_ph_cos,
             u_ph_phi,
         )
-        beta_col = beta * albedo_col
+        beta_col = beta_w * albedo_col
 
         # ---- surface interaction ---------------------------------------
         r_new = sqrt_rn(dot3(p_new, p_new))
@@ -224,12 +257,12 @@ def _make_event(config, medium_row, surface_row, illum_row):
         wo_local = to_local(n_srf, -d)
         wi_sun_local = to_local(n_srf, w_sun.expand_as(p_new))
         f_nee = bsdf_eval(config.surface_kind, surface_row.params, wi_sun_local, wo_local)
-        L_srf = beta * f_nee * torch.clamp(mu_sun_srf, min=0.0) * T_sun * E_sun
+        L_srf = beta_b * f_nee * torch.clamp(mu_sun_srf, min=0.0) * T_sun * E_sun
         d_srf_local, w_srf = bsdf_sample_from_uniforms(
             config.surface_kind, surface_row.params, wo_local, u_srf
         )
         d_srf = to_world(n_srf, d_srf_local)
-        beta_srf = beta * w_srf
+        beta_srf = beta_b * w_srf
         p_srf = p_new + n_srf * EPS_T  # lifted off the surface
 
         # ---- combine ----------------------------------------------------

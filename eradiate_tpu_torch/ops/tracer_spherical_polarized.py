@@ -98,9 +98,11 @@ def _make_event_polarized(config, medium_row, surface_row, illum_row):
         u_srf = U[:, 5:7]
         u_rr = U[:, 7]
 
-        accept, layer, p_new, tau_sun, t_ground, t_exit = sun_flight(
+        accept, layer, p_new, tau_sun, t_ground, t_exit, r_col, r_bnd = sun_flight(
             config, medium_row, w_sun, p, d, U[:, 0]
         )
+        beta_w = beta if r_col is None else beta * r_col  # primal 1
+        beta_b = beta if r_bnd is None else beta * r_bnd
         hit_surface = (~accept) & (t_ground <= t_exit) & config.has_surface
 
         fetched = fetch_at_index(layer, fetch_tables)
@@ -116,12 +118,12 @@ def _make_event_polarized(config, medium_row, surface_row, illum_row):
         _, R_sun = basis_rotator(d_sun_b, l_out, b)
 
         # ---- accepted collisions ----------------------------------------
-        S_sun = unpolarized(E_sun * T_sun * albedo_col * beta)
+        S_sun = unpolarized(E_sun * T_sun * albedo_col * beta_w)
         S_col, d_new, P_col, h_in_s = phase_vertex(
             config.phase_kinds, phase_params, weights_at, params_at, P, b, d, d_sun_b, R_sun,
             S_sun, u_ph_sel, u_ph_cos, u_ph_phi,
         )
-        beta_col = beta * albedo_col
+        beta_col = beta_w * albedo_col
 
         # ---- surface interaction, in the local frame of the normal ------
         r_new = sqrt_rn(dot3(p_new, p_new))
@@ -130,7 +132,7 @@ def _make_event_polarized(config, medium_row, surface_row, illum_row):
         wi_sun_local = to_local(n_srf, w_sun.expand_as(p_new))
         M_srf = surface_mueller(config.surface_kind, surface_row.params, wi_sun_local, wo_local)
         mu_sun_srf = torch.clamp(dot3(n_srf, w_sun), min=0.0)
-        S_sun_srf = unpolarized(beta * mu_sun_srf * T_sun * E_sun)
+        S_sun_srf = unpolarized(beta_b * mu_sun_srf * T_sun * E_sun)
         d_srf_local, w_srf = bsdf_sample_from_uniforms(
             config.surface_kind, surface_row.params, wo_local, u_srf
         )
@@ -139,7 +141,7 @@ def _make_event_polarized(config, medium_row, surface_row, illum_row):
         S_srf, P_srf, h_in_c = surface_vertex(
             P, b, l_out, R_sun, M_srf, S_sun_srf, d_srf, M_cont
         )
-        beta_srf = beta * w_srf
+        beta_srf = beta_b * w_srf
         p_srf = p_new + n_srf * EPS_T  # lifted off the surface
 
         # ---- combine ----------------------------------------------------

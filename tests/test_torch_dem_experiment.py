@@ -17,11 +17,10 @@ triangulated grid (2048 triangles: the triangle sweeps' plain versions).
 
 Port only, as ``tests/system/test_dem.py``: a flat DEM reduces to the
 Lambertian 0.4 with both intersectors, a tall hill at low sun shadows its
-anti-solar flank, ``lr_flight`` and ``mesh=`` are refused, the DEM path runs
-with ``jax`` blocked.
+anti-solar flank, ``mesh=`` is refused (by ``process`` and by the
+sharded sensitivities), the DEM path runs with ``jax`` blocked.
 """
 
-import dataclasses
 import json
 import subprocess
 import sys
@@ -176,13 +175,11 @@ def test_sensitivities_and_mesh_are_refused(modes):
     exp = DEMExperiment(**hill_kwargs(DEMSurface, False, 16))
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         exp.process(device="cpu", mesh="auto")
-    from eradiate_tpu_torch.ops.tracer_dem import render_dem
+    from eradiate_tpu_torch.sensitivity import sensitivities
 
-    m = exp.measures[0]
-    scene, sensor, config = exp.compile_scene(m, exp.spectral_context(m))
-    config = dataclasses.replace(config, lr_flight=True)
-    with pytest.raises(NotImplementedError, match="sensitivities"):
-        render_dem(scene, exp.surface.dem_arrays(), sensor, config, spp=16, device="cpu")
+    # the sensitivities render on one GPU: a sharded one is refused
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        sensitivities(exp, ["surface.reflectance"], spp=16, mesh="auto", device="cpu")
     with pytest.raises(ValueError, match="plane-parallel"):
         DEMExperiment(**{**hill_kwargs(DEMSurface, False, 16), "geometry": "spherical_shell"})
 

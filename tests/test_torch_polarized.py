@@ -178,8 +178,7 @@ def test_scalar_tracer_refuses_polarized_config():
 @pytest.mark.parametrize(
     "field, value, error, name",
     [("geometry", "spherical_shell", NotImplementedError, "spherical_shell"),
-     ("surface_kind", "no_such_kind", ValueError, "'no_such_kind'"),
-     ("lr_flight", True, NotImplementedError, "lr_flight")],
+     ("surface_kind", "no_such_kind", ValueError, "'no_such_kind'")],
 )
 def test_unported_features_raise(field, value, error, name):
     """Unported features raise ``NotImplementedError`` naming them; an

@@ -500,7 +500,7 @@ def test_wrappers_run_the_twins_on_cpu(case):
         spherical.slant_tau_exact(args[0], w, args[3], args[4]),
     )
     assert sf.launches == before  # no kernel launch for CPU tensors
-    assert set(before) == {"shell_flight", "shell_event", "slant_tau"}
+    assert set(before) == {"shell_flight", "shell_event", "slant_tau", "shell_depths"}
 
 
 def _args(L=8, n=16):

@@ -369,7 +369,7 @@ def test_sza60_edge_pixels_match_reference(mode_id):
 
 def _unported(kind, scene, config):
     if kind == "lr_flight":
-        # the primal of lr_flight is ported; with polarized transport it is not
+        # lr_flight renders; a polarized config belongs to the polarized tracer
         return scene, dataclasses.replace(config, lr_flight=True, polarized=True)
     if kind == "polarized":
         return scene, dataclasses.replace(config, polarized=True)

@@ -100,7 +100,6 @@ def test_lane_partition_tiles_sample_ids(spp):
         ("phase_kinds", ("tab_polarized",), NotImplementedError, "'tab_polarized'"),
         ("surface_kind", "no_such_kind", ValueError, "'no_such_kind'"),
         ("illumination_kind", "spot", NotImplementedError, "spot"),
-        ("lr_flight", True, NotImplementedError, "lr_flight"),
     ],
 )
 def test_unported_features_raise(tiny, field, value, error, name):
