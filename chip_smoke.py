@@ -192,7 +192,7 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
     and 256 spp at one seed: I within 1e-4 relative, and every Stokes
     component of every pixel within |z| <= 5 (of the two runs' I
     variances, the only ones kept);
-21. polarized c1 at full width (76 x 4194304): one run with the profiler on
+21. polarized c1 at full width (76 x 2097152, half c1's samples): one run with the profiler on
     for 48 bounce iterations after the first 100 (it warms the card; every
     profiled run ends once its window has closed), then a timed run; the
     collision fetch's launches must equal the bounce iterations, and no
@@ -233,7 +233,7 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
     |z| <= 5 on Q, U and V with I's variances; on the card, path B's Stokes
     vectors and iterations equal, bit for bit, the exact-NEE render (K3) of
     the scene without its sun-tau table;
-29. polarized c4 at full width, SZA 75 (15 x 2097152, in the reference's
+29. polarized c4 at full width, SZA 75 (15 x 524288: 4 of the reference's
     chunks of ``MAX_PATHS_PER_DISPATCH // 15`` samples, each with its own
     key), as phase 21 with 48 event iterations profiled after the first 64:
     K2's launches must equal the event iterations summed over the chunks,
@@ -243,7 +243,8 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
     the view nearest nadir beside phase 9's scalar BRF;
 30. polarized c2 (the aerosol as ``tab_polarized``): CUDA against the CPU
     at 11 view zeniths and 256 spp (I within 1e-4, Stokes |z| <= 5), then
-    at full width (76 x 2097152) as phase 26: K1's launches must equal the
+    at full width (76 x 1048576, half c2's samples) as phase 26: K1's
+    launches must equal the
     bounce iterations, K1's device time a launch inside the run;
 31. c3 in ``ckd_polarized_single`` on CUDA against the CPU, 11 view zeniths
     and 64 spp a row: each of the 56 raw rows' I within 1e-4 relative and
@@ -274,7 +275,8 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
     (``mono_double``, 256 spp): every raw pixel's radiance and second
     moment within 1e-10 relative, Stokes components within 1e-10 of I,
     every pixel within |z| <= 5;
-35. c1 at full width in ``mono_double`` (K1's float64 build) and, the same
+35. c1 at full width (76 x 2097152, half c1's samples) in ``mono_double``
+    (K1's float64 build) and, the same
     way, in ``mono_single``: a run with the profiler on for 48 bounce
     iterations after the first 100, ended there, then a timed run; K1's
     launches equal to the iterations, no other kernel; wall, samples/s,
@@ -431,6 +433,18 @@ K.  the port on CUDA against the port on the CPU on the 33 x 33 hill
     and ``mono_polarized_single`` (a scalar result) within 1e-4 relative and
     |z| <= 5, ``mono_double`` within 1e-10 (K8's float64 build); then the
     seconds phases I-K took.
+O.  the sharded renders (``eradiate_tpu_torch.parallel``): (a) one NCCL
+    rank in this process (a ``file://`` store under ``build/sharded``)
+    renders c1 at full width through ``run(exp, mesh=make_render_mesh(1,
+    1))``, bit for bit phase 5's ``mesh=None`` render at the same seed, K1
+    launched once an iteration; (b) two ranks on the one card over gloo, through the dry
+    run (``eradiate_tpu_torch.parallel.dryrun``; the ranks load the kernels
+    phase 2 built): c1 at full width, 2097152 spp a rank, within 1e-5
+    relative of phase 5's render, K1 launched once an iteration on each
+    rank, every family at the dry run's size against its unsharded render
+    (rtol 3e-5; the stratified sampler |z| <= 5), each rank's wall beside
+    the single render's; (c) the same on two cards over NCCL where there
+    are two, else a line that says it did not run.
 
 The CPU sides of the canopy phases' CUDA-against-CPU gates (12, 17, 22,
 40, 43, D) render in a pool of four background processes (one thread each,
@@ -503,6 +517,13 @@ N_VZA_C5 = 19
 SPP_C5 = 2097152
 SPP_C2 = 2097152
 SPP_C3 = 65536
+#: Depth cuts that keep the script inside its time limit beside phase O:
+#: half of c1's samples in the polarized c1 run (21), phase 35's c1 pair and
+#: phase M's c1 passes, half of c2's in the polarized c2 run (30), a quarter
+#: of c4's in polarized c4 (29: 4 of the reference's chunks, not 16)
+SPP_C1_HALF = SPP_C1 // 2
+SPP_C2_HALF = SPP_C2 // 2
+SPP_C4_POLARIZED = SPP_C4 // 4
 #: Spectral rows of c3 in ``ckd_single``: the 7 bins of Sentinel-2A MSI band 4
 #: times 8 g-points.
 ROWS_C3 = 56
@@ -723,28 +744,16 @@ def bound_ms(n_bytes, flops, peak_flops=PEAK_F32_FLOPS):
 
 def reset_launches():
     """Set every kernel's launch count to 0 (just before a main-path run)."""
-    from eradiate_tpu_torch.kernels import collision_fetch as cf
-    from eradiate_tpu_torch.kernels import leaf_intersect as li
-    from eradiate_tpu_torch.kernels import shell_flight as sf
-    from eradiate_tpu_torch.kernels import tri_intersect as ti
+    from eradiate_tpu_torch.kernels import reset_launches as reset
 
-    cf.launches = cf.launches_f64 = 0
-    for counts in (sf.launches, sf.launches_f64, li.launches, li.launches_f64, ti.launches,
-                   ti.launches_f64):
-        counts.update(dict.fromkeys(counts, 0))
+    reset()
 
 
 def read_launches():
     """Every kernel's launch count by name (just after a main-path run)."""
-    from eradiate_tpu_torch.kernels import collision_fetch as cf
-    from eradiate_tpu_torch.kernels import leaf_intersect as li
-    from eradiate_tpu_torch.kernels import shell_flight as sf
-    from eradiate_tpu_torch.kernels import tri_intersect as ti
+    from eradiate_tpu_torch.kernels import read_launches as read
 
-    return {"collision_fetch": cf.launches, **sf.launches, **li.launches, **ti.launches,
-            "collision_fetch_f64": cf.launches_f64,
-            **{f"{k}_f64": n for k, n in sf.launches_f64.items()}, **li.launches_f64,
-            **ti.launches_f64}
+    return read()
 
 
 def _c1(n_vza, layer_merge_tol=1e-3, stokes=False, surface=None, target=None):
@@ -3033,7 +3042,8 @@ def polarized_c4_cuda_vs_cpu(phase):
 
 
 def polarized_c4_full_width(phase, scalar_brf, skip=64, window=48):
-    """Polarized c4 at SZA 75 at full width, in the reference's chunks: a
+    """Polarized c4 at SZA 75 at full width (:data:`SPP_C4_POLARIZED`), in
+    the reference's chunks: a
     warm-up run with the profiler on for ``window`` event iterations after
     ``skip``, then a timed run; K2's launches must equal the event
     iterations summed over the chunks, and no other kernel launches.
@@ -3047,7 +3057,7 @@ def polarized_c4_full_width(phase, scalar_brf, skip=64, window=48):
     exp = _c4(75.0, stokes=True)
 
     def run():
-        return etp.run(exp, spp=SPP_C4, seed_state=etp.SeedState(SEED), device="cuda")
+        return etp.run(exp, spp=SPP_C4_POLARIZED, seed_state=etp.SeedState(SEED), device="cuda")
 
     prof = profile_window(run, tracer_spherical, "shell_flight", skip, window)
     per_it, dev_ms, shares = window_device(prof, window)
@@ -3074,11 +3084,11 @@ def polarized_c4_full_width(phase, scalar_brf, skip=64, window=48):
     launches = read_launches()
     iterations = exp.measures[0].results["raw"]["iterations"]
     peak = torch.cuda.max_memory_allocated() / 2**30
-    chunks = chunk_plan(SPP_C4, None, 1, N_VZA_C4, MAX_PATHS_PER_DISPATCH)
-    samples = N_VZA_C4 * SPP_C4
+    chunks = chunk_plan(SPP_C4_POLARIZED, None, 1, N_VZA_C4, MAX_PATHS_PER_DISPATCH)
+    samples = N_VZA_C4 * SPP_C4_POLARIZED
     I, q, dolp, vza = _nadir(ds)
     brf = np.asarray(ds["brf"])
-    print(f"[{phase}] polarized c4 SZA 75 full width: {N_VZA_C4} VZA x {SPP_C4} spp = {samples} "
+    print(f"[{phase}] polarized c4 SZA 75 full width: {N_VZA_C4} VZA x {SPP_C4_POLARIZED} spp = {samples} "
           f"samples in {len(per_chunk)} chunks ({chunks[0]} spp, the last {chunks[-1]}), wall "
           f"{wall:.3f} s, {samples / wall:.4e} samples/s, {iterations} event iterations "
           f"({1e3 * wall / iterations:.3f} ms each); iterations a chunk: "
@@ -3766,7 +3776,7 @@ def double_phases(fetch_times, B4, sun_85, c3_wall):
 
     runs = {}
     for mode, key in (("mono_double", "collision_fetch_f64"), ("mono_single", "collision_fetch")):
-        runs["c1", mode] = profiled_full_width(35, "c1", _c1, mode, SPP_C1, N_VZA, pp_tracer,
+        runs["c1", mode] = profiled_full_width(35, "c1", _c1, mode, SPP_C1_HALF, N_VZA, pp_tracer,
                                                "collision_fetch", key, 100, 48)
     runs["c3", "ckd"] = profiled_full_width(36, "c3, as bench.py names it", _c3, "ckd", SPP_C3,
                                             N_VZA, pp_tracer, "collision_fetch",
@@ -4897,7 +4907,7 @@ def _profiled_iteration(run, module, attr, iterations):
 
 
 def sensitivity_full_width(phase):
-    """Phase M: c1 (76 VZA x 4194304 spp) with each channel of
+    """Phase M: c1 (76 VZA x 2097152 spp, half c1's samples) with each channel of
     :data:`SENS_C1_CHANNELS` and path B (c4 at SZA 75, 15 VZA x 2097152 spp)
     with ``medium.tau_scale``, each channel one ``sensitivities`` pass, beside
     the primal render they share (the same config: RR off, ``lr_flight``)
@@ -4976,7 +4986,7 @@ def sensitivity_full_width(phase):
         return out
 
     etp.set_mode("mono_single")
-    case("c1", _c1(N_VZA), SPP_C1, SENS_C1_CHANNELS, tracer, "collision_fetch",
+    case("c1", _c1(N_VZA), SPP_C1_HALF, SENS_C1_CHANNELS, tracer, "collision_fetch",
          lambda ch: {"collision_fetch": 1 if ch == "surface.reflectance" else 2})
     path_b = {"shell_flight": 1, "shell_depths": 1, "slant_tau": 2}
     case("path B", _c4(75.0), SPP_C4, ("medium.tau_scale",), tracer_spherical, "shell_flight",
@@ -5085,6 +5095,118 @@ def sensitivity_gates(phase, cpu):
 
 #: The phase group whose seconds :func:`stamp` prints next, and its start.
 _STAMP = {"label": "1. card", "t": None}
+
+
+#: c1's gate (relative, a pixel) for a sharded render against the single one
+C1_SHARDED_RTOL = 1e-5
+
+
+def _equal_bits(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and a.dtype == b.dtype and np.array_equal(
+        a.view(np.uint8), b.view(np.uint8))
+
+
+def _sharded_ranks(label, out, device, backend, single, smi):
+    """Two ranks through the dry run (``eradiate_tpu_torch.parallel.dryrun``):
+    c1 at full width, SPP_C1 / 2 samples a rank, within c1's gate of the
+    single render ``single`` and equal on both ranks, K1 launched once an
+    iteration on each; every family at the dry run's size against its
+    unsharded render under the families' gate (``dryrun.compare``)."""
+    from eradiate_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    dryrun.run_ranks(2, [(1, 2)], device, backend, out, cases=("families", "c1"),
+                     spp=SPP_C1 // 2, seed=SEED, timeout=400)
+    wall = time.perf_counter() - t0
+    worst = dryrun.compare(out, [(1, 2)])
+    ranks = [np.load(Path(out) / f"c1-r{r}.npz") for r in range(2)]
+    rel = np.abs(ranks[0]["radiance"] - single["radiance"]) / np.abs(single["radiance"])
+    if not (_equal_bits(ranks[0]["radiance"], ranks[1]["radiance"])
+            and int(ranks[0]["spp"]) == int(single["spp"]) and rel.max() <= C1_SHARDED_RTOL):
+        raise AssertionError(f"{label}: c1 sharded differs from the single render by "
+                             f"{rel.max():.3g} (gate {C1_SHARDED_RTOL}) or across the ranks")
+    for r, raw in enumerate(ranks):
+        launches = {k: int(raw[k]) for k in raw.files if k.startswith("launches_")}
+        if launches != {"launches_collision_fetch": int(raw["iterations"])}:
+            raise AssertionError(f"{label}: rank {r} launched {launches} in "
+                                 f"{int(raw['iterations'])} iterations")
+    launched = {}
+    for case in dryrun.FAMILIES:
+        arrays = np.load(Path(out) / f"{case}-1x2.npz")
+        launched[case] = {k[len("launches_"):]: int(arrays[k]) for k in arrays.files
+                          if k.startswith("launches_")}
+    print(f"    {label}: c1 76 VZA x {SPP_C1 // 2} spp a rank: rank walls "
+          f"{float(ranks[0]['wall_s']):.3f} s and {float(ranks[1]['wall_s']):.3f} s against "
+          f"the single render's {single['wall_s']:.3f} s ({smi}); largest relative difference "
+          f"{rel.max():.3g}; K1 launches {int(ranks[0]['launches_collision_fetch'])} and "
+          f"{int(ranks[1]['launches_collision_fetch'])} = iterations; the dry run {wall:.1f} s",
+          flush=True)
+    print(f"    {label}: every family sharded against unsharded, largest relative difference "
+          f"(the stratified sampler: |z|) {json.dumps(worst)}", flush=True)
+    print(f"    {label}: rank 0's launches by family {json.dumps(launched)}", flush=True)
+    return {"rank_walls_s": [float(r["wall_s"]) for r in ranks], "c1_max_rel": float(rel.max()),
+            "worst": worst, "launched": launched, "dryrun_s": wall}
+
+
+def sharded_phase(phase, smi, single):
+    """O. the sharded renders (``eradiate_tpu_torch.parallel``): (a) one NCCL
+    rank in this process renders c1 at full width through ``run(exp,
+    mesh=make_render_mesh(1, 1))``, bit for bit phase 5's ``mesh=None``
+    render ``single`` (its raw results and wall, at the same seed), K1
+    launched once an iteration; (b) two ranks on the one card over gloo
+    (NCCL refuses two ranks on a card) through the dry run; (c) with two
+    cards, (b) on two cards over NCCL."""
+    import torch
+    import torch.distributed as dist
+
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch import parallel
+    from eradiate_tpu_torch.parallel import dryrun
+
+    etp.set_mode("mono_single")
+    work = Path(__file__).resolve().parent / "build" / "sharded"
+    work.mkdir(parents=True, exist_ok=True)
+    store = work / "nccl_store"
+    store.unlink(missing_ok=True)
+    rec = {}
+    parallel.initialize(f"file://{store}", 1, 0, backend="nccl", device="cuda")
+    try:
+        exp = dryrun.c1_experiment()
+        mesh = parallel.make_render_mesh(1, 1, "cuda")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        etp.run(exp, spp=SPP_C1, seed_state=etp.SeedState(SEED), mesh=mesh, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _nonzero(read_launches())
+    finally:
+        dist.destroy_process_group()
+    sharded = exp.measures[0].results["raw"]
+    same = all(_equal_bits(sharded[k], single[k]) for k in ("radiance", "m2"))
+    print(f"[{phase}] (a) one NCCL rank: c1 76 VZA x {SPP_C1} spp through run(exp, "
+          f"mesh=make_render_mesh(1, 1)): wall {wall:.3f} s against phase 5's "
+          f"{single['wall_s']:.3f} s with mesh=None ({smi}); bit for bit {same}; launches "
+          f"{launches} in {sharded['iterations']} iterations", flush=True)
+    if not same or sharded["spp"] != single["spp"]:
+        raise AssertionError(f"{phase} (a): the one-rank sharded c1 differs from mesh=None")
+    if launches != {"collision_fetch": sharded["iterations"]}:
+        raise AssertionError(f"{phase} (a): launches {launches} are not one K1 an iteration "
+                             f"({sharded['iterations']})")
+    rec["nccl_one_rank"] = {"wall_s": wall, "single_wall_s": single["wall_s"],
+                            "launches": launches["collision_fetch"],
+                            "iterations": sharded["iterations"]}
+    print(f"[{phase}] (b) two ranks on cuda:0 over gloo", flush=True)
+    rec["gloo_one_card"] = _sharded_ranks("(b)", work / "gloo", "cuda:0", "gloo", single, smi)
+    if torch.cuda.device_count() >= 2:
+        print(f"[{phase}] (c) two ranks on two cards over NCCL", flush=True)
+        rec["nccl_two_cards"] = _sharded_ranks("(c)", work / "nccl", "cuda", "nccl", single,
+                                               smi)
+    else:
+        print(f"[{phase}] (c) not run: {torch.cuda.device_count()} card (it needs two)",
+              flush=True)
+    return rec
 
 
 def stamp(label):
@@ -5227,6 +5349,7 @@ def main():
     c1_launches = read_launches()
     launches = c1_launches["collision_fetch"]
     iterations = exp.measures[0].results["raw"]["iterations"]
+    c1_single = {**exp.measures[0].results["raw"], "wall_s": wall}  # phase O's mesh=None render
     brf = np.asarray(ds["brf"])
     vza = np.asarray(ds["vza"])
     nadir = int(np.argmin(np.abs(vza)))
@@ -5519,7 +5642,7 @@ def main():
     # -- 20-23. polarized transport (mono_polarized_single) ------------------
     etp.set_mode(POLARIZED_MODE)
     polarized_c1_cuda_vs_cpu(phase=20)
-    pol_c1_launches, pol_fetch_ms = polarized_c1_full_width(phase=21)
+    pol_c1_launches, pol_fetch_ms = polarized_c1_full_width(phase=21, spp=SPP_C1_HALF)
     pol_small = {form: c5_cuda_vs_cpu(form, 22, cpu, stokes=True)
                  for form in ("instanced", "flat", "trees")}
     pol_c5_launches, pol_sweep_ms, pol_c5_stats = polarized_c5_full_width(23, ds_inst)
@@ -5571,7 +5694,7 @@ def main():
     pol_c4_launches, pol_c4_k2_ms = polarized_c4_full_width(29, c4_brf_nadir)
     pol_c2_small = polarized_c1_cuda_vs_cpu(30, "polarized c2", _c2)
     pol_c2_launches, pol_c2_k1_ms = polarized_c1_full_width(
-        30, "polarized c2", _c2(N_VZA), SPP_C2, skip=64)
+        30, "polarized c2", _c2(N_VZA), SPP_C2_HALF, skip=64)
     etp.set_mode("ckd_polarized_single")
     pol_c3_small = polarized_rows_cuda_vs_cpu(31, cpu_bg)
     etp.set_mode("mono_single")
@@ -5609,6 +5732,9 @@ def main():
     sens = sensitivity_full_width("M")
     stamp("N. sensitivities on CUDA against the CPU")
     sensitivity_gates("N", cpu_bg)
+    # -- O. the sharded renders: one NCCL rank, two ranks over gloo ------------
+    stamp("O. the sharded renders")
+    sharded = sharded_phase("O", smi, c1_single)
     stamp("the kernels line")
     # -- 32-37. the double modes through the float64 builds of K1-K4 -----------
     runs, path_b64, pol_c1_double = double["runs"], double["path_b"], double["pol_c1"]
@@ -5802,6 +5928,14 @@ def main():
     by_name["collision_fetch"]["sensitivity"]["c1_launches"] = {
         ch: passes["c1"][ch]["launches"]["collision_fetch"] for ch in SENS_C1_CHANNELS}
     by_name["collision_fetch"]["sensitivity"]["c1_iterations"] = passes["c1"]["iterations"]
+    # phase O: K1 on the sharded c1 (one NCCL rank in this process; each of
+    # two ranks over gloo), every kernel's launches on rank 0 of the families
+    by_name["collision_fetch"]["sharded"] = {
+        "nccl_one_rank_launches": sharded["nccl_one_rank"]["launches"],
+        "nccl_one_rank_iterations": sharded["nccl_one_rank"]["iterations"]}
+    for case, launched in sharded["gloo_one_card"]["launched"].items():
+        for k, n in launched.items():
+            by_name[k].setdefault("sharded_family_launches", {})[case] = n
     print(f"chip_smoke total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -1,8 +1,7 @@
 """eradiate_tpu_torch — the PyTorch/CUDA port of eradiate_tpu.
 
-The port runs on one NVIDIA GPU, in every single and double mode (the
-double modes with float64 path state, through float64 builds of the
-kernels):
+The port runs on NVIDIA GPUs, in every single and double mode (the double
+modes with float64 path state, through float64 builds of the kernels):
 
 * the plane-parallel paths (BASELINE configs 1-3: Rayleigh and aerosol
   columns, mono and CKD, over every surface kind, seen by distant sensor
@@ -24,7 +23,11 @@ kernels):
   by ``torch.autograd.forward_ad``, one pass a channel, through the
   kernels' forward rules (the collision fetch, the slant depth) and the
   shell depths of the likelihood-ratio flight, launched on the
-  extinction's tangent, on every tracer family.
+  extinction's tangent, on every tracer family;
+* sharded renders (``parallel``): every family over a ("spectral",
+  "sample") mesh of ``torch.distributed`` ranks, one process a rank,
+  through ``run(exp, mesh=...)``, with spectral-chunk checkpoints
+  (``checkpoint``) and profiling counters (``profiling``).
 
 The package stands alone: it imports ``torch`` and ``numpy``, never ``jax``
 and nothing of ``eradiate_tpu``. Its host-side code (mode registry, seed
@@ -37,7 +40,7 @@ stays the reference the tests hold the port against, exchanging numpy
 arrays and plain Python values only.
 
 Public surface: ``set_mode``/``mode``, ``SeedState``/``root_seed_state``,
-the experiments, ``run`` and ``sensitivity``. Every entry point takes an explicit ``device``
+the experiments, ``run``, ``sensitivity``, ``parallel`` and ``profiling``. Every entry point takes an explicit ``device``
 ("cuda" by default); asking for CUDA without a card raises instead of
 running on the CPU.
 """
@@ -51,7 +54,7 @@ from .experiments import (  # noqa: F401
     CanopyExperiment,
     run,
 )
-from . import sensitivity  # noqa: F401
+from . import parallel, profiling, sensitivity  # noqa: F401
 
 _apply_settings()
 

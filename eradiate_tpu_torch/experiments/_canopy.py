@@ -3,7 +3,8 @@
 Port of ``eradiate_tpu/experiments/_canopy.py``: an explicit disk-leaf
 canopy over a lambertian-like surface, without or with a 1D atmosphere. The
 host side (leaf arrays in Morton order, leaf optics) is numpy; the render
-goes to :func:`..ops.tracer_canopy.render_canopy` on one device, or in a
+goes to :func:`..ops.tracer_canopy.render_canopy` on one device (or its
+sharded twin, :mod:`..parallel.render`, over a mesh), or in a
 polarized mode to :func:`..ops.tracer_canopy_polarized.render_canopy_polarized`.
 Canopies hold leaf clouds, abstract trees (a leaf-cloud crown on a trunk)
 and mesh trees; trunks and mesh trees are triangle soups (the ``ray_tris``
@@ -28,6 +29,7 @@ from ..scenes.biosphere import DiscreteCanopy, LeafCloud, biosphere_factory
 from ..scenes.measure import TargetRectangle
 from ..scenes.spectra import converter as spectrum_converter
 from ._atmosphere import AtmosphereExperiment
+from ._core import resolve_mesh
 
 __all__ = ["CanopyExperiment", "CanopyAtmosphereExperiment"]
 
@@ -173,21 +175,37 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
 
     @staticmethod
     def _render_canopy_raw(scene, leaf_params, leaves, sensor, config, n, seed, tris,
-                           tri_params, device="cuda"):
+                           tri_params, device="cuda", mesh=None):
         """One canopy render on ``device``, scalar or polarized as ``config``
-        says (reference ``_render_canopy_raw``, one device): the canopy
-        counterpart of :meth:`._core.EarthObservationExperiment._render_one`,
-        which :func:`..sensitivity.sensitivities` also calls."""
+        says, sharded over ``mesh`` when one is given (reference
+        ``_render_canopy_raw``): the canopy counterpart of
+        :meth:`._core.EarthObservationExperiment._render_one`, which
+        :func:`..sensitivity.sensitivities` also calls."""
+        if mesh is not None:
+            from .. import parallel as par
+
+            renderer = (par.render_canopy_polarized_sharded if config.polarized
+                        else par.render_canopy_sharded)
+            return renderer(
+                scene, leaf_params, leaves, sensor, config, spp=n, seed=seed, mesh=mesh,
+                tris=tris, tri_params=tri_params, device=device,
+            )
         renderer = render_canopy_polarized if config.polarized else render_canopy
         return renderer(
             scene, leaf_params, leaves, sensor, config, spp=n, seed=seed, tris=tris,
             tri_params=tri_params, device=device,
         )
 
-    def process(self, spp=None, seed_state=None, device="cuda"):
+    def process(self, spp=None, seed_state=None, checkpoint_dir=None, mesh="auto",
+                device="cuda"):
+        """Render every measure on ``device`` (sharded over ``mesh``, as
+        :func:`._core.resolve_mesh`). A canopy render is one spectral chunk,
+        so ``checkpoint_dir`` has nothing to resume, as in the reference."""
         if self.canopy is None:
-            return super().process(spp=spp, seed_state=seed_state, device=device)
+            return super().process(spp=spp, seed_state=seed_state,
+                                   checkpoint_dir=checkpoint_dir, mesh=mesh, device=device)
         dev = resolve_device(device)
+        mesh = resolve_mesh(mesh, dev)
         seed_state = seed_state or root_seed_state
         for measure in self.measures:
             ctx = self.spectral_context(measure)
@@ -196,7 +214,7 @@ class CanopyAtmosphereExperiment(AtmosphereExperiment):
             n = int(spp) if spp is not None else int(measure.spp)
             raw = self._render_canopy_raw(
                 scene, leaf_params, leaves, sensor, config, n, int(seed_state.next()), tris,
-                tri_params, device=dev,
+                tri_params, device=dev, mesh=mesh,
             )
             measure.results = {
                 "raw": {

@@ -31,6 +31,8 @@ depend on the lane count.
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 
 from ..core import threefry
@@ -59,6 +61,7 @@ from .scene_state import (
 )
 
 __all__ = ["render", "trace_paths", "trace_paths_regen", "lane_partition", "row_arrays",
+           "RowRenderer", "row_renderer",
            "row_key", "chunk_plan", "one_shot_chunks", "MAX_PATHS_PER_DISPATCH",
            "CANOPY_PATHS_PER_DISPATCH"]
 
@@ -328,15 +331,22 @@ def _lane_plan(n_pix, spp, lanes_target):
     return lp, -(-spp // lp)
 
 
-def lane_partition(n_pix, spp, lanes_target, device):
+def lane_partition(n_pix, spp, lanes_target, device, spp_stride=None, sample_offset=0):
     """Exact-spp lane partition: ``(lp, pix, slot, lane_first, quota)``.
 
     ``n_pix * lp`` lanes; lane (pixel, slot) renders sample ids
     ``lane_first .. lane_first + quota - 1``, and the ids tile
     ``[pixel * spp, (pixel + 1) * spp)`` exactly (the first ``spp % lp``
     slots take one extra sample).
+
+    The distribution hooks of :mod:`..parallel.render`: ``spp_stride``
+    (default ``spp``) is the width of a pixel's *global* sample-id range and
+    ``sample_offset`` shifts this rank's ids inside it, so that lane (pixel,
+    slot) starts at ``pixel * spp_stride + sample_offset + start`` and the
+    ranks of a sample axis together trace the single-device id set.
     """
     lp, _ = _lane_plan(n_pix, spp, lanes_target)
+    stride = spp if spp_stride is None else spp_stride
     pix = torch.arange(n_pix, device=device).repeat_interleave(lp)
     slot = torch.arange(lp, device=device).repeat(n_pix)
     q_lo, rem = divmod(spp, lp)
@@ -344,7 +354,10 @@ def lane_partition(n_pix, spp, lanes_target, device):
     start = torch.where(
         slot < rem, slot * (q_lo + 1), rem * (q_lo + 1) + (slot - rem) * q_lo
     )
-    return lp, pix, slot, pix * spp + start, quota
+    lane_first = pix * stride + start
+    if sample_offset:
+        lane_first = lane_first + sample_offset
+    return lp, pix, slot, lane_first, quota
 
 
 def advance_xy(xy, d, s, fused):
@@ -389,12 +402,14 @@ def _ray_anchors(medium_row, pix, directions, target, ray_offset, target_extent,
 
 def _render_row_regen(
     config, n_pix, spp, medium_row, surface_row, illum_row, directions, key,
-    target, ray_offset, target_extent, lanes_target, check_every,
+    target, ray_offset, target_extent, lanes_target, check_every, sample_offset=0,
+    spp_stride=None,
 ):
-    """One spectral row: ``n_pix * lp`` lanes x quota samples each.
-    Returns (radiance [N], m2 [N], iterations)."""
+    """One spectral row: ``n_pix * lp`` lanes x quota samples each, their
+    ids placed by :func:`lane_partition`'s ``spp_stride`` and
+    ``sample_offset``. Returns (radiance [N], m2 [N], iterations)."""
     lp, pix, _, lane_first, quota = lane_partition(
-        n_pix, spp, lanes_target, directions.device
+        n_pix, spp, lanes_target, directions.device, spp_stride, sample_offset
     )
     init_z, init_xy, init_d, ext = _ray_anchors(
         medium_row, pix, directions, target, ray_offset, target_extent,
@@ -411,26 +426,38 @@ def _render_row_regen(
 
 def _render_row(
     config, n_pix, spp, medium_row, surface_row, illum_row, directions, key,
-    target, ray_offset, target_extent, check_every,
+    target, ray_offset, target_extent, check_every, sample_offset=None,
+    spp_stride=None,
 ):
     """One spectral row with the one-shot loop (a structured sampler):
     ``n_pix * spp`` lanes, one sample each. Each pixel's primary point set
     comes from the key ``fold_in(fold_in(key, 0x5A17), pixel)``, its
     scramble base from ``bits(fold_in(key, 0x0E11), (n_pix,))``. Returns
-    (radiance [N], m2 [N], iterations)."""
+    (radiance [N], m2 [N], iterations).
+
+    A sharded render passes ``sample_offset`` and ``spp_stride`` (as
+    :func:`lane_partition`): the paths take their global sample ids, and,
+    as in the reference, the primary point sets stratify within the rank's
+    ``spp`` from a key with the offset folded in, so that sharding keeps the
+    estimator in distribution but not the point set."""
     dev = directions.device
     B = n_pix * spp
+    stride = spp if spp_stride is None else spp_stride
     pix = torch.arange(n_pix, device=dev).repeat_interleave(spp)
     slot = torch.arange(spp, device=dev).repeat(n_pix)
+    if sample_offset is not None:
+        slot = slot + sample_offset
     init_z, init_xy, init_d, _ = _ray_anchors(
         medium_row, pix, directions, target, ray_offset, target_extent,
         uses_position(config.surface_kind), jitter_key=key,
     )
-    keys = derive_keys(key, pix * spp + slot, config.rng)
+    keys = derive_keys(key, pix * stride + slot, config.rng)
     u0 = ld = None
     if config.sampler != "independent":
-        pix_keys = fold_in_t(fold_in_t(key, 0x5A17).expand(n_pix, 2),
-                             torch.arange(n_pix, device=dev))
+        k_sampler = fold_in_t(key, 0x5A17)
+        if sample_offset is not None:
+            k_sampler = fold_in_t(k_sampler, sample_offset)
+        pix_keys = fold_in_t(k_sampler.expand(n_pix, 2), torch.arange(n_pix, device=dev))
         u0 = primary_samples(config.sampler, spp, pix_keys).reshape(B).to(init_z.dtype)
         ld = (slot, bits_t(fold_in_t(key, 0x0E11), (n_pix,))[pix])
     L, iterations = trace_paths(
@@ -546,22 +573,58 @@ def one_shot_chunks(spp, spp_chunk, paths):
     return [step] * -(-spp // step)
 
 
-def _render_structured(scene, sensor, config, spp, seed, spp_chunk, check_every):
+class RowRenderer(NamedTuple):
+    """A compiled scene on its device, rendered one spectral row and sample
+    chunk at a time: ``render(s, key, n, sample_offset=None,
+    spp_stride=None)`` returns row ``s``'s estimate over ``n`` samples
+    (``[N]``, or ``[N, 4]`` with ``stokes``), its second moment ``[N]`` and
+    its iterations, the samples' ids placed as :func:`lane_partition`'s.
+    The single-device renders and the sharded twins
+    (:mod:`..parallel.render`) loop over the same rows."""
+
+    rows: int
+    n_pix: int
+    dtype: torch.dtype
+    device: torch.device
+    stokes: bool
+    render: Callable
+
+
+def row_renderer(scene, sensor, config, *, device="cuda", lanes_target=None,
+                 check_every=CHECK_EVERY):
+    """:class:`RowRenderer` of a plane-parallel scene (arguments as
+    :func:`render`): the regenerative loop for the ``independent`` sampler,
+    the one-shot loop for a structured one."""
+    _check_supported(config)
+    dev = resolve_device(device)
+    scene, sensor, config = from_reference(scene, sensor, config, dev)
+    if lanes_target is None:
+        lanes_target = REGEN_LANES_TARGET[dev.type]
+    n_pix = sensor.directions.shape[0]
+
+    def render_row(s, key, n, sample_offset=None, spp_stride=None):
+        medium_row, surface_row, illum_row = row_arrays(scene, s)
+        args = (config, n_pix, n, medium_row, surface_row, illum_row, sensor.directions, key,
+                sensor.target, sensor.ray_offset, sensor.target_extent)
+        if config.sampler == "independent":
+            return _render_row_regen(*args, lanes_target, check_every,
+                                     sample_offset=sample_offset or 0, spp_stride=spp_stride)
+        return _render_row(*args, check_every, sample_offset=sample_offset,
+                           spp_stride=spp_stride)
+
+    return RowRenderer(scene.medium.tau_levels.shape[0], n_pix, scene.medium.tau_levels.dtype,
+                       dev, False, render_row)
+
+
+def _render_structured(rr, spp, seed, spp_chunk):
     """:func:`render` for a structured sampler: one-shot chunks."""
-    dev = sensor.directions.device
-    S, n_pix = scene.medium.tau_levels.shape[0], sensor.directions.shape[0]
-    chunks = one_shot_chunks(spp, spp_chunk, S * n_pix)
-    rad = torch.zeros((S, n_pix), dtype=scene.medium.tau_levels.dtype, device=dev)
+    chunks = one_shot_chunks(spp, spp_chunk, rr.rows * rr.n_pix)
+    rad = torch.zeros((rr.rows, rr.n_pix), dtype=rr.dtype, device=rr.device)
     m2 = torch.zeros_like(rad)
     iterations = 0
     for chunk_id, n in enumerate(chunks):
-        for s in range(S):
-            medium_row, surface_row, illum_row = row_arrays(scene, s)
-            r, m, it = _render_row(
-                config, n_pix, n, medium_row, surface_row, illum_row, sensor.directions,
-                row_key(seed, s, chunk_id, dev), sensor.target, sensor.ray_offset,
-                sensor.target_extent, check_every,
-            )
+        for s in range(rr.rows):
+            r, m, it = rr.render(s, row_key(seed, s, chunk_id, rr.device), n)
             rad[s] += r
             m2[s] += m
             iterations += it
@@ -590,23 +653,14 @@ def render(
     per-sample contributions), ``spp`` and ``iterations`` (bounce
     iterations, summed over rows and chunks).
     """
-    _check_supported(config)
-    dev = resolve_device(device)
-    scene, sensor, config = from_reference(scene, sensor, config, dev)
-    if lanes_target is None:
-        lanes_target = REGEN_LANES_TARGET[dev.type]
-    n_pix = sensor.directions.shape[0]
+    rr = row_renderer(scene, sensor, config, device=device, lanes_target=lanes_target,
+                      check_every=check_every)
     if config.sampler != "independent":
-        return _render_structured(scene, sensor, config, spp, seed, spp_chunk, check_every)
+        return _render_structured(rr, spp, seed, spp_chunk)
 
     rads, m2s, iterations = [], [], 0
-    for s in range(scene.medium.tau_levels.shape[0]):
-        medium_row, surface_row, illum_row = row_arrays(scene, s)
-        rad, m2, it = _render_row_regen(
-            config, n_pix, spp, medium_row, surface_row, illum_row,
-            sensor.directions, row_key(seed, s, 0, dev), sensor.target,
-            sensor.ray_offset, sensor.target_extent, lanes_target, check_every,
-        )
+    for s in range(rr.rows):
+        rad, m2, it = rr.render(s, row_key(seed, s, 0, rr.device), spp)
         rads.append(rad)
         m2s.append(m2)
         iterations += it

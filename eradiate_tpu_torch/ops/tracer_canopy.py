@@ -67,14 +67,15 @@ from .scene_state import canopy_from_reference, from_reference, scene_dtype
 from .tracer import (
     CANOPY_PATHS_PER_DISPATCH,
     CHECK_EVERY,
+    RowRenderer,
     chunk_plan,
     lane_partition,
     row_arrays,
     row_key,
 )
 
-__all__ = ["render_canopy", "trace_paths_canopy_regen", "lane_rays",
-           "canopy_rows"]
+__all__ = ["render_canopy", "trace_paths_canopy_regen", "lane_rays", "row_renderer",
+           "canopy_row_renderer", "canopy_sums"]
 
 #: Bounces between spatial lane sorts in the regenerative loop (0 = off).
 #: Sorting lanes by the Morton code of their position makes the rays of a
@@ -486,17 +487,19 @@ def lane_rays(medium_row, directions, target, ray_offset, target_extent, pix):
 
 
 def _render_row_canopy(
-    config, n_pix, spp, medium_row, surface_row, leaf_row, leaves, illum_row,
-    directions, target, ray_offset, key, target_extent, lanes_target, sort_every,
-    check_every, tris=None, tri_row=None,
+    config, n_pix, spp, medium_row, surface_row, leaf_row, leaves, illum_row, sensor,
+    key, lanes_target, sort_every, check_every, tris=None, tri_row=None, sample_offset=0,
+    spp_stride=None,
 ):
-    """One spectral row of one chunk: returns (radiance [N], m2 [N],
+    """One spectral row of one chunk, its sample ids placed as
+    :func:`.tracer.lane_partition`'s: returns (radiance [N], m2 [N],
     iterations)."""
     lp, pix, _, lane_first, quota = lane_partition(
-        n_pix, spp, lanes_target, directions.device
+        n_pix, spp, lanes_target, sensor.directions.device, spp_stride, sample_offset
     )
     init_pos, init_d, ext = lane_rays(
-        medium_row, directions, target, ray_offset, target_extent, pix
+        medium_row, sensor.directions, sensor.target, sensor.ray_offset,
+        sensor.target_extent, pix,
     )
     L_sum, m2_sum, iterations = trace_paths_canopy_regen(
         config, medium_row, surface_row, leaf_row, leaves, illum_row, init_pos, init_d,
@@ -528,6 +531,69 @@ def _check_supported(config):
     check_phase_kinds(config.phase_kinds)
 
 
+def canopy_row_renderer(row_fn, stokes, scene, leaf_params, leaves, sensor, config, tris,
+                        tri_params, device, lanes_target, sort_every, check_every):
+    """:class:`.tracer.RowRenderer` of a canopy scene through ``row_fn``
+    (:func:`_render_row_canopy` or its polarized twin): the scene, the
+    leaves, the triangles and their optics moved to ``device``, each row's
+    optics taken from ``leaf_params``/``tri_params``."""
+    dev = resolve_device(device)
+    dt = scene_dtype(scene.medium)
+    scene, sensor, config = from_reference(scene, sensor, config, dev)
+    leaves, leaf_params, tris, tri_params = canopy_from_reference(
+        leaves, leaf_params, dev, tris, tri_params, dt
+    )
+    if lanes_target is None:
+        lanes_target = LANES_TARGET[dev.type]
+    n_pix = sensor.directions.shape[0]
+
+    def render_row(s, key, n, sample_offset=None, spp_stride=None):
+        medium_row, surface_row, illum_row = row_arrays(scene, s)
+        leaf_row = {k: v[s] for k, v in leaf_params.items()}
+        tri_row = None if tri_params is None else {k: v[s] for k, v in tri_params.items()}
+        return row_fn(
+            config, n_pix, n, medium_row, surface_row, leaf_row, leaves, illum_row, sensor,
+            key, lanes_target, sort_every, check_every, tris, tri_row, sample_offset or 0,
+            spp_stride,
+        )
+
+    # float64 in a double mode, as the reference's sums
+    return RowRenderer(scene.medium.tau_levels.shape[0], n_pix, scene.medium.tau_levels.dtype,
+                       dev, stokes, render_row)
+
+
+def row_renderer(scene, leaf_params, leaves, sensor, config, tris=None, tri_params=None, *,
+                 device="cuda", lanes_target=None, sort_every=CANOPY_SORT_EVERY,
+                 check_every=CHECK_EVERY):
+    """:class:`.tracer.RowRenderer` of a canopy scene (arguments as
+    :func:`render_canopy`)."""
+    _check_supported(config)
+    return canopy_row_renderer(_render_row_canopy, False, scene, leaf_params, leaves, sensor,
+                               config, tris, tri_params, device, lanes_target, sort_every,
+                               check_every)
+
+
+def canopy_sums(rr, spp, seed, spp_chunk):
+    """The single-device canopy loop over :func:`.tracer.chunk_plan`'s chunks
+    of :data:`.tracer.CANOPY_PATHS_PER_DISPATCH` paths: ``(sum, m2_sum,
+    traced, iterations)``, each chunk's estimate weighted by its samples as
+    the reference sums them, ``key`` of chunk ``c`` of row ``s``
+    ``fold_in(fold_in(key(seed), s), c)``."""
+    chunks = chunk_plan(spp, spp_chunk, rr.rows, rr.n_pix,
+                        CANOPY_PATHS_PER_DISPATCH[rr.device.type])
+    lead = (rr.rows, rr.n_pix, 4) if rr.stokes else (rr.rows, rr.n_pix)
+    a_sum = torch.zeros(lead, dtype=rr.dtype, device=rr.device)
+    m2_sum = torch.zeros((rr.rows, rr.n_pix), dtype=rr.dtype, device=rr.device)
+    iterations = 0
+    for chunk_id, n in enumerate(chunks):
+        for s in range(rr.rows):
+            a, m2, it = rr.render(s, row_key(seed, s, chunk_id, rr.device), n)
+            a_sum[s] += a * n
+            m2_sum[s] += m2 * n
+            iterations += it
+    return a_sum, m2_sum, sum(chunks), iterations
+
+
 def render_canopy(
     scene, leaf_params, leaves, sensor, config, spp, seed=0, spp_chunk=None,
     tris=None, tri_params=None, *, device="cuda", lanes_target=None,
@@ -551,33 +617,10 @@ def render_canopy(
     launches the nearest-hit and the any-hit sweep of the leaves once and,
     with ``tris``, those of the triangles).
     """
-    _check_supported(config)
-    dev = resolve_device(device)
-    dt = scene_dtype(scene.medium)
-    scene, sensor, config = from_reference(scene, sensor, config, dev)
-    leaves, leaf_params, tris, tri_params = canopy_from_reference(
-        leaves, leaf_params, dev, tris, tri_params, dt
-    )
-    dtype = scene.medium.tau_levels.dtype  # float64 in a double mode, as the reference's sums
-    if lanes_target is None:
-        lanes_target = LANES_TARGET[dev.type]
-    S, n_pix = scene.medium.tau_levels.shape[0], sensor.directions.shape[0]
-    chunks = chunk_plan(spp, spp_chunk, S, n_pix, CANOPY_PATHS_PER_DISPATCH[dev.type])
-
-    rad_sum = torch.zeros((S, n_pix), dtype=dtype, device=dev)
-    m2_sum = torch.zeros((S, n_pix), dtype=dtype, device=dev)
-    iterations = 0
-    for n, s, key, rows in canopy_rows(scene, leaf_params, tri_params, seed, chunks, dev):
-        medium_row, surface_row, leaf_row, illum_row, tri_row = rows
-        rad, m2, it = _render_row_canopy(
-            config, n_pix, n, medium_row, surface_row, leaf_row, leaves, illum_row,
-            sensor.directions, sensor.target, sensor.ray_offset, key,
-            sensor.target_extent, lanes_target, sort_every, check_every, tris, tri_row,
-        )
-        rad_sum[s] += rad * n
-        m2_sum[s] += m2 * n
-        iterations += it
-    traced = sum(chunks)
+    rr = row_renderer(scene, leaf_params, leaves, sensor, config, tris, tri_params,
+                      device=device, lanes_target=lanes_target, sort_every=sort_every,
+                      check_every=check_every)
+    rad_sum, m2_sum, traced, iterations = canopy_sums(rr, spp, seed, spp_chunk)
     return {
         "radiance": rad_sum / traced,
         "m2": m2_sum / traced,
@@ -586,15 +629,4 @@ def render_canopy(
     }
 
 
-def canopy_rows(scene, leaf_params, tri_params, seed, chunks, dev):
-    """For each chunk and spectral row: ``(n, s, key, (medium_row,
-    surface_row, leaf_row, illum_row, tri_row))``, ``n`` the chunk's samples
-    and ``key`` its row key ``fold_in(fold_in(key(seed), s), chunk)``."""
-    for chunk_id, n in enumerate(chunks):
-        for s in range(scene.medium.tau_levels.shape[0]):
-            medium_row, surface_row, illum_row = row_arrays(scene, s)
-            leaf_row = {k: v[s] for k, v in leaf_params.items()}
-            tri_row = None if tri_params is None else {k: v[s] for k, v in tri_params.items()}
-            yield n, s, row_key(seed, s, chunk_id, dev), (
-                medium_row, surface_row, leaf_row, illum_row, tri_row
-            )
+

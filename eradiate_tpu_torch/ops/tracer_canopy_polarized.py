@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import torch
 
-from ..core.device import resolve_device
 from .bsdf_ops import (
     bilambertian_eval,
     bilambertian_sample_from_uniforms,
@@ -52,17 +51,16 @@ from .medium import clamp_mu, take_1d, z_at_tau
 from .mesh import tri_nearest
 from .mueller import default_basis, depolarizer, matmul4, matvec4
 from .phase_ops import check_phase_kinds, layer_param_slots, rebuild_fetched
-from .scene_state import canopy_from_reference, from_reference, scene_dtype
-from .tracer import CANOPY_PATHS_PER_DISPATCH, CHECK_EVERY, chunk_plan, lane_partition
+from .tracer import CHECK_EVERY, lane_partition
 from .tracer_canopy import (
     CANOPY_SORT_EVERY,
-    LANES_TARGET,
     _canopy_helpers,
     _morton_u32,
     _step,
     _to_local,
     _to_world,
-    canopy_rows,
+    canopy_row_renderer,
+    canopy_sums,
     lane_rays,
 )
 from .tracer_polarized import (
@@ -73,7 +71,7 @@ from .tracer_polarized import (
     unpolarized,
 )
 
-__all__ = ["render_canopy_polarized", "trace_paths_canopy_polarized_regen"]
+__all__ = ["render_canopy_polarized", "trace_paths_canopy_polarized_regen", "row_renderer"]
 
 
 def _make_bounce_canopy_polarized(
@@ -339,12 +337,14 @@ def trace_paths_canopy_polarized_regen(
 
 def _render_row_canopy_polarized(
     config, n_pix, spp, medium_row, surface_row, leaf_row, leaves, illum_row, sensor,
-    key, lanes_target, sort_every, check_every, tris=None, tri_row=None,
+    key, lanes_target, sort_every, check_every, tris=None, tri_row=None, sample_offset=0,
+    spp_stride=None,
 ):
-    """One spectral row of one chunk: returns (stokes [N, 4], m2 [N],
+    """One spectral row of one chunk, its sample ids placed as
+    :func:`.tracer.lane_partition`'s: returns (stokes [N, 4], m2 [N],
     iterations)."""
     lp, pix, _, lane_first, quota = lane_partition(
-        n_pix, spp, lanes_target, sensor.directions.device
+        n_pix, spp, lanes_target, sensor.directions.device, spp_stride, sample_offset
     )
     init_pos, init_d, ext = lane_rays(
         medium_row, sensor.directions, sensor.target, sensor.ray_offset,
@@ -376,6 +376,17 @@ def _check_supported(config):
     check_phase_kinds(config.phase_kinds, polarized=True)
 
 
+def row_renderer(scene, leaf_params, leaves, sensor, config, tris=None, tri_params=None, *,
+                 device="cuda", lanes_target=None, sort_every=CANOPY_SORT_EVERY,
+                 check_every=CHECK_EVERY):
+    """:class:`.tracer.RowRenderer` of a polarized canopy scene (arguments
+    as :func:`render_canopy_polarized`)."""
+    _check_supported(config)
+    return canopy_row_renderer(_render_row_canopy_polarized, True, scene, leaf_params, leaves,
+                               sensor, config, tris, tri_params, device, lanes_target,
+                               sort_every, check_every)
+
+
 def render_canopy_polarized(
     scene, leaf_params, leaves, sensor, config, spp, seed=0, spp_chunk=None,
     tris=None, tri_params=None, *, device="cuda", lanes_target=None,
@@ -390,32 +401,10 @@ def render_canopy_polarized(
     launches the nearest-hit and the any-hit sweep of the leaves once and,
     with ``tris``, those of the triangles).
     """
-    _check_supported(config)
-    dev = resolve_device(device)
-    dt = scene_dtype(scene.medium)
-    scene, sensor, config = from_reference(scene, sensor, config, dev)
-    leaves, leaf_params, tris, tri_params = canopy_from_reference(
-        leaves, leaf_params, dev, tris, tri_params, dt
-    )
-    dtype = scene.medium.tau_levels.dtype  # float64 in a double mode, as the reference's sums
-    if lanes_target is None:
-        lanes_target = LANES_TARGET[dev.type]
-    S, n_pix = scene.medium.tau_levels.shape[0], sensor.directions.shape[0]
-    chunks = chunk_plan(spp, spp_chunk, S, n_pix, CANOPY_PATHS_PER_DISPATCH[dev.type])
-
-    st_sum = torch.zeros((S, n_pix, 4), dtype=dtype, device=dev)
-    m2_sum = torch.zeros((S, n_pix), dtype=dtype, device=dev)
-    iterations = 0
-    for n, s, key, rows in canopy_rows(scene, leaf_params, tri_params, seed, chunks, dev):
-        medium_row, surface_row, leaf_row, illum_row, tri_row = rows
-        st, m2, it = _render_row_canopy_polarized(
-            config, n_pix, n, medium_row, surface_row, leaf_row, leaves, illum_row,
-            sensor, key, lanes_target, sort_every, check_every, tris, tri_row,
-        )
-        st_sum[s] += st * n
-        m2_sum[s] += m2 * n
-        iterations += it
-    traced = sum(chunks)
+    rr = row_renderer(scene, leaf_params, leaves, sensor, config, tris, tri_params,
+                      device=device, lanes_target=lanes_target, sort_every=sort_every,
+                      check_every=check_every)
+    st_sum, m2_sum, traced, iterations = canopy_sums(rr, spp, seed, spp_chunk)
     stokes = st_sum / traced
     return {
         "stokes": stokes,

@@ -50,6 +50,7 @@ from .scene_state import from_reference
 from .tracer import (
     CHECK_EVERY,
     MAX_PATHS_PER_DISPATCH,
+    RowRenderer,
     chunk_plan,
     lane_partition,
     row_arrays,
@@ -57,7 +58,7 @@ from .tracer import (
 )
 from .tracer_canopy import LANES_TARGET, _to_local, _to_world, lane_rays
 
-__all__ = ["render_dem", "trace_paths_dem_regen", "DEM_PATHS_PER_DISPATCH"]
+__all__ = ["render_dem", "row_renderer", "trace_paths_dem_regen", "DEM_PATHS_PER_DISPATCH"]
 
 #: Paths of one dispatch per device type. The CPU keeps the reference's DEM
 #: rule (``MAX_PATHS_PER_DISPATCH // 16``, not the plane-parallel tracer's),
@@ -302,6 +303,42 @@ def _check_supported(config):
     check_phase_kinds(config.phase_kinds)
 
 
+def row_renderer(scene, dem, sensor, config, tris=None, n_march=128, n_bisect=16, *,
+                 device="cuda"):
+    """:class:`.tracer.RowRenderer` of a terrain scene (arguments as
+    :func:`render_dem`): the scene, the heightfield and the triangles moved
+    to ``device``, the triangles' acceleration data built once."""
+    _check_supported(config)
+    dev = resolve_device(device)
+    scene, sensor, config = from_reference(scene, sensor, config, dev)
+    dtype = scene.medium.tau_levels.dtype
+    dem = DemArrays(*(x.to(dev, dtype) for x in (dem.heights, dem.x0, dem.y0, dem.dx, dem.dy)))
+    accel = None
+    if tris is not None:
+        tris = TriangleMeshArrays(*(x.to(dev, dtype).contiguous()
+                                    for x in (tris.v0, tris.e1, tris.e2)))
+        accel = tri_accel(tris)
+    n_pix = sensor.directions.shape[0]
+
+    def render_row(s, key, n, sample_offset=None, spp_stride=None):
+        medium_row, surface_row, illum_row = row_arrays(scene, s)
+        lp, pix, _, lane_first, quota = lane_partition(
+            n_pix, n, LANES_TARGET[dev.type], dev, spp_stride, sample_offset or 0
+        )
+        init_pos, init_d, ext = lane_rays(
+            medium_row, sensor.directions, sensor.target, sensor.ray_offset,
+            sensor.target_extent, pix,
+        )
+        L_sum, m2, it = trace_paths_dem_regen(
+            config, medium_row, surface_row, dem, illum_row, init_pos, init_d, key,
+            lane_first, quota, ext=ext, tris=tris, accel=accel, n_march=n_march,
+            n_bisect=n_bisect,
+        )
+        return L_sum.reshape(n_pix, lp).sum(dim=1) / n, m2.reshape(n_pix, lp).sum(dim=1) / n, it
+
+    return RowRenderer(scene.medium.tau_levels.shape[0], n_pix, dtype, dev, False, render_row)
+
+
 def render_dem(
     scene, dem, sensor, config, spp, seed=0, spp_chunk=None, tris=None, n_march=128,
     n_bisect=16, *, device="cuda",
@@ -323,38 +360,19 @@ def render_dem(
     ``tris`` each launches the nearest-hit sweep once and the any-hit sweep
     twice). The triangles' acceleration data is built once a render.
     """
-    _check_supported(config)
-    dev = resolve_device(device)
-    scene, sensor, config = from_reference(scene, sensor, config, dev)
-    dtype = scene.medium.tau_levels.dtype
-    dem = DemArrays(*(x.to(dev, dtype) for x in (dem.heights, dem.x0, dem.y0, dem.dx, dem.dy)))
-    accel = None
-    if tris is not None:
-        tris = TriangleMeshArrays(*(x.to(dev, dtype).contiguous()
-                                    for x in (tris.v0, tris.e1, tris.e2)))
-        accel = tri_accel(tris)
-    S, n_pix = scene.medium.tau_levels.shape[0], sensor.directions.shape[0]
+    rr = row_renderer(scene, dem, sensor, config, tris, n_march, n_bisect, device=device)
+    S, n_pix, dev = rr.rows, rr.n_pix, rr.device
     chunks = chunk_plan(spp, spp_chunk, S, n_pix, DEM_PATHS_PER_DISPATCH[dev.type])
 
-    rad_sum = torch.zeros((S, n_pix), dtype=dtype, device=dev)
-    m2_sum = torch.zeros((S, n_pix), dtype=dtype, device=dev)
+    rad_sum = torch.zeros((S, n_pix), dtype=rr.dtype, device=dev)
+    m2_sum = torch.zeros((S, n_pix), dtype=rr.dtype, device=dev)
     iterations = 0
     for chunk_id, n in enumerate(chunks):
         for s in range(S):
-            medium_row, surface_row, illum_row = row_arrays(scene, s)
-            lp, pix, _, lane_first, quota = lane_partition(n_pix, n, LANES_TARGET[dev.type], dev)
-            init_pos, init_d, ext = lane_rays(
-                medium_row, sensor.directions, sensor.target, sensor.ray_offset,
-                sensor.target_extent, pix,
-            )
-            L_sum, m2, it = trace_paths_dem_regen(
-                config, medium_row, surface_row, dem, illum_row, init_pos, init_d,
-                row_key(seed, s, chunk_id, dev), lane_first, quota, ext=ext, tris=tris,
-                accel=accel, n_march=n_march, n_bisect=n_bisect,
-            )
+            rad, m2, it = rr.render(s, row_key(seed, s, chunk_id, dev), n)
             # the chunk's estimate, weighted by its samples, as the reference sums
-            rad_sum[s] += L_sum.reshape(n_pix, lp).sum(dim=1) / n * n
-            m2_sum[s] += m2.reshape(n_pix, lp).sum(dim=1) / n * n
+            rad_sum[s] += rad * n
+            m2_sum[s] += m2 * n
             iterations += it
     traced = sum(chunks)
     return {

@@ -60,6 +60,7 @@ from .scene_state import from_reference
 from .tracer import (
     CHECK_EVERY,
     REGEN_LANES_TARGET,
+    RowRenderer,
     advance_xy,
     lane_partition,
     row_arrays,
@@ -68,6 +69,7 @@ from .tracer import (
 
 __all__ = [
     "render_polarized",
+    "row_renderer",
     "trace_paths_polarized_regen",
     "scatter_frames",
     "basis_rotator",
@@ -348,14 +350,15 @@ def trace_paths_polarized_regen(
 
 def _render_row_polarized(
     config, n_pix, spp, medium_row, surface_row, illum_row, directions, key,
-    lanes_target, check_every,
+    lanes_target, check_every, sample_offset=0, spp_stride=None,
 ):
     """One spectral row: every lane starts at the top of the atmosphere
     above the origin, along its pixel's view direction (reference
-    ``_render_row_polarized``). Returns (stokes [N, 4], m2 [N],
+    ``_render_row_polarized``), its sample ids placed as
+    :func:`.tracer.lane_partition`'s. Returns (stokes [N, 4], m2 [N],
     iterations)."""
     lp, pix, _, lane_first, quota = lane_partition(
-        n_pix, spp, lanes_target, directions.device
+        n_pix, spp, lanes_target, directions.device, spp_stride, sample_offset
     )
     B = n_pix * lp
     z_top = medium_row.z_levels[-1]
@@ -380,6 +383,28 @@ def _check_supported(config):
     check_phase_kinds(config.phase_kinds, polarized=True)
 
 
+def row_renderer(scene, sensor, config, *, device="cuda", lanes_target=None,
+                 check_every=CHECK_EVERY):
+    """:class:`.tracer.RowRenderer` of a polarized plane-parallel scene
+    (arguments as :func:`render_polarized`)."""
+    _check_supported(config)
+    dev = resolve_device(device)
+    scene, sensor, config = from_reference(scene, sensor, config, dev)
+    if lanes_target is None:
+        lanes_target = REGEN_LANES_TARGET[dev.type]
+    n_pix = sensor.directions.shape[0]
+
+    def render_row(s, key, n, sample_offset=None, spp_stride=None):
+        medium_row, surface_row, illum_row = row_arrays(scene, s)
+        return _render_row_polarized(
+            config, n_pix, n, medium_row, surface_row, illum_row, sensor.directions, key,
+            lanes_target, check_every, sample_offset or 0, spp_stride,
+        )
+
+    return RowRenderer(scene.medium.tau_levels.shape[0], n_pix, scene.medium.tau_levels.dtype,
+                       dev, True, render_row)
+
+
 def render_polarized(
     scene, sensor, config, spp, seed=0, *, device="cuda", lanes_target=None,
     check_every=CHECK_EVERY,
@@ -395,20 +420,11 @@ def render_polarized(
     ``iterations`` (bounce iterations, summed over rows; one collision fetch
     each).
     """
-    _check_supported(config)
-    dev = resolve_device(device)
-    scene, sensor, config = from_reference(scene, sensor, config, dev)
-    if lanes_target is None:
-        lanes_target = REGEN_LANES_TARGET[dev.type]
-    n_pix = sensor.directions.shape[0]
-
+    rr = row_renderer(scene, sensor, config, device=device, lanes_target=lanes_target,
+                      check_every=check_every)
     stokes, m2s, iterations = [], [], 0
-    for s in range(scene.medium.tau_levels.shape[0]):
-        medium_row, surface_row, illum_row = row_arrays(scene, s)
-        st, m2, it = _render_row_polarized(
-            config, n_pix, spp, medium_row, surface_row, illum_row, sensor.directions,
-            row_key(seed, s, 0, dev), lanes_target, check_every,
-        )
+    for s in range(rr.rows):
+        st, m2, it = rr.render(s, row_key(seed, s, 0, rr.device), spp)
         stokes.append(st)
         m2s.append(m2)
         iterations += it

@@ -66,10 +66,11 @@ from .spherical import (
     sqrt_rn,
     sun_tau_fetch_fast,
 )
-from .tracer import CHECK_EVERY, _row, lane_partition, row_key
+from .tracer import CHECK_EVERY, RowRenderer, _row, lane_partition, row_key
 
 __all__ = [
     "render_spherical",
+    "row_renderer",
     "trace_paths_spherical_regen",
     "spherical_lanes_target",
     "sun_flight",
@@ -356,11 +357,13 @@ def toa_rays(w_v, target, r_top):
 
 def _render_row_spherical(
     config, n_pix, spp, medium_row, surface_row, illum_row, directions, target,
-    key, lanes_target, check_every,
+    key, lanes_target, check_every, sample_offset=0, spp_stride=None,
 ):
-    """One spectral row; returns (radiance [N], m2 [N], iterations)."""
+    """One spectral row, its sample ids placed as
+    :func:`.tracer.lane_partition`'s; returns (radiance [N], m2 [N],
+    iterations)."""
     lp, pix, _, lane_first, quota = lane_partition(
-        n_pix, spp, lanes_target, directions.device
+        n_pix, spp, lanes_target, directions.device, spp_stride, sample_offset
     )
     init_p, init_d = toa_rays(directions[pix], target, medium_row.radii[-1])
     L_sum, m2_sum, iterations = trace_paths_spherical_regen(
@@ -423,6 +426,28 @@ def check_supported(config, medium, polarized=False):
     check_phase_kinds(config.phase_kinds, polarized=polarized)
 
 
+def row_renderer(scene, sensor, config, *, device="cuda", lanes_target=None,
+                 check_every=CHECK_EVERY):
+    """:class:`.tracer.RowRenderer` of a spherical-shell scene (arguments as
+    :func:`render_spherical`; by default each call's lanes are
+    :func:`spherical_lanes_target`'s for its samples)."""
+    check_supported(config, scene.medium)
+    dev = resolve_device(device)
+    scene, sensor, config = from_reference(scene, sensor, config, dev)
+    n_pix = sensor.directions.shape[0]
+
+    def render_row(s, key, n, sample_offset=None, spp_stride=None):
+        medium_row, surface_row, illum_row = spherical_row(scene, s)
+        lanes = spherical_lanes_target(n_pix, n, dev.type) if lanes_target is None else lanes_target
+        return _render_row_spherical(
+            config, n_pix, n, medium_row, surface_row, illum_row, sensor.directions,
+            sensor.target, key, lanes, check_every, sample_offset or 0, spp_stride,
+        )
+
+    return RowRenderer(scene.medium.sigma_t.shape[0], n_pix, scene.medium.sigma_t.dtype, dev,
+                       False, render_row)
+
+
 def render_spherical(
     scene, sensor, config, spp, seed=0, *, device="cuda", lanes_target=None,
     check_every=CHECK_EVERY,
@@ -438,22 +463,12 @@ def render_spherical(
     Returns a dict with ``radiance`` [S, N], ``m2`` [S, N], ``spp`` and
     ``iterations`` (event iterations, summed over rows).
     """
-    check_supported(config, scene.medium)
-    dev = resolve_device(device)
-    scene, sensor, config = from_reference(scene, sensor, config, dev)
-    n_pix = sensor.directions.shape[0]
-    if lanes_target is None:
-        lanes_target = spherical_lanes_target(n_pix, spp, dev.type)
-
+    rr = row_renderer(scene, sensor, config, device=device, lanes_target=lanes_target,
+                      check_every=check_every)
     rads, m2s, iterations = [], [], 0
     # key(seed) -> fold_in(row) -> fold_in(chunk 0), as render_spherical
-    for s in range(scene.medium.sigma_t.shape[0]):
-        medium_row, surface_row, illum_row = spherical_row(scene, s)
-        rad, m2, it = _render_row_spherical(
-            config, n_pix, spp, medium_row, surface_row, illum_row,
-            sensor.directions, sensor.target, row_key(seed, s, 0, dev), lanes_target,
-            check_every,
-        )
+    for s in range(rr.rows):
+        rad, m2, it = rr.render(s, row_key(seed, s, 0, rr.device), spp)
         rads.append(rad)
         m2s.append(m2)
         iterations += it

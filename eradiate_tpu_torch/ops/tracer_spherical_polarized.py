@@ -43,6 +43,7 @@ from .spherical import dot3, sqrt_rn
 from .tracer import (
     CHECK_EVERY,
     MAX_PATHS_PER_DISPATCH,
+    RowRenderer,
     chunk_plan,
     lane_partition,
     row_key,
@@ -68,6 +69,7 @@ from .tracer_spherical import (
 
 __all__ = [
     "render_spherical_polarized",
+    "row_renderer",
     "trace_paths_spherical_polarized_regen",
 ]
 
@@ -228,11 +230,14 @@ def trace_paths_spherical_polarized_regen(
 
 def _render_row(
     config, n_pix, spp, medium_row, surface_row, illum_row, directions, target, key,
-    lanes_target, check_every,
+    lanes_target, check_every, sample_offset=0, spp_stride=None,
 ):
-    """One spectral row of one chunk; returns (stokes [N, 4], m2 [N],
+    """One spectral row of one chunk, its sample ids placed as
+    :func:`.tracer.lane_partition`'s; returns (stokes [N, 4], m2 [N],
     iterations)."""
-    lp, pix, _, lane_first, quota = lane_partition(n_pix, spp, lanes_target, directions.device)
+    lp, pix, _, lane_first, quota = lane_partition(
+        n_pix, spp, lanes_target, directions.device, spp_stride, sample_offset
+    )
     init_p, init_d = toa_rays(directions[pix], target, medium_row.radii[-1])
     S_sum, m2_sum, iterations = trace_paths_spherical_polarized_regen(
         config, medium_row, surface_row, illum_row, init_p, init_d, key, lane_first, quota,
@@ -241,6 +246,29 @@ def _render_row(
     stokes = S_sum.reshape(n_pix, lp, 4).sum(dim=1) / spp
     m2 = m2_sum.reshape(n_pix, lp).sum(dim=1) / spp
     return stokes, m2, iterations
+
+
+def row_renderer(scene, sensor, config, *, device="cuda", lanes_target=None,
+                 check_every=CHECK_EVERY):
+    """:class:`.tracer.RowRenderer` of a polarized spherical-shell scene
+    (arguments as :func:`render_spherical_polarized`; by default each call's
+    lanes are :func:`.tracer_spherical.spherical_lanes_target`'s for its
+    samples)."""
+    check_supported(config, scene.medium, polarized=True)
+    dev = resolve_device(device)
+    scene, sensor, config = from_reference(scene, sensor, config, dev)
+    n_pix = sensor.directions.shape[0]
+
+    def render_row(s, key, n, sample_offset=None, spp_stride=None):
+        medium_row, surface_row, illum_row = spherical_row(scene, s)
+        lanes = spherical_lanes_target(n_pix, n, dev.type) if lanes_target is None else lanes_target
+        return _render_row(
+            config, n_pix, n, medium_row, surface_row, illum_row, sensor.directions,
+            sensor.target, key, lanes, check_every, sample_offset or 0, spp_stride,
+        )
+
+    return RowRenderer(scene.medium.sigma_t.shape[0], n_pix, scene.medium.sigma_t.dtype, dev,
+                       True, render_row)
 
 
 def render_spherical_polarized(
@@ -262,24 +290,17 @@ def render_spherical_polarized(
     moment of I), ``spp`` and ``iterations`` (event iterations, summed over
     chunks and rows; one flight kernel launch each).
     """
-    check_supported(config, scene.medium, polarized=True)
-    dev = resolve_device(device)
-    scene, sensor, config = from_reference(scene, sensor, config, dev)
-    S, n_pix = scene.medium.sigma_t.shape[0], sensor.directions.shape[0]
+    rr = row_renderer(scene, sensor, config, device=device, lanes_target=lanes_target,
+                      check_every=check_every)
+    S, n_pix, dev = rr.rows, rr.n_pix, rr.device
     chunks = chunk_plan(spp, spp_chunk, S, n_pix, MAX_PATHS_PER_DISPATCH)
 
-    acc = scene.medium.sigma_t.dtype  # the mode's accumulator dtype
-    st_sum = torch.zeros((S, n_pix, 4), dtype=acc, device=dev)
-    m2_sum = torch.zeros((S, n_pix), dtype=acc, device=dev)
+    st_sum = torch.zeros((S, n_pix, 4), dtype=rr.dtype, device=dev)  # the mode's accumulators
+    m2_sum = torch.zeros((S, n_pix), dtype=rr.dtype, device=dev)
     iterations = 0
     for chunk_id, n in enumerate(chunks):
-        lanes = spherical_lanes_target(n_pix, n, dev.type) if lanes_target is None else lanes_target
         for s in range(S):
-            medium_row, surface_row, illum_row = spherical_row(scene, s)
-            st, m2, it = _render_row(
-                config, n_pix, n, medium_row, surface_row, illum_row, sensor.directions,
-                sensor.target, row_key(seed, s, chunk_id, dev), lanes, check_every,
-            )
+            st, m2, it = rr.render(s, row_key(seed, s, chunk_id, dev), n)
             st_sum[s] += st * n
             m2_sum[s] += m2 * n
             iterations += it

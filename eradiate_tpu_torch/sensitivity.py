@@ -285,8 +285,13 @@ def sensitivities(exp, wrt, spp=None, seed=0, mesh=None, device="cuda"):
     callables ``apply(scene, theta)`` (``theta`` a 0-dim tensor; a leaf they
     perturb must become a tensor, :func:`as_tensor`). ``spp`` defaults to
     each measure's own; measure ``i`` renders with ``seed + i``. ``mesh``
-    must be None (one GPU). ``device`` is ``"cuda"`` by default and raises
-    without a card; ``"cpu"`` runs on the CPU.
+    (None by default; ``"auto"`` or a ``DeviceMesh``, as
+    :func:`.experiments._core.resolve_mesh`) shards the renders as
+    :func:`eradiate_tpu_torch.run` does, the tangents reduced beside the
+    primal (:func:`.parallel.render.reduce_sum`), so that sharded Jacobians
+    equal single-device ones up to float summation order; a triangulated
+    terrain refuses it, as in the reference. ``device`` is ``"cuda"`` by
+    default and raises without a card; ``"cpu"`` runs on the CPU.
 
     Returns ``{measure_id: entry}``, ``entry`` holding ``radiance`` [S, P],
     ``brf`` [S, P] (distant-type measures), ``radiance_var`` [S, P] (the
@@ -296,15 +301,11 @@ def sensitivities(exp, wrt, spp=None, seed=0, mesh=None, device="cuda"):
     irradiance leaves the BRF invariant.
     """
     from .experiments import DEMExperiment
-    from .experiments._core import EarthObservationExperiment
+    from .experiments._core import EarthObservationExperiment, resolve_mesh
     from .scenes.surface import DEMSurface
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharded sensitivities (mesh=) are not ported: the port renders on one GPU; "
-            "multi-GPU rendering is not ported yet"
-        )
     dev = resolve_device(device)
+    mesh = resolve_mesh(mesh, dev)
     is_canopy = getattr(exp, "canopy", None) is not None
     is_dem = isinstance(exp, DEMExperiment) and isinstance(exp.surface, DEMSurface)
     # an experiment overriding process() with a dispatch this module does
@@ -323,6 +324,11 @@ def sensitivities(exp, wrt, spp=None, seed=0, mesh=None, device="cuda"):
             "eradiate_tpu_torch.run for this experiment family."
         )
     terrain = exp.terrain() if is_dem else None
+    if is_dem and terrain[1] is not None and mesh is not None:
+        raise NotImplementedError(
+            "triangulated DEM sensitivities are single-device only (pass mesh=None); the "
+            "marched heightfield path shards"
+        )
     channels = []
     for name in wrt:
         theta0, apply, target = _resolve_channel(name)
@@ -367,13 +373,14 @@ def sensitivities(exp, wrt, spp=None, seed=0, mesh=None, device="cuda"):
                 if is_canopy:
                     raw = exp._render_canopy_raw(
                         scene_p, leaf_p, leaves, sensor, config, n, seed + i, tris,
-                        tri_params, device=dev,
+                        tri_params, device=dev, mesh=mesh,
                     )
                 elif is_dem:
                     raw = exp._render_dem_raw(scene_p, terrain, sensor, config, n, seed + i,
-                                              device=dev)
+                                              device=dev, mesh=mesh)
                 else:
-                    raw = exp._render_one(scene_p, sensor, config, n, seed + i, device=dev)
+                    raw = exp._render_one(scene_p, sensor, config, n, seed + i, device=dev,
+                                          mesh=mesh)
                 return raw["radiance"], raw["m2"]
 
             jac, d_irr = {}, {}

@@ -17,8 +17,9 @@ triangulated grid (2048 triangles: the triangle sweeps' plain versions).
 
 Port only, as ``tests/system/test_dem.py``: a flat DEM reduces to the
 Lambertian 0.4 with both intersectors, a tall hill at low sun shadows its
-anti-solar flank, ``mesh=`` is refused (by ``process`` and by the
-sharded sensitivities), the DEM path runs with ``jax`` blocked.
+anti-solar flank, ``mesh=`` on the triangulated terrain is refused (by
+``process`` and by the sensitivities), the DEM path runs with ``jax``
+blocked.
 """
 
 import json
@@ -171,15 +172,18 @@ def test_hill_shadowing(modes):
 
 
 def test_sensitivities_and_mesh_are_refused(modes):
+    """The triangulated terrain renders on one device, as in the reference:
+    ``process`` and the sensitivities refuse a mesh before using it (the
+    marched terrain shards, ``tests/test_torch_parallel.py``)."""
     modes("mono_single")
-    exp = DEMExperiment(**hill_kwargs(DEMSurface, False, 16))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        exp.process(device="cpu", mesh="auto")
+    exp = DEMExperiment(**hill_kwargs(DEMSurface, True, 16))
+    mesh = object()  # any mesh: the refusal comes before the process group is read
+    with pytest.raises(NotImplementedError, match="single-device only"):
+        exp.process(device="cpu", mesh=mesh)
     from eradiate_tpu_torch.sensitivity import sensitivities
 
-    # the sensitivities render on one GPU: a sharded one is refused
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        sensitivities(exp, ["surface.reflectance"], spp=16, mesh="auto", device="cpu")
+    with pytest.raises(NotImplementedError, match="single-device only"):
+        sensitivities(exp, ["surface.reflectance"], spp=16, mesh=mesh, device="cpu")
     with pytest.raises(ValueError, match="plane-parallel"):
         DEMExperiment(**{**hill_kwargs(DEMSurface, False, 16), "geometry": "spherical_shell"})
 

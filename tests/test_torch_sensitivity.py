@@ -16,7 +16,7 @@ Port only: the primal equals the production render (RR off, no
 ``illumination.irradiance_scale`` and the radiance linear in it; the gas
 channel leaves the merge tolerances as it found them; and the refusals
 (unknown channel or surface parameter, a leaf channel without a canopy, an
-unknown species, a third-party dispatch, ``mesh=``).
+unknown species, a third-party dispatch, a ``mesh=`` that is no mesh).
 """
 
 import dataclasses
@@ -190,7 +190,7 @@ class _ThirdParty(AtmosphereExperiment):
     ("gas.XYZ", ValueError, "not in the thermophysical"),
     ("gas.O3", ValueError, "not resolvable"),
     ("third party", NotImplementedError, "_ThirdParty"),
-    ("mesh", NotImplementedError, "multi-GPU"),
+    ("mesh", ValueError, "mesh must be 'auto', None or a DeviceMesh"),
 ])
 def test_refusals(case, error, words):
     if case.startswith("gas."):
@@ -202,4 +202,4 @@ def test_refusals(case, error, words):
     exp.measures[0].spp = 16
     wrt = ["surface.reflectance"] if case in ("third party", "mesh") else [case]
     with pytest.raises(error, match=words):
-        sensitivities(exp, wrt, seed=0, device="cpu", mesh="auto" if case == "mesh" else None)
+        sensitivities(exp, wrt, seed=0, device="cpu", mesh="eight" if case == "mesh" else None)

@@ -43,6 +43,7 @@ SRC = ROOT / "eradiate_tpu"
 DST = ROOT / "eradiate_tpu_torch"
 
 MODULES = [
+    "checkpoint.py",
     "config.py",
     "xr.py",
     "core/__init__.py",
