@@ -218,7 +218,7 @@ path state on the card, float32 on a TPU). Phases, each fatal on failure:
     1e-4 relative and
     every pixel within |z| <= 5, and so every raw spectral row (c3's 56)
     before the CKD aggregation;
-26. c2 at full width (76 x 2097152), as phase 21 with 48 iterations
+26. c2 at full width (76 x 1048576, half c2's samples), as phase 21 with 48 iterations
     profiled after the first 64: K1's launches must equal the bounce
     iterations, and no other kernel launches; K1's device time a launch
     inside the run;
@@ -358,7 +358,7 @@ A.  c1's column over ``rtls`` with the scene class's defaults (f_iso 0.209,
     over its Lambertian floor;
 B.  c2's atmosphere (the 0-2 km continental aerosol, ``tab``, K1 at K = 4)
     over ``ocean_legacy`` at 5 m/s wind (its other parameters at their
-    defaults) at full width (76 x 2097152), the same way, beside phase 26's
+    defaults) at full width (76 x 1048576, as phase 26), the same way, beside phase 26's
     c2 over its RPV floor;
 C.  c1's column on CUDA against the CPU at 11 view zeniths and 256 spp, as
     phase 4 (BRF within 1e-4, |z| <= 5), with the target off the origin,
@@ -410,7 +410,7 @@ H.  the c5 scene as ``bench.py`` builds it (instanced HET01) lit by
 I.  DEM terrain (``DEMExperiment``) at full width in ``mono_single``: c1's
     column over a 15 km x 15 km tile at 30 m posts (a 501 x 501 gaussian
     hill 1 km high, sigma 2 km; the size of a Copernicus GLO-30 / SRTM
-    tile crop), Lambertian 0.5, SZA 30, 19 view zeniths at 2097152 spp over
+    tile crop), Lambertian 0.5, SZA 30, 19 view zeniths at 1048576 spp over
     a rectangle target on the central 4 km x 4 km at z = 1.1 km. The
     marched heightfield (128 steps, 16 bisections; plain PyTorch, no kernel
     of the port): a profiled warm-up window, then a timed run (wall,
@@ -445,11 +445,35 @@ O.  the sharded renders (``eradiate_tpu_torch.parallel``): (a) one NCCL
     (rtol 3e-5; the stratified sampler |z| <= 5), each rank's wall beside
     the single render's; (c) the same on two cards over NCCL where there
     are two, else a line that says it did not run.
+P.  the command line (``python -m eradiate_tpu_torch.cli render``) in a
+    subprocess with ``ERADIATE_TPU_RNG_SEED`` at the script's seed, loading
+    the kernels phase 2 built: c1 as a JSON config (76 VZA x 4194304 spp in
+    the measure, ``--mesh auto``), its ``.npz`` bit for bit phase 5's
+    in-process render, K1 launched once an iteration (the launches the
+    command prints); HET01 under the Rayleigh column as a
+    ``CanopyAtmosphereExperiment`` config (its 2000 leaves written out, 19
+    VZA x 65536 spp), bit for bit an in-process ``run`` of the same
+    experiment at the same seed, with the same launches (K7); the
+    subprocesses' walls beside the in-process ones.
+Q.  the seven canonical scenes of ``test_tools/test_cases`` that phases
+    1-O do not run (``rpv_afgl1986``, ``het04a1``, ``het06``, the two GRASP
+    oceans, ``rami4atm``, ``spherical_rpv``), in ``mono_single`` through
+    ``run(..., device="cuda")`` at the samples and seed of the reference's
+    regression tier (``tests/regression/test_self_regression.py``): each
+    held to its pin in ``tests/regression_references`` by the port's
+    ``SidakTTest`` (threshold 0.01 over the pixels, variances floored at
+    (1e-5 x radiance)^2) and ``RMSETest``, and against the CPU at the same
+    seed under its tracer's gate (plane-parallel 1e-4 relative; spherical
+    the median 1e-4 and 5e-2; canopies 2e-3 and the median 1e-4, at 64 spp;
+    all |z| <= 5), with the kernels each scene must launch (K1, also on the
+    oceans' empty column; K5 and K6 on het04a1's 22,500 flattened disks; K7
+    and K9 on het06; K2 on ``spherical_rpv``) and every scene's launches
+    printed.
 
 The CPU sides of the canopy phases' CUDA-against-CPU gates (12, 17, 22,
 40, 43, D) render in a pool of four background processes (one thread each,
 no card), submitted after the build, so that their minutes overlap the
-card's work, and those of 25, 31, E-H and K in a second pool of two; the
+card's work, and those of 25, 31, E-H, K and Q in a second pool of two; the
 script ends both pools on exit. The script prints its own total (seconds
 from its start) before the kernels line.
 
@@ -490,7 +514,9 @@ the float64 rate; every kernel its launches on phases A-D,
 a launch inside A and B, ``surface_run_device_ms``, inside E's camera run,
 ``perspective_run_device_ms``, and inside G's one-shot run,
 ``one_shot_run_device_ms``; K7's any hit its times and bound on H's shadow
-rays, ``spot_shadow_rays``) and the
+rays, ``spot_shadow_rays``; each kernel its launches on the command line's
+renders of P, ``cli_launches``, and on Q's scenes, ``canonical_launches``)
+and the
 ``nvidia-smi`` line
 before the last line, ``{"ok": true,
 "device": {...}}``. Without a CUDA device, or outside the repository, it
@@ -517,11 +543,13 @@ N_VZA_C5 = 19
 SPP_C5 = 2097152
 SPP_C2 = 2097152
 SPP_C3 = 65536
-#: Depth cuts that keep the script inside its time limit beside phase O:
-#: half of c1's samples in the polarized c1 run (21), phase 35's c1 pair and
-#: phase M's c1 passes, half of c2's in the polarized c2 run (30), a quarter
-#: of c4's in polarized c4 (29: 4 of the reference's chunks, not 16)
+#: Depth cuts that keep the script inside its time limit beside phases O-Q:
+#: half of c1's samples in the polarized c1 run (21) and phase 35's c1 pair,
+#: a quarter in phase M's c1 passes, half of c2's in c2 at full width (26, B)
+#: and in the polarized c2 run (30), a quarter of c4's in polarized c4 (29:
+#: 4 of the reference's chunks, not 16), half of c5's in the DEM tile (I)
 SPP_C1_HALF = SPP_C1 // 2
+SPP_C1_QUARTER = SPP_C1 // 4
 SPP_C2_HALF = SPP_C2 // 2
 SPP_C4_POLARIZED = SPP_C4 // 4
 #: Spectral rows of c3 in ``ckd_single``: the 7 bins of Sentinel-2A MSI band 4
@@ -3856,7 +3884,7 @@ def surface_phases(cpu, c1_single, c2_single):
     runs["c2_ocean_legacy"] = profiled_full_width(
         "B", "c2's atmosphere over ocean_legacy (wind 5 m/s)",
         lambda n: _c2_over(n, {"type": "ocean_legacy", "wind_speed": 5.0}), "mono_single",
-        SPP_C2, N_VZA, pp_tracer, "collision_fetch", "collision_fetch", 64, 48)
+        SPP_C2_HALF, N_VZA, pp_tracer, "collision_fetch", "collision_fetch", 64, 48)
     _beside("B", "c2's atmosphere over ocean_legacy", runs["c2_ocean_legacy"], c2_single,
             "c2 over its RPV floor (phase 26)")
     t_ab = time.perf_counter() - t0
@@ -4216,7 +4244,8 @@ DEM_TILE = {"height_km": 1.0, "sigma_km": 2.0, "extent_km": 15.0, "n": 501}
 #: Phase K's hill, the CPU tests' shape.
 DEM_HILL = {"height_km": 1.0, "sigma_km": 1.0, "extent_km": 10.0, "n": 33}
 N_VZA_DEM = 19
-SPP_DEM = 2097152
+#: Samples a pixel of phase I's tile: half of c5's (a cut beside phases P-Q).
+SPP_DEM = 1048576
 #: Iterations before, and in, the profiler window of phase I's warm-up runs.
 DEM_SKIP, DEM_WINDOW = 8, 16
 #: Lanes of phase J's sample of the captured rays.
@@ -4907,7 +4936,7 @@ def _profiled_iteration(run, module, attr, iterations):
 
 
 def sensitivity_full_width(phase):
-    """Phase M: c1 (76 VZA x 2097152 spp, half c1's samples) with each channel of
+    """Phase M: c1 (76 VZA x 1048576 spp, a quarter of c1's samples) with each channel of
     :data:`SENS_C1_CHANNELS` and path B (c4 at SZA 75, 15 VZA x 2097152 spp)
     with ``medium.tau_scale``, each channel one ``sensitivities`` pass, beside
     the primal render they share (the same config: RR off, ``lr_flight``)
@@ -4986,7 +5015,7 @@ def sensitivity_full_width(phase):
         return out
 
     etp.set_mode("mono_single")
-    case("c1", _c1(N_VZA), SPP_C1_HALF, SENS_C1_CHANNELS, tracer, "collision_fetch",
+    case("c1", _c1(N_VZA), SPP_C1_QUARTER, SENS_C1_CHANNELS, tracer, "collision_fetch",
          lambda ch: {"collision_fetch": 1 if ch == "surface.reflectance" else 2})
     path_b = {"shell_flight": 1, "shell_depths": 1, "slant_tau": 2}
     case("path B", _c4(75.0), SPP_C4, ("medium.tau_scale",), tracer_spherical, "shell_flight",
@@ -5209,6 +5238,291 @@ def sharded_phase(phase, smi, single):
     return rec
 
 
+# ---- P-Q. the command line and the canonical scenes ------------------------
+
+#: Samples a pixel of phase P's HET01 through the command line (and of its
+#: in-process twin).
+SPP_P_HET01 = 65536
+#: Phase Q: the seven canonical scenes that the port's tests held against
+#: nothing on the card, as the reference's regression tier renders them
+#: (``tests/regression/test_self_regression.py`` ``CASES``): case -> (the
+#: factory of ``test_tools/test_cases``, its arguments, the tracer's gate,
+#: the kernels the scene must launch). The samples a pixel are the pin's.
+Q_CASES = {
+    "rpv_afgl1986_brfpp": ("create_rpv_afgl1986_brfpp", {"n_vza": 19}, "plane",
+                           ("collision_fetch",)),
+    "het04a1_brfpp": ("create_het04a1_brfpp", {"n_vza": 19}, "canopy",
+                      ("ray_leaves_nearest", "ray_leaves_occluded")),
+    "het06_brfpp": ("create_het06_brfpp", {"n_vza": 19}, "canopy",
+                    ("ray_leaves_nearest_instanced", "ray_leaves_occluded_instanced",
+                     "ray_tris_nearest_instanced", "ray_tris_occluded_instanced")),
+    "ocean_grasp_coastal": ("create_ocean_grasp_coastal_no_atm", {}, "plane",
+                            ("collision_fetch",)),
+    "ocean_grasp_open": ("create_ocean_grasp_open_no_atm", {}, "plane", ("collision_fetch",)),
+    "rami4atm_toa_brfpp": ("create_rami4atm_toa_brfpp", {"n_vza": 19}, "plane",
+                           ("collision_fetch",)),
+    "spherical_rpv_brfpp": ("create_spherical_rpv_brfpp", {}, "spherical", ("shell_flight",)),
+}
+#: The regression tier's rerun seed, and its RMSE bounds on the BRF.
+Q_SEED = 7
+Q_RMSE = {"spherical_rpv_brfpp": 0.35}
+REGRESSION_REFS = Path(__file__).resolve().parent / "tests" / "regression_references"
+
+
+def _q_scene(case, spp):
+    from eradiate_tpu_torch.test_tools import test_cases
+
+    factory, kwargs, _, _ = Q_CASES[case]
+    return getattr(test_cases, factory)(spp=spp, **kwargs)
+
+
+def _q_gate_spp(case):
+    """Samples a pixel of a scene's gate against the CPU: the pin's, and for
+    the canopies :data:`GATE_SPP` (het04a1's 22,500 disks at 512 spp take
+    about 4 minutes on one CPU core)."""
+    if Q_CASES[case][2] == "canopy":
+        return GATE_SPP
+    return int(np.load(REGRESSION_REFS / f"{case}.npz")["spp"])
+
+
+def _cpu_scene_render(case, spp):
+    """One render of a phase Q scene on the CPU in ``mono_single`` at
+    :data:`Q_SEED` (:class:`CpuRenders`' job): its data variables as numpy
+    arrays, and the seconds it took."""
+    import eradiate_tpu_torch as etp
+
+    etp.set_mode("mono_single")
+    t0 = time.perf_counter()
+    ds = etp.run(_q_scene(case, spp), seed_state=etp.SeedState(Q_SEED), device="cpu")
+    return {k: np.asarray(ds[k]) for k in ds.data_vars}, time.perf_counter() - t0
+
+
+def submit_scene_gates(cpu):
+    """Queue the CPU sides of phase Q on ``cpu`` (:class:`CpuRenders`)."""
+    for case in Q_CASES:
+        cpu.submit(_cpu_scene_render, case, _q_gate_spp(case))
+
+
+def _scene_gate(tracer, gpu, cpu):
+    """The card-against-CPU gate of a tracer on radiance: plane-parallel
+    every pixel within 1e-4 relative; spherical the median within 1e-4 and
+    every pixel within 5e-2; canopies every pixel within 2e-3 and the median
+    within 1e-4; every pixel within |z| <= 5 of the two runs' variances,
+    each floored at (1e-5 x radiance)^2 as the regression tier floors them
+    (the oceans' glint views have paths that all agree, and no variance).
+    Returns (passed, max relative, median relative, max |z|)."""
+    rad, rad_c = np.asarray(gpu["radiance"], np.float64), np.asarray(cpu["radiance"], np.float64)
+    floor = (1e-5 * np.abs(rad_c)) ** 2
+    var = np.maximum(np.asarray(gpu["var"]), floor) + np.maximum(np.asarray(cpu["var"]), floor)
+    diff = np.abs(rad - rad_c)
+    z = np.where(diff > 0, diff / np.sqrt(np.maximum(var, 1e-300)), 0.0)
+    rel = diff / np.maximum(np.abs(rad_c), 1e-300)
+    worst, median = float(rel.max()), float(np.median(rel))
+    bound = {"plane": 1e-4, "spherical": 5e-2, "canopy": 2e-3}[tracer]
+    ok = (rad.shape == rad_c.shape and np.isfinite(rad).all() and z.max() <= 5.0
+          and worst <= bound and (tracer == "plane" or median <= 1e-4))
+    return ok, worst, median, float(z.max())
+
+
+def _cli_render(config, out, label):
+    """``python -m eradiate_tpu_torch.cli render config -o out --mesh auto``
+    in a subprocess with ``ERADIATE_TPU_RNG_SEED`` at :data:`SEED` (it loads
+    the kernels phase 2 built): (the subprocess's wall, the render's wall
+    and the kernel launches the command reports)."""
+    import os
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("ERADIATE_TPU_") and k not in ("MASTER_ADDR", "WORLD_SIZE")}
+    env["ERADIATE_TPU_RNG_SEED"] = str(SEED)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "eradiate_tpu_torch.cli", "render", str(config), "-o", str(out),
+         "--mesh", "auto"],
+        cwd=Path(__file__).resolve().parent, env=env, capture_output=True, text=True,
+        timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: the command exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    m = re.search(r"^render: ([0-9.]+) s on cuda; kernel launches (\{.*\})$", proc.stdout, re.M)
+    if m is None:
+        raise AssertionError(f"{label}: no render line in the command's output: "
+                             f"{proc.stdout[-2000:]}")
+    return wall, float(m.group(1)), json.loads(m.group(2))
+
+
+def _same_npz(a, b):
+    """Whether two ``.npz`` files hold the same arrays, bit for bit."""
+    a, b = np.load(a), np.load(b)
+    return sorted(a.files) == sorted(b.files) and all(_equal_bits(a[k], b[k]) for k in a.files)
+
+
+def _c1_config():
+    """c1 (:func:`_c1` at full width) as a JSON config for the command line,
+    with its samples in the measure."""
+    return {
+        "mode": "mono_single",
+        "illumination": {"type": "directional", "zenith": 30.0, "azimuth": 0.0},
+        "measures": {"type": "mdistant", "construct": "hplane",
+                     "zeniths": np.linspace(-75, 75, N_VZA).tolist(), "azimuth": 0.0,
+                     "id": "m", "spp": SPP_C1},
+        "surface": {"type": "lambertian", "reflectance": 0.5},
+        "atmosphere": {"type": "molecular"},
+        "geometry": {"type": "plane_parallel", "layer_merge_tol": 1e-3},
+    }
+
+
+def _het01_config(spp):
+    """HET01 under the Rayleigh column (:func:`_c5`'s instanced form, its
+    leaves written out from the factory's seed) as a JSON config for a
+    ``CanopyAtmosphereExperiment``."""
+    from eradiate_tpu_torch.test_tools.test_cases import create_het01_brfpp
+
+    el = create_het01_brfpp().canopy.instanced_canopy_elements[0]
+    cloud = el.canopy_element
+    return {
+        "mode": "mono_single",
+        "canopy": {"type": "discrete_canopy", "size": [100.0, 100.0, 15.0],
+                   "instanced_canopy_elements": [{
+                       "type": "instanced",
+                       "canopy_element": {
+                           "type": "leaf_cloud", "positions": cloud.positions.tolist(),
+                           "orientations": cloud.orientations.tolist(),
+                           "radii": cloud.radii.tolist(),
+                           "leaf_reflectance": float(cloud.leaf_reflectance),
+                           "leaf_transmittance": float(cloud.leaf_transmittance)},
+                       "instance_positions": np.atleast_2d(el.instance_positions).tolist()}]},
+        "atmosphere": {"type": "molecular", "has_absorption": False},
+        "illumination": {"type": "directional", "zenith": 20.0, "azimuth": 0.0},
+        "measures": {"type": "mdistant", "construct": "hplane",
+                     "zeniths": np.linspace(-75, 75, N_VZA_C5).tolist(), "azimuth": 0.0,
+                     "id": "m", "spp": spp},
+        "surface": {"type": "lambertian", "reflectance": 0.159},
+        "integrator": {"type": "volpath", "stokes": False},
+    }
+
+
+def cli_phase(phase, smi, c1_ds, c1_single):
+    """P. the command line: c1 at full width through ``python -m
+    eradiate_tpu_torch.cli render c1.json -o out.npz --mesh auto`` equal bit
+    for bit to phase 5's in-process render ``c1_ds`` (the dataset's
+    ``.npz``; ``c1_single``: its raw results and wall), K1 launched once an
+    iteration in the subprocess; then HET01 under the Rayleigh column at
+    :data:`SPP_P_HET01` spp, equal bit for bit to an in-process ``run`` of
+    the same experiment at the same seed, with the same launches."""
+    import torch
+
+    import eradiate_tpu_torch as etp
+
+    work = Path(__file__).resolve().parent / "build" / "cli"
+    work.mkdir(parents=True, exist_ok=True)
+    rec = {}
+    (work / "c1.json").write_text(json.dumps(_c1_config()))
+    c1_ds.to_npz(work / "phase5.npz")
+    wall, render_wall, launches = _cli_render(work / "c1.json", work / "c1.npz", f"{phase} c1")
+    same = _same_npz(work / "c1.npz", work / "phase5.npz")
+    print(f"[{phase}] c1 {N_VZA} VZA x {SPP_C1} spp through the command line: the subprocess "
+          f"{wall:.3f} s, its render {render_wall:.3f} s, against phase 5's {c1_single['wall_s']:.3f} "
+          f"s in this process ({smi}); bit for bit {same}; launches {launches} in "
+          f"{c1_single['iterations']} iterations", flush=True)
+    if not same:
+        raise AssertionError(f"{phase}: the command line's c1 differs from phase 5's render")
+    if launches != {"collision_fetch": c1_single["iterations"]}:
+        raise AssertionError(f"{phase}: c1 through the command line launched {launches}, not one "
+                             f"K1 an iteration ({c1_single['iterations']})")
+    rec["c1"] = {"wall_s": wall, "render_s": render_wall, "single_wall_s": c1_single["wall_s"],
+                 "launches": launches}
+
+    config = _het01_config(SPP_P_HET01)
+    (work / "het01.json").write_text(json.dumps(config))
+    wall, render_wall, launches = _cli_render(work / "het01.json", work / "het01.npz",
+                                              f"{phase} HET01")
+    cfg = json.loads((work / "het01.json").read_text())
+    etp.set_mode(cfg.pop("mode"))
+    exp = etp.CanopyAtmosphereExperiment(**cfg)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    ds = etp.run(exp, seed_state=etp.SeedState(SEED), device="cuda")
+    torch.cuda.synchronize()
+    in_wall = time.perf_counter() - t0
+    in_launches = _nonzero(read_launches())
+    ds.to_npz(work / "het01_in_process.npz")
+    same = _same_npz(work / "het01.npz", work / "het01_in_process.npz")
+    print(f"[{phase}] HET01 {N_VZA_C5} VZA x {SPP_P_HET01} spp through the command line "
+          f"(CanopyAtmosphereExperiment): the subprocess {wall:.3f} s, its render "
+          f"{render_wall:.3f} s, in this process {in_wall:.3f} s; bit for bit {same}; launches "
+          f"{launches}, in this process {in_launches}; BRF at nadir "
+          f"{float(np.asarray(ds['brf'])[0, N_VZA_C5 // 2]):.6f}", flush=True)
+    if not same or launches != in_launches:
+        raise AssertionError(f"{phase}: HET01 through the command line differs from the "
+                             "in-process render")
+    for k in C5_KERNELS["instanced"]:
+        if not launches.get(k):
+            raise AssertionError(f"{phase}: HET01 through the command line launched no {k}")
+    rec["het01"] = {"wall_s": wall, "render_s": render_wall, "in_process_s": in_wall,
+                    "launches": launches}
+    etp.set_mode("mono_single")
+    return rec
+
+
+def canonical_phase(phase, cpu):
+    """Q. the seven canonical scenes that no test held on the card, in
+    ``mono_single`` through ``run(..., device="cuda")`` at the pins' samples
+    and the regression tier's seed: held against the pins of
+    ``tests/regression_references`` by the port's ``SidakTTest`` and
+    ``RMSETest`` as ``tests/regression/test_self_regression.py`` holds the
+    reference, and against the CPU at the same seed under the tracer's gate
+    (:func:`_scene_gate`; the canopies rendered once more at
+    :data:`GATE_SPP` for it), each scene's launches printed."""
+    import torch
+
+    import eradiate_tpu_torch as etp
+    from eradiate_tpu_torch.test_tools import RMSETest, SidakTTest
+
+    etp.set_mode("mono_single")
+    rec, failed = {}, []
+    for case, (_, _, tracer, kernels) in Q_CASES.items():
+        pin = np.load(REGRESSION_REFS / f"{case}.npz")
+        spp = int(pin["spp"])
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        ds = etp.run(_q_scene(case, spp), seed_state=etp.SeedState(Q_SEED), device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _nonzero(read_launches())
+        rad, var = np.asarray(ds["radiance"]), np.asarray(ds["var"])
+        floor = (1e-5 * np.abs(rad)) ** 2
+        sidak = SidakTTest(value=rad, reference=pin["radiance"], variance=np.maximum(var, floor),
+                           reference_variance=np.maximum(pin["var"], floor), threshold=0.01)
+        rmse = RMSETest(value=np.asarray(ds["brf"]), reference=pin["brf"],
+                        threshold=Q_RMSE.get(case, 0.05))
+        pinned = bool(sidak.run()) & bool(rmse.run())
+        gate_spp = _q_gate_spp(case)
+        gpu = ds if gate_spp == spp else etp.run(_q_scene(case, gate_spp),
+                                                 seed_state=etp.SeedState(Q_SEED), device="cuda")
+        cpu_vars, cpu_s = cpu.get(_cpu_scene_render, case, gate_spp)
+        gated, worst, median, z = _scene_gate(tracer, gpu, cpu_vars)
+        missing = [k for k in kernels if not launches.get(k)]
+        print(f"[{phase}] {case} ({tracer}): {rad.shape[1]} views x {rad.shape[0]} wavelengths x "
+              f"{spp} spp on CUDA in {wall:.3f} s; launches {launches}; pin: Sidak least p "
+              f"{sidak.metric_value:.3g} (>= {1.0 - 0.99 ** (1.0 / rad.size):.3g}), BRF RMSE "
+              f"{rmse.metric_value:.3g} "
+              f"(<= {Q_RMSE.get(case, 0.05)}); against the CPU at {gate_spp} spp (CPU "
+              f"{cpu_s:.1f} s): max rel {worst:.3e}, median rel {median:.3e}, max |z| {z:.3g}",
+              flush=True)
+        if not (pinned and gated and np.isfinite(np.asarray(ds["brf"])).all()) or missing:
+            failed.append(case if not missing else f"{case} (no launch of {missing})")
+        rec[case] = {"wall_s": wall, "spp": spp, "launches": launches,
+                     "sidak_p": float(sidak.metric_value), "rmse": float(rmse.metric_value),
+                     "gate_spp": gate_spp, "max_rel": worst, "median_rel": median, "max_z": z,
+                     "cpu_s": cpu_s}
+    if failed:
+        raise AssertionError(f"{phase}: {failed} failed their pin or their gate against the CPU")
+    return rec
+
+
 def stamp(label):
     """Print the seconds of the phase group that ends here (since the
     previous stamp, or the script's start) and the total so far; ``label``
@@ -5289,6 +5603,7 @@ def main():
     submit_sensor_gates(cpu_bg)
     submit_dem_gates(cpu_bg)
     submit_sensitivity_gates(cpu_bg)
+    submit_scene_gates(cpu_bg)
 
     stamp('3. kernel against twin')
     # -- 3. kernel against twin ---------------------------------------------
@@ -5350,6 +5665,7 @@ def main():
     launches = c1_launches["collision_fetch"]
     iterations = exp.measures[0].results["raw"]["iterations"]
     c1_single = {**exp.measures[0].results["raw"], "wall_s": wall}  # phase O's mesh=None render
+    c1_ds = ds  # phase P's
     brf = np.asarray(ds["brf"])
     vza = np.asarray(ds["vza"])
     nadir = int(np.argmin(np.abs(vza)))
@@ -5680,7 +5996,7 @@ def main():
                                 C3_GATE_ROWS, cpu_bg, C3_GATE_SPP)
     etp.set_mode("mono_single")
     c2_launches, c2_run_ms, c2_iterations, _, _, _, c2_stats = rows_full_width(
-        26, "c2", _c2(N_VZA), SPP_C2, N_VZA, 64, 48)
+        26, "c2", _c2(N_VZA), SPP_C2_HALF, N_VZA, 64, 48)
     etp.set_mode("ckd_single")
     c3_launches, c3_run_ms, c3_iterations, c3_rows, _, c3_wall, _ = rows_full_width(
         27, "c3 (ckd_single)", _c3(N_VZA), SPP_C3, N_VZA, 100, 48)
@@ -5735,6 +6051,13 @@ def main():
     # -- O. the sharded renders: one NCCL rank, two ranks over gloo ------------
     stamp("O. the sharded renders")
     sharded = sharded_phase("O", smi, c1_single)
+    # -- P. the command line: c1 at full width and HET01 -----------------------
+    stamp("P. the command line")
+    torch.cuda.empty_cache()  # the subprocesses share the card
+    cli = cli_phase("P", smi, c1_ds, c1_single)
+    # -- Q. the seven canonical scenes, against their pins and the CPU ----------
+    stamp("Q. the canonical scenes")
+    canonical = canonical_phase("Q", cpu_bg)
     stamp("the kernels line")
     # -- 32-37. the double modes through the float64 builds of K1-K4 -----------
     runs, path_b64, pol_c1_double = double["runs"], double["path_b"], double["pol_c1"]
@@ -5936,6 +6259,11 @@ def main():
     for case, launched in sharded["gloo_one_card"]["launched"].items():
         for k, n in launched.items():
             by_name[k].setdefault("sharded_family_launches", {})[case] = n
+    # phases P and Q: the command line's renders and the canonical scenes
+    for key, recs in (("cli_launches", cli), ("canonical_launches", canonical)):
+        for case, r in recs.items():
+            for k, n in r["launches"].items():
+                by_name[k].setdefault(key, {})[case] = n
     print(f"chip_smoke total: {time.perf_counter() - T_START:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -39,15 +39,18 @@ is a mechanical copy of the JAX package's, kept in step by
 stays the reference the tests hold the port against, exchanging numpy
 arrays and plain Python values only.
 
-Public surface: ``set_mode``/``mode``, ``SeedState``/``root_seed_state``,
-the experiments, ``run``, ``sensitivity``, ``parallel`` and ``profiling``. Every entry point takes an explicit ``device``
+Public surface: ``set_mode``/``mode`` (and ``Mode``, ``ModeFlag``,
+``modes``), ``ureg``, ``SeedState``/``root_seed_state``, the experiments,
+``run``, ``sensitivity``, ``parallel`` and ``profiling``; the command line
+is ``python -m eradiate_tpu_torch.cli``. Every entry point takes an explicit ``device``
 ("cuda" by default); asking for CUDA without a card raises instead of
 running on the CPU.
 """
 
 from .config import apply_settings as _apply_settings
-from .core.modes import mode, set_mode  # noqa: F401
+from .core.modes import Mode, ModeFlag, mode, modes, set_mode  # noqa: F401
 from .core.rng import SeedState, root_seed_state  # noqa: F401
+from .core.units import ureg  # noqa: F401
 from .experiments import (  # noqa: F401
     AtmosphereExperiment,
     CanopyAtmosphereExperiment,
@@ -56,15 +59,21 @@ from .experiments import (  # noqa: F401
 )
 from . import parallel, profiling, sensitivity  # noqa: F401
 
+__version__ = "0.1.0"
+
 _apply_settings()
 
 __all__ = [
     "AtmosphereExperiment",
     "CanopyAtmosphereExperiment",
     "CanopyExperiment",
+    "Mode",
+    "ModeFlag",
     "SeedState",
     "mode",
+    "modes",
     "root_seed_state",
     "run",
     "set_mode",
+    "ureg",
 ]

@@ -284,7 +284,7 @@ def open_database(path_or_id, error_handling=None) -> AbsorptionDatabase:
     if not os.path.exists(path):
         raise FileNotFoundError(path)
     if os.path.isdir(path) or path.endswith(".nc"):
-        raise NotImplementedError("not ported yet: NetCDF absorption databases")
+        from ..data.absorption_io import load_absorption_netcdf
 
         return load_absorption_netcdf(path, error_handling)
     npz = np.load(path)

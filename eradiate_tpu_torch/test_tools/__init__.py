@@ -1,2 +1,11 @@
 # Host-code copy of eradiate_tpu/test_tools/__init__.py; regenerate with tools/copy_host_code.py, do not edit.
-"""Scene factories for tests and smoke runs."""
+from . import regression  # noqa: F401
+from .regression import (  # noqa: F401
+    Chi2Test,
+    IndependentStudentTTest,
+    PairedStudentTTest,
+    RegressionTest,
+    RMSETest,
+    SidakTTest,
+    ZTest,
+)

@@ -236,9 +236,10 @@ def test_dem_arrays_patch(mode_id):
 
 
 def test_unported_host_features_raise(tmp_path):
-    """DEM surfaces, tree trunks and mesh-tree elements are ported: a DEM
-    surface gives the port's terrain arrays, trunks and mesh trees the
-    reference's triangles."""
+    """DEM surfaces, tree trunks, mesh-tree elements and NetCDF absorption
+    databases are ported: a DEM surface gives the port's terrain arrays,
+    trunks and mesh trees the reference's triangles, and ``open_database``
+    reads the committed golden NetCDF database as the reference does."""
     from eradiate_tpu.scenes.biosphere import AbstractTree as RefTree
     from eradiate_tpu.scenes.biosphere import MeshTreeElement as RefElement
     from eradiate_tpu_torch.scenes.biosphere import AbstractTree, MeshTreeElement
@@ -260,3 +261,10 @@ def test_unported_host_features_raise(tmp_path):
     np.testing.assert_array_equal(got[1], f)
     with pytest.raises(OSError):
         MeshTreeElement(mesh_filename=str(tmp_path / "missing.ply")).triangles()
+    from eradiate_tpu.physics.absorption import open_database as ref_open_database
+    from eradiate_tpu_torch.physics.absorption import CKDAbsorptionDatabase, open_database
+
+    golden = str(REPO / "tests" / "regression_references" / "absorption_golden")
+    db = open_database(golden)
+    assert isinstance(db, CKDAbsorptionDatabase)
+    np.testing.assert_array_equal(db._d["sigma_a"], ref_open_database(golden)._d["sigma_a"])

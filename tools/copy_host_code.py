@@ -7,19 +7,17 @@ elements, spectral and physics data, post-processing). The copy is
 mechanical: each module in :data:`MODULES` is written to the same relative
 path under ``eradiate_tpu_torch/`` with its content unchanged except for
 
-* the places that touch JAX (:data:`PATCHES`): the mode's device dtype
-  (torch), the array-namespace switch (numpy, and torch in ``core/warp``),
-  the JAX compilation cache (dropped) and the DEM arrays (not ported);
-* lazy imports of modules the port does not have yet (:data:`NOT_PORTED`),
-  which become ``NotImplementedError`` naming the feature;
+* the places that touch JAX or name the JAX package (:data:`PATCHES`): the
+  mode's device dtype (torch), the array-namespace switch (numpy, and torch
+  in ``core/warp``), the JAX compilation cache (dropped), the DEM arrays
+  (the port's), the native helper's library path (under ``build/``) and
+  the aerosol generator's absolute import;
 * a phrase of the docstrings (:data:`WORDING`).
 
-The data files of :data:`DATA` are copied byte for byte into the port's
-``data/store``.
+The files of :data:`DATA` (the packaged data store and the native helper's
+C++ source) are copied byte for byte.
 
-Relative imports need no rewriting: they resolve inside the port. From
-``test_tools/test_cases.py`` only the scene factories in :data:`TEST_CASE_FACTORIES`
-are taken.
+Relative imports need no rewriting: they resolve inside the port.
 
 Usage, from the repository root::
 
@@ -54,6 +52,14 @@ MODULES = [
     "core/units.py",
     "core/warp.py",
     "data/__init__.py",
+    "data/absorption_io.py",
+    "data/asset_manager.py",
+    "data/io.py",
+    "data/netcdf.py",
+    "data/validation.py",
+    "data/store/aerosol/make_continental.py",
+    "data/store/srf/make_srf.py",
+    "native/__init__.py",
     "physics/__init__.py",
     "physics/absorption.py",
     "physics/afgl1986_data.py",
@@ -65,6 +71,7 @@ MODULES = [
     "physics/solar_data.py",
     "physics/thermoprops.py",
     "physics/vector_doubling.py",
+    "physics/vector_sos.py",
     "physics/zgrid.py",
     "pipelines/__init__.py",
     "pipelines/logic.py",
@@ -89,31 +96,24 @@ MODULES = [
     "spectral/grid.py",
     "spectral/index.py",
     "spectral/response.py",
+    "srf_tools.py",
+    "test_tools/__init__.py",
+    "test_tools/regression.py",
+    "test_tools/test_cases.py",
+    "xarray_utils.py",
+    "plot.py",
 ]
 
-#: scene factories taken from test_tools/test_cases.py
-TEST_CASE_FACTORIES = ["create_rpv_afgl1986_continental_brfpp", "create_het01_brfpp"]
-
-#: packaged data files the port's paths read (the c3 band's spectral response
-#: and the c2 aerosol), copied byte for byte
+#: non-Python files copied byte for byte: the packaged data store and the
+#: native helper's source
 DATA = [
+    "native/src/eradiate_native.cpp",
     "data/store/aerosol/govaerts_2021-continental.npz",
-    "data/store/srf/sentinel_2a-msi-4.npz",
+    "data/store/aerosol/govaerts_2021-desert.npz",
+    "data/store/srf/README.md",
+    *[f"data/store/srf/sentinel_2a-msi-{band}.npz"
+      for band in ("1", "2", "3", "4", "5", "6", "7", "8", "8a", "9", "10", "11", "12")],
 ]
-TEST_CASES_HEADER = '''"""Canonical scene factories shared by the tests and the smoke script.
-
-The factories of ``eradiate_tpu/test_tools/test_cases.py`` that the port's
-paths use, copied unchanged.
-"""
-
-from __future__ import annotations
-
-import numpy as np
-
-from ..experiments import AtmosphereExperiment, CanopyExperiment
-
-__all__ = [{names}]
-'''
 
 _MODES_DTYPES = '''    @property
     def device_dtype(self):
@@ -187,6 +187,17 @@ PATCHES = {
         (r"    _enable_compilation_cache\(\)\n", ""),
         (r"\n\ndef _host_fingerprint\(\).*\Z", "\n"),
     ],
+    "native/__init__.py": [
+        (r'_LIB_PATH = Path\(__file__\)\.parent / "_eradiate_native\.so"',
+         '_LIB_PATH = Path(__file__).resolve().parents[2] / "build" / "native" / '
+         '"_eradiate_native.so"'),
+        (r"def _build\(\) -> bool:\n    try:\n",
+         "def _build() -> bool:\n    try:\n        _LIB_PATH.parent.mkdir(parents=True, exist_ok=True)\n"),
+        (r"eradiate_tpu\.native: build failed", "eradiate_tpu_torch.native: build failed"),
+    ],
+    "data/store/aerosol/make_continental.py": [
+        (r"from eradiate_tpu\.physics\.mie import", "from eradiate_tpu_torch.physics.mie import"),
+    ],
     "scenes/surface/__init__.py": [
         (
             r"        import jax\.numpy as jnp\n\n"
@@ -204,14 +215,6 @@ PATCHES = {
 #: host, and no layer of that other name.
 WORDING = {r"spectral d[r]iver": "spectral loop"}  # a regular expression
 
-#: path -> {lazy import line (stripped): feature named by the error}
-NOT_PORTED = {
-    "physics/absorption.py": {
-        "from ..data.absorption_io import load_absorption_netcdf":
-            "NetCDF absorption databases",
-    },
-}
-
 
 def _banner(rel):
     return (
@@ -228,39 +231,13 @@ def transform(rel: str) -> str:
             raise SystemExit(f"{rel}: pattern matched {n} times, expected 1: {pattern!r}")
     for old, new in WORDING.items():
         text = re.sub(old, new, text)
-    for line, feature in NOT_PORTED.get(rel, {}).items():
-        pattern = rf"^([ \t]+){re.escape(line)}$"
-        repl = rf'\1raise NotImplementedError("not ported yet: {feature}")'
-        text, n = re.subn(pattern, repl, text, flags=re.MULTILINE)
-        if n < 1:
-            raise SystemExit(f"{rel}: lazy import not found: {line!r}")
     return _banner(rel) + text
-
-
-def test_cases() -> str:
-    rel = "test_tools/test_cases.py"
-    source = (SRC / rel).read_text()
-    tree = ast.parse(source)
-    parts = [
-        _banner(rel),
-        TEST_CASES_HEADER.format(names=", ".join(f'"{n}"' for n in TEST_CASE_FACTORIES)),
-    ]
-    for name in TEST_CASE_FACTORIES:
-        node = next(
-            n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == name
-        )
-        parts.append("\n\n" + ast.get_source_segment(source, node) + "\n")
-    return "".join(parts)
 
 
 def outputs() -> dict[str, str | bytes]:
     """Every file the script writes, by path under the port: module copies
     as text, data files as bytes."""
     out = {rel: transform(rel) for rel in MODULES}
-    out["test_tools/__init__.py"] = _banner("test_tools/__init__.py") + (
-        '"""Scene factories for tests and smoke runs."""\n'
-    )
-    out["test_tools/test_cases.py"] = test_cases()
     out.update({rel: (SRC / rel).read_bytes() for rel in DATA})
     return out
 
